@@ -1,0 +1,19 @@
+"""Device selection shared by every entry point of the port."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  Asking for CUDA (explicitly or by default) on a machine
+    without a card raises — the port never falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain versions")
+    return dev

@@ -1,0 +1,213 @@
+"""Public wrappers over the port's CUDA kernels (counterpart of
+``repro/kernels/ops.py``), with the reference's signatures and output
+contracts: fp32 (m, l, acc) partials left un-normalised, empty blocks
+routed to null page 0, per-block valid lengths derived from ``length``,
+and normalisation inside the prefill wrapper.
+
+Dispatch is by the tensors' device and nothing else: CPU tensors take the
+plain versions in ``kernels/ref.py``; CUDA tensors launch the kernel (built
+at first use) or raise.  There is no fallback from one to the other.
+
+Each kernel counts its launches in ``LAUNCHES`` (a plain integer per
+kernel, bumped only where the kernel is launched), so a run can show
+that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ref
+
+KERNELS = ("sparse_verify_attention", "paged_prefill_attention",
+           "retrieval_score")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+def _check(name, t, *, dtype=None, ndim=None, device=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor")
+    if dtype is not None and t.dtype not in (
+            dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{name}: dtype {t.dtype} not supported")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.device.type == "cuda" and not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def _ptr(t):
+    return t.data_ptr()
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1 / K2: block-list attention
+# ---------------------------------------------------------------------------
+
+def block_attention(q, k_flat, v_flat, block_idx, block_valid_len,
+                    block_size: int, q_offset=None):
+    """Block-list attention partials over a flattened pool.
+
+    q: [B, T, H, Dh]; k_flat/v_flat: [NP*bs, Hk, Dh]; block_idx/
+    block_valid_len: [B, Hk, N] int32; q_offset: optional [B] int32 (the
+    causal paged-prefill form, K2).  Returns (m [B, H, T], l [B, H, T],
+    acc [B, H, T, Dh]) fp32."""
+    dev = q.device
+    _check("q", q, dtype=tuple(_DTYPES), ndim=4)
+    _check("k", k_flat, dtype=q.dtype, ndim=3, device=dev)
+    _check("v", v_flat, dtype=q.dtype, ndim=3, device=dev)
+    _check("block_idx", block_idx, ndim=3, device=dev)
+    _check("block_valid_len", block_valid_len, ndim=3, device=dev)
+    b, t, h, dh = q.shape
+    s, hk, dh2 = k_flat.shape
+    if dh2 != dh or h % hk or s % block_size or v_flat.shape != k_flat.shape:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"pool {tuple(k_flat.shape)}, bs {block_size}")
+    if block_idx.shape[:2] != (b, hk) or \
+            block_valid_len.shape != block_idx.shape:
+        raise ValueError(f"block tables {tuple(block_idx.shape)} / "
+                         f"{tuple(block_valid_len.shape)} vs B={b}, Hk={hk}")
+    if dev.type == "cpu":
+        return ref.block_attention_batched(q, k_flat, v_flat, block_idx,
+                                           block_valid_len, block_size,
+                                           q_offset=q_offset)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    for name, a in (("block_idx", block_idx),
+                    ("block_valid_len", block_valid_len)):
+        _check(name, a, dtype=torch.int32)
+    if q_offset is not None:
+        _check("q_offset", q_offset, dtype=torch.int32, ndim=1, device=dev)
+        if q_offset.shape[0] != b:
+            raise ValueError("q_offset must be [B]")
+    if dh != 128:
+        raise ValueError(f"head dim {dh}: the kernels are built for 128")
+    from repro_torch.kernels.build import load_library
+    lib = load_library()
+    m = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    l = torch.empty_like(m)
+    acc = torch.empty((b, h, t, dh), dtype=torch.float32, device=dev)
+    err = lib.block_attention_launch(
+        _ptr(q), _ptr(k_flat), _ptr(v_flat), _ptr(block_idx),
+        _ptr(block_valid_len),
+        None if q_offset is None else _ptr(q_offset),
+        _ptr(m), _ptr(l), _ptr(acc), b, t, h, hk, dh, s // block_size,
+        block_size, block_idx.shape[2], _DTYPES[q.dtype],
+        1.0 / math.sqrt(dh), _stream())
+    if err != 0:
+        raise RuntimeError(f"block_attention_launch failed with code {err}")
+    LAUNCHES["sparse_verify_attention" if q_offset is None
+             else "paged_prefill_attention"] += 1
+    return m, l, acc
+
+
+def _flat_pool(pool):
+    np_, bs, hk, dh = pool.shape
+    return pool.reshape(np_ * bs, hk, dh)
+
+
+def _page_walk(page_table, end, pool_shape):
+    """Per-row block list of the filled prefix ``[0, end)``: each logical
+    block reads its page with ``min(end - j*bs, bs)`` valid tokens, and
+    every empty block routes to the null page 0 with valid length 0.
+    Returns (idx, vlen) [B, Hk, NB] int32."""
+    bs, hk = pool_shape[1], pool_shape[2]
+    b, nb = page_table.shape
+    ar = torch.arange(nb, device=page_table.device)
+    vlen = torch.clamp(end[:, None] - ar[None] * bs, 0, bs)
+    routed = torch.where(vlen > 0, page_table, torch.zeros_like(page_table))
+    return (routed[:, None].expand(b, hk, nb).to(torch.int32).contiguous(),
+            vlen[:, None].expand(b, hk, nb).to(torch.int32).contiguous())
+
+
+def paged_verify_attention(q, pool_k, pool_v, page_table, length):
+    """Paged Full/Refresh verification attention over the shared block
+    pool.  q: [B, T, H, Dh]; pool_k/pool_v: [NP, block, Hk, Dh];
+    page_table: [B, NB]; length: [B] (the fused step passes 0 for rows
+    that read the partial cache).  Rows stream only their
+    ``ceil(length / block)`` filled pages: every empty block routes to
+    the null page 0 with valid length 0.  Returns fp32 partials."""
+    idx, vlen = _page_walk(page_table, length, pool_k.shape)
+    return block_attention(q, _flat_pool(pool_k), _flat_pool(pool_v), idx,
+                           vlen, pool_k.shape[1])
+
+
+def routed_partial_attention(q, pool_k, pool_v, block_idx, block_valid_len):
+    """Zero-copy partial verification attention: the retrieval-selected
+    blocks read in place from the pool.  block_idx: [B, Hk, NSel]
+    physical page ids (unused slots routed to 0); block_valid_len:
+    [B, Hk, NSel] (0 masks a slot).  Returns fp32 partials."""
+    bs = pool_k.shape[1]
+    return block_attention(q, _flat_pool(pool_k), _flat_pool(pool_v),
+                           block_idx.to(torch.int32).contiguous(),
+                           block_valid_len.to(torch.int32).contiguous(), bs)
+
+
+def paged_prefill_attention(q, pool_k, pool_v, page_table, length, t_valid):
+    """Blockwise paged prefill attention: the chunk's K/V are already in
+    the pool, so each row's context is the filled prefix of its table
+    under an absolute-position causal mask.  q: [B, T, H, Dh];
+    length: [B] tokens resident before the chunk; t_valid: [B] real
+    chunk tokens.  Returns normalised attention [B, T, H, Dh] in q's
+    dtype."""
+    idx, vlen = _page_walk(page_table, length + t_valid, pool_k.shape)
+    qoff = length.to(torch.int32).contiguous()
+    m, l, acc = block_attention(q, _flat_pool(pool_k), _flat_pool(pool_v),
+                                idx, vlen, pool_k.shape[1], q_offset=qoff)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# K3: retrieval scores
+# ---------------------------------------------------------------------------
+
+def retrieval_scores(q, kmax, kmin, q_weight):
+    """Batched Quest scores (paper mode, mean reduction).
+    q: [B, T, H, Dh]; kmax/kmin: [B, NB, Hk, Dh] fp32; q_weight: [B, T].
+    Returns [B, Hk, NB] fp32."""
+    dev = q.device
+    _check("q", q, dtype=tuple(_DTYPES), ndim=4)
+    _check("kmax", kmax, dtype=torch.float32, ndim=4, device=dev)
+    _check("kmin", kmin, dtype=torch.float32, ndim=4, device=dev)
+    _check("q_weight", q_weight, ndim=2, device=dev)
+    b, t, h, dh = q.shape
+    _, nb, hk, dh2 = kmax.shape
+    if (dh2 != dh or h % hk or kmin.shape != kmax.shape
+            or kmax.shape[0] != b or tuple(q_weight.shape) != (b, t)):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"kmax {tuple(kmax.shape)}, "
+                         f"q_weight {tuple(q_weight.shape)}")
+    if dev.type == "cpu":
+        return ref.retrieval_score_batched(q, kmax, kmin, q_weight)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    _check("q_weight", q_weight, dtype=torch.float32)
+    if dh != 128:
+        raise ValueError(f"head dim {dh}: the kernels are built for 128")
+    from repro_torch.kernels.build import load_library
+    lib = load_library()
+    out = torch.empty((b, hk, nb), dtype=torch.float32, device=dev)
+    err = lib.retrieval_score_launch(
+        _ptr(q), _ptr(kmax), _ptr(kmin), _ptr(q_weight), _ptr(out),
+        b, t, h, hk, dh, nb, _DTYPES[q.dtype], _stream())
+    if err != 0:
+        raise RuntimeError(f"retrieval_score_launch failed with code {err}")
+    LAUNCHES["retrieval_score"] += 1
+    return out

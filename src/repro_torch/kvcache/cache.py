@@ -1,0 +1,245 @@
+"""Blocked KV cache structures (counterpart of ``repro/kvcache/cache.py``,
+the parts the lock-step engine uses).
+
+Contiguous cache: ``k/v [L, B, S_max, Hk, Dh]`` with per-row lengths and
+per-block summaries ``kmax/kmin [L, B, NB, Hk, Dh]`` (paper eq. (1)).
+
+Paged cache: a shared block pool ``k/v [L, NumPages, block, Hk, Dh]`` with
+per-slot page tables ``[B, S_max/block]`` and physical-page summaries
+``kmax/kmin [L, NumPages, Hk, Dh]``.  Page 0 is the reserved null page:
+unallocated entries point at it, pad and invalid writes land in it, and
+it is never read unmasked.  Page ownership lives host-side in
+``PageAllocator`` (refcounts plus the zero-copy partial pins).
+
+Unlike the reference's functional updates, the writers here update the
+cache tensors in place (the engine consumes the state it steps).
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import update_slice_rows
+
+# ---------------------------------------------------------------------------
+# contiguous cache
+# ---------------------------------------------------------------------------
+
+def append_layer_kv(k_layer, v_layer, new_k, new_v, length):
+    """Write new tokens into one layer's cache at per-row offsets, in
+    place.  k_layer: [B, S, Hk, Dh]; new_k: [B, T, Hk, Dh]; length: [B].
+    The offset is clamped like the reference's dynamic_update_slice."""
+    update_slice_rows(k_layer, new_k, length, axis=1)
+    update_slice_rows(v_layer, new_v, length, axis=1)
+    return k_layer, v_layer
+
+
+def update_layer_summaries(kmax_l, kmin_l, k_layer, start, end, block: int):
+    """Recompute the summaries of the blocks covering tokens [start, end)
+    of one layer.  kmax_l/kmin_l: [B, NB, Hk, Dh]; k_layer: [B, S, Hk, Dh].
+    Returns new (kmax, kmin)."""
+    b, s, hk, dh = k_layer.shape
+    nb = kmax_l.shape[1]
+    if s < nb * block:
+        pad = torch.zeros((b, nb * block - s, hk, dh), dtype=k_layer.dtype,
+                          device=k_layer.device)
+        k_layer = torch.cat([k_layer, pad], dim=1)
+    kb = k_layer[:, : nb * block].reshape(b, nb, block, hk, dh).float()
+    dev = k_layer.device
+    tok = (torch.arange(nb, device=dev)[:, None] * block
+           + torch.arange(block, device=dev)[None])            # [NB, blk]
+    valid = (tok[None] < end[:, None, None])[..., None, None]  # [B,NB,blk,1,1]
+    kmax_new = torch.where(valid, kb, torch.full_like(kb, -1e30)).amax(dim=2)
+    kmin_new = torch.where(valid, kb, torch.full_like(kb, 1e30)).amin(dim=2)
+    blk = torch.arange(nb, device=dev)
+    touched = ((blk[None] >= (start // block)[:, None])
+               & (blk[None] < ((end + block - 1) // block)[:, None]))
+    tb = touched[..., None, None]
+    return (torch.where(tb, kmax_new, kmax_l),
+            torch.where(tb, kmin_new, kmin_l))
+
+
+# ---------------------------------------------------------------------------
+# paged block pool
+# ---------------------------------------------------------------------------
+
+class PageAllocator:
+    """Host-side refcounted allocator over the shared block pool (the
+    subset the lock-step engine uses: allocation, release, and the
+    zero-copy partial pins).
+
+    Page 0 is the reserved null page and never handed out, so
+    ``capacity == num_pages - 1``.  ``_slot_pages[slot][j]`` is the
+    physical page of logical block ``j``.  A pin is a real reference plus
+    a ``_pin_ref`` count, so a pinned page can never be freed until the
+    slot's next refresh drops the pin."""
+
+    def __init__(self, num_pages: int):
+        assert num_pages >= 2, "need at least one allocatable page"
+        self.num_pages = num_pages
+        self.reset()
+
+    def reset(self) -> None:
+        # LIFO free list: pop() hands out the lowest pages first
+        self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
+        self._ref = np.zeros((self.num_pages,), np.int32)
+        self._slot_pages: dict = {}
+        self._pin_ref = np.zeros((self.num_pages,), np.int32)
+        self._slot_pins: dict = {}
+
+    @property
+    def capacity(self) -> int:
+        return self.num_pages - 1
+
+    def count(self, slot: int) -> int:
+        """Pages currently held by `slot`."""
+        return len(self._slot_pages.get(slot, ()))
+
+    def page_at(self, slot: int, block: int) -> int:
+        """Physical page backing logical block `block` of `slot`."""
+        return self._slot_pages[slot][block]
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
+
+    def alloc(self, slot: int, n: int) -> np.ndarray:
+        """Hand `n` fresh (refcount-1) pages to `slot`; raises on
+        over-draw with state unchanged."""
+        if n > len(self._free):
+            raise RuntimeError(f"page pool exhausted: want {n}, have "
+                               f"{len(self._free)} free of {self.capacity}")
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            assert self._ref[p] == 0, f"free page {p} had refcount"
+            self._ref[p] = 1
+        self._slot_pages.setdefault(slot, []).extend(pages)
+        return np.asarray(pages, np.int32)
+
+    def add_ref(self, pages) -> None:
+        for p in pages:
+            assert self._ref[p] > 0, f"add_ref on free page {p}"
+            self._ref[p] += 1
+
+    def dec_ref(self, pages) -> List[int]:
+        """Release one reference per page; pages reaching zero return to
+        the free list.  Returns the pages actually freed."""
+        freed: List[int] = []
+        for p in pages:
+            assert p != 0, "refcount op on the reserved null page"
+            assert self._ref[p] > 0, f"refcount underflow on page {p}"
+            self._ref[p] -= 1
+            assert not (self._ref[p] == 0 and self._pin_ref[p] > 0), \
+                f"page {p} freed while partial-pinned"
+            if self._ref[p] == 0:
+                self._free.append(int(p))
+                freed.append(int(p))
+        return freed
+
+    def free_slot(self, slot: int) -> List[int]:
+        """Release `slot`'s pins and references (idempotent)."""
+        self.unpin_slot(slot)
+        pages = self._slot_pages.pop(slot, [])
+        return self.dec_ref([p for p in pages if p != 0])
+
+    def pin_slot_pages(self, slot: int, pages) -> None:
+        """Replace `slot`'s partial-pin set with `pages`.  The new pins
+        are taken BEFORE the old set is released, so a page in both sets
+        never transiently frees."""
+        new = np.unique(np.asarray(list(pages), np.int64)).astype(np.int32)
+        assert not np.any(new == 0), "pin of the reserved null page"
+        self.add_ref(new)
+        self._pin_ref[new] += 1
+        old = self._slot_pins.get(slot)
+        self._slot_pins[slot] = new
+        if old is not None and len(old):
+            self._pin_ref[old] -= 1
+            assert np.all(self._pin_ref >= 0), "pin refcount underflow"
+            self.dec_ref(old)
+
+    def unpin_slot(self, slot: int) -> None:
+        """Drop `slot`'s partial pins (idempotent)."""
+        old = self._slot_pins.pop(slot, None)
+        if old is not None and len(old):
+            self._pin_ref[old] -= 1
+            assert np.all(self._pin_ref >= 0), "pin refcount underflow"
+            self.dec_ref(old)
+
+    def pins_of(self, slot: int) -> List[int]:
+        return [int(p) for p in self._slot_pins.get(slot, ())]
+
+    @property
+    def pinned_pages(self) -> int:
+        """Distinct physical pages with a live partial pin."""
+        return int(np.sum(self._pin_ref > 0))
+
+
+def init_paged_pool(num_layers: int, num_pages: int, block: int,
+                    num_kv_heads: int, head_dim: int, dtype,
+                    device) -> dict:
+    """Shared pool + physical-page summaries (no page tables)."""
+    kv_shape = (num_layers, num_pages, block, num_kv_heads, head_dim)
+    sm_shape = (num_layers, num_pages, num_kv_heads, head_dim)
+    return {"k": torch.zeros(kv_shape, dtype=dtype, device=device),
+            "v": torch.zeros(kv_shape, dtype=dtype, device=device),
+            "kmax": torch.zeros(sm_shape, dtype=torch.float32, device=device),
+            "kmin": torch.zeros(sm_shape, dtype=torch.float32, device=device)}
+
+
+def gather_page_view(pool_l, page_table):
+    """One layer's logical contiguous view through the page table:
+    pool_l [NP, block, Hk, Dh], page_table [B, NB] -> [B, NB*block, Hk,
+    Dh].  Null-page entries read whatever it holds; callers mask."""
+    b, nb = page_table.shape
+    v = pool_l[page_table.long()]
+    return v.reshape((b, nb * pool_l.shape[1]) + tuple(pool_l.shape[2:]))
+
+
+def paged_write_tokens(pool_l, page_table, start, new, valid=None):
+    """Scatter `new` [B, T, Hk, Dh] at per-row logical offsets `start`
+    through the table, in place.  Positions beyond the table span clamp
+    into the last logical block; unallocated entries and (with `valid`
+    [B, T]) pad positions land in the null page.  Several writes may hit
+    the same null-page slot: which one wins is unspecified, and every
+    read of page 0 is masked."""
+    np_, blk = pool_l.shape[:2]
+    b, nb = page_table.shape
+    t = new.shape[1]
+    idx = start.long()[:, None] + torch.arange(t, device=pool_l.device)[None]
+    idx = torch.clamp(idx, max=nb * blk - 1)
+    pg = torch.gather(page_table.long(), 1, idx // blk)
+    if valid is not None:
+        pg = torch.where(valid, pg, torch.zeros_like(pg))
+    flat = (pg * blk + idx % blk).reshape(-1)
+    pool_flat = pool_l.view((np_ * blk,) + tuple(pool_l.shape[2:]))
+    pool_flat.index_put_((flat,), new.to(pool_l.dtype).reshape(
+        (b * t,) + tuple(pool_l.shape[2:])))
+    return pool_l
+
+
+def paged_update_summaries(kmax_p, kmin_p, pool_l, page_table, start, end,
+                           n_touch: int):
+    """Recompute (in place) the physical-page summaries of the logical
+    blocks covering [start, end) of each row.  kmax_p/kmin_p:
+    [NP, Hk, Dh]; pool_l: [NP, block, Hk, Dh]; n_touch: static bound on
+    touched blocks per row.  Out-of-range targets go to the null page,
+    which is reset to zero afterwards."""
+    np_, blk, hk, dh = pool_l.shape
+    b, nb = page_table.shape
+    dev = pool_l.device
+    tb = (start.long() // blk)[:, None] + torch.arange(n_touch, device=dev)[None]
+    in_range = (tb < ((end.long() + blk - 1) // blk)[:, None]) & (tb < nb)
+    tbc = torch.clamp(tb, max=nb - 1)
+    pg = torch.gather(page_table.long(), 1, tbc)               # [B, NT]
+    keys = pool_l[pg].float()                                   # [B,NT,blk,Hk,Dh]
+    pos = tbc[:, :, None] * blk + torch.arange(blk, device=dev)[None, None]
+    valid = (pos < end.long()[:, None, None])[..., None, None]
+    kmax_new = torch.where(valid, keys, torch.full_like(keys, -1e30)).amax(2)
+    kmin_new = torch.where(valid, keys, torch.full_like(keys, 1e30)).amin(2)
+    tgt = torch.where(in_range & (pg > 0), pg, torch.zeros_like(pg)).reshape(-1)
+    kmax_p.index_put_((tgt,), kmax_new.reshape(-1, hk, dh))
+    kmin_p.index_put_((tgt,), kmin_new.reshape(-1, hk, dh))
+    kmax_p[0] = 0.0
+    kmin_p[0] = 0.0
+    return kmax_p, kmin_p

@@ -1,0 +1,223 @@
+"""The PyTorch port's kernel modules against the JAX package.
+
+On the CPU the port's wrappers run their kernels' plain versions
+(``repro_torch/kernels/ref.py``); these are held against the JAX oracles
+(``repro/kernels/ref.py``) and the JAX wrappers with ``use_pallas=True``
+(Pallas interpret mode, as ``tests/test_kernels.py`` runs them), on the
+same numpy inputs.  Tolerances are the reference's: attention partials
+1e-4 in fp32 and 3e-2 in bf16, scores 2e-3.
+
+The CUDA kernels themselves are held against these plain versions in
+``tests/test_torch_cuda.py`` (on the card only).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.prefill_attention import paged_prefill_attention_pallas
+from repro.kernels.retrieval_score import retrieval_score_pallas
+from repro.kernels.sparse_attention import sparse_verify_attention_pallas
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _pair(a, dtype):
+    """The same numpy values as a JAX array and a torch tensor."""
+    a = np.asarray(a, np.float32)
+    return (jnp.asarray(a, JDT[dtype]),
+            torch.from_numpy(a.copy()).to(TDT[dtype]))
+
+
+def _close(t, j, tol):
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _routed_case(rng, *, b=2, t=5, h=4, hk=2, dh=16, bs=16, npg=7, ns=4):
+    """Random pool with ragged valid lengths, unused slots (vlen 0, page
+    0) and one row whose slots are all empty."""
+    q = rng.normal(size=(b, t, h, dh))
+    pool_k = rng.normal(size=(npg, bs, hk, dh))
+    pool_v = rng.normal(size=(npg, bs, hk, dh))
+    idx = rng.integers(0, npg, (b, hk, ns)).astype(np.int32)
+    vlen = rng.integers(0, bs + 1, (b, hk, ns)).astype(np.int32)
+    vlen[0, 0, -1] = 0
+    idx[0, 0, -1] = 0                    # unused slot on the null page
+    vlen[1, 1] = 0                       # an all-empty (row, head)
+    return q, pool_k, pool_v, idx, vlen
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sparse_verify_ref_matches_jax_oracle_and_pallas(dtype):
+    rng = np.random.default_rng(0)
+    q, pk, pv, idx, vlen = _routed_case(rng)
+    npg, bs, hk, dh = pk.shape
+    jq, tq = _pair(q, dtype)
+    jk, tk = _pair(pk.reshape(npg * bs, hk, dh), dtype)
+    jv, tv = _pair(pv.reshape(npg * bs, hk, dh), dtype)
+    for r in range(q.shape[0]):
+        want = jref.sparse_verify_attention_ref(
+            jq[r], jk, jv, jnp.asarray(idx[r]), jnp.asarray(vlen[r]), bs)
+        pal = sparse_verify_attention_pallas(
+            jq[r], jk, jv, jnp.asarray(idx[r]), jnp.asarray(vlen[r]), bs,
+            interpret=True)
+        got = tref.sparse_verify_attention_ref(
+            tq[r], tk, tv, torch.from_numpy(idx[r]),
+            torch.from_numpy(vlen[r]), bs)
+        for g, w, p in zip(got, want, pal):
+            _close(g, w, TOL[dtype])
+            _close(g, p, TOL[dtype])
+
+
+def test_all_masked_row_is_exact():
+    """A row whose blocks all have length 0 comes out exactly
+    (m=-1e30, l=0, acc=0), never NaN."""
+    rng = np.random.default_rng(1)
+    q, pk, pv, idx, vlen = _routed_case(rng)
+    npg, bs, hk, dh = pk.shape
+    m, l, acc = tops.routed_partial_attention(
+        torch.from_numpy(q).float(), torch.from_numpy(pk).float(),
+        torch.from_numpy(pv).float(), torch.from_numpy(idx),
+        torch.from_numpy(vlen))
+    rep = q.shape[2] // hk
+    heads = slice(1 * rep, 2 * rep)      # kv head 1 of row 1 is all empty
+    assert torch.all(m[1, heads] == -1e30)
+    assert torch.all(l[1, heads] == 0) and torch.all(acc[1, heads] == 0)
+    assert torch.isfinite(acc).all() and torch.isfinite(l).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_routed_and_paged_wrappers_match_jax(dtype):
+    rng = np.random.default_rng(2)
+    q, pk, pv, idx, vlen = _routed_case(rng)
+    jq, tq = _pair(q, dtype)
+    jk, tk = _pair(pk, dtype)
+    jv, tv = _pair(pv, dtype)
+    want = jops.routed_partial_attention(jq, jk, jv, jnp.asarray(idx),
+                                         jnp.asarray(vlen), use_pallas=True)
+    got = tops.routed_partial_attention(tq, tk, tv, torch.from_numpy(idx),
+                                        torch.from_numpy(vlen))
+    for g, w in zip(got, want):
+        _close(g, w, TOL[dtype])
+    # paged: ragged per-row lengths, one row at length 0 (a partial row
+    # of a fused tick) that streams only the null page
+    npg, bs = pk.shape[:2]
+    pt = np.stack([rng.permutation(np.arange(1, npg))[:4]
+                   for _ in range(2)]).astype(np.int32)
+    length = np.asarray([2 * bs + 3, 0], np.int32)
+    want = jops.paged_verify_attention(jq, jk, jv, jnp.asarray(pt),
+                                       jnp.asarray(length), use_pallas=True)
+    got = tops.paged_verify_attention(tq, tk, tv, torch.from_numpy(pt),
+                                      torch.from_numpy(length))
+    for g, w in zip(got, want):
+        _close(g, w, TOL[dtype])
+    assert torch.all(got[0][1] == -1e30) and torch.all(got[1][1] == 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_prefill_matches_jax(dtype):
+    rng = np.random.default_rng(3)
+    b, t, h, hk, dh, bs, npg = 2, 12, 4, 2, 16, 16, 9
+    q = rng.normal(size=(b, t, h, dh))
+    pk = rng.normal(size=(npg, bs, hk, dh))
+    pv = rng.normal(size=(npg, bs, hk, dh))
+    pt = np.stack([rng.permutation(np.arange(1, npg))[:5]
+                   for _ in range(b)]).astype(np.int32)
+    length = np.asarray([bs + bs // 2, 0], np.int32)     # resumed + fresh
+    t_valid = np.asarray([t, t - 3], np.int32)
+    jq, tq = _pair(q, dtype)
+    jk, tk = _pair(pk, dtype)
+    jv, tv = _pair(pv, dtype)
+    want = jops.paged_prefill_attention(jq, jk, jv, jnp.asarray(pt),
+                                        jnp.asarray(length),
+                                        jnp.asarray(t_valid), use_pallas=True)
+    got = tops.paged_prefill_attention(tq, tk, tv, torch.from_numpy(pt),
+                                       torch.from_numpy(length),
+                                       torch.from_numpy(t_valid))
+    rows = np.arange(t)[None] < t_valid[:, None]        # pad rows are garbage
+    g = got.float().numpy()[rows]
+    w = np.asarray(want, np.float32)[rows]
+    np.testing.assert_allclose(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+    # the single-row oracle, partials and all
+    kf = pk.reshape(npg * bs, hk, dh)
+    vf = pv.reshape(npg * bs, hk, dh)
+    vl = np.clip(length[0] + t_valid[0] - np.arange(5) * bs, 0, bs)
+    idx = np.broadcast_to(np.where(vl > 0, pt[0], 0), (hk, 5)).astype(np.int32)
+    vlh = np.broadcast_to(vl, (hk, 5)).astype(np.int32)
+    qo = np.asarray([length[0]], np.int32)
+    args_j = (jnp.asarray(kf, JDT[dtype]), jnp.asarray(vf, JDT[dtype]),
+              jnp.asarray(idx), jnp.asarray(vlh), jnp.asarray(qo))
+    want = jref.paged_prefill_attention_ref(jq[0], *args_j, block_size=bs)
+    pal = paged_prefill_attention_pallas(jq[0], *args_j, block_size=bs,
+                                         interpret=True)
+    got = tref.paged_prefill_attention_ref(
+        tq[0], torch.from_numpy(kf).to(TDT[dtype]),
+        torch.from_numpy(vf).to(TDT[dtype]), torch.from_numpy(idx.copy()),
+        torch.from_numpy(vlh.copy()), torch.from_numpy(qo), bs)
+    for g_, w_, p_ in zip(got, want, pal):
+        _close(g_, w_, TOL[dtype])
+        _close(g_, p_, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_retrieval_scores_match_jax(dtype):
+    rng = np.random.default_rng(4)
+    b, t, h, hk, dh, nb = 2, 7, 4, 2, 16, 6
+    q = rng.normal(size=(b, t, h, dh))
+    kmax = np.abs(rng.normal(size=(b, nb, hk, dh))).astype(np.float32)
+    kmin = -np.abs(rng.normal(size=(b, nb, hk, dh))).astype(np.float32)
+    qw = (rng.random((b, t)) > 0.4).astype(np.float32)
+    qw[1] = 0.0                          # an all-zero weight row
+    jq, tq = _pair(q, dtype)
+    want = jops.retrieval_scores(jq, jnp.asarray(kmax), jnp.asarray(kmin),
+                                 jnp.asarray(qw), use_pallas=True)
+    got = tops.retrieval_scores(tq, torch.from_numpy(kmax),
+                                torch.from_numpy(kmin), torch.from_numpy(qw))
+    _close(got, want, 2e-3)
+    w1 = jref.retrieval_score_ref(jq[0], jnp.asarray(kmax[0]),
+                                  jnp.asarray(kmin[0]), jnp.asarray(qw[0]))
+    p1 = retrieval_score_pallas(jq[0], jnp.asarray(kmax[0]),
+                                jnp.asarray(kmin[0]), jnp.asarray(qw[0]),
+                                interpret=True)
+    g1 = tref.retrieval_score_ref(tq[0], torch.from_numpy(kmax[0]),
+                                  torch.from_numpy(kmin[0]),
+                                  torch.from_numpy(qw[0]))
+    _close(g1, w1, 2e-3)
+    _close(g1, p1, 2e-3)
+
+
+def test_wrappers_reject_bad_inputs():
+    q = torch.zeros((1, 2, 4, 16))
+    pool = torch.zeros((3, 16, 2, 16))
+    with pytest.raises(ValueError):
+        tops.block_attention(q, pool.reshape(48, 2, 16),
+                             pool.reshape(48, 2, 16),
+                             torch.zeros((1, 3, 2), dtype=torch.int32),
+                             torch.zeros((1, 3, 2), dtype=torch.int32), 16)
+    with pytest.raises(TypeError):
+        tops.block_attention(q, pool.reshape(48, 2, 16).double(),
+                             pool.reshape(48, 2, 16),
+                             torch.zeros((1, 2, 2), dtype=torch.int32),
+                             torch.zeros((1, 2, 2), dtype=torch.int32), 16)
+    with pytest.raises(ValueError):
+        tops.retrieval_scores(q, torch.zeros((1, 3, 2, 16)),
+                              torch.zeros((1, 3, 2, 16)), torch.zeros((1, 5)))
+
+
+def test_cpu_tensors_never_launch():
+    tops.reset_launch_counts()
+    rng = np.random.default_rng(5)
+    q, pk, pv, idx, vlen = _routed_case(rng)
+    tops.routed_partial_attention(torch.from_numpy(q).float(),
+                                  torch.from_numpy(pk).float(),
+                                  torch.from_numpy(pv).float(),
+                                  torch.from_numpy(idx),
+                                  torch.from_numpy(vlen))
+    assert all(v == 0 for v in tops.LAUNCHES.values())
