@@ -43,8 +43,16 @@ sys.modules["repro"] = None
 PEAK_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_BF16_S = 989e12            # dense bf16 tensor-core rate
 PEAK_FP32_S = 67e12             # fp32 outside the tensor cores
-TOL_BF16 = 3e-2                 # the reference's bf16 partials tolerance
-TOL_SCORE = 2e-3                # the reference's score tolerance
+# kernel against its plain version: both widen the same inputs to fp32,
+# so they differ only by summation order (~1e-6 relative); 1e-4 of each
+# tensor's largest magnitude fails a missing 32-key tile (~0.7% of l)
+TOL_KERNEL = 1e-4
+PROMPT_LEN = 8192               # phase 3: the paper's long-context regime
+NEW_TOKENS = 128
+# spin before each timed call (~2 ms at the H100's clock): the host
+# enqueues the call's Python work while the card spins, so the event
+# window holds device time only
+COVER_CYCLES = 4_000_000
 
 KERNEL_META = {
     "sparse_verify_attention": dict(
@@ -74,10 +82,22 @@ def say(card: str, msg: str) -> None:
 # timing
 # ---------------------------------------------------------------------------
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 class Timer:
-    """CUDA-event time of one call, averaged over ``iters`` launches, with
-    the 50 MB L2 flushed before each launch (the main path meets every
-    layer's pool cold)."""
+    """Device time of one call, averaged over ``iters`` calls.  Before
+    each call the 50 MB L2 is flushed (the main path meets every layer's
+    pool cold) and the card spins for ``COVER_CYCLES``; the CUDA-event
+    window opens after the spin, by which time the host has enqueued the
+    call, so the window holds device time and no host time.  A call
+    whose host work outlasts the spin would let host time in: it is
+    dropped and redone behind a spin twice as long.
+
+    ``kernel_ms`` reads one kernel's own duration per launch from
+    ``torch.profiler`` (CUPTI) over the same flushed calls."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -87,17 +107,72 @@ class Timer:
         torch = self.torch
         for _ in range(warmup):
             fn()
-        total = 0.0
-        for _ in range(iters):
+        total, done, cycles = 0.0, 0, COVER_CYCLES
+        while done < iters:
             self.flush.zero_()
+            ec = torch.cuda.Event(enable_timing=True)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
+            ec.record()
+            torch.cuda._sleep(cycles)
             e0.record()
+            h0 = time.perf_counter()
             fn()
+            host_ms = (time.perf_counter() - h0) * 1e3
             e1.record()
             e1.synchronize()
+            if host_ms >= ec.elapsed_time(e0):
+                # host time may be in this window: drop it, spin longer
+                if cycles >= 64 * COVER_CYCLES:
+                    raise RuntimeError(
+                        f"host work {host_ms:.3f} ms outlasts the spin "
+                        f"{ec.elapsed_time(e0):.3f} ms")
+                cycles *= 2
+                continue
             total += e0.elapsed_time(e1)
+            done += 1
         return total / iters
+
+    def kernel_ms(self, fn, kernel: str, iters: int = 10) -> float:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA
+                and kernel in e.key]
+        count = sum(e.count for e in rows)
+        if count != iters:
+            raise RuntimeError(f"profiler saw {count} launches of {kernel}, "
+                               f"expected {iters}")
+        return sum(_dev_us(e) for e in rows) / count / 1e3
+
+
+def _close(label, got, want, tol=TOL_KERNEL):
+    """|got - want| <= tol * (|want| + max |want|), over the entries that
+    are not the masked sentinel -1e30, which must match exactly.
+    Returns the largest relative error (to max |want|)."""
+    import torch
+    masked = want <= -1e29
+    if not torch.equal(got[masked], want[masked]):
+        raise AssertionError(f"{label}: masked entries differ")
+    g, w = got[~masked], want[~masked]
+    if w.numel() == 0:
+        return 0.0
+    scale = w.abs().max().clamp(min=1e-30)
+    diff = (g - w).abs()
+    if not bool(torch.all(diff <= tol * (w.abs() + scale))):
+        raise AssertionError(
+            f"{label}: kernel disagrees with its plain version, max abs err "
+            f"{diff.max().item():.3e}, max |want| {scale.item():.3e}")
+    return (diff.max() / scale).item()
 
 
 # ---------------------------------------------------------------------------
@@ -179,19 +254,20 @@ def phase_kernels(torch, card, timer):
         want = ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
                                            q_offset=qoff)
         torch.cuda.synchronize()
-        err = 0.0
-        for g, w in zip(got, want):
-            if not torch.allclose(g, w, rtol=TOL_BF16, atol=TOL_BF16):
-                raise AssertionError(
-                    f"{label}: kernel disagrees with its plain version, max "
-                    f"abs err {(g - w).abs().max().item():.3e}")
         out_g = got[2] / got[1].clamp(min=1e-30)[..., None]
         out_w = want[2] / want[1].clamp(min=1e-30)[..., None]
+        rel = max(_close(f"{label} {nm}", g, w) for nm, g, w in
+                  (("m", got[0], want[0]), ("l", got[1], want[1]),
+                   ("acc", got[2], want[2]), ("out", out_g, out_w)))
         err = max((out_g - out_w).abs().max().item(),
                   (got[0] - want[0]).abs().max().item())
         before = dict(ops.LAUNCHES)
-        ms = timer(lambda: ops.block_attention(q, kf, vf, idx, vlen, bs,
-                                               q_offset=qoff))
+
+        def launch():
+            return ops.block_attention(q, kf, vf, idx, vlen, bs,
+                                       q_offset=qoff)
+        ms = timer.kernel_ms(launch, "block_attention_kernel")
+        event_ms = timer(launch)
         ops.LAUNCHES.update(before)        # timing launches are not the path's
         plain_ms = timer(lambda: ref.block_attention_batched(
             q, kf, vf, idx, vlen, bs, q_offset=qoff), iters=3, warmup=1)
@@ -209,8 +285,10 @@ def phase_kernels(torch, card, timer):
             kh_, vh_ = kv_k.transpose(1, 2), kv_v.transpose(1, 2)
             lib_ms = timer(lambda: F.scaled_dot_product_attention(
                 qh, kh_, vh_, attn_mask=mask, enable_gqa=True))
-        say(card, f"kernel {label}: max_abs_err {err:.3e} (tol {TOL_BF16}) "
-                  f"ms {ms:.4f} plain_ms {plain_ms:.4f} bound_us "
+        say(card, f"kernel {label}: max_abs_err {err:.3e} max_rel_err "
+                  f"{rel:.3e} (tol {TOL_KERNEL} of max |plain| on m, l, acc, "
+                  f"out) ms {ms:.4f} (profiler; events {event_ms:.4f}) "
+                  f"plain_ms {plain_ms:.4f} bound_us "
                   f"{bound * 1e3:.2f} ({by}) library_ms "
                   f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}")
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -243,10 +321,13 @@ def phase_kernels(torch, card, timer):
     want = ref.retrieval_score_batched(q, kmax, kmin, qw)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, rtol=TOL_SCORE, atol=TOL_SCORE):
-        raise AssertionError(f"K3: kernel disagrees, max abs err {err:.3e}")
+    rel = _close("K3 scores", got, want)
     before = dict(ops.LAUNCHES)
-    ms = timer(lambda: ops.retrieval_scores(q, kmax, kmin, qw))
+
+    def launch():
+        return ops.retrieval_scores(q, kmax, kmin, qw)
+    ms = timer.kernel_ms(launch, "retrieval_score_kernel")
+    event_ms = timer(launch)
     ops.LAUNCHES.update(before)
     plain_ms = timer(lambda: ref.retrieval_score_batched(q, kmax, kmin, qw),
                      iters=3, warmup=1)
@@ -254,7 +335,9 @@ def phase_kernels(torch, card, timer):
     flops = 2 * 2 * dh * (h // hk) * t * hk * nb
     bound, by = _bound_ms(nbytes, flops, PEAK_FP32_S)
     say(card, f"kernel K3 retrieval T=156 NB=66: max_abs_err {err:.3e} "
-              f"(tol {TOL_SCORE}) ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"max_rel_err {rel:.3e} (tol {TOL_KERNEL} of max |plain|) "
+              f"ms {ms:.4f} (profiler; events {event_ms:.4f}) "
+              f"plain_ms {plain_ms:.4f} "
               f"bound_us {bound * 1e3:.2f} ({by}) library_ms none")
     results["retrieval_score"] = dict(max_abs_err=err, ms=ms,
                                       plain_ms=plain_ms, bound_ms=bound,
@@ -266,7 +349,8 @@ def phase_kernels(torch, card, timer):
 # phase 3: full-width generate
 # ---------------------------------------------------------------------------
 
-def phase_generate(torch, card, prompt_len: int, new_tokens: int):
+def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
+                   new_tokens: int = NEW_TOKENS):
     import numpy as np
     from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
     from repro_torch.core.draft import init_draft_params
@@ -323,8 +407,10 @@ def phase_generate(torch, card, prompt_len: int, new_tokens: int):
 def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6):
     """Where a decode step's time goes: after a fresh prefill and ``warm``
     steps, ``steps`` steps timed on the host clock, then ``steps`` more
-    under ``torch.profiler``: device time by CUDA kernel, and the idle
-    share = 1 - kernel time / unprofiled wall time."""
+    under ``torch.profiler``: device time by CUDA kernel, and, over the
+    profiled steps alone, the idle share = 1 - device busy time (union of
+    the device events' intervals) / the device span (first event's start
+    to last event's end), beside the host clock around the same steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     st = eng.prefill(prompt)
@@ -345,23 +431,37 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6):
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         st, pmodes = run(st, steps)
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        raise RuntimeError("the profiler recorded no device time")
+    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    span_ms = (spans[-1][1] - spans[0][0]) / 1e3
+    busy_ms = busy_us / 1e3
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA
-               and dev_us(e) > 0]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    say(card, f"profile decode steps {modes} then {pmodes}: wall_ms/step "
-              f"{wall_ms / steps:.2f} (unprofiled) kernel_ms/step "
-              f"{busy_ms / steps:.2f} idle_share "
-              f"{max(0.0, 1 - busy_ms / wall_ms):.3f} kernels/step "
-              f"{sum(e.count for e in kernels) // steps}")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
-        say(card, f"profile   {dev_us(e) / 1e3 / steps:8.3f} ms/step "
+               and _dev_us(e) > 0]
+    say(card, f"profile decode steps {modes} then {pmodes}: unprofiled "
+              f"wall_ms/step {wall_ms / steps:.2f}; profiled steps: host "
+              f"wall_ms/step {prof_wall_ms / steps:.2f} device span_ms/step "
+              f"{span_ms / steps:.2f} device busy_ms/step "
+              f"{busy_ms / steps:.2f} idle_share {1 - busy_ms / span_ms:.3f} "
+              f"kernels/step {sum(e.count for e in kernels) // steps}")
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:10]:
+        say(card, f"profile   {_dev_us(e) / 1e3 / steps:8.3f} ms/step "
                   f"{e.count // steps:5d} launches/step  {e.key[:80]}")
 
 
@@ -422,8 +522,6 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="2,3,4",
                     help="comma list of phases 2 (kernels), 3 (generate), "
                          "4 (losslessness); 1 and 5 always run")
-    ap.add_argument("--prompt", type=int, default=8192)
-    ap.add_argument("--new", type=int, default=128)
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -454,8 +552,8 @@ def main(argv=None) -> int:
 
     timer = Timer(torch)
     kres = phase_kernels(torch, card, timer) if 2 in phases else {}
-    launches = (phase_generate(torch, card, args.prompt, args.new)
-                if 3 in phases else {k: 0 for k in ops.KERNELS})
+    launches = (phase_generate(torch, card) if 3 in phases
+                else {k: 0 for k in ops.KERNELS})
     if 4 in phases:
         phase_lossless(torch, card, prompt_len=4800, new_tokens=32)
 

@@ -89,16 +89,17 @@ class SpecPVEngine:
                  batch: int, max_len: int,
                  partial_verification: bool = True,
                  temperature: float = 0.0,
-                 paged: bool = False,
+                 paged: bool = True,
                  num_pages: Optional[int] = None,
                  prefix_cache: bool = False,
                  tiered: bool = False,
-                 zero_copy: bool = False,
+                 zero_copy: bool = True,
                  mesh=None,
                  device=None):
         """The slice supports ``paged=True``, ``zero_copy=True`` (when
-        partial verification is on), ``temperature=0`` and tree drafts;
-        every other setting raises NotImplementedError
+        partial verification is on; both the defaults here, unlike the
+        reference), ``temperature=0`` and tree drafts; every other setting
+        raises NotImplementedError
         naming the ROADMAP item that will bring it.  Runs on ``device``
         (CUDA unless ``"cpu"`` is asked for); the params must live there."""
         if not cfg.is_attention_arch or cfg.arch_type != "dense":

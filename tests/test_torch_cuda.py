@@ -5,9 +5,14 @@ Run on the card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances are the reference's: partials 1e-4 in fp32 and 3e-2 in bf16,
-scores 2e-3.  fp32 results are compared, so the fixture turns TF32 off
-for matmuls and convolutions (the plain versions' products).
+A kernel and its plain version widen the same inputs to fp32 and differ
+only in summation order, so in both dtypes each output (m, l, acc, the
+normalised attention, the scores) must agree to 1e-4 of its largest
+magnitude: tight enough that a dropped 32-key tile fails.  The masked
+sentinel m = -1e30 must match exactly.  (The reference's 3e-2 bf16
+tolerance is for comparisons with JAX, whose q scaling differs.)  fp32
+results are compared, so the fixture turns TF32 off for matmuls and
+convolutions (the plain versions' products).
 """
 import math
 
@@ -17,7 +22,7 @@ import torch
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
-TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+TOL = 1e-4
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -28,6 +33,25 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
+
+
+def _assert_close(got, want):
+    masked = want <= -1e29
+    assert torch.equal(got[masked], want[masked])
+    g, w = got[~masked], want[~masked]
+    if w.numel():
+        scale = w.abs().max().clamp(min=1e-30)
+        diff = (g - w).abs()
+        assert torch.all(diff <= TOL * (w.abs() + scale)), (
+            f"max abs err {diff.max().item():.3e}, "
+            f"max |plain| {scale.item():.3e}")
+
+
+def _assert_partials_close(got, want):
+    for g, w in zip(got, want):
+        _assert_close(g, w)
+    _assert_close(got[2] / got[1].clamp(min=1e-30)[..., None],
+                  want[2] / want[1].clamp(min=1e-30)[..., None])
 
 
 def _cuda_case(dev, dtype, *, b=2, t=61, h=32, hk=8, dh=128, bs=128,
@@ -57,8 +81,7 @@ def test_cuda_block_attention_matches_plain(cuda, dtype, t):
     torch.cuda.synchronize()
     assert tops.LAUNCHES["sparse_verify_attention"] == before + 1
     want = tref.block_attention_batched(q, kf, vf, idx, vlen, bs)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+    _assert_partials_close(got, want)
     rep = q.shape[2] // hk
     assert torch.all(got[0][1, 3 * rep:4 * rep] == -1e30)
     assert torch.all(got[1][1, 3 * rep:4 * rep] == 0)
@@ -85,8 +108,7 @@ def test_cuda_paged_prefill_matches_plain(cuda, dtype, qoff):
     torch.cuda.synchronize()
     want = tref.block_attention_batched(q, kf, vf, idx, vlen, bs,
                                         q_offset=length)
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, rtol=TOL[dtype], atol=TOL[dtype])
+    _assert_partials_close(got, want)
 
 
 @pytest.mark.cuda
@@ -104,5 +126,5 @@ def test_cuda_retrieval_scores_match_plain(cuda, dtype):
     torch.cuda.synchronize()
     assert tops.LAUNCHES["retrieval_score"] == before + 1
     want = tref.retrieval_score_batched(q, kmax, kmin, qw)
-    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    _assert_close(got, want)
     assert math.isfinite(got.abs().max().item())

@@ -134,3 +134,10 @@ def test_unsupported_settings_raise(setup):
                 dict(paged=True, zero_copy=True, prefix_cache=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(*args, **bad, **kw)
+
+
+def test_defaults_are_the_supported_engine(setup):
+    s = setup
+    te = TEngine(s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"],
+                 batch=2, max_len=MAX_LEN, device="cpu")
+    assert te.zero_copy and te.partial_enabled
