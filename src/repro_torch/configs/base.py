@@ -13,7 +13,7 @@ from typing import Callable, Dict, Tuple
 class ModelConfig:
     # identity
     name: str
-    arch_type: str                      # the port runs "dense"
+    arch_type: str                      # the port runs "dense" and "ssm"
     source: str = ""                    # citation for the config numbers
 
     # transformer trunk
@@ -71,11 +71,30 @@ class ModelConfig:
         return self.arch_type in ("dense", "moe", "vlm", "audio")
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer kind sequence (the port runs dense stacks only)."""
+        """Per-layer kind sequence (the port runs dense and RWKV-6
+        stacks)."""
+        if self.arch_type == "ssm":
+            return ("rwkv",) * self.num_layers
         return ("attn",) * self.num_layers
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """CPU test variant of the same family (<= 2 layers, d_model <=
+        256), field for field the reference's ``reduced()`` for the
+        architectures the port runs."""
+        heads = max(2, min(self.num_heads, 4))
+        return self.replace(
+            name=self.name + "-reduced",
+            num_layers=min(self.num_layers, 2),
+            d_model=min(self.d_model, 256),
+            d_ff=min(self.d_ff, 512),
+            vocab_size=min(self.vocab_size, 512),
+            max_position=65536,
+            num_heads=heads,
+            num_kv_heads=max(1, min(self.num_kv_heads, heads)),
+            head_dim=0)
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,8 @@ so both packages compute the same thing from the same weights.
 The input is the nested dicts of numpy arrays that
 ``jax.tree_util.tree_map(np.asarray, params)`` gives.  The reference
 stores dense layers stacked along a leading axis under
-``decoder/slots[0]``; that axis is split into the port's per-layer list.
+``decoder/slots[0]`` and RWKV-6 layers under ``layers``; that axis is
+split into the port's per-layer list.
 """
 from __future__ import annotations
 
@@ -35,10 +36,13 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
                       device=None) -> Dict[str, Any]:
     """Reference target params (numpy leaves) -> the port's params."""
     dev = resolve_device(device)
-    dec = tree["decoder"]
-    if len(dec["slots"]) != 1 or dec.get("rem"):
-        raise NotImplementedError("only dense stacks of one layer kind")
-    stacked = dec["slots"][0]
+    if cfg.arch_type == "ssm":
+        stacked = tree["layers"]
+    else:
+        dec = tree["decoder"]
+        if len(dec["slots"]) != 1 or dec.get("rem"):
+            raise NotImplementedError("only dense stacks of one layer kind")
+        stacked = dec["slots"][0]
     n = cfg.num_layers
 
     def layer(i):

@@ -1,5 +1,6 @@
 """EAGLE-3-style self-speculative draft module (counterpart of
-``repro/core/draft.py``, greedy drafting on the paged draft cache).
+``repro/core/draft.py``, greedy drafting on the paged draft cache of the
+dense engine or the contiguous one of the state-arch engine).
 
 One decoder layer whose input is ``in_proj(concat(token_emb, fused))``
 with ``fused = fuse(concat(h_low, h_mid, h_top))``; token prediction
@@ -42,6 +43,20 @@ def init_draft_params(cfg: ModelConfig, dcfg: DraftConfig, seed: int = 0,
             "in_proj": cm.dense_init(gen, (2 * d, d), pd),
             "layer": dn._init_layer(draft_model_config(cfg), gen),
             "final_norm": torch.ones((d,), dtype=pd, device=dev)}
+
+
+def init_draft_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     device) -> Dict:
+    """Contiguous draft cache: per-row ``[B, S_max, Hk, Dh]`` buffers
+    (the state-arch engine's; reads and writes go through
+    ``layer_ctx_view`` / ``layer_cache_append`` as for the paged one)."""
+    dtype = cm.dt(cfg.dtype)
+    hk, dh = cfg.num_kv_heads, cfg.head_dim_
+    return {"k": torch.zeros((batch, max_len, hk, dh), dtype=dtype,
+                             device=device),
+            "v": torch.zeros((batch, max_len, hk, dh), dtype=dtype,
+                             device=device),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
 def init_paged_draft_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -15,6 +15,12 @@ buffer would overflow -> Refresh.
 Every step is one call of ``_step_fused`` (the reference's one jitted
 dispatch per tick; ``dispatches`` counts them), with the tick's mode mix
 deciding which masked branches run.
+
+State architectures (RWKV-6, ``paged=False``) have no KV cache, so
+partial verification does not apply: each step (mode ``"state"``,
+``_step_state``) drafts a chain, verifies it with a read-only pass,
+accepts greedily and advances the recurrent state over the pending
+token and the accepted prefix.
 """
 from __future__ import annotations
 
@@ -41,8 +47,8 @@ from repro_torch.models import common as cm
 class EngineState:
     """Per-batch decode state.  The greedy port carries no PRNG streams
     or temperatures (sampling is ROADMAP.md queue 1, 'Sampling')."""
-    cache: Any                  # paged trunk cache dict
-    dcache: Any                 # paged draft cache dict
+    cache: Any                  # paged trunk cache dict (ssm: the state)
+    dcache: Any                 # draft cache dict (paged; ssm contiguous)
     pkv_k: Any                  # [L, B, Hk, buffer, Dh] tail buffer
     pkv_v: Any
     pkv_pos: Any                # [L, B, Hk, buffer] int32, -1 = empty
@@ -96,15 +102,21 @@ class SpecPVEngine:
                  zero_copy: bool = True,
                  mesh=None,
                  device=None):
-        """The slice supports ``paged=True``, ``zero_copy=True`` (when
+        """Dense targets run with ``paged=True``, ``zero_copy=True`` (when
         partial verification is on; both the defaults here, unlike the
-        reference), ``temperature=0`` and tree drafts; every other setting
-        raises NotImplementedError
-        naming the ROADMAP item that will bring it.  Runs on ``device``
-        (CUDA unless ``"cpu"`` is asked for); the params must live there."""
-        if not cfg.is_attention_arch or cfg.arch_type != "dense":
+        reference) and tree drafts; the state arch (``ssm``) runs with
+        ``paged=False`` and chain drafts, without partial verification.
+        Both are greedy (``temperature=0``); every other setting raises
+        NotImplementedError naming the ROADMAP item that will bring it.
+        Runs on ``device`` (CUDA unless ``"cpu"`` is asked for); the
+        params must live there."""
+        if cfg.arch_type not in ("dense", "ssm"):
             _unsupported(f"arch {cfg.arch_type!r}", "Other architectures")
-        if not paged:
+        self.is_attn = cfg.is_attention_arch
+        if not self.is_attn and paged:
+            raise ValueError("paged KV is attention-only (state archs keep "
+                             "O(1) state): pass paged=False")
+        if self.is_attn and not paged:
             _unsupported("the contiguous SpecPV engine",
                          "contiguous SpecPV engine")
         if temperature != 0.0:
@@ -115,7 +127,7 @@ class SpecPVEngine:
             _unsupported("mesh sharding", "Multi-GPU")
         if prefix_cache:
             _unsupported("prefix sharing", "Serving")
-        if not spec.use_pallas:
+        if self.is_attn and not spec.use_pallas:
             _unsupported("the paged cache without the kernel route "
                          "(use_pallas=False)", "contiguous SpecPV engine")
         self.device = resolve_device(device)
@@ -132,16 +144,19 @@ class SpecPVEngine:
         self._nb_seq = -(-max_len // spec.block_size)
         self.num_pages = (num_pages if num_pages is not None
                           else batch * self._nb_seq + 1)
-        self._page_alloc = kvc.PageAllocator(self.num_pages)
-        self._draft_alloc = kvc.PageAllocator(self.num_pages)
-        self.partial_enabled = bool(partial_verification)
+        self._page_alloc = (kvc.PageAllocator(self.num_pages)
+                            if self.is_attn else None)
+        self._draft_alloc = (kvc.PageAllocator(self.num_pages)
+                             if self.is_attn else None)
+        self.partial_enabled = bool(partial_verification) and self.is_attn
         if self.partial_enabled and not zero_copy:
             _unsupported("the gathered partial cache (zero_copy=False)",
                          "contiguous SpecPV engine")
         self.zero_copy = bool(zero_copy and self.partial_enabled)
         self._ns_blocks = spec.partial_budget_tokens // spec.block_size
-        self.tree = tr.TreeSpec.from_branch(
-            dcfg.tree_branch[: dcfg.tree_depth])
+        self.tree = (tr.TreeSpec.from_branch(dcfg.tree_branch[
+            : dcfg.tree_depth]) if self.is_attn
+            else tr.TreeSpec.chain(dcfg.tree_depth))
         self.pmax = spec.buffer_size            # max pending (refresh input)
         self.emax = self.tree.max_path          # max draft-extend per step
         self.traffic = TrafficMeter()
@@ -151,6 +166,9 @@ class SpecPVEngine:
     # ------------------------------------------------------------------
     def _init_pkv(self, b: int):
         cfg = self.cfg
+        if not self.is_attn:
+            z = torch.zeros((0,), device=self.device)
+            return z, z.clone(), z.clone()
         # zero-copy: the retrieved body lives in the pool (routed via
         # pkv_blocks), so the dense arrays carry only the tail buffer
         shape = (cfg.num_layers, b, cfg.num_kv_heads, self.spec.buffer_size,
@@ -162,7 +180,11 @@ class SpecPVEngine:
 
     def _init_cache(self, b: int, *, full_alloc: bool = False) -> Dict:
         """Fresh paged cache; ``full_alloc`` gives every row its whole
-        max_len worth of pages up front (lock-step ``generate``)."""
+        max_len worth of pages up front (lock-step ``generate``).  State
+        archs get their zeroed recurrent state."""
+        if not self.is_attn:
+            return api.init_cache(self.cfg, b, self.max_len, self.spec,
+                                  device=self.device)
         cache = api.init_cache(self.cfg, b, self.max_len, self.spec,
                                paged=True, num_pages=self.num_pages,
                                device=self.device)
@@ -171,6 +193,8 @@ class SpecPVEngine:
         return cache
 
     def _init_dcache(self, b: int, *, full_alloc: bool = False) -> Dict:
+        if not self.is_attn:
+            return dr.init_draft_cache(self.cfg, b, self.max_len, self.device)
         dcache = dr.init_paged_draft_cache(self.cfg, b, self.max_len,
                                            self.spec.block_size,
                                            self.num_pages, self.device)
@@ -201,8 +225,8 @@ class SpecPVEngine:
                        ) -> EngineState:
         cfg = self.cfg
         b, s0 = prompt.shape
-        cache = self._init_cache(b, full_alloc=True)
-        dcache = self._init_dcache(b, full_alloc=True)
+        cache = self._init_cache(b, full_alloc=self.is_attn)
+        dcache = self._init_dcache(b, full_alloc=self.is_attn)
         prev_feat = torch.zeros((b, 3 * cfg.d_model), dtype=cm.dt(cfg.dtype),
                                 device=self.device)
         prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
@@ -251,9 +275,11 @@ class SpecPVEngine:
             pkv_pos=pkv_pos, buf_len=torch.zeros_like(ones), pending=pend,
             pending_len=ones.clone(), seq_len=torch.full_like(ones, s0 + 1),
             ext_tokens=ext_tokens, ext_feats=ext_feats, ext_len=ones.clone(),
-            pkv_blocks=torch.full((b, cfg.num_layers, cfg.num_kv_heads,
-                                   self._ns_blocks), -1, dtype=torch.int32,
-                                  device=dev))
+            pkv_blocks=(torch.full((b, cfg.num_layers, cfg.num_kv_heads,
+                                    self._ns_blocks), -1, dtype=torch.int32,
+                                   device=dev) if self.is_attn
+                        else torch.zeros((b, 0, 0, 0), dtype=torch.int32,
+                                         device=dev)))
 
     # ------------------------------------------------------------------
     def _post_accept(self, st, vin, out, tree_tokens, path, acc, bonus):
@@ -398,10 +424,53 @@ class SpecPVEngine:
             ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=pkv_blocks)
         return st2, (newtoks, acc + 1, acc)
 
+    def _step_state(self, st: EngineState) -> Tuple[EngineState, Tuple]:
+        """One greedy chain step of a state arch: draft a chain, verify
+        it with a read-only pass over [pending token | chain], accept
+        the longest matching prefix, then advance the recurrent state
+        over the pending token and the accepted tokens (``valid`` =
+        1 + accepted; the padded tail leaves the state as it was)."""
+        cfg, tree = self.cfg, self.tree
+        b, dev = self.batch, self.device
+        dcache, tree_tokens, _ = dr.draft_phase(
+            cfg, self.dcfg, self.dparams, self.params, tree, st.dcache,
+            st.ext_tokens, st.ext_feats, st.ext_len)
+        pend_in = st.pending[:, :1]
+        ones = torch.ones((b,), dtype=torch.long, device=dev)
+        vin = vf.build_verify_inputs_fused(tree, pend_in, ones, ones,
+                                           tree_tokens, st.seq_len)
+        out = api.decode(cfg, self.params, vin["tokens"], vin["positions"],
+                         st.cache, self_mask=vin["self_mask"],
+                         spec=self.spec)
+        path, acc, bonus, _ = tr.greedy_tree_accept(
+            tree, tree_tokens, out.logits, vin["root_slot"],
+            vin["node_slots"])
+        newtoks, ext_feats, ext_len, seq_len = self._post_accept(
+            st, vin, out, tree_tokens, path, acc, bonus)
+        path_toks = torch.where(
+            path >= 0, torch.gather(tree_tokens.long(), 1,
+                                    torch.clamp(path, min=0)),
+            torch.zeros_like(path))
+        adv_toks = torch.cat([pend_in, path_toks], dim=1)
+        adv_valid = (torch.arange(1 + tree.depth, device=dev)[None]
+                     < (1 + acc)[:, None])
+        cache = api.advance(cfg, self.params, adv_toks, st.cache, adv_valid)
+        pending = torch.zeros_like(st.pending)
+        pending[:, 0] = bonus
+        st2 = EngineState(
+            cache=cache, dcache=dcache, pkv_k=st.pkv_k, pkv_v=st.pkv_v,
+            pkv_pos=st.pkv_pos, buf_len=st.buf_len, pending=pending,
+            pending_len=ones, seq_len=seq_len, ext_tokens=newtoks,
+            ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=st.pkv_blocks)
+        return st2, (newtoks, acc + 1, acc)
+
     # ------------------------------------------------------------------
     def mode_for(self, pending_len: int, seq_len: int,
                  pkv_active: bool) -> str:
-        """One slot's mode automaton (Full -> Refresh -> Partial* -> ...)."""
+        """One slot's mode automaton (Full -> Refresh -> Partial* -> ...);
+        a state arch always steps in mode ``"state"``."""
+        if not self.is_attn:
+            return "state"
         if not self.partial_enabled:
             return "full"
         if seq_len <= self.spec.partial_budget_tokens:
@@ -422,6 +491,8 @@ class SpecPVEngine:
         """One fused multi-mode step.  The lock-step slice steps every row
         (``rows`` all True); per-slot row masking is ROADMAP.md queue 1,
         'Serving'.  Consumes `st`."""
+        if not self.is_attn:
+            raise ValueError("state archs step through step(st, 'state')")
         rows = np.asarray(rows, bool)
         if not rows.all():
             _unsupported("stepping a subset of rows", "Serving")
@@ -457,7 +528,16 @@ class SpecPVEngine:
 
     def step(self, st: EngineState, mode: str) -> Tuple[EngineState,
                                                         StepOutput]:
-        """One lock-step round over the whole batch in `mode`."""
+        """One lock-step round over the whole batch in `mode` ("state"
+        for a state arch).  Consumes `st`."""
+        if mode == "state":
+            if self.is_attn:
+                raise ValueError(mode)
+            st, (toks, counts, acc) = self._step_state(st)
+            self.dispatches += 1
+            return st, StepOutput(tokens=toks.cpu().numpy(),
+                                  counts=counts.cpu().numpy(),
+                                  accept_len=acc.cpu().numpy(), mode=mode)
         if mode not in MODE_IDS:
             raise ValueError(mode)
         st, out = self.step_fused(

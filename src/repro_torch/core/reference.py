@@ -1,6 +1,8 @@
 """Plain greedy autoregressive decoding (counterpart of
 ``repro/core/reference.py:autoregressive_generate``): the losslessness
-oracle, on the port's contiguous cache through the plain attention path."""
+oracle, on the port's contiguous cache through the plain attention path,
+or, for a state arch, one read-only decode and one ``advance`` per
+token."""
 from __future__ import annotations
 
 from typing import Optional
@@ -38,8 +40,14 @@ def autoregressive_generate(cfg: ModelConfig, params, prompt: np.ndarray,
         pos = cache["length"][:, None]
         o = api.decode(cfg, params, cur[:, None], pos, cache, mode="full",
                        spec=spec)
-        cur = torch.argmax(o.logits[:, 0], dim=-1)
-        ck, cv = o.new_kv
-        cache = vf.append_full_cache(cache, ck, cv, ones, spec)
+        nxt = torch.argmax(o.logits[:, 0], dim=-1)
+        if cfg.is_attention_arch:
+            ck, cv = o.new_kv
+            cache = vf.append_full_cache(cache, ck, cv, ones, spec)
+        else:
+            cache = api.advance(cfg, params, cur[:, None], cache,
+                                torch.ones((b, 1), dtype=torch.bool,
+                                           device=dev))
+        cur = nxt
         out.append(cur)
     return torch.stack(out, dim=1).cpu().numpy()

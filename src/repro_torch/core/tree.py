@@ -48,6 +48,12 @@ class TreeSpec:
         return cls(branch=tuple(branch), parents=tuple(parents),
                    depths=tuple(depths), level_slices=tuple(slices))
 
+    @classmethod
+    def chain(cls, depth: int) -> "TreeSpec":
+        """A single-path draft of ``depth`` tokens (``branch = (1,) *
+        depth``), which the state-arch engine verifies."""
+        return cls.from_branch((1,) * depth)
+
     def ancestor_mask(self) -> np.ndarray:
         """[T, T] bool — mask[i, j] = node j is an ancestor of i or i==j."""
         t = self.size

@@ -92,5 +92,10 @@ def load_library() -> ctypes.CDLL:
     lib.retrieval_score_launch.argtypes = [P, P, P, P, P,
                                            I, I, I, I, I, I, I, P]
     lib.retrieval_score_launch.restype = I
+    lib.block_summary_launch.argtypes = [P, P, P, P, P, P,
+                                         I, I, I, I, I, I, P]
+    lib.block_summary_launch.restype = I
+    lib.wkv_launch.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+    lib.wkv_launch.restype = I
     _LIB = lib
     return lib

@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import ref
 
 KERNELS = ("sparse_verify_attention", "paged_prefill_attention",
-           "retrieval_score")
+           "retrieval_score", "block_summary", "wkv")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -211,3 +211,124 @@ def retrieval_scores(q, kmax, kmin, q_weight):
         raise RuntimeError(f"retrieval_score_launch failed with code {err}")
     LAUNCHES["retrieval_score"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4: block summaries
+# ---------------------------------------------------------------------------
+
+def block_summaries_routed(k_flat, src, vlen, tgt, kmax_out, kmin_out,
+                           block_size: int):
+    """Routed per-block key max/min (paper eq. (1)), written in place.
+
+    k_flat: [NP*bs, Hk, Dh] (bf16/fp32 pool); src/vlen/tgt: [N] int
+    (entry e reduces the first ``vlen[e]`` tokens of pool block
+    ``src[e]`` into ``kmax_out[tgt[e]]`` / ``kmin_out[tgt[e]]``, fp32
+    [NP, Hk, Dh]).  Valid length 0 gives 0; entries whose target is the
+    null page 0 are skipped, so its summaries stay 0.  Targets other
+    than 0 must be distinct.  Returns (kmax_out, kmin_out)."""
+    tgt = torch.where(tgt > 0, tgt, torch.full_like(tgt, -1))
+    _summaries(k_flat, src, vlen, tgt, kmax_out, kmin_out, block_size)
+    return kmax_out, kmin_out
+
+
+def block_summaries(k, length, block_size: int):
+    """The reference's contiguous contract, batched: k [B, S, Hk, Dh];
+    length [B].  Returns (kmax, kmin) [B, S // bs, Hk, Dh] fp32, blocks
+    with no valid token 0.  The routed kernel with ``src = tgt = arange``
+    and ``vlen = clip(length - j*bs, 0, bs)``."""
+    b, s, hk, dh = k.shape
+    nb = s // block_size
+    dev = k.device
+    ar = torch.arange(nb, device=dev)
+    vlen = torch.clamp(length.long()[:, None] - ar[None] * block_size, 0,
+                       block_size)
+    ids = (torch.arange(b, device=dev)[:, None] * nb + ar[None]).reshape(-1)
+    kmax = torch.empty((b * nb, hk, dh), dtype=torch.float32, device=dev)
+    kmin = torch.empty_like(kmax)
+    k_flat = k[:, : nb * block_size].reshape(b * nb * block_size, hk, dh)
+    _summaries(k_flat, ids, vlen.reshape(-1), ids, kmax, kmin, block_size)
+    return kmax.reshape(b, nb, hk, dh), kmin.reshape(b, nb, hk, dh)
+
+
+def _summaries(k_flat, src, vlen, tgt, kmax_out, kmin_out, block_size):
+    """K4 launch (negative targets skipped) or, for CPU tensors, its
+    plain version."""
+    dev = k_flat.device
+    _check("k", k_flat, dtype=tuple(_DTYPES), ndim=3)
+    for name, a in (("src", src), ("vlen", vlen), ("tgt", tgt)):
+        _check(name, a, ndim=1, device=dev)
+    for name, a in (("kmax", kmax_out), ("kmin", kmin_out)):
+        _check(name, a, dtype=torch.float32, ndim=3, device=dev)
+    s, hk, dh = k_flat.shape
+    n = src.shape[0]
+    if (s % block_size or vlen.shape[0] != n or tgt.shape[0] != n
+            or kmax_out.shape[1:] != (hk, dh)
+            or kmin_out.shape != kmax_out.shape):
+        raise ValueError(f"shape mismatch: pool {tuple(k_flat.shape)}, "
+                         f"bs {block_size}, lists {n}, "
+                         f"out {tuple(kmax_out.shape)}")
+    if dev.type == "cpu":
+        ref.block_summary_routed(k_flat, src, vlen, tgt, kmax_out, kmin_out,
+                                 block_size)
+        return
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    src, vlen, tgt = (a.to(torch.int32).contiguous() for a in (src, vlen, tgt))
+    from repro_torch.kernels.build import load_library
+    lib = load_library()
+    err = lib.block_summary_launch(
+        _ptr(k_flat), _ptr(src), _ptr(vlen), _ptr(tgt), _ptr(kmax_out),
+        _ptr(kmin_out), n, s // block_size, block_size, hk, dh,
+        _DTYPES[k_flat.dtype], _stream())
+    if err != 0:
+        raise RuntimeError(f"block_summary_launch failed with code {err}")
+    LAUNCHES["block_summary"] += 1
+
+
+# ---------------------------------------------------------------------------
+# K5: RWKV-6 WKV recurrence
+# ---------------------------------------------------------------------------
+
+def wkv(r, k, v, w, u, s0, n_valid=None, *, update: bool = True):
+    """The Finch WKV recurrence, one step per token.
+
+    r/k/v/w: [B, T, H, dk] fp32; u: [H, dk] fp32; s0: [B, H, dk, dk]
+    fp32; n_valid: [B] int valid prefix per row (default T): later steps
+    give y but leave the state.  Returns (y [B, T, H, dk] fp32, state):
+    the final state as a new tensor, or ``s0`` itself when ``update`` is
+    False (read-only chain verification)."""
+    dev = r.device
+    for name, a in (("r", r), ("k", k), ("v", v), ("w", w)):
+        _check(name, a, dtype=torch.float32, ndim=4, device=dev)
+    _check("u", u, dtype=torch.float32, ndim=2, device=dev)
+    _check("s0", s0, dtype=torch.float32, ndim=4, device=dev)
+    b, t, h, dk = r.shape
+    if (k.shape != r.shape or v.shape != r.shape or w.shape != r.shape
+            or tuple(u.shape) != (h, dk) or tuple(s0.shape) != (b, h, dk, dk)):
+        raise ValueError(f"shape mismatch: r {tuple(r.shape)}, "
+                         f"u {tuple(u.shape)}, s0 {tuple(s0.shape)}")
+    if n_valid is None:
+        n_valid = torch.full((b,), t, dtype=torch.int32, device=dev)
+    _check("n_valid", n_valid, ndim=1, device=dev)
+    if n_valid.shape[0] != b:
+        raise ValueError("n_valid must be [B]")
+    if dev.type == "cpu":
+        y, s = ref.wkv_batched(r, k, v, w, u, s0, n_valid)
+        return y, (s if update else s0)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    if dk != 64:
+        raise ValueError(f"head size {dk}: the kernel is built for 64")
+    n_valid = n_valid.to(torch.int32).contiguous()
+    from repro_torch.kernels.build import load_library
+    lib = load_library()
+    y = torch.empty_like(r)
+    s_out = torch.empty_like(s0) if update else s0
+    err = lib.wkv_launch(_ptr(r), _ptr(k), _ptr(v), _ptr(w), _ptr(u),
+                         _ptr(s0), _ptr(n_valid), _ptr(y), _ptr(s_out), b, t,
+                         h, dk, int(update), _stream())
+    if err != 0:
+        raise RuntimeError(f"wkv_launch failed with code {err}")
+    LAUNCHES["wkv"] += 1
+    return y, s_out

@@ -111,3 +111,96 @@ def retrieval_score_ref(q, kmax, kmin, q_weight):
     Returns [Hk, NB] fp32."""
     return retrieval_score_batched(q[None], kmax[None], kmin[None],
                                    q_weight[None])[0]
+
+
+# ---------------------------------------------------------------------------
+# K4: block summaries (paper eq. (1))
+# ---------------------------------------------------------------------------
+
+def block_summary_ref(k, length, block_size: int):
+    """One row, the reference oracle's contract: k [S, Hk, Dh]; length
+    scalar.  Per-block elementwise key max/min over the valid tokens
+    ``< length``; a block with no valid token gives 0 (as the reference
+    code does, whatever its docstring says).  Returns (kmax, kmin)
+    [S // block_size, Hk, Dh] fp32."""
+    s, hk, dh = k.shape
+    nb = s // block_size
+    kb = k[: nb * block_size].float().reshape(nb, block_size, hk, dh)
+    tok = (torch.arange(nb, device=k.device)[:, None] * block_size
+           + torch.arange(block_size, device=k.device)[None])
+    valid = (tok < length)[..., None, None]
+    kmax = torch.where(valid, kb, torch.full_like(kb, NEG)).amax(dim=1)
+    kmin = torch.where(valid, kb, torch.full_like(kb, -NEG)).amin(dim=1)
+    any_valid = valid.any(dim=1)
+    return (torch.where(any_valid, kmax, torch.zeros_like(kmax)),
+            torch.where(any_valid, kmin, torch.zeros_like(kmin)))
+
+
+def block_summary_routed(k_flat, src, vlen, tgt, kmax_out, kmin_out,
+                         block_size: int):
+    """The routed form of K4, in place.  k_flat: [NP*bs, Hk, Dh]; src,
+    vlen, tgt: [N] int.  Entry e reduces the first ``vlen[e]`` tokens of
+    pool block ``src[e]`` (clipped to the pool) and writes the fp32
+    result to ``kmax_out[tgt[e]]`` / ``kmin_out[tgt[e]]`` ([NT, Hk, Dh]);
+    ``vlen`` 0 gives 0 and a negative target is skipped.  Targets of
+    the entries that write must be distinct."""
+    nb = k_flat.shape[0] // block_size
+    hk, dh = k_flat.shape[1:]
+    ids = torch.clamp(src.long(), 0, nb - 1)
+    kb = k_flat[: nb * block_size].reshape(nb, block_size, hk, dh)[ids]
+    kb = kb.float()                                              # [N,bs,Hk,Dh]
+    valid = (torch.arange(block_size, device=k_flat.device)[None]
+             < vlen.long()[:, None])[..., None, None]
+    kmax = torch.where(valid, kb, torch.full_like(kb, NEG)).amax(dim=1)
+    kmin = torch.where(valid, kb, torch.full_like(kb, -NEG)).amin(dim=1)
+    any_valid = (vlen > 0)[:, None, None]
+    kmax = torch.where(any_valid, kmax, torch.zeros_like(kmax))
+    kmin = torch.where(any_valid, kmin, torch.zeros_like(kmin))
+    # written without a boolean-mask gather, so the host never waits on
+    # the device: skipped entries add zeros into row 0 and mark nothing
+    keep = tgt >= 0
+    t = torch.clamp(tgt.long(), min=0)
+    hit = torch.zeros(kmax_out.shape[0], dtype=torch.int32,
+                      device=k_flat.device).scatter_reduce(
+        0, t, keep.to(torch.int32), "amax")
+    hit = (hit > 0)[:, None, None]
+    for out, val in ((kmax_out, kmax), (kmin_out, kmin)):
+        new = torch.zeros_like(out).index_add_(
+            0, t, torch.where(keep[:, None, None], val,
+                              torch.zeros_like(val)))
+        out.copy_(torch.where(hit, new, out))
+    return kmax_out, kmin_out
+
+
+# ---------------------------------------------------------------------------
+# K5: RWKV-6 WKV recurrence
+# ---------------------------------------------------------------------------
+
+def wkv_batched(r, k, v, w, u, s0, n_valid):
+    """The Finch recurrence for a batch of rows, one step per token:
+
+        y_t = r_t (s + diag(u) k_t v_t^T),   s <- diag(w_t) s + k_t v_t^T
+
+    r/k/v/w: [B, T, H, dk] fp32; u: [H, dk]; s0: [B, H, dk, dk] fp32;
+    n_valid: [B] int, the valid prefix of each row.  Steps at or past
+    ``n_valid`` still give ``y`` from their own k, v (as the reference's
+    masked scan does) but leave the state as it was.  Returns
+    (y [B, T, H, dk], s [B, H, dk, dk]) fp32."""
+    t_len = r.shape[1]
+    s = s0.float()
+    uu = u.float()[None, :, :, None]
+    ys = []
+    for t in range(t_len):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]           # [B,H,dk,dk]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], s + uu * kv))
+        s_new = w[:, t, :, :, None] * s + kv
+        s = torch.where((t < n_valid)[:, None, None, None], s_new, s)
+    return torch.stack(ys, dim=1), s
+
+
+def wkv_ref(r, k, v, w, u, s0):
+    """One row, the reference oracle's signature: r/k/v/w [T, H, dk];
+    u [H, dk]; s0 [H, dk, dk].  Returns (y [T, H, dk], s [H, dk, dk])."""
+    n = torch.full((1,), r.shape[0], dtype=torch.long, device=r.device)
+    y, s = wkv_batched(r[None], k[None], v[None], w[None], u, s0[None], n)
+    return y[0], s[0]

@@ -223,8 +223,11 @@ def paged_update_summaries(kmax_p, kmin_p, pool_l, page_table, start, end,
     """Recompute (in place) the physical-page summaries of the logical
     blocks covering [start, end) of each row.  kmax_p/kmin_p:
     [NP, Hk, Dh]; pool_l: [NP, block, Hk, Dh]; n_touch: static bound on
-    touched blocks per row.  Out-of-range targets go to the null page,
-    which is reset to zero afterwards."""
+    touched blocks per row.  The block-summary kernel (K4) reduces each
+    touched block's valid prefix in place; out-of-range and unallocated
+    targets route to the null page, which the kernel skips, so its
+    summaries stay 0 (the reference resets them after its scatter)."""
+    from repro_torch.kernels import ops
     np_, blk, hk, dh = pool_l.shape
     b, nb = page_table.shape
     dev = pool_l.device
@@ -232,14 +235,9 @@ def paged_update_summaries(kmax_p, kmin_p, pool_l, page_table, start, end,
     in_range = (tb < ((end.long() + blk - 1) // blk)[:, None]) & (tb < nb)
     tbc = torch.clamp(tb, max=nb - 1)
     pg = torch.gather(page_table.long(), 1, tbc)               # [B, NT]
-    keys = pool_l[pg].float()                                   # [B,NT,blk,Hk,Dh]
-    pos = tbc[:, :, None] * blk + torch.arange(blk, device=dev)[None, None]
-    valid = (pos < end.long()[:, None, None])[..., None, None]
-    kmax_new = torch.where(valid, keys, torch.full_like(keys, -1e30)).amax(2)
-    kmin_new = torch.where(valid, keys, torch.full_like(keys, 1e30)).amin(2)
-    tgt = torch.where(in_range & (pg > 0), pg, torch.zeros_like(pg)).reshape(-1)
-    kmax_p.index_put_((tgt,), kmax_new.reshape(-1, hk, dh))
-    kmin_p.index_put_((tgt,), kmin_new.reshape(-1, hk, dh))
-    kmax_p[0] = 0.0
-    kmin_p[0] = 0.0
+    vlen = torch.clamp(end.long()[:, None] - tbc * blk, 0, blk)
+    tgt = torch.where(in_range, pg, torch.zeros_like(pg))
+    ops.block_summaries_routed(pool_l.view(np_ * blk, hk, dh),
+                               pg.reshape(-1), vlen.reshape(-1),
+                               tgt.reshape(-1), kmax_p, kmin_p, blk)
     return kmax_p, kmin_p

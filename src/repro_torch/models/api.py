@@ -1,10 +1,15 @@
 """Model API of the port (counterpart of ``repro/models/api.py``, dense
-attention architectures):
+attention and RWKV-6 state architectures):
 
   init_params(cfg, seed, device)               -> params dict
   init_cache(cfg, batch, max_len, spec, ...)   -> cache dict
   prefill(cfg, params, tokens, cache, ...)     -> (logits_last, features, cache)
   decode(cfg, params, tokens, positions, cache, ...) -> DecodeOut
+  advance(cfg, params, tokens, cache, valid)   -> cache   (ssm)
+
+Attention archs expose the SpecPV verification modes through
+``decode(mode=...)``; the state arch does read-only chain verification
+in ``decode`` and commits the accepted prefix with ``advance``.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import dense as dn
+from repro_torch.models import rwkv6 as rw
 
 
 class Features(NamedTuple):
@@ -36,6 +42,8 @@ class DecodeOut(NamedTuple):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+    if cfg.arch_type == "ssm":
+        return rw.init_params(cfg, seed, device)
     return dn.init_params(cfg, seed, device)
 
 
@@ -44,10 +52,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                num_pages: Optional[int] = None, device=None) -> dict:
     """Cache dict.  ``paged=True`` backs it with a shared block pool
     [L, NumPages, block, ...] plus per-slot page tables (page 0 is the
-    null page, so ``num_pages`` defaults to ``batch * S_max/block + 1``)."""
-    dn._check_dense(cfg)
+    null page, so ``num_pages`` defaults to ``batch * S_max/block + 1``).
+    The state arch keeps its O(1) recurrent state instead (no paging)."""
     dev = resolve_device(device)
     dtype = cm.dt(cfg.dtype)
+    if cfg.arch_type == "ssm":
+        if paged:
+            raise ValueError("paged KV is attention-only (state archs keep "
+                             "O(1) state)")
+        return rw.init_state(cfg, batch, dtype, dev)
+    dn._check_dense(cfg)
     l_attn = cfg.num_layers
     hk, dh = cfg.num_kv_heads, cfg.head_dim_
     block = spec.block_size if spec else 128
@@ -79,6 +93,10 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *,
     place).  Returns (logits [B, V] of the last token, features, the
     cache with its advanced length)."""
     b, t = tokens.shape
+    if cfg.arch_type == "ssm":
+        h, feats, cache = rw.forward(cfg, params, tokens, cache)
+        logits = rw.lm_head(cfg, params, h[:, -1:])[:, 0]
+        return logits, Features(*feats), cache
     positions = cache["length"][:, None] + torch.arange(
         t, device=tokens.device, dtype=torch.int32)[None]
     hh = dn.embed_tokens(cfg, params, tokens)
@@ -94,8 +112,13 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
            partial_rows=None, pkv_blocks=None) -> DecodeOut:
     """Forward T new (tree) tokens; ``mode`` is "full" | "partial" |
     "fused" (``partial_rows`` [B] marks the rows that read the zero-copy
-    partial context, routed by ``pkv_blocks`` [L, B, Hk, NS])."""
+    partial context, routed by ``pkv_blocks`` [L, B, Hk, NS]).  The
+    state arch always does read-only chain verification: the state is
+    left as it was and ``new_kv`` is None."""
     b, t = tokens.shape
+    if cfg.arch_type == "ssm":
+        h, feats, _ = rw.forward(cfg, params, tokens, cache, update=False)
+        return DecodeOut(rw.lm_head(cfg, params, h), Features(*feats), None)
     if self_mask is None:
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                        device=tokens.device))
@@ -110,3 +133,15 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
     logits = dn.lm_head(cfg, params, out.h)
     return DecodeOut(logits, Features(*out.features), out.new_kv,
                      out.queries)
+
+
+def advance(cfg: ModelConfig, params, tokens, cache, valid):
+    """State archs: commit accepted tokens [B, T] (``valid`` [B, T] is a
+    prefix mask; padding leaves the state as it was) into the recurrent
+    state, in place.  Returns the cache with the advanced length."""
+    if cfg.arch_type != "ssm":
+        raise ValueError("attention archs commit KV explicitly "
+                         "(repro_torch.core.verify)")
+    _, _, cache = rw.forward(cfg, params, tokens, cache, valid=valid,
+                             collect_features=False)
+    return cache

@@ -51,11 +51,23 @@ def rmsnorm(x, scale, eps: float = 1e-5):
     return (y * scale.float()).to(x.dtype)
 
 
+def groupnorm_heads(x, scale, bias, eps: float = 1e-5):
+    """Per-head groupnorm of the RWKV time-mix output.  x: [..., H, Dh]
+    (population variance, as ``jnp.var``)."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
 def act_fn(name: str):
     if name == "silu":
         return F.silu
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu_sq":
+        return lambda x: torch.square(F.relu(x))
     raise ValueError(name)
 
 

@@ -9,7 +9,9 @@ A kernel and its plain version widen the same inputs to fp32 and differ
 only in summation order, so in both dtypes each output (m, l, acc, the
 normalised attention, the scores) must agree to 1e-4 of its largest
 magnitude: tight enough that a dropped 32-key tile fails.  The masked
-sentinel m = -1e30 must match exactly.  (The reference's 3e-2 bf16
+sentinel m = -1e30 must match exactly.  The block summaries (K4) are
+max/min and the WKV recurrence (K5) is fp32 throughout, so both are held
+to the same check.  (The reference's 3e-2 bf16
 tolerance is for comparisons with JAX, whose q scaling differs.)  fp32
 results are compared, so the fixture turns TF32 off for matmuls and
 convolutions (the plain versions' products).
@@ -128,3 +130,64 @@ def test_cuda_retrieval_scores_match_plain(cuda, dtype):
     want = tref.retrieval_score_batched(q, kmax, kmin, qw)
     _assert_close(got, want)
     assert math.isfinite(got.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_block_summaries_match_plain(cuda, dtype):
+    """K4, routed (ragged, empty, clipped, null-page target) and
+    contiguous, against its plain versions."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    npg, bs, hk, dh = 12, 128, 8, 128
+    pool = torch.randn((npg * bs, hk, dh), generator=g,
+                       device=cuda).to(TDT[dtype])
+    src = torch.tensor([5, 2, 11, 7, 40], dtype=torch.int32, device=cuda)
+    vlen = torch.tensor([128, 37, 0, 1, 128], dtype=torch.int32, device=cuda)
+    tgt = torch.tensor([5, 2, 11, 0, 9], dtype=torch.int32, device=cuda)
+    outs = [torch.zeros((npg, hk, dh), device=cuda) for _ in range(4)]
+    before = tops.LAUNCHES["block_summary"]
+    tops.block_summaries_routed(pool, src, vlen, tgt, outs[0], outs[1], bs)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["block_summary"] == before + 1
+    tref.block_summary_routed(pool, src, vlen, torch.where(tgt > 0, tgt, -1),
+                              outs[2], outs[3], bs)
+    _assert_close(outs[0], outs[2])
+    _assert_close(outs[1], outs[3])
+    assert float(outs[0][0].abs().max()) == 0.0       # null page untouched
+    k = pool.reshape(2, npg * bs // 2, hk, dh)
+    length = torch.tensor([700, 129], device=cuda)
+    got = tops.block_summaries(k, length, bs)
+    torch.cuda.synchronize()
+    for i in range(2):
+        want = tref.block_summary_ref(k[i], int(length[i]), bs)
+        _assert_close(got[0][i], want[0])
+        _assert_close(got[1][i], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 6, 256])
+def test_cuda_wkv_matches_plain(cuda, t):
+    """K5 at rwkv6-3b head shapes (H 40, dk 64), fp32, with one full row
+    and one padded row, and the read-only form."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    b, h, dk = 2, 40, 64
+    r, k, v = (torch.randn((b, t, h, dk), generator=g, device=cuda) * 0.5
+               for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, t, h, dk), generator=g,
+                                         device=cuda) - 2.0))
+    u = torch.randn((h, dk), generator=g, device=cuda) * 0.5
+    s0 = torch.randn((b, h, dk, dk), generator=g, device=cuda)
+    n_valid = torch.tensor([t, t // 2], dtype=torch.int32, device=cuda)
+    before = tops.LAUNCHES["wkv"]
+    y, s = tops.wkv(r, k, v, w, u, s0, n_valid)
+    y_ro, s_ro = tops.wkv(r, k, v, w, u, s0, n_valid, update=False)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["wkv"] == before + 2
+    want_y, want_s = tref.wkv_batched(r, k, v, w, u, s0, n_valid)
+    _assert_close(y, want_y)
+    _assert_close(s, want_s)
+    assert torch.equal(y_ro, y) and s_ro is s0
+    if t // 2 == 0:
+        assert torch.equal(s[1], s0[1])

@@ -5,7 +5,9 @@ On the CPU the port's wrappers run their kernels' plain versions
 (``repro/kernels/ref.py``) and the JAX wrappers with ``use_pallas=True``
 (Pallas interpret mode, as ``tests/test_kernels.py`` runs them), on the
 same numpy inputs.  Tolerances are the reference's: attention partials
-1e-4 in fp32 and 3e-2 in bf16, scores 2e-3.
+1e-4 in fp32 and 3e-2 in bf16, scores 2e-3, summaries 1e-6.  The WKV
+recurrence (K5) is held to ``repro/kernels/wkv_scan.py:wkv_ref`` at 1e-5
+in fp32 (the Pallas form fails under the installed jax).
 
 The CUDA kernels themselves are held against these plain versions in
 ``tests/test_torch_cuda.py`` (on the card only).
@@ -20,6 +22,9 @@ from repro.kernels import ref as jref
 from repro.kernels.prefill_attention import paged_prefill_attention_pallas
 from repro.kernels.retrieval_score import retrieval_score_pallas
 from repro.kernels.sparse_attention import sparse_verify_attention_pallas
+from repro.kernels.wkv_scan import wkv_ref as j_wkv_ref
+from repro.kvcache import cache as jkvc
+from repro_torch.kvcache import cache as tkvc
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -209,6 +214,148 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         tops.retrieval_scores(q, torch.zeros((1, 3, 2, 16)),
                               torch.zeros((1, 3, 2, 16)), torch.zeros((1, 5)))
+    x = torch.zeros((1, 3, 2, 8))
+    with pytest.raises(ValueError):
+        tops.wkv(x, x, x, x, torch.zeros((2, 8)), torch.zeros((1, 2, 8, 4)))
+    with pytest.raises(TypeError):
+        tops.wkv(x.double(), x, x, x, torch.zeros((2, 8)),
+                 torch.zeros((1, 2, 8, 8)))
+    with pytest.raises(ValueError):
+        tops.block_summaries_routed(pool.reshape(48, 2, 16),
+                                    torch.zeros(2, dtype=torch.int32),
+                                    torch.zeros(3, dtype=torch.int32),
+                                    torch.zeros(2, dtype=torch.int32),
+                                    torch.zeros((3, 2, 16)),
+                                    torch.zeros((3, 2, 16)), 16)
+
+
+# ---------------------------------------------------------------------------
+# K4: block summaries
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_summaries_match_pallas_interpret(dtype):
+    """The contiguous contract: full, ragged, empty and length-0 rows."""
+    rng = np.random.default_rng(11)
+    bs, nb, hk, dh = 16, 5, 2, 8
+    k = rng.normal(size=(4, nb * bs + 3, hk, dh))   # a ragged tail past NB
+    length = np.asarray([nb * bs, 37, 0, 16], np.int32)
+    kj, kt = _pair(k, dtype)
+    want = jops.block_summaries(kj, jnp.asarray(length), block_size=bs,
+                                use_pallas=True)
+    got = tops.block_summaries(kt.contiguous(), torch.from_numpy(length), bs)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-6)
+    oracle = tref.block_summary_ref(kt[1], 37, bs)
+    for g, w in zip(oracle, jref.block_summary_ref(kj[1], 37, bs)):
+        _close(g, w, 1e-6)
+    assert float(got[0][2].abs().max()) == 0.0      # length 0: all zero
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_routed_block_summaries_match_oracle(dtype):
+    """Routed entries (ragged, length 0, a clipped id, null-page target)
+    against the reference oracle on each source block."""
+    rng = np.random.default_rng(12)
+    npg, bs, hk, dh = 6, 16, 2, 8
+    pool = rng.normal(size=(npg, bs, hk, dh))
+    src = np.asarray([3, 1, 5, 2, 9], np.int32)     # 9 clips to page 5
+    vlen = np.asarray([16, 7, 0, 3, 16], np.int32)
+    tgt = np.asarray([3, 1, 5, 0, 4], np.int32)     # entry 3 hits the null page
+    pj, pt = _pair(pool, dtype)
+    kmax = torch.zeros((npg, hk, dh))
+    kmin = torch.zeros((npg, hk, dh))
+    tops.block_summaries_routed(pt.reshape(npg * bs, hk, dh),
+                                torch.from_numpy(src), torch.from_numpy(vlen),
+                                torch.from_numpy(tgt), kmax, kmin, bs)
+    for e in range(len(src)):
+        if tgt[e] == 0:
+            continue
+        w = jref.block_summary_ref(pj[min(src[e], npg - 1)], int(vlen[e]), bs)
+        _close(kmax[tgt[e]], w[0][0], 1e-6)
+        _close(kmin[tgt[e]], w[1][0], 1e-6)
+    untouched = [p for p in range(npg) if p not in tgt[tgt > 0]]
+    assert all(float(kmax[p].abs().max()) == 0.0 for p in untouched)
+    assert 0 in untouched
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_update_summaries_matches_jax(dtype):
+    """The paged cache's summary update (the K4 route on the card)
+    against the reference's, from a zeroed pool: the null page stays 0."""
+    rng = np.random.default_rng(13)
+    npg, bs, hk, dh = 9, 8, 2, 4
+    pool = rng.normal(size=(npg, bs, hk, dh))
+    pt = np.asarray([[3, 1, 5, 0], [2, 6, 4, 8]], np.int32)
+    start = np.asarray([6, 13], np.int32)
+    end = np.asarray([21, 30], np.int32)
+    pj, ptt = _pair(pool, dtype)
+    z = np.zeros((npg, hk, dh), np.float32)
+    wj = jkvc.paged_update_summaries(jnp.asarray(z), jnp.asarray(z), pj,
+                                     jnp.asarray(pt), jnp.asarray(start),
+                                     jnp.asarray(end), 3)
+    wt = tkvc.paged_update_summaries(torch.zeros(npg, hk, dh),
+                                     torch.zeros(npg, hk, dh), ptt,
+                                     torch.from_numpy(pt),
+                                     torch.from_numpy(start),
+                                     torch.from_numpy(end), 3)
+    for g, w in zip(wt, wj):
+        _close(g, w, 1e-6)
+        assert float(g[0].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# K5: WKV recurrence
+# ---------------------------------------------------------------------------
+
+def _wkv_case(rng, b, t, h=3, dk=8):
+    r, k, v = (rng.normal(size=(b, t, h, dk)).astype(np.float32)
+               for _ in range(3))
+    w = np.exp(-np.exp(rng.normal(-2.0, 1.0, (b, t, h, dk)))).astype(
+        np.float32)
+    u = rng.normal(size=(h, dk)).astype(np.float32)
+    s0 = rng.normal(size=(b, h, dk, dk)).astype(np.float32)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("t", [1, 6, 70])
+def test_wkv_matches_reference_oracle(t):
+    rng = np.random.default_rng(20 + t)
+    r, k, v, w, u, s0 = _wkv_case(rng, 2, t)
+    y, s = tops.wkv(*(torch.from_numpy(a) for a in (r, k, v, w, u, s0)))
+    for i in range(2):
+        yj, sj = j_wkv_ref(r[i], k[i], v[i], w[i], u, s0[i])
+        _close(y[i], yj, 1e-5)
+        _close(s[i], sj, 1e-5)
+    y1, s1 = tref.wkv_ref(*(torch.from_numpy(a) for a in
+                            (r[0], k[0], v[0], w[0], u, s0[0])))
+    _close(y1, y[0], 0)
+    _close(s1, s[0], 0)
+
+
+def test_wkv_padded_valid_and_read_only():
+    """Steps past a row's valid prefix give y from their own k, v over
+    the state left at the prefix, and leave that state bit for bit;
+    ``update=False`` returns the initial state itself."""
+    rng = np.random.default_rng(30)
+    t = 6
+    r, k, v, w, u, s0 = _wkv_case(rng, 3, t)
+    n_valid = np.asarray([6, 2, 0], np.int32)
+    args = [torch.from_numpy(a) for a in (r, k, v, w, u, s0)]
+    y, s = tops.wkv(*args, torch.from_numpy(n_valid))
+    for i, n in enumerate(n_valid):
+        yj, sj = j_wkv_ref(r[i, :n], k[i, :n], v[i, :n], w[i, :n], u, s0[i])
+        _close(y[i, :n], yj, 1e-5)
+        _close(s[i], sj, 1e-5)
+        for tt in range(n, t):     # padded: one step from the prefix state
+            yp, _ = j_wkv_ref(r[i, tt:tt + 1], k[i, tt:tt + 1],
+                              v[i, tt:tt + 1], w[i, tt:tt + 1], u, sj)
+            _close(y[i, tt], yp[0], 1e-5)
+    np.testing.assert_array_equal(s[2].numpy(), s0[2])
+    y_ro, s_ro = tops.wkv(*args, update=False)
+    assert s_ro is args[5]
+    y_full, _ = tops.wkv(*args)
+    np.testing.assert_array_equal(y_ro.numpy(), y_full.numpy())
 
 
 def test_cpu_tensors_never_launch():
@@ -220,4 +367,8 @@ def test_cpu_tensors_never_launch():
                                   torch.from_numpy(pv).float(),
                                   torch.from_numpy(idx),
                                   torch.from_numpy(vlen))
+    r, k, v, w, u, s0 = _wkv_case(rng, 1, 4)
+    tops.wkv(*(torch.from_numpy(a) for a in (r, k, v, w, u, s0)))
+    tops.block_summaries(torch.from_numpy(pk).float(),
+                         torch.tensor([20, 3, 0, 5, 9, 1, 16]), 16)
     assert all(v == 0 for v in tops.LAUNCHES.values())
