@@ -12,13 +12,19 @@ Phases, in order (any failure raises and the script exits non-zero):
    block 128; K5 at rwkv6-3b: fp32, H=40, dk=64), with its time, its
    plain version's time, the least time the card could take (bound)
    and, where one PyTorch call computes the same function, that call's
-   time (SDPA for the paged prefill, ``torch.aminmax`` for the block
-   summaries);
+   time (SDPA over the gathered keys for the verify attention and the
+   paged prefill, ``torch.aminmax`` for the block summaries).  K1 and K2
+   run in bf16 on the tensor-core kernel (K1 split over the block list
+   and merged in the same launch) and in fp32 on the CUDA-core kernel;
+   a kernel's time is the device time of every kernel one wrapper call
+   launches;
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
    an 8192-token prompt, 128 new tokens), with every kernel's launch
-   count set to 0 just before and read just after; then a few decode
-   steps under ``torch.profiler`` (device time by kernel, idle share);
+   count set to 0 just before and read just after, the prefill timed
+   apart from decode (host clock after a synchronisation); then a few
+   decode steps under ``torch.profiler`` (device time by kernel, idle
+   share);
 4. losslessness at full width, 4 layers, fp32 (TF32 off): ``generate``
    with full verification equals the port's autoregressive decoding
    token for token, then a partial-verification run;
@@ -116,12 +122,14 @@ class Timer:
     whose host work outlasts the spin would let host time in: it is
     dropped and redone behind a spin twice as long.
 
-    ``kernel_ms`` reads one kernel's own duration per launch from
-    ``torch.profiler`` (CUPTI) over the same flushed calls."""
+    ``kernel_ms`` reads the device time of one call, summed over every
+    kernel the call launches, from ``torch.profiler`` (CUPTI) over the
+    same flushed calls."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+        self.per_call = 0        # kernels the last ``kernel_ms`` call saw
 
     def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
         torch = self.torch
@@ -174,6 +182,9 @@ class Timer:
         return total / iters
 
     def kernel_ms(self, fn, kernel: str, iters: int = 10) -> float:
+        """Device time of one call of ``fn``: the durations of all the
+        kernels whose names contain ``kernel`` that the call launches
+        (an attention kernel and any merge kernel alike), summed."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
@@ -190,17 +201,19 @@ class Timer:
                     if getattr(e, "device_type", None) == DeviceType.CUDA
                     and kernel in e.key]
             count = sum(e.count for e in rows)
-            if count == iters:
+            if count and count % iters == 0:
                 break
+        if count == 0:
+            raise RuntimeError(f"profiler saw no launch of {kernel}")
         # the profiler has been seen to drop records of ~10 us kernels;
         # after three tries the mean over the records it kept is used
-        if not 0 < count <= iters:
-            raise RuntimeError(f"profiler saw {count} launches of {kernel}, "
-                               f"expected {iters}")
-        if count != iters:
-            print(f"note: profiler kept {count} of {iters} launches of "
-                  f"{kernel}; ms is their mean", flush=True)
-        return sum(_dev_us(e) for e in rows) / count / 1e3
+        per_call = -(-count // iters)
+        self.per_call = per_call
+        if count != per_call * iters:
+            print(f"note: profiler kept {count} of {per_call * iters} "
+                  f"launches of {kernel}; ms is their mean x {per_call}",
+                  flush=True)
+        return sum(_dev_us(e) for e in rows) / count * per_call / 1e3
 
 
 def _close(label, got, want, tol=TOL_KERNEL):
@@ -295,7 +308,9 @@ def phase_kernels(torch, card, timer):
     gen.manual_seed(1234)
     results = {}
 
-    def attn_check(label, name, primary=False, **kw):
+    def attn_check(label, name, primary=False, timed=True, **kw):
+        """One K1/K2 case held to its plain version; a timed case also
+        gets its kernel, plain, bound and SDPA times."""
         args, nbytes, flops, table, pool_k, pool_v = _attn_case(torch, gen, **kw)
         q, kf, vf, idx, vlen, bs, qoff = args
         got = ops.block_attention(q, kf, vf, idx, vlen, bs, q_offset=qoff)
@@ -309,36 +324,62 @@ def phase_kernels(torch, card, timer):
                    ("acc", got[2], want[2]), ("out", out_g, out_w)))
         err = max((out_g - out_w).abs().max().item(),
                   (got[0] - want[0]).abs().max().item())
+        if not timed:
+            say(card, f"kernel {label}: max_abs_err {err:.3e} max_rel_err "
+                      f"{rel:.3e} (tol {TOL_KERNEL} of max |plain| on m, l, "
+                      f"acc, out)")
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+            return
         before = dict(ops.LAUNCHES)
 
         def launch():
             return ops.block_attention(q, kf, vf, idx, vlen, bs,
                                        q_offset=qoff)
-        ms = timer.kernel_ms(launch, "block_attention_kernel")
+        ms = timer.kernel_ms(launch, "block_attention")
+        if timer.per_call > 2:
+            raise AssertionError(f"{label}: {timer.per_call} launches per "
+                                 f"call, at most 2 allowed")
         event_ms = timer(launch)
         ops.LAUNCHES.update(before)        # timing launches are not the path's
         plain_ms = timer(lambda: ref.block_attention_batched(
             q, kf, vf, idx, vlen, bs, q_offset=qoff), iters=3, warmup=1)
         bound, by = _bound_ms(nbytes, flops, PEAK_BF16_S)
-        lib_ms = None
-        if qoff is not None:
-            # the yardstick: torch SDPA over the gathered view, same mask
-            t = q.shape[1]
+        # the yardstick: one torch SDPA call over the gathered keys with
+        # the same mask (GQA: 4 query heads share each KV head)
+        qh = q.transpose(1, 2)
+        hk_, dh_ = kf.shape[1:]
+        if kw.get("routed_ns"):
+            # per-head routed blocks, masked to their valid lengths
+            hsel = torch.arange(hk_, device="cuda")[:, None]
+            ids = idx[0].long()                                  # [Hk, NS]
+            kh_ = pool_k.permute(2, 0, 1, 3)[hsel, ids].reshape(1, hk_, -1,
+                                                                  dh_)
+            vh_ = pool_v.permute(2, 0, 1, 3)[hsel, ids].reshape(1, hk_, -1,
+                                                                  dh_)
+            valid = (torch.arange(bs, device="cuda")[None, None]
+                     < vlen[0][..., None]).reshape(hk_, -1)
+            mask = valid.repeat_interleave(q.shape[2] // hk_, 0)[None, :,
+                                                                  None]
+        else:
             ctx = kw["ctx"]
-            kv_k = pool_k[table[0].long()].reshape(1, -1, 8, 128)[:, :ctx]
-            kv_v = pool_v[table[0].long()].reshape(1, -1, 8, 128)[:, :ctx]
-            qpos = kw["causal_qoff"] + torch.arange(t, device="cuda")
-            mask = torch.arange(ctx, device="cuda")[None] <= qpos[:, None]
-            qh = q.transpose(1, 2)
-            kh_, vh_ = kv_k.transpose(1, 2), kv_v.transpose(1, 2)
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qh, kh_, vh_, attn_mask=mask, enable_gqa=True))
+            kh_ = pool_k[table[0].long()].reshape(1, -1, hk_, dh_)[:, :ctx] \
+                .transpose(1, 2)
+            vh_ = pool_v[table[0].long()].reshape(1, -1, hk_, dh_)[:, :ctx] \
+                .transpose(1, 2)
+            mask = None
+            if qoff is not None:
+                qpos = kw["causal_qoff"] + torch.arange(q.shape[1],
+                                                        device="cuda")
+                mask = torch.arange(ctx, device="cuda")[None] <= qpos[:, None]
+        lib_ms = timer(lambda: F.scaled_dot_product_attention(
+            qh, kh_, vh_, attn_mask=mask, enable_gqa=True))
         say(card, f"kernel {label}: max_abs_err {err:.3e} max_rel_err "
                   f"{rel:.3e} (tol {TOL_KERNEL} of max |plain| on m, l, acc, "
-                  f"out) ms {ms:.4f} (profiler; events {event_ms:.4f}) "
+                  f"out) ms {ms:.4f} (profiler, {timer.per_call} launch(es) "
+                  f"per call; events {event_ms:.4f}) "
                   f"plain_ms {plain_ms:.4f} bound_us "
-                  f"{bound * 1e3:.2f} ({by}) library_ms "
-                  f"{'none' if lib_ms is None else f'{lib_ms:.4f}'}")
+                  f"{bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (SDPA)")
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                    bound_by=by, library_ms=lib_ms)
         prev = results.get(name)
@@ -358,6 +399,15 @@ def phase_kernels(torch, card, timer):
     attn_check("K2 prefill T=256 qoff=0", k2, t=256, ctx=256, causal_qoff=0)
     attn_check("K2 prefill T=256 qoff=7936", k2, t=256, ctx=8192,
                causal_qoff=7936, primary=True)
+    # the fp32 route (CUDA cores), checked only: it runs in the fp32
+    # losslessness phase, not on the bf16 path
+    f32 = torch.float32
+    attn_check("K1 routed NS=35 T=61 fp32", k1, t=61, ctx=8229, routed_ns=35,
+               dtype=f32, timed=False)
+    attn_check("K1 full T=1 ctx=8229 fp32", k1, t=1, ctx=8229, dtype=f32,
+               timed=False)
+    attn_check("K2 prefill T=256 qoff=7936 fp32", k2, t=256, ctx=8192,
+               causal_qoff=7936, dtype=f32, timed=False)
 
     # K3 at a refresh tick's shapes
     t, h, hk, dh, nb = 156, 32, 8, 128, 66
@@ -571,11 +621,15 @@ def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    decode_s = wall - stats["prefill_s"]
     say(card, f"generate llama3.1-8b (32 layers, bf16, random weights) "
               f"prompt {prompt_len} new {new_tokens}: modes {stats['modes']} "
               f"steps {stats['steps']} mean_accept {stats['mean_accept']:.4f} "
-              f"wall_s {wall:.3f} tokens_per_s {new_tokens / wall:.2f} "
-              f"peak_mem_gib {peak:.2f} launches {launches}")
+              f"wall_s {wall:.3f} (prefill_s {stats['prefill_s']:.3f} "
+              f"decode_s {decode_s:.3f}, ms/step "
+              f"{decode_s * 1e3 / max(stats['steps'], 1):.2f}) tokens_per_s "
+              f"{new_tokens / wall:.2f} peak_mem_gib {peak:.2f} "
+              f"launches {launches}")
     if not (stats["modes"].get("refresh") and stats["modes"].get("partial")):
         raise AssertionError(f"Refresh and Partial ticks must both run: "
                              f"{stats['modes']}")
@@ -747,6 +801,7 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
               f"{dcfg.tree_depth}) prompt {prompt_len} new "
               f"{new_tokens}: modes {stats['modes']} steps {stats['steps']} "
               f"mean_accept {stats['mean_accept']:.4f} wall_s {wall:.3f} "
+              f"(prefill_s {stats['prefill_s']:.3f}) "
               f"tokens_per_s {new_tokens / wall:.2f} peak_mem_gib "
               f"{peak:.2f} wkv_launches {launches['wkv']} (expected "
               f"{cfg.num_layers} x ({chunks} prefill chunks + 2 x "

@@ -24,6 +24,7 @@ token and the accepted prefix.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -585,10 +586,14 @@ class SpecPVEngine:
     def generate(self, prompt: np.ndarray, max_new_tokens: int,
                  eos_id: int = -1, prefill_chunk: int = 256):
         """Greedy SpecPV generation.  Returns (tokens [B, max_new], stats
-        dict with steps, mean_accept, modes and tokens_per_step)."""
+        dict with steps, mean_accept, modes, tokens_per_step and
+        prefill_s: host seconds until the first token reached the host,
+        which waits for the prefill on the device)."""
+        t0 = time.perf_counter()
         st = self.prefill(prompt, chunk=prefill_chunk)
         b = self.batch
         first = st.pending[:, 0].cpu().numpy()
+        prefill_s = time.perf_counter() - t0
         out: List[List[int]] = [[int(first[i])] for i in range(b)]
         pending_max, seq_min = 1, int(st.seq_len.min())
         accepts: List[int] = []
@@ -615,5 +620,6 @@ class SpecPVEngine:
                      mean_accept=(float(np.mean(accepts)) if accepts else 0.0),
                      modes={m: modes.count(m) for m in set(modes)},
                      tokens_per_step=float(np.mean(
-                         [len(o) for o in out]) / max(steps, 1)))
+                         [len(o) for o in out]) / max(steps, 1)),
+                     prefill_s=prefill_s)
         return toks, stats

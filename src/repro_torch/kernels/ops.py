@@ -60,6 +60,38 @@ def _stream():
 # K1 / K2: block-list attention
 # ---------------------------------------------------------------------------
 
+ROWS_PER_CTA = 64      # query rows of one CTA of the bf16 (tensor-core) route
+TARGET_CTAS = 264      # two resident CTAs on each of the H100's 132 SMs
+MAX_SPLITS = 64        # the kernel's bound (block_attention.cu kMaxSplits)
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def kv_splits(b: int, t: int, h: int, hk: int, nsel: int,
+              causal: bool = False) -> int:
+    """How many chunks the bf16 kernel cuts each (row, KV head) block list
+    into (split-KV): enough (row tile, head, chunk) CTAs to fill the card,
+    ``TARGET_CTAS // (B * Hk * row tiles)``, at least 1 and at most one
+    chunk per slot and ``MAX_SPLITS``.  The causal prefill form is not
+    split: its rows fill the card.  ``ref.kv_split_valid_len`` states
+    which blocks each chunk takes."""
+    if causal:
+        return 1
+    tiles = b * hk * -(-(h // hk) * t // ROWS_PER_CTA)
+    return max(1, min(nsel, MAX_SPLITS, TARGET_CTAS // tiles))
+
+
+def _split_counters(n: int, dev) -> torch.Tensor:
+    """The merge counters of the split kernel: int32, zero between
+    launches (the last CTA of each row tile resets its own), so they are
+    zeroed once when allocated and never again.  One set per device;
+    launches that use it run in stream order."""
+    c = _COUNTERS.get(dev)
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = c
+    return c
+
+
 def block_attention(q, k_flat, v_flat, block_idx, block_valid_len,
                     block_size: int, q_offset=None):
     """Block-list attention partials over a flattened pool.
@@ -67,7 +99,9 @@ def block_attention(q, k_flat, v_flat, block_idx, block_valid_len,
     q: [B, T, H, Dh]; k_flat/v_flat: [NP*bs, Hk, Dh]; block_idx/
     block_valid_len: [B, Hk, N] int32; q_offset: optional [B] int32 (the
     causal paged-prefill form, K2).  Returns (m [B, H, T], l [B, H, T],
-    acc [B, H, T, Dh]) fp32."""
+    acc [B, H, T, Dh]) fp32.  On the card bf16 runs on the tensor cores
+    (K1 split over ``kv_splits`` chunks, merged in the same launch) and
+    fp32 on the CUDA cores; either way one launch."""
     dev = q.device
     _check("q", q, dtype=tuple(_DTYPES), ndim=4)
     _check("k", k_flat, dtype=q.dtype, ndim=3, device=dev)
@@ -98,18 +132,32 @@ def block_attention(q, k_flat, v_flat, block_idx, block_valid_len,
             raise ValueError("q_offset must be [B]")
     if dh != 128:
         raise ValueError(f"head dim {dh}: the kernels are built for 128")
+    nsel = block_idx.shape[2]
+    splits = (kv_splits(b, t, h, hk, nsel, q_offset is not None)
+              if q.dtype == torch.bfloat16 else 1)
     from repro_torch.kernels.build import load_library
     lib = load_library()
     m = torch.empty((b, h, t), dtype=torch.float32, device=dev)
     l = torch.empty_like(m)
     acc = torch.empty((b, h, t, dh), dtype=torch.float32, device=dev)
+    part_ml = part_acc = counters = None
+    if splits > 1:
+        slots = b * hk * -(-(h // hk) * t // ROWS_PER_CTA)
+        rows = slots * splits * ROWS_PER_CTA
+        part_ml = torch.empty((2, rows), dtype=torch.float32, device=dev)
+        part_acc = torch.empty((rows, dh), dtype=torch.float32, device=dev)
+        counters = _split_counters(slots, dev)
     err = lib.block_attention_launch(
         _ptr(q), _ptr(k_flat), _ptr(v_flat), _ptr(block_idx),
         _ptr(block_valid_len),
         None if q_offset is None else _ptr(q_offset),
-        _ptr(m), _ptr(l), _ptr(acc), b, t, h, hk, dh, s // block_size,
-        block_size, block_idx.shape[2], _DTYPES[q.dtype],
-        1.0 / math.sqrt(dh), _stream())
+        _ptr(m), _ptr(l), _ptr(acc),
+        None if part_ml is None else _ptr(part_ml[0]),
+        None if part_ml is None else _ptr(part_ml[1]),
+        None if part_acc is None else _ptr(part_acc),
+        None if counters is None else _ptr(counters),
+        b, t, h, hk, dh, s // block_size, block_size, nsel, splits,
+        _DTYPES[q.dtype], 1.0 / math.sqrt(dh), _stream())
     if err != 0:
         raise RuntimeError(f"block_attention_launch failed with code {err}")
     LAUNCHES["sparse_verify_attention" if q_offset is None

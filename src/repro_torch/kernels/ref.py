@@ -65,6 +65,25 @@ def block_attention_batched(q, k_flat, v_flat, block_idx, block_valid_len,
     return (m.reshape(b, h, t), l.reshape(b, h, t), acc.reshape(b, h, t, dh))
 
 
+def kv_split_valid_len(block_valid_len, splits: int):
+    """The bf16 kernel's split-KV chunks of each (row, KV head) block
+    list: its live blocks (valid length > 0), in list order, cut by live
+    rank into ``splits`` contiguous chunks, chunk s taking ranks
+    ``[s*L // splits, (s+1)*L // splits)`` of the L live ones.  Returns
+    [splits, B, Hk, N] valid lengths, 0 outside each chunk: attention
+    over chunk s is ``block_attention_batched`` with these lengths, and
+    ``merge_attn_partials`` of the chunks gives the unsplit partials."""
+    live = block_valid_len > 0
+    rank = torch.cumsum(live.long(), dim=-1) - 1
+    total = live.long().sum(dim=-1, keepdim=True)
+    zero = torch.zeros_like(block_valid_len)
+    return torch.stack([
+        torch.where(live & (rank >= s * total // splits)
+                    & (rank < (s + 1) * total // splits),
+                    block_valid_len, zero)
+        for s in range(splits)])
+
+
 def sparse_verify_attention_ref(q, k_cache, v_cache, block_idx,
                                 block_valid_len, block_size: int):
     """One row: q [T, H, Dh]; k_cache/v_cache [S, Hk, Dh];

@@ -73,7 +73,7 @@ def _cuda_case(dev, dtype, *, b=2, t=61, h=32, hk=8, dh=128, bs=128,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t", [1, 61, 156])
+@pytest.mark.parametrize("t", [1, 6, 61, 156])
 def test_cuda_block_attention_matches_plain(cuda, dtype, t):
     q, pk, pv, idx, vlen = _cuda_case(cuda, TDT[dtype], t=t)
     npg, bs, hk, dh = pk.shape
@@ -89,25 +89,81 @@ def test_cuda_block_attention_matches_plain(cuda, dtype, t):
     assert torch.all(got[1][1, 3 * rep:4 * rep] == 0)
 
 
+def _kernel_launches(fn):
+    """Device kernels launched by one call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(e.count for e in prof.key_averages()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("qoff", [0, 700])
+def test_cuda_routed_lists_split_and_launches(cuda, dtype):
+    """K1 on routed lists: unused (vlen 0) slots at the end of every list,
+    a list with fewer live blocks than the split count, and an all-empty
+    (row, head); exact (-1e30, 0, 0) rows and at most two device launches
+    per wrapper call (the split merges inside the kernel)."""
+    q, pk, pv, idx, vlen = _cuda_case(cuda, TDT[dtype], t=61, ns=35,
+                                      npg=40, seed=5)
+    npg, bs, hk, dh = pk.shape
+    b, t, h, _ = q.shape
+    vlen[:, :, -3:] = 0                  # unused slots
+    idx[:, :, -3:] = 0
+    vlen[0, 2, 1:] = 0                   # one live block
+    vlen[0, 5, :] = 0
+    vlen[0, 5, 30] = 77                  # one live block, late in the list
+    splits = tops.kv_splits(b, t, h, hk, idx.shape[2])
+    if dtype == "bfloat16":
+        assert splits > 1
+    kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+    before = tops.LAUNCHES["sparse_verify_attention"]
+    got, n = _kernel_launches(
+        lambda: tops.block_attention(q, kf, vf, idx, vlen, bs))
+    assert n <= 2
+    assert tops.LAUNCHES["sparse_verify_attention"] == before + 2
+    want = tref.block_attention_batched(q, kf, vf, idx, vlen, bs)
+    _assert_partials_close(got, want)
+    rep = h // hk
+    empty = slice(3 * rep, 4 * rep)      # row 1, head 3 (from _cuda_case)
+    assert torch.all(got[0][1, empty] == -1e30)
+    assert torch.all(got[1][1, empty] == 0)
+    assert torch.all(got[2][1, empty] == 0)
+    # the counters are left at 0: a second call gives the same bits
+    again = tops.block_attention(q, kf, vf, idx, vlen, bs)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("qoff", [0, 700, 7936])
 def test_cuda_paged_prefill_matches_plain(cuda, dtype, qoff):
-    q, pk, pv, _, _ = _cuda_case(cuda, TDT[dtype], t=256, seed=1)
+    bs, t = 128, 256
+    nbt = max(8, -(-(qoff + t) // bs))   # table pages per row
+    q, pk, pv, _, _ = _cuda_case(cuda, TDT[dtype], t=t, seed=1,
+                                 npg=nbt + 4)
     npg, bs, hk, dh = pk.shape
     b = q.shape[0]
-    pt = torch.stack([torch.randperm(npg - 1, device=cuda)[:8] + 1
+    pt = torch.stack([torch.randperm(npg - 1, device=cuda)[:nbt] + 1
                       for _ in range(b)]).to(torch.int32)
     length = torch.tensor([qoff, 0], dtype=torch.int32, device=cuda)
-    t_valid = torch.tensor([256, 200], dtype=torch.int32, device=cuda)
+    t_valid = torch.tensor([t, 200], dtype=torch.int32, device=cuda)
     end = length + t_valid
-    vl = (end[:, None] - torch.arange(8, device=cuda)[None] * bs).clamp(0, bs)
-    idx = torch.where(vl > 0, pt, 0)[:, None].expand(b, hk, 8)
+    vl = (end[:, None] - torch.arange(nbt, device=cuda)[None] * bs).clamp(0, bs)
+    idx = torch.where(vl > 0, pt, 0)[:, None].expand(b, hk, nbt)
     idx = idx.to(torch.int32).contiguous()
-    vlen = vl[:, None].expand(b, hk, 8).to(torch.int32).contiguous()
+    vlen = vl[:, None].expand(b, hk, nbt).to(torch.int32).contiguous()
     kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
-    got = tops.block_attention(q, kf, vf, idx, vlen, bs, q_offset=length)
-    torch.cuda.synchronize()
+    got, n = _kernel_launches(lambda: tops.block_attention(
+        q, kf, vf, idx, vlen, bs, q_offset=length))
+    assert n <= 2
     want = tref.block_attention_batched(q, kf, vf, idx, vlen, bs,
                                         q_offset=length)
     _assert_partials_close(got, want)

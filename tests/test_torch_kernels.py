@@ -372,3 +372,114 @@ def test_cpu_tensors_never_launch():
     tops.block_summaries(torch.from_numpy(pk).float(),
                          torch.tensor([20, 3, 0, 5, 9, 1, 16]), 16)
     assert all(v == 0 for v in tops.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# K1 split-KV and the bf16 kernel's numerics (plain models of the kernel)
+# ---------------------------------------------------------------------------
+
+def _rel_close(got, want, tol):
+    """The kernel check: |got - want| <= tol * (|want| + max |want|) off
+    the masked sentinel -1e30, which must match exactly."""
+    masked = want <= -1e29
+    if not torch.equal(got[masked], want[masked]):
+        return False
+    g, w = got[~masked], want[~masked]
+    if w.numel() == 0:
+        return True
+    scale = w.abs().max().clamp(min=1e-30)
+    return bool(torch.all((g - w).abs() <= tol * (w.abs() + scale)))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8, "auto", 40])
+def test_kv_split_merge_matches_unsplit(splits):
+    """The kernel's split: attention over each chunk of
+    ``ref.kv_split_valid_len``, merged by ``merge_attn_partials``, equals
+    the unsplit partials to 1e-6, with an all-empty (row, head) exact
+    and chunks that hold no live block (6 slots, up to 40 chunks)."""
+    from repro_torch.models.common import merge_attn_partials
+    rng = np.random.default_rng(40)
+    q, pk, pv, idx, vlen = _routed_case(rng, t=7, ns=6)
+    vlen[1, 0, 2:] = 0                    # a list with 2 live blocks
+    b, t, h, _ = q.shape
+    npg, bs, hk, dh = pk.shape
+    if splits == "auto":
+        splits = tops.kv_splits(b, t, h, hk, idx.shape[2])
+    tq = torch.from_numpy(q).float()
+    tk = torch.from_numpy(pk).float().reshape(npg * bs, hk, dh)
+    tv = torch.from_numpy(pv).float().reshape(npg * bs, hk, dh)
+    ti, tl = torch.from_numpy(idx), torch.from_numpy(vlen)
+    want = tref.block_attention_batched(tq, tk, tv, ti, tl, bs)
+    chunks = tref.kv_split_valid_len(tl, splits)
+    assert chunks.shape == (splits, *tl.shape)
+    # every live block in exactly one chunk, chunks contiguous in the list
+    assert torch.equal(chunks.sum(0), tl)
+    owner = torch.where(chunks > 0, torch.arange(splits)[:, None, None, None],
+                        -1).amax(0)
+    live_owner = [owner[r, k][tl[r, k] > 0] for r in range(b)
+                  for k in range(hk)]
+    assert all(torch.all(o[1:] >= o[:-1]) for o in live_owner)
+    got = merge_attn_partials([
+        tref.block_attention_batched(tq, tk, tv, ti, c, bs) for c in chunks])
+    for g, w in zip(got, want):
+        assert _rel_close(g, w, 1e-6)
+    rep = h // hk
+    assert torch.all(got[0][1, rep:2 * rep] == -1e30)
+    assert torch.all(got[1][1, rep:2 * rep] == 0)
+    assert torch.all(got[2][1, rep:2 * rep] == 0)
+
+
+@pytest.mark.parametrize("b,t,nsel,causal,want", [
+    (1, 61, 35, False, 8),       # routed Partial: 8 heads x 4 row tiles x 8
+    (1, 61, 66, False, 8),       # Full
+    (1, 156, 66, False, 3),      # Refresh: 10 row tiles
+    (1, 1, 3, False, 3),         # more chunks wanted than slots
+    (4, 156, 66, False, 1),      # batch fills the card alone
+    (1, 256, 64, True, 1),       # causal prefill is never split
+])
+def test_kv_splits_fill_the_card(b, t, nsel, causal, want):
+    """``kv_splits`` at llama3.1-8b heads (H 32, Hk 8): at most
+    ``TARGET_CTAS`` CTAs, and at least half of them unless the list or
+    the causal form caps the split."""
+    s = tops.kv_splits(b, t, 32, 8, nsel, causal)
+    assert s == want
+    ctas = b * 8 * -(-4 * t // tops.ROWS_PER_CTA) * s
+    assert ctas <= max(tops.TARGET_CTAS, b * 8 * -(-4 * t // 64))
+    if not causal and s < nsel and s > 1:
+        assert ctas * 2 > tops.TARGET_CTAS
+
+
+def _bf16_values(rng, shape):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+        .to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("case", ["routed", "prefill"])
+def test_pv_product_needs_hi_lo_split(case):
+    """Why the bf16 kernel splits P: with fp32 accumulation, P rounded
+    once to bf16 in the P V product misses the kernel check (1e-4 of the
+    largest magnitude), while P = bf16 hi + bf16 lo meets it.  Shapes:
+    the routed Partial tick (4 heads x 61 queries, 35 blocks of 128 keys)
+    and a causal prefill chunk (4 x 256 queries after 7936 tokens)."""
+    rng = np.random.default_rng(50)
+    dh = 128
+    if case == "routed":
+        rows, keys = 4 * 61, 35 * 128
+        mask = torch.ones((rows, keys), dtype=torch.bool)
+    else:
+        rows, keys = 4 * 256, 8192
+        qpos = 7936 + torch.arange(rows) % 256
+        mask = torch.arange(keys)[None] <= qpos[:, None]
+    q, k, v = (_bf16_values(rng, (n, dh)) for n in (rows, keys, keys))
+    logits = torch.where(mask, (q @ k.T) / np.sqrt(dh),
+                         torch.full((rows, keys), -1e30))
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m) * mask
+    l = p.sum(-1, keepdim=True)
+    want = p @ v
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    for prod, ok in ((hi @ v + lo @ v, True), (hi @ v, False)):
+        passes = _rel_close(prod, want, 1e-4) and \
+            _rel_close(prod / l, want / l, 1e-4)
+        assert passes == ok
