@@ -17,14 +17,20 @@ Phases, in order (any failure raises and the script exits non-zero):
    run in bf16 on the tensor-core kernel (K1 split over the block list
    and merged in the same launch) and in fp32 on the CUDA-core kernel;
    a kernel's time is the device time of every kernel one wrapper call
-   launches;
+   launches.  K3 is also checked at the edges of its tiles, for one
+   launch per call and for equal bits from two calls; K5 at T on both
+   sides of its 16-token tiles, and for the chain engine's invariant
+   (a read-only T=6 verify gives the y of six one-token steps, an
+   advance with a valid prefix the state of that many one-token steps,
+   bit for bit);
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
    an 8192-token prompt, 128 new tokens), with every kernel's launch
    count set to 0 just before and read just after, the prefill timed
-   apart from decode (host clock after a synchronisation); then a few
-   decode steps under ``torch.profiler`` (device time by kernel, idle
-   share);
+   apart from decode (host clock after a synchronisation); then a fresh
+   prefill and a few decode steps under ``torch.profiler`` (device time
+   by kernel, idle share) and two forced Refresh steps (K3's share of
+   their device time);
 4. losslessness at full width, 4 layers, fp32 (TF32 off): ``generate``
    with full verification equals the port's autoregressive decoding
    token for token, then a partial-verification run;
@@ -32,9 +38,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    rwkv6-3b at full width (32 layers, d 2560, bf16, random weights,
    batch 1, an 8192-token prompt, 128 new tokens) with the launch counts
    set to 0 just before and read just after (the WKV kernel must run 32
-   x (prefill chunks + 2 x steps) times), a profiled window of its
-   steps, and fp32 losslessness at 4 layers (``generate`` equals the
-   port's autoregressive decoding);
+   x (prefill chunks + 2 x steps) times), a profiled prefill and window
+   of its steps, and fp32 losslessness at 4 layers (``generate`` equals
+   the port's autoregressive decoding);
 6. one JSON line with every kernel's numbers (each kernel's launches
    from its own path's run), the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
@@ -91,6 +97,9 @@ KERNEL_META = {
 LLAMA_KERNELS = ("sparse_verify_attention", "paged_prefill_attention",
                  "retrieval_score", "block_summary")
 RWKV_KERNELS = ("wkv",)
+# K5's calls on the rwkv6-3b path, by their ops.WKV_SHAPES key (T, update)
+WKV_PATH_SHAPES = {(256, True): "prefill T=256", (6, False): "verify T=6",
+                   (6, True): "advance T=6"}
 
 
 def card_line() -> str:
@@ -409,40 +418,83 @@ def phase_kernels(torch, card, timer):
     attn_check("K2 prefill T=256 qoff=7936 fp32", k2, t=256, ctx=8192,
                causal_qoff=7936, dtype=f32, timed=False)
 
-    # K3 at a refresh tick's shapes
-    t, h, hk, dh, nb = 156, 32, 8, 128, 66
-    q = torch.randn((1, t, h, dh), generator=gen, device="cuda").to(torch.bfloat16)
-    kmax = torch.randn((1, nb, hk, dh), generator=gen, device="cuda").abs()
-    kmin = -torch.randn((1, nb, hk, dh), generator=gen, device="cuda").abs()
-    qw = (torch.rand((1, t), generator=gen, device="cuda") > 0.3).float()
-    got = ops.retrieval_scores(q, kmax, kmin, qw)
-    want = ref.retrieval_score_batched(q, kmax, kmin, qw)
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    rel = _close("K3 scores", got, want)
-    before = dict(ops.LAUNCHES)
-
-    def launch():
-        return ops.retrieval_scores(q, kmax, kmin, qw)
-    ms = timer.kernel_ms(launch, "retrieval_score_kernel")
-    event_ms = timer(launch)
-    ops.LAUNCHES.update(before)
-    plain_ms = timer(lambda: ref.retrieval_score_batched(q, kmax, kmin, qw),
-                     iters=3, warmup=1)
-    nbytes = q.numel() * 2 + 2 * kmax.numel() * 4 + t * 4 + hk * nb * 4
-    flops = 2 * 2 * dh * (h // hk) * t * hk * nb
-    bound, by = _bound_ms(nbytes, flops, PEAK_FP32_S)
-    say(card, f"kernel K3 retrieval T=156 NB=66: max_abs_err {err:.3e} "
-              f"max_rel_err {rel:.3e} (tol {TOL_KERNEL} of max |plain|) "
-              f"ms {ms:.4f} (profiler; events {event_ms:.4f}) "
-              f"plain_ms {plain_ms:.4f} "
-              f"bound_us {bound * 1e3:.2f} ({by}) library_ms none")
-    results["retrieval_score"] = dict(max_abs_err=err, ms=ms,
-                                      plain_ms=plain_ms, bound_ms=bound,
-                                      bound_by=by, library_ms=None)
+    results["retrieval_score"] = _score_checks(torch, card, timer, gen)
     results["block_summary"] = _summary_checks(torch, card, timer, gen)
     results["wkv"] = _wkv_checks(torch, card, timer, gen)
     return results
+
+
+def _score_inputs(torch, gen, t, nb, dtype, h=32, hk=8, dh=128):
+    q = torch.randn((1, t, h, dh), generator=gen, device="cuda").to(dtype)
+    kmax = torch.randn((1, nb, hk, dh), generator=gen, device="cuda").abs()
+    kmin = -torch.randn((1, nb, hk, dh), generator=gen, device="cuda").abs()
+    qw = (torch.rand((1, t), generator=gen, device="cuda") > 0.3).float()
+    qw[0, 0] = 1.0
+    return q, kmax, kmin, qw
+
+
+def _score_checks(torch, card, timer, gen):
+    """K3 at a refresh tick's shapes (T=156, NB=66, llama3.1-8b heads) in
+    bf16 (the path's dtype, the row reported) and fp32, each timed with
+    one launch per call and two calls giving equal bits; then the edges
+    of its 32-block tiles and 64-row slices, checked only."""
+    from repro_torch.kernels import ops, ref
+    row, err_all = None, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        t, h, hk, dh, nb = 156, 32, 8, 128, 66
+        q, kmax, kmin, qw = _score_inputs(torch, gen, t, nb, dtype)
+        got = ops.retrieval_scores(q, kmax, kmin, qw)
+        again = ops.retrieval_scores(q, kmax, kmin, qw)
+        want = ref.retrieval_score_batched(q, kmax, kmin, qw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 {dtype}: two calls differ")
+        err = (got - want).abs().max().item()
+        err_all = max(err_all, err)
+        rel = _close(f"K3 scores {dtype}", got, want)
+        before = dict(ops.LAUNCHES)
+
+        def launch():
+            return ops.retrieval_scores(q, kmax, kmin, qw)
+        ms = timer.kernel_ms(launch, "retrieval_score_kernel")
+        if timer.per_call != 1:
+            raise AssertionError(f"K3: {timer.per_call} launches per call")
+        event_ms = timer(launch)
+        ops.LAUNCHES.update(before)
+        plain_ms = timer(lambda: ref.retrieval_score_batched(q, kmax, kmin,
+                                                             qw),
+                         iters=3, warmup=1)
+        nbytes = q.numel() * 2 + 2 * kmax.numel() * 4 + t * 4 + hk * nb * 4
+        flops = 2 * 2 * dh * (h // hk) * t * hk * nb
+        bound, by = _bound_ms(nbytes, flops, PEAK_FP32_S)
+        say(card, f"kernel K3 retrieval T=156 NB=66 {dtype}: max_abs_err "
+                  f"{err:.3e} max_rel_err {rel:.3e} (tol {TOL_KERNEL} of max "
+                  f"|plain|; two calls bit-equal) ms {ms:.4f} (profiler, 1 "
+                  f"launch per call; events {event_ms:.4f}) plain_ms "
+                  f"{plain_ms:.4f} bound_us {bound * 1e3:.2f} ({by}) "
+                  f"library_ms none")
+        if row is None:
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       library_ms=None)
+    before = dict(ops.LAUNCHES)
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (1, 156, 157):
+            for nb in (1, 33, 66):
+                q, kmax, kmin, qw = _score_inputs(torch, gen, t, nb, dtype)
+                got = ops.retrieval_scores(q, kmax, kmin, qw)
+                again = ops.retrieval_scores(q, kmax, kmin, qw)
+                want = ref.retrieval_score_batched(q, kmax, kmin, qw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K3 T={t} NB={nb} {dtype}: two "
+                                         f"calls differ")
+                _close(f"K3 T={t} NB={nb} {dtype}", got, want)
+                err_all = max(err_all, (got - want).abs().max().item())
+    ops.LAUNCHES.update(before)
+    say(card, f"kernel K3 edges T in (1, 156, 157) x NB in (1, 33, 66), bf16 "
+              f"and fp32: all within tol {TOL_KERNEL}, two calls bit-equal")
+    row["max_abs_err"] = err_all
+    return row
 
 
 def _summary_checks(torch, card, timer, gen):
@@ -527,23 +579,60 @@ def _summary_checks(torch, card, timer, gen):
     return row
 
 
+def _wkv_inputs(torch, gen, b, t, h=40, dk=64):
+    r, k, v = (torch.randn((b, t, h, dk), generator=gen,
+                           device="cuda") * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(torch.randn((b, t, h, dk), generator=gen,
+                                         device="cuda") - 2.0))
+    u = torch.randn((h, dk), generator=gen, device="cuda") * 0.5
+    s0 = torch.randn((b, h, dk, dk), generator=gen, device="cuda")
+    return r, k, v, w, u, s0
+
+
+def _wkv_identity(torch, card, gen):
+    """The chain engine's invariant: a read-only T=6 call gives y equal
+    bit for bit to six one-token update steps, and an advance of T=6 with
+    a valid leaves the state bits of a one-token steps (a = 0, 2, 6)."""
+    from repro_torch.kernels import ops
+    t = 6
+    before = dict(ops.LAUNCHES)
+    r, k, v, w, u, s0 = _wkv_inputs(torch, gen, 1, t)
+    y6, _ = ops.wkv(r, k, v, w, u, s0, update=False)
+    s, ys, states = s0, [], [s0]
+    for i in range(t):
+        sl = slice(i, i + 1)
+        y1, s = ops.wkv(r[:, sl].contiguous(), k[:, sl].contiguous(),
+                        v[:, sl].contiguous(), w[:, sl].contiguous(), u, s)
+        ys.append(y1)
+        states.append(s)
+    if not torch.equal(y6, torch.cat(ys, dim=1)):
+        raise AssertionError("K5: verify T=6 y differs from 6 one-token steps")
+    for a in (0, 2, 6):
+        nv = torch.tensor([a], dtype=torch.int32, device="cuda")
+        _, s_adv = ops.wkv(r, k, v, w, u, s0, nv)
+        if not torch.equal(s_adv, states[a]):
+            raise AssertionError(f"K5: advance T=6 valid={a} state differs "
+                                 f"from {a} one-token steps")
+    ops.LAUNCHES.update(before)
+    say(card, "kernel K5 identity: verify T=6 y == 6 one-token steps, "
+              "advance T=6 valid=a state == a one-token steps (a = 0, 2, 6), "
+              "bit for bit")
+
+
 def _wkv_checks(torch, card, timer, gen):
-    """K5 at rwkv6-3b head shapes (batch 1, H 40, dk 64, fp32): a prefill
-    chunk (T=256), a chain verify (T=6, read-only) and an advance with
-    a padded valid prefix (T=6, 2 valid).  The row reported is the chain
-    verify (the most launches on the path)."""
+    """K5 at rwkv6-3b head shapes (batch 1, H 40, dk 64, fp32): a chain
+    verify (T=6, read-only), a prefill chunk (T=256) and an advance with
+    a padded valid prefix (T=6, 2 valid), each timed; the verify/advance
+    identity; then T on both sides of the kernel's 16-token tiles with
+    B=2 and a padded row, checked only.  The row reported is the chain
+    verify (the most launches on the path); ``shapes`` holds every timed
+    case under its ``WKV_PATH_SHAPES`` label."""
     from repro_torch.kernels import ops, ref
     h, dk = 40, 64
-    row, err_all = None, 0.0
-    for label, t, nv, update in (("verify T=6", 6, 6, False),
-                                 ("prefill T=256", 256, 256, True),
-                                 ("advance T=6 valid=2", 6, 2, True)):
-        r, k, v = (torch.randn((1, t, h, dk), generator=gen,
-                               device="cuda") * 0.5 for _ in range(3))
-        w = torch.exp(-torch.exp(torch.randn((1, t, h, dk), generator=gen,
-                                             device="cuda") - 2.0))
-        u = torch.randn((h, dk), generator=gen, device="cuda") * 0.5
-        s0 = torch.randn((1, h, dk, dk), generator=gen, device="cuda")
+    row, err_all, shapes = None, 0.0, {}
+    for t, nv, update in ((6, 6, False), (256, 256, True), (6, 2, True)):
+        label = WKV_PATH_SHAPES[(t, update)]
+        r, k, v, w, u, s0 = _wkv_inputs(torch, gen, 1, t)
         n_valid = torch.tensor([nv], dtype=torch.int32, device="cuda")
         y, s = ops.wkv(r, k, v, w, u, s0, n_valid, update=update)
         want_y, want_s = ref.wkv_batched(r, k, v, w, u, s0, n_valid)
@@ -559,6 +648,8 @@ def _wkv_checks(torch, card, timer, gen):
         def launch():
             return ops.wkv(r, k, v, w, u, s0, n_valid, update=update)
         ms = timer.kernel_ms(launch, "wkv_kernel")
+        if timer.per_call != 1:
+            raise AssertionError(f"K5: {timer.per_call} launches per call")
         ops.LAUNCHES.update(before)
         # the plain T=256 loop issues ~2000 launches, more than the launch
         # queue holds behind a spin: its window includes host time
@@ -570,15 +661,34 @@ def _wkv_checks(torch, card, timer, gen):
                   + (2 if update else 1) * h * dk * dk * 4)
         flops = 5 * t * h * dk * dk + 2 * nv * h * dk * dk
         bound, by = _bound_ms(nbytes, flops, PEAK_FP32_S)
-        say(card, f"kernel K5 wkv {label}: max_abs_err {err:.3e} max_rel_err "
+        say(card, f"kernel K5 wkv {label} ({nv} valid): max_abs_err "
+                  f"{err:.3e} max_rel_err "
                   f"{rel:.3e} (tol {TOL_KERNEL}) ms {ms:.4f} (profiler) "
                   f"plain_ms {plain_ms:.4f}"
                   f"{'' if t <= 6 else ' (events incl. host time)'} "
                   f"bound_us {bound * 1e3:.3f} ({by}) library_ms none")
+        shapes[label] = dict(valid=nv, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by)
         if row is None:
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                        library_ms=None)
+    _wkv_identity(torch, card, gen)
+    before = dict(ops.LAUNCHES)
+    for t in (1, 6, 31, 33, 256, 257):
+        r, k, v, w, u, s0 = _wkv_inputs(torch, gen, 2, t)
+        n_valid = torch.tensor([t, t // 2], dtype=torch.int32, device="cuda")
+        y, s = ops.wkv(r, k, v, w, u, s0, n_valid)
+        want_y, want_s = ref.wkv_batched(r, k, v, w, u, s0, n_valid)
+        torch.cuda.synchronize()
+        _close(f"K5 B=2 T={t} y", y, want_y)
+        _close(f"K5 B=2 T={t} s", s, want_s)
+        err_all = max(err_all, (y - want_y).abs().max().item(),
+                      (s - want_s).abs().max().item())
+    ops.LAUNCHES.update(before)
+    say(card, f"kernel K5 B=2 (one row padded to T//2) at T in (1, 6, 31, 33, "
+              f"256, 257): y and state within tol {TOL_KERNEL}")
     row["max_abs_err"] = err_all
+    row["shapes"] = shapes
     return row
 
 
@@ -639,22 +749,67 @@ def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
     if toks.shape != (1, new_tokens) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"tokens out of range: {toks}")
-    profile_steps(torch, card, eng, prompt)
+    profile_steps(torch, card, eng, prompt, kernel="retrieval_score_kernel",
+                  refresh=True)
     del eng, params, dparams
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6):
-    """Where a decode step's time goes: after a fresh prefill and ``warm``
-    steps, ``steps`` steps timed on the host clock, then ``steps`` more
-    under ``torch.profiler``: device time by CUDA kernel, and, over the
-    profiled steps alone, the idle share = 1 - device busy time (union of
-    the device events' intervals) / the device span (first event's start
-    to last event's end), beside the host clock around the same steps."""
+def _device_busy(prof):
+    """(busy ms, span ms) of the device events a profiler recorded: the
+    union of their intervals, and first start to last end."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if getattr(e, "device_type", None) == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        raise RuntimeError("the profiler recorded no device time")
+    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy_us += cur_e - cur_s
+    return busy_us / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
+
+
+def _named_ms(prof, kernel):
+    """Device ms of every kernel whose name contains ``kernel``."""
+    from torch.autograd import DeviceType
+    return sum(_dev_us(e) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and kernel in e.key) / 1e3
+
+
+def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
+                  kernel: str = "", refresh: bool = False):
+    """Where the time goes.  The fresh prefill runs under
+    ``torch.profiler`` (its device busy time and span, and the device
+    time of the kernels named ``kernel``); then after ``warm`` steps,
+    ``steps`` steps timed on the host clock, then ``steps`` more under
+    the profiler: device time by CUDA kernel, and, over the profiled
+    steps alone, the idle share = 1 - device busy time (union of the
+    device events' intervals) / the device span (first event's start to
+    last event's end), beside the host clock around the same steps.
+    With ``refresh``, two forced Refresh steps follow under the profiler:
+    their device busy time and the share of it in ``kernel``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    st = eng.prefill(prompt)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        st = eng.prefill(prompt)
+        torch.cuda.synchronize()
+        pre_wall = time.perf_counter() - t0
+    busy, span = _device_busy(prof)
+    say(card, f"profile prefill of {prompt.shape[1]} tokens: host wall_s "
+              f"{pre_wall:.3f} (profiled) device span_ms {span:.2f} device "
+              f"busy_ms {busy:.2f} ({kernel} {_named_ms(prof, kernel):.2f} "
+              f"ms)")
 
     def run(st, n):
         modes = []
@@ -670,28 +825,11 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6):
     t0 = time.perf_counter()
     st, modes = run(st, steps)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         st, pmodes = run(st, steps)
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
-    if not spans:
-        raise RuntimeError("the profiler recorded no device time")
-    busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy_us += cur_e - cur_s
-    span_ms = (spans[-1][1] - spans[0][0]) / 1e3
-    busy_ms = busy_us / 1e3
+    busy_ms, span_ms = _device_busy(prof)
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA
                and _dev_us(e) > 0]
@@ -704,6 +842,17 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6):
     for e in sorted(kernels, key=_dev_us, reverse=True)[:10]:
         say(card, f"profile   {_dev_us(e) / 1e3 / steps:8.3f} ms/step "
                   f"{e.count // steps:5d} launches/step  {e.key[:80]}")
+    if refresh:
+        with profile(activities=acts) as prof:
+            for _ in range(2):
+                st, so = eng.step(st, "refresh")
+            torch.cuda.synchronize()
+        busy_ms, span_ms = _device_busy(prof)
+        k_ms = _named_ms(prof, kernel)
+        say(card, f"profile 2 forced Refresh steps: device busy_ms/step "
+                  f"{busy_ms / 2:.2f} span_ms/step {span_ms / 2:.2f}; "
+                  f"{kernel} {k_ms / 2:.4f} ms/step = {k_ms / busy_ms:.4f} "
+                  f"of device busy time")
 
 
 # ---------------------------------------------------------------------------
@@ -793,6 +942,8 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    by_shape = {WKV_PATH_SHAPES.get(key, f"T={key[0]} update={key[1]}"): n
+                for key, n in ops.WKV_SHAPES.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     chunks = -(-prompt_len // chunk)
     want_wkv = cfg.num_layers * (chunks + 2 * stats["steps"])
@@ -806,14 +957,24 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
               f"{peak:.2f} wkv_launches {launches['wkv']} (expected "
               f"{cfg.num_layers} x ({chunks} prefill chunks + 2 x "
               f"{stats['steps']} steps) = {want_wkv}) launches {launches}")
+    say(card, f"wkv launches by shape (counted in ops.wkv): {by_shape}")
     if stats["modes"] != {"state": stats["steps"]}:
         raise AssertionError(f"state steps only: {stats['modes']}")
     if launches["wkv"] != want_wkv:
         raise AssertionError(f"WKV launches {launches['wkv']} != {want_wkv}")
+    # one T=256 call per layer and prefill chunk, one read-only T=6 verify
+    # and one T=6 advance per layer and step
+    steps_n = cfg.num_layers * stats["steps"]
+    want_shapes = {"prefill T=256": cfg.num_layers * chunks,
+                   "verify T=6": steps_n, "advance T=6": steps_n}
+    if sum(by_shape.values()) != want_wkv or by_shape != want_shapes:
+        raise AssertionError(f"WKV launches by shape {by_shape} != "
+                             f"{want_shapes}")
+    launches["wkv_shapes"] = by_shape
     if toks.shape != (1, new_tokens) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"tokens out of range: {toks}")
-    profile_steps(torch, card, eng, prompt)
+    profile_steps(torch, card, eng, prompt, kernel="wkv_kernel")
     del eng, params, dparams
     torch.cuda.empty_cache()
     rwkv_lossless(torch, card)
@@ -901,7 +1062,8 @@ def main(argv=None) -> int:
     say(card, f"kernels built in {info['seconds']:.1f} s "
               f"(cached={info['cached']}) -> {info['path']}")
     for line in info.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "entry function" in line):
             say(card, f"ptxas: {line.strip()}")
 
     timer = Timer(torch)
@@ -924,6 +1086,16 @@ def main(argv=None) -> int:
                          bound_ms=r.get("bound_ms"),
                          bound_by=r.get("bound_by"),
                          library_ms=r.get("library_ms")))
+        if "shapes" in r:      # K5: each timed shape with its launches
+            by_shape = path.get(f"{name}_shapes", {})
+            rows[-1]["shapes"] = [dict(shape=label, launches=by_shape.get(
+                label, 0), **vals) for label, vals in r["shapes"].items()]
+            for sh in rows[-1]["shapes"]:
+                say(card, f"kernel {name} {sh['shape']} (timed with "
+                          f"{sh['valid']} valid): ms {sh['ms']:.4f} "
+                          f"bound_ms {sh['bound_ms']:.5f} plain_ms "
+                          f"{sh['plain_ms']:.4f} launches on the path "
+                          f"{sh['launches']}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,7 @@ def source_files():
     return sorted(p for p in CSRC.rglob("*") if p.is_file())
 
 
-def _nvcc() -> str:
+def find_nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
@@ -70,7 +70,7 @@ def build() -> Path:
         BUILD_INFO.update(path=str(out), seconds=0.0, cached=True)
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
         objs, procs = [], []
@@ -110,8 +110,8 @@ def load_library() -> ctypes.CDLL:
                                            I, I, I, I, I, I, I, I, I, I, F,
                                            P]
     lib.block_attention_launch.restype = I
-    lib.retrieval_score_launch.argtypes = [P, P, P, P, P,
-                                           I, I, I, I, I, I, I, P]
+    lib.retrieval_score_launch.argtypes = [P, P, P, P, P, P, P,
+                                           I, I, I, I, I, I, I, I, I, P]
     lib.retrieval_score_launch.restype = I
     lib.block_summary_launch.argtypes = [P, P, P, P, P, P,
                                          I, I, I, I, I, I, P]

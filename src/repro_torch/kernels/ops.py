@@ -10,12 +10,13 @@ at first use) or raise.  There is no fallback from one to the other.
 
 Each kernel counts its launches in ``LAUNCHES`` (a plain integer per
 kernel, bumped only where the kernel is launched), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels.  K5's launches are also
+counted by shape in ``WKV_SHAPES``, keyed by (T, update).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -24,12 +25,14 @@ from repro_torch.kernels import ref
 KERNELS = ("sparse_verify_attention", "paged_prefill_attention",
            "retrieval_score", "block_summary", "wkv")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+WKV_SHAPES: Dict[Tuple[int, bool], int] = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+    WKV_SHAPES.clear()
 
 
 def _check(name, t, *, dtype=None, ndim=None, device=None):
@@ -81,10 +84,11 @@ def kv_splits(b: int, t: int, h: int, hk: int, nsel: int,
 
 
 def _split_counters(n: int, dev) -> torch.Tensor:
-    """The merge counters of the split kernel: int32, zero between
-    launches (the last CTA of each row tile resets its own), so they are
-    zeroed once when allocated and never again.  One set per device;
-    launches that use it run in stream order."""
+    """The merge counters of the split attention kernel (K1) and of the
+    retrieval-score kernel (K3): int32, zero between launches (the last
+    CTA of each group resets its own), so they are zeroed once when
+    allocated and never again.  One set per device, shared by both
+    kernels; launches that use it run in stream order."""
     c = _COUNTERS.get(dev)
     if c is None or c.numel() < n:
         c = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
@@ -226,10 +230,26 @@ def paged_prefill_attention(q, pool_k, pool_v, page_table, length, t_valid):
 # K3: retrieval scores
 # ---------------------------------------------------------------------------
 
+SCORE_ROWS = 64        # query rows per CTA of K3 (retrieval_score.cu kRows)
+SCORE_BLOCKS = 32      # blocks per CTA of K3 (retrieval_score.cu kBlocks)
+
+
+def score_grid(b: int, t: int, h: int, hk: int, nb: int):
+    """K3's grid: (block tiles, row slices, B * Hk), where a slice is
+    ``SCORE_ROWS`` of a head's ``rep * T`` query rows and a tile
+    ``SCORE_BLOCKS`` blocks.  Each CTA leaves a partial per (slice, block)
+    and the last CTA of each tile sums them.  The wrapper sizes its
+    scratch and counters from this grid and passes it to the kernel, which
+    refuses a grid other than its own."""
+    slices = max(1, -(-(h // hk) * t // SCORE_ROWS))
+    return -(-nb // SCORE_BLOCKS), slices, b * hk
+
+
 def retrieval_scores(q, kmax, kmin, q_weight):
     """Batched Quest scores (paper mode, mean reduction).
     q: [B, T, H, Dh]; kmax/kmin: [B, NB, Hk, Dh] fp32; q_weight: [B, T].
-    Returns [B, Hk, NB] fp32."""
+    Returns [B, Hk, NB] fp32.  On the card one launch, whose slices merge
+    in a fixed order (two calls give the same bits)."""
     dev = q.device
     _check("q", q, dtype=tuple(_DTYPES), ndim=4)
     _check("kmax", kmax, dtype=torch.float32, ndim=4, device=dev)
@@ -249,12 +269,20 @@ def retrieval_scores(q, kmax, kmin, q_weight):
     _check("q_weight", q_weight, dtype=torch.float32)
     if dh != 128:
         raise ValueError(f"head dim {dh}: the kernels are built for 128")
+    rep = h // hk
+    if rep & (rep - 1) or rep > SCORE_ROWS:
+        raise ValueError(f"{rep} query heads per KV head: the kernel takes "
+                         f"a power of two up to {SCORE_ROWS}")
     from repro_torch.kernels.build import load_library
     lib = load_library()
     out = torch.empty((b, hk, nb), dtype=torch.float32, device=dev)
+    tiles, slices, groups = score_grid(b, t, h, hk, nb)
+    part = torch.empty(groups * slices * nb, dtype=torch.float32, device=dev)
+    counters = _split_counters(groups * tiles, dev)
     err = lib.retrieval_score_launch(
         _ptr(q), _ptr(kmax), _ptr(kmin), _ptr(q_weight), _ptr(out),
-        b, t, h, hk, dh, nb, _DTYPES[q.dtype], _stream())
+        _ptr(part), _ptr(counters), b, t, h, hk, dh, nb, tiles, slices,
+        _DTYPES[q.dtype], _stream())
     if err != 0:
         raise RuntimeError(f"retrieval_score_launch failed with code {err}")
     LAUNCHES["retrieval_score"] += 1
@@ -379,4 +407,6 @@ def wkv(r, k, v, w, u, s0, n_valid=None, *, update: bool = True):
     if err != 0:
         raise RuntimeError(f"wkv_launch failed with code {err}")
     LAUNCHES["wkv"] += 1
+    key = (t, bool(update))
+    WKV_SHAPES[key] = WKV_SHAPES.get(key, 0) + 1
     return y, s_out

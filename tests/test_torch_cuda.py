@@ -190,6 +190,62 @@ def test_cuda_retrieval_scores_match_plain(cuda, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nb", [1, 33, 66])
+@pytest.mark.parametrize("t", [1, 156, 157])
+def test_cuda_retrieval_scores_edges_deterministic(cuda, dtype, nb, t):
+    """K3 at the edges of its tiles (32 blocks) and row slices (64 rows =
+    16 tokens of 4 heads), llama3.1-8b heads, batch 1: one device launch
+    per call, agreement with the plain version, and equal bits from two
+    calls (the slices merge in a fixed order, no float atomics)."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(6 + nb + t)
+    h, hk, dh = 32, 8, 128
+    q = torch.randn((1, t, h, dh), generator=g, device=cuda).to(TDT[dtype])
+    kmax = torch.randn((1, nb, hk, dh), generator=g, device=cuda).abs()
+    kmin = -torch.randn((1, nb, hk, dh), generator=g, device=cuda).abs()
+    qw = (torch.rand((1, t), generator=g, device=cuda) > 0.3).float()
+    qw[0, 0] = 1.0
+    before = tops.LAUNCHES["retrieval_score"]
+    got, n = _kernel_launches(lambda: tops.retrieval_scores(q, kmax, kmin, qw))
+    assert n == 1
+    assert tops.LAUNCHES["retrieval_score"] == before + 2
+    _assert_close(got, tref.retrieval_score_batched(q, kmax, kmin, qw))
+    again = tops.retrieval_scores(q, kmax, kmin, qw)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles_off, slices_off",
+                         [(0, 0), (1, 0), (-1, 0), (0, 1), (0, -1)])
+def test_cuda_retrieval_score_checks_the_grid(cuda, tiles_off, slices_off):
+    """K3's C entry point launches only the grid it computes itself, so
+    scratch and counters sized by ``ops.score_grid`` match what it
+    writes: the wrapper's grid returns 0, any other -1 (nothing
+    launched)."""
+    from repro_torch.kernels.build import load_library
+    b, t, h, hk, dh, nb = 1, 156, 32, 8, 128, 66
+    q = torch.zeros((b, t, h, dh), device=cuda, dtype=torch.bfloat16)
+    kmax = torch.zeros((b, nb, hk, dh), device=cuda)
+    kmin = torch.zeros_like(kmax)
+    qw = torch.ones((b, t), device=cuda)
+    out = torch.zeros((b, hk, nb), device=cuda)
+    tiles, slices, groups = tops.score_grid(b, t, h, hk, nb)
+    assert (tiles, slices) == (3, 10)
+    part = torch.empty((groups * (slices + 1) * nb,), device=cuda)
+    counters = torch.zeros((groups * (tiles + 1),), dtype=torch.int32,
+                           device=cuda)
+    err = load_library().retrieval_score_launch(
+        q.data_ptr(), kmax.data_ptr(), kmin.data_ptr(), qw.data_ptr(),
+        out.data_ptr(), part.data_ptr(), counters.data_ptr(), b, t, h, hk,
+        dh, nb, tiles + tiles_off, slices + slices_off, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == (0 if (tiles_off, slices_off) == (0, 0) else -1)
+    assert not counters.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_block_summaries_match_plain(cuda, dtype):
     """K4, routed (ragged, empty, clipped, null-page target) and
     contiguous, against its plain versions."""
@@ -221,20 +277,26 @@ def test_cuda_block_summaries_match_plain(cuda, dtype):
         _assert_close(got[1][i], want[1])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 6, 256])
-def test_cuda_wkv_matches_plain(cuda, t):
-    """K5 at rwkv6-3b head shapes (H 40, dk 64), fp32, with one full row
-    and one padded row, and the read-only form."""
-    g = torch.Generator(device=cuda)
-    g.manual_seed(4)
-    b, h, dk = 2, 40, 64
-    r, k, v = (torch.randn((b, t, h, dk), generator=g, device=cuda) * 0.5
+def _wkv_inputs(dev, b, t, seed, h=40, dk=64):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    r, k, v = (torch.randn((b, t, h, dk), generator=g, device=dev) * 0.5
                for _ in range(3))
     w = torch.exp(-torch.exp(torch.randn((b, t, h, dk), generator=g,
-                                         device=cuda) - 2.0))
-    u = torch.randn((h, dk), generator=g, device=cuda) * 0.5
-    s0 = torch.randn((b, h, dk, dk), generator=g, device=cuda)
+                                         device=dev) - 2.0))
+    u = torch.randn((h, dk), generator=g, device=dev) * 0.5
+    s0 = torch.randn((b, h, dk, dk), generator=g, device=dev)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 6, 31, 33, 256, 257])
+def test_cuda_wkv_matches_plain(cuda, t):
+    """K5 at rwkv6-3b head shapes (H 40, dk 64), fp32, with one full row
+    and one padded row, and the read-only form; T on both sides of the
+    kernel's 32-token tiles."""
+    b = 2
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, b, t, 4)
     n_valid = torch.tensor([t, t // 2], dtype=torch.int32, device=cuda)
     before = tops.LAUNCHES["wkv"]
     y, s = tops.wkv(r, k, v, w, u, s0, n_valid)
@@ -247,3 +309,29 @@ def test_cuda_wkv_matches_plain(cuda, t):
     assert torch.equal(y_ro, y) and s_ro is s0
     if t // 2 == 0:
         assert torch.equal(s[1], s0[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [0, 2, 6])
+def test_cuda_wkv_verify_advance_identity(cuda, a):
+    """What the chain engine relies on: a read-only T=6 call gives y equal
+    bit for bit to six one-token update steps, and an advance of T=6
+    with ``n_valid`` = a leaves the state bits that a one-token steps
+    leave (rwkv6-3b heads, batch 1)."""
+    t = 6
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, 1, t, 7)
+    y6, s_ro = tops.wkv(r, k, v, w, u, s0, update=False)
+    assert s_ro is s0
+    s, ys = s0, []
+    for i in range(t):
+        sl = slice(i, i + 1)
+        y1, s = tops.wkv(r[:, sl].contiguous(), k[:, sl].contiguous(),
+                         v[:, sl].contiguous(), w[:, sl].contiguous(), u, s)
+        ys.append(y1)
+        if i + 1 == a:
+            s_a = s
+    assert torch.equal(y6, torch.cat(ys, dim=1))
+    n_valid = torch.tensor([a], dtype=torch.int32, device=cuda)
+    _, s_adv = tops.wkv(r, k, v, w, u, s0, n_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(s_adv, s0 if a == 0 else s_a)

@@ -372,6 +372,7 @@ def test_cpu_tensors_never_launch():
     tops.block_summaries(torch.from_numpy(pk).float(),
                          torch.tensor([20, 3, 0, 5, 9, 1, 16]), 16)
     assert all(v == 0 for v in tops.LAUNCHES.values())
+    assert not tops.WKV_SHAPES
 
 
 # ---------------------------------------------------------------------------
@@ -447,6 +448,25 @@ def test_kv_splits_fill_the_card(b, t, nsel, causal, want):
     assert ctas <= max(tops.TARGET_CTAS, b * 8 * -(-4 * t // 64))
     if not causal and s < nsel and s > 1:
         assert ctas * 2 > tops.TARGET_CTAS
+
+
+@pytest.mark.parametrize("b,t,nb,want", [
+    (1, 156, 66, (3, 10, 8)),    # a refresh tick: 240 CTAs
+    (1, 157, 66, (3, 10, 8)),    # a ragged last slice
+    (1, 16, 33, (2, 1, 8)),      # one slice: scores written directly
+    (1, 1, 1, (1, 1, 8)),
+    (2, 0, 5, (1, 1, 16)),       # no queries: still one slice
+])
+def test_score_grid_covers_rows_and_blocks(b, t, nb, want):
+    """K3's grid at llama3.1-8b heads (H 32, Hk 8): every (row, head,
+    block) falls in one CTA, and a refresh tick fills the card's 132
+    SMs."""
+    tiles, slices, groups = tops.score_grid(b, t, 32, 8, nb)
+    assert (tiles, slices, groups) == want
+    assert tiles * tops.SCORE_BLOCKS >= nb > (tiles - 1) * tops.SCORE_BLOCKS
+    assert slices * tops.SCORE_ROWS >= 4 * t
+    if t == 156:
+        assert tiles * slices * groups >= 132
 
 
 def _bf16_values(rng, shape):

@@ -27,19 +27,12 @@ limit first.  Builds into ``build/attention_breakdown/``.
 """
 import ctypes
 import math
-import os
-import subprocess
 import sys
 
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(ROOT, "src", "repro_torch", "csrc", "block_attention.cu")
-OUT = os.path.join(ROOT, "build", "attention_breakdown")
-NVCC = ["nvcc" if subprocess.run(["which", "nvcc"], capture_output=True)
-        .returncode == 0 else "/usr/local/cuda/bin/nvcc",
-        "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC"]
+from kernel_variants import build_variants, card_line, time_ms
+
 H, HK, DH, BS = 32, 8, 128, 128
 LO_MMA = ("          mma_bf16(o[2 * dp - 2], pl, bp[0], bp[1]);\n",
           "          mma_bf16(o[2 * dp - 1], pl, bp[2], bp[3]);\n",
@@ -60,33 +53,9 @@ VARIANTS = {
 }
 
 
-def build(source):
-    os.makedirs(OUT, exist_ok=True)
-    procs = {}
-    for name, edits in VARIANTS.items():
-        text = source
-        for old, new in edits:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: source line not found: "
-                                   f"{old!r}")
-            text = text.replace(old, new)
-        cu = os.path.join(OUT, f"{name}.cu")
-        with open(cu, "w") as f:
-            f.write(text)
-        so = os.path.join(OUT, f"{name}.so")
-        procs[name] = (so, subprocess.Popen(
-            NVCC + ["-o", so, cu], stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    libs = {}
-    for name, (so, p) in procs.items():
-        _, err = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{err}")
-        lib = ctypes.CDLL(so)
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.block_attention_launch.argtypes = [P] * 13 + [I] * 10 + [F, P]
-        libs[name] = lib
-    return libs
+def _declare(lib):
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.block_attention_launch.argtypes = [P] * 13 + [I] * 10 + [F, P]
 
 
 def make_case(gen, t, ctx, routed_ns=0, qoff=None):
@@ -142,32 +111,13 @@ def launcher(lib, case, splits, counters):
     return call, (m, l, acc)
 
 
-def time_ms(call, flush, iters=20):
-    for _ in range(3):
-        call()
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        e0.record()
-        call()
-        e1.record()
-        e1.synchronize()
-        total += e0.elapsed_time(e1)
-    return total / iters
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("attention_breakdown.py: no CUDA device", file=sys.stderr)
         return 2
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip())
-    with open(SRC) as f:
-        libs = build(f.read())
+    print(card_line())
+    libs = build_variants("block_attention.cu", VARIANTS, "attention_breakdown",
+                          _declare)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
