@@ -17,7 +17,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    run in bf16 on the tensor-core kernel (K1 split over the block list
    and merged in the same launch) and in fp32 on the CUDA-core kernel;
    a kernel's time is the device time of every kernel one wrapper call
-   launches.  K3 is also checked at the edges of its tiles, for one
+   launches.  K4 runs in its paged form over all 32 layers (a prefill
+   chunk and a Refresh commit, routed on the card through the page
+   table), in its routed form and on one contiguous cache, each bit for
+   bit equal to its plain version with the null page left at 0.  K3 is
+   also checked at the edges of its tiles, for one
    launch per call and for equal bits from two calls; K5 at T on both
    sides of its 16-token tiles, and for the chain engine's invariant
    (a read-only T=6 verify gives the y of six one-token steps, an
@@ -26,11 +30,14 @@ Phases, in order (any failure raises and the script exits non-zero):
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
    an 8192-token prompt, 128 new tokens), with every kernel's launch
-   count set to 0 just before and read just after, the prefill timed
-   apart from decode (host clock after a synchronisation); then a fresh
-   prefill and a few decode steps under ``torch.profiler`` (device time
-   by kernel, idle share) and two forced Refresh steps (K3's share of
-   their device time);
+   count set to 0 just before and read just after (K4 must run once per
+   prefill chunk and once per commit, over every layer), the prefill
+   timed apart from decode (host clock after a synchronisation), and
+   every layer's page summaries of the final cache recomputed by the
+   plain version and held to it bit for bit; then a fresh prefill
+   (device launches and host ops per chunk) and a few decode steps
+   under ``torch.profiler`` (device time by kernel, idle share) and two
+   forced Refresh steps (K3's share of their device time);
 4. losslessness at full width, 4 layers, fp32 (TF32 off): ``generate``
    with full verification equals the port's autoregressive decoding
    token for token, then a partial-verification run;
@@ -497,14 +504,97 @@ def _score_checks(torch, card, timer, gen):
     return row
 
 
-def _summary_checks(torch, card, timer, gen):
-    """K4 at the llama path's shapes: a commit (N=2 blocks, one ragged)
-    and a prefill chunk (N=3, one entry on the null page) through the
-    routed form, in bf16 and fp32, and one whole contiguous cache.  The
-    row reported is the bf16 commit (the most launches on the path)."""
+# K4's paged shapes on the llama path: (label, start, end, n_touch), one
+# row of an 8192-token prompt in 66 table blocks of 128 tokens
+K4_PAGED_SHAPES = (
+    # the last prompt chunk: blocks 62 and 63, the third entry past the span
+    ("all-layers prefill chunk", 7936, 8192, 3),
+    # a Refresh commit of 37 tokens (width 101: n_touch 2): one ragged block
+    ("all-layers Refresh commit", 8192, 8229, 2),
+)
+
+
+def _paged_summary_case(torch, card, timer, gen, dtype, label, start, end,
+                        n_touch, layers=32, np_=70, nb=66, hk=8, dh=128,
+                        bs=128):
+    """One paged all-layers K4 call held to its plain version bit for bit
+    (null page 0 still 0 in every layer, one launch per call), timed with
+    its plain version, its bound and ``torch.aminmax`` over the same live
+    blocks.  Returns the numbers of the case."""
     from repro_torch.kernels import ops, ref
+    pool = torch.randn((layers, np_, bs, hk, dh), generator=gen,
+                       device="cuda").to(dtype)
+    perm = torch.randperm(np_ - 1, generator=gen, device="cuda") + 1
+    table = perm[:nb].to(torch.int32)[None].contiguous()
+    st = torch.tensor([start], dtype=torch.int32, device="cuda")
+    en = torch.tensor([end], dtype=torch.int32, device="cuda")
+    got = torch.zeros((2, layers, np_, hk, dh), device="cuda")
+    want = torch.zeros_like(got)
+    ops.paged_block_summaries(pool, table, st, en, n_touch, got[0], got[1])
+    ref.paged_block_summaries(pool, table, st, en, n_touch, want[0], want[1])
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4 {label} {dtype}: kernel differs from its "
+                             f"plain version, max abs err "
+                             f"{(got - want).abs().max().item():.3e}")
+    if float(got[:, :, 0].abs().max()) != 0.0:
+        raise AssertionError(f"K4 {label} {dtype} wrote the null page")
+    # the live entries, as the kernel routes them
+    live = [(start // bs + j, min(end - (start // bs + j) * bs, bs))
+            for j in range(n_touch)
+            if start // bs + j < -(-end // bs) and start // bs + j < nb]
+    if not float(got.abs().sum()) > 0 or not live:
+        raise AssertionError(f"K4 {label}: nothing written")
+    before = dict(ops.LAUNCHES)
+
+    def launch():
+        return ops.paged_block_summaries(pool, table, st, en, n_touch,
+                                         got[0], got[1])
+    ms = timer.kernel_ms(launch, "block_summary_kernel")
+    if timer.per_call != 1:
+        raise AssertionError(f"K4: {timer.per_call} launches per call")
+    ops.LAUNCHES.update(before)
+    plain_ms = timer(lambda: ref.paged_block_summaries(
+        pool, table, st, en, n_touch, want[0], want[1]), iters=3, warmup=1)
+    kb = pool.reshape(layers * np_, bs, hk, dh)
+    pages = table[0, [tb for tb, _ in live]].long()
+    rows = (torch.arange(layers, device="cuda")[:, None] * np_
+            + pages[None]).reshape(-1)
+    # the yardstick: one aminmax over the gathered live blocks
+    lib_ms = timer(lambda: torch.aminmax(kb[rows], dim=1))
+    n_tok = layers * sum(v for _, v in live)
+    nbytes = (n_tok * hk * dh * pool.element_size()
+              + 2 * layers * len(live) * hk * dh * 4 + n_touch * 4 + 8)
+    bound, by = _bound_ms(nbytes, 2 * n_tok * hk * dh, PEAK_FP32_S)
+    say(card, f"kernel K4 paged {label} L={layers} n_touch={n_touch} "
+              f"(live blocks {[v for _, v in live]} tokens) {dtype}: "
+              f"bit-equal to plain, null page 0, 1 launch per call; ms "
+              f"{ms:.4f} (profiler) plain_ms {plain_ms:.4f} bound_us "
+              f"{bound * 1e3:.3f} ({by}) library_ms {lib_ms:.4f} "
+              f"(torch.aminmax over the gathered live blocks)")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+
+def _summary_checks(torch, card, timer, gen):
+    """K4 at the llama path's shapes.  The paged form over all 32 layers,
+    the path's only form: a prefill chunk and a Refresh commit
+    (``K4_PAGED_SHAPES``), in bf16 and fp32; the row reported is the
+    bf16 prefill chunk (32 of the path's 34 launches), and ``shapes``
+    holds every timed case.  Then the routed form, a commit (N=2 blocks,
+    one ragged) and a prefill chunk (N=3, one entry on the null page),
+    in bf16 and fp32, and one whole contiguous cache, the TPU kernel's
+    own contract.  Every case is bit-equal to its plain version."""
+    from repro_torch.kernels import ops, ref
+    row, shapes = None, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, start, end, n_touch in K4_PAGED_SHAPES:
+            vals = _paged_summary_case(torch, card, timer, gen, dtype, label,
+                                       start, end, n_touch)
+            shapes[f"{label} {str(dtype)[6:]}"] = vals
+            if row is None:
+                row = dict(vals)
     hk, dh, bs, np_ = 8, 128, 128, 68
-    row, err_all = None, 0.0
     cases = [("commit N=2", [12, 40], [128, 101], [12, 40]),
              ("prefill N=3", [7, 8, 0], [128, 128, 0], [7, 8, 0])]
     for dtype in (torch.bfloat16, torch.float32):
@@ -522,20 +612,21 @@ def _summary_checks(torch, card, timer, gen):
                                      torch.where(tgt_t > 0, tgt_t, -1),
                                      outs[2], outs[3], bs)
             torch.cuda.synchronize()
-            rel = max(_close(f"K4 {label} {dtype} {nm}", g, w) for nm, g, w
-                      in (("kmax", outs[0], outs[2]),
-                          ("kmin", outs[1], outs[3])))
+            if not (torch.equal(outs[0], outs[2])
+                    and torch.equal(outs[1], outs[3])):
+                raise AssertionError(f"K4 routed {label} {dtype}: kernel "
+                                     f"differs from its plain version")
             if float(outs[0][0].abs().max()) != 0.0:
                 raise AssertionError("K4 wrote the null page")
-            err = max((outs[0] - outs[2]).abs().max().item(),
-                      (outs[1] - outs[3]).abs().max().item())
-            err_all = max(err_all, err)
             before = dict(ops.LAUNCHES)
 
             def launch():
                 return ops.block_summaries_routed(
                     pool, src_t, vlen_t, tgt_t, outs[0], outs[1], bs)
             ms = timer.kernel_ms(launch, "block_summary_kernel")
+            if timer.per_call != 1:
+                raise AssertionError(f"K4: {timer.per_call} launches per "
+                                     f"call")
             ops.LAUNCHES.update(before)
             plain_ms = timer(lambda: ref.block_summary_routed(
                 pool, src_t, vlen_t, tgt_t, outs[2], outs[3], bs), iters=3,
@@ -549,14 +640,14 @@ def _summary_checks(torch, card, timer, gen):
                       + 2 * int((tgt_t > 0).sum()) * hk * dh * 4
                       + 3 * len(src) * 4)
             bound, by = _bound_ms(nbytes, 2 * n_tok * hk * dh, PEAK_FP32_S)
-            say(card, f"kernel K4 routed {label} {dtype}: max_abs_err "
-                      f"{err:.3e} max_rel_err {rel:.3e} (tol {TOL_KERNEL}) "
-                      f"ms {ms:.4f} (profiler) plain_ms {plain_ms:.4f} "
-                      f"bound_us {bound * 1e3:.3f} ({by}) library_ms "
-                      f"{lib_ms:.4f} (torch.aminmax over gathered blocks)")
-            if row is None:
-                row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=by, library_ms=lib_ms)
+            say(card, f"kernel K4 routed {label} {dtype}: bit-equal to "
+                      f"plain, 1 launch per call; ms {ms:.4f} (profiler) "
+                      f"plain_ms {plain_ms:.4f} bound_us "
+                      f"{bound * 1e3:.3f} ({by}) library_ms {lib_ms:.4f} "
+                      f"(torch.aminmax over gathered blocks)")
+            shapes[f"routed {label} {str(dtype)[6:]}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
     # one whole contiguous cache: the TPU kernel's own contract
     k = torch.randn((1, 66 * bs, hk, dh), generator=gen,
                     device="cuda").to(torch.bfloat16)
@@ -564,18 +655,18 @@ def _summary_checks(torch, card, timer, gen):
     got = ops.block_summaries(k, length, bs)
     want = ref.block_summary_ref(k[0], 8229, bs)
     torch.cuda.synchronize()
-    rel = max(_close(f"K4 contiguous {nm}", g[0], w) for nm, g, w in
-              (("kmax", got[0], want[0]), ("kmin", got[1], want[1])))
-    err = max((got[0][0] - want[0]).abs().max().item(),
-              (got[1][0] - want[1]).abs().max().item())
-    err_all = max(err_all, err)
+    if not (torch.equal(got[0][0], want[0])
+            and torch.equal(got[1][0], want[1])):
+        raise AssertionError("K4 contiguous: kernel differs from its plain "
+                             "version")
     before = dict(ops.LAUNCHES)
     ms = timer.kernel_ms(lambda: ops.block_summaries(k, length, bs),
                          "block_summary_kernel")
     ops.LAUNCHES.update(before)
-    say(card, f"kernel K4 contiguous NB=66 length=8229 bf16: max_abs_err "
-              f"{err:.3e} max_rel_err {rel:.3e} ms {ms:.4f} (profiler)")
-    row["max_abs_err"] = err_all
+    say(card, f"kernel K4 contiguous NB=66 length=8229 bf16: bit-equal to "
+              f"plain; ms {ms:.4f} (profiler)")
+    row["max_abs_err"] = 0.0        # every case above is bit-equal
+    row["shapes"] = shapes
     return row
 
 
@@ -746,14 +837,49 @@ def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
     for k in LLAMA_KERNELS:
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} was not launched on the path")
+    # K4: one launch per prefill chunk and per commit, over every layer
+    chunks = -(-prompt_len // 256)
+    commits = stats["modes"].get("refresh", 0) + stats["modes"].get("full", 0)
+    if launches["block_summary"] != chunks + commits:
+        raise AssertionError(f"K4 launches {launches['block_summary']} != "
+                             f"{chunks} prefill chunks + {commits} commits")
+    say(card, f"K4 launches {launches['block_summary']} = {chunks} prefill "
+              f"chunks + {commits} commits, each over {cfg.num_layers} "
+              f"layers")
+    _check_final_summaries(torch, card, eng.final_state.cache)
+    eng.final_state = None
     if toks.shape != (1, new_tokens) or toks.min() < 0 \
             or toks.max() >= cfg.vocab_size:
         raise AssertionError(f"tokens out of range: {toks}")
     profile_steps(torch, card, eng, prompt, kernel="retrieval_score_kernel",
-                  refresh=True)
+                  refresh=True, prefill_kernel="block_summary_kernel")
     del eng, params, dparams
     torch.cuda.empty_cache()
     return launches
+
+
+def _check_final_summaries(torch, card, cache):
+    """Every layer's page summaries in the cache ``generate`` left,
+    against the plain version recomputed from its pool: each row's
+    blocks over [0, length), bit for bit, and 0 on every page no block of
+    a row covers, the null page 0 among them."""
+    from repro_torch.kernels import ref
+    pt, length = cache["page_table"], cache["length"]
+    want = torch.zeros((2,) + tuple(cache["kmax"].shape), device="cuda")
+    ref.paged_block_summaries(cache["k"], pt, torch.zeros_like(length),
+                              length, pt.shape[1], want[0], want[1])
+    torch.cuda.synchronize()
+    for name, w in (("kmax", want[0]), ("kmin", want[1])):
+        if not torch.equal(cache[name], w):
+            bad = (cache[name] != w).reshape(w.shape[0], w.shape[1], -1)
+            raise AssertionError(
+                f"final cache {name} differs from the plain recomputation "
+                f"on (layer, page) {bad.any(-1).nonzero()[:8].tolist()}")
+    if float(cache["kmax"][:, 0].abs().max()) != 0.0:
+        raise AssertionError("the null page's summaries are not 0")
+    say(card, f"final cache summaries ({tuple(cache['kmax'].shape)}, "
+              f"length {length.tolist()}) equal the plain recomputation "
+              f"bit for bit; the null page is 0 in every layer")
 
 
 def _device_busy(prof):
@@ -777,6 +903,20 @@ def _device_busy(prof):
     return busy_us / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
 
 
+def _launch_counts(prof):
+    """(device launches, top-level host ops) a profiler recorded: every
+    kernel, copy and set on the card, and every aten op the host
+    dispatched that no other op called."""
+    from torch.autograd import DeviceType
+    dev_n = host_n = 0
+    for e in prof.events():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            dev_n += 1
+        elif e.cpu_parent is None and e.name.startswith("aten::"):
+            host_n += 1
+    return dev_n, host_n
+
+
 def _named_ms(prof, kernel):
     """Device ms of every kernel whose name contains ``kernel``."""
     from torch.autograd import DeviceType
@@ -786,10 +926,13 @@ def _named_ms(prof, kernel):
 
 
 def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
-                  kernel: str = "", refresh: bool = False):
+                  kernel: str = "", refresh: bool = False,
+                  prefill_kernel: str = ""):
     """Where the time goes.  The fresh prefill runs under
-    ``torch.profiler`` (its device busy time and span, and the device
-    time of the kernels named ``kernel``); then after ``warm`` steps,
+    ``torch.profiler`` (its device busy time and span, the device time
+    of the kernels named ``prefill_kernel`` or else ``kernel``, and its
+    device launches and top-level host ops per 256-token chunk); then
+    after ``warm`` steps,
     ``steps`` steps timed on the host clock, then ``steps`` more under
     the profiler: device time by CUDA kernel, and, over the profiled
     steps alone, the idle share = 1 - device busy time (union of the
@@ -806,10 +949,15 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
         torch.cuda.synchronize()
         pre_wall = time.perf_counter() - t0
     busy, span = _device_busy(prof)
+    chunks = -(-prompt.shape[1] // 256)
+    dev_n, host_n = _launch_counts(prof)
+    pk = prefill_kernel or kernel
     say(card, f"profile prefill of {prompt.shape[1]} tokens: host wall_s "
               f"{pre_wall:.3f} (profiled) device span_ms {span:.2f} device "
-              f"busy_ms {busy:.2f} ({kernel} {_named_ms(prof, kernel):.2f} "
-              f"ms)")
+              f"busy_ms {busy:.2f} ({pk} {_named_ms(prof, pk):.3f} ms); "
+              f"per chunk of 256 ({chunks} chunks): device launches "
+              f"{dev_n / chunks:.1f}, top-level host aten ops "
+              f"{host_n / chunks:.1f}")
 
     def run(st, n):
         modes = []
@@ -1086,16 +1234,19 @@ def main(argv=None) -> int:
                          bound_ms=r.get("bound_ms"),
                          bound_by=r.get("bound_by"),
                          library_ms=r.get("library_ms")))
-        if "shapes" in r:      # K5: each timed shape with its launches
-            by_shape = path.get(f"{name}_shapes", {})
-            rows[-1]["shapes"] = [dict(shape=label, launches=by_shape.get(
-                label, 0), **vals) for label, vals in r["shapes"].items()]
-            for sh in rows[-1]["shapes"]:
-                say(card, f"kernel {name} {sh['shape']} (timed with "
-                          f"{sh['valid']} valid): ms {sh['ms']:.4f} "
+        if "shapes" in r:      # every timed shape (K5: with its launches)
+            by_shape = path.get(f"{name}_shapes")
+            rows[-1]["shapes"] = []
+            for label, vals in r["shapes"].items():
+                sh = dict(shape=label, **vals)
+                if by_shape is not None:
+                    sh["launches"] = by_shape.get(label, 0)
+                rows[-1]["shapes"].append(sh)
+                say(card, f"kernel {name} {label}: ms {sh['ms']:.4f} "
                           f"bound_ms {sh['bound_ms']:.5f} plain_ms "
-                          f"{sh['plain_ms']:.4f} launches on the path "
-                          f"{sh['launches']}")
+                          f"{sh['plain_ms']:.4f} library_ms "
+                          f"{sh.get('library_ms')} launches on the path "
+                          f"{sh.get('launches', 'not counted by shape')}")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

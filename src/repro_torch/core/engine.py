@@ -163,6 +163,7 @@ class SpecPVEngine:
         self.traffic = TrafficMeter()
         self._pkv_active = False
         self.dispatches = 0             # fused engine steps executed
+        self.final_state = None         # the last ``generate``'s end state
 
     # ------------------------------------------------------------------
     def _init_pkv(self, b: int):
@@ -220,6 +221,7 @@ class SpecPVEngine:
         ``chunk``)."""
         assert prompt.shape[0] == self.batch
         self._pkv_active = False
+        self.final_state = None         # free its cache before a new one
         return self._prefill_state(prompt, chunk)
 
     def _prefill_state(self, prompt: np.ndarray, chunk: int = 256
@@ -588,7 +590,8 @@ class SpecPVEngine:
         """Greedy SpecPV generation.  Returns (tokens [B, max_new], stats
         dict with steps, mean_accept, modes, tokens_per_step and
         prefill_s: host seconds until the first token reached the host,
-        which waits for the prefill on the device)."""
+        which waits for the prefill on the device).  The state after the
+        last step stays in ``final_state`` until the next prefill."""
         t0 = time.perf_counter()
         st = self.prefill(prompt, chunk=prefill_chunk)
         b = self.batch
@@ -612,6 +615,7 @@ class SpecPVEngine:
             seq_min = int(st.seq_len.min())
             if eos_id >= 0 and all(eos_id in o for o in out):
                 break
+        self.final_state = st
         toks = np.full((b, max_new_tokens), -1, np.int64)
         for i in range(b):
             n = min(len(out[i]), max_new_tokens)

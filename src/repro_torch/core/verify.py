@@ -16,7 +16,7 @@ from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.core.tree import TreeSpec
 from repro_torch.models.common import update_slice_rows
 from repro_torch.models.dense import quest_block_scores, select_partial_blocks
-from repro_torch.kvcache.cache import (paged_update_summaries,
+from repro_torch.kvcache.cache import (paged_update_all_summaries,
                                        paged_write_tokens,
                                        update_layer_summaries)
 
@@ -111,9 +111,10 @@ def append_full_cache(cache: Dict, ck, cv, count, spec: SpecPVConfig):
         for i in range(num_layers):
             paged_write_tokens(cache["k"][i], pt, length, ck[i])
             paged_write_tokens(cache["v"][i], pt, length, cv[i])
-            paged_update_summaries(cache["kmax"][i], cache["kmin"][i],
-                                   cache["k"][i], pt, length, new_len,
-                                   n_touch)
+        # nothing reads a summary before the commit ends: one K4 call
+        # covers every layer
+        paged_update_all_summaries(cache["kmax"], cache["kmin"], cache["k"],
+                                   pt, length, new_len, n_touch)
     else:
         for i in range(num_layers):
             # the reference's dynamic_update_slice clamps the offset

@@ -116,6 +116,9 @@ def load_library() -> ctypes.CDLL:
     lib.block_summary_launch.argtypes = [P, P, P, P, P, P,
                                          I, I, I, I, I, I, P]
     lib.block_summary_launch.restype = I
+    lib.block_summary_paged_launch.argtypes = [P, P, P, P, P, P,
+                                               I, I, I, I, I, I, I, I, I, P]
+    lib.block_summary_paged_launch.restype = I
     lib.wkv_launch.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, P]
     lib.wkv_launch.restype = I
     _LIB = lib

@@ -293,6 +293,56 @@ def retrieval_scores(q, kmax, kmin, q_weight):
 # K4: block summaries
 # ---------------------------------------------------------------------------
 
+def paged_block_summaries(pool, page_table, start, end, n_touch: int,
+                          kmax, kmin):
+    """The paged cache's summary update over every layer at once, in
+    place (the reference's ``paged_update_summaries`` for each layer).
+
+    pool: [L, NP, bs, Hk, Dh] (bf16/fp32); page_table: [B, NB] int32;
+    start/end: [B] (each row wrote tokens [start, end)); kmax/kmin:
+    [L, NP, Hk, Dh] fp32.  For each layer, row and j < ``n_touch``,
+    logical block ``start // bs + j``, if it holds a token below ``end``
+    and lies in the table, is reduced over its tokens below ``end`` into
+    the summaries of its page; a block on the null page 0 writes
+    nothing, so page 0 keeps its summaries (0).  On the card one launch,
+    which reads the routing from the page table itself.  Returns (kmax,
+    kmin)."""
+    dev = pool.device
+    _check("pool", pool, dtype=tuple(_DTYPES), ndim=5)
+    _check("page_table", page_table, ndim=2, device=dev)
+    for name, a in (("start", start), ("end", end)):
+        _check(name, a, ndim=1, device=dev)
+    for name, a in (("kmax", kmax), ("kmin", kmin)):
+        _check(name, a, dtype=torch.float32, ndim=4, device=dev)
+    layers, np_, bs, hk, dh = pool.shape
+    b, nb = page_table.shape
+    if (tuple(kmax.shape) != (layers, np_, hk, dh)
+            or kmin.shape != kmax.shape or start.shape[0] != b
+            or end.shape[0] != b or n_touch < 0):
+        raise ValueError(f"shape mismatch: pool {tuple(pool.shape)}, "
+                         f"table {tuple(page_table.shape)}, out "
+                         f"{tuple(kmax.shape)}, n_touch {n_touch}")
+    if dev.type == "cpu":
+        return ref.paged_block_summaries(pool, page_table, start, end,
+                                         n_touch, kmax, kmin)
+    if dev.type != "cuda":
+        raise RuntimeError(f"no kernel for device {dev}")
+    _check("page_table", page_table, dtype=torch.int32)
+    if start.dtype != torch.int32 or end.dtype != torch.int32:
+        start, end = start.to(torch.int32), end.to(torch.int32)
+    from repro_torch.kernels.build import load_library
+    lib = load_library()
+    err = lib.block_summary_paged_launch(
+        _ptr(pool), _ptr(page_table), _ptr(start), _ptr(end), _ptr(kmax),
+        _ptr(kmin), layers, np_, bs, hk, dh, b, nb, n_touch,
+        _DTYPES[pool.dtype], _stream())
+    if err != 0:
+        raise RuntimeError(f"block_summary_paged_launch failed with code "
+                           f"{err}")
+    LAUNCHES["block_summary"] += 1
+    return kmax, kmin
+
+
 def block_summaries_routed(k_flat, src, vlen, tgt, kmax_out, kmin_out,
                            block_size: int):
     """Routed per-block key max/min (paper eq. (1)), written in place.

@@ -191,6 +191,37 @@ def block_summary_routed(k_flat, src, vlen, tgt, kmax_out, kmin_out,
     return kmax_out, kmin_out
 
 
+def paged_block_summaries(pool, page_table, start, end, n_touch: int,
+                          kmax_out, kmin_out):
+    """The paged form of K4 over every layer, in place: the routing of
+    the reference's ``paged_update_summaries`` (logical blocks
+    ``start // bs + j``, j < ``n_touch``, live while below
+    ``ceil(end / bs)`` and inside the table, valid length
+    ``clip(end - tb*bs, 0, bs)``, target the block's page, the null page
+    0 skipped), the same in each layer, then one ``block_summary_routed``
+    over the layers' pools laid end to end (layer l's page p is row
+    ``l*NP + p``).  pool: [L, NP, bs, Hk, Dh]; page_table: [B, NB];
+    start/end: [B]; kmax_out/kmin_out: contiguous [L, NP, Hk, Dh] fp32."""
+    layers, np_, bs, hk, dh = pool.shape
+    nb = page_table.shape[1]
+    dev = pool.device
+    tb = ((start.long() // bs)[:, None]
+          + torch.arange(n_touch, device=dev)[None])             # [B, NT]
+    live = (tb < ((end.long() + bs - 1) // bs)[:, None]) & (tb < nb)
+    tbc = torch.clamp(tb, max=nb - 1)
+    pg = torch.gather(page_table.long(), 1, tbc).reshape(-1)
+    vlen = torch.clamp(end.long()[:, None] - tbc * bs, 0, bs).reshape(-1)
+    keep = (live.reshape(-1) & (pg > 0) & (pg < np_))[None]
+    rows = torch.arange(layers, device=dev)[:, None] * np_ + pg[None]
+    tgt = torch.where(keep, rows, torch.full_like(rows, -1))  # [L, B*NT]
+    block_summary_routed(pool.reshape(layers * np_ * bs, hk, dh),
+                         rows.reshape(-1), vlen.repeat(layers),
+                         tgt.reshape(-1),
+                         kmax_out.view(layers * np_, hk, dh),
+                         kmin_out.view(layers * np_, hk, dh), bs)
+    return kmax_out, kmin_out
+
+
 # ---------------------------------------------------------------------------
 # K5: RWKV-6 WKV recurrence
 # ---------------------------------------------------------------------------

@@ -220,24 +220,27 @@ def paged_write_tokens(pool_l, page_table, start, new, valid=None):
 
 def paged_update_summaries(kmax_p, kmin_p, pool_l, page_table, start, end,
                            n_touch: int):
-    """Recompute (in place) the physical-page summaries of the logical
-    blocks covering [start, end) of each row.  kmax_p/kmin_p:
+    """Recompute (in place) one layer's physical-page summaries of the
+    logical blocks covering [start, end) of each row.  kmax_p/kmin_p:
     [NP, Hk, Dh]; pool_l: [NP, block, Hk, Dh]; n_touch: static bound on
-    touched blocks per row.  The block-summary kernel (K4) reduces each
-    touched block's valid prefix in place; out-of-range and unallocated
-    targets route to the null page, which the kernel skips, so its
-    summaries stay 0 (the reference resets them after its scatter)."""
-    from repro_torch.kernels import ops
-    np_, blk, hk, dh = pool_l.shape
-    b, nb = page_table.shape
-    dev = pool_l.device
-    tb = (start.long() // blk)[:, None] + torch.arange(n_touch, device=dev)[None]
-    in_range = (tb < ((end.long() + blk - 1) // blk)[:, None]) & (tb < nb)
-    tbc = torch.clamp(tb, max=nb - 1)
-    pg = torch.gather(page_table.long(), 1, tbc)               # [B, NT]
-    vlen = torch.clamp(end.long()[:, None] - tbc * blk, 0, blk)
-    tgt = torch.where(in_range, pg, torch.zeros_like(pg))
-    ops.block_summaries_routed(pool_l.view(np_ * blk, hk, dh),
-                               pg.reshape(-1), vlen.reshape(-1),
-                               tgt.reshape(-1), kmax_p, kmin_p, blk)
+    touched blocks per row.  The one-layer case of
+    ``paged_update_all_summaries``."""
+    paged_update_all_summaries(kmax_p[None], kmin_p[None], pool_l[None],
+                               page_table, start, end, n_touch)
     return kmax_p, kmin_p
+
+
+def paged_update_all_summaries(kmax, kmin, pool, page_table, start, end,
+                               n_touch: int):
+    """Recompute (in place) every layer's physical-page summaries of the
+    logical blocks covering [start, end) of each row: the reference's
+    ``paged_update_summaries`` mapped over the layers, in one call of
+    the block-summary kernel (K4), which reads the routing from the page
+    table on the card.  kmax/kmin: [L, NP, Hk, Dh]; pool: [L, NP, block,
+    Hk, Dh].  Out-of-range and unallocated blocks route to the null
+    page, which the kernel skips, so its summaries stay 0 (the reference
+    resets them after its scatter)."""
+    from repro_torch.kernels import ops
+    ops.paged_block_summaries(pool, page_table, start, end, n_touch, kmax,
+                              kmin)
+    return kmax, kmin

@@ -333,14 +333,7 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
             pkv_blocks=pkv_blocks[i] if pkv_blocks is not None else None)
         h = h + att
         if mode == "prefill":
-            if paged:
-                from repro_torch.kvcache.cache import paged_update_summaries
-                blk = cache["k"].shape[2]
-                paged_update_summaries(cache["kmax"][i], cache["kmin"][i],
-                                       cache["k"][i], page_table, length,
-                                       length + t,
-                                       n_touch=-(-t // blk) + 1)
-            else:
+            if not paged:
                 from repro_torch.kvcache.cache import update_layer_summaries
                 nkmax, nkmin = update_layer_summaries(
                     cache["kmax"][i], cache["kmin"][i], cache["k"][i],
@@ -360,6 +353,14 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                     feats[slot] = h
     new_cache = None
     if mode == "prefill":
+        if paged:
+            # the prefill reads no summary: one K4 call after the layer
+            # loop covers the chunk in every layer
+            from repro_torch.kvcache.cache import paged_update_all_summaries
+            blk = cache["k"].shape[2]
+            paged_update_all_summaries(cache["kmax"], cache["kmin"],
+                                       cache["k"], page_table, length,
+                                       length + t, n_touch=-(-t // blk) + 1)
         new_cache = dict(cache)
         new_cache["length"] = length + t
     new_kv = ((torch.stack(new_k), torch.stack(new_v)) if new_k else None)

@@ -277,6 +277,48 @@ def test_cuda_block_summaries_match_plain(cuda, dtype):
         _assert_close(got[1][i], want[1])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["prefill", "commit"])
+def test_cuda_paged_block_summaries_match_plain(cuda, dtype, case):
+    """K4's paged form over every layer (llama3.1-8b widths, 32 layers,
+    two rows) against its plain version, bit for bit: a prefill chunk
+    (n_touch 3, the third entry out of range) or a ragged commit, with a
+    null page in one row's table and a span past the other row's table.
+    One launch per call, page 0 still 0 in every layer, and two calls
+    from the same state give the same bits."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    layers, npg, bs, hk, dh, nb = 32, 12, 128, 8, 128, 5
+    pool = torch.randn((layers, npg, bs, hk, dh), generator=g,
+                       device=cuda).to(TDT[dtype])
+    table = torch.tensor([[3, 7, 0, 9, 1], [2, 11, 4, 6, 10]],
+                         dtype=torch.int32, device=cuda)
+    if case == "prefill":
+        start, end, n_touch = [256, 512], [512, 768], 3
+    else:
+        start, end, n_touch = [390, 600], [433, 650], 2
+    start, end = (torch.tensor(a, dtype=torch.int32, device=cuda)
+                  for a in (start, end))
+    init = torch.rand((2, layers, npg, hk, dh), generator=g, device=cuda)
+    init[:, :, 0] = 0.0                                  # the null page
+    got, again, want = (init.clone() for _ in range(3))
+    before = tops.LAUNCHES["block_summary"]
+    tops.paged_block_summaries(pool, table, start, end, n_touch, got[0],
+                               got[1])
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["block_summary"] == before + 1
+    tops.paged_block_summaries(pool, table, start, end, n_touch, again[0],
+                               again[1])
+    tref.paged_block_summaries(pool, table, start, end, n_touch, want[0],
+                               want[1])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+    assert float(got[:, :, 0].abs().max()) == 0.0
+    assert not torch.equal(got, init)                   # something written
+
+
 def _wkv_inputs(dev, b, t, seed, h=40, dk=64):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)

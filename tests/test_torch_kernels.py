@@ -304,6 +304,105 @@ def test_paged_update_summaries_matches_jax(dtype):
         assert float(g[0].abs().max()) == 0.0
 
 
+# (start, end, n_touch) per case, B=2 rows of a 4-block table at block 8:
+# prefill: row 0 writes blocks 0-2, the ragged third on the null page; row
+#   1 ends past its table (block 3 full, blocks 4 and 5 outside it);
+# commit: row 0 ends in a ragged block, row 1 runs past its table.
+_SPANS = {"prefill": ([0, 24], [20, 37], 3),
+          "commit": ([5, 26], [13, 35], 2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("span", sorted(_SPANS))
+def test_all_layer_summaries_match_jax_vmap(dtype, span):
+    """The all-layers summary update (one K4 call on the card) against the
+    reference's ``paged_update_summaries`` mapped over L=3 layers with
+    ``jax.vmap``, as the reference's commit does: untouched pages keep
+    their summaries and page 0 stays 0 in every layer."""
+    import jax
+    rng = np.random.default_rng(14)
+    layers, npg, bs, hk, dh = 3, 11, 8, 2, 4
+    pool = rng.normal(size=(layers, npg, bs, hk, dh))
+    pt = np.asarray([[3, 1, 0, 5], [2, 6, 4, 8]], np.int32)
+    start, end, n_touch = (np.asarray(a, np.int32) if isinstance(a, list)
+                           else a for a in _SPANS[span])
+    init = rng.normal(size=(2, layers, npg, hk, dh)).astype(np.float32)
+    init[:, :, 0] = 0.0                                  # the null page
+    pj, ptt = _pair(pool, dtype)
+    wj = jax.vmap(lambda kx, kn, p: jkvc.paged_update_summaries(
+        kx, kn, p, jnp.asarray(pt), jnp.asarray(start), jnp.asarray(end),
+        n_touch))(jnp.asarray(init[0]), jnp.asarray(init[1]), pj)
+    got = torch.from_numpy(init.copy())
+    tkvc.paged_update_all_summaries(got[0], got[1], ptt, torch.from_numpy(pt),
+                                    torch.from_numpy(start),
+                                    torch.from_numpy(end), n_touch)
+    for g, w in zip(got, wj):
+        _close(g, w, 1e-6)
+        assert float(g[:, 0].abs().max()) == 0.0
+    touched = {int(pt[b, t // bs]) for b in range(2)
+               for t in range(start[b], end[b]) if t // bs < pt.shape[1]}
+    for p in set(range(1, npg)) - touched:
+        assert torch.equal(got[:, :, p], torch.from_numpy(init[:, :, p]))
+    assert not torch.equal(got, torch.from_numpy(init))
+
+
+def _tiny_paged_cache(seed):
+    from repro_torch import configs as tcfgs
+    from repro_torch.models import api as tapi
+    cfg = tcfgs.get_config("tiny-dense")
+    spec = tcfgs.SpecPVConfig(block_size=16, use_pallas=True)
+    params = tapi.init_params(cfg, seed=seed, device="cpu")
+    cache = tapi.init_cache(cfg, 2, 160, spec, paged=True, device="cpu")
+    nb = cache["page_table"].shape[1]
+    cache["page_table"] = torch.randperm(
+        cache["k"].shape[1] - 1, generator=torch.Generator().manual_seed(
+            seed))[: 2 * nb].reshape(2, nb).to(torch.int32) + 1
+    return cfg, spec, params, cache
+
+
+def _per_layer_summaries(before, pool, table, start, end, n_touch):
+    """The per-layer update, once per layer, from the summaries ``before``."""
+    kmax, kmin = (a.clone() for a in before)
+    for i in range(pool.shape[0]):
+        tkvc.paged_update_summaries(kmax[i], kmin[i], pool[i], table, start,
+                                    end, n_touch)
+    return kmax, kmin
+
+
+@pytest.mark.parametrize("where", ["prefill", "append_full_cache"])
+def test_one_summary_call_equals_one_per_layer(where):
+    """The paged prefill and ``append_full_cache`` update the summaries of
+    all layers in one call after the layer loop; one call per layer on
+    the same pool gives the same bits."""
+    from repro_torch.core import verify as tvf
+    from repro_torch.models import api as tapi
+    cfg, spec, params, cache = _tiny_paged_cache(seed=3)
+    rng = np.random.default_rng(15)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 40)))
+    _, _, cache = tapi.prefill(cfg, params, toks[:, :21], cache, spec=spec)
+    start = cache["length"].clone()
+    before = (cache["kmax"].clone(), cache["kmin"].clone())
+    if where == "prefill":
+        t = 19
+        _, _, cache = tapi.prefill(cfg, params, toks[:, 21:], cache,
+                                   spec=spec)
+    else:
+        t = 7
+        shape = (cfg.num_layers, 2, t) + tuple(cache["k"].shape[3:])
+        ck, cv = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                  for _ in range(2))
+        cache = tvf.append_full_cache(cache, ck, cv,
+                                      torch.tensor([t, 3], dtype=torch.int32),
+                                      spec)
+    end = cache["length"]
+    assert bool((end > start).all())
+    want = _per_layer_summaries(before, cache["k"], cache["page_table"],
+                                start, end, -(-t // spec.block_size) + 1)
+    assert torch.equal(cache["kmax"], want[0])
+    assert torch.equal(cache["kmin"], want[1])
+    assert not torch.equal(cache["kmax"], before[0])
+
+
 # ---------------------------------------------------------------------------
 # K5: WKV recurrence
 # ---------------------------------------------------------------------------
