@@ -29,25 +29,35 @@ Phases, in order (any failure raises and the script exits non-zero):
    bit for bit);
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
-   an 8192-token prompt, 128 new tokens), with every kernel's launch
-   count set to 0 just before and read just after (K4 must run once per
-   prefill chunk and once per commit, over every layer), the prefill
-   timed apart from decode (host clock after a synchronisation), and
-   every layer's page summaries of the final cache recomputed by the
-   plain version and held to it bit for bit; then a fresh prefill
-   (device launches and host ops per chunk) and a few decode steps
-   under ``torch.profiler`` (device time by kernel, idle share) and two
-   forced Refresh steps (K3's share of their device time);
+   an 8192-token prompt, 128 new tokens), twice: eagerly
+   (``cuda_graphs=False``) and with the step variants and the 256-token
+   prefill chunk replayed as CUDA graphs (the default, the main path),
+   whose tokens and launch counts must equal the eager run's.  For each
+   run every kernel's launch count is set to 0 just before and read just
+   after (K4 must run once per prefill chunk and once per commit, over
+   every layer), the prefill is timed apart from decode (host clock
+   after a synchronisation), and every layer's page summaries of the
+   final cache are recomputed by the plain version and held to it bit
+   for bit; then a fresh prefill (device launches, host ops and host
+   launch calls per chunk) and a few decode steps under
+   ``torch.profiler`` (device time by kernel, idle share) and two forced
+   Refresh steps (K3's share of their device time).  After the eager
+   run, one eager run of the prefill chunk's and of each step variant's
+   body under ``torch.cuda.set_sync_debug_mode("error")`` (no body may
+   wait for the card or read from the host);
 4. losslessness at full width, 4 layers, fp32 (TF32 off): ``generate``
-   with full verification equals the port's autoregressive decoding
-   token for token, then a partial-verification run;
+   with full verification, replayed as graphs, equals the port's
+   autoregressive decoding token for token, then a partial-verification
+   run with graphs equals the same run done eagerly;
 5. the state-architecture path: greedy chain-speculation ``generate`` of
    rwkv6-3b at full width (32 layers, d 2560, bf16, random weights,
-   batch 1, an 8192-token prompt, 128 new tokens) with the launch counts
-   set to 0 just before and read just after (the WKV kernel must run 32
-   x (prefill chunks + 2 x steps) times), a profiled prefill and window
-   of its steps, and fp32 losslessness at 4 layers (``generate`` equals
-   the port's autoregressive decoding);
+   batch 1, an 8192-token prompt, 128 new tokens), eagerly and with
+   graphs (equal tokens and counts), with the launch counts set to 0
+   just before and read just after each (the WKV kernel must run 32 x
+   (prefill chunks + 2 x steps) times), a profiled prefill and window of
+   its steps, the bodies under the sync check, and fp32 losslessness at
+   4 layers with graphs (``generate`` equals the port's autoregressive
+   decoding);
 6. one JSON line with every kernel's numbers (each kernel's launches
    from its own path's run), the card's name and power limit, and the
    final ``{"ok": true, ...}`` line.
@@ -810,52 +820,158 @@ def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
     tree_path = dcfg.tree_depth + 1
     max_len = request_token_need(prompt_len, new_tokens, spec.buffer_size,
                                  tree_path)
-    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
-                       max_len=max_len, paged=True, zero_copy=True,
-                       device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    toks, stats = eng.generate(prompt, new_tokens)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    decode_s = wall - stats["prefill_s"]
-    say(card, f"generate llama3.1-8b (32 layers, bf16, random weights) "
-              f"prompt {prompt_len} new {new_tokens}: modes {stats['modes']} "
-              f"steps {stats['steps']} mean_accept {stats['mean_accept']:.4f} "
-              f"wall_s {wall:.3f} (prefill_s {stats['prefill_s']:.3f} "
-              f"decode_s {decode_s:.3f}, ms/step "
-              f"{decode_s * 1e3 / max(stats['steps'], 1):.2f}) tokens_per_s "
-              f"{new_tokens / wall:.2f} peak_mem_gib {peak:.2f} "
-              f"launches {launches}")
-    if not (stats["modes"].get("refresh") and stats["modes"].get("partial")):
-        raise AssertionError(f"Refresh and Partial ticks must both run: "
-                             f"{stats['modes']}")
-    for k in LLAMA_KERNELS:
-        if launches[k] <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the path")
-    # K4: one launch per prefill chunk and per commit, over every layer
-    chunks = -(-prompt_len // 256)
-    commits = stats["modes"].get("refresh", 0) + stats["modes"].get("full", 0)
-    if launches["block_summary"] != chunks + commits:
-        raise AssertionError(f"K4 launches {launches['block_summary']} != "
-                             f"{chunks} prefill chunks + {commits} commits")
-    say(card, f"K4 launches {launches['block_summary']} = {chunks} prefill "
-              f"chunks + {commits} commits, each over {cfg.num_layers} "
-              f"layers")
-    _check_final_summaries(torch, card, eng.final_state.cache)
-    eng.final_state = None
-    if toks.shape != (1, new_tokens) or toks.min() < 0 \
-            or toks.max() >= cfg.vocab_size:
-        raise AssertionError(f"tokens out of range: {toks}")
-    profile_steps(torch, card, eng, prompt, kernel="retrieval_score_kernel",
-                  refresh=True, prefill_kernel="block_summary_kernel")
-    del eng, params, dparams
+    runs = {}
+    for graphs in (False, True):
+        label = RUN_LABEL[graphs]
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, paged=True, zero_copy=True,
+                           device="cuda", cuda_graphs=graphs)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, stats = eng.generate(prompt, new_tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        memory_line(torch, card, label, eng, params, dparams, peak)
+        decode_s = wall - stats["prefill_s"]
+        say(card, f"generate llama3.1-8b [{label}] (32 layers, bf16, random "
+                  f"weights) prompt {prompt_len} new {new_tokens}: modes "
+                  f"{stats['modes']} steps {stats['steps']} mean_accept "
+                  f"{stats['mean_accept']:.4f} wall_s {wall:.3f} (prefill_s "
+                  f"{stats['prefill_s']:.3f} decode_s {decode_s:.3f}, ms/step "
+                  f"{decode_s * 1e3 / max(stats['steps'], 1):.2f}) "
+                  f"tokens_per_s {new_tokens / wall:.2f} peak_mem_gib "
+                  f"{peak:.2f} capture_s {eng.capture_s:.3f} graphs "
+                  f"{sorted(map(str, eng._graphs))} launches {launches}")
+        if not (stats["modes"].get("refresh")
+                and stats["modes"].get("partial")):
+            raise AssertionError(f"Refresh and Partial ticks must both run: "
+                                 f"{stats['modes']}")
+        for k in LLAMA_KERNELS:
+            if launches[k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched on the "
+                                     f"path")
+        # K4: one launch per prefill chunk and per commit, over every layer
+        chunks = -(-prompt_len // 256)
+        commits = (stats["modes"].get("refresh", 0)
+                   + stats["modes"].get("full", 0))
+        if launches["block_summary"] != chunks + commits:
+            raise AssertionError(f"K4 launches {launches['block_summary']} "
+                                 f"!= {chunks} prefill chunks + {commits} "
+                                 f"commits")
+        say(card, f"K4 launches [{label}] {launches['block_summary']} = "
+                  f"{chunks} prefill chunks + {commits} commits, each over "
+                  f"{cfg.num_layers} layers")
+        want_graphs = {("prefill", 256), (True, False, True),
+                       (False, True, False)}
+        if graphs and set(eng._graphs) != want_graphs:
+            raise AssertionError(f"graphs captured: "
+                                 f"{sorted(map(str, eng._graphs))}")
+        _check_final_summaries(torch, card, eng.final_state.cache)
+        eng.final_state = None
+        if toks.shape != (1, new_tokens) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"tokens out of range: {toks}")
+        prof = profile_steps(torch, card, eng, prompt, label=label,
+                             kernel="retrieval_score_kernel", refresh=True,
+                             prefill_kernel="block_summary_kernel")
+        if not graphs:
+            check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
+        runs[label] = dict(toks=toks, launches=launches, wall_s=wall,
+                           tokens_per_s=new_tokens / wall,
+                           prefill_s=stats["prefill_s"], peak_gib=peak,
+                           capture_s=eng.capture_s, **prof)
+        del eng
+        torch.cuda.empty_cache()
+    compare_runs(card, "llama3.1-8b", runs)
+    del params, dparams
     torch.cuda.empty_cache()
-    return launches
+    return runs["graphs"]["launches"]
+
+
+RUN_LABEL = {False: "eager", True: "graphs"}
+
+
+def _nbytes(obj) -> int:
+    """Bytes of every tensor in a nest of dicts and lists."""
+    if isinstance(obj, dict):
+        return sum(_nbytes(v) for v in obj.values())
+    if isinstance(obj, (list, tuple)):
+        return sum(_nbytes(v) for v in obj)
+    return obj.numel() * obj.element_size() if hasattr(obj, "numel") else 0
+
+
+def memory_line(torch, card, label, eng, params, dparams, peak):
+    """Where a run's device memory went: the weights, the engine's static
+    state, what else stays allocated after ``generate`` (the graphs'
+    pool, with graphs) and the peak above that (transients: a step's
+    intermediates, the warm-up copy of the state at each capture)."""
+    gib = 2.0**30
+    weights = (_nbytes(params) + _nbytes(dparams)) / gib
+    static = sum(t.numel() * t.element_size()
+                 for t in eng._static_tensors()) / gib
+    held = torch.cuda.memory_allocated() / gib
+    say(card, f"memory [{label}]: weights {weights:.3f} GiB, static state "
+              f"{static:.3f} GiB, other held after generate "
+              f"{held - weights - static:.3f} GiB, peak {peak:.3f} GiB "
+              f"({peak - held:.3f} above what stays held)")
+
+
+def compare_runs(card, name, runs):
+    """Graphs against eager on one path: the tokens and launch counts must
+    be equal; the numbers of both runs side by side."""
+    import numpy as np
+    e, g = runs["eager"], runs["graphs"]
+    if not np.array_equal(e["toks"], g["toks"]):
+        raise AssertionError(f"{name}: graph tokens differ from eager:\n"
+                             f"{g['toks']}\n{e['toks']}")
+    if e["launches"] != g["launches"]:
+        raise AssertionError(f"{name}: graph launch counts {g['launches']} "
+                             f"!= eager {e['launches']}")
+    say(card, f"{name}: graph generate == eager generate over "
+              f"{e['toks'].shape[1]} tokens, launch counts equal")
+    for key in ("wall_ms_step", "tokens_per_s", "prefill_s", "idle_share",
+                "idle_share_unprofiled", "busy_ms_step",
+                "device_launches_step", "host_launch_calls_step",
+                "host_ops_step", "prefill_device_launches_chunk",
+                "prefill_host_launch_calls_chunk", "prefill_busy_ms",
+                "prefill_wall_s", "peak_gib", "capture_s"):
+        say(card, f"{name} eager vs graphs: {key} {e[key]:.4f} -> "
+                  f"{g[key]:.4f}")
+
+
+def check_sync_free(torch, card, eng, prompt):
+    """After a prefill of ``prompt``, one eager run of each step variant's
+    body and of the 256-token prefill chunk's under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    operation that waits for the card (a host read, a copy from pageable
+    memory): what a graph captures must not sync."""
+    from repro_torch.core.engine import MODE_IDS
+    eng.prefill(prompt)
+    toks = eng._chunk_toks[256]
+    if eng.is_attn:
+        bodies = [(mode, (lambda mode=mode, key=key: (
+            eng._modes.fill_(MODE_IDS[mode]), eng._fused_body(*key))))
+            for mode, key in (("full", (True, False, False)),
+                              ("refresh", (True, False, True)),
+                              ("partial", (False, True, False)))]
+    else:
+        bodies = [("state", eng._state_body)]
+    bodies.append(("prefill chunk", lambda: eng._prefill_body(toks)))
+    torch.cuda.synchronize()
+    for label, body in bodies:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            body()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(card, f"sync check: the {', '.join(lb for lb, _ in bodies)} bodies "
+              f"ran eagerly under set_sync_debug_mode('error') without a "
+              f"sync")
 
 
 def _check_final_summaries(torch, card, cache):
@@ -903,18 +1019,27 @@ def _device_busy(prof):
     return busy_us / 1e3, (spans[-1][1] - spans[0][0]) / 1e3
 
 
+# the CUDA API calls (runtime and cu*) by which the host starts device work
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def _launch_counts(prof):
-    """(device launches, top-level host ops) a profiler recorded: every
-    kernel, copy and set on the card, and every aten op the host
-    dispatched that no other op called."""
+    """(device launches, top-level host ops, host launch calls) a profiler
+    recorded: every kernel, copy and set on the card (a graph's too),
+    every aten op the host dispatched that no other op called, and every
+    runtime call that started device work (a graph replay is one)."""
     from torch.autograd import DeviceType
-    dev_n = host_n = 0
+    dev_n = host_n = calls = 0
     for e in prof.events():
         if getattr(e, "device_type", None) == DeviceType.CUDA:
             dev_n += 1
+        elif e.name in HOST_LAUNCH_CALLS:
+            calls += 1
         elif e.cpu_parent is None and e.name.startswith("aten::"):
             host_n += 1
-    return dev_n, host_n
+    return dev_n, host_n, calls
 
 
 def _named_ms(prof, kernel):
@@ -927,19 +1052,21 @@ def _named_ms(prof, kernel):
 
 def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
                   kernel: str = "", refresh: bool = False,
-                  prefill_kernel: str = ""):
+                  prefill_kernel: str = "", label: str = ""):
     """Where the time goes.  The fresh prefill runs under
     ``torch.profiler`` (its device busy time and span, the device time
     of the kernels named ``prefill_kernel`` or else ``kernel``, and its
-    device launches and top-level host ops per 256-token chunk); then
-    after ``warm`` steps,
-    ``steps`` steps timed on the host clock, then ``steps`` more under
-    the profiler: device time by CUDA kernel, and, over the profiled
-    steps alone, the idle share = 1 - device busy time (union of the
-    device events' intervals) / the device span (first event's start to
-    last event's end), beside the host clock around the same steps.
-    With ``refresh``, two forced Refresh steps follow under the profiler:
-    their device busy time and the share of it in ``kernel``."""
+    device launches, top-level host ops and host launch calls per
+    256-token chunk); then after ``warm`` steps, ``steps`` steps timed on
+    the host clock, then ``steps`` more under the profiler: device time
+    by CUDA kernel, and, over the profiled steps alone, the idle share =
+    1 - device busy time (union of the device events' intervals) / the
+    device span (first event's start to last event's end), beside the
+    host clock around the same steps.  The idle share without the
+    profiler is 1 - that busy time / the unprofiled host wall time per
+    step (the profiler slows the host, not the card).  With ``refresh``,
+    two forced Refresh steps follow under the profiler: their device busy
+    time and the share of it in ``kernel``.  Returns the numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -950,21 +1077,25 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
         pre_wall = time.perf_counter() - t0
     busy, span = _device_busy(prof)
     chunks = -(-prompt.shape[1] // 256)
-    dev_n, host_n = _launch_counts(prof)
+    dev_n, host_n, calls_n = _launch_counts(prof)
     pk = prefill_kernel or kernel
-    say(card, f"profile prefill of {prompt.shape[1]} tokens: host wall_s "
-              f"{pre_wall:.3f} (profiled) device span_ms {span:.2f} device "
-              f"busy_ms {busy:.2f} ({pk} {_named_ms(prof, pk):.3f} ms); "
-              f"per chunk of 256 ({chunks} chunks): device launches "
+    say(card, f"profile [{label}] prefill of {prompt.shape[1]} tokens: host "
+              f"wall_s {pre_wall:.3f} (profiled) device span_ms {span:.2f} "
+              f"device busy_ms {busy:.2f} ({pk} {_named_ms(prof, pk):.3f} "
+              f"ms); per chunk of 256 ({chunks} chunks): device launches "
               f"{dev_n / chunks:.1f}, top-level host aten ops "
-              f"{host_n / chunks:.1f}")
+              f"{host_n / chunks:.1f}, host launch calls "
+              f"{calls_n / chunks:.1f}")
+    out = dict(prefill_wall_s=pre_wall, prefill_busy_ms=busy,
+               prefill_span_ms=span,
+               prefill_device_launches_chunk=dev_n / chunks,
+               prefill_host_ops_chunk=host_n / chunks,
+               prefill_host_launch_calls_chunk=calls_n / chunks)
 
     def run(st, n):
         modes = []
         for _ in range(n):
-            mode = eng.select_mode(int(st.pending_len.max()),
-                                   int(st.seq_len.min()))
-            st, so = eng.step(st, mode)
+            st, so = eng.step(st, eng.next_mode())
             modes.append(so.mode)
         torch.cuda.synchronize()
         return st, modes
@@ -978,18 +1109,30 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
         st, pmodes = run(st, steps)
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, span_ms = _device_busy(prof)
+    dev_n, host_n, calls_n = _launch_counts(prof)
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) == DeviceType.CUDA
                and _dev_us(e) > 0]
-    say(card, f"profile decode steps {modes} then {pmodes}: unprofiled "
-              f"wall_ms/step {wall_ms / steps:.2f}; profiled steps: host "
-              f"wall_ms/step {prof_wall_ms / steps:.2f} device span_ms/step "
-              f"{span_ms / steps:.2f} device busy_ms/step "
+    idle_unprof = 1 - busy_ms / wall_ms
+    say(card, f"profile [{label}] decode steps {modes} then {pmodes}: "
+              f"unprofiled wall_ms/step {wall_ms / steps:.2f}; profiled "
+              f"steps: host wall_ms/step {prof_wall_ms / steps:.2f} device "
+              f"span_ms/step {span_ms / steps:.2f} device busy_ms/step "
               f"{busy_ms / steps:.2f} idle_share {1 - busy_ms / span_ms:.3f} "
-              f"kernels/step {sum(e.count for e in kernels) // steps}")
+              f"(unprofiled: {idle_unprof:.3f}) device launches/step "
+              f"{dev_n / steps:.1f} host launch calls/step "
+              f"{calls_n / steps:.1f} top-level host aten ops/step "
+              f"{host_n / steps:.1f}")
     for e in sorted(kernels, key=_dev_us, reverse=True)[:10]:
-        say(card, f"profile   {_dev_us(e) / 1e3 / steps:8.3f} ms/step "
-                  f"{e.count // steps:5d} launches/step  {e.key[:80]}")
+        say(card, f"profile [{label}]   {_dev_us(e) / 1e3 / steps:8.3f} "
+                  f"ms/step {e.count // steps:5d} launches/step  "
+                  f"{e.key[:80]}")
+    out.update(wall_ms_step=wall_ms / steps, busy_ms_step=busy_ms / steps,
+               idle_share=1 - busy_ms / span_ms,
+               idle_share_unprofiled=idle_unprof,
+               device_launches_step=dev_n / steps,
+               host_launch_calls_step=calls_n / steps,
+               host_ops_step=host_n / steps)
     if refresh:
         with profile(activities=acts) as prof:
             for _ in range(2):
@@ -997,10 +1140,11 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
             torch.cuda.synchronize()
         busy_ms, span_ms = _device_busy(prof)
         k_ms = _named_ms(prof, kernel)
-        say(card, f"profile 2 forced Refresh steps: device busy_ms/step "
-                  f"{busy_ms / 2:.2f} span_ms/step {span_ms / 2:.2f}; "
-                  f"{kernel} {k_ms / 2:.4f} ms/step = {k_ms / busy_ms:.4f} "
-                  f"of device busy time")
+        say(card, f"profile [{label}] 2 forced Refresh steps: device "
+                  f"busy_ms/step {busy_ms / 2:.2f} span_ms/step "
+                  f"{span_ms / 2:.2f}; {kernel} {k_ms / 2:.4f} ms/step = "
+                  f"{k_ms / busy_ms:.4f} of device busy time")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1035,21 +1179,31 @@ def phase_lossless(torch, card, prompt_len: int, new_tokens: int):
                         max_len=max_len, paged=True, zero_copy=True,
                         partial_verification=False, device="cuda")
     toks_full, st_full = full.generate(prompt, new_tokens)
+    if not full._graphs:
+        raise AssertionError("the full-verification run replayed no graph")
     if not np.array_equal(toks_full, ar):
         raise AssertionError(f"full-verification SpecPV differs from AR:\n"
                              f"{toks_full}\n{ar}")
-    part = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
-                        max_len=max_len, paged=True, zero_copy=True,
-                        device="cuda")
-    toks_part, st_part = part.generate(prompt, new_tokens)
-    if toks_part.min() < 0 or toks_part.max() >= cfg.vocab_size:
+    del full
+    toks_part = {}
+    for graphs in (True, False):
+        part = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                            max_len=max_len, paged=True, zero_copy=True,
+                            device="cuda", cuda_graphs=graphs)
+        toks_part[graphs], st_part = part.generate(prompt, new_tokens)
+        del part
+    if not np.array_equal(toks_part[True], toks_part[False]):
+        raise AssertionError(f"partial-verification run: graphs differ from "
+                             f"eager:\n{toks_part[True]}\n{toks_part[False]}")
+    if toks_part[True].min() < 0 or toks_part[True].max() >= cfg.vocab_size:
         raise AssertionError(f"partial-verification tokens out of range")
-    agree = float(np.mean(toks_part == ar))
-    say(card, f"lossless llama3.1-8b x4 layers fp32: full-verify == AR over "
-              f"{new_tokens} tokens (modes {st_full['modes']}); partial run "
-              f"modes {st_part['modes']} agrees with AR on {agree:.3f} of "
-              f"tokens; {time.perf_counter() - t0:.1f} s")
-    del params, dparams, full, part
+    agree = float(np.mean(toks_part[True] == ar))
+    say(card, f"lossless llama3.1-8b x4 layers fp32, graphs: full-verify == "
+              f"AR over {new_tokens} tokens (modes {st_full['modes']}); "
+              f"partial run modes {st_part['modes']} equals its eager run "
+              f"and agrees with AR on {agree:.3f} of tokens; "
+              f"{time.perf_counter() - t0:.1f} s")
+    del params, dparams
     torch.cuda.empty_cache()
 
 
@@ -1079,54 +1233,76 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
         0, cfg.vocab_size, (1, prompt_len)).astype(np.int64)
     max_len = request_token_need(prompt_len, new_tokens, spec.buffer_size,
                                  dcfg.tree_depth + 1)
-    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
-                       max_len=max_len, paged=False, device="cuda")
     chunk = 256
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    toks, stats = eng.generate(prompt, new_tokens, prefill_chunk=chunk)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(ops.LAUNCHES)
-    by_shape = {WKV_PATH_SHAPES.get(key, f"T={key[0]} update={key[1]}"): n
-                for key, n in ops.WKV_SHAPES.items()}
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    chunks = -(-prompt_len // chunk)
-    want_wkv = cfg.num_layers * (chunks + 2 * stats["steps"])
-    say(card, f"generate rwkv6-3b ({cfg.num_layers} layers, d "
-              f"{cfg.d_model}, {cfg.dtype}, random weights, chain depth "
-              f"{dcfg.tree_depth}) prompt {prompt_len} new "
-              f"{new_tokens}: modes {stats['modes']} steps {stats['steps']} "
-              f"mean_accept {stats['mean_accept']:.4f} wall_s {wall:.3f} "
-              f"(prefill_s {stats['prefill_s']:.3f}) "
-              f"tokens_per_s {new_tokens / wall:.2f} peak_mem_gib "
-              f"{peak:.2f} wkv_launches {launches['wkv']} (expected "
-              f"{cfg.num_layers} x ({chunks} prefill chunks + 2 x "
-              f"{stats['steps']} steps) = {want_wkv}) launches {launches}")
-    say(card, f"wkv launches by shape (counted in ops.wkv): {by_shape}")
-    if stats["modes"] != {"state": stats["steps"]}:
-        raise AssertionError(f"state steps only: {stats['modes']}")
-    if launches["wkv"] != want_wkv:
-        raise AssertionError(f"WKV launches {launches['wkv']} != {want_wkv}")
-    # one T=256 call per layer and prefill chunk, one read-only T=6 verify
-    # and one T=6 advance per layer and step
-    steps_n = cfg.num_layers * stats["steps"]
-    want_shapes = {"prefill T=256": cfg.num_layers * chunks,
-                   "verify T=6": steps_n, "advance T=6": steps_n}
-    if sum(by_shape.values()) != want_wkv or by_shape != want_shapes:
-        raise AssertionError(f"WKV launches by shape {by_shape} != "
-                             f"{want_shapes}")
-    launches["wkv_shapes"] = by_shape
-    if toks.shape != (1, new_tokens) or toks.min() < 0 \
-            or toks.max() >= cfg.vocab_size:
-        raise AssertionError(f"tokens out of range: {toks}")
-    profile_steps(torch, card, eng, prompt, kernel="wkv_kernel")
-    del eng, params, dparams
+    runs = {}
+    for graphs in (False, True):
+        label = RUN_LABEL[graphs]
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, paged=False, device="cuda",
+                           cuda_graphs=graphs)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, stats = eng.generate(prompt, new_tokens, prefill_chunk=chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        by_shape = {WKV_PATH_SHAPES.get(key, f"T={key[0]} update={key[1]}"): n
+                    for key, n in ops.WKV_SHAPES.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        memory_line(torch, card, label, eng, params, dparams, peak)
+        chunks = -(-prompt_len // chunk)
+        want_wkv = cfg.num_layers * (chunks + 2 * stats["steps"])
+        say(card, f"generate rwkv6-3b [{label}] ({cfg.num_layers} layers, d "
+                  f"{cfg.d_model}, {cfg.dtype}, random weights, chain depth "
+                  f"{dcfg.tree_depth}) prompt {prompt_len} new "
+                  f"{new_tokens}: modes {stats['modes']} steps "
+                  f"{stats['steps']} mean_accept {stats['mean_accept']:.4f} "
+                  f"wall_s {wall:.3f} (prefill_s {stats['prefill_s']:.3f}) "
+                  f"tokens_per_s {new_tokens / wall:.2f} peak_mem_gib "
+                  f"{peak:.2f} capture_s {eng.capture_s:.3f} graphs "
+                  f"{sorted(map(str, eng._graphs))} wkv_launches "
+                  f"{launches['wkv']} (expected {cfg.num_layers} x ({chunks} "
+                  f"prefill chunks + 2 x {stats['steps']} steps) = "
+                  f"{want_wkv}) launches {launches}")
+        say(card, f"wkv launches by shape [{label}] (counted in ops.wkv): "
+                  f"{by_shape}")
+        if stats["modes"] != {"state": stats["steps"]}:
+            raise AssertionError(f"state steps only: {stats['modes']}")
+        if launches["wkv"] != want_wkv:
+            raise AssertionError(f"WKV launches {launches['wkv']} != "
+                                 f"{want_wkv}")
+        # one T=256 call per layer and prefill chunk, one read-only T=6
+        # verify and one T=6 advance per layer and step
+        steps_n = cfg.num_layers * stats["steps"]
+        want_shapes = {"prefill T=256": cfg.num_layers * chunks,
+                       "verify T=6": steps_n, "advance T=6": steps_n}
+        if sum(by_shape.values()) != want_wkv or by_shape != want_shapes:
+            raise AssertionError(f"WKV launches by shape {by_shape} != "
+                                 f"{want_shapes}")
+        if graphs and set(eng._graphs) != {("prefill", 256), "state"}:
+            raise AssertionError(f"graphs captured: "
+                                 f"{sorted(map(str, eng._graphs))}")
+        launches["wkv_shapes"] = by_shape
+        if toks.shape != (1, new_tokens) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"tokens out of range: {toks}")
+        prof = profile_steps(torch, card, eng, prompt, kernel="wkv_kernel",
+                             label=label)
+        if not graphs:
+            check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
+        runs[label] = dict(toks=toks, launches=launches, wall_s=wall,
+                           tokens_per_s=new_tokens / wall,
+                           prefill_s=stats["prefill_s"], peak_gib=peak,
+                           capture_s=eng.capture_s, **prof)
+        del eng
+        torch.cuda.empty_cache()
+    compare_runs(card, "rwkv6-3b", runs)
+    del params, dparams
     torch.cuda.empty_cache()
     rwkv_lossless(torch, card)
-    return launches
+    return runs["graphs"]["launches"]
 
 
 def rwkv_lossless(torch, card, prompt_len: int = 1024, new_tokens: int = 32):
@@ -1166,11 +1342,14 @@ def rwkv_lossless(torch, card, prompt_len: int = 1024, new_tokens: int = 32):
     eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
                        max_len=max_len, paged=False, device="cuda")
     toks, st = eng.generate(prompt, new_tokens)
+    if set(eng._graphs) != {("prefill", 256), "state"}:
+        raise AssertionError(f"graphs: {sorted(map(str, eng._graphs))}")
     if not np.array_equal(toks, ar):
         raise AssertionError(f"rwkv6-3b chain SpecPV differs from AR:\n"
                              f"{toks}\n{ar}")
-    say(card, f"lossless rwkv6-3b x4 layers fp32: chain generate == AR over "
-              f"{new_tokens} tokens of a {prompt_len}-token prompt (steps "
+    say(card, f"lossless rwkv6-3b x4 layers fp32, graphs: chain generate == "
+              f"AR over {new_tokens} tokens of a {prompt_len}-token prompt "
+              f"(steps "
               f"{st['steps']}, mean_accept {st['mean_accept']:.4f}); "
               f"{time.perf_counter() - t0:.1f} s")
     del params, dparams, eng

@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import DraftConfig, ModelConfig
-from repro_torch.core.tree import TreeSpec
+from repro_torch.core.tree import TreeSpec, tree_tensors
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as bk
 from repro_torch.models import common as cm
@@ -111,8 +111,7 @@ def draft_head(cfg: ModelConfig, dp: Dict, target_params, h):
 
 def _rope(cfg: ModelConfig, device):
     mcfg = draft_model_config(cfg)
-    inv = torch.as_tensor(cm.rope_inv_freq(mcfg), device=device)
-    return mcfg, inv, cm.yarn_mscale(mcfg)
+    return mcfg, cm.rope_inv_freq_tensor(mcfg, device), cm.yarn_mscale(mcfg)
 
 
 def draft_extend(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict,
@@ -184,7 +183,7 @@ def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
     hk, dh = cfg.num_kv_heads, cfg.head_dim_
     ctx_k, ctx_v, s = cm.layer_ctx_view(cache)
     ctx_valid = torch.arange(s, device=dev)[None] < cache["length"][:, None]
-    anc = torch.as_tensor(tree.ancestor_mask(), device=dev)
+    anc = tree_tensors(tree, dev).anc
     root_pos = cache["length"] - 1
 
     tree_tokens = torch.zeros((b, t), dtype=torch.int32, device=dev)

@@ -12,9 +12,17 @@ Mode automaton (host side, §3.3): context below the partial budget ->
 Full; budget first exceeded -> Refresh; buffer has room -> Partial;
 buffer would overflow -> Refresh.
 
-Every step is one call of ``_step_fused`` (the reference's one jitted
-dispatch per tick; ``dispatches`` counts them), with the tick's mode mix
-deciding which masked branches run.
+Every step runs one body (``_fused_body``: ``_step_fused`` with the
+tick's mode mix deciding which masked branches run; ``_state_body`` for
+a state arch) that computes the next state and copies it into the
+engine's static buffers (``state``), which ``prefill`` resets in place.
+On the card each body, and each full prefill chunk, is captured once as
+a CUDA graph and replayed: the port's counterpart of the reference's
+jitted dispatch, keyed like its ``_fused_fn`` by the mode mix
+(``dispatches`` counts the steps).  The host reads one packed copy per
+step for the mode automaton, the page pins and the billing.
+``cuda_graphs=False`` runs the same bodies eagerly on the card; the CPU
+never captures.
 
 State architectures (RWKV-6, ``paged=False``) have no KV cache, so
 partial verification does not apply: each step (mode ``"state"``,
@@ -25,7 +33,7 @@ token and the accepted prefix.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,6 +44,7 @@ from repro_torch.core import draft as dr
 from repro_torch.core import tree as tr
 from repro_torch.core import verify as vf
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
 from repro_torch.kvcache import cache as kvc
 from repro_torch.kvcache.offload import (TrafficMeter, full_step_bytes,
                                          partial_step_bytes,
@@ -90,6 +99,33 @@ def _unsupported(what: str, item: str):
         f"{what} is not ported yet: ROADMAP.md queue 1, '{item}'")
 
 
+def _copy_into(dst, src) -> None:
+    """Copy a next-state value into its static buffer (a cache dict entry
+    by entry); a value that is the buffer itself is skipped."""
+    if isinstance(dst, dict):
+        for k, v in src.items():
+            _copy_into(dst[k], v)
+    elif src is not dst:
+        dst.copy_(src)
+
+
+class CapturedGraph:
+    """A captured step or prefill-chunk body.  The kernel wrappers count
+    their launches in Python (``ops.LAUNCHES``, ``ops.WKV_SHAPES``), which
+    a replay does not run, so ``replay`` adds the counts its capture
+    recorded."""
+
+    def __init__(self, graph, launches: Dict[str, int],
+                 wkv_shapes: Dict[Tuple[int, bool], int]):
+        self.graph = graph
+        self.launches = launches
+        self.wkv_shapes = wkv_shapes
+
+    def replay(self) -> None:
+        self.graph.replay()
+        ops.add_launch_counts(self.launches, self.wkv_shapes)
+
+
 class SpecPVEngine:
     def __init__(self, cfg: ModelConfig, spec: SpecPVConfig,
                  dcfg: DraftConfig, params, draft_params, *,
@@ -102,7 +138,8 @@ class SpecPVEngine:
                  tiered: bool = False,
                  zero_copy: bool = True,
                  mesh=None,
-                 device=None):
+                 device=None,
+                 cuda_graphs: Optional[bool] = None):
         """Dense targets run with ``paged=True``, ``zero_copy=True`` (when
         partial verification is on; both the defaults here, unlike the
         reference) and tree drafts; the state arch (``ssm``) runs with
@@ -110,7 +147,9 @@ class SpecPVEngine:
         Both are greedy (``temperature=0``); every other setting raises
         NotImplementedError naming the ROADMAP item that will bring it.
         Runs on ``device`` (CUDA unless ``"cpu"`` is asked for); the
-        params must live there."""
+        params must live there.  On the card each step variant and the
+        full prefill chunk replay a CUDA graph unless ``cuda_graphs`` is
+        False; the CPU runs them eagerly."""
         if cfg.arch_type not in ("dense", "ssm"):
             _unsupported(f"arch {cfg.arch_type!r}", "Other architectures")
         self.is_attn = cfg.is_attention_arch
@@ -164,6 +203,15 @@ class SpecPVEngine:
         self._pkv_active = False
         self.dispatches = 0             # fused engine steps executed
         self.final_state = None         # the last ``generate``'s end state
+        self.cuda_graphs = (self.device.type == "cuda" if cuda_graphs is None
+                            else bool(cuda_graphs))
+        if self.cuda_graphs and self.device.type != "cuda":
+            raise ValueError("CUDA graphs run on the card; the CPU route "
+                             "is eager")
+        self._graphs: Dict[Any, CapturedGraph] = {}
+        self._graph_pool = None
+        self.capture_s = 0.0            # host seconds spent capturing
+        self._init_static()
 
     # ------------------------------------------------------------------
     def _init_pkv(self, b: int):
@@ -180,32 +228,89 @@ class SpecPVEngine:
                              device=self.device)
         return pkv_k, torch.zeros_like(pkv_k), pkv_pos
 
-    def _init_cache(self, b: int, *, full_alloc: bool = False) -> Dict:
-        """Fresh paged cache; ``full_alloc`` gives every row its whole
-        max_len worth of pages up front (lock-step ``generate``).  State
-        archs get their zeroed recurrent state."""
+    def _init_cache(self, b: int) -> Dict:
+        """The paged trunk cache (page tables filled by ``prefill``); state
+        archs get their recurrent state."""
         if not self.is_attn:
             return api.init_cache(self.cfg, b, self.max_len, self.spec,
                                   device=self.device)
-        cache = api.init_cache(self.cfg, b, self.max_len, self.spec,
-                               paged=True, num_pages=self.num_pages,
-                               device=self.device)
-        if full_alloc:
-            cache["page_table"] = self._full_table(self._page_alloc, b)
-        return cache
+        return api.init_cache(self.cfg, b, self.max_len, self.spec,
+                              paged=True, num_pages=self.num_pages,
+                              device=self.device)
 
-    def _init_dcache(self, b: int, *, full_alloc: bool = False) -> Dict:
+    def _init_dcache(self, b: int) -> Dict:
         if not self.is_attn:
             return dr.init_draft_cache(self.cfg, b, self.max_len, self.device)
-        dcache = dr.init_paged_draft_cache(self.cfg, b, self.max_len,
-                                           self.spec.block_size,
-                                           self.num_pages, self.device)
-        if full_alloc:
-            dcache["page_table"] = self._full_table(self._draft_alloc, b)
-        return dcache
+        return dr.init_paged_draft_cache(self.cfg, b, self.max_len,
+                                         self.spec.block_size,
+                                         self.num_pages, self.device)
 
-    def _full_table(self, al: kvc.PageAllocator, b: int):
+    def _init_static(self) -> None:
+        """The engine's one decode state (``state``) and the buffers around
+        it, at addresses that never change, so that a captured graph reads
+        and writes them; ``prefill`` resets them in place.  The step's
+        device constants are built and the kernels' merge counters
+        reserved here, before any capture."""
+        cfg, b, dev = self.cfg, self.batch, self.device
+        dt = cm.dt(cfg.dtype)
+
+        def ints(*shape):
+            return torch.zeros(shape, dtype=torch.long, device=dev)
+        pkv_k, pkv_v, pkv_pos = self._init_pkv(b)
+        nbl = ((b, cfg.num_layers, cfg.num_kv_heads, self._ns_blocks)
+               if self.is_attn else (b, 0, 0, 0))
+        self.state = EngineState(
+            cache=self._init_cache(b), dcache=self._init_dcache(b),
+            pkv_k=pkv_k, pkv_v=pkv_v, pkv_pos=pkv_pos, buf_len=ints(b),
+            pending=ints(b, self.pmax), pending_len=ints(b), seq_len=ints(b),
+            ext_tokens=ints(b, self.emax),
+            ext_feats=torch.zeros((b, self.emax, 3 * cfg.d_model), dtype=dt,
+                                  device=dev),
+            ext_len=ints(b),
+            pkv_blocks=torch.zeros(nbl, dtype=torch.int32, device=dev))
+        # prefill: the chunk's inputs and the carry between chunks
+        self._chunk_toks: Dict[int, torch.Tensor] = {}
+        self._prev_feat = torch.zeros((b, 3 * cfg.d_model), dtype=dt,
+                                      device=dev)
+        self._logits_last = torch.zeros((b, cfg.vocab_size),
+                                        dtype=torch.float32, device=dev)
+        self._modes = torch.zeros((b,), dtype=torch.int8, device=dev)
+        # what the host reads after a step, packed for one copy: tokens
+        # [B, D+1], counts, accept_len, pending_len, seq_len [B] each,
+        # then (attention archs) pkv_blocks, read after a Refresh
+        self._io_head = b * (self.tree.depth + 1 + 4)
+        self._io = ints(self._io_head + self.state.pkv_blocks.numel())
+        self._host_pending_len = np.ones((b,), np.int64)
+        self._host_seq_len = np.zeros((b,), np.int64)
+        pdev = self.params["embed"].device
+        tr.tree_tensors(self.tree, pdev)
+        cm.rope_inv_freq_tensor(cfg, pdev)
+        cm.rope_inv_freq_tensor(dr.draft_model_config(cfg), pdev)
+        if self.is_attn and pdev.type == "cuda":
+            ops.reserve_split_counters(ops.split_counter_slots(
+                b, self.pmax + self.tree.size, cfg.num_heads,
+                cfg.num_kv_heads, self._nb_seq), pdev)
+
+    def _static_tensors(self, pools: bool = True) -> List[torch.Tensor]:
+        """Every static tensor; without the K/V pools of the trunk and
+        draft caches if ``pools`` is False."""
+        st = self.state
+        out: List[torch.Tensor] = []
+        for f in fields(EngineState):
+            v = getattr(st, f.name)
+            if isinstance(v, dict):
+                out.extend(t for k, t in v.items()
+                           if pools or k not in ("k", "v"))
+            else:
+                out.append(v)
+        out += [self._prev_feat, self._logits_last, self._modes, self._io]
+        return out + list(self._chunk_toks.values())
+
+    def _fill_table(self, table, al: kvc.PageAllocator) -> None:
+        """Give every row its whole max_len worth of pages (lock-step
+        ``generate``) and write the table in place."""
         al.reset()
+        b = table.shape[0]
         if b * self._nb_seq > al.capacity:
             raise ValueError(
                 f"paged generate needs {b * self._nb_seq} pages but the "
@@ -213,76 +318,181 @@ class SpecPVEngine:
         pt = np.zeros((b, self._nb_seq), np.int32)
         for i in range(b):
             pt[i] = al.alloc(i, self._nb_seq)
-        return torch.as_tensor(pt, device=self.device)
+        table.copy_(torch.from_numpy(pt))
+
+    def _reset(self) -> None:
+        """Every static tensor back to the state of a fresh engine."""
+        for t in self._static_tensors():
+            t.zero_()
+        st = self.state
+        if self.is_attn:
+            self._fill_table(st.cache["page_table"], self._page_alloc)
+            self._fill_table(st.dcache["page_table"], self._draft_alloc)
+            st.pkv_pos.fill_(-1)
+            st.pkv_blocks.fill_(-1)
 
     def prefill(self, prompt: np.ndarray, chunk: int = 256) -> EngineState:
-        """Whole-batch chunked prefill; returns the boot state of the
-        lock-step loop (chunk boundaries are absolute multiples of
-        ``chunk``)."""
+        """Whole-batch chunked prefill into the engine's state, reset in
+        place; returns it as the boot state of the lock-step loop (chunk
+        boundaries are absolute multiples of ``chunk``).  Every full chunk
+        runs one body, captured once as a graph on the card; a short last
+        chunk runs eagerly."""
         assert prompt.shape[0] == self.batch
         self._pkv_active = False
-        self.final_state = None         # free its cache before a new one
-        return self._prefill_state(prompt, chunk)
-
-    def _prefill_state(self, prompt: np.ndarray, chunk: int = 256
-                       ) -> EngineState:
-        cfg = self.cfg
-        b, s0 = prompt.shape
-        cache = self._init_cache(b, full_alloc=self.is_attn)
-        dcache = self._init_dcache(b, full_alloc=self.is_attn)
-        prev_feat = torch.zeros((b, 3 * cfg.d_model), dtype=cm.dt(cfg.dtype),
-                                device=self.device)
+        self.final_state = None
+        self._reset()
+        s0 = prompt.shape[1]
         prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                    device=self.device)
-        logits_last = None
         off = 0
         while off < s0:
             end = min(s0, (off // chunk + 1) * chunk)
-            toks = prompt_t[:, off:end]
-            logits_last, feats, cache = api.prefill(
-                cfg, self.params, toks, cache, spec=self.spec)
-            fused = feats.fused_input()                       # [B, T, 3d]
-            shifted = torch.cat([prev_feat[:, None], fused[:, :-1]], dim=1)
-            valid = torch.ones(toks.shape, dtype=torch.bool,
-                               device=self.device)
-            dcache, _, _ = dr.draft_extend(cfg, self.dcfg, self.dparams,
-                                           self.params, dcache, toks,
-                                           shifted, valid)
-            prev_feat = fused[:, -1]
+            if end - off == chunk:
+                toks = self._chunk_toks.get(chunk)
+                if toks is None:
+                    toks = torch.zeros((self.batch, chunk), dtype=torch.long,
+                                       device=self.device)
+                    self._chunk_toks[chunk] = toks
+                toks.copy_(prompt_t[:, off:end])
+                self._run(("prefill", chunk),
+                          lambda: self._prefill_body(toks))
+            else:
+                self._prefill_body(prompt_t[:, off:end])
             off = end
-        return self._boot_state(cache, dcache, logits_last, prev_feat, s0)
+        self._boot(s0)
+        return self.state
 
-    def _boot_state(self, cache, dcache, logits_last, prev_feat,
-                    s0: int) -> EngineState:
-        """Post-prefill state from the greedy first token."""
-        bonus0 = torch.argmax(logits_last, dim=-1)
-        return self._boot_state_from_token(cache, dcache, bonus0, prev_feat,
-                                           s0)
+    def _prefill_body(self, toks) -> None:
+        """One prefill chunk (trunk, then draft extend) into the state."""
+        cfg, st = self.cfg, self.state
+        logits_last, feats, cache = api.prefill(
+            cfg, self.params, toks, st.cache, spec=self.spec)
+        fused = feats.fused_input()                           # [B, T, 3d]
+        shifted = torch.cat([self._prev_feat[:, None], fused[:, :-1]], dim=1)
+        valid = torch.ones(toks.shape, dtype=torch.bool, device=toks.device)
+        dcache, _, _ = dr.draft_extend(cfg, self.dcfg, self.dparams,
+                                       self.params, st.dcache, toks, shifted,
+                                       valid)
+        self._prev_feat.copy_(fused[:, -1])
+        self._logits_last.copy_(logits_last)
+        _copy_into(st.cache, cache)
+        _copy_into(st.dcache, dcache)
 
-    def _boot_state_from_token(self, cache, dcache, bonus0, prev_feat,
-                               s0: int) -> EngineState:
-        cfg, dev = self.cfg, self.device
-        b = prev_feat.shape[0]
-        bonus0 = torch.as_tensor(bonus0, dtype=torch.long, device=dev)
-        pend = torch.zeros((b, self.pmax), dtype=torch.long, device=dev)
-        pend[:, 0] = bonus0
-        ext_tokens = torch.zeros((b, self.emax), dtype=torch.long, device=dev)
-        ext_tokens[:, 0] = bonus0
-        ext_feats = torch.zeros((b, self.emax, 3 * cfg.d_model),
-                                dtype=cm.dt(cfg.dtype), device=dev)
-        ext_feats[:, 0] = prev_feat
-        pkv_k, pkv_v, pkv_pos = self._init_pkv(b)
-        ones = torch.ones((b,), dtype=torch.long, device=dev)
-        return EngineState(
-            cache=cache, dcache=dcache, pkv_k=pkv_k, pkv_v=pkv_v,
-            pkv_pos=pkv_pos, buf_len=torch.zeros_like(ones), pending=pend,
-            pending_len=ones.clone(), seq_len=torch.full_like(ones, s0 + 1),
-            ext_tokens=ext_tokens, ext_feats=ext_feats, ext_len=ones.clone(),
-            pkv_blocks=(torch.full((b, cfg.num_layers, cfg.num_kv_heads,
-                                    self._ns_blocks), -1, dtype=torch.int32,
-                                   device=dev) if self.is_attn
-                        else torch.zeros((b, 0, 0, 0), dtype=torch.int32,
-                                         device=dev)))
+    def _boot(self, s0: int) -> None:
+        """Post-prefill state from the greedy first token (the reset left
+        every other field as a fresh state has it)."""
+        st = self.state
+        bonus0 = torch.argmax(self._logits_last, dim=-1)
+        st.pending[:, 0] = bonus0
+        st.ext_tokens[:, 0] = bonus0
+        st.ext_feats[:, 0] = self._prev_feat
+        st.pending_len.fill_(1)
+        st.ext_len.fill_(1)
+        st.seq_len.fill_(s0 + 1)
+        self._host_pending_len = np.ones((self.batch,), np.int64)
+        self._host_seq_len = np.full((self.batch,), s0 + 1, np.int64)
+
+    # ------------------------------------------------------------------
+    # the compiled step: one body per variant, captured once on the card
+    def _run(self, key, body) -> None:
+        """Run a step or prefill-chunk body: eagerly, or (``cuda_graphs``)
+        by replaying its graph, captured the first time ``key`` occurs
+        (the reference jits ``_fused_fn`` per mode mix the same way)."""
+        if not self.cuda_graphs:
+            body()
+            return
+        g = self._graphs.get(key)
+        if g is None:
+            t0 = time.perf_counter()
+            g = self._capture(body)
+            self._graphs[key] = g
+            self.capture_s += time.perf_counter() - t0
+        g.replay()
+
+    def _capture(self, body) -> "CapturedGraph":
+        """Capture ``body`` as a CUDA graph.  A warm-up run on a side
+        stream comes first (lazy library and workspace set-up must not
+        happen under capture); it writes the state in place, so a copy
+        taken before restores it and the first replay is the real step.
+        The K/V pools are left out of the copy: a body writes them only
+        at its rows' next positions (``[length, length + W)`` of the
+        trunk or draft cache, W fixed by the body's shapes), every one of
+        which the real step writes again before anything reads it, and
+        reads past ``length`` are masked.  The kernel launches counted
+        during the capture are recorded for the replays, and neither the
+        warm-up's nor the capture's count.  Any error raises."""
+        from repro_torch.kernels import build
+        build.load_library()
+        counts = ops.launch_counts()
+        cur = torch.cuda.current_stream(self.device)
+        saved = [(t, t.clone()) for t in self._static_tensors(pools=False)]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body()
+        cur.wait_stream(side)
+        for t, copy in saved:
+            t.copy_(copy)
+        del saved
+        if self._graph_pool is None:
+            # one pool for the engine's graphs: each body leaves its
+            # results in the static buffers, so no tensor of the pool is
+            # read after its own replay ends, and replays never overlap
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            body()
+        delta = ops.launch_count_delta(before, ops.launch_counts())
+        ops.set_launch_counts(counts)
+        return CapturedGraph(graph, *delta)
+
+    def _fused_body(self, has_full: bool, has_partial: bool,
+                    has_refresh: bool) -> None:
+        nxt, out = self._step_fused(self.state, self._modes,
+                                    has_full=has_full,
+                                    has_partial=has_partial,
+                                    has_refresh=has_refresh)
+        self._store(nxt, out)
+
+    def _state_body(self) -> None:
+        nxt, out = self._step_state(self.state)
+        self._store(nxt, out)
+
+    def _store(self, nxt: EngineState, out) -> None:
+        """End of a step body: the next state into the static buffers
+        (fields the step updated in place, such as the pool and its
+        summaries, are those buffers and are skipped), then what the host
+        reads into ``_io``."""
+        st = self.state
+        for f in fields(EngineState):
+            _copy_into(getattr(st, f.name), getattr(nxt, f.name))
+        newtoks, counts, acc = out
+        parts = [newtoks, counts, acc, st.pending_len, st.seq_len]
+        if self.is_attn:
+            parts.append(st.pkv_blocks)
+        off = 0
+        for p in parts:
+            self._io[off: off + p.numel()].copy_(p.reshape(-1))
+            off += p.numel()
+
+    def _read_io(self, blocks: bool):
+        """The step's one copy to the host: (tokens [B, D+1], counts,
+        accept_len, and with ``blocks`` the pkv_blocks); the pending and
+        sequence lengths stay for the mode automaton and the billing."""
+        b, w = self.batch, self.tree.depth + 1
+        n = self._io.numel() if blocks else self._io_head
+        h = self._io[:n].to("cpu", copy=True).numpy()
+        counts, acc, plen, slen = h[b * w: self._io_head].reshape(4, b)
+        self._host_pending_len, self._host_seq_len = plen, slen
+        pbi = (h[self._io_head:].reshape(self.state.pkv_blocks.shape)
+               if blocks else None)
+        return h[: b * w].reshape(b, w), counts, acc, pbi
+
+    def _own(self, st: EngineState) -> None:
+        if st is not self.state:
+            raise ValueError("an engine steps its own state: the one its "
+                             "prefill returned")
 
     # ------------------------------------------------------------------
     def _post_accept(self, st, vin, out, tree_tokens, path, acc, bonus):
@@ -311,7 +521,10 @@ class SpecPVEngine:
                     has_partial: bool, has_refresh: bool
                     ) -> Tuple[EngineState, Tuple]:
         """One fused multi-mode greedy step over per-row ``modes`` [B]
-        (the greedy body of the reference's ``_step_fused``)."""
+        (the greedy body of the reference's ``_step_fused``).  Returns the
+        next state (the pool, its summaries and the draft pool written in
+        place, the other fields new tensors) and (tokens, counts,
+        accept_len)."""
         cfg, spec, tree = self.cfg, self.spec, self.tree
         b, dev = self.batch, self.device
         dcache, tree_tokens, _ = dr.draft_phase(
@@ -489,13 +702,20 @@ class SpecPVEngine:
         """Lock-step automaton over the whole batch."""
         return self.mode_for(pending_len_max, seq_len_min, self._pkv_active)
 
+    def next_mode(self) -> str:
+        """The lock-step automaton's next mode, from the host's copy of
+        the lengths the last step (or the prefill) left."""
+        return self.select_mode(int(self._host_pending_len.max()),
+                                int(self._host_seq_len.min()))
+
     def step_fused(self, st: EngineState, rows: np.ndarray,
                    modes: np.ndarray) -> Tuple[EngineState, StepOutput]:
-        """One fused multi-mode step.  The lock-step slice steps every row
-        (``rows`` all True); per-slot row masking is ROADMAP.md queue 1,
-        'Serving'.  Consumes `st`."""
+        """One fused multi-mode step of the engine's state ``st``.  The
+        lock-step slice steps every row (``rows`` all True); per-slot row
+        masking is ROADMAP.md queue 1, 'Serving'."""
         if not self.is_attn:
             raise ValueError("state archs step through step(st, 'state')")
+        self._own(st)
         rows = np.asarray(rows, bool)
         if not rows.all():
             _unsupported("stepping a subset of rows", "Serving")
@@ -503,17 +723,17 @@ class SpecPVEngine:
         has_refresh = bool(np.any(modes == MODE_REFRESH))
         has_full = has_refresh or bool(np.any(modes == MODE_FULL))
         has_partial = bool(np.any(modes == MODE_PARTIAL))
-        st, (toks, counts, acc) = self._step_fused(
-            st, torch.as_tensor(modes, device=self.device),
-            has_full=has_full, has_partial=has_partial,
-            has_refresh=has_refresh)
+        self._modes.copy_(torch.from_numpy(modes))
+        key = (has_full, has_partial, has_refresh)
+        self._run(key, lambda: self._fused_body(*key))
         self.dispatches += 1
-        if self.zero_copy and has_refresh:
+        pin = self.zero_copy and has_refresh
+        toks, counts, acc, pbi_host = self._read_io(blocks=pin)
+        if pin:
             # pin the pages the refresh just routed; pin_slot_pages takes
             # the new references before dropping the previous refresh's,
             # so a page kept across refreshes never transiently frees
             al = self._page_alloc
-            pbi_host = st.pkv_blocks.cpu().numpy()
             for i in np.nonzero(modes == MODE_REFRESH)[0]:
                 i = int(i)
                 blocks = np.unique(pbi_host[i][pbi_host[i] >= 0])
@@ -521,26 +741,25 @@ class SpecPVEngine:
                 pages = [al.page_at(i, int(j)) for j in blocks if j < nb]
                 if pages:
                     al.pin_slot_pages(i, pages)
-        self._record_traffic_rows(modes, st)
+        self._record_traffic_rows(modes)
         names = sorted({MODE_NAMES[int(m)] for m in modes})
-        return st, StepOutput(tokens=toks.cpu().numpy(),
-                              counts=counts.cpu().numpy(),
-                              accept_len=acc.cpu().numpy(),
+        return st, StepOutput(tokens=toks, counts=counts, accept_len=acc,
                               mode=names[0] if len(names) == 1 else "fused",
                               modes=modes)
 
     def step(self, st: EngineState, mode: str) -> Tuple[EngineState,
                                                         StepOutput]:
         """One lock-step round over the whole batch in `mode` ("state"
-        for a state arch).  Consumes `st`."""
+        for a state arch), on the engine's state ``st``."""
         if mode == "state":
             if self.is_attn:
                 raise ValueError(mode)
-            st, (toks, counts, acc) = self._step_state(st)
+            self._own(st)
+            self._run("state", self._state_body)
             self.dispatches += 1
-            return st, StepOutput(tokens=toks.cpu().numpy(),
-                                  counts=counts.cpu().numpy(),
-                                  accept_len=acc.cpu().numpy(), mode=mode)
+            toks, counts, acc, _ = self._read_io(blocks=False)
+            return st, StepOutput(tokens=toks, counts=counts, accept_len=acc,
+                                  mode=mode)
         if mode not in MODE_IDS:
             raise ValueError(mode)
         st, out = self.step_fused(
@@ -550,27 +769,23 @@ class SpecPVEngine:
             self._pkv_active = True
         return st, out
 
-    def _record_traffic_rows(self, modes: np.ndarray, st: EngineState):
+    def _record_traffic_rows(self, modes: np.ndarray):
         for mid in (MODE_FULL, MODE_REFRESH, MODE_PARTIAL):
             sub = modes == mid
             if sub.any():
-                self._record_traffic(MODE_NAMES[mid], st, sub)
+                self._record_traffic(MODE_NAMES[mid], sub)
 
-    def _record_traffic(self, mode: str, st: EngineState,
-                        rows: Optional[np.ndarray] = None):
+    def _record_traffic(self, mode: str, rows: np.ndarray):
         """Bytes of cache touched by the rows that stepped in `mode`:
         full/refresh bill the per-row sum of context, partial the budget
         plus buffer, a zero-copy refresh its routed rebuild."""
         cfg, spec = self.cfg, self.spec
         l_attn = cfg.num_layers
         itemsize = 2 if cfg.dtype == "bfloat16" else 4
-        seq_len = st.seq_len.cpu().numpy()
-        if rows is None:
-            rows = np.ones((self.batch,), bool)
         nrows = int(np.sum(rows))
         if nrows == 0:
             return
-        seq_sum = int(np.sum(seq_len[rows]))
+        seq_sum = int(np.sum(self._host_seq_len[rows]))
         hk, dh = cfg.num_kv_heads, cfg.head_dim_
         if mode == "partial":
             nbytes = partial_step_bytes(
@@ -598,12 +813,11 @@ class SpecPVEngine:
         first = st.pending[:, 0].cpu().numpy()
         prefill_s = time.perf_counter() - t0
         out: List[List[int]] = [[int(first[i])] for i in range(b)]
-        pending_max, seq_min = 1, int(st.seq_len.min())
         accepts: List[int] = []
         modes: List[str] = []
         steps = 0
         while min(len(o) for o in out) < max_new_tokens:
-            mode = self.select_mode(pending_max, seq_min)
+            mode = self.next_mode()
             st, so = self.step(st, mode)
             steps += 1
             modes.append(mode)
@@ -611,8 +825,6 @@ class SpecPVEngine:
             for i in range(b):
                 cnt = int(so.counts[i])
                 out[i].extend(int(x) for x in so.tokens[i, :cnt])
-            pending_max = int(st.pending_len.max())
-            seq_min = int(st.seq_len.min())
             if eos_id >= 0 and all(eos_id in o for o in out):
                 break
         self.final_state = st

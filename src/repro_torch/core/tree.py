@@ -3,8 +3,9 @@
 root parent (the last accepted token) is not a node."""
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +73,22 @@ class TreeSpec:
         return np.asarray(self.depths, np.int64)
 
 
+class TreeTensors(NamedTuple):
+    parents: torch.Tensor       # [T] int64, -1 for level-0 nodes
+    depths: torch.Tensor        # [T] int64
+    anc: torch.Tensor           # [T, T] bool ancestor mask
+
+
+@functools.lru_cache(maxsize=None)
+def tree_tensors(tree: TreeSpec, device: torch.device) -> TreeTensors:
+    """The tree's index arrays on ``device``, built once per (tree,
+    device): a step reads them with no host-to-device copy, which a CUDA
+    graph capture would refuse.  Read-only."""
+    return TreeTensors(torch.as_tensor(tree.parents_arr(), device=device),
+                       torch.as_tensor(tree.depths_arr(), device=device),
+                       torch.as_tensor(tree.ancestor_mask(), device=device))
+
+
 def greedy_tree_accept(tree: TreeSpec, tree_tokens, logits, root_slot,
                        input_slots):
     """Greedy (temperature-0) tree acceptance.
@@ -85,7 +102,7 @@ def greedy_tree_accept(tree: TreeSpec, tree_tokens, logits, root_slot,
     argmax = torch.argmax(logits, dim=-1)                 # [B, S]
     root_slot = root_slot.long()
     input_slots = input_slots.long()
-    parents = torch.as_tensor(tree.parents_arr(), device=dev)
+    parents, depths, _ = tree_tensors(tree, dev)
     parents_b = torch.clamp(parents, min=0)[None].expand(b, t)
     parent_slot = torch.where(parents[None] >= 0,
                               torch.gather(input_slots, 1, parents_b),
@@ -97,7 +114,6 @@ def greedy_tree_accept(tree: TreeSpec, tree_tokens, logits, root_slot,
         p = tree.parents[n]
         ok_cols.append(match[:, n] if p < 0 else (match[:, n] & ok_cols[p]))
     ok = torch.stack(ok_cols, dim=1)
-    depths = torch.as_tensor(tree.depths_arr(), device=dev)
     node_score = torch.where(ok, depths[None] + 1, torch.zeros_like(ok,
                                                                   dtype=torch.long))
     best = torch.argmax(node_score, dim=1)

@@ -13,7 +13,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig, SpecPVConfig
-from repro_torch.core.tree import TreeSpec
+from repro_torch.core.tree import TreeSpec, tree_tensors
 from repro_torch.models.common import update_slice_rows
 from repro_torch.models.dense import quest_block_scores, select_partial_blocks
 from repro_torch.kvcache.cache import (paged_update_all_summaries,
@@ -43,14 +43,13 @@ def build_verify_inputs_fused(tree: TreeSpec, pending, pending_len, p_eff,
     tokens = torch.where(pend_q, pend_pad,
                          torch.where(tree_q, tree_g.to(pend_pad.dtype), zero))
     pend_valid_w = pend_q & (sidx < pending_len.long()[:, None])
-    depths = torch.as_tensor(tree.depths_arr(), device=dev)
+    _, depths, anc = tree_tensors(tree, dev)
     pend_pos = seq_len.long()[:, None] - pending_len.long()[:, None] + sidx
     node_pos = seq_len.long()[:, None] + depths[tidx]
     positions = torch.where(pend_q, pend_pos,
                             torch.where(tree_q, node_pos,
                                         torch.zeros_like(node_pos)))
     positions = torch.clamp(positions, min=0)
-    anc = torch.as_tensor(tree.ancestor_mask(), device=dev)
     anc_q = anc[tidx]                                         # [B, S, T]
     anc_qk = torch.gather(anc_q, 2, tidx[:, None, :].expand(b, s, s))
     causal = sidx[:, :, None] >= sidx[:, None, :]

@@ -98,6 +98,7 @@ constexpr int kLd = kDh + 8;              // padded smem row (272 bytes)
 constexpr int kTile = kKeys * kLd;        // elements of one K or V tile
 constexpr int kStages = 3;           // tiles in flight: kStages - 1
 constexpr int kMaxSplits = 64;  // the merge's 2 x kRows x S floats fit the ring
+constexpr int kMaxSel = 16384;  // blocks per list: 2M tokens at block 128
 constexpr int kCopies = kKeys * kDh / 8 / kThreads;   // 16-byte copies
 static_assert(kRows * kDh / 8 / kThreads == kCopies, "q tile = key tile");
 
@@ -563,11 +564,14 @@ block_attention_mma_kernel(const Args a) {
 
 template <bool CAUSAL>
 int launch_mma(const Args& a, cudaStream_t stream) {
+  if (a.nsel > kMaxSel) return -1;
   const size_t smem = mma_smem_bytes(a.nsel);
   auto kern = block_attention_mma_kernel<CAUSAL>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  // once per kernel, for the longest list; each launch asks for its own
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)mma_smem_bytes(kMaxSel));
+  if (attr != cudaSuccess) return (int)attr;
   const long long grid = (long long)a.ntiles * a.splits * a.b * a.hk;
   if (grid <= 0) return 0;
   kern<<<(unsigned)grid, kThreads, smem, stream>>>(a);
@@ -794,9 +798,9 @@ template <bool CAUSAL>
 int launch_f32(const Args& a, cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes();
   auto kern = block_attention_kernel<CAUSAL>;
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   const int rows = (a.h / a.hk) * a.t;
   dim3 grid((rows + kF32Rows - 1) / kF32Rows, a.hk, a.b);
   kern<<<grid, kF32Threads, smem, stream>>>(
@@ -814,8 +818,9 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 // otherwise); with splits > 1, part_m/part_l [B*Hk*ntiles*splits*64],
 // part_acc [that x Dh] fp32 are scratch and counters [B*Hk*ntiles] int32
 // must be 0 (the kernel leaves them 0), ntiles = ceil(H/Hk*T / 64).
-// Returns 0, a cudaError_t, or -1 for an unsupported head dim, dtype or
-// split.  The pool, q and the outputs must be 16-byte aligned.
+// Returns 0, a cudaError_t, or -1 for an unsupported head dim, dtype,
+// split or list length (over kMaxSel blocks).  The pool, q and the
+// outputs must be 16-byte aligned.
 extern "C" int block_attention_launch(
     const void* q, const void* k, const void* v, const int* idx,
     const int* vlen, const int* qoff, float* m, float* l, float* acc,

@@ -35,6 +35,37 @@ def reset_launch_counts() -> None:
     WKV_SHAPES.clear()
 
 
+def launch_counts() -> Tuple[Dict[str, int], Dict[Tuple[int, bool], int]]:
+    """A copy of (``LAUNCHES``, ``WKV_SHAPES``)."""
+    return dict(LAUNCHES), dict(WKV_SHAPES)
+
+
+def set_launch_counts(counts) -> None:
+    """Put back counts that ``launch_counts`` took."""
+    LAUNCHES.update(counts[0])
+    WKV_SHAPES.clear()
+    WKV_SHAPES.update(counts[1])
+
+
+def launch_count_delta(before, after):
+    """The launches counted between two ``launch_counts`` snapshots, as
+    (per kernel, per K5 shape), zero entries left out."""
+    runs = {k: after[0][k] - before[0].get(k, 0) for k in after[0]}
+    shapes = {k: n - before[1].get(k, 0) for k, n in after[1].items()}
+    return ({k: n for k, n in runs.items() if n},
+            {k: n for k, n in shapes.items() if n})
+
+
+def add_launch_counts(launches: Dict[str, int],
+                      wkv_shapes: Dict[Tuple[int, bool], int]) -> None:
+    """Count launches made without their wrappers' Python running: a
+    CUDA graph's replay launches what its capture recorded."""
+    for k, n in launches.items():
+        LAUNCHES[k] += n
+    for k, n in wkv_shapes.items():
+        WKV_SHAPES[k] = WKV_SHAPES.get(k, 0) + n
+
+
 def _check(name, t, *, dtype=None, ndim=None, device=None):
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor")
@@ -66,7 +97,9 @@ def _stream():
 ROWS_PER_CTA = 64      # query rows of one CTA of the bf16 (tensor-core) route
 TARGET_CTAS = 264      # two resident CTAs on each of the H100's 132 SMs
 MAX_SPLITS = 64        # the kernel's bound (block_attention.cu kMaxSplits)
+MIN_COUNTERS = 4096    # int32 counters allocated at least (16 KB)
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_RESERVED: set = set()     # devices whose counters may no longer move
 
 
 def kv_splits(b: int, t: int, h: int, hk: int, nsel: int,
@@ -83,16 +116,40 @@ def kv_splits(b: int, t: int, h: int, hk: int, nsel: int,
     return max(1, min(nsel, MAX_SPLITS, TARGET_CTAS // tiles))
 
 
+def split_counter_slots(b: int, t: int, h: int, hk: int, nb: int) -> int:
+    """Merge counters taken by the larger of a K1 launch of ``t`` query
+    rows (one per row tile and KV head) and a K3 launch over ``nb``
+    blocks (one per block tile and KV head)."""
+    tiles, _, groups = score_grid(b, t, h, hk, nb)
+    return max(b * hk * -(-(h // hk) * t // ROWS_PER_CTA), groups * tiles)
+
+
 def _split_counters(n: int, dev) -> torch.Tensor:
     """The merge counters of the split attention kernel (K1) and of the
     retrieval-score kernel (K3): int32, zero between launches (the last
     CTA of each group resets its own), so they are zeroed once when
     allocated and never again.  One set per device, shared by both
-    kernels; launches that use it run in stream order."""
+    kernels; launches that use it run in stream order.  Once reserved
+    (``reserve_split_counters``) the set never moves: a captured CUDA
+    graph holds its address, so a launch that needs more raises."""
     c = _COUNTERS.get(dev)
     if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        if dev in _RESERVED:
+            raise RuntimeError(
+                f"a launch needs {n} merge counters and {c.numel()} are "
+                f"reserved on {dev}; a captured graph holds their address, "
+                f"so reserve enough before the first capture")
+        c = torch.zeros(max(n, MIN_COUNTERS), dtype=torch.int32, device=dev)
         _COUNTERS[dev] = c
+    return c
+
+
+def reserve_split_counters(n: int, dev) -> torch.Tensor:
+    """Allocate (zeroed) the merge counters of ``dev`` for launches of up
+    to ``n`` slots and fix their address from then on; called before any
+    graph capture.  Raises if a set already fixed is too small."""
+    c = _split_counters(n, dev)
+    _RESERVED.add(dev)
     return c
 
 

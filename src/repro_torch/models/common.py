@@ -7,6 +7,7 @@ tensors, activations keep the reference's [B, T, H, Dh] layout.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -95,6 +96,14 @@ def rope_inv_freq(cfg: ModelConfig) -> np.ndarray:
         ramp = np.clip((idx - low) / max(high - low, 1e-3), 0.0, 1.0)
         inv = inv * (1 - ramp) + (inv / s) * ramp
     return inv.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def rope_inv_freq_tensor(cfg: ModelConfig, device: torch.device):
+    """``rope_inv_freq(cfg)`` on ``device``, built once per (config,
+    device): a step reads it with no host-to-device copy, which a CUDA
+    graph capture would refuse.  Read-only."""
+    return torch.as_tensor(rope_inv_freq(cfg), device=device)
 
 
 def yarn_mscale(cfg: ModelConfig) -> float:

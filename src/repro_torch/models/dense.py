@@ -312,7 +312,7 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     spec = spec or SpecPVConfig()
     num_layers = len(layers)
     f_lo, f_mi, f_hi = _feature_targets(num_layers)
-    inv_freq = torch.as_tensor(cm.rope_inv_freq(cfg), device=h.device)
+    inv_freq = cm.rope_inv_freq_tensor(cfg, h.device)
     mscale = cm.yarn_mscale(cfg)
     b, t = positions.shape
     length = (cache["length"] if cache is not None

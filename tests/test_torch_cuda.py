@@ -1,7 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the
-card.  The file imports no JAX (the card's machine has none); each test
-decides inside itself whether a card is present and skips without one.
-Run on the card with::
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+engine's CUDA graphs against its eager steps, on the card.  The file
+imports no JAX (the card's machine has none); each test decides inside
+itself whether a card is present and skips without one.  Run on the
+card with::
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -16,6 +17,7 @@ tolerance is for comparisons with JAX, whose q scaling differs.)  fp32
 results are compared, so the fixture turns TF32 off for matmuls and
 convolutions (the plain versions' products).
 """
+import dataclasses
 import math
 
 import pytest
@@ -377,3 +379,154 @@ def test_cuda_wkv_verify_advance_identity(cuda, a):
     _, s_adv = tops.wkv(r, k, v, w, u, s0, n_valid)
     torch.cuda.synchronize()
     assert torch.equal(s_adv, s0 if a == 0 else s_a)
+
+
+# ---------------------------------------------------------------------------
+# the compiled step: CUDA graphs of the engine's step bodies
+# ---------------------------------------------------------------------------
+
+def _model(dev, name):
+    """``name`` cut to 2 layers at full widths (the kernels need head dim
+    128 / 64), random bf16 weights, with its spec and draft config."""
+    from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.models.api import init_params
+    cfg = get_config(name).replace(num_layers=2)
+    spec = (SpecPVConfig(use_pallas=True, score_mode="paper",
+                         reduction="mean") if name != "rwkv6-3b"
+            else SpecPVConfig())
+    dcfg = DraftConfig()
+    return (cfg, spec, dcfg, init_params(cfg, seed=0, device=dev),
+            init_draft_params(cfg, dcfg, seed=1, device=dev))
+
+
+def _engine(model, prompt_len, new, **kw):
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    cfg, spec, dcfg, params, dparams = model
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    return SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=max_len, paged=cfg.arch_type == "dense",
+                        device="cuda", **kw)
+
+
+# llama: a prompt 6 tokens under the partial budget, so Full, Refresh and
+# Partial steps all run (nothing is accepted with random weights)
+GRAPH_CASES = {"llama3.1-8b": (35 * 128 - 6, 24), "rwkv6-3b": (600, 16)}
+
+
+@pytest.fixture(scope="module")
+def models():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    return {}
+
+
+def _get_model(models, name):
+    if name not in models:
+        models.clear()              # one model on the card at a time
+        torch.cuda.empty_cache()
+        models[name] = _model(torch.device("cuda"), name)
+    return models[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRAPH_CASES))
+def test_cuda_graph_generate_equals_eager(cuda, models, name):
+    """Graph ``generate`` (the default on the card) equals eager
+    ``generate`` token for token from the first step on, the steps that
+    captured a graph included, with the same launch counts and state;
+    one graph per step variant that ran and one for the 256-token
+    prefill chunk."""
+    import numpy as np
+    model = _get_model(models, name)
+    prompt_len, new = GRAPH_CASES[name]
+    prompt = np.random.default_rng(0).integers(
+        0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
+    runs = []
+    for graphs in (False, True):
+        eng = _engine(model, prompt_len, new, cuda_graphs=graphs)
+        assert eng.cuda_graphs is graphs
+        tops.reset_launch_counts()
+        toks, stats = eng.generate(prompt, new)
+        torch.cuda.synchronize()
+        runs.append((eng, toks, stats, tops.launch_counts()))
+    (eager, et, es, ec), (graph, gt, gs, gc) = runs
+    assert np.array_equal(gt, et)
+    assert gs["modes"] == es["modes"] and gc == ec
+    if name == "rwkv6-3b":
+        keys = {"state"}
+        assert ec[1] and sum(ec[1].values()) == ec[0]["wkv"]
+    else:
+        assert set(gs["modes"]) == {"full", "refresh", "partial"}
+        keys = {(True, False, False), (True, False, True),
+                (False, True, False)}
+        assert all(ec[0][k] > 0 for k in ("sparse_verify_attention",
+                                          "paged_prefill_attention",
+                                          "retrieval_score", "block_summary"))
+    assert set(graph._graphs) == keys | {("prefill", 256)}
+    # the whole state, K/V pools included (the warm-up before each
+    # capture restores all but the pools), bit for bit; the paged pools'
+    # null page 0 takes pad writes in no fixed order and is left out
+    for f in dataclasses.fields(graph.state):
+        g, e = getattr(graph.state, f.name), getattr(eager.state, f.name)
+        for k in (g if isinstance(g, dict) else [None]):
+            a, b = (g, e) if k is None else (g[k], e[k])
+            if k in ("k", "v") and "page_table" in g:
+                a, b = a[..., 1:, :, :, :], b[..., 1:, :, :, :]
+            assert torch.equal(a, b), (f.name, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRAPH_CASES))
+def test_cuda_step_bodies_do_not_sync(cuda, models, name):
+    """One eager run of the prefill chunk and of each step variant's body
+    under ``torch.cuda.set_sync_debug_mode("error")``: nothing a graph
+    captures reads from the host or waits for the card."""
+    import numpy as np
+    from repro_torch.core.engine import MODE_IDS
+    model = _get_model(models, name)
+    prompt_len, new = GRAPH_CASES[name]
+    eng = _engine(model, prompt_len, new, cuda_graphs=False)
+    prompt = np.random.default_rng(1).integers(
+        0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
+    eng.prefill(prompt)
+    toks = torch.zeros((1, 256), dtype=torch.long, device=cuda)
+    bodies = [lambda: eng._prefill_body(toks)]
+    if name == "rwkv6-3b":
+        bodies.append(eng._state_body)
+    else:
+        for mode, key in (("full", (True, False, False)),
+                          ("refresh", (True, False, True)),
+                          ("partial", (False, True, False))):
+            bodies.append(lambda mode=mode, key=key: (
+                eng._modes.fill_(MODE_IDS[mode]), eng._fused_body(*key)))
+    torch.cuda.synchronize()
+    for body in bodies:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            body()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_split_counters_keep_their_address(cuda, models):
+    """The K1/K3 merge counters are reserved when the engine is built and
+    do not move across a generate that captured graphs (a Refresh runs
+    K3 and split K1), and they are zero after it."""
+    import numpy as np
+    model = _get_model(models, "llama3.1-8b")
+    prompt_len, new = GRAPH_CASES["llama3.1-8b"]
+    eng = _engine(model, prompt_len, new)
+    c = tops._COUNTERS[model[3]["embed"].device]
+    ptr = c.data_ptr()
+    prompt = np.random.default_rng(2).integers(
+        0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
+    _, stats = eng.generate(prompt, 12)
+    torch.cuda.synchronize()
+    assert stats["modes"].get("refresh") and (True, False, True) in eng._graphs
+    c2 = tops._COUNTERS[c.device]
+    assert c2 is c and c2.data_ptr() == ptr
+    assert not bool(c.any())
