@@ -26,7 +26,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    sides of its 16-token tiles, and for the chain engine's invariant
    (a read-only T=6 verify gives the y of six one-token steps, an
    advance with a valid prefix the state of that many one-token steps,
-   bit for bit);
+   bit for bit).  The serving path's inputs are checked too: a batch-4
+   K1 call mixing Full rows, a routed Partial row and an empty slot, a
+   batch-4 K3 call over ragged block counts, and a K4 call in which one
+   row has start = end and one is a neutral slot (bit for bit);
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
    an 8192-token prompt, 128 new tokens), twice: eagerly
@@ -58,9 +61,20 @@ Phases, in order (any failure raises and the script exits non-zero):
    its steps, the bodies under the sync check, and fp32 losslessness at
    4 layers with graphs (``generate`` equals the port's autoregressive
    decoding);
-6. one JSON line with every kernel's numbers (each kernel's launches
-   from its own path's run), the card's name and power limit, and the
-   final ``{"ok": true, ...}`` line.
+6. continuous-batching serving of llama3.1-8b at full width
+   (``ServingEngine``, batch 4, a 161-page pool, six requests of 2048 to
+   8192 prompt tokens arriving together), with graphs and eagerly (equal
+   tokens and launch counts), the launch counts set to 0 just before and
+   read just after each run and held to what its steps' variants and
+   prefill chunks imply; page stalls, mixed-mode ticks and a drained pool
+   asserted; each request alone through batch-1 ``generate`` (matches
+   reported); a profiled window of batch-4 Partial ticks; the serving
+   bodies under the sync check; fp32 losslessness at 4 layers (batch 2,
+   interleaved prefill: every request equals its solo ``generate`` and a
+   blocking run);
+7. one JSON line with every kernel's numbers (each kernel's launches
+   from its own path's run, and ``serving_launches`` from phase 6's), the
+   card's name and power limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -438,7 +452,126 @@ def phase_kernels(torch, card, timer):
     results["retrieval_score"] = _score_checks(torch, card, timer, gen)
     results["block_summary"] = _summary_checks(torch, card, timer, gen)
     results["wkv"] = _wkv_checks(torch, card, timer, gen)
+    err_k1, err_k3 = _serving_kernel_cases(torch, card, gen)
+    results[k1]["max_abs_err"] = max(results[k1]["max_abs_err"], err_k1)
+    results["retrieval_score"]["max_abs_err"] = max(
+        results["retrieval_score"]["max_abs_err"], err_k3)
     return results
+
+
+def _serving_kernel_cases(torch, card, gen):
+    """The kernels' inputs on the serving path (phase 6), each against
+    its plain version: a batch-4 K1 call (T=61) whose rows mix two Full
+    rows of ragged lengths, a routed Partial row and an empty slot (null
+    page table, length 0), in bf16 and fp32; a batch-4 K3 call (T=156)
+    over ragged block counts, an empty slot among them, two calls bit
+    for bit; a K4 all-layers call over four rows of which one has start
+    = end inside a block (it recomputes that block to the same bits) and
+    one is a neutral slot (nothing written), bit for bit.  Returns the
+    largest abs error of (K1, K3); K4's is 0."""
+    from repro_torch.kernels import ops, ref
+    h, hk, dh, bs, nb = 32, 8, 128, 128, 66
+    dev = "cuda"
+    before = dict(ops.LAUNCHES)
+    np_ = 4 * nb + 1
+    table = (torch.randperm(np_ - 1, generator=gen, device=dev) + 1)[
+        : 4 * nb].to(torch.int32).reshape(4, nb).contiguous()
+    table[2] = 0                                   # the empty slot
+    # rows: Full 3000 tokens, Partial (routed, context 8229), empty, Full
+    # 5555 tokens
+    full_len = torch.tensor([3000, 0, 0, 5555], device=dev)
+    idx, vlen = ops._page_walk(table, full_len, (np_, bs, hk, dh))
+    sel = torch.stack([torch.randperm(nb - 1, generator=gen, device=dev)[:35]
+                       for _ in range(hk)])             # [Hk, 35] logical
+    sel[:, -3:] = -1
+    sel[:, 30] = nb - 1                            # the ragged last block
+    used = sel >= 0
+    idx[1] = 0
+    vlen[1] = 0
+    idx[1, :, :35] = torch.where(used, table[1][sel.clamp(min=0)], 0)
+    vlen[1, :, :35] = torch.where(used, (8229 - sel * bs).clamp(0, bs), 0)
+    idx, vlen = idx.contiguous(), vlen.contiguous()
+    err_k1 = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.randn((4, 61, h, dh), generator=gen, device=dev).to(dtype)
+        pk = torch.randn((np_, bs, hk, dh), generator=gen,
+                         device=dev).to(dtype)
+        pv = torch.randn((np_, bs, hk, dh), generator=gen,
+                         device=dev).to(dtype)
+        kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+        got = ops.block_attention(q, kf, vf, idx, vlen, bs)
+        want = ref.block_attention_batched(q, kf, vf, idx, vlen, bs)
+        torch.cuda.synchronize()
+        out_g = got[2] / got[1].clamp(min=1e-30)[..., None]
+        out_w = want[2] / want[1].clamp(min=1e-30)[..., None]
+        for nm, g, w in (("m", got[0], want[0]), ("l", got[1], want[1]),
+                         ("acc", got[2], want[2]), ("out", out_g, out_w)):
+            _close(f"K1 mixed batch-4 {dtype} {nm}", g, w)
+        if not (bool((got[0][2] <= -1e29).all())
+                and float(got[1][2].abs().max()) == 0.0):
+            raise AssertionError("K1 mixed batch-4: the empty slot is not "
+                                 "masked")
+        err_k1 = max(err_k1, (out_g - out_w).abs().max().item(),
+                     (got[0] - want[0]).abs().max().item())
+    say(card, f"kernel K1 mixed batch-4 T=61 (Full 3000, routed Partial "
+              f"NS=35, empty slot, Full 5555) bf16 and fp32: max_abs_err "
+              f"{err_k1:.3e} (tol {TOL_KERNEL} of max |plain|), the empty "
+              f"slot all masked")
+    # K3: ragged live block counts, zero summaries past them (null pages)
+    t = 156
+    q = torch.randn((4, t, h, dh), generator=gen, device=dev).to(
+        torch.bfloat16)
+    kmax = torch.randn((4, nb, hk, dh), generator=gen, device=dev).abs()
+    kmin = -torch.randn((4, nb, hk, dh), generator=gen, device=dev).abs()
+    live = torch.tensor([66, 40, 0, 23], device=dev)
+    keep = (torch.arange(nb, device=dev)[None] < live[:, None])[..., None,
+                                                                None]
+    kmax, kmin = kmax * keep, kmin * keep
+    qw = (torch.rand((4, t), generator=gen, device=dev) > 0.5).float()
+    qw[:, 0] = 1.0
+    got = ops.retrieval_scores(q, kmax, kmin, qw)
+    again = ops.retrieval_scores(q, kmax, kmin, qw)
+    want = ref.retrieval_score_batched(q, kmax, kmin, qw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("K3 ragged batch-4: two calls differ")
+    _close("K3 ragged batch-4", got, want)
+    err_k3 = (got - want).abs().max().item()
+    say(card, f"kernel K3 batch-4 T=156 NB=66 with live blocks "
+              f"{live.tolist()} bf16: max_abs_err {err_k3:.3e} (tol "
+              f"{TOL_KERNEL}), two calls bit-equal")
+    # K4: every layer, four rows; row 1 start = end mid-block, row 2 neutral
+    layers, nbk = 32, 24
+    np4 = 4 * nbk + 1
+    pool = torch.randn((layers, np4, bs, hk, dh), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    tab = (torch.randperm(np4 - 1, generator=gen, device=dev) + 1).to(
+        torch.int32).reshape(4, nbk).contiguous()
+    tab[2] = 0
+    start = torch.tensor([2600, 1000, 0, 2304], dtype=torch.int32,
+                         device=dev)
+    end = torch.tensor([2661, 1000, 0, 2560], dtype=torch.int32, device=dev)
+    init = torch.zeros((2, layers, np4, hk, dh), device=dev)
+    ref.paged_block_summaries(pool, tab, torch.zeros_like(start), start,
+                              nbk, init[0], init[1])
+    got, want = init.clone(), init.clone()
+    ops.paged_block_summaries(pool, tab, start, end, 3, got[0], got[1])
+    ref.paged_block_summaries(pool, tab, start, end, 3, want[0], want[1])
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K4 four rows with start = end: kernel differs "
+                             "from its plain version")
+    pages1 = tab[1].long()
+    if not torch.equal(got[:, :, pages1], init[:, :, pages1]):
+        raise AssertionError("K4: the start = end row's summaries moved")
+    if float(got[:, :, 0].abs().max()) != 0.0:
+        raise AssertionError("K4 wrote the null page")
+    say(card, "kernel K4 all 32 layers, rows (commit 2600-2661, start = end "
+              "= 1000, neutral slot, prefill chunk 2304-2560) bf16: bit-equal "
+              "to plain, the start = end row's summaries unchanged, null page "
+              "0")
+    ops.LAUNCHES.update(before)
+    return err_k1, err_k3
 
 
 def _score_inputs(torch, gen, t, nb, dtype, h=32, hk=8, dh=128):
@@ -950,9 +1083,10 @@ def check_sync_free(torch, card, eng, prompt):
     operation that waits for the card (a host read, a copy from pageable
     memory): what a graph captures must not sync."""
     from repro_torch.core.engine import MODE_IDS
-    eng.prefill(prompt)
-    toks = eng._chunk_toks[256]
+    st = eng.prefill(prompt)
+    toks = eng._chunk_buf(eng.batch, 256)
     if eng.is_attn:
+        eng._rows.fill_(True)
         bodies = [(mode, (lambda mode=mode, key=key: (
             eng._modes.fill_(MODE_IDS[mode]), eng._fused_body(*key))))
             for mode, key in (("full", (True, False, False)),
@@ -960,7 +1094,8 @@ def check_sync_free(torch, card, eng, prompt):
                               ("partial", (False, True, False)))]
     else:
         bodies = [("state", eng._state_body)]
-    bodies.append(("prefill chunk", lambda: eng._prefill_body(toks)))
+    bodies.append(("prefill chunk", lambda: eng._prefill_body(
+        toks, st.cache, st.dcache, eng._prev_feat, eng._logits_last)))
     torch.cuda.synchronize()
     for label, body in bodies:
         torch.cuda.set_sync_debug_mode("error")
@@ -1357,13 +1492,376 @@ def rwkv_lossless(torch, card, prompt_len: int = 1024, new_tokens: int = 32):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: continuous-batching serving at full width
+# ---------------------------------------------------------------------------
+
+# six requests arriving together (prompt tokens, new tokens): two under
+# the 4480-token partial budget, four over it.  With random weights no
+# draft token is accepted, so equal budgets would finish on one tick and
+# no slot would ever free while the pool is short: the shortest request
+# asks for 32 tokens, so its slot frees while the 8192-token waiters
+# cannot fit (page stalls)
+SERVE_REQS = ((2048, 32), (3072, 64), (4608, 64), (6144, 64), (8192, 64),
+              (8192, 64))
+SERVE_MAX_LEN = 8448                # 66 blocks of 128
+SERVE_PAGES = 161                   # the first four fit, an 8192 does not
+
+
+def _serve(torch, srv, reqs):
+    """Run ``reqs`` through ``srv`` with every launch count set to 0 just
+    before and read just after.  Returns (outputs by id, wall s, launch
+    counts, peak GiB)."""
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        srv.submit(r)
+    outs = srv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return {o.request_id: o for o in outs}, wall, launches, peak
+
+
+def _expected_serving_launches(eng, layers):
+    """K1-K4 launches implied by the steps' variants and the prefill
+    chunks: per step K1 once per layer for each context source (full
+    pages, routed partial), K3 once per layer with a Refresh row, K4 once
+    with a committing (Full or Refresh) row; per chunk K2 once per layer
+    and K4 once over all layers."""
+    k1 = k3 = k4 = 0
+    for (has_full, has_partial, has_refresh), n in eng.dispatch_keys.items():
+        k1 += layers * n * (int(has_full) + int(has_partial))
+        k3 += layers * n * int(has_refresh)
+        k4 += n * int(has_full)
+    chunks = eng.prefill_dispatches
+    return {"sparse_verify_attention": k1,
+            "paged_prefill_attention": layers * chunks,
+            "retrieval_score": k3, "block_summary": k4 + chunks}
+
+
+def _serving_requests(prompts, reqs_spec):
+    from repro_torch.serving import Request
+    now = time.time()
+    return [Request(request_id=f"r{i}", prompt=p, max_new_tokens=new,
+                    arrival_s=now)
+            for i, (p, (_, new)) in enumerate(zip(prompts, reqs_spec))]
+
+
+def phase_serving(torch, card):
+    """Continuous batching of llama3.1-8b at full width (random bf16
+    weights, batch 4, a 161-page pool): the six ``SERVE_REQS`` with
+    graphs, then eagerly (equal tokens and launch counts), then each
+    alone through batch-1 ``generate`` (matches reported: bf16 rows are
+    not batch-invariant); a profiled window of decode ticks; the serving
+    bodies under the sync check; fp32 losslessness at 4 layers."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    cfg = get_config("llama3.1-8b")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=1, device="cuda")
+    torch.cuda.synchronize()
+    say(card, f"serving: llama3.1-8b random weights ready in "
+              f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in SERVE_REQS]
+    scfg = ServingConfig(batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
+                         num_pages=SERVE_PAGES)
+    runs = {}
+    for graphs in (True, False):
+        label = RUN_LABEL[graphs]
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams, scfg,
+                            device="cuda", cuda_graphs=graphs)
+        outs, wall, launches, peak = _serve(
+            torch, srv, _serving_requests(prompts, SERVE_REQS))
+        sched = srv._continuous
+        eng = sched.engine
+        st = srv.stats
+        need = [eng.pages_needed(n, new) for n, new in SERVE_REQS]
+        if sum(need[:4]) > eng.page_capacity() or \
+                sum(need[:4]) + need[4] <= eng.page_capacity():
+            raise AssertionError(f"pool of {SERVE_PAGES} pages: the first "
+                                 f"four requests ({need[:4]}) must fit and "
+                                 f"a fifth ({need[4]}) must not")
+        toks = {k: o.tokens for k, o in outs.items()}
+        for i, (n, new) in enumerate(SERVE_REQS):
+            o = outs[f"r{i}"]
+            if (o.finish_reason != "length" or len(o.tokens) != new
+                    or o.tokens.min() < 0 or o.tokens.max() >= cfg.vocab_size):
+                raise AssertionError(f"request r{i}: {o.finish_reason}, "
+                                     f"{len(o.tokens)} tokens")
+        ps = eng.page_stats()
+        if not st["page_stalls"] > 0:
+            raise AssertionError("no admission stalled on pages")
+        if ps["pinned_pages"] or ps["in_use"] or ps["draft_in_use"]:
+            raise AssertionError(f"pages left after the run: {ps}")
+        if not (st["mode_rows_refresh"] and st["mode_rows_partial"]
+                and st["mode_rows_full"] and st.get("ticks_modes_2")):
+            raise AssertionError(f"the ticks must mix Full, Refresh and "
+                                 f"Partial rows: {dict(st)}")
+        want = _expected_serving_launches(eng, cfg.num_layers)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"serving launches {got} != {want} implied "
+                                 f"by {eng.dispatch_keys} and "
+                                 f"{eng.prefill_dispatches} prefill chunks")
+        lat = np.array([o.latency_s for o in outs.values()])
+        ntok = int(sum(len(t) for t in toks.values()))
+        # a class's first tick may include its graph's capture: the median
+        # leaves it out
+        ticks = {c: (len(v), 1e3 * float(np.median(v)),
+                     1e3 * float(np.mean(v)))
+                 for c, v in sched.tick_wall.items()}
+        say(card, f"serving llama3.1-8b [{label}] batch 4, {SERVE_PAGES} "
+                  f"pages, requests {[n for n, _ in SERVE_REQS]}: answered "
+                  f"{len(outs)} tokens {ntok} wall_s {wall:.3f} "
+                  f"tokens_per_s {ntok / wall:.2f} latency_s p50 "
+                  f"{np.percentile(lat, 50):.3f} p95 "
+                  f"{np.percentile(lat, 95):.3f} steps {int(st['steps'])} "
+                  f"prefill chunks {eng.prefill_dispatches} peak_mem_gib "
+                  f"{peak:.2f} capture_s {eng.capture_s:.3f} graphs "
+                  f"{sorted(map(str, eng._graphs))}")
+        say(card, f"serving [{label}] tick wall ms by class (ticks: median, "
+                  f"mean): " + ", ".join(
+                      f"{c} {n}: {med:.2f}, {mean:.2f}"
+                      for c, (n, med, mean) in sorted(ticks.items())))
+        memory_line(torch, card, f"serving {label}", eng, params, dparams,
+                    peak)
+        say(card, f"serving [{label}] " + " ".join(
+            f"{k} {int(v)}" for k, v in sorted(st.items())
+            if k.startswith(("mode_rows_", "ticks_modes_"))
+            or k in ("page_stalls", "admissions")))
+        say(card, f"serving [{label}] page_stats {ps} variants "
+                  f"{ {str(k): n for k, n in eng.dispatch_keys.items()} }")
+        say(card, f"serving [{label}] launches {got} == implied by the "
+                  f"steps' variants and {eng.prefill_dispatches} chunks")
+        if graphs:
+            want_graphs = {("slot_prefill", 256)} | set(eng.dispatch_keys)
+            if set(eng._graphs) != want_graphs:
+                raise AssertionError(f"graphs {sorted(map(str, eng._graphs))}"
+                                     f" != {sorted(map(str, want_graphs))}")
+            prof = profile_ticks(torch, card, srv, prompts)
+            check_sync_free_serving(torch, card, eng, prompts)
+        runs[label] = dict(toks=toks, launches=got, wall_s=wall,
+                           tokens_per_s=ntok / wall, peak_gib=peak,
+                           ticks=ticks, stats=dict(st), pages=ps,
+                           p50=float(np.percentile(lat, 50)),
+                           p95=float(np.percentile(lat, 95)),
+                           capture_s=eng.capture_s)
+        if graphs:
+            runs[label].update(prof)
+        del srv, sched, eng
+        torch.cuda.empty_cache()
+    g, e = runs["graphs"], runs["eager"]
+    for rid in g["toks"]:
+        if not np.array_equal(g["toks"][rid], e["toks"][rid]):
+            raise AssertionError(f"serving {rid}: graph tokens differ from "
+                                 f"eager")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"serving launches: graphs {g['launches']} "
+                             f"eager {e['launches']}")
+    say(card, "serving: graph tokens == eager tokens for every request, "
+              "launch counts equal")
+    # each request alone through batch-1 generate on one engine
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=SERVE_MAX_LEN, device="cuda")
+    match, first_diff = 0, {}
+    for i, ((n, new), p) in enumerate(zip(SERVE_REQS, prompts)):
+        t, _ = solo.generate(p[None], new)
+        d = np.nonzero(t[0] != g["toks"][f"r{i}"])[0]
+        if d.size:
+            first_diff[f"r{i}"] = int(d[0])
+        else:
+            match += 1
+    say(card, f"serving bf16 vs solo batch-1 generate: {match} of "
+              f"{len(SERVE_REQS)} requests equal; first diverging position "
+              f"{first_diff} (not asserted: cuBLAS picks its GEMM by the row "
+              f"count and the split-KV count depends on B)")
+    del solo
+    torch.cuda.empty_cache()
+    del params, dparams
+    torch.cuda.empty_cache()
+    serving_lossless(torch, card)
+    g["solo_match"] = match
+    return g
+
+
+def profile_ticks(torch, card, srv, prompts, warm: int = 3, ticks: int = 6):
+    """A fresh scheduler on the graph run's engine with four requests of
+    4608 tokens (the first 4608 of prompts 2-5; 4 x 38 pages fit): the
+    first tick admits them (blocking prefill) and refreshes every row, then
+    after ``warm`` Partial ticks ``ticks`` more on the host clock and
+    ``ticks`` more under ``torch.profiler``: device busy ms, device
+    launches, host launch calls and device time by kernel per batch-4
+    Partial tick."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ContinuousScheduler
+    eng = srv._engine_for(srv.scfg.batch, paged=True)
+    sched = ContinuousScheduler(eng, prefill_chunk=srv.scfg.prefill_chunk)
+    four = [p[:4608] for p in prompts[2:6]]
+    for r in _serving_requests(four, [(4608, 64)] * 4):
+        sched.submit(r)
+    for _ in range(1 + warm):
+        sched.tick()
+    torch.cuda.synchronize()
+    parts0 = sched.stats["mode_rows_partial"]
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        sched.tick()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / ticks
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(ticks):
+            sched.tick()
+        torch.cuda.synchronize()
+    if sched.stats["mode_rows_partial"] - parts0 != 2 * ticks * 4:
+        raise AssertionError(f"the profiled ticks must be batch-4 Partial "
+                             f"ticks: {dict(sched.stats)}")
+    busy, span = _device_busy(prof)
+    dev_n, host_n, calls_n = _launch_counts(prof)
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and _dev_us(e) > 0]
+    for e in sorted(kernels, key=_dev_us, reverse=True)[:10]:
+        say(card, f"serving profile   {_dev_us(e) / 1e3 / ticks:8.3f} "
+                  f"ms/tick {e.count // ticks:5d} launches/tick  "
+                  f"{e.key[:80]}")
+    say(card, f"serving profile: {ticks} batch-4 Partial ticks (4 x 4608 "
+              f"tokens): unprofiled wall_ms/tick {wall_ms:.2f}; device "
+              f"busy_ms/tick {busy / ticks:.2f} idle_share_unprofiled "
+              f"{1 - busy / ticks / wall_ms:.3f} device launches/tick "
+              f"{dev_n / ticks:.1f} host launch calls/tick "
+              f"{calls_n / ticks:.1f} top-level host aten ops/tick "
+              f"{host_n / ticks:.1f}")
+    return dict(tick_wall_ms=wall_ms, tick_busy_ms=busy / ticks,
+                tick_host_launch_calls=calls_n / ticks,
+                tick_device_launches=dev_n / ticks)
+
+
+def check_sync_free_serving(torch, card, eng, prompts):
+    """On the serving engine with two slots decoding and two empty: the
+    slot prefill chunk's body and each step variant's body with the row
+    mask [1, 1, 0, 0] (an empty slot among the masked rows), run eagerly
+    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    from repro_torch.core.engine import MODE_IDS
+    st = eng.empty_state()
+    for slot in (0, 1):
+        st, _ = eng.prefill_into_slot(st, slot, prompts[slot],
+                                      max_new_tokens=32)
+    toks = eng._chunk_buf(1, 256)
+    cache = dict(eng._slot_cache, **{n: st.cache[n]
+                                     for n in ("k", "v", "kmax", "kmin")})
+    dcache = dict(eng._slot_dcache, k=st.dcache["k"], v=st.dcache["v"])
+    bodies = [("slot prefill chunk", None, lambda: eng._prefill_body(
+        toks, cache, dcache, eng._slot_prev_feat, eng._slot_logits))]
+    for label, modes, key in (
+            ("full", ["full"] * 2, (True, False, False)),
+            ("refresh", ["refresh"] * 2, (True, False, True)),
+            ("partial", ["partial"] * 2, (False, True, False)),
+            ("partial + refresh", ["partial", "refresh"], (True, True, True))):
+        ops_in = torch.tensor([[MODE_IDS[m] for m in modes] + [0, 0],
+                               [1, 1, 0, 0]], dtype=torch.int8,
+                              device="cuda")
+        bodies.append((f"{label} rows [1, 1, 0, 0]", ops_in,
+                       lambda key=key: eng._fused_body(*key)))
+    for label, ops_in, body in bodies:
+        if ops_in is not None:
+            eng._tick_in.copy_(ops_in)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            body()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    say(card, f"serving sync check: the {', '.join(b[0] for b in bodies)} "
+              f"bodies ran eagerly under set_sync_debug_mode('error') "
+              f"without a sync")
+
+
+def serving_lossless(torch, card, layers: int = 4, new: int = 32):
+    """fp32 at full width, ``layers`` layers: batch 2, three requests (one
+    under the partial budget, two over), ``prefill_budget=512``
+    (interleaved), with graphs: every request equals its solo batch-1
+    ``generate`` and a blocking run of the same trace."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3.1-8b").replace(num_layers=layers,
+                                            dtype="float32",
+                                            param_dtype="float32")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=2, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=3, device="cuda")
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    spec_reqs = ((3000, new), (4800, new), (5300, new))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in spec_reqs]
+    max_len = 5632
+    toks = {}
+    for budget in (512, None):
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams,
+                            ServingConfig(batch=2, max_len=max_len,
+                                          prefill_budget=budget),
+                            device="cuda")
+        for r in _serving_requests(prompts, spec_reqs):
+            srv.submit(r)
+        srv.run()
+        toks[budget] = {k: o.tokens for k, o in srv.outputs.items()}
+        modes = {k: int(v) for k, v in srv.stats.items()
+                 if k.startswith("mode_rows_")}
+        if budget == 512 and not srv.stats["prefill_dispatches"]:
+            raise AssertionError("the interleaved run pumped no chunk")
+        del srv
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=max_len, device="cuda")
+    for i, p in enumerate(prompts):
+        t, _ = solo.generate(p[None], new)
+        for budget, label in ((512, "interleaved"), (None, "blocking")):
+            if not np.array_equal(toks[budget][f"r{i}"], t[0]):
+                raise AssertionError(f"fp32 serving r{i} ({label}) differs "
+                                     f"from solo generate:\n"
+                                     f"{toks[budget][f'r{i}']}\n{t[0]}")
+    say(card, f"serving lossless llama3.1-8b x{layers} layers fp32, graphs, "
+              f"batch 2, prompts {[n for n, _ in spec_reqs]}: interleaved "
+              f"(prefill_budget 512) == blocking == solo generate for every "
+              f"request over {new} tokens (mode rows {modes}); "
+              f"{time.perf_counter() - t0:.1f} s")
+    del params, dparams, solo
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5",
+    ap.add_argument("--phases", default="2,3,4,5,6",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
-                         "generate and losslessness); 1 and 6 always run")
+                         "generate and losslessness), 6 (llama serving); "
+                         "1 and 7 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -1401,6 +1899,8 @@ def main(argv=None) -> int:
         phase_lossless(torch, card, prompt_len=4800, new_tokens=32)
     rwkv = (phase_rwkv(torch, card) if 5 in phases
             else {k: 0 for k in ops.KERNELS})
+    serving = (phase_serving(torch, card) if 6 in phases
+               else {"launches": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -1408,6 +1908,8 @@ def main(argv=None) -> int:
         path = rwkv if name in RWKV_KERNELS else llama
         rows.append(dict(name=name, route="cuda", **KERNEL_META[name],
                          launches=int(path.get(name, 0)),
+                         serving_launches=int(
+                             serving["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),

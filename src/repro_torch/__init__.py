@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of the SpecPV reproduction, for one NVIDIA H100.
 
 Mirrors the JAX package's subpackages (``configs``, ``models``,
-``kvcache``, ``core``, ``kernels``).  Imports only ``torch``, numpy and
+``kvcache``, ``core``, ``kernels``, ``serving``).  Imports only ``torch``, numpy and
 the standard library.  Every entry point runs on the CUDA device unless
 the caller passes ``device="cpu"``; with no card it raises instead of
 falling back.

@@ -1,5 +1,5 @@
 """SpecPV generation engine (counterpart of ``repro/core/engine.py``,
-paper Algorithm 1), the lock-step greedy subset:
+paper Algorithm 1), greedy:
 
   prefill (chunked) -> [ draft -> verify(mode) -> accept -> commit ]*
 
@@ -23,6 +23,20 @@ jitted dispatch, keyed like its ``_fused_fn`` by the mode mix
 step for the mode automaton, the page pins and the billing.
 ``cuda_graphs=False`` runs the same bodies eagerly on the card; the CPU
 never captures.
+
+Continuous batching (attention archs): the batch rows are independent
+slots.  ``step_fused`` steps any non-empty row subset in one dispatch:
+the row mask, like the per-row modes, is an operand of the graph.  An
+empty or mid-prefill slot's device row is neutral (page table on the
+null page, length 0), so its writes land on the null page; a live row
+masked out of a step commits nothing, so its writes land at or past its
+length, where its next real step writes first.  The pools therefore
+need no merge after a masked step.  ``prefill_begin_slot`` /
+``prefill_step_into_slot`` / ``prefill_finalize_slot`` prefill one
+slot chunk by chunk over the shared pools through the slot's own page
+table (a 256-token chunk replays one batch-1 graph), so the serving
+scheduler can interleave chunks with decode steps; ``prefill_into_slot``
+runs them back to back.
 
 State architectures (RWKV-6, ``paged=False``) have no KV cache, so
 partial verification does not apply: each step (mode ``"state"``,
@@ -94,6 +108,67 @@ class StepOutput:
     modes: Optional[np.ndarray] = None
 
 
+@dataclass
+class PrefillCursor:
+    """Resumable prefill of one slot (the reference's cursor, its paged
+    fields without the prefix-sharing and sampling ones).
+
+    ``off`` is the absolute offset of the next chunk; chunk boundaries
+    stay absolute multiples of ``chunk``, so an interleaved prefill runs
+    the chunk schedule of a blocking one.  ``row_cache`` / ``row_dcache``
+    hold the slot's page-table row and length on the device (batch 1);
+    the pools live in the engine's state.  ``pt_host`` / ``dpt_host`` are
+    the page plan allocated at begin, decode reserve included."""
+    slot: int
+    prompt: np.ndarray
+    chunk: int
+    off: int                            # absolute offset of the next chunk
+    prev_feat: Any                      # [1, 3d] fused boundary feature
+    row_cache: Dict                     # {"page_table" [1, NB], "length" [1]}
+    row_dcache: Dict
+    logits_last: Any = None             # last chunk's logits (first token)
+    tokens: Any = None                  # the prompt on the device [S]
+    pt_host: Optional[np.ndarray] = None
+    dpt_host: Optional[np.ndarray] = None
+    total_pages: int = 0
+
+    @property
+    def done(self) -> bool:
+        return self.off >= len(self.prompt)
+
+    @property
+    def next_tokens(self) -> int:
+        """Tokens the next ``prefill_step_into_slot`` call will process
+        (0 when done)."""
+        if self.done:
+            return 0
+        end = min(len(self.prompt),
+                  (self.off // self.chunk + 1) * self.chunk)
+        return end - self.off
+
+
+# per-slot (batch-row) surgery: every EngineState field carries the batch
+# on axis 0 except the cache dicts (see kvcache.cache.CACHE_BATCH_AXIS)
+# and the tail-buffer arrays [L, B, Hk, P, ...] (axis 1)
+_PKV_FIELDS = ("pkv_k", "pkv_v", "pkv_pos")
+_ROW_FIELDS = ("buf_len", "pending", "pending_len", "seq_len",
+               "ext_tokens", "ext_feats", "ext_len", "pkv_blocks")
+
+
+def write_state_slot(st: EngineState, sub: EngineState,
+                     slot: int) -> EngineState:
+    """Write a batch-1 state `sub` into batch row `slot` of `st`, in
+    place (admission after a slot prefill, or a slot reset).  Paged: the
+    pools pass through; `sub` carries the per-row cache keys only."""
+    kvc.write_cache_slot(st.cache, sub.cache, slot)
+    kvc.write_draft_slot(st.dcache, sub.dcache, slot)
+    for f in _PKV_FIELDS:
+        kvc.write_row(getattr(st, f), getattr(sub, f), slot, 1)
+    for f in _ROW_FIELDS:
+        kvc.write_row(getattr(st, f), getattr(sub, f), slot, 0)
+    return st
+
+
 def _unsupported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet: ROADMAP.md queue 1, '{item}'")
@@ -134,6 +209,7 @@ class SpecPVEngine:
                  temperature: float = 0.0,
                  paged: bool = True,
                  num_pages: Optional[int] = None,
+                 num_draft_pages: Optional[int] = None,
                  prefix_cache: bool = False,
                  tiered: bool = False,
                  zero_copy: bool = True,
@@ -146,6 +222,10 @@ class SpecPVEngine:
         ``paged=False`` and chain drafts, without partial verification.
         Both are greedy (``temperature=0``); every other setting raises
         NotImplementedError naming the ROADMAP item that will bring it.
+        ``num_pages`` / ``num_draft_pages`` size the trunk and draft
+        pools (default: every row's whole ``max_len``, as lock-step
+        ``generate`` needs; the serving scheduler allocates per request
+        and gates admission on free pages).
         Runs on ``device`` (CUDA unless ``"cpu"`` is asked for); the
         params must live there.  On the card each step variant and the
         full prefill chunk replay a CUDA graph unless ``cuda_graphs`` is
@@ -182,12 +262,16 @@ class SpecPVEngine:
         self.batch = batch
         self.max_len = max_len
         self._nb_seq = -(-max_len // spec.block_size)
+        self.paged = self.is_attn
         self.num_pages = (num_pages if num_pages is not None
                           else batch * self._nb_seq + 1)
+        self.num_draft_pages = (num_draft_pages if num_draft_pages is not None
+                                else self.num_pages)
         self._page_alloc = (kvc.PageAllocator(self.num_pages)
                             if self.is_attn else None)
-        self._draft_alloc = (kvc.PageAllocator(self.num_pages)
+        self._draft_alloc = (kvc.PageAllocator(self.num_draft_pages)
                              if self.is_attn else None)
+        self.data_shards = 1            # no mesh: one page pool
         self.partial_enabled = bool(partial_verification) and self.is_attn
         if self.partial_enabled and not zero_copy:
             _unsupported("the gathered partial cache (zero_copy=False)",
@@ -200,8 +284,11 @@ class SpecPVEngine:
         self.pmax = spec.buffer_size            # max pending (refresh input)
         self.emax = self.tree.max_path          # max draft-extend per step
         self.traffic = TrafficMeter()
-        self._pkv_active = False
+        self._pkv_active = False        # lock-step automaton
+        self._pkv_active_rows = np.zeros((batch,), bool)   # per slot
         self.dispatches = 0             # fused engine steps executed
+        self.dispatch_keys: Dict[Tuple[bool, bool, bool], int] = {}
+        self.prefill_dispatches = 0     # slot prefill chunks run
         self.final_state = None         # the last ``generate``'s end state
         self.cuda_graphs = (self.device.type == "cuda" if cuda_graphs is None
                             else bool(cuda_graphs))
@@ -228,9 +315,19 @@ class SpecPVEngine:
                              device=self.device)
         return pkv_k, torch.zeros_like(pkv_k), pkv_pos
 
+    def _init_pkv_blocks(self, b: int):
+        """Routed-selection table [B, L, Hk, NS] of -1 (unused); [B, 0, 0,
+        0] for a state arch."""
+        if not self.is_attn:
+            return torch.zeros((b, 0, 0, 0), dtype=torch.int32,
+                               device=self.device)
+        return torch.full((b, self.cfg.num_layers, self.cfg.num_kv_heads,
+                           self._ns_blocks), -1, dtype=torch.int32,
+                          device=self.device)
+
     def _init_cache(self, b: int) -> Dict:
-        """The paged trunk cache (page tables filled by ``prefill``); state
-        archs get their recurrent state."""
+        """The paged trunk cache (page tables filled by ``prefill`` or a
+        slot admission); state archs get their recurrent state."""
         if not self.is_attn:
             return api.init_cache(self.cfg, b, self.max_len, self.spec,
                                   device=self.device)
@@ -243,7 +340,7 @@ class SpecPVEngine:
             return dr.init_draft_cache(self.cfg, b, self.max_len, self.device)
         return dr.init_paged_draft_cache(self.cfg, b, self.max_len,
                                          self.spec.block_size,
-                                         self.num_pages, self.device)
+                                         self.num_draft_pages, self.device)
 
     def _init_static(self) -> None:
         """The engine's one decode state (``state``) and the buffers around
@@ -254,11 +351,9 @@ class SpecPVEngine:
         cfg, b, dev = self.cfg, self.batch, self.device
         dt = cm.dt(cfg.dtype)
 
-        def ints(*shape):
-            return torch.zeros(shape, dtype=torch.long, device=dev)
+        def ints(*shape, dtype=torch.long):
+            return torch.zeros(shape, dtype=dtype, device=dev)
         pkv_k, pkv_v, pkv_pos = self._init_pkv(b)
-        nbl = ((b, cfg.num_layers, cfg.num_kv_heads, self._ns_blocks)
-               if self.is_attn else (b, 0, 0, 0))
         self.state = EngineState(
             cache=self._init_cache(b), dcache=self._init_dcache(b),
             pkv_k=pkv_k, pkv_v=pkv_v, pkv_pos=pkv_pos, buf_len=ints(b),
@@ -266,22 +361,39 @@ class SpecPVEngine:
             ext_tokens=ints(b, self.emax),
             ext_feats=torch.zeros((b, self.emax, 3 * cfg.d_model), dtype=dt,
                                   device=dev),
-            ext_len=ints(b),
-            pkv_blocks=torch.zeros(nbl, dtype=torch.int32, device=dev))
-        # prefill: the chunk's inputs and the carry between chunks
-        self._chunk_toks: Dict[int, torch.Tensor] = {}
+            ext_len=ints(b), pkv_blocks=self._init_pkv_blocks(b))
+        # prefill: the chunk's inputs (by shape) and the carry between chunks
+        self._chunk_toks: Dict[Tuple[int, int], torch.Tensor] = {}
         self._prev_feat = torch.zeros((b, 3 * cfg.d_model), dtype=dt,
                                       device=dev)
         self._logits_last = torch.zeros((b, cfg.vocab_size),
                                         dtype=torch.float32, device=dev)
-        self._modes = torch.zeros((b,), dtype=torch.int8, device=dev)
+        # a slot prefill's batch-1 carry: the cursor's rows are copied in
+        # before each chunk and out after (interleaved cursors share it)
+        nb = self._nb_seq
+        self._slot_cache = dict(page_table=ints(1, nb, dtype=torch.int32),
+                                length=ints(1, dtype=torch.int32))
+        self._slot_dcache = dict(page_table=ints(1, nb, dtype=torch.int32),
+                                 length=ints(1, dtype=torch.int32))
+        self._slot_prev_feat = torch.zeros((1, 3 * cfg.d_model), dtype=dt,
+                                           device=dev)
+        self._slot_logits = torch.zeros((1, cfg.vocab_size),
+                                        dtype=torch.float32, device=dev)
+        # the step's row operands, one host copy per step: the per-row
+        # modes and the mask of the rows that step
+        self._tick_in = ints(2, b, dtype=torch.int8)
+        self._modes = self._tick_in[0]
+        self._rows = self._tick_in[1].view(torch.bool)
         # what the host reads after a step, packed for one copy: tokens
         # [B, D+1], counts, accept_len, pending_len, seq_len [B] each,
         # then (attention archs) pkv_blocks, read after a Refresh
         self._io_head = b * (self.tree.depth + 1 + 4)
         self._io = ints(self._io_head + self.state.pkv_blocks.numel())
+        # host mirrors of the rows' pending and sequence lengths: the
+        # mode automaton reads these, never the device
         self._host_pending_len = np.ones((b,), np.int64)
         self._host_seq_len = np.zeros((b,), np.int64)
+        self._neutral_sub: Optional[EngineState] = None
         pdev = self.params["embed"].device
         tr.tree_tensors(self.tree, pdev)
         cm.rope_inv_freq_tensor(cfg, pdev)
@@ -303,8 +415,20 @@ class SpecPVEngine:
                            if pools or k not in ("k", "v"))
             else:
                 out.append(v)
-        out += [self._prev_feat, self._logits_last, self._modes, self._io]
+        out += [self._prev_feat, self._logits_last, self._tick_in, self._io,
+                self._slot_prev_feat, self._slot_logits]
+        out += list(self._slot_cache.values())
+        out += list(self._slot_dcache.values())
         return out + list(self._chunk_toks.values())
+
+    def _chunk_buf(self, b: int, chunk: int) -> torch.Tensor:
+        """The static token buffer of a [b, chunk] prefill chunk."""
+        toks = self._chunk_toks.get((b, chunk))
+        if toks is None:
+            toks = torch.zeros((b, chunk), dtype=torch.long,
+                               device=self.device)
+            self._chunk_toks[(b, chunk)] = toks
+        return toks
 
     def _fill_table(self, table, al: kvc.PageAllocator) -> None:
         """Give every row its whole max_len worth of pages (lock-step
@@ -314,22 +438,20 @@ class SpecPVEngine:
         if b * self._nb_seq > al.capacity:
             raise ValueError(
                 f"paged generate needs {b * self._nb_seq} pages but the "
-                f"pool holds {al.capacity}; raise num_pages")
+                f"pool holds {al.capacity}; raise num_pages or serve "
+                f"through the continuous scheduler (per-request pages)")
         pt = np.zeros((b, self._nb_seq), np.int32)
         for i in range(b):
             pt[i] = al.alloc(i, self._nb_seq)
         table.copy_(torch.from_numpy(pt))
 
-    def _reset(self) -> None:
-        """Every static tensor back to the state of a fresh engine."""
+    def _zero_static(self) -> None:
+        """Every static tensor to zero, the -1 sentinels set."""
         for t in self._static_tensors():
             t.zero_()
-        st = self.state
         if self.is_attn:
-            self._fill_table(st.cache["page_table"], self._page_alloc)
-            self._fill_table(st.dcache["page_table"], self._draft_alloc)
-            st.pkv_pos.fill_(-1)
-            st.pkv_blocks.fill_(-1)
+            self.state.pkv_pos.fill_(-1)
+            self.state.pkv_blocks.fill_(-1)
 
     def prefill(self, prompt: np.ndarray, chunk: int = 256) -> EngineState:
         """Whole-batch chunked prefill into the engine's state, reset in
@@ -339,58 +461,349 @@ class SpecPVEngine:
         chunk runs eagerly."""
         assert prompt.shape[0] == self.batch
         self._pkv_active = False
+        self._pkv_active_rows[:] = False
         self.final_state = None
-        self._reset()
+        self._zero_static()
+        st = self.state
+        if self.is_attn:
+            self._fill_table(st.cache["page_table"], self._page_alloc)
+            self._fill_table(st.dcache["page_table"], self._draft_alloc)
         s0 = prompt.shape[1]
         prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                    device=self.device)
-        off = 0
-        while off < s0:
-            end = min(s0, (off // chunk + 1) * chunk)
-            if end - off == chunk:
-                toks = self._chunk_toks.get(chunk)
-                if toks is None:
-                    toks = torch.zeros((self.batch, chunk), dtype=torch.long,
-                                       device=self.device)
-                    self._chunk_toks[chunk] = toks
-                toks.copy_(prompt_t[:, off:end])
-                self._run(("prefill", chunk),
-                          lambda: self._prefill_body(toks))
-            else:
-                self._prefill_body(prompt_t[:, off:end])
-            off = end
-        self._boot(s0)
-        return self.state
-
-    def _prefill_body(self, toks) -> None:
-        """One prefill chunk (trunk, then draft extend) into the state."""
-        cfg, st = self.cfg, self.state
-        logits_last, feats, cache = api.prefill(
-            cfg, self.params, toks, st.cache, spec=self.spec)
-        fused = feats.fused_input()                           # [B, T, 3d]
-        shifted = torch.cat([self._prev_feat[:, None], fused[:, :-1]], dim=1)
-        valid = torch.ones(toks.shape, dtype=torch.bool, device=toks.device)
-        dcache, _, _ = dr.draft_extend(cfg, self.dcfg, self.dparams,
-                                       self.params, st.dcache, toks, shifted,
-                                       valid)
-        self._prev_feat.copy_(fused[:, -1])
-        self._logits_last.copy_(logits_last)
-        _copy_into(st.cache, cache)
-        _copy_into(st.dcache, dcache)
-
-    def _boot(self, s0: int) -> None:
-        """Post-prefill state from the greedy first token (the reset left
-        every other field as a fresh state has it)."""
-        st = self.state
-        bonus0 = torch.argmax(self._logits_last, dim=-1)
-        st.pending[:, 0] = bonus0
-        st.ext_tokens[:, 0] = bonus0
-        st.ext_feats[:, 0] = self._prev_feat
-        st.pending_len.fill_(1)
-        st.ext_len.fill_(1)
-        st.seq_len.fill_(s0 + 1)
+        body = (lambda toks: self._prefill_body(
+            toks, st.cache, st.dcache, self._prev_feat, self._logits_last))
+        self._prefill_chunks(prompt_t, 0, s0, chunk, "prefill", body)
+        sub = self._boot_state(st.cache, st.dcache, self._logits_last,
+                               self._prev_feat, s0)
+        for f in fields(EngineState):
+            _copy_into(getattr(st, f.name), getattr(sub, f.name))
         self._host_pending_len = np.ones((self.batch,), np.int64)
         self._host_seq_len = np.full((self.batch,), s0 + 1, np.int64)
+        return st
+
+    def _prefill_chunks(self, toks_t, off: int, end: int, chunk: int,
+                        name: str, body) -> None:
+        """Run ``body`` over the absolute chunks of ``toks_t[:, off:end]``
+        [b, S]: a full chunk replays the graph ``(name, chunk)`` over the
+        static token buffer, a short one runs eagerly."""
+        while off < end:
+            nxt = min(end, (off // chunk + 1) * chunk)
+            if nxt - off == chunk:
+                toks = self._chunk_buf(toks_t.shape[0], chunk)
+                toks.copy_(toks_t[:, off:nxt])
+                self._run((name, chunk), lambda: body(toks))
+            else:
+                body(toks_t[:, off:nxt])
+            off = nxt
+
+    def _prefill_body(self, toks, cache, dcache, prev_feat,
+                      logits_last) -> None:
+        """One prefill chunk (trunk, then draft extend) into static
+        buffers: the caches (their pools written in place, the lengths
+        copied), the boundary feature carried to the next chunk and the
+        last token's logits."""
+        cfg = self.cfg
+        logits, feats, cache_n = api.prefill(cfg, self.params, toks, cache,
+                                             spec=self.spec)
+        fused = feats.fused_input()                           # [B, T, 3d]
+        shifted = torch.cat([prev_feat[:, None], fused[:, :-1]], dim=1)
+        valid = torch.ones(toks.shape, dtype=torch.bool, device=toks.device)
+        dcache_n, _, _ = dr.draft_extend(cfg, self.dcfg, self.dparams,
+                                         self.params, dcache, toks, shifted,
+                                         valid)
+        prev_feat.copy_(fused[:, -1])
+        logits_last.copy_(logits)
+        _copy_into(cache, cache_n)
+        _copy_into(dcache, dcache_n)
+
+    def _boot_state(self, cache: Dict, dcache: Dict, logits_last, prev_feat,
+                    s0: int) -> EngineState:
+        """Post-prefill state of ``b`` rows from the greedy first token:
+        the pending and extend queues seeded, the tail buffer and routed
+        selection empty.  Shared by the lock-step prefill and the slot
+        finalise, so both build the same automaton state."""
+        cfg, dev = self.cfg, self.device
+        b = prev_feat.shape[0]
+        bonus0 = torch.argmax(logits_last, dim=-1)
+        pending = torch.zeros((b, self.pmax), dtype=torch.long, device=dev)
+        pending[:, 0] = bonus0
+        ext_tokens = torch.zeros((b, self.emax), dtype=torch.long, device=dev)
+        ext_tokens[:, 0] = bonus0
+        ext_feats = torch.zeros((b, self.emax, 3 * cfg.d_model),
+                                dtype=cm.dt(cfg.dtype), device=dev)
+        ext_feats[:, 0] = prev_feat
+        pkv_k, pkv_v, pkv_pos = self._init_pkv(b)
+
+        def full(v):
+            return torch.full((b,), v, dtype=torch.long, device=dev)
+        return EngineState(
+            cache=cache, dcache=dcache, pkv_k=pkv_k, pkv_v=pkv_v,
+            pkv_pos=pkv_pos, buf_len=full(0), pending=pending,
+            pending_len=full(1), seq_len=full(s0 + 1), ext_tokens=ext_tokens,
+            ext_feats=ext_feats, ext_len=full(1),
+            pkv_blocks=self._init_pkv_blocks(b))
+
+    # ------------------------------------------------------------------
+    # per-slot state (continuous batching)
+    def _neutral_state(self) -> EngineState:
+        """One dead row: its page tables on the null page, lengths 0, one
+        placeholder token pending so no index underflows, no tail buffer
+        or routed selection."""
+        cfg, dev = self.cfg, self.device
+        pkv_k, pkv_v, pkv_pos = self._init_pkv(1)
+
+        def row():
+            return dict(page_table=torch.zeros((1, self._nb_seq),
+                                               dtype=torch.int32, device=dev),
+                        length=torch.zeros((1,), dtype=torch.int32,
+                                           device=dev))
+
+        def full(v, *shape):
+            return torch.full(shape or (1,), v, dtype=torch.long, device=dev)
+        return EngineState(
+            cache=row(), dcache=row(), pkv_k=pkv_k, pkv_v=pkv_v,
+            pkv_pos=pkv_pos, buf_len=full(0), pending=full(0, 1, self.pmax),
+            pending_len=full(1), seq_len=full(1),
+            ext_tokens=full(0, 1, self.emax),
+            ext_feats=torch.zeros((1, self.emax, 3 * cfg.d_model),
+                                  dtype=cm.dt(cfg.dtype), device=dev),
+            ext_len=full(1), pkv_blocks=self._init_pkv_blocks(1))
+
+    def _slots_only(self) -> None:
+        if not self.is_attn:
+            raise ValueError("continuous batching drives the attention "
+                             "automaton; state archs serve lock-step "
+                             "(ServingEngine's wave path)")
+
+    def empty_state(self) -> EngineState:
+        """The engine's state with every slot dead and both page pools
+        empty (continuous-scheduler boot)."""
+        self._slots_only()
+        self._pkv_active = False
+        self._pkv_active_rows[:] = False
+        self.final_state = None
+        self._page_alloc.reset()
+        self._draft_alloc.reset()
+        self._zero_static()
+        st = self.state
+        for t in (st.pending_len, st.seq_len, st.ext_len):
+            t.fill_(1)
+        self._host_pending_len = np.ones((self.batch,), np.int64)
+        self._host_seq_len = np.ones((self.batch,), np.int64)
+        return st
+
+    def clear_slot_rows(self, st: EngineState, slot: int) -> EngineState:
+        """Write the neutral row into a slot's device rows (page tables ->
+        null page, lengths 0) without touching the allocators.  Every step
+        runs all B rows and routes each row's writes through its own
+        table, so an inactive row must never keep a stale table: a
+        mid-prefill slot's table lives in its ``PrefillCursor``."""
+        self._own(st)
+        if self._neutral_sub is None:
+            self._neutral_sub = self._neutral_state()
+        self._pkv_active_rows[slot] = False
+        self._host_pending_len[slot] = 1
+        self._host_seq_len[slot] = 1
+        return write_state_slot(st, self._neutral_sub, slot)
+
+    def reset_slot(self, st: EngineState, slot: int) -> EngineState:
+        """Evict a slot: release its page references and pins, then
+        neutralise its rows (pool contents are left stale; nothing reads
+        them once unmapped)."""
+        self.release_slot_pages(slot)
+        return self.clear_slot_rows(st, slot)
+
+    # ---- page accounting (host side) ---------------------------------
+    def pages_needed(self, prompt_len: int, max_new_tokens: int) -> int:
+        """Pages a request needs end to end (see request_token_need)."""
+        toks = request_token_need(prompt_len, max_new_tokens, self.pmax,
+                                  self.emax)
+        return min(-(-toks // self.spec.block_size), self._nb_seq)
+
+    def pages_needed_shared(self, prompt: np.ndarray, max_new_tokens: int,
+                            touch: bool = False,
+                            shard: Optional[int] = None,
+                            temperature: Optional[float] = None) -> int:
+        """Fresh pages the request needs now: ``pages_needed``, since no
+        prefix cache can discount blocks (prefix sharing is ROADMAP.md
+        queue 1, 'Serving')."""
+        return self.pages_needed(len(prompt), max_new_tokens)
+
+    def free_pages(self, shard: Optional[int] = None) -> int:
+        """Fresh pages available for admission: the tighter of the trunk
+        and draft pools."""
+        if not self.paged:
+            return 1 << 30
+        return min(self._page_alloc.free, self._draft_alloc.free)
+
+    def page_capacity(self) -> int:
+        return self._page_alloc.capacity if self.paged else 1 << 30
+
+    def reclaim_pages(self, n: int) -> int:
+        """Pages freed by evicting idle cached prefixes: none without a
+        prefix cache."""
+        return 0
+
+    def shard_of_slot(self, slot: int) -> int:
+        return 0
+
+    def tier_admit_margin(self, prompt_len: int) -> int:
+        """Promotion headroom a tiered pool reserves: none untiered."""
+        return 0
+
+    def tier_ready_rows(self, rows: np.ndarray, modes: np.ndarray,
+                        force: bool = True) -> Tuple[np.ndarray, int]:
+        """Rows whose demoted pages can be seated this tick: all of them
+        untiered."""
+        return rows, 0
+
+    def release_slot_pages(self, slot: int) -> None:
+        """Release an evicted slot's page references and pins ahead of
+        the deferred row reset, so same-tick admission sees them."""
+        if self.paged:
+            self._page_alloc.free_slot(slot)
+            self._draft_alloc.free_slot(slot)
+
+    def reset_high_water(self) -> None:
+        """Zero the page high-water marks (benchmark warm-up)."""
+        if self.paged:
+            for al in (self._page_alloc, self._draft_alloc):
+                al.high_water = 0
+                al.resident_high_water = 0
+
+    def page_stats(self) -> Dict[str, int]:
+        al = self._page_alloc
+        if al is None:
+            return {}
+        return dict(num_pages=self.num_pages, capacity=al.capacity,
+                    in_use=al.in_use, idle=al.idle, committed=al.committed,
+                    high_water=al.high_water,
+                    resident_high_water=al.resident_high_water,
+                    draft_num_pages=self.num_draft_pages,
+                    draft_in_use=self._draft_alloc.in_use,
+                    draft_high_water=self._draft_alloc.high_water,
+                    contiguous_pages=self.batch * self._nb_seq,
+                    block_size=self.spec.block_size,
+                    pinned_pages=al.pinned_pages)
+
+    # ---- resumable prefill into one slot -----------------------------
+    def prefill_begin_slot(self, st: EngineState, slot: int,
+                           prompt: np.ndarray, chunk: int = 256,
+                           extra: Optional[Dict] = None,
+                           max_new_tokens: Optional[int] = None,
+                           temperature: Optional[float] = None,
+                           seed: int = 0, draft: str = "tree"
+                           ) -> Tuple[EngineState, PrefillCursor]:
+        """Open a resumable prefill of `prompt` into batch row `slot`;
+        drive it with ``prefill_step_into_slot`` (one chunk per call) and
+        commit it with ``prefill_finalize_slot``.  The whole page plan,
+        prompt blocks plus the decode reserve sized by ``max_new_tokens``
+        (default: the rest of max_len), is allocated here, so later steps
+        never fail on pool exhaustion; raises RuntimeError when the pools
+        cannot cover it.  The slot's device rows are neutralised: decode
+        steps may run between chunks."""
+        self._slots_only()
+        self._own(st)
+        if extra is not None:
+            _unsupported("per-request conditioning (extra)",
+                         "Other architectures")
+        if (temperature or 0.0) != 0.0 or draft != "tree":
+            _unsupported("sampled or chain requests", "Sampling")
+        prompt = np.asarray(prompt)
+        al, dal = self._page_alloc, self._draft_alloc
+        al.free_slot(slot)                      # stale pages, if any
+        dal.free_slot(slot)
+        budget = (max_new_tokens if max_new_tokens is not None
+                  else max(self.max_len - len(prompt), 0))
+        total = self.pages_needed(len(prompt), budget)
+        if total > self.free_pages():
+            raise RuntimeError(
+                f"slot {slot}: request needs {total} fresh pages, "
+                f"{al.free}/{dal.free} free (trunk/draft) of {al.capacity}")
+        pt_host = np.zeros((self._nb_seq,), np.int32)
+        dpt_host = np.zeros((self._nb_seq,), np.int32)
+        pt_host[:total] = al.alloc(slot, total)
+        dpt_host[:total] = dal.alloc(slot, total)
+        dev = self.device
+
+        def row(pt):
+            return dict(page_table=torch.as_tensor(pt[None], device=dev),
+                        length=torch.zeros((1,), dtype=torch.int32,
+                                           device=dev))
+        cur = PrefillCursor(
+            slot=slot, prompt=prompt, chunk=chunk, off=0,
+            prev_feat=torch.zeros((1, 3 * self.cfg.d_model),
+                                  dtype=cm.dt(self.cfg.dtype), device=dev),
+            row_cache=row(pt_host), row_dcache=row(dpt_host),
+            tokens=torch.as_tensor(prompt, dtype=torch.long, device=dev),
+            pt_host=pt_host, dpt_host=dpt_host, total_pages=total)
+        return self.clear_slot_rows(st, slot), cur
+
+    def prefill_step_into_slot(self, st: EngineState, cur: PrefillCursor
+                               ) -> Tuple[EngineState, int]:
+        """Advance `cur` by exactly one chunk (chunk boundaries absolute),
+        over the shared pools through the cursor's own page-table rows.
+        A full chunk replays the batch-1 graph ``("slot_prefill", chunk)``;
+        the cursor's rows are copied into its static buffers before and
+        out after.  Returns (state, tokens processed)."""
+        assert not cur.done, "prefill cursor already exhausted"
+        self._own(st)
+        off = cur.off
+        end = min(len(cur.prompt), (off // cur.chunk + 1) * cur.chunk)
+        _copy_into(self._slot_cache, cur.row_cache)
+        _copy_into(self._slot_dcache, cur.row_dcache)
+        self._slot_prev_feat.copy_(cur.prev_feat)
+        cache = dict(self._slot_cache, **{
+            n: st.cache[n] for n in kvc.PAGED_POOL_KEYS})
+        dcache = dict(self._slot_dcache, **{
+            n: st.dcache[n] for n in kvc.DRAFT_POOL_KEYS})
+        self._prefill_chunks(
+            cur.tokens[None], off, end, cur.chunk, "slot_prefill",
+            lambda toks: self._prefill_body(toks, cache, dcache,
+                                            self._slot_prev_feat,
+                                            self._slot_logits))
+        self.prefill_dispatches += 1
+        _copy_into(cur.row_cache, self._slot_cache)
+        _copy_into(cur.row_dcache, self._slot_dcache)
+        cur.prev_feat.copy_(self._slot_prev_feat)
+        cur.off = end
+        if cur.done:
+            cur.logits_last = self._slot_logits.clone()
+        return st, end - off
+
+    def prefill_finalize_slot(self, st: EngineState, cur: PrefillCursor
+                              ) -> Tuple[EngineState, int]:
+        """Commit an exhausted cursor: build the slot's automaton state
+        from the last chunk's logits and write it into batch row
+        ``cur.slot``.  Returns (state, first token)."""
+        assert cur.done, "prefill cursor still has chunks to run"
+        self._own(st)
+        sub = self._boot_state(cur.row_cache, cur.row_dcache,
+                               cur.logits_last, cur.prev_feat,
+                               len(cur.prompt))
+        write_state_slot(st, sub, cur.slot)
+        self._pkv_active_rows[cur.slot] = False
+        self._host_pending_len[cur.slot] = 1
+        self._host_seq_len[cur.slot] = len(cur.prompt) + 1
+        return st, int(sub.pending[0, 0])
+
+    def prefill_into_slot(self, st: EngineState, slot: int,
+                          prompt: np.ndarray, chunk: int = 256,
+                          extra: Optional[Dict] = None,
+                          max_new_tokens: Optional[int] = None,
+                          temperature: Optional[float] = None,
+                          seed: int = 0, draft: str = "tree"
+                          ) -> Tuple[EngineState, int]:
+        """Admit a request in one blocking call: begin, every chunk, then
+        finalise.  Returns (state, first token)."""
+        st, cur = self.prefill_begin_slot(
+            st, slot, prompt, chunk=chunk, extra=extra,
+            max_new_tokens=max_new_tokens, temperature=temperature,
+            seed=seed, draft=draft)
+        while not cur.done:
+            st, _ = self.prefill_step_into_slot(st, cur)
+        return self.prefill_finalize_slot(st, cur)
 
     # ------------------------------------------------------------------
     # the compiled step: one body per variant, captured once on the card
@@ -450,7 +863,7 @@ class SpecPVEngine:
     def _fused_body(self, has_full: bool, has_partial: bool,
                     has_refresh: bool) -> None:
         nxt, out = self._step_fused(self.state, self._modes,
-                                    has_full=has_full,
+                                    active=self._rows, has_full=has_full,
                                     has_partial=has_partial,
                                     has_refresh=has_refresh)
         self._store(nxt, out)
@@ -517,16 +930,26 @@ class SpecPVEngine:
             fused, 1, fslots[..., None].expand(-1, -1, fused.shape[-1]))
         return newtoks, ext_feats, acc + 1, st.seq_len + acc + 1
 
-    def _step_fused(self, st: EngineState, modes, *, has_full: bool,
-                    has_partial: bool, has_refresh: bool
+    def _step_fused(self, st: EngineState, modes, *, active=None,
+                    has_full: bool, has_partial: bool, has_refresh: bool
                     ) -> Tuple[EngineState, Tuple]:
         """One fused multi-mode greedy step over per-row ``modes`` [B]
-        (the greedy body of the reference's ``_step_fused``).  Returns the
-        next state (the pool, its summaries and the draft pool written in
-        place, the other fields new tensors) and (tokens, counts,
-        accept_len)."""
+        (the greedy body of the reference's ``_step_fused``) of the rows
+        where ``active`` [B] bool is set (default: every row).  Returns
+        the next state (the pool, its summaries and the draft pool
+        written in place, the other fields new tensors) and (tokens,
+        counts, accept_len).
+
+        Every row computes; a row outside ``active`` commits nothing (its
+        cache and buffer writes get count 0, so its lengths stay) and
+        keeps every row field, so the next state equals the reference's
+        step followed by its row merge.  Its pool writes land at or past
+        its length (on the null page for a neutral row), where its next
+        real step writes before anything reads."""
         cfg, spec, tree = self.cfg, self.spec, self.tree
         b, dev = self.batch, self.device
+        act = (active if active is not None
+               else torch.ones((b,), dtype=torch.bool, device=dev))
         dcache, tree_tokens, _ = dr.draft_phase(
             cfg, self.dcfg, self.dparams, self.params, tree, st.dcache,
             st.ext_tokens, st.ext_feats, st.ext_len)
@@ -577,23 +1000,22 @@ class SpecPVEngine:
             # valid entries after compaction) to the tail buffer
             wb = 1 + tree.depth
             cpos = torch.gather(vin["positions"], 1, slots[:, :wb])
-            count_buf = (torch.where(is_partial, count, torch.zeros_like(count))
-                         if has_full else count)
+            part_rows = is_partial & act
+            count_buf = torch.where(part_rows, count, torch.zeros_like(count))
             nk, nv, npos, nbl = vf.append_buffer(
                 pkv_k, pkv_v, pkv_pos, 0, buf_len, ck[:, :, :wb],
                 cv[:, :, :wb], cpos, count_buf)
-            if has_full:   # non-partial rows keep their buffer bits
-                selp = is_partial[None, :, None, None]
-                pkv_k = torch.where(selp[..., None], nk, pkv_k)
-                pkv_v = torch.where(selp[..., None], nv, pkv_v)
-                pkv_pos = torch.where(selp, npos, pkv_pos)
-                buf_len = torch.where(is_partial, nbl, buf_len)
-            else:
-                pkv_k, pkv_v, pkv_pos, buf_len = nk, nv, npos, nbl
+            # every other row keeps its buffer bits
+            selp = part_rows[None, :, None, None]
+            pkv_k = torch.where(selp[..., None], nk, pkv_k)
+            pkv_v = torch.where(selp[..., None], nv, pkv_v)
+            pkv_pos = torch.where(selp, npos, pkv_pos)
+            buf_len = torch.where(part_rows, nbl, buf_len)
         if has_full:
-            # full/refresh rows commit exact KV; partial rows pass count 0
-            count_full = (torch.where(is_partial, torch.zeros_like(count),
-                                      count) if has_partial else count)
+            # full/refresh rows commit exact KV; partial and inactive
+            # rows pass count 0
+            commit = (act & ~is_partial) if has_partial else act
+            count_full = torch.where(commit, count, torch.zeros_like(count))
             cache = vf.append_full_cache(cache, ck, cv, count_full, spec)
         if has_refresh:
             # masked epilogue: Quest retrieval over the just-committed
@@ -610,11 +1032,12 @@ class SpecPVEngine:
             qw.scatter_add_(1, vin["node_slots"], node_w)
             nbi = vf.refresh_partial_blocks(cfg, spec, out.queries, qw, cache)
             nbi = nbi.movedim(0, 1)                   # [B, L, Hk, NS]
-            pkv_blocks = torch.where(is_refresh[:, None, None, None], nbi,
+            ref_rows = is_refresh & act
+            pkv_blocks = torch.where(ref_rows[:, None, None, None], nbi,
                                      pkv_blocks)
-            pkv_pos = torch.where(is_refresh[None, :, None, None],
+            pkv_pos = torch.where(ref_rows[None, :, None, None],
                                   torch.full_like(pkv_pos, -1), pkv_pos)
-            buf_len = torch.where(is_refresh, torch.zeros_like(buf_len),
+            buf_len = torch.where(ref_rows, torch.zeros_like(buf_len),
                                   buf_len)
 
         pending_f = torch.zeros_like(st.pending)
@@ -633,10 +1056,23 @@ class SpecPVEngine:
                 pending, pending_len = pending_p, plen_p
         else:
             pending, pending_len = pending_f, ones
+        ext_tokens = newtoks
+        if active is not None:
+            # inactive rows keep their automaton and their draft length
+            def keep(new, old):
+                return kvc.select_rows(active, new, old, 0)
+            pending, pending_len = (keep(pending, st.pending),
+                                    keep(pending_len, st.pending_len))
+            seq_len = keep(seq_len, st.seq_len)
+            ext_tokens = keep(newtoks, st.ext_tokens)
+            ext_feats = keep(ext_feats, st.ext_feats)
+            ext_len = keep(ext_len, st.ext_len)
+            dcache = dict(dcache, length=keep(dcache["length"],
+                                              st.dcache["length"]))
         st2 = EngineState(
             cache=cache, dcache=dcache, pkv_k=pkv_k, pkv_v=pkv_v,
             pkv_pos=pkv_pos, buf_len=buf_len, pending=pending,
-            pending_len=pending_len, seq_len=seq_len, ext_tokens=newtoks,
+            pending_len=pending_len, seq_len=seq_len, ext_tokens=ext_tokens,
             ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=pkv_blocks)
         return st2, (newtoks, acc + 1, acc)
 
@@ -708,42 +1144,77 @@ class SpecPVEngine:
         return self.select_mode(int(self._host_pending_len.max()),
                                 int(self._host_seq_len.min()))
 
+    def modes_for_rows(self, st: EngineState, rows: np.ndarray) -> np.ndarray:
+        """Per-slot automaton as a mode vector [B] int8 (inactive rows
+        read MODE_FULL; ``step_fused`` normalises them), from the host
+        mirrors of the lengths: no read of the device."""
+        self._own(st)
+        out = np.full((self.batch,), MODE_FULL, np.int8)
+        for i in np.nonzero(rows)[0]:
+            out[i] = MODE_IDS[self.mode_for(
+                int(self._host_pending_len[i]), int(self._host_seq_len[i]),
+                bool(self._pkv_active_rows[i]))]
+        return out
+
+    def select_mode_rows(self, st: EngineState,
+                         rows: np.ndarray) -> Dict[str, np.ndarray]:
+        """The per-slot automaton grouped by mode (the grouped scheduling
+        path): {mode: [B] bool mask}."""
+        modes = self.modes_for_rows(st, rows)
+        out: Dict[str, np.ndarray] = {}
+        for i in np.nonzero(rows)[0]:
+            out.setdefault(MODE_NAMES[int(modes[i])],
+                           np.zeros(self.batch, bool))[i] = True
+        return out
+
     def step_fused(self, st: EngineState, rows: np.ndarray,
                    modes: np.ndarray) -> Tuple[EngineState, StepOutput]:
-        """One fused multi-mode step of the engine's state ``st``.  The
-        lock-step slice steps every row (``rows`` all True); per-slot row
-        masking is ROADMAP.md queue 1, 'Serving'."""
+        """One fused multi-mode step of the engine's state ``st``: every
+        row where `rows` is True steps in the mode `modes` gives it, in
+        one dispatch (one graph replay on the card) for any mix; the
+        other rows keep their state (see ``_step_fused``).  The row mask
+        and the modes go to the card in one copy; the graph is keyed by
+        the mode mix of the stepped rows."""
         if not self.is_attn:
             raise ValueError("state archs step through step(st, 'state')")
         self._own(st)
         rows = np.asarray(rows, bool)
-        if not rows.all():
-            _unsupported("stepping a subset of rows", "Serving")
         modes = np.asarray(modes, np.int8)
-        has_refresh = bool(np.any(modes == MODE_REFRESH))
-        has_full = has_refresh or bool(np.any(modes == MODE_FULL))
-        has_partial = bool(np.any(modes == MODE_PARTIAL))
-        self._modes.copy_(torch.from_numpy(modes))
+        active_modes = modes[rows]
+        if not active_modes.size:
+            raise ValueError("step_fused needs at least one live row")
+        has_refresh = bool(np.any(active_modes == MODE_REFRESH))
+        has_full = has_refresh or bool(np.any(active_modes == MODE_FULL))
+        has_partial = bool(np.any(active_modes == MODE_PARTIAL))
+        # inactive rows compute in the first active mode (their results
+        # are dropped), so every row runs a branch the variant has
+        modes = np.where(rows, modes, active_modes[0]).astype(np.int8)
+        self._tick_in.copy_(torch.from_numpy(
+            np.stack([modes, rows.astype(np.int8)])))
         key = (has_full, has_partial, has_refresh)
         self._run(key, lambda: self._fused_body(*key))
         self.dispatches += 1
+        self.dispatch_keys[key] = self.dispatch_keys.get(key, 0) + 1
         pin = self.zero_copy and has_refresh
         toks, counts, acc, pbi_host = self._read_io(blocks=pin)
+        refreshed = rows & (modes == MODE_REFRESH)
+        self._pkv_active_rows |= refreshed
         if pin:
             # pin the pages the refresh just routed; pin_slot_pages takes
             # the new references before dropping the previous refresh's,
             # so a page kept across refreshes never transiently frees
             al = self._page_alloc
-            for i in np.nonzero(modes == MODE_REFRESH)[0]:
+            for i in np.nonzero(refreshed)[0]:
                 i = int(i)
                 blocks = np.unique(pbi_host[i][pbi_host[i] >= 0])
                 nb = al.count(i)
                 pages = [al.page_at(i, int(j)) for j in blocks if j < nb]
                 if pages:
                     al.pin_slot_pages(i, pages)
-        self._record_traffic_rows(modes)
-        names = sorted({MODE_NAMES[int(m)] for m in modes})
-        return st, StepOutput(tokens=toks, counts=counts, accept_len=acc,
+        self._record_traffic_rows(modes, rows)
+        names = sorted({MODE_NAMES[int(m)] for m in active_modes})
+        return st, StepOutput(tokens=toks, counts=np.where(rows, counts, 0),
+                              accept_len=np.where(rows, acc, 0),
                               mode=names[0] if len(names) == 1 else "fused",
                               modes=modes)
 
@@ -769,9 +1240,19 @@ class SpecPVEngine:
             self._pkv_active = True
         return st, out
 
-    def _record_traffic_rows(self, modes: np.ndarray):
+    def step_rows(self, st: EngineState, mode: str,
+                  rows: np.ndarray) -> Tuple[EngineState, StepOutput]:
+        """Step only the rows where `rows` is True, all in `mode` (the
+        grouped per-mode path, one dispatch per distinct mode)."""
+        if mode not in MODE_IDS:
+            raise ValueError(mode)
+        return self.step_fused(
+            st, rows, np.full((self.batch,), MODE_IDS[mode], np.int8))
+
+    def _record_traffic_rows(self, modes: np.ndarray, rows: np.ndarray):
+        """One traffic record per mode stepped, billed for its own rows."""
         for mid in (MODE_FULL, MODE_REFRESH, MODE_PARTIAL):
-            sub = modes == mid
+            sub = rows & (modes == mid)
             if sub.any():
                 self._record_traffic(MODE_NAMES[mid], sub)
 

@@ -67,18 +67,24 @@ def update_layer_summaries(kmax_l, kmin_l, k_layer, start, end, block: int):
 
 class PageAllocator:
     """Host-side refcounted allocator over the shared block pool (the
-    subset the lock-step engine uses: allocation, release, and the
-    zero-copy partial pins).
+    reference's allocator without shards, residency tiers, fork or
+    copy-on-write: allocation, release, the zero-copy partial pins and
+    the occupancy counters the serving scheduler gates admission on).
 
     Page 0 is the reserved null page and never handed out, so
     ``capacity == num_pages - 1``.  ``_slot_pages[slot][j]`` is the
     physical page of logical block ``j``.  A pin is a real reference plus
     a ``_pin_ref`` count, so a pinned page can never be freed until the
-    slot's next refresh drops the pin."""
+    slot's next refresh drops the pin.  ``high_water`` is the peak of
+    ``committed`` pages and ``resident_high_water`` the peak of
+    ``in_use``; both move only in ``_track``, where pages leave the free
+    list, and survive ``reset``."""
 
     def __init__(self, num_pages: int):
         assert num_pages >= 2, "need at least one allocatable page"
         self.num_pages = num_pages
+        self.high_water = 0             # peak committed (live working set)
+        self.resident_high_water = 0    # peak physical (incl. idle cached)
         self.reset()
 
     def reset(self) -> None:
@@ -93,9 +99,33 @@ class PageAllocator:
     def capacity(self) -> int:
         return self.num_pages - 1
 
+    @property
+    def free(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        """Physical pages off the free list (incl. idle cached ones)."""
+        return self.capacity - self.free
+
+    @property
+    def idle(self) -> int:
+        """Pages held only by prefix-cache references (no live slot):
+        none until prefix sharing is ported, so every page in use is
+        committed."""
+        return 0
+
+    @property
+    def committed(self) -> int:
+        """Pages some live slot references (``high_water`` is its peak)."""
+        return self.in_use - self.idle
+
     def count(self, slot: int) -> int:
         """Pages currently held by `slot`."""
         return len(self._slot_pages.get(slot, ()))
+
+    def pages_of(self, slot: int) -> List[int]:
+        return list(self._slot_pages.get(slot, ()))
 
     def page_at(self, slot: int, block: int) -> int:
         """Physical page backing logical block `block` of `slot`."""
@@ -103,6 +133,10 @@ class PageAllocator:
 
     def refcount(self, page: int) -> int:
         return int(self._ref[page])
+
+    def _track(self) -> None:
+        self.high_water = max(self.high_water, self.committed)
+        self.resident_high_water = max(self.resident_high_water, self.in_use)
 
     def alloc(self, slot: int, n: int) -> np.ndarray:
         """Hand `n` fresh (refcount-1) pages to `slot`; raises on
@@ -114,6 +148,7 @@ class PageAllocator:
         for p in pages:
             assert self._ref[p] == 0, f"free page {p} had refcount"
             self._ref[p] = 1
+        self._track()
         self._slot_pages.setdefault(slot, []).extend(pages)
         return np.asarray(pages, np.int32)
 
@@ -138,7 +173,8 @@ class PageAllocator:
         return freed
 
     def free_slot(self, slot: int) -> List[int]:
-        """Release `slot`'s pins and references (idempotent)."""
+        """Release `slot`'s pins and references (idempotent).  Returns
+        the pages actually freed."""
         self.unpin_slot(slot)
         pages = self._slot_pages.pop(slot, [])
         return self.dec_ref([p for p in pages if p != 0])
@@ -244,3 +280,56 @@ def paged_update_all_summaries(kmax, kmin, pool, page_table, start, end,
     ops.paged_block_summaries(pool, page_table, start, end, n_touch, kmax,
                               kmin)
     return kmax, kmin
+
+
+# ---------------------------------------------------------------------------
+# per-slot (batch-row) surgery, in place: continuous batching writes one
+# slot's rows into the engine's static tensors.  Pool keys carry no batch
+# axis and pass through; a paged slot prefill already wrote its pages.
+# The reference's ``merge_cache_rows`` / ``merge_draft_rows`` (a select
+# over the whole pool after every masked step) have no counterpart: an
+# inactive row's writes land on the null page or past its length (see
+# ``SpecPVEngine.step_fused``), so the pools need no merge.
+# ---------------------------------------------------------------------------
+
+PAGED_POOL_KEYS = ("k", "v", "kmax", "kmin")
+DRAFT_POOL_KEYS = ("k", "v")
+CACHE_BATCH_AXIS = {"k": 1, "v": 1, "kmax": 1, "kmin": 1,
+                    "page_table": 0, "length": 0}
+
+
+def write_row(dst, src, slot: int, axis: int):
+    """Copy `src` (one row: a size-1 batch dim at `axis`) into batch row
+    `slot` of `dst`, in place."""
+    dst.narrow(axis, slot, 1).copy_(src)
+    return dst
+
+
+def select_rows(mask, new, old, axis: int):
+    """Per-row select: rows where ``mask`` [B] is True come from `new`."""
+    shape = [1] * new.dim()
+    shape[axis] = mask.shape[0]
+    return torch.where(mask.reshape(shape), new, old)
+
+
+def write_cache_slot(dst: dict, src: dict, slot: int) -> dict:
+    """Copy the single batch row of a batch-1 cache dict `src` into row
+    `slot` of `dst`, in place (paged: `src` carries the per-row keys
+    only and the pools pass through)."""
+    paged = "page_table" in dst
+    for name, v in src.items():
+        if paged and name in PAGED_POOL_KEYS:
+            continue
+        write_row(dst[name], v, slot, CACHE_BATCH_AXIS.get(name, 0))
+    return dst
+
+
+def write_draft_slot(dst: dict, src: dict, slot: int) -> dict:
+    """The draft cache's ``write_cache_slot`` (batch on axis 0 for every
+    key; paged pool keys pass through)."""
+    paged = "page_table" in dst
+    for name, v in src.items():
+        if paged and name in DRAFT_POOL_KEYS:
+            continue
+        write_row(dst[name], v, slot, 0)
+    return dst

@@ -490,12 +490,14 @@ def test_cuda_step_bodies_do_not_sync(cuda, models, name):
     eng = _engine(model, prompt_len, new, cuda_graphs=False)
     prompt = np.random.default_rng(1).integers(
         0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
-    eng.prefill(prompt)
+    st = eng.prefill(prompt)
     toks = torch.zeros((1, 256), dtype=torch.long, device=cuda)
-    bodies = [lambda: eng._prefill_body(toks)]
+    bodies = [lambda: eng._prefill_body(toks, st.cache, st.dcache,
+                                        eng._prev_feat, eng._logits_last)]
     if name == "rwkv6-3b":
         bodies.append(eng._state_body)
     else:
+        eng._rows.fill_(True)
         for mode, key in (("full", (True, False, False)),
                           ("refresh", (True, False, True)),
                           ("partial", (False, True, False))):
@@ -530,3 +532,169 @@ def test_cuda_split_counters_keep_their_address(cuda, models):
     c2 = tops._COUNTERS[c.device]
     assert c2 is c and c2.data_ptr() == ptr
     assert not bool(c.any())
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching serving: masked rows in the graph step
+# ---------------------------------------------------------------------------
+
+# 2-layer llama at full width, batch 3: one request under the partial
+# budget, two over it, a fourth that waits for a slot (pages for all)
+SERVE_CASE = ((2000, 20), (4700, 24), (5000, 16), (600, 24))
+SERVE_MAX_LEN = 5376
+
+
+def _serve(model, graphs, prefill_budget=None):
+    import numpy as np
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    cfg, spec, dcfg, params, dparams = model
+    rng = np.random.default_rng(5)
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams,
+                        ServingConfig(batch=3, max_len=SERVE_MAX_LEN,
+                                      prefill_budget=prefill_budget),
+                        device="cuda", cuda_graphs=graphs)
+    for i, (n, new) in enumerate(SERVE_CASE):
+        srv.submit(Request(request_id=f"r{i}", max_new_tokens=new,
+                           prompt=rng.integers(0, cfg.vocab_size, (n,))))
+    tops.reset_launch_counts()
+    srv.run()
+    torch.cuda.synchronize()
+    return srv, tops.launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prefill_budget", [None, 512])
+def test_cuda_serving_graphs_equal_eager(cuda, models, prefill_budget):
+    """The same trace served with graphs and eagerly: equal tokens per
+    request, launch counts and final static state, the K/V pools included
+    (page 0 left out: null-page writes land in no fixed order); one graph
+    per step variant that ran and one for the slot prefill chunk."""
+    import numpy as np
+    model = _get_model(models, "llama3.1-8b")
+    (eager, ec), (graph, gc) = (_serve(model, g, prefill_budget)
+                                for g in (False, True))
+    for rid, o in eager.outputs.items():
+        assert np.array_equal(graph.outputs[rid].tokens, o.tokens), rid
+        assert len(o.tokens) == dict(
+            (f"r{i}", new) for i, (_, new) in enumerate(SERVE_CASE))[rid]
+    assert gc == ec and all(ec[0][k] > 0 for k in (
+        "sparse_verify_attention", "paged_prefill_attention",
+        "retrieval_score", "block_summary"))
+    for k in ("mode_rows_full", "mode_rows_refresh", "mode_rows_partial"):
+        assert graph.stats[k] == eager.stats[k] > 0, k
+    ge = graph._continuous.engine
+    ee = eager._continuous.engine
+    assert set(ge._graphs) == set(ge.dispatch_keys) | {("slot_prefill", 256)}
+    for f in dataclasses.fields(ge.state):
+        g, e = getattr(ge.state, f.name), getattr(ee.state, f.name)
+        for k in (g if isinstance(g, dict) else [None]):
+            a, b = (g, e) if k is None else (g[k], e[k])
+            if k in ("k", "v"):
+                a, b = a[..., 1:, :, :, :], b[..., 1:, :, :, :]
+            assert torch.equal(a, b), (f.name, k)
+    assert ge.page_stats()["in_use"] == 0
+
+
+def _row_snapshot(eng, row):
+    """Row ``row``'s fields and the pool contents it owns (trunk pages over
+    [0, length) in every layer with their summaries, draft pages over
+    [0, draft length))."""
+    st = eng.state
+    bs = eng.spec.block_size
+    snap = {}
+    for f in dataclasses.fields(st):
+        v = getattr(st, f.name)
+        if isinstance(v, dict):
+            for k in ("page_table", "length"):
+                snap[f"{f.name}.{k}"] = v[k][row].clone()
+        elif f.name in ("pkv_k", "pkv_v", "pkv_pos"):
+            snap[f.name] = v[:, row].clone()
+        else:
+            snap[f.name] = v[row].clone()
+    for name, c in (("cache", st.cache), ("dcache", st.dcache)):
+        n = int(c["length"][row])
+        pages = c["page_table"][row, : -(-n // bs)].long()
+        kk = c["k"][:, pages] if name == "cache" else c["k"][pages]
+        vv = c["v"][:, pages] if name == "cache" else c["v"][pages]
+        flat = kk.shape[:-4] + (-1,) + kk.shape[-2:]
+        snap[f"{name}.k"] = kk.reshape(flat)[..., :n, :, :].clone()
+        snap[f"{name}.v"] = vv.reshape(flat)[..., :n, :, :].clone()
+        if name == "cache":
+            snap["kmax"] = c["kmax"][:, pages].clone()
+            snap["kmin"] = c["kmin"][:, pages].clone()
+    return snap
+
+
+@pytest.mark.cuda
+def test_cuda_masked_step_keeps_untouched_rows(cuda, models):
+    """Slot 0 over the partial budget (Refresh, then Partial), slot 1 under
+    it (Full), slot 2 empty; graph steps of one live row at a time: the
+    other live row and the empty slot keep every bit."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=3,
+                       max_len=SERVE_MAX_LEN, device="cuda")
+    rng = np.random.default_rng(6)
+    st = eng.empty_state()
+    st, _ = eng.prefill_into_slot(
+        st, 0, rng.integers(0, cfg.vocab_size, (4700,)), max_new_tokens=40)
+    st, _ = eng.prefill_into_slot(
+        st, 1, rng.integers(0, cfg.vocab_size, (2000,)), max_new_tokens=40)
+    live = np.array([True, True, False])
+    seen = set()
+    for rows in ([1, 0, 0], [0, 1, 0], [1, 0, 0], [1, 0, 0], [0, 1, 0],
+                 [1, 1, 0]):
+        rows = np.asarray(rows, bool)
+        modes = eng.modes_for_rows(st, live)
+        before = {r: _row_snapshot(eng, r) for r in range(3) if not rows[r]}
+        st, so = eng.step_fused(st, rows, modes)
+        seen.add(tuple(int(m) for m in modes[rows]))
+        for r, snap in before.items():
+            after = _row_snapshot(eng, r)
+            for k in snap:
+                assert torch.equal(after[k], snap[k]), (rows, r, k)
+    assert {(1,), (2,), (0,)} <= seen
+    assert eng._graphs                      # the steps replayed graphs
+
+
+@pytest.mark.cuda
+def test_cuda_serving_bodies_do_not_sync(cuda, models):
+    """The slot prefill chunk's body and each step variant's body with the
+    row mask [1, 1, 0] run eagerly under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import numpy as np
+    from repro_torch.core.engine import MODE_IDS, SpecPVEngine
+    cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=3,
+                       max_len=SERVE_MAX_LEN, device="cuda",
+                       cuda_graphs=False)
+    rng = np.random.default_rng(7)
+    st = eng.empty_state()
+    for slot, n in ((0, 4700), (1, 2000)):
+        st, _ = eng.prefill_into_slot(
+            st, slot, rng.integers(0, cfg.vocab_size, (n,)),
+            max_new_tokens=16)
+    toks = eng._chunk_buf(1, 256)
+    cache = dict(eng._slot_cache, **{n: st.cache[n]
+                                     for n in ("k", "v", "kmax", "kmin")})
+    dcache = dict(eng._slot_dcache, k=st.dcache["k"], v=st.dcache["v"])
+    runs = [(None, lambda: eng._prefill_body(
+        toks, cache, dcache, eng._slot_prev_feat, eng._slot_logits))]
+    for modes, key in ((["full"] * 2, (True, False, False)),
+                       (["refresh"] * 2, (True, False, True)),
+                       (["partial"] * 2, (False, True, False)),
+                       (["partial", "refresh"], (True, True, True))):
+        ops_in = torch.tensor([[MODE_IDS[m] for m in modes] + [0],
+                               [1, 1, 0]], dtype=torch.int8, device=cuda)
+        runs.append((ops_in, lambda key=key: eng._fused_body(*key)))
+    for ops_in, body in runs:
+        if ops_in is not None:
+            eng._tick_in.copy_(ops_in)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            body()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
