@@ -29,7 +29,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    bit for bit).  The serving path's inputs are checked too: a batch-4
    K1 call mixing Full rows, a routed Partial row and an empty slot, a
    batch-4 K3 call over ragged block counts, and a K4 call in which one
-   row has start = end and one is a neutral slot (bit for bit);
+   row has start = end and one is a neutral slot (bit for bit); and the
+   shared-prefix path's: K2 chunks (T=256 and a short T=128) whose rows'
+   page tables lead with the same 48 pages, and a batch-2 routed K1 call
+   whose rows select pages they share;
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
    an 8192-token prompt, 128 new tokens), twice: eagerly
@@ -63,7 +66,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    decoding);
 6. continuous-batching serving of llama3.1-8b at full width
    (``ServingEngine``, batch 4, a 161-page pool, six requests of 2048 to
-   8192 prompt tokens arriving together), with graphs and eagerly (equal
+   8192 prompt tokens arriving together, prefix sharing off so that the
+   cell stays the one of its first runs), with graphs and eagerly (equal
    tokens and launch counts), the launch counts set to 0 just before and
    read just after each run and held to what its steps' variants and
    prefill chunks imply; page stalls, mixed-mode ticks and a drained pool
@@ -72,9 +76,29 @@ Phases, in order (any failure raises and the script exits non-zero):
    bodies under the sync check; fp32 losslessness at 4 layers (batch 2,
    interleaved prefill: every request equals its solo ``generate`` and a
    blocking run);
-7. one JSON line with every kernel's numbers (each kernel's launches
-   from its own path's run, and ``serving_launches`` from phase 6's), the
-   card's name and power limit, and the final ``{"ok": true, ...}`` line.
+7. serving with shared prefixes (the traffic of ``bench_serving.py
+   --prefix-share``): llama3.1-8b at full width, batch 4, a 129-page
+   pool, nine requests arriving together, each one of two 6144-token
+   system prompts plus its own 500-token tail (the ninth repeats the
+   first), 64 new tokens each, served with graphs with copy-on-write
+   prefix sharing and without it in the same call: tokens/s, time to
+   first token, latency, prompt tokens skipped, prefix counters, page
+   stalls and high water, peak memory, launches held to the steps and
+   prefill chunks (short chunks included); sharing must skip at least
+   36864 prompt tokens, decode four requests at once where the unshared
+   run decodes at most two, stall less, and leave no committed page or
+   pin.  Then a fork at full width, with graphs and eagerly: the fork
+   gives the source's tokens, the source those of a run with no fork,
+   the pre-step copy-on-write copies pages in both pools bit for bit and
+   under the sync check, and no page the two rows still share is written
+   after the fork.  Then fp32 losslessness at 4 layers (batch 4, two
+   1536-token system prompts, six requests, interleaved prefill so that
+   paired cursors dedup): every request equals its solo ``generate`` and
+   its tokens with sharing off;
+8. one JSON line with every kernel's numbers (each kernel's launches
+   from its own path's run, ``serving_launches`` from phase 6's and
+   ``prefix_serving_launches`` from phase 7's shared run), the card's
+   name and power limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -456,7 +480,92 @@ def phase_kernels(torch, card, timer):
     results[k1]["max_abs_err"] = max(results[k1]["max_abs_err"], err_k1)
     results["retrieval_score"]["max_abs_err"] = max(
         results["retrieval_score"]["max_abs_err"], err_k3)
+    err_k1, err_k2 = _prefix_kernel_cases(torch, card, gen)
+    results[k1]["max_abs_err"] = max(results[k1]["max_abs_err"], err_k1)
+    results[k2]["max_abs_err"] = max(results[k2]["max_abs_err"], err_k2)
     return results
+
+
+def _shared_tables(torch, gen, np_, nb, shared):
+    """Two rows' page tables [2, nb] whose first `shared` entries are the
+    same pages (a prefix attached from the cache), the rest each row's
+    own."""
+    perm = (torch.randperm(np_ - 1, generator=gen, device="cuda") + 1).to(
+        torch.int32)
+    table = torch.stack([perm[:nb], perm[nb: 2 * nb]])
+    table[1, :shared] = table[0, :shared]
+    return table.contiguous()
+
+
+def _prefix_kernel_cases(torch, card, gen):
+    """The kernels' inputs on the shared-prefix path (phase 7), each
+    against its plain version in bf16 and fp32: K2 prefill chunks whose
+    two rows' page tables lead with the same 48 pages (a tail prefill
+    after an attach: T=256 at qoff 6400 and 6144, and the short T=128
+    chunk at qoff 6272 after a 49-block match), and a batch-2 routed K1
+    call (T=61, NS=35) whose rows select pages they share.  Returns the
+    largest abs error of (K1, K2)."""
+    from repro_torch.kernels import ops, ref
+    h, hk, dh, bs, nb = 32, 8, 128, 128, 66
+    dev = "cuda"
+    before = dict(ops.LAUNCHES)
+    np_ = 2 * nb + 1
+    errs = {"K1": 0.0, "K2": 0.0}
+
+    def check(label, kind, q, kf, vf, idx, vlen, qoff=None):
+        got = ops.block_attention(q, kf, vf, idx, vlen, bs, q_offset=qoff)
+        want = ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                           q_offset=qoff)
+        torch.cuda.synchronize()
+        out_g = got[2] / got[1].clamp(min=1e-30)[..., None]
+        out_w = want[2] / want[1].clamp(min=1e-30)[..., None]
+        for nm, g, w in (("m", got[0], want[0]), ("l", got[1], want[1]),
+                         ("acc", got[2], want[2]), ("out", out_g, out_w)):
+            _close(f"{label} {nm}", g, w)
+        errs[kind] = max(errs[kind], (out_g - out_w).abs().max().item(),
+                         (got[0] - want[0]).abs().max().item())
+
+    for dtype in (torch.bfloat16, torch.float32):
+        pk = torch.randn((np_, bs, hk, dh), generator=gen,
+                         device=dev).to(dtype)
+        pv = torch.randn((np_, bs, hk, dh), generator=gen,
+                         device=dev).to(dtype)
+        kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+        table = _shared_tables(torch, gen, np_, nb, 48)
+        for t, qoffs in ((256, (6400, 6144)), (128, (6272, 6272))):
+            qoff = torch.tensor(qoffs, dtype=torch.int32, device=dev)
+            idx, vlen = ops._page_walk(table, qoff + t, pk.shape)
+            q = torch.randn((2, t, h, dh), generator=gen,
+                            device=dev).to(dtype)
+            check(f"K2 shared prefix T={t} qoff={qoffs} {dtype}", "K2", q,
+                  kf, vf, idx, vlen, qoff)
+        # routed Partial rows over a 52-block context: most selected
+        # blocks lie in the shared 48, so the rows read the same pages
+        sel = torch.stack([torch.stack([
+            torch.randperm(51, generator=gen, device=dev)[:35]
+            for _ in range(hk)]) for _ in range(2)])       # [2, Hk, 35]
+        sel[..., -3:] = -1
+        sel[..., 30] = 51                              # ragged last block
+        used = sel >= 0
+        rows = torch.arange(2, device=dev)[:, None, None]
+        idx = torch.where(used, table[rows, sel.clamp(min=0)], 0)
+        vlen = torch.where(used, (6644 - sel * bs).clamp(0, bs), 0)
+        idx, vlen = idx.to(torch.int32).contiguous(), vlen.to(
+            torch.int32).contiguous()
+        both = (idx[0][..., None] == idx[1][..., None, :]) & (idx[0] > 0)[
+            ..., None]
+        if not bool(both.any()):
+            raise AssertionError("K1 shared case: the rows share no page")
+        q = torch.randn((2, 61, h, dh), generator=gen, device=dev).to(dtype)
+        check(f"K1 routed NS=35 over shared pages {dtype}", "K1", q, kf, vf,
+              idx, vlen)
+    say(card, f"kernel K2 over page tables leading with 48 shared pages "
+              f"(T=256 qoff 6400/6144, T=128 qoff 6272) bf16 and fp32: "
+              f"max_abs_err {errs['K2']:.3e}; K1 routed NS=35 T=61 over "
+              f"pages both rows select: max_abs_err {errs['K1']:.3e} (tol "
+              f"{TOL_KERNEL} of max |plain| on m, l, acc, out)")
+    ops.LAUNCHES.update(before)
+    return errs["K1"], errs["K2"]
 
 
 def _serving_kernel_cases(torch, card, gen):
@@ -1553,7 +1662,8 @@ def _serving_requests(prompts, reqs_spec):
 
 def phase_serving(torch, card):
     """Continuous batching of llama3.1-8b at full width (random bf16
-    weights, batch 4, a 161-page pool): the six ``SERVE_REQS`` with
+    weights, batch 4, a 161-page pool, no prefix sharing): the six
+    ``SERVE_REQS`` with
     graphs, then eagerly (equal tokens and launch counts), then each
     alone through batch-1 ``generate`` (matches reported: bf16 rows are
     not batch-invariant); a profiled window of decode ticks; the serving
@@ -1578,7 +1688,7 @@ def phase_serving(torch, card):
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
                for n, _ in SERVE_REQS]
     scfg = ServingConfig(batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
-                         num_pages=SERVE_PAGES)
+                         num_pages=SERVE_PAGES, prefix_cache=False)
     runs = {}
     for graphs in (True, False):
         label = RUN_LABEL[graphs]
@@ -1824,7 +1934,8 @@ def serving_lossless(torch, card, layers: int = 4, new: int = 32):
     for budget in (512, None):
         srv = ServingEngine(cfg, spec, dcfg, params, dparams,
                             ServingConfig(batch=2, max_len=max_len,
-                                          prefill_budget=budget),
+                                          prefill_budget=budget,
+                                          prefix_cache=False),
                             device="cuda")
         for r in _serving_requests(prompts, spec_reqs):
             srv.submit(r)
@@ -1854,14 +1965,475 @@ def serving_lossless(torch, card, layers: int = 4, new: int = 32):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: serving with shared prefixes
+# ---------------------------------------------------------------------------
+
+# the traffic of bench_serving.py --prefix-share: two 6144-token system
+# prompts (48 blocks), request i one of them (same-system pairs) plus its
+# own 500-token tail, so 6644 tokens: 51 full blocks and a 116-token tail
+# block; a ninth request repeats the first prompt.  By request_token_need
+# a request needs 54 pages cold and 6 fresh behind a 48-block match, so
+# 128 allocatable pages hold two requests without sharing and four with
+PREFIX_SYS, PREFIX_TAIL, PREFIX_N, PREFIX_NEW = 6144, 500, 8, 64
+PREFIX_PAGES = 129
+
+
+class _StampedTrace(list):
+    """A scheduler trace that also records the host time of each event:
+    a blocking admission appends its "admit" once its prefill finalised
+    and its first token reached the host."""
+
+    def __init__(self):
+        super().__init__()
+        self.t = []
+
+    def append(self, ev):
+        super().append(ev)
+        self.t.append(time.time())
+
+
+def _prefix_prompts(np, vocab, n_sys=PREFIX_SYS, tail=PREFIX_TAIL,
+                    n=PREFIX_N, seed=0, repeat=True):
+    rng = np.random.default_rng(seed)
+    systems = [rng.integers(0, vocab, (n_sys,)).astype(np.int64)
+               for _ in range(2)]
+    prompts = [np.concatenate([systems[(i // 2) % 2],
+                               rng.integers(0, vocab, (tail,))])
+               for i in range(n)]
+    if repeat:
+        prompts.append(prompts[0].copy())
+    return prompts
+
+
+def _timed(eng, name, log):
+    """Wrap the engine method `name` to add its host seconds and calls to
+    ``log[name]``."""
+    fn = getattr(eng, name)
+
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        s, n = log.get(name, (0.0, 0))
+        log[name] = (s + time.perf_counter() - t0, n + 1)
+        return out
+    setattr(eng, name, wrapped)
+
+
+def phase_prefix_serving(torch, card):
+    """The shared-prefix cell: the nine ``_prefix_prompts`` served at
+    batch 4 on a 129-page pool with graphs, with prefix sharing and
+    without, in this call (see the module docstring), then the fork check
+    and the fp32 losslessness.  Returns the shared run's numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import (ContinuousScheduler, Request,
+                                     ServingConfig, ServingEngine)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3.1-8b")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=0, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=1, device="cuda")
+    prompts = _prefix_prompts(np, cfg.vocab_size)
+    runs = {}
+    for share in (True, False):
+        label = "shared" if share else "unshared"
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+            batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
+            num_pages=PREFIX_PAGES, prefix_cache=share), device="cuda")
+        eng = srv._engine_for(4, paged=True)
+        cold = eng.pages_needed(len(prompts[0]), PREFIX_NEW)
+        cap = eng.page_capacity()
+        if not (2 * cold <= cap < 3 * cold
+                and 2 * cold + 2 * (cold - PREFIX_SYS // 128) <= cap):
+            raise AssertionError(f"pool of {PREFIX_PAGES} pages: two cold "
+                                 f"requests ({cold} pages each) must fit, a "
+                                 f"third must not, and two shared pairs must")
+        host = {}
+        for name in ("_register_blocks", "_register_tail",
+                     "_attach_tail_slot", "prepare_cow"):
+            _timed(eng, name, host)
+        sched = ContinuousScheduler(eng, prefill_chunk=256)
+        sched.trace = _StampedTrace()
+        srv._continuous = sched
+        now = time.time()
+        reqs = [Request(request_id=f"p{i}", prompt=p,
+                        max_new_tokens=PREFIX_NEW, arrival_s=now)
+                for i, p in enumerate(prompts)]
+        outs, wall, launches, peak = _serve(torch, srv, reqs)
+        st, ps, pre = srv.stats, eng.page_stats(), srv.prefix_stats()
+        for rid, o in outs.items():
+            if (o.finish_reason != "length" or len(o.tokens) != PREFIX_NEW
+                    or o.tokens.min() < 0 or o.tokens.max() >= cfg.vocab_size):
+                raise AssertionError(f"{label} {rid}: {o.finish_reason}, "
+                                     f"{len(o.tokens)} tokens")
+        want = _expected_serving_launches(eng, cfg.num_layers)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{label} launches {got} != {want} implied "
+                                 f"by {eng.dispatch_keys} and "
+                                 f"{eng.prefill_dispatches} prefill chunks")
+        if eng.cuda_graphs and set(eng._graphs) != {
+                ("slot_prefill", 256)} | set(eng.dispatch_keys):
+            raise AssertionError(f"{label} graphs "
+                                 f"{sorted(map(str, eng._graphs))}")
+        if ps["committed"] or ps["pinned_pages"] or (
+                ps["in_use"] != ps["idle"]):
+            raise AssertionError(f"{label}: pages committed or pinned after "
+                                 f"the run: {ps}")
+        idle_left = ps["idle"]
+        chunk_ms = (_short_chunk_cost(torch, card, eng, prompts) if share
+                    else None)
+        eng.empty_state()               # the engine's reset frees them
+        if eng.page_stats()["in_use"] or eng.page_stats()["draft_in_use"]:
+            raise AssertionError(f"{label}: pages left after the reset")
+        if not share and idle_left:
+            raise AssertionError("unshared run left idle pages")
+        ttft = {rid: t - now for (ev, rid, _), t in
+                zip(sched.trace, sched.trace.t) if ev == "admit"}
+        lat = np.array([o.latency_s for o in outs.values()])
+        tt = np.array(list(ttft.values()))
+        ntok = int(sum(len(o.tokens) for o in outs.values()))
+        runs[label] = dict(
+            toks={k: o.tokens for k, o in outs.items()}, launches=got,
+            wall_s=wall, tokens_per_s=ntok / wall, peak_gib=peak,
+            ttft_p50=float(np.percentile(tt, 50)),
+            ttft_p95=float(np.percentile(tt, 95)),
+            p50=float(np.percentile(lat, 50)),
+            p95=float(np.percentile(lat, 95)),
+            stats=dict(st), pages=ps, prefix=pre, idle_left=idle_left,
+            chunks=eng.prefill_dispatches, host=host, chunk_ms=chunk_ms,
+            capture_s=eng.capture_s)
+        say(card, f"prefix serving [{label}] llama3.1-8b batch 4, "
+                  f"{PREFIX_PAGES} pages, {len(prompts)} requests of "
+                  f"{len(prompts[0])} tokens (2 system prompts of "
+                  f"{PREFIX_SYS}): tokens {ntok} wall_s {wall:.3f} "
+                  f"tokens_per_s {ntok / wall:.2f} ttft_s p50 "
+                  f"{runs[label]['ttft_p50']:.3f} p95 "
+                  f"{runs[label]['ttft_p95']:.3f} latency_s p50 "
+                  f"{runs[label]['p50']:.3f} p95 {runs[label]['p95']:.3f} "
+                  f"steps {int(st['steps'])} prefill chunks "
+                  f"{eng.prefill_dispatches} peak decoding rows "
+                  f"{int(st['peak_active'])} page_stalls "
+                  f"{int(st.get('page_stalls', 0))} prefix_evictions "
+                  f"{int(st.get('prefix_evictions', 0))} peak_mem_gib "
+                  f"{peak:.2f} capture_s {eng.capture_s:.3f}")
+        say(card, f"prefix serving [{label}] prefix_stats {pre}")
+        say(card, f"prefix serving [{label}] pages: high_water "
+                  f"{ps['high_water']} resident_high_water "
+                  f"{ps['resident_high_water']} draft_high_water "
+                  f"{ps['draft_high_water']} draft resident "
+                  f"{eng._draft_alloc.resident_high_water}; idle cached "
+                  f"pages left {idle_left}, 0 after the engine's reset")
+        say(card, f"prefix serving [{label}] launches {got} == implied by "
+                  f"the steps' variants {eng.dispatch_keys} and "
+                  f"{eng.prefill_dispatches} chunks (short ones eager)")
+        say(card, f"prefix serving [{label}] host s, calls: " + ", ".join(
+            f"{k} {v[0]:.4f} {v[1]}" for k, v in sorted(host.items())))
+        del srv, sched, eng
+        torch.cuda.empty_cache()
+    sh, un = runs["shared"], runs["unshared"]
+    skipped = sh["prefix"]["prefill_tokens_skipped"]
+    if skipped < 6 * PREFIX_SYS:
+        raise AssertionError(f"sharing skipped {skipped} prompt tokens, "
+                             f"fewer than {6 * PREFIX_SYS}")
+    if not (sh["stats"]["peak_active"] == 4
+            and un["stats"]["peak_active"] <= 2):
+        raise AssertionError(f"decoding at once: shared "
+                             f"{sh['stats']['peak_active']}, unshared "
+                             f"{un['stats']['peak_active']}")
+    if not (sh["stats"].get("page_stalls", 0)
+            < un["stats"].get("page_stalls", 0)):
+        raise AssertionError("sharing did not stall less")
+    hit = sh["prefix"]["tail_hits"] > 0
+    same = sum(np.array_equal(sh["toks"][k], un["toks"][k])
+               for k in sh["toks"])
+    say(card, f"prefix serving: shared skipped {skipped} prompt tokens "
+              f"(>= {6 * PREFIX_SYS}), decoded 4 at once against "
+              f"{int(un['stats']['peak_active'])}, page stalls "
+              f"{int(sh['stats'].get('page_stalls', 0))} < "
+              f"{int(un['stats'].get('page_stalls', 0))}; request p8 (p0's "
+              f"prompt) was a "
+              f"{'tail-entry hit' if hit else 'chain match (the tail entry was evicted)'}; "
+              f"bf16 shared vs unshared tokens: {same} of {len(prompts)} "
+              f"requests equal (not asserted)")
+    sh["fork"] = fork_check(torch, card, cfg, spec, dcfg, params, dparams)
+    del params, dparams
+    torch.cuda.empty_cache()
+    prefix_lossless(torch, card)
+    say(card, f"prefix serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return sh
+
+
+def _short_chunk_cost(torch, card, eng, prompts):
+    """Wall ms (synchronised) of the slot-prefill chunks after a match, on
+    the shared run's drained engine: a prompt behind the 48-block system
+    prompt runs a replayed 256-token chunk, then its short 244-token last
+    chunk eagerly; one matching 49 blocks starts with a 128-token chunk
+    that ends inside a chunk, run eagerly."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    out = {}
+    for label, prompt in (
+            ("48-block match", np.concatenate(
+                [prompts[0][:PREFIX_SYS],
+                 rng.integers(0, eng.cfg.vocab_size, (PREFIX_TAIL,))])),
+            ("49-block match", np.concatenate(
+                [prompts[8][:49 * 128],
+                 rng.integers(0, eng.cfg.vocab_size, (PREFIX_TAIL,))]))):
+        st, cur = eng.prefill_begin_slot(eng.state, 0, prompt,
+                                         max_new_tokens=8)
+        if cur.n_match * 128 != cur.off or not cur.n_match:
+            raise AssertionError(f"{label}: matched {cur.n_match} blocks")
+        mine = []
+        while not cur.done:
+            n = cur.next_tokens
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = eng.prefill_step_into_slot(st, cur)
+            torch.cuda.synchronize()
+            key = f"{n} tokens ({'graph' if n == 256 else 'eager'})"
+            mine.append((key, (time.perf_counter() - t0) * 1e3))
+            out.setdefault(key, []).append(mine[-1][1])
+        say(card, f"prefix serving chunks after a {label}: " + ", ".join(
+            f"{k} {ms:.2f} ms" for k, ms in mine))
+        eng.reset_slot(st, 0)
+    return {k: float(np.median(v)) for k, v in out.items()}
+
+
+def _pool_pages(cache, pages, draft):
+    """A copy of the pool keys' bytes at `pages` (trunk: every layer)."""
+    import torch
+    idx = torch.as_tensor(pages, device=cache["k"].device)
+    keys = ("k", "v") if draft else ("k", "v", "kmax", "kmin")
+    return {k: (cache[k][idx] if draft else cache[k][:, idx]).clone()
+            for k in keys}
+
+
+def fork_check(torch, card, cfg, spec, dcfg, params, dparams,
+               prompt_len: int = 4700, new: int = 40):
+    """Fork at full width, with graphs and eagerly: admit one request of
+    `prompt_len` tokens (over the partial budget) into slot 0 of a
+    batch-2 engine, step it three ticks, ``fork_slot`` it into slot 1,
+    copy-on-write by hand (``prepare_cow``, under the sync check on the
+    eager engine, held bit for bit to a plain per-page copy), then step
+    both rows four ticks.  The fork's tokens equal the source's, the
+    source's equal a run of the same engine with no fork, both pools got
+    copies, and every page the rows still share keeps its bytes of the
+    fork point.  Returns the host ms and device launches of one copying
+    ``prepare_cow``."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    rng = np.random.default_rng(9)
+    prompt = rng.integers(0, cfg.vocab_size, (prompt_len,))
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    toks_by = {}
+    cost = {}
+    for graphs in (True, False):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
+                           max_len=max_len, device="cuda",
+                           cuda_graphs=graphs)
+        al, dal = eng._page_alloc, eng._draft_alloc
+
+        def run(fork):
+            st = eng.empty_state()
+            st, first = eng.prefill_into_slot(st, 0, prompt,
+                                              max_new_tokens=new)
+            toks = {0: [first], 1: []}
+
+            def step(rows):
+                nonlocal st
+                rows = np.asarray(rows, bool)
+                st, so = eng.step_fused(st, rows, eng.modes_for_rows(st, rows))
+                for i in np.nonzero(rows)[0]:
+                    toks[int(i)].extend(int(x) for x in
+                                        so.tokens[i, :so.counts[i]])
+            for _ in range(3):
+                step([1, 0])
+            if not fork:
+                for _ in range(4):
+                    step([1, 0])
+                return toks, None
+            st = eng.fork_slot(st, 0, 1)
+            at = len(toks[0])
+            pages, dpages = al.pages_of(0), dal.pages_of(0)
+            snap = (_pool_pages(st.cache, pages, False),
+                    _pool_pages(st.dcache, dpages, True))
+            # the copy-on-write of the next tick, by hand: the copied pages
+            # must hold the bytes of their sources, every other page keeps
+            # its own
+            before = ({k: st.cache[k].clone() for k in
+                       ("k", "v", "kmax", "kmin")},
+                      {k: st.dcache[k].clone() for k in ("k", "v")})
+            pt0 = (st.cache["page_table"].clone(),
+                   st.dcache["page_table"].clone())
+            torch.cuda.synchronize()
+            if graphs:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    eng.prepare_cow(st, np.array([True, True]))
+                    torch.cuda.synchronize()
+                cost["prepare_cow_device_launches"] = _launch_counts(prof)[0]
+            else:
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    eng.prepare_cow(st, np.array([True, True]))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                cost["prepare_cow_ms"] = (time.perf_counter() - t0) * 1e3
+            for old, pt, draft in ((before[0], pt0[0], False),
+                                   (before[1], pt0[1], True)):
+                cache = st.dcache if draft else st.cache
+                moved = (cache["page_table"] != pt).nonzero().tolist()
+                if not moved:
+                    raise AssertionError(f"prepare_cow copied no "
+                                         f"{'draft' if draft else 'trunk'} "
+                                         f"page")
+                news = {int(cache["page_table"][r, c]): int(pt[r, c])
+                        for r, c in moved}
+                for k, a in old.items():
+                    want = a.clone()
+                    for new_p, old_p in news.items():
+                        if draft:
+                            want[new_p] = a[old_p]
+                        else:
+                            want[:, new_p] = a[:, old_p]
+                    if not torch.equal(cache[k], want):
+                        raise AssertionError(f"prepare_cow {k}: not the "
+                                             f"plain per-page copy")
+            del before
+            for _ in range(4):
+                step([1, 1])
+            if toks[1] != toks[0][at:]:
+                raise AssertionError(f"fork tokens {toks[1]} != source "
+                                     f"{toks[0][at:]}")
+            for cur, old, draft, al_ in ((st.cache, snap[0], False, al),
+                                         (st.dcache, snap[1], True, dal)):
+                src_pages = (dpages if draft else pages)
+                both = set(al_.pages_of(0)) & set(al_.pages_of(1))
+                now = _pool_pages(cur, sorted(both), draft)
+                pos = [src_pages.index(p) for p in sorted(both)]
+                for k, v in now.items():
+                    was = old[k][pos] if draft else old[k][:, pos]
+                    if not torch.equal(v, was):
+                        raise AssertionError(f"a page both rows share was "
+                                             f"written after the fork ({k})")
+            copies = dict(eng.cow_copies)
+            if not (copies["trunk"] and copies["draft"]):
+                raise AssertionError(f"copy-on-write copies {copies}")
+            left = tuple(len(set(a.pages_of(0)) & set(a.pages_of(1)))
+                         for a in (al, dal))
+            return toks, (copies, left)
+        forked, info = run(True)
+        alone, _ = run(False)
+        if forked[0] != alone[0]:
+            raise AssertionError("the source's tokens differ from a run "
+                                 "with no fork")
+        toks_by[graphs] = forked
+        say(card, f"fork [{RUN_LABEL[graphs]}] llama3.1-8b batch 2, "
+                  f"{prompt_len}-token prompt: fork tokens == source tokens "
+                  f"over 4 ticks, source == no-fork run, copy-on-write pages "
+                  f"{info[0]} (bit-equal to a plain per-page copy), the "
+                  f"{info[1][0]} trunk and {info[1][1]} draft pages still "
+                  f"shared kept their bytes")
+        del eng
+        torch.cuda.empty_cache()
+    if toks_by[True] != toks_by[False]:
+        raise AssertionError("fork: graph tokens differ from eager")
+    say(card, f"fork: graph tokens == eager tokens; one copying prepare_cow "
+              f"(both rows): {cost['prepare_cow_device_launches']} device "
+              f"launches in the profiler (graphs engine); "
+              f"{cost['prepare_cow_ms']:.3f} ms until synchronised, no sync "
+              f"under set_sync_debug_mode('error') (eager engine)")
+    return cost
+
+
+def prefix_lossless(torch, card, layers: int = 4, new: int = 32):
+    """fp32 at full width, ``layers`` layers, with graphs: batch 4, two
+    1536-token system prompts (12 blocks) and six requests with 116-token
+    tails, interleaved prefill (``prefill_budget=512``) so that paired
+    cold cursors race and dedup: every request equals its solo batch-1
+    ``generate`` and its tokens with sharing off."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3.1-8b").replace(num_layers=layers,
+                                            dtype="float32",
+                                            param_dtype="float32")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=2, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=3, device="cuda")
+    t0 = time.perf_counter()
+    prompts = _prefix_prompts(np, cfg.vocab_size, n_sys=1536, tail=116, n=6,
+                              seed=3, repeat=False)
+    max_len = 2048
+    toks, pre = {}, {}
+    host = {}
+    for share in (True, False):
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+            batch=4, max_len=max_len, prefill_budget=512,
+            prefix_cache=share), device="cuda")
+        if share:
+            eng = srv._engine_for(4, paged=True)
+            for name in ("_register_blocks", "_dedupe_block"):
+                _timed(eng, name, host)
+        for r in _serving_requests(prompts, [(0, new)] * len(prompts)):
+            srv.submit(r)
+        srv.run()
+        toks[share] = {k: o.tokens for k, o in srv.outputs.items()}
+        pre[share] = srv.prefix_stats()
+        del srv
+    if not (pre[True]["dedups"] > 0 and pre[True]["blocks_matched"] > 0):
+        raise AssertionError(f"fp32 shared run: {pre[True]}")
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=max_len, device="cuda")
+    for i, p in enumerate(prompts):
+        t, _ = solo.generate(p[None], new)
+        for share in (True, False):
+            if not np.array_equal(toks[share][f"r{i}"], t[0]):
+                raise AssertionError(
+                    f"fp32 serving r{i} (sharing {'on' if share else 'off'})"
+                    f" differs from solo generate:\n{toks[share][f'r{i}']}"
+                    f"\n{t[0]}")
+    say(card, f"prefix lossless llama3.1-8b x{layers} layers fp32, graphs, "
+              f"batch 4, 6 requests of {len(prompts[0])} tokens over two "
+              f"1536-token system prompts, interleaved (prefill_budget 512): "
+              f"sharing on == sharing off == solo generate for every request "
+              f"over {new} tokens (dedups {pre[True]['dedups']}, "
+              f"blocks_matched {pre[True]['blocks_matched']}, skipped "
+              f"{pre[True]['prefill_tokens_skipped']}; host s, calls: "
+              + ", ".join(f"{k} {v[0]:.4f} {v[1]}"
+                          for k, v in sorted(host.items()))
+              + f"); {time.perf_counter() - t0:.1f} s")
+    del params, dparams, solo
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6",
+    ap.add_argument("--phases", default="2,3,4,5,6,7",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
-                         "generate and losslessness), 6 (llama serving); "
-                         "1 and 7 always run")
+                         "generate and losslessness), 6 (llama serving), 7 "
+                         "(llama serving with shared prefixes); 1 and 8 "
+                         "always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -1901,6 +2473,8 @@ def main(argv=None) -> int:
             else {k: 0 for k in ops.KERNELS})
     serving = (phase_serving(torch, card) if 6 in phases
                else {"launches": {}})
+    prefix = (phase_prefix_serving(torch, card) if 7 in phases
+              else {"launches": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -1910,6 +2484,8 @@ def main(argv=None) -> int:
                          launches=int(path.get(name, 0)),
                          serving_launches=int(
                              serving["launches"].get(name, 0)),
+                         prefix_serving_launches=int(
+                             prefix["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),

@@ -38,6 +38,14 @@ table (a 256-token chunk replays one batch-1 graph), so the serving
 scheduler can interleave chunks with decode steps; ``prefill_into_slot``
 runs them back to back.
 
+Prefix sharing (paged engines, ``prefix_cache=True``): an admission
+attaches the prompt's cached leading blocks by page-table reference and
+prefills the rest, registering each block as its chunk finishes (the
+boundary features stay on the card); a prompt registered whole boots
+from its tail entry with no prefill.  ``fork_slot`` shares a live slot's
+pages with another slot, and ``prepare_cow`` copies, before each step,
+any still-shared block a forked row is about to write.
+
 State architectures (RWKV-6, ``paged=False``) have no KV cache, so
 partial verification does not apply: each step (mode ``"state"``,
 ``_step_state``) drafts a chain, verifies it with a read-only pass,
@@ -47,7 +55,7 @@ token and the accepted prefix.
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, field, fields
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -110,15 +118,20 @@ class StepOutput:
 
 @dataclass
 class PrefillCursor:
-    """Resumable prefill of one slot (the reference's cursor, its paged
-    fields without the prefix-sharing and sampling ones).
+    """Resumable prefill of one slot (the reference's cursor without the
+    sampling fields).
 
     ``off`` is the absolute offset of the next chunk; chunk boundaries
     stay absolute multiples of ``chunk``, so an interleaved prefill runs
     the chunk schedule of a blocking one.  ``row_cache`` / ``row_dcache``
     hold the slot's page-table row and length on the device (batch 1);
     the pools live in the engine's state.  ``pt_host`` / ``dpt_host`` are
-    the page plan allocated at begin, decode reserve included."""
+    the page plan allocated at begin, decode reserve included; the
+    prefix-sharing fields record the blocks attached from the cache
+    (``n_match``), the registrable full blocks (``n_full``), their chain
+    keys and the entries registered so far (re-stamped as a chain).  A
+    whole-prompt tail-entry hit is born exhausted: finalise boots from
+    ``boot_token`` with no prefill."""
     slot: int
     prompt: np.ndarray
     chunk: int
@@ -131,6 +144,11 @@ class PrefillCursor:
     pt_host: Optional[np.ndarray] = None
     dpt_host: Optional[np.ndarray] = None
     total_pages: int = 0
+    n_match: int = 0                    # prefix-cache blocks attached
+    n_full: int = 0                     # full prompt blocks (registrable)
+    chain_keys: List[bytes] = field(default_factory=list)
+    chain_entries: List[Any] = field(default_factory=list)
+    boot_token: Optional[int] = None    # tail-entry hit: stored token
 
     @property
     def done(self) -> bool:
@@ -210,7 +228,7 @@ class SpecPVEngine:
                  paged: bool = True,
                  num_pages: Optional[int] = None,
                  num_draft_pages: Optional[int] = None,
-                 prefix_cache: bool = False,
+                 prefix_cache: bool = True,
                  tiered: bool = False,
                  zero_copy: bool = True,
                  mesh=None,
@@ -222,6 +240,12 @@ class SpecPVEngine:
         ``paged=False`` and chain drafts, without partial verification.
         Both are greedy (``temperature=0``); every other setting raises
         NotImplementedError naming the ROADMAP item that will bring it.
+        Paged engines share block-aligned prompt prefixes copy-on-write
+        across slot admissions (``prefix_cache=True``, the default here
+        as in the reference): ``prefill_begin_slot`` attaches cached
+        leading blocks by page-table reference and registers freshly
+        prefilled blocks back; idle cached prefixes are evicted LRU under
+        pool pressure.
         ``num_pages`` / ``num_draft_pages`` size the trunk and draft
         pools (default: every row's whole ``max_len``, as lock-step
         ``generate`` needs; the serving scheduler allocates per request
@@ -245,8 +269,6 @@ class SpecPVEngine:
             _unsupported("tiered KV residency", "Tiered KV")
         if mesh is not None:
             _unsupported("mesh sharding", "Multi-GPU")
-        if prefix_cache:
-            _unsupported("prefix sharing", "Serving")
         if self.is_attn and not spec.use_pallas:
             _unsupported("the paged cache without the kernel route "
                          "(use_pallas=False)", "contiguous SpecPV engine")
@@ -272,6 +294,16 @@ class SpecPVEngine:
         self._draft_alloc = (kvc.PageAllocator(self.num_draft_pages)
                              if self.is_attn else None)
         self.data_shards = 1            # no mesh: one page pool
+        self._prefix = (kvc.PrefixCache(spec.block_size)
+                        if self.is_attn and prefix_cache else None)
+        # slots with fork-derived sharing still alive: only these can
+        # hold a shared page inside a write window (prompt blocks sit
+        # below every window and a tail attach copies its block), so the
+        # pre-step copy-on-write scans only this set
+        self._forked_slots: set = set()
+        self._prefill_skipped_tokens = 0
+        self._prefix_dedups = 0         # duplicate blocks collapsed
+        self.cow_copies = {"trunk": 0, "draft": 0}   # pre-step CoW pages
         self.partial_enabled = bool(partial_verification) and self.is_attn
         if self.partial_enabled and not zero_copy:
             _unsupported("the gathered partial cache (zero_copy=False)",
@@ -379,6 +411,12 @@ class SpecPVEngine:
                                            device=dev)
         self._slot_logits = torch.zeros((1, cfg.vocab_size),
                                         dtype=torch.float32, device=dev)
+        # with prefix sharing the slot chunk also leaves the fused feature
+        # at each block boundary inside it (row r: the chunk's position
+        # (r + 1) * block - 1), which registration clones on the card
+        self._slot_block_feats = (
+            torch.zeros((nb, 3 * cfg.d_model), dtype=dt, device=dev)
+            if self._prefix is not None else None)
         # the step's row operands, one host copy per step: the per-row
         # modes and the mask of the rows that step
         self._tick_in = ints(2, b, dtype=torch.int8)
@@ -393,6 +431,9 @@ class SpecPVEngine:
         # mode automaton reads these, never the device
         self._host_pending_len = np.ones((b,), np.int64)
         self._host_seq_len = np.zeros((b,), np.int64)
+        # and of the draft-extend lengths: with the two above they give
+        # each row's commit and draft-extend window starts (prepare_cow)
+        self._host_ext_len = np.ones((b,), np.int64)
         self._neutral_sub: Optional[EngineState] = None
         pdev = self.params["embed"].device
         tr.tree_tensors(self.tree, pdev)
@@ -466,6 +507,8 @@ class SpecPVEngine:
         self._zero_static()
         st = self.state
         if self.is_attn:
+            self._clear_prefix()        # a reset pool invalidates entries
+            self._forked_slots.clear()
             self._fill_table(st.cache["page_table"], self._page_alloc)
             self._fill_table(st.dcache["page_table"], self._draft_alloc)
         s0 = prompt.shape[1]
@@ -480,6 +523,7 @@ class SpecPVEngine:
             _copy_into(getattr(st, f.name), getattr(sub, f.name))
         self._host_pending_len = np.ones((self.batch,), np.int64)
         self._host_seq_len = np.full((self.batch,), s0 + 1, np.int64)
+        self._host_ext_len = np.ones((self.batch,), np.int64)
         return st
 
     def _prefill_chunks(self, toks_t, off: int, end: int, chunk: int,
@@ -498,11 +542,13 @@ class SpecPVEngine:
             off = nxt
 
     def _prefill_body(self, toks, cache, dcache, prev_feat,
-                      logits_last) -> None:
+                      logits_last, block_feats=None) -> None:
         """One prefill chunk (trunk, then draft extend) into static
         buffers: the caches (their pools written in place, the lengths
         copied), the boundary feature carried to the next chunk and the
-        last token's logits."""
+        last token's logits; with ``block_feats`` (batch 1, a chunk that
+        starts on a block boundary) also the fused feature at each block
+        boundary inside the chunk, one row per block."""
         cfg = self.cfg
         logits, feats, cache_n = api.prefill(cfg, self.params, toks, cache,
                                              spec=self.spec)
@@ -514,18 +560,27 @@ class SpecPVEngine:
                                          valid)
         prev_feat.copy_(fused[:, -1])
         logits_last.copy_(logits)
+        if block_feats is not None:
+            bs = self.spec.block_size
+            rows = fused[0, bs - 1::bs]
+            if rows.shape[0]:
+                block_feats[: rows.shape[0]].copy_(rows)
         _copy_into(cache, cache_n)
         _copy_into(dcache, dcache_n)
 
     def _boot_state(self, cache: Dict, dcache: Dict, logits_last, prev_feat,
-                    s0: int) -> EngineState:
-        """Post-prefill state of ``b`` rows from the greedy first token:
-        the pending and extend queues seeded, the tail buffer and routed
-        selection empty.  Shared by the lock-step prefill and the slot
-        finalise, so both build the same automaton state."""
+                    s0: int, bonus0: Optional[int] = None) -> EngineState:
+        """Post-prefill state of ``b`` rows from the greedy first token
+        (the argmax of ``logits_last``, or ``bonus0`` when a tail entry
+        stored it): the pending and extend queues seeded, the tail buffer
+        and routed selection empty.  Shared by the lock-step prefill and
+        the slot finalise, so both build the same automaton state."""
         cfg, dev = self.cfg, self.device
         b = prev_feat.shape[0]
-        bonus0 = torch.argmax(logits_last, dim=-1)
+        if bonus0 is None:
+            bonus0 = torch.argmax(logits_last, dim=-1)
+        else:
+            bonus0 = torch.full((b,), bonus0, dtype=torch.long, device=dev)
         pending = torch.zeros((b, self.pmax), dtype=torch.long, device=dev)
         pending[:, 0] = bonus0
         ext_tokens = torch.zeros((b, self.emax), dtype=torch.long, device=dev)
@@ -583,15 +638,22 @@ class SpecPVEngine:
         self._pkv_active = False
         self._pkv_active_rows[:] = False
         self.final_state = None
+        self._clear_prefix()
         self._page_alloc.reset()
         self._draft_alloc.reset()
+        self._forked_slots.clear()
         self._zero_static()
         st = self.state
         for t in (st.pending_len, st.seq_len, st.ext_len):
             t.fill_(1)
         self._host_pending_len = np.ones((self.batch,), np.int64)
         self._host_seq_len = np.ones((self.batch,), np.int64)
+        self._host_ext_len = np.ones((self.batch,), np.int64)
         return st
+
+    def _clear_prefix(self) -> None:
+        if self._prefix is not None:
+            self._prefix.clear(self._page_alloc, self._draft_alloc)
 
     def clear_slot_rows(self, st: EngineState, slot: int) -> EngineState:
         """Write the neutral row into a slot's device rows (page tables ->
@@ -605,30 +667,55 @@ class SpecPVEngine:
         self._pkv_active_rows[slot] = False
         self._host_pending_len[slot] = 1
         self._host_seq_len[slot] = 1
+        self._host_ext_len[slot] = 1
         return write_state_slot(st, self._neutral_sub, slot)
 
     def reset_slot(self, st: EngineState, slot: int) -> EngineState:
-        """Evict a slot: release its page references and pins, then
-        neutralise its rows (pool contents are left stale; nothing reads
-        them once unmapped)."""
+        """Evict a slot: release its page references and pins (pages
+        still shared with another slot or held by the prefix cache stay
+        resident), then neutralise its rows (pool contents are left
+        stale; nothing reads them once unmapped)."""
         self.release_slot_pages(slot)
         return self.clear_slot_rows(st, slot)
 
     # ---- page accounting (host side) ---------------------------------
     def pages_needed(self, prompt_len: int, max_new_tokens: int) -> int:
-        """Pages a request needs end to end (see request_token_need)."""
+        """Pages a request needs end to end (see request_token_need),
+        assuming a cold prefix cache."""
         toks = request_token_need(prompt_len, max_new_tokens, self.pmax,
                                   self.emax)
         return min(-(-toks // self.spec.block_size), self._nb_seq)
+
+    def prefix_match_blocks(self, prompt: np.ndarray,
+                            touch: bool = False) -> int:
+        """Probe: the leading full blocks of `prompt` the prefix cache can
+        serve now (capped one block short of the prompt, so the tail
+        prefill is never empty).  ``touch`` re-stamps the chain MRU."""
+        if self._prefix is None:
+            return 0
+        bs = self.spec.block_size
+        return len(self._prefix.match(np.asarray(prompt),
+                                      (len(prompt) - 1) // bs,
+                                      touch=touch, count=False))
 
     def pages_needed_shared(self, prompt: np.ndarray, max_new_tokens: int,
                             touch: bool = False,
                             shard: Optional[int] = None,
                             temperature: Optional[float] = None) -> int:
-        """Fresh pages the request needs now: ``pages_needed``, since no
-        prefix cache can discount blocks (prefix sharing is ROADMAP.md
-        queue 1, 'Serving')."""
-        return self.pages_needed(len(prompt), max_new_tokens)
+        """Fresh pages the request needs now: the cold count less the
+        blocks the prefix cache holds (they attach by reference).  A
+        whole-prompt tail-entry hit discounts every full block and keeps
+        the tail block billed (its attach copies it into a fresh page).
+        Tail discounts apply to greedy requests only (the entry stores
+        the greedy first token); the port serves no others."""
+        temp = 0.0 if temperature is None else float(temperature)
+        need = self.pages_needed(len(prompt), max_new_tokens)
+        if self._prefix is not None and temp == 0.0:
+            tail = self._prefix.match_tail(np.asarray(prompt), touch=touch,
+                                           count=False)
+            if tail is not None:
+                return max(need - len(prompt) // self.spec.block_size, 0)
+        return max(need - self.prefix_match_blocks(prompt, touch=touch), 0)
 
     def free_pages(self, shard: Optional[int] = None) -> int:
         """Fresh pages available for admission: the tighter of the trunk
@@ -641,9 +728,11 @@ class SpecPVEngine:
         return self._page_alloc.capacity if self.paged else 1 << 30
 
     def reclaim_pages(self, n: int) -> int:
-        """Pages freed by evicting idle cached prefixes: none without a
-        prefix cache."""
-        return 0
+        """LRU-evict idle cached prefixes until `n` trunk pages are freed
+        (or no unreferenced entry is left).  Returns trunk pages freed."""
+        if self._prefix is None or n <= 0:
+            return 0
+        return self._prefix.evict_lru(self._page_alloc, self._draft_alloc, n)
 
     def shard_of_slot(self, slot: int) -> int:
         return 0
@@ -664,6 +753,7 @@ class SpecPVEngine:
         if self.paged:
             self._page_alloc.free_slot(slot)
             self._draft_alloc.free_slot(slot)
+            self._forked_slots.discard(slot)
 
     def reset_high_water(self) -> None:
         """Zero the page high-water marks (benchmark warm-up)."""
@@ -687,6 +777,71 @@ class SpecPVEngine:
                     block_size=self.spec.block_size,
                     pinned_pages=al.pinned_pages)
 
+    def reset_prefix_stats(self) -> None:
+        """Zero the prefix-cache hit and reuse counters (benchmark
+        warm-up); the cached entries stay."""
+        self._prefill_skipped_tokens = 0
+        self._prefix_dedups = 0
+        if self._prefix is not None:
+            self._prefix.reset_stats()
+
+    def prefix_stats(self) -> Dict[str, int]:
+        """Prefix-cache counters ({} when sharing is off): hit and seen
+        blocks, tail hits, prompt tokens whose prefill was skipped,
+        duplicate blocks collapsed, entries resident."""
+        if self._prefix is None:
+            return {}
+        out = self._prefix.stats()
+        out["prefill_tokens_skipped"] = self._prefill_skipped_tokens
+        out["dedups"] = self._prefix_dedups
+        return out
+
+    def save_prefix_state(self, st: EngineState) -> Optional[dict]:
+        """Host snapshot of the prefix cache with its pages' bytes (CPU
+        tensors), for ``restore_prefix_state`` after an engine rebuild.
+        None when sharing is off."""
+        if self._prefix is None:
+            return None
+        self._own(st)
+
+        def page_bytes(page: int, draft_page: int) -> dict:
+            return {
+                "trunk": {k: st.cache[k][:, page].to("cpu", copy=True)
+                          for k in kvc.PAGED_POOL_KEYS},
+                "draft": {k: st.dcache[k][draft_page].to("cpu", copy=True)
+                          for k in kvc.DRAFT_POOL_KEYS}}
+        return self._prefix.save_state(page_bytes)
+
+    def restore_prefix_state(self, st: EngineState, snap: Optional[dict],
+                             shard: int = 0) -> Tuple[EngineState, int]:
+        """Re-seat a ``save_prefix_state`` snapshot: each entry whose chain
+        hash re-verifies (``PrefixCache.load_state``) gets cache-only pages
+        in both pools and its bytes written back.  Returns (state, entries
+        restored)."""
+        if self._prefix is None or snap is None:
+            return st, 0
+        self._own(st)
+        al, dal = self._page_alloc, self._draft_alloc
+
+        def seat_pages(d: dict, sh: int) -> Tuple[int, int]:
+            (page,) = al.alloc_cache(1, sh)
+            try:
+                (dpage,) = dal.alloc_cache(1, sh)
+            except RuntimeError:
+                al.dec_ref([page], cache=True)
+                raise
+            for k, blob in d["pages"]["trunk"].items():
+                st.cache[k][:, page].copy_(blob)
+            for k, blob in d["pages"]["draft"].items():
+                st.dcache[k][dpage].copy_(blob)
+            return page, dpage
+
+        def feat(f):
+            return torch.as_tensor(f).to(device=self.device,
+                                         dtype=cm.dt(self.cfg.dtype))
+        return st, self._prefix.load_state(snap, al, dal, seat_pages,
+                                           shard=shard, feat=feat)
+
     # ---- resumable prefill into one slot -----------------------------
     def prefill_begin_slot(self, st: EngineState, slot: int,
                            prompt: np.ndarray, chunk: int = 256,
@@ -697,12 +852,18 @@ class SpecPVEngine:
                            ) -> Tuple[EngineState, PrefillCursor]:
         """Open a resumable prefill of `prompt` into batch row `slot`;
         drive it with ``prefill_step_into_slot`` (one chunk per call) and
-        commit it with ``prefill_finalize_slot``.  The whole page plan,
+        commit it with ``prefill_finalize_slot``.  The prefix cache is
+        consulted first: a whole-prompt tail-entry hit attaches the whole
+        prompt and skips prefill (``_attach_tail_slot``); otherwise the
+        matched leading blocks attach by page-table reference (their
+        prefill is skipped) before any reclaim, so LRU eviction for the
+        fresh remainder cannot take them.  The whole page plan, fresh
         prompt blocks plus the decode reserve sized by ``max_new_tokens``
         (default: the rest of max_len), is allocated here, so later steps
-        never fail on pool exhaustion; raises RuntimeError when the pools
-        cannot cover it.  The slot's device rows are neutralised: decode
-        steps may run between chunks."""
+        never fail on pool exhaustion; raises RuntimeError, with the
+        attach rolled back, when the pools cannot cover it even after LRU
+        eviction.  The slot's device rows are neutralised: decode steps
+        may run between chunks."""
         self._slots_only()
         self._own(st)
         if extra is not None:
@@ -711,42 +872,182 @@ class SpecPVEngine:
         if (temperature or 0.0) != 0.0 or draft != "tree":
             _unsupported("sampled or chain requests", "Sampling")
         prompt = np.asarray(prompt)
+        bs = self.spec.block_size
+        if self._prefix is not None and chunk % bs:
+            raise ValueError(f"prefix sharing registers whole blocks per "
+                             f"chunk: chunk {chunk} is not a multiple of "
+                             f"the block size {bs}")
         al, dal = self._page_alloc, self._draft_alloc
         al.free_slot(slot)                      # stale pages, if any
         dal.free_slot(slot)
+        self._forked_slots.discard(slot)        # a fresh request, no fork
         budget = (max_new_tokens if max_new_tokens is not None
                   else max(self.max_len - len(prompt), 0))
         total = self.pages_needed(len(prompt), budget)
-        if total > self.free_pages():
-            raise RuntimeError(
-                f"slot {slot}: request needs {total} fresh pages, "
-                f"{al.free}/{dal.free} free (trunk/draft) of {al.capacity}")
+        tail = (self._prefix.match_tail(prompt)
+                if self._prefix is not None else None)
+        if tail is not None:
+            return self._attach_tail_slot(st, slot, prompt, chunk, total,
+                                          tail)
+        entries = (self._prefix.match(prompt, (len(prompt) - 1) // bs)
+                   if self._prefix is not None else [])
+        n_match = len(entries)
         pt_host = np.zeros((self._nb_seq,), np.int32)
         dpt_host = np.zeros((self._nb_seq,), np.int32)
-        pt_host[:total] = al.alloc(slot, total)
-        dpt_host[:total] = dal.alloc(slot, total)
         dev = self.device
-
-        def row(pt):
-            return dict(page_table=torch.as_tensor(pt[None], device=dev),
-                        length=torch.zeros((1,), dtype=torch.int32,
-                                           device=dev))
+        if n_match:
+            al.attach(slot, [e.page for e in entries])
+            dal.attach(slot, [e.draft_page for e in entries])
+            pt_host[:n_match] = [e.page for e in entries]
+            dpt_host[:n_match] = [e.draft_page for e in entries]
+            # a copy: the cursor's carry is written in place every chunk
+            prev_feat = entries[-1].feat[None].clone()
+        else:
+            prev_feat = torch.zeros((1, 3 * self.cfg.d_model),
+                                    dtype=cm.dt(self.cfg.dtype), device=dev)
+        fresh = total - n_match
+        if fresh > self.free_pages():
+            self.reclaim_pages(fresh - self.free_pages())
+        if fresh > self.free_pages():
+            al.free_slot(slot)                  # roll the attach back
+            dal.free_slot(slot)
+            raise RuntimeError(
+                f"slot {slot}: request needs {fresh} fresh pages "
+                f"({n_match} shared), {al.free}/{dal.free} free "
+                f"(trunk/draft) of {al.capacity}")
+        self._prefill_skipped_tokens += n_match * bs
+        start = n_match * bs
+        if fresh:                               # tail blocks + decode reserve
+            pt_host[n_match:total] = al.alloc(slot, fresh)
+            dpt_host[n_match:total] = dal.alloc(slot, fresh)
+        n_full = len(prompt) // bs
         cur = PrefillCursor(
-            slot=slot, prompt=prompt, chunk=chunk, off=0,
-            prev_feat=torch.zeros((1, 3 * self.cfg.d_model),
-                                  dtype=cm.dt(self.cfg.dtype), device=dev),
-            row_cache=row(pt_host), row_dcache=row(dpt_host),
+            slot=slot, prompt=prompt, chunk=chunk, off=start,
+            prev_feat=prev_feat, row_cache=self._cursor_row(pt_host, start),
+            row_dcache=self._cursor_row(dpt_host, start),
             tokens=torch.as_tensor(prompt, dtype=torch.long, device=dev),
-            pt_host=pt_host, dpt_host=dpt_host, total_pages=total)
+            pt_host=pt_host, dpt_host=dpt_host, total_pages=total,
+            n_match=n_match, n_full=n_full,
+            chain_keys=(self._prefix.chain_keys(prompt, n_full)
+                        if self._prefix is not None and n_full > n_match
+                        else []),
+            chain_entries=list(entries))
         return self.clear_slot_rows(st, slot), cur
+
+    def _cursor_row(self, pt_host: np.ndarray, length: int) -> Dict:
+        """A cursor's device row: its page table and length (batch 1)."""
+        dev = self.device
+        return dict(page_table=torch.as_tensor(pt_host[None], device=dev),
+                    length=torch.full((1,), length, dtype=torch.int32,
+                                      device=dev))
+
+    def _copy_pool_page(self, cache: Dict, src: int, dst: int, *,
+                        draft: bool) -> None:
+        """Copy one physical page's contents, every pool key (the trunk's
+        page summaries included), from page `src` to page `dst` in place
+        on the engine's stream: later writes to a freed `src` stay ordered
+        after this read."""
+        for n in (kvc.DRAFT_POOL_KEYS if draft else kvc.PAGED_POOL_KEYS):
+            a = cache[n]
+            if draft:
+                a[dst].copy_(a[src])
+            else:
+                a[:, dst].copy_(a[:, src])
+
+    def _attach_tail_slot(self, st: EngineState, slot: int,
+                          prompt: np.ndarray, chunk: int, total: int,
+                          tail) -> Tuple[EngineState, PrefillCursor]:
+        """Whole-prompt tail-entry hit: attach the full-block chain by
+        reference, copy the cached tail page into a fresh page of the slot
+        on the card (its first decode commit writes into that block, so
+        only forked slots ever hold a shared page inside a write window),
+        skip prefill, and boot from the entry's boundary feature and
+        greedy first token.  The tail block is billed as a fresh page, as
+        ``pages_needed_shared`` counts it."""
+        entries, te = tail
+        al, dal = self._page_alloc, self._draft_alloc
+        n_match = len(entries)
+        pt_host = np.zeros((self._nb_seq,), np.int32)
+        dpt_host = np.zeros((self._nb_seq,), np.int32)
+        al.attach(slot, [e.page for e in entries])
+        dal.attach(slot, [e.draft_page for e in entries])
+        pt_host[:n_match] = [e.page for e in entries]
+        dpt_host[:n_match] = [e.draft_page for e in entries]
+        fresh = total - n_match                 # the tail block included
+        if fresh > self.free_pages():
+            self.reclaim_pages(fresh - self.free_pages())
+        if fresh > self.free_pages():
+            al.free_slot(slot)                  # roll the attach back
+            dal.free_slot(slot)
+            raise RuntimeError(
+                f"slot {slot}: request needs {fresh} fresh pages "
+                f"({n_match} shared), {al.free}/{dal.free} free "
+                f"(trunk/draft) of {al.capacity}")
+        pt_host[n_match:total] = al.alloc(slot, fresh)
+        dpt_host[n_match:total] = dal.alloc(slot, fresh)
+        self._copy_pool_page(st.cache, te.page, int(pt_host[n_match]),
+                             draft=False)
+        self._copy_pool_page(st.dcache, te.draft_page,
+                             int(dpt_host[n_match]), draft=True)
+        self._prefill_skipped_tokens += len(prompt)
+        s0 = len(prompt)
+        cur = PrefillCursor(
+            slot=slot, prompt=prompt, chunk=chunk, off=s0,
+            prev_feat=te.feat[None].clone(),
+            row_cache=self._cursor_row(pt_host, s0),
+            row_dcache=self._cursor_row(dpt_host, s0),
+            pt_host=pt_host, dpt_host=dpt_host, total_pages=total,
+            n_match=n_match, n_full=n_match, boot_token=te.first_token)
+        return self.clear_slot_rows(st, slot), cur
+
+    def _register_tail(self, st: EngineState, cur: PrefillCursor) -> None:
+        """Register a prefilled prompt's final partial block as a
+        whole-prompt tail entry, then give the slot a private copy of that
+        block (``cow_write`` and a page copy): its next commit writes into
+        the block, and the cached bytes must stay as registered.  Skipped
+        for block-aligned prompts, an incomplete chain, or no free page.
+        Reads the greedy first token to the host (once per admission)."""
+        if self._prefix is None:
+            return
+        bs = self.spec.block_size
+        prompt = cur.prompt
+        n_full = len(prompt) // bs
+        if len(prompt) == n_full * bs or self.free_pages() < 1:
+            return
+        if n_full and len(cur.chain_entries) < n_full:
+            return                  # chain incomplete: the tail'd be orphaned
+        al, dal = self._page_alloc, self._draft_alloc
+        parent = (cur.chain_entries[-1].key if n_full
+                  else kvc.PrefixCache._ROOT)
+        e = self._prefix.register_tail(
+            parent, prompt[n_full * bs:], n_full, int(cur.pt_host[n_full]),
+            int(cur.dpt_host[n_full]), cur.prev_feat[0].clone(),
+            int(torch.argmax(cur.logits_last[0])), al, dal)
+        if e is None:
+            return
+        for ent in cur.chain_entries:   # parent never older than the tail
+            ent.tick = e.tick
+        old, new = al.cow_write(cur.slot, n_full)
+        self._copy_pool_page(st.cache, old, new, draft=False)
+        dold, dnew = dal.cow_write(cur.slot, n_full)
+        self._copy_pool_page(st.dcache, dold, dnew, draft=True)
+        cur.pt_host[n_full] = new
+        cur.dpt_host[n_full] = dnew
+        # fill_ of the one entry: an item assignment would copy a host
+        # scalar and wait for the card
+        cur.row_cache["page_table"][0, n_full].fill_(new)
+        cur.row_dcache["page_table"][0, n_full].fill_(dnew)
 
     def prefill_step_into_slot(self, st: EngineState, cur: PrefillCursor
                                ) -> Tuple[EngineState, int]:
         """Advance `cur` by exactly one chunk (chunk boundaries absolute),
         over the shared pools through the cursor's own page-table rows.
         A full chunk replays the batch-1 graph ``("slot_prefill", chunk)``;
-        the cursor's rows are copied into its static buffers before and
-        out after.  Returns (state, tokens processed)."""
+        a shorter one (the prompt's end, or the first chunk after a match
+        that ends inside a chunk) runs eagerly.  The cursor's rows are
+        copied into its static buffers before and out after, then the
+        prompt blocks the chunk completed are registered in the prefix
+        cache.  Returns (state, tokens processed)."""
         assert not cur.done, "prefill cursor already exhausted"
         self._own(st)
         off = cur.off
@@ -762,31 +1063,91 @@ class SpecPVEngine:
             cur.tokens[None], off, end, cur.chunk, "slot_prefill",
             lambda toks: self._prefill_body(toks, cache, dcache,
                                             self._slot_prev_feat,
-                                            self._slot_logits))
+                                            self._slot_logits,
+                                            self._slot_block_feats))
         self.prefill_dispatches += 1
         _copy_into(cur.row_cache, self._slot_cache)
         _copy_into(cur.row_dcache, self._slot_dcache)
         cur.prev_feat.copy_(self._slot_prev_feat)
+        # after the copy out: a dedupe edits the cursor's table row
+        self._register_blocks(cur, off, end)
         cur.off = end
         if cur.done:
             cur.logits_last = self._slot_logits.clone()
         return st, end - off
 
+    def _register_blocks(self, cur: PrefillCursor, off: int,
+                         end: int) -> None:
+        """Register the prompt blocks the chunk ``[off, end)`` completed,
+        re-stamping the whole chain with one LRU tick (a parent is never
+        older than its children).  Each entry's boundary feature is a
+        clone, on the card, of the chunk's row in ``_slot_block_feats``:
+        nothing is read back.  A block a concurrent admission registered
+        first under the same key is deduplicated (``_dedupe_block``)."""
+        if self._prefix is None or not cur.n_full:
+            return
+        bs = self.spec.block_size
+        lo, hi = off // bs, min(end // bs, cur.n_full)
+        if hi <= lo:
+            return
+        feats = self._slot_block_feats[: hi - lo].clone()
+        tick = self._prefix.new_tick()
+        for e in cur.chain_entries:
+            e.tick = tick
+        for j in range(lo, hi):
+            e = self._prefix.insert(
+                cur.chain_keys[j], j, int(cur.pt_host[j]),
+                int(cur.dpt_host[j]), feats[j - lo], self._page_alloc,
+                self._draft_alloc, tick=tick,
+                tokens=cur.prompt[j * bs:(j + 1) * bs],
+                parent=(cur.chain_keys[j - 1] if j > 0
+                        else kvc.PrefixCache._ROOT))
+            if e is None:
+                e = self._prefix.entry(cur.chain_keys[j])
+                self._dedupe_block(cur, j, e)
+            cur.chain_entries.append(e)
+
+    def _dedupe_block(self, cur: PrefillCursor, j: int, e) -> None:
+        """Collapse block ``j`` of a mid-prefill cursor onto the cached
+        entry of the same chain key: the slot references the entry's pages
+        and releases its duplicates, and the one entry of the cursor's
+        device page-table rows is written in place.  The reference holds
+        hash-equal blocks bit-identical (same prefix, absolute chunk
+        boundaries); in bf16 on the card that holds only when both cursors
+        computed the block in chunks of the same length (ROADMAP.md queue
+        3, 'Parity hazards')."""
+        if int(cur.pt_host[j]) == e.page:
+            return                      # shared already (admission match)
+        self._page_alloc.rebind_block(cur.slot, j, e.page)
+        self._draft_alloc.rebind_block(cur.slot, j, e.draft_page)
+        cur.pt_host[j] = e.page
+        cur.dpt_host[j] = e.draft_page
+        cur.row_cache["page_table"][0, j].fill_(e.page)
+        cur.row_dcache["page_table"][0, j].fill_(e.draft_page)
+        self._prefix_dedups += 1
+
     def prefill_finalize_slot(self, st: EngineState, cur: PrefillCursor
                               ) -> Tuple[EngineState, int]:
         """Commit an exhausted cursor: build the slot's automaton state
-        from the last chunk's logits and write it into batch row
-        ``cur.slot``.  Returns (state, first token)."""
+        from the last chunk's logits (or, after a tail-entry hit, from the
+        stored first token) and write it into batch row ``cur.slot``.  A
+        prefilled prompt that ends in a partial block first registers
+        that block as a tail entry.  Returns (state, first token)."""
         assert cur.done, "prefill cursor still has chunks to run"
         self._own(st)
+        if cur.boot_token is None:
+            self._register_tail(st, cur)
         sub = self._boot_state(cur.row_cache, cur.row_dcache,
                                cur.logits_last, cur.prev_feat,
-                               len(cur.prompt))
+                               len(cur.prompt), bonus0=cur.boot_token)
         write_state_slot(st, sub, cur.slot)
         self._pkv_active_rows[cur.slot] = False
         self._host_pending_len[cur.slot] = 1
         self._host_seq_len[cur.slot] = len(cur.prompt) + 1
-        return st, int(sub.pending[0, 0])
+        self._host_ext_len[cur.slot] = 1
+        first = (cur.boot_token if cur.boot_token is not None
+                 else int(sub.pending[0, 0]))
+        return st, first
 
     def prefill_into_slot(self, st: EngineState, slot: int,
                           prompt: np.ndarray, chunk: int = 256,
@@ -804,6 +1165,113 @@ class SpecPVEngine:
         while not cur.done:
             st, _ = self.prefill_step_into_slot(st, cur)
         return self.prefill_finalize_slot(st, cur)
+
+    # ------------------------------------------------------------------
+    # copy-on-write: fork and the pre-step exclusivity pass
+    def _read_slot(self, st: EngineState, slot: int) -> EngineState:
+        """Batch row `slot` as a batch-1 sub-state of views (the shared
+        pool keys left out, as ``write_state_slot`` expects)."""
+        def row(a, axis):
+            return a.narrow(axis, slot, 1)
+        cache = {n: row(st.cache[n], kvc.CACHE_BATCH_AXIS.get(n, 0))
+                 for n in ("page_table", "length")}
+        dcache = {n: row(st.dcache[n], 0) for n in ("page_table", "length")}
+        kw = dict(cache=cache, dcache=dcache)
+        for f in _PKV_FIELDS:
+            kw[f] = row(getattr(st, f), 1)
+        for f in _ROW_FIELDS:
+            kw[f] = row(getattr(st, f), 0)
+        return EngineState(**kw)
+
+    def fork_slot(self, st: EngineState, src: int, dst: int) -> EngineState:
+        """Copy-on-write fork: row `dst` becomes a live replica of row
+        `src`, sharing all of its physical pages (references added, no
+        pool bytes copied) and its pins; the row's state and its host
+        mirrors are copied in place.  ``prepare_cow`` gives a stepping row
+        a private copy of any still-shared block in its write windows
+        before its first commit, so neither branch perturbs the other."""
+        self._slots_only()
+        self._own(st)
+        assert src != dst
+        for al in (self._page_alloc, self._draft_alloc):
+            al.free_slot(dst)                   # stale pages, if any
+            al.fork(src, dst)
+        for mirror in (self._pkv_active_rows, self._host_pending_len,
+                       self._host_seq_len, self._host_ext_len):
+            mirror[dst] = mirror[src]
+        self._forked_slots.update((src, dst))
+        return write_state_slot(st, self._read_slot(st, src), dst)
+
+    def prepare_cow(self, st: EngineState, rows: np.ndarray) -> EngineState:
+        """Pre-step copy-on-write: give each row about to step exclusive
+        pages over the blocks its writes may touch (trunk: the commit
+        window ``[length, length + commit_write_extent)``; draft: the
+        extend window ``[length, length + emax)``), copying every shared
+        block to a private page and repointing the row's table.  The
+        window starts come from the host mirrors (trunk length = sequence
+        length - pending, draft length = sequence length - extend length),
+        never from the card.  The copies run as one index copy per pool
+        key and one page-table write per cache, on the engine's stream.
+        A no-op with no launch unless a stepping row was forked: prompt
+        blocks shared by admission sit below every window, and a tail
+        attach copies its block.  All copies are planned (and reclaimed
+        for) before the allocators change, so pool exhaustion raises with
+        allocators and tables consistent."""
+        if not self.paged or not self._forked_slots.intersection(
+                int(i) for i in np.nonzero(rows)[0]):
+            return st
+        bs = self.spec.block_size
+        plans = (
+            ("trunk", st.cache, self._page_alloc,
+             self._host_seq_len - self._host_pending_len,
+             vf.commit_write_extent(self.pmax, self.tree.depth)),
+            ("draft", st.dcache, self._draft_alloc,
+             self._host_seq_len - self._host_ext_len, self.emax),
+        )
+        planned = []
+        for _, _, al, lengths, extent in plans:
+            shared = []                         # (slot, block)
+            for i in np.nonzero(rows)[0]:
+                i = int(i)
+                if i not in self._forked_slots or not al.count(i) \
+                        or not al.slot_holds_shared(i):
+                    continue
+                lo = int(lengths[i]) // bs
+                hi = min(-(-(int(lengths[i]) + extent) // bs), al.count(i))
+                shared += [(i, j) for j in range(lo, hi)
+                           if al.refcount(al.page_at(i, j)) > 1]
+            if len(shared) > al.free:
+                self.reclaim_pages(len(shared) - al.free)
+            if len(shared) > al.free:
+                raise RuntimeError(
+                    f"page pool exhausted during copy-on-write: need "
+                    f"{len(shared)} private pages, {al.free} free of "
+                    f"{al.capacity}")
+            planned.append(shared)
+        for (name, cache, al, _, _), shared in zip(plans, planned):
+            copies = [(i, j) + al.cow_write(i, j) for i, j in shared]
+            if not copies:
+                continue
+            idx = self._to_device(np.asarray(copies, np.int64).T)
+            sl, bl, olds, news = idx
+            for n in (kvc.PAGED_POOL_KEYS if name == "trunk"
+                      else kvc.DRAFT_POOL_KEYS):
+                a = cache[n]
+                if name == "trunk":
+                    a[:, news] = a[:, olds]
+                else:
+                    a[news] = a[olds]
+            cache["page_table"][sl, bl] = news.to(torch.int32)
+            self.cow_copies[name] += sum(c[2] != c[3] for c in copies)
+        return st
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A small host array on the engine's device without a sync: on
+        the card through pinned memory and an asynchronous copy."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------------
     # the compiled step: one body per variant, captured once on the card
@@ -1189,6 +1657,7 @@ class SpecPVEngine:
         # inactive rows compute in the first active mode (their results
         # are dropped), so every row runs a branch the variant has
         modes = np.where(rows, modes, active_modes[0]).astype(np.int8)
+        st = self.prepare_cow(st, rows)
         self._tick_in.copy_(torch.from_numpy(
             np.stack([modes, rows.astype(np.int8)])))
         key = (has_full, has_partial, has_refresh)
@@ -1197,6 +1666,7 @@ class SpecPVEngine:
         self.dispatch_keys[key] = self.dispatch_keys.get(key, 0) + 1
         pin = self.zero_copy and has_refresh
         toks, counts, acc, pbi_host = self._read_io(blocks=pin)
+        self._host_ext_len = np.where(rows, counts, self._host_ext_len)
         refreshed = rows & (modes == MODE_REFRESH)
         self._pkv_active_rows |= refreshed
         if pin:
@@ -1226,6 +1696,7 @@ class SpecPVEngine:
             if self.is_attn:
                 raise ValueError(mode)
             self._own(st)
+            st = self.prepare_cow(st, np.ones((self.batch,), bool))
             self._run("state", self._state_body)
             self.dispatches += 1
             toks, counts, acc, _ = self._read_io(blocks=False)

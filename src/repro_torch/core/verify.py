@@ -94,6 +94,14 @@ def gather_new_kv(new_kv, slots, slot_valid):
     return out[0], out[1]
 
 
+def commit_write_extent(pmax: int, tree_depth: int) -> int:
+    """Full-cache tokens one verify commit can touch past the current
+    length: the compacted window (pending, at most ``pmax``, then the
+    accepted path, at most ``tree_depth``), all of it written.  The
+    copy-on-write horizon of ``SpecPVEngine.prepare_cow``."""
+    return pmax + tree_depth
+
+
 def append_full_cache(cache: Dict, ck, cv, count, spec: SpecPVConfig):
     """Append compacted committed KV [L, B, W, Hk, Dh] (``count`` [B]
     valid entries) to the full cache and its summaries, in place; returns

@@ -1,5 +1,5 @@
 """Blocked KV cache structures (counterpart of ``repro/kvcache/cache.py``,
-the parts the lock-step engine uses).
+without shards or residency tiers).
 
 Contiguous cache: ``k/v [L, B, S_max, Hk, Dh]`` with per-row lengths and
 per-block summaries ``kmax/kmin [L, B, NB, Hk, Dh]`` (paper eq. (1)).
@@ -9,14 +9,16 @@ per-slot page tables ``[B, S_max/block]`` and physical-page summaries
 ``kmax/kmin [L, NumPages, Hk, Dh]``.  Page 0 is the reserved null page:
 unallocated entries point at it, pad and invalid writes land in it, and
 it is never read unmasked.  Page ownership lives host-side in
-``PageAllocator`` (refcounts plus the zero-copy partial pins).
+``PageAllocator`` (refcounts, prefix-cache references and the zero-copy
+partial pins); ``PrefixCache`` indexes registered prompt blocks.
 
 Unlike the reference's functional updates, the writers here update the
 cache tensors in place (the engine consumes the state it steps).
 """
 from __future__ import annotations
 
-from typing import List
+import hashlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,18 +69,28 @@ def update_layer_summaries(kmax_l, kmin_l, k_layer, start, end, block: int):
 
 class PageAllocator:
     """Host-side refcounted allocator over the shared block pool (the
-    reference's allocator without shards, residency tiers, fork or
-    copy-on-write: allocation, release, the zero-copy partial pins and
-    the occupancy counters the serving scheduler gates admission on).
+    reference's allocator without shards or residency tiers).
 
     Page 0 is the reserved null page and never handed out, so
     ``capacity == num_pages - 1``.  ``_slot_pages[slot][j]`` is the
-    physical page of logical block ``j``.  A pin is a real reference plus
-    a ``_pin_ref`` count, so a pinned page can never be freed until the
-    slot's next refresh drops the pin.  ``high_water`` is the peak of
-    ``committed`` pages and ``resident_high_water`` the peak of
-    ``in_use``; both move only in ``_track``, where pages leave the free
-    list, and survive ``reset``."""
+    physical page of logical block ``j``; every mutation (alloc growth,
+    ``attach`` of a matched prefix, ``rebind_block``, ``cow_write``)
+    keeps logical-block order, so page tables mirror it.
+
+    Ownership is refcounted: a page may back a block of several slots
+    (``fork``, ``attach``) and carry references from the host-side
+    ``PrefixCache`` (``add_ref(cache=True)``).  A page returns to the free
+    list only when its refcount drops to zero, and a write into a page
+    with refcount > 1 goes through ``cow_write`` first.  Pages held only
+    by cache references are ``idle`` (reclaimable by LRU eviction); the
+    rest of ``in_use`` is ``committed``.  A pin is a real reference plus
+    a ``_pin_ref`` count, so a pinned page can never be freed or rebound
+    until the slot's next refresh drops the pin.  ``high_water`` is the
+    peak of ``committed`` and ``resident_high_water`` the peak of
+    ``in_use``; both move only in ``_track``, where pages can become
+    slot-referenced (never in ``fork``), and survive ``reset``.
+    ``shard`` arguments exist for the reference's signatures and accept
+    only 0 (one pool)."""
 
     def __init__(self, num_pages: int):
         assert num_pages >= 2, "need at least one allocatable page"
@@ -90,7 +102,9 @@ class PageAllocator:
     def reset(self) -> None:
         # LIFO free list: pop() hands out the lowest pages first
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
+        self._free_set = set(self._free)
         self._ref = np.zeros((self.num_pages,), np.int32)
+        self._cache_ref = np.zeros((self.num_pages,), np.int32)
         self._slot_pages: dict = {}
         self._pin_ref = np.zeros((self.num_pages,), np.int32)
         self._slot_pins: dict = {}
@@ -111,9 +125,8 @@ class PageAllocator:
     @property
     def idle(self) -> int:
         """Pages held only by prefix-cache references (no live slot):
-        none until prefix sharing is ported, so every page in use is
-        committed."""
-        return 0
+        reclaimable at no cost by LRU prefix eviction."""
+        return int(np.sum((self._ref > 0) & (self._ref == self._cache_ref)))
 
     @property
     def committed(self) -> int:
@@ -134,47 +147,141 @@ class PageAllocator:
     def refcount(self, page: int) -> int:
         return int(self._ref[page])
 
+    def slot_holds_shared(self, slot: int) -> bool:
+        """Does `slot` hold any page it does not own exclusively?"""
+        return any(self._ref[p] > 1 for p in self._slot_pages.get(slot, ()))
+
     def _track(self) -> None:
         self.high_water = max(self.high_water, self.committed)
         self.resident_high_water = max(self.resident_high_water, self.in_use)
 
-    def alloc(self, slot: int, n: int) -> np.ndarray:
-        """Hand `n` fresh (refcount-1) pages to `slot`; raises on
-        over-draw with state unchanged."""
+    @staticmethod
+    def _one_pool(shard: int) -> None:
+        if shard != 0:
+            raise ValueError(f"shard {shard}: the port's pool is unsharded "
+                             f"(ROADMAP.md queue 1, 'Multi-GPU')")
+
+    def _take(self, n: int) -> List[int]:
+        """The only place pages leave the free list (refcount 1 each);
+        raises on over-draw with state unchanged."""
         if n > len(self._free):
             raise RuntimeError(f"page pool exhausted: want {n}, have "
                                f"{len(self._free)} free of {self.capacity}")
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:
             assert self._ref[p] == 0, f"free page {p} had refcount"
+            self._free_set.discard(p)
             self._ref[p] = 1
         self._track()
+        return pages
+
+    def alloc(self, slot: int, n: int) -> np.ndarray:
+        """Hand `n` fresh (refcount-1) pages to `slot`; raises on
+        over-draw with state unchanged."""
+        pages = self._take(n)
         self._slot_pages.setdefault(slot, []).extend(pages)
         return np.asarray(pages, np.int32)
 
-    def add_ref(self, pages) -> None:
+    def alloc_cache(self, n: int, shard: int = 0) -> List[int]:
+        """Take `n` pages held only by the prefix cache (one cache
+        reference each, so idle at once): how a restored snapshot seats
+        its pages before any slot references them."""
+        self._one_pool(shard)
+        pages = self._take(n)
+        for p in pages:
+            self._cache_ref[p] = 1
+        return pages
+
+    def add_ref(self, pages, *, cache: bool = False) -> None:
+        """One more reference on allocated pages; ``cache`` marks it a
+        prefix-cache reference (pages held only by those are idle)."""
         for p in pages:
             assert self._ref[p] > 0, f"add_ref on free page {p}"
             self._ref[p] += 1
+            if cache:
+                self._cache_ref[p] += 1
 
-    def dec_ref(self, pages) -> List[int]:
+    def dec_ref(self, pages, *, cache: bool = False) -> List[int]:
         """Release one reference per page; pages reaching zero return to
         the free list.  Returns the pages actually freed."""
         freed: List[int] = []
         for p in pages:
+            p = int(p)
             assert p != 0, "refcount op on the reserved null page"
+            assert p not in self._free_set, \
+                f"double free: page {p} is already on the free list"
             assert self._ref[p] > 0, f"refcount underflow on page {p}"
             self._ref[p] -= 1
+            if cache:
+                assert self._cache_ref[p] > 0
+                self._cache_ref[p] -= 1
             assert not (self._ref[p] == 0 and self._pin_ref[p] > 0), \
                 f"page {p} freed while partial-pinned"
             if self._ref[p] == 0:
-                self._free.append(int(p))
-                freed.append(int(p))
+                self._free.append(p)
+                self._free_set.add(p)
+                freed.append(p)
         return freed
+
+    def attach(self, slot: int, pages) -> None:
+        """Share existing pages into `slot`, appended in logical-block
+        order (a prefix-cache hit attaches its matched blocks by
+        reference).  An idle cached page becomes committed again."""
+        self.add_ref(pages)
+        self._slot_pages.setdefault(slot, []).extend(int(p) for p in pages)
+        self._track()
+
+    def rebind_block(self, slot: int, block: int, page: int) -> List[int]:
+        """Repoint logical `block` of `slot` onto the shared `page` (dedupe
+        of a block another cursor registered first): the slot references
+        `page` and releases its own, which is freed once nobody holds it.
+        Returns the pages actually freed."""
+        old = self._slot_pages[slot][block]
+        assert old != page, "rebind onto the page already held"
+        assert old != 0, "rebind of a null block"
+        assert self._pin_ref[old] == 0, \
+            f"rebind of partial-pinned page {old}"
+        self.add_ref([page])
+        self._slot_pages[slot][block] = int(page)
+        return self.dec_ref([old])
+
+    def fork(self, src: int, dst: int) -> List[int]:
+        """`dst` becomes a full reference-holder of `src`'s pages (the
+        copy-on-write fork; `dst` must hold none) and of its pins: its
+        partial view routes through the same pages until its next
+        refresh, so evicting `src` must not strand it."""
+        assert not self._slot_pages.get(dst), \
+            f"fork target slot {dst} still holds pages"
+        pages = self.pages_of(src)
+        self.attach(dst, pages)
+        src_pins = self._slot_pins.get(src)
+        if src_pins is not None and len(src_pins):
+            self.pin_slot_pages(dst, src_pins)
+        return pages
+
+    def cow_write(self, slot: int, block: int) -> Tuple[int, int]:
+        """Make logical `block` of `slot` exclusively writable.  Returns
+        ``(old_page, new_page)``, equal when the slot already owned it
+        alone; otherwise the caller copies the pool contents old -> new
+        and repoints the device page table.  The slot's share of the old
+        page is dropped before the new one is taken (after a free-list
+        check, so exhaustion raises with state unchanged): the copy
+        replaces a page one for one and must not raise the high water."""
+        old = self._slot_pages[slot][block]
+        if self._ref[old] == 1:
+            return old, old
+        if not self._free:
+            raise RuntimeError(f"page pool exhausted: want 1, have 0 free "
+                               f"of {self.capacity}")
+        self._ref[old] -= 1             # ref > 1, so never frees here
+        [new] = self._take(1)
+        self._slot_pages[slot][block] = new
+        return old, new
 
     def free_slot(self, slot: int) -> List[int]:
         """Release `slot`'s pins and references (idempotent).  Returns
-        the pages actually freed."""
+        only the pages actually freed: pages still shared with another
+        slot or the prefix cache stay resident."""
         self.unpin_slot(slot)
         pages = self._slot_pages.pop(slot, [])
         return self.dec_ref([p for p in pages if p != 0])
@@ -209,6 +316,341 @@ class PageAllocator:
     def pinned_pages(self) -> int:
         """Distinct physical pages with a live partial pin."""
         return int(np.sum(self._pin_ref > 0))
+
+
+# ---------------------------------------------------------------------------
+# prefix cache (host side)
+# ---------------------------------------------------------------------------
+
+class _PrefixEntry:
+    __slots__ = ("key", "depth", "page", "draft_page", "feat", "tick",
+                 "tokens", "parent")
+
+    def __init__(self, key, depth, page, draft_page, feat, tick,
+                 tokens=None, parent=None):
+        self.key = key              # chain hash of blocks [0..depth]
+        self.depth = depth          # logical block index
+        self.page = page            # trunk pool page (all layers)
+        self.draft_page = draft_page
+        self.feat = feat            # fused feature of the block's last
+                                    # token, on the pools' device
+        self.tick = tick            # LRU stamp
+        self.tokens = tokens        # the block's prompt tokens and its
+        self.parent = parent        # parent key: key == _digest(parent,
+                                    # tokens), re-checked at load
+
+
+class _TailEntry:
+    """A whole-prompt entry for a prompt ending in a partial block: the
+    pages holding the final sub-block tokens, plus the boot state of a
+    greedy admission that skips prefill (the fused feature at the last
+    prompt position and the greedy first token)."""
+
+    __slots__ = ("key", "depth", "tail_len", "page", "draft_page", "feat",
+                 "first_token", "tick")
+
+    def __init__(self, key, depth, tail_len, page, draft_page, feat,
+                 first_token, tick):
+        self.key = key              # digest(parent chain key, tail tokens)
+        self.depth = depth          # logical block index of the tail block
+        self.tail_len = tail_len    # prompt tokens inside the tail block
+        self.page = page
+        self.draft_page = draft_page
+        self.feat = feat
+        self.first_token = first_token
+        self.tick = tick
+
+
+class PrefixCache:
+    """Host-side prompt-prefix index over the paged pools (the
+    reference's ``PrefixCache``, unsharded).
+
+    Keyed by a chained hash of block-aligned prompt chunks (blake2b over
+    ``parent_digest || block_tokens``), so a hit at block ``i`` certifies
+    the whole prefix ``[0, (i+1)*block)``.  Each entry holds one trunk and
+    one draft page (a cache reference each) and the fused boundary
+    feature that resumes chunked prefill right after the matched region:
+    a tensor on the pools' device, so registering a block reads nothing
+    back to the host.  Entries evict LRU-oldest-first, and only when
+    nothing but the cache references their pages.  A matched or
+    registered chain is re-stamped as one unit, so no child is newer than
+    its parent; ties break deepest-first (tails before their chain), so a
+    chain never loses an interior block before its tail.
+    """
+
+    _ROOT = b"specpv-prefix"
+
+    def __init__(self, block_size: int):
+        self.block = block_size
+        self._entries: Dict[bytes, _PrefixEntry] = {}
+        self._tails: Dict[bytes, _TailEntry] = {}
+        self._tick = 0
+        self.reset_stats()
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @staticmethod
+    def _digest(parent: bytes, tokens: np.ndarray) -> bytes:
+        h = hashlib.blake2b(parent, digest_size=16)
+        h.update(np.ascontiguousarray(tokens, np.int64).tobytes())
+        return h.digest()
+
+    def chain_keys(self, prompt: np.ndarray, n_blocks: int) -> List[bytes]:
+        """Chain hashes of the first `n_blocks` full blocks of `prompt`."""
+        bs = self.block
+        keys, parent = [], self._ROOT
+        for j in range(n_blocks):
+            parent = self._digest(parent, prompt[j * bs: (j + 1) * bs])
+            keys.append(parent)
+        return keys
+
+    def match(self, prompt: np.ndarray, max_blocks: int,
+              *, touch: bool = True, count: bool = True
+              ) -> List[_PrefixEntry]:
+        """Longest cached chain over the leading full blocks of `prompt`
+        (at most `max_blocks`).  ``touch`` re-stamps the matched chain
+        MRU; ``count=False`` makes this a probe that counts nothing."""
+        bs = self.block
+        n = min(max_blocks, len(prompt) // bs)
+        out: List[_PrefixEntry] = []
+        parent = self._ROOT
+        for j in range(n):
+            parent = self._digest(parent, prompt[j * bs: (j + 1) * bs])
+            e = self._entries.get(parent)
+            if e is None:
+                break
+            out.append(e)
+        if touch and out:
+            self._tick += 1
+            for e in out:
+                e.tick = self._tick
+        if count:
+            self.lookups += 1
+            self.blocks_seen += n
+            self.blocks_matched += len(out)
+        return out
+
+    def new_tick(self) -> int:
+        """A fresh LRU stamp (one per registration or match of a whole
+        chain, so the deepest-first tie-break keeps every child no newer
+        than its parent)."""
+        self._tick += 1
+        return self._tick
+
+    def insert(self, key: bytes, depth: int, page: int, draft_page: int,
+               feat, trunk_alloc: PageAllocator,
+               draft_alloc: PageAllocator,
+               tick: Optional[int] = None,
+               tokens: Optional[np.ndarray] = None,
+               parent: Optional[bytes] = None) -> Optional[_PrefixEntry]:
+        """Register one completed prefill block, taking a cache reference
+        on each pool page.  Returns the new entry, or None (taking
+        nothing) when the chain hash is cached already (``entry(key)``
+        fetches that one).  ``tokens`` / ``parent`` record the block's
+        provenance for ``save_state``."""
+        if key in self._entries:
+            return None
+        trunk_alloc.add_ref([page], cache=True)
+        draft_alloc.add_ref([draft_page], cache=True)
+        e = _PrefixEntry(key, depth, int(page), int(draft_page), feat,
+                         self.new_tick() if tick is None else tick,
+                         None if tokens is None
+                         else np.ascontiguousarray(tokens, np.int64),
+                         parent)
+        self._entries[key] = e
+        self.inserted += 1
+        return e
+
+    def entry(self, key: bytes) -> Optional[_PrefixEntry]:
+        """The cached entry for a chain hash, if any (no LRU touch)."""
+        return self._entries.get(key)
+
+    # -- last partial block of a whole prompt ----------------------------
+    def _tail_key(self, parent: bytes, tail_tokens: np.ndarray) -> bytes:
+        return self._digest(b"tail:" + parent, tail_tokens)
+
+    def register_tail(self, parent: bytes, tail_tokens: np.ndarray,
+                      depth: int, page: int, draft_page: int, feat,
+                      first_token: int, trunk_alloc: PageAllocator,
+                      draft_alloc: PageAllocator) -> Optional[_TailEntry]:
+        """Register a prompt's final partial block, keyed by the parent
+        chain hash plus the exact tail tokens (a hit certifies the whole
+        prompt), with the boot state of an admission that skips prefill.
+        Takes a cache reference per pool page; the registering slot must
+        then take a private copy of the block (``cow_write``), since its
+        next commit writes into it.  Returns None when cached already."""
+        key = self._tail_key(parent, tail_tokens)
+        if key in self._tails:
+            return None
+        trunk_alloc.add_ref([page], cache=True)
+        draft_alloc.add_ref([draft_page], cache=True)
+        e = _TailEntry(key, depth, len(tail_tokens), int(page),
+                       int(draft_page), feat, int(first_token),
+                       self.new_tick())
+        self._tails[key] = e
+        self.tails_inserted += 1
+        return e
+
+    def match_tail(self, prompt: np.ndarray, *, touch: bool = True,
+                   count: bool = True
+                   ) -> Optional[Tuple[List[_PrefixEntry], _TailEntry]]:
+        """Whole-prompt lookup for a prompt ending in a partial block: a
+        hit when every full block chains AND a tail entry holds the exact
+        remaining tokens.  Returns (chain entries, tail entry); ``touch``
+        re-stamps chain and tail as one unit."""
+        bs = self.block
+        n_full = len(prompt) // bs
+        if len(prompt) == n_full * bs:
+            return None
+        if count:
+            self.tail_lookups += 1
+        chain = self.match(prompt, n_full, touch=False, count=False)
+        if len(chain) < n_full:
+            return None
+        parent = chain[-1].key if n_full else self._ROOT
+        e = self._tails.get(self._tail_key(parent, prompt[n_full * bs:]))
+        if e is None:
+            return None
+        if count:
+            self.tail_hits += 1
+        if touch:
+            tick = self.new_tick()
+            for c in chain:
+                c.tick = tick
+            e.tick = tick
+        return chain, e
+
+    def evict_lru(self, trunk_alloc: PageAllocator,
+                  draft_alloc: PageAllocator, n_pages: int) -> int:
+        """Drop least-recently-used entries whose pages only the cache
+        holds until `n_pages` trunk pages are freed or no candidate is
+        left.  Returns the trunk pages freed.  Within one stamp a tail
+        evicts before the chain that certifies it."""
+        freed = 0
+        cands = sorted(
+            list(self._entries.values()) + list(self._tails.values()),
+            key=lambda e: (e.tick, -e.depth, 0 if isinstance(e, _TailEntry)
+                           else 1))
+        for e in cands:
+            if freed >= n_pages:
+                break
+            if (trunk_alloc.refcount(e.page) == 1
+                    and draft_alloc.refcount(e.draft_page) == 1):
+                if isinstance(e, _TailEntry):
+                    del self._tails[e.key]
+                    self.tails_evicted += 1
+                else:
+                    del self._entries[e.key]
+                    self.evicted += 1
+                freed += len(trunk_alloc.dec_ref([e.page], cache=True))
+                draft_alloc.dec_ref([e.draft_page], cache=True)
+        return freed
+
+    def clear(self, trunk_alloc: PageAllocator,
+              draft_alloc: PageAllocator) -> None:
+        """Release every entry's references (a pool reset)."""
+        for e in list(self._entries.values()) + list(self._tails.values()):
+            trunk_alloc.dec_ref([e.page], cache=True)
+            draft_alloc.dec_ref([e.draft_page], cache=True)
+        self._entries.clear()
+        self._tails.clear()
+
+    # -- persistence across engine rebuilds ------------------------------
+    def save_state(self, page_bytes=None) -> dict:
+        """Host snapshot of the chain entries, parents first.  Only
+        entries with provenance are kept (the snapshot must re-verify);
+        tail entries are not (their boot state holds only against the
+        pool bytes they were registered with).  ``feat`` becomes a
+        float32 numpy array (exact for bf16).  ``page_bytes(page,
+        draft_page)`` captures the pool contents; without it the snapshot
+        is structure only and cannot be re-seated."""
+        ents = []
+        for e in self._entries.values():
+            if e.tokens is None or e.parent is None:
+                continue
+            ents.append(dict(
+                key=e.key, parent=e.parent, depth=int(e.depth),
+                tokens=np.ascontiguousarray(e.tokens, np.int64),
+                feat=None if e.feat is None else _feat_numpy(e.feat),
+                tick=int(e.tick),
+                pages=None if page_bytes is None
+                else page_bytes(e.page, e.draft_page)))
+        ents.sort(key=lambda d: d["depth"])
+        return {"block": self.block, "tick": self._tick, "entries": ents}
+
+    def load_state(self, snap: dict, trunk_alloc: PageAllocator,
+                   draft_alloc: PageAllocator, seat_pages,
+                   shard: int = 0, feat=None) -> int:
+        """Re-attach a ``save_state`` snapshot.  Every entry re-verifies
+        its chain hash first: ``_digest(parent, tokens)`` must give the
+        stored key and the parent must have verified (or be the root), so
+        a corrupted or truncated snapshot certifies nothing it does not
+        hold.  ``seat_pages(entry_dict, shard) -> (page, draft_page)``
+        takes cache-only pages and writes the blob back; a RuntimeError
+        from it (pool pressure) stops early.  ``feat`` maps a stored
+        feature to what the entry keeps (the engine: a device tensor).
+        Returns the number of entries restored."""
+        PageAllocator._one_pool(shard)
+        if snap.get("block") != self.block:
+            return 0
+        ok = {self._ROOT}
+        restored = 0
+        for d in snap["entries"]:
+            if d["parent"] not in ok and d["parent"] not in self._entries:
+                continue                      # orphaned: parent refused
+            if self._digest(d["parent"], d["tokens"]) != d["key"]:
+                continue                      # chain hash mismatch
+            if d["key"] in self._entries:
+                ok.add(d["key"])
+                continue                      # already live
+            if d.get("pages") is None:
+                continue                      # structure-only snapshot
+            try:
+                page, draft_page = seat_pages(d, shard)
+            except RuntimeError:
+                break                         # pool pressure: stop early
+            f = d["feat"] if feat is None or d["feat"] is None \
+                else feat(d["feat"])
+            e = _PrefixEntry(d["key"], d["depth"], int(page),
+                             int(draft_page), f, d["tick"], d["tokens"],
+                             d["parent"])
+            self._entries[d["key"]] = e
+            self._tick = max(self._tick, e.tick)
+            ok.add(d["key"])
+            restored += 1
+        return restored
+
+    def stats(self) -> Dict[str, int]:
+        return dict(entries=len(self._entries), lookups=self.lookups,
+                    blocks_matched=self.blocks_matched,
+                    blocks_seen=self.blocks_seen,
+                    tokens_reused=self.blocks_matched * self.block,
+                    inserted=self.inserted, evicted=self.evicted,
+                    tails=len(self._tails),
+                    tail_lookups=self.tail_lookups,
+                    tail_hits=self.tail_hits,
+                    tails_inserted=self.tails_inserted,
+                    tails_evicted=self.tails_evicted)
+
+    def reset_stats(self) -> None:
+        """Zero the hit and reuse counters (entries and LRU untouched)."""
+        self.lookups = 0
+        self.blocks_matched = 0
+        self.blocks_seen = 0
+        self.inserted = 0
+        self.evicted = 0
+        self.tail_lookups = 0
+        self.tail_hits = 0
+        self.tails_inserted = 0
+        self.tails_evicted = 0
+
+
+def _feat_numpy(feat) -> np.ndarray:
+    """A stored boundary feature as a host float32 array."""
+    if isinstance(feat, torch.Tensor):
+        return feat.detach().float().cpu().numpy()
+    return np.asarray(feat, np.float32)
 
 
 def init_paged_pool(num_layers: int, num_pages: int, block: int,

@@ -31,14 +31,15 @@ from repro_torch.serving.scheduler import ContinuousScheduler, trim_output
 @dataclass
 class ServingConfig:
     """The reference's serving knobs, every field under its name.  The
-    defaults are the settings the port supports, unlike the reference's:
-    the paged pool (``paged_kv=True``) with zero-copy partial KV
-    (``zero_copy_partial=True``), no prefix sharing
-    (``prefix_cache=False``) and the serial prefill pump
-    (``fused_prefill=False``).  ``paged_kv=False``, ``prefix_cache=True``,
-    ``fused_prefill=True``, ``tiered_kv=True`` and a ``mesh_shape`` raise
-    NotImplementedError naming their ROADMAP item (the tier codec fields
-    only matter with ``tiered_kv``)."""
+    defaults are the settings the port supports, which differ from the
+    reference's in two: zero-copy partial KV (``zero_copy_partial=True``)
+    and the serial prefill pump (``fused_prefill=False``).  Copy-on-write
+    prefix sharing is on by default, as in the reference
+    (``prefix_cache=True``; off, every request pays for its whole
+    prompt).  ``paged_kv=False``, ``fused_prefill=True``,
+    ``tiered_kv=True`` and a ``mesh_shape`` raise NotImplementedError
+    naming their ROADMAP item (the tier codec fields only matter with
+    ``tiered_kv``)."""
     batch: int = 4
     max_len: int = 4096
     prefill_chunk: int = 256
@@ -59,7 +60,7 @@ class ServingConfig:
     tier_lossless: bool = False
     tier_codec: str = "int8"
     zero_copy_partial: bool = True
-    prefix_cache: bool = False
+    prefix_cache: bool = True
     mesh_shape: Optional[tuple] = None
 
 
@@ -75,8 +76,6 @@ class ServingEngine:
                 (not scfg.zero_copy_partial and scfg.partial_verification
                  and cfg.is_attention_arch, "the gathered partial cache "
                  "(zero_copy_partial=False)", "contiguous SpecPV engine"),
-                (scfg.prefix_cache, "prefix sharing (prefix_cache=True)",
-                 "Serving"),
                 (scfg.fused_prefill, "the fused multi-row prefill "
                  "(fused_prefill=True)", "Batched prefill"),
                 (scfg.tiered_kv, "tiered KV residency (tiered_kv=True)",
@@ -117,9 +116,10 @@ class ServingEngine:
 
     def _engine_for(self, batch: int, *, paged: bool = False) -> SpecPVEngine:
         """The continuous engine (``paged``: the configured pool, pages
-        per request) or a wave engine of ``batch`` rows (an attention
-        arch's lock-step engine is paged too, its pool sized for whole
-        rows; a state arch's is contiguous)."""
+        per request, prefix sharing as configured) or a wave engine of
+        ``batch`` rows (an attention arch's lock-step engine is paged too,
+        its pool sized for whole rows, and shares nothing; a state arch's
+        is contiguous)."""
         key = (batch, paged)
         if key not in self._engines:
             attn = self.cfg.is_attention_arch
@@ -130,6 +130,7 @@ class ServingEngine:
                 paged=attn,
                 num_pages=self.scfg.num_pages if paged else None,
                 num_draft_pages=self.scfg.num_draft_pages if paged else None,
+                prefix_cache=paged and self.scfg.prefix_cache,
                 zero_copy=self.scfg.zero_copy_partial, device=self.device,
                 cuda_graphs=self.cuda_graphs)
         return self._engines[key]
@@ -140,6 +141,13 @@ class ServingEngine:
         key = (self.scfg.batch, True)
         return self._engines[key].page_stats() if key in self._engines else {}
 
+    def prefix_stats(self) -> Dict[str, int]:
+        """Prefix-cache hit and reuse counters of the continuous engine
+        ({} before it exists or with sharing off)."""
+        key = (self.scfg.batch, True)
+        return (self._engines[key].prefix_stats()
+                if key in self._engines else {})
+
     def reset_page_high_water(self) -> None:
         """Zero the resident-page high-water marks (after a warm-up run)."""
         key = (self.scfg.batch, True)
@@ -149,11 +157,15 @@ class ServingEngine:
     def reset_warm(self) -> None:
         """Forget what a warm-up run left: outputs, stats, the continuous
         scheduler (the next ``run()`` boots a fresh one, emptying the
-        pools) and the page counters.  Captured graphs stay."""
+        pools and clearing the prefix cache), and the page and prefix
+        counters.  Captured graphs stay."""
         self.stats.clear()
         self.outputs.clear()
         self._continuous = None
         self.reset_page_high_water()
+        key = (self.scfg.batch, True)
+        if key in self._engines:
+            self._engines[key].reset_prefix_stats()
 
     # ------------------------------------------------------------------
     # continuous (in-flight) scheduler

@@ -4,10 +4,12 @@
 The engine's batch rows are B independent slots.  A request is admitted
 into a free slot as soon as one opens and its shared page pools can hold
 its prompt and generation budget (``stats["page_stalls"]`` counts the
-times a waiter did not fit), prefills into the slot chunk by chunk, runs
-the SpecPV mode automaton (Full -> Refresh -> Partial* -> Refresh) on its
-own, and is evicted the moment it finishes, cancels or misses its
-deadline; the next waiter takes the slot.  Admission order is priority
+times a waiter did not fit; with the engine's prefix cache only the pages
+beyond the request's cached prefix are billed, and idle cached prefixes
+are evicted LRU first, ``stats["prefix_evictions"]``), prefills into the
+slot chunk by chunk, runs the SpecPV mode automaton (Full -> Refresh ->
+Partial* -> Refresh) on its own, and is evicted the moment it finishes,
+cancels or misses its deadline; the next waiter takes the slot.  Admission order is priority
 desc, then earliest deadline, then arrival.
 
 Each decode tick is one fused step over the decoding rows
@@ -200,15 +202,21 @@ class ContinuousScheduler:
                 self.waiting.remove(req)
                 self._emit(req, -1, [], finished=False, reason="rejected")
                 continue
-            # the page gate: the request's whole plan must be free now;
-            # one that does not fit stays queued while smaller waiters
-            # may proceed
+            # the page gate: the fresh pages of the request's plan (its
+            # prefix-cache hits attach by reference) must be free now,
+            # after LRU eviction of idle cached prefixes; one that does
+            # not fit stays queued while smaller waiters may proceed.  The
+            # gate only counts (no LRU touch): the admission's own match
+            # re-stamps the chain.  Eviction may shorten this request's
+            # own match, so the bill is counted again before the gate
             need_fresh = eng.pages_needed_shared(req.prompt,
                                                  req.max_new_tokens)
             margin = eng.tier_admit_margin(len(req.prompt))
             short = need_fresh + margin - eng.free_pages()
             if short > 0:
                 self.stats["prefix_evictions"] += eng.reclaim_pages(short)
+                need_fresh = eng.pages_needed_shared(req.prompt,
+                                                     req.max_new_tokens)
             if need_fresh + margin > eng.free_pages():
                 self.stats["page_stalls"] += 1
                 continue

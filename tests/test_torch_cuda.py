@@ -551,7 +551,8 @@ def _serve(model, graphs, prefill_budget=None):
     rng = np.random.default_rng(5)
     srv = ServingEngine(cfg, spec, dcfg, params, dparams,
                         ServingConfig(batch=3, max_len=SERVE_MAX_LEN,
-                                      prefill_budget=prefill_budget),
+                                      prefill_budget=prefill_budget,
+                                      prefix_cache=False),
                         device="cuda", cuda_graphs=graphs)
     for i, (n, new) in enumerate(SERVE_CASE):
         srv.submit(Request(request_id=f"r{i}", max_new_tokens=new,
@@ -634,7 +635,8 @@ def test_cuda_masked_step_keeps_untouched_rows(cuda, models):
     from repro_torch.core.engine import SpecPVEngine
     cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
     eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=3,
-                       max_len=SERVE_MAX_LEN, device="cuda")
+                       max_len=SERVE_MAX_LEN, device="cuda",
+                       prefix_cache=False)
     rng = np.random.default_rng(6)
     st = eng.empty_state()
     st, _ = eng.prefill_into_slot(
@@ -668,7 +670,7 @@ def test_cuda_serving_bodies_do_not_sync(cuda, models):
     cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
     eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=3,
                        max_len=SERVE_MAX_LEN, device="cuda",
-                       cuda_graphs=False)
+                       cuda_graphs=False, prefix_cache=False)
     rng = np.random.default_rng(7)
     st = eng.empty_state()
     for slot, n in ((0, 4700), (1, 2000)):
@@ -698,3 +700,185 @@ def test_cuda_serving_bodies_do_not_sync(cuda, models):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# copy-on-write prefix sharing
+# ---------------------------------------------------------------------------
+
+def _shared_table(dev, npg, nb, shared, seed):
+    """Two rows' page tables whose first `shared` entries are the same
+    pages (a prefix attached from the cache)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    perm = (torch.randperm(npg - 1, generator=g, device=dev) + 1).to(
+        torch.int32)
+    table = torch.stack([perm[:nb], perm[nb: 2 * nb]])
+    table[1, :shared] = table[0, :shared]
+    return table.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t, qoffs", [(256, (6400, 6144)),
+                                      (128, (6272, 6272))])
+def test_cuda_prefill_over_shared_pages_matches_plain(cuda, dtype, t, qoffs):
+    """K2 over page tables whose leading 48 entries both rows hold: the
+    tail prefill after an attach, and the short chunk after a match that
+    ends inside a chunk."""
+    nb, bs = 52, 128
+    q, pk, pv, _, _ = _cuda_case(cuda, TDT[dtype], t=t, seed=3,
+                                 npg=2 * nb + 1)
+    hk, dh = pk.shape[2:]
+    table = _shared_table(cuda, pk.shape[0], nb, 48, seed=4)
+    qoff = torch.tensor(qoffs, dtype=torch.int32, device=cuda)
+    idx, vlen = tops._page_walk(table, qoff + t, pk.shape)
+    kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+    before = tops.LAUNCHES["paged_prefill_attention"]
+    got = tops.block_attention(q, kf, vf, idx, vlen, bs, q_offset=qoff)
+    assert tops.LAUNCHES["paged_prefill_attention"] == before + 1
+    want = tref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                        q_offset=qoff)
+    _assert_partials_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_routed_over_shared_pages_matches_plain(cuda, dtype):
+    """K1 routed (Partial) over pages two rows both select."""
+    nb, bs, ns = 52, 128, 35
+    q, pk, pv, _, _ = _cuda_case(cuda, TDT[dtype], t=61, seed=5,
+                                 npg=2 * nb + 1)
+    hk, dh = pk.shape[2:]
+    table = _shared_table(cuda, pk.shape[0], nb, 48, seed=6)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    sel = torch.stack([torch.stack([torch.randperm(51, generator=g,
+                                                   device=cuda)[:ns]
+                                    for _ in range(hk)]) for _ in range(2)])
+    sel[..., -3:] = -1
+    sel[..., 30] = 51
+    used = sel >= 0
+    rows = torch.arange(2, device=cuda)[:, None, None]
+    idx = torch.where(used, table[rows, sel.clamp(min=0)], 0).to(
+        torch.int32).contiguous()
+    vlen = torch.where(used, (6644 - sel * bs).clamp(0, bs), 0).to(
+        torch.int32).contiguous()
+    assert bool(((idx[0][..., None] == idx[1][..., None, :])
+                 & (idx[0] > 0)[..., None]).any())
+    kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+    before = tops.LAUNCHES["sparse_verify_attention"]
+    got = tops.block_attention(q, kf, vf, idx, vlen, bs)
+    assert tops.LAUNCHES["sparse_verify_attention"] == before + 1
+    _assert_partials_close(got, tref.block_attention_batched(
+        q, kf, vf, idx, vlen, bs))
+
+
+def _forked_engine(models, **kw):
+    """A 2-layer full-width llama engine (batch 2, prefix sharing on) with
+    one request over the partial budget admitted into slot 0, stepped
+    twice and forked into slot 1."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
+                       max_len=SERVE_MAX_LEN, device="cuda", **kw)
+    st = eng.empty_state()
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, (4700,))
+    st, _ = eng.prefill_into_slot(st, 0, prompt, max_new_tokens=24)
+    rows = np.array([True, False])
+    for _ in range(2):
+        st, _ = eng.step_fused(st, rows, eng.modes_for_rows(st, rows))
+    return eng, eng.fork_slot(st, 0, 1)
+
+
+@pytest.mark.cuda
+def test_cuda_prepare_cow_and_page_copy_bit_exact(cuda, models):
+    """``prepare_cow`` of both forked rows and ``_copy_pool_page`` leave
+    the pools equal, bit for bit, to a plain per-page copy of the pages
+    they move (every pool key, the summaries included) and every other
+    page as it was."""
+    import numpy as np
+    eng, st = _forked_engine(models, cuda_graphs=False)
+    keys = {"cache": ("k", "v", "kmax", "kmin"), "dcache": ("k", "v")}
+
+    def pools():
+        return {(c, k): getattr(st, c)[k].clone()
+                for c, ks in keys.items() for k in ks}
+    before = pools()
+    tables = {c: getattr(st, c)["page_table"].clone() for c in keys}
+    eng.prepare_cow(st, np.array([True, True]))
+    moved = 0
+    for c, ks in keys.items():
+        pt = getattr(st, c)["page_table"]
+        where = (pt != tables[c]).nonzero().tolist()
+        moved += len(where)
+        for k in ks:
+            want = before[(c, k)].clone()
+            for r, j in where:
+                new, old = int(pt[r, j]), int(tables[c][r, j])
+                if c == "cache":
+                    want[:, new] = before[(c, k)][:, old]
+                else:
+                    want[new] = before[(c, k)][old]
+            assert torch.equal(getattr(st, c)[k], want), (c, k)
+    assert eng.cow_copies["trunk"] > 0 and eng.cow_copies["draft"] > 0
+    assert moved >= 2
+    before = pools()
+    eng._copy_pool_page(st.cache, 5, 9, draft=False)
+    eng._copy_pool_page(st.dcache, 4, 8, draft=True)
+    for (c, k), a in before.items():
+        if c == "cache":
+            a[:, 9] = a[:, 5]
+        else:
+            a[8] = a[4]
+        assert torch.equal(getattr(st, c)[k], a), (c, k)
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_host_paths_do_not_sync(cuda, models):
+    """Block registration (``_register_blocks``: clones of the boundary
+    features, a dedupe's page-table writes) and a copying ``prepare_cow``
+    run under ``torch.cuda.set_sync_debug_mode("error")``; with no forked
+    row ``prepare_cow`` launches nothing."""
+    import numpy as np
+    eng, _ = _forked_engine(models, cuda_graphs=False)
+    prompt = np.random.default_rng(8).integers(0, eng.cfg.vocab_size,
+                                               (4700,))
+    # two cursors of one prompt, admitted before either registered: the
+    # second one's first chunk dedups both of its blocks
+    st = eng.empty_state()
+    st, cur_a = eng.prefill_begin_slot(st, 0, prompt, max_new_tokens=8)
+    st, cur_b = eng.prefill_begin_slot(st, 1, prompt, max_new_tokens=8)
+    st, _ = eng.prefill_step_into_slot(st, cur_a)
+    register = eng._register_blocks
+    eng._register_blocks = lambda *a: None      # run it below, checked
+    st, _ = eng.prefill_step_into_slot(st, cur_b)
+    del eng._register_blocks
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        register(cur_b, 0, 256)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng.prefix_stats()["dedups"] == 2
+    assert int(cur_b.row_cache["page_table"][0, 0]) == int(cur_a.pt_host[0])
+    # a copying prepare_cow, then one with no forked row
+    eng2, st2 = _forked_engine(models, cuda_graphs=False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng2.prepare_cow(st2, np.array([True, True]))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert eng2.cow_copies["trunk"] > 0
+    for slot in (0, 1):
+        eng2.release_slot_pages(slot)
+    copies = dict(eng2.cow_copies)
+
+    def no_device(a):
+        raise AssertionError("prepare_cow moved indices to the card")
+    eng2._to_device = no_device     # every copy starts with this move
+    assert eng2.prepare_cow(st2, np.array([True, True])) is st2
+    assert eng2.cow_copies == copies
+

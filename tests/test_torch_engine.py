@@ -130,8 +130,7 @@ def test_unsupported_settings_raise(setup):
     args = (s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"])
     for bad in (dict(paged=False), dict(paged=True, zero_copy=False),
                 dict(paged=True, zero_copy=True, temperature=0.7),
-                dict(paged=True, zero_copy=True, tiered=True),
-                dict(paged=True, zero_copy=True, prefix_cache=True)):
+                dict(paged=True, zero_copy=True, tiered=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(*args, **bad, **kw)
 

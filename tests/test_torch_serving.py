@@ -3,7 +3,9 @@ stack, on the CPU: ``tiny-dense`` in fp32 with weights converted from the
 JAX parameters, the conftest ``small_spec`` (``use_pallas=True``) and
 ``small_dcfg``, ``max_len`` 512, prefill chunk 64.  The JAX side is
 ``SpecPVEngine(paged=True, zero_copy=True, prefix_cache=False)`` under its
-``ContinuousScheduler(fused_prefill=False)``.
+``ContinuousScheduler(fused_prefill=False)``, the port's engine is built
+with ``prefix_cache=False`` too (prefix sharing is held to the JAX
+scheduler in ``tests/test_torch_prefix.py``).
 
 * On the four budget-straddling requests of ``tests/test_zero_copy.py``
   (batch 3, a pool too small to hold them all at once), each request's
@@ -22,7 +24,7 @@ JAX parameters, the conftest ``small_spec`` (``use_pallas=True``) and
   equals the port's ``generate``.
 * The allocator's counters follow the reference's ``PageAllocator``.
 * Each unsupported setting raises NotImplementedError naming its
-  ROADMAP item.
+  ROADMAP item; ``ServingConfig(prefix_cache=True)`` builds and serves.
 """
 import dataclasses
 
@@ -97,6 +99,7 @@ def _jengine(s, **kw):
 
 
 def _tengine(s, batch=B, **kw):
+    kw.setdefault("prefix_cache", False)
     return TEngine(s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"],
                    batch=batch, max_len=MAX_LEN, device="cpu", **kw)
 
@@ -413,7 +416,7 @@ def test_serving_engine_continuous_path(setup):
     configured pool and keeps its stats; ``reset_warm`` boots a fresh
     scheduler that gives the same tokens."""
     scfg = ServingConfig(batch=B, max_len=MAX_LEN, prefill_chunk=CHUNK,
-                         num_pages=SMALL_POOL)
+                         num_pages=SMALL_POOL, prefix_cache=False)
     srv = ServingEngine(setup["tcfg"], setup["tspec"], setup["tdcfg"],
                         setup["tp"], setup["td"], scfg, device="cpu")
     reqs = _reqs(setup, Request)
@@ -466,6 +469,19 @@ def _bad_config(s, **kw):
                   ServingConfig(**kw), device="cpu")
 
 
+def _serves(s, **kw):
+    """A supported setting: the server builds and answers a request."""
+    srv = ServingEngine(s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"],
+                        ServingConfig(batch=B, max_len=MAX_LEN,
+                                      prefill_chunk=CHUNK, **kw),
+                        device="cpu")
+    srv.submit(Request(request_id="x", prompt=s["prompts"]["a"],
+                       max_new_tokens=4))
+    (out,) = srv.run()
+    assert out.finished and len(out.tokens) == 4
+    return srv
+
+
 def _bad_request(s, **kw):
     eng = _tengine(s)
     ContinuousScheduler(eng).submit(Request(
@@ -475,7 +491,7 @@ def _bad_request(s, **kw):
 @pytest.mark.parametrize("make, kw, item", [
     (_bad_config, dict(paged_kv=False), "contiguous SpecPV engine"),
     (_bad_config, dict(zero_copy_partial=False), "contiguous SpecPV engine"),
-    (_bad_config, dict(prefix_cache=True), "Serving"),
+    (_serves, dict(prefix_cache=True), None),
     (_bad_config, dict(fused_prefill=True), "Batched prefill"),
     (_bad_config, dict(tiered_kv=True), "Tiered KV"),
     (_bad_config, dict(mesh_shape=(1, 1)), "Multi-GPU"),
@@ -484,6 +500,10 @@ def _bad_request(s, **kw):
 ], ids=["paged_kv", "zero_copy", "prefix_cache", "fused_prefill", "tiered",
         "mesh", "temperature", "chain"])
 def test_unsupported_settings_raise(setup, make, kw, item):
+    if item is None:        # ported since: it serves, its stats exist
+        srv = make(setup, **kw)
+        assert srv.prefix_stats()["inserted"] > 0
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*'{item}'"):
         make(setup, **kw)
 
