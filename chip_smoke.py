@@ -95,10 +95,38 @@ Phases, in order (any failure raises and the script exits non-zero):
    1536-token system prompts, six requests, interleaved prefill so that
    paired cursors dedup): every request equals its solo ``generate`` and
    its tokens with sharing off;
-8. one JSON line with every kernel's numbers (each kernel's launches
-   from its own path's run, ``serving_launches`` from phase 6's and
-   ``prefix_serving_launches`` from phase 7's shared run), the card's
-   name and power limit, and the final ``{"ok": true, ...}`` line.
+8. the reference's default engine, ``SpecPVEngine(paged=False,
+   zero_copy=False)``: the contiguous KV cache and the gathered partial
+   cache.  (c) The new call forms against their plain versions, timed:
+   K1 over a contiguous cache through the identity list (Full T=61 and
+   Refresh T=156 at 8229 tokens) and over the gathered body, K2 over the
+   contiguous cache, and K4's all-layer contiguous form at a max_len of
+   8431 (not a multiple of the block), bit for bit.  (a) Full-width
+   ``generate`` as in phase 3 on the contiguous engine, eagerly and with
+   graphs: K1-K4 launched as the steps and chunks imply (K4 once per
+   prefill chunk and per commit over every layer), graph tokens and
+   launches equal to eager, final summaries equal to the plain version,
+   a profiled window, the bodies under the sync check; the tokens
+   matching phase 3's are reported.  (b) After the same prefill the
+   contiguous K/V and summaries equal the paged engine's through the
+   page table bit for bit; after one Refresh each, the gathered body's
+   K1 Partial result equals the routed one bit for bit.  (e) The
+   reference's ``ServingConfig()`` (contiguous slots, gathered body,
+   ``fused_prefill=False``) over phase 6's six requests at batch 4 with
+   graphs, launches held to the steps and chunks, beside phase 6's
+   numbers, and the serving bodies under the sync check.  (d) fp32 at 4
+   layers with graphs: the contiguous gathered, paged gathered and paged
+   gathered-view (``use_pallas=False``) engines give AR's tokens with
+   full verification and phase 4's zero-copy tokens with partial
+   verification; contiguous serving, blocking and interleaved, gives
+   each request's solo ``generate``;
+9. one JSON line with every kernel's numbers (each kernel's launches
+   from its own path's run, ``serving_launches`` from phase 6's,
+   ``prefix_serving_launches`` from phase 7's shared run,
+   ``contiguous_launches`` and ``contiguous_serving_launches`` from
+   phase 8's graph runs; phase 8's call forms under ``shapes``), the
+   card's name and power limit, and the final ``{"ok": true, ...}``
+   line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -194,6 +222,7 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
         self.per_call = 0        # kernels the last ``kernel_ms`` call saw
+        self.source = ""         # where its time came from
 
     def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
         torch = self.torch
@@ -248,12 +277,19 @@ class Timer:
     def kernel_ms(self, fn, kernel: str, iters: int = 10) -> float:
         """Device time of one call of ``fn``: the durations of all the
         kernels whose names contain ``kernel`` that the call launches
-        (an attention kernel and any merge kernel alike), summed."""
+        (an attention kernel and any merge kernel alike), summed.  If the
+        profiler keeps no record of them in three tries (it has dropped
+        every record of a 40 us kernel after many earlier profiled
+        windows), the time is the call's CUDA-event time (``__call__``)
+        and the launches per call are those the wrappers counted."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+        from repro_torch.kernels import ops
         torch = self.torch
+        counted = sum(ops.LAUNCHES.values())
         fn()
         torch.cuda.synchronize()
+        counted = sum(ops.LAUNCHES.values()) - counted
         for _ in range(3):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -268,11 +304,19 @@ class Timer:
             if count and count % iters == 0:
                 break
         if count == 0:
-            raise RuntimeError(f"profiler saw no launch of {kernel}")
+            if counted == 0:
+                raise RuntimeError(f"no launch of {kernel}: the profiler saw "
+                                   f"none and the wrappers counted none")
+            self.per_call, self.source = counted, "events"
+            ms = self(fn)
+            print(f"note: profiler kept no launch of {kernel}; ms {ms:.4f} "
+                  f"is the CUDA-event time of a call ({counted} counted "
+                  f"launch(es) per call)", flush=True)
+            return ms
         # the profiler has been seen to drop records of ~10 us kernels;
         # after three tries the mean over the records it kept is used
         per_call = -(-count // iters)
-        self.per_call = per_call
+        self.per_call, self.source = per_call, "profiler"
         if count != per_call * iters:
             print(f"note: profiler kept {count} of {per_call * iters} "
                   f"launches of {kernel}; ms is their mean x {per_call}",
@@ -365,6 +409,44 @@ def _bound_ms(nbytes, flops, peak_ops):
     return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
 
+def _attn_row(torch, card, timer, label, launch, plain, nbytes=None,
+              flops=None, library=None):
+    """A K1/K2 call held to its plain version at TOL_KERNEL (m, l, acc and
+    the normalised output); with ``library`` also its profiler time (at
+    most 2 launches per call), plain time, bound and SDPA time.  Returns
+    the row."""
+    from repro_torch.kernels import ops
+    got, want = launch(), plain()
+    torch.cuda.synchronize()
+    out_g = got[2] / got[1].clamp(min=1e-30)[..., None]
+    out_w = want[2] / want[1].clamp(min=1e-30)[..., None]
+    rel = max(_close(f"{label} {nm}", g, w) for nm, g, w in
+              (("m", got[0], want[0]), ("l", got[1], want[1]),
+               ("acc", got[2], want[2]), ("out", out_g, out_w)))
+    err = max((out_g - out_w).abs().max().item(),
+              (got[0] - want[0]).abs().max().item())
+    check = (f"kernel {label}: max_abs_err {err:.3e} max_rel_err {rel:.3e} "
+             f"(tol {TOL_KERNEL} of max |plain| on m, l, acc, out)")
+    if library is None:
+        say(card, check)
+        return dict(max_abs_err=err)
+    before = dict(ops.LAUNCHES)
+    ms = timer.kernel_ms(launch, "block_attention")
+    if timer.per_call > 2:
+        raise AssertionError(f"{label}: {timer.per_call} launches per call, "
+                             f"at most 2 allowed")
+    ops.LAUNCHES.update(before)        # timing launches are not the path's
+    plain_ms = timer(plain, iters=3, warmup=1)
+    lib_ms = timer(library)
+    bound, by = _bound_ms(nbytes, flops, PEAK_BF16_S)
+    say(card, f"{check} ms {ms:.4f} ({timer.source}, {timer.per_call} "
+              f"launch(es) per call) plain_ms {plain_ms:.4f} bound_us "
+              f"{bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (SDPA)")
+    return dict(max_abs_err=err, ms=ms, timing=timer.source,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
+
+
 def phase_kernels(torch, card, timer):
     from repro_torch.kernels import ops, ref
     import torch.nn.functional as F
@@ -377,38 +459,20 @@ def phase_kernels(torch, card, timer):
         gets its kernel, plain, bound and SDPA times."""
         args, nbytes, flops, table, pool_k, pool_v = _attn_case(torch, gen, **kw)
         q, kf, vf, idx, vlen, bs, qoff = args
-        got = ops.block_attention(q, kf, vf, idx, vlen, bs, q_offset=qoff)
-        want = ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
-                                           q_offset=qoff)
-        torch.cuda.synchronize()
-        out_g = got[2] / got[1].clamp(min=1e-30)[..., None]
-        out_w = want[2] / want[1].clamp(min=1e-30)[..., None]
-        rel = max(_close(f"{label} {nm}", g, w) for nm, g, w in
-                  (("m", got[0], want[0]), ("l", got[1], want[1]),
-                   ("acc", got[2], want[2]), ("out", out_g, out_w)))
-        err = max((out_g - out_w).abs().max().item(),
-                  (got[0] - want[0]).abs().max().item())
-        if not timed:
-            say(card, f"kernel {label}: max_abs_err {err:.3e} max_rel_err "
-                      f"{rel:.3e} (tol {TOL_KERNEL} of max |plain| on m, l, "
-                      f"acc, out)")
-            results[name]["max_abs_err"] = max(
-                results[name]["max_abs_err"], err)
-            return
-        before = dict(ops.LAUNCHES)
 
         def launch():
             return ops.block_attention(q, kf, vf, idx, vlen, bs,
                                        q_offset=qoff)
-        ms = timer.kernel_ms(launch, "block_attention")
-        if timer.per_call > 2:
-            raise AssertionError(f"{label}: {timer.per_call} launches per "
-                                 f"call, at most 2 allowed")
-        event_ms = timer(launch)
-        ops.LAUNCHES.update(before)        # timing launches are not the path's
-        plain_ms = timer(lambda: ref.block_attention_batched(
-            q, kf, vf, idx, vlen, bs, q_offset=qoff), iters=3, warmup=1)
-        bound, by = _bound_ms(nbytes, flops, PEAK_BF16_S)
+
+        def plain():
+            return ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                               q_offset=qoff)
+        if not timed:
+            err = _attn_row(torch, card, timer, label, launch,
+                            plain)["max_abs_err"]
+            results[name]["max_abs_err"] = max(
+                results[name]["max_abs_err"], err)
+            return
         # the yardstick: one torch SDPA call over the gathered keys with
         # the same mask (GQA: 4 query heads share each KV head)
         qh = q.transpose(1, 2)
@@ -436,23 +500,17 @@ def phase_kernels(torch, card, timer):
                 qpos = kw["causal_qoff"] + torch.arange(q.shape[1],
                                                         device="cuda")
                 mask = torch.arange(ctx, device="cuda")[None] <= qpos[:, None]
-        lib_ms = timer(lambda: F.scaled_dot_product_attention(
-            qh, kh_, vh_, attn_mask=mask, enable_gqa=True))
-        say(card, f"kernel {label}: max_abs_err {err:.3e} max_rel_err "
-                  f"{rel:.3e} (tol {TOL_KERNEL} of max |plain| on m, l, acc, "
-                  f"out) ms {ms:.4f} (profiler, {timer.per_call} launch(es) "
-                  f"per call; events {event_ms:.4f}) "
-                  f"plain_ms {plain_ms:.4f} bound_us "
-                  f"{bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (SDPA)")
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                   bound_by=by, library_ms=lib_ms)
+        row = _attn_row(torch, card, timer, label, launch, plain, nbytes,
+                        flops, lambda: F.scaled_dot_product_attention(
+                            qh, kh_, vh_, attn_mask=mask, enable_gqa=True))
         prev = results.get(name)
         if prev is None or primary:
             if prev is not None:
-                row["max_abs_err"] = max(err, prev["max_abs_err"])
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         prev["max_abs_err"])
             results[name] = row
         else:
-            prev["max_abs_err"] = max(prev["max_abs_err"], err)
+            prev["max_abs_err"] = max(prev["max_abs_err"], row["max_abs_err"])
 
     k1 = "sparse_verify_attention"
     attn_check("K1 full T=61 ctx=8229", k1, t=61, ctx=8229)
@@ -1039,15 +1097,14 @@ def _wkv_checks(torch, card, timer, gen):
 # phase 3: full-width generate
 # ---------------------------------------------------------------------------
 
-def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
-                   new_tokens: int = NEW_TOKENS):
+def _llama_full_width(torch, card, what):
+    """llama3.1-8b at full width (32 layers, bf16) with random weights
+    from seeds 0 and 1, the paper spec, and the 8192-token prompt of
+    phase 3 (seed 0)."""
     import numpy as np
     from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
     from repro_torch.core.draft import init_draft_params
-    from repro_torch.core.engine import SpecPVEngine, request_token_need
-    from repro_torch.kernels import ops
     from repro_torch.models.api import init_params
-
     cfg = get_config("llama3.1-8b")
     spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
     dcfg = DraftConfig()
@@ -1055,19 +1112,45 @@ def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
     params = init_params(cfg, seed=0, device="cuda")
     dparams = init_draft_params(cfg, dcfg, seed=1, device="cuda")
     torch.cuda.synchronize()
-    say(card, f"llama3.1-8b random weights ready in "
+    say(card, f"{what}: llama3.1-8b random weights ready in "
               f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab_size, (1, prompt_len)).astype(np.int64)
+    prompt = rng.integers(0, cfg.vocab_size, (1, PROMPT_LEN)).astype(np.int64)
+    return cfg, spec, dcfg, params, dparams, prompt
+
+
+def phase_generate(torch, card):
+    """Phase 3: the paged zero-copy engine.  Returns the graph run's
+    launches and tokens."""
+    cfg, spec, dcfg, params, dparams, prompt = _llama_full_width(
+        torch, card, "generate")
+    runs = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
+                         prompt, NEW_TOKENS, dict(paged=True, zero_copy=True),
+                         "llama3.1-8b")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return runs["graphs"]
+
+
+def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
+                  new_tokens, layout, name):
+    """``generate`` at full width on the engine ``layout`` gives (paged
+    or not, zero-copy or not), eagerly then with graphs: launches held to
+    the path, final summaries to the plain version, a profiled window,
+    the bodies under the sync check after the eager run, graph tokens
+    and launches equal to eager.  Returns both runs' numbers."""
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.kernels import ops
+    prompt_len = prompt.shape[1]
     tree_path = dcfg.tree_depth + 1
     max_len = request_token_need(prompt_len, new_tokens, spec.buffer_size,
                                  tree_path)
     runs = {}
     for graphs in (False, True):
-        label = RUN_LABEL[graphs]
+        label = f"{name} {RUN_LABEL[graphs]}"
         eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
-                           max_len=max_len, paged=True, zero_copy=True,
-                           device="cuda", cuda_graphs=graphs)
+                           max_len=max_len, device="cuda",
+                           cuda_graphs=graphs, **layout)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
@@ -1079,7 +1162,7 @@ def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
         peak = torch.cuda.max_memory_allocated() / 2**30
         memory_line(torch, card, label, eng, params, dparams, peak)
         decode_s = wall - stats["prefill_s"]
-        say(card, f"generate llama3.1-8b [{label}] (32 layers, bf16, random "
+        say(card, f"generate [{label}] (32 layers, bf16, random "
                   f"weights) prompt {prompt_len} new {new_tokens}: modes "
                   f"{stats['modes']} steps {stats['steps']} mean_accept "
                   f"{stats['mean_accept']:.4f} wall_s {wall:.3f} (prefill_s "
@@ -1096,23 +1179,36 @@ def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
             if launches[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched on the "
                                      f"path")
-        # K4: one launch per prefill chunk and per commit, over every layer
+        # one K1 per layer and step (the full cache or the partial body),
+        # K2 per layer and prefill chunk, K3 per layer and Refresh, K4
+        # once per prefill chunk and per commit over every layer
         chunks = -(-prompt_len // 256)
-        commits = (stats["modes"].get("refresh", 0)
-                   + stats["modes"].get("full", 0))
-        if launches["block_summary"] != chunks + commits:
-            raise AssertionError(f"K4 launches {launches['block_summary']} "
-                                 f"!= {chunks} prefill chunks + {commits} "
-                                 f"commits")
-        say(card, f"K4 launches [{label}] {launches['block_summary']} = "
-                  f"{chunks} prefill chunks + {commits} commits, each over "
-                  f"{cfg.num_layers} layers")
+        refresh = stats["modes"].get("refresh", 0)
+        commits = refresh + stats["modes"].get("full", 0)
+        layers = cfg.num_layers
+        want = {"sparse_verify_attention": layers * stats["steps"],
+                "paged_prefill_attention": layers * chunks,
+                "retrieval_score": layers * refresh,
+                "block_summary": chunks + commits}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"launches {got} != {want} implied by "
+                                 f"{stats['steps']} steps ({stats['modes']}) "
+                                 f"and {chunks} prefill chunks")
+        say(card, f"launches [{label}] {got} = implied by {stats['steps']} "
+                  f"steps and {chunks} prefill chunks (K4: {chunks} chunks + "
+                  f"{commits} commits, each over {layers} layers)")
         want_graphs = {("prefill", 256), (True, False, True),
                        (False, True, False)}
         if graphs and set(eng._graphs) != want_graphs:
             raise AssertionError(f"graphs captured: "
                                  f"{sorted(map(str, eng._graphs))}")
-        _check_final_summaries(torch, card, eng.final_state.cache)
+        if eng.paged:
+            _check_final_summaries(torch, card, eng.final_state.cache)
+        else:
+            _check_final_contiguous_summaries(torch, card,
+                                              eng.final_state.cache,
+                                              spec.block_size)
         eng.final_state = None
         if toks.shape != (1, new_tokens) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
@@ -1122,16 +1218,15 @@ def phase_generate(torch, card, prompt_len: int = PROMPT_LEN,
                              prefill_kernel="block_summary_kernel")
         if not graphs:
             check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
-        runs[label] = dict(toks=toks, launches=launches, wall_s=wall,
-                           tokens_per_s=new_tokens / wall,
-                           prefill_s=stats["prefill_s"], peak_gib=peak,
-                           capture_s=eng.capture_s, **prof)
+        runs[RUN_LABEL[graphs]] = dict(
+            toks=toks, launches=launches, wall_s=wall,
+            tokens_per_s=new_tokens / wall, prefill_s=stats["prefill_s"],
+            peak_gib=peak, capture_s=eng.capture_s, steps=stats["steps"],
+            **prof)
         del eng
         torch.cuda.empty_cache()
-    compare_runs(card, "llama3.1-8b", runs)
-    del params, dparams
-    torch.cuda.empty_cache()
-    return runs["graphs"]["launches"]
+    compare_runs(card, name, runs)
+    return runs
 
 
 RUN_LABEL = {False: "eager", True: "graphs"}
@@ -1240,6 +1335,27 @@ def _check_final_summaries(torch, card, cache):
     say(card, f"final cache summaries ({tuple(cache['kmax'].shape)}, "
               f"length {length.tolist()}) equal the plain recomputation "
               f"bit for bit; the null page is 0 in every layer")
+
+
+def _check_final_contiguous_summaries(torch, card, cache, bs):
+    """The contiguous cache's summaries ``generate`` left, against the
+    plain per-layer recomputation over [0, length) from its K, bit for
+    bit (blocks past the length stay 0 in both)."""
+    from repro_torch.kvcache.cache import update_layer_summaries
+    length = cache["length"]
+    zero = torch.zeros_like(length)
+    for i in range(cache["k"].shape[0]):
+        want = update_layer_summaries(torch.zeros_like(cache["kmax"][i]),
+                                      torch.zeros_like(cache["kmin"][i]),
+                                      cache["k"][i], zero, length, bs)
+        for name, w in zip(("kmax", "kmin"), want):
+            if not torch.equal(cache[name][i], w):
+                raise AssertionError(f"final contiguous cache {name} of "
+                                     f"layer {i} differs from the plain "
+                                     f"recomputation")
+    say(card, f"final contiguous cache summaries "
+              f"({tuple(cache['kmax'].shape)}, length {length.tolist()}) "
+              f"equal the plain recomputation bit for bit")
 
 
 def _device_busy(prof):
@@ -1395,14 +1511,17 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
 # phase 4: losslessness at full width, reduced depth, fp32
 # ---------------------------------------------------------------------------
 
-def phase_lossless(torch, card, prompt_len: int, new_tokens: int):
+LOSSLESS_PROMPT, LOSSLESS_NEW = 4800, 32
+
+
+def _lossless_setup(torch, prompt_len, new_tokens):
+    """The fp32 losslessness inputs of phases 4 and 8: llama3.1-8b at
+    full width and 4 layers, TF32 off, seeds 2 and 3, prompt seed 1."""
     import numpy as np
     from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
     from repro_torch.core.draft import init_draft_params
-    from repro_torch.core.engine import SpecPVEngine, request_token_need
-    from repro_torch.core.reference import autoregressive_generate
+    from repro_torch.core.engine import request_token_need
     from repro_torch.models.api import init_params
-
     # fp32 results are compared: keep matmuls and convolutions out of TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1416,6 +1535,19 @@ def phase_lossless(torch, card, prompt_len: int, new_tokens: int):
     prompt = rng.integers(0, cfg.vocab_size, (1, prompt_len)).astype(np.int64)
     max_len = request_token_need(prompt_len, new_tokens, spec.buffer_size,
                                  dcfg.tree_depth + 1)
+    return cfg, spec, dcfg, params, dparams, prompt, max_len
+
+
+def phase_lossless(torch, card, prompt_len: int = LOSSLESS_PROMPT,
+                   new_tokens: int = LOSSLESS_NEW):
+    """Phase 4.  Returns the AR tokens and the paged zero-copy partial
+    run's, which phase 8 holds its layouts to."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.core.reference import autoregressive_generate
+
+    cfg, spec, dcfg, params, dparams, prompt, max_len = _lossless_setup(
+        torch, prompt_len, new_tokens)
     t0 = time.perf_counter()
     ar = autoregressive_generate(cfg, params, prompt, new_tokens,
                                  max_len=max_len, spec=spec, device="cuda")
@@ -1449,6 +1581,7 @@ def phase_lossless(torch, card, prompt_len: int, new_tokens: int):
               f"{time.perf_counter() - t0:.1f} s")
     del params, dparams
     torch.cuda.empty_cache()
+    return dict(ar=ar, partial=toks_part[True])
 
 
 # ---------------------------------------------------------------------------
@@ -1688,7 +1821,8 @@ def phase_serving(torch, card):
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
                for n, _ in SERVE_REQS]
     scfg = ServingConfig(batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
-                         num_pages=SERVE_PAGES, prefix_cache=False)
+                         num_pages=SERVE_PAGES, paged_kv=True,
+                         zero_copy_partial=True, prefix_cache=False)
     runs = {}
     for graphs in (True, False):
         label = RUN_LABEL[graphs]
@@ -1786,7 +1920,8 @@ def phase_serving(torch, card):
               "launch counts equal")
     # each request alone through batch-1 generate on one engine
     solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
-                        max_len=SERVE_MAX_LEN, device="cuda")
+                        max_len=SERVE_MAX_LEN, paged=True, zero_copy=True,
+                        device="cuda")
     match, first_diff = 0, {}
     for i, ((n, new), p) in enumerate(zip(SERVE_REQS, prompts)):
         t, _ = solo.generate(p[None], new)
@@ -1873,9 +2008,12 @@ def check_sync_free_serving(torch, card, eng, prompts):
         st, _ = eng.prefill_into_slot(st, slot, prompts[slot],
                                       max_new_tokens=32)
     toks = eng._chunk_buf(1, 256)
-    cache = dict(eng._slot_cache, **{n: st.cache[n]
-                                     for n in ("k", "v", "kmax", "kmin")})
-    dcache = dict(eng._slot_dcache, k=st.dcache["k"], v=st.dcache["v"])
+    if eng.paged:
+        cache = dict(eng._slot_cache, **{n: st.cache[n]
+                                         for n in ("k", "v", "kmax", "kmin")})
+        dcache = dict(eng._slot_dcache, k=st.dcache["k"], v=st.dcache["v"])
+    else:                   # a cursor's whole batch-1 rows
+        cache, dcache = eng._slot_cache, eng._slot_dcache
     bodies = [("slot prefill chunk", None, lambda: eng._prefill_body(
         toks, cache, dcache, eng._slot_prev_feat, eng._slot_logits))]
     for label, modes, key in (
@@ -1903,11 +2041,16 @@ def check_sync_free_serving(torch, card, eng, prompts):
               f"without a sync")
 
 
-def serving_lossless(torch, card, layers: int = 4, new: int = 32):
+PAGED_ZERO_COPY = dict(paged=True, zero_copy=True)
+
+
+def serving_lossless(torch, card, layers: int = 4, new: int = 32,
+                     layout=PAGED_ZERO_COPY):
     """fp32 at full width, ``layers`` layers: batch 2, three requests (one
     under the partial budget, two over), ``prefill_budget=512``
     (interleaved), with graphs: every request equals its solo batch-1
-    ``generate`` and a blocking run of the same trace."""
+    ``generate`` and a blocking run of the same trace, on the engine
+    ``layout`` gives."""
     import numpy as np
     from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
     from repro_torch.core.draft import init_draft_params
@@ -1933,10 +2076,12 @@ def serving_lossless(torch, card, layers: int = 4, new: int = 32):
     toks = {}
     for budget in (512, None):
         srv = ServingEngine(cfg, spec, dcfg, params, dparams,
-                            ServingConfig(batch=2, max_len=max_len,
-                                          prefill_budget=budget,
-                                          prefix_cache=False),
-                            device="cuda")
+                            ServingConfig(
+                                batch=2, max_len=max_len,
+                                prefill_budget=budget,
+                                paged_kv=layout["paged"],
+                                zero_copy_partial=layout["zero_copy"],
+                                prefix_cache=False), device="cuda")
         for r in _serving_requests(prompts, spec_reqs):
             srv.submit(r)
         srv.run()
@@ -1947,7 +2092,7 @@ def serving_lossless(torch, card, layers: int = 4, new: int = 32):
             raise AssertionError("the interleaved run pumped no chunk")
         del srv
     solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
-                        max_len=max_len, device="cuda")
+                        max_len=max_len, device="cuda", **layout)
     for i, p in enumerate(prompts):
         t, _ = solo.generate(p[None], new)
         for budget, label in ((512, "interleaved"), (None, "blocking")):
@@ -1956,7 +2101,8 @@ def serving_lossless(torch, card, layers: int = 4, new: int = 32):
                                      f"from solo generate:\n"
                                      f"{toks[budget][f'r{i}']}\n{t[0]}")
     say(card, f"serving lossless llama3.1-8b x{layers} layers fp32, graphs, "
-              f"batch 2, prompts {[n for n, _ in spec_reqs]}: interleaved "
+              f"{layout}, batch 2, prompts {[n for n, _ in spec_reqs]}: "
+              f"interleaved "
               f"(prefill_budget 512) == blocking == solo generate for every "
               f"request over {new} tokens (mode rows {modes}); "
               f"{time.perf_counter() - t0:.1f} s")
@@ -2044,7 +2190,8 @@ def phase_prefix_serving(torch, card):
         label = "shared" if share else "unshared"
         srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
             batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
-            num_pages=PREFIX_PAGES, prefix_cache=share), device="cuda")
+            num_pages=PREFIX_PAGES, paged_kv=True, zero_copy_partial=True,
+            prefix_cache=share), device="cuda")
         eng = srv._engine_for(4, paged=True)
         cold = eng.pages_needed(len(prompts[0]), PREFIX_NEW)
         cap = eng.page_capacity()
@@ -2237,8 +2384,8 @@ def fork_check(torch, card, cfg, spec, dcfg, params, dparams,
     cost = {}
     for graphs in (True, False):
         eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
-                           max_len=max_len, device="cuda",
-                           cuda_graphs=graphs)
+                           max_len=max_len, paged=True, zero_copy=True,
+                           device="cuda", cuda_graphs=graphs)
         al, dal = eng._page_alloc, eng._draft_alloc
 
         def run(fork):
@@ -2386,8 +2533,8 @@ def prefix_lossless(torch, card, layers: int = 4, new: int = 32):
     host = {}
     for share in (True, False):
         srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
-            batch=4, max_len=max_len, prefill_budget=512,
-            prefix_cache=share), device="cuda")
+            batch=4, max_len=max_len, prefill_budget=512, paged_kv=True,
+            zero_copy_partial=True, prefix_cache=share), device="cuda")
         if share:
             eng = srv._engine_for(4, paged=True)
             for name in ("_register_blocks", "_dedupe_block"):
@@ -2401,7 +2548,8 @@ def prefix_lossless(torch, card, layers: int = 4, new: int = 32):
     if not (pre[True]["dedups"] > 0 and pre[True]["blocks_matched"] > 0):
         raise AssertionError(f"fp32 shared run: {pre[True]}")
     solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
-                        max_len=max_len, device="cuda")
+                        max_len=max_len, paged=True, zero_copy=True,
+                        device="cuda")
     for i, p in enumerate(prompts):
         t, _ = solo.generate(p[None], new)
         for share in (True, False):
@@ -2426,14 +2574,423 @@ def prefix_lossless(torch, card, layers: int = 4, new: int = 32):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 8: the reference's default engine (contiguous cache, gathered body)
+# ---------------------------------------------------------------------------
+
+DEFAULT_LAYOUT = dict(paged=False, zero_copy=False)
+PAGED_GATHERED = dict(paged=True, zero_copy=False)
+# phase 3's max_len (request_token_need(8192, 128, 96, 6)): not a multiple
+# of the 128-token block, so the contiguous rows past it are padding
+CONTIG_MAX_LEN = 8431
+
+
+def _attn_work(q, vlen, t, causal_pairs=None):
+    """(bytes, operations) of one K1/K2 call: q, the valid keys and
+    values, the block lists and the fp32 partials; 4 operations per
+    (query, key) pair and head dimension."""
+    b, _, h, dh = q.shape
+    hk = vlen.shape[1]
+    keys = int(vlen.sum().item())
+    pairs = causal_pairs if causal_pairs is not None else keys * (h // hk) * t
+    isz = q.element_size()
+    nbytes = (q.numel() * isz + 2 * keys * dh * isz + 2 * vlen.numel() * 4
+              + (2 + dh) * h * t * 4 * b)
+    return nbytes, 4 * pairs * dh
+
+
+def _contiguous_kernel_checks(torch, card, timer):
+    """Phase 8 (c): the new call forms at llama3.1-8b shapes against their
+    plain versions, timed: K1 over a contiguous cache through the
+    identity list (Full T=61, Refresh T=156, 8229 tokens of a max_len-8431
+    cache), K1 over the gathered body (35 selected blocks, the last three
+    unused), K2 over the contiguous cache (T=256 at offset 7936), and K4's
+    all-layer contiguous form (32 layers of the 8431-row cache, bit for
+    bit against the plain per-layer recomputation).  Returns {kernel:
+    {label: row}}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kvcache.cache import (init_contiguous_kv,
+                                           update_layer_summaries)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    h, hk, dh, bs, ctx = 32, 8, 128, 128, 8229
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+    k, v = init_contiguous_kv(1, 1, CONTIG_MAX_LEN, bs, hk, dh, bf, "cuda")
+    k, v = k[0], v[0]                                   # [1, S, Hk, Dh]
+    k.copy_(rnd(*k.shape))
+    v.copy_(rnd(*v.shape))
+    kf, rows = ops.flat_blocks(k)
+    vf, _ = ops.flat_blocks(v)
+    nb = rows // bs
+    out = {"sparse_verify_attention": {}, "paged_prefill_attention": {},
+           "block_summary": {}}
+    kh = k[:, :ctx].transpose(1, 2)
+    vh = v[:, :ctx].transpose(1, 2)
+    for t, what in ((61, "Full"), (156, "Refresh")):
+        q = rnd(1, t, h, dh)
+        length = torch.tensor([ctx], dtype=torch.int32, device="cuda")
+        idx, vlen = ops._identity_walk(1, hk, nb, length, CONTIG_MAX_LEN, bs)
+        label = f"K1 contiguous {what} T={t} ctx={ctx}"
+        out["sparse_verify_attention"][label] = _attn_row(
+            torch, card, timer, label,
+            lambda q=q, length=length: ops.contiguous_verify_attention(
+                q, k, v, length, bs),
+            lambda q=q, idx=idx, vlen=vlen: ref.block_attention_batched(
+                q, kf, vf, idx, vlen, bs),
+            *_attn_work(q, vlen, t),
+            lambda q=q: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kh, vh, enable_gqa=True))
+    # the gathered body: [1, NS*bs, Hk, Dh] token-major, slot j of head kh
+    # holding the block it selected; block ids b*NS + j as the engine's
+    ns = 35
+    body_k, body_v = rnd(1, ns * bs, hk, dh), rnd(1, ns * bs, hk, dh)
+    sel = torch.stack([torch.randperm(nb - 2, generator=gen, device="cuda")
+                       [:ns] for _ in range(hk)])[None]
+    sel[..., -3:] = -1
+    sel[..., ns - 4] = ctx // bs                        # the ragged block
+    length = torch.tensor([ctx], device="cuda")
+    vlen = torch.where(sel >= 0, (length[:, None, None] - sel * bs)
+                       .clamp(0, bs), 0).to(torch.int32).contiguous()
+    idx = torch.arange(ns, device="cuda", dtype=torch.int32)[None, None] \
+        .expand(1, hk, ns).contiguous()
+    q = rnd(1, 61, h, dh)
+    bkf = body_k.reshape(ns * bs, hk, dh)
+    bvf = body_v.reshape(ns * bs, hk, dh)
+    valid = (torch.arange(bs, device="cuda")[None, None] < vlen[0][..., None]
+             ).reshape(hk, -1)
+    mask = valid.repeat_interleave(h // hk, 0)[None, :, None]
+    label = f"K1 gathered body NS={ns} T=61"
+    out["sparse_verify_attention"][label] = _attn_row(
+        torch, card, timer, label,
+        lambda: ops.routed_partial_attention(
+            q, body_k.reshape(ns, bs, hk, dh), body_v.reshape(ns, bs, hk, dh),
+            idx, vlen),
+        lambda: ref.block_attention_batched(q, bkf, bvf, idx, vlen, bs),
+        *_attn_work(q, vlen, 61),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), body_k.transpose(1, 2),
+            body_v.transpose(1, 2), attn_mask=mask, enable_gqa=True))
+    # K2: the chunk [7936, 8192) over the contiguous cache's prefix
+    t, qoff = 256, 7936
+    q = rnd(1, t, h, dh)
+    length = torch.tensor([qoff], dtype=torch.int32, device="cuda")
+    tv = torch.tensor([t], dtype=torch.int32, device="cuda")
+    idx2, vlen2 = ops._identity_walk(1, hk, nb, length + tv, CONTIG_MAX_LEN,
+                                     bs)
+    got = ops.contiguous_prefill_attention(q, k, v, length, tv, bs)
+    m, l_, acc = ops.block_attention(q, kf, vf, idx2, vlen2, bs,
+                                     q_offset=length)
+    if not torch.equal(got, (acc / l_.clamp(min=1e-30)[..., None])
+                       .transpose(1, 2).to(bf)):
+        raise AssertionError("K2 contiguous: the wrapper's output is not "
+                             "its launch's normalised partials")
+    kpos = torch.arange(qoff + t, device="cuda")
+    qpos = qoff + torch.arange(t, device="cuda")
+    cmask = kpos[None] <= qpos[:, None]
+    pairs = int(cmask.sum().item()) * h
+    label = f"K2 contiguous T={t} qoff={qoff}"
+    out["paged_prefill_attention"][label] = _attn_row(
+        torch, card, timer, label,
+        lambda: ops.block_attention(q, kf, vf, idx2, vlen2, bs,
+                                    q_offset=length),
+        lambda: ref.block_attention_batched(q, kf, vf, idx2, vlen2, bs,
+                                            q_offset=length),
+        *_attn_work(q, vlen2, t, causal_pairs=pairs),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k[:, : qoff + t].transpose(1, 2),
+            v[:, : qoff + t].transpose(1, 2), attn_mask=cmask,
+            enable_gqa=True))
+    del k, v, kf, vf, body_k, body_v
+    # K4: every layer of a contiguous cache in one launch
+    layers = 32
+    k, _ = init_contiguous_kv(layers, 1, CONTIG_MAX_LEN, bs, hk, dh, bf,
+                              "cuda")
+    for i in range(layers):
+        k[i].copy_(rnd(*k.shape[1:]))
+    kf, _ = ops.flat_blocks(k)
+    nb = -(-CONTIG_MAX_LEN // bs)
+    for label, start, end, n_touch in (
+            ("prefill chunk", 7936, 8192, 3), ("commit", 8250, 8340, 2),
+            ("commit past max_len", 8400, 8440, 2)):
+        st = torch.tensor([start], dtype=torch.int32, device="cuda")
+        en = torch.tensor([end], dtype=torch.int32, device="cuda")
+        got = torch.zeros((2, layers, 1, nb, hk, dh), device="cuda")
+        ops.contiguous_block_summaries(k, st, en, n_touch, got[0], got[1],
+                                       bs)
+
+        def plain():
+            z = torch.zeros((1, nb, hk, dh), device="cuda")
+            return [update_layer_summaries(z, z, k[i], st, en, bs)
+                    for i in range(layers)]
+        want = plain()
+        torch.cuda.synchronize()
+        for i, (wx, wn) in enumerate(want):
+            if not (torch.equal(got[0, i], wx) and torch.equal(got[1, i], wn)):
+                raise AssertionError(f"K4 contiguous {label}: layer {i} "
+                                     f"differs from the plain version")
+        before = dict(ops.LAUNCHES)
+        ms = timer.kernel_ms(lambda: ops.contiguous_block_summaries(
+            k, st, en, n_touch, got[0], got[1], bs), "block_summary_kernel")
+        if timer.per_call != 1:
+            raise AssertionError(f"K4: {timer.per_call} launches per call")
+        ops.LAUNCHES.update(before)
+        plain_ms = timer(plain, iters=3, warmup=1)
+        live = [(j, min(end - j * bs, bs)) for j in range(start // bs,
+                                                          -(-end // bs))]
+        blocks = (torch.arange(layers, device="cuda")[:, None] * nb
+                  + torch.tensor([j for j, _ in live], device="cuda")[None]
+                  ).reshape(-1)
+        kb = kf.view(layers * nb, bs, hk, dh)
+        lib_ms = timer(lambda: torch.aminmax(kb[blocks], dim=1))
+        n_tok = layers * sum(n for _, n in live)
+        nbytes = (n_tok * hk * dh * 2 + 2 * layers * len(live) * hk * dh * 4
+                  + 8)
+        bound, by = _bound_ms(nbytes, 2 * n_tok * hk * dh, PEAK_FP32_S)
+        say(card, f"kernel K4 contiguous {label} L={layers} max_len "
+                  f"{CONTIG_MAX_LEN} [{start}, {end}) n_touch={n_touch}: "
+                  f"bit-equal to the plain per-layer version, 1 launch; ms "
+                  f"{ms:.4f} ({timer.source}) plain_ms {plain_ms:.4f} "
+                  f"bound_us {bound * 1e3:.3f} ({by}) library_ms "
+                  f"{lib_ms:.4f} "
+                  f"(torch.aminmax over the gathered live blocks)")
+        out["block_summary"][f"contiguous {label} L=32"] = dict(
+            max_abs_err=0.0, ms=ms, timing=timer.source, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    del k, kf
+    torch.cuda.empty_cache()
+    return out
+
+
+def _layouts_agree(torch, card, cfg, spec, dcfg, params, dparams, prompt):
+    """Phase 8 (b): after the same prefill the contiguous engine's K/V and
+    summaries equal the paged zero-copy engine's through the page table,
+    bit for bit; after one Refresh each, the same selection, and the
+    gathered body's Partial attention (K1) equals the routed read of the
+    pool, bit for bit, at three layers."""
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.models import dense as dn
+    con = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=CONTIG_MAX_LEN, device="cuda", **DEFAULT_LAYOUT)
+    zc = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                      max_len=CONTIG_MAX_LEN, device="cuda",
+                      **PAGED_ZERO_COPY)
+    sc, sz = con.prefill(prompt), zc.prefill(prompt)
+    torch.cuda.synchronize()
+    n, bs = prompt.shape[1], spec.block_size
+    nb = -(-n // bs)
+    pt = sz.cache["page_table"][0].long()
+    hk, dh = cfg.num_kv_heads, cfg.head_dim_
+    for i in range(cfg.num_layers):
+        for name in ("k", "v"):
+            view = sz.cache[name][i][pt].reshape(-1, hk, dh)[:n]
+            if not torch.equal(sc.cache[name][i, 0, :n], view):
+                raise AssertionError(f"layer {i} {name}: contiguous != paged")
+        for name in ("kmax", "kmin"):
+            if not torch.equal(sc.cache[name][i, 0, :nb],
+                               sz.cache[name][i][pt[:nb]]):
+                raise AssertionError(f"layer {i} {name}: contiguous != paged")
+    sc, oc = con.step(sc, "refresh")
+    sz, oz = zc.step(sz, "refresh")
+    if not (torch.equal(sc.pkv_blocks, sz.pkv_blocks)
+            and (oc.tokens == oz.tokens).all()):
+        raise AssertionError("one Refresh: the contiguous and paged engines "
+                             "select different blocks")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    q = torch.randn((1, 61, cfg.num_heads, dh), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    for i in (0, cfg.num_layers // 2, cfg.num_layers - 1):
+        routed = dn._partial_context(
+            q, (sz.cache["k"][i], sz.cache["v"][i]), sz.cache["page_table"],
+            sz.pkv_blocks[:, i], sz.cache["length"],
+            (sz.pkv_k[i], sz.pkv_v[i], sz.pkv_pos[i]), bs)
+        gathered = dn._partial_context(
+            q, None, None, sc.pkv_blocks[:, i], sc.cache["length"],
+            (sc.pkv_k[i], sc.pkv_v[i], sc.pkv_pos[i], sc.pkv_body_k[i],
+             sc.pkv_body_v[i]), bs)
+        for a, b in zip(gathered, routed):
+            if not torch.equal(a, b):
+                raise AssertionError(f"layer {i}: gathered body partial "
+                                     f"attention != routed")
+    say(card, f"layouts agree: after an {n}-token prefill the contiguous "
+              f"K/V and summaries of all {cfg.num_layers} layers equal the "
+              f"paged pool's through the page table, bit for bit; after one "
+              f"Refresh each the selection is the same and the gathered "
+              f"body's K1 Partial result equals the routed one bit for bit "
+              f"(layers 0, {cfg.num_layers // 2}, {cfg.num_layers - 1})")
+    del con, zc, sc, sz
+    torch.cuda.empty_cache()
+
+
+def _contiguous_serving(torch, card, cfg, spec, dcfg, params, dparams,
+                        paged_run):
+    """Phase 8 (e) at full width: the reference's ``ServingConfig()``
+    (contiguous slots, gathered body; ``fused_prefill=False``) at batch 4
+    over phase 6's six requests, with graphs: admission by free slot,
+    launches held to the steps' variants and chunks, graphs per variant,
+    the serving bodies under the sync check; numbers beside phase 6's
+    paged run.  Returns the run's launches."""
+    import numpy as np
+    from repro_torch.serving import ServingConfig, ServingEngine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in SERVE_REQS]
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+        batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256), device="cuda")
+    outs, wall, launches, peak = _serve(
+        torch, srv, _serving_requests(prompts, SERVE_REQS))
+    sched = srv._continuous
+    eng = sched.engine
+    st = srv.stats
+    if eng.paged or not eng.gathered:
+        raise AssertionError("ServingConfig() must serve contiguous slots "
+                             "with the gathered partial cache")
+    for i, (n, new) in enumerate(SERVE_REQS):
+        o = outs[f"r{i}"]
+        if (o.finish_reason != "length" or len(o.tokens) != new
+                or o.tokens.min() < 0 or o.tokens.max() >= cfg.vocab_size):
+            raise AssertionError(f"request r{i}: {o.finish_reason}, "
+                                 f"{len(o.tokens)} tokens")
+    if st.get("page_stalls", 0) or st["peak_active"] != 4:
+        raise AssertionError(f"admission by free slot: {dict(st)}")
+    if not (st["mode_rows_refresh"] and st["mode_rows_partial"]):
+        raise AssertionError(f"the ticks must run Refresh and Partial rows: "
+                             f"{dict(st)}")
+    want = _expected_serving_launches(eng, cfg.num_layers)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"contiguous serving launches {got} != {want} "
+                             f"implied by {eng.dispatch_keys} and "
+                             f"{eng.prefill_dispatches} prefill chunks")
+    want_graphs = {("slot_prefill", 256)} | set(eng.dispatch_keys)
+    if set(eng._graphs) != want_graphs:
+        raise AssertionError(f"graphs {sorted(map(str, eng._graphs))}")
+    lat = np.array([o.latency_s for o in outs.values()])
+    ntok = int(sum(len(o.tokens) for o in outs.values()))
+    ticks = {c: (len(v), 1e3 * float(np.median(v)))
+             for c, v in sched.tick_wall.items()}
+    beside = ""
+    if paged_run:
+        beside = (f" [phase 6 paged zero-copy: tokens_per_s "
+                  f"{paged_run['tokens_per_s']:.2f} p50 "
+                  f"{paged_run['p50']:.3f} p95 {paged_run['p95']:.3f} "
+                  f"ticks {paged_run['ticks']}]")
+    say(card, f"contiguous serving llama3.1-8b [graphs] ServingConfig() "
+              f"batch 4, requests {[n for n, _ in SERVE_REQS]}: tokens {ntok} "
+              f"wall_s {wall:.3f} tokens_per_s {ntok / wall:.2f} latency_s "
+              f"p50 {np.percentile(lat, 50):.3f} p95 "
+              f"{np.percentile(lat, 95):.3f} steps {int(st['steps'])} "
+              f"prefill chunks {eng.prefill_dispatches} peak_mem_gib "
+              f"{peak:.2f} capture_s {eng.capture_s:.3f} tick wall ms by "
+              f"class (ticks, median) {ticks}{beside}")
+    say(card, f"contiguous serving launches {got} == implied by "
+              f"{ {str(k): n for k, n in eng.dispatch_keys.items()} } and "
+              f"{eng.prefill_dispatches} chunks")
+    memory_line(torch, card, "contiguous serving", eng, params, dparams,
+                peak)
+    check_sync_free_serving(torch, card, eng, prompts)
+    del srv, sched, eng
+    torch.cuda.empty_cache()
+    return got, dict(tokens_per_s=ntok / wall,
+                     p50=float(np.percentile(lat, 50)),
+                     p95=float(np.percentile(lat, 95)), ticks=ticks,
+                     peak_gib=peak)
+
+
+def _default_lossless(torch, card, ref):
+    """Phase 8 (d): fp32 at 4 layers, TF32 off, with graphs.  The
+    contiguous gathered, paged gathered and paged gathered-view
+    (``use_pallas=False``) engines give the port's AR tokens with full
+    verification and phase 4's paged zero-copy tokens with partial
+    verification (computed here when phase 4 did not run)."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.core.reference import autoregressive_generate
+    cfg, spec, dcfg, params, dparams, prompt, max_len = _lossless_setup(
+        torch, LOSSLESS_PROMPT, LOSSLESS_NEW)
+    t0 = time.perf_counter()
+    if ref is None:
+        zc = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                          max_len=max_len, device="cuda", **PAGED_ZERO_COPY)
+        ref = dict(ar=autoregressive_generate(
+            cfg, params, prompt, LOSSLESS_NEW, max_len=max_len, spec=spec,
+            device="cuda"), partial=zc.generate(prompt, LOSSLESS_NEW)[0])
+        del zc
+    for name, layout, sp in (
+            ("contiguous gathered", DEFAULT_LAYOUT, spec),
+            ("paged gathered", PAGED_GATHERED, spec),
+            ("paged gathered view", PAGED_GATHERED,
+             spec.replace(use_pallas=False))):
+        for pv, want in ((False, ref["ar"]), (True, ref["partial"])):
+            eng = SpecPVEngine(cfg, sp, dcfg, params, dparams, batch=1,
+                               max_len=max_len, partial_verification=pv,
+                               device="cuda", **layout)
+            toks, stats = eng.generate(prompt, LOSSLESS_NEW)
+            if not eng._graphs:
+                raise AssertionError(f"{name}: no graph replayed")
+            if not np.array_equal(toks, want):
+                raise AssertionError(
+                    f"fp32 {name} ({'partial' if pv else 'full'} "
+                    f"verification) differs from "
+                    f"{'the zero-copy run' if pv else 'AR'}:\n{toks}\n{want}")
+            if pv and not (stats["modes"].get("refresh")
+                           and stats["modes"].get("partial")):
+                raise AssertionError(f"{name}: modes {stats['modes']}")
+            del eng
+    say(card, f"lossless llama3.1-8b x4 layers fp32, graphs: the contiguous "
+              f"gathered, paged gathered and paged gathered-view "
+              f"(use_pallas=False) engines give AR's tokens with full "
+              f"verification and the paged zero-copy run's with partial "
+              f"verification over {LOSSLESS_NEW} tokens; "
+              f"{time.perf_counter() - t0:.1f} s")
+    del params, dparams
+    torch.cuda.empty_cache()
+
+
+def phase_default_engine(torch, card, timer, p3=None, p4=None, p6=None):
+    """Phase 8: the reference's default engine, ``SpecPVEngine(paged=False,
+    zero_copy=False)``: (c) the new kernel call forms, (a) full-width
+    ``generate`` eagerly and with graphs, (b) the layouts agree on the
+    card, (e) contiguous continuous batching, (d) fp32 losslessness of
+    the gathered layouts and of contiguous serving.  Returns the
+    launches of (a)'s graph run and (e)'s, and the call forms' rows."""
+    t0 = time.perf_counter()
+    shapes = _contiguous_kernel_checks(torch, card, timer)
+    cfg, spec, dcfg, params, dparams, prompt = _llama_full_width(
+        torch, card, "default engine")
+    runs = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
+                         prompt, NEW_TOKENS, DEFAULT_LAYOUT,
+                         "llama3.1-8b contiguous")
+    g = runs["graphs"]
+    if p3 is not None:
+        same = int((g["toks"] == p3["toks"]).sum())
+        say(card, f"contiguous gathered bf16 tokens equal to phase 3's paged "
+                  f"zero-copy run: {same} of {g['toks'].size} (not asserted)")
+    _layouts_agree(torch, card, cfg, spec, dcfg, params, dparams, prompt)
+    serving, srv_nums = _contiguous_serving(torch, card, cfg, spec, dcfg,
+                                            params, dparams, p6)
+    del params, dparams
+    torch.cuda.empty_cache()
+    _default_lossless(torch, card, p4)
+    serving_lossless(torch, card, layout=DEFAULT_LAYOUT)
+    say(card, f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    return dict(launches=g["launches"], serving_launches=serving,
+                shapes=shapes, serving=srv_nums)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
-                         "(llama serving with shared prefixes); 1 and 8 "
-                         "always run")
+                         "(llama serving with shared prefixes), 8 (the "
+                         "reference's default engine: contiguous cache, "
+                         "gathered partial cache); 1 and 9 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -2465,16 +3022,19 @@ def main(argv=None) -> int:
 
     timer = Timer(torch)
     kres = phase_kernels(torch, card, timer) if 2 in phases else {}
-    llama = (phase_generate(torch, card) if 3 in phases
-             else {k: 0 for k in ops.KERNELS})
-    if 4 in phases:
-        phase_lossless(torch, card, prompt_len=4800, new_tokens=32)
+    p3 = phase_generate(torch, card) if 3 in phases else None
+    llama = p3["launches"] if p3 else {k: 0 for k in ops.KERNELS}
+    p4 = phase_lossless(torch, card) if 4 in phases else None
     rwkv = (phase_rwkv(torch, card) if 5 in phases
             else {k: 0 for k in ops.KERNELS})
     serving = (phase_serving(torch, card) if 6 in phases
                else {"launches": {}})
     prefix = (phase_prefix_serving(torch, card) if 7 in phases
               else {"launches": {}})
+    p8 = (phase_default_engine(torch, card, timer, p3, p4,
+                               serving if 6 in phases else None)
+          if 8 in phases else {"launches": {}, "serving_launches": {},
+                               "shapes": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -2486,6 +3046,10 @@ def main(argv=None) -> int:
                              serving["launches"].get(name, 0)),
                          prefix_serving_launches=int(
                              prefix["launches"].get(name, 0)),
+                         contiguous_launches=int(
+                             p8["launches"].get(name, 0)),
+                         contiguous_serving_launches=int(
+                             p8["serving_launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -2504,6 +3068,10 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
+        # phase 8's call forms (launches counted per kernel above)
+        for label, vals in p8["shapes"].get(name, {}).items():
+            rows[-1].setdefault("shapes", []).append(dict(shape=label,
+                                                          **vals))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,10 +3,14 @@ paper Algorithm 1), greedy:
 
   prefill (chunked) -> [ draft -> verify(mode) -> accept -> commit ]*
 
-over the paged trunk cache with zero-copy partial KV: a refresh stores
-the retrieval-selected logical block ids per layer and KV head
-(``EngineState.pkv_blocks``) and pins their physical pages; partial
-steps read those pages in place plus a small dense tail buffer.
+over the contiguous trunk cache (``paged=False``, the reference's
+default) or the paged pool.  A refresh stores the retrieval-selected
+logical block ids per layer and KV head (``EngineState.pkv_blocks``).
+The gathered partial cache (``zero_copy=False``, the default) also
+copies the selected blocks' bytes into a dense body
+(``pkv_body_k/v``); zero-copy (paged only) pins their physical pages
+instead and partial steps read them in place.  Either way a partial
+step reads the body and a small dense tail buffer.
 
 Mode automaton (host side, §3.3): context below the partial budget ->
 Full; budget first exceeded -> Refresh; buffer has room -> Partial;
@@ -73,14 +77,23 @@ from repro_torch.kvcache.offload import (TrafficMeter, full_step_bytes,
                                          routed_refresh_bytes)
 from repro_torch.models import api
 from repro_torch.models import common as cm
+from repro_torch.models import dense as dn
 
 
 @dataclass
 class EngineState:
     """Per-batch decode state.  The greedy port carries no PRNG streams
-    or temperatures (sampling is ROADMAP.md queue 1, 'Sampling')."""
-    cache: Any                  # paged trunk cache dict (ssm: the state)
-    dcache: Any                 # draft cache dict (paged; ssm contiguous)
+    or temperatures (sampling is ROADMAP.md queue 1, 'Sampling').
+
+    The reference keeps the gathered partial cache as one array per
+    layer, [L, B, Hk, budget + buffer, Dh] with positions; the port
+    keeps its body token-major (``pkv_body_k/v``: slot ``(b, j*bs + t,
+    kh)`` holds token t of the block head kh selected in slot j) beside
+    the selection (``pkv_blocks``, as zero-copy does), so the verify
+    kernel reads it as a pool of blocks at the routed call's shape, and
+    the tail buffer apart, as zero-copy does."""
+    cache: Any                  # trunk cache dict (ssm: the state)
+    dcache: Any                 # draft cache dict
     pkv_k: Any                  # [L, B, Hk, buffer, Dh] tail buffer
     pkv_v: Any
     pkv_pos: Any                # [L, B, Hk, buffer] int32, -1 = empty
@@ -92,6 +105,8 @@ class EngineState:
     ext_feats: Any              # [B, E, 3d]
     ext_len: Any                # [B]
     pkv_blocks: Any             # [B, L, Hk, NS] int32 logical ids, -1 unused
+    pkv_body_k: Any             # [L, B, NS*bs, Hk, Dh] gathered body
+    pkv_body_v: Any             # (size 0 on axis 2 when not gathered)
 
 
 def request_token_need(prompt_len: int, max_new_tokens: int,
@@ -125,7 +140,9 @@ class PrefillCursor:
     stay absolute multiples of ``chunk``, so an interleaved prefill runs
     the chunk schedule of a blocking one.  ``row_cache`` / ``row_dcache``
     hold the slot's page-table row and length on the device (batch 1);
-    the pools live in the engine's state.  ``pt_host`` / ``dpt_host`` are
+    the pools live in the engine's state (a contiguous engine's cursor
+    owns whole batch-1 row caches instead, None until first spilled: see
+    ``SpecPVEngine._own_slot_rows``).  ``pt_host`` / ``dpt_host`` are
     the page plan allocated at begin, decode reserve included; the
     prefix-sharing fields record the blocks attached from the cache
     (``n_match``), the registrable full blocks (``n_full``), their chain
@@ -137,8 +154,8 @@ class PrefillCursor:
     chunk: int
     off: int                            # absolute offset of the next chunk
     prev_feat: Any                      # [1, 3d] fused boundary feature
-    row_cache: Dict                     # {"page_table" [1, NB], "length" [1]}
-    row_dcache: Dict
+    row_cache: Optional[Dict]           # {"page_table" [1, NB], "length" [1]}
+    row_dcache: Optional[Dict]
     logits_last: Any = None             # last chunk's logits (first token)
     tokens: Any = None                  # the prompt on the device [S]
     pt_host: Optional[np.ndarray] = None
@@ -167,8 +184,9 @@ class PrefillCursor:
 
 # per-slot (batch-row) surgery: every EngineState field carries the batch
 # on axis 0 except the cache dicts (see kvcache.cache.CACHE_BATCH_AXIS)
-# and the tail-buffer arrays [L, B, Hk, P, ...] (axis 1)
-_PKV_FIELDS = ("pkv_k", "pkv_v", "pkv_pos")
+# and the partial-cache arrays [L, B, ...] (axis 1)
+_PKV_FIELDS = ("pkv_k", "pkv_v", "pkv_pos", "pkv_body_k", "pkv_body_v")
+_BODY_FIELDS = ("pkv_body_k", "pkv_body_v")
 _ROW_FIELDS = ("buf_len", "pending", "pending_len", "seq_len",
                "ext_tokens", "ext_feats", "ext_len", "pkv_blocks")
 
@@ -225,27 +243,32 @@ class SpecPVEngine:
                  batch: int, max_len: int,
                  partial_verification: bool = True,
                  temperature: float = 0.0,
-                 paged: bool = True,
+                 paged: bool = False,
                  num_pages: Optional[int] = None,
                  num_draft_pages: Optional[int] = None,
                  prefix_cache: bool = True,
                  tiered: bool = False,
-                 zero_copy: bool = True,
+                 zero_copy: bool = False,
                  mesh=None,
                  device=None,
                  cuda_graphs: Optional[bool] = None):
-        """Dense targets run with ``paged=True``, ``zero_copy=True`` (when
-        partial verification is on; both the defaults here, unlike the
-        reference) and tree drafts; the state arch (``ssm``) runs with
-        ``paged=False`` and chain drafts, without partial verification.
-        Both are greedy (``temperature=0``); every other setting raises
+        """The defaults are the reference's: the contiguous cache
+        (``paged=False``) with the gathered partial cache
+        (``zero_copy=False``).  Dense targets also run on the paged pool
+        (``paged=True``), gathered or zero-copy (``zero_copy=True``, paged
+        only), through the page table in place (``spec.use_pallas``) or
+        through each layer's materialised view (the reference's data
+        flow); every route runs the kernels on the card.  Dense targets
+        draft trees; the state arch (``ssm``) runs with ``paged=False``
+        and chain drafts, without partial verification.  Both are greedy
+        (``temperature=0``); every other setting raises
         NotImplementedError naming the ROADMAP item that will bring it.
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
-        as in the reference): ``prefill_begin_slot`` attaches cached
-        leading blocks by page-table reference and registers freshly
-        prefilled blocks back; idle cached prefixes are evicted LRU under
-        pool pressure.
+        as in the reference; contiguous engines share nothing):
+        ``prefill_begin_slot`` attaches cached leading blocks by
+        page-table reference and registers freshly prefilled blocks back;
+        idle cached prefixes are evicted LRU under pool pressure.
         ``num_pages`` / ``num_draft_pages`` size the trunk and draft
         pools (default: every row's whole ``max_len``, as lock-step
         ``generate`` needs; the serving scheduler allocates per request
@@ -260,18 +283,16 @@ class SpecPVEngine:
         if not self.is_attn and paged:
             raise ValueError("paged KV is attention-only (state archs keep "
                              "O(1) state): pass paged=False")
-        if self.is_attn and not paged:
-            _unsupported("the contiguous SpecPV engine",
-                         "contiguous SpecPV engine")
+        if zero_copy and not paged:
+            raise ValueError("zero-copy partial verification needs the "
+                             "paged cache (paged=True); the contiguous "
+                             "layout keeps the gather path")
         if temperature != 0.0:
             _unsupported("sampling (temperature > 0)", "Sampling")
         if tiered:
             _unsupported("tiered KV residency", "Tiered KV")
         if mesh is not None:
             _unsupported("mesh sharding", "Multi-GPU")
-        if self.is_attn and not spec.use_pallas:
-            _unsupported("the paged cache without the kernel route "
-                         "(use_pallas=False)", "contiguous SpecPV engine")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -284,18 +305,18 @@ class SpecPVEngine:
         self.batch = batch
         self.max_len = max_len
         self._nb_seq = -(-max_len // spec.block_size)
-        self.paged = self.is_attn
+        self.paged = bool(paged)
         self.num_pages = (num_pages if num_pages is not None
                           else batch * self._nb_seq + 1)
         self.num_draft_pages = (num_draft_pages if num_draft_pages is not None
                                 else self.num_pages)
         self._page_alloc = (kvc.PageAllocator(self.num_pages)
-                            if self.is_attn else None)
+                            if self.paged else None)
         self._draft_alloc = (kvc.PageAllocator(self.num_draft_pages)
-                             if self.is_attn else None)
+                             if self.paged else None)
         self.data_shards = 1            # no mesh: one page pool
         self._prefix = (kvc.PrefixCache(spec.block_size)
-                        if self.is_attn and prefix_cache else None)
+                        if self.paged and prefix_cache else None)
         # slots with fork-derived sharing still alive: only these can
         # hold a shared page inside a write window (prompt blocks sit
         # below every window and a tail attach copies its block), so the
@@ -305,10 +326,8 @@ class SpecPVEngine:
         self._prefix_dedups = 0         # duplicate blocks collapsed
         self.cow_copies = {"trunk": 0, "draft": 0}   # pre-step CoW pages
         self.partial_enabled = bool(partial_verification) and self.is_attn
-        if self.partial_enabled and not zero_copy:
-            _unsupported("the gathered partial cache (zero_copy=False)",
-                         "contiguous SpecPV engine")
         self.zero_copy = bool(zero_copy and self.partial_enabled)
+        self.gathered = self.partial_enabled and not self.zero_copy
         self._ns_blocks = spec.partial_budget_tokens // spec.block_size
         self.tree = (tr.TreeSpec.from_branch(dcfg.tree_branch[
             : dcfg.tree_depth]) if self.is_attn
@@ -347,9 +366,27 @@ class SpecPVEngine:
                              device=self.device)
         return pkv_k, torch.zeros_like(pkv_k), pkv_pos
 
+    def _init_pkv_body(self, b: int, static: bool = False):
+        """The gathered body (k, v) [L, b, NS*bs, Hk, Dh] of zeros (size 0
+        on axis 2 when not gathered; shape (0,) for a state arch): real
+        buffers for the engine's state (``static``), else zero-stride
+        zeros that a row write copies from."""
+        cfg = self.cfg
+        if not self.is_attn:
+            z = torch.zeros((0,), device=self.device)
+            return z, z.clone()
+        p = self.spec.partial_budget_tokens if self.gathered else 0
+        shape = (cfg.num_layers, b, p, cfg.num_kv_heads, cfg.head_dim_)
+        dt = cm.dt(cfg.dtype)
+        if static:
+            return tuple(torch.zeros(shape, dtype=dt, device=self.device)
+                         for _ in range(2))
+        z = torch.zeros((), dtype=dt, device=self.device).expand(shape)
+        return z, z
+
     def _init_pkv_blocks(self, b: int):
-        """Routed-selection table [B, L, Hk, NS] of -1 (unused); [B, 0, 0,
-        0] for a state arch."""
+        """Selection table [B, L, Hk, NS] of -1 (unused), for both
+        partial forms; [B, 0, 0, 0] for a state arch."""
         if not self.is_attn:
             return torch.zeros((b, 0, 0, 0), dtype=torch.int32,
                                device=self.device)
@@ -358,9 +395,10 @@ class SpecPVEngine:
                           device=self.device)
 
     def _init_cache(self, b: int) -> Dict:
-        """The paged trunk cache (page tables filled by ``prefill`` or a
-        slot admission); state archs get their recurrent state."""
-        if not self.is_attn:
+        """The trunk cache: contiguous rows, or the paged pool (page
+        tables filled by ``prefill`` or a slot admission); state archs
+        get their recurrent state."""
+        if not self.paged:
             return api.init_cache(self.cfg, b, self.max_len, self.spec,
                                   device=self.device)
         return api.init_cache(self.cfg, b, self.max_len, self.spec,
@@ -368,7 +406,7 @@ class SpecPVEngine:
                               device=self.device)
 
     def _init_dcache(self, b: int) -> Dict:
-        if not self.is_attn:
+        if not self.paged:
             return dr.init_draft_cache(self.cfg, b, self.max_len, self.device)
         return dr.init_paged_draft_cache(self.cfg, b, self.max_len,
                                          self.spec.block_size,
@@ -386,6 +424,7 @@ class SpecPVEngine:
         def ints(*shape, dtype=torch.long):
             return torch.zeros(shape, dtype=dtype, device=dev)
         pkv_k, pkv_v, pkv_pos = self._init_pkv(b)
+        body_k, body_v = self._init_pkv_body(b, static=True)
         self.state = EngineState(
             cache=self._init_cache(b), dcache=self._init_dcache(b),
             pkv_k=pkv_k, pkv_v=pkv_v, pkv_pos=pkv_pos, buf_len=ints(b),
@@ -393,20 +432,29 @@ class SpecPVEngine:
             ext_tokens=ints(b, self.emax),
             ext_feats=torch.zeros((b, self.emax, 3 * cfg.d_model), dtype=dt,
                                   device=dev),
-            ext_len=ints(b), pkv_blocks=self._init_pkv_blocks(b))
+            ext_len=ints(b), pkv_blocks=self._init_pkv_blocks(b),
+            pkv_body_k=body_k, pkv_body_v=body_v)
         # prefill: the chunk's inputs (by shape) and the carry between chunks
         self._chunk_toks: Dict[Tuple[int, int], torch.Tensor] = {}
         self._prev_feat = torch.zeros((b, 3 * cfg.d_model), dtype=dt,
                                       device=dev)
         self._logits_last = torch.zeros((b, cfg.vocab_size),
                                         dtype=torch.float32, device=dev)
-        # a slot prefill's batch-1 carry: the cursor's rows are copied in
-        # before each chunk and out after (interleaved cursors share it)
+        # a slot prefill's batch-1 carry.  Paged: the cursor's page-table
+        # rows, copied in before each chunk and out after (interleaved
+        # cursors share it).  Contiguous: a whole batch-1 row cache,
+        # allocated at the first slot prefill and held by one cursor at a
+        # time (``_slot_owner``; another cursor's chunk spills it first)
         nb = self._nb_seq
-        self._slot_cache = dict(page_table=ints(1, nb, dtype=torch.int32),
-                                length=ints(1, dtype=torch.int32))
-        self._slot_dcache = dict(page_table=ints(1, nb, dtype=torch.int32),
-                                 length=ints(1, dtype=torch.int32))
+        self._slot_owner: Optional[PrefillCursor] = None
+        if self.paged:
+            self._slot_cache = dict(page_table=ints(1, nb, dtype=torch.int32),
+                                    length=ints(1, dtype=torch.int32))
+            self._slot_dcache = dict(page_table=ints(1, nb,
+                                                     dtype=torch.int32),
+                                     length=ints(1, dtype=torch.int32))
+        else:
+            self._slot_cache = self._slot_dcache = None
         self._slot_prev_feat = torch.zeros((1, 3 * cfg.d_model), dtype=dt,
                                            device=dev)
         self._slot_logits = torch.zeros((1, cfg.vocab_size),
@@ -445,21 +493,24 @@ class SpecPVEngine:
                 cfg.num_kv_heads, self._nb_seq), pdev)
 
     def _static_tensors(self, pools: bool = True) -> List[torch.Tensor]:
-        """Every static tensor; without the K/V pools of the trunk and
-        draft caches if ``pools`` is False."""
+        """Every static tensor; without the K/V of the trunk and draft
+        caches and the gathered body if ``pools`` is False."""
         st = self.state
         out: List[torch.Tensor] = []
+
+        def cache_keys(c):
+            return [t for k, t in c.items() if pools or k not in ("k", "v")]
         for f in fields(EngineState):
             v = getattr(st, f.name)
             if isinstance(v, dict):
-                out.extend(t for k, t in v.items()
-                           if pools or k not in ("k", "v"))
-            else:
+                out.extend(cache_keys(v))
+            elif pools or f.name not in _BODY_FIELDS:
                 out.append(v)
         out += [self._prev_feat, self._logits_last, self._tick_in, self._io,
                 self._slot_prev_feat, self._slot_logits]
-        out += list(self._slot_cache.values())
-        out += list(self._slot_dcache.values())
+        for c in (self._slot_cache, self._slot_dcache):
+            if c is not None:
+                out += cache_keys(c)
         return out + list(self._chunk_toks.values())
 
     def _chunk_buf(self, b: int, chunk: int) -> torch.Tensor:
@@ -504,9 +555,10 @@ class SpecPVEngine:
         self._pkv_active = False
         self._pkv_active_rows[:] = False
         self.final_state = None
+        self._slot_owner = None
         self._zero_static()
         st = self.state
-        if self.is_attn:
+        if self.paged:
             self._clear_prefix()        # a reset pool invalidates entries
             self._forked_slots.clear()
             self._fill_table(st.cache["page_table"], self._page_alloc)
@@ -589,6 +641,7 @@ class SpecPVEngine:
                                 dtype=cm.dt(cfg.dtype), device=dev)
         ext_feats[:, 0] = prev_feat
         pkv_k, pkv_v, pkv_pos = self._init_pkv(b)
+        body_k, body_v = self._init_pkv_body(b)
 
         def full(v):
             return torch.full((b,), v, dtype=torch.long, device=dev)
@@ -597,33 +650,47 @@ class SpecPVEngine:
             pkv_pos=pkv_pos, buf_len=full(0), pending=pending,
             pending_len=full(1), seq_len=full(s0 + 1), ext_tokens=ext_tokens,
             ext_feats=ext_feats, ext_len=full(1),
-            pkv_blocks=self._init_pkv_blocks(b))
+            pkv_blocks=self._init_pkv_blocks(b), pkv_body_k=body_k,
+            pkv_body_v=body_v)
 
     # ------------------------------------------------------------------
     # per-slot state (continuous batching)
     def _neutral_state(self) -> EngineState:
-        """One dead row: its page tables on the null page, lengths 0, one
-        placeholder token pending so no index underflows, no tail buffer
-        or routed selection."""
+        """One dead row: its page tables on the null page (contiguous: its
+        cache rows zero), lengths 0, one placeholder token pending so no
+        index underflows, no tail buffer, body or selection.  The zero
+        rows are zero-stride, so the neutral row costs no memory."""
         cfg, dev = self.cfg, self.device
         pkv_k, pkv_v, pkv_pos = self._init_pkv(1)
+        body_k, body_v = self._init_pkv_body(1)
 
-        def row():
-            return dict(page_table=torch.zeros((1, self._nb_seq),
-                                               dtype=torch.int32, device=dev),
-                        length=torch.zeros((1,), dtype=torch.int32,
-                                           device=dev))
+        def zeros_like_row(t, axis):
+            shape = list(t.shape)
+            shape[axis] = 1
+            return torch.zeros((), dtype=t.dtype, device=dev).expand(shape)
+
+        def row(cache, axes):
+            if self.paged:
+                out = dict(page_table=torch.zeros(
+                    (1, self._nb_seq), dtype=torch.int32, device=dev))
+            else:
+                out = {k: zeros_like_row(t, axes.get(k, 0))
+                       for k, t in cache.items() if k != "length"}
+            out["length"] = torch.zeros((1,), dtype=torch.int32, device=dev)
+            return out
 
         def full(v, *shape):
             return torch.full(shape or (1,), v, dtype=torch.long, device=dev)
         return EngineState(
-            cache=row(), dcache=row(), pkv_k=pkv_k, pkv_v=pkv_v,
+            cache=row(self.state.cache, kvc.CACHE_BATCH_AXIS),
+            dcache=row(self.state.dcache, {}), pkv_k=pkv_k, pkv_v=pkv_v,
             pkv_pos=pkv_pos, buf_len=full(0), pending=full(0, 1, self.pmax),
             pending_len=full(1), seq_len=full(1),
             ext_tokens=full(0, 1, self.emax),
             ext_feats=torch.zeros((1, self.emax, 3 * cfg.d_model),
                                   dtype=cm.dt(cfg.dtype), device=dev),
-            ext_len=full(1), pkv_blocks=self._init_pkv_blocks(1))
+            ext_len=full(1), pkv_blocks=self._init_pkv_blocks(1),
+            pkv_body_k=body_k, pkv_body_v=body_v)
 
     def _slots_only(self) -> None:
         if not self.is_attn:
@@ -638,10 +705,12 @@ class SpecPVEngine:
         self._pkv_active = False
         self._pkv_active_rows[:] = False
         self.final_state = None
-        self._clear_prefix()
-        self._page_alloc.reset()
-        self._draft_alloc.reset()
-        self._forked_slots.clear()
+        self._slot_owner = None
+        if self.paged:
+            self._clear_prefix()
+            self._page_alloc.reset()
+            self._draft_alloc.reset()
+            self._forked_slots.clear()
         self._zero_static()
         st = self.state
         for t in (st.pending_len, st.seq_len, st.ext_len):
@@ -749,7 +818,10 @@ class SpecPVEngine:
 
     def release_slot_pages(self, slot: int) -> None:
         """Release an evicted slot's page references and pins ahead of
-        the deferred row reset, so same-tick admission sees them."""
+        the deferred row reset, so same-tick admission sees them (a
+        contiguous slot drops its hold on the static prefill rows)."""
+        if self._slot_owner is not None and self._slot_owner.slot == slot:
+            self._slot_owner = None
         if self.paged:
             self._page_alloc.free_slot(slot)
             self._draft_alloc.free_slot(slot)
@@ -872,6 +944,22 @@ class SpecPVEngine:
         if (temperature or 0.0) != 0.0 or draft != "tree":
             _unsupported("sampled or chain requests", "Sampling")
         prompt = np.asarray(prompt)
+        if not self.paged:
+            # the cursor owns its batch-1 row caches (allocated when a
+            # chunk first spills them, see ``_own_slot_rows``); nothing
+            # to account
+            if self._slot_owner is not None and \
+                    self._slot_owner.slot == slot:
+                self._slot_owner = None
+            cur = PrefillCursor(
+                slot=slot, prompt=prompt, chunk=chunk, off=0,
+                prev_feat=torch.zeros((1, 3 * self.cfg.d_model),
+                                      dtype=cm.dt(self.cfg.dtype),
+                                      device=self.device),
+                row_cache=None, row_dcache=None,
+                tokens=torch.as_tensor(prompt, dtype=torch.long,
+                                       device=self.device))
+            return self.clear_slot_rows(st, slot), cur
         bs = self.spec.block_size
         if self._prefix is not None and chunk % bs:
             raise ValueError(f"prefix sharing registers whole blocks per "
@@ -1052,13 +1140,17 @@ class SpecPVEngine:
         self._own(st)
         off = cur.off
         end = min(len(cur.prompt), (off // cur.chunk + 1) * cur.chunk)
-        _copy_into(self._slot_cache, cur.row_cache)
-        _copy_into(self._slot_dcache, cur.row_dcache)
+        if self.paged:
+            _copy_into(self._slot_cache, cur.row_cache)
+            _copy_into(self._slot_dcache, cur.row_dcache)
+            cache = dict(self._slot_cache, **{
+                n: st.cache[n] for n in kvc.PAGED_POOL_KEYS})
+            dcache = dict(self._slot_dcache, **{
+                n: st.dcache[n] for n in kvc.DRAFT_POOL_KEYS})
+        else:
+            self._own_slot_rows(cur)
+            cache, dcache = self._slot_cache, self._slot_dcache
         self._slot_prev_feat.copy_(cur.prev_feat)
-        cache = dict(self._slot_cache, **{
-            n: st.cache[n] for n in kvc.PAGED_POOL_KEYS})
-        dcache = dict(self._slot_dcache, **{
-            n: st.dcache[n] for n in kvc.DRAFT_POOL_KEYS})
         self._prefill_chunks(
             cur.tokens[None], off, end, cur.chunk, "slot_prefill",
             lambda toks: self._prefill_body(toks, cache, dcache,
@@ -1066,8 +1158,9 @@ class SpecPVEngine:
                                             self._slot_logits,
                                             self._slot_block_feats))
         self.prefill_dispatches += 1
-        _copy_into(cur.row_cache, self._slot_cache)
-        _copy_into(cur.row_dcache, self._slot_dcache)
+        if self.paged:
+            _copy_into(cur.row_cache, self._slot_cache)
+            _copy_into(cur.row_dcache, self._slot_dcache)
         cur.prev_feat.copy_(self._slot_prev_feat)
         # after the copy out: a dedupe edits the cursor's table row
         self._register_blocks(cur, off, end)
@@ -1075,6 +1168,33 @@ class SpecPVEngine:
         if cur.done:
             cur.logits_last = self._slot_logits.clone()
         return st, end - off
+
+    def _own_slot_rows(self, cur: PrefillCursor) -> None:
+        """Contiguous slot prefill: make the static batch-1 row caches
+        hold `cur`'s rows.  The cursor that held them last spills them
+        into its own row caches first (allocated then); a cursor that
+        never ran starts from zero rows.  One cursor prefilling alone
+        copies nothing."""
+        if self._slot_owner is cur:
+            return
+        if self._slot_cache is None:
+            self._slot_cache = self._init_cache(1)
+            self._slot_dcache = self._init_dcache(1)
+        prev = self._slot_owner
+        if prev is not None:
+            if prev.row_cache is None:
+                prev.row_cache = self._init_cache(1)
+                prev.row_dcache = self._init_dcache(1)
+            _copy_into(prev.row_cache, self._slot_cache)
+            _copy_into(prev.row_dcache, self._slot_dcache)
+        for static, rows in ((self._slot_cache, cur.row_cache),
+                             (self._slot_dcache, cur.row_dcache)):
+            if rows is None:
+                for t in static.values():
+                    t.zero_()
+            else:
+                _copy_into(static, rows)
+        self._slot_owner = cur
 
     def _register_blocks(self, cur: PrefillCursor, off: int,
                          end: int) -> None:
@@ -1137,8 +1257,11 @@ class SpecPVEngine:
         self._own(st)
         if cur.boot_token is None:
             self._register_tail(st, cur)
-        sub = self._boot_state(cur.row_cache, cur.row_dcache,
-                               cur.logits_last, cur.prev_feat,
+        rows, drows = cur.row_cache, cur.row_dcache
+        if not self.paged and self._slot_owner is cur:
+            rows, drows = self._slot_cache, self._slot_dcache
+            self._slot_owner = None
+        sub = self._boot_state(rows, drows, cur.logits_last, cur.prev_feat,
                                len(cur.prompt), bonus0=cur.boot_token)
         write_state_slot(st, sub, cur.slot)
         self._pkv_active_rows[cur.slot] = False
@@ -1193,6 +1316,8 @@ class SpecPVEngine:
         self._slots_only()
         self._own(st)
         assert src != dst
+        if not self.paged:
+            raise ValueError("fork_slot requires the refcounted paged cache")
         for al in (self._page_alloc, self._draft_alloc):
             al.free_slot(dst)                   # stale pages, if any
             al.fork(src, dst)
@@ -1442,14 +1567,16 @@ class SpecPVEngine:
                                            tree_tokens, st.seq_len)
         decode_kind = ("fused" if has_full and has_partial
                        else ("full" if has_full else "partial"))
+        pkv = (st.pkv_k, st.pkv_v, st.pkv_pos)
+        if self.gathered:
+            pkv += (st.pkv_body_k, st.pkv_body_v)
         out = api.decode(
             cfg, self.params, vin["tokens"], vin["positions"], st.cache,
-            mode=decode_kind, self_mask=vin["self_mask"],
-            pkv=(st.pkv_k, st.pkv_v, st.pkv_pos), spec=spec,
+            mode=decode_kind, self_mask=vin["self_mask"], pkv=pkv, spec=spec,
             emit_queries=has_refresh,
             partial_rows=is_partial if decode_kind == "fused" else None,
-            pkv_blocks=(st.pkv_blocks.movedim(0, 1)
-                        if self.zero_copy and has_partial else None))
+            pkv_blocks=(st.pkv_blocks.movedim(0, 1) if has_partial
+                        else None))
         path, acc, bonus, _ = tr.greedy_tree_accept(
             tree, tree_tokens, out.logits, vin["root_slot"],
             vin["node_slots"])
@@ -1463,9 +1590,13 @@ class SpecPVEngine:
         cache = st.cache
         pkv_k, pkv_v, pkv_pos = st.pkv_k, st.pkv_v, st.pkv_pos
         pkv_blocks, buf_len = st.pkv_blocks, st.buf_len
+        body_k, body_v = st.pkv_body_k, st.pkv_body_v
         if has_partial:
             # partial rows append their accepted run (at most 1 + depth
-            # valid entries after compaction) to the tail buffer
+            # valid entries after compaction) to the tail buffer, which
+            # lies apart from the body in both partial forms (the
+            # reference's gathered array puts it past the body:
+            # body_len = partial_budget_tokens there, 0 here)
             wb = 1 + tree.depth
             cpos = torch.gather(vin["positions"], 1, slots[:, :wb])
             part_rows = is_partial & act
@@ -1499,8 +1630,17 @@ class SpecPVEngine:
             qw[:, : pend_in.shape[1]] = vin["pend_valid"].float()
             qw.scatter_add_(1, vin["node_slots"], node_w)
             nbi = vf.refresh_partial_blocks(cfg, spec, out.queries, qw, cache)
-            nbi = nbi.movedim(0, 1)                   # [B, L, Hk, NS]
             ref_rows = is_refresh & act
+            if self.gathered:
+                # the gathered refresh also copies the selected blocks'
+                # bytes; other rows keep their body (written in place)
+                gk, gv = dn.gather_partial_body(
+                    spec, nbi, cache["k"], cache["v"],
+                    cache.get("page_table"))
+                selb = ref_rows[None, :, None, None, None]
+                torch.where(selb, gk, body_k, out=body_k)
+                torch.where(selb, gv, body_v, out=body_v)
+            nbi = nbi.movedim(0, 1)                   # [B, L, Hk, NS]
             pkv_blocks = torch.where(ref_rows[:, None, None, None], nbi,
                                      pkv_blocks)
             pkv_pos = torch.where(ref_rows[None, :, None, None],
@@ -1541,7 +1681,8 @@ class SpecPVEngine:
             cache=cache, dcache=dcache, pkv_k=pkv_k, pkv_v=pkv_v,
             pkv_pos=pkv_pos, buf_len=buf_len, pending=pending,
             pending_len=pending_len, seq_len=seq_len, ext_tokens=ext_tokens,
-            ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=pkv_blocks)
+            ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=pkv_blocks,
+            pkv_body_k=body_k, pkv_body_v=body_v)
         return st2, (newtoks, acc + 1, acc)
 
     def _step_state(self, st: EngineState) -> Tuple[EngineState, Tuple]:
@@ -1581,7 +1722,8 @@ class SpecPVEngine:
             cache=cache, dcache=dcache, pkv_k=st.pkv_k, pkv_v=st.pkv_v,
             pkv_pos=st.pkv_pos, buf_len=st.buf_len, pending=pending,
             pending_len=ones, seq_len=seq_len, ext_tokens=newtoks,
-            ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=st.pkv_blocks)
+            ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=st.pkv_blocks,
+            pkv_body_k=st.pkv_body_k, pkv_body_v=st.pkv_body_v)
         return st2, (newtoks, acc + 1, acc)
 
     # ------------------------------------------------------------------
@@ -1730,7 +1872,8 @@ class SpecPVEngine:
     def _record_traffic(self, mode: str, rows: np.ndarray):
         """Bytes of cache touched by the rows that stepped in `mode`:
         full/refresh bill the per-row sum of context, partial the budget
-        plus buffer, a zero-copy refresh its routed rebuild."""
+        plus buffer, a zero-copy refresh its routed rebuild, a gathered
+        refresh its copy of the budget."""
         cfg, spec = self.cfg, self.spec
         l_attn = cfg.num_layers
         itemsize = 2 if cfg.dtype == "bfloat16" else 4
@@ -1745,10 +1888,14 @@ class SpecPVEngine:
                 hk, dh, itemsize)
         else:
             nbytes = full_step_bytes(l_attn, 1, seq_sum, hk, dh, itemsize)
-            if mode == "refresh":
+            if mode == "refresh" and self.zero_copy:
                 nbytes += routed_refresh_bytes(
                     l_attn, nrows, self._nb_seq, self._ns_blocks,
                     spec.buffer_size, hk, dh, itemsize)
+            elif mode == "refresh":
+                nbytes += partial_step_bytes(
+                    l_attn, nrows, spec.partial_budget_tokens, hk, dh,
+                    itemsize)
         self.traffic.record(mode, nbytes)
 
     # ------------------------------------------------------------------

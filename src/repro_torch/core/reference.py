@@ -1,8 +1,9 @@
 """Plain greedy autoregressive decoding (counterpart of
 ``repro/core/reference.py:autoregressive_generate``): the losslessness
-oracle, on the port's contiguous cache through the plain attention path,
-or, for a state arch, one read-only decode and one ``advance`` per
-token."""
+oracle, on the port's contiguous cache through the plain attention and
+summaries (``plain=True``, a keyword only this oracle passes, so the
+engine never takes that route), or, for a state arch, one read-only
+decode and one ``advance`` per token."""
 from __future__ import annotations
 
 from typing import Optional
@@ -32,18 +33,19 @@ def autoregressive_generate(cfg: ModelConfig, params, prompt: np.ndarray,
     for off in range(0, s0, prefill_chunk):
         logits, _, cache = api.prefill(cfg, params,
                                        prompt_t[:, off: off + prefill_chunk],
-                                       cache, spec=spec)
+                                       cache, spec=spec, plain=True)
     cur = torch.argmax(logits, dim=-1)
     out = [cur]
     ones = torch.ones((b,), dtype=torch.int32, device=dev)
     for _ in range(max_new_tokens - 1):
         pos = cache["length"][:, None]
         o = api.decode(cfg, params, cur[:, None], pos, cache, mode="full",
-                       spec=spec)
+                       spec=spec, plain=True)
         nxt = torch.argmax(o.logits[:, 0], dim=-1)
         if cfg.is_attention_arch:
             ck, cv = o.new_kv
-            cache = vf.append_full_cache(cache, ck, cv, ones, spec)
+            cache = vf.append_full_cache(cache, ck, cv, ones, spec,
+                                         plain=True)
         else:
             cache = api.advance(cfg, params, cur[:, None], cache,
                                 torch.ones((b, 1), dtype=torch.bool,

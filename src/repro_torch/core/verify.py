@@ -1,6 +1,7 @@
 """Verification-step plumbing (counterpart of ``repro/core/verify.py``):
-verify-input assembly, cache commits, tail-buffer writes and the
-zero-copy partial refresh.
+verify-input assembly, cache commits, tail-buffer writes and the partial
+refresh (zero-copy: the selected block ids; gathered: the selected
+blocks' bytes too).
 
 Per-row verify layout (fused step): ``[pend (p_eff) | tree (T) | pad]``
 inside one width ``S = P + T``; refresh rows use the full pending width,
@@ -15,8 +16,11 @@ import torch
 from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.core.tree import TreeSpec, tree_tensors
 from repro_torch.models.common import update_slice_rows
-from repro_torch.models.dense import quest_block_scores, select_partial_blocks
-from repro_torch.kvcache.cache import (paged_update_all_summaries,
+from repro_torch.models.dense import (body_positions, gather_partial_body,
+                                      quest_block_scores,
+                                      select_partial_blocks)
+from repro_torch.kvcache.cache import (contiguous_update_all_summaries,
+                                       paged_update_all_summaries,
                                        paged_write_tokens,
                                        update_layer_summaries)
 
@@ -102,36 +106,45 @@ def commit_write_extent(pmax: int, tree_depth: int) -> int:
     return pmax + tree_depth
 
 
-def append_full_cache(cache: Dict, ck, cv, count, spec: SpecPVConfig):
+def append_full_cache(cache: Dict, ck, cv, count, spec: SpecPVConfig,
+                      plain: bool = False):
     """Append compacted committed KV [L, B, W, Hk, Dh] (``count`` [B]
     valid entries) to the full cache and its summaries, in place; returns
     the cache dict with the advanced length.  All W entries are written;
     those beyond ``count`` land past the new length and are overwritten
-    later, as in the reference."""
+    later, as in the reference.  Nothing reads a summary before the
+    commit ends, so one block-summary (K4) call covers every layer;
+    ``plain`` (the oracle's route, contiguous only) recomputes them with
+    the plain per-layer version instead."""
     length = cache["length"]
     new_len = length + count.to(length.dtype)
-    num_layers = ck.shape[0]
+    num_layers, b, w = ck.shape[:3]
+    n_touch = -(-w // spec.block_size) + 1
     if "page_table" in cache:
         pt = cache["page_table"]
-        blk = cache["k"].shape[2]
-        n_touch = -(-ck.shape[2] // blk) + 1
         for i in range(num_layers):
             paged_write_tokens(cache["k"][i], pt, length, ck[i])
             paged_write_tokens(cache["v"][i], pt, length, cv[i])
-        # nothing reads a summary before the commit ends: one K4 call
-        # covers every layer
         paged_update_all_summaries(cache["kmax"], cache["kmin"], cache["k"],
                                    pt, length, new_len, n_touch)
     else:
-        for i in range(num_layers):
-            # the reference's dynamic_update_slice clamps the offset
-            update_slice_rows(cache["k"][i], ck[i], length, axis=1)
-            update_slice_rows(cache["v"][i], cv[i], length, axis=1)
-            nkmax, nkmin = update_layer_summaries(
-                cache["kmax"][i], cache["kmin"][i], cache["k"][i], length,
-                new_len, spec.block_size)
-            cache["kmax"][i] = nkmax
-            cache["kmin"][i] = nkmin
+        # every layer in one write: [L, B] merge into the batch axis; the
+        # reference's dynamic_update_slice clamps the offset
+        rows = length.repeat(num_layers)
+        for a, new in ((cache["k"], ck), (cache["v"], cv)):
+            update_slice_rows(a.view((-1,) + a.shape[2:]),
+                              new.flatten(0, 1), rows, axis=1)
+        if plain:
+            for i in range(num_layers):
+                nkmax, nkmin = update_layer_summaries(
+                    cache["kmax"][i], cache["kmin"][i], cache["k"][i],
+                    length, new_len, spec.block_size)
+                cache["kmax"][i] = nkmax
+                cache["kmin"][i] = nkmin
+        else:
+            contiguous_update_all_summaries(cache["kmax"], cache["kmin"],
+                                            cache["k"], length, new_len,
+                                            spec.block_size, n_touch)
     cache = dict(cache)
     cache["length"] = new_len
     return cache
@@ -162,24 +175,29 @@ def append_buffer(pkv_k, pkv_v, pkv_pos, body_len: int, buf_len, ck, cv,
     return nk, nv, npos, buf_len + count
 
 
+def _uses_score_kernel(spec: SpecPVConfig) -> bool:
+    """Paper scores with mean reduction go through the retrieval-score
+    kernel (K3) on every route (``use_pallas`` picks the data flow, not
+    the plain code); the other score modes have no kernel."""
+    return spec.score_mode == "paper" and spec.reduction == "mean"
+
+
 def refresh_partial_blocks(cfg: ModelConfig, spec: SpecPVConfig, queries,
                            q_weight, cache: Dict):
-    """Zero-copy refresh: Quest scoring over the physical-page summaries
-    gathered through the table, then sink + top-K + local selection.
+    """Quest scoring over the block summaries (the physical-page ones
+    gathered through the table, or the contiguous cache's), then sink +
+    top-K + local selection: the refresh of both partial forms.
 
     queries [L, B, T, H, Dh]; q_weight [B, T].  Returns [L, B, Hk, NS]
-    int32 logical block ids (-1 for unused selection slots).  Paper
-    scores with mean reduction go through the retrieval-score kernel
-    (K3)."""
+    int32 logical block ids (-1 for unused selection slots)."""
     from repro_torch.kernels import ops as kops
-    use_kernel = (spec.use_pallas and spec.score_mode == "paper"
-                  and spec.reduction == "mean")
-    assert "page_table" in cache, "zero-copy refresh needs the paged cache"
-    pt = cache["page_table"].long()
+    use_kernel = _uses_score_kernel(spec)
+    pt = (cache["page_table"].long() if "page_table" in cache else None)
     out = []
     for i in range(queries.shape[0]):
-        kmax_l = cache["kmax"][i][pt]
-        kmin_l = cache["kmin"][i][pt]
+        kmax_l, kmin_l = cache["kmax"][i], cache["kmin"][i]
+        if pt is not None:
+            kmax_l, kmin_l = kmax_l[pt], kmin_l[pt]
         if use_kernel:
             scores = kops.retrieval_scores(queries[i], kmax_l, kmin_l,
                                            q_weight)
@@ -189,3 +207,19 @@ def refresh_partial_blocks(cfg: ModelConfig, spec: SpecPVConfig, queries,
                                         reduction=spec.reduction)
         out.append(select_partial_blocks(spec, scores, cache["length"]))
     return torch.stack(out)
+
+
+def refresh_partial_from_queries(cfg: ModelConfig, spec: SpecPVConfig,
+                                 queries, q_weight, cache: Dict):
+    """The reference's gathered refresh: score, select and gather the
+    partial body of every layer from the contiguous cache or through
+    the page table.  Returns (pk, pv, ppos) [L, B, Hk, P, Dh] x2 and
+    [L, B, Hk, P] (P = the partial budget; invalid slots at pos -1), the
+    reference's layout; the engine keeps the body token-major instead
+    (``gather_partial_body``)."""
+    idx = refresh_partial_blocks(cfg, spec, queries, q_weight, cache)
+    bk_, bv_ = gather_partial_body(spec, idx, cache["k"], cache["v"],
+                                   cache.get("page_table"))
+    pos = torch.stack([body_positions(spec, idx[i], cache["length"])
+                       for i in range(idx.shape[0])])
+    return bk_.transpose(2, 3), bv_.transpose(2, 3), pos

@@ -268,6 +268,72 @@ def routed_partial_attention(q, pool_k, pool_v, block_idx, block_valid_len):
                            block_valid_len.to(torch.int32).contiguous(), bs)
 
 
+def flat_blocks(k):
+    """The block pool behind a contiguous cache view, at no cost.
+
+    k: [..., B, S, Hk, Dh], a view of the first S rows of an allocation
+    [..., B, S_alloc, Hk, Dh] whose S_alloc is a multiple of the block
+    (``api.init_cache`` allocates so).  Returns the allocation as one
+    flat pool [prod(...) * B * S_alloc, Hk, Dh] (row b's block j is pool
+    block ``b * S_alloc / bs + j``; the rows past S are never written,
+    so they stay 0) and S_alloc."""
+    hk, dh = k.shape[-2:]
+    s_alloc = k.stride(-4) // k.stride(-3)
+    lead = k.shape[:-3]
+    dense = [1, dh, hk * dh, s_alloc * hk * dh]
+    for n in reversed(lead[1:]):
+        dense.append(dense[-1] * n)
+    if (tuple(k.stride()[::-1]) != tuple(dense[: k.dim()])
+            or s_alloc < k.shape[-3]):
+        raise ValueError(f"not a contiguous cache view: shape "
+                         f"{tuple(k.shape)}, strides {k.stride()}")
+    rows = s_alloc
+    for n in lead:
+        rows *= n
+    return k.as_strided((rows, hk, dh), (hk * dh, dh, 1)), s_alloc
+
+
+def _identity_walk(b: int, hk: int, nb: int, end, s_cap: int, bs: int):
+    """The page walk of a contiguous cache's filled prefix ``[0, min(end,
+    s_cap))`` through the identity table: row b's logical block j is pool
+    block ``b * nb + j``.  Returns (idx, vlen) [B, Hk, NB] int32."""
+    table = torch.arange(b * nb, dtype=torch.int32,
+                         device=end.device).view(b, nb)
+    return _page_walk(table, torch.clamp(end, max=s_cap), (b * nb, bs, hk))
+
+
+def contiguous_verify_attention(q, k_layer, v_layer, length, block_size: int):
+    """Full/Refresh verification attention (K1) over a contiguous cache:
+    the cache rows are a pool of blocks (``flat_blocks``), each row reads
+    its own blocks through the identity list.  k_layer/v_layer: [B, S,
+    Hk, Dh] views (the reference's S, which need not be a multiple of
+    the block); length: [B].  Returns fp32 partials."""
+    b, s, hk, _ = k_layer.shape
+    kf, s_alloc = flat_blocks(k_layer)
+    vf, _ = flat_blocks(v_layer)
+    idx, vlen = _identity_walk(b, hk, s_alloc // block_size, length, s,
+                               block_size)
+    return block_attention(q, kf, vf, idx, vlen, block_size)
+
+
+def contiguous_prefill_attention(q, k_layer, v_layer, length, t_valid,
+                                 block_size: int):
+    """Blockwise causal prefill attention (K2) over a contiguous cache
+    whose chunk K/V are already written: the identity list of each row's
+    filled prefix under the absolute-position causal mask.  Same
+    contract as ``paged_prefill_attention``."""
+    b, s, hk, _ = k_layer.shape
+    kf, s_alloc = flat_blocks(k_layer)
+    vf, _ = flat_blocks(v_layer)
+    idx, vlen = _identity_walk(b, hk, s_alloc // block_size,
+                               length + t_valid, s, block_size)
+    qoff = length.to(torch.int32).contiguous()
+    m, l, acc = block_attention(q, kf, vf, idx, vlen, block_size,
+                                q_offset=qoff)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def paged_prefill_attention(q, pool_k, pool_v, page_table, length, t_valid):
     """Blockwise paged prefill attention: the chunk's K/V are already in
     the pool, so each row's context is the filled prefix of its table
@@ -413,6 +479,46 @@ def block_summaries_routed(k_flat, src, vlen, tgt, kmax_out, kmin_out,
     tgt = torch.where(tgt > 0, tgt, torch.full_like(tgt, -1))
     _summaries(k_flat, src, vlen, tgt, kmax_out, kmin_out, block_size)
     return kmax_out, kmin_out
+
+
+def contiguous_block_summaries(k, start, end, n_touch: int, kmax, kmin,
+                               block_size: int):
+    """The contiguous cache's summary update over every layer at once, in
+    place (the reference's ``update_layer_summaries`` for each layer): the
+    routed form with ``src = tgt = (l*B + b)*NB + j`` over the layers'
+    cache rows laid end to end as one pool (``flat_blocks``), its ids
+    built on the card.
+
+    k: [L, B, S, Hk, Dh] view; start/end: [B] (each row wrote tokens
+    [start, end)); kmax/kmin: contiguous [L, B, NB, Hk, Dh] fp32.  For
+    each layer and row, the blocks ``start // bs + j`` (j < ``n_touch``)
+    below ``ceil(end / bs)`` are reduced over their tokens below ``end``
+    (rows past S are 0, as the reference's padded view); the other
+    blocks are left as they were.  One K4 launch."""
+    layers, b, _, hk, dh = k.shape
+    nb = kmax.shape[2]
+    kf, s_alloc = flat_blocks(k)
+    if (s_alloc != nb * block_size
+            or tuple(kmax.shape) != (layers, b, nb, hk, dh)
+            or kmin.shape != kmax.shape or not kmax.is_contiguous()
+            or not kmin.is_contiguous()):
+        raise ValueError(f"shape mismatch: cache {tuple(k.shape)} over "
+                         f"{s_alloc} rows, summaries {tuple(kmax.shape)}")
+    dev = k.device
+    bs = block_size
+    tb = ((start.long() // bs)[:, None]
+          + torch.arange(n_touch, device=dev)[None])             # [B, NT]
+    live = (tb < ((end.long() + bs - 1) // bs)[:, None]) & (tb < nb)
+    tbc = torch.clamp(tb, max=nb - 1)
+    vlen = torch.clamp(end.long()[:, None] - tbc * bs, 0, bs)
+    ids = ((torch.arange(layers, device=dev)[:, None, None] * b
+            + torch.arange(b, device=dev)[None, :, None]) * nb
+           + tbc[None])                                          # [L, B, NT]
+    tgt = torch.where(live[None], ids, torch.full_like(ids, -1))
+    _summaries(kf, ids.reshape(-1), vlen[None].expand_as(ids).reshape(-1),
+               tgt.reshape(-1), kmax.view(layers * b * nb, hk, dh),
+               kmin.view(layers * b * nb, hk, dh), bs)
+    return kmax, kmin
 
 
 def block_summaries(k, length, block_size: int):

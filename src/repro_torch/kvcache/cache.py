@@ -63,6 +63,36 @@ def update_layer_summaries(kmax_l, kmin_l, k_layer, start, end, block: int):
             torch.where(tb, kmin_new, kmin_l))
 
 
+def init_contiguous_kv(num_layers: int, batch: int, max_len: int, block: int,
+                       num_kv_heads: int, head_dim: int, dtype,
+                       device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contiguous K/V [L, B, max_len, Hk, Dh]: views of the first max_len
+    rows of a zero allocation of ``ceil(max_len / block) * block`` rows,
+    so that the rows are a pool of blocks for the kernels
+    (``kernels.ops.flat_blocks``) while every write clamps its offset
+    at the reference's ``max_len - W`` (``update_slice_rows``), as its
+    ``dynamic_update_slice`` does.  The rows past max_len stay 0, the
+    reference's padded view."""
+    rows = -(-max_len // block) * block
+    shape = (num_layers, batch, rows, num_kv_heads, head_dim)
+    return tuple(torch.zeros(shape, dtype=dtype, device=device)[:, :, :max_len]
+                 for _ in range(2))
+
+
+def contiguous_update_all_summaries(kmax, kmin, k, start, end, block: int,
+                                    n_touch: int):
+    """Recompute (in place) every layer's summaries of the blocks covering
+    [start, end) of each row: the reference's ``update_layer_summaries``
+    mapped over the layers, in one call of the block-summary kernel (K4)
+    over the cache rows as one pool.  kmax/kmin: [L, B, NB, Hk, Dh]; k:
+    [L, B, S, Hk, Dh] (``init_contiguous_kv``); n_touch: static bound on
+    the touched blocks per row (``ceil(W / block) + 1`` for W written
+    tokens)."""
+    from repro_torch.kernels import ops
+    return ops.contiguous_block_summaries(k, start, end, n_touch, kmax, kmin,
+                                          block)
+
+
 # ---------------------------------------------------------------------------
 # paged block pool
 # ---------------------------------------------------------------------------

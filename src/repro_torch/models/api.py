@@ -52,8 +52,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                num_pages: Optional[int] = None, device=None) -> dict:
     """Cache dict.  ``paged=True`` backs it with a shared block pool
     [L, NumPages, block, ...] plus per-slot page tables (page 0 is the
-    null page, so ``num_pages`` defaults to ``batch * S_max/block + 1``).
-    The state arch keeps its O(1) recurrent state instead (no paging)."""
+    null page, so ``num_pages`` defaults to ``batch * S_max/block + 1``);
+    otherwise per-row K/V [L, B, max_len, ...], views over block-rounded
+    rows (``kvcache.cache.init_contiguous_kv``).  The state arch keeps
+    its O(1) recurrent state instead (no paging)."""
     dev = resolve_device(device)
     dtype = cm.dt(cfg.dtype)
     if cfg.arch_type == "ssm":
@@ -73,11 +75,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["page_table"] = torch.zeros((batch, nb), dtype=torch.int32,
                                           device=dev)
     else:
+        from repro_torch.kvcache.cache import init_contiguous_kv
+        k, v = init_contiguous_kv(l_attn, batch, max_len, block, hk, dh,
+                                  dtype, dev)
         cache = {
-            "k": torch.zeros((l_attn, batch, max_len, hk, dh), dtype=dtype,
-                             device=dev),
-            "v": torch.zeros((l_attn, batch, max_len, hk, dh), dtype=dtype,
-                             device=dev),
+            "k": k,
+            "v": v,
             "kmax": torch.zeros((l_attn, batch, nb, hk, dh),
                                 dtype=torch.float32, device=dev),
             "kmin": torch.zeros((l_attn, batch, nb, hk, dh),
@@ -88,10 +91,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *,
-            spec: Optional[SpecPVConfig] = None):
+            spec: Optional[SpecPVConfig] = None, plain: bool = False):
     """Process a chunk of prompt tokens [B, T] (written into `cache` in
     place).  Returns (logits [B, V] of the last token, features, the
-    cache with its advanced length)."""
+    cache with its advanced length).  ``plain`` (contiguous cache only)
+    runs the plain attention and summaries: the autoregressive oracle's
+    route (``core.reference``), never the engine's."""
     b, t = tokens.shape
     if cfg.arch_type == "ssm":
         h, feats, cache = rw.forward(cfg, params, tokens, cache)
@@ -101,7 +106,7 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *,
         t, device=tokens.device, dtype=torch.int32)[None]
     hh = dn.embed_tokens(cfg, params, tokens)
     out = dn.trunk_fwd(cfg, params["layers"], hh, positions, mode="prefill",
-                       cache=cache, spec=spec or SpecPVConfig())
+                       cache=cache, spec=spec or SpecPVConfig(), plain=plain)
     logits = dn.lm_head(cfg, params, out.h[:, -1:])[:, 0]
     return logits, Features(*out.features), out.cache
 
@@ -109,12 +114,16 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *,
 def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
            mode: str = "full", self_mask=None, pkv=None,
            spec: Optional[SpecPVConfig] = None, emit_queries: bool = False,
-           partial_rows=None, pkv_blocks=None) -> DecodeOut:
+           partial_rows=None, pkv_blocks=None,
+           plain: bool = False) -> DecodeOut:
     """Forward T new (tree) tokens; ``mode`` is "full" | "partial" |
-    "fused" (``partial_rows`` [B] marks the rows that read the zero-copy
-    partial context, routed by ``pkv_blocks`` [L, B, Hk, NS]).  The
-    state arch always does read-only chain verification: the state is
-    left as it was and ``new_kv`` is None."""
+    "fused" (``partial_rows`` [B] marks the rows that read the partial
+    context: the selected blocks ``pkv_blocks`` [L, B, Hk, NS], read in
+    place through the page table (zero-copy, ``pkv`` = the tail buffer)
+    or from the gathered body (``pkv`` = the tail buffer and the body
+    [L, B, NS*block, Hk, Dh])).  ``plain``: see ``prefill``.  The state
+    arch always does read-only chain verification: the state is left as
+    it was and ``new_kv`` is None."""
     b, t = tokens.shape
     if cfg.arch_type == "ssm":
         h, feats, _ = rw.forward(cfg, params, tokens, cache, update=False)
@@ -129,7 +138,8 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
     out = dn.trunk_fwd(cfg, params["layers"], h, positions, mode=trunk_mode,
                        self_mask=self_mask, cache=cache, pkv=pkv,
                        spec=spec or SpecPVConfig(), emit_queries=emit_queries,
-                       partial_rows=partial_rows, pkv_blocks=pkv_blocks)
+                       partial_rows=partial_rows, pkv_blocks=pkv_blocks,
+                       plain=plain)
     logits = dn.lm_head(cfg, params, out.h)
     return DecodeOut(logits, Features(*out.features), out.new_kv,
                      out.queries)

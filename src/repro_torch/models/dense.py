@@ -5,17 +5,27 @@ The reference scans stacked superblocks with ``lax.scan``; here the
 layers are a list of per-layer param dicts run by a plain Python loop.
 
 Modes (paged cache = shared block pool + page tables; contiguous cache =
-per-row buffers):
+per-row buffers, whose rows the kernels read as a pool of blocks through
+the identity list):
 
-  prefill        write the chunk's K/V, attend, update block summaries.
-                 Paged: through the paged-prefill kernel (K2).
-                 Contiguous: the plain flash recurrence (the oracle).
-  decode_full    T tree tokens vs the full cache + tree self-mask.
-                 Paged: through the paged verify kernel (K1).
-  decode_partial T tokens vs the zero-copy partial context: retrieval-
-                 selected pool blocks read in place (K1) merged with the
-                 dense tail buffer.  Paged only.
-  decode_fused   per-row source select between the two above.  Paged only.
+  prefill        write the chunk's K/V, attend, update block summaries:
+                 the causal prefill kernel (K2) over the row's prefix, then
+                 one block-summary (K4) call over every layer.
+  decode_full    T tree tokens vs the full cache + tree self-mask, through
+                 the verify kernel (K1).
+  decode_partial T tokens vs the partial context: the retrieval-selected
+                 blocks (K1), read in place from the pool through the page
+                 table (zero-copy) or from the gathered body, merged with
+                 the dense tail buffer.
+  decode_fused   per-row source select between the two above.
+
+The paged cache reads through the page table in place
+(``SpecPVConfig.use_pallas=True``) or, with ``use_pallas=False``, first
+materialises each layer's logical view (``gather_page_view``), the
+reference's data flow, and runs the contiguous forms over it: in the
+port the flag picks the data flow, never the plain code.  The plain
+attention and per-layer summaries run only for the autoregressive
+oracle (``plain=True``, contiguous cache; ``core.reference``).
 
 Decode modes never mutate the cache; they return the new tokens' K/V.
 """
@@ -163,23 +173,125 @@ def select_partial_blocks(spec: SpecPVConfig, scores, length):
     return torch.where(slot_ok, idx, torch.full_like(idx, -1)).to(torch.int32)
 
 
-def _routed_partial_context(q, pool_k, pool_v, page_table, pbi, length,
-                            pkv_l):
-    """Zero-copy partial context partials: the selected blocks read in
-    place from the pool through the live page table (``pbi`` [B, Hk, NS]
-    logical ids, -1 = unused), merged with the dense tail buffer
-    ``pkv_l`` = (pk, pv, ppos) [B, Hk, P, ...].  Returns (m, l, acc)."""
+def _body_rows(spec: SpecPVConfig, idx, k_rows, page_table=None):
+    """Token-major row ids of the gathered body: slot ``(b, j*bs + t,
+    kh)`` reads token t of logical block ``idx[b, kh, j]`` (clamped into
+    the table, as the reference's gather does).  Contiguous rows
+    ``k_rows`` (the allocation's rows per batch row): ``b * k_rows +
+    block*bs + t``; paged: ``page*bs + t`` through ``page_table``.
+    Returns [B, NS*bs, Hk] int64."""
+    b, hk, ns = idx.shape
+    bs = spec.block_size
+    dev = idx.device
+    nb = page_table.shape[1] if page_table is not None else k_rows // bs
+    blk = torch.clamp(idx.long(), 0, nb - 1)
+    if page_table is not None:
+        base = torch.gather(page_table.long()[:, None].expand(b, hk, nb), 2,
+                            blk) * bs
+    else:
+        base = torch.arange(b, device=dev)[:, None, None] * k_rows + blk * bs
+    rows = base[..., None] + torch.arange(bs, device=dev)  # [B, Hk, NS, bs]
+    return rows.reshape(b, hk, ns * bs).transpose(1, 2)
+
+
+def gather_partial_body(spec: SpecPVConfig, idx, k, v, page_table=None):
+    """The gathered partial body of every layer, token-major: (bk, bv)
+    [L, B, NS*bs, Hk, Dh], slot ``(l, b, j*bs + t, kh)`` holding token t
+    of the block head kh selected in slot j (``idx`` [L, B, Hk, NS]
+    logical ids; -1 reads block 0, masked by its valid length 0).  k/v:
+    the contiguous cache [L, B, S, Hk, Dh] or, with ``page_table``, the
+    pool [L, NP, bs, Hk, Dh]."""
+    from repro_torch.kernels.ops import flat_blocks
+    layers = idx.shape[0]
+    hk = k.shape[-2]
+    if page_table is not None:
+        kf = k.reshape(layers, -1, hk, k.shape[-1])
+        vf = v.reshape(layers, -1, hk, v.shape[-1])
+        k_rows = 0
+    else:
+        kf, k_rows = flat_blocks(k)
+        vf, _ = flat_blocks(v)
+        kf = kf.view(layers, -1, hk, k.shape[-1])
+        vf = vf.view(layers, -1, hk, v.shape[-1])
+    rows = torch.stack([_body_rows(spec, idx[i], k_rows, page_table)
+                        for i in range(layers)])         # [L, B, P, Hk]
+    lsel = torch.arange(layers, device=idx.device)[:, None, None, None]
+    hsel = torch.arange(hk, device=idx.device)
+    return kf[lsel, rows, hsel], vf[lsel, rows, hsel]
+
+
+def body_positions(spec: SpecPVConfig, idx, length):
+    """The reference's partial-body positions [B, Hk, NS*bs] of a
+    selection ``idx`` [B, Hk, NS] (-1 unused): ``block*bs + t`` where
+    below ``length``, else -1."""
+    bs = spec.block_size
+    pos = (idx.long()[..., None] * bs
+           + torch.arange(bs, device=idx.device))        # [B, Hk, NS, bs]
+    ok = (idx >= 0)[..., None] & (pos < length.long()[:, None, None, None])
+    pos = torch.where(ok, pos, torch.full_like(pos, -1))
+    return pos.reshape(idx.shape[0], idx.shape[1], -1).to(torch.int32)
+
+
+def select_and_gather_partial(spec: SpecPVConfig, scores, k_layer, v_layer,
+                              length):
+    """The reference's gathered selection: sink + top-K retrieval + local
+    blocks of one layer's contiguous cache.  scores: [B, Hk, NB];
+    k_layer/v_layer: [B, S, Hk, Dh] (``init_contiguous_kv``); length:
+    [B].  Returns (pk, pv, ppos): [B, Hk, P, Dh] x2 and [B, Hk, P] with P
+    = spec.partial_budget_tokens, invalid slots at pos -1."""
+    idx = select_partial_blocks(spec, scores, length)
+    bk_, bv_ = gather_partial_body(spec, idx[None], k_layer[None],
+                                   v_layer[None])
+    return (bk_[0].transpose(1, 2), bv_[0].transpose(1, 2),
+            body_positions(spec, idx, length))
+
+
+def select_and_gather_partial_paged(spec: SpecPVConfig, scores, pool_k,
+                                    pool_v, page_table, length):
+    """``select_and_gather_partial`` straight from one layer's pool
+    [NP, block, Hk, Dh] through ``page_table`` [B, NB]."""
+    idx = select_partial_blocks(spec, scores, length)
+    bk_, bv_ = gather_partial_body(spec, idx[None], pool_k[None],
+                                   pool_v[None], page_table)
+    return (bk_[0].transpose(1, 2), bv_[0].transpose(1, 2),
+            body_positions(spec, idx, length))
+
+
+def _selected_vlen(pbi, length, bs: int):
+    """Valid tokens of each selected block [B, Hk, NS]: the part below
+    ``length`` (the reference's ``pos < length`` mask), 0 for an unused
+    slot."""
+    return torch.where(pbi >= 0, torch.clamp(
+        length[:, None, None] - pbi * bs, 0, bs), torch.zeros_like(pbi))
+
+
+def _partial_context(q, cache_kv, page_table, pbi, length, pkv_l, bs: int):
+    """Partial-context partials: the body through the verify kernel (K1)
+    merged with the dense tail buffer ``pkv_l[:3]`` = (pk, pv, ppos)
+    [B, Hk, P, ...] (the plain per-head part).  The body is the selected
+    blocks ``pbi`` [B, Hk, NS] (logical ids, -1 = unused), read in place
+    from the pool through the live page table (zero-copy), or, when
+    ``pkv_l`` also carries the gathered body [B, NS*bs, Hk, Dh] x2, from
+    the body: slot j of row b is its block ``b*NS + j``.  Both forms make
+    the same K1 launch over the same bytes.  Returns (m, l, acc)."""
     from repro_torch.kernels import ops as kops
-    np_, bs, hk, dh = pool_k.shape
-    b, nb = page_table.shape
+    b, hk, ns = pbi.shape
     pk_buf, pv_buf, ppos_buf = pkv_l[:3]
-    # the reference's gather clamps ids into the table; torch would raise
-    idxc = torch.clamp(pbi.long(), 0, nb - 1)
-    pg = torch.gather(page_table.long()[:, None].expand(b, hk, nb), 2, idxc)
-    used = pbi >= 0
-    vlen = torch.where(used, torch.clamp(length[:, None, None] - pbi * bs,
-                                         0, bs), torch.zeros_like(pbi))
-    idx = torch.where(used, pg, torch.zeros_like(pg))
+    vlen = _selected_vlen(pbi, length, bs)
+    if len(pkv_l) > 3:
+        body_k, body_v = pkv_l[3:5]
+        idx = (torch.arange(b, device=pbi.device)[:, None, None] * ns
+               + torch.arange(ns, device=pbi.device)).expand(b, hk, ns)
+        pool_k = body_k.reshape(b * ns, bs, hk, body_k.shape[-1])
+        pool_v = body_v.reshape(b * ns, bs, hk, body_v.shape[-1])
+    else:
+        pool_k, pool_v = cache_kv
+        nb = page_table.shape[1]
+        # the reference's gather clamps ids into the table; torch raises
+        idxc = torch.clamp(pbi.long(), 0, nb - 1)
+        pg = torch.gather(page_table.long()[:, None].expand(b, hk, nb), 2,
+                          idxc)
+        idx = torch.where(pbi >= 0, pg, torch.zeros_like(pg))
     part_body = kops.routed_partial_attention(q, pool_k, pool_v, idx, vlen)
     part_buf = cm.dense_attn_part_perhead(q, pk_buf, pv_buf, ppos_buf >= 0)
     return cm.merge_attn_partials([part_body, part_buf])
@@ -192,11 +304,14 @@ def _routed_partial_context(q, pool_k, pool_v, page_table, pbi, length,
 def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
                     self_mask, cache_kv, pkv, length, inv_freq, mscale,
                     page_table=None, paged_kernel: bool = False,
-                    partial_rows=None, pkv_blocks=None):
+                    partial_rows=None, pkv_blocks=None, block_size: int = 128,
+                    plain: bool = False):
     """One self-attention sublayer under `mode` (see module docstring).
     With ``page_table`` set, ``cache_kv`` is the layer's pool pair
-    [NP, block, Hk, Dh] (prefill writes it in place).  Returns
-    (attn_out, updates, q)."""
+    [NP, block, Hk, Dh] (prefill writes it in place), read through the
+    table (``paged_kernel``) or through its materialised view; else the
+    layer's contiguous pair [B, S, Hk, Dh].  ``plain``: the oracle's
+    plain attention (contiguous only).  Returns (attn_out, updates, q)."""
     from repro_torch.kernels import ops as kops
     x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
     q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq, mscale)
@@ -205,13 +320,36 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
     b, t = positions.shape
     dev = h.device
     upd: Dict[str, Any] = {}
-    if page_table is not None and not paged_kernel:
-        raise NotImplementedError(
-            "the paged cache runs through the kernel route "
-            "(SpecPVConfig.use_pallas=True); the gathered-view route is "
-            "ROADMAP.md queue 1, 'contiguous SpecPV engine'")
+    if plain and page_table is not None:
+        raise ValueError("the plain route reads the contiguous cache only")
+
+    def layer_view():
+        """The contiguous (k, v) the contiguous forms read: the cache
+        itself, or the paged cache's materialised logical view."""
+        if page_table is None:
+            return cache_kv
+        from repro_torch.kvcache.cache import gather_page_view
+        return (gather_page_view(cache_kv[0], page_table),
+                gather_page_view(cache_kv[1], page_table))
+
+    def full_context(len_eff):
+        if page_table is not None and paged_kernel:
+            return kops.paged_verify_attention(q, cache_kv[0], cache_kv[1],
+                                               page_table, len_eff)
+        k_layer, v_layer = layer_view()
+        if plain:
+            s = k_layer.shape[1]
+            kv_pos = torch.arange(s, device=dev)[None].expand(b, s)
+            return cm.flash_attention(
+                q, k_layer, v_layer, q_positions=positions,
+                kv_positions=kv_pos, causal=True,
+                kv_valid=kv_pos < len_eff[:, None], chunk=512,
+                return_partials=True)
+        return kops.contiguous_verify_attention(q, k_layer, v_layer, len_eff,
+                                                block_size)
 
     if mode == "prefill":
+        tv = torch.full((b,), t, dtype=torch.int32, device=dev)
         if page_table is not None:
             # K/V go into the pool first: the kernel's causal page walk
             # then covers in-chunk self-attention too
@@ -219,54 +357,45 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
             pool_k, pool_v = cache_kv
             paged_write_tokens(pool_k, page_table, length, k_new)
             paged_write_tokens(pool_v, page_table, length, v_new)
-            tv = torch.full((b,), t, dtype=torch.int32, device=dev)
-            out = kops.paged_prefill_attention(q, pool_k, pool_v, page_table,
-                                               length, tv)
-            return bk.attn_output(cfg, lp["attn"], out), upd, q
-        from repro_torch.kvcache.cache import append_layer_kv
-        k_layer, v_layer = cache_kv
-        append_layer_kv(k_layer, v_layer, k_new, v_new, length)
-        s = k_layer.shape[1]
-        kv_pos = torch.arange(s, device=dev)[None].expand(b, s)
-        kv_valid = kv_pos < (length + t)[:, None]
-        out = cm.flash_attention(q, k_layer, v_layer, q_positions=positions,
-                                 kv_positions=kv_pos, causal=True,
-                                 kv_valid=kv_valid, chunk=512)
+            if paged_kernel:
+                out = kops.paged_prefill_attention(q, pool_k, pool_v,
+                                                   page_table, length, tv)
+                return bk.attn_output(cfg, lp["attn"], out), upd, q
+        else:
+            from repro_torch.kvcache.cache import append_layer_kv
+            append_layer_kv(cache_kv[0], cache_kv[1], k_new, v_new, length)
+        k_layer, v_layer = layer_view()
+        if plain:
+            s = k_layer.shape[1]
+            kv_pos = torch.arange(s, device=dev)[None].expand(b, s)
+            kv_valid = kv_pos < (length + t)[:, None]
+            out = cm.flash_attention(q, k_layer, v_layer,
+                                     q_positions=positions,
+                                     kv_positions=kv_pos, causal=True,
+                                     kv_valid=kv_valid, chunk=512)
+        else:
+            out = kops.contiguous_prefill_attention(q, k_layer, v_layer,
+                                                    length, tv, block_size)
         return bk.attn_output(cfg, lp["attn"], out), upd, q
 
     part_self = cm.dense_attn_part(q, k_new, v_new, mask=self_mask[:, None])
     upd["new_k"] = k_new
     upd["new_v"] = v_new
     if mode == "decode_full":
-        if page_table is not None:
-            part_ctx = kops.paged_verify_attention(
-                q, cache_kv[0], cache_kv[1], page_table, length)
-        else:
-            k_layer, v_layer = cache_kv
-            s = k_layer.shape[1]
-            kv_pos = torch.arange(s, device=dev)[None].expand(b, s)
-            part_ctx = cm.flash_attention(
-                q, k_layer, v_layer, q_positions=positions,
-                kv_positions=kv_pos, causal=True,
-                kv_valid=kv_pos < length[:, None], chunk=512,
-                return_partials=True)
+        part_ctx = full_context(length)
     elif mode in ("decode_partial", "decode_fused"):
-        if page_table is None or pkv_blocks is None:
-            raise NotImplementedError(
-                "partial verification runs zero-copy on the paged cache; "
-                "the gathered/contiguous partial cache is ROADMAP.md "
-                "queue 1, 'contiguous SpecPV engine'")
-        part_part = _routed_partial_context(
-            q, cache_kv[0], cache_kv[1], page_table, pkv_blocks, length, pkv)
+        if pkv_blocks is None or plain:
+            raise ValueError("partial verification reads a selection "
+                             "(pkv_blocks) through the kernels")
+        part_part = _partial_context(q, cache_kv, page_table, pkv_blocks,
+                                     length, pkv, block_size)
         if mode == "decode_partial":
             part_ctx = part_part
         else:
             # one launch per source, row-selected partials: partial rows
-            # see the full cache at effective length 0 (no pages streamed)
-            len_eff = torch.where(partial_rows, torch.zeros_like(length),
-                                  length)
-            part_full = kops.paged_verify_attention(
-                q, cache_kv[0], cache_kv[1], page_table, len_eff)
+            # see the full cache at effective length 0 (no blocks read)
+            part_full = full_context(torch.where(
+                partial_rows, torch.zeros_like(length), length))
             sel = partial_rows[:, None, None]
             part_ctx = (torch.where(sel, part_part[0], part_full[0]),
                         torch.where(sel, part_part[1], part_full[1]),
@@ -301,14 +430,17 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
               mode: str, self_mask=None, cache: Optional[Dict] = None,
               pkv=None, spec: Optional[SpecPVConfig] = None,
               emit_queries: bool = False, partial_rows=None,
-              collect_features: bool = True, pkv_blocks=None) -> TrunkOut:
+              collect_features: bool = True, pkv_blocks=None,
+              plain: bool = False) -> TrunkOut:
     """Run the layer stack (see module docstring for modes).
 
     cache: paged {"k","v" [L,NP,bs,Hk,Dh], "kmax","kmin" [L,NP,Hk,Dh],
     "page_table" [B,NB], "length" [B]} or contiguous {"k","v"
     [L,B,S,Hk,Dh], "kmax","kmin" [L,B,NB,Hk,Dh], "length"}.
-    pkv: tail buffer (k, v [L,B,Hk,P,Dh], pos [L,B,Hk,P]);
-    pkv_blocks: [L, B, Hk, NS] selected logical block ids."""
+    pkv: tail buffer (k, v [L,B,Hk,P,Dh], pos [L,B,Hk,P]), followed by
+    the gathered body (k, v [L,B,NS*bs,Hk,Dh]) unless zero-copy;
+    pkv_blocks: [L, B, Hk, NS] selected logical block ids.  ``plain``:
+    the oracle's plain route (contiguous cache only)."""
     spec = spec or SpecPVConfig()
     num_layers = len(layers)
     f_lo, f_mi, f_hi = _feature_targets(num_layers)
@@ -324,16 +456,17 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     new_k, new_v, queries = [], [], []
     for i, lp in enumerate(layers):
         cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
-        pkv_l = ((pkv[0][i], pkv[1][i], pkv[2][i])
+        pkv_l = (tuple(p[i] for p in pkv)
                  if mode in ("decode_partial", "decode_fused") else None)
         att, upd, q = _self_attention(
             cfg, mode, lp, h, positions, self_mask, cache_kv, pkv_l, length,
             inv_freq, mscale, page_table=page_table,
             paged_kernel=paged_kernel, partial_rows=partial_rows,
-            pkv_blocks=pkv_blocks[i] if pkv_blocks is not None else None)
+            pkv_blocks=pkv_blocks[i] if pkv_blocks is not None else None,
+            block_size=spec.block_size, plain=plain)
         h = h + att
         if mode == "prefill":
-            if not paged:
+            if plain:
                 from repro_torch.kvcache.cache import update_layer_summaries
                 nkmax, nkmin = update_layer_summaries(
                     cache["kmax"][i], cache["kmin"][i], cache["k"][i],
@@ -353,14 +486,20 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                     feats[slot] = h
     new_cache = None
     if mode == "prefill":
+        # the prefill reads no summary: one K4 call after the layer loop
+        # covers the chunk in every layer
+        n_touch = -(-t // spec.block_size) + 1
         if paged:
-            # the prefill reads no summary: one K4 call after the layer
-            # loop covers the chunk in every layer
             from repro_torch.kvcache.cache import paged_update_all_summaries
-            blk = cache["k"].shape[2]
             paged_update_all_summaries(cache["kmax"], cache["kmin"],
                                        cache["k"], page_table, length,
-                                       length + t, n_touch=-(-t // blk) + 1)
+                                       length + t, n_touch=n_touch)
+        elif not plain:
+            from repro_torch.kvcache.cache import (
+                contiguous_update_all_summaries)
+            contiguous_update_all_summaries(cache["kmax"], cache["kmin"],
+                                            cache["k"], length, length + t,
+                                            spec.block_size, n_touch)
         new_cache = dict(cache)
         new_cache["length"] = length + t
     new_kv = ((torch.stack(new_k), torch.stack(new_v)) if new_k else None)

@@ -2,13 +2,15 @@
 ``repro/serving/engine.py``), with two schedulers.
 
 * ``"continuous"`` (default): in-flight batching through
-  ``ContinuousScheduler`` over one shared paged ``SpecPVEngine``; each
-  slot runs its own SpecPV automaton and each decode tick is one fused
-  step over the decoding rows (one graph replay on the card).
+  ``ContinuousScheduler`` over one shared ``SpecPVEngine`` (contiguous
+  slots, or the paged pool with ``paged_kv=True``); each slot runs its
+  own SpecPV automaton and each decode tick is one fused step over the
+  decoding rows (one graph replay on the card).
 * ``"wave"``: the lock-step baseline.  Pending requests are bucketed by
   prompt length and run as fixed-size waves through the port's
-  ``generate``; a state architecture (``rwkv6-3b``) always serves this
-  way, since continuous batching drives the attention automaton.
+  ``generate`` on a contiguous engine, as in the reference; a state
+  architecture (``rwkv6-3b``) always serves this way, since continuous
+  batching drives the attention automaton.
 
 Runs on ``device`` (CUDA unless ``"cpu"`` is asked for), where the
 params must live; ``cuda_graphs`` goes to the engines as is.
@@ -30,13 +32,15 @@ from repro_torch.serving.scheduler import ContinuousScheduler, trim_output
 
 @dataclass
 class ServingConfig:
-    """The reference's serving knobs, every field under its name.  The
-    defaults are the settings the port supports, which differ from the
-    reference's in two: zero-copy partial KV (``zero_copy_partial=True``)
-    and the serial prefill pump (``fused_prefill=False``).  Copy-on-write
-    prefix sharing is on by default, as in the reference
-    (``prefix_cache=True``; off, every request pays for its whole
-    prompt).  ``paged_kv=False``, ``fused_prefill=True``,
+    """The reference's serving knobs, every field under its name, with
+    its defaults but one: the serial prefill pump (``fused_prefill=False``)
+    until the fused multi-row prefill is ported (ROADMAP.md queue 1,
+    'Batched prefill').  So by default the continuous engine is
+    contiguous (``paged_kv=False``: admission by free slot, no page
+    gate) with the gathered partial cache (``zero_copy_partial=False``);
+    ``paged_kv=True`` serves from the paged pool, gathered or zero-copy.
+    Copy-on-write prefix sharing (``prefix_cache=True``, as in the
+    reference) applies to the paged pool only.  ``fused_prefill=True``,
     ``tiered_kv=True`` and a ``mesh_shape`` raise NotImplementedError
     naming their ROADMAP item (the tier codec fields only matter with
     ``tiered_kv``)."""
@@ -53,13 +57,13 @@ class ServingConfig:
     partial_verification: bool = True
     pad_id: int = 0
     scheduler: str = "continuous"       # "continuous" | "wave"
-    paged_kv: bool = True
+    paged_kv: bool = False
     num_pages: Optional[int] = None     # None: batch * max_len/block + 1
     num_draft_pages: Optional[int] = None
     tiered_kv: bool = False
     tier_lossless: bool = False
     tier_codec: str = "int8"
-    zero_copy_partial: bool = True
+    zero_copy_partial: bool = False
     prefix_cache: bool = True
     mesh_shape: Optional[tuple] = None
 
@@ -71,11 +75,6 @@ class ServingEngine:
                  cuda_graphs: Optional[bool] = None):
         self.scfg = scfg = scfg or ServingConfig()
         for bad, what, item in (
-                (not scfg.paged_kv, "the contiguous cache (paged_kv=False)",
-                 "contiguous SpecPV engine"),
-                (not scfg.zero_copy_partial and scfg.partial_verification
-                 and cfg.is_attention_arch, "the gathered partial cache "
-                 "(zero_copy_partial=False)", "contiguous SpecPV engine"),
                 (scfg.fused_prefill, "the fused multi-row prefill "
                  "(fused_prefill=True)", "Batched prefill"),
                 (scfg.tiered_kv, "tiered KV residency (tiered_kv=True)",
@@ -115,24 +114,21 @@ class ServingEngine:
         return False
 
     def _engine_for(self, batch: int, *, paged: bool = False) -> SpecPVEngine:
-        """The continuous engine (``paged``: the configured pool, pages
-        per request, prefix sharing as configured) or a wave engine of
-        ``batch`` rows (an attention arch's lock-step engine is paged too,
-        its pool sized for whole rows, and shares nothing; a state arch's
-        is contiguous)."""
+        """The engine of ``batch`` rows: paged (the configured pools, pages
+        per request, prefix sharing and zero-copy as configured) or
+        contiguous (the wave path always; the continuous one with
+        ``paged_kv=False``), as the reference's ``_engine_for``."""
         key = (batch, paged)
         if key not in self._engines:
-            attn = self.cfg.is_attention_arch
             self._engines[key] = SpecPVEngine(
                 self.cfg, self.spec, self.dcfg, self.params, self.dparams,
                 batch=batch, max_len=self.scfg.max_len,
                 partial_verification=self.scfg.partial_verification,
-                paged=attn,
-                num_pages=self.scfg.num_pages if paged else None,
-                num_draft_pages=self.scfg.num_draft_pages if paged else None,
-                prefix_cache=paged and self.scfg.prefix_cache,
-                zero_copy=self.scfg.zero_copy_partial, device=self.device,
-                cuda_graphs=self.cuda_graphs)
+                paged=paged, num_pages=self.scfg.num_pages,
+                num_draft_pages=self.scfg.num_draft_pages,
+                prefix_cache=self.scfg.prefix_cache,
+                zero_copy=paged and self.scfg.zero_copy_partial,
+                device=self.device, cuda_graphs=self.cuda_graphs)
         return self._engines[key]
 
     def page_stats(self) -> Dict[str, int]:
@@ -174,7 +170,7 @@ class ServingEngine:
         sched = self._continuous
         if sched is None:
             sched = ContinuousScheduler(
-                self._engine_for(self.scfg.batch, paged=True),
+                self._engine_for(self.scfg.batch, paged=self.scfg.paged_kv),
                 prefill_chunk=self.scfg.prefill_chunk,
                 prefill_budget=self.scfg.prefill_budget,
                 fused=self.scfg.fused_step,

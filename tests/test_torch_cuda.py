@@ -407,7 +407,8 @@ def _engine(model, prompt_len, new, **kw):
                                  dcfg.tree_depth + 1)
     return SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
                         max_len=max_len, paged=cfg.arch_type == "dense",
-                        device="cuda", **kw)
+                        zero_copy=cfg.arch_type == "dense", device="cuda",
+                        **kw)
 
 
 # llama: a prompt 6 tokens under the partial budget, so Full, Refresh and
@@ -552,6 +553,7 @@ def _serve(model, graphs, prefill_budget=None):
     srv = ServingEngine(cfg, spec, dcfg, params, dparams,
                         ServingConfig(batch=3, max_len=SERVE_MAX_LEN,
                                       prefill_budget=prefill_budget,
+                                      paged_kv=True, zero_copy_partial=True,
                                       prefix_cache=False),
                         device="cuda", cuda_graphs=graphs)
     for i, (n, new) in enumerate(SERVE_CASE):
@@ -608,7 +610,8 @@ def _row_snapshot(eng, row):
         if isinstance(v, dict):
             for k in ("page_table", "length"):
                 snap[f"{f.name}.{k}"] = v[k][row].clone()
-        elif f.name in ("pkv_k", "pkv_v", "pkv_pos"):
+        elif f.name in ("pkv_k", "pkv_v", "pkv_pos", "pkv_body_k",
+                        "pkv_body_v"):          # [L, B, ...]
             snap[f.name] = v[:, row].clone()
         else:
             snap[f.name] = v[row].clone()
@@ -635,8 +638,8 @@ def test_cuda_masked_step_keeps_untouched_rows(cuda, models):
     from repro_torch.core.engine import SpecPVEngine
     cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
     eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=3,
-                       max_len=SERVE_MAX_LEN, device="cuda",
-                       prefix_cache=False)
+                       max_len=SERVE_MAX_LEN, paged=True, zero_copy=True,
+                       device="cuda", prefix_cache=False)
     rng = np.random.default_rng(6)
     st = eng.empty_state()
     st, _ = eng.prefill_into_slot(
@@ -669,8 +672,8 @@ def test_cuda_serving_bodies_do_not_sync(cuda, models):
     from repro_torch.core.engine import MODE_IDS, SpecPVEngine
     cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
     eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=3,
-                       max_len=SERVE_MAX_LEN, device="cuda",
-                       cuda_graphs=False, prefix_cache=False)
+                       max_len=SERVE_MAX_LEN, paged=True, zero_copy=True,
+                       device="cuda", cuda_graphs=False, prefix_cache=False)
     rng = np.random.default_rng(7)
     st = eng.empty_state()
     for slot, n in ((0, 4700), (1, 2000)):
@@ -782,7 +785,8 @@ def _forked_engine(models, **kw):
     from repro_torch.core.engine import SpecPVEngine
     cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
     eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
-                       max_len=SERVE_MAX_LEN, device="cuda", **kw)
+                       max_len=SERVE_MAX_LEN, paged=True, zero_copy=True,
+                       device="cuda", **kw)
     st = eng.empty_state()
     prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, (4700,))
     st, _ = eng.prefill_into_slot(st, 0, prompt, max_new_tokens=24)
@@ -882,3 +886,251 @@ def test_cuda_prefix_host_paths_do_not_sync(cuda, models):
     assert eng2.prepare_cow(st2, np.array([True, True])) is st2
     assert eng2.cow_copies == copies
 
+
+
+# ---------------------------------------------------------------------------
+# the reference's default engine: the contiguous cache and gathered body
+# ---------------------------------------------------------------------------
+
+def _contiguous_kv(dev, dtype, layers, b, max_len, seed, hk=8, dh=128,
+                   bs=128):
+    """A filled contiguous cache [L, B, max_len, Hk, Dh] over
+    block-rounded rows (the rows past max_len stay 0)."""
+    from repro_torch.kvcache.cache import init_contiguous_kv
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    k, v = init_contiguous_kv(layers, b, max_len, bs, hk, dh, dtype, dev)
+    for a in (k, v):
+        a.copy_(torch.randn(a.shape, generator=g, device=dev).to(dtype))
+    return k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 61, 156])
+def test_cuda_contiguous_verify_attention_matches_plain(cuda, dtype, t):
+    """K1 over a contiguous cache through the identity list (a max_len of
+    2000, not a multiple of the block; rows of 1999 and 700 tokens)
+    against the plain version of the same launch."""
+    k, v = _contiguous_kv(cuda, TDT[dtype], 1, 2, 2000, seed=20)
+    k, v = k[0], v[0]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(21)
+    q = torch.randn((2, t, 32, 128), generator=g, device=cuda).to(TDT[dtype])
+    length = torch.tensor([1999, 700], dtype=torch.int32, device=cuda)
+    got = tops.contiguous_verify_attention(q, k, v, length, 128)
+    kf, rows = tops.flat_blocks(k)
+    vf, _ = tops.flat_blocks(v)
+    idx, vlen = tops._identity_walk(2, 8, rows // 128, length, 2000, 128)
+    want = tref.block_attention_batched(q, kf, vf, idx, vlen, 128)
+    torch.cuda.synchronize()
+    _assert_partials_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_gathered_body_attention_matches_plain(cuda, dtype):
+    """K1 over the gathered body (token-major [B, NS*bs, Hk, Dh], block
+    ids b*NS + j, unused slots at valid length 0) against its plain
+    version, and bit-equal to the routed read of the same blocks."""
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.models import dense as dn
+    dt = TDT[dtype]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(22)
+    b, hk, dh, bs, ns, npg = 2, 8, 128, 128, 7, 20
+    pool_k = torch.randn((npg, bs, hk, dh), generator=g, device=cuda).to(dt)
+    pool_v = torch.randn((npg, bs, hk, dh), generator=g, device=cuda).to(dt)
+    table = (torch.randperm(npg - 1, generator=g, device=cuda)[: 2 * 9] + 1
+             ).to(torch.int32).reshape(2, 9)
+    pbi = torch.stack([torch.stack([torch.randperm(9, generator=g,
+                                                   device=cuda)[:ns]
+                                    for _ in range(hk)])
+                       for _ in range(b)]).to(torch.int32)
+    pbi[..., -2:] = -1
+    length = torch.tensor([9 * bs - 50, 9 * bs], dtype=torch.int32,
+                          device=cuda)
+    spec = SpecPVConfig(block_size=bs)
+    body_k, body_v = dn.gather_partial_body(spec, pbi[None], pool_k[None],
+                                            pool_v[None], table)
+    q = torch.randn((b, 61, 32, dh), generator=g, device=cuda).to(dt)
+    bufk = torch.zeros((b, hk, 4, dh), device=cuda, dtype=dt)
+    bufpos = torch.full((b, hk, 4), -1, dtype=torch.int32, device=cuda)
+    gathered = dn._partial_context(q, None, None, pbi, length,
+                                   (bufk, bufk, bufpos, body_k[0],
+                                    body_v[0]), bs)
+    routed = dn._partial_context(q, (pool_k, pool_v), table, pbi, length,
+                                 (bufk, bufk, bufpos), bs)
+    idx = (torch.arange(b, device=cuda)[:, None, None] * ns
+           + torch.arange(ns, device=cuda)).expand(b, hk, ns)
+    vlen = dn._selected_vlen(pbi, length, bs)
+    got = tops.routed_partial_attention(
+        q, body_k[0].reshape(b * ns, bs, hk, dh),
+        body_v[0].reshape(b * ns, bs, hk, dh), idx, vlen)
+    want = tref.block_attention_batched(
+        q, body_k[0].reshape(-1, hk, dh), body_v[0].reshape(-1, hk, dh),
+        idx.to(torch.int32), vlen.to(torch.int32), bs)
+    torch.cuda.synchronize()
+    _assert_partials_close(got, want)
+    for a, c in zip(gathered, routed):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("qoff", [0, 700, 1536])
+def test_cuda_contiguous_prefill_matches_plain(cuda, dtype, qoff):
+    """K2 over a contiguous cache (max_len 2000): the wrapper's output is
+    its launch's normalised partials, which match the plain version."""
+    dt = TDT[dtype]
+    k, v = _contiguous_kv(cuda, dt, 1, 1, 2000, seed=23)
+    k, v = k[0], v[0]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(24)
+    t = 256
+    q = torch.randn((1, t, 32, 128), generator=g, device=cuda).to(dt)
+    length = torch.tensor([qoff], dtype=torch.int32, device=cuda)
+    tv = torch.tensor([t], dtype=torch.int32, device=cuda)
+    out = tops.contiguous_prefill_attention(q, k, v, length, tv, 128)
+    kf, rows = tops.flat_blocks(k)
+    vf, _ = tops.flat_blocks(v)
+    idx, vlen = tops._identity_walk(1, 8, rows // 128, length + tv, 2000,
+                                    128)
+    got = tops.block_attention(q, kf, vf, idx, vlen, 128, q_offset=length)
+    want = tref.block_attention_batched(q, kf, vf, idx, vlen, 128,
+                                        q_offset=length)
+    torch.cuda.synchronize()
+    _assert_partials_close(got, want)
+    assert torch.equal(out, (got[2] / got[1].clamp(min=1e-30)[..., None])
+                       .transpose(1, 2).to(dt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("start, end, n_touch", [
+    (1536, 1792, 3), (1700, 1801, 2), (1990, 2010, 2)],
+    ids=["prefill", "commit", "past_max_len"])
+def test_cuda_contiguous_block_summaries_bit_exact(cuda, dtype, start, end,
+                                                   n_touch):
+    """K4's all-layer contiguous form (one launch, 4 layers x 2 rows of a
+    max_len-2000 cache) against the plain per-layer recomputation, bit
+    for bit; blocks outside [start, end) keep their values."""
+    from repro_torch.kvcache.cache import update_layer_summaries
+    layers, b, bs = 4, 2, 128
+    k, _ = _contiguous_kv(cuda, TDT[dtype], layers, b, 2000, seed=25)
+    nb = -(-2000 // bs)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(26)
+    old = torch.randn((2, layers, b, nb, 8, 128), generator=g, device=cuda)
+    st = torch.tensor([start, start - 300], dtype=torch.int32, device=cuda)
+    en = torch.tensor([end, end - 300], dtype=torch.int32, device=cuda)
+    got = old.clone()
+    tops.reset_launch_counts()
+    tops.contiguous_block_summaries(k, st, en, n_touch, got[0], got[1], bs)
+    assert tops.LAUNCHES["block_summary"] == 1
+    for i in range(layers):
+        wx, wn = update_layer_summaries(old[0, i], old[1, i], k[i], st, en,
+                                        bs)
+        assert torch.equal(got[0, i], wx) and torch.equal(got[1, i], wn)
+
+
+def _layout_engine(model, prompt_len, new, layout, **kw):
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    cfg, spec, dcfg, params, dparams = model
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    return SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=max_len, device="cuda", **layout, **kw)
+
+
+@pytest.mark.cuda
+def test_cuda_contiguous_prefill_equals_paged(cuda, models):
+    """2-layer full-width llama: after the same prefill the contiguous
+    engine's K/V and summaries equal the paged engine's read through the
+    page table, bit for bit (the same K2 and K4 work on the same
+    bytes)."""
+    import numpy as np
+    model = _get_model(models, "llama3.1-8b")
+    prompt_len, new = GRAPH_CASES["llama3.1-8b"]
+    prompt = np.random.default_rng(2).integers(
+        0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
+    con = _layout_engine(model, prompt_len, new, dict(paged=False))
+    pag = _layout_engine(model, prompt_len, new,
+                         dict(paged=True, zero_copy=True))
+    sc, sp = con.prefill(prompt), pag.prefill(prompt)
+    torch.cuda.synchronize()
+    pt = sp.cache["page_table"][0].long()
+    n = prompt_len
+    nb = -(-n // 128)
+    for name in ("k", "v"):
+        view = sp.cache[name][:, pt].flatten(1, 2)[:, :n]
+        assert torch.equal(sc.cache[name][:, 0, :n], view), name
+    for name in ("kmax", "kmin"):
+        assert torch.equal(sc.cache[name][:, 0, :nb],
+                           sp.cache[name][:, pt[:nb]]), name
+
+
+@pytest.mark.cuda
+def test_cuda_contiguous_graph_generate_equals_eager(cuda, models):
+    """The contiguous gathered engine: graph ``generate`` equals eager
+    token for token with the same launch counts, one graph per variant
+    and the prefill chunk."""
+    import numpy as np
+    model = _get_model(models, "llama3.1-8b")
+    prompt_len, new = GRAPH_CASES["llama3.1-8b"]
+    prompt = np.random.default_rng(3).integers(
+        0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
+    runs = []
+    for graphs in (False, True):
+        eng = _layout_engine(model, prompt_len, new, dict(paged=False),
+                             cuda_graphs=graphs)
+        tops.reset_launch_counts()
+        toks, stats = eng.generate(prompt, new)
+        torch.cuda.synchronize()
+        runs.append((eng, toks, stats, tops.launch_counts()))
+    (_, et, es, ec), (graph, gt, gs, gc) = runs
+    assert np.array_equal(gt, et) and gs["modes"] == es["modes"]
+    assert gc == ec and set(gs["modes"]) == {"full", "refresh", "partial"}
+    assert set(graph._graphs) == {("prefill", 256), (True, False, False),
+                                  (True, False, True), (False, True, False)}
+    assert all(ec[0][k] > 0 for k in ("sparse_verify_attention",
+                                      "paged_prefill_attention",
+                                      "retrieval_score", "block_summary"))
+
+
+@pytest.mark.cuda
+def test_cuda_contiguous_step_bodies_do_not_sync(cuda, models):
+    """The contiguous gathered engine's prefill chunk, each step variant
+    and a contiguous slot-prefill chunk run eagerly under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import numpy as np
+    from repro_torch.core.engine import MODE_IDS
+    model = _get_model(models, "llama3.1-8b")
+    prompt_len, new = GRAPH_CASES["llama3.1-8b"]
+    eng = _layout_engine(model, prompt_len, new, dict(paged=False),
+                         cuda_graphs=False)
+    prompt = np.random.default_rng(4).integers(
+        0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
+    st = eng.prefill(prompt)
+    toks = torch.zeros((1, 256), dtype=torch.long, device=cuda)
+    bodies = [lambda: eng._prefill_body(toks, st.cache, st.dcache,
+                                        eng._prev_feat, eng._logits_last)]
+    eng._rows.fill_(True)
+    for mode, key in (("full", (True, False, False)),
+                      ("refresh", (True, False, True)),
+                      ("partial", (False, True, False))):
+        bodies.append(lambda mode=mode, key=key: (
+            eng._modes.fill_(MODE_IDS[mode]), eng._fused_body(*key)))
+    _, cur = eng.prefill_begin_slot(eng.state, 0, prompt[0, :300])
+    eng._own_slot_rows(cur)
+    bodies.append(lambda: eng._prefill_body(
+        toks, eng._slot_cache, eng._slot_dcache, eng._slot_prev_feat,
+        eng._slot_logits))
+    torch.cuda.synchronize()
+    for body in bodies:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            body()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -128,15 +128,21 @@ def test_unsupported_settings_raise(setup):
     s = setup
     kw = dict(batch=2, max_len=MAX_LEN, device="cpu")
     args = (s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"])
-    for bad in (dict(paged=False), dict(paged=True, zero_copy=False),
+    for bad in (dict(temperature=0.7),
                 dict(paged=True, zero_copy=True, temperature=0.7),
-                dict(paged=True, zero_copy=True, tiered=True)):
+                dict(paged=True, zero_copy=True, tiered=True),
+                dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(*args, **bad, **kw)
+    # zero-copy routes through the page table, as the reference asserts
+    with pytest.raises(ValueError, match="paged"):
+        TEngine(*args, paged=False, zero_copy=True, **kw)
 
 
 def test_defaults_are_the_supported_engine(setup):
+    """The defaults are the reference's: contiguous, gathered."""
     s = setup
     te = TEngine(s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"],
                  batch=2, max_len=MAX_LEN, device="cpu")
-    assert te.zero_copy and te.partial_enabled
+    assert not te.paged and not te.zero_copy
+    assert te.gathered and te.partial_enabled

@@ -290,8 +290,8 @@ def test_graph_mode_selection(dense):
     assert te.cuda_graphs is False
     with pytest.raises(ValueError, match="CPU"):
         TEngine(dense["tcfg"], dense["tspec"], dense["tdcfg"], dense["tp"],
-                dense["td"], batch=B, max_len=MAX_LEN, device="cpu",
-                cuda_graphs=True)
+                dense["td"], batch=B, max_len=MAX_LEN, paged=True,
+                zero_copy=True, device="cpu", cuda_graphs=True)
     prompt = np.zeros((B, 20), np.int32)
     te.prefill(prompt)
     with pytest.raises(ValueError, match="own state"):

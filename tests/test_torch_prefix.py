@@ -113,6 +113,8 @@ def _jengine(s, **kw):
 
 def _tengine(s, **kw):
     kw.setdefault("batch", B)
+    kw.setdefault("paged", True)
+    kw.setdefault("zero_copy", True)
     return TEngine(s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"],
                    max_len=MAX_LEN, device="cpu", **kw)
 

@@ -100,6 +100,8 @@ def _jengine(s, **kw):
 
 def _tengine(s, batch=B, **kw):
     kw.setdefault("prefix_cache", False)
+    kw.setdefault("paged", True)
+    kw.setdefault("zero_copy", True)
     return TEngine(s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"],
                    batch=batch, max_len=MAX_LEN, device="cpu", **kw)
 
@@ -308,7 +310,8 @@ def _row_snapshot(eng, row):
         if isinstance(v, dict):
             for k in ("page_table", "length"):
                 snap[f"{f.name}.{k}"] = v[k][row].clone()
-        elif f.name in ("pkv_k", "pkv_v", "pkv_pos"):
+        elif f.name in ("pkv_k", "pkv_v", "pkv_pos", "pkv_body_k",
+                        "pkv_body_v"):          # [L, B, ...]
             snap[f.name] = v[:, row].clone()
         else:
             snap[f.name] = v[row].clone()
@@ -416,6 +419,7 @@ def test_serving_engine_continuous_path(setup):
     configured pool and keeps its stats; ``reset_warm`` boots a fresh
     scheduler that gives the same tokens."""
     scfg = ServingConfig(batch=B, max_len=MAX_LEN, prefill_chunk=CHUNK,
+                         paged_kv=True, zero_copy_partial=True,
                          num_pages=SMALL_POOL, prefix_cache=False)
     srv = ServingEngine(setup["tcfg"], setup["tspec"], setup["tdcfg"],
                         setup["tp"], setup["td"], scfg, device="cpu")
@@ -489,9 +493,9 @@ def _bad_request(s, **kw):
 
 
 @pytest.mark.parametrize("make, kw, item", [
-    (_bad_config, dict(paged_kv=False), "contiguous SpecPV engine"),
-    (_bad_config, dict(zero_copy_partial=False), "contiguous SpecPV engine"),
-    (_serves, dict(prefix_cache=True), None),
+    (_serves, dict(paged_kv=False), None),
+    (_serves, dict(paged_kv=True, zero_copy_partial=False), None),
+    (_serves, dict(paged_kv=True, prefix_cache=True), None),
     (_bad_config, dict(fused_prefill=True), "Batched prefill"),
     (_bad_config, dict(tiered_kv=True), "Tiered KV"),
     (_bad_config, dict(mesh_shape=(1, 1)), "Multi-GPU"),
@@ -500,9 +504,13 @@ def _bad_request(s, **kw):
 ], ids=["paged_kv", "zero_copy", "prefix_cache", "fused_prefill", "tiered",
         "mesh", "temperature", "chain"])
 def test_unsupported_settings_raise(setup, make, kw, item):
-    if item is None:        # ported since: it serves, its stats exist
+    if item is None:        # ported since: it serves on its layout
         srv = make(setup, **kw)
-        assert srv.prefix_stats()["inserted"] > 0
+        eng = srv._continuous.engine
+        assert eng.paged == kw["paged_kv"]
+        assert eng.zero_copy == kw.get("zero_copy_partial", False)
+        if kw.get("prefix_cache"):
+            assert srv.prefix_stats()["inserted"] > 0
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*'{item}'"):
         make(setup, **kw)
