@@ -74,7 +74,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    asserted; each request alone through batch-1 ``generate`` (matches
    reported); a profiled window of batch-4 Partial ticks; the serving
    bodies under the sync check; fp32 losslessness at 4 layers (batch 2,
-   interleaved prefill: every request equals its solo ``generate`` and a
+   interleaved prefill with the serial pump: every request equals its
+   solo ``generate`` and a
    blocking run);
 7. serving with shared prefixes (the traffic of ``bench_serving.py
    --prefix-share``): llama3.1-8b at full width, batch 4, a 129-page
@@ -92,7 +93,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    the pre-step copy-on-write copies pages in both pools bit for bit and
    under the sync check, and no page the two rows still share is written
    after the fork.  Then fp32 losslessness at 4 layers (batch 4, two
-   1536-token system prompts, six requests, interleaved prefill so that
+   1536-token system prompts, six requests, interleaved prefill with the
+   serial pump so that
    paired cursors dedup): every request equals its solo ``generate`` and
    its tokens with sharing off;
 8. the reference's default engine, ``SpecPVEngine(paged=False,
@@ -112,7 +114,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    page table bit for bit; after one Refresh each, the gathered body's
    K1 Partial result equals the routed one bit for bit.  (e) The
    reference's ``ServingConfig()`` (contiguous slots, gathered body,
-   ``fused_prefill=False``) over phase 6's six requests at batch 4 with
+   blocking admission) over phase 6's six requests at batch 4 with
    graphs, launches held to the steps and chunks, beside phase 6's
    numbers, and the serving bodies under the sync check.  (d) fp32 at 4
    layers with graphs: the contiguous gathered, paged gathered and paged
@@ -120,13 +122,35 @@ Phases, in order (any failure raises and the script exits non-zero):
    full verification and phase 4's zero-copy tokens with partial
    verification; contiguous serving, blocking and interleaved, gives
    each request's solo ``generate``;
-9. one JSON line with every kernel's numbers (each kernel's launches
+9. the fused multi-row prefill, ``ServingConfig.fused_prefill=True``
+   (the reference's default): K2 over a ragged [4, 256] chunk of four
+   rows (t_valid 256, 16, 200, 1) on the contiguous prefill carry and K4
+   over 32 layers with per-row ends length + t_valid, against their
+   plain versions (K4 bit for bit), timed.  (a) Phase 6's six requests
+   interleaved (``prefill_budget=1024``: up to four rows per round) with
+   graphs on the paged pool with the serial and the fused pump and on
+   contiguous slots fused: tokens/s, time to first token, latency,
+   device ms per prefill round by (rows, width), tick wall with and
+   without a prefill round, prefill dispatches per tick, peak memory,
+   launches held to the rounds, bf16 tokens equal to the serial run's
+   (reported); one 4-row round profiled (device launches, host launch
+   calls).  (b) Phase 7's shared-prefix traffic, interleaved and fused
+   with sharing on: dedupes, prompt tokens skipped, round walls, no
+   committed page or pin left.  (c) The paged fused run eagerly: tokens,
+   launches and rounds equal to the graph run's; an eager 3-row round
+   with a padded short row under the sync check.  (d) fp32 at 4 layers
+   with graphs: the fused pump on the paged pool with sharing (paired
+   cold admissions dedupe) and on contiguous slots gives every request's
+   solo ``generate`` and the serial pump's tokens;
+10. one JSON line with every kernel's numbers (each kernel's launches
    from its own path's run, ``serving_launches`` from phase 6's,
    ``prefix_serving_launches`` from phase 7's shared run,
    ``contiguous_launches`` and ``contiguous_serving_launches`` from
-   phase 8's graph runs; phase 8's call forms under ``shapes``), the
-   card's name and power limit, and the final ``{"ok": true, ...}``
-   line.
+   phase 8's graph runs, ``fused_serving_launches``,
+   ``fused_contiguous_serving_launches`` and
+   ``fused_prefix_serving_launches`` from phase 9's fused graph runs;
+   phases 8 and 9's call forms under ``shapes``), the card's name and
+   power limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1785,6 +1809,13 @@ def _expected_serving_launches(eng, layers):
             "retrieval_score": k3, "block_summary": k4 + chunks}
 
 
+def _prefill_graph_keys(eng, chunk=256):
+    """The graphs of the slot prefill chunks that ran at full width, one
+    per row count (``SpecPVEngine.prefill_keys``)."""
+    return {("fused_prefill", k, t) for k, t in eng.prefill_keys
+            if t == chunk}
+
+
 def _serving_requests(prompts, reqs_spec):
     from repro_torch.serving import Request
     now = time.time()
@@ -1892,7 +1923,7 @@ def phase_serving(torch, card):
         say(card, f"serving [{label}] launches {got} == implied by the "
                   f"steps' variants and {eng.prefill_dispatches} chunks")
         if graphs:
-            want_graphs = {("slot_prefill", 256)} | set(eng.dispatch_keys)
+            want_graphs = _prefill_graph_keys(eng) | set(eng.dispatch_keys)
             if set(eng._graphs) != want_graphs:
                 raise AssertionError(f"graphs {sorted(map(str, eng._graphs))}"
                                      f" != {sorted(map(str, want_graphs))}")
@@ -1997,48 +2028,55 @@ def profile_ticks(torch, card, srv, prompts, warm: int = 3, ticks: int = 6):
                 tick_device_launches=dev_n / ticks)
 
 
+def _no_sync(torch, fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("error")``."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _eager_prefill_round(torch, eng, st, cursors):
+    """One ``prefill_step_fused`` round with its body run eagerly (a graph
+    engine's ``_run`` replays otherwise) under the sync check: staging,
+    body, copies out and block registration."""
+    graphs, eng.cuda_graphs = eng.cuda_graphs, False
+    try:
+        return _no_sync(torch, lambda: eng.prefill_step_fused(st, cursors))
+    finally:
+        eng.cuda_graphs = graphs
+
+
 def check_sync_free_serving(torch, card, eng, prompts):
-    """On the serving engine with two slots decoding and two empty: the
-    slot prefill chunk's body and each step variant's body with the row
-    mask [1, 1, 0, 0] (an empty slot among the masked rows), run eagerly
-    under ``torch.cuda.set_sync_debug_mode("error")``."""
+    """On the serving engine: a slot prefill round of one cursor (staging,
+    body and copies out), then with two slots decoding and two empty each
+    step variant's body with the row mask [1, 1, 0, 0] (an empty slot
+    among the masked rows), run eagerly under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
     from repro_torch.core.engine import MODE_IDS
     st = eng.empty_state()
-    for slot in (0, 1):
-        st, _ = eng.prefill_into_slot(st, slot, prompts[slot],
-                                      max_new_tokens=32)
-    toks = eng._chunk_buf(1, 256)
-    if eng.paged:
-        cache = dict(eng._slot_cache, **{n: st.cache[n]
-                                         for n in ("k", "v", "kmax", "kmin")})
-        dcache = dict(eng._slot_dcache, k=st.dcache["k"], v=st.dcache["v"])
-    else:                   # a cursor's whole batch-1 rows
-        cache, dcache = eng._slot_cache, eng._slot_dcache
-    bodies = [("slot prefill chunk", None, lambda: eng._prefill_body(
-        toks, cache, dcache, eng._slot_prev_feat, eng._slot_logits))]
+    st, cur = eng.prefill_begin_slot(st, 0, prompts[0], max_new_tokens=32)
+    st, _ = _eager_prefill_round(torch, eng, st, [cur])
+    while not cur.done:
+        st, _ = eng.prefill_step_into_slot(st, cur)
+    st, _ = eng.prefill_finalize_slot(st, cur)
+    st, _ = eng.prefill_into_slot(st, 1, prompts[1], max_new_tokens=32)
+    labels = ["slot prefill chunk"]
     for label, modes, key in (
             ("full", ["full"] * 2, (True, False, False)),
             ("refresh", ["refresh"] * 2, (True, False, True)),
             ("partial", ["partial"] * 2, (False, True, False)),
             ("partial + refresh", ["partial", "refresh"], (True, True, True))):
-        ops_in = torch.tensor([[MODE_IDS[m] for m in modes] + [0, 0],
-                               [1, 1, 0, 0]], dtype=torch.int8,
-                              device="cuda")
-        bodies.append((f"{label} rows [1, 1, 0, 0]", ops_in,
-                       lambda key=key: eng._fused_body(*key)))
-    for label, ops_in, body in bodies:
-        if ops_in is not None:
-            eng._tick_in.copy_(ops_in)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            body()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        eng._tick_in.copy_(torch.tensor(
+            [[MODE_IDS[m] for m in modes] + [0, 0], [1, 1, 0, 0]],
+            dtype=torch.int8, device="cuda"))
+        _no_sync(torch, lambda key=key: eng._fused_body(*key))
+        labels.append(f"{label} rows [1, 1, 0, 0]")
     torch.cuda.synchronize()
-    say(card, f"serving sync check: the {', '.join(b[0] for b in bodies)} "
-              f"bodies ran eagerly under set_sync_debug_mode('error') "
-              f"without a sync")
+    say(card, f"serving sync check: the {', '.join(labels)} bodies ran "
+              f"eagerly under set_sync_debug_mode('error') without a sync")
 
 
 PAGED_ZERO_COPY = dict(paged=True, zero_copy=True)
@@ -2048,7 +2086,8 @@ def serving_lossless(torch, card, layers: int = 4, new: int = 32,
                      layout=PAGED_ZERO_COPY):
     """fp32 at full width, ``layers`` layers: batch 2, three requests (one
     under the partial budget, two over), ``prefill_budget=512``
-    (interleaved), with graphs: every request equals its solo batch-1
+    (interleaved, the serial pump: phase 9 holds the fused one), with
+    graphs: every request equals its solo batch-1
     ``generate`` and a blocking run of the same trace, on the engine
     ``layout`` gives."""
     import numpy as np
@@ -2079,6 +2118,7 @@ def serving_lossless(torch, card, layers: int = 4, new: int = 32,
                             ServingConfig(
                                 batch=2, max_len=max_len,
                                 prefill_budget=budget,
+                                fused_prefill=False,
                                 paged_kv=layout["paged"],
                                 zero_copy_partial=layout["zero_copy"],
                                 prefix_cache=False), device="cuda")
@@ -2224,8 +2264,8 @@ def phase_prefix_serving(torch, card):
             raise AssertionError(f"{label} launches {got} != {want} implied "
                                  f"by {eng.dispatch_keys} and "
                                  f"{eng.prefill_dispatches} prefill chunks")
-        if eng.cuda_graphs and set(eng._graphs) != {
-                ("slot_prefill", 256)} | set(eng.dispatch_keys):
+        if eng.cuda_graphs and set(eng._graphs) != _prefill_graph_keys(
+                eng) | set(eng.dispatch_keys):
             raise AssertionError(f"{label} graphs "
                                  f"{sorted(map(str, eng._graphs))}")
         if ps["committed"] or ps["pinned_pages"] or (
@@ -2506,7 +2546,8 @@ def fork_check(torch, card, cfg, spec, dcfg, params, dparams,
 def prefix_lossless(torch, card, layers: int = 4, new: int = 32):
     """fp32 at full width, ``layers`` layers, with graphs: batch 4, two
     1536-token system prompts (12 blocks) and six requests with 116-token
-    tails, interleaved prefill (``prefill_budget=512``) so that paired
+    tails, interleaved prefill (``prefill_budget=512``, the serial pump:
+    phase 9 holds the fused one) so that paired
     cold cursors race and dedup: every request equals its solo batch-1
     ``generate`` and its tokens with sharing off."""
     import numpy as np
@@ -2533,7 +2574,8 @@ def prefix_lossless(torch, card, layers: int = 4, new: int = 32):
     host = {}
     for share in (True, False):
         srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
-            batch=4, max_len=max_len, prefill_budget=512, paged_kv=True,
+            batch=4, max_len=max_len, prefill_budget=512,
+            fused_prefill=False, paged_kv=True,
             zero_copy_partial=True, prefix_cache=share), device="cuda")
         if share:
             eng = srv._engine_for(4, paged=True)
@@ -2829,7 +2871,7 @@ def _layouts_agree(torch, card, cfg, spec, dcfg, params, dparams, prompt):
 def _contiguous_serving(torch, card, cfg, spec, dcfg, params, dparams,
                         paged_run):
     """Phase 8 (e) at full width: the reference's ``ServingConfig()``
-    (contiguous slots, gathered body; ``fused_prefill=False``) at batch 4
+    (contiguous slots, gathered body; blocking admission) at batch 4
     over phase 6's six requests, with graphs: admission by free slot,
     launches held to the steps' variants and chunks, graphs per variant,
     the serving bodies under the sync check; numbers beside phase 6's
@@ -2866,7 +2908,7 @@ def _contiguous_serving(torch, card, cfg, spec, dcfg, params, dparams,
         raise AssertionError(f"contiguous serving launches {got} != {want} "
                              f"implied by {eng.dispatch_keys} and "
                              f"{eng.prefill_dispatches} prefill chunks")
-    want_graphs = {("slot_prefill", 256)} | set(eng.dispatch_keys)
+    want_graphs = _prefill_graph_keys(eng) | set(eng.dispatch_keys)
     if set(eng._graphs) != want_graphs:
         raise AssertionError(f"graphs {sorted(map(str, eng._graphs))}")
     lat = np.array([o.latency_s for o in outs.values()])
@@ -2982,15 +3024,470 @@ def phase_default_engine(torch, card, timer, p3=None, p4=None, p6=None):
                 shapes=shapes, serving=srv_nums)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the fused multi-row prefill
+# ---------------------------------------------------------------------------
+
+FUSED_BUDGET = 1024     # prefill tokens per tick: up to four 256-token rows
+# a ragged [4, 256] round at llama widths: (length, t_valid) per row
+FUSED_ROWS = ((7936, 256), (48, 16), (0, 200), (4000, 1))
+
+
+def _fused_kernel_checks(torch, card, timer):
+    """Phase 9 (kernels): the call forms a fused round gives K2 and K4,
+    against their plain versions and timed: K2 over four ragged rows
+    (``FUSED_ROWS``) of one [4, 256] chunk through the rows' page tables,
+    on the contiguous prefill carry (slot s's block j is page 1 + s*66 +
+    j); K4 over 32 layers with the rows' ends at length + t_valid, bit for
+    bit.  Returns {kernel: {label: row}}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2024)
+    h, hk, dh, bs, t = 32, 8, 128, 128, 256
+    b = len(FUSED_ROWS)
+    nb = -(-max(n0 + n for n0, n in FUSED_ROWS) // bs) + 2   # 66: 8448
+    npg = b * nb + 1
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf)
+    table = (1 + torch.arange(b * nb, device="cuda")).view(b, nb).to(
+        torch.int32)
+    length = torch.tensor([r[0] for r in FUSED_ROWS], dtype=torch.int32,
+                          device="cuda")
+    tv = torch.tensor([r[1] for r in FUSED_ROWS], dtype=torch.int32,
+                      device="cuda")
+    end = length + tv
+    out = {"paged_prefill_attention": {}, "block_summary": {}}
+    pk, pv = rnd(npg, bs, hk, dh), rnd(npg, bs, hk, dh)
+    q = rnd(b, t, h, dh)
+    kf, vf = pk.view(-1, hk, dh), pv.view(-1, hk, dh)
+    idx, vlen = ops._page_walk(table, end, pk.shape)
+    got = ops.paged_prefill_attention(q, pk, pv, table, length, tv)
+    m, l_, acc = ops.block_attention(q, kf, vf, idx, vlen, bs,
+                                     q_offset=length)
+    if not torch.equal(got, (acc / l_.clamp(min=1e-30)[..., None])
+                       .transpose(1, 2).to(bf)):
+        raise AssertionError("K2 ragged: the wrapper's output is not its "
+                             "launch's normalised partials")
+    # the library call: SDPA over each row's keys gathered and padded,
+    # masked by absolute position and the row's end
+    smax = int(end.max())
+    kg = pk[table.long()].flatten(1, 2)[:, :smax].transpose(1, 2)
+    vg = pv[table.long()].flatten(1, 2)[:, :smax].transpose(1, 2)
+    kpos = torch.arange(smax, device="cuda")
+    qpos = length[:, None] + torch.arange(t, device="cuda")[None]
+    mask = ((kpos[None, None] <= qpos[..., None])
+            & (kpos[None, None] < end[:, None, None]))[:, None]
+    # the operations this run's data needs: the real query rows only
+    pairs = h * sum(sum(n0 + i + 1 for i in range(n)) for n0, n in FUSED_ROWS)
+    label = "K2 ragged rows=4 T=256 (t_valid 256/16/200/1) carry"
+    out["paged_prefill_attention"][label] = _attn_row(
+        torch, card, timer, label,
+        lambda: ops.block_attention(q, kf, vf, idx, vlen, bs,
+                                    q_offset=length),
+        lambda: ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                            q_offset=length),
+        *_attn_work(q, vlen, t, causal_pairs=pairs),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), kg, vg, attn_mask=mask, enable_gqa=True))
+    del pk, pv, kf, vf, kg, vg
+    torch.cuda.empty_cache()
+    layers, n_touch = 32, -(-t // bs) + 1
+    pool = torch.empty((layers, npg, bs, hk, dh), dtype=bf, device="cuda")
+    for i in range(layers):
+        pool[i].copy_(rnd(npg, bs, hk, dh))
+    init = torch.rand((2, layers, npg, hk, dh), generator=gen,
+                      device="cuda")
+    init[:, :, 0] = 0.0
+    got, want = init.clone(), init.clone()
+    ops.paged_block_summaries(pool, table, length, end, n_touch, got[0],
+                              got[1])
+    ref.paged_block_summaries(pool, table, length, end, n_touch, want[0],
+                              want[1])
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("K4 ragged rows: differs from the plain version")
+    before = dict(ops.LAUNCHES)
+    ms = timer.kernel_ms(lambda: ops.paged_block_summaries(
+        pool, table, length, end, n_touch, got[0], got[1]),
+        "block_summary_kernel")
+    if timer.per_call != 1:
+        raise AssertionError(f"K4: {timer.per_call} launches per call")
+    ops.LAUNCHES.update(before)
+    plain_ms = timer(lambda: ref.paged_block_summaries(
+        pool, table, length, end, n_touch, want[0], want[1]), iters=3,
+        warmup=1)
+    live = [(r * nb + j, min(e - j * bs, bs))
+            for r, (n0, n) in enumerate(FUSED_ROWS)
+            for e in (n0 + n,) for j in range(n0 // bs, -(-e // bs))]
+    blocks = (torch.arange(layers, device="cuda")[:, None] * npg + 1
+              + torch.tensor([j for j, _ in live], device="cuda")[None]
+              ).reshape(-1)
+    pb = pool.view(layers * npg, bs, hk, dh)
+    lib_ms = timer(lambda: torch.aminmax(pb[blocks], dim=1))
+    n_tok = layers * sum(n for _, n in live)
+    nbytes = n_tok * hk * dh * 2 + 2 * layers * len(live) * hk * dh * 4 + 48
+    bound, by = _bound_ms(nbytes, 2 * n_tok * hk * dh, PEAK_FP32_S)
+    label = "ragged rows=4 (ends length + t_valid) L=32"
+    say(card, f"kernel K4 {label}: bit-equal to the plain version, 1 "
+              f"launch; ms {ms:.4f} ({timer.source}) plain_ms "
+              f"{plain_ms:.4f} bound_us {bound * 1e3:.3f} ({by}) library_ms "
+              f"{lib_ms:.4f} (torch.aminmax over the gathered live blocks)")
+    out["block_summary"][label] = dict(
+        max_abs_err=0.0, ms=ms, timing=timer.source, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, library_ms=lib_ms)
+    del pool, init, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _instrument(torch, sched):
+    """Log a scheduler's ticks (host wall, with a sync at the end so that
+    each tick holds its own device work, and its prefill dispatches) and
+    its engine's prefill rounds (rows, width, whether the round captured
+    its graph, CUDA events around each; a serial step is a one-row
+    round).  Returns the log."""
+    log = dict(ticks=[], rounds=[])
+    eng, tick, step = sched.engine, sched.tick, sched.engine.prefill_step_fused
+
+    def fused(st, cursors):
+        live = [c for c in cursors if not c.done]
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        key = (len(live), max(c.next_tokens for c in live))
+        graphs = len(eng._graphs)
+        e0.record()
+        out = step(st, cursors)
+        e1.record()
+        log["rounds"].append((key, len(eng._graphs) > graphs, e0, e1))
+        return out
+
+    def ticked():
+        n0 = eng.prefill_dispatches
+        t0 = time.perf_counter()
+        progressed = tick()
+        torch.cuda.synchronize()
+        log["ticks"].append((time.perf_counter() - t0,
+                             eng.prefill_dispatches - n0))
+        return progressed
+    eng.prefill_step_fused = fused
+    sched.tick = ticked
+    return log
+
+
+def _fused_serve(torch, card, srv, reqs, label):
+    """Serve ``reqs`` through a fresh instrumented scheduler of ``srv``'s
+    configuration (launch counts set to 0 just before, read just after)
+    and check them against the rounds.  Returns the run's numbers."""
+    import numpy as np
+    from repro_torch.serving import ContinuousScheduler
+    c = srv.scfg
+    eng = srv._engine_for(c.batch, paged=c.paged_kv)
+    sched = ContinuousScheduler(
+        eng, prefill_chunk=c.prefill_chunk, prefill_budget=c.prefill_budget,
+        fused=c.fused_step, fused_prefill=c.fused_prefill)
+    sched.trace = _StampedTrace()
+    log = _instrument(torch, sched)
+    srv._continuous = sched
+    arrival = min(r.arrival_s for r in reqs)
+    outs, wall, launches, peak = _serve(torch, srv, reqs)
+    layers = eng.cfg.num_layers
+    for r in reqs:
+        o = outs[r.request_id]
+        if (o.finish_reason != "length" or len(o.tokens) != r.max_new_tokens
+                or o.tokens.min() < 0 or o.tokens.max() >= eng.cfg.vocab_size):
+            raise AssertionError(f"{label} {r.request_id}: {o.finish_reason}, "
+                                 f"{len(o.tokens)} tokens")
+    want = _expected_serving_launches(eng, layers)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{label} launches {got} != {want} implied by "
+                             f"{eng.dispatch_keys} and "
+                             f"{eng.prefill_dispatches} prefill rounds")
+    if eng.cuda_graphs and set(eng._graphs) != _prefill_graph_keys(
+            eng) | set(eng.dispatch_keys):
+        raise AssertionError(f"{label} graphs {sorted(map(str, eng._graphs))}")
+    rows = [k for k, _ in eng.prefill_keys]
+    if c.fused_prefill != (max(rows) > 1):
+        raise AssertionError(f"{label}: prefill rounds {eng.prefill_keys}")
+    ps = eng.page_stats()
+    if ps and (ps["committed"] or ps["pinned_pages"]):
+        raise AssertionError(f"{label}: pages committed or pinned after the "
+                             f"run: {ps}")
+    ttft = np.array([t - arrival for (ev, _, _), t in
+                     zip(sched.trace, sched.trace.t) if ev == "prefill_done"])
+    lat = np.array([o.latency_s for o in outs.values()])
+    ntok = int(sum(len(o.tokens) for o in outs.values()))
+    rounds, captures = {}, 0
+    for (k, n), captured, e0, e1 in log["rounds"]:
+        if captured:                # the first round of a key: a capture
+            captures += 1
+            continue
+        replay = n == 256 and eng.cuda_graphs
+        cls = f"{k} rows x {n} {'graph' if replay else 'eager'}"
+        rounds.setdefault(cls, []).append(e0.elapsed_time(e1))
+    rounds = {cls: (len(v), float(np.median(v))) for cls, v in rounds.items()}
+    ticks = {}
+    for dt, d in log["ticks"]:
+        ticks.setdefault("with prefill" if d else "decode only",
+                         []).append(dt * 1e3)
+    ticks = {cls: (len(v), float(np.median(v))) for cls, v in ticks.items()}
+    per_tick = [d for _, d in log["ticks"] if d]
+    dec = {cls: (len(v), 1e3 * float(np.median(v)))
+           for cls, v in sched.tick_wall.items()}
+    res = dict(toks={k: o.tokens for k, o in outs.items()}, launches=got,
+               wall_s=wall, tokens_per_s=ntok / wall, peak_gib=peak,
+               ttft_p50=float(np.percentile(ttft, 50)),
+               ttft_p95=float(np.percentile(ttft, 95)),
+               p50=float(np.percentile(lat, 50)),
+               p95=float(np.percentile(lat, 95)), rounds=rounds,
+               ticks=ticks, decode_ticks=dec,
+               dispatches=eng.prefill_dispatches,
+               dispatches_per_tick=(float(np.mean(per_tick)), max(per_tick)),
+               keys=dict(eng.prefill_keys), capture_s=eng.capture_s,
+               stats=dict(srv.stats), prefix=eng.prefix_stats(), pages=ps)
+    say(card, f"fused prefill [{label}] tokens {ntok} wall_s {wall:.3f} "
+              f"tokens_per_s {ntok / wall:.2f} ttft_s p50 "
+              f"{res['ttft_p50']:.3f} p95 {res['ttft_p95']:.3f} latency_s "
+              f"p50 {res['p50']:.3f} p95 {res['p95']:.3f} steps "
+              f"{int(srv.stats['steps'])} prefill dispatches "
+              f"{eng.prefill_dispatches} per prefill tick mean "
+              f"{res['dispatches_per_tick'][0]:.2f} max "
+              f"{res['dispatches_per_tick'][1]} peak_mem_gib {peak:.2f} "
+              f"capture_s {eng.capture_s:.3f}")
+    say(card, f"fused prefill [{label}] rounds (rows, width): count and "
+              f"median device ms {rounds} ({captures} rounds that captured "
+              f"their graph left out); tick wall ms (count, median) "
+              f"{ticks}; decode tick classes {dec}")
+    say(card, f"fused prefill [{label}] launches {got} == implied by the "
+              f"steps' variants and {eng.prefill_dispatches} prefill rounds "
+              f"{ {str(k): n for k, n in eng.prefill_keys.items()} }")
+    return res, eng
+
+
+def _profile_fused_round(torch, card, eng, prompts):
+    """On a drained paged engine: four cursors, one full 4-row round to
+    warm, then one round under ``torch.profiler``: device busy ms, device
+    launches and host launch calls of a fused chunk."""
+    from torch.profiler import ProfilerActivity, profile
+    st = eng.empty_state()
+    curs = []
+    for slot in range(4):
+        st, c = eng.prefill_begin_slot(st, slot, prompts[slot][:1024],
+                                       max_new_tokens=8)
+        curs.append(c)
+    st, _ = eng.prefill_step_fused(st, curs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, _ = eng.prefill_step_fused(st, curs)
+        torch.cuda.synchronize()
+    busy, _ = _device_busy(prof)
+    dev_n, host_n, calls_n = _launch_counts(prof)
+    say(card, f"fused prefill profile: one 4-row 256-token round (graph "
+              f"replay): device busy_ms {busy:.2f} device launches {dev_n} "
+              f"host launch calls {calls_n} top-level host aten ops "
+              f"{host_n}")
+    eng.empty_state()
+    return dict(busy_ms=busy, device_launches=dev_n, host_launch_calls=calls_n)
+
+
+def fused_lossless(torch, card, layers: int = 4, new: int = 32):
+    """Phase 9 (d): fp32 at full width, ``layers`` layers, with graphs,
+    batch 4, two 1536-token system prompts and six requests with 116-token
+    tails arriving together, ``prefill_budget=1024``: on the paged pool
+    with sharing on (paired cold cursors race and dedupe) and on
+    contiguous slots, the fused pump gives every request's solo
+    ``generate`` and the serial pump's tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("llama3.1-8b").replace(num_layers=layers,
+                                            dtype="float32",
+                                            param_dtype="float32")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=2, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=3, device="cuda")
+    t0 = time.perf_counter()
+    prompts = _prefix_prompts(np, cfg.vocab_size, n_sys=1536, tail=116, n=6,
+                              seed=4, repeat=False)
+    max_len = 2048
+    notes = []
+    for name, layout in (("paged, sharing on", PAGED_ZERO_COPY),
+                         ("contiguous", DEFAULT_LAYOUT)):
+        toks = {}
+        for fused in (True, False):
+            srv = ServingEngine(cfg, spec, dcfg, params, dparams,
+                                ServingConfig(
+                                    batch=4, max_len=max_len,
+                                    prefill_budget=FUSED_BUDGET,
+                                    fused_prefill=fused,
+                                    paged_kv=layout["paged"],
+                                    zero_copy_partial=layout["zero_copy"]),
+                                device="cuda")
+            for r in _serving_requests(prompts, [(0, new)] * len(prompts)):
+                srv.submit(r)
+            srv.run()
+            eng = srv._continuous.engine
+            toks[fused] = {k: o.tokens for k, o in srv.outputs.items()}
+            if fused:
+                rows = max(k for k, _ in eng.prefill_keys)
+                pre = srv.prefix_stats()
+                if rows < 2 or (layout["paged"] and not pre["dedups"]):
+                    raise AssertionError(f"fp32 {name}: rounds "
+                                         f"{eng.prefill_keys}, {pre}")
+                notes.append(f"{name}: rounds {eng.prefill_keys} dedups "
+                             f"{pre.get('dedups', 0)}")
+            del srv, eng
+        solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                            max_len=max_len, device="cuda", **layout)
+        for i, p in enumerate(prompts):
+            t, _ = solo.generate(p[None], new)
+            for fused in (True, False):
+                if not np.array_equal(toks[fused][f"r{i}"], t[0]):
+                    raise AssertionError(
+                        f"fp32 {name} r{i} ({'fused' if fused else 'serial'}"
+                        f" pump) differs from solo generate:\n"
+                        f"{toks[fused][f'r{i}']}\n{t[0]}")
+        del solo
+    say(card, f"fused lossless llama3.1-8b x{layers} layers fp32, graphs, "
+              f"batch 4, 6 requests of {len(prompts[0])} tokens over two "
+              f"1536-token system prompts, prefill_budget {FUSED_BUDGET}: "
+              f"fused pump == serial pump == solo generate for every request "
+              f"over {new} tokens ({'; '.join(notes)}); "
+              f"{time.perf_counter() - t0:.1f} s")
+    del params, dparams
+    torch.cuda.empty_cache()
+
+
+def phase_fused_prefill(torch, card, timer):
+    """Phase 9: the fused multi-row prefill (``ServingConfig.fused_prefill``
+    , the reference's default) at llama3.1-8b's full width: the ragged
+    K2/K4 call forms; (a) phase 6's six requests interleaved
+    (``prefill_budget=1024``) on the paged pool with the serial and the
+    fused pump and on contiguous slots fused, with graphs, and one fused
+    round profiled; (b) the shared-prefix traffic of phase 7, fused, with
+    sharing on; (c) the paged fused run again eagerly (equal tokens and
+    launch counts) and one eager fused round under the sync check; (d)
+    fp32 losslessness.  Returns the launches and call forms."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    shapes = _fused_kernel_checks(torch, card, timer)
+    cfg = get_config("llama3.1-8b")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=0, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=1, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in SERVE_REQS]
+    paged = dict(batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
+                 prefill_budget=FUSED_BUDGET, num_pages=SERVE_PAGES,
+                 paged_kv=True, zero_copy_partial=True, prefix_cache=False)
+    runs = {}
+    for label, scfg in (
+            ("paged serial", ServingConfig(fused_prefill=False, **paged)),
+            ("paged fused", ServingConfig(**paged)),
+            ("contiguous fused", ServingConfig(
+                batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
+                prefill_budget=FUSED_BUDGET))):
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams, scfg,
+                            device="cuda")
+        runs[label], eng = _fused_serve(
+            torch, card, srv, _serving_requests(prompts, SERVE_REQS), label)
+        memory_line(torch, card, f"fused prefill {label}", eng, params,
+                    dparams, runs[label]["peak_gib"])
+        if label == "paged fused":
+            runs[label]["profile"] = _profile_fused_round(torch, card, eng,
+                                                          prompts)
+        del srv, eng
+        torch.cuda.empty_cache()
+    ser = runs["paged serial"]["toks"]
+    for label in ("paged fused", "contiguous fused"):
+        same = sum(np.array_equal(runs[label]["toks"][k], ser[k]) for k in ser)
+        runs[label]["same_as_serial"] = same
+        say(card, f"fused prefill [{label}] bf16 tokens equal to the paged "
+                  f"serial pump's: {same} of {len(ser)} requests (not "
+                  f"asserted: a K-row chunk runs its GEMMs at another shape)")
+    # (b) the shared-prefix traffic, interleaved and fused, sharing on
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+        batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
+        prefill_budget=FUSED_BUDGET, num_pages=PREFIX_PAGES, paged_kv=True,
+        zero_copy_partial=True, prefix_cache=True), device="cuda")
+    pp = _prefix_prompts(np, cfg.vocab_size)
+    shared, eng = _fused_serve(
+        torch, card, srv, _serving_requests(pp, [(0, PREFIX_NEW)] * len(pp)),
+        "shared prefixes fused")
+    pre, ps = shared["prefix"], shared["pages"]
+    if ps["in_use"] != ps["idle"] or not pre["prefill_tokens_skipped"]:
+        raise AssertionError(f"shared prefixes fused: {pre}, {ps}")
+    say(card, f"fused prefill [shared prefixes fused] prefix_stats {pre}; "
+              f"no committed page or pin left ({ps})")
+    del srv, eng
+    torch.cuda.empty_cache()
+    # (c) the paged fused run eagerly: equal tokens and launch counts
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams,
+                        ServingConfig(**paged), device="cuda",
+                        cuda_graphs=False)
+    eager, eng = _fused_serve(torch, card, srv,
+                              _serving_requests(prompts, SERVE_REQS),
+                              "paged fused eager")
+    g = runs["paged fused"]
+    for rid in g["toks"]:
+        if not np.array_equal(g["toks"][rid], eager["toks"][rid]):
+            raise AssertionError(f"fused prefill {rid}: graph tokens differ "
+                                 f"from eager")
+    if g["launches"] != eager["launches"] or g["keys"] != eager["keys"]:
+        raise AssertionError(f"fused prefill launches: graphs {g['launches']}"
+                             f" {g['keys']} eager {eager['launches']} "
+                             f"{eager['keys']}")
+    st = eng.empty_state()
+    curs = []
+    for slot, n in enumerate((2048, 300, 1024)):
+        st, c = eng.prefill_begin_slot(st, slot, prompts[slot][:n],
+                                       max_new_tokens=8)
+        curs.append(c)
+    st, _ = eng.prefill_step_fused(st, curs[:2])
+    st, n = _eager_prefill_round(torch, eng, st, curs)
+    say(card, f"fused prefill: graph tokens == eager tokens for every "
+              f"request, launches and rounds equal; an eager 3-row round "
+              f"({[c.off for c in curs]} after it, {n} tokens, a short row "
+              f"padded) ran under set_sync_debug_mode('error') without a "
+              f"sync")
+    del srv, eng, params, dparams
+    torch.cuda.empty_cache()
+    fused_lossless(torch, card)
+    secs = time.perf_counter() - t_phase
+    say(card, f"phase 9 took {secs:.1f} s")
+    return dict(launches=runs["paged fused"]["launches"],
+                contiguous_launches=runs["contiguous fused"]["launches"],
+                prefix_launches=shared["launches"], shapes=shapes,
+                runs=runs, shared=shared, seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
                          "(llama serving with shared prefixes), 8 (the "
                          "reference's default engine: contiguous cache, "
-                         "gathered partial cache); 1 and 9 always run")
+                         "gathered partial cache), 9 (the fused multi-row "
+                         "prefill); 1 and 10 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -3035,6 +3532,9 @@ def main(argv=None) -> int:
                                serving if 6 in phases else None)
           if 8 in phases else {"launches": {}, "serving_launches": {},
                                "shapes": {}})
+    p9 = (phase_fused_prefill(torch, card, timer) if 9 in phases
+          else {"launches": {}, "contiguous_launches": {},
+                "prefix_launches": {}, "shapes": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -3050,6 +3550,12 @@ def main(argv=None) -> int:
                              p8["launches"].get(name, 0)),
                          contiguous_serving_launches=int(
                              p8["serving_launches"].get(name, 0)),
+                         fused_serving_launches=int(
+                             p9["launches"].get(name, 0)),
+                         fused_contiguous_serving_launches=int(
+                             p9["contiguous_launches"].get(name, 0)),
+                         fused_prefix_serving_launches=int(
+                             p9["prefix_launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -3068,10 +3574,11 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
-        # phase 8's call forms (launches counted per kernel above)
-        for label, vals in p8["shapes"].get(name, {}).items():
-            rows[-1].setdefault("shapes", []).append(dict(shape=label,
-                                                          **vals))
+        # phases 8 and 9's call forms (launches counted per kernel above)
+        for p in (p8, p9):
+            for label, vals in p["shapes"].get(name, {}).items():
+                rows[-1].setdefault("shapes", []).append(dict(shape=label,
+                                                              **vals))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

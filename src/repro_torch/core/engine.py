@@ -36,11 +36,14 @@ null page, length 0), so its writes land on the null page; a live row
 masked out of a step commits nothing, so its writes land at or past its
 length, where its next real step writes first.  The pools therefore
 need no merge after a masked step.  ``prefill_begin_slot`` /
-``prefill_step_into_slot`` / ``prefill_finalize_slot`` prefill one
-slot chunk by chunk over the shared pools through the slot's own page
-table (a 256-token chunk replays one batch-1 graph), so the serving
-scheduler can interleave chunks with decode steps; ``prefill_into_slot``
-runs them back to back.
+``prefill_step_fused`` / ``prefill_finalize_slot`` prefill slots chunk
+by chunk, so the serving scheduler can interleave chunks with decode
+steps: one fused call advances K open cursors by one chunk each in one
+ragged [K, chunk] body (a graph per K on the card), through the rows'
+own page tables over the shared pools (contiguous engines: over a
+carry of one block-addressed row per slot, written into the state at
+finalise).  ``prefill_step_into_slot`` is the one-cursor call and
+``prefill_into_slot`` runs a whole prompt.
 
 Prefix sharing (paged engines, ``prefix_cache=True``): an admission
 attaches the prompt's cached leading blocks by page-table reference and
@@ -134,16 +137,16 @@ class StepOutput:
 @dataclass
 class PrefillCursor:
     """Resumable prefill of one slot (the reference's cursor without the
-    sampling fields).
+    sampling fields or ``extra``, which the port refuses at begin).
 
     ``off`` is the absolute offset of the next chunk; chunk boundaries
     stay absolute multiples of ``chunk``, so an interleaved prefill runs
     the chunk schedule of a blocking one.  ``row_cache`` / ``row_dcache``
-    hold the slot's page-table row and length on the device (batch 1);
-    the pools live in the engine's state (a contiguous engine's cursor
-    owns whole batch-1 row caches instead, None until first spilled: see
-    ``SpecPVEngine._own_slot_rows``).  ``pt_host`` / ``dpt_host`` are
-    the page plan allocated at begin, decode reserve included; the
+    hold the slot's page-table row and length on the device (batch 1):
+    over the engine's pools, or in a contiguous engine over its slot's
+    rows of the prefill carry (``SpecPVEngine._slot_pools``).
+    ``pt_host`` / ``dpt_host`` are the page plan allocated at begin,
+    decode reserve included; the
     prefix-sharing fields record the blocks attached from the cache
     (``n_match``), the registrable full blocks (``n_full``), their chain
     keys and the entries registered so far (re-stamped as a chain).  A
@@ -154,8 +157,8 @@ class PrefillCursor:
     chunk: int
     off: int                            # absolute offset of the next chunk
     prev_feat: Any                      # [1, 3d] fused boundary feature
-    row_cache: Optional[Dict]           # {"page_table" [1, NB], "length" [1]}
-    row_dcache: Optional[Dict]
+    row_cache: Dict                     # {"page_table" [1, NB], "length" [1]}
+    row_dcache: Dict
     logits_last: Any = None             # last chunk's logits (first token)
     tokens: Any = None                  # the prompt on the device [S]
     pt_host: Optional[np.ndarray] = None
@@ -172,14 +175,15 @@ class PrefillCursor:
         return self.off >= len(self.prompt)
 
     @property
+    def next_end(self) -> int:
+        """The end of the next chunk: the next multiple of ``chunk``, or
+        the prompt's end."""
+        return min(len(self.prompt), (self.off // self.chunk + 1) * self.chunk)
+
+    @property
     def next_tokens(self) -> int:
-        """Tokens the next ``prefill_step_into_slot`` call will process
-        (0 when done)."""
-        if self.done:
-            return 0
-        end = min(len(self.prompt),
-                  (self.off // self.chunk + 1) * self.chunk)
-        return end - self.off
+        """Tokens the next prefill step will process (0 when done)."""
+        return 0 if self.done else self.next_end - self.off
 
 
 # per-slot (batch-row) surgery: every EngineState field carries the batch
@@ -340,6 +344,9 @@ class SpecPVEngine:
         self.dispatches = 0             # fused engine steps executed
         self.dispatch_keys: Dict[Tuple[bool, bool, bool], int] = {}
         self.prefill_dispatches = 0     # slot prefill chunks run
+        # slot prefill chunks by (rows, width): a graph ("fused_prefill",
+        # rows, chunk) replays for each full-width key
+        self.prefill_keys: Dict[Tuple[int, int], int] = {}
         self.final_state = None         # the last ``generate``'s end state
         self.cuda_graphs = (self.device.type == "cuda" if cuda_graphs is None
                             else bool(cuda_graphs))
@@ -440,31 +447,31 @@ class SpecPVEngine:
                                       device=dev)
         self._logits_last = torch.zeros((b, cfg.vocab_size),
                                         dtype=torch.float32, device=dev)
-        # a slot prefill's batch-1 carry.  Paged: the cursor's page-table
-        # rows, copied in before each chunk and out after (interleaved
-        # cursors share it).  Contiguous: a whole batch-1 row cache,
-        # allocated at the first slot prefill and held by one cursor at a
-        # time (``_slot_owner``; another cursor's chunk spills it first)
+        # a fused slot prefill's operands for K <= batch cursors, the
+        # first K rows of each (``prefill_step_fused``): the rows' page
+        # tables and lengths (copied in before each chunk, the lengths
+        # out after), their real token counts, the boundary features
+        # carried between chunks and the last real token's logits
         nb = self._nb_seq
-        self._slot_owner: Optional[PrefillCursor] = None
-        if self.paged:
-            self._slot_cache = dict(page_table=ints(1, nb, dtype=torch.int32),
-                                    length=ints(1, dtype=torch.int32))
-            self._slot_dcache = dict(page_table=ints(1, nb,
-                                                     dtype=torch.int32),
-                                     length=ints(1, dtype=torch.int32))
-        else:
-            self._slot_cache = self._slot_dcache = None
-        self._slot_prev_feat = torch.zeros((1, 3 * cfg.d_model), dtype=dt,
-                                           device=dev)
-        self._slot_logits = torch.zeros((1, cfg.vocab_size),
-                                        dtype=torch.float32, device=dev)
-        # with prefix sharing the slot chunk also leaves the fused feature
-        # at each block boundary inside it (row r: the chunk's position
-        # (r + 1) * block - 1), which registration clones on the card
-        self._slot_block_feats = (
-            torch.zeros((nb, 3 * cfg.d_model), dtype=dt, device=dev)
+        self._pf_cache = dict(page_table=ints(b, nb, dtype=torch.int32),
+                              length=ints(b, dtype=torch.int32))
+        self._pf_dcache = dict(page_table=ints(b, nb, dtype=torch.int32),
+                               length=ints(b, dtype=torch.int32))
+        self._pf_tv = ints(b, dtype=torch.int32)
+        self._pf_prev_feat = torch.zeros((b, 3 * cfg.d_model), dtype=dt,
+                                         device=dev)
+        self._pf_logits = torch.zeros((b, cfg.vocab_size),
+                                      dtype=torch.float32, device=dev)
+        # with prefix sharing a chunk also leaves each row's fused feature
+        # at each block boundary inside it (row i, entry r: the chunk's
+        # position (r + 1) * block - 1), which registration clones on the
+        # card
+        self._pf_block_feats = (
+            torch.zeros((b, nb, 3 * cfg.d_model), dtype=dt, device=dev)
             if self._prefix is not None else None)
+        # contiguous engines: the prefill carry, one row of blocks per slot
+        # (``_slot_pools``), allocated at the first slot prefill
+        self._carry: Optional[Tuple[Dict, Dict]] = None
         # the step's row operands, one host copy per step: the per-row
         # modes and the mask of the rows that step
         self._tick_in = ints(2, b, dtype=torch.int8)
@@ -507,10 +514,11 @@ class SpecPVEngine:
             elif pools or f.name not in _BODY_FIELDS:
                 out.append(v)
         out += [self._prev_feat, self._logits_last, self._tick_in, self._io,
-                self._slot_prev_feat, self._slot_logits]
-        for c in (self._slot_cache, self._slot_dcache):
-            if c is not None:
-                out += cache_keys(c)
+                self._pf_tv, self._pf_prev_feat, self._pf_logits]
+        if self._pf_block_feats is not None:
+            out.append(self._pf_block_feats)
+        for c in (self._pf_cache, self._pf_dcache) + (self._carry or ()):
+            out += cache_keys(c)
         return out + list(self._chunk_toks.values())
 
     def _chunk_buf(self, b: int, chunk: int) -> torch.Tensor:
@@ -555,7 +563,6 @@ class SpecPVEngine:
         self._pkv_active = False
         self._pkv_active_rows[:] = False
         self.final_state = None
-        self._slot_owner = None
         self._zero_static()
         st = self.state
         if self.paged:
@@ -594,29 +601,42 @@ class SpecPVEngine:
             off = nxt
 
     def _prefill_body(self, toks, cache, dcache, prev_feat,
-                      logits_last, block_feats=None) -> None:
+                      logits_last, block_feats=None, t_valid=None) -> None:
         """One prefill chunk (trunk, then draft extend) into static
         buffers: the caches (their pools written in place, the lengths
         copied), the boundary feature carried to the next chunk and the
-        last token's logits; with ``block_feats`` (batch 1, a chunk that
-        starts on a block boundary) also the fused feature at each block
-        boundary inside the chunk, one row per block."""
+        last token's logits; with ``block_feats`` [B, NB, 3d] (chunks
+        that start on a block boundary) also each row's fused feature at
+        each block boundary inside its chunk.  ``t_valid`` [B]: a ragged
+        chunk (the fused slot prefill, ``_prefill_chunk_fused`` in the
+        reference), row b's real tokens being its first ``t_valid[b]``;
+        its carried feature and logits are those of its last real
+        token."""
         cfg = self.cfg
+        b, t = toks.shape
         logits, feats, cache_n = api.prefill(cfg, self.params, toks, cache,
-                                             spec=self.spec)
+                                             spec=self.spec, t_valid=t_valid)
         fused = feats.fused_input()                           # [B, T, 3d]
         shifted = torch.cat([prev_feat[:, None], fused[:, :-1]], dim=1)
-        valid = torch.ones(toks.shape, dtype=torch.bool, device=toks.device)
+        if t_valid is None:
+            valid = torch.ones(toks.shape, dtype=torch.bool,
+                               device=toks.device)
+            last = fused[:, -1]
+        else:
+            valid = (torch.arange(t, device=toks.device)[None]
+                     < t_valid[:, None])
+            last = fused[torch.arange(b, device=toks.device),
+                         torch.clamp(t_valid.long() - 1, min=0)]
         dcache_n, _, _ = dr.draft_extend(cfg, self.dcfg, self.dparams,
                                          self.params, dcache, toks, shifted,
                                          valid)
-        prev_feat.copy_(fused[:, -1])
+        prev_feat.copy_(last)
         logits_last.copy_(logits)
         if block_feats is not None:
             bs = self.spec.block_size
-            rows = fused[0, bs - 1::bs]
-            if rows.shape[0]:
-                block_feats[: rows.shape[0]].copy_(rows)
+            rows = fused[:, bs - 1::bs]
+            if rows.shape[1]:
+                block_feats[:, : rows.shape[1]].copy_(rows)
         _copy_into(cache, cache_n)
         _copy_into(dcache, dcache_n)
 
@@ -705,7 +725,6 @@ class SpecPVEngine:
         self._pkv_active = False
         self._pkv_active_rows[:] = False
         self.final_state = None
-        self._slot_owner = None
         if self.paged:
             self._clear_prefix()
             self._page_alloc.reset()
@@ -818,10 +837,7 @@ class SpecPVEngine:
 
     def release_slot_pages(self, slot: int) -> None:
         """Release an evicted slot's page references and pins ahead of
-        the deferred row reset, so same-tick admission sees them (a
-        contiguous slot drops its hold on the static prefill rows)."""
-        if self._slot_owner is not None and self._slot_owner.slot == slot:
-            self._slot_owner = None
+        the deferred row reset, so same-tick admission sees them."""
         if self.paged:
             self._page_alloc.free_slot(slot)
             self._draft_alloc.free_slot(slot)
@@ -945,18 +961,23 @@ class SpecPVEngine:
             _unsupported("sampled or chain requests", "Sampling")
         prompt = np.asarray(prompt)
         if not self.paged:
-            # the cursor owns its batch-1 row caches (allocated when a
-            # chunk first spills them, see ``_own_slot_rows``); nothing
-            # to account
-            if self._slot_owner is not None and \
-                    self._slot_owner.slot == slot:
-                self._slot_owner = None
+            # the slot's rows of the prefill carry, from zero as a fresh
+            # row cache; nothing to account
+            nb = self._nb_seq
+            pools, dpools = self._slot_pools(st)
+            lo = 1 + slot * nb
+            for a in pools.values():
+                a[:, lo: lo + nb].zero_()
+            for a in dpools.values():
+                a[lo: lo + nb].zero_()
+            rows = lo + np.arange(nb, dtype=np.int32)
             cur = PrefillCursor(
                 slot=slot, prompt=prompt, chunk=chunk, off=0,
                 prev_feat=torch.zeros((1, 3 * self.cfg.d_model),
                                       dtype=cm.dt(self.cfg.dtype),
                                       device=self.device),
-                row_cache=None, row_dcache=None,
+                row_cache=self._cursor_row(rows, 0),
+                row_dcache=self._cursor_row(rows, 0),
                 tokens=torch.as_tensor(prompt, dtype=torch.long,
                                        device=self.device))
             return self.clear_slot_rows(st, slot), cur
@@ -1128,89 +1149,154 @@ class SpecPVEngine:
 
     def prefill_step_into_slot(self, st: EngineState, cur: PrefillCursor
                                ) -> Tuple[EngineState, int]:
-        """Advance `cur` by exactly one chunk (chunk boundaries absolute),
-        over the shared pools through the cursor's own page-table rows.
-        A full chunk replays the batch-1 graph ``("slot_prefill", chunk)``;
-        a shorter one (the prompt's end, or the first chunk after a match
-        that ends inside a chunk) runs eagerly.  The cursor's rows are
-        copied into its static buffers before and out after, then the
-        prompt blocks the chunk completed are registered in the prefix
-        cache.  Returns (state, tokens processed)."""
-        assert not cur.done, "prefill cursor already exhausted"
-        self._own(st)
-        off = cur.off
-        end = min(len(cur.prompt), (off // cur.chunk + 1) * cur.chunk)
-        if self.paged:
-            _copy_into(self._slot_cache, cur.row_cache)
-            _copy_into(self._slot_dcache, cur.row_dcache)
-            cache = dict(self._slot_cache, **{
-                n: st.cache[n] for n in kvc.PAGED_POOL_KEYS})
-            dcache = dict(self._slot_dcache, **{
-                n: st.dcache[n] for n in kvc.DRAFT_POOL_KEYS})
-        else:
-            self._own_slot_rows(cur)
-            cache, dcache = self._slot_cache, self._slot_dcache
-        self._slot_prev_feat.copy_(cur.prev_feat)
-        self._prefill_chunks(
-            cur.tokens[None], off, end, cur.chunk, "slot_prefill",
-            lambda toks: self._prefill_body(toks, cache, dcache,
-                                            self._slot_prev_feat,
-                                            self._slot_logits,
-                                            self._slot_block_feats))
-        self.prefill_dispatches += 1
-        if self.paged:
-            _copy_into(cur.row_cache, self._slot_cache)
-            _copy_into(cur.row_dcache, self._slot_dcache)
-        cur.prev_feat.copy_(self._slot_prev_feat)
-        # after the copy out: a dedupe edits the cursor's table row
-        self._register_blocks(cur, off, end)
-        cur.off = end
+        """Advance `cur` by exactly one chunk (chunk boundaries absolute):
+        ``prefill_step_fused`` over this one cursor, whose every position
+        is real, so its body is the serial chunk's.  Returns (state,
+        tokens processed)."""
         if cur.done:
-            cur.logits_last = self._slot_logits.clone()
-        return st, end - off
+            raise ValueError("prefill cursor already exhausted")
+        return self.prefill_step_fused(st, [cur])
 
-    def _own_slot_rows(self, cur: PrefillCursor) -> None:
-        """Contiguous slot prefill: make the static batch-1 row caches
-        hold `cur`'s rows.  The cursor that held them last spills them
-        into its own row caches first (allocated then); a cursor that
-        never ran starts from zero rows.  One cursor prefilling alone
-        copies nothing."""
-        if self._slot_owner is cur:
-            return
-        if self._slot_cache is None:
-            self._slot_cache = self._init_cache(1)
-            self._slot_dcache = self._init_dcache(1)
-        prev = self._slot_owner
-        if prev is not None:
-            if prev.row_cache is None:
-                prev.row_cache = self._init_cache(1)
-                prev.row_dcache = self._init_dcache(1)
-            _copy_into(prev.row_cache, self._slot_cache)
-            _copy_into(prev.row_dcache, self._slot_dcache)
-        for static, rows in ((self._slot_cache, cur.row_cache),
-                             (self._slot_dcache, cur.row_dcache)):
-            if rows is None:
-                for t in static.values():
-                    t.zero_()
-            else:
-                _copy_into(static, rows)
-        self._slot_owner = cur
+    def prefill_step_fused(self, st: EngineState,
+                           cursors: List[PrefillCursor]
+                           ) -> Tuple[EngineState, int]:
+        """Advance every open cursor of `cursors` by one chunk in one
+        ragged [K, Tmax] body (the reference's ``prefill_step_fused`` and
+        its jitted ``_prefill_chunk_fused``), K at most the batch.  Each
+        row runs its own absolute chunk schedule (``next_end``); a row
+        with a shorter chunk is packed to ``Tmax`` with pads on the right,
+        which write no K/V (the null page), no summary and no length, so
+        each row's caches, carried feature and logits are those of its
+        serial step, with the same kernels over its own blocks.  A round
+        with a full ``chunk`` replays the graph ``("fused_prefill", K,
+        chunk)`` over the first K rows of the static ``_pf_*`` buffers;
+        a shorter one (every row at its prompt's end, or just past a
+        prefix match) runs eagerly.  The rows' page tables are copied in
+        before the chunk and their lengths set after; then the prompt
+        blocks each row completed are registered in the prefix cache, row
+        by row in cursor order, so two cursors completing the same block
+        in one call dedupe as serial steps would.  ``extra`` cannot be
+        batched in the reference; the port's cursors never carry it.
+        Returns (state, tokens processed); ``prefill_dispatches`` counts
+        the calls."""
+        self._own(st)
+        cursors = [c for c in cursors if not c.done]
+        if not cursors:
+            raise ValueError("no open prefill cursor")
+        k = len(cursors)
+        chunk = cursors[0].chunk
+        if k > self.batch or any(c.chunk != chunk for c in cursors):
+            raise ValueError(f"a fused prefill takes at most {self.batch} "
+                             f"cursors of one chunk size")
+        offs = [c.off for c in cursors]
+        ends = [c.next_end for c in cursors]
+        nvalid = [e - o for o, e in zip(offs, ends)]
+        tmax = max(nvalid)
+        pools, dpools = self._slot_pools(st)
+        cache = dict(pools, page_table=self._pf_cache["page_table"][:k],
+                     length=self._pf_cache["length"][:k])
+        dcache = dict(dpools, page_table=self._pf_dcache["page_table"][:k],
+                      length=self._pf_dcache["length"][:k])
+        tv, prev = self._pf_tv[:k], self._pf_prev_feat[:k]
+        logits = self._pf_logits[:k]
+        feats = (self._pf_block_feats[:k] if self._pf_block_feats is not None
+                 else None)
+        graph = tmax == chunk
+        toks = (self._chunk_buf(k, chunk) if graph else
+                torch.zeros((k, tmax), dtype=torch.long, device=self.device))
+        # fill_ of host ints: an item assignment would wait for the card
+        for i, c in enumerate(cursors):
+            cache["page_table"][i].copy_(c.row_cache["page_table"][0])
+            dcache["page_table"][i].copy_(c.row_dcache["page_table"][0])
+            cache["length"][i].fill_(offs[i])
+            dcache["length"][i].fill_(offs[i])
+            tv[i].fill_(nvalid[i])
+            prev[i].copy_(c.prev_feat[0])
+            toks[i, : nvalid[i]].copy_(c.tokens[offs[i]: ends[i]])
+            if nvalid[i] < tmax:
+                toks[i, nvalid[i]:].zero_()
 
-    def _register_blocks(self, cur: PrefillCursor, off: int,
-                         end: int) -> None:
+        def body():
+            self._prefill_body(toks, cache, dcache, prev, logits, feats,
+                               t_valid=tv)
+        if graph:
+            self._run(("fused_prefill", k, chunk), body)
+        else:
+            body()
+        self.prefill_dispatches += 1
+        self.prefill_keys[k, tmax] = self.prefill_keys.get((k, tmax), 0) + 1
+        for i, c in enumerate(cursors):
+            c.row_cache["length"].fill_(ends[i])
+            c.row_dcache["length"].fill_(ends[i])
+            c.prev_feat.copy_(prev[i: i + 1])
+            self._register_blocks(c, offs[i], ends[i],
+                                  feats[i] if feats is not None else None)
+            c.off = ends[i]
+            if c.done:
+                c.logits_last = logits[i: i + 1].clone()
+        return st, sum(nvalid)
+
+    def _slot_pools(self, st: EngineState) -> Tuple[Dict, Dict]:
+        """The pools a slot prefill writes through its rows' page tables:
+        the state's shared pools (paged), or (contiguous) the prefill
+        carry, one row of ``NB`` blocks per slot after the null block 0
+        (slot s's block j is carry block ``1 + s * NB + j``), allocated
+        at first use.  Rows of several cursors never move between chunks
+        and are written into the state at finalise (``_carry_rows``)."""
+        if self.paged:
+            return ({n: st.cache[n] for n in kvc.PAGED_POOL_KEYS},
+                    {n: st.dcache[n] for n in kvc.DRAFT_POOL_KEYS})
+        if self._carry is None:
+            cfg, bs = self.cfg, self.spec.block_size
+            n = self.batch * self._nb_seq + 1
+            dt = cm.dt(cfg.dtype)
+            pools = kvc.init_paged_pool(cfg.num_layers, n, bs,
+                                        cfg.num_kv_heads, cfg.head_dim_, dt,
+                                        self.device)
+            dpools = {m: torch.zeros((n, bs, cfg.num_kv_heads,
+                                      cfg.head_dim_), dtype=dt,
+                                     device=self.device)
+                      for m in kvc.DRAFT_POOL_KEYS}
+            self._carry = (pools, dpools)
+        return self._carry
+
+    def _carry_rows(self, cur: PrefillCursor) -> Tuple[Dict, Dict]:
+        """A contiguous cursor's batch-1 row caches: views of its slot's
+        carry blocks, shaped as the state's rows (the first ``max_len``
+        tokens)."""
+        pools, dpools = self._carry
+        nb, s = self._nb_seq, self.max_len
+        lo = 1 + cur.slot * nb
+
+        def tokens(a):              # [..., nb, bs, Hk, Dh] -> [..., 1, S, ...]
+            a = a.narrow(-4, lo, nb)
+            lead = a.shape[:-4]
+            return a.reshape(lead + (1, nb * a.shape[-3]) + a.shape[-2:])[
+                ..., :s, :, :]
+        rows = {n: tokens(pools[n]) for n in ("k", "v")}
+        rows.update({n: pools[n][:, lo: lo + nb][:, None]
+                     for n in ("kmax", "kmin")})
+        rows["length"] = cur.row_cache["length"]
+        drows = {n: tokens(dpools[n]) for n in kvc.DRAFT_POOL_KEYS}
+        drows["length"] = cur.row_dcache["length"]
+        return rows, drows
+
+    def _register_blocks(self, cur: PrefillCursor, off: int, end: int,
+                         feats) -> None:
         """Register the prompt blocks the chunk ``[off, end)`` completed,
         re-stamping the whole chain with one LRU tick (a parent is never
         older than its children).  Each entry's boundary feature is a
-        clone, on the card, of the chunk's row in ``_slot_block_feats``:
-        nothing is read back.  A block a concurrent admission registered
-        first under the same key is deduplicated (``_dedupe_block``)."""
+        clone, on the card, of the cursor's row of the chunk's block
+        features (``feats`` [NB, 3d]): nothing is read back.  A block a
+        concurrent admission registered first under the same key is
+        deduplicated (``_dedupe_block``)."""
         if self._prefix is None or not cur.n_full:
             return
         bs = self.spec.block_size
         lo, hi = off // bs, min(end // bs, cur.n_full)
         if hi <= lo:
             return
-        feats = self._slot_block_feats[: hi - lo].clone()
+        feats = feats[: hi - lo].clone()
         tick = self._prefix.new_tick()
         for e in cur.chain_entries:
             e.tick = tick
@@ -1257,10 +1343,8 @@ class SpecPVEngine:
         self._own(st)
         if cur.boot_token is None:
             self._register_tail(st, cur)
-        rows, drows = cur.row_cache, cur.row_dcache
-        if not self.paged and self._slot_owner is cur:
-            rows, drows = self._slot_cache, self._slot_dcache
-            self._slot_owner = None
+        rows, drows = ((cur.row_cache, cur.row_dcache) if self.paged
+                       else self._carry_rows(cur))
         sub = self._boot_state(rows, drows, cur.logits_last, cur.prev_feat,
                                len(cur.prompt), bonus0=cur.boot_token)
         write_state_slot(st, sub, cur.slot)

@@ -29,10 +29,18 @@ from repro_torch.models.common import update_slice_rows
 # contiguous cache
 # ---------------------------------------------------------------------------
 
-def append_layer_kv(k_layer, v_layer, new_k, new_v, length):
+def append_layer_kv(k_layer, v_layer, new_k, new_v, length, valid=None):
     """Write new tokens into one layer's cache at per-row offsets, in
     place.  k_layer: [B, S, Hk, Dh]; new_k: [B, T, Hk, Dh]; length: [B].
-    The offset is clamped like the reference's dynamic_update_slice."""
+    The offset is clamped like the reference's dynamic_update_slice.
+    A ragged chunk (``valid`` [B, T]) writes zeros at its pad positions,
+    as the reference's ``jnp.where(valid, k_new, 0)`` does before the
+    same clamped write (so where ``length + T`` passes the end, the
+    clamp shifts the row's real tokens too, as in the reference)."""
+    if valid is not None:
+        vm = valid[:, :, None, None]
+        new_k = torch.where(vm, new_k, torch.zeros_like(new_k))
+        new_v = torch.where(vm, new_v, torch.zeros_like(new_v))
     update_slice_rows(k_layer, new_k, length, axis=1)
     update_slice_rows(v_layer, new_v, length, axis=1)
     return k_layer, v_layer

@@ -91,14 +91,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *,
-            spec: Optional[SpecPVConfig] = None, plain: bool = False):
+            spec: Optional[SpecPVConfig] = None, plain: bool = False,
+            t_valid=None):
     """Process a chunk of prompt tokens [B, T] (written into `cache` in
     place).  Returns (logits [B, V] of the last token, features, the
     cache with its advanced length).  ``plain`` (contiguous cache only)
     runs the plain attention and summaries: the autoregressive oracle's
-    route (``core.reference``), never the engine's."""
+    route (``core.reference``), never the engine's.
+
+    ``t_valid`` ([B] int32, attention archs only) marks the chunk
+    ragged: row b carries ``t_valid[b] >= 1`` real tokens, then
+    ``T - t_valid[b]`` trailing pads, which write no K/V, summary or
+    ``length``; the logits are row b's at ``t_valid[b] - 1`` (the fused
+    multi-row prefill packs cursors of unequal chunks so)."""
     b, t = tokens.shape
     if cfg.arch_type == "ssm":
+        if t_valid is not None:
+            raise ValueError("ragged prefill is attention-arch only")
         h, feats, cache = rw.forward(cfg, params, tokens, cache)
         logits = rw.lm_head(cfg, params, h[:, -1:])[:, 0]
         return logits, Features(*feats), cache
@@ -106,8 +115,14 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *,
         t, device=tokens.device, dtype=torch.int32)[None]
     hh = dn.embed_tokens(cfg, params, tokens)
     out = dn.trunk_fwd(cfg, params["layers"], hh, positions, mode="prefill",
-                       cache=cache, spec=spec or SpecPVConfig(), plain=plain)
-    logits = dn.lm_head(cfg, params, out.h[:, -1:])[:, 0]
+                       cache=cache, spec=spec or SpecPVConfig(), plain=plain,
+                       t_valid=t_valid)
+    if t_valid is None:
+        h_last = out.h[:, -1:]
+    else:
+        last = torch.clamp(t_valid.long() - 1, min=0)
+        h_last = out.h[torch.arange(b, device=tokens.device), last][:, None]
+    logits = dn.lm_head(cfg, params, h_last)[:, 0]
     return logits, Features(*out.features), out.cache
 
 

@@ -10,7 +10,9 @@ the identity list):
 
   prefill        write the chunk's K/V, attend, update block summaries:
                  the causal prefill kernel (K2) over the row's prefix, then
-                 one block-summary (K4) call over every layer.
+                 one block-summary (K4) call over every layer.  A ragged
+                 chunk (``t_valid``) leaves its pads out of the K/V
+                 writes, the key masks, the summaries and ``length``.
   decode_full    T tree tokens vs the full cache + tree self-mask, through
                  the verify kernel (K1).
   decode_partial T tokens vs the partial context: the retrieval-selected
@@ -305,13 +307,17 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
                     self_mask, cache_kv, pkv, length, inv_freq, mscale,
                     page_table=None, paged_kernel: bool = False,
                     partial_rows=None, pkv_blocks=None, block_size: int = 128,
-                    plain: bool = False):
+                    plain: bool = False, t_valid=None):
     """One self-attention sublayer under `mode` (see module docstring).
     With ``page_table`` set, ``cache_kv`` is the layer's pool pair
     [NP, block, Hk, Dh] (prefill writes it in place), read through the
     table (``paged_kernel``) or through its materialised view; else the
     layer's contiguous pair [B, S, Hk, Dh].  ``plain``: the oracle's
-    plain attention (contiguous only).  Returns (attn_out, updates, q)."""
+    plain attention (contiguous only).  ``t_valid`` [B] (prefill only):
+    a ragged chunk, row b carrying ``t_valid[b]`` real tokens, then pads
+    that write no K/V (paged: the null page; contiguous: zeros, as the
+    reference) and that no key mask counts.  Returns (attn_out, updates,
+    q)."""
     from repro_torch.kernels import ops as kops
     x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
     q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq, mscale)
@@ -349,26 +355,31 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
                                                 block_size)
 
     if mode == "prefill":
-        tv = torch.full((b,), t, dtype=torch.int32, device=dev)
+        if t_valid is None:
+            tv, valid = torch.full((b,), t, dtype=torch.int32, device=dev), None
+        else:
+            tv = t_valid
+            valid = torch.arange(t, device=dev)[None] < t_valid[:, None]
         if page_table is not None:
             # K/V go into the pool first: the kernel's causal page walk
             # then covers in-chunk self-attention too
             from repro_torch.kvcache.cache import paged_write_tokens
             pool_k, pool_v = cache_kv
-            paged_write_tokens(pool_k, page_table, length, k_new)
-            paged_write_tokens(pool_v, page_table, length, v_new)
+            paged_write_tokens(pool_k, page_table, length, k_new, valid)
+            paged_write_tokens(pool_v, page_table, length, v_new, valid)
             if paged_kernel:
                 out = kops.paged_prefill_attention(q, pool_k, pool_v,
                                                    page_table, length, tv)
                 return bk.attn_output(cfg, lp["attn"], out), upd, q
         else:
             from repro_torch.kvcache.cache import append_layer_kv
-            append_layer_kv(cache_kv[0], cache_kv[1], k_new, v_new, length)
+            append_layer_kv(cache_kv[0], cache_kv[1], k_new, v_new, length,
+                            valid)
         k_layer, v_layer = layer_view()
         if plain:
             s = k_layer.shape[1]
             kv_pos = torch.arange(s, device=dev)[None].expand(b, s)
-            kv_valid = kv_pos < (length + t)[:, None]
+            kv_valid = kv_pos < (length + tv)[:, None]
             out = cm.flash_attention(q, k_layer, v_layer,
                                      q_positions=positions,
                                      kv_positions=kv_pos, causal=True,
@@ -431,7 +442,7 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
               pkv=None, spec: Optional[SpecPVConfig] = None,
               emit_queries: bool = False, partial_rows=None,
               collect_features: bool = True, pkv_blocks=None,
-              plain: bool = False) -> TrunkOut:
+              plain: bool = False, t_valid=None) -> TrunkOut:
     """Run the layer stack (see module docstring for modes).
 
     cache: paged {"k","v" [L,NP,bs,Hk,Dh], "kmax","kmin" [L,NP,Hk,Dh],
@@ -440,7 +451,9 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     pkv: tail buffer (k, v [L,B,Hk,P,Dh], pos [L,B,Hk,P]), followed by
     the gathered body (k, v [L,B,NS*bs,Hk,Dh]) unless zero-copy;
     pkv_blocks: [L, B, Hk, NS] selected logical block ids.  ``plain``:
-    the oracle's plain route (contiguous cache only)."""
+    the oracle's plain route (contiguous cache only).  ``t_valid`` [B]
+    (prefill only): a ragged chunk; pads write no K/V, no summary and do
+    not advance ``length``."""
     spec = spec or SpecPVConfig()
     num_layers = len(layers)
     f_lo, f_mi, f_hi = _feature_targets(num_layers)
@@ -452,6 +465,9 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     paged = cache is not None and "page_table" in cache
     page_table = cache["page_table"] if paged else None
     paged_kernel = paged and spec.use_pallas
+    # prefill: the end of each row's real tokens after the chunk
+    end = (length + (t if t_valid is None else t_valid)
+           if mode == "prefill" else None)
     feats = [None, None, None]
     new_k, new_v, queries = [], [], []
     for i, lp in enumerate(layers):
@@ -463,14 +479,14 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
             inv_freq, mscale, page_table=page_table,
             paged_kernel=paged_kernel, partial_rows=partial_rows,
             pkv_blocks=pkv_blocks[i] if pkv_blocks is not None else None,
-            block_size=spec.block_size, plain=plain)
+            block_size=spec.block_size, plain=plain, t_valid=t_valid)
         h = h + att
         if mode == "prefill":
             if plain:
                 from repro_torch.kvcache.cache import update_layer_summaries
                 nkmax, nkmin = update_layer_summaries(
                     cache["kmax"][i], cache["kmin"][i], cache["k"][i],
-                    length, length + t, spec.block_size)
+                    length, end, spec.block_size)
                 cache["kmax"][i] = nkmax
                 cache["kmin"][i] = nkmin
         else:
@@ -492,16 +508,16 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
         if paged:
             from repro_torch.kvcache.cache import paged_update_all_summaries
             paged_update_all_summaries(cache["kmax"], cache["kmin"],
-                                       cache["k"], page_table, length,
-                                       length + t, n_touch=n_touch)
+                                       cache["k"], page_table, length, end,
+                                       n_touch=n_touch)
         elif not plain:
             from repro_torch.kvcache.cache import (
                 contiguous_update_all_summaries)
             contiguous_update_all_summaries(cache["kmax"], cache["kmin"],
-                                            cache["k"], length, length + t,
+                                            cache["k"], length, end,
                                             spec.block_size, n_touch)
         new_cache = dict(cache)
-        new_cache["length"] = length + t
+        new_cache["length"] = end
     new_kv = ((torch.stack(new_k), torch.stack(new_v)) if new_k else None)
     return TrunkOut(h=h, features=tuple(feats) if collect_features else None,
                     cache=new_cache, new_kv=new_kv,

@@ -33,17 +33,17 @@ from repro_torch.serving.scheduler import ContinuousScheduler, trim_output
 @dataclass
 class ServingConfig:
     """The reference's serving knobs, every field under its name, with
-    its defaults but one: the serial prefill pump (``fused_prefill=False``)
-    until the fused multi-row prefill is ported (ROADMAP.md queue 1,
-    'Batched prefill').  So by default the continuous engine is
-    contiguous (``paged_kv=False``: admission by free slot, no page
-    gate) with the gathered partial cache (``zero_copy_partial=False``);
-    ``paged_kv=True`` serves from the paged pool, gathered or zero-copy.
-    Copy-on-write prefix sharing (``prefix_cache=True``, as in the
-    reference) applies to the paged pool only.  ``fused_prefill=True``,
-    ``tiered_kv=True`` and a ``mesh_shape`` raise NotImplementedError
-    naming their ROADMAP item (the tier codec fields only matter with
-    ``tiered_kv``)."""
+    its defaults.  So by default the continuous engine is contiguous
+    (``paged_kv=False``: admission by free slot, no page gate) with the
+    gathered partial cache (``zero_copy_partial=False``), and an
+    interleaved prefill (``prefill_budget``) advances its open cursors
+    in fused multi-row chunks (``fused_prefill=True``; False: one
+    cursor's chunk per dispatch); ``paged_kv=True`` serves from the
+    paged pool, gathered or zero-copy.  Copy-on-write prefix sharing
+    (``prefix_cache=True``, as in the reference) applies to the paged
+    pool only.  ``tiered_kv=True`` and a ``mesh_shape`` raise
+    NotImplementedError naming their ROADMAP item (the tier codec fields
+    only matter with ``tiered_kv``)."""
     batch: int = 4
     max_len: int = 4096
     prefill_chunk: int = 256
@@ -53,7 +53,9 @@ class ServingConfig:
     prefill_budget: Optional[int] = None
     # one fused masked step per tick (False: one per distinct mode)
     fused_step: bool = True
-    fused_prefill: bool = False
+    # interleaved prefill: one ragged dispatch per round over every open
+    # cursor that fits the budget (False: one cursor's chunk each)
+    fused_prefill: bool = True
     partial_verification: bool = True
     pad_id: int = 0
     scheduler: str = "continuous"       # "continuous" | "wave"
@@ -75,8 +77,6 @@ class ServingEngine:
                  cuda_graphs: Optional[bool] = None):
         self.scfg = scfg = scfg or ServingConfig()
         for bad, what, item in (
-                (scfg.fused_prefill, "the fused multi-row prefill "
-                 "(fused_prefill=True)", "Batched prefill"),
                 (scfg.tiered_kv, "tiered KV residency (tiered_kv=True)",
                  "Tiered KV"),
                 (scfg.mesh_shape is not None, "mesh sharding (mesh_shape)",

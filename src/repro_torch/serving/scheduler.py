@@ -23,12 +23,16 @@ the row count).
 
 ``prefill_budget=None`` admits blocking: the whole prompt prefills in
 the admission tick.  ``prefill_budget=N`` opens a resumable cursor
-(phase PREFILLING) and each tick advances the open cursors, oldest
-admission first, by whole chunks until about N prompt tokens have run
-(the serial pump, ``_pump_prefill_serial``), then steps the decoding
-slots.  Chunk boundaries stay absolute, so interleaved tokens equal
-blocking ones.  The reference's fused multi-row prefill
-(``fused_prefill=True``) is ROADMAP.md queue 1, 'Batched prefill'.
+(phase PREFILLING) and each tick spends about N prompt tokens on the
+open cursors (``_pump_prefill``), then steps the decoding slots.  With
+``fused_prefill=True`` (the default, as in the reference) each round
+takes the oldest-first set of cursors whose next chunks fit the
+remaining budget and advances them together in one ragged dispatch
+(``SpecPVEngine.prefill_step_fused``: one graph replay per round on the
+card); ``fused_prefill=False`` keeps the serial pump, one chunk of one
+cursor per dispatch (``_pump_prefill_serial``), as the A/B baseline.
+Chunk boundaries stay absolute and pads write nothing, so interleaved
+tokens equal blocking ones either way.
 """
 from __future__ import annotations
 
@@ -87,7 +91,9 @@ class ContinuousScheduler:
     ``stats["mode_rows_<mode>"]`` the rows stepped per mode and
     ``stats["ticks_modes_<k>"]`` the decode ticks by their number of
     distinct modes; ``tick_wall`` keeps each decode tick's wall time by
-    tick class (``_tick_class``).  ``record_steps`` appends
+    tick class (``_tick_class``); ``stats["prefill_tokens"]`` and
+    ``stats["prefill_dispatches"]`` count the interleaved prefill's
+    tokens and dispatches.  ``record_steps`` appends
     ``(clock(), request_id, n_tokens)`` to ``step_log`` for every slot
     that decodes in a tick."""
 
@@ -95,15 +101,12 @@ class ContinuousScheduler:
                  prefill_budget: Optional[int] = None,
                  record_steps: bool = False,
                  fused: bool = True,
-                 fused_prefill: bool = False,
+                 fused_prefill: bool = True,
                  clock: Callable[[], float] = time.time):
         if not engine.is_attn:
             raise ValueError("continuous batching drives the per-slot "
                              "SpecPV automaton (attention archs); state "
                              "archs use the wave path")
-        if fused_prefill:
-            _unsupported("the fused multi-row prefill (fused_prefill=True)",
-                         "Batched prefill")
         assert prefill_budget is None or prefill_budget > 0, \
             "prefill_budget must be positive (None = blocking prefill)"
         self.engine = engine
@@ -111,6 +114,7 @@ class ContinuousScheduler:
         self.prefill_budget = prefill_budget
         self.record_steps = record_steps
         self.fused = fused
+        self.fused_prefill = fused_prefill
         self.clock = clock
         self.st = engine.empty_state()
         self.slots: List[Optional[_Slot]] = [None] * engine.batch
@@ -233,7 +237,7 @@ class ContinuousScheduler:
                 req.phase = RequestPhase.DECODING
                 slot.append([first])
             else:
-                # interleaved: chunks run in _pump_prefill_serial
+                # interleaved: chunks run in _pump_prefill
                 self.st, slot.cursor = eng.prefill_begin_slot(
                     self.st, i, req.prompt, chunk=self.prefill_chunk,
                     max_new_tokens=req.max_new_tokens)
@@ -256,10 +260,53 @@ class ContinuousScheduler:
         s.append([first])
         self.trace.append(("prefill_done", s.req.request_id, i))
 
+    def _pump_prefill(self) -> int:
+        """Spend the per-tick prefill budget on the open cursors.
+
+        Fused (default): each round selects the oldest-first row set
+        whose next chunks fit the remaining budget (the first row always
+        runs while nothing ran this tick, so a budget below the chunk
+        still progresses) and advances it in one ``prefill_step_fused``
+        dispatch; exhausted cursors are finalised between rounds, those
+        born exhausted by a tail-entry hit included.  Serial
+        (``fused_prefill=False``): ``_pump_prefill_serial``.  Returns
+        tokens run."""
+        if not self.fused_prefill:
+            return self._pump_prefill_serial()
+        spent, d0 = 0, self.engine.prefill_dispatches
+        while True:
+            order = sorted((s.seq, i) for i, s in enumerate(self.slots)
+                           if s is not None and s.cursor is not None)
+            for _, i in order:
+                if self.slots[i].cursor.done:
+                    self._finalize_prefill(i)
+            open_rows = [i for _, i in order
+                         if self.slots[i].cursor is not None]
+            if not open_rows or (spent and spent >= self.prefill_budget):
+                break
+            batch, planned = [], spent
+            for i in open_rows:
+                nxt = self.slots[i].cursor.next_tokens
+                if (spent or batch) and planned + nxt > self.prefill_budget:
+                    break
+                batch.append(i)
+                planned += nxt
+            if not batch:
+                break                       # budget spent mid-tick
+            self.st, n = self.engine.prefill_step_fused(
+                self.st, [self.slots[i].cursor for i in batch])
+            spent += n
+        if spent:
+            self.stats["prefill_tokens"] += spent
+            self.stats["prefill_dispatches"] += \
+                self.engine.prefill_dispatches - d0
+        return spent
+
     def _pump_prefill_serial(self) -> int:
-        """Advance the open prefill cursors, oldest admission first, by
-        whole chunks until the per-tick budget is spent (the first chunk
-        always runs, so prefill never starves).  Returns tokens run."""
+        """The A/B pump: advance the open prefill cursors, oldest
+        admission first, by whole chunks until the per-tick budget is
+        spent (the first chunk always runs, so prefill never starves),
+        one dispatch per chunk.  Returns tokens run."""
         spent, d0 = 0, self.engine.prefill_dispatches
         order = sorted((s.seq, i) for i, s in enumerate(self.slots)
                        if s is not None and s.cursor is not None)
@@ -299,8 +346,7 @@ class ContinuousScheduler:
             elif s.req.deadline_s is not None and s.req.deadline_s < now:
                 self._evict(i, "deadline")
         self._admit()
-        prefilled = (self._pump_prefill_serial() if self.prefill_budget
-                     else 0)
+        prefilled = self._pump_prefill() if self.prefill_budget else 0
 
         # slots mid-prefill have no automaton state yet: their device rows
         # are neutral and they sit the decode step out

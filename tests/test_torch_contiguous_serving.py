@@ -12,9 +12,9 @@ requests of ``tests/test_torch_serving.py``.
 * The gathered partial cache on the paged pool (``zero_copy=False``)
   gives the JAX scheduler's tokens, trace and page stalls on a pool too
   small for every request at once.
-* Two contiguous slot prefills advanced chunk by chunk in turn (the one
-  static row cache changes hands) equal the same prefills run one after
-  the other.
+* Two contiguous slot prefills advanced chunk by chunk in turn (each in
+  its slot's rows of the prefill carry) equal the same prefills run one
+  after the other.
 * ``ServingConfig()``'s defaults serve on the contiguous engine, and the
   wave path of an attention arch runs a contiguous engine, as in the
   reference.
@@ -174,8 +174,8 @@ def test_gathered_paged_serving_matches_jax_scheduler(setup):
 
 def test_interleaved_cursors_hand_over_static_rows(setup):
     """Two contiguous slot prefills advanced chunk by chunk in turn
-    equal the two run back to back: the static batch-1 row cache changes
-    hands between them (spilled into the cursors' own rows)."""
+    equal the two run back to back: each cursor's rows stay in its
+    slot's rows of the prefill carry between its chunks."""
     s = setup
     a, b = s["prompts"]["b"], s["prompts"]["d"]
     seq = _tengine(s)

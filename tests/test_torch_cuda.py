@@ -571,7 +571,8 @@ def test_cuda_serving_graphs_equal_eager(cuda, models, prefill_budget):
     """The same trace served with graphs and eagerly: equal tokens per
     request, launch counts and final static state, the K/V pools included
     (page 0 left out: null-page writes land in no fixed order); one graph
-    per step variant that ran and one for the slot prefill chunk."""
+    per step variant that ran and one per row count of the full-width
+    slot prefill chunks (interleaved: fused rounds of several rows)."""
     import numpy as np
     model = _get_model(models, "llama3.1-8b")
     (eager, ec), (graph, gc) = (_serve(model, g, prefill_budget)
@@ -587,7 +588,9 @@ def test_cuda_serving_graphs_equal_eager(cuda, models, prefill_budget):
         assert graph.stats[k] == eager.stats[k] > 0, k
     ge = graph._continuous.engine
     ee = eager._continuous.engine
-    assert set(ge._graphs) == set(ge.dispatch_keys) | {("slot_prefill", 256)}
+    assert set(ge._graphs) == set(ge.dispatch_keys) | _prefill_graphs(ge)
+    if prefill_budget:
+        assert max(k for k, _ in ge.prefill_keys) > 1
     for f in dataclasses.fields(ge.state):
         g, e = getattr(ge.state, f.name), getattr(ee.state, f.name)
         for k in (g if isinstance(g, dict) else [None]):
@@ -596,6 +599,12 @@ def test_cuda_serving_graphs_equal_eager(cuda, models, prefill_budget):
                 a, b = a[..., 1:, :, :, :], b[..., 1:, :, :, :]
             assert torch.equal(a, b), (f.name, k)
     assert ge.page_stats()["in_use"] == 0
+
+
+def _prefill_graphs(eng, chunk=256):
+    """The graph keys of the slot prefill chunks that ran at full width."""
+    return {("fused_prefill", k, t) for k, t in eng.prefill_keys
+            if t == chunk}
 
 
 def _row_snapshot(eng, row):
@@ -665,8 +674,9 @@ def test_cuda_masked_step_keeps_untouched_rows(cuda, models):
 
 @pytest.mark.cuda
 def test_cuda_serving_bodies_do_not_sync(cuda, models):
-    """The slot prefill chunk's body and each step variant's body with the
-    row mask [1, 1, 0] run eagerly under
+    """A fused slot prefill round of two cursors (one mid-prompt, one at a
+    short last chunk) and each step variant's body with the row mask
+    [1, 1, 0] run eagerly under
     ``torch.cuda.set_sync_debug_mode("error")``."""
     import numpy as np
     from repro_torch.core.engine import MODE_IDS, SpecPVEngine
@@ -676,16 +686,26 @@ def test_cuda_serving_bodies_do_not_sync(cuda, models):
                        device="cuda", cuda_graphs=False, prefix_cache=False)
     rng = np.random.default_rng(7)
     st = eng.empty_state()
+    curs = []
     for slot, n in ((0, 4700), (1, 2000)):
-        st, _ = eng.prefill_into_slot(
+        st, c = eng.prefill_begin_slot(
             st, slot, rng.integers(0, cfg.vocab_size, (n,)),
             max_new_tokens=16)
-    toks = eng._chunk_buf(1, 256)
-    cache = dict(eng._slot_cache, **{n: st.cache[n]
-                                     for n in ("k", "v", "kmax", "kmin")})
-    dcache = dict(eng._slot_dcache, k=st.dcache["k"], v=st.dcache["v"])
-    runs = [(None, lambda: eng._prefill_body(
-        toks, cache, dcache, eng._slot_prev_feat, eng._slot_logits))]
+        curs.append(c)
+    while curs[1].next_tokens == 256:       # to 2000's 208-token last chunk
+        st, _ = eng.prefill_step_into_slot(st, curs[1])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:                    # staging, the ragged body, the copies out
+        st, n = eng.prefill_step_fused(st, curs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert n == 256 + 208 and curs[1].done
+    while not curs[0].done:
+        st, _ = eng.prefill_step_into_slot(st, curs[0])
+    for c in curs:
+        st, _ = eng.prefill_finalize_slot(st, c)
+    runs = []
     for modes, key in ((["full"] * 2, (True, False, False)),
                        (["refresh"] * 2, (True, False, True)),
                        (["partial"] * 2, (False, True, False)),
@@ -862,7 +882,7 @@ def test_cuda_prefix_host_paths_do_not_sync(cuda, models):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        register(cur_b, 0, 256)
+        register(cur_b, 0, 256, eng._pf_block_feats[0])
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert eng.prefix_stats()["dedups"] == 2
@@ -1101,7 +1121,8 @@ def test_cuda_contiguous_graph_generate_equals_eager(cuda, models):
 @pytest.mark.cuda
 def test_cuda_contiguous_step_bodies_do_not_sync(cuda, models):
     """The contiguous gathered engine's prefill chunk, each step variant
-    and a contiguous slot-prefill chunk run eagerly under
+    and a contiguous slot-prefill chunk over the prefill carry (staging
+    included) run eagerly under
     ``torch.cuda.set_sync_debug_mode("error")``."""
     import numpy as np
     from repro_torch.core.engine import MODE_IDS
@@ -1122,10 +1143,7 @@ def test_cuda_contiguous_step_bodies_do_not_sync(cuda, models):
         bodies.append(lambda mode=mode, key=key: (
             eng._modes.fill_(MODE_IDS[mode]), eng._fused_body(*key)))
     _, cur = eng.prefill_begin_slot(eng.state, 0, prompt[0, :300])
-    eng._own_slot_rows(cur)
-    bodies.append(lambda: eng._prefill_body(
-        toks, eng._slot_cache, eng._slot_dcache, eng._slot_prev_feat,
-        eng._slot_logits))
+    bodies.append(lambda: eng.prefill_step_fused(eng.state, [cur]))
     torch.cuda.synchronize()
     for body in bodies:
         torch.cuda.set_sync_debug_mode("error")
@@ -1134,3 +1152,125 @@ def test_cuda_contiguous_step_bodies_do_not_sync(cuda, models):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the fused multi-row prefill: ragged K-row chunks
+# ---------------------------------------------------------------------------
+
+def _ragged_rows(dev, dtype, seed, *, nb=66, bs=128, hk=8, dh=128, h=32,
+                 t=256, layers=1, carry=False):
+    """Four prefill rows of one ragged [4, 256] chunk at llama widths:
+    (length, t_valid) = (7936, 256), (48, 16), (0, 200), (4000, 1).  The
+    pool is the contiguous prefill carry (row s's block j is page
+    1 + s*nb + j after the null page) or random pages of a shared pool."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    b = 4
+    npg = b * nb + 1
+    q = torch.randn((b, t, h, dh), generator=g, device=dev).to(dtype)
+    pk = torch.randn((layers, npg, bs, hk, dh), generator=g,
+                     device=dev).to(dtype)
+    pv = torch.randn((layers, npg, bs, hk, dh), generator=g,
+                     device=dev).to(dtype)
+    if carry:
+        pt = 1 + torch.arange(b * nb, device=dev).view(b, nb)
+    else:
+        pt = torch.randperm(npg - 1, generator=g, device=dev)[: b * nb]
+        pt = (pt + 1).view(b, nb)
+    length = torch.tensor([7936, 48, 0, 4000], dtype=torch.int32,
+                          device=dev)
+    t_valid = torch.tensor([256, 16, 200, 1], dtype=torch.int32, device=dev)
+    return q, pk, pv, pt.to(torch.int32).contiguous(), length, t_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("carry", [False, True], ids=["pool", "carry"])
+def test_cuda_ragged_prefill_rows_match_plain(cuda, dtype, carry):
+    """K2's ragged K-row form (``ops.paged_prefill_attention`` with
+    t_valid < T, as a fused round calls it): one launch whose output is
+    its partials normalised, and those partials (each row's causal
+    attention over its own blocks, ending at length + t_valid) against
+    the plain version."""
+    q, pk, pv, pt, length, t_valid = _ragged_rows(cuda, TDT[dtype], 11,
+                                                  carry=carry)
+    before = tops.LAUNCHES["paged_prefill_attention"]
+    got = tops.paged_prefill_attention(q, pk[0], pv[0], pt, length, t_valid)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["paged_prefill_attention"] == before + 1
+    idx, vlen = tops._page_walk(pt, length + t_valid, pk[0].shape)
+    kf, vf = tops._flat_pool(pk[0]), tops._flat_pool(pv[0])
+    parts = tops.block_attention(q, kf, vf, idx, vlen, 128, q_offset=length)
+    m, l, acc = parts
+    assert torch.equal(got, (acc / torch.clamp(l, min=1e-30)[..., None])
+                       .transpose(1, 2).to(q.dtype))
+    _assert_partials_close(parts, tref.block_attention_batched(
+        q, kf, vf, idx, vlen, 128, q_offset=length))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("carry", [False, True], ids=["pool", "carry"])
+def test_cuda_ragged_block_summaries_bit_exact(cuda, dtype, carry):
+    """K4 over all 32 layers with per-row ends length + t_valid (a fused
+    round's one launch) against its plain version bit for bit; page 0
+    stays 0 and pages outside the rows' touched blocks keep their
+    bytes."""
+    _, pk, _, pt, length, t_valid = _ragged_rows(cuda, TDT[dtype], 12,
+                                                 layers=32, carry=carry)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(13)
+    layers, npg, _, hk, dh = pk.shape
+    init = torch.rand((2, layers, npg, hk, dh), generator=g, device=cuda)
+    init[:, :, 0] = 0.0
+    got, want = init.clone(), init.clone()
+    before = tops.LAUNCHES["block_summary"]
+    tops.paged_block_summaries(pk, pt, length, length + t_valid, 3, got[0],
+                               got[1])
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["block_summary"] == before + 1
+    tref.paged_block_summaries(pk, pt, length, length + t_valid, 3, want[0],
+                               want[1])
+    assert torch.equal(got, want)
+    assert float(got[:, :, 0].abs().max()) == 0.0
+    touched = torch.zeros(npg, dtype=torch.bool, device=cuda)
+    for r in range(4):
+        lo = int(length[r]) // 128
+        hi = -(-int(length[r] + t_valid[r]) // 128)
+        touched[pt[r, lo:hi].long()] = True
+    assert torch.equal(got[:, :, ~touched], init[:, :, ~touched])
+
+
+@pytest.mark.cuda
+def test_cuda_fused_prefill_contiguous_graphs_equal_eager(cuda, models):
+    """Contiguous slots (``ServingConfig()``'s layout), interleaved with
+    a budget of three chunks: fused rounds replayed as graphs give the
+    eager run's tokens, launch counts and prefill keys; several rounds
+    ran two or more rows."""
+    import numpy as np
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
+    runs = []
+    for graphs in (False, True):
+        rng = np.random.default_rng(9)
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+            batch=3, max_len=SERVE_MAX_LEN, prefill_budget=768),
+            device="cuda", cuda_graphs=graphs)
+        for i, (n, new) in enumerate(SERVE_CASE):
+            srv.submit(Request(request_id=f"r{i}", max_new_tokens=new,
+                               prompt=rng.integers(0, cfg.vocab_size, (n,))))
+        tops.reset_launch_counts()
+        srv.run()
+        torch.cuda.synchronize()
+        runs.append((srv, tops.launch_counts()))
+    (eager, ec), (graph, gc) = runs
+    for rid, o in eager.outputs.items():
+        assert np.array_equal(graph.outputs[rid].tokens, o.tokens), rid
+    assert gc == ec
+    ge, ee = graph._continuous.engine, eager._continuous.engine
+    assert not ge.paged and ge.prefill_keys == ee.prefill_keys
+    assert sum(n for (k, _), n in ge.prefill_keys.items() if k > 1) > 1
+    assert set(ge._graphs) == set(ge.dispatch_keys) | _prefill_graphs(ge)
+    assert ec[0]["paged_prefill_attention"] == \
+        cfg.num_layers * ee.prefill_dispatches

@@ -39,6 +39,16 @@ from repro_torch.models import common as tcm
 B, MAX_LEN, CHUNK = 2, 512, 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Tiny shapes: torch's intra-op threads only add synchronisation
+    when the suite runs several workers per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _specs(small_spec, small_dcfg, **kw):
     spec = small_spec.replace(**kw)
     return (spec, tcfgs.SpecPVConfig(**dataclasses.asdict(spec)),

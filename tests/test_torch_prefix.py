@@ -164,6 +164,7 @@ def port_runs(setup):
     te = _tengine(setup, num_pages=POOL)
     runs = {name: _run(ContinuousScheduler(te, prefill_chunk=CHUNK,
                                            prefill_budget=budget,
+                                           fused_prefill=False,
                                            clock=lambda: 0.0),
                        Request, setup["prompts"])
             for name, budget in BUDGETS.items()}

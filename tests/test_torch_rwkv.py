@@ -40,6 +40,16 @@ TOL = 1e-4
 B, PROMPT, NEW, MAX_LEN = 2, 24, 16, 256
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Tiny shapes: torch's intra-op threads only add synchronisation
+    when the suite runs several workers per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 

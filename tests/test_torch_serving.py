@@ -496,13 +496,12 @@ def _bad_request(s, **kw):
     (_serves, dict(paged_kv=False), None),
     (_serves, dict(paged_kv=True, zero_copy_partial=False), None),
     (_serves, dict(paged_kv=True, prefix_cache=True), None),
-    (_bad_config, dict(fused_prefill=True), "Batched prefill"),
     (_bad_config, dict(tiered_kv=True), "Tiered KV"),
     (_bad_config, dict(mesh_shape=(1, 1)), "Multi-GPU"),
     (_bad_request, dict(temperature=0.7), "Sampling"),
     (_bad_request, dict(draft="chain"), "Sampling"),
-], ids=["paged_kv", "zero_copy", "prefix_cache", "fused_prefill", "tiered",
-        "mesh", "temperature", "chain"])
+], ids=["paged_kv", "zero_copy", "prefix_cache", "tiered", "mesh",
+        "temperature", "chain"])
 def test_unsupported_settings_raise(setup, make, kw, item):
     if item is None:        # ported since: it serves on its layout
         srv = make(setup, **kw)
@@ -515,7 +514,3 @@ def test_unsupported_settings_raise(setup, make, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*'{item}'"):
         make(setup, **kw)
 
-
-def test_scheduler_refuses_fused_prefill(setup):
-    with pytest.raises(NotImplementedError, match="Batched prefill"):
-        ContinuousScheduler(_tengine(setup), fused_prefill=True)

@@ -22,6 +22,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.artifacts import get_trained_pair
 from repro.core import SpecPVEngine as JEngine
@@ -31,6 +32,16 @@ from repro_torch.core.engine import SpecPVEngine as TEngine
 from repro_torch.core.reference import autoregressive_generate as t_ar
 
 B, PROMPT, NEW, MAX_LEN, CHUNK = 2, 160, 24, 512, 64
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Tiny shapes: torch's intra-op threads only add synchronisation
+    when the suite runs several workers per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import artifacts
 from repro.core import SpecPVEngine as JEngine
@@ -29,6 +30,16 @@ from repro_torch.core.engine import SpecPVEngine as TEngine
 from repro_torch.core.reference import autoregressive_generate as t_ar
 
 B, PROMPT, NEW, MAX_LEN = 2, 24, 32, 256
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Tiny shapes: torch's intra-op threads only add synchronisation
+    when the suite runs several workers per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _fp32(cfg):
