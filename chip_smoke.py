@@ -104,12 +104,14 @@ Phases, in order (any failure raises and the script exits non-zero):
    Refresh T=156 at 8229 tokens) and over the gathered body, K2 over the
    contiguous cache, and K4's all-layer contiguous form at a max_len of
    8431 (not a multiple of the block), bit for bit.  (a) Full-width
-   ``generate`` as in phase 3 on the contiguous engine, eagerly and with
-   graphs: K1-K4 launched as the steps and chunks imply (K4 once per
-   prefill chunk and per commit over every layer), graph tokens and
-   launches equal to eager, final summaries equal to the plain version,
-   a profiled window, the bodies under the sync check; the tokens
-   matching phase 3's are reported.  (b) After the same prefill the
+   ``generate`` as in phase 3 on the contiguous engine, with graphs (128
+   new tokens, profiled) and eagerly (32 new tokens, a Refresh then
+   Partial steps, not profiled: phase 3 profiles the eager step): K1-K4
+   launched as each run's steps and chunks imply (K4 once per prefill
+   chunk and per commit over every layer), the eager tokens equal to the
+   graph run's first 32, final summaries equal to the plain version, the
+   bodies under the sync check; the tokens matching phase 3's are
+   reported.  (b) After the same prefill the
    contiguous K/V and summaries equal the paged engine's through the
    page table bit for bit; after one Refresh each, the gathered body's
    K1 Partial result equals the routed one bit for bit.  (e) The
@@ -136,20 +138,47 @@ Phases, in order (any failure raises and the script exits non-zero):
    (reported); one 4-row round profiled (device launches, host launch
    calls).  (b) Phase 7's shared-prefix traffic, interleaved and fused
    with sharing on: dedupes, prompt tokens skipped, round walls, no
-   committed page or pin left.  (c) The paged fused run eagerly: tokens,
-   launches and rounds equal to the graph run's; an eager 3-row round
-   with a padded short row under the sync check.  (d) fp32 at 4 layers
+   committed page or pin left.  (c) A short trace (three prompts of
+   1024, 768 and 512 tokens arriving together, 8 new tokens each) on the
+   paged pool with the fused pump, with graphs and eagerly: tokens,
+   launches and rounds equal; an eager 3-row round with a padded short
+   row under the sync check.  (d) fp32 at 4 layers
    with graphs: the fused pump on the paged pool with sharing (paired
    cold admissions dedupe) and on contiguous slots gives every request's
    solo ``generate`` and the serial pump's tokens;
-10. one JSON line with every kernel's numbers (each kernel's launches
+10. training and the paper's table 1 on the card.  (a) The EAGLE-3 draft
+   trained at full width (``DraftTrainer``, the paper's ``DraftConfig()``,
+   TTT steps 4) against the frozen 32-layer llama3.1-8b target (bf16,
+   random weights), batch 1, S = 2048 (cut from the paper's 32K): one
+   warm-up and five timed steps, ms per step split into the feature pass
+   (one prefill of the whole sequence: 32 K2 launches and one K4), the
+   TTT loss with its backward, and clip plus AdamW (CUDA events); peak
+   memory; finite losses; the feature pass against its plain route: at
+   each of the 32 layers, on the plain route's hidden state entering it,
+   K2's partials within 1e-4 of the plain attention's and K4's summaries
+   bit-equal (the bf16 layer outputs and the whole pass's features are
+   reported beside the plain route's, not held).  (b) ``Trainer`` at llama3.1-8b width cut to 4 layers (the
+   AdamW state of 32 does not fit), batch 1, S = 2048: forward plus
+   backward, clip plus AdamW, peak memory, finite losses.  (c) The
+   reference recipe's tiny-dense pair trained on the card in fp32 (its
+   wall time), then ``benchmarks/bench_table1_speedup_torch.py --quick``
+   over it (contexts 192 and 384, EAGLE3-full, SpecPV-64, SpecPV-128, 32
+   new tokens, graphs): the compiled AR equals the plain AR oracle,
+   EAGLE3-full equals AR, ``mean_accept`` > 1 in every SpecPV row;
+   alpha_wall, fwd_reduction, tau and agreement printed with
+   PYTHONHASHSEED.  K1-K4 are counted over the phase.  (Phase 2 holds
+   this slice's call forms: K1, K2, K3 and K4 at the pair's shapes, H=4,
+   Hk=2, Dh=64, block 16, in fp32 and bf16, and K2 at T=2048 at llama
+   widths, each timed beside its bound and SDPA);
+11. one JSON line with every kernel's numbers (each kernel's launches
    from its own path's run, ``serving_launches`` from phase 6's,
    ``prefix_serving_launches`` from phase 7's shared run,
    ``contiguous_launches`` and ``contiguous_serving_launches`` from
    phase 8's graph runs, ``fused_serving_launches``,
    ``fused_contiguous_serving_launches`` and
-   ``fused_prefix_serving_launches`` from phase 9's fused graph runs;
-   phases 8 and 9's call forms under ``shapes``), the card's name and
+   ``fused_prefix_serving_launches`` from phase 9's fused graph runs,
+   ``training_launches`` from phase 10; phases 8 and 9's call forms and
+   phase 2's forms of this slice under ``shapes``), the card's name and
    power limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
@@ -434,11 +463,12 @@ def _bound_ms(nbytes, flops, peak_ops):
 
 
 def _attn_row(torch, card, timer, label, launch, plain, nbytes=None,
-              flops=None, library=None):
+              flops=None, library=None, peak=PEAK_BF16_S):
     """A K1/K2 call held to its plain version at TOL_KERNEL (m, l, acc and
     the normalised output); with ``library`` also its profiler time (at
-    most 2 launches per call), plain time, bound and SDPA time.  Returns
-    the row."""
+    most 2 launches per call), plain time, bound (operations at ``peak``:
+    the bf16 tensor-core rate, or the fp32 rate for the fp32 route) and
+    SDPA time.  Returns the row."""
     from repro_torch.kernels import ops
     got, want = launch(), plain()
     torch.cuda.synchronize()
@@ -462,7 +492,7 @@ def _attn_row(torch, card, timer, label, launch, plain, nbytes=None,
     ops.LAUNCHES.update(before)        # timing launches are not the path's
     plain_ms = timer(plain, iters=3, warmup=1)
     lib_ms = timer(library)
-    bound, by = _bound_ms(nbytes, flops, PEAK_BF16_S)
+    bound, by = _bound_ms(nbytes, flops, peak)
     say(card, f"{check} ms {ms:.4f} ({timer.source}, {timer.per_call} "
               f"launch(es) per call) plain_ms {plain_ms:.4f} bound_us "
               f"{bound * 1e3:.2f} ({by}) library_ms {lib_ms:.4f} (SDPA)")
@@ -1157,12 +1187,16 @@ def phase_generate(torch, card):
 
 
 def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
-                  new_tokens, layout, name):
+                  new_tokens, layout, name, eager_new=None):
     """``generate`` at full width on the engine ``layout`` gives (paged
     or not, zero-copy or not), eagerly then with graphs: launches held to
     the path, final summaries to the plain version, a profiled window,
     the bodies under the sync check after the eager run, graph tokens
-    and launches equal to eager.  Returns both runs' numbers."""
+    and launches equal to eager.  With ``eager_new`` the eager run
+    generates that many tokens only and is not profiled; its tokens are
+    then held to the graph run's first ``eager_new`` and each run's
+    launches to what its own steps imply.  Returns both runs'
+    numbers."""
     from repro_torch.core.engine import SpecPVEngine, request_token_need
     from repro_torch.kernels import ops
     prompt_len = prompt.shape[1]
@@ -1172,6 +1206,8 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
     runs = {}
     for graphs in (False, True):
         label = f"{name} {RUN_LABEL[graphs]}"
+        short = not graphs and eager_new is not None
+        n_new = eager_new if short else new_tokens
         eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
                            max_len=max_len, device="cuda",
                            cuda_graphs=graphs, **layout)
@@ -1179,7 +1215,7 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        toks, stats = eng.generate(prompt, new_tokens)
+        toks, stats = eng.generate(prompt, n_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
@@ -1187,12 +1223,12 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
         memory_line(torch, card, label, eng, params, dparams, peak)
         decode_s = wall - stats["prefill_s"]
         say(card, f"generate [{label}] (32 layers, bf16, random "
-                  f"weights) prompt {prompt_len} new {new_tokens}: modes "
+                  f"weights) prompt {prompt_len} new {n_new}: modes "
                   f"{stats['modes']} steps {stats['steps']} mean_accept "
                   f"{stats['mean_accept']:.4f} wall_s {wall:.3f} (prefill_s "
                   f"{stats['prefill_s']:.3f} decode_s {decode_s:.3f}, ms/step "
                   f"{decode_s * 1e3 / max(stats['steps'], 1):.2f}) "
-                  f"tokens_per_s {new_tokens / wall:.2f} peak_mem_gib "
+                  f"tokens_per_s {n_new / wall:.2f} peak_mem_gib "
                   f"{peak:.2f} capture_s {eng.capture_s:.3f} graphs "
                   f"{sorted(map(str, eng._graphs))} launches {launches}")
         if not (stats["modes"].get("refresh")
@@ -1234,17 +1270,18 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
                                               eng.final_state.cache,
                                               spec.block_size)
         eng.final_state = None
-        if toks.shape != (1, new_tokens) or toks.min() < 0 \
+        if toks.shape != (1, n_new) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"tokens out of range: {toks}")
-        prof = profile_steps(torch, card, eng, prompt, label=label,
-                             kernel="retrieval_score_kernel", refresh=True,
-                             prefill_kernel="block_summary_kernel")
+        prof = {} if short else profile_steps(
+            torch, card, eng, prompt, label=label,
+            kernel="retrieval_score_kernel", refresh=True,
+            prefill_kernel="block_summary_kernel")
         if not graphs:
             check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
         runs[RUN_LABEL[graphs]] = dict(
             toks=toks, launches=launches, wall_s=wall,
-            tokens_per_s=new_tokens / wall, prefill_s=stats["prefill_s"],
+            tokens_per_s=n_new / wall, prefill_s=stats["prefill_s"],
             peak_gib=peak, capture_s=eng.capture_s, steps=stats["steps"],
             **prof)
         del eng
@@ -1282,26 +1319,32 @@ def memory_line(torch, card, label, eng, params, dparams, peak):
 
 
 def compare_runs(card, name, runs):
-    """Graphs against eager on one path: the tokens and launch counts must
-    be equal; the numbers of both runs side by side."""
+    """Graphs against eager on one path: the tokens (the graph run's first
+    ones when the eager run was shorter) and, for runs of one length, the
+    launch counts must be equal; the numbers of both runs side by side."""
     import numpy as np
     e, g = runs["eager"], runs["graphs"]
-    if not np.array_equal(e["toks"], g["toks"]):
+    n = e["toks"].shape[1]
+    if not np.array_equal(e["toks"], g["toks"][:, :n]):
         raise AssertionError(f"{name}: graph tokens differ from eager:\n"
                              f"{g['toks']}\n{e['toks']}")
-    if e["launches"] != g["launches"]:
+    same_len = n == g["toks"].shape[1]
+    if same_len and e["launches"] != g["launches"]:
         raise AssertionError(f"{name}: graph launch counts {g['launches']} "
                              f"!= eager {e['launches']}")
-    say(card, f"{name}: graph generate == eager generate over "
-              f"{e['toks'].shape[1]} tokens, launch counts equal")
+    say(card, f"{name}: graph generate == eager generate over {n} tokens"
+              + (", launch counts equal" if same_len else
+                 " (the eager run's first tokens; each run's launches held "
+                 "to its own steps)"))
     for key in ("wall_ms_step", "tokens_per_s", "prefill_s", "idle_share",
                 "idle_share_unprofiled", "busy_ms_step",
                 "device_launches_step", "host_launch_calls_step",
                 "host_ops_step", "prefill_device_launches_chunk",
                 "prefill_host_launch_calls_chunk", "prefill_busy_ms",
                 "prefill_wall_s", "peak_gib", "capture_s"):
-        say(card, f"{name} eager vs graphs: {key} {e[key]:.4f} -> "
-                  f"{g[key]:.4f}")
+        if key in e:
+            say(card, f"{name} eager vs graphs: {key} {e[key]:.4f} -> "
+                      f"{g[key]:.4f}")
 
 
 def check_sync_free(torch, card, eng, prompt):
@@ -2625,6 +2668,7 @@ PAGED_GATHERED = dict(paged=True, zero_copy=False)
 # phase 3's max_len (request_token_need(8192, 128, 96, 6)): not a multiple
 # of the 128-token block, so the contiguous rows past it are padding
 CONTIG_MAX_LEN = 8431
+CONTIG_EAGER_NEW = 32       # phase 8's eager generate: a Refresh, then Partial
 
 
 def _attn_work(q, vlen, t, causal_pairs=None):
@@ -3004,9 +3048,12 @@ def phase_default_engine(torch, card, timer, p3=None, p4=None, p6=None):
     shapes = _contiguous_kernel_checks(torch, card, timer)
     cfg, spec, dcfg, params, dparams, prompt = _llama_full_width(
         torch, card, "default engine")
+    # the eager run is cut to CONTIG_EAGER_NEW tokens and not profiled:
+    # phase 3 profiles the eager step on the paged layout, and the eager
+    # contiguous bodies still run under the sync check
     runs = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
                          prompt, NEW_TOKENS, DEFAULT_LAYOUT,
-                         "llama3.1-8b contiguous")
+                         "llama3.1-8b contiguous", eager_new=CONTIG_EAGER_NEW)
     g = runs["graphs"]
     if p3 is not None:
         same = int((g["toks"] == p3["toks"]).sum())
@@ -3031,6 +3078,9 @@ def phase_default_engine(torch, card, timer, p3=None, p4=None, p6=None):
 FUSED_BUDGET = 1024     # prefill tokens per tick: up to four 256-token rows
 # a ragged [4, 256] round at llama widths: (length, t_valid) per row
 FUSED_ROWS = ((7936, 256), (48, 16), (0, 200), (4000, 1))
+# phase 9 (c)'s short trace, served with graphs and eagerly: three prompts
+# arriving together (one 3-row round within the budget), 8 new tokens each
+FUSED_EAGER_REQS = ((1024, 8), (768, 8), (512, 8))
 
 
 def _fused_kernel_checks(torch, card, timer):
@@ -3438,14 +3488,22 @@ def phase_fused_prefill(torch, card, timer):
               f"no committed page or pin left ({ps})")
     del srv, eng
     torch.cuda.empty_cache()
-    # (c) the paged fused run eagerly: equal tokens and launch counts
-    srv = ServingEngine(cfg, spec, dcfg, params, dparams,
-                        ServingConfig(**paged), device="cuda",
-                        cuda_graphs=False)
-    eager, eng = _fused_serve(torch, card, srv,
-                              _serving_requests(prompts, SERVE_REQS),
-                              "paged fused eager")
-    g = runs["paged fused"]
+    # (c) the paged fused pump eagerly against graphs on a short trace
+    # (FUSED_EAGER_REQS: one 3-row round, then decode): equal tokens,
+    # launch counts and rounds
+    short = [p[:n] for p, (n, _) in zip(prompts, FUSED_EAGER_REQS)]
+    both = {}
+    for graphs in (True, False):
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams,
+                            ServingConfig(**paged), device="cuda",
+                            cuda_graphs=graphs)
+        both[graphs], eng = _fused_serve(
+            torch, card, srv, _serving_requests(short, FUSED_EAGER_REQS),
+            f"paged fused short trace {RUN_LABEL[graphs]}")
+        if graphs:
+            del srv, eng
+            torch.cuda.empty_cache()
+    g, eager = both[True], both[False]
     for rid in g["toks"]:
         if not np.array_equal(g["toks"][rid], eager["toks"][rid]):
             raise AssertionError(f"fused prefill {rid}: graph tokens differ "
@@ -3462,8 +3520,9 @@ def phase_fused_prefill(torch, card, timer):
         curs.append(c)
     st, _ = eng.prefill_step_fused(st, curs[:2])
     st, n = _eager_prefill_round(torch, eng, st, curs)
-    say(card, f"fused prefill: graph tokens == eager tokens for every "
-              f"request, launches and rounds equal; an eager 3-row round "
+    say(card, f"fused prefill, short trace: graph tokens == eager tokens "
+              f"for every request, launches and rounds {g['keys']} equal; "
+              f"an eager 3-row round "
               f"({[c.off for c in curs]} after it, {n} tokens, a short row "
               f"padded) ran under set_sync_debug_mode('error') without a "
               f"sync")
@@ -3478,16 +3537,518 @@ def phase_fused_prefill(torch, card, timer):
                 runs=runs, shared=shared, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training, and the paper's table 1 on a pair trained on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ = 2048        # cut from the paper's 32K YARN recipe (App. A)
+TRAIN_STEPS = 5         # timed, after one warm-up step
+TARGET_TRAIN_LAYERS = 4  # 32 layers' AdamW state (~96 GB) exceeds the card
+# The feature pass's kernel route differs from its plain route only in
+# the attention (K2) and the summaries (K4), so it is held to the plain
+# route where those run: at every layer, on the plain route's hidden
+# state entering it, K2's partials within TOL_KERNEL of the plain
+# attention's and K4's summaries bit-equal to the plain ones.  The bf16
+# outputs themselves are reported, not held: one-ulp flips of the bf16
+# attention output (K2's fp32 result is ~1e-5 from the plain one's, so
+# ~0.3% of them round the other way) spread through the layer's bf16
+# GEMMs, whose outputs then round the other way ever more often: up to
+# 3.3e-3 in relative norm for one layer and 1.3e-2 end to end on the
+# card, with random weights.
+
+
+def _train_kernel_checks(torch, card, timer):
+    """Phase 2, the call forms of this slice: K1 (Full T=11 and the AR's
+    T=1 over 400 tokens), K2 (the 128-token second chunk of a 384-token
+    prompt) and K3 (a Refresh, T=58 over 25 blocks) at the trained
+    tiny-dense pair's shapes (H=4, Hk=2, Dh=64, block 16) in fp32, the
+    pair's dtype, and bf16; K4's contiguous form at those shapes, bit for
+    bit; and K2 as a full-width training feature pass calls it, T=2048 at
+    qoff 0 over a 2048-token contiguous cache (llama3.1-8b, bf16).  Each
+    against its plain version at TOL_KERNEL, timed beside its bound and
+    SDPA.  Returns {kernel: {label: row}}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kvcache.cache import (init_contiguous_kv,
+                                           update_layer_summaries)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2048)
+    out = {"sparse_verify_attention": {}, "paged_prefill_attention": {},
+           "retrieval_score": {}, "block_summary": {}}
+
+    def rnd(dtype, *shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def contiguous(dtype, layers, max_len, hk, dh, bs):
+        k, v = init_contiguous_kv(layers, 1, max_len, bs, hk, dh, dtype,
+                                  "cuda")
+        k.copy_(rnd(dtype, *k.shape))
+        v.copy_(rnd(dtype, *v.shape))
+        return k, v
+
+    h, hk, dh, bs = 4, 2, 64, 16          # the trained tiny-dense pair's
+    ctx, max_len = 400, 576
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        peak = PEAK_FP32_S if dtype == torch.float32 else PEAK_BF16_S
+        k, v = contiguous(dtype, 1, max_len, hk, dh, bs)
+        k, v = k[0], v[0]
+        kf, rows = ops.flat_blocks(k)
+        vf, _ = ops.flat_blocks(v)
+        nb = rows // bs
+        kh, vh = k[:, :ctx].transpose(1, 2), v[:, :ctx].transpose(1, 2)
+        for t in (11, 1):
+            q = rnd(dtype, 1, t, h, dh)
+            length = torch.tensor([ctx], dtype=torch.int32, device="cuda")
+            idx, vlen = ops._identity_walk(1, hk, nb, length, max_len, bs)
+            label = (f"K1 contiguous Full T={t} ctx={ctx} H=4 Hk=2 Dh=64 "
+                     f"bs=16 {dn}")
+            out["sparse_verify_attention"][label] = _attn_row(
+                torch, card, timer, label,
+                lambda q=q, length=length: ops.contiguous_verify_attention(
+                    q, k, v, length, bs),
+                lambda q=q, idx=idx, vlen=vlen: ref.block_attention_batched(
+                    q, kf, vf, idx, vlen, bs),
+                *_attn_work(q, vlen, t),
+                lambda q=q: F.scaled_dot_product_attention(
+                    q.transpose(1, 2), kh, vh, enable_gqa=True), peak=peak)
+        t, qoff = 128, 256
+        q = rnd(dtype, 1, t, h, dh)
+        length = torch.tensor([qoff], dtype=torch.int32, device="cuda")
+        tv = torch.tensor([t], dtype=torch.int32, device="cuda")
+        idx, vlen = ops._identity_walk(1, hk, nb, length + tv, max_len, bs)
+        kpos = torch.arange(qoff + t, device="cuda")
+        cmask = kpos[None] <= (qoff + torch.arange(t, device="cuda"))[:, None]
+        label = f"K2 contiguous T={t} qoff={qoff} H=4 Hk=2 Dh=64 bs=16 {dn}"
+        out["paged_prefill_attention"][label] = _attn_row(
+            torch, card, timer, label,
+            lambda: ops.block_attention(q, kf, vf, idx, vlen, bs,
+                                        q_offset=length),
+            lambda: ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                                q_offset=length),
+            *_attn_work(q, vlen, t, causal_pairs=int(cmask.sum()) * h),
+            lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k[:, : qoff + t].transpose(1, 2),
+                v[:, : qoff + t].transpose(1, 2), attn_mask=cmask,
+                enable_gqa=True), peak=peak)
+        # K3: a Refresh of the tiny path (pending + tree rows) over 25
+        # blocks, two query heads per KV head
+        t, nbs = 58, 25
+        q, kmax, kmin, qw = _score_inputs(torch, gen, t, nbs, dtype, h=h,
+                                          hk=hk, dh=dh)
+        got = ops.retrieval_scores(q, kmax, kmin, qw)
+        again = ops.retrieval_scores(q, kmax, kmin, qw)
+        want = ref.retrieval_score_batched(q, kmax, kmin, qw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K3 Dh=64 {dn}: two calls differ")
+        _close(f"K3 Dh=64 {dn}", got, want)
+        before = dict(ops.LAUNCHES)
+        ms = timer.kernel_ms(lambda: ops.retrieval_scores(q, kmax, kmin, qw),
+                             "retrieval_score_kernel")
+        if timer.per_call != 1:
+            raise AssertionError(f"K3: {timer.per_call} launches per call")
+        ops.LAUNCHES.update(before)
+        plain_ms = timer(lambda: ref.retrieval_score_batched(q, kmax, kmin,
+                                                             qw),
+                         iters=3, warmup=1)
+        nbytes = (q.numel() * q.element_size() + 2 * kmax.numel() * 4
+                  + t * 4 + hk * nbs * 4)
+        bound, by = _bound_ms(nbytes, 2 * 2 * dh * (h // hk) * t * hk * nbs,
+                              PEAK_FP32_S)
+        err = (got - want).abs().max().item()
+        label = f"K3 Refresh T={t} NB={nbs} H=4 Hk=2 Dh=64 {dn}"
+        say(card, f"kernel {label}: max_abs_err {err:.3e} (tol {TOL_KERNEL} "
+                  f"of max |plain|; two calls bit-equal) ms {ms:.4f} "
+                  f"({timer.source}) plain_ms {plain_ms:.4f} bound_us "
+                  f"{bound * 1e3:.3f} ({by}) library_ms none")
+        out["retrieval_score"][label] = dict(
+            max_abs_err=err, ms=ms, timing=timer.source, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=None)
+        # K4: the tiny pair's 4 layers, the 384-token prompt's second chunk
+        layers = 4
+        k4, _ = contiguous(dtype, layers, max_len, hk, dh, bs)
+        nb4 = -(-max_len // bs)
+        st = torch.tensor([256], dtype=torch.int32, device="cuda")
+        en = torch.tensor([384], dtype=torch.int32, device="cuda")
+        got4 = torch.zeros((2, layers, 1, nb4, hk, dh), device="cuda")
+        ops.contiguous_block_summaries(k4, st, en, 9, got4[0], got4[1], bs)
+        z = torch.zeros((1, nb4, hk, dh), device="cuda")
+        for i in range(layers):
+            wx, wn = update_layer_summaries(z, z, k4[i], st, en, bs)
+            if not (torch.equal(got4[0, i], wx)
+                    and torch.equal(got4[1, i], wn)):
+                raise AssertionError(f"K4 Dh=64 bs=16 {dn}: layer {i} "
+                                     f"differs from the plain version")
+        before = dict(ops.LAUNCHES)
+        ms = timer.kernel_ms(lambda: ops.contiguous_block_summaries(
+            k4, st, en, 9, got4[0], got4[1], bs), "block_summary_kernel")
+        ops.LAUNCHES.update(before)
+        plain_ms = timer(lambda: [update_layer_summaries(z, z, k4[i], st, en,
+                                                         bs)
+                                  for i in range(layers)], iters=3, warmup=1)
+        kb = ops.flat_blocks(k4)[0].view(layers * nb4, bs, hk, dh)
+        blocks = (torch.arange(layers, device="cuda")[:, None] * nb4
+                  + torch.arange(16, 24, device="cuda")[None]).reshape(-1)
+        lib_ms = timer(lambda: torch.aminmax(kb[blocks], dim=1))
+        n_tok = layers * 128
+        bound, by = _bound_ms(n_tok * hk * dh * k4.element_size()
+                              + 2 * layers * 8 * hk * dh * 4 + 8,
+                              2 * n_tok * hk * dh, PEAK_FP32_S)
+        label = f"K4 contiguous [256, 384) L=4 Hk=2 Dh=64 bs=16 {dn}"
+        say(card, f"kernel {label}: bit-equal to the plain per-layer "
+                  f"version; ms {ms:.4f} ({timer.source}) plain_ms "
+                  f"{plain_ms:.4f} bound_us {bound * 1e3:.3f} ({by}) "
+                  f"library_ms {lib_ms:.4f} (torch.aminmax)")
+        out["block_summary"][label] = dict(
+            max_abs_err=0.0, ms=ms, timing=timer.source, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        del k, v, kf, vf, k4
+    # K2 as the full-width feature pass calls it: the whole sequence
+    bf = torch.bfloat16
+    k, v = contiguous(bf, 1, TRAIN_SEQ, 8, 128, 128)
+    k, v = k[0], v[0]
+    kf, rows = ops.flat_blocks(k)
+    vf, _ = ops.flat_blocks(v)
+    t = TRAIN_SEQ
+    q = rnd(bf, 1, t, 32, 128)
+    length = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    tv = torch.tensor([t], dtype=torch.int32, device="cuda")
+    idx, vlen = ops._identity_walk(1, 8, rows // 128, length + tv, t, 128)
+    cmask = torch.ones((t, t), dtype=torch.bool, device="cuda").tril()
+    label = f"K2 contiguous T={t} qoff=0 (training feature pass, llama)"
+    out["paged_prefill_attention"][label] = _attn_row(
+        torch, card, timer, label,
+        lambda: ops.block_attention(q, kf, vf, idx, vlen, 128,
+                                    q_offset=length),
+        lambda: ref.block_attention_batched(q, kf, vf, idx, vlen, 128,
+                                            q_offset=length),
+        *_attn_work(q, vlen, t, causal_pairs=int(cmask.sum()) * 32),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True))
+    del k, v, kf, vf, q
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_steps(torch, card, label, data, pieces, steps=TRAIN_STEPS):
+    """One warm-up step, then ``steps`` timed: each step runs ``pieces``
+    (name, fn(tokens, carried) -> carried) in order between CUDA events.
+    Returns the per-piece and whole-step device ms (means over the timed
+    steps), the losses of every step and the peak memory."""
+    import math
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    per = {name: [] for name, _ in pieces}
+    losses = []
+    for i in range(steps + 1):
+        tokens = next(data)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(pieces) + 1)]
+        ev[0].record()
+        carried = None
+        for j, (name, fn) in enumerate(pieces):
+            carried = fn(tokens, carried)
+            ev[j + 1].record()
+        torch.cuda.synchronize()
+        losses.append(float(carried["loss"]))
+        if i:
+            for j, (name, _) in enumerate(pieces):
+                per[name].append(ev[j].elapsed_time(ev[j + 1]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses not finite: {losses}")
+    ms = {name: sum(v) / len(v) for name, v in per.items()}
+    return dict(ms=ms, step_ms=sum(ms.values()), losses=losses,
+                peak_gib=peak)
+
+
+def _feature_layers_vs_plain(torch, cfg, params, tokens):
+    """Every layer of the feature pass (a prefill of the whole sequence
+    into a fresh contiguous cache), from the plain route's hidden state
+    entering it: K2 over the layer's q, k and v against the plain
+    attention at TOL_KERNEL (m, l, acc, the output; raises otherwise),
+    then the layer on both routes, whose K4 summaries must be bit-equal
+    to the plain ones.  Returns (K2's largest relative error, each
+    layer's bf16 output relative norm error)."""
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kvcache.cache import init_contiguous_kv
+    from repro_torch.models import api
+    from repro_torch.models import blocks as bk
+    from repro_torch.models import common as cm
+    from repro_torch.models import dense as dn
+    one = cfg.replace(num_layers=1)
+    b, s = tokens.shape
+    bs, hk, dh = 128, cfg.num_kv_heads, cfg.head_dim_
+    positions = torch.arange(s, device="cuda", dtype=torch.int32)[None]
+    inv_freq = cm.rope_inv_freq_tensor(cfg, tokens.device)
+    mscale = cm.yarn_mscale(cfg)
+    length = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    tv = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    k2_err, errs = 0.0, []
+    with torch.no_grad():
+        h = dn.embed_tokens(cfg, params, tokens)
+        for i, lp in enumerate(params["layers"]):
+            x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
+            q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq,
+                             mscale)
+            k, v = bk.project_kv(cfg, lp["attn"], x, positions, inv_freq,
+                                 mscale)
+            kc, vc = init_contiguous_kv(1, b, s, bs, hk, dh, k.dtype, "cuda")
+            kc[0].copy_(k)
+            vc[0].copy_(v)
+            kf, rows = ops.flat_blocks(kc[0])
+            vf, _ = ops.flat_blocks(vc[0])
+            idx, vlen = ops._identity_walk(b, hk, rows // bs, length + tv, s,
+                                           bs)
+            got = ops.block_attention(q, kf, vf, idx, vlen, bs,
+                                      q_offset=length)
+            want = ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                               q_offset=length)
+            out_g = got[2] / got[1].clamp(min=1e-30)[..., None]
+            out_w = want[2] / want[1].clamp(min=1e-30)[..., None]
+            k2_err = max(k2_err, *(_close(f"feature pass layer {i} K2 {nm}",
+                                          g, w) for nm, g, w in (
+                ("m", got[0], want[0]), ("l", got[1], want[1]),
+                ("acc", got[2], want[2]), ("out", out_g, out_w))))
+            outs, sums = [], []
+            for plain in (True, False):
+                cache = api.init_cache(one, b, s, None, device="cuda")
+                outs.append(dn.trunk_fwd(
+                    one, [lp], h, positions, mode="prefill", cache=cache,
+                    spec=SpecPVConfig(), plain=plain,
+                    collect_features=False).h.float())
+                sums.append((cache["kmax"], cache["kmin"]))
+            if not (torch.equal(sums[0][0], sums[1][0])
+                    and torch.equal(sums[0][1], sums[1][1])):
+                raise AssertionError(f"feature pass layer {i}: K4's "
+                                     f"summaries differ from the plain ones")
+            errs.append((torch.linalg.vector_norm(outs[1] - outs[0])
+                         / torch.linalg.vector_norm(outs[0])).item())
+            h = outs[0].to(h.dtype)
+    return k2_err, errs
+
+
+def _train_draft_full_width(torch, card):
+    """(a) The EAGLE-3 draft trained at full width against the frozen
+    32-layer llama3.1-8b target (bf16, random weights from seed 0), the
+    paper's ``DraftConfig()`` (TTT steps 4), batch 1, S = TRAIN_SEQ."""
+    from repro_torch.artifacts import corpus_for
+    from repro_torch.configs import DraftConfig, get_config
+    from repro_torch.data import batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.train.draft_train import DraftTrainConfig, DraftTrainer
+    from repro_torch.train.optimizer import tree_leaves
+    cfg, dcfg = get_config("llama3.1-8b"), DraftConfig()
+    params = api.init_params(cfg, seed=0, device="cuda")
+    dtr = DraftTrainer(cfg, dcfg, params, DraftTrainConfig(
+        total_steps=TRAIN_STEPS + 1, warmup=1, log_every=1), seed=1,
+        device="cuda")
+    batches = batch_iterator(corpus_for(cfg), batch=1, seq_len=TRAIN_SEQ)
+    data = (torch.as_tensor(b[:, :-1], device="cuda") for b in batches)
+    feat_launches = []
+
+    def feats(tokens, _):
+        before = ops.launch_counts()
+        f = dtr.features(tokens)
+        feat_launches.append(ops.launch_count_delta(
+            before, ops.launch_counts())[0])
+        return dict(tokens=tokens, feats=f)
+
+    def loss(tokens, c):
+        c["loss"], c["metrics"] = dtr.loss_and_grads(tokens, c["feats"])
+        return c
+
+    def update(tokens, c):
+        c["update"] = dtr.update()
+        return c
+    res = _train_steps(torch, card, "draft training",
+                       data, [("feature pass", feats),
+                              ("TTT loss + backward", loss),
+                              ("clip + AdamW", update)])
+    want = {"paged_prefill_attention": cfg.num_layers, "block_summary": 1}
+    if any(fl != want for fl in feat_launches):
+        raise AssertionError(f"feature pass launches {feat_launches} != "
+                             f"{want} per pass")
+    # the feature pass against the plain route; the launches of the
+    # comparison are not the path's
+    counts = ops.launch_counts()
+    tokens = torch.as_tensor(next(batches)[:, :-1], device="cuda")
+    k2_err, layer_err = _feature_layers_vs_plain(torch, cfg,
+                                                 dtr.target_params, tokens)
+    got = dtr.features(tokens).float()
+    with torch.no_grad():
+        cache = api.init_cache(cfg, 1, TRAIN_SEQ, None, device="cuda")
+        _, f, _ = api.prefill(cfg, dtr.target_params, tokens, cache,
+                              plain=True)
+        want_f = f.fused_input().float()
+    ops.set_launch_counts(counts)
+    rel = (torch.linalg.vector_norm(got - want_f)
+           / torch.linalg.vector_norm(want_f)).item()
+    rel_max = ((got - want_f).abs().max() / want_f.abs().max()).item()
+    n_draft = sum(p.numel() for p in tree_leaves(dtr.dparams))
+    say(card, f"train (a) draft at full width: llama3.1-8b target 32 layers "
+              f"bf16 frozen, DraftConfig() ttt_steps {dcfg.ttt_steps}, "
+              f"{n_draft / 1e6:.1f} M draft params, batch 1, S {TRAIN_SEQ} "
+              f"(cut from the paper's 32K): ms/step {res['step_ms']:.2f} = "
+              + " + ".join(f"{k} {v:.2f}" for k, v in res["ms"].items())
+              + f" (CUDA events, mean of {TRAIN_STEPS} after 1 warm-up) "
+              f"peak_mem_gib {res['peak_gib']:.2f} losses "
+              f"{[round(x, 4) for x in res['losses']]} feature pass "
+              f"launches {feat_launches[0]} per pass; at each of the "
+              f"{cfg.num_layers} layers, on the plain route's input: K2's "
+              f"partials within max rel err {k2_err:.3e} of the plain "
+              f"attention's (tol {TOL_KERNEL}), K4's summaries bit-equal; "
+              f"not held: a layer's bf16 output against the plain route's "
+              f"relative norm error at most {max(layer_err):.3e} (mean "
+              f"{sum(layer_err) / len(layer_err):.3e}), the whole pass's "
+              f"features {rel:.3e} (largest element {rel_max:.3e} of the "
+              f"largest magnitude)")
+    del dtr, params
+    torch.cuda.empty_cache()
+    return dict(res, feature_launches=feat_launches[0],
+                feature_k2_err=k2_err, feature_layer_err=max(layer_err),
+                feature_rel_err=rel,
+                feature_max_rel_err=rel_max,
+                draft_params=n_draft, seq=TRAIN_SEQ, ttt_steps=dcfg.ttt_steps)
+
+
+def _train_target_cut(torch, card):
+    """(b) Target training at llama3.1-8b width, depth cut to
+    TARGET_TRAIN_LAYERS, batch 1, S = TRAIN_SEQ."""
+    from repro_torch.artifacts import corpus_for
+    from repro_torch.configs import get_config
+    from repro_torch.data import batch_iterator
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = get_config("llama3.1-8b").replace(num_layers=TARGET_TRAIN_LAYERS)
+    tr = Trainer(cfg, TrainConfig(total_steps=TRAIN_STEPS + 1, warmup=1,
+                                  log_every=1), seed=0, device="cuda")
+    batches = batch_iterator(corpus_for(cfg), batch=1, seq_len=TRAIN_SEQ)
+    data = (torch.as_tensor(b, device="cuda") for b in batches)
+
+    def loss(tokens, _):
+        out, _m = tr.loss_and_grads(tokens)
+        return dict(loss=out)
+
+    def update(tokens, c):
+        c["update"] = tr.update()
+        return c
+    res = _train_steps(torch, card, "target training", data,
+                       [("forward + backward", loss),
+                        ("clip + AdamW", update)])
+    n = sum(p.numel() for p in tree_leaves(tr.params))
+    say(card, f"train (b) target at llama3.1-8b width, {TARGET_TRAIN_LAYERS} "
+              f"of 32 layers (AdamW state of 32 does not fit), "
+              f"{n / 1e9:.3f} B params bf16, remat per layer, batch 1, S "
+              f"{TRAIN_SEQ}: ms/step {res['step_ms']:.2f} = "
+              + " + ".join(f"{k} {v:.2f}" for k, v in res["ms"].items())
+              + f" (CUDA events, mean of {TRAIN_STEPS} after 1 warm-up) "
+              f"peak_mem_gib {res['peak_gib']:.2f} losses "
+              f"{[round(x, 4) for x in res['losses']]}")
+    del tr
+    torch.cuda.empty_cache()
+    return dict(res, params=n, layers=TARGET_TRAIN_LAYERS)
+
+
+def _load_script(rel):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        os.path.splitext(os.path.basename(rel))[0], os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _table1_on_card(torch, card):
+    """(c) The paper's metric on a pair trained on the card: the reference
+    recipe (``get_trained_pair("tiny-dense")``, fp32, trained afresh),
+    then the table-1 twin with ``--quick`` (contexts 192 and 384,
+    EAGLE3-full, SpecPV-64 and SpecPV-128, 32 new tokens, graphs on)."""
+    from repro_torch.artifacts import get_trained_pair
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    get_trained_pair("tiny-dense", force=True, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    hashseed = os.environ.get("PYTHONHASHSEED", "unset")
+    say(card, f"train (c) tiny-dense pair, the reference recipe (target 200 "
+              f"steps, draft 150, batch 8, seq 128, fp32) on the card: "
+              f"{train_s:.1f} s wall (corpus batches made on the host "
+              f"included); PYTHONHASHSEED {hashseed}")
+    t0 = time.perf_counter()
+    res = _load_script("benchmarks/bench_table1_speedup_torch.py").main(
+        ["--quick", "--device", "cuda"])
+    twin_s = time.perf_counter() - t0
+    if not all(res["ar_equal"].values()):
+        raise AssertionError(f"compiled AR != plain AR oracle: "
+                             f"{res['ar_equal']}")
+    for d in res["details"]:
+        say(card, f"table1 context {d['context']} {d['method']}: alpha_wall "
+                  f"{d['alpha_wall']:.4f} fwd_reduction "
+                  f"{d['fwd_reduction']:.4f} tau {d['tau']:.4f} agree "
+                  f"{d['agree']:.4f} (ms {d['seconds'] * 1e3:.2f} against "
+                  f"compiled AR {d['ar_seconds'] * 1e3:.2f}) modes "
+                  f"{d['modes']}; PYTHONHASHSEED {hashseed}")
+        if d["method"] == "EAGLE3-full" and not d["lossless"]:
+            raise AssertionError(f"EAGLE3-full != AR at context "
+                                 f"{d['context']} (fp32)")
+        if d["method"] != "EAGLE3-full" and not d["tau"] > 1.0:
+            raise AssertionError(f"{d['method']} at context {d['context']}: "
+                                 f"mean_accept {d['tau']} <= 1")
+    say(card, f"table1 twin --quick took {twin_s:.1f} s: compiled AR == "
+              f"plain AR oracle {res['ar_equal']}, EAGLE3-full == AR, "
+              f"mean_accept > 1 in every SpecPV row")
+    return dict(train_s=train_s, twin_s=twin_s, details=res["details"],
+                hashseed=hashseed)
+
+
+def phase_train(torch, card):
+    """Phase 10: (a) draft training at full width, (b) target training at
+    full width and 4 layers, (c) the reference recipe's pair trained on
+    the card and the table-1 twin over it."""
+    import gc
+    from repro_torch.kernels import ops
+    # earlier phases' engines hold their CUDA graphs' pools through
+    # reference cycles (bodies that close over the engine) until the
+    # cyclic collector runs; training at full width needs that memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(card, f"phase 10 starts with "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    a = _train_draft_full_width(torch, card)
+    b = _train_target_cut(torch, card)
+    c = _table1_on_card(torch, card)
+    launches = dict(ops.LAUNCHES)
+    for k in LLAMA_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched in phase 10")
+    secs = time.perf_counter() - t0
+    say(card, f"phase 10 launches (feature passes, the pair's draft "
+              f"training, the table-1 twin) {launches}; phase 10 took "
+              f"{secs:.1f} s")
+    return dict(draft=a, target=b, table1=c, launches=launches,
+                seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
                          "(llama serving with shared prefixes), 8 (the "
                          "reference's default engine: contiguous cache, "
                          "gathered partial cache), 9 (the fused multi-row "
-                         "prefill); 1 and 10 always run")
+                         "prefill), 10 (training and the paper's table 1); "
+                         "1 and 11 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -3519,6 +4080,8 @@ def main(argv=None) -> int:
 
     timer = Timer(torch)
     kres = phase_kernels(torch, card, timer) if 2 in phases else {}
+    p2t = {"shapes": (_train_kernel_checks(torch, card, timer)
+                      if 2 in phases else {})}
     p3 = phase_generate(torch, card) if 3 in phases else None
     llama = p3["launches"] if p3 else {k: 0 for k in ops.KERNELS}
     p4 = phase_lossless(torch, card) if 4 in phases else None
@@ -3535,6 +4098,7 @@ def main(argv=None) -> int:
     p9 = (phase_fused_prefill(torch, card, timer) if 9 in phases
           else {"launches": {}, "contiguous_launches": {},
                 "prefix_launches": {}, "shapes": {}})
+    p10 = phase_train(torch, card) if 10 in phases else None
 
     rows = []
     for name in ops.KERNELS:
@@ -3556,6 +4120,9 @@ def main(argv=None) -> int:
                              p9["contiguous_launches"].get(name, 0)),
                          fused_prefix_serving_launches=int(
                              p9["prefix_launches"].get(name, 0)),
+                         training_launches=int(
+                             (p10 or {"launches": {}})["launches"].get(
+                                 name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -3574,11 +4141,13 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
-        # phases 8 and 9's call forms (launches counted per kernel above)
-        for p in (p8, p9):
+        # phases 8, 9 and 10's call forms (launches counted per kernel above)
+        for p in (p8, p9, p2t):
             for label, vals in p["shapes"].get(name, {}).items():
                 rows[-1].setdefault("shapes", []).append(dict(shape=label,
                                                               **vals))
+    if p10 is not None:
+        say(card, "training " + json.dumps(p10))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,15 @@
-"""Parameter conversion from the JAX package's trees to the port's dicts,
-so both packages compute the same thing from the same weights.
+"""Parameter conversion between the JAX package's trees and the port's
+dicts, so both packages compute the same thing from the same weights.
 
 The input is the nested dicts of numpy arrays that
 ``jax.tree_util.tree_map(np.asarray, params)`` gives.  The reference
 stores dense layers stacked along a leading axis under
 ``decoder/slots[0]`` and RWKV-6 layers under ``layers``; that axis is
-split into the port's per-layer list.
+split into the port's per-layer list.  ``params_to_numpy`` and
+``draft_params_to_numpy`` go back, re-stacking the layers, so a tree of
+the port can be compared leaf for leaf with the reference's (and saved
+in its checkpoint layout); bf16 leaves are widened to fp32, which is
+exact, since numpy has no bf16 of its own.
 """
 from __future__ import annotations
 
@@ -66,3 +70,44 @@ def draft_params_from_numpy(cfg: ModelConfig, tree: Dict[str, Any],
     """Reference draft params (``init_draft_params``, numpy leaves) ->
     the port's draft params (the same nesting)."""
     return _map(tree, resolve_device(device))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return _numpy(tree)
+
+
+def params_to_numpy(cfg: ModelConfig, params: Dict[str, Any]
+                    ) -> Dict[str, Any]:
+    """The port's target params -> the reference's tree (numpy leaves):
+    the per-layer list stacked along a leading axis, under
+    ``decoder/slots[0]`` (``rem`` empty) for dense stacks and under
+    ``layers`` for RWKV-6.  The inverse of ``params_from_numpy``."""
+    layers = params["layers"]
+
+    def stack(nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return np.stack([_numpy(n) for n in nodes])
+
+    stacked = stack(layers)
+    out = {k: _numpy(v) for k, v in params.items() if k != "layers"}
+    if cfg.arch_type == "ssm":
+        out["layers"] = stacked
+    else:
+        out["decoder"] = {"slots": [stacked], "rem": []}
+    return out
+
+
+def draft_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's draft params -> the reference's tree (numpy leaves, the
+    same nesting).  The inverse of ``draft_params_from_numpy``."""
+    return _to_numpy(params)

@@ -241,6 +241,38 @@ class CapturedGraph:
         ops.add_launch_counts(self.launches, self.wkv_shapes)
 
 
+def capture_graph(body, device, static: List[torch.Tensor],
+                  pool) -> CapturedGraph:
+    """Capture ``body`` as a CUDA graph in the memory pool ``pool``.  A
+    warm-up run on a side stream comes first (lazy library and workspace
+    set-up must not happen under capture); it writes the state in place,
+    so the ``static`` tensors are copied before and restored after it,
+    and the first replay is the real call.  State left out of ``static``
+    must be state the body rewrites before reading it.  The kernel
+    launches counted during the capture are recorded for the replays, and
+    neither the warm-up's nor the capture's count.  Any error raises."""
+    from repro_torch.kernels import build
+    build.load_library()
+    counts = ops.launch_counts()
+    cur = torch.cuda.current_stream(device)
+    saved = [(t, t.clone()) for t in static]
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        body()
+    cur.wait_stream(side)
+    for t, copy in saved:
+        t.copy_(copy)
+    del saved
+    graph = torch.cuda.CUDAGraph()
+    before = ops.launch_counts()
+    with torch.cuda.graph(graph, pool=pool):
+        body()
+    delta = ops.launch_count_delta(before, ops.launch_counts())
+    ops.set_launch_counts(counts)
+    return CapturedGraph(graph, *delta)
+
+
 class SpecPVEngine:
     def __init__(self, cfg: ModelConfig, spec: SpecPVConfig,
                  dcfg: DraftConfig, params, draft_params, *,
@@ -1500,42 +1532,20 @@ class SpecPVEngine:
         g.replay()
 
     def _capture(self, body) -> "CapturedGraph":
-        """Capture ``body`` as a CUDA graph.  A warm-up run on a side
-        stream comes first (lazy library and workspace set-up must not
-        happen under capture); it writes the state in place, so a copy
-        taken before restores it and the first replay is the real step.
-        The K/V pools are left out of the copy: a body writes them only
-        at its rows' next positions (``[length, length + W)`` of the
-        trunk or draft cache, W fixed by the body's shapes), every one of
-        which the real step writes again before anything reads it, and
-        reads past ``length`` are masked.  The kernel launches counted
-        during the capture are recorded for the replays, and neither the
-        warm-up's nor the capture's count.  Any error raises."""
-        from repro_torch.kernels import build
-        build.load_library()
-        counts = ops.launch_counts()
-        cur = torch.cuda.current_stream(self.device)
-        saved = [(t, t.clone()) for t in self._static_tensors(pools=False)]
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            body()
-        cur.wait_stream(side)
-        for t, copy in saved:
-            t.copy_(copy)
-        del saved
+        """Capture ``body`` as a CUDA graph (``capture_graph``).  The K/V
+        pools are left out of the state it restores after the warm-up: a
+        body writes them only at its rows' next positions (``[length,
+        length + W)`` of the trunk or draft cache, W fixed by the body's
+        shapes), every one of which the real step writes again before
+        anything reads it, and reads past ``length`` are masked."""
         if self._graph_pool is None:
             # one pool for the engine's graphs: each body leaves its
             # results in the static buffers, so no tensor of the pool is
             # read after its own replay ends, and replays never overlap
             self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        before = ops.launch_counts()
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            body()
-        delta = ops.launch_count_delta(before, ops.launch_counts())
-        ops.set_launch_counts(counts)
-        return CapturedGraph(graph, *delta)
+        return capture_graph(body, self.device,
+                             self._static_tensors(pools=False),
+                             self._graph_pool)
 
     def _fused_body(self, has_full: bool, has_partial: bool,
                     has_refresh: bool) -> None:

@@ -71,10 +71,18 @@
 // split's merge is a serial tail of ~10 us at the routed shape.
 //
 // fp32: CUDA cores (block_attention_kernel), for the fp32 losslessness runs
-// only (TF32 would meet neither the 1e-4 check nor fp32 losslessness).  One
-// CTA of 4 warps per (32 query rows, KV head, row); tiles of 32 keys in
-// shared memory as fp32, q pre-scaled by 1/sqrt(Dh) in fp32 as the plain
-// version does; lane i scores key i, each lane owns 4 dims of acc.
+// and fp32 models (TF32 would meet neither the 1e-4 check nor fp32
+// losslessness).  One CTA of 4 warps per (32 query rows, KV head, row);
+// tiles of 32 keys in shared memory as fp32, q pre-scaled by 1/sqrt(Dh) in
+// fp32 as the plain version does; lane i scores key i, each lane owns Dh/32
+// dims of acc.
+//
+// Head dims.  Both routes are templated on Dh and built for 64 (the
+// trained tiny-dense pair: H=4, Hk=2) and 128 (llama3.1-8b, qwen3-8b).  A
+// tile never spans two blocks: with blocks shorter than the tile (block 16
+// under 64-key or 32-key tiles) each tile holds one block's keys and the
+// rest of it is zero-filled and masked, so a block of 16 costs a whole
+// tile of math.  Correct, not fast: those shapes are tiny.
 //
 // The kernels allocate nothing and launch on the caller's stream.
 #include <cuda_runtime.h>
@@ -84,7 +92,6 @@
 namespace {
 
 constexpr float kNeg = -1e30f;
-constexpr int kDh = 128;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -94,13 +101,27 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 16 * kWarps;        // query rows per CTA
 constexpr int kKeys = 64;                 // keys per tile
-constexpr int kLd = kDh + 8;              // padded smem row (272 bytes)
-constexpr int kTile = kKeys * kLd;        // elements of one K or V tile
 constexpr int kStages = 3;           // tiles in flight: kStages - 1
 constexpr int kMaxSplits = 64;  // the merge's 2 x kRows x S floats fit the ring
 constexpr int kMaxSel = 16384;  // blocks per list: 2M tokens at block 128
-constexpr int kCopies = kKeys * kDh / 8 / kThreads;   // 16-byte copies
-static_assert(kRows * kDh / 8 / kThreads == kCopies, "q tile = key tile");
+
+// The sizes that follow from the head dim DH (64 or 128).
+template <int DH>
+struct Shape {
+  static constexpr int kLd = DH + 8;      // padded smem row (272 / 144 B)
+  static constexpr int kTile = kKeys * kLd;  // elements of a K or V tile
+  static constexpr int kChunks = DH / 8;  // 16-byte chunks per row
+  static constexpr int kCopies = kKeys * kChunks / kThreads;  // per thread
+  static constexpr int kK16 = DH / 16;    // k-steps of Q K^T, n-pairs of P V
+  static constexpr int kN8 = DH / 8;      // accumulator fragments per row
+  static_assert(kRows * kChunks / kThreads == kCopies, "q tile = key tile");
+  static_assert(kKeys * kChunks % kThreads == 0, "whole copies");
+  static_assert(kK16 % 2 == 0, "the last P V step (odd) reads bb[1]");
+  static_assert(kRows * kLd <= kTile, "Q fits a K tile");
+  // the merge's 2 x kRows x kMaxSplits floats fit the K/V ring
+  static_assert(2 * kRows * kMaxSplits * 4 <= 2 * kStages * kTile * 2,
+                "merge scratch fits the ring");
+};
 
 using bf16 = __nv_bfloat16;
 
@@ -122,8 +143,10 @@ struct Args {
   float scale;
 };
 
+template <int DH>
 size_t mma_smem_bytes(int nsel) {
-  return sizeof(bf16) * 2 * kStages * kTile + sizeof(int) * (size_t)nsel;
+  return sizeof(bf16) * 2 * kStages * Shape<DH>::kTile +
+         sizeof(int) * (size_t)nsel;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -199,16 +222,19 @@ __device__ __forceinline__ int causal_tile(int k, int ntiles, int t,
   return ntiles - 1 - k;
 }
 
-template <bool CAUSAL>
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(kThreads, 2)
 block_attention_mma_kernel(const Args a) {
+  using S = Shape<DH>;
+  constexpr int kDh = DH, kLd = S::kLd, kTile = S::kTile;
+  constexpr int kChunks = S::kChunks, kCopies = S::kCopies;
+  constexpr int kK16 = S::kK16, kN8 = S::kN8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* skv = reinterpret_cast<bf16*>(smem);         // stage s: K, V tiles
   int* list = reinterpret_cast<int*>(skv + 2 * kStages * kTile);
   // Q [kRows][kLd] sits in the last stage's K slot until its fragments
   // are in registers
   bf16* sq = skv + 2 * (kStages - 1) * kTile;
-  static_assert(kRows * kLd <= kTile, "Q fits a K tile");
   __shared__ int s_warp[kWarps];
   __shared__ int s_last;
 
@@ -273,7 +299,7 @@ block_attention_mma_kernel(const Args a) {
   auto load_q = [&]() {
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
-      const int e = i * kThreads + tid, r = e >> 4, ch = e & 15;
+      const int e = i * kThreads + tid, r = e / kChunks, ch = e % kChunks;
       const int rg = row0 + r;
       const bool ok = rg < nrows;
       const size_t off =
@@ -294,7 +320,7 @@ block_attention_mma_kernel(const Args a) {
     bf16* dv = dk + kTile;
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
-      const int e = i * kThreads + tid, r = e >> 4, ch = e & 15;
+      const int e = i * kThreads + tid, r = e / kChunks, ch = e % kChunks;
       const bool ok = s0 + r < nk;
       const size_t off = base + (ok ? s0 + r : 0) * key_stride + ch * 8;
       cp_async16(dk + r * kLd + ch * 8, a.k + off, ok);
@@ -312,12 +338,12 @@ block_attention_mma_kernel(const Args a) {
   // logits are kept in base 2 (scaled by log2 e) until they are written
   const float scale2 = a.scale * 1.4426950408889634f;
   float m_r[2] = {kNeg, kNeg}, l_r[2] = {0.f, 0.f};
-  float o[16][4];
+  float o[kN8][4];
 #pragma unroll
-  for (int d = 0; d < 16; ++d)
+  for (int d = 0; d < kN8; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[d][e] = 0.f;
-  uint32_t qf[8][4];
+  uint32_t qf[kK16][4];
 
   // tile cursor: the next tile of the list after (li, s0)
   auto next_tile = [&](int& li_, int& s0_) {
@@ -344,7 +370,7 @@ block_attention_mma_kernel(const Args a) {
     __syncthreads();                  // ... for all; the last one is consumed
     if (it == 0) {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < kK16; ++kk)
         ldsm_x4(qf[kk], sq + (16 * warp + (lane & 15)) * kLd + kk * 16 +
                             (lane >> 4) * 8);
       __syncthreads();                // Q is read before its slot refills
@@ -362,7 +388,7 @@ block_attention_mma_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < kK16; ++kk) {
 #pragma unroll
       for (int np = 0; np < 4; ++np) {
         uint32_t bb[4];
@@ -414,7 +440,7 @@ block_attention_mma_kernel(const Args a) {
       }
     }
 #pragma unroll
-    for (int d = 0; d < 16; ++d) {
+    for (int d = 0; d < kN8; ++d) {
       o[d][0] *= corr[0];
       o[d][1] *= corr[0];
       o[d][2] *= corr[1];
@@ -433,7 +459,7 @@ block_attention_mma_kernel(const Args a) {
       // products into one accumulator are not back to back
       uint32_t bb[2][4];
 #pragma unroll
-      for (int dp = 0; dp < 8; ++dp) {
+      for (int dp = 0; dp < kK16; ++dp) {
         uint32_t (&bc)[4] = bb[dp & 1];
         uint32_t (&bp)[4] = bb[(dp + 1) & 1];
         ldsm_x4_t(bc, tv + (16 * kt + (lane & 7) + (((lane >> 3) & 1) << 3)) *
@@ -446,8 +472,8 @@ block_attention_mma_kernel(const Args a) {
           mma_bf16(o[2 * dp - 1], pl, bp[2], bp[3]);
         }
       }
-      mma_bf16(o[14], pl, bb[1][0], bb[1][1]);
-      mma_bf16(o[15], pl, bb[1][2], bb[1][3]);
+      mma_bf16(o[kN8 - 2], pl, bb[1][0], bb[1][1]);   // kK16 - 1 is odd
+      mma_bf16(o[kN8 - 1], pl, bb[1][2], bb[1][3]);
     }
     next_tile(li, s0);
     stage = stage == kStages - 1 ? 0 : stage + 1;
@@ -486,7 +512,7 @@ block_attention_mma_kernel(const Args a) {
       lo_out[oi] = l_r[r];
     }
 #pragma unroll
-    for (int d = 0; d < 16; ++d)
+    for (int d = 0; d < kN8; ++d)
       *reinterpret_cast<float2*>(ao + oi * kDh + 8 * d + 2 * (lane & 3)) =
           make_float2(o[d][2 * r], o[d][2 * r + 1]);
   }
@@ -562,15 +588,15 @@ block_attention_mma_kernel(const Args a) {
   if (tid == 0) a.counters[slot] = 0;       // ready for the next launch
 }
 
-template <bool CAUSAL>
+template <int DH, bool CAUSAL>
 int launch_mma(const Args& a, cudaStream_t stream) {
   if (a.nsel > kMaxSel) return -1;
-  const size_t smem = mma_smem_bytes(a.nsel);
-  auto kern = block_attention_mma_kernel<CAUSAL>;
+  const size_t smem = mma_smem_bytes<DH>(a.nsel);
+  auto kern = block_attention_mma_kernel<DH, CAUSAL>;
   // once per kernel, for the longest list; each launch asks for its own
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)mma_smem_bytes(kMaxSel));
+      (int)mma_smem_bytes<DH>(kMaxSel));
   if (attr != cudaSuccess) return (int)attr;
   const long long grid = (long long)a.ntiles * a.splits * a.b * a.hk;
   if (grid <= 0) return 0;
@@ -599,11 +625,36 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <int DH>
 constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * (kF32Rows * kDh + 2 * kF32Keys * (kDh + 4));
+  return sizeof(float) * (kF32Rows * DH + 2 * kF32Keys * (DH + 4));
 }
 
-template <bool CAUSAL>
+// DPL consecutive floats of shared or global memory, as one vector
+template <int DPL>
+struct Vec;
+template <>
+struct Vec<4> {
+  __device__ static void load(const float* p, float (&x)[4]) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  }
+  __device__ static void store(float* p, const float (&x)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+};
+template <>
+struct Vec<2> {
+  __device__ static void load(const float* p, float (&x)[2]) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x; x[1] = v.y;
+  }
+  __device__ static void store(float* p, const float (&x)[2]) {
+    *reinterpret_cast<float2*>(p) = make_float2(x[0], x[1]);
+  }
+};
+
+template <int DH, bool CAUSAL>
 __global__ void __launch_bounds__(kF32Threads)
 block_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ kpool,
@@ -614,10 +665,12 @@ block_attention_kernel(const float* __restrict__ q,
                        float* __restrict__ acc_out,
                        int t_len, int h, int hk, int np, int bs, int nsel,
                        float scale) {
+  constexpr int kDh = DH;
   constexpr int KS = kDh + 4;                       // padded smem row stride
   constexpr int NV = kF32Keys * kDh / 4 / kF32Threads;  // float4 loads
   constexpr int DPL = kDh / 32;                     // dims per lane
-  static_assert(DPL == 4, "acc update reads one float4 per lane");
+  static_assert(DPL == 2 || DPL == 4, "acc update: a float2 or float4");
+  static_assert(kF32Keys * kDh % (4 * kF32Threads) == 0, "whole loads");
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);     // [32 rows][Dh]
   float* ks = qs + kF32Rows * kDh;                 // [kF32Keys][KS]
@@ -760,15 +813,13 @@ block_attention_kernel(const float* __restrict__ q,
     }
     const int nk = min(kF32Keys, nv - s0);
     for (int key = 0; key < nk; ++key) {
-      const float4 vv =
-          *reinterpret_cast<const float4*>(vs + key * KS + lane * DPL);
+      float vv[DPL];
+      Vec<DPL>::load(vs + key * KS + lane * DPL, vv);
 #pragma unroll
       for (int i = 0; i < kRowsPerWarp; ++i) {
         const float pk = __shfl_sync(0xffffffffu, p[i], key);
-        acc[i][0] = fmaf(pk, vv.x, acc[i][0]);
-        acc[i][1] = fmaf(pk, vv.y, acc[i][1]);
-        acc[i][2] = fmaf(pk, vv.z, acc[i][2]);
-        acc[i][3] = fmaf(pk, vv.w, acc[i][3]);
+#pragma unroll
+        for (int c = 0; c < DPL; ++c) acc[i][c] = fmaf(pk, vv[c], acc[i][c]);
       }
     }
     j = nj;
@@ -789,15 +840,14 @@ block_attention_kernel(const float* __restrict__ q,
       m_out[o] = m_r[i];
       l_out[o] = l_r[i];
     }
-    *reinterpret_cast<float4*>(acc_out + o * kDh + lane * DPL) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    Vec<DPL>::store(acc_out + o * kDh + lane * DPL, acc[i]);
   }
 }
 
-template <bool CAUSAL>
+template <int DH, bool CAUSAL>
 int launch_f32(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = f32_smem_bytes();
-  auto kern = block_attention_kernel<CAUSAL>;
+  constexpr size_t smem = f32_smem_bytes<DH>();
+  auto kern = block_attention_kernel<DH, CAUSAL>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -808,6 +858,15 @@ int launch_f32(const Args& a, cudaStream_t stream) {
       reinterpret_cast<const float*>(a.v), a.idx, a.vlen, a.qoff, a.m, a.l,
       a.acc, a.t, a.h, a.hk, a.np, a.bs, a.nsel, a.scale);
   return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch(const Args& a, bool causal, int dtype, cudaStream_t s) {
+  if (dtype == 0)
+    return causal ? launch_f32<DH, true>(a, s) : launch_f32<DH, false>(a, s);
+  if (dtype == 1)
+    return causal ? launch_mma<DH, true>(a, s) : launch_mma<DH, false>(a, s);
+  return -1;
 }
 
 }  // namespace
@@ -829,7 +888,8 @@ extern "C" int block_attention_launch(
     int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool causal = qoff != nullptr;
-  if (dh != kDh || splits < 1 || splits > kMaxSplits) return -1;
+  if ((dh != 64 && dh != 128) || splits < 1 || splits > kMaxSplits)
+    return -1;
   if (splits > 1 && (dtype != 1 || causal || !part_m || !part_l ||
                      !part_acc || !counters))
     return -1;
@@ -837,7 +897,6 @@ extern "C" int block_attention_launch(
          static_cast<const bf16*>(v), idx, vlen, qoff, m, l, acc, part_m,
          part_l, part_acc, counters, b, t, h, hk, np, bs, nsel, splits,
          ((h / hk) * t + kRows - 1) / kRows, scale};
-  if (dtype == 0) return causal ? launch_f32<true>(a, s) : launch_f32<false>(a, s);
-  if (dtype == 1) return causal ? launch_mma<true>(a, s) : launch_mma<false>(a, s);
-  return -1;
+  if (dh == 64) return launch<64>(a, causal, dtype, s);
+  return launch<128>(a, causal, dtype, s);
 }

@@ -284,12 +284,12 @@ retrieval_score_kernel(const T* __restrict__ q, const float* __restrict__ kmax,
   if (mine) out[obase + n] = sum / (float)rep / fmaxf(wsum, 1e-9f);
 }
 
-template <typename T>
-int launch(int dh, const void* q, const float* kmax, const float* kmin,
+template <typename T, int DH>
+int launch(const void* q, const float* kmax, const float* kmin,
            const float* qw, float* out, float* part, int* counters, int b,
            int t, int h, int hk, int nb, int tiles, int slices,
            cudaStream_t s) {
-  if (dh != 128 || hk < 1 || h < hk) return -1;
+  if (hk < 1 || h < hk) return -1;
   int lrep = 0;
   while ((hk << lrep) < h) ++lrep;
   if ((hk << lrep) != h || (1 << lrep) > kRows) return -1;
@@ -299,8 +299,8 @@ int launch(int dh, const void* q, const float* kmax, const float* kmin,
     return -1;
   if ((long long)b * hk > 65535 || slices > 65535) return -1;
   if (part == nullptr || counters == nullptr) return -1;
-  auto kern = retrieval_score_kernel<T, 128>;
-  constexpr size_t smem = smem_bytes<128>();
+  auto kern = retrieval_score_kernel<T, DH>;
+  constexpr size_t smem = smem_bytes<DH>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
@@ -310,13 +310,27 @@ int launch(int dh, const void* q, const float* kmax, const float* kmin,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch(int dh, const void* q, const float* kmax, const float* kmin,
+           const float* qw, float* out, float* part, int* counters, int b,
+           int t, int h, int hk, int nb, int tiles, int slices,
+           cudaStream_t s) {
+  if (dh == 64)
+    return launch<T, 64>(q, kmax, kmin, qw, out, part, counters, b, t, h, hk,
+                         nb, tiles, slices, s);
+  if (dh == 128)
+    return launch<T, 128>(q, kmax, kmin, qw, out, part, counters, b, t, h,
+                          hk, nb, tiles, slices, s);
+  return -1;
+}
+
 }  // namespace
 
 // dtype of q: 0 = float32, 1 = bfloat16.  tiles = ceil(NB / 32) and
 // slices = ceil(rep*T / 64) are the grid the wrapper sized its buffers
 // for; part: fp32 scratch of B * Hk * slices * NB floats and counters:
 // B * Hk * tiles int32 zeros.  Returns 0, a cudaError_t, or -1 for an
-// unsupported shape (head dim other than 128, rep not a power of two up
+// unsupported shape (head dim other than 64 or 128, rep not a power of two up
 // to 64), a grid other than the kernel's, a null buffer or a dtype other
 // than these.
 extern "C" int retrieval_score_launch(const void* q, const float* kmax,

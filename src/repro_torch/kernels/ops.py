@@ -25,6 +25,9 @@ from repro_torch.kernels import ref
 KERNELS = ("sparse_verify_attention", "paged_prefill_attention",
            "retrieval_score", "block_summary", "wkv")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+# head dims K1-K3 are built for (block_attention.cu, retrieval_score.cu):
+# the trained tiny-dense pair (64) and the llama / qwen widths (128)
+HEAD_DIMS = (64, 128)
 WKV_SHAPES: Dict[Tuple[int, bool], int] = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -191,8 +194,9 @@ def block_attention(q, k_flat, v_flat, block_idx, block_valid_len,
         _check("q_offset", q_offset, dtype=torch.int32, ndim=1, device=dev)
         if q_offset.shape[0] != b:
             raise ValueError("q_offset must be [B]")
-    if dh != 128:
-        raise ValueError(f"head dim {dh}: the kernels are built for 128")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh}: the kernels are built for "
+                         f"{' and '.join(map(str, HEAD_DIMS))}")
     nsel = block_idx.shape[2]
     splits = (kv_splits(b, t, h, hk, nsel, q_offset is not None)
               if q.dtype == torch.bfloat16 else 1)
@@ -390,8 +394,9 @@ def retrieval_scores(q, kmax, kmin, q_weight):
     if dev.type != "cuda":
         raise RuntimeError(f"no kernel for device {dev}")
     _check("q_weight", q_weight, dtype=torch.float32)
-    if dh != 128:
-        raise ValueError(f"head dim {dh}: the kernels are built for 128")
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"head dim {dh}: the kernels are built for "
+                         f"{' and '.join(map(str, HEAD_DIMS))}")
     rep = h // hk
     if rep & (rep - 1) or rep > SCORE_ROWS:
         raise ValueError(f"{rep} query heads per KV head: the kernel takes "

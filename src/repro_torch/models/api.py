@@ -6,6 +6,7 @@ attention and RWKV-6 state architectures):
   prefill(cfg, params, tokens, cache, ...)     -> (logits_last, features, cache)
   decode(cfg, params, tokens, positions, cache, ...) -> DecodeOut
   advance(cfg, params, tokens, cache, valid)   -> cache   (ssm)
+  train_loss(cfg, params, tokens)              -> (loss, metrics)  (dense)
 
 Attention archs expose the SpecPV verification modes through
 ``decode(mode=...)``; the state arch does read-only chain verification
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.device import resolve_device
@@ -170,3 +172,74 @@ def advance(cfg: ModelConfig, params, tokens, cache, valid):
     _, _, cache = rw.forward(cfg, params, tokens, cache, valid=valid,
                              collect_features=False)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# training loss (plain torch under autograd: the kernels have no backward)
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits, labels, valid=None):
+    """logits: [B, T, V] fp32; labels: [B, T].  Mean next-token NLL, over
+    the ``valid`` [B, T] positions when given."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if valid is None:
+        return torch.mean(nll)
+    w = valid.float()
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def chunked_lm_loss(cfg: ModelConfig, params, h, labels, *,
+                    chunk: int = 512):
+    """Final norm + LM head + cross-entropy over sequence chunks of
+    ``chunk`` positions, so the [B, T, V] logits are never held (one
+    chunk's are 512 x V fp32 per row: 263 MB at llama3.1-8b's 128256);
+    each chunk body is rematerialised in the backward pass when autograd
+    records, as the reference's ``jax.checkpoint``'d scan body.  The last
+    chunk is shorter where the reference pads it with weight-0 positions,
+    so the sums are the same."""
+    b, t, _ = h.shape
+    scale = params["final_norm"]
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+
+    def body(hc, lc):
+        x = cm.rmsnorm(hc, scale, cfg.norm_eps)
+        logits = (x @ w.to(x.dtype)).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
+        return torch.sum(logz - gold)
+
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, t, chunk):
+        args = (h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
+        nll = nll + (torch.utils.checkpoint.checkpoint(
+            body, *args, use_reentrant=False)
+            if torch.is_grad_enabled() else body(*args))
+    return nll / max(b * t, 1)
+
+
+def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
+    """Next-token LM loss over a [B, S] token batch (dense targets): the
+    trunk's train mode, then ``chunked_lm_loss``.  Returns (loss,
+    {"lm_loss", "aux_loss"}); the aux loss is 0 (no MoE in the port)."""
+    if cfg.arch_type in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name}: the port trains dense targets only; the "
+            f"{cfg.arch_type} train_loss comes with ROADMAP.md queue 1")
+    if extra:
+        raise NotImplementedError("VLM and audio inputs come with "
+                                  "ROADMAP.md queue 1, 'Other "
+                                  "architectures'")
+    dn._check_dense(cfg)
+    b, s = tokens.shape
+    inp, lbl = tokens[:, :-1], tokens[:, 1:]
+    positions = torch.arange(s - 1, device=tokens.device)[None].expand(
+        b, s - 1)
+    h = dn.embed_tokens(cfg, params, inp)
+    out = dn.trunk_fwd(cfg, params["layers"], h, positions, mode="train",
+                       collect_features=False)
+    lm = chunked_lm_loss(cfg, params, out.h, lbl)
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    loss = lm + cfg.moe_aux_loss_coef * aux
+    return loss, {"lm_loss": lm, "aux_loss": aux}

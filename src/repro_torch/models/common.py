@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 
@@ -165,15 +166,33 @@ def repeat_kv(k, n_rep: int):
 
 def flash_attention(q, k, v, *, q_positions, kv_positions,
                     causal: bool = True, kv_valid=None, chunk: int = 512,
-                    return_partials: bool = False):
+                    return_partials: bool = False, q_chunk: int = 512):
     """Chunked online-softmax attention over KV tiles of ``chunk`` keys
     (the reference's flash recurrence, as a plain loop).
 
     q: [B, T, H, Dh]; k/v: [B, S, Hk, Dh]; q_positions: [B, T];
     kv_positions: [B, S]; kv_valid: [B, S] bool.  Returns the partials
     (m, l [B, H, T], acc [B, H, T, Dh]) fp32, or the normalised
-    [B, T, H, Dh] output in q's dtype."""
+    [B, T, H, Dh] output in q's dtype.  A normalised call of more than
+    ``q_chunk`` queries runs the reference's outer loop over query tiles
+    of ``q_chunk`` rows (the last one shorter, where the reference pads
+    rows that it then drops), each tile rematerialised in the backward
+    pass when autograd records, as ``jax.checkpoint`` does there: the
+    live attention tensor stays [B, H, q_chunk, chunk] whatever T."""
     b, t, h, dh = q.shape
+    if t > q_chunk and not return_partials:
+        def tile(qc, pc):
+            return flash_attention(qc, k, v, q_positions=pc,
+                                   kv_positions=kv_positions, causal=causal,
+                                   kv_valid=kv_valid, chunk=chunk,
+                                   q_chunk=q_chunk)
+        outs = []
+        for q0 in range(0, t, q_chunk):
+            args = (q[:, q0:q0 + q_chunk], q_positions[:, q0:q0 + q_chunk])
+            outs.append(torch.utils.checkpoint.checkpoint(
+                tile, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else tile(*args))
+        return torch.cat(outs, dim=1)
     s, hk = k.shape[1], k.shape[2]
     n_rep = h // hk
     scale = 1.0 / math.sqrt(dh)

@@ -20,6 +20,11 @@ the identity list):
                  table (zero-copy) or from the gathered body, merged with
                  the dense tail buffer.
   decode_fused   per-row source select between the two above.
+  train          causal attention over the sequence, no cache: the plain
+                 chunked attention under autograd (the kernels have no
+                 backward), each layer rematerialised in the backward pass
+                 when ``cfg.remat`` is set (the reference's
+                 ``_train_layer`` under ``jax.checkpoint``).
 
 The paged cache reads through the page table in place
 (``SpecPVConfig.use_pallas=True``) or, with ``use_pallas=False``, first
@@ -37,6 +42,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.device import resolve_device
@@ -418,6 +424,24 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
     return bk.attn_output(cfg, lp["attn"], out), upd, q
 
 
+def _train_layer(cfg: ModelConfig, lp: Dict, h, positions, inv_freq,
+                 mscale):
+    """One stateless layer of the train mode: causal attention over the
+    sequence (``cm.flash_attention``, the reference's KV tile of
+    ``min(512, max(128, T))`` keys and query tiles of 512), then the
+    MLP."""
+    x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
+    q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq, mscale)
+    k, v = bk.project_kv(cfg, lp["attn"], x, positions, inv_freq, mscale)
+    t = positions.shape[1]
+    out = cm.flash_attention(q, k, v, q_positions=positions,
+                             kv_positions=positions, causal=True,
+                             chunk=min(512, max(128, t)))
+    h = h + bk.attn_output(cfg, lp["attn"], out)
+    x = cm.rmsnorm(h, lp["norm2"], cfg.norm_eps)
+    return h + bk.mlp_fwd(cfg, lp["mlp"], x)
+
+
 # ---------------------------------------------------------------------------
 # trunk forward (plain layer loop)
 # ---------------------------------------------------------------------------
@@ -459,6 +483,20 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     f_lo, f_mi, f_hi = _feature_targets(num_layers)
     inv_freq = cm.rope_inv_freq_tensor(cfg, h.device)
     mscale = cm.yarn_mscale(cfg)
+    if mode == "train":
+        _check_dense(cfg)
+        feats = [None, None, None]
+        remat = cfg.remat and torch.is_grad_enabled()
+        for i, lp in enumerate(layers):
+            args = (cfg, lp, h, positions, inv_freq, mscale)
+            h = (torch.utils.checkpoint.checkpoint(
+                _train_layer, *args, use_reentrant=False) if remat
+                else _train_layer(*args))
+            for slot, tgt in enumerate((f_lo, f_mi, f_hi)):
+                if collect_features and i == tgt:
+                    feats[slot] = h
+        return TrunkOut(h=h, features=tuple(feats) if collect_features
+                        else None, cache=None, new_kv=None)
     b, t = positions.shape
     length = (cache["length"] if cache is not None
               else torch.zeros((b,), dtype=torch.int32, device=h.device))

@@ -1274,3 +1274,185 @@ def test_cuda_fused_prefill_contiguous_graphs_equal_eager(cuda, models):
     assert set(ge._graphs) == set(ge.dispatch_keys) | _prefill_graphs(ge)
     assert ec[0]["paged_prefill_attention"] == \
         cfg.num_layers * ee.prefill_dispatches
+
+
+# ---------------------------------------------------------------------------
+# head dim 64 (the trained tiny-dense pair: H=4, Hk=2, block 16), the full
+# prefill of a training feature pass (T=2048) and the compiled AR baseline
+# ---------------------------------------------------------------------------
+
+def _dh64_case(dev, dtype, *, b=2, t=21, npg=40, ns=20, seed=30):
+    """A K1 call at tiny-dense shapes (H=4, Hk=2, Dh=64, block 16): lists
+    of pages with ragged valid lengths, an all-empty (row, head)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    h, hk, dh, bs = 4, 2, 64, 16
+    q = torch.randn((b, t, h, dh), generator=g, device=dev).to(dtype)
+    pk = torch.randn((npg, bs, hk, dh), generator=g, device=dev).to(dtype)
+    pv = torch.randn((npg, bs, hk, dh), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, npg, (b, hk, ns), generator=g, device=dev,
+                        dtype=torch.int32)
+    vlen = torch.randint(0, bs + 1, (b, hk, ns), generator=g, device=dev,
+                         dtype=torch.int32)
+    vlen[1, 1] = 0
+    return q, pk, pv, idx, vlen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [1, 6, 21, 71])
+def test_cuda_block_attention_head_dim_64(cuda, dtype, t):
+    """K1 at head dim 64 with blocks of 16 under the kernels' larger key
+    tiles (every tile partial), against the plain version; the empty
+    (row, head) comes out exactly (-1e30, 0, 0)."""
+    q, pk, pv, idx, vlen = _dh64_case(cuda, TDT[dtype], t=t)
+    npg, bs, hk, dh = pk.shape
+    kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+    got, n = _kernel_launches(lambda: tops.block_attention(
+        q, kf, vf, idx, vlen, bs))
+    assert n <= 2
+    want = tref.block_attention_batched(q, kf, vf, idx, vlen, bs)
+    _assert_partials_close(got, want)
+    assert torch.all(got[0][1, 2:4] == -1e30)
+    assert torch.all(got[1][1, 2:4] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("qoff, t", [(0, 48), (40, 48), (200, 37),
+                                     (0, 128)])
+def test_cuda_prefill_head_dim_64(cuda, dtype, qoff, t):
+    """K2 at head dim 64, block 16: a chunk of T queries after ``qoff``
+    tokens (not on a block boundary), through a permuted page table,
+    against the plain version."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(31)
+    dt = TDT[dtype]
+    b, h, hk, dh, bs = 2, 4, 2, 64, 16
+    nbt = -(-(qoff + t) // bs) + 1
+    npg = nbt + 5
+    q = torch.randn((b, t, h, dh), generator=g, device=cuda).to(dt)
+    pk = torch.randn((npg, bs, hk, dh), generator=g, device=cuda).to(dt)
+    pv = torch.randn((npg, bs, hk, dh), generator=g, device=cuda).to(dt)
+    pt = torch.stack([torch.randperm(npg - 1, generator=g, device=cuda)[:nbt]
+                      + 1 for _ in range(b)]).to(torch.int32)
+    length = torch.tensor([qoff, qoff // 2], dtype=torch.int32, device=cuda)
+    t_valid = torch.tensor([t, max(1, t - 9)], dtype=torch.int32,
+                           device=cuda)
+    idx, vlen = tops._page_walk(pt, length + t_valid, pk.shape)
+    kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+    got, n = _kernel_launches(lambda: tops.block_attention(
+        q, kf, vf, idx, vlen, bs, q_offset=length))
+    assert n <= 2
+    want = tref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                        q_offset=length)
+    _assert_partials_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t, nb", [(1, 3), (21, 24), (70, 37)])
+def test_cuda_retrieval_scores_head_dim_64(cuda, dtype, t, nb):
+    """K3 at head dim 64 with two query heads per KV head, against the
+    plain version, one launch; two calls give the same bits."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(32)
+    b, h, hk, dh = 2, 4, 2, 64
+    q = torch.randn((b, t, h, dh), generator=g, device=cuda).to(TDT[dtype])
+    kmax = torch.randn((b, nb, hk, dh), generator=g, device=cuda).abs()
+    kmin = -torch.randn((b, nb, hk, dh), generator=g, device=cuda).abs()
+    qw = (torch.rand((b, t), generator=g, device=cuda) > 0.3).float()
+    qw[:, -1] = 1.0
+    before = tops.LAUNCHES["retrieval_score"]
+    got = tops.retrieval_scores(q, kmax, kmin, qw)
+    again = tops.retrieval_scores(q, kmax, kmin, qw)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["retrieval_score"] == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, tref.retrieval_score_batched(q, kmax, kmin, qw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_contiguous_summaries_head_dim_64(cuda, dtype):
+    """K4's all-layer contiguous form at tiny-dense shapes (4 layers, Hk=2,
+    Dh=64, block 16, max_len 250), bit for bit against the plain
+    per-layer recomputation."""
+    from repro_torch.kvcache.cache import update_layer_summaries
+    layers, b, bs, max_len = 4, 2, 16, 250
+    k, _ = _contiguous_kv(cuda, TDT[dtype], layers, b, max_len, seed=33,
+                          hk=2, dh=64, bs=bs)
+    nb = -(-max_len // bs)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(34)
+    old = torch.randn((2, layers, b, nb, 2, 64), generator=g, device=cuda)
+    st = torch.tensor([37, 120], dtype=torch.int32, device=cuda)
+    en = torch.tensor([101, 125], dtype=torch.int32, device=cuda)
+    got = old.clone()
+    tops.reset_launch_counts()
+    tops.contiguous_block_summaries(k, st, en, 6, got[0], got[1], bs)
+    assert tops.LAUNCHES["block_summary"] == 1
+    for i in range(layers):
+        wx, wn = update_layer_summaries(old[0, i], old[1, i], k[i], st, en,
+                                        bs)
+        assert torch.equal(got[0, i], wx) and torch.equal(got[1, i], wn)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_t2048_matches_plain(cuda):
+    """K2 as a training feature pass calls it at llama3.1-8b widths: the
+    whole 2048-token sequence in one call (qoff 0) over a contiguous
+    cache of 2048 tokens, bf16, against the plain version."""
+    k, v = _contiguous_kv(cuda, torch.bfloat16, 1, 1, 2048, seed=35)
+    k, v = k[0], v[0]
+    g = torch.Generator(device=cuda)
+    g.manual_seed(36)
+    t = 2048
+    q = torch.randn((1, t, 32, 128), generator=g, device=cuda).to(
+        torch.bfloat16)
+    length = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    tv = torch.tensor([t], dtype=torch.int32, device=cuda)
+    kf, rows = tops.flat_blocks(k)
+    vf, _ = tops.flat_blocks(v)
+    idx, vlen = tops._identity_walk(1, 8, rows // 128, length + tv, 2048,
+                                    128)
+    before = tops.LAUNCHES["paged_prefill_attention"]
+    got = tops.block_attention(q, kf, vf, idx, vlen, 128, q_offset=length)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["paged_prefill_attention"] == before + 1
+    want = tref.block_attention_batched(q, kf, vf, idx, vlen, 128,
+                                        q_offset=length)
+    _assert_partials_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_ar_equals_plain_oracle(cuda):
+    """The compiled AR baseline (K2/K4 prefill, one graph per decode step
+    over K1 and K4) gives the plain oracle's tokens in fp32 on a random
+    tiny-dense model at block 16, eagerly and replayed, and launches K1
+    once and K4 once per decode step."""
+    import numpy as np
+    from repro_torch.configs import SpecPVConfig, get_config
+    from repro_torch.core.reference import (CompiledAR,
+                                            autoregressive_generate)
+    from repro_torch.models.api import init_params
+    cfg = get_config("tiny-dense")
+    spec = SpecPVConfig(block_size=16)
+    params = init_params(cfg, seed=3, device="cuda")
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 150))
+    want = autoregressive_generate(cfg, params, prompt, 24, max_len=256,
+                                   prefill_chunk=64, spec=spec, device="cuda")
+    eager = CompiledAR(cfg, params, batch=2, max_len=256, spec=spec,
+                       device="cuda", cuda_graphs=False)
+    graphs = CompiledAR(cfg, params, batch=2, max_len=256, spec=spec,
+                        device="cuda")
+    runs = []
+    for ar in (eager, graphs, graphs):      # capture, then a replay
+        tops.reset_launch_counts()
+        runs.append((ar.generate(prompt, 24, prefill_chunk=64),
+                     dict(tops.LAUNCHES)))
+    for toks, launches in runs:
+        assert np.array_equal(toks, want)
+        assert launches["sparse_verify_attention"] == 23 * cfg.num_layers
+        assert launches["block_summary"] == 23 + 3
+        assert launches["paged_prefill_attention"] == 3 * cfg.num_layers
