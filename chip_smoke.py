@@ -170,14 +170,39 @@ Phases, in order (any failure raises and the script exits non-zero):
    this slice's call forms: K1, K2, K3 and K4 at the pair's shapes, H=4,
    Hk=2, Dh=64, block 16, in fp32 and bf16, and K2 at T=2048 at llama
    widths, each timed beside its bound and SDPA);
-11. one JSON line with every kernel's numbers (each kernel's launches
+11. sampled serving (slice 12).  (a) llama3.1-8b at full width (32
+   layers, bf16, random weights from seed 0), ``ServingConfig()``'s
+   layout (contiguous slots, gathered body), batch 4, phase 6's six
+   requests in the arms of ``bench_serving.py --sampled``: greedy tree,
+   sampled chain and sampled tree at temperature 0.8, and a mixed arm of
+   all three kinds, each on a fresh scheduler of one server: tokens/s,
+   mean accept by kind, tick wall by class, dispatches per tick (one per
+   decode tick, asserted), launches held to the arm's step variants and
+   chunks, each arm's variants keyed by its kinds, the graphs captured,
+   capture_s and peak memory; then two profiled Partial ticks per arm
+   (device ms, device launches, host launch calls; the kernels a sampled
+   tick adds to a greedy one) over four slots of the three kinds, and
+   each sampled or chain body under the sync check.
+   (b) rwkv6-3b at full width, sampled chain ``generate`` (prompt 2048,
+   cut from 8192; 32 new tokens), eagerly and with graphs: equal tokens
+   and launch counts, K5 32 x (prefill chunks + 2 x steps), the sampled
+   state body under the sync check.  (c) fp32 at 4 layers, TF32 off: a
+   greedy request beside sampled tree and chain requests equals its
+   tokens in an all-greedy batch, a sampled request gives the same tokens
+   alone and admitted in another order, a fork of a sampled slot replays
+   its source.  (d) When phase 10 ran in the process, on its trained
+   tiny pair: tau greedy and at 0.8, and 256 sampled requests against
+   the port's ``autoregressive_sample`` within the reference's two-sample
+   bound.  K1-K4 must be launched in (a), K5 in (b);
+12. one JSON line with every kernel's numbers (each kernel's launches
    from its own path's run, ``serving_launches`` from phase 6's,
    ``prefix_serving_launches`` from phase 7's shared run,
    ``contiguous_launches`` and ``contiguous_serving_launches`` from
    phase 8's graph runs, ``fused_serving_launches``,
    ``fused_contiguous_serving_launches`` and
    ``fused_prefix_serving_launches`` from phase 9's fused graph runs,
-   ``training_launches`` from phase 10; phases 8 and 9's call forms and
+   ``training_launches`` from phase 10, ``sampled_serving_launches``
+   from phase 11 (K1-K4 its (a), K5 its (b)); phases 8 and 9's call forms and
    phase 2's forms of this slice under ``shapes``), the card's name and
    power limit, and the final ``{"ok": true, ...}`` line.
 
@@ -1258,8 +1283,9 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
         say(card, f"launches [{label}] {got} = implied by {stats['steps']} "
                   f"steps and {chunks} prefill chunks (K4: {chunks} chunks + "
                   f"{commits} commits, each over {layers} layers)")
-        want_graphs = {("prefill", 256), (True, False, True),
-                       (False, True, False)}
+        # the greedy tree variants: no sampled or chain rows
+        want_graphs = {("prefill", 256), (True, False, True, False, False),
+                       (False, True, False, False, False)}
         if graphs and set(eng._graphs) != want_graphs:
             raise AssertionError(f"graphs captured: "
                                  f"{sorted(map(str, eng._graphs))}")
@@ -1836,17 +1862,25 @@ def _serve(torch, srv, reqs):
 
 
 def _expected_serving_launches(eng, layers):
-    """K1-K4 launches implied by the steps' variants and the prefill
-    chunks: per step K1 once per layer for each context source (full
-    pages, routed partial), K3 once per layer with a Refresh row, K4 once
-    with a committing (Full or Refresh) row; per chunk K2 once per layer
-    and K4 once over all layers."""
+    """K1-K4 launches implied by the engine's steps and prefill chunks
+    (``_implied_launches``)."""
+    return _implied_launches(eng.dispatch_keys, eng.prefill_dispatches,
+                             layers)
+
+
+def _implied_launches(keys, chunks, layers):
+    """K1-K4 launches implied by steps counted by variant (``keys``) and
+    ``chunks`` prefill chunks: per step K1 once per layer for each context
+    source (full pages, routed partial), K3 once per layer with a Refresh
+    row, K4 once with a committing (Full or Refresh) row; per chunk K2
+    once per layer and K4 once over all layers.  Sampling and chain
+    masking launch no kernel (a key's last two flags)."""
     k1 = k3 = k4 = 0
-    for (has_full, has_partial, has_refresh), n in eng.dispatch_keys.items():
+    for key, n in keys.items():
+        has_full, has_partial, has_refresh = key[:3]
         k1 += layers * n * (int(has_full) + int(has_partial))
         k3 += layers * n * int(has_refresh)
         k4 += n * int(has_full)
-    chunks = eng.prefill_dispatches
     return {"sparse_verify_attention": k1,
             "paged_prefill_attention": layers * chunks,
             "retrieval_score": k3, "block_summary": k4 + chunks}
@@ -1859,11 +1893,14 @@ def _prefill_graph_keys(eng, chunk=256):
             if t == chunk}
 
 
-def _serving_requests(prompts, reqs_spec):
+def _serving_requests(prompts, reqs_spec, kinds=((0.0, "tree"),)):
+    """Requests arriving now; request i is of kind ``kinds[i % len]``,
+    (temperature, draft), with seed i."""
     from repro_torch.serving import Request
     now = time.time()
     return [Request(request_id=f"r{i}", prompt=p, max_new_tokens=new,
-                    arrival_s=now)
+                    arrival_s=now, temperature=kinds[i % len(kinds)][0],
+                    seed=i, draft=kinds[i % len(kinds)][1])
             for i, (p, (_, new)) in enumerate(zip(prompts, reqs_spec))]
 
 
@@ -2112,7 +2149,7 @@ def check_sync_free_serving(torch, card, eng, prompts):
             ("refresh", ["refresh"] * 2, (True, False, True)),
             ("partial", ["partial"] * 2, (False, True, False)),
             ("partial + refresh", ["partial", "refresh"], (True, True, True))):
-        eng._tick_in.copy_(torch.tensor(
+        eng._tick_in[:2].copy_(torch.tensor(      # modes, rows (no chain)
             [[MODE_IDS[m] for m in modes] + [0, 0], [1, 1, 0, 0]],
             dtype=torch.int8, device="cuda"))
         _no_sync(torch, lambda key=key: eng._fused_body(*key))
@@ -4038,17 +4075,463 @@ def phase_train(torch, card):
                 seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sampled serving
+# ---------------------------------------------------------------------------
+
+SAMPLED_TEMP = 0.8
+# the arms of bench_serving.py --sampled, and one mixing the three kinds in
+# one batch: (temperature, draft) of request i is kinds[i % len(kinds)]
+SAMPLED_ARMS = (("greedy-tree", ((0.0, "tree"),)),
+                ("sampled-chain", ((SAMPLED_TEMP, "chain"),)),
+                ("sampled-tree", ((SAMPLED_TEMP, "tree"),)),
+                ("mixed", ((0.0, "tree"), (SAMPLED_TEMP, "chain"),
+                           (SAMPLED_TEMP, "tree"))))
+RWKV_SAMPLED_PROMPT = 2048      # phase 5's 8192 cut to keep the budget
+RWKV_SAMPLED_NEW = 32
+
+
+def _arm_keys_ok(name, keys):
+    """Each arm's steps are keyed by its kinds: (has_sampled, has_chain)
+    never set for the greedy arm, both for the chain arm, the first only
+    for the tree arm, both in some step of the mixed one."""
+    flags = {k[3:] for k in keys}
+    want = {"greedy-tree": {(False, False)}, "sampled-chain": {(True, True)},
+            "sampled-tree": {(True, False)}}.get(name)
+    return flags == want if want else (True, True) in flags
+
+
+def _sampled_arms(torch, card, cfg, spec, dcfg, params, dparams, prompts):
+    """(a): the arms on one server (``ServingConfig()``'s layout, batch 4),
+    each on a fresh scheduler (captured graphs stay).  Returns (per-arm
+    numbers, summed launches, the engine)."""
+    import numpy as np
+    from repro_torch.serving import ServingConfig, ServingEngine
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+        batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256), device="cuda")
+    arms, total, peak_all, eng, toks = {}, {}, 0.0, None, {}
+    for name, kinds in SAMPLED_ARMS:
+        srv.reset_warm()
+        keys0 = dict(eng.dispatch_keys) if eng else {}
+        chunks0 = eng.prefill_dispatches if eng else 0
+        graphs0 = len(eng._graphs) if eng else 0
+        outs, wall, launches, peak = _serve(
+            torch, srv, _serving_requests(prompts, SERVE_REQS, kinds))
+        sched = srv._continuous
+        eng, st = sched.engine, srv.stats
+        if eng.paged or not eng.gathered:
+            raise AssertionError("ServingConfig() serves contiguous slots "
+                                 "with the gathered partial cache")
+        for i, (n, new) in enumerate(SERVE_REQS):
+            o = outs[f"r{i}"]
+            if (o.finish_reason != "length" or len(o.tokens) != new
+                    or o.tokens.min() < 0
+                    or o.tokens.max() >= cfg.vocab_size):
+                raise AssertionError(f"{name} r{i}: {o.finish_reason}, "
+                                     f"{len(o.tokens)} tokens")
+        keys = {k: n - keys0.get(k, 0) for k, n in eng.dispatch_keys.items()
+                if n > keys0.get(k, 0)}
+        want = _implied_launches(keys, eng.prefill_dispatches - chunks0,
+                                 cfg.num_layers)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got} != {want} implied "
+                                 f"by {keys}")
+        ticks = sum(int(v) for k, v in st.items()
+                    if k.startswith("ticks_wall_"))
+        if st["steps"] != ticks:
+            raise AssertionError(f"{name}: {st['steps']} dispatches in "
+                                 f"{ticks} decode ticks")
+        if not _arm_keys_ok(name, keys):
+            raise AssertionError(f"{name}: step keys {keys}")
+        if not (st["mode_rows_refresh"] and st["mode_rows_partial"]):
+            raise AssertionError(f"{name}: the ticks must run Refresh and "
+                                 f"Partial rows: {dict(st)}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        peak_all = max(peak_all, peak)
+        ntok = int(sum(len(o.tokens) for o in outs.values()))
+        by_kind = {}
+        for i in range(len(SERVE_REQS)):
+            by_kind.setdefault("%s-%s" % kinds[i % len(kinds)], []).append(
+                outs[f"r{i}"].mean_accept)
+        accept = {k: float(np.mean(v)) for k, v in by_kind.items()}
+        wall_by = {c: (len(v), 1e3 * float(np.median(v)))
+                   for c, v in sched.tick_wall.items()}
+        toks[name] = {k: o.tokens for k, o in outs.items()}
+        arms[name] = dict(tokens_per_s=ntok / wall, wall_s=wall,
+                          mean_accept=accept, ticks=wall_by,
+                          dispatches_per_tick=st["steps"] / ticks,
+                          new_graphs=len(eng._graphs) - graphs0,
+                          keys={str(k): n for k, n in keys.items()},
+                          launches=got, peak_gib=peak)
+        say(card, f"sampled serving [{name}] llama3.1-8b batch 4 "
+                  f"ServingConfig(), kinds {kinds} (T {SAMPLED_TEMP}): "
+                  f"tokens {ntok} wall_s {wall:.3f} tokens_per_s "
+                  f"{ntok / wall:.2f} (graph captures of this arm's new "
+                  f"variants included) mean_accept by kind {accept} tick "
+                  f"wall ms by class (ticks, median) {wall_by} dispatches "
+                  f"per tick {st['steps'] / ticks:.2f} new graphs "
+                  f"{len(eng._graphs) - graphs0} peak_mem_gib {peak:.2f} "
+                  f"launches {got} == implied by {arms[name]['keys']}")
+    want_graphs = _prefill_graph_keys(eng) | set(eng.dispatch_keys)
+    if set(eng._graphs) != want_graphs:
+        raise AssertionError(f"graphs {sorted(map(str, eng._graphs))} != "
+                             f"{sorted(map(str, want_graphs))}")
+    same = {rid: bool(np.array_equal(toks["mixed"][rid],
+                                     toks["greedy-tree"][rid]))
+            for rid in toks["mixed"] if int(rid[1:]) % 3 == 0}
+    say(card, f"sampled serving: {len(eng._graphs)} graphs captured "
+              f"{sorted(map(str, eng._graphs))} capture_s "
+              f"{eng.capture_s:.3f} peak_mem_gib {peak_all:.2f}; the mixed "
+              f"arm's greedy rows equal the greedy arm's (bf16, reported): "
+              f"{same}")
+    return arms, total, eng, srv
+
+
+def _profile_arm_ticks(torch, card, eng, prompts, ticks: int = 2):
+    """On the arms' engine, four 4608-token slots of kinds greedy tree,
+    sampled chain, sampled tree, sampled tree (seeds 0-3); then for each
+    arm the rows of its kinds step (all four for the mixed arm), once to
+    capture its variant, then ``ticks`` Partial ticks under
+    ``torch.profiler`` (a Refresh tick runs first where the automaton
+    asks for one): device busy ms, device launches and host launch calls
+    per tick.  Then each sampled or chain variant's body, run eagerly
+    under ``set_sync_debug_mode("error")``."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import MODE_PARTIAL
+    kinds = ((0.0, "tree"), (SAMPLED_TEMP, "chain"), (SAMPLED_TEMP, "tree"),
+             (SAMPLED_TEMP, "tree"))
+    st = eng.empty_state()
+    for i, ((t, d), p) in enumerate(zip(kinds, prompts[2:6])):
+        st, _ = eng.prefill_into_slot(st, i, p[:4608], temperature=t, seed=i,
+                                      draft=d, max_new_tokens=256)
+    masks = {"greedy-tree": [1, 0, 0, 0], "sampled-chain": [0, 1, 0, 0],
+             "sampled-tree": [0, 0, 1, 1], "mixed": [1, 1, 1, 1]}
+    out, by_kernel = {}, {}
+    for name, mask in masks.items():
+        rows = np.asarray(mask, bool)
+        st, _ = eng.step_fused(st, rows, eng.modes_for_rows(st, rows))
+        busy = dev_n = calls_n = 0.0
+        kms = by_kernel.setdefault(name, {})
+        for _ in range(ticks):
+            modes = eng.modes_for_rows(st, rows)
+            while not (modes[rows] == MODE_PARTIAL).all():
+                st, _ = eng.step_fused(st, rows, modes)
+                modes = eng.modes_for_rows(st, rows)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                st, _ = eng.step_fused(st, rows, modes)
+                torch.cuda.synchronize()
+            b, _ = _device_busy(prof)
+            d, _, c = _launch_counts(prof)
+            busy, dev_n, calls_n = busy + b, dev_n + d, calls_n + c
+            for e in prof.key_averages():
+                if getattr(e, "device_type", None) == DeviceType.CUDA:
+                    ms, n = kms.get(e.key, (0.0, 0))
+                    kms[e.key] = (ms + _dev_us(e) / 1e3 / ticks,
+                                  n + e.count // ticks)
+        out[name] = dict(busy_ms=busy / ticks, device_launches=dev_n / ticks,
+                         host_launch_calls=calls_n / ticks)
+        say(card, f"sampled profile [{name}] rows {mask}: {ticks} Partial "
+                  f"ticks (4 x 4608 tokens): device busy_ms/tick "
+                  f"{busy / ticks:.2f} device launches/tick "
+                  f"{dev_n / ticks:.1f} host launch calls/tick "
+                  f"{calls_n / ticks:.1f}")
+    g, s = out["greedy-tree"]["busy_ms"], out["sampled-tree"]["busy_ms"]
+    say(card, f"sampled profile: a sampled-tree Partial tick {s:.2f} device "
+              f"ms against {g:.2f} greedy (+{s - g:.2f} ms, the whole batch "
+              f"computes either way)")
+    gk, sk = by_kernel["greedy-tree"], by_kernel["sampled-tree"]
+    diff = sorted(((sk[k][0] - gk.get(k, (0.0, 0))[0],
+                    sk[k][1] - gk.get(k, (0.0, 0))[1], k) for k in sk),
+                  reverse=True)
+    for ms, n, k in diff[:12]:
+        say(card, f"sampled profile, sampled-tree minus greedy: {ms:8.3f} "
+                  f"ms/tick {n:6d} launches/tick  {k[:90]}")
+    # the sampled and chain bodies under the sync check, on these slots
+    graphs, eng.cuda_graphs = eng.cuda_graphs, False
+    bodies = []
+    try:
+        for key in sorted(k for k in eng.dispatch_keys if k[3] or k[4]):
+            eng._tick_in.copy_(torch.tensor(
+                [[MODE_PARTIAL if key[1] else 0] * 4, [1, 1, 1, 1],
+                 [0, 1, 0, 0]], dtype=torch.int8, device="cuda"))
+            _no_sync(torch, lambda key=key: eng._fused_body(*key))
+            bodies.append(str(key))
+    finally:
+        eng.cuda_graphs = graphs
+    torch.cuda.synchronize()
+    say(card, f"sampled sync check: the bodies of {bodies} ran eagerly "
+              f"under set_sync_debug_mode('error') without a sync")
+    return out
+
+
+def _rwkv_sampled(torch, card):
+    """(b) rwkv6-3b at full width, sampled chain ``generate`` at
+    temperature 0.8 (row 0 of seed 0's stream), eagerly and with graphs:
+    equal tokens and launch counts, K5 32 x (prefill chunks + 2 x
+    steps), the sampled state body under the sync check."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import init_params
+    cfg = get_config("rwkv6-3b")
+    spec, dcfg = SpecPVConfig(), DraftConfig()
+    params = init_params(cfg, seed=0, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=1, device="cuda")
+    n, new = RWKV_SAMPLED_PROMPT, RWKV_SAMPLED_NEW
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (1, n)).astype(np.int64)
+    max_len = request_token_need(n, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    runs = {}
+    for graphs in (False, True):
+        label = RUN_LABEL[graphs]
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, paged=False,
+                           temperature=SAMPLED_TEMP, device="cuda",
+                           cuda_graphs=graphs)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, stats = eng.generate(prompt, new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        want = cfg.num_layers * (-(-n // 256) + 2 * stats["steps"])
+        if launches["wkv"] != want or stats["modes"] != {
+                "state": stats["steps"]}:
+            raise AssertionError(f"rwkv sampled [{label}]: wkv "
+                                 f"{launches['wkv']} != {want} or modes "
+                                 f"{stats['modes']}")
+        if toks.min() < 0 or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"rwkv sampled tokens out of range")
+        say(card, f"rwkv6-3b sampled chain generate [{label}] T "
+                  f"{SAMPLED_TEMP}, prompt {n} (phase 5: 8192), new {new}: "
+                  f"steps {stats['steps']} mean_accept "
+                  f"{stats['mean_accept']:.4f} wall_s {wall:.3f} "
+                  f"tokens_per_s {new / wall:.2f} wkv launches "
+                  f"{launches['wkv']} (= {cfg.num_layers} x "
+                  f"({-(-n // 256)} chunks + 2 x {stats['steps']} steps)) "
+                  f"graphs {sorted(map(str, eng._graphs))}")
+        runs[label] = dict(toks=toks, launches=launches, wall_s=wall,
+                           tokens_per_s=new / wall,
+                           mean_accept=stats["mean_accept"])
+        if not graphs:
+            eng.prefill(prompt[:, :512])
+            _no_sync(torch, eng._state_body)
+            say(card, "rwkv sampled sync check: the sampled state body ran "
+                      "eagerly under set_sync_debug_mode('error')")
+        del eng
+        torch.cuda.empty_cache()
+    compare_runs(card, "rwkv6-3b sampled", runs)
+    del params, dparams
+    torch.cuda.empty_cache()
+    return runs["graphs"]
+
+
+def _sampled_fp32_checks(torch, card, new: int = 32):
+    """(c) fp32 at full width, 4 layers, TF32 off, with graphs, on
+    ``ServingConfig()``'s layout at batch 3 (prompts of 3000, 4800 and
+    5300 tokens: Full, Refresh and Partial ticks): the greedy request of a
+    mixed batch (greedy tree, sampled tree, sampled chain) equals its
+    tokens in an all-greedy batch; the sampled requests give the same
+    tokens alone and admitted in another order; on the paged pool, a fork
+    of a sampled slot replays its source's tokens."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    cfg, spec, dcfg, params, dparams, _, _ = _lossless_setup(torch, 16, 1)
+    rng = np.random.default_rng(1)
+    prompts = {r: rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for r, n in (("g", 3000), ("s", 4800), ("c", 5300))}
+    kinds = {"g": (0.0, "tree"), "s": (SAMPLED_TEMP, "tree"),
+             "c": (SAMPLED_TEMP, "chain")}
+    seeds = {"g": 1, "s": 7, "c": 9}
+    max_len = 5632
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+        batch=3, max_len=max_len), device="cuda")
+    t0 = time.perf_counter()
+
+    def serve(order, greedy=False):
+        srv.reset_warm()
+        for r in order:
+            t, d = (0.0, "tree") if greedy else kinds[r]
+            srv.submit(Request(request_id=r, prompt=prompts[r],
+                               max_new_tokens=new, temperature=t,
+                               seed=seeds[r], draft=d))
+        srv.run()
+        return {r: srv.outputs[r].tokens for r in order}
+    mixed = serve(["g", "s", "c"])
+    modes = {k: int(v) for k, v in srv.stats.items()
+             if k.startswith("mode_rows_")}
+    checks = [("the greedy row == an all-greedy batch's",
+               serve(["g", "s", "c"], greedy=True)["g"], mixed["g"]),
+              ("the sampled tree request alone", serve(["s"])["s"],
+               mixed["s"])]
+    reordered = serve(["c", "s", "g"])
+    checks += [("the sampled tree request admitted second of c, s, g",
+                reordered["s"], mixed["s"]),
+               ("the sampled chain request admitted first",
+                reordered["c"], mixed["c"])]
+    for label, got, want in checks:
+        if not np.array_equal(got, want):
+            raise AssertionError(f"fp32 sampled serving: {label} differs:\n"
+                                 f"{got}\n{want}")
+    del srv
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
+                       max_len=max_len, paged=True, zero_copy=True,
+                       device="cuda")
+    st = eng.empty_state()
+    st, first = eng.prefill_into_slot(st, 0, prompts["s"],
+                                      temperature=SAMPLED_TEMP, seed=7)
+    st = eng.fork_slot(st, 0, 1)
+    rows = np.ones((2,), bool)
+    toks = {0: [first], 1: [first]}
+    for _ in range(8):
+        st, so = eng.step_fused(st, rows, eng.modes_for_rows(st, rows))
+        for i in (0, 1):
+            toks[i].extend(int(x) for x in so.tokens[i, :so.counts[i]])
+    if toks[0] != toks[1] or len(toks[0]) < 9:
+        raise AssertionError(f"fork of a sampled slot: {toks}")
+    say(card, f"sampled fp32 llama3.1-8b x4 layers, graphs, ServingConfig() "
+              f"batch 3, prompts 3000/4800/5300, {new} new tokens (mode rows "
+              f"{modes}): " + "; ".join(lb for lb, _, _ in checks)
+              + f" equal; a fork of a sampled slot replays its source "
+              f"({len(toks[0])} tokens each over 8 ticks); "
+              f"{time.perf_counter() - t0:.1f} s")
+    del eng, params, dparams
+    torch.cuda.empty_cache()
+
+
+def _sampled_trained_pair(torch, card, n: int = 256, new: int = 4):
+    """(d) On phase 10's trained tiny pair (fp32): tau greedy and at
+    temperature 0.8 over eight 192-token corpus prompts (32 new tokens),
+    and ``n`` requests of one 24-token corpus prompt at 0.8 (seeds
+    0..n-1, batch 8, every tick Full) against the port's
+    ``autoregressive_sample`` (seeds 10000..) by the reference's
+    two-sample bound (4 sigma of the pooled frequency plus 0.02)."""
+    import numpy as np
+    from repro_torch.artifacts import corpus_for, get_trained_pair
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.core.reference import autoregressive_sample
+    from repro_torch.data import continuation_task
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    cfg, dcfg, params, dparams = get_trained_pair("tiny-dense",
+                                                  device="cuda")
+    spec = SpecPVConfig(block_size=16, num_sink_blocks=1,
+                        retrieval_budget_blocks=4, local_window_blocks=2,
+                        buffer_size=48)
+    corpus = corpus_for(cfg)
+    prompts, _ = continuation_task(corpus, batch=8, context_len=192)
+    tau = {}
+    for temp in (0.0, SAMPLED_TEMP):
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+            batch=8, max_len=416), device="cuda")
+        for i, p in enumerate(prompts):
+            srv.submit(Request(request_id=f"t{i}", prompt=p,
+                               max_new_tokens=32, temperature=temp, seed=i))
+        srv.run()
+        tau[temp] = float(np.mean([o.mean_accept
+                                   for o in srv.outputs.values()]))
+        del srv
+    prompt = prompts[0, :24]
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+        batch=8, max_len=128), device="cuda")
+    for i in range(n):
+        srv.submit(Request(request_id=f"r{i}", prompt=prompt,
+                           max_new_tokens=new, temperature=SAMPLED_TEMP,
+                           seed=i))
+    srv.run()
+    if srv.stats.get("mode_rows_refresh") or srv.stats.get(
+            "mode_rows_partial"):
+        raise AssertionError(f"the distribution check must verify Full "
+                             f"only: {dict(srv.stats)}")
+    spec_toks = np.stack([srv.outputs[f"r{i}"].tokens for i in range(n)])
+    ar = autoregressive_sample(cfg, params, np.tile(prompt[None], (n, 1)),
+                               new, max_len=32, temperature=SAMPLED_TEMP,
+                               seeds=list(range(10_000, 10_000 + n)),
+                               spec=spec, device="cuda")
+    worst = 0.0
+    for pos in range(new):
+        fs = np.bincount(spec_toks[:, pos], minlength=cfg.vocab_size) / n
+        fa = np.bincount(ar[:, pos], minlength=cfg.vocab_size) / n
+        p = (fs + fa) / 2
+        bound = 4 * np.sqrt(2 * p * (1 - p) / n) + 0.02
+        worst = max(worst, float(np.max(np.abs(fs - fa) / bound)))
+    if worst > 1.0:
+        raise AssertionError(f"trained pair: sampled serving's token "
+                             f"frequencies leave the two-sample bound "
+                             f"(worst {worst:.3f} of it)")
+    say(card, f"sampled trained tiny pair (fp32): tau greedy "
+              f"{tau[0.0]:.4f}, at T {SAMPLED_TEMP} {tau[SAMPLED_TEMP]:.4f} "
+              f"(8 corpus prompts of 192, 32 new tokens); {n} sampled "
+              f"requests vs autoregressive_sample over {new} positions: the "
+              f"largest frequency gap is {worst:.3f} of the two-sample "
+              f"bound; PYTHONHASHSEED "
+              f"{os.environ.get('PYTHONHASHSEED', 'unset')}")
+    return dict(tau=tau, worst=worst)
+
+
+def phase_sampled_serving(torch, card, trained: bool):
+    """Phase 11: (a) the arms at full width with their profile and sync
+    check, (b) the sampled rwkv6-3b chain, (c) the fp32 identities, (d)
+    with ``trained`` (phase 10 ran in this process) its pair's tau and
+    distribution check."""
+    import gc
+    from repro_torch.kernels import ops
+    # earlier phases' engines hold their graph pools until the cyclic
+    # collector runs (phase 10's finding)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg, spec, dcfg, params, dparams, _ = _llama_full_width(
+        torch, card, "sampled serving")
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in SERVE_REQS]
+    arms, launches, eng, srv = _sampled_arms(torch, card, cfg, spec, dcfg,
+                                             params, dparams, prompts)
+    prof = _profile_arm_ticks(torch, card, eng, prompts)
+    for name in arms:
+        arms[name].update({f"profile_{k}": v for k, v in prof[name].items()})
+    del srv, eng, params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LLAMA_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched in (a)")
+    rwkv = _rwkv_sampled(torch, card)
+    launches["wkv"] = rwkv["launches"]["wkv"]
+    if launches["wkv"] <= 0:
+        raise AssertionError("K5 was not launched in (b)")
+    _sampled_fp32_checks(torch, card)
+    pair = _sampled_trained_pair(torch, card) if trained else None
+    secs = time.perf_counter() - t_phase
+    say(card, f"phase 11 launches {launches}; phase 11 took {secs:.1f} s")
+    return dict(arms=arms, launches=launches, rwkv=dict(
+        tokens_per_s=rwkv["tokens_per_s"], mean_accept=rwkv["mean_accept"]),
+        pair=pair, seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
                          "(llama serving with shared prefixes), 8 (the "
                          "reference's default engine: contiguous cache, "
                          "gathered partial cache), 9 (the fused multi-row "
-                         "prefill), 10 (training and the paper's table 1); "
-                         "1 and 11 always run")
+                         "prefill), 10 (training and the paper's table 1), "
+                         "11 (sampled serving); 1 and 12 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -4099,6 +4582,8 @@ def main(argv=None) -> int:
           else {"launches": {}, "contiguous_launches": {},
                 "prefix_launches": {}, "shapes": {}})
     p10 = phase_train(torch, card) if 10 in phases else None
+    p11 = (phase_sampled_serving(torch, card, trained=p10 is not None)
+           if 11 in phases else {"launches": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -4123,6 +4608,8 @@ def main(argv=None) -> int:
                          training_launches=int(
                              (p10 or {"launches": {}})["launches"].get(
                                  name, 0)),
+                         sampled_serving_launches=int(
+                             p11["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -4148,6 +4635,8 @@ def main(argv=None) -> int:
                                                               **vals))
     if p10 is not None:
         say(card, "training " + json.dumps(p10))
+    if 11 in phases:
+        say(card, "sampled serving " + json.dumps(p11))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

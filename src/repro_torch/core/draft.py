@@ -1,6 +1,7 @@
 """EAGLE-3-style self-speculative draft module (counterpart of
-``repro/core/draft.py``, greedy drafting on the paged draft cache of the
-dense engine or the contiguous one of the state-arch engine).
+``repro/core/draft.py``: greedy or sampled drafting on the paged draft
+cache of the dense engine or the contiguous one of the state-arch
+engine).
 
 One decoder layer whose input is ``in_proj(concat(token_emb, fused))``
 with ``fused = fuse(concat(h_low, h_mid, h_top))``; token prediction
@@ -14,6 +15,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import DraftConfig, ModelConfig
+from repro_torch.core.sampling import draw
 from repro_torch.core.tree import TreeSpec, tree_tensors
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as bk
@@ -144,20 +146,24 @@ def draft_extend(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict,
 
 
 def draft_phase(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
-                tree: TreeSpec, cache: Dict, ext_tokens, ext_feats, ext_len):
+                tree: TreeSpec, cache: Dict, ext_tokens, ext_feats, ext_len,
+                u=None, temps=None):
     """The draft half of one step: extend the draft cache with the
     previous step's accepted tokens, then draft a candidate tree from
-    the last valid entry.  Returns (cache, tree_tokens [B, T],
-    tree_logp [B, T])."""
+    the last valid entry (sampled rows with ``u`` / ``temps``, see
+    ``tree_draft``).  Returns (cache, tree_tokens [B, T], aux): the
+    tree's log-probs [B, T] (greedy) or its node logits [B, T+1, V]
+    (sampled)."""
     emax = ext_tokens.shape[1]
     ext_valid = (torch.arange(emax, device=ext_tokens.device)[None]
                  < ext_len[:, None])
     cache, h_root, logits_root = draft_extend(
         cfg, dcfg, dp, target_params, cache, ext_tokens, ext_feats,
         ext_valid)
-    tree_tokens, logp = tree_draft(cfg, dcfg, dp, target_params, cache,
-                                   tree, h_root, logits_root)
-    return cache, tree_tokens, logp
+    tree_tokens, aux = tree_draft(cfg, dcfg, dp, target_params, cache,
+                                  tree, h_root, logits_root, u=u,
+                                  temps=temps)
+    return cache, tree_tokens, aux
 
 
 def _top_b(logits, bfac: int):
@@ -170,11 +176,17 @@ def _top_b(logits, bfac: int):
 
 
 def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
-               cache: Dict, tree: TreeSpec, h_root, logits_root
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Draft the static tree greedily (deterministic top-k per parent;
-    read-only w.r.t. the cache).  Returns (tree_tokens [B, T],
-    tree_logp [B, T])."""
+               cache: Dict, tree: TreeSpec, h_root, logits_root, u=None,
+               temps=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Draft the static tree (read-only w.r.t. the cache): greedily, the
+    deterministic top-k per parent, or, given the draft uniforms ``u``
+    [B, T] and the rows' temperatures ``temps`` [B], sampled: node n is
+    drawn at ``u[:, n]`` from softmax(parent logits / T), so a parent's
+    children are i.i.d. draws (lossless verification needs them).  Rows
+    at temperature 0 keep the top-k tokens bit for bit, so greedy and
+    sampled rows draft in one step.  Returns (tree_tokens [B, T],
+    tree_logp [B, T]) greedy, or (tree_tokens, node_logits [B, T+1, V]:
+    the root's draft logits first, then each node's) sampled."""
     dev = h_root.device
     mcfg, inv_freq, mscale = _rope(cfg, dev)
     b = h_root.shape[0]
@@ -193,6 +205,12 @@ def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
     parent_logits = {-1: logits_root}
     parent_h = {-1: h_root}
     lp = dp["layer"]
+    sampled = u is not None
+    if sampled:
+        sample_rows = temps > 0.0
+        # greedy lanes never read their draw; 1.0 keeps the softmax finite
+        t_eff = torch.where(sample_rows, torch.clamp(temps, min=1e-6),
+                            torch.ones_like(temps))[:, None, None]
     for l, (lo, hi) in enumerate(tree.level_slices):
         bfac = tree.branch[l]
         tops = {}
@@ -207,6 +225,16 @@ def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
             new_logp.append(topv[:, rank])
             feats.append(parent_h[p])
         toks_l = torch.stack(new_tokens, dim=1).to(torch.int32)  # [B, n_l]
+        if sampled:
+            # the level's parents in order, each with its bfac children
+            # (``from_branch``'s layout): one softmax per parent
+            pids = list(dict.fromkeys(tree.parents[lo:hi]))
+            lg = torch.stack([parent_logits[p] for p in pids], dim=1)
+            drawn = draw(torch.softmax(lg.float() / t_eff, dim=-1),
+                         u[:, lo:hi].reshape(b, len(pids), bfac))
+            toks_l = torch.where(sample_rows[:, None],
+                                 drawn.reshape(b, hi - lo).to(torch.int32),
+                                 toks_l)
         feat_l = torch.stack(feats, dim=1)                       # [B, n_l, d]
         # static level offsets always fit, so the reference's
         # dynamic_update_slice needs no clamp here
@@ -236,9 +264,12 @@ def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
         h = h + bk.mlp_fwd(mcfg, lp["mlp"], xn)
         node_k[:, lo:hi] = k_new
         node_v[:, lo:hi] = v_new
-        if l + 1 < tree.depth:
+        if l + 1 < tree.depth or sampled:
             lg_l = draft_head(cfg, dp, target_params, h)     # [B, n_l, V]
             for i, n in enumerate(range(lo, hi)):
                 parent_logits[n] = lg_l[:, i]
                 parent_h[n] = h[:, i]
+    if sampled:
+        return tree_tokens, torch.stack(
+            [logits_root] + [parent_logits[n] for n in range(t)], dim=1)
     return tree_tokens, tree_logp

@@ -1,5 +1,5 @@
 """SpecPV generation engine (counterpart of ``repro/core/engine.py``,
-paper Algorithm 1), greedy:
+paper Algorithm 1):
 
   prefill (chunked) -> [ draft -> verify(mode) -> accept -> commit ]*
 
@@ -56,8 +56,18 @@ any still-shared block a forked row is about to write.
 State architectures (RWKV-6, ``paged=False``) have no KV cache, so
 partial verification does not apply: each step (mode ``"state"``,
 ``_step_state``) drafts a chain, verifies it with a read-only pass,
-accepts greedily and advances the recurrent state over the pending
-token and the accepted prefix.
+accepts and advances the recurrent state over the pending token and the
+accepted prefix.
+
+Sampling (``core/sampling.py``): every slot carries its own random
+stream (``EngineState.keys``, derived from the request's seed at
+admission) and temperature (``temps``).  Rows at temperature 0 accept
+greedily, exactly as in an all-greedy step; sampled rows draft i.i.d.
+children and accept by multi-round rejection.  A slot admitted with
+``draft="chain"`` verifies only the tree's rank-0 chain
+(``TreeSpec.chain_mask``), so chain and tree slots, greedy and sampled,
+step together.  Whether a step has sampled rows and chain rows joins
+its mode mix in the graph's key; the per-row behaviour is operands.
 """
 from __future__ import annotations
 
@@ -70,6 +80,7 @@ import torch
 
 from repro_torch.configs.base import DraftConfig, ModelConfig, SpecPVConfig
 from repro_torch.core import draft as dr
+from repro_torch.core import sampling as smp
 from repro_torch.core import tree as tr
 from repro_torch.core import verify as vf
 from repro_torch.device import resolve_device
@@ -85,8 +96,9 @@ from repro_torch.models import dense as dn
 
 @dataclass
 class EngineState:
-    """Per-batch decode state.  The greedy port carries no PRNG streams
-    or temperatures (sampling is ROADMAP.md queue 1, 'Sampling').
+    """Per-batch decode state, each row a slot with its own random stream
+    (``keys``, advanced only by the steps in which the row sampled) and
+    temperature (0: greedy).
 
     The reference keeps the gathered partial cache as one array per
     layer, [L, B, Hk, budget + buffer, Dh] with positions; the port
@@ -110,6 +122,8 @@ class EngineState:
     pkv_blocks: Any             # [B, L, Hk, NS] int32 logical ids, -1 unused
     pkv_body_k: Any             # [L, B, NS*bs, Hk, Dh] gathered body
     pkv_body_v: Any             # (size 0 on axis 2 when not gathered)
+    keys: Any                   # [B, 2] int64 per-slot stream keys
+    temps: Any                  # [B] float32 per-slot temperature
 
 
 def request_token_need(prompt_len: int, max_new_tokens: int,
@@ -136,8 +150,8 @@ class StepOutput:
 
 @dataclass
 class PrefillCursor:
-    """Resumable prefill of one slot (the reference's cursor without the
-    sampling fields or ``extra``, which the port refuses at begin).
+    """Resumable prefill of one slot (the reference's cursor without
+    ``extra``, which the port refuses at begin).
 
     ``off`` is the absolute offset of the next chunk; chunk boundaries
     stay absolute multiples of ``chunk``, so an interleaved prefill runs
@@ -151,7 +165,9 @@ class PrefillCursor:
     (``n_match``), the registrable full blocks (``n_full``), their chain
     keys and the entries registered so far (re-stamped as a chain).  A
     whole-prompt tail-entry hit is born exhausted: finalise boots from
-    ``boot_token`` with no prefill."""
+    ``boot_token`` with no prefill.  ``temperature`` / ``seed`` /
+    ``draft`` are the request's sampling knobs, committed to the slot at
+    finalise."""
     slot: int
     prompt: np.ndarray
     chunk: int
@@ -169,6 +185,9 @@ class PrefillCursor:
     chain_keys: List[bytes] = field(default_factory=list)
     chain_entries: List[Any] = field(default_factory=list)
     boot_token: Optional[int] = None    # tail-entry hit: stored token
+    temperature: float = 0.0
+    seed: int = 0
+    draft: str = "tree"
 
     @property
     def done(self) -> bool:
@@ -192,7 +211,8 @@ class PrefillCursor:
 _PKV_FIELDS = ("pkv_k", "pkv_v", "pkv_pos", "pkv_body_k", "pkv_body_v")
 _BODY_FIELDS = ("pkv_body_k", "pkv_body_v")
 _ROW_FIELDS = ("buf_len", "pending", "pending_len", "seq_len",
-               "ext_tokens", "ext_feats", "ext_len", "pkv_blocks")
+               "ext_tokens", "ext_feats", "ext_len", "pkv_blocks", "keys",
+               "temps")
 
 
 def write_state_slot(st: EngineState, sub: EngineState,
@@ -278,6 +298,7 @@ class SpecPVEngine:
                  dcfg: DraftConfig, params, draft_params, *,
                  batch: int, max_len: int,
                  partial_verification: bool = True,
+                 draft_chain: Optional[bool] = None,
                  temperature: float = 0.0,
                  paged: bool = False,
                  num_pages: Optional[int] = None,
@@ -295,10 +316,14 @@ class SpecPVEngine:
         only), through the page table in place (``spec.use_pallas``) or
         through each layer's materialised view (the reference's data
         flow); every route runs the kernels on the card.  Dense targets
-        draft trees; the state arch (``ssm``) runs with ``paged=False``
-        and chain drafts, without partial verification.  Both are greedy
-        (``temperature=0``); every other setting raises
-        NotImplementedError naming the ROADMAP item that will bring it.
+        draft trees (``draft_chain=True``: chains); the state arch
+        (``ssm``) runs with ``paged=False`` and chain drafts, without
+        partial verification.  ``temperature`` is the lock-step
+        ``generate``'s (each row's stream from seed 0) and the default of
+        a slot admission, which may set its own with its seed and draft
+        shape; the continuous scheduler wants a greedy engine.  Tiered
+        KV, a mesh and other architectures raise NotImplementedError
+        naming the ROADMAP item that will bring them.
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
         as in the reference; contiguous engines share nothing):
@@ -323,8 +348,6 @@ class SpecPVEngine:
             raise ValueError("zero-copy partial verification needs the "
                              "paged cache (paged=True); the contiguous "
                              "layout keeps the gather path")
-        if temperature != 0.0:
-            _unsupported("sampling (temperature > 0)", "Sampling")
         if tiered:
             _unsupported("tiered KV residency", "Tiered KV")
         if mesh is not None:
@@ -340,6 +363,7 @@ class SpecPVEngine:
         self.dparams = draft_params
         self.batch = batch
         self.max_len = max_len
+        self.temperature = float(temperature)
         self._nb_seq = -(-max_len // spec.block_size)
         self.paged = bool(paged)
         self.num_pages = (num_pages if num_pages is not None
@@ -365,16 +389,28 @@ class SpecPVEngine:
         self.zero_copy = bool(zero_copy and self.partial_enabled)
         self.gathered = self.partial_enabled and not self.zero_copy
         self._ns_blocks = spec.partial_budget_tokens // spec.block_size
-        self.tree = (tr.TreeSpec.from_branch(dcfg.tree_branch[
-            : dcfg.tree_depth]) if self.is_attn
-            else tr.TreeSpec.chain(dcfg.tree_depth))
+        if draft_chain is None:
+            draft_chain = not self.is_attn
+        self.tree = (tr.TreeSpec.chain(dcfg.tree_depth) if draft_chain
+                     else tr.TreeSpec.from_branch(
+                         dcfg.tree_branch[: dcfg.tree_depth]))
+        # a slot admitted with draft="chain" masks acceptance to the
+        # tree's rank-0 chain: the identity when the tree is a chain
+        self._tree_branching = any(bf > 1 for bf in self.tree.branch)
+        # host mirrors of the slots' temperatures and draft shapes:
+        # ``step_fused`` keys its graph by whether any stepped row samples
+        # or drafts a chain
+        self._slot_temp = np.full((batch,), self.temperature, np.float32)
+        self._slot_chain = np.zeros((batch,), bool)
         self.pmax = spec.buffer_size            # max pending (refresh input)
         self.emax = self.tree.max_path          # max draft-extend per step
         self.traffic = TrafficMeter()
         self._pkv_active = False        # lock-step automaton
         self._pkv_active_rows = np.zeros((batch,), bool)   # per slot
         self.dispatches = 0             # fused engine steps executed
-        self.dispatch_keys: Dict[Tuple[bool, bool, bool], int] = {}
+        # steps by graph key (has_full, has_partial, has_refresh,
+        # has_sampled, has_chain)
+        self.dispatch_keys: Dict[Tuple[bool, ...], int] = {}
         self.prefill_dispatches = 0     # slot prefill chunks run
         # slot prefill chunks by (rows, width): a graph ("fused_prefill",
         # rows, chunk) replays for each full-width key
@@ -472,7 +508,8 @@ class SpecPVEngine:
             ext_feats=torch.zeros((b, self.emax, 3 * cfg.d_model), dtype=dt,
                                   device=dev),
             ext_len=ints(b), pkv_blocks=self._init_pkv_blocks(b),
-            pkv_body_k=body_k, pkv_body_v=body_v)
+            pkv_body_k=body_k, pkv_body_v=body_v, keys=ints(b, 2),
+            temps=torch.zeros((b,), dtype=torch.float32, device=dev))
         # prefill: the chunk's inputs (by shape) and the carry between chunks
         self._chunk_toks: Dict[Tuple[int, int], torch.Tensor] = {}
         self._prev_feat = torch.zeros((b, 3 * cfg.d_model), dtype=dt,
@@ -505,10 +542,11 @@ class SpecPVEngine:
         # (``_slot_pools``), allocated at the first slot prefill
         self._carry: Optional[Tuple[Dict, Dict]] = None
         # the step's row operands, one host copy per step: the per-row
-        # modes and the mask of the rows that step
-        self._tick_in = ints(2, b, dtype=torch.int8)
+        # modes, the mask of the rows that step and of the chain rows
+        self._tick_in = ints(3, b, dtype=torch.int8)
         self._modes = self._tick_in[0]
         self._rows = self._tick_in[1].view(torch.bool)
+        self._is_chain = self._tick_in[2].view(torch.bool)
         # what the host reads after a step, packed for one copy: tokens
         # [B, D+1], counts, accept_len, pending_len, seq_len [B] each,
         # then (attention archs) pkv_blocks, read after a Refresh
@@ -594,6 +632,8 @@ class SpecPVEngine:
         assert prompt.shape[0] == self.batch
         self._pkv_active = False
         self._pkv_active_rows[:] = False
+        self._slot_temp[:] = self.temperature
+        self._slot_chain[:] = False
         self.final_state = None
         self._zero_static()
         st = self.state
@@ -673,18 +713,29 @@ class SpecPVEngine:
         _copy_into(dcache, dcache_n)
 
     def _boot_state(self, cache: Dict, dcache: Dict, logits_last, prev_feat,
-                    s0: int, bonus0: Optional[int] = None) -> EngineState:
-        """Post-prefill state of ``b`` rows from the greedy first token
-        (the argmax of ``logits_last``, or ``bonus0`` when a tail entry
-        stored it): the pending and extend queues seeded, the tail buffer
-        and routed selection empty.  Shared by the lock-step prefill and
-        the slot finalise, so both build the same automaton state."""
+                    s0: int, bonus0: Optional[int] = None,
+                    temperature: Optional[float] = None,
+                    seed: int = 0) -> EngineState:
+        """Post-prefill state of ``b`` rows: the first token (the argmax
+        of ``logits_last``, or at ``temperature`` > 0 a draw from the
+        rows' first-token keys, or ``bonus0`` when a tail entry stored
+        it) seeds the pending and extend queues, the rows' streams come
+        from ``seed``, the tail buffer and routed selection are empty.
+        Shared by the lock-step prefill and the slot finalise, so both
+        build the same automaton state."""
         cfg, dev = self.cfg, self.device
         b = prev_feat.shape[0]
-        if bonus0 is None:
-            bonus0 = torch.argmax(logits_last, dim=-1)
-        else:
+        temp = self.temperature if temperature is None else float(temperature)
+        k_first, keys = (self._to_device(k.numpy())
+                         for k in smp.seed_keys(seed, b))
+        if bonus0 is not None:
             bonus0 = torch.full((b,), bonus0, dtype=torch.long, device=dev)
+        elif temp > 0.0:
+            _, u = smp.stream_draws(k_first, 1)
+            bonus0 = smp.categorical(
+                torch.softmax(logits_last.float() / temp, dim=-1), u[:, 0])
+        else:
+            bonus0 = torch.argmax(logits_last, dim=-1)
         pending = torch.zeros((b, self.pmax), dtype=torch.long, device=dev)
         pending[:, 0] = bonus0
         ext_tokens = torch.zeros((b, self.emax), dtype=torch.long, device=dev)
@@ -703,7 +754,8 @@ class SpecPVEngine:
             pending_len=full(1), seq_len=full(s0 + 1), ext_tokens=ext_tokens,
             ext_feats=ext_feats, ext_len=full(1),
             pkv_blocks=self._init_pkv_blocks(b), pkv_body_k=body_k,
-            pkv_body_v=body_v)
+            pkv_body_v=body_v, keys=keys,
+            temps=torch.full((b,), temp, dtype=torch.float32, device=dev))
 
     # ------------------------------------------------------------------
     # per-slot state (continuous batching)
@@ -742,7 +794,8 @@ class SpecPVEngine:
             ext_feats=torch.zeros((1, self.emax, 3 * cfg.d_model),
                                   dtype=cm.dt(cfg.dtype), device=dev),
             ext_len=full(1), pkv_blocks=self._init_pkv_blocks(1),
-            pkv_body_k=body_k, pkv_body_v=body_v)
+            pkv_body_k=body_k, pkv_body_v=body_v, keys=full(0, 1, 2),
+            temps=torch.zeros((1,), dtype=torch.float32, device=dev))
 
     def _slots_only(self) -> None:
         if not self.is_attn:
@@ -756,6 +809,8 @@ class SpecPVEngine:
         self._slots_only()
         self._pkv_active = False
         self._pkv_active_rows[:] = False
+        self._slot_temp[:] = 0.0
+        self._slot_chain[:] = False
         self.final_state = None
         if self.paged:
             self._clear_prefix()
@@ -785,6 +840,8 @@ class SpecPVEngine:
         if self._neutral_sub is None:
             self._neutral_sub = self._neutral_state()
         self._pkv_active_rows[slot] = False
+        self._slot_temp[slot] = 0.0
+        self._slot_chain[slot] = False
         self._host_pending_len[slot] = 1
         self._host_seq_len[slot] = 1
         self._host_ext_len[slot] = 1
@@ -826,9 +883,10 @@ class SpecPVEngine:
         blocks the prefix cache holds (they attach by reference).  A
         whole-prompt tail-entry hit discounts every full block and keeps
         the tail block billed (its attach copies it into a fresh page).
-        Tail discounts apply to greedy requests only (the entry stores
-        the greedy first token); the port serves no others."""
-        temp = 0.0 if temperature is None else float(temperature)
+        ``temperature`` is the request's (default: the engine's): tail
+        discounts apply to greedy requests only, as the entry stores the
+        greedy first token."""
+        temp = self.temperature if temperature is None else float(temperature)
         need = self.pages_needed(len(prompt), max_new_tokens)
         if self._prefix is not None and temp == 0.0:
             tail = self._prefix.match_tail(np.asarray(prompt), touch=touch,
@@ -983,14 +1041,23 @@ class SpecPVEngine:
         never fail on pool exhaustion; raises RuntimeError, with the
         attach rolled back, when the pools cannot cover it even after LRU
         eviction.  The slot's device rows are neutralised: decode steps
-        may run between chunks."""
+        may run between chunks.  ``temperature`` (default: the engine's),
+        ``seed`` and ``draft`` ("tree" or "chain") are the request's
+        sampling knobs: finalise derives the slot's stream from the seed
+        alone, so its tokens do not depend on its neighbours or on when
+        it was admitted.  Only a greedy request boots from a tail entry
+        (the entry stores the greedy first token); a sampled one still
+        attaches the prompt's cached full blocks."""
         self._slots_only()
         self._own(st)
         if extra is not None:
             _unsupported("per-request conditioning (extra)",
                          "Other architectures")
-        if (temperature or 0.0) != 0.0 or draft != "tree":
-            _unsupported("sampled or chain requests", "Sampling")
+        if draft not in ("tree", "chain"):
+            raise ValueError(f"draft must be 'tree' or 'chain', not {draft!r}")
+        knobs = dict(temperature=(self.temperature if temperature is None
+                                  else float(temperature)),
+                     seed=int(seed), draft=draft)
         prompt = np.asarray(prompt)
         if not self.paged:
             # the slot's rows of the prefill carry, from zero as a fresh
@@ -1011,7 +1078,7 @@ class SpecPVEngine:
                 row_cache=self._cursor_row(rows, 0),
                 row_dcache=self._cursor_row(rows, 0),
                 tokens=torch.as_tensor(prompt, dtype=torch.long,
-                                       device=self.device))
+                                       device=self.device), **knobs)
             return self.clear_slot_rows(st, slot), cur
         bs = self.spec.block_size
         if self._prefix is not None and chunk % bs:
@@ -1026,10 +1093,11 @@ class SpecPVEngine:
                   else max(self.max_len - len(prompt), 0))
         total = self.pages_needed(len(prompt), budget)
         tail = (self._prefix.match_tail(prompt)
-                if self._prefix is not None else None)
+                if self._prefix is not None and knobs["temperature"] == 0.0
+                else None)
         if tail is not None:
             return self._attach_tail_slot(st, slot, prompt, chunk, total,
-                                          tail)
+                                          tail, knobs)
         entries = (self._prefix.match(prompt, (len(prompt) - 1) // bs)
                    if self._prefix is not None else [])
         n_match = len(entries)
@@ -1072,7 +1140,7 @@ class SpecPVEngine:
             chain_keys=(self._prefix.chain_keys(prompt, n_full)
                         if self._prefix is not None and n_full > n_match
                         else []),
-            chain_entries=list(entries))
+            chain_entries=list(entries), **knobs)
         return self.clear_slot_rows(st, slot), cur
 
     def _cursor_row(self, pt_host: np.ndarray, length: int) -> Dict:
@@ -1097,7 +1165,8 @@ class SpecPVEngine:
 
     def _attach_tail_slot(self, st: EngineState, slot: int,
                           prompt: np.ndarray, chunk: int, total: int,
-                          tail) -> Tuple[EngineState, PrefillCursor]:
+                          tail, knobs: Dict
+                          ) -> Tuple[EngineState, PrefillCursor]:
         """Whole-prompt tail-entry hit: attach the full-block chain by
         reference, copy the cached tail page into a fresh page of the slot
         on the card (its first decode commit writes into that block, so
@@ -1138,7 +1207,8 @@ class SpecPVEngine:
             row_cache=self._cursor_row(pt_host, s0),
             row_dcache=self._cursor_row(dpt_host, s0),
             pt_host=pt_host, dpt_host=dpt_host, total_pages=total,
-            n_match=n_match, n_full=n_match, boot_token=te.first_token)
+            n_match=n_match, n_full=n_match, boot_token=te.first_token,
+            **knobs)
         return self.clear_slot_rows(st, slot), cur
 
     def _register_tail(self, st: EngineState, cur: PrefillCursor) -> None:
@@ -1146,9 +1216,10 @@ class SpecPVEngine:
         whole-prompt tail entry, then give the slot a private copy of that
         block (``cow_write`` and a page copy): its next commit writes into
         the block, and the cached bytes must stay as registered.  Skipped
-        for block-aligned prompts, an incomplete chain, or no free page.
-        Reads the greedy first token to the host (once per admission)."""
-        if self._prefix is None:
+        for block-aligned prompts, an incomplete chain, a sampled request
+        (the entry stores the greedy first token) or no free page.  Reads
+        the greedy first token to the host (once per admission)."""
+        if self._prefix is None or cur.temperature != 0.0:
             return
         bs = self.spec.block_size
         prompt = cur.prompt
@@ -1378,9 +1449,12 @@ class SpecPVEngine:
         rows, drows = ((cur.row_cache, cur.row_dcache) if self.paged
                        else self._carry_rows(cur))
         sub = self._boot_state(rows, drows, cur.logits_last, cur.prev_feat,
-                               len(cur.prompt), bonus0=cur.boot_token)
+                               len(cur.prompt), bonus0=cur.boot_token,
+                               temperature=cur.temperature, seed=cur.seed)
         write_state_slot(st, sub, cur.slot)
         self._pkv_active_rows[cur.slot] = False
+        self._slot_temp[cur.slot] = cur.temperature
+        self._slot_chain[cur.slot] = cur.draft == "chain"
         self._host_pending_len[cur.slot] = 1
         self._host_seq_len[cur.slot] = len(cur.prompt) + 1
         self._host_ext_len[cur.slot] = 1
@@ -1428,7 +1502,9 @@ class SpecPVEngine:
         pool bytes copied) and its pins; the row's state and its host
         mirrors are copied in place.  ``prepare_cow`` gives a stepping row
         a private copy of any still-shared block in its write windows
-        before its first commit, so neither branch perturbs the other."""
+        before its first commit, so neither branch perturbs the other.
+        The replica takes the source's stream, temperature and draft
+        shape: until one is re-admitted, both emit the same tokens."""
         self._slots_only()
         self._own(st)
         assert src != dst
@@ -1438,7 +1514,8 @@ class SpecPVEngine:
             al.free_slot(dst)                   # stale pages, if any
             al.fork(src, dst)
         for mirror in (self._pkv_active_rows, self._host_pending_len,
-                       self._host_seq_len, self._host_ext_len):
+                       self._host_seq_len, self._host_ext_len,
+                       self._slot_temp, self._slot_chain):
             mirror[dst] = mirror[src]
         self._forked_slots.update((src, dst))
         return write_state_slot(st, self._read_slot(st, src), dst)
@@ -1548,11 +1625,16 @@ class SpecPVEngine:
                              self._graph_pool)
 
     def _fused_body(self, has_full: bool, has_partial: bool,
-                    has_refresh: bool) -> None:
+                    has_refresh: bool, has_sampled: bool = False,
+                    has_chain: bool = False) -> None:
         nxt, out = self._step_fused(self.state, self._modes,
-                                    active=self._rows, has_full=has_full,
+                                    active=self._rows,
+                                    is_chain=self._is_chain,
+                                    has_full=has_full,
                                     has_partial=has_partial,
-                                    has_refresh=has_refresh)
+                                    has_refresh=has_refresh,
+                                    has_sampled=has_sampled,
+                                    has_chain=has_chain)
         self._store(nxt, out)
 
     def _state_body(self) -> None:
@@ -1595,6 +1677,39 @@ class SpecPVEngine:
                              "prefill returned")
 
     # ------------------------------------------------------------------
+    def _draws(self, st: EngineState, rows):
+        """One step of every row's stream: (the next keys, advanced only
+        where a row in ``rows`` samples; the draft's uniforms [B, T]; the
+        acceptance uniforms [B, T+1], the bonus's last)."""
+        t = self.tree.size
+        nxt, u = smp.stream_draws(st.keys, 2 * t + 1)
+        adv = rows & (st.temps > 0.0)
+        return torch.where(adv[:, None], nxt, st.keys), u[:, :t], u[:, t:]
+
+    def _accept(self, st, tree_tokens, aux, out, vin, u_acc, node_valid):
+        """Greedy acceptance, and with the acceptance uniforms ``u_acc``
+        (a step with sampled rows) the lossless sampled acceptance of the
+        rows at temperature > 0; greedy rows keep the greedy result, as
+        in an all-greedy step.  Returns (path, accept_len, bonus)."""
+        tree = self.tree
+        path, acc, bonus, _ = tr.greedy_tree_accept(
+            tree, tree_tokens, out.logits, vin["root_slot"],
+            vin["node_slots"], node_valid=node_valid)
+        if u_acc is None:
+            return path, acc, bonus
+        sampled = st.temps > 0.0
+        # greedy lanes run the sampled math at temperature 1.0, which
+        # keeps their softmax finite; the row select drops them
+        path_s, acc_s, bonus_s = smp.tree_speculative_sample(
+            tree, tree_tokens, aux, out.logits, vin["root_slot"],
+            vin["node_slots"], u_acc[:, :tree.size], u_acc[:, tree.size],
+            temperature=torch.where(sampled, st.temps,
+                                    torch.ones_like(st.temps)),
+            node_valid=node_valid)
+        return (torch.where(sampled[:, None], path_s, path),
+                torch.where(sampled, acc_s, acc),
+                torch.where(sampled, bonus_s, bonus))
+
     def _post_accept(self, st, vin, out, tree_tokens, path, acc, bonus):
         """Ext-queue + seq_len bookkeeping shared by every mode."""
         b = bonus.shape[0]
@@ -1618,14 +1733,19 @@ class SpecPVEngine:
         return newtoks, ext_feats, acc + 1, st.seq_len + acc + 1
 
     def _step_fused(self, st: EngineState, modes, *, active=None,
-                    has_full: bool, has_partial: bool, has_refresh: bool
-                    ) -> Tuple[EngineState, Tuple]:
-        """One fused multi-mode greedy step over per-row ``modes`` [B]
-        (the greedy body of the reference's ``_step_fused``) of the rows
-        where ``active`` [B] bool is set (default: every row).  Returns
-        the next state (the pool, its summaries and the draft pool
-        written in place, the other fields new tensors) and (tokens,
-        counts, accept_len).
+                    is_chain=None, has_full: bool, has_partial: bool,
+                    has_refresh: bool, has_sampled: bool = False,
+                    has_chain: bool = False) -> Tuple[EngineState, Tuple]:
+        """One fused multi-mode step over per-row ``modes`` [B] (the
+        reference's ``_step_fused``) of the rows where ``active`` [B]
+        bool is set (default: every row).  ``has_sampled``: some rows
+        sample (``st.temps`` > 0), so the step draws from the streams,
+        drafts those rows' children i.i.d. and accepts them by
+        rejection; ``has_chain``: the rows set in ``is_chain`` [B] bool
+        accept within the tree's rank-0 chain.  Without either flag the
+        step is the greedy body, op for op.  Returns the next state (the
+        pool, its summaries and the draft pool written in place, the
+        other fields new tensors) and (tokens, counts, accept_len).
 
         Every row computes; a row outside ``active`` commits nothing (its
         cache and buffer writes get count 0, so its lengths stay) and
@@ -1637,9 +1757,17 @@ class SpecPVEngine:
         b, dev = self.batch, self.device
         act = (active if active is not None
                else torch.ones((b,), dtype=torch.bool, device=dev))
-        dcache, tree_tokens, _ = dr.draft_phase(
+        keys, u_draft, u_acc = st.keys, None, None
+        if has_sampled:
+            keys, u_draft, u_acc = self._draws(st, act)
+        dcache, tree_tokens, aux = dr.draft_phase(
             cfg, self.dcfg, self.dparams, self.params, tree, st.dcache,
-            st.ext_tokens, st.ext_feats, st.ext_len)
+            st.ext_tokens, st.ext_feats, st.ext_len, u=u_draft,
+            temps=st.temps if has_sampled else None)
+        node_valid = None
+        if has_chain:
+            node_valid = (~is_chain[:, None]
+                          | tr.tree_tensors(tree, dev).chain[None, :])
         is_partial = modes == MODE_PARTIAL
         is_refresh = modes == MODE_REFRESH
         last_tok = torch.gather(
@@ -1671,9 +1799,8 @@ class SpecPVEngine:
             partial_rows=is_partial if decode_kind == "fused" else None,
             pkv_blocks=(st.pkv_blocks.movedim(0, 1) if has_partial
                         else None))
-        path, acc, bonus, _ = tr.greedy_tree_accept(
-            tree, tree_tokens, out.logits, vin["root_slot"],
-            vin["node_slots"])
+        path, acc, bonus = self._accept(st, tree_tokens, aux, out, vin,
+                                        u_acc, node_valid)
         newtoks, ext_feats, ext_len, seq_len = self._post_accept(
             st, vin, out, tree_tokens, path, acc, bonus)
         slots, slot_valid = vf.commit_slots(tree, vin["pend_valid"], path,
@@ -1776,20 +1903,28 @@ class SpecPVEngine:
             pkv_pos=pkv_pos, buf_len=buf_len, pending=pending,
             pending_len=pending_len, seq_len=seq_len, ext_tokens=ext_tokens,
             ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=pkv_blocks,
-            pkv_body_k=body_k, pkv_body_v=body_v)
+            pkv_body_k=body_k, pkv_body_v=body_v, keys=keys, temps=st.temps)
         return st2, (newtoks, acc + 1, acc)
 
     def _step_state(self, st: EngineState) -> Tuple[EngineState, Tuple]:
-        """One greedy chain step of a state arch: draft a chain, verify
-        it with a read-only pass over [pending token | chain], accept
-        the longest matching prefix, then advance the recurrent state
-        over the pending token and the accepted tokens (``valid`` =
-        1 + accepted; the padded tail leaves the state as it was)."""
+        """One chain step of a state arch: draft a chain, verify it with a
+        read-only pass over [pending token | chain], accept (greedily: the
+        longest matching prefix; at the engine's temperature > 0 by
+        rejection, with a draft sampled from the rows' streams), then
+        advance the recurrent state over the pending token and the
+        accepted tokens (``valid`` = 1 + accepted; the padded tail leaves
+        the state as it was)."""
         cfg, tree = self.cfg, self.tree
         b, dev = self.batch, self.device
-        dcache, tree_tokens, _ = dr.draft_phase(
+        keys, u_draft, u_acc = st.keys, None, None
+        sampled = self.temperature > 0.0
+        if sampled:
+            keys, u_draft, u_acc = self._draws(
+                st, torch.ones((b,), dtype=torch.bool, device=dev))
+        dcache, tree_tokens, aux = dr.draft_phase(
             cfg, self.dcfg, self.dparams, self.params, tree, st.dcache,
-            st.ext_tokens, st.ext_feats, st.ext_len)
+            st.ext_tokens, st.ext_feats, st.ext_len, u=u_draft,
+            temps=st.temps if sampled else None)
         pend_in = st.pending[:, :1]
         ones = torch.ones((b,), dtype=torch.long, device=dev)
         vin = vf.build_verify_inputs_fused(tree, pend_in, ones, ones,
@@ -1797,9 +1932,8 @@ class SpecPVEngine:
         out = api.decode(cfg, self.params, vin["tokens"], vin["positions"],
                          st.cache, self_mask=vin["self_mask"],
                          spec=self.spec)
-        path, acc, bonus, _ = tr.greedy_tree_accept(
-            tree, tree_tokens, out.logits, vin["root_slot"],
-            vin["node_slots"])
+        path, acc, bonus = self._accept(st, tree_tokens, aux, out, vin, u_acc,
+                                        None)
         newtoks, ext_feats, ext_len, seq_len = self._post_accept(
             st, vin, out, tree_tokens, path, acc, bonus)
         path_toks = torch.where(
@@ -1817,7 +1951,8 @@ class SpecPVEngine:
             pkv_pos=st.pkv_pos, buf_len=st.buf_len, pending=pending,
             pending_len=ones, seq_len=seq_len, ext_tokens=newtoks,
             ext_feats=ext_feats, ext_len=ext_len, pkv_blocks=st.pkv_blocks,
-            pkv_body_k=st.pkv_body_k, pkv_body_v=st.pkv_body_v)
+            pkv_body_k=st.pkv_body_k, pkv_body_v=st.pkv_body_v, keys=keys,
+            temps=st.temps)
         return st2, (newtoks, acc + 1, acc)
 
     # ------------------------------------------------------------------
@@ -1876,9 +2011,12 @@ class SpecPVEngine:
         """One fused multi-mode step of the engine's state ``st``: every
         row where `rows` is True steps in the mode `modes` gives it, in
         one dispatch (one graph replay on the card) for any mix; the
-        other rows keep their state (see ``_step_fused``).  The row mask
-        and the modes go to the card in one copy; the graph is keyed by
-        the mode mix of the stepped rows."""
+        other rows keep their state (see ``_step_fused``).  The row mask,
+        the modes and the chain rows go to the card in one copy; the
+        graph is keyed by the mode mix of the stepped rows and by whether
+        any of them samples or drafts a chain (the host mirrors
+        ``_slot_temp`` / ``_slot_chain``), so an all-greedy tree step
+        replays ``(has_full, has_partial, has_refresh, False, False)``."""
         if not self.is_attn:
             raise ValueError("state archs step through step(st, 'state')")
         self._own(st)
@@ -1890,13 +2028,17 @@ class SpecPVEngine:
         has_refresh = bool(np.any(active_modes == MODE_REFRESH))
         has_full = has_refresh or bool(np.any(active_modes == MODE_FULL))
         has_partial = bool(np.any(active_modes == MODE_PARTIAL))
+        has_sampled = bool(np.any(self._slot_temp[rows] > 0.0))
+        # chain masking is the identity when the tree is a chain
+        has_chain = bool(self._tree_branching
+                         and np.any(self._slot_chain[rows]))
         # inactive rows compute in the first active mode (their results
         # are dropped), so every row runs a branch the variant has
         modes = np.where(rows, modes, active_modes[0]).astype(np.int8)
         st = self.prepare_cow(st, rows)
-        self._tick_in.copy_(torch.from_numpy(
-            np.stack([modes, rows.astype(np.int8)])))
-        key = (has_full, has_partial, has_refresh)
+        self._tick_in.copy_(torch.from_numpy(np.stack(
+            [modes, rows.astype(np.int8), self._slot_chain.astype(np.int8)])))
+        key = (has_full, has_partial, has_refresh, has_sampled, has_chain)
         self._run(key, lambda: self._fused_body(*key))
         self.dispatches += 1
         self.dispatch_keys[key] = self.dispatch_keys.get(key, 0) + 1
@@ -1995,8 +2137,9 @@ class SpecPVEngine:
     # ------------------------------------------------------------------
     def generate(self, prompt: np.ndarray, max_new_tokens: int,
                  eos_id: int = -1, prefill_chunk: int = 256):
-        """Greedy SpecPV generation.  Returns (tokens [B, max_new], stats
-        dict with steps, mean_accept, modes, tokens_per_step and
+        """SpecPV generation at the engine's temperature (greedy at 0; row
+        i's stream from seed 0's row i).  Returns (tokens [B, max_new],
+        stats dict with steps, mean_accept, modes, tokens_per_step and
         prefill_s: host seconds until the first token reached the host,
         which waits for the prefill on the device).  The state after the
         last step stays in ``final_state`` until the next prefill."""

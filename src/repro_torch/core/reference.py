@@ -1,5 +1,5 @@
-"""Greedy autoregressive decoding (counterpart of
-``repro/core/reference.py:autoregressive_generate``), in two forms.
+"""Autoregressive decoding (counterpart of ``repro/core/reference.py``):
+greedy in two forms, and sampled.
 
 ``autoregressive_generate`` is the losslessness oracle: on the port's
 contiguous cache through the plain attention and summaries
@@ -12,7 +12,12 @@ takes that route), or, for a state arch, one read-only decode and one
 through K2 and K4, each step a Full verification of one token through
 K1 on the contiguous cache and its commit through K4), each decode step
 replayed as one CUDA graph on the card.  In fp32 it gives the oracle's
-tokens."""
+tokens.
+
+``autoregressive_sample`` is the sampled oracle, the exact target
+distribution that speculative sampling must reproduce: the greedy
+oracle's route, each token drawn at a temperature from its row's own
+stream (``sampling.seed_keys``)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, SpecPVConfig
+from repro_torch.core import sampling as smp
 from repro_torch.core import verify as vf
 from repro_torch.core.engine import capture_graph
 from repro_torch.kernels import ops
@@ -28,14 +34,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models import api
 
 
-def autoregressive_generate(cfg: ModelConfig, params, prompt: np.ndarray,
-                            max_new_tokens: int, *, max_len: int,
-                            prefill_chunk: int = 256,
-                            spec: Optional[SpecPVConfig] = None,
-                            device=None) -> np.ndarray:
-    """Greedy AR decoding.  Returns tokens [B, max_new]."""
-    spec = spec or SpecPVConfig()
-    dev = resolve_device(device)
+def _plain_decode(cfg: ModelConfig, params, prompt: np.ndarray,
+                  max_new_tokens: int, max_len: int, prefill_chunk: int,
+                  spec: SpecPVConfig, dev, pick) -> np.ndarray:
+    """AR decoding on the oracle's route, each next token ``pick(logits
+    [B, V])``.  Returns tokens [B, max_new]."""
     b, s0 = prompt.shape
     cache = api.init_cache(cfg, b, max_len, spec, device=dev)
     prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
@@ -45,14 +48,14 @@ def autoregressive_generate(cfg: ModelConfig, params, prompt: np.ndarray,
         logits, _, cache = api.prefill(cfg, params,
                                        prompt_t[:, off: off + prefill_chunk],
                                        cache, spec=spec, plain=True)
-    cur = torch.argmax(logits, dim=-1)
+    cur = pick(logits)
     out = [cur]
     ones = torch.ones((b,), dtype=torch.int32, device=dev)
     for _ in range(max_new_tokens - 1):
         pos = cache["length"][:, None]
         o = api.decode(cfg, params, cur[:, None], pos, cache, mode="full",
                        spec=spec, plain=True)
-        nxt = torch.argmax(o.logits[:, 0], dim=-1)
+        nxt = pick(o.logits[:, 0])
         if cfg.is_attention_arch:
             ck, cv = o.new_kv
             cache = vf.append_full_cache(cache, ck, cv, ones, spec,
@@ -64,6 +67,48 @@ def autoregressive_generate(cfg: ModelConfig, params, prompt: np.ndarray,
         cur = nxt
         out.append(cur)
     return torch.stack(out, dim=1).cpu().numpy()
+
+
+def autoregressive_generate(cfg: ModelConfig, params, prompt: np.ndarray,
+                            max_new_tokens: int, *, max_len: int,
+                            prefill_chunk: int = 256,
+                            spec: Optional[SpecPVConfig] = None,
+                            device=None) -> np.ndarray:
+    """Greedy AR decoding.  Returns tokens [B, max_new]."""
+    return _plain_decode(cfg, params, prompt, max_new_tokens, max_len,
+                         prefill_chunk, spec or SpecPVConfig(),
+                         resolve_device(device),
+                         lambda lg: torch.argmax(lg, dim=-1))
+
+
+def autoregressive_sample(cfg: ModelConfig, params, prompt: np.ndarray,
+                          max_new_tokens: int, *, max_len: int,
+                          temperature: float, seeds,
+                          prefill_chunk: int = 256,
+                          spec: Optional[SpecPVConfig] = None,
+                          device=None) -> np.ndarray:
+    """AR sampling at ``temperature`` > 0: the exact target distribution
+    that the engine's sampled serving must match.  ``seeds`` holds one
+    seed per row; row i draws each token from softmax(logits /
+    temperature) with the next uniform of its stream
+    (``sampling.seed_keys(seeds[i], 1)``'s stream key).  Returns tokens
+    [B, max_new]."""
+    b = prompt.shape[0]
+    if len(seeds) != b:
+        raise ValueError("one seed per batch row")
+    temp = float(temperature)
+    if temp <= 0.0:
+        raise ValueError("use autoregressive_generate for greedy")
+    dev = resolve_device(device)
+    keys = torch.cat([smp.seed_keys(s, 1)[1] for s in seeds]).to(dev)
+
+    def pick(logits):
+        nonlocal keys
+        keys, u = smp.stream_draws(keys, 1)
+        return smp.categorical(torch.softmax(logits.float() / temp, dim=-1),
+                               u[:, 0])
+    return _plain_decode(cfg, params, prompt, max_new_tokens, max_len,
+                         prefill_chunk, spec or SpecPVConfig(), dev, pick)
 
 
 class CompiledAR:

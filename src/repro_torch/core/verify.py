@@ -47,7 +47,8 @@ def build_verify_inputs_fused(tree: TreeSpec, pending, pending_len, p_eff,
     tokens = torch.where(pend_q, pend_pad,
                          torch.where(tree_q, tree_g.to(pend_pad.dtype), zero))
     pend_valid_w = pend_q & (sidx < pending_len.long()[:, None])
-    _, depths, anc = tree_tensors(tree, dev)
+    tt = tree_tensors(tree, dev)
+    depths, anc = tt.depths, tt.anc
     pend_pos = seq_len.long()[:, None] - pending_len.long()[:, None] + sidx
     node_pos = seq_len.long()[:, None] + depths[tidx]
     positions = torch.where(pend_q, pend_pos,

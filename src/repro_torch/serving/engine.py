@@ -8,9 +8,10 @@
   decoding rows (one graph replay on the card).
 * ``"wave"``: the lock-step baseline.  Pending requests are bucketed by
   prompt length and run as fixed-size waves through the port's
-  ``generate`` on a contiguous engine, as in the reference; a state
-  architecture (``rwkv6-3b``) always serves this way, since continuous
-  batching drives the attention automaton.
+  ``generate`` on a contiguous greedy engine, as in the reference, which
+  ignores the requests' sampling fields; a state architecture
+  (``rwkv6-3b``) always serves this way, since continuous batching
+  drives the attention automaton.
 
 Runs on ``device`` (CUDA unless ``"cpu"`` is asked for), where the
 params must live; ``cuda_graphs`` goes to the engines as is.
@@ -98,8 +99,6 @@ class ServingEngine:
         self.stats = defaultdict(float)
 
     def submit(self, req: Request) -> None:
-        if req.temperature != 0.0 or req.draft != "tree":
-            _unsupported("sampled or chain requests", "Sampling")
         self.queue.append(req)
 
     def cancel(self, request_id: str) -> bool:

@@ -9,9 +9,8 @@ A request moves through the ``RequestPhase`` lifecycle
 generated token: one tick under blocking admission, several ticks when
 prompt chunks are interleaved with decode steps
 (``ServingConfig(prefill_budget=...)``).  Cancellation and deadline
-eviction apply in every phase.  The port serves greedy tree requests:
-``temperature > 0`` and ``draft="chain"`` are ROADMAP.md queue 1,
-'Sampling', and the scheduler refuses them at submission.
+eviction apply in every phase.  ``temperature`` (0: greedy), ``seed``
+(the slot's stream) and ``draft`` ("tree" or "chain") are per request.
 """
 from __future__ import annotations
 
@@ -44,7 +43,7 @@ class Request:
                                         # evicted (finish_reason "deadline")
     cancelled: bool = False
     phase: RequestPhase = RequestPhase.WAITING
-    # sampling knobs, kept with the reference's names and defaults
+    # sampling knobs, with the reference's names and defaults
     temperature: float = 0.0
     seed: int = 0
     draft: str = "tree"

@@ -33,6 +33,12 @@ card); ``fused_prefill=False`` keeps the serial pump, one chunk of one
 cursor per dispatch (``_pump_prefill_serial``), as the A/B baseline.
 Chunk boundaries stay absolute and pads write nothing, so interleaved
 tokens equal blocking ones either way.
+
+Sampling is per request, not per engine (the engine is built greedy):
+``Request.temperature`` / ``seed`` / ``draft`` go to the slot's prefill,
+which derives the slot's stream from the seed, so a sampled request's
+tokens do not depend on its neighbours or its admission order, and
+greedy, sampled, tree and chain rows share each tick's one step.
 """
 from __future__ import annotations
 
@@ -44,8 +50,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from repro_torch.core.engine import (MODE_NAMES, MODE_PARTIAL, MODE_REFRESH,
-                                     MODE_FULL, PrefillCursor, SpecPVEngine,
-                                     _unsupported)
+                                     MODE_FULL, PrefillCursor, SpecPVEngine)
 from repro_torch.serving.request import Request, RequestOutput, RequestPhase
 
 
@@ -107,6 +112,10 @@ class ContinuousScheduler:
             raise ValueError("continuous batching drives the per-slot "
                              "SpecPV automaton (attention archs); state "
                              "archs use the wave path")
+        if engine.temperature != 0.0:
+            raise ValueError("build the engine greedy; per-request sampling "
+                             "rides on Request.temperature / seed (per-slot "
+                             "streams)")
         assert prefill_budget is None or prefill_budget > 0, \
             "prefill_budget must be positive (None = blocking prefill)"
         self.engine = engine
@@ -130,8 +139,6 @@ class ContinuousScheduler:
 
     # ------------------------------------------------------------------
     def submit(self, req: Request) -> None:
-        if req.temperature != 0.0 or req.draft != "tree":
-            _unsupported("sampled or chain requests", "Sampling")
         self.waiting.append(req)
 
     def cancel(self, request_id: str) -> bool:
@@ -213,14 +220,15 @@ class ContinuousScheduler:
             # gate only counts (no LRU touch): the admission's own match
             # re-stamps the chain.  Eviction may shorten this request's
             # own match, so the bill is counted again before the gate
-            need_fresh = eng.pages_needed_shared(req.prompt,
-                                                 req.max_new_tokens)
+            need_fresh = eng.pages_needed_shared(
+                req.prompt, req.max_new_tokens, temperature=req.temperature)
             margin = eng.tier_admit_margin(len(req.prompt))
             short = need_fresh + margin - eng.free_pages()
             if short > 0:
                 self.stats["prefix_evictions"] += eng.reclaim_pages(short)
-                need_fresh = eng.pages_needed_shared(req.prompt,
-                                                     req.max_new_tokens)
+                need_fresh = eng.pages_needed_shared(
+                    req.prompt, req.max_new_tokens,
+                    temperature=req.temperature)
             if need_fresh + margin > eng.free_pages():
                 self.stats["page_stalls"] += 1
                 continue
@@ -233,14 +241,18 @@ class ContinuousScheduler:
                 # blocking admission: the whole prompt prefills now
                 self.st, first = eng.prefill_into_slot(
                     self.st, i, req.prompt, chunk=self.prefill_chunk,
-                    max_new_tokens=req.max_new_tokens)
+                    max_new_tokens=req.max_new_tokens,
+                    temperature=req.temperature, seed=req.seed,
+                    draft=req.draft)
                 req.phase = RequestPhase.DECODING
                 slot.append([first])
             else:
                 # interleaved: chunks run in _pump_prefill
                 self.st, slot.cursor = eng.prefill_begin_slot(
                     self.st, i, req.prompt, chunk=self.prefill_chunk,
-                    max_new_tokens=req.max_new_tokens)
+                    max_new_tokens=req.max_new_tokens,
+                    temperature=req.temperature, seed=req.seed,
+                    draft=req.draft)
             self._dirty.discard(i)
             self.slots[i] = slot
             self.stats["admissions"] += 1

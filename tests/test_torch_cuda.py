@@ -460,8 +460,10 @@ def test_cuda_graph_generate_equals_eager(cuda, models, name):
         assert ec[1] and sum(ec[1].values()) == ec[0]["wkv"]
     else:
         assert set(gs["modes"]) == {"full", "refresh", "partial"}
-        keys = {(True, False, False), (True, False, True),
-                (False, True, False)}
+        # greedy tree steps: no sampled or chain rows
+        keys = {(True, False, False, False, False),
+                (True, False, True, False, False),
+                (False, True, False, False, False)}
         assert all(ec[0][k] > 0 for k in ("sparse_verify_attention",
                                           "paged_prefill_attention",
                                           "retrieval_score", "block_summary"))
@@ -529,7 +531,8 @@ def test_cuda_split_counters_keep_their_address(cuda, models):
         0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
     _, stats = eng.generate(prompt, 12)
     torch.cuda.synchronize()
-    assert stats["modes"].get("refresh") and (True, False, True) in eng._graphs
+    assert stats["modes"].get("refresh") and \
+        (True, False, True, False, False) in eng._graphs
     c2 = tops._COUNTERS[c.device]
     assert c2 is c and c2.data_ptr() == ptr
     assert not bool(c.any())
@@ -714,8 +717,8 @@ def test_cuda_serving_bodies_do_not_sync(cuda, models):
                                [1, 1, 0]], dtype=torch.int8, device=cuda)
         runs.append((ops_in, lambda key=key: eng._fused_body(*key)))
     for ops_in, body in runs:
-        if ops_in is not None:
-            eng._tick_in.copy_(ops_in)
+        if ops_in is not None:      # modes and rows; no chain row
+            eng._tick_in[:2].copy_(ops_in)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1111,8 +1114,10 @@ def test_cuda_contiguous_graph_generate_equals_eager(cuda, models):
     (_, et, es, ec), (graph, gt, gs, gc) = runs
     assert np.array_equal(gt, et) and gs["modes"] == es["modes"]
     assert gc == ec and set(gs["modes"]) == {"full", "refresh", "partial"}
-    assert set(graph._graphs) == {("prefill", 256), (True, False, False),
-                                  (True, False, True), (False, True, False)}
+    assert set(graph._graphs) == {("prefill", 256),
+                                  (True, False, False, False, False),
+                                  (True, False, True, False, False),
+                                  (False, True, False, False, False)}
     assert all(ec[0][k] > 0 for k in ("sparse_verify_attention",
                                       "paged_prefill_attention",
                                       "retrieval_score", "block_summary"))
@@ -1456,3 +1461,148 @@ def test_cuda_compiled_ar_equals_plain_oracle(cuda):
         assert launches["sparse_verify_attention"] == 23 * cfg.num_layers
         assert launches["block_summary"] == 23 + 3
         assert launches["paged_prefill_attention"] == 3 * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# sampling: per-slot streams, sampled and chain steps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_stream_bits_equal_cpu(cuda):
+    """The streams' Threefry words and uniforms are the same bits on the
+    card as on the CPU; the card's draws never land on a token of
+    probability 0 and pick the CPU's token at 99% of draws or more (the
+    parallel scans may round a boundary the other way)."""
+    from repro_torch.core import sampling as smp
+    first, stream = smp.seed_keys(12345, 64)
+    g = torch.Generator().manual_seed(0)
+    keys = torch.randint(0, 2**32, (64, 2), generator=g, dtype=torch.long)
+    for k in (first, stream, keys):
+        nxt, u = smp.stream_draws(k, 127)
+        nxt_c, u_c = smp.stream_draws(k.to(cuda), 127)
+        assert torch.equal(nxt_c.cpu(), nxt) and torch.equal(u_c.cpu(), u)
+    probs = torch.rand((256, 128256), generator=g)
+    probs[:, ::3] = 0.0
+    probs[:, :1000] = 0.0
+    u = torch.rand((256,), generator=g)
+    u[:3] = torch.tensor([0.0, 1.0 - 2.0 ** -24, 0.5])
+    tok = smp.categorical(probs.to(cuda), u.to(cuda)).cpu()
+    assert (probs.gather(1, tok[:, None]) > 0).all()
+    assert (tok == smp.categorical(probs, u)).float().mean() >= 0.99
+
+
+def _kinds_engine(model, graphs, temps, drafts, prompts, new):
+    """A batch-3 engine with a slot of each (temperature, draft) kind,
+    seeds 0-2, stepped ``new`` ticks.  Returns (engine, tokens by slot)."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    cfg, spec, dcfg, params, dparams = model
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=3,
+                       max_len=SERVE_MAX_LEN, device="cuda",
+                       cuda_graphs=graphs)
+    st = eng.empty_state()
+    toks = {}
+    for i, (t, d, p) in enumerate(zip(temps, drafts, prompts)):
+        st, first = eng.prefill_into_slot(st, i, p, temperature=t, seed=i,
+                                          draft=d, max_new_tokens=new + 8)
+        toks[i] = [first]
+    rows = np.ones((3,), bool)
+    for _ in range(new):
+        st, so = eng.step_fused(st, rows, eng.modes_for_rows(st, rows))
+        for i in range(3):
+            toks[i].extend(int(x) for x in so.tokens[i, :so.counts[i]])
+    torch.cuda.synchronize()
+    return eng, toks
+
+
+SAMPLED_KINDS = ((0.0, 0.8, 0.8), ("tree", "chain", "tree"))
+
+
+def _kinds_prompts(cfg, lens=(2000, 4700, 5000)):
+    import numpy as np
+    rng = np.random.default_rng(9)
+    return [rng.integers(0, cfg.vocab_size, (n,)) for n in lens]
+
+
+@pytest.mark.cuda
+def test_cuda_sampled_graph_equals_eager(cuda, models):
+    """Slots of greedy tree, sampled chain and sampled tree kinds stepped
+    through Full, Refresh and Partial ticks: the replayed graphs give the
+    eager bodies' tokens and launch counts, one graph per variant key,
+    sampled and chain keys among them."""
+    model = _get_model(models, "llama3.1-8b")
+    prompts = _kinds_prompts(model[0])
+    runs = []
+    for graphs in (False, True):
+        tops.reset_launch_counts()
+        eng, toks = _kinds_engine(model, graphs, *SAMPLED_KINDS, prompts, 12)
+        runs.append((eng, toks, tops.launch_counts()))
+    (_, et, ec), (ge, gt, gc) = runs
+    assert et == gt and ec == gc
+    assert set(ge._graphs) == set(ge.dispatch_keys) | _prefill_graphs(ge)
+    assert any(k[3] and k[4] for k in ge.dispatch_keys)
+    assert any(k[1] for k in ge.dispatch_keys)          # Partial ticks ran
+
+
+@pytest.mark.cuda
+def test_cuda_sampled_step_bodies_do_not_sync(cuda, models):
+    """Each sampled or chain step variant's body (Full, Refresh, Partial
+    and their mix, over greedy, sampled and chain rows and a masked-out
+    row), and the sampled rwkv6 state body, run eagerly under
+    ``set_sync_debug_mode("error")``."""
+    import numpy as np
+    from repro_torch.core.engine import MODE_IDS, SpecPVEngine
+    model = _get_model(models, "llama3.1-8b")
+    eng, _ = _kinds_engine(model, False, *SAMPLED_KINDS,
+                           _kinds_prompts(model[0]), 1)
+    for modes, key3 in ((["full"] * 3, (True, False, False)),
+                        (["refresh"] * 3, (True, False, True)),
+                        (["partial"] * 3, (False, True, False)),
+                        (["partial", "refresh", "full"], (True, True, True))):
+        for flags in ((True, False), (True, True), (False, True)):
+            eng._tick_in.copy_(torch.tensor(
+                [[MODE_IDS[m] for m in modes], [1, 1, 0], [0, 1, 0]],
+                dtype=torch.int8, device=cuda))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng._fused_body(*key3, *flags)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    cfg, spec, dcfg, params, dparams = _get_model(models, "rwkv6-3b")
+    reng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
+                        max_len=700, temperature=0.8, device="cuda",
+                        cuda_graphs=False)
+    reng.prefill(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 300)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        reng._state_body()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_rows_in_mixed_graph_tick_fp32(cuda):
+    """fp32 (``tiny-dense``, block 16), with graphs: a greedy slot stepped
+    beside sampled chain and tree slots gives the tokens it gives beside
+    greedy slots, and the sampled slots draw (their tokens differ from
+    the greedy run's)."""
+    from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.models.api import init_params
+    cfg = get_config("tiny-dense")
+    spec = SpecPVConfig(block_size=16, num_sink_blocks=1,
+                        retrieval_budget_blocks=4, local_window_blocks=2,
+                        buffer_size=48, use_pallas=True)
+    dcfg = DraftConfig(tree_depth=3, tree_branch=(2, 2, 1))
+    model = (cfg, spec, dcfg, init_params(cfg, seed=0, device=cuda),
+             init_draft_params(cfg, dcfg, seed=1, device=cuda))
+    prompts = _kinds_prompts(cfg, (90, 160, 200))
+    _, mixed = _kinds_engine(model, True, *SAMPLED_KINDS, prompts, 16)
+    _, greedy = _kinds_engine(model, True, (0.0,) * 3, ("tree",) * 3,
+                              prompts, 16)
+    assert mixed[0] == greedy[0]
+    assert mixed[1] != greedy[1] and mixed[2] != greedy[2]

@@ -213,8 +213,9 @@ def test_state_engine_settings(rw, small_spec, small_dcfg):
     kw = dict(batch=B, max_len=MAX_LEN, device="cpu")
     with pytest.raises(ValueError, match="attention-only"):
         TEngine(*args, paged=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(*args, paged=False, temperature=0.5, **kw)
+    # sampled chains are ported since
+    assert TEngine(*args, paged=False, temperature=0.5,
+                   **kw).temperature == 0.5
     eng = TEngine(*args, paged=False, **kw)
     assert eng.mode_for(1, 10_000, False) == "state"
     st = eng.prefill(rw["prompt"])

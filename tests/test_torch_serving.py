@@ -24,7 +24,8 @@ scheduler in ``tests/test_torch_prefix.py``).
   equals the port's ``generate``.
 * The allocator's counters follow the reference's ``PageAllocator``.
 * Each unsupported setting raises NotImplementedError naming its
-  ROADMAP item; ``ServingConfig(prefix_cache=True)`` builds and serves.
+  ROADMAP item; ``ServingConfig(prefix_cache=True)`` builds and serves,
+  and so do sampled and chain requests, ported since.
 """
 import dataclasses
 
@@ -486,10 +487,14 @@ def _serves(s, **kw):
     return srv
 
 
-def _bad_request(s, **kw):
-    eng = _tengine(s)
-    ContinuousScheduler(eng).submit(Request(
-        request_id="x", prompt=s["prompts"]["a"], **kw))
+def _request_serves(s, **kw):
+    """A request setting ported since: the scheduler serves it."""
+    sched = _drive(ContinuousScheduler(_tengine(s), prefill_chunk=CHUNK,
+                                       clock=lambda: 0.0),
+                   [Request(request_id="x", prompt=s["prompts"]["a"],
+                            max_new_tokens=4, arrival_s=0.0, **kw)])
+    out = sched.outputs["x"]
+    assert out.finished and len(out.tokens) == 4
 
 
 @pytest.mark.parametrize("make, kw, item", [
@@ -498,11 +503,14 @@ def _bad_request(s, **kw):
     (_serves, dict(paged_kv=True, prefix_cache=True), None),
     (_bad_config, dict(tiered_kv=True), "Tiered KV"),
     (_bad_config, dict(mesh_shape=(1, 1)), "Multi-GPU"),
-    (_bad_request, dict(temperature=0.7), "Sampling"),
-    (_bad_request, dict(draft="chain"), "Sampling"),
+    (_request_serves, dict(temperature=0.7, seed=3), None),
+    (_request_serves, dict(draft="chain"), None),
 ], ids=["paged_kv", "zero_copy", "prefix_cache", "tiered", "mesh",
         "temperature", "chain"])
 def test_unsupported_settings_raise(setup, make, kw, item):
+    if make is _request_serves:     # ported since: the request is served
+        make(setup, **kw)
+        return
     if item is None:        # ported since: it serves on its layout
         srv = make(setup, **kw)
         eng = srv._continuous.engine
