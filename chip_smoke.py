@@ -67,8 +67,9 @@ Phases, in order (any failure raises and the script exits non-zero):
 6. continuous-batching serving of llama3.1-8b at full width
    (``ServingEngine``, batch 4, a 161-page pool, six requests of 2048 to
    8192 prompt tokens arriving together, prefix sharing off so that the
-   cell stays the one of its first runs), with graphs and eagerly (equal
-   tokens and launch counts), the launch counts set to 0 just before and
+   cell stays the one of its first runs), with graphs, then the two
+   shortest requests again with graphs and eagerly (equal tokens and
+   launch counts), the launch counts set to 0 just before and
    read just after each run and held to what its steps' variants and
    prefill chunks imply; page stalls, mixed-mode ticks and a drained pool
    asserted; each request alone through batch-1 ``generate`` (matches
@@ -202,9 +203,32 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``fused_contiguous_serving_launches`` and
    ``fused_prefix_serving_launches`` from phase 9's fused graph runs,
    ``training_launches`` from phase 10, ``sampled_serving_launches``
-   from phase 11 (K1-K4 its (a), K5 its (b)); phases 8 and 9's call forms and
+   from phase 11 (K1-K4 its (a), K5 its (b)), ``tiered_serving_launches``
+   from phase 13 (b)'s tiered run; phases 8 and 9's call forms and
    phase 2's forms of this slice under ``shapes``), the card's name and
-   power limit, and the final ``{"ok": true, ...}`` line.
+   power limit, and the final ``{"ok": true, ...}`` line.  It comes
+   last: phase 13 runs before it;
+13. tiered KV residency (slice 13), llama3.1-8b at full width (32
+   layers, bf16, random weights from seed 0) on the gathered paged
+   layout.  (a) Batch 1, the 8192-token prompt, a forced schedule
+   (Refresh, three Partial steps with the prefetch issued before the
+   third, Refresh on the prefetch hit, Refresh right after the
+   demotion, Partial) untiered and with each codec (int8, fp8,
+   lossless), every tier operation under the sync check: pages demoted
+   and promoted, prefetch hits and synchronous promotes, host bytes, the
+   device ms of gathering and quantizing, of each host-link copy (CUDA
+   events on the engine's and the side stream) and of the restore, the
+   host link's GB/s, and each step's wall; lossless tokens must equal
+   the untiered ones, int8 and fp8 agreement is reported; then int8 on
+   the zero-copy layout (pinned and demoted pages).  (b) Phase 6's six
+   requests at batch 4 (161 trunk pages, the draft pool at full size)
+   untiered and tiered int8, with graphs: tokens/s, page stalls, peak
+   active slots, tier deferrals, demoted pages, host bytes, peak memory,
+   pages high water, the tiered run's K1-K4 launches held to its steps
+   and chunks, bf16 tokens against the untiered run (reported).  (c)
+   fp32 at 4 layers with graphs: served tiered lossless (every request
+   demotes and promotes on a prefetch hit) equals served untiered and
+   each request's solo ``generate``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1904,11 +1928,17 @@ def _serving_requests(prompts, reqs_spec, kinds=((0.0, "tree"),)):
             for i, (p, (_, new)) in enumerate(zip(prompts, reqs_spec))]
 
 
+# phase 6's eager arm serves these requests alone (the two shortest; the
+# whole trace took about 32 s eagerly), and the graph server serves them
+# again after its full run, for the eager-against-graphs identity
+SERVE_EAGER_REQS = 2
+
+
 def phase_serving(torch, card):
     """Continuous batching of llama3.1-8b at full width (random bf16
     weights, batch 4, a 161-page pool, no prefix sharing): the six
-    ``SERVE_REQS`` with
-    graphs, then eagerly (equal tokens and launch counts), then each
+    ``SERVE_REQS`` with graphs, then the two shortest again with graphs
+    and eagerly (equal tokens and launch counts), then each request
     alone through batch-1 ``generate`` (matches reported: bf16 rows are
     not batch-invariant); a profiled window of decode ticks; the serving
     bodies under the sync check; fp32 losslessness at 4 layers."""
@@ -1934,16 +1964,40 @@ def phase_serving(torch, card):
     scfg = ServingConfig(batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
                          num_pages=SERVE_PAGES, paged_kv=True,
                          zero_copy_partial=True, prefix_cache=False)
-    runs = {}
+    runs, short = {}, {}
+    few = SERVE_REQS[:SERVE_EAGER_REQS]
     for graphs in (True, False):
         label = RUN_LABEL[graphs]
         srv = ServingEngine(cfg, spec, dcfg, params, dparams, scfg,
                             device="cuda", cuda_graphs=graphs)
+        if not graphs:
+            outs, wall, launches, peak = _serve(
+                torch, srv, _serving_requests(prompts, few))
+            eng = srv._continuous.engine
+            ntok = int(sum(len(o.tokens) for o in outs.values()))
+            want = _expected_serving_launches(eng, cfg.num_layers)
+            got = {k: launches[k] for k in want}
+            if got != want or eng.page_stats()["in_use"]:
+                raise AssertionError(f"eager serving launches {got} != "
+                                     f"{want} or pages left")
+            say(card, f"serving llama3.1-8b [eager] the {len(few)} "
+                      f"shortest requests {[n for n, _ in few]}: tokens "
+                      f"{ntok} wall_s {wall:.3f} tokens_per_s "
+                      f"{ntok / wall:.2f} peak_mem_gib {peak:.2f} launches "
+                      f"{got}")
+            short["eager"] = dict(toks={k: o.tokens for k, o in outs.items()},
+                                  launches=got, tokens_per_s=ntok / wall)
+            runs[label] = dict(tokens_per_s=ntok / wall, wall_s=wall,
+                               peak_gib=peak)
+            del srv, eng
+            torch.cuda.empty_cache()
+            continue
         outs, wall, launches, peak = _serve(
             torch, srv, _serving_requests(prompts, SERVE_REQS))
         sched = srv._continuous
         eng = sched.engine
         st = srv.stats
+        st_full = dict(st)          # the short rerun below resets srv.stats
         need = [eng.pages_needed(n, new) for n, new in SERVE_REQS]
         if sum(need[:4]) > eng.page_capacity() or \
                 sum(need[:4]) + need[4] <= eng.page_capacity():
@@ -2009,9 +2063,15 @@ def phase_serving(torch, card):
                                      f" != {sorted(map(str, want_graphs))}")
             prof = profile_ticks(torch, card, srv, prompts)
             check_sync_free_serving(torch, card, eng, prompts)
+            srv.reset_warm()
+            outs2, _, launches2, _ = _serve(
+                torch, srv, _serving_requests(prompts, few))
+            short["graphs"] = dict(
+                toks={k: o.tokens for k, o in outs2.items()},
+                launches={k: launches2[k] for k in got})
         runs[label] = dict(toks=toks, launches=got, wall_s=wall,
                            tokens_per_s=ntok / wall, peak_gib=peak,
-                           ticks=ticks, stats=dict(st), pages=ps,
+                           ticks=ticks, stats=st_full, pages=ps,
                            p50=float(np.percentile(lat, 50)),
                            p95=float(np.percentile(lat, 95)),
                            capture_s=eng.capture_s)
@@ -2019,16 +2079,18 @@ def phase_serving(torch, card):
             runs[label].update(prof)
         del srv, sched, eng
         torch.cuda.empty_cache()
-    g, e = runs["graphs"], runs["eager"]
-    for rid in g["toks"]:
-        if not np.array_equal(g["toks"][rid], e["toks"][rid]):
+    g = runs["graphs"]
+    sg, se = short["graphs"], short["eager"]
+    for rid in se["toks"]:
+        if not np.array_equal(sg["toks"][rid], se["toks"][rid]):
             raise AssertionError(f"serving {rid}: graph tokens differ from "
                                  f"eager")
-    if g["launches"] != e["launches"]:
-        raise AssertionError(f"serving launches: graphs {g['launches']} "
-                             f"eager {e['launches']}")
-    say(card, "serving: graph tokens == eager tokens for every request, "
-              "launch counts equal")
+    if sg["launches"] != se["launches"]:
+        raise AssertionError(f"serving launches: graphs {sg['launches']} "
+                             f"eager {se['launches']}")
+    say(card, f"serving: over the {len(few)} shortest requests graph tokens "
+              f"== eager tokens for every request, launch counts equal "
+              f"(eager {se['tokens_per_s']:.2f} tokens/s)")
     # each request alone through batch-1 generate on one engine
     solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
                         max_len=SERVE_MAX_LEN, paged=True, zero_copy=True,
@@ -4521,9 +4583,357 @@ def phase_sampled_serving(torch, card, trained: bool):
         pair=pair, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tiered KV residency
+# ---------------------------------------------------------------------------
+
+# (name, engine keywords): the reference's default codec first
+TIER_CODECS = (("int8", dict(tier_codec="int8")),
+               ("fp8", dict(tier_codec="fp8")),
+               ("lossless", dict(tier_lossless=True)))
+# (a)'s forced schedule: a Refresh (demotes the 64 complete blocks), three
+# Partial steps with the prefetch issued before the third (one transition
+# ahead of the Refresh, as the automaton does), a Refresh (promotes on the
+# prefetch hit, then demotes again), a Refresh right after that demotion
+# (promotes synchronously) and a Partial step
+TIER_SCHEDULE = ("refresh", "partial", "partial", "partial", "refresh",
+                 "refresh", "partial")
+TIER_PREFETCH_AFTER = 3         # steps run before the prefetch is issued
+
+
+def _guard_tier(torch, tm):
+    """Wrap the tier manager's operations so that each runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: none may wait for the
+    card or copy through pageable memory.  Returns {operation: [host ms
+    of each call]} (the time the host spends enqueueing it, allocating
+    pinned and device buffers included)."""
+    host_ms = {}
+
+    def guarded(name, fn):
+        def call(*a, **kw):
+            torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                host_ms.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+                torch.cuda.set_sync_debug_mode(0)
+        return call
+    for name in ("demote_slot", "prefetch_slot", "promote_slot"):
+        setattr(tm, name, guarded(name, getattr(tm, name)))
+    return host_ms
+
+
+def _tier_log_ms(log):
+    """Device ms and bytes of each part of the tier operations a copy log
+    holds, in order: [(what, bytes, ms)]."""
+    return [(what, nbytes, s.elapsed_time(e)) for what, nbytes, s, e in log]
+
+
+def _tier_schedule(torch, card, eng, prompt, label):
+    """(a)'s forced schedule on ``eng`` after a fresh prefill: the tokens
+    and host wall of each step (no synchronisation between steps beyond
+    each step's own read of its tokens, so the side stream's copies
+    overlap the steps as they would in service), and the tier's counters
+    and copy log."""
+    tm = eng._tier
+    st = eng.prefill(prompt)
+    host_ms = {}
+    if tm is not None:
+        host_ms = _guard_tier(torch, tm)
+        tm.copy_log = []
+    torch.cuda.synchronize()
+    toks, walls = [], []
+    t_prev = time.perf_counter()
+    for i, mode in enumerate(TIER_SCHEDULE):
+        if i == TIER_PREFETCH_AFTER and tm is not None:
+            tm.prefetch_slot(0)
+        st, so = eng.step(st, mode)
+        now = time.perf_counter()
+        walls.append((now - t_prev) * 1e3)
+        t_prev = now
+        toks.append(so.tokens[0, : so.counts[0]].tolist())
+    torch.cuda.synchronize()
+    out = dict(toks=toks, walls=walls, host_ms=host_ms,
+               stats=eng.tier_stats(), pages=eng.page_stats())
+    if tm is not None:
+        out["log"] = _tier_log_ms(tm.copy_log)
+        tm.copy_log = None
+    return out
+
+
+def _tier_report(card, label, run, base):
+    """Print one codec's run of (a) beside the untiered one."""
+    s, log = run["stats"], run["log"]
+    parts = {}
+    for what, nbytes, ms in log:
+        parts.setdefault(what, []).append((nbytes, ms))
+
+    def ms(what):
+        return [round(t, 3) for _, t in parts.get(what, [])]
+
+    def rate(what):
+        return [round(b / t / 1e6, 2) for b, t in parts.get(what, [])]
+    host = {k: [round(x, 2) for x in v] for k, v in run["host_ms"].items()}
+    flat = [t for step in run["toks"] for t in step]
+    base_flat = [t for step in base["toks"] for t in step]
+    n = min(len(flat), len(base_flat))
+    same = sum(a == b for a, b in zip(flat[:n], base_flat[:n]))
+    say(card, f"tiers (a) [{label}]: demoted {s['tier_demoted_pages']} "
+              f"promoted {s['tier_promoted_pages']} prefetch hits "
+              f"{s['tier_prefetch_hits']} sync promotes "
+              f"{s['tier_sync_promotes']} host bytes held "
+              f"{s['tier_host_bytes']} peak {s['tier_host_bytes_peak']}; "
+              f"device ms: gather + quantize {ms('quantize')} copy to host "
+              f"{ms('to_host')} copy to card {ms('to_device')} (the "
+              f"prefetch on the side stream, then the synchronous one) "
+              f"restore {ms('restore')}; host link GB/s to host "
+              f"{rate('to_host')} to card {rate('to_device')}; host ms per "
+              f"call {host}; step walls ms "
+              f"{[round(w, 2) for w in run['walls']]} (untiered "
+              f"{[round(w, 2) for w in base['walls']]}); tokens equal to "
+              f"untiered {same} of {n}")
+    return dict(stats=s, log=log, walls=run["walls"],
+                host_ms=run["host_ms"], same=same, n=n)
+
+
+def _tier_forced(torch, card, cfg, spec, dcfg, params, dparams, prompt):
+    """(a): the forced schedule, batch 1, the 8192-token prompt, untiered
+    and with each codec on the gathered paged layout (lossless tokens must
+    equal the untiered ones), then int8 on the zero-copy layout."""
+    import gc
+    from repro_torch.core.engine import SpecPVEngine
+    max_len = CONTIG_MAX_LEN
+    runs = {}
+    for label, kw in (("untiered", {}),) + TIER_CODECS:
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, device="cuda", **PAGED_GATHERED,
+                           tiered=bool(kw), **kw)
+        runs[label] = _tier_schedule(torch, card, eng, prompt, label)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    base = runs["untiered"]
+    out = {"untiered_walls": base["walls"]}
+    for label, _ in TIER_CODECS:
+        out[label] = _tier_report(card, label, runs[label], base)
+        s = runs[label]["stats"]
+        if not (s["tier_demoted_pages"] and s["tier_prefetch_hits"] == 1
+                and s["tier_sync_promotes"] == 1):
+            raise AssertionError(f"tiers (a) [{label}]: the schedule must "
+                                 f"demote, hit its prefetch once and promote "
+                                 f"once synchronously: {s}")
+    if runs["lossless"]["toks"] != base["toks"]:
+        raise AssertionError(f"tiers (a): lossless tokens differ from the "
+                             f"untiered run:\n{runs['lossless']['toks']}\n"
+                             f"{base['toks']}")
+    hit = TIER_SCHEDULE.index("refresh", 1)
+    say(card, f"tiers (a): lossless tokens == untiered tokens on the forced "
+              f"schedule (asserted); every tier operation ran under "
+              f"set_sync_debug_mode('error'); wall ms of the Refresh after "
+              f"the prefetch hit: untiered {base['walls'][hit]:.2f}, "
+              + ", ".join(f"{lb} {runs[lb]['walls'][hit]:.2f}"
+                          for lb, _ in TIER_CODECS)
+              + f"; of the early Refresh (sync promote): untiered "
+              f"{base['walls'][hit + 1]:.2f}, "
+              + ", ".join(f"{lb} {runs[lb]['walls'][hit + 1]:.2f}"
+                          for lb, _ in TIER_CODECS))
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=max_len, device="cuda", **PAGED_ZERO_COPY,
+                       tiered=True)
+    zc = _tier_schedule(torch, card, eng, prompt, "zero-copy int8")
+    pins = zc["pages"]["pinned_pages"]
+    say(card, f"tiers (a) [zero-copy int8]: pinned pages {pins} (the "
+              f"prompt fills {prompt.shape[1] // spec.block_size} blocks), "
+              f"demoted "
+              f"{zc['stats']['tier_demoted_pages']} (promoted "
+              f"{zc['stats']['tier_promoted_pages']}); step walls ms "
+              f"{[round(w, 2) for w in zc['walls']]}")
+    out["zero_copy"] = dict(pinned=pins, stats=zc["stats"])
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tier_served(torch, card, cfg, spec, dcfg, params, dparams):
+    """(b): phase 6's six requests at batch 4 on the gathered paged layout
+    (161 trunk pages, the draft pool at full size in both arms: it is read
+    every step and never tiered), untiered and tiered int8, with graphs.
+    The tiered run's K1-K4 launches are counted over its run and held to
+    what its steps and chunks imply.  Returns the tiered run's launches
+    and both runs' numbers."""
+    import numpy as np
+    from repro_torch.serving import ServingConfig, ServingEngine
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in SERVE_REQS]
+    nb = -(-SERVE_MAX_LEN // spec.block_size)
+    runs = {}
+    for label, tiered in (("untiered", False), ("tiered int8", True)):
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+            batch=4, max_len=SERVE_MAX_LEN, prefill_chunk=256,
+            num_pages=SERVE_PAGES, num_draft_pages=4 * nb + 1,
+            paged_kv=True, zero_copy_partial=False, prefix_cache=False,
+            tiered_kv=tiered), device="cuda")
+        outs, wall, launches, peak = _serve(
+            torch, srv, _serving_requests(prompts, SERVE_REQS))
+        eng = srv._continuous.engine
+        st = srv.stats
+        if eng.tiered != tiered or eng.zero_copy:
+            raise AssertionError("tiers (b): wrong engine layout")
+        for i, (n, new) in enumerate(SERVE_REQS):
+            o = outs[f"r{i}"]
+            if (o.finish_reason != "length" or len(o.tokens) != new
+                    or o.tokens.min() < 0
+                    or o.tokens.max() >= cfg.vocab_size):
+                raise AssertionError(f"tiers (b) [{label}] r{i}: "
+                                     f"{o.finish_reason}, {len(o.tokens)}")
+        want = _expected_serving_launches(eng, cfg.num_layers)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"tiers (b) [{label}] launches {got} != "
+                                 f"{want} implied by {eng.dispatch_keys}")
+        ps = eng.page_stats()
+        if ps["in_use"] or ps.get("tier_hosted_pages"):
+            raise AssertionError(f"tiers (b) [{label}]: pages left {ps}")
+        ntok = int(sum(len(o.tokens) for o in outs.values()))
+        lat = np.array([o.latency_s for o in outs.values()])
+        ticks = {c: (len(v), round(1e3 * float(np.median(v)), 2))
+                 for c, v in srv._continuous.tick_wall.items()}
+        refresh_ms = [round(1e3 * w, 2)
+                      for w in srv._continuous.tick_wall.get("refresh", [])]
+        runs[label] = dict(
+            toks={k: o.tokens for k, o in outs.items()}, launches=got,
+            tokens_per_s=ntok / wall, wall_s=wall, peak_gib=peak,
+            page_stalls=int(st.get("page_stalls", 0)),
+            peak_active=int(st["peak_active"]),
+            tier_defers=int(st.get("tier_defers", 0)),
+            high_water=ps["high_water"],
+            demoted=ps.get("tier_demoted_pages", 0),
+            host_bytes_peak=ps.get("tier_host_bytes_peak", 0),
+            p50=float(np.percentile(lat, 50)),
+            p95=float(np.percentile(lat, 95)), refresh_ms=refresh_ms,
+            capture_s=eng.capture_s)
+        say(card, f"tiers (b) [{label}] llama3.1-8b batch 4, "
+                  f"{SERVE_PAGES} trunk pages, gathered: tokens {ntok} "
+                  f"wall_s {wall:.3f} tokens_per_s {ntok / wall:.2f} "
+                  f"latency_s p50 {np.percentile(lat, 50):.3f} p95 "
+                  f"{np.percentile(lat, 95):.3f} page_stalls "
+                  f"{runs[label]['page_stalls']} peak_active "
+                  f"{runs[label]['peak_active']} tier_defers "
+                  f"{runs[label]['tier_defers']} demoted "
+                  f"{runs[label]['demoted']} host_bytes_peak "
+                  f"{runs[label]['host_bytes_peak']} peak_mem_gib "
+                  f"{peak:.2f} pages high water {ps['high_water']} "
+                  f"tick wall ms (ticks, median) {ticks}, each refresh "
+                  f"tick {refresh_ms}, graphs captured {len(eng._graphs)} "
+                  f"in {eng.capture_s:.3f} s, launches {got}")
+        del srv, eng
+        torch.cuda.empty_cache()
+    u, t = runs["untiered"], runs["tiered int8"]
+    same = {rid: int(np.sum(t["toks"][rid] == u["toks"][rid]))
+            for rid in u["toks"]}
+    say(card, f"tiers (b): bf16 tokens of each request equal to the "
+              f"untiered run's (not asserted: the int8 round trip changes "
+              f"the cold K/V): {same}")
+    if not t["demoted"]:
+        raise AssertionError("tiers (b): the tiered run demoted nothing")
+    for r in runs.values():
+        r.pop("toks")
+    return t["launches"], dict(untiered=u, tiered=t, same=same)
+
+
+def _tier_lossless(torch, card, layers: int = 4, new: int = 100):
+    """(c): fp32 at full width, ``layers`` layers, TF32 off, with graphs:
+    served tiered lossless on the gathered paged layout (batch 2, three
+    requests, two over the partial budget and long enough to refresh
+    twice, so each demotes and promotes on a prefetch hit) equals the
+    untiered served run and each request's solo ``generate``."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.1-8b").replace(num_layers=layers,
+                                            dtype="float32",
+                                            param_dtype="float32")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=2, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=3, device="cuda")
+    rng = np.random.default_rng(1)
+    spec_reqs = ((3000, new), (4800, new), (5300, new))
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in spec_reqs]
+    max_len = 5632
+    toks, tstats = {}, None
+    for tiered in (False, True):
+        srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+            batch=2, max_len=max_len, paged_kv=True, prefix_cache=False,
+            tiered_kv=tiered, tier_lossless=True), device="cuda")
+        for r in _serving_requests(prompts, spec_reqs):
+            srv.submit(r)
+        srv.run()
+        toks[tiered] = {k: o.tokens for k, o in srv.outputs.items()}
+        if tiered:
+            tstats = srv._continuous.engine.tier_stats()
+        del srv
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=max_len, device="cuda", **PAGED_GATHERED)
+    for i, p in enumerate(prompts):
+        t, _ = solo.generate(p[None], new)
+        for tiered in (False, True):
+            if not np.array_equal(toks[tiered][f"r{i}"], t[0]):
+                raise AssertionError(f"tiers (c) fp32 r{i} (tiered "
+                                     f"{tiered}) differs from solo generate")
+    if not (tstats["tier_demoted_pages"] and tstats["tier_prefetch_hits"]):
+        raise AssertionError(f"tiers (c): the served run must demote and "
+                             f"promote on a prefetch hit: {tstats}")
+    say(card, f"tiers (c) llama3.1-8b x{layers} layers fp32, graphs, batch "
+              f"2, prompts {[n for n, _ in spec_reqs]}, {new} new: served "
+              f"tiered lossless == served untiered == solo generate for "
+              f"every request (tier stats {tstats}); "
+              f"{time.perf_counter() - t0:.1f} s")
+    del params, dparams, solo
+    torch.cuda.empty_cache()
+    return tstats
+
+
+def phase_tiers(torch, card):
+    """Phase 13: (a) the forced schedule per codec and on zero-copy, (b)
+    the served trace untiered against tiered int8, (c) fp32 served
+    identity.  Returns (b)'s tiered launches and the numbers."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg, spec, dcfg, params, dparams, prompt = _llama_full_width(
+        torch, card, "tiers")
+    forced = _tier_forced(torch, card, cfg, spec, dcfg, params, dparams,
+                          prompt)
+    launches, served = _tier_served(torch, card, cfg, spec, dcfg, params,
+                                    dparams)
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in LLAMA_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched in (b)")
+    fp32 = _tier_lossless(torch, card)
+    secs = time.perf_counter() - t_phase
+    say(card, f"phase 13 launches {launches}; phase 13 took {secs:.1f} s")
+    return dict(launches=launches, forced=forced, served=served,
+                fp32=fp32, seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,13",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -4531,7 +4941,8 @@ def main(argv=None) -> int:
                          "reference's default engine: contiguous cache, "
                          "gathered partial cache), 9 (the fused multi-row "
                          "prefill), 10 (training and the paper's table 1), "
-                         "11 (sampled serving); 1 and 12 always run")
+                         "11 (sampled serving), 13 (tiered KV residency); "
+                         "1 and 12 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -4584,6 +4995,7 @@ def main(argv=None) -> int:
     p10 = phase_train(torch, card) if 10 in phases else None
     p11 = (phase_sampled_serving(torch, card, trained=p10 is not None)
            if 11 in phases else {"launches": {}})
+    p13 = phase_tiers(torch, card) if 13 in phases else {"launches": {}}
 
     rows = []
     for name in ops.KERNELS:
@@ -4610,6 +5022,8 @@ def main(argv=None) -> int:
                                  name, 0)),
                          sampled_serving_launches=int(
                              p11["launches"].get(name, 0)),
+                         tiered_serving_launches=int(
+                             p13["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -4637,6 +5051,8 @@ def main(argv=None) -> int:
         say(card, "training " + json.dumps(p10))
     if 11 in phases:
         say(card, "sampled serving " + json.dumps(p11))
+    if 13 in phases:
+        say(card, "tiers " + json.dumps(p13, default=float))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

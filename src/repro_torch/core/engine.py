@@ -53,6 +53,13 @@ from its tail entry with no prefill.  ``fork_slot`` shares a live slot's
 pages with another slot, and ``prepare_cow`` copies, before each step,
 any still-shared block a forked row is about to write.
 
+Tiered residency (paged engines, ``tiered=True``): around each step, and
+outside its graph, a row about to read its full cache first gets its
+host-tier pages back (``TierManager.promote_slot``), a row that just
+refreshed sends its complete cold blocks to host memory
+(``demote_slot``), and a partial row one step from its refresh starts
+their copy back (``prefetch_slot``).
+
 State architectures (RWKV-6, ``paged=False``) have no KV cache, so
 partial verification does not apply: each step (mode ``"state"``,
 ``_step_state``) drafts a chain, verifies it with a read-only pass,
@@ -86,8 +93,8 @@ from repro_torch.core import verify as vf
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kvcache import cache as kvc
-from repro_torch.kvcache.offload import (TrafficMeter, full_step_bytes,
-                                         partial_step_bytes,
+from repro_torch.kvcache.offload import (TierManager, TrafficMeter,
+                                         full_step_bytes, partial_step_bytes,
                                          routed_refresh_bytes)
 from repro_torch.models import api
 from repro_torch.models import common as cm
@@ -305,6 +312,8 @@ class SpecPVEngine:
                  num_draft_pages: Optional[int] = None,
                  prefix_cache: bool = True,
                  tiered: bool = False,
+                 tier_lossless: bool = False,
+                 tier_codec: str = "int8",
                  zero_copy: bool = False,
                  mesh=None,
                  device=None,
@@ -321,9 +330,9 @@ class SpecPVEngine:
         partial verification.  ``temperature`` is the lock-step
         ``generate``'s (each row's stream from seed 0) and the default of
         a slot admission, which may set its own with its seed and draft
-        shape; the continuous scheduler wants a greedy engine.  Tiered
-        KV, a mesh and other architectures raise NotImplementedError
-        naming the ROADMAP item that will bring them.
+        shape; the continuous scheduler wants a greedy engine.  A mesh
+        and other architectures raise NotImplementedError naming the
+        ROADMAP item that will bring them.
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
         as in the reference; contiguous engines share nothing):
@@ -334,6 +343,15 @@ class SpecPVEngine:
         pools (default: every row's whole ``max_len``, as lock-step
         ``generate`` needs; the serving scheduler allocates per request
         and gates admission on free pages).
+        ``tiered=True`` (paged only) adds the host tier for cold trunk
+        pages (``kvcache.offload.TierManager``): after each refresh a
+        slot's committed blocks go to host memory as int8
+        (``tier_codec="fp8"``: e4m3 at the same bytes;
+        ``tier_lossless=True``: the raw bytes, a bit-equal round trip),
+        their pages are recycled, and they come back prefetched one mode
+        transition ahead of the next refresh (copied synchronously when
+        a refresh comes early).  The tier's work runs between the step
+        bodies, outside the captured graphs.
         Runs on ``device`` (CUDA unless ``"cpu"`` is asked for); the
         params must live there.  On the card each step variant and the
         full prefill chunk replay a CUDA graph unless ``cuda_graphs`` is
@@ -348,8 +366,9 @@ class SpecPVEngine:
             raise ValueError("zero-copy partial verification needs the "
                              "paged cache (paged=True); the contiguous "
                              "layout keeps the gather path")
-        if tiered:
-            _unsupported("tiered KV residency", "Tiered KV")
+        if tiered and not paged:
+            raise ValueError("tiered KV residency needs the paged cache "
+                             "(paged=True)")
         if mesh is not None:
             _unsupported("mesh sharding", "Multi-GPU")
         self.device = resolve_device(device)
@@ -375,6 +394,11 @@ class SpecPVEngine:
         self._draft_alloc = (kvc.PageAllocator(self.num_draft_pages)
                              if self.paged else None)
         self.data_shards = 1            # no mesh: one page pool
+        self.traffic = TrafficMeter()
+        # demote/promote bill their link bytes into the same meter
+        self._tier = (TierManager(self._page_alloc, lossless=tier_lossless,
+                                  codec=tier_codec, traffic=self.traffic)
+                      if self.paged and tiered else None)
         self._prefix = (kvc.PrefixCache(spec.block_size)
                         if self.paged and prefix_cache else None)
         # slots with fork-derived sharing still alive: only these can
@@ -404,7 +428,6 @@ class SpecPVEngine:
         self._slot_chain = np.zeros((batch,), bool)
         self.pmax = spec.buffer_size            # max pending (refresh input)
         self.emax = self.tree.max_path          # max draft-extend per step
-        self.traffic = TrafficMeter()
         self._pkv_active = False        # lock-step automaton
         self._pkv_active_rows = np.zeros((batch,), bool)   # per slot
         self.dispatches = 0             # fused engine steps executed
@@ -642,6 +665,8 @@ class SpecPVEngine:
             self._forked_slots.clear()
             self._fill_table(st.cache["page_table"], self._page_alloc)
             self._fill_table(st.dcache["page_table"], self._draft_alloc)
+            if self._tier is not None:
+                self._tier.reset()      # host copies of a reset pool
         s0 = prompt.shape[1]
         prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                    device=self.device)
@@ -817,6 +842,8 @@ class SpecPVEngine:
             self._page_alloc.reset()
             self._draft_alloc.reset()
             self._forked_slots.clear()
+            if self._tier is not None:
+                self._tier.reset()
         self._zero_static()
         st = self.state
         for t in (st.pending_len, st.seq_len, st.ext_len):
@@ -915,23 +942,118 @@ class SpecPVEngine:
     def shard_of_slot(self, slot: int) -> int:
         return 0
 
+    # ---- tiered residency (no-ops untiered) --------------------------
+    @property
+    def tiered(self) -> bool:
+        return self._tier is not None
+
+    def tier_stats(self) -> Dict[str, int]:
+        """Demote, promote and prefetch counters ({} untiered)."""
+        return self._tier.stats() if self._tier is not None else {}
+
+    def _refresh_within(self, pending_len: int) -> bool:
+        """Could this slot's automaton ask for a refresh after one more
+        partial step that accepted the longest path?  The prefetch
+        trigger: issued one mode transition ahead, the copy to the card
+        overlaps the partial step left."""
+        return self.mode_for(pending_len + self.emax + 1,
+                             self.spec.partial_budget_tokens + 1,
+                             True) == "refresh"
+
     def tier_admit_margin(self, prompt_len: int) -> int:
-        """Promotion headroom a tiered pool reserves: none untiered."""
-        return 0
+        """Free pages (beyond the request's own bill) a tiered admission
+        must leave so that no live slot's promotion debt outgrows what
+        the pool can seat again: the worst live debt less what the new
+        request repays at its first refresh (``prompt_len // block``
+        pages, if its prompt passes the partial budget).  Untiered: 0."""
+        if self._tier is None:
+            return 0
+        cold_new = (prompt_len // self.spec.block_size
+                    if prompt_len > self.spec.partial_budget_tokens else 0)
+        return max(self._page_alloc.max_hosted() - cold_new, 0)
 
     def tier_ready_rows(self, rows: np.ndarray, modes: np.ndarray,
                         force: bool = True) -> Tuple[np.ndarray, int]:
-        """Rows whose demoted pages can be seated this tick: all of them
-        untiered."""
-        return rows, 0
+        """Defer the full-cache rows whose promotion cannot be seated this
+        tick: returns (rows less the deferred slots, the number deferred).
+        A deferred slot skips the tick; other slots' demotions give pages
+        back and ``tier_admit_margin`` bounds every debt.  If every row
+        would defer and ``force`` is set, the smallest debt steps anyway
+        (its promotion then reclaims idle prefixes or raises).  A caller
+        whose prefill pump made progress this tick passes
+        ``force=False``: an open cursor holds its whole page bill until
+        its first refresh, and its completion is what frees the pool.
+        Untiered: every row."""
+        if self._tier is None:
+            return rows, 0
+        al = self._page_alloc
+        budget = al.free + al.idle      # a promotion reclaims idle prefixes
+        out = rows.copy()
+        deferred = []
+        for i in np.nonzero(rows)[0]:
+            i = int(i)
+            if modes[i] == MODE_PARTIAL:
+                continue
+            need = al.hosted_count(i)
+            if need == 0:
+                continue
+            if need <= budget:
+                budget -= need
+            else:
+                out[i] = False
+                deferred.append((need, i))
+        if deferred and not out.any() and force:
+            _, i = min(deferred)
+            out[i] = True
+            deferred = [d for d in deferred if d[1] != i]
+        return out, len(deferred)
+
+    def _tier_promote_rows(self, st: EngineState, rows: np.ndarray,
+                           modes: np.ndarray) -> None:
+        """Before the dispatch: every stepping row about to read the full
+        cache (Full or Refresh) gets its hosted pages seated, prefetched
+        segments without waiting on the host link, the rest copied on
+        the engine's stream (the early-refresh path)."""
+        al = self._page_alloc
+        for i in np.nonzero(rows)[0]:
+            i = int(i)
+            if modes[i] == MODE_PARTIAL:
+                continue
+            need = al.hosted_count(i)
+            if need == 0:
+                continue
+            if need > al.free:
+                self.reclaim_pages(need - al.free)
+            self._tier.promote_slot(st.cache, i)
+
+    def _tier_epilogue(self, rows: np.ndarray, modes: np.ndarray) -> None:
+        """After the dispatch: rows that just refreshed go back to partial
+        steps, so their committed blocks are cold: demote them (a forked
+        row's pages are shared and stay).  A partial row whose automaton
+        may refresh on its next step starts its prefetch.  Lengths come
+        from the host mirrors the step's read-back left (trunk length =
+        sequence length - pending)."""
+        cache = self.state.cache
+        for i in np.nonzero(rows)[0]:
+            i = int(i)
+            if modes[i] == MODE_REFRESH and i not in self._forked_slots:
+                self._tier.demote_slot(cache, i, int(
+                    self._host_seq_len[i] - self._host_pending_len[i]))
+            elif (modes[i] == MODE_PARTIAL
+                    and self._page_alloc.hosted_count(i)
+                    and self._refresh_within(int(self._host_pending_len[i]))):
+                self._tier.prefetch_slot(i)
 
     def release_slot_pages(self, slot: int) -> None:
-        """Release an evicted slot's page references and pins ahead of
-        the deferred row reset, so same-tick admission sees them."""
+        """Release an evicted slot's page references and pins (and its
+        host copies) ahead of the deferred row reset, so same-tick
+        admission sees them."""
         if self.paged:
             self._page_alloc.free_slot(slot)
             self._draft_alloc.free_slot(slot)
             self._forked_slots.discard(slot)
+            if self._tier is not None:
+                self._tier.drop_slot(slot)
 
     def reset_high_water(self) -> None:
         """Zero the page high-water marks (benchmark warm-up)."""
@@ -944,16 +1066,18 @@ class SpecPVEngine:
         al = self._page_alloc
         if al is None:
             return {}
-        return dict(num_pages=self.num_pages, capacity=al.capacity,
-                    in_use=al.in_use, idle=al.idle, committed=al.committed,
-                    high_water=al.high_water,
-                    resident_high_water=al.resident_high_water,
-                    draft_num_pages=self.num_draft_pages,
-                    draft_in_use=self._draft_alloc.in_use,
-                    draft_high_water=self._draft_alloc.high_water,
-                    contiguous_pages=self.batch * self._nb_seq,
-                    block_size=self.spec.block_size,
-                    pinned_pages=al.pinned_pages)
+        out = dict(num_pages=self.num_pages, capacity=al.capacity,
+                   in_use=al.in_use, idle=al.idle, committed=al.committed,
+                   high_water=al.high_water,
+                   resident_high_water=al.resident_high_water,
+                   draft_num_pages=self.num_draft_pages,
+                   draft_in_use=self._draft_alloc.in_use,
+                   draft_high_water=self._draft_alloc.high_water,
+                   contiguous_pages=self.batch * self._nb_seq,
+                   block_size=self.spec.block_size,
+                   pinned_pages=al.pinned_pages)
+        out.update(self.tier_stats())
+        return out
 
     def reset_prefix_stats(self) -> None:
         """Zero the prefix-cache hit and reuse counters (benchmark
@@ -1089,6 +1213,8 @@ class SpecPVEngine:
         al.free_slot(slot)                      # stale pages, if any
         dal.free_slot(slot)
         self._forked_slots.discard(slot)        # a fresh request, no fork
+        if self._tier is not None:
+            self._tier.drop_slot(slot)          # stale host copies too
         budget = (max_new_tokens if max_new_tokens is not None
                   else max(self.max_len - len(prompt), 0))
         total = self.pages_needed(len(prompt), budget)
@@ -1513,6 +1639,8 @@ class SpecPVEngine:
         for al in (self._page_alloc, self._draft_alloc):
             al.free_slot(dst)                   # stale pages, if any
             al.fork(src, dst)
+        if self._tier is not None:
+            self._tier.drop_slot(dst)
         for mirror in (self._pkv_active_rows, self._host_pending_len,
                        self._host_seq_len, self._host_ext_len,
                        self._slot_temp, self._slot_chain):
@@ -1584,12 +1712,8 @@ class SpecPVEngine:
         return st
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A small host array on the engine's device without a sync: on
-        the card through pinned memory and an asynchronous copy."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
-            return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        """A small host array on the engine's device without a sync."""
+        return kvc.to_device(a, self.device)
 
     # ------------------------------------------------------------------
     # the compiled step: one body per variant, captured once on the card
@@ -2036,6 +2160,10 @@ class SpecPVEngine:
         # are dropped), so every row runs a branch the variant has
         modes = np.where(rows, modes, active_modes[0]).astype(np.int8)
         st = self.prepare_cow(st, rows)
+        if self._tier is not None:
+            # seat hosted pages before any full-cache read (prefetched
+            # ones land free; an early refresh pays a copy)
+            self._tier_promote_rows(st, rows, modes)
         self._tick_in.copy_(torch.from_numpy(np.stack(
             [modes, rows.astype(np.int8), self._slot_chain.astype(np.int8)])))
         key = (has_full, has_partial, has_refresh, has_sampled, has_chain)
@@ -2060,6 +2188,11 @@ class SpecPVEngine:
                 if pages:
                     al.pin_slot_pages(i, pages)
         self._record_traffic_rows(modes, rows)
+        if self._tier is not None:
+            # after the pins, so demotion skips the pages a routed view
+            # reads: refreshed rows' committed blocks go cold, and partial
+            # rows near their refresh prefetch
+            self._tier_epilogue(rows, modes)
         names = sorted({MODE_NAMES[int(m)] for m in active_modes})
         return st, StepOutput(tokens=toks, counts=np.where(rows, counts, 0),
                               accept_len=np.where(rows, acc, 0),

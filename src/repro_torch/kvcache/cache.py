@@ -1,5 +1,5 @@
 """Blocked KV cache structures (counterpart of ``repro/kvcache/cache.py``,
-without shards or residency tiers).
+without shards).
 
 Contiguous cache: ``k/v [L, B, S_max, Hk, Dh]`` with per-row lengths and
 per-block summaries ``kmax/kmin [L, B, NB, Hk, Dh]`` (paper eq. (1)).
@@ -9,8 +9,9 @@ per-slot page tables ``[B, S_max/block]`` and physical-page summaries
 ``kmax/kmin [L, NumPages, Hk, Dh]``.  Page 0 is the reserved null page:
 unallocated entries point at it, pad and invalid writes land in it, and
 it is never read unmasked.  Page ownership lives host-side in
-``PageAllocator`` (refcounts, prefix-cache references and the zero-copy
-partial pins); ``PrefixCache`` indexes registered prompt blocks.
+``PageAllocator`` (refcounts, prefix-cache references, the zero-copy
+partial pins and the blocks demoted to the host tier);
+``PrefixCache`` indexes registered prompt blocks.
 
 Unlike the reference's functional updates, the writers here update the
 cache tensors in place (the engine consumes the state it steps).
@@ -107,7 +108,7 @@ def contiguous_update_all_summaries(kmax, kmin, k, start, end, block: int,
 
 class PageAllocator:
     """Host-side refcounted allocator over the shared block pool (the
-    reference's allocator without shards or residency tiers).
+    reference's allocator without shards).
 
     Page 0 is the reserved null page and never handed out, so
     ``capacity == num_pages - 1``.  ``_slot_pages[slot][j]`` is the
@@ -123,7 +124,11 @@ class PageAllocator:
     by cache references are ``idle`` (reclaimable by LRU eviction); the
     rest of ``in_use`` is ``committed``.  A pin is a real reference plus
     a ``_pin_ref`` count, so a pinned page can never be freed or rebound
-    until the slot's next refresh drops the pin.  ``high_water`` is the
+    until the slot's next refresh drops the pin.  A block demoted to the
+    host tier (``demote``) gives its page back and leaves a null entry
+    and a promotion debt (``_hosted``) that ``promote`` repays on a fresh
+    page; only pages the slot owns alone, unpinned and uncached, demote.
+    ``high_water`` is the
     peak of ``committed`` and ``resident_high_water`` the peak of
     ``in_use``; both move only in ``_track``, where pages can become
     slot-referenced (never in ``fork``), and survive ``reset``.
@@ -144,6 +149,7 @@ class PageAllocator:
         self._ref = np.zeros((self.num_pages,), np.int32)
         self._cache_ref = np.zeros((self.num_pages,), np.int32)
         self._slot_pages: dict = {}
+        self._hosted: dict = {}         # slot -> set of demoted blocks
         self._pin_ref = np.zeros((self.num_pages,), np.int32)
         self._slot_pins: dict = {}
 
@@ -188,6 +194,64 @@ class PageAllocator:
     def slot_holds_shared(self, slot: int) -> bool:
         """Does `slot` hold any page it does not own exclusively?"""
         return any(self._ref[p] > 1 for p in self._slot_pages.get(slot, ()))
+
+    # -- residency tiers (the bytes: ``kvcache.offload.TierManager``) ---
+    def hosted_count(self, slot: int) -> int:
+        """Demoted blocks `slot` is owed: the pages a promotion ahead of
+        its next full-cache read must seat."""
+        return len(self._hosted.get(slot, ()))
+
+    def hosted_blocks(self, slot: int) -> List[int]:
+        return sorted(self._hosted.get(slot, ()))
+
+    @property
+    def hosted_total(self) -> int:
+        return sum(len(v) for v in self._hosted.values())
+
+    def max_hosted(self) -> int:
+        """The largest single-slot promotion debt (admission headroom)."""
+        return max((len(v) for v in self._hosted.values()), default=0)
+
+    def demotable(self, slot: int, block: int) -> bool:
+        """May logical `block` of `slot` leave the device?  Only a page
+        the slot owns alone, with no prefix-cache reference and no pin: a
+        shared page is another holder's hot block and must stay servable
+        without a host round trip."""
+        pages = self._slot_pages.get(slot)
+        if pages is None or block >= len(pages):
+            return False
+        p = pages[block]
+        return (p != 0 and self._ref[p] == 1 and self._cache_ref[p] == 0
+                and self._pin_ref[p] == 0)
+
+    def demote(self, slot: int, block: int) -> int:
+        """Give back the page of a block whose bytes went to the host: the
+        page returns to the free list, the slot's entry becomes the null
+        page (what the device table must show) and the block joins the
+        slot's debt.  Returns the page."""
+        assert self.demotable(slot, block), \
+            f"demote of non-exclusive block {block} of slot {slot}"
+        p = self._slot_pages[slot][block]
+        self._slot_pages[slot][block] = 0
+        self._ref[p] = 0
+        self._free.append(p)
+        self._free_set.add(p)
+        self._hosted.setdefault(slot, set()).add(block)
+        return p
+
+    def promote(self, slot: int, block: int) -> int:
+        """Seat a hosted block on a fresh page (refcount 1) and clear its
+        debt; raises on exhaustion with state unchanged.  The caller
+        writes the page's bytes and repoints the device table."""
+        hosted = self._hosted.get(slot, set())
+        assert block in hosted, \
+            f"promote of non-hosted block {block} of slot {slot}"
+        [p] = self._take(1)
+        self._slot_pages[slot][block] = p
+        hosted.discard(block)
+        if not hosted:
+            self._hosted.pop(slot, None)
+        return p
 
     def _track(self) -> None:
         self.high_water = max(self.high_water, self.committed)
@@ -276,7 +340,8 @@ class PageAllocator:
         Returns the pages actually freed."""
         old = self._slot_pages[slot][block]
         assert old != page, "rebind onto the page already held"
-        assert old != 0, "rebind of a null block"
+        assert old != 0 and block not in self._hosted.get(slot, ()), \
+            "rebind of a hosted or null block"
         assert self._pin_ref[old] == 0, \
             f"rebind of partial-pinned page {old}"
         self.add_ref([page])
@@ -290,6 +355,8 @@ class PageAllocator:
         refresh, so evicting `src` must not strand it."""
         assert not self._slot_pages.get(dst), \
             f"fork target slot {dst} still holds pages"
+        assert not self._hosted.get(src) and not self._hosted.get(dst), \
+            "cannot fork a slot with host-demoted blocks (promote first)"
         pages = self.pages_of(src)
         self.attach(dst, pages)
         src_pins = self._slot_pins.get(src)
@@ -319,9 +386,12 @@ class PageAllocator:
     def free_slot(self, slot: int) -> List[int]:
         """Release `slot`'s pins and references (idempotent).  Returns
         only the pages actually freed: pages still shared with another
-        slot or the prefix cache stay resident."""
+        slot or the prefix cache stay resident.  Hosted blocks (null
+        entries) hold no page and drop their debt; their host bytes are
+        the ``TierManager``'s to discard."""
         self.unpin_slot(slot)
         pages = self._slot_pages.pop(slot, [])
+        self._hosted.pop(slot, None)
         return self.dec_ref([p for p in pages if p != 0])
 
     def pin_slot_pages(self, slot: int, pages) -> None:
@@ -776,6 +846,15 @@ PAGED_POOL_KEYS = ("k", "v", "kmax", "kmin")
 DRAFT_POOL_KEYS = ("k", "v")
 CACHE_BATCH_AXIS = {"k": 1, "v": 1, "kmax": 1, "kmin": 1,
                     "page_table": 0, "length": 0}
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on ``device`` without a sync: on the card
+    through pinned memory and an asynchronous copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def write_row(dst, src, slot: int, axis: int):

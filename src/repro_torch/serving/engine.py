@@ -42,9 +42,10 @@ class ServingConfig:
     cursor's chunk per dispatch); ``paged_kv=True`` serves from the
     paged pool, gathered or zero-copy.  Copy-on-write prefix sharing
     (``prefix_cache=True``, as in the reference) applies to the paged
-    pool only.  ``tiered_kv=True`` and a ``mesh_shape`` raise
-    NotImplementedError naming their ROADMAP item (the tier codec fields
-    only matter with ``tiered_kv``)."""
+    pool only, and so does the host tier of cold trunk pages
+    (``tiered_kv=True``, with ``tier_codec`` "int8" or "fp8", or
+    ``tier_lossless``); unpaged it is ignored, as in the reference.  A
+    ``mesh_shape`` raises NotImplementedError naming its ROADMAP item."""
     batch: int = 4
     max_len: int = 4096
     prefill_chunk: int = 256
@@ -77,13 +78,8 @@ class ServingEngine:
                  scfg: Optional[ServingConfig] = None, *, device=None,
                  cuda_graphs: Optional[bool] = None):
         self.scfg = scfg = scfg or ServingConfig()
-        for bad, what, item in (
-                (scfg.tiered_kv, "tiered KV residency (tiered_kv=True)",
-                 "Tiered KV"),
-                (scfg.mesh_shape is not None, "mesh sharding (mesh_shape)",
-                 "Multi-GPU")):
-            if bad:
-                _unsupported(what, item)
+        if scfg.mesh_shape is not None:
+            _unsupported("mesh sharding (mesh_shape)", "Multi-GPU")
         self.cfg = cfg
         self.spec = spec
         self.dcfg = dcfg
@@ -114,7 +110,7 @@ class ServingEngine:
 
     def _engine_for(self, batch: int, *, paged: bool = False) -> SpecPVEngine:
         """The engine of ``batch`` rows: paged (the configured pools, pages
-        per request, prefix sharing and zero-copy as configured) or
+        per request, prefix sharing, tiers and zero-copy as configured) or
         contiguous (the wave path always; the continuous one with
         ``paged_kv=False``), as the reference's ``_engine_for``."""
         key = (batch, paged)
@@ -126,6 +122,9 @@ class ServingEngine:
                 paged=paged, num_pages=self.scfg.num_pages,
                 num_draft_pages=self.scfg.num_draft_pages,
                 prefix_cache=self.scfg.prefix_cache,
+                tiered=paged and self.scfg.tiered_kv,
+                tier_lossless=self.scfg.tier_lossless,
+                tier_codec=self.scfg.tier_codec,
                 zero_copy=paged and self.scfg.zero_copy_partial,
                 device=self.device, cuda_graphs=self.cuda_graphs)
         return self._engines[key]

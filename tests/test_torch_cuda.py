@@ -1606,3 +1606,159 @@ def test_cuda_greedy_rows_in_mixed_graph_tick_fp32(cuda):
                               prompts, 16)
     assert mixed[0] == greedy[0]
     assert mixed[1] != greedy[1] and mixed[2] != greedy[2]
+
+
+# ---------------------------------------------------------------------------
+# tiered KV residency: the codecs and the host tier on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["int8", "fp8"])
+def test_cuda_quantize_bit_equal_cpu(cuda, codec):
+    """The codecs on the card give the CPU route's payload and scales,
+    and dequantize to its bf16 and fp32 values, bit for bit."""
+    from repro_torch.kvcache import quant
+    g = torch.Generator(device=cuda)
+    g.manual_seed(11)
+    x = (torch.randn((4, 128, 8, 128), generator=g, device=cuda)
+         * torch.randn((4, 128, 8, 1), generator=g, device=cuda).exp()
+         ).to(torch.bfloat16)
+    x[0, :3] = 0
+    x[1, 0, 0, :9] = 1e-30
+    fn = quant.quantize_kv_fp8 if codec == "fp8" else quant.quantize_kv
+    qd, sd = fn(x)
+    qc, sc = fn(x.cpu())
+    assert torch.equal(qd.view(torch.uint8).cpu(), qc.view(torch.uint8))
+    assert torch.equal(sd.view(torch.int16).cpu(), sc.view(torch.int16))
+    for dt in (torch.bfloat16, torch.float32):
+        assert torch.equal(quant.dequantize_kv(qd, sd, dt).cpu(),
+                           quant.dequantize_kv(qc, sc, dt))
+
+
+def _tier_pool(dev, seed, npg=40, layers=4, bs=128, hk=8, dh=128):
+    """A random bf16 paged pool with page summaries and a 2-slot table."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    kv = (layers, npg, bs, hk, dh)
+    sm = (layers, npg, hk, dh)
+    return {"k": torch.randn(kv, generator=g, device=dev).to(torch.bfloat16),
+            "v": torch.randn(kv, generator=g, device=dev).to(torch.bfloat16),
+            "kmax": torch.randn(sm, generator=g, device=dev),
+            "kmin": torch.randn(sm, generator=g, device=dev),
+            "page_table": torch.zeros((2, 16), dtype=torch.int32,
+                                      device=dev)}
+
+
+def _tier_cycle(cache, tm, prefetch):
+    """Seat 12 + 4 pages, demote slot 0's 10 complete blocks, overwrite
+    the recycled pages through slot 1 at once (on the engine's stream),
+    then prefetch (or not) and promote, every tier call under
+    ``set_sync_debug_mode("error")`` on the card."""
+    al = tm.alloc
+    cuda = cache["k"].is_cuda
+
+    def no_sync(fn):
+        if not cuda:
+            return fn()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    cache["page_table"][0, :12] = torch.from_numpy(al.alloc(0, 12))
+    cache["page_table"][1, :4] = torch.from_numpy(al.alloc(1, 4))
+    if cuda:
+        torch.cuda.synchronize()
+    no_sync(lambda: tm.demote_slot(cache, 0, 10 * 128 + 5))
+    taken = al.alloc(1, 10)                # the recycled pages, at once
+    for name in ("k", "v"):
+        cache[name][:, torch.from_numpy(taken).long().to(cache[name].device)] \
+            = 7.0
+    if prefetch:
+        no_sync(lambda: tm.prefetch_slot(0))
+    no_sync(lambda: tm.promote_slot(cache, 0))
+    if cuda:
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["lossless", "int8", "fp8"])
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_cuda_tier_side_stream_round_trip(cuda, codec, prefetch):
+    """Demote, then prefetch on the side stream (or promote with a copy on
+    the engine's stream), and promote, with the demoted pages reused and
+    overwritten in between and no tier call syncing: lossless restores
+    the pool's K/V, summaries and page table bit for bit; int8 and fp8
+    give the CPU route's pool bit for bit."""
+    from repro_torch.kvcache.cache import PageAllocator
+    from repro_torch.kvcache.offload import TierManager
+    kw = (dict(lossless=True) if codec == "lossless"
+          else dict(codec=codec))
+    cache = _tier_pool(cuda, 21)
+    cpu = {n: t.cpu() for n, t in cache.items()}
+    before = {n: t.clone() for n, t in cache.items()}
+    tm = TierManager(PageAllocator(40), **kw)
+    tc = TierManager(PageAllocator(40), **kw)
+    _tier_cycle(cache, tm, prefetch)
+    _tier_cycle(cpu, tc, prefetch)
+    assert tm.stats() == tc.stats()
+    assert tm.stats()["tier_prefetch_hits" if prefetch
+                      else "tier_sync_promotes"] == 1
+    for n in ("k", "v", "kmax", "kmin", "page_table"):
+        assert torch.equal(cache[n].cpu(), cpu[n]), n
+    pt = cache["page_table"][0, :12].long()
+    assert torch.equal(pt[10:], torch.arange(1, 3, device=cuda) + 10)
+    names = ("kmax", "kmin") + (("k", "v") if codec == "lossless" else ())
+    old = torch.arange(1, 13, device=cuda)      # the pages seated first
+    for n in names:
+        assert torch.equal(cache[n][:, pt], before[n][:, old]), n
+
+
+@pytest.mark.cuda
+def test_cuda_tiered_graphs_equal_untiered(cuda, models):
+    """2-layer llama at full width, with graphs: tiered lossless
+    ``generate`` through a demotion, a prefetch hit and a second demotion
+    gives the untiered tokens, captures the same graphs and launches the
+    same kernels; a Partial step in which no tier work runs makes the
+    untiered step's device launches, with 3 host launch calls."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    model = _get_model(models, "llama3.1-8b")
+    prompt_len, new = 4700, 100
+    prompt = np.random.default_rng(9).integers(
+        0, model[0].vocab_size, (1, prompt_len)).astype(np.int64)
+    runs = []
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    cfg, spec, dcfg, params, dparams = model
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    for tiered in (False, True):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, paged=True, tiered=tiered,
+                           tier_lossless=True, device="cuda")
+        tops.reset_launch_counts()
+        toks, stats = eng.generate(prompt, new)
+        torch.cuda.synchronize()
+        launches = tops.launch_counts()
+        st = eng.final_state
+        st, _ = eng.step(st, "refresh")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st, _ = eng.step(st, "partial")
+            torch.cuda.synchronize()
+        dev_n = sum(1 for e in prof.events()
+                    if getattr(e, "device_type", None) == DeviceType.CUDA)
+        calls = sum(1 for e in prof.events()
+                    if e.name in ("cudaGraphLaunch", "cudaLaunchKernel",
+                                  "cudaMemcpyAsync", "cudaMemsetAsync",
+                                  "cudaLaunchKernelExC"))
+        runs.append((eng, toks, stats, launches, dev_n, calls))
+    (ue, ut, us, ul, ud, uc), (te, tt, ts, tl, td, tc) = runs
+    assert np.array_equal(tt, ut) and ts["modes"] == us["modes"]
+    assert us["modes"]["refresh"] >= 2
+    assert set(te._graphs) == set(ue._graphs) and tl == ul
+    stats = te.tier_stats()
+    assert stats["tier_demoted_pages"] > 0 and stats["tier_prefetch_hits"] >= 1
+    assert td == ud and tc == uc == 3, (td, ud, tc, uc)

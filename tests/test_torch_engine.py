@@ -139,18 +139,21 @@ def test_unsupported_settings_raise(setup):
     s = setup
     kw = dict(batch=2, max_len=MAX_LEN, device="cpu")
     args = (s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"])
-    for bad in (dict(paged=True, zero_copy=True, tiered=True),
-                dict(mesh=object())):
+    for bad in (dict(mesh=object()),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(*args, **bad, **kw)
-    # sampling and chain drafts are ported since
+    # sampling, chain drafts and tiers are ported since
     for good in (dict(temperature=0.7),
                  dict(paged=True, zero_copy=True, temperature=0.7),
-                 dict(draft_chain=True)):
-        TEngine(*args, **good, **kw)
-    # zero-copy routes through the page table, as the reference asserts
-    with pytest.raises(ValueError, match="paged"):
-        TEngine(*args, paged=False, zero_copy=True, **kw)
+                 dict(draft_chain=True),
+                 dict(paged=True, zero_copy=True, tiered=True),
+                 dict(paged=True, tiered=True, tier_codec="fp8")):
+        assert TEngine(*args, **good, **kw).tiered == bool(good.get("tiered"))
+    # zero-copy and tiers route through the page table, as the reference
+    # asserts
+    for bad in (dict(zero_copy=True), dict(tiered=True)):
+        with pytest.raises(ValueError, match="paged"):
+            TEngine(*args, paged=False, **bad, **kw)
 
 
 def test_defaults_are_the_supported_engine(setup):

@@ -24,8 +24,9 @@ scheduler in ``tests/test_torch_prefix.py``).
   equals the port's ``generate``.
 * The allocator's counters follow the reference's ``PageAllocator``.
 * Each unsupported setting raises NotImplementedError naming its
-  ROADMAP item; ``ServingConfig(prefix_cache=True)`` builds and serves,
-  and so do sampled and chain requests, ported since.
+  ROADMAP item; ``ServingConfig(prefix_cache=True)`` and
+  ``ServingConfig(tiered_kv=True)`` build and serve, and so do sampled
+  and chain requests, ported since.
 """
 import dataclasses
 
@@ -501,7 +502,7 @@ def _request_serves(s, **kw):
     (_serves, dict(paged_kv=False), None),
     (_serves, dict(paged_kv=True, zero_copy_partial=False), None),
     (_serves, dict(paged_kv=True, prefix_cache=True), None),
-    (_bad_config, dict(tiered_kv=True), "Tiered KV"),
+    (_serves, dict(paged_kv=True, tiered_kv=True), None),
     (_bad_config, dict(mesh_shape=(1, 1)), "Multi-GPU"),
     (_request_serves, dict(temperature=0.7, seed=3), None),
     (_request_serves, dict(draft="chain"), None),
@@ -516,6 +517,7 @@ def test_unsupported_settings_raise(setup, make, kw, item):
         eng = srv._continuous.engine
         assert eng.paged == kw["paged_kv"]
         assert eng.zero_copy == kw.get("zero_copy_partial", False)
+        assert eng.tiered == kw.get("tiered_kv", False)
         if kw.get("prefix_cache"):
             assert srv.prefix_stats()["inserted"] > 0
         return
