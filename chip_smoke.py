@@ -44,10 +44,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    every layer), the prefill is timed apart from decode (host clock
    after a synchronisation), and every layer's page summaries of the
    final cache are recomputed by the plain version and held to it bit
-   for bit; then a fresh prefill (device launches, host ops and host
-   launch calls per chunk) and a few decode steps under
-   ``torch.profiler`` (device time by kernel, idle share) and two forced
-   Refresh steps (K3's share of their device time).  After the eager
+   for bit; then a fresh prefill (the graph run's under
+   ``torch.profiler``: device launches, host ops and host launch calls
+   per chunk) and a few decode steps under ``torch.profiler`` (device
+   time by kernel, idle share) and two forced Refresh steps (K3's share
+   of their device time).  After the eager
    run, one eager run of the prefill chunk's and of each step variant's
    body under ``torch.cuda.set_sync_debug_mode("error")`` (no body may
    wait for the card or read from the host);
@@ -228,7 +229,27 @@ Phases, in order (any failure raises and the script exits non-zero):
    and chunks, bf16 tokens against the untiered run (reported).  (c)
    fp32 at 4 layers with graphs: served tiered lossless (every request
    demotes and promotes on a prefetch hit) equals served untiered and
-   each request's solo ``generate``.
+   each request's solo ``generate``;
+14. the MoE family (slice 14): granite-moe-1b-a400m at full width and
+   depth (24 layers, 32 experts top-8, H 16 / Hk 8 / Dh 64, bf16, random
+   weights from seed 0, the draft from seed 1).  (a) Phase 3's
+   ``generate`` on the paged zero-copy pool (8192-token prompt, 128 new
+   tokens), eagerly and with graphs: equal tokens and launch counts,
+   K1-K4 launched as the steps and chunks imply, final summaries equal
+   to the plain version, the graph run profiled (wall and device busy ms
+   per step, idle share, host launch calls), the bodies under the sync
+   check; on the eager engine the dropped (token, slot) pairs of a few
+   verify steps and one profiled step split into K1-K4, the MoE's
+   router, top-k, dispatch, expert GEMMs and combine, the other trunk
+   GEMMs and the draft.  (c) ``ServingConfig()`` serving of phase 6's
+   six requests at batch 4 with graphs (launches held to the steps and
+   chunks, the serving bodies under the sync check; the shortest
+   request against its solo ``generate`` reported: capacity binds at
+   top-8, so a request's tokens depend on its batch).  (b) fp32 (TF32
+   off) at full width and depth, a 1024-token prompt: ``generate`` with
+   full verification and graphs equals the port's compiled AR decoding
+   (``CompiledAR``), the plain AR oracle's agreement reported.  Phase 2
+   holds K1-K4 at granite's heads to their plain versions, timed.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -451,10 +472,11 @@ def _close(label, got, want, tol=TOL_KERNEL):
 # ---------------------------------------------------------------------------
 
 def _attn_case(torch, gen, *, t, ctx, routed_ns=0, causal_qoff=None,
-               dtype=None):
-    """Inputs of one K1/K2 call at llama3.1-8b shapes.  Returns the
-    kernel's argument tuple plus the work counts for the bound."""
-    h, hk, dh, bs = 32, 8, 128, 128
+               dtype=None, h=32, hk=8, dh=128):
+    """Inputs of one K1/K2 call at llama3.1-8b shapes (or the heads
+    given).  Returns the kernel's argument tuple plus the work counts
+    for the bound."""
+    bs = 128
     dtype = dtype or torch.bfloat16
     nb = -(-ctx // bs)
     np_ = nb + 2
@@ -550,70 +572,72 @@ def _attn_row(torch, card, timer, label, launch, plain, nbytes=None,
                 library_ms=lib_ms)
 
 
-def phase_kernels(torch, card, timer):
+def _attn_check(torch, card, timer, gen, results, label, name,
+                primary=False, timed=True, **kw):
+    """One K1/K2 case (``_attn_case``'s keywords) held to its plain
+    version; a timed case also gets its kernel, plain, bound and SDPA
+    times.  The row goes to ``results[name]`` (the first, or the
+    ``primary`` one; every case's error is kept)."""
     from repro_torch.kernels import ops, ref
     import torch.nn.functional as F
+    args, nbytes, flops, table, pool_k, pool_v = _attn_case(torch, gen, **kw)
+    q, kf, vf, idx, vlen, bs, qoff = args
+
+    def launch():
+        return ops.block_attention(q, kf, vf, idx, vlen, bs, q_offset=qoff)
+
+    def plain():
+        return ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                           q_offset=qoff)
+    if not timed:
+        err = _attn_row(torch, card, timer, label, launch,
+                        plain)["max_abs_err"]
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        return
+    # the yardstick: one torch SDPA call over the gathered keys with the
+    # same mask (GQA: the query heads of a KV head share it)
+    qh = q.transpose(1, 2)
+    hk_, dh_ = kf.shape[1:]
+    if kw.get("routed_ns"):
+        # per-head routed blocks, masked to their valid lengths
+        hsel = torch.arange(hk_, device="cuda")[:, None]
+        ids = idx[0].long()                                  # [Hk, NS]
+        kh_ = pool_k.permute(2, 0, 1, 3)[hsel, ids].reshape(1, hk_, -1, dh_)
+        vh_ = pool_v.permute(2, 0, 1, 3)[hsel, ids].reshape(1, hk_, -1, dh_)
+        valid = (torch.arange(bs, device="cuda")[None, None]
+                 < vlen[0][..., None]).reshape(hk_, -1)
+        mask = valid.repeat_interleave(q.shape[2] // hk_, 0)[None, :, None]
+    else:
+        ctx = kw["ctx"]
+        kh_ = pool_k[table[0].long()].reshape(1, -1, hk_, dh_)[:, :ctx] \
+            .transpose(1, 2)
+        vh_ = pool_v[table[0].long()].reshape(1, -1, hk_, dh_)[:, :ctx] \
+            .transpose(1, 2)
+        mask = None
+        if qoff is not None:
+            qpos = kw["causal_qoff"] + torch.arange(q.shape[1],
+                                                    device="cuda")
+            mask = torch.arange(ctx, device="cuda")[None] <= qpos[:, None]
+    row = _attn_row(torch, card, timer, label, launch, plain, nbytes,
+                    flops, lambda: F.scaled_dot_product_attention(
+                        qh, kh_, vh_, attn_mask=mask, enable_gqa=True))
+    prev = results.get(name)
+    if prev is None or primary:
+        if prev is not None:
+            row["max_abs_err"] = max(row["max_abs_err"], prev["max_abs_err"])
+        results[name] = row
+    else:
+        prev["max_abs_err"] = max(prev["max_abs_err"], row["max_abs_err"])
+
+
+def phase_kernels(torch, card, timer):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     results = {}
 
     def attn_check(label, name, primary=False, timed=True, **kw):
-        """One K1/K2 case held to its plain version; a timed case also
-        gets its kernel, plain, bound and SDPA times."""
-        args, nbytes, flops, table, pool_k, pool_v = _attn_case(torch, gen, **kw)
-        q, kf, vf, idx, vlen, bs, qoff = args
-
-        def launch():
-            return ops.block_attention(q, kf, vf, idx, vlen, bs,
-                                       q_offset=qoff)
-
-        def plain():
-            return ref.block_attention_batched(q, kf, vf, idx, vlen, bs,
-                                               q_offset=qoff)
-        if not timed:
-            err = _attn_row(torch, card, timer, label, launch,
-                            plain)["max_abs_err"]
-            results[name]["max_abs_err"] = max(
-                results[name]["max_abs_err"], err)
-            return
-        # the yardstick: one torch SDPA call over the gathered keys with
-        # the same mask (GQA: 4 query heads share each KV head)
-        qh = q.transpose(1, 2)
-        hk_, dh_ = kf.shape[1:]
-        if kw.get("routed_ns"):
-            # per-head routed blocks, masked to their valid lengths
-            hsel = torch.arange(hk_, device="cuda")[:, None]
-            ids = idx[0].long()                                  # [Hk, NS]
-            kh_ = pool_k.permute(2, 0, 1, 3)[hsel, ids].reshape(1, hk_, -1,
-                                                                  dh_)
-            vh_ = pool_v.permute(2, 0, 1, 3)[hsel, ids].reshape(1, hk_, -1,
-                                                                  dh_)
-            valid = (torch.arange(bs, device="cuda")[None, None]
-                     < vlen[0][..., None]).reshape(hk_, -1)
-            mask = valid.repeat_interleave(q.shape[2] // hk_, 0)[None, :,
-                                                                  None]
-        else:
-            ctx = kw["ctx"]
-            kh_ = pool_k[table[0].long()].reshape(1, -1, hk_, dh_)[:, :ctx] \
-                .transpose(1, 2)
-            vh_ = pool_v[table[0].long()].reshape(1, -1, hk_, dh_)[:, :ctx] \
-                .transpose(1, 2)
-            mask = None
-            if qoff is not None:
-                qpos = kw["causal_qoff"] + torch.arange(q.shape[1],
-                                                        device="cuda")
-                mask = torch.arange(ctx, device="cuda")[None] <= qpos[:, None]
-        row = _attn_row(torch, card, timer, label, launch, plain, nbytes,
-                        flops, lambda: F.scaled_dot_product_attention(
-                            qh, kh_, vh_, attn_mask=mask, enable_gqa=True))
-        prev = results.get(name)
-        if prev is None or primary:
-            if prev is not None:
-                row["max_abs_err"] = max(row["max_abs_err"],
-                                         prev["max_abs_err"])
-            results[name] = row
-        else:
-            prev["max_abs_err"] = max(prev["max_abs_err"], row["max_abs_err"])
+        _attn_check(torch, card, timer, gen, results, label, name,
+                    primary=primary, timed=timed, **kw)
 
     k1 = "sparse_verify_attention"
     attn_check("K1 full T=61 ctx=8229", k1, t=61, ctx=8229)
@@ -1236,7 +1260,8 @@ def phase_generate(torch, card):
 
 
 def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
-                  new_tokens, layout, name, eager_new=None):
+                  new_tokens, layout, name, eager_new=None, eager_hook=None,
+                  profile_eager=True, profile_prefill=True):
     """``generate`` at full width on the engine ``layout`` gives (paged
     or not, zero-copy or not), eagerly then with graphs: launches held to
     the path, final summaries to the plain version, a profiled window,
@@ -1244,8 +1269,13 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
     and launches equal to eager.  With ``eager_new`` the eager run
     generates that many tokens only and is not profiled; its tokens are
     then held to the graph run's first ``eager_new`` and each run's
-    launches to what its own steps imply.  Returns both runs'
-    numbers."""
+    launches to what its own steps imply.  ``eager_hook(eng, st)`` runs
+    on the eager engine and the state its ``generate`` left, before the
+    sync check; its result is the eager run's ``"hook"``.  The eager run's
+    profiled window leaves its prefill out (profiling an eager 8192-token
+    prefill took 114 s of the smoke); ``profile_eager=False`` leaves the
+    eager run unprofiled, ``profile_prefill=False`` the graph run's
+    prefill out too.  Returns both runs' numbers."""
     from repro_torch.core.engine import SpecPVEngine, request_token_need
     from repro_torch.kernels import ops
     prompt_len = prompt.shape[1]
@@ -1254,6 +1284,7 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
                                  tree_path)
     runs = {}
     for graphs in (False, True):
+        t_run = time.perf_counter()
         label = f"{name} {RUN_LABEL[graphs]}"
         short = not graphs and eager_new is not None
         n_new = eager_new if short else new_tokens
@@ -1271,8 +1302,8 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
         peak = torch.cuda.max_memory_allocated() / 2**30
         memory_line(torch, card, label, eng, params, dparams, peak)
         decode_s = wall - stats["prefill_s"]
-        say(card, f"generate [{label}] (32 layers, bf16, random "
-                  f"weights) prompt {prompt_len} new {n_new}: modes "
+        say(card, f"generate [{label}] ({cfg.num_layers} layers, bf16, "
+                  f"random weights) prompt {prompt_len} new {n_new}: modes "
                   f"{stats['modes']} steps {stats['steps']} mean_accept "
                   f"{stats['mean_accept']:.4f} wall_s {wall:.3f} (prefill_s "
                   f"{stats['prefill_s']:.3f} decode_s {decode_s:.3f}, ms/step "
@@ -1319,21 +1350,31 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
             _check_final_contiguous_summaries(torch, card,
                                               eng.final_state.cache,
                                               spec.block_size)
-        eng.final_state = None
         if toks.shape != (1, n_new) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"tokens out of range: {toks}")
-        prof = {} if short else profile_steps(
-            torch, card, eng, prompt, label=label,
-            kernel="retrieval_score_kernel", refresh=True,
-            prefill_kernel="block_summary_kernel")
+        t_prof = time.perf_counter()
+        hook = None
+        if not graphs and eager_hook is not None:
+            hook = eager_hook(eng, eng.final_state)
+        eng.final_state = None
+        prof = {} if short or not (graphs or profile_eager) else (
+            profile_steps(torch, card, eng, prompt, label=label,
+                          kernel="retrieval_score_kernel", refresh=True,
+                          prefill_kernel="block_summary_kernel",
+                          prefill=graphs and profile_prefill))
+        t_checks = time.perf_counter()
         if not graphs:
             check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
+        say(card, f"{label} took {time.perf_counter() - t_run:.1f} s "
+                  f"(generate {wall:.1f} s, hook and profile "
+                  f"{t_checks - t_prof:.1f} s, sync check "
+                  f"{time.perf_counter() - t_checks:.1f} s)")
         runs[RUN_LABEL[graphs]] = dict(
             toks=toks, launches=launches, wall_s=wall,
             tokens_per_s=n_new / wall, prefill_s=stats["prefill_s"],
             peak_gib=peak, capture_s=eng.capture_s, steps=stats["steps"],
-            **prof)
+            hook=hook, **prof)
         del eng
         torch.cuda.empty_cache()
     compare_runs(card, name, runs)
@@ -1475,14 +1516,17 @@ def _check_final_contiguous_summaries(torch, card, cache, bs):
               f"equal the plain recomputation bit for bit")
 
 
-def _device_busy(prof):
-    """(busy ms, span ms) of the device events a profiler recorded: the
-    union of their intervals, and first start to last end."""
+def _device_busy(prof, skip=()):
+    """(busy ms, span ms) of the device events a profiler recorded (but
+    those named in ``skip``, such as a ``record_function`` range's
+    device-side copy): the union of their intervals, and first start to
+    last end."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if getattr(e, "device_type", None) == DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
+                   and e.time_range.end > e.time_range.start
+                   and e.name not in skip)
     if not spans:
         raise RuntimeError("the profiler recorded no device time")
     busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
@@ -1529,7 +1573,8 @@ def _named_ms(prof, kernel):
 
 def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
                   kernel: str = "", refresh: bool = False,
-                  prefill_kernel: str = "", label: str = ""):
+                  prefill_kernel: str = "", label: str = "",
+                  prefill: bool = True):
     """Where the time goes.  The fresh prefill runs under
     ``torch.profiler`` (its device busy time and span, the device time
     of the kernels named ``prefill_kernel`` or else ``kernel``, and its
@@ -1543,31 +1588,37 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
     profiler is 1 - that busy time / the unprofiled host wall time per
     step (the profiler slows the host, not the card).  With ``refresh``,
     two forced Refresh steps follow under the profiler: their device busy
-    time and the share of it in ``kernel``.  Returns the numbers."""
+    time and the share of it in ``kernel``.  With ``prefill=False`` the
+    prefill runs unprofiled.  Returns the numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
+    if not prefill:
+        out = {}
         st = eng.prefill(prompt)
         torch.cuda.synchronize()
-        pre_wall = time.perf_counter() - t0
-    busy, span = _device_busy(prof)
-    chunks = -(-prompt.shape[1] // 256)
-    dev_n, host_n, calls_n = _launch_counts(prof)
-    pk = prefill_kernel or kernel
-    say(card, f"profile [{label}] prefill of {prompt.shape[1]} tokens: host "
-              f"wall_s {pre_wall:.3f} (profiled) device span_ms {span:.2f} "
-              f"device busy_ms {busy:.2f} ({pk} {_named_ms(prof, pk):.3f} "
-              f"ms); per chunk of 256 ({chunks} chunks): device launches "
-              f"{dev_n / chunks:.1f}, top-level host aten ops "
-              f"{host_n / chunks:.1f}, host launch calls "
-              f"{calls_n / chunks:.1f}")
-    out = dict(prefill_wall_s=pre_wall, prefill_busy_ms=busy,
-               prefill_span_ms=span,
-               prefill_device_launches_chunk=dev_n / chunks,
-               prefill_host_ops_chunk=host_n / chunks,
-               prefill_host_launch_calls_chunk=calls_n / chunks)
+    else:
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            st = eng.prefill(prompt)
+            torch.cuda.synchronize()
+            pre_wall = time.perf_counter() - t0
+        busy, span = _device_busy(prof)
+        chunks = -(-prompt.shape[1] // 256)
+        dev_n, host_n, calls_n = _launch_counts(prof)
+        pk = prefill_kernel or kernel
+        say(card, f"profile [{label}] prefill of {prompt.shape[1]} tokens: "
+                  f"host wall_s {pre_wall:.3f} (profiled) device span_ms "
+                  f"{span:.2f} device busy_ms {busy:.2f} ({pk} "
+                  f"{_named_ms(prof, pk):.3f} ms); per chunk of 256 "
+                  f"({chunks} chunks): device launches {dev_n / chunks:.1f}, "
+                  f"top-level host aten ops {host_n / chunks:.1f}, host "
+                  f"launch calls {calls_n / chunks:.1f}")
+        out = dict(prefill_wall_s=pre_wall, prefill_busy_ms=busy,
+                   prefill_span_ms=span,
+                   prefill_device_launches_chunk=dev_n / chunks,
+                   prefill_host_ops_chunk=host_n / chunks,
+                   prefill_host_launch_calls_chunk=calls_n / chunks)
 
     def run(st, n):
         modes = []
@@ -3012,13 +3063,14 @@ def _layouts_agree(torch, card, cfg, spec, dcfg, params, dparams, prompt):
 
 
 def _contiguous_serving(torch, card, cfg, spec, dcfg, params, dparams,
-                        paged_run):
-    """Phase 8 (e) at full width: the reference's ``ServingConfig()``
-    (contiguous slots, gathered body; blocking admission) at batch 4
-    over phase 6's six requests, with graphs: admission by free slot,
-    launches held to the steps' variants and chunks, graphs per variant,
-    the serving bodies under the sync check; numbers beside phase 6's
-    paged run.  Returns the run's launches."""
+                        paged_run, name="llama3.1-8b"):
+    """Phase 8 (e) at full width (and phase 14 (c) on ``name``): the
+    reference's ``ServingConfig()`` (contiguous slots, gathered body;
+    blocking admission) at batch 4 over phase 6's six requests, with
+    graphs: admission by free slot, launches held to the steps' variants
+    and chunks, graphs per variant, the serving bodies under the sync
+    check; numbers beside phase 6's paged run.  Returns the run's
+    launches and numbers (its tokens by request among them)."""
     import numpy as np
     from repro_torch.serving import ServingConfig, ServingEngine
     rng = np.random.default_rng(0)
@@ -3064,7 +3116,7 @@ def _contiguous_serving(torch, card, cfg, spec, dcfg, params, dparams,
                   f"{paged_run['tokens_per_s']:.2f} p50 "
                   f"{paged_run['p50']:.3f} p95 {paged_run['p95']:.3f} "
                   f"ticks {paged_run['ticks']}]")
-    say(card, f"contiguous serving llama3.1-8b [graphs] ServingConfig() "
+    say(card, f"contiguous serving {name} [graphs] ServingConfig() "
               f"batch 4, requests {[n for n, _ in SERVE_REQS]}: tokens {ntok} "
               f"wall_s {wall:.3f} tokens_per_s {ntok / wall:.2f} latency_s "
               f"p50 {np.percentile(lat, 50):.3f} p95 "
@@ -3083,7 +3135,8 @@ def _contiguous_serving(torch, card, cfg, spec, dcfg, params, dparams,
     return got, dict(tokens_per_s=ntok / wall,
                      p50=float(np.percentile(lat, 50)),
                      p95=float(np.percentile(lat, 95)), ticks=ticks,
-                     peak_gib=peak)
+                     peak_gib=peak,
+                     tokens={k: o.tokens for k, o in outs.items()})
 
 
 def _default_lossless(torch, card, ref):
@@ -3732,38 +3785,9 @@ def _train_kernel_checks(torch, card, timer):
                 enable_gqa=True), peak=peak)
         # K3: a Refresh of the tiny path (pending + tree rows) over 25
         # blocks, two query heads per KV head
-        t, nbs = 58, 25
-        q, kmax, kmin, qw = _score_inputs(torch, gen, t, nbs, dtype, h=h,
-                                          hk=hk, dh=dh)
-        got = ops.retrieval_scores(q, kmax, kmin, qw)
-        again = ops.retrieval_scores(q, kmax, kmin, qw)
-        want = ref.retrieval_score_batched(q, kmax, kmin, qw)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"K3 Dh=64 {dn}: two calls differ")
-        _close(f"K3 Dh=64 {dn}", got, want)
-        before = dict(ops.LAUNCHES)
-        ms = timer.kernel_ms(lambda: ops.retrieval_scores(q, kmax, kmin, qw),
-                             "retrieval_score_kernel")
-        if timer.per_call != 1:
-            raise AssertionError(f"K3: {timer.per_call} launches per call")
-        ops.LAUNCHES.update(before)
-        plain_ms = timer(lambda: ref.retrieval_score_batched(q, kmax, kmin,
-                                                             qw),
-                         iters=3, warmup=1)
-        nbytes = (q.numel() * q.element_size() + 2 * kmax.numel() * 4
-                  + t * 4 + hk * nbs * 4)
-        bound, by = _bound_ms(nbytes, 2 * 2 * dh * (h // hk) * t * hk * nbs,
-                              PEAK_FP32_S)
-        err = (got - want).abs().max().item()
-        label = f"K3 Refresh T={t} NB={nbs} H=4 Hk=2 Dh=64 {dn}"
-        say(card, f"kernel {label}: max_abs_err {err:.3e} (tol {TOL_KERNEL} "
-                  f"of max |plain|; two calls bit-equal) ms {ms:.4f} "
-                  f"({timer.source}) plain_ms {plain_ms:.4f} bound_us "
-                  f"{bound * 1e3:.3f} ({by}) library_ms none")
-        out["retrieval_score"][label] = dict(
-            max_abs_err=err, ms=ms, timing=timer.source, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, library_ms=None)
+        label = f"K3 Refresh T=58 NB=25 H=4 Hk=2 Dh=64 {dn}"
+        out["retrieval_score"][label] = _score_row(
+            torch, card, timer, gen, label, 58, 25, dtype, h, hk, dh)
         # K4: the tiny pair's 4 layers, the 384-token prompt's second chunk
         layers = 4
         k4, _ = contiguous(dtype, layers, max_len, hk, dh, bs)
@@ -3829,6 +3853,42 @@ def _train_kernel_checks(torch, card, timer):
     del k, v, kf, vf, q
     torch.cuda.empty_cache()
     return out
+
+
+def _score_row(torch, card, timer, gen, label, t, nbs, dtype, h, hk, dh):
+    """One K3 call at the heads given, against its plain version (two
+    calls bit-equal, one launch), timed beside its plain version and its
+    bound.  Returns the row."""
+    from repro_torch.kernels import ops, ref
+    q, kmax, kmin, qw = _score_inputs(torch, gen, t, nbs, dtype, h=h,
+                                      hk=hk, dh=dh)
+    got = ops.retrieval_scores(q, kmax, kmin, qw)
+    again = ops.retrieval_scores(q, kmax, kmin, qw)
+    want = ref.retrieval_score_batched(q, kmax, kmin, qw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{label}: two calls differ")
+    _close(label, got, want)
+    before = dict(ops.LAUNCHES)
+    ms = timer.kernel_ms(lambda: ops.retrieval_scores(q, kmax, kmin, qw),
+                         "retrieval_score_kernel")
+    if timer.per_call != 1:
+        raise AssertionError(f"K3: {timer.per_call} launches per call")
+    ops.LAUNCHES.update(before)
+    plain_ms = timer(lambda: ref.retrieval_score_batched(q, kmax, kmin, qw),
+                     iters=3, warmup=1)
+    nbytes = (q.numel() * q.element_size() + 2 * kmax.numel() * 4
+              + t * 4 + hk * nbs * 4)
+    bound, by = _bound_ms(nbytes, 2 * 2 * dh * (h // hk) * t * hk * nbs,
+                          PEAK_FP32_S)
+    err = (got - want).abs().max().item()
+    say(card, f"kernel {label}: max_abs_err {err:.3e} (tol {TOL_KERNEL} "
+              f"of max |plain|; two calls bit-equal) ms {ms:.4f} "
+              f"({timer.source}) plain_ms {plain_ms:.4f} bound_us "
+              f"{bound * 1e3:.3f} ({by}) library_ms none")
+    return dict(max_abs_err=err, ms=ms, timing=timer.source,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
 
 
 def _train_steps(torch, card, label, data, pieces, steps=TRAIN_STEPS):
@@ -4931,9 +4991,297 @@ def phase_tiers(torch, card):
                 fp32=fp32, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the MoE family (granite-moe-1b-a400m)
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_HEADS = dict(h=16, hk=8, dh=64)     # granite's attention heads
+MOE_LOSSLESS_PROMPT, MOE_LOSSLESS_NEW = 1024, 32
+MOE_DROP_STEPS = 4                      # eager steps whose drops are read
+# the profiled window's ranges: the MoE's parts, the trunk and the draft
+MOE_RANGES = (("moe router", "models.blocks", "_moe_router"),
+              ("moe top-k", "models.blocks", "_moe_topk"),
+              ("moe dispatch", "models.blocks", "_moe_dispatch"),
+              ("moe expert GEMMs", "models.blocks", "_moe_experts"),
+              ("moe combine", "models.blocks", "_moe_combine"),
+              ("trunk", "models.dense", "trunk_fwd"),
+              ("draft", "core.draft", "draft_phase"))
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "cublas", "splitKreduce")
+
+
+def _moe_kernel_checks(torch, card, timer):
+    """Phase 2, the call forms of slice 14: K1-K4 at granite-moe-1b-a400m's
+    heads (H=16, Hk=8, Dh=64, block 128, bf16) over 8192 tokens: K1 Full
+    T=61 and routed Partial NS=35 T=61, K2 a prefill chunk T=256 at qoff
+    7936, K3 a Refresh T=156 over 66 blocks, K4's paged form over the 24
+    layers (the last prompt chunk), each against its plain version (K4
+    bit for bit), timed beside its bound and SDPA (K4: ``torch.aminmax``).
+    Returns {kernel: {label: row}}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1400)
+    out = {k: {} for k in LLAMA_KERNELS}
+    g = "H=16 Hk=8 Dh=64 (granite)"
+    for label, name, kw in (
+            (f"K1 full T=61 ctx=8229 {g}", "sparse_verify_attention",
+             dict(t=61, ctx=8229)),
+            (f"K1 routed NS=35 T=61 {g}", "sparse_verify_attention",
+             dict(t=61, ctx=8229, routed_ns=35)),
+            (f"K2 prefill T=256 qoff=7936 {g}", "paged_prefill_attention",
+             dict(t=256, ctx=8192, causal_qoff=7936))):
+        res = {}
+        _attn_check(torch, card, timer, gen, res, label, name, **kw,
+                    **MOE_HEADS)
+        out[name][label] = res[name]
+    label = f"K3 Refresh T=156 NB=66 {g} bf16"
+    out["retrieval_score"][label] = _score_row(
+        torch, card, timer, gen, label, 156, 66, torch.bfloat16, 16, 8, 64)
+    k4, start, end, n_touch = K4_PAGED_SHAPES[0]
+    row = _paged_summary_case(torch, card, timer, gen, torch.bfloat16, k4,
+                              start, end, n_touch, layers=24, hk=8, dh=64)
+    out["block_summary"][f"K4 paged {k4} L=24 {g} bf16"] = dict(
+        max_abs_err=0.0, timing="profiler", **row)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_full_width(torch, card, dtype="bfloat16", seed=0, prompt_len=None,
+                    prompt_seed=0):
+    """granite-moe-1b-a400m at full width and depth (24 layers, 32
+    experts, top-8) with random weights from ``seed`` (the draft from
+    ``seed + 1``), the paper spec, and a prompt from ``prompt_seed``."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.models.api import init_params
+    cfg = get_config(MOE_ARCH).replace(dtype=dtype, param_dtype=dtype)
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=seed + 1, device="cuda")
+    torch.cuda.synchronize()
+    say(card, f"moe: {MOE_ARCH} {dtype} random weights ready in "
+              f"{time.perf_counter() - t0:.1f} s ({_nbytes(params) / 2**30:.2f}"
+              f" GiB target, {_nbytes(dparams) / 2**30:.2f} GiB draft)")
+    rng = np.random.default_rng(prompt_seed)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (1, prompt_len or PROMPT_LEN)).astype(np.int64)
+    return cfg, spec, dcfg, params, dparams, prompt
+
+
+def _range_kernels(e, skip=()):
+    """(name, device us) of every kernel an op launched, its children's
+    included, leaving out the subtrees of ops named in ``skip``."""
+    out = [(k.name, k.duration) for k in getattr(e, "kernels", [])]
+    for c in e.cpu_children:
+        if c.name not in skip:
+            out += _range_kernels(c, skip)
+    return out
+
+
+def _moe_breakdown(torch, card, eng, st, steps: int = 1):
+    """A profiled window of ``steps`` eager steps with each of
+    ``MOE_RANGES`` under ``torch.profiler.record_function``: device ms
+    per step of K1-K4, of the MoE's parts, of the trunk's other GEMMs and
+    other kernels, of the draft and of the rest.  Returns (numbers,
+    state)."""
+    import importlib
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = []
+    for label, mod, fn in MOE_RANGES:
+        m = importlib.import_module(f"repro_torch.{mod}")
+        orig = getattr(m, fn)
+
+        def wrapped(*a, __orig=orig, __label=label, **kw):
+            with record_function(__label):
+                return __orig(*a, **kw)
+        saved.append((m, fn, orig))
+        setattr(m, fn, wrapped)
+    try:
+        modes = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                st, so = eng.step(st, eng.next_mode())
+                modes.append(so.mode)
+            torch.cuda.synchronize()
+    finally:
+        for m, fn, orig in saved:
+            setattr(m, fn, orig)
+    labels = {lb for lb, _, _ in MOE_RANGES}
+    busy, _ = _device_busy(prof, skip=labels)
+    cpu = [e for e in prof.events()
+           if getattr(e, "device_type", None) == DeviceType.CPU]
+    moe_names = {lb for lb in labels if lb.startswith("moe")}
+    ms = {}
+    for label, _, _ in MOE_RANGES:
+        ks = [k for e in cpu if e.name == label for k in _range_kernels(e)]
+        ms[label] = sum(d for _, d in ks) / 1e3 / steps
+    trunk = [k for e in cpu if e.name == "trunk"
+             for k in _range_kernels(e, moe_names)]
+    every = [(e.key, _dev_us(e)) for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA]
+
+    def named(rows, name):
+        return sum(d for n, d in rows if name in n) / 1e3 / steps
+    # the kernels' launches (ctypes) may not be attributed to the op
+    # ranges they ran in: K1-K4 come from the whole window, by name
+    k1, k1_in = named(every, "block_attention"), named(trunk,
+                                                       "block_attention")
+    k3, k4 = named(every, "retrieval_score"), named(every, "block_summary")
+    gemm = sum(d for n, d in trunk if "block_attention" not in n
+               and any(g in n for g in GEMM_NAMES)) / 1e3 / steps
+    moe = sum(ms[lb] for lb in moe_names)
+    out = {"busy": busy / steps, "K1": k1, "K3": k3, "K4": k4,
+           **{lb: ms[lb] for lb, _, _ in MOE_RANGES if lb in moe_names},
+           "moe total": moe, "trunk other GEMMs": gemm,
+           "trunk other": ms["trunk"] - moe - k1_in - gemm,
+           "draft": ms["draft"]}
+    out["rest (accept, commit, refresh epilogue)"] = (
+        out["busy"] - ms["trunk"] - (k1 - k1_in) - ms["draft"] - k3 - k4)
+    say(card, f"moe breakdown, eager steps {modes}: device ms per step "
+              + ", ".join(f"{k} {v:.3f}" for k, v in out.items()))
+    return out, st
+
+
+def _moe_eager_extras(torch, card, eng, st):
+    """On the eager engine of (a), from the state its ``generate`` left:
+    the dropped (token, slot) pairs per verify step over
+    ``MOE_DROP_STEPS`` steps (the counter ``blocks.MOE_DROPS``, read
+    between steps), then the profiled breakdown of the next step."""
+    from repro_torch.models import blocks as bk
+    cfg = eng.cfg
+    t1 = time.perf_counter()
+    bk.MOE_DROPS = torch.zeros((), dtype=torch.long, device="cuda")
+    drops = []
+    try:
+        for _ in range(MOE_DROP_STEPS):
+            st, so = eng.step(st, eng.next_mode())
+            width = (eng.pmax if so.mode == "refresh" else 1) + eng.tree.size
+            pairs = width * cfg.experts_per_token * cfg.num_layers
+            drops.append((so.mode, int(bk.MOE_DROPS), pairs))
+            bk.MOE_DROPS.zero_()
+    finally:
+        bk.MOE_DROPS = None
+    say(card, f"moe dropped (token, slot) pairs per verify step, over "
+              f"{cfg.num_layers} layers (mode, dropped, pairs): {drops}")
+    t2 = time.perf_counter()
+    breakdown, _ = _moe_breakdown(torch, card, eng, st)
+    say(card, f"moe eager extras: drop steps {t2 - t1:.1f} s, profiled "
+              f"breakdown {time.perf_counter() - t2:.1f} s")
+    return dict(drops=drops, breakdown=breakdown)
+
+
+def _moe_lossless(torch, card):
+    """(b): fp32, full width and depth (TF32 off), a 1024-token prompt:
+    ``generate`` with full verification, with graphs, on the contiguous
+    engine (the reference's default) equals the port's compiled AR
+    decoding (``CompiledAR``: the same contiguous prefill chunks through
+    K2 and K4); its agreement with the plain AR oracle is reported."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.core.reference import (CompiledAR,
+                                            autoregressive_generate)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, spec, dcfg, params, dparams, prompt = _moe_full_width(
+        torch, card, "float32", seed=2, prompt_len=MOE_LOSSLESS_PROMPT,
+        prompt_seed=1)
+    new = MOE_LOSSLESS_NEW
+    max_len = request_token_need(prompt.shape[1], new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=max_len, partial_verification=False,
+                       device="cuda")
+    toks, stats = eng.generate(prompt, new)
+    if not eng._graphs:
+        raise AssertionError("the full-verification run replayed no graph")
+    del eng
+    ar = CompiledAR(cfg, params, batch=1, max_len=max_len, spec=spec,
+                    device="cuda").generate(prompt, new)
+    if not np.array_equal(toks, ar):
+        raise AssertionError(f"moe fp32 full-verification SpecPV differs "
+                             f"from the compiled AR:\n{toks}\n{ar}")
+    plain = autoregressive_generate(cfg, params, prompt, new,
+                                    max_len=max_len, spec=spec,
+                                    device="cuda")
+    agree = float(np.mean(plain == ar))
+    secs = time.perf_counter() - t0
+    say(card, f"moe lossless {MOE_ARCH} {cfg.num_layers} layers fp32, "
+              f"graphs: "
+              f"full-verify == compiled AR over {new} tokens (modes "
+              f"{stats['modes']}, prompt {prompt.shape[1]}); the plain AR "
+              f"oracle agrees on {agree:.3f} of them; {secs:.1f} s")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return dict(modes=stats["modes"], plain_agreement=agree, seconds=secs)
+
+
+def phase_moe(torch, card):
+    """Phase 14: (a) ``generate`` at full width on the paged zero-copy
+    pool, eagerly and with graphs (the eager engine's drops and profiled
+    breakdown), (c) ``ServingConfig()`` serving of phase 6's requests
+    with graphs, (b) fp32 losslessness.  (d), the sync check, runs in
+    (a) and (c).  Returns (a)'s graph launches and the numbers."""
+    import gc
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cfg, spec, dcfg, params, dparams, prompt = _moe_full_width(torch, card)
+    # the graph run (the main path) is profiled, its prefill apart; the
+    # eager engine gives the drops and the split of the step
+    runs = generate_runs(
+        torch, card, cfg, spec, dcfg, params, dparams, prompt, NEW_TOKENS,
+        PAGED_ZERO_COPY, MOE_ARCH,
+        eager_hook=lambda eng, st: _moe_eager_extras(torch, card, eng, st),
+        profile_eager=False, profile_prefill=False)
+    t_a = time.perf_counter() - t_phase
+    served, nums = _contiguous_serving(torch, card, cfg, spec, dcfg, params,
+                                       dparams, None, name=MOE_ARCH)
+    for k in LLAMA_KERNELS:
+        if served[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched in serving")
+    # capacity binds at top-8, so a request's tokens depend on its batch
+    # (in the reference too): the shortest against its solo run is
+    # reported, not held
+    prompt0 = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_REQS[0][0],)).astype(np.int64)
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=SERVE_MAX_LEN, device="cuda")
+    want, _ = solo.generate(prompt0[None], SERVE_REQS[0][1])
+    same = float(np.mean(nums["tokens"]["r0"] == want[0]))
+    say(card, f"moe served r0 against its solo generate: share of equal "
+              f"tokens {same} (reported: capacity binds at top-8)")
+    del solo, params, dparams
+    nums.pop("tokens")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter() - t_phase - t_a
+    fp32 = _moe_lossless(torch, card)
+    secs = time.perf_counter() - t_phase
+    launches = runs["graphs"]["launches"]
+    say(card, f"phase 14 launches {launches}; serving launches {served}; "
+              f"(a) {t_a:.1f} s, (c) {t_c:.1f} s, (b) {fp32['seconds']:.1f} "
+              f"s; phase 14 took {secs:.1f} s")
+    keep = ("wall_ms_step", "busy_ms_step", "idle_share",
+            "idle_share_unprofiled", "device_launches_step",
+            "host_launch_calls_step", "tokens_per_s", "prefill_s",
+            "peak_gib", "capture_s", "steps")
+    return dict(launches=launches, serving_launches=served,
+                generate={lb: {k: r.get(k) for k in keep}
+                          for lb, r in runs.items()},
+                eager_extras=runs["eager"]["hook"], serving=nums,
+                served_vs_solo=same, fp32=fp32, seconds=secs)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,13",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,13,14",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -4941,8 +5289,9 @@ def main(argv=None) -> int:
                          "reference's default engine: contiguous cache, "
                          "gathered partial cache), 9 (the fused multi-row "
                          "prefill), 10 (training and the paper's table 1), "
-                         "11 (sampled serving), 13 (tiered KV residency); "
-                         "1 and 12 always run")
+                         "11 (sampled serving), 13 (tiered KV residency), "
+                         "14 (the MoE family, granite-moe-1b-a400m); 1 "
+                         "and 12 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -4976,6 +5325,8 @@ def main(argv=None) -> int:
     kres = phase_kernels(torch, card, timer) if 2 in phases else {}
     p2t = {"shapes": (_train_kernel_checks(torch, card, timer)
                       if 2 in phases else {})}
+    p2m = {"shapes": (_moe_kernel_checks(torch, card, timer)
+                      if 2 in phases else {})}
     p3 = phase_generate(torch, card) if 3 in phases else None
     llama = p3["launches"] if p3 else {k: 0 for k in ops.KERNELS}
     p4 = phase_lossless(torch, card) if 4 in phases else None
@@ -4996,6 +5347,8 @@ def main(argv=None) -> int:
     p11 = (phase_sampled_serving(torch, card, trained=p10 is not None)
            if 11 in phases else {"launches": {}})
     p13 = phase_tiers(torch, card) if 13 in phases else {"launches": {}}
+    p14 = (phase_moe(torch, card) if 14 in phases
+           else {"launches": {}, "serving_launches": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -5024,6 +5377,9 @@ def main(argv=None) -> int:
                              p11["launches"].get(name, 0)),
                          tiered_serving_launches=int(
                              p13["launches"].get(name, 0)),
+                         moe_launches=int(p14["launches"].get(name, 0)),
+                         moe_serving_launches=int(
+                             p14["serving_launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -5042,8 +5398,9 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
-        # phases 8, 9 and 10's call forms (launches counted per kernel above)
-        for p in (p8, p9, p2t):
+        # phases 8, 9, 10 and 14's call forms (launches counted per kernel
+        # above)
+        for p in (p8, p9, p2t, p2m):
             for label, vals in p["shapes"].get(name, {}).items():
                 rows[-1].setdefault("shapes", []).append(dict(shape=label,
                                                               **vals))
@@ -5053,6 +5410,8 @@ def main(argv=None) -> int:
         say(card, "sampled serving " + json.dumps(p11))
     if 13 in phases:
         say(card, "tiers " + json.dumps(p13, default=float))
+    if 14 in phases:
+        say(card, "moe " + json.dumps(p14, default=float))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

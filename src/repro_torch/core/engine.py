@@ -320,12 +320,13 @@ class SpecPVEngine:
                  cuda_graphs: Optional[bool] = None):
         """The defaults are the reference's: the contiguous cache
         (``paged=False``) with the gathered partial cache
-        (``zero_copy=False``).  Dense targets also run on the paged pool
-        (``paged=True``), gathered or zero-copy (``zero_copy=True``, paged
-        only), through the page table in place (``spec.use_pallas``) or
-        through each layer's materialised view (the reference's data
-        flow); every route runs the kernels on the card.  Dense targets
-        draft trees (``draft_chain=True``: chains); the state arch
+        (``zero_copy=False``).  Attention targets also run on the paged
+        pool (``paged=True``), gathered or zero-copy (``zero_copy=True``,
+        paged only), through the page table in place (``spec.use_pallas``)
+        or through each layer's materialised view (the reference's data
+        flow); every route runs the kernels on the card.  Dense and MoE
+        targets (the draft layer is dense) draft trees
+        (``draft_chain=True``: chains); the state arch
         (``ssm``) runs with ``paged=False`` and chain drafts, without
         partial verification.  ``temperature`` is the lock-step
         ``generate``'s (each row's stream from seed 0) and the default of
@@ -356,7 +357,7 @@ class SpecPVEngine:
         params must live there.  On the card each step variant and the
         full prefill chunk replay a CUDA graph unless ``cuda_graphs`` is
         False; the CPU runs them eagerly."""
-        if cfg.arch_type not in ("dense", "ssm"):
+        if cfg.arch_type not in ("dense", "moe", "ssm"):
             _unsupported(f"arch {cfg.arch_type!r}", "Other architectures")
         self.is_attn = cfg.is_attention_arch
         if not self.is_attn and paged:

@@ -1,12 +1,12 @@
 """Model API of the port (counterpart of ``repro/models/api.py``, dense
-attention and RWKV-6 state architectures):
+and MoE attention and RWKV-6 state architectures):
 
   init_params(cfg, seed, device)               -> params dict
   init_cache(cfg, batch, max_len, spec, ...)   -> cache dict
   prefill(cfg, params, tokens, cache, ...)     -> (logits_last, features, cache)
   decode(cfg, params, tokens, positions, cache, ...) -> DecodeOut
   advance(cfg, params, tokens, cache, valid)   -> cache   (ssm)
-  train_loss(cfg, params, tokens)              -> (loss, metrics)  (dense)
+  train_loss(cfg, params, tokens)              -> (loss, metrics)  (dense, MoE)
 
 Attention archs expose the SpecPV verification modes through
 ``decode(mode=...)``; the state arch does read-only chain verification
@@ -220,12 +220,13 @@ def chunked_lm_loss(cfg: ModelConfig, params, h, labels, *,
 
 
 def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
-    """Next-token LM loss over a [B, S] token batch (dense targets): the
-    trunk's train mode, then ``chunked_lm_loss``.  Returns (loss,
-    {"lm_loss", "aux_loss"}); the aux loss is 0 (no MoE in the port)."""
+    """Next-token LM loss over a [B, S] token batch (dense and MoE
+    targets): the trunk's train mode, then ``chunked_lm_loss``.  Returns
+    (``lm + moe_aux_loss_coef * aux``, {"lm_loss", "aux_loss"}), the aux
+    loss summed over the MoE layers (0 for a dense target)."""
     if cfg.arch_type in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name}: the port trains dense targets only; the "
+            f"{cfg.name}: the port trains dense and MoE targets; the "
             f"{cfg.arch_type} train_loss comes with ROADMAP.md queue 1")
     if extra:
         raise NotImplementedError("VLM and audio inputs come with "
@@ -240,6 +241,5 @@ def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
     out = dn.trunk_fwd(cfg, params["layers"], h, positions, mode="train",
                        collect_features=False)
     lm = chunked_lm_loss(cfg, params, out.h, lbl)
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    loss = lm + cfg.moe_aux_loss_coef * aux
-    return loss, {"lm_loss": lm, "aux_loss": aux}
+    loss = lm + cfg.moe_aux_loss_coef * out.aux_loss
+    return loss, {"lm_loss": lm, "aux_loss": out.aux_loss}

@@ -1,10 +1,13 @@
-"""Per-layer blocks, dense half: attention projections and the gated MLP
-(counterpart of ``repro/models/blocks.py``)."""
+"""Per-layer blocks: attention projections, the gated MLP and the MoE
+with the reference's capacity dispatch (counterpart of
+``repro/models/blocks.py``)."""
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common as cm
@@ -76,3 +79,167 @@ def mlp_fwd(cfg: ModelConfig, p: Dict, x):
     else:
         h = act(x @ p["wi"].to(x.dtype))
     return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k router, capacity-based dispatch)
+# ---------------------------------------------------------------------------
+
+def init_moe_params(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+    """Router fp32 [d, E]; experts ``wi``/``wg`` [E, d, f], ``wo``
+    [E, f, d] in the param dtype."""
+    pd = cm.dt(cfg.param_dtype)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+
+    def einit(shape):
+        return torch.stack([cm.dense_init(gen, shape, pd) for _ in range(e)])
+
+    return {"router": cm.dense_init(gen, (d, e), torch.float32),
+            "wi": einit((d, f)), "wg": einit((d, f)), "wo": einit((f, d))}
+
+
+MOE_GROUP = 1024    # tokens per dispatch group (the reference's)
+MOE_MAX_OUTER = 64  # sequential dispatch waves for very long token streams
+
+# dropped (token, slot) pairs of real tokens, summed on the card while
+# this holds a device tensor (set by a caller that measures; None: off)
+MOE_DROPS: Optional[torch.Tensor] = None
+
+
+def _moe_router(p: Dict, xg):
+    """xg [G, g, d] -> the fp32 router's probabilities [G, g, E]."""
+    return torch.softmax(xg.float() @ p["router"], dim=-1)
+
+
+def _moe_topk(cfg: ModelConfig, probs):
+    """(top-k weights [G, g, K] renormalised, expert ids [G, g, K]).
+    ``jax.lax.top_k`` orders ties by the lower index and ``torch.topk``
+    promises no order, so the top-k is a stable descending sort, as the
+    block selection's."""
+    k = cfg.experts_per_token
+    order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topv, topi = order.values[..., :k], order.indices[..., :k]
+    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    return topv, topi
+
+
+def _moe_dispatch(cfg: ModelConfig, xg, topi, cap: int):
+    """Each (token, slot) pair's row in the static expert buffer, by
+    index.  The reference's position of a pair in its expert is a cumsum
+    over the token-major [g*k, E] one-hot; pairs at or past ``cap`` are
+    dropped.  Rows are expert-major [E, G, cap], then one row that takes
+    every dropped pair.  Returns (xe [E, G*cap, d], slot [G, g*k], keep
+    [G, g*k])."""
+    ng, g, d = xg.shape
+    e, k = cfg.num_experts, topi.shape[-1]
+    dev = xg.device
+    ei = topi.reshape(ng, g * k)
+    # the one-hot laid out [G, E, g*k], so the cumsum runs along the
+    # innermost axis (a scan along the outer one takes 0.7 ms per layer
+    # for a 256-token chunk on the card)
+    onehot = (ei[:, None, :] == torch.arange(e, device=dev)[None, :, None])
+    counts = torch.cumsum(onehot.to(torch.int32), dim=-1, dtype=torch.int32)
+    pos = torch.gather(counts, 1, ei[:, None, :])[:, 0] - 1
+    keep = pos < cap
+    grp = torch.arange(ng, device=dev)[:, None]
+    slot = torch.where(keep, ei * (ng * cap) + grp * cap + pos,
+                       torch.full_like(ei, e * ng * cap))
+    tok = grp * g + torch.arange(g * k, device=dev)[None] // k
+    # row -> token; a row no pair fills reads the zero row ng*g, and the
+    # dropped pairs' row is never read
+    src = torch.full((e * ng * cap + 1,), ng * g, dtype=torch.long,
+                     device=dev)
+    src.scatter_(0, slot.reshape(-1), tok.reshape(-1))
+    xpad = torch.cat([xg.reshape(ng * g, d), xg.new_zeros((1, d))])
+    return xpad[src[:-1]].view(e, ng * cap, d), slot, keep
+
+
+def _moe_experts(cfg: ModelConfig, p: Dict, xe):
+    """The gated expert MLP as batched products: xe [E, R, d] ->
+    [E, R, d]."""
+    xd = xe.dtype
+    act = cm.act_fn(cfg.act)
+    h = act(torch.bmm(xe, p["wg"].to(xd))) * torch.bmm(xe, p["wi"].to(xd))
+    return torch.bmm(h, p["wo"].to(xd))
+
+
+def _moe_combine(ye, slot, keep, topv):
+    """y [G, g, d]: each token's kept pairs' expert outputs weighted by
+    their top-k weights, the weights rounded to the activation dtype
+    first (the reference's ``combine.astype(xd)``), summed in fp32."""
+    ng, g, k = topv.shape
+    d = ye.shape[-1]
+    xd = ye.dtype
+    yflat = torch.cat([ye.reshape(-1, d), ye.new_zeros((1, d))])
+    w = torch.where(keep, topv.reshape(ng, -1),
+                    torch.zeros_like(keep, dtype=topv.dtype))
+    part = yflat[slot].float() * w.to(xd).float()[..., None]
+    return part.view(ng, g, k, d).sum(dim=2).to(xd)
+
+
+def _moe_groups_fwd(cfg: ModelConfig, p: Dict, xg, capacity_factor: float,
+                    want_aux: bool = True):
+    """Dispatch groups side by side (the reference's ``_moe_group_fwd``
+    under ``vmap``).  xg [G, g, d] -> (y [G, g, d], aux [G] (None
+    unless ``want_aux``), keep [G, g*k])."""
+    e, k = cfg.num_experts, cfg.experts_per_token
+    g = xg.shape[1]
+    cap = max(1, int(math.ceil(g * k / e * capacity_factor)))
+    probs = _moe_router(p, xg)
+    topv, topi = _moe_topk(cfg, probs)
+    xe, slot, keep = _moe_dispatch(cfg, xg, topi, cap)
+    ye = _moe_experts(cfg, p, xe)
+    y = _moe_combine(ye, slot, keep, topv)
+    if not want_aux:
+        return y, None, keep
+    frac_tokens = torch.nn.functional.one_hot(topi[..., 0], e).float().mean(1)
+    frac_probs = probs.mean(dim=1)
+    aux = e * torch.sum(frac_tokens * frac_probs, dim=-1)
+    return y, aux, keep
+
+
+def moe_fwd(cfg: ModelConfig, p: Dict, x, *, capacity_factor: float = 1.25,
+            aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, T, d] -> (y, aux_loss), the reference's capacity dispatch
+    (``aux=False``: the aux loss is not computed and None is returned;
+    the reference's jit drops it where nothing reads it).
+
+    Up to ``MOE_GROUP`` tokens form one group; longer streams are cut in
+    the flattened (b, t) order into groups of ``MOE_GROUP``, zero-padded
+    to a multiple of ``min(groups, MOE_MAX_OUTER)`` groups, and the aux
+    loss is the mean over the groups.  Without autograd every group runs
+    in one pass; under autograd the groups run in the reference's waves,
+    each recomputed in the backward pass (its ``jax.checkpoint``).
+    Capacity comes from the host-known token count and the dispatch is
+    by index (a scatter into a static [E*C + 1, d] buffer and a gather
+    back), so nothing reads the card."""
+    b, t, d = x.shape
+    n = b * t
+    xf = x.reshape(n, d)
+    if n <= MOE_GROUP:
+        y, loss, keep = _moe_groups_fwd(cfg, p, xf[None], capacity_factor,
+                                        aux)
+        loss = loss[0] if aux else None
+    else:
+        g = MOE_GROUP
+        ng = -(-n // g)
+        outer = min(ng, MOE_MAX_OUTER)
+        ng = -(-ng // outer) * outer
+        if ng * g > n:
+            xf = torch.nn.functional.pad(xf, (0, 0, 0, ng * g - n))
+        xg = xf.view(ng, g, d)
+        if torch.is_grad_enabled() and x.requires_grad:
+            inner = ng // outer
+            waves = [torch.utils.checkpoint.checkpoint(
+                _moe_groups_fwd, cfg, p, xg[w * inner:(w + 1) * inner],
+                capacity_factor, aux, use_reentrant=False)
+                for w in range(outer)]
+            y = torch.cat([w[0] for w in waves])
+            keep = torch.cat([w[2] for w in waves])
+            loss = torch.cat([w[1] for w in waves]) if aux else None
+        else:
+            y, loss, keep = _moe_groups_fwd(cfg, p, xg, capacity_factor, aux)
+        loss = loss.mean() if aux else None
+    if MOE_DROPS is not None:
+        MOE_DROPS.add_((~keep.reshape(-1)[: n * cfg.experts_per_token]).sum())
+    return y.reshape(-1, d)[:n].view(b, t, d), loss

@@ -1,5 +1,6 @@
-"""Dense GQA trunk (counterpart of ``repro/models/dense.py``, dense
-architectures only).
+"""GQA trunk (counterpart of ``repro/models/dense.py``, dense and MoE
+architectures: a layer's MLP is the gated MLP or, with experts, the
+capacity-dispatch MoE, ``blocks.moe_fwd``).
 
 The reference scans stacked superblocks with ``lax.scan``; here the
 layers are a list of per-layer param dicts run by a plain Python loop.
@@ -54,9 +55,11 @@ from repro_torch.models import common as cm
 # ---------------------------------------------------------------------------
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.num_experts or cfg.window_size:
+    stack = ((cfg.arch_type == "dense" and not cfg.num_experts)
+             or (cfg.arch_type == "moe" and cfg.num_experts > 0))
+    if not stack or cfg.window_size:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense GQA stacks only; MoE, "
+            f"{cfg.name}: the port runs dense and MoE GQA stacks; "
             "windowed, state and cross-attention architectures come with "
             "ROADMAP.md queue 1, 'Other architectures'")
 
@@ -64,10 +67,14 @@ def _check_dense(cfg: ModelConfig) -> None:
 def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:
     pd = cm.dt(cfg.param_dtype)
     dev = gen.device
-    return {"norm1": torch.ones((cfg.d_model,), dtype=pd, device=dev),
-            "attn": bk.init_attn_params(cfg, gen),
-            "norm2": torch.ones((cfg.d_model,), dtype=pd, device=dev),
-            "mlp": bk.init_mlp_params(cfg, gen)}
+    p = {"norm1": torch.ones((cfg.d_model,), dtype=pd, device=dev),
+         "attn": bk.init_attn_params(cfg, gen),
+         "norm2": torch.ones((cfg.d_model,), dtype=pd, device=dev)}
+    if cfg.num_experts:
+        p["moe"] = bk.init_moe_params(cfg, gen)
+    else:
+        p["mlp"] = bk.init_mlp_params(cfg, gen)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
@@ -424,12 +431,21 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
     return bk.attn_output(cfg, lp["attn"], out), upd, q
 
 
+def _mlp_or_moe(cfg: ModelConfig, lp: Dict, h, aux: bool = False):
+    """The layer's MLP sublayer: (y, its MoE aux loss; None for a dense
+    layer or when ``aux`` is not asked for)."""
+    x = cm.rmsnorm(h, lp["norm2"], cfg.norm_eps)
+    if "moe" in lp:
+        return bk.moe_fwd(cfg, lp["moe"], x, aux=aux)
+    return bk.mlp_fwd(cfg, lp["mlp"], x), None
+
+
 def _train_layer(cfg: ModelConfig, lp: Dict, h, positions, inv_freq,
                  mscale):
     """One stateless layer of the train mode: causal attention over the
     sequence (``cm.flash_attention``, the reference's KV tile of
     ``min(512, max(128, T))`` keys and query tiles of 512), then the
-    MLP."""
+    MLP or MoE.  Returns (h, the layer's aux loss)."""
     x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
     q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq, mscale)
     k, v = bk.project_kv(cfg, lp["attn"], x, positions, inv_freq, mscale)
@@ -438,8 +454,8 @@ def _train_layer(cfg: ModelConfig, lp: Dict, h, positions, inv_freq,
                              kv_positions=positions, causal=True,
                              chunk=min(512, max(128, t)))
     h = h + bk.attn_output(cfg, lp["attn"], out)
-    x = cm.rmsnorm(h, lp["norm2"], cfg.norm_eps)
-    return h + bk.mlp_fwd(cfg, lp["mlp"], x)
+    m, aux = _mlp_or_moe(cfg, lp, h, aux=True)
+    return h + m, aux
 
 
 # ---------------------------------------------------------------------------
@@ -453,6 +469,8 @@ class TrunkOut:
     cache: Any                      # updated cache dict (prefill) or None
     new_kv: Any                     # (k, v) [L, B, T, Hk, Dh] or None
     queries: Any = None             # [L, B, T, H, Dh] when emit_queries
+    aux_loss: Any = None            # fp32 scalar, the MoE load balance
+                                    # summed over layers (train mode)
 
 
 def _feature_targets(num_layers: int) -> Tuple[int, int, int]:
@@ -487,16 +505,19 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
         _check_dense(cfg)
         feats = [None, None, None]
         remat = cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for i, lp in enumerate(layers):
             args = (cfg, lp, h, positions, inv_freq, mscale)
-            h = (torch.utils.checkpoint.checkpoint(
+            h, aux_l = (torch.utils.checkpoint.checkpoint(
                 _train_layer, *args, use_reentrant=False) if remat
                 else _train_layer(*args))
+            if aux_l is not None:
+                aux = aux + aux_l
             for slot, tgt in enumerate((f_lo, f_mi, f_hi)):
                 if collect_features and i == tgt:
                     feats[slot] = h
         return TrunkOut(h=h, features=tuple(feats) if collect_features
-                        else None, cache=None, new_kv=None)
+                        else None, cache=None, new_kv=None, aux_loss=aux)
     b, t = positions.shape
     length = (cache["length"] if cache is not None
               else torch.zeros((b,), dtype=torch.int32, device=h.device))
@@ -532,8 +553,10 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
             new_v.append(upd["new_v"])
         if emit_queries:
             queries.append(q)
-        x = cm.rmsnorm(h, lp["norm2"], cfg.norm_eps)
-        h = h + bk.mlp_fwd(cfg, lp["mlp"], x)
+        # the MoE routes every row of the padded [B, T] input, pads too,
+        # as the reference does: pads earlier in the flattened order take
+        # expert capacity from real tokens after them
+        h = h + _mlp_or_moe(cfg, lp, h)[0]
         if collect_features:
             for slot, tgt in enumerate((f_lo, f_mi, f_hi)):
                 if i == tgt:

@@ -1762,3 +1762,186 @@ def test_cuda_tiered_graphs_equal_untiered(cuda, models):
     stats = te.tier_stats()
     assert stats["tier_demoted_pages"] > 0 and stats["tier_prefetch_hits"] >= 1
     assert td == ud and tc == uc == 3, (td, ud, tc, uc)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: granite-moe-1b-a400m (H=16, Hk=8, Dh=64, 32 experts top-8)
+# ---------------------------------------------------------------------------
+
+MOE = "granite-moe-1b-a400m"
+
+
+def _moe_input(b, t, d, seed):
+    """Tokens that share a direction, as a layer's hidden states do, so
+    the router favours the same experts and capacity binds."""
+    g = torch.Generator().manual_seed(seed)
+    return (3.0 * torch.randn((1, 1, d), generator=g)
+            + torch.randn((b, t, d), generator=g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, t", [(1, 61), (1, 256), (5, 256)])
+def test_cuda_moe_layer_matches_cpu_fp32(cuda, b, t):
+    """One MoE layer at granite width in fp32 on the card against the CPU
+    route on the same weights: a verify step's 61 tokens, a prefill
+    chunk, and 1280 tokens (two dispatch groups, the second padded).  The
+    same kept (token, slot) pairs, pairs dropped, and the output within
+    1e-4 of its largest magnitude."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks as bk
+    cfg = get_config(MOE).replace(dtype="float32", param_dtype="float32")
+    p = bk.init_moe_params(cfg, torch.Generator().manual_seed(0))
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    x = _moe_input(b, t, cfg.d_model, 1)
+    want, _ = bk.moe_fwd(cfg, p, x, aux=False)
+    got, _ = bk.moe_fwd(cfg, pc, x.to(cuda), aux=False)
+    _assert_close(got.cpu(), want)
+    n, g = b * t, min(b * t, bk.MOE_GROUP)
+    ng = -(-n // g)
+    xg = torch.zeros((ng * g, cfg.d_model))
+    xg[:n] = x.reshape(n, -1)
+    xg = xg.view(ng, g, -1)
+    _, _, kc = bk._moe_groups_fwd(cfg, p, xg, 1.25, False)
+    _, _, kg = bk._moe_groups_fwd(cfg, pc, xg.to(cuda), 1.25, False)
+    assert torch.equal(kg.cpu(), kc)
+    assert not bool(kc.reshape(-1)[: n * cfg.experts_per_token].all())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_partial_step_graph_launches_eager_body(cuda, models):
+    """granite-moe-1b-a400m cut to 2 layers at full width, bf16, on the
+    paged zero-copy pool: the Partial step body runs eagerly under
+    ``torch.cuda.set_sync_debug_mode("error")``, and a replayed Partial
+    step launches on the card the kernels an eager Partial step launches,
+    name for name (copies and sets aside); graph ``generate`` equals
+    eager ``generate`` (tokens, modes, K1-K4 launches)."""
+    from collections import Counter
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import (MODE_IDS, SpecPVEngine,
+                                         request_token_need)
+    cfg, spec, dcfg, params, dparams = _get_model(models, MOE)
+    prompt_len, new = 35 * 128 - 6, 24
+    prompt = np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (1, prompt_len)).astype(np.int64)
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    runs = []
+    for graphs in (False, True):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, paged=True, zero_copy=True,
+                           device="cuda", cuda_graphs=graphs)
+        tops.reset_launch_counts()
+        toks, stats = eng.generate(prompt, new)
+        torch.cuda.synchronize()
+        counts = tops.launch_counts()
+        st = eng.final_state
+        if not graphs:
+            eng._rows.fill_(True)
+            eng._modes.fill_(MODE_IDS["partial"])
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng._fused_body(False, True, False)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        st, _ = eng.step(st, "partial")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st, so = eng.step(st, "partial")
+            torch.cuda.synchronize()
+        assert so.mode == "partial"
+        kernels = Counter(e.name for e in prof.events()
+                          if getattr(e, "device_type", None)
+                          == DeviceType.CUDA
+                          and not e.name.startswith(("Memcpy", "Memset")))
+        runs.append((toks, stats, counts, kernels))
+    (et, es, ec, ed), (gt, gs, gc, gd) = runs
+    assert np.array_equal(gt, et) and gs["modes"] == es["modes"]
+    assert set(es["modes"]) == {"full", "refresh", "partial"}
+    assert gc == ec and all(ec[0][k] > 0 for k in (
+        "sparse_verify_attention", "paged_prefill_attention",
+        "retrieval_score", "block_summary"))
+    assert sum(ed.values()) > 0
+    assert gd == ed, (gd - ed, ed - gd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 61, 156])
+def test_cuda_block_attention_granite_heads(cuda, t):
+    """K1 at granite's heads (H=16, Hk=8, Dh=64, block 128, bf16) over
+    routed lists of 35 pages with ragged valid lengths and an all-empty
+    (row, head), batch 2, against the plain version; at most two
+    launches per call."""
+    q, pk, pv, idx, vlen = _cuda_case(cuda, torch.bfloat16, b=2, t=t, h=16,
+                                      hk=8, dh=64, npg=70, ns=35, seed=40)
+    npg, bs, hk, dh = pk.shape
+    kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+    got, n = _kernel_launches(lambda: tops.block_attention(
+        q, kf, vf, idx, vlen, bs))
+    assert n <= 2
+    _assert_partials_close(got, tref.block_attention_batched(
+        q, kf, vf, idx, vlen, bs))
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_granite_heads(cuda):
+    """K2 at granite's heads: the last 256-token chunk of an 8192-token
+    prompt through a permuted page table (the paged prefill's page walk
+    and causal offset), bf16, against the plain version."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(41)
+    h, hk, dh, bs, t, qoff = 16, 8, 64, 128, 256, 7936
+    nbt = (qoff + t) // bs
+    npg = nbt + 3
+    q = torch.randn((1, t, h, dh), generator=g, device=cuda).bfloat16()
+    pk = torch.randn((npg, bs, hk, dh), generator=g, device=cuda).bfloat16()
+    pv = torch.randn((npg, bs, hk, dh), generator=g, device=cuda).bfloat16()
+    pt = (torch.randperm(npg - 1, generator=g, device=cuda)[:nbt] + 1)[None]
+    pt = pt.to(torch.int32).contiguous()
+    length = torch.tensor([qoff], dtype=torch.int32, device=cuda)
+    tv = torch.tensor([t], dtype=torch.int32, device=cuda)
+    idx, vlen = tops._page_walk(pt, length + tv, pk.shape)
+    kf, vf = pk.reshape(-1, hk, dh), pv.reshape(-1, hk, dh)
+    got, n = _kernel_launches(lambda: tops.block_attention(
+        q, kf, vf, idx, vlen, bs, q_offset=length))
+    assert n <= 2
+    _assert_partials_close(got, tref.block_attention_batched(
+        q, kf, vf, idx, vlen, bs, q_offset=length))
+
+
+@pytest.mark.cuda
+def test_cuda_scores_and_summaries_granite_heads(cuda):
+    """K3 at granite's heads for a Refresh (T=156 over 66 blocks), two
+    calls bit-equal and within tolerance of the plain version; K4's
+    paged form over 24 layers (the last prompt chunk of 8192 tokens) bit
+    for bit, the null page left at 0."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(42)
+    b, t, h, hk, dh, nb = 1, 156, 16, 8, 64, 66
+    q = torch.randn((b, t, h, dh), generator=g, device=cuda).bfloat16()
+    kmax = torch.randn((b, nb, hk, dh), generator=g, device=cuda).abs()
+    kmin = -torch.randn((b, nb, hk, dh), generator=g, device=cuda).abs()
+    qw = (torch.rand((b, t), generator=g, device=cuda) > 0.3).float()
+    got = tops.retrieval_scores(q, kmax, kmin, qw)
+    assert torch.equal(got, tops.retrieval_scores(q, kmax, kmin, qw))
+    _assert_close(got, tref.retrieval_score_batched(q, kmax, kmin, qw))
+    layers, npg, bs = 24, 70, 128
+    pool = torch.randn((layers, npg, bs, hk, dh), generator=g,
+                       device=cuda).bfloat16()
+    table = (torch.randperm(npg - 1, generator=g, device=cuda)[:nb]
+             + 1).to(torch.int32)[None].contiguous()
+    st = torch.tensor([7936], dtype=torch.int32, device=cuda)
+    en = torch.tensor([8192], dtype=torch.int32, device=cuda)
+    got4 = torch.zeros((2, layers, npg, hk, dh), device=cuda)
+    want4 = torch.zeros_like(got4)
+    before = tops.LAUNCHES["block_summary"]
+    tops.paged_block_summaries(pool, table, st, en, 3, got4[0], got4[1])
+    tref.paged_block_summaries(pool, table, st, en, 3, want4[0], want4[1])
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["block_summary"] == before + 1
+    assert torch.equal(got4, want4) and float(got4.abs().sum()) > 0
+    assert float(got4[:, :, 0].abs().max()) == 0.0

@@ -253,14 +253,24 @@ def test_draft_ttt_loss_and_trainer_match_jax(tiny):
     within 1e-4 of their largest magnitude; ``draft_ttt_loss`` and each
     step's loss within 1e-5 relative; three ``DraftTrainer`` steps (batch
     2, sequence 96, TTT steps 3): per-step losses within 1e-4 relative
-    and draft parameters within 2e-4 absolute of JAX's."""
+    and draft parameters within 2e-4 absolute of JAX's.
+
+    The batches are drawn from a numpy seed, not from the corpus, whose
+    documents follow the process's string-hash salt: AdamW's first step
+    moves a parameter by about lr * g / (|g| + 1e-8), so an element whose
+    gradient lies within the frameworks' fp32 rounding (about 5e-8 here)
+    of zero moves differently in the two, by up to 2.3e-4 on the corpus
+    batches of 3 of 40 salts.  The corpus itself is held bit for bit
+    above."""
     cfg, tcfg, params, dparams = tiny
     jd, td = JDraftConfig(**DCFG), tcfgs.DraftConfig(**DCFG)
-    jc, tc = _corpora()
+    rng = np.random.default_rng(7)
+    batches = [rng.integers(0, cfg.vocab_size, (2, 97)).astype(np.int32)
+               for _ in range(4)]
     jt = JDraftTrainer(cfg, jd, _jx(params),
                        JDTC(total_steps=3, warmup=1, log_every=1),
                        dparams=_jx(dparams))
-    toks = next(jbatches(jc, batch=2, seq_len=96))[:, :-1]
+    toks = batches[0][:, :-1]
     jf = np.array(jt._feat(jt.target_params, jnp.asarray(toks)))
     tp = params_from_numpy(tcfg, params, device="cpu")
     tf = target_features(tcfg, tp, torch.as_tensor(toks)).numpy()
@@ -274,14 +284,14 @@ def test_draft_ttt_loss_and_trainer_match_jax(tiny):
     for k in jm:
         assert abs(float(tm[k]) / float(jm[k]) - 1) < 1e-5, k
 
-    jr = jt.fit(jbatches(jc, batch=2, seq_len=96, seed=7), steps=3)
+    jr = jt.fit(iter(batches[1:]), steps=3)
     tt = DraftTrainer(tcfg, td, params_from_numpy(tcfg, params,
                                                   device="cpu"),
                       DraftTrainConfig(total_steps=3, warmup=1, log_every=1),
                       dparams=draft_params_from_numpy(tcfg, dparams,
                                                       device="cpu"),
                       device="cpu")
-    tr = tt.fit(batch_iterator(tc, batch=2, seq_len=96, seed=7), steps=3)
+    tr = tt.fit(iter(batches[1:]), steps=3)
     for a, b in zip(jr["history"], tr["history"]):
         assert set(a) == set(b)
         for k in ("loss", "ttt_loss_0", "ttt_loss_2", "grad_norm"):
