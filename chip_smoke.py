@@ -205,7 +205,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``fused_prefix_serving_launches`` from phase 9's fused graph runs,
    ``training_launches`` from phase 10, ``sampled_serving_launches``
    from phase 11 (K1-K4 its (a), K5 its (b)), ``tiered_serving_launches``
-   from phase 13 (b)'s tiered run; phases 8 and 9's call forms and
+   from phase 13 (b)'s tiered run, ``moe_launches`` and
+   ``moe_serving_launches`` from phase 14, ``registry_launches`` from
+   phase 15 (a)'s graph run; phases 8 and 9's call forms and
    phase 2's forms of this slice under ``shapes``), the card's name and
    power limit, and the final ``{"ok": true, ...}`` line.  It comes
    last: phase 13 runs before it;
@@ -249,7 +251,32 @@ Phases, in order (any failure raises and the script exits non-zero):
    off) at full width and depth, a 1024-token prompt: ``generate`` with
    full verification and graphs equals the port's compiled AR decoding
    (``CompiledAR``), the plain AR oracle's agreement reported.  Phase 2
-   holds K1-K4 at granite's heads to their plain versions, timed.
+   holds K1-K4 at granite's heads to their plain versions, timed;
+15. the rest of the dense registry (slice 15), bf16, random weights from
+   seed 0 (the draft from seed 1), the paper spec.  (a) qwen2-0.5b at
+   full width and depth (24 layers, 14/2 heads: 7 query heads per KV
+   head, Dh 64, QKV bias, vocab 151936 tied): phase 3's ``generate`` on
+   the paged zero-copy pool (8192-token prompt, 128 new tokens), eagerly
+   and with graphs: equal tokens and launch counts, K1-K4 launched as
+   the steps and chunks imply, the graph run profiled (wall and device
+   busy ms per step, idle share, host launch calls, tokens/s, peak
+   memory).  (b) deepseek-7b at full width and depth (30 layers, 32/32
+   heads, Dh 128, vocab 102400 untied): the same cell with graphs,
+   eagerly over the first 16 tokens.  (c) granite-3-2b at full depth (40
+   layers) and qwen1.5-32b at full width (40/40 heads with QKV bias,
+   vocab 152064; all 64 layers if the weights, the pool and a margin fit
+   the card's free memory, which is reckoned and printed first, else 48):
+   a 2048-token prompt and 32 new tokens with graphs (Full verification:
+   the prompt is under the 4480-token budget), launches held to the
+   steps and chunks.  (d) qwen2-0.5b fp32 (TF32 off) at full width and
+   depth, a 1024-token prompt, 32 new tokens: full verification with
+   graphs equals the compiled AR.  (e) rwkv6-3b at full width cut to 4
+   layers: one ``train_loss`` + backward at S = 512 in bf16 (the WKV
+   recurrence as the plain chunked loop under autograd), finite non-zero
+   loss and gradient norm, ms per step and peak memory.  (f) Each
+   target's eager step bodies under the sync check.  Phase 2 holds K1-K4
+   at qwen2-0.5b's and deepseek-7b's heads, K3 at qwen1.5-32b's and K4
+   over its 64 layers to their plain versions, timed.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1224,33 +1251,38 @@ def _wkv_checks(torch, card, timer, gen):
 # phase 3: full-width generate
 # ---------------------------------------------------------------------------
 
-def _llama_full_width(torch, card, what):
-    """llama3.1-8b at full width (32 layers, bf16) with random weights
-    from seeds 0 and 1, the paper spec, and the 8192-token prompt of
-    phase 3 (seed 0)."""
+def _full_width(torch, card, arch, dtype="bfloat16", seed=0,
+                prompt_len=PROMPT_LEN, prompt_seed=0, layers=None):
+    """``arch`` at full width (``layers`` cuts the depth) with random
+    weights from ``seed`` (the draft from ``seed + 1``), the paper spec
+    and a prompt from ``prompt_seed``."""
     import numpy as np
     from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
     from repro_torch.core.draft import init_draft_params
     from repro_torch.models.api import init_params
-    cfg = get_config("llama3.1-8b")
+    cfg = get_config(arch).replace(dtype=dtype, param_dtype=dtype)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
     dcfg = DraftConfig()
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device="cuda")
-    dparams = init_draft_params(cfg, dcfg, seed=1, device="cuda")
+    params = init_params(cfg, seed=seed, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=seed + 1, device="cuda")
     torch.cuda.synchronize()
-    say(card, f"{what}: llama3.1-8b random weights ready in "
-              f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    prompt = rng.integers(0, cfg.vocab_size, (1, PROMPT_LEN)).astype(np.int64)
+    say(card, f"{arch} {cfg.num_layers} layers {dtype} random "
+              f"weights ready in {time.perf_counter() - t0:.1f} s "
+              f"({_nbytes(params) / 2**30:.2f} GiB target, "
+              f"{_nbytes(dparams) / 2**30:.2f} GiB draft)")
+    prompt = np.random.default_rng(prompt_seed).integers(
+        0, cfg.vocab_size, (1, prompt_len)).astype(np.int64)
     return cfg, spec, dcfg, params, dparams, prompt
 
 
 def phase_generate(torch, card):
     """Phase 3: the paged zero-copy engine.  Returns the graph run's
     launches and tokens."""
-    cfg, spec, dcfg, params, dparams, prompt = _llama_full_width(
-        torch, card, "generate")
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, "llama3.1-8b")
     runs = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
                          prompt, NEW_TOKENS, dict(paged=True, zero_copy=True),
                          "llama3.1-8b")
@@ -1358,8 +1390,11 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
         if not graphs and eager_hook is not None:
             hook = eager_hook(eng, eng.final_state)
         eng.final_state = None
+        # an eager window is host-bound and even (about 130 ms a step), and
+        # each profiled eager step costs seconds: 3 steps, not 6
         prof = {} if short or not (graphs or profile_eager) else (
             profile_steps(torch, card, eng, prompt, label=label,
+                          steps=6 if graphs else 3,
                           kernel="retrieval_score_kernel", refresh=True,
                           prefill_kernel="block_summary_kernel",
                           prefill=graphs and profile_prefill))
@@ -1438,12 +1473,14 @@ def compare_runs(card, name, runs):
                       f"{g[key]:.4f}")
 
 
-def check_sync_free(torch, card, eng, prompt):
-    """After a prefill of ``prompt``, one eager run of each step variant's
-    body and of the 256-token prefill chunk's under
-    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
-    operation that waits for the card (a host read, a copy from pageable
-    memory): what a graph captures must not sync."""
+def check_sync_free(torch, card, eng, prompt,
+                    modes=("full", "refresh", "partial")):
+    """After a prefill of ``prompt``, one eager run of the body of each
+    step variant in ``modes`` (an engine whose ``max_len`` is under the
+    partial budget runs Full steps only) and of the 256-token prefill
+    chunk's under ``torch.cuda.set_sync_debug_mode("error")``, which
+    raises on any operation that waits for the card (a host read, a copy
+    from pageable memory): what a graph captures must not sync."""
     from repro_torch.core.engine import MODE_IDS
     st = eng.prefill(prompt)
     toks = eng._chunk_buf(eng.batch, 256)
@@ -1453,7 +1490,8 @@ def check_sync_free(torch, card, eng, prompt):
             eng._modes.fill_(MODE_IDS[mode]), eng._fused_body(*key))))
             for mode, key in (("full", (True, False, False)),
                               ("refresh", (True, False, True)),
-                              ("partial", (False, True, False)))]
+                              ("partial", (False, True, False)))
+            if mode in modes]
     else:
         bodies = [("state", eng._state_body)]
     bodies.append(("prefill chunk", lambda: eng._prefill_body(
@@ -1471,16 +1509,21 @@ def check_sync_free(torch, card, eng, prompt):
               f"sync")
 
 
-def _check_final_summaries(torch, card, cache):
+def _check_final_summaries(torch, card, cache, group: int = 8):
     """Every layer's page summaries in the cache ``generate`` left,
     against the plain version recomputed from its pool: each row's
     blocks over [0, length), bit for bit, and 0 on every page no block of
-    a row covers, the null page 0 among them."""
+    a row covers, the null page 0 among them.  The plain version runs
+    ``group`` layers at a time (its fp32 temporaries of all 64 layers of
+    qwen1.5-32b do not fit beside its weights)."""
     from repro_torch.kernels import ref
     pt, length = cache["page_table"], cache["length"]
     want = torch.zeros((2,) + tuple(cache["kmax"].shape), device="cuda")
-    ref.paged_block_summaries(cache["k"], pt, torch.zeros_like(length),
-                              length, pt.shape[1], want[0], want[1])
+    for l0 in range(0, want.shape[1], group):
+        sl = slice(l0, l0 + group)
+        ref.paged_block_summaries(cache["k"][sl], pt,
+                                  torch.zeros_like(length), length,
+                                  pt.shape[1], want[0, sl], want[1, sl])
     torch.cuda.synchronize()
     for name, w in (("kmax", want[0]), ("kmin", want[1])):
         if not torch.equal(cache[name], w):
@@ -3198,8 +3241,8 @@ def phase_default_engine(torch, card, timer, p3=None, p4=None, p6=None):
     launches of (a)'s graph run and (e)'s, and the call forms' rows."""
     t0 = time.perf_counter()
     shapes = _contiguous_kernel_checks(torch, card, timer)
-    cfg, spec, dcfg, params, dparams, prompt = _llama_full_width(
-        torch, card, "default engine")
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, "llama3.1-8b")
     # the eager run is cut to CONTIG_EAGER_NEW tokens and not profiled:
     # phase 3 profiles the eager step on the paged layout, and the eager
     # contiguous bodies still run under the sync check
@@ -4613,8 +4656,8 @@ def phase_sampled_serving(torch, card, trained: bool):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg, spec, dcfg, params, dparams, _ = _llama_full_width(
-        torch, card, "sampled serving")
+    cfg, spec, dcfg, params, dparams, _ = _full_width(
+        torch, card, "llama3.1-8b")
     import numpy as np
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
@@ -4972,8 +5015,8 @@ def phase_tiers(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg, spec, dcfg, params, dparams, prompt = _llama_full_width(
-        torch, card, "tiers")
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, "llama3.1-8b")
     forced = _tier_forced(torch, card, cfg, spec, dcfg, params, dparams,
                           prompt)
     launches, served = _tier_served(torch, card, cfg, spec, dcfg, params,
@@ -5043,31 +5086,6 @@ def _moe_kernel_checks(torch, card, timer):
         max_abs_err=0.0, timing="profiler", **row)
     torch.cuda.empty_cache()
     return out
-
-
-def _moe_full_width(torch, card, dtype="bfloat16", seed=0, prompt_len=None,
-                    prompt_seed=0):
-    """granite-moe-1b-a400m at full width and depth (24 layers, 32
-    experts, top-8) with random weights from ``seed`` (the draft from
-    ``seed + 1``), the paper spec, and a prompt from ``prompt_seed``."""
-    import numpy as np
-    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
-    from repro_torch.core.draft import init_draft_params
-    from repro_torch.models.api import init_params
-    cfg = get_config(MOE_ARCH).replace(dtype=dtype, param_dtype=dtype)
-    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
-    dcfg = DraftConfig()
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=seed, device="cuda")
-    dparams = init_draft_params(cfg, dcfg, seed=seed + 1, device="cuda")
-    torch.cuda.synchronize()
-    say(card, f"moe: {MOE_ARCH} {dtype} random weights ready in "
-              f"{time.perf_counter() - t0:.1f} s ({_nbytes(params) / 2**30:.2f}"
-              f" GiB target, {_nbytes(dparams) / 2**30:.2f} GiB draft)")
-    rng = np.random.default_rng(prompt_seed)
-    prompt = rng.integers(0, cfg.vocab_size,
-                          (1, prompt_len or PROMPT_LEN)).astype(np.int64)
-    return cfg, spec, dcfg, params, dparams, prompt
 
 
 def _range_kernels(e, skip=()):
@@ -5187,9 +5205,9 @@ def _moe_lossless(torch, card):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    cfg, spec, dcfg, params, dparams, prompt = _moe_full_width(
-        torch, card, "float32", seed=2, prompt_len=MOE_LOSSLESS_PROMPT,
-        prompt_seed=1)
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, MOE_ARCH, "float32", seed=2,
+        prompt_len=MOE_LOSSLESS_PROMPT, prompt_seed=1)
     new = MOE_LOSSLESS_NEW
     max_len = request_token_need(prompt.shape[1], new, spec.buffer_size,
                                  dcfg.tree_depth + 1)
@@ -5232,7 +5250,8 @@ def phase_moe(torch, card):
     gc.collect()
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    cfg, spec, dcfg, params, dparams, prompt = _moe_full_width(torch, card)
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(torch, card,
+                                                           MOE_ARCH)
     # the graph run (the main path) is profiled, its prefill apart; the
     # eager engine gives the drops and the split of the step
     runs = generate_runs(
@@ -5279,9 +5298,365 @@ def phase_moe(torch, card):
                 served_vs_solo=same, fp32=fp32, seconds=secs)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the rest of the dense registry
+# ---------------------------------------------------------------------------
+
+REG_REP7 = "qwen2-0.5b"                 # 14/2 heads: 7 per KV head, Dh 64
+REG_MHA = "deepseek-7b"                 # 32/32 heads, Dh 128
+REG_DEEP = "granite-3-2b"               # 40 layers, 32/8 heads, Dh 64
+REG_BIG = "qwen1.5-32b"                 # 40/40 heads, QKV bias, 64 layers
+REG_BIG_CUT = 48                        # its depth when 64 layers do not fit
+REG_SHORT, REG_SHORT_NEW = 2048, 32     # (c)'s prompt and new tokens
+REG_EAGER_NEW = 16                      # (b)'s eager run
+REG_LOSSLESS_PROMPT, REG_LOSSLESS_NEW = 1024, 32
+REG_TRAIN_LAYERS, REG_TRAIN_SEQ = 4, 512
+# above the weights and the pool: graph pools, a step's transients and
+# workspaces; all 64 layers of qwen1.5-32b peaked 1.3 GiB above the
+# reckoning without it (70.85-71.07 GiB allocated)
+REG_MARGIN_GIB = 4.0
+
+
+def _registry_kernel_checks(torch, card, timer):
+    """Phase 2, the call forms of slice 15: K1-K4 at qwen2-0.5b's heads
+    (H=14, Hk=2: 7 query heads per KV head, Dh 64) and deepseek-7b's
+    (H=Hk=32, Dh 128), block 128, bf16, over 8192 tokens: K1 Full T=61
+    and routed Partial NS=35 T=61, K2 a prefill chunk T=256 at qoff
+    7936, K3 a Refresh T=156 over 66 blocks, K4's paged form over every
+    layer (24 / 30); K3 also at qwen1.5-32b's 40/40 and K4 over its 64
+    layers at Hk 40 (the last chunk of a 2048-token prompt).  Each is
+    held to its plain version (K4 bit for bit), timed beside its bound
+    and SDPA (K4: ``torch.aminmax``).  Returns {kernel: {label: row}}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1500)
+    out = {k: {} for k in LLAMA_KERNELS}
+    for heads, layers, tag in (((14, 2, 64), 24, "qwen2-0.5b"),
+                               ((32, 32, 128), 30, "deepseek-7b")):
+        h, hk, dh = heads
+        g = f"H={h} Hk={hk} Dh={dh} ({tag})"
+        kw = dict(h=h, hk=hk, dh=dh)
+        for label, name, case in (
+                (f"K1 full T=61 ctx=8229 {g}", "sparse_verify_attention",
+                 dict(t=61, ctx=8229)),
+                (f"K1 routed NS=35 T=61 {g}", "sparse_verify_attention",
+                 dict(t=61, ctx=8229, routed_ns=35)),
+                (f"K2 prefill T=256 qoff=7936 {g}",
+                 "paged_prefill_attention",
+                 dict(t=256, ctx=8192, causal_qoff=7936))):
+            res = {}
+            _attn_check(torch, card, timer, gen, res, label, name, **case,
+                        **kw)
+            out[name][label] = res[name]
+        label = f"K3 Refresh T=156 NB=66 {g} bf16"
+        out["retrieval_score"][label] = _score_row(
+            torch, card, timer, gen, label, 156, 66, torch.bfloat16, h, hk,
+            dh)
+        k4, start, end, n_touch = K4_PAGED_SHAPES[0]
+        row = _paged_summary_case(torch, card, timer, gen, torch.bfloat16,
+                                  k4, start, end, n_touch, layers=layers,
+                                  hk=hk, dh=dh)
+        out["block_summary"][f"K4 paged {k4} L={layers} {g} bf16"] = dict(
+            max_abs_err=0.0, timing="profiler", **row)
+        torch.cuda.empty_cache()
+    g = "H=40 Hk=40 Dh=128 (qwen1.5-32b)"
+    label = f"K3 Refresh T=156 NB=66 {g} bf16"
+    out["retrieval_score"][label] = _score_row(
+        torch, card, timer, gen, label, 156, 66, torch.bfloat16, 40, 40, 128)
+    row = _paged_summary_case(torch, card, timer, gen, torch.bfloat16,
+                              "last chunk of 2048", 1792, 2048, 3, layers=64,
+                              np_=20, nb=17, hk=40, dh=128)
+    out["block_summary"][f"K4 paged last chunk of 2048 L=64 {g} bf16"] = \
+        dict(max_abs_err=0.0, timing="profiler", **row)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _layer_params(cfg) -> int:
+    """Parameters of one dense layer (``models.dense._init_layer``)."""
+    d, f = cfg.d_model, cfg.d_ff
+    qd, kd = cfg.num_heads * cfg.head_dim_, cfg.num_kv_heads * cfg.head_dim_
+    return (d * qd + 2 * d * kd + qd * d + 3 * d * f + 2 * d
+            + (qd + 2 * kd if cfg.qkv_bias else 0))
+
+
+def _reckon_depth(torch, card, arch, prompt_len, new):
+    """The depth ``arch`` runs at: all its layers if the weights (target
+    and draft, bf16), the paged pool of one row and ``REG_MARGIN_GIB``
+    fit in the card's free memory, else ``REG_BIG_CUT``.  Prints the
+    reckoning.  Returns (layers, reckoning dict)."""
+    from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
+    from repro_torch.core.draft import draft_model_config
+    from repro_torch.core.engine import request_token_need
+    cfg = get_config(arch)
+    spec, dcfg = SpecPVConfig(), DraftConfig()
+    gib = 2.0**30
+    free, total = torch.cuda.mem_get_info()
+
+    def need(layers):
+        c = cfg.replace(num_layers=layers)
+        d = c.d_model
+        # bf16 target: layers, embedding (and head), final norm; the draft:
+        # fuse [3d, d], in_proj [2d, d], one layer, its norm
+        weights = 2 * (layers * _layer_params(c) + d + c.vocab_size * d
+                       * (1 if c.tie_embeddings else 2))
+        draft = 2 * (5 * d * d + _layer_params(draft_model_config(c)) + d)
+        max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                     dcfg.tree_depth + 1)
+        pages = -(-max_len // spec.block_size) + 1
+        kv_tok = 2 * c.num_kv_heads * c.head_dim_ * 2
+        pool = layers * pages * spec.block_size * kv_tok
+        sums = layers * pages * 2 * c.num_kv_heads * c.head_dim_ * 4
+        return dict(weights_gib=weights / gib, draft_gib=draft / gib,
+                    kv_pool_gib=(pool + sums) / gib,
+                    kv_mb_per_token=layers * kv_tok / 1e6,
+                    margin_gib=REG_MARGIN_GIB,
+                    total_gib=(weights + draft + pool + sums) / gib
+                    + REG_MARGIN_GIB)
+    full = need(cfg.num_layers)
+    layers = (cfg.num_layers if full["total_gib"] <= free / gib
+              else REG_BIG_CUT)
+    say(card, f"registry: {arch} at {cfg.num_layers} layers needs "
+              + ", ".join(f"{k} {v:.2f}" for k, v in full.items())
+              + f" against {free / gib:.2f} GiB free of {total / gib:.2f}: "
+              f"runs at {layers} layers"
+              + ("" if layers == cfg.num_layers else
+                 f" (cut from {cfg.num_layers})"))
+    return layers, dict(full, free_gib=free / gib, layers=layers,
+                        full_layers=cfg.num_layers)
+
+
+def _graph_generate(torch, card, cfg, spec, dcfg, params, dparams, prompt,
+                    new, name):
+    """One ``generate`` with graphs on the paged zero-copy pool, the
+    launch counts set to 0 just before and read just after, held to what
+    its steps and chunks imply; final summaries against the plain
+    version; then an eager engine's step bodies under the sync check.
+    Returns the numbers."""
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.kernels import ops
+    prompt_len = prompt.shape[1]
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=max_len, device="cuda", **PAGED_ZERO_COPY)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, stats = eng.generate(prompt, new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    memory_line(torch, card, f"{name} graphs", eng, params, dparams, peak)
+    chunks = -(-prompt_len // 256)
+    refresh = stats["modes"].get("refresh", 0)
+    layers = cfg.num_layers
+    want = {"sparse_verify_attention": layers * stats["steps"],
+            "paged_prefill_attention": layers * chunks,
+            "retrieval_score": layers * refresh,
+            "block_summary": chunks + refresh + stats["modes"].get("full",
+                                                                   0)}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got} != {want}")
+    if not eng._graphs:
+        raise AssertionError(f"{name}: no graph was replayed")
+    _check_final_summaries(torch, card, eng.final_state.cache)
+    if toks.shape != (1, new) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{name}: tokens out of range: {toks}")
+    decode_s = wall - stats["prefill_s"]
+    steps = max(stats["steps"], 1)
+    capture_s = eng.capture_s
+    say(card, f"generate [{name} graphs] ({layers} layers, bf16, random "
+              f"weights) prompt {prompt_len} new {new}: modes "
+              f"{stats['modes']} wall_s {wall:.3f} (prefill_s "
+              f"{stats['prefill_s']:.3f}, ms/step {decode_s * 1e3 / steps:.2f})"
+              f" tokens_per_s {new / wall:.2f} peak_mem_gib {peak:.2f} "
+              f"capture_s {eng.capture_s:.3f} launches {got}")
+    del eng
+    torch.cuda.empty_cache()
+    eager = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                         max_len=max_len, device="cuda", cuda_graphs=False,
+                         **PAGED_ZERO_COPY)
+    # max_len is under the partial budget: the engine runs Full steps only
+    check_sync_free(torch, card, eager, prompt[:, :512], modes=("full",))
+    del eager
+    torch.cuda.empty_cache()
+    return dict(launches=launches, modes=stats["modes"], wall_s=wall,
+                tokens_per_s=new / wall, ms_step=decode_s * 1e3 / steps,
+                prefill_s=stats["prefill_s"], peak_gib=peak,
+                capture_s=capture_s)
+
+
+def _registry_lossless(torch, card):
+    """(d): qwen2-0.5b in fp32 (TF32 off) at full width and depth, a
+    1024-token prompt: ``generate`` with full verification, with graphs,
+    on the paged zero-copy pool equals the port's compiled AR decoding
+    (``CompiledAR``).  Returns the numbers."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.core.reference import CompiledAR
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, REG_REP7, "float32", seed=2,
+        prompt_len=REG_LOSSLESS_PROMPT, prompt_seed=1)
+    new = REG_LOSSLESS_NEW
+    max_len = request_token_need(prompt.shape[1], new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=max_len, partial_verification=False,
+                       device="cuda", **PAGED_ZERO_COPY)
+    toks, stats = eng.generate(prompt, new)
+    if not eng._graphs or set(stats["modes"]) != {"full"}:
+        raise AssertionError(f"{REG_REP7} fp32: graphs "
+                             f"{list(eng._graphs)}, modes {stats['modes']}")
+    del eng
+    ar = CompiledAR(cfg, params, batch=1, max_len=max_len, spec=spec,
+                    device="cuda").generate(prompt, new)
+    if not np.array_equal(toks, ar):
+        raise AssertionError(f"{REG_REP7} fp32 full-verification SpecPV "
+                             f"differs from the compiled AR:\n{toks}\n{ar}")
+    secs = time.perf_counter() - t0
+    say(card, f"registry lossless {REG_REP7} {cfg.num_layers} layers fp32, "
+              f"graphs: speculative (full verification) == compiled AR over "
+              f"{new} tokens (modes {stats['modes']}, mean_accept "
+              f"{stats['mean_accept']:.3f}, prompt {prompt.shape[1]}); "
+              f"{secs:.1f} s")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return dict(modes=stats["modes"], seconds=secs)
+
+
+def _registry_rwkv_train(torch, card):
+    """(e): one ``train_loss`` + backward of rwkv6-3b at full width, cut
+    to ``REG_TRAIN_LAYERS`` layers, batch 1, S = ``REG_TRAIN_SEQ``, bf16
+    (the WKV recurrence as the plain chunked loop under autograd): a
+    warm-up step, then one step timed with CUDA events; the loss and the
+    gradient norm must be finite and non-zero.  Returns the numbers."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import api
+    from repro_torch.train.trainer import grads_of, trainable, tree_leaves
+    cfg = get_config("rwkv6-3b").replace(num_layers=REG_TRAIN_LAYERS)
+    params = trainable(api.init_params(cfg, seed=0, device="cuda"))
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, REG_TRAIN_SEQ)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    before = ops.launch_counts()
+    out = []
+    for _ in range(2):
+        for p in tree_leaves(params):
+            p.grad = None
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        loss, _ = api.train_loss(cfg, params, toks)
+        loss.backward()
+        e1.record()
+        e1.synchronize()
+        gn = float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                  for g in tree_leaves(grads_of(params)))))
+        out.append((float(loss.detach()), gn, e0.elapsed_time(e1)))
+    if ops.launch_counts() != before:
+        raise AssertionError("rwkv6 training launched a kernel wrapper")
+    loss, gn, ms = out[-1]
+    if not (np.isfinite(loss) and loss > 0 and np.isfinite(gn) and gn > 0):
+        raise AssertionError(f"rwkv6 train step: loss {loss}, grad norm {gn}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(card, f"registry rwkv6-3b train_loss + backward ({cfg.num_layers} "
+              f"layers, d {cfg.d_model}, S {REG_TRAIN_SEQ}, bf16): loss "
+              f"{loss:.4f} grad norm {gn:.4f} ms per step {ms:.1f} (warm-up "
+              f"{out[0][2]:.1f}) peak_mem_gib {peak:.2f}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(loss=loss, grad_norm=gn, ms_step=ms, warmup_ms=out[0][2],
+                peak_gib=peak)
+
+
+def phase_registry(torch, card):
+    """Phase 15: (a) qwen2-0.5b's ``generate`` at full width and depth on
+    the paged zero-copy pool, eager and with graphs; (b) deepseek-7b's,
+    with graphs (eager over the first tokens); (c) granite-3-2b at full
+    depth and qwen1.5-32b at full width (its depth reckoned first), a
+    2048-token prompt with graphs; (d) qwen2-0.5b fp32 losslessness; (e)
+    one rwkv6-3b train step; (f) every target's eager step bodies under
+    the sync check, in (a)-(c).  Returns (a)'s graph launches and the
+    numbers."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    secs = {}
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, REG_REP7)
+    runs_a = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
+                           prompt, NEW_TOKENS, PAGED_ZERO_COPY, REG_REP7,
+                           profile_eager=False, profile_prefill=False)
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["a"] = time.perf_counter() - t_phase
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, REG_MHA)
+    runs_b = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
+                           prompt, NEW_TOKENS, PAGED_ZERO_COPY, REG_MHA,
+                           eager_new=REG_EAGER_NEW, profile_eager=False,
+                           profile_prefill=False)
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["b"] = time.perf_counter() - t_phase - secs["a"]
+    short = {}
+    for arch in (REG_DEEP, REG_BIG):
+        t0 = time.perf_counter()
+        layers, reckon = (_reckon_depth(torch, card, arch, REG_SHORT,
+                                        REG_SHORT_NEW)
+                          if arch == REG_BIG else (None, None))
+        cfg, spec, dcfg, params, dparams, prompt = _full_width(
+            torch, card, arch, prompt_len=REG_SHORT, layers=layers)
+        short[arch] = _graph_generate(torch, card, cfg, spec, dcfg, params,
+                                      dparams, prompt, REG_SHORT_NEW, arch)
+        short[arch].update(layers=cfg.num_layers, reckoning=reckon,
+                           seconds=time.perf_counter() - t0)
+        del params, dparams
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs["c"] = sum(r["seconds"] for r in short.values())
+    fp32 = _registry_lossless(torch, card)
+    secs["d"] = fp32["seconds"]
+    t0 = time.perf_counter()
+    train = _registry_rwkv_train(torch, card)
+    secs["e"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    launches = runs_a["graphs"]["launches"]
+    big = short[REG_BIG]
+    say(card, f"phase 15 launches ({REG_REP7} graphs) {launches}; "
+              f"{REG_BIG} ran at {big['layers']} layers; "
+              + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items())
+              + f"; phase 15 took {total:.1f} s")
+    keep = ("wall_ms_step", "busy_ms_step", "idle_share",
+            "idle_share_unprofiled", "device_launches_step",
+            "host_launch_calls_step", "tokens_per_s", "prefill_s",
+            "peak_gib", "capture_s", "steps")
+
+    def pick(runs):
+        return {lb: {k: r.get(k) for k in keep} for lb, r in runs.items()}
+    for r in short.values():
+        r.pop("launches")
+    return dict(launches=launches, generate={REG_REP7: pick(runs_a),
+                                             REG_MHA: pick(runs_b)},
+                short=short, fp32=fp32, train=train, seconds=secs,
+                total_s=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,13,14",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,13,14,15",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -5290,8 +5665,9 @@ def main(argv=None) -> int:
                          "gathered partial cache), 9 (the fused multi-row "
                          "prefill), 10 (training and the paper's table 1), "
                          "11 (sampled serving), 13 (tiered KV residency), "
-                         "14 (the MoE family, granite-moe-1b-a400m); 1 "
-                         "and 12 always run")
+                         "14 (the MoE family, granite-moe-1b-a400m), 15 "
+                         "(the rest of the dense registry); 1 and 12 "
+                         "always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -5327,6 +5703,8 @@ def main(argv=None) -> int:
                       if 2 in phases else {})}
     p2m = {"shapes": (_moe_kernel_checks(torch, card, timer)
                       if 2 in phases else {})}
+    p2r = {"shapes": (_registry_kernel_checks(torch, card, timer)
+                      if 2 in phases else {})}
     p3 = phase_generate(torch, card) if 3 in phases else None
     llama = p3["launches"] if p3 else {k: 0 for k in ops.KERNELS}
     p4 = phase_lossless(torch, card) if 4 in phases else None
@@ -5349,6 +5727,8 @@ def main(argv=None) -> int:
     p13 = phase_tiers(torch, card) if 13 in phases else {"launches": {}}
     p14 = (phase_moe(torch, card) if 14 in phases
            else {"launches": {}, "serving_launches": {}})
+    p15 = (phase_registry(torch, card) if 15 in phases
+           else {"launches": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -5380,6 +5760,8 @@ def main(argv=None) -> int:
                          moe_launches=int(p14["launches"].get(name, 0)),
                          moe_serving_launches=int(
                              p14["serving_launches"].get(name, 0)),
+                         registry_launches=int(
+                             p15["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -5398,9 +5780,9 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
-        # phases 8, 9, 10 and 14's call forms (launches counted per kernel
-        # above)
-        for p in (p8, p9, p2t, p2m):
+        # phases 8, 9, 10, 14 and 15's call forms (launches counted per
+        # kernel above)
+        for p in (p8, p9, p2t, p2m, p2r):
             for label, vals in p["shapes"].get(name, {}).items():
                 rows[-1].setdefault("shapes", []).append(dict(shape=label,
                                                               **vals))
@@ -5412,6 +5794,8 @@ def main(argv=None) -> int:
         say(card, "tiers " + json.dumps(p13, default=float))
     if 14 in phases:
         say(card, "moe " + json.dumps(p14, default=float))
+    if 15 in phases:
+        say(card, "registry " + json.dumps(p15, default=float))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -147,6 +147,23 @@ class DraftConfig:
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
+# assigned architectures the port does not run yet -> their ROADMAP.md
+# queue 1 item
+NOT_PORTED: Dict[str, str] = {
+    "recurrentgemma-2b": "Griffin",
+    "llama-3.2-vision-90b": "VLM and audio",
+    "whisper-small": "VLM and audio",
+}
+
+
+def roadmap_item(cfg: "ModelConfig") -> str:
+    """The ROADMAP.md queue 1 item that brings an architecture the port
+    refuses: windowed and hybrid stacks come with Griffin, cross
+    attention and encoders with the VLM and audio item."""
+    if cfg.arch_type == "hybrid" or cfg.window_size:
+        return "Griffin"
+    return "VLM and audio"
+
 
 def register(arch_id: str):
     def deco(fn: Callable[[], ModelConfig]):
@@ -157,6 +174,10 @@ def register(arch_id: str):
 
 def get_config(arch_id: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (triggers registration)
+    if arch_id in NOT_PORTED:
+        raise NotImplementedError(
+            f"{arch_id} is not ported yet: ROADMAP.md queue 1, "
+            f"'{NOT_PORTED[arch_id]}'")
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()

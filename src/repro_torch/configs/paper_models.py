@@ -60,3 +60,21 @@ def tiny_dense() -> ModelConfig:
         act="silu",
         rope_theta=10_000.0,
     )
+
+
+@register("target-100m")
+def target_100m() -> ModelConfig:
+    """~100M-param dense model for the end-to-end training example."""
+    return ModelConfig(
+        name="target-100m",
+        arch_type="dense",
+        source="(local 100M trainer)",
+        num_layers=12,
+        d_model=768,
+        num_heads=12,
+        num_kv_heads=4,
+        d_ff=3072,
+        vocab_size=8192,
+        act="silu",
+        rope_theta=10_000.0,
+    )

@@ -117,13 +117,17 @@ def _rope(cfg: ModelConfig, device):
 
 
 def draft_extend(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict,
-                 target_params, cache: Dict, tokens, fused_feats, valid):
+                 target_params, cache: Dict, tokens, fused_feats, valid,
+                 active=None):
     """Append accepted tokens [B, E] (prefix mask ``valid`` [B, E]) to the
-    draft cache, in place.  Returns (cache, h_last [B, d],
-    logits_last [B, V]) at the last valid entry."""
+    draft cache, in place; a row outside ``active`` [B] bool (a dead
+    serving slot) writes nothing and keeps its length.  Returns (cache,
+    h_last [B, d], logits_last [B, V]) at the last valid entry."""
     dev = tokens.device
     mcfg, inv_freq, mscale = _rope(cfg, dev)
     b, e = tokens.shape
+    if active is not None:
+        valid = valid & active[:, None]
     x = _draft_inputs(cfg, dp, target_params["embed"], tokens, fused_feats)
     vi = valid.to(torch.int32)
     nvalid = vi.sum(dim=1, dtype=torch.int32)
@@ -147,19 +151,19 @@ def draft_extend(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict,
 
 def draft_phase(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
                 tree: TreeSpec, cache: Dict, ext_tokens, ext_feats, ext_len,
-                u=None, temps=None):
+                active=None, u=None, temps=None):
     """The draft half of one step: extend the draft cache with the
-    previous step's accepted tokens, then draft a candidate tree from
-    the last valid entry (sampled rows with ``u`` / ``temps``, see
-    ``tree_draft``).  Returns (cache, tree_tokens [B, T], aux): the
-    tree's log-probs [B, T] (greedy) or its node logits [B, T+1, V]
-    (sampled)."""
+    previous step's accepted tokens (rows outside ``active`` [B] bool
+    write nothing), then draft a candidate tree from the last valid
+    entry (sampled rows with ``u`` / ``temps``, see ``tree_draft``).
+    Returns (cache, tree_tokens [B, T], aux): the tree's log-probs
+    [B, T] (greedy) or its node logits [B, T+1, V] (sampled)."""
     emax = ext_tokens.shape[1]
     ext_valid = (torch.arange(emax, device=ext_tokens.device)[None]
                  < ext_len[:, None])
     cache, h_root, logits_root = draft_extend(
         cfg, dcfg, dp, target_params, cache, ext_tokens, ext_feats,
-        ext_valid)
+        ext_valid, active=active)
     tree_tokens, aux = tree_draft(cfg, dcfg, dp, target_params, cache,
                                   tree, h_root, logits_root, u=u,
                                   temps=temps)

@@ -85,7 +85,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DraftConfig, ModelConfig, SpecPVConfig
+from repro_torch.configs.base import (DraftConfig, ModelConfig, SpecPVConfig,
+                                      roadmap_item)
 from repro_torch.core import draft as dr
 from repro_torch.core import sampling as smp
 from repro_torch.core import tree as tr
@@ -268,6 +269,20 @@ class CapturedGraph:
         ops.add_launch_counts(self.launches, self.wkv_shapes)
 
 
+_WARMUP_STREAMS: Dict[Any, Any] = {}
+
+
+def _warmup_stream(device):
+    """The side stream every capture's warm-up runs on, one per device:
+    cuBLAS keeps a workspace (32 MiB on the H100) for each stream it ever
+    ran on until the process ends, so a new stream per capture would
+    hold 32 MiB more after each one."""
+    key = torch.device(device)
+    if key not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[key] = torch.cuda.Stream(key)
+    return _WARMUP_STREAMS[key]
+
+
 def capture_graph(body, device, static: List[torch.Tensor],
                   pool) -> CapturedGraph:
     """Capture ``body`` as a CUDA graph in the memory pool ``pool``.  A
@@ -283,7 +298,7 @@ def capture_graph(body, device, static: List[torch.Tensor],
     counts = ops.launch_counts()
     cur = torch.cuda.current_stream(device)
     saved = [(t, t.clone()) for t in static]
-    side = torch.cuda.Stream(device)
+    side = _warmup_stream(device)
     side.wait_stream(cur)
     with torch.cuda.stream(side):
         body()
@@ -358,7 +373,7 @@ class SpecPVEngine:
         full prefill chunk replay a CUDA graph unless ``cuda_graphs`` is
         False; the CPU runs them eagerly."""
         if cfg.arch_type not in ("dense", "moe", "ssm"):
-            _unsupported(f"arch {cfg.arch_type!r}", "Other architectures")
+            _unsupported(f"arch {cfg.arch_type!r}", roadmap_item(cfg))
         self.is_attn = cfg.is_attention_arch
         if not self.is_attn and paged:
             raise ValueError("paged KV is attention-only (state archs keep "
@@ -1177,7 +1192,7 @@ class SpecPVEngine:
         self._own(st)
         if extra is not None:
             _unsupported("per-request conditioning (extra)",
-                         "Other architectures")
+                         "VLM and audio")
         if draft not in ("tree", "chain"):
             raise ValueError(f"draft must be 'tree' or 'chain', not {draft!r}")
         knobs = dict(temperature=(self.temperature if temperature is None
@@ -1872,12 +1887,15 @@ class SpecPVEngine:
         pool, its summaries and the draft pool written in place, the
         other fields new tensors) and (tokens, counts, accept_len).
 
-        Every row computes; a row outside ``active`` commits nothing (its
-        cache and buffer writes get count 0, so its lengths stay) and
-        keeps every row field, so the next state equals the reference's
-        step followed by its row merge.  Its pool writes land at or past
-        its length (on the null page for a neutral row), where its next
-        real step writes before anything reads."""
+        Every row computes; a row outside ``active`` is masked as in the
+        reference (its draft extension writes nothing, its verify input
+        has no valid pending token or query and an all-False self mask,
+        so an MoE routes the reference's hidden states for it), commits
+        nothing (its cache and buffer writes get count 0, so its lengths
+        stay) and keeps every row field, so the next state equals the
+        reference's step followed by its row merge.  Its pool writes land
+        at or past its length (on the null page for a neutral row), where
+        its next real step writes before anything reads."""
         cfg, spec, tree = self.cfg, self.spec, self.tree
         b, dev = self.batch, self.device
         act = (active if active is not None
@@ -1887,7 +1905,7 @@ class SpecPVEngine:
             keys, u_draft, u_acc = self._draws(st, act)
         dcache, tree_tokens, aux = dr.draft_phase(
             cfg, self.dcfg, self.dparams, self.params, tree, st.dcache,
-            st.ext_tokens, st.ext_feats, st.ext_len, u=u_draft,
+            st.ext_tokens, st.ext_feats, st.ext_len, active=act, u=u_draft,
             temps=st.temps if has_sampled else None)
         node_valid = None
         if has_chain:
@@ -1911,7 +1929,8 @@ class SpecPVEngine:
             plen_in = ones
             p_eff = ones
         vin = vf.build_verify_inputs_fused(tree, pend_in, plen_in, p_eff,
-                                           tree_tokens, st.seq_len)
+                                           tree_tokens, st.seq_len,
+                                           active=act)
         decode_kind = ("fused" if has_full and has_partial
                        else ("full" if has_full else "partial"))
         pkv = (st.pkv_k, st.pkv_v, st.pkv_pos)
@@ -2012,7 +2031,8 @@ class SpecPVEngine:
             pending, pending_len = pending_f, ones
         ext_tokens = newtoks
         if active is not None:
-            # inactive rows keep their automaton and their draft length
+            # inactive rows keep their automaton (their draft length stays:
+            # their extension was masked)
             def keep(new, old):
                 return kvc.select_rows(active, new, old, 0)
             pending, pending_len = (keep(pending, st.pending),
@@ -2021,8 +2041,6 @@ class SpecPVEngine:
             ext_tokens = keep(newtoks, st.ext_tokens)
             ext_feats = keep(ext_feats, st.ext_feats)
             ext_len = keep(ext_len, st.ext_len)
-            dcache = dict(dcache, length=keep(dcache["length"],
-                                              st.dcache["length"]))
         st2 = EngineState(
             cache=cache, dcache=dcache, pkv_k=pkv_k, pkv_v=pkv_v,
             pkv_pos=pkv_pos, buf_len=buf_len, pending=pending,
@@ -2031,29 +2049,34 @@ class SpecPVEngine:
             pkv_body_k=body_k, pkv_body_v=body_v, keys=keys, temps=st.temps)
         return st2, (newtoks, acc + 1, acc)
 
-    def _step_state(self, st: EngineState) -> Tuple[EngineState, Tuple]:
+    def _step_state(self, st: EngineState, active=None
+                    ) -> Tuple[EngineState, Tuple]:
         """One chain step of a state arch: draft a chain, verify it with a
         read-only pass over [pending token | chain], accept (greedily: the
         longest matching prefix; at the engine's temperature > 0 by
         rejection, with a draft sampled from the rows' streams), then
         advance the recurrent state over the pending token and the
         accepted tokens (``valid`` = 1 + accepted; the padded tail leaves
-        the state as it was)."""
+        the state as it was).  ``active`` [B] bool masks the draft, the
+        verify input and the advance as the reference's does; a state
+        arch steps lock-step, so the body passes None (every row)."""
         cfg, tree = self.cfg, self.tree
         b, dev = self.batch, self.device
         keys, u_draft, u_acc = st.keys, None, None
         sampled = self.temperature > 0.0
         if sampled:
             keys, u_draft, u_acc = self._draws(
-                st, torch.ones((b,), dtype=torch.bool, device=dev))
+                st, active if active is not None
+                else torch.ones((b,), dtype=torch.bool, device=dev))
         dcache, tree_tokens, aux = dr.draft_phase(
             cfg, self.dcfg, self.dparams, self.params, tree, st.dcache,
-            st.ext_tokens, st.ext_feats, st.ext_len, u=u_draft,
-            temps=st.temps if sampled else None)
+            st.ext_tokens, st.ext_feats, st.ext_len, active=active,
+            u=u_draft, temps=st.temps if sampled else None)
         pend_in = st.pending[:, :1]
         ones = torch.ones((b,), dtype=torch.long, device=dev)
         vin = vf.build_verify_inputs_fused(tree, pend_in, ones, ones,
-                                           tree_tokens, st.seq_len)
+                                           tree_tokens, st.seq_len,
+                                           active=active)
         out = api.decode(cfg, self.params, vin["tokens"], vin["positions"],
                          st.cache, self_mask=vin["self_mask"],
                          spec=self.spec)
@@ -2068,6 +2091,8 @@ class SpecPVEngine:
         adv_toks = torch.cat([pend_in, path_toks], dim=1)
         adv_valid = (torch.arange(1 + tree.depth, device=dev)[None]
                      < (1 + acc)[:, None])
+        if active is not None:
+            adv_valid = adv_valid & active[:, None]
         cache = api.advance(cfg, self.params, adv_toks, st.cache, adv_valid)
         pending = torch.zeros_like(st.pending)
         pending[:, 0] = bonus

@@ -26,9 +26,11 @@ from repro_torch.kvcache.cache import (contiguous_update_all_summaries,
 
 
 def build_verify_inputs_fused(tree: TreeSpec, pending, pending_len, p_eff,
-                              tree_tokens, seq_len):
+                              tree_tokens, seq_len, active=None):
     """pending [B, P]; pending_len [B] (<= p_eff); p_eff [B] in {1, P};
-    tree_tokens [B, T]; seq_len [B].  Returns dict(tokens, positions
+    tree_tokens [B, T]; seq_len [B]; active: optional [B] bool (a dead
+    serving slot gets an all-False self mask, no valid pending and no
+    valid query, as in the reference).  Returns dict(tokens, positions
     [B, S], self_mask [B, S, S], q_valid, root_slot [B], node_slots
     [B, T], pend_valid [B, P])."""
     b, p = pending.shape
@@ -47,6 +49,8 @@ def build_verify_inputs_fused(tree: TreeSpec, pending, pending_len, p_eff,
     tokens = torch.where(pend_q, pend_pad,
                          torch.where(tree_q, tree_g.to(pend_pad.dtype), zero))
     pend_valid_w = pend_q & (sidx < pending_len.long()[:, None])
+    if active is not None:
+        pend_valid_w = pend_valid_w & active[:, None]
     tt = tree_tensors(tree, dev)
     depths, anc = tt.depths, tt.anc
     pend_pos = seq_len.long()[:, None] - pending_len.long()[:, None] + sidx
@@ -62,8 +66,12 @@ def build_verify_inputs_fused(tree: TreeSpec, pending, pending_len, p_eff,
     m_tp = tree_q[:, :, None] & pend_valid_w[:, None, :]
     m_tt = tree_q[:, :, None] & tree_q[:, None, :] & anc_qk
     m = m_pp | m_tp | m_tt
+    q_valid = pend_valid_w | tree_q
+    if active is not None:
+        m = m & active[:, None, None]
+        q_valid = q_valid & active[:, None]
     return dict(tokens=tokens, positions=positions, self_mask=m,
-                q_valid=pend_valid_w | tree_q,
+                q_valid=q_valid,
                 root_slot=pending_len.long() - 1,
                 node_slots=p_eff + torch.arange(t, device=dev)[None],
                 pend_valid=pend_valid_w[:, :p])

@@ -26,10 +26,15 @@
 // The design.
 //   - The grid is (block tile of 32, row slice of 64, B*Hk): 3 x 10 x 8 =
 //     240 CTAs of 128 threads at T = 156, NB = 66.
-//   - Each CTA stages its q slice once, converted to fp32: a slice of 64
-//     rows is 64/rep whole tokens (rep must be a power of two dividing
-//     64), and row i is token (r0+i) >> log2(rep), head hk*rep + (i & (rep-1)),
-//     so every 16-byte vector is one load with no per-element div/mod.  It
+//   - Each CTA stages its q slice once, converted to fp32: slice row i is
+//     token (r0+i) / rep, head hk*rep + (r0+i) % rep, for any rep = H/Hk
+//     from 1 to 64 (qwen2-0.5b's 14/2 heads give rep 7, MHA rep 1).  A
+//     slice of 64 rows then holds whole tokens only when rep divides 64;
+//     otherwise a token's rows straddle two slices, which changes nothing
+//     (each row carries its token's weight; the slices' sums meet in the
+//     merge below).  One integer division per staged 16-byte vector: the
+//     staging is not the bound.  For a power of two the mapping, and so
+//     every sum and its order, is that of the earlier shift form.  It
 //     stages its kmax/kmin tile once too.  fp32 data goes to shared memory
 //     by cp.async; bf16 q is loaded into registers (all of a thread's 8
 //     vectors in flight at once) and widened.  Rows are padded to Dh + 4
@@ -82,29 +87,28 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
 }
 
 // Stage the q slice into qs [kRows][DH + kPad] in fp32.  Slice row i is
-// token (r0 + i) >> lrep, head hk*rep + (i & (rep - 1)); rows past nrows
+// token (r0 + i) / rep, head hk*rep + (r0 + i) % rep; rows past nrows
 // are zero.  fp32 goes straight to shared memory with cp.async; bf16 is
 // loaded as 16-byte vectors, all of a thread's loads issued before any is
 // widened.
 template <int DH>
 __device__ __forceinline__ void stage_q(float* qs, const float* q, size_t qrow0,
                                         int h, int kh, int r0, int nrows,
-                                        int lrep) {
+                                        int rep) {
   constexpr int kV = DH / 4;                       // vectors per row
   for (int e = threadIdx.x; e < kRows * kV; e += kThreads) {
     const int i = e / kV, c = e % kV;
     const int rg = r0 + i;
     const bool ok = rg < nrows;
-    const size_t row = ok ? (qrow0 + (rg >> lrep)) * h + (kh << lrep) +
-                                (rg & ((1 << lrep) - 1))
-                          : 0;
+    const size_t row =
+        ok ? (qrow0 + rg / rep) * h + kh * rep + rg % rep : 0;
     cp_async16(qs + i * (DH + kPad) + 4 * c, q + row * DH + 4 * c, ok);
   }
 }
 template <int DH>
 __device__ __forceinline__ void stage_q(float* qs, const __nv_bfloat16* q,
                                         size_t qrow0, int h, int kh, int r0,
-                                        int nrows, int lrep) {
+                                        int nrows, int rep) {
   constexpr int kV = DH / 8;                       // vectors per row
   constexpr int kPer = kRows * kV / kThreads;      // vectors per thread
   static_assert(kRows * kV % kThreads == 0, "layout");
@@ -116,8 +120,7 @@ __device__ __forceinline__ void stage_q(float* qs, const __nv_bfloat16* q,
     const int rg = r0 + i;
     raw[m] = make_uint4(0u, 0u, 0u, 0u);
     if (rg < nrows) {
-      const size_t row = (qrow0 + (rg >> lrep)) * h + (kh << lrep) +
-                         (rg & ((1 << lrep) - 1));
+      const size_t row = (qrow0 + rg / rep) * h + kh * rep + rg % rep;
       raw[m] = __ldg(reinterpret_cast<const uint4*>(q + row * DH + 8 * c));
     }
   }
@@ -152,7 +155,7 @@ retrieval_score_kernel(const T* __restrict__ q, const float* __restrict__ kmax,
                        const float* __restrict__ kmin,
                        const float* __restrict__ qw, float* __restrict__ out,
                        float* __restrict__ part, int* __restrict__ counters,
-                       int t_len, int h, int hk, int nb, int lrep) {
+                       int t_len, int h, int hk, int nb, int rep) {
   constexpr int kLd = DH + kPad;
   extern __shared__ float4 smem4[];
   float* const qs = reinterpret_cast<float*>(smem4);   // [kRows][kLd]
@@ -166,8 +169,7 @@ retrieval_score_kernel(const T* __restrict__ q, const float* __restrict__ kmax,
   const int slice = blockIdx.y;
   const int kh = blockIdx.z % hk;
   const int b = blockIdx.z / hk;
-  const int rep = 1 << lrep;
-  const int nrows = t_len << lrep;
+  const int nrows = t_len * rep;
   const int r0 = slice * kRows;
   const int n0 = tile * kBlocks;
   const int tid = threadIdx.x;
@@ -183,11 +185,11 @@ retrieval_score_kernel(const T* __restrict__ q, const float* __restrict__ kmax,
     cp_async16((m ? kn : kx) + blk * kLd + 4 * c, (m ? kmin : kmax) + off, ok);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  stage_q<DH>(qs, q, (size_t)b * t_len, h, kh, r0, nrows, lrep);
+  stage_q<DH>(qs, q, (size_t)b * t_len, h, kh, r0, nrows, rep);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   if (tid < kRows) {
     const int rg = r0 + tid;
-    ws[tid] = rg < nrows ? qw[(size_t)b * t_len + (rg >> lrep)] : 0.f;
+    ws[tid] = rg < nrows ? qw[(size_t)b * t_len + rg / rep] : 0.f;
   }
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
@@ -289,13 +291,12 @@ int launch(const void* q, const float* kmax, const float* kmin,
            const float* qw, float* out, float* part, int* counters, int b,
            int t, int h, int hk, int nb, int tiles, int slices,
            cudaStream_t s) {
-  if (hk < 1 || h < hk) return -1;
-  int lrep = 0;
-  while ((hk << lrep) < h) ++lrep;
-  if ((hk << lrep) != h || (1 << lrep) > kRows) return -1;
+  if (hk < 1 || h < hk || h % hk) return -1;
+  const int rep = h / hk;
+  if (rep > kRows) return -1;
   // the wrapper sized part and counters for this grid: it must be ours
   if (tiles != (nb + kBlocks - 1) / kBlocks ||
-      slices != (t > 0 ? ((t << lrep) + kRows - 1) / kRows : 1))
+      slices != (t > 0 ? (t * rep + kRows - 1) / kRows : 1))
     return -1;
   if ((long long)b * hk > 65535 || slices > 65535) return -1;
   if (part == nullptr || counters == nullptr) return -1;
@@ -306,7 +307,7 @@ int launch(const void* q, const float* kmax, const float* kmin,
   if (attr != cudaSuccess) return (int)attr;
   dim3 grid(tiles, slices, b * hk);
   kern<<<grid, kThreads, smem, s>>>(static_cast<const T*>(q), kmax, kmin, qw,
-                                    out, part, counters, t, h, hk, nb, lrep);
+                                    out, part, counters, t, h, hk, nb, rep);
   return (int)cudaGetLastError();
 }
 
@@ -330,9 +331,9 @@ int launch(int dh, const void* q, const float* kmax, const float* kmin,
 // slices = ceil(rep*T / 64) are the grid the wrapper sized its buffers
 // for; part: fp32 scratch of B * Hk * slices * NB floats and counters:
 // B * Hk * tiles int32 zeros.  Returns 0, a cudaError_t, or -1 for an
-// unsupported shape (head dim other than 64 or 128, rep not a power of two up
-// to 64), a grid other than the kernel's, a null buffer or a dtype other
-// than these.
+// unsupported shape (head dim other than 64 or 128, H not a multiple of
+// Hk, rep = H/Hk over 64), a grid other than the kernel's, a null buffer or
+// a dtype other than these.
 extern "C" int retrieval_score_launch(const void* q, const float* kmax,
                                       const float* kmin, const float* qw,
                                       float* out, float* part, int* counters,

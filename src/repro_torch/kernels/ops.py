@@ -363,7 +363,9 @@ SCORE_BLOCKS = 32      # blocks per CTA of K3 (retrieval_score.cu kBlocks)
 
 def score_grid(b: int, t: int, h: int, hk: int, nb: int):
     """K3's grid: (block tiles, row slices, B * Hk), where a slice is
-    ``SCORE_ROWS`` of a head's ``rep * T`` query rows and a tile
+    ``SCORE_ROWS`` of a KV head's ``rep * T`` query rows (token-major, so
+    with a ``rep`` that does not divide 64 a token may straddle two
+    slices) and a tile
     ``SCORE_BLOCKS`` blocks.  Each CTA leaves a partial per (slice, block)
     and the last CTA of each tile sums them.  The wrapper sizes its
     scratch and counters from this grid and passes it to the kernel, which
@@ -398,9 +400,9 @@ def retrieval_scores(q, kmax, kmin, q_weight):
         raise ValueError(f"head dim {dh}: the kernels are built for "
                          f"{' and '.join(map(str, HEAD_DIMS))}")
     rep = h // hk
-    if rep & (rep - 1) or rep > SCORE_ROWS:
+    if rep > SCORE_ROWS:
         raise ValueError(f"{rep} query heads per KV head: the kernel takes "
-                         f"a power of two up to {SCORE_ROWS}")
+                         f"up to {SCORE_ROWS}")
     from repro_torch.kernels.build import load_library
     lib = load_library()
     out = torch.empty((b, hk, nb), dtype=torch.float32, device=dev)

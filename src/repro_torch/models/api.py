@@ -6,7 +6,7 @@ and MoE attention and RWKV-6 state architectures):
   prefill(cfg, params, tokens, cache, ...)     -> (logits_last, features, cache)
   decode(cfg, params, tokens, positions, cache, ...) -> DecodeOut
   advance(cfg, params, tokens, cache, valid)   -> cache   (ssm)
-  train_loss(cfg, params, tokens)              -> (loss, metrics)  (dense, MoE)
+  train_loss(cfg, params, tokens)              -> (loss, metrics)
 
 Attention archs expose the SpecPV verification modes through
 ``decode(mode=...)``; the state arch does read-only chain verification
@@ -220,21 +220,25 @@ def chunked_lm_loss(cfg: ModelConfig, params, h, labels, *,
 
 
 def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
-    """Next-token LM loss over a [B, S] token batch (dense and MoE
-    targets): the trunk's train mode, then ``chunked_lm_loss``.  Returns
+    """Next-token LM loss over a [B, S] token batch.  Dense and MoE
+    targets: the trunk's train mode, then ``chunked_lm_loss``; returns
     (``lm + moe_aux_loss_coef * aux``, {"lm_loss", "aux_loss"}), the aux
-    loss summed over the MoE layers (0 for a dense target)."""
-    if cfg.arch_type in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the port trains dense and MoE targets; the "
-            f"{cfg.arch_type} train_loss comes with ROADMAP.md queue 1")
+    loss summed over the MoE layers (0 for a dense target).  RWKV-6: a
+    read-only forward from the zero state (under autograd its WKV
+    recurrence is the plain chunked step loop, ``rwkv6.wkv_train``), then
+    ``chunked_lm_loss``; returns (loss, {"lm_loss"})."""
     if extra:
         raise NotImplementedError("VLM and audio inputs come with "
-                                  "ROADMAP.md queue 1, 'Other "
-                                  "architectures'")
-    dn._check_dense(cfg)
+                                  "ROADMAP.md queue 1, 'VLM and audio'")
     b, s = tokens.shape
     inp, lbl = tokens[:, :-1], tokens[:, 1:]
+    if cfg.arch_type == "ssm":
+        state = rw.init_state(cfg, b, cm.dt(cfg.dtype), tokens.device)
+        h, _, _ = rw.forward(cfg, params, inp, state, update=False,
+                             collect_features=False)
+        loss = chunked_lm_loss(cfg, params, h, lbl)
+        return loss, {"lm_loss": loss}
+    dn._check_dense(cfg)
     positions = torch.arange(s - 1, device=tokens.device)[None].expand(
         b, s - 1)
     h = dn.embed_tokens(cfg, params, inp)

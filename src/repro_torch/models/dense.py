@@ -45,7 +45,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ModelConfig, SpecPVConfig
+from repro_torch.configs.base import ModelConfig, SpecPVConfig, roadmap_item
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as bk
 from repro_torch.models import common as cm
@@ -59,9 +59,8 @@ def _check_dense(cfg: ModelConfig) -> None:
              or (cfg.arch_type == "moe" and cfg.num_experts > 0))
     if not stack or cfg.window_size:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense and MoE GQA stacks; "
-            "windowed, state and cross-attention architectures come with "
-            "ROADMAP.md queue 1, 'Other architectures'")
+            f"{cfg.name}: the port runs dense and MoE GQA stacks here; "
+            f"this one comes with ROADMAP.md queue 1, '{roadmap_item(cfg)}'")
 
 
 def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:

@@ -5,7 +5,11 @@ Per layer: time mixing (ddlerp token shift, the per-channel decaying WKV
 recurrence, per-head groupnorm, silu gate) and channel mixing (squared
 relu MLP with token shift).  The WKV recurrence goes through the WKV
 kernel (K5, ``kernels.ops.wkv``); the reference runs it as a
-``lax.scan``, which computes the same function.
+``lax.scan``, which computes the same function.  K5 has no backward, and
+the reference trains through its plain scan, not its Pallas kernel: so
+under autograd (``train_loss``) the recurrence is the plain step loop in
+chunks of 256 steps, each recomputed in the backward pass
+(``wkv_train``, the reference's ``ckpt_chunked_scan``).
 
 SpecPV on a state architecture: there is no KV cache, so partial
 verification does not apply.  A drafted chain is verified by a
@@ -26,6 +30,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -131,6 +136,41 @@ def _shift_state(x, ts, last_idx):
     return torch.where(last_idx[:, None] >= 0, at_last, ts)
 
 
+WKV_TRAIN_CHUNK = 256   # steps per recomputed segment (ckpt_chunked_scan)
+
+
+def _wkv_segment(r, k, v, w, u, s):
+    """The plain recurrence over one segment, out of place: r/k/v/w
+    [B, T, H, dk] fp32, u [H, dk], s [B, H, dk, dk] fp32.  Returns
+    (y [B, T, H, dk], s)."""
+    uu = u[None, :, :, None]
+    ys = []
+    for t in range(r.shape[1]):
+        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], s + uu * kv))
+        s = w[:, t, :, :, None] * s + kv
+    return torch.stack(ys, dim=1), s
+
+
+def wkv_train(r, k, v, w, u, s0, chunk: int = WKV_TRAIN_CHUNK):
+    """The WKV recurrence under autograd, every step valid: the plain
+    step loop in segments of ``chunk`` steps, each under
+    ``torch.utils.checkpoint`` (its steps recomputed in the backward
+    pass, so O(T/chunk + chunk) states stay live), with the state in
+    fp32 and no in-place writes.  The counterpart of the reference's
+    training scan (``ckpt_chunked_scan`` in ``_time_mix``), not of K5.
+    Returns (y [B, T, H, dk], s [B, H, dk, dk])."""
+    s = s0.float()
+    ys = []
+    for c0 in range(0, r.shape[1], chunk):
+        sl = slice(c0, c0 + chunk)
+        y, s = torch.utils.checkpoint.checkpoint(
+            _wkv_segment, r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, s,
+            use_reentrant=False)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s
+
+
 def _time_mix(cfg: ModelConfig, lp, x, ts, wkv, n_valid, last_idx,
               update: bool):
     """x: [B, T, d]; ts: [B, d] previous-token state; wkv: [B, H, dk, dk]
@@ -151,10 +191,15 @@ def _time_mix(cfg: ModelConfig, lp, x, ts, wkv, n_valid, last_idx,
     dec = torch.tanh(xw @ lp["wd_A"].to(xd)) @ lp["wd_B"].to(xd)
     wlog = lp["w0"][None, None] + dec.reshape(b, t, h, dk).float()
     w = torch.exp(-torch.exp(wlog))
-    y, wkv_new = ops.wkv(r.float().contiguous(), k.float().contiguous(),
-                         v.float().contiguous(), w.contiguous(),
-                         lp["u"].float().contiguous(), wkv, n_valid,
-                         update=update)
+    if torch.is_grad_enabled() and w.requires_grad:
+        # training: every step is valid and the state is read-only
+        y, wkv_new = wkv_train(r.float(), k.float(), v.float(), w,
+                               lp["u"].float(), wkv)
+    else:
+        y, wkv_new = ops.wkv(r.float().contiguous(), k.float().contiguous(),
+                             v.float().contiguous(), w.contiguous(),
+                             lp["u"].float().contiguous(), wkv, n_valid,
+                             update=update)
     y = cm.groupnorm_heads(y, lp["gn_scale"], lp["gn_bias"])
     y = (y.reshape(b, t, d).to(xd) * g) @ lp["wo"].to(xd)
     return y, _shift_state(x, ts, last_idx), wkv_new

@@ -1815,6 +1815,14 @@ def test_cuda_moe_partial_step_graph_launches_eager_body(cuda, models):
     step launches on the card the kernels an eager Partial step launches,
     name for name (copies and sets aside); graph ``generate`` equals
     eager ``generate`` (tokens, modes, K1-K4 launches)."""
+    _graph_step_launches(models, MOE, seed=14)
+
+
+def _graph_step_launches(models, name, seed):
+    """``name`` cut to 2 layers at full width on the paged zero-copy pool,
+    eager and with graphs: equal tokens, modes and K1-K4 launches; the
+    eager Partial body under the sync check; the kernels of one replayed
+    Partial step equal an eager one's, name for name."""
     from collections import Counter
 
     import numpy as np
@@ -1822,9 +1830,9 @@ def test_cuda_moe_partial_step_graph_launches_eager_body(cuda, models):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import (MODE_IDS, SpecPVEngine,
                                          request_token_need)
-    cfg, spec, dcfg, params, dparams = _get_model(models, MOE)
+    cfg, spec, dcfg, params, dparams = _get_model(models, name)
     prompt_len, new = 35 * 128 - 6, 24
-    prompt = np.random.default_rng(14).integers(
+    prompt = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, prompt_len)).astype(np.int64)
     max_len = request_token_need(prompt_len, new, spec.buffer_size,
                                  dcfg.tree_depth + 1)
@@ -1945,3 +1953,389 @@ def test_cuda_scores_and_summaries_granite_heads(cuda):
     assert tops.LAUNCHES["block_summary"] == before + 1
     assert torch.equal(got4, want4) and float(got4.abs().sum()) > 0
     assert float(got4[:, :, 0].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the rest of the dense registry: head groups of 1 and 7 query heads per
+# KV head (deepseek-7b and qwen1.5-32b MHA, qwen2-0.5b 14/2)
+# ---------------------------------------------------------------------------
+
+HEAD_GROUPS = {"rep7": (14, 2, 64), "rep1": (32, 32, 128),
+               "rep1-h40": (40, 40, 128)}
+ATTN_FORMS = ("full", "refresh", "routed", "contiguous", "gathered",
+              "prefill", "contiguous_prefill", "ragged")
+
+
+def _group_attention(dev, dtype, h, hk, dh, form, seed):
+    """One call of a K1/K2 call form at heads (H, Hk, Dh), block 128,
+    batch 2 (4 ragged rows for ``ragged``), and the plain version of the
+    same launch: returns (got partials, want partials)."""
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.models import dense as dn
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    bs, b, nbt = 128, 2, 17
+    t = {"refresh": 156, "prefill": 256, "contiguous_prefill": 256,
+         "ragged": 256}.get(form, 61)
+    rows = 4 if form == "ragged" else b
+    npg = rows * nbt + 3
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    q = rnd(rows, t, h, dh)
+    pk, pv = rnd(npg, bs, hk, dh), rnd(npg, bs, hk, dh)
+    kf, vf = tops._flat_pool(pk), tops._flat_pool(pv)
+    pt = (torch.randperm(npg - 1, generator=g, device=dev)[: rows * nbt]
+          + 1).to(torch.int32).view(rows, nbt).contiguous()
+
+    def i32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+    if form in ("full", "refresh"):
+        length = i32(nbt * bs - 77, 900)
+        got = tops.paged_verify_attention(q, pk, pv, pt, length)
+        idx, vlen = tops._page_walk(pt, length, pk.shape)
+        return got, tref.block_attention_batched(q, kf, vf, idx, vlen, bs)
+    if form in ("routed", "gathered"):
+        ns = 12
+        pbi = torch.stack([torch.stack([
+            torch.randperm(nbt, generator=g, device=dev)[:ns]
+            for _ in range(hk)]) for _ in range(b)]).to(torch.int32)
+        pbi[..., -2:] = -1
+        length = i32(nbt * bs - 50, nbt * bs)
+        vlen = dn._selected_vlen(pbi, length, bs).to(torch.int32)
+        if form == "routed":
+            idx = torch.gather(pt.long()[:, None].expand(b, hk, nbt), 2,
+                               pbi.clamp(min=0).long())
+            idx = torch.where(vlen > 0, idx, 0).to(torch.int32).contiguous()
+            got = tops.routed_partial_attention(q, pk, pv, idx, vlen)
+            return got, tref.block_attention_batched(q, kf, vf, idx, vlen,
+                                                     bs)
+        body_k, body_v = dn.gather_partial_body(
+            SpecPVConfig(block_size=bs), pbi[None], pk[None], pv[None], pt)
+        bk_, bv_ = (x[0].reshape(b * ns, bs, hk, dh) for x in (body_k,
+                                                               body_v))
+        idx = (torch.arange(b, device=dev)[:, None, None] * ns
+               + torch.arange(ns, device=dev)).expand(b, hk, ns)
+        idx = idx.to(torch.int32).contiguous()
+        got = tops.routed_partial_attention(q, bk_, bv_, idx, vlen)
+        return got, tref.block_attention_batched(
+            q, tops._flat_pool(bk_), tops._flat_pool(bv_), idx, vlen, bs)
+    if form == "contiguous":
+        k, v = _contiguous_kv(dev, dtype, 1, b, 2000, seed + 1, hk=hk,
+                              dh=dh)
+        length = i32(1999, 700)
+        got = tops.contiguous_verify_attention(q, k[0], v[0], length, bs)
+        ckf, s_alloc = tops.flat_blocks(k[0])
+        cvf, _ = tops.flat_blocks(v[0])
+        idx, vlen = tops._identity_walk(b, hk, s_alloc // bs, length, 2000,
+                                        bs)
+        return got, tref.block_attention_batched(q, ckf, cvf, idx, vlen, bs)
+    if form == "contiguous_prefill":
+        k, v = _contiguous_kv(dev, dtype, 1, b, 2000, seed + 1, hk=hk,
+                              dh=dh)
+        ckf, s_alloc = tops.flat_blocks(k[0])
+        cvf, _ = tops.flat_blocks(v[0])
+        length, tv = i32(1536, 0), i32(256, 200)
+        idx, vlen = tops._identity_walk(b, hk, s_alloc // bs, length + tv,
+                                        2000, bs)
+        got = tops.block_attention(q, ckf, cvf, idx, vlen, bs,
+                                   q_offset=length)
+        return got, tref.block_attention_batched(q, ckf, cvf, idx, vlen, bs,
+                                                 q_offset=length)
+    if form == "prefill":
+        length, tv = i32(nbt * bs - 256 - 61, 700), i32(256, 256)
+    else:                                  # ragged: a fused round's rows
+        length, tv = i32(1900, 48, 0, 1000), i32(256, 16, 200, 1)
+    idx, vlen = tops._page_walk(pt, length + tv, pk.shape)
+    got = tops.block_attention(q, kf, vf, idx, vlen, bs, q_offset=length)
+    return got, tref.block_attention_batched(q, kf, vf, idx, vlen, bs,
+                                             q_offset=length)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("form", ATTN_FORMS)
+@pytest.mark.parametrize("group", sorted(HEAD_GROUPS))
+def test_cuda_attention_call_forms_at_head_groups(cuda, group, form, dtype):
+    """Every K1/K2 call form (paged Full T=61 and Refresh T=156, routed
+    zero-copy Partial, the contiguous identity list, the gathered body,
+    the causal paged and contiguous prefill T=256, a ragged four-row
+    fused round) at 7 query heads per KV head (qwen2-0.5b: 14/2, Dh 64:
+    a 64-row tile straddles two query heads when T is not a multiple of
+    64) and at 1 (deepseek-7b 32/32 and qwen1.5-32b 40/40, Dh 128:
+    split-KV with 32 and 40 KV heads in the grid) against the plain
+    version of the same launch; a second call gives the same bits."""
+    h, hk, dh = HEAD_GROUPS[group]
+    seed = 50 + ATTN_FORMS.index(form)
+    got, want = _group_attention(cuda, TDT[dtype], h, hk, dh, form, seed)
+    torch.cuda.synchronize()
+    _assert_partials_close(got, want)
+    again, _ = _group_attention(cuda, TDT[dtype], h, hk, dh, form, seed)
+    for a, c in zip(got, again):
+        assert torch.equal(a, c)
+
+
+def _score_case(dev, dtype, b, t, h, hk, dh, nb, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.randn((b, t, h, dh), generator=g, device=dev).to(dtype)
+    kmax = torch.randn((b, nb, hk, dh), generator=g, device=dev).abs()
+    kmin = -torch.randn((b, nb, hk, dh), generator=g, device=dev).abs()
+    qw = (torch.rand((b, t), generator=g, device=dev) > 0.3).float()
+    qw[:, 0] = 1.0
+    return q, kmax, kmin, qw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b, t, h, hk, dh, nb", [
+    (1, 156, 14, 2, 64, 66),       # qwen2-0.5b Refresh: rep 7
+    (2, 61, 14, 2, 64, 40),
+    (1, 9, 21, 1, 64, 5),          # rep 21: one token spans two slices
+    (1, 156, 32, 32, 128, 66),     # deepseek-7b: rep 1
+    (1, 156, 40, 40, 128, 17),     # qwen1.5-32b: rep 1
+    (2, 5, 64, 1, 64, 33),         # rep 64, the largest
+    (1, 156, 32, 8, 128, 66),      # llama3.1-8b: rep 4
+])
+def test_cuda_retrieval_scores_any_rep(cuda, dtype, b, t, h, hk, dh, nb):
+    """K3 at any head group from 1 to 64 (qwen2-0.5b's 7, MHA's 1, 21
+    and 64) against the plain version, one launch per call, two calls
+    bit-equal; a group over 64 raises."""
+    q, kmax, kmin, qw = _score_case(cuda, TDT[dtype], b, t, h, hk, dh, nb,
+                                    60 + h + t)
+    before = tops.LAUNCHES["retrieval_score"]
+    got = tops.retrieval_scores(q, kmax, kmin, qw)
+    again = tops.retrieval_scores(q, kmax, kmin, qw)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["retrieval_score"] == before + 2
+    assert torch.equal(got, again)
+    _assert_close(got, tref.retrieval_score_batched(q, kmax, kmin, qw))
+
+
+@pytest.mark.cuda
+def test_cuda_retrieval_scores_refuse_rep_over_64(cuda):
+    q, kmax, kmin, qw = _score_case(cuda, torch.bfloat16, 1, 4, 65, 1, 64,
+                                    3, 61)
+    with pytest.raises(ValueError, match="up to 64"):
+        tops.retrieval_scores(q, kmax, kmin, qw)
+
+
+# the index arithmetic of K3 before it took any head group: a power of
+# two only, rows mapped by shifts and masks
+_K3_SHIFT_FORM = [
+    ("    ok ? (qrow0 + rg / rep) * h + kh * rep + rg % rep : 0;",
+     "    ok ? (qrow0 + (rg >> (__ffs(rep) - 1))) * h"
+     " + (kh << (__ffs(rep) - 1)) + (rg & (rep - 1)) : 0;"),
+    ("      const size_t row = (qrow0 + rg / rep) * h + kh * rep + rg % rep;",
+     "      const size_t row = (qrow0 + (rg >> (__ffs(rep) - 1))) * h"
+     " + (kh << (__ffs(rep) - 1)) + (rg & (rep - 1));"),
+    ("qw[(size_t)b * t_len + rg / rep]",
+     "qw[(size_t)b * t_len + (rg >> (__ffs(rep) - 1))]"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+def test_cuda_retrieval_scores_power_of_two_bits_unchanged(cuda, rep):
+    """At a power-of-two head group K3 gives the bits of its earlier
+    shift-and-mask row mapping: the kernel built with that index
+    arithmetic (``tools/kernel_variants.py``) and the library's agree bit
+    for bit, in both dtypes, at a Refresh over 66 blocks."""
+    import ctypes
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import kernel_variants as kv
+    from repro_torch.kernels.build import load_library
+    P, I = ctypes.c_void_p, ctypes.c_int
+
+    def declare(lib):
+        lib.retrieval_score_launch.argtypes = [P] * 7 + [I] * 9 + [P]
+        lib.retrieval_score_launch.restype = I
+    shift = kv.build_variants("retrieval_score.cu",
+                              {"shift": _K3_SHIFT_FORM}, "k3_shift",
+                              declare)["shift"]
+    hk = 8 if rep <= 4 else 4
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kmax, kmin, qw = _score_case(cuda, dtype, 1, 156, hk * rep, hk,
+                                        128, 66, 70 + rep)
+        b, t, h, dh = q.shape
+        nb = kmax.shape[1]
+        outs = []
+        for lib in (load_library(), shift):
+            out = torch.empty((b, hk, nb), dtype=torch.float32, device=cuda)
+            tiles, slices, groups = tops.score_grid(b, t, h, hk, nb)
+            part = torch.empty(groups * slices * nb, dtype=torch.float32,
+                               device=cuda)
+            ctr = torch.zeros(groups * tiles, dtype=torch.int32,
+                              device=cuda)
+            err = lib.retrieval_score_launch(
+                q.data_ptr(), kmax.data_ptr(), kmin.data_ptr(),
+                qw.data_ptr(), out.data_ptr(), part.data_ptr(),
+                ctr.data_ptr(), b, t, h, hk, dh, nb, tiles, slices,
+                tops._DTYPES[dtype], torch.cuda.current_stream().cuda_stream)
+            assert err == 0
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers, hk", [(30, 32), (64, 40)],
+                         ids=["deepseek-7b", "qwen1.5-32b"])
+def test_cuda_paged_summaries_mha_widths(cuda, layers, hk):
+    """K4's paged form over every layer at multi-head widths (Hk 32 over
+    30 layers, Hk 40 over 64: a row of 5120 columns), the last prompt
+    chunk of 2048 tokens, bf16, against its plain version bit for bit;
+    the null page stays 0."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(80 + hk)
+    npg, bs, dh, nb = 20, 128, 128, 17
+    pool = torch.randn((layers, npg, bs, hk, dh), generator=g,
+                       device=cuda).bfloat16()
+    table = (torch.randperm(npg - 1, generator=g, device=cuda)[:nb]
+             + 1).to(torch.int32)[None].contiguous()
+    st = torch.tensor([1792], dtype=torch.int32, device=cuda)
+    en = torch.tensor([2048], dtype=torch.int32, device=cuda)
+    got = torch.zeros((2, layers, npg, hk, dh), device=cuda)
+    want = torch.zeros_like(got)
+    before = tops.LAUNCHES["block_summary"]
+    tops.paged_block_summaries(pool, table, st, en, 3, got[0], got[1])
+    tref.paged_block_summaries(pool, table, st, en, 3, want[0], want[1])
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["block_summary"] == before + 1
+    assert torch.equal(got, want) and float(got.abs().sum()) > 0
+    assert float(got[:, :, 0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_rep7_partial_step_graph_launches_eager_body(cuda, models):
+    """qwen2-0.5b (7 query heads per KV head, vocab 151936 tied, QKV
+    bias) cut to 2 layers at full width, bf16, on the paged zero-copy
+    pool: the Partial step body runs eagerly under the sync check, a
+    replayed Partial step launches on the card the kernels an eager
+    Partial step launches, name for name, and graph ``generate`` equals
+    eager ``generate`` (tokens, modes, K1-K4 launches)."""
+    _graph_step_launches(models, "qwen2-0.5b", seed=15)
+
+
+@pytest.mark.cuda
+def test_cuda_rwkv_train_loss_matches_cpu_fp32(cuda):
+    """The reduced ``rwkv6-3b`` ``train_loss`` and its gradients on the
+    card (the plain chunked WKV under autograd, 299 positions: two
+    segments) against the CPU route in fp32: the loss within 1e-5
+    relative, each gradient leaf within 1e-3 of its largest magnitude
+    (the card's fp32 products and reductions sum in another order than
+    the CPU's, and 299 recurrent steps amplify that: the largest gap
+    measured on an H100 was 1.3e-4); K5 is not launched."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import tree_map
+    from repro_torch.train.trainer import grads_of, trainable, tree_leaves
+    cfg = get_config("rwkv6-3b").reduced().replace(dtype="float32",
+                                                   param_dtype="float32")
+    toks = np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 300))
+    cpu = trainable(api.init_params(cfg, seed=0, device="cpu"))
+    for lp in cpu["layers"]:                # exercise u, lora_B, wd_B
+        for name in ("u", "lora_B", "wd_B"):
+            with torch.no_grad():
+                lp[name].copy_(torch.randn(lp[name].shape,
+                                           generator=torch.Generator()
+                                           .manual_seed(3)) * 0.1)
+    card = trainable(tree_map(lambda p, _: p.detach().to(cuda), cpu))
+    before = tops.launch_counts()
+    out = []
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        loss, _ = api.train_loss(cfg, params, torch.as_tensor(toks,
+                                                              device=dev))
+        loss.backward()
+        out.append((float(loss.detach()),
+                    [g.detach().cpu() for g in tree_leaves(grads_of(params))]))
+    assert tops.launch_counts() == before
+    (lc, gc), (lg, gg) = out
+    assert np.isfinite(lg) and abs(lg / lc - 1) < 1e-5
+    for a, c in zip(gg, gc):
+        scale = c.abs().max().clamp(min=1e-30)
+        assert float((a - c).abs().max() / scale) < 1e-3
+
+
+REGISTRY_SERVE_LAYOUTS = {
+    "default": dict(),                                   # ServingConfig()
+    "paged": dict(paged_kv=True),
+    "zero_copy": dict(paged_kv=True, zero_copy_partial=True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["granite-3-2b", "deepseek-7b",
+                                  "qwen2-0.5b", "qwen1.5-32b"])
+def test_cuda_registry_targets_serve_on_every_layout(cuda, models, name):
+    """Each new dense target, cut to 2 layers at full width, bf16, served
+    by ``ServingEngine`` on the card on the three layouts (the reference's
+    contiguous default, the paged pool gathered and zero-copy), with
+    graphs and eagerly: three requests at batch 2 (one past the partial
+    budget, so Refresh and Partial steps run; one waits for a slot),
+    equal tokens and K1-K4 launch counts between the two, and K1-K4
+    launched on every layout."""
+    import numpy as np
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    cfg, spec, dcfg, params, dparams = _get_model(models, name)
+    case = ((4700, 12), (600, 8), (300, 8))
+    for layout, kw in REGISTRY_SERVE_LAYOUTS.items():
+        runs = []
+        for graphs in (False, True):
+            rng = np.random.default_rng(7)
+            srv = ServingEngine(cfg, spec, dcfg, params, dparams,
+                                ServingConfig(batch=2, max_len=5120, **kw),
+                                device="cuda", cuda_graphs=graphs)
+            for i, (n, new) in enumerate(case):
+                srv.submit(Request(request_id=f"r{i}", max_new_tokens=new,
+                                   prompt=rng.integers(0, cfg.vocab_size,
+                                                       (n,))))
+            tops.reset_launch_counts()
+            srv.run()
+            torch.cuda.synchronize()
+            runs.append((srv, tops.launch_counts()[0]))
+            del srv
+        (eager, ec), (graph, gc) = runs
+        for i, (_, new) in enumerate(case):
+            a, b = eager.outputs[f"r{i}"].tokens, graph.outputs[f"r{i}"].tokens
+            assert len(a) == new and np.array_equal(a, b), (layout, i)
+        assert gc == ec, layout
+        assert all(ec[k] > 0 for k in (
+            "sparse_verify_attention", "paged_prefill_attention",
+            "retrieval_score", "block_summary")), (layout, ec)
+        assert graph._continuous.engine._graphs, layout
+        del eager, graph
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_captures_share_one_warmup_stream(cuda):
+    """Every capture warms up on one side stream per device: cuBLAS keeps
+    a workspace (32 MiB on the H100) for each stream it ran on, so a new
+    stream per capture held 32 MiB more after each (about 1 GiB over the
+    smoke's phases 2-14).  Four more captures of a GEMM body, their
+    graphs dropped, leave less than one workspace behind."""
+    import gc
+    from repro_torch.core.engine import _warmup_stream, capture_graph
+    assert _warmup_stream(cuda) is _warmup_stream(cuda)
+    x = torch.randn((256, 256), device=cuda, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+
+    def body():
+        out.copy_(x @ x)
+    capture_graph(body, cuda, [], None).replay()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    for _ in range(4):
+        g = capture_graph(body, cuda, [], None)
+        g.replay()
+        del g
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_allocated() - base < 32 * 2**20
+    assert torch.equal(out, x @ x)

@@ -3,6 +3,11 @@
 * In a subprocess where ``jax`` and the JAX package ``repro`` cannot be
   imported, every module of ``repro_torch`` imports, and ``chip_smoke.py``
   imports too; neither names ``jax`` or ``repro`` in an import statement.
+* The entry-point twins (``examples/*_torch.py``,
+  ``benchmarks/*_torch.py``) import only ``repro_torch``, torch, numpy
+  and the standard library; ``examples/train_target_torch.py`` trains two steps
+  on the CPU in a subprocess where ``jax`` and ``repro`` cannot be
+  imported.
 * The entry points raise when they are asked for CUDA (explicitly or by
   default) on a machine without a card, instead of running on the CPU.
 """
@@ -63,6 +68,51 @@ def test_no_import_statement_names_jax_or_repro():
         for mod in _imports(f):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro", "flax"), (f, mod)
+
+
+TWINS = sorted((ROOT / "examples").glob("*_torch.py")) + sorted(
+    (ROOT / "benchmarks").glob("*_torch.py"))
+
+
+@pytest.mark.parametrize("path", TWINS, ids=lambda p: p.name)
+def test_twins_import_only_the_port_numpy_and_the_standard_library(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert (top in ("repro_torch", "torch", "numpy")
+                or top in sys.stdlib_module_names), (path.name, mod)
+
+
+def test_twin_set_is_complete():
+    names = {p.name for p in TWINS}
+    assert {"quickstart_torch.py", "train_target_torch.py",
+            "train_draft_torch.py", "serve_longcontext_torch.py",
+            "bench_table1_speedup_torch.py"} <= names
+
+
+_TRAIN_TWIN = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.argv = ["train_target_torch.py", "--arch", "tiny-dense", "--steps", "2",
+            "--device", "cpu", "--ckpt", CKPT]
+runpy.run_path(SCRIPT, run_name="__main__")
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.") or m == "repro"
+       or m.startswith("repro.")]
+assert all(sys.modules[m] is None for m in bad), bad
+"""
+
+
+def test_train_target_twin_runs_on_the_cpu(tmp_path):
+    ckpt = tmp_path / "tiny.npz"
+    code = _TRAIN_TWIN.replace("CKPT", repr(str(ckpt))).replace(
+        "SCRIPT", repr(str(ROOT / "examples" / "train_target_torch.py")))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=str(tmp_path),
+                         env={**os.environ, "PYTHONPATH": ""})
+    assert res.returncode == 0, res.stderr
+    assert "final loss:" in res.stdout
+    assert ckpt.exists()
 
 
 @pytest.fixture

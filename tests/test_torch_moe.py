@@ -297,6 +297,147 @@ def test_served_requests_equal_solo_generate_without_binding(setup):
         np.testing.assert_array_equal(outs[rid].tokens, want[0])
 
 
+# requests (id, prompt length, new tokens) for batch 3: "a" finishes
+# while "b" and "c" decode, and "d" then prefills into its slot beside
+# them, one 64-token chunk per tick
+BIND_REQS = (("a", 48, 4), ("b", 160, 20), ("c", 96, 16), ("d", 240, 8))
+
+
+def _bind_requests(cfg, cls):
+    return [cls(request_id=rid, prompt=np.random.default_rng(20 + i).integers(
+        0, cfg.vocab_size, (n,)).astype(np.int32), max_new_tokens=new,
+        arrival_s=0.0) for i, (rid, n, new) in enumerate(BIND_REQS)]
+
+
+def _drain(sched, reqs):
+    for r in reqs:
+        sched.submit(r)
+    while sched.has_work():
+        sched.tick()
+    return sched
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "zero_copy"])
+def test_served_tokens_equal_jax_scheduler_at_binding_capacity(setup,
+                                                               layout):
+    """Top-2 of 4 experts, where capacity binds, so an inactive row's
+    verify input takes capacity from its neighbours: ``ContinuousScheduler``
+    at batch 3 on the reference's default layout and on the paged
+    zero-copy pool gives the JAX scheduler's tokens for every request, on
+    a trace where a slot finishes while the others decode and is refilled
+    (a neutral row, then a mid-prefill row, beside decoding ones).  Rows
+    outside ``active`` are masked as the reference masks them: the draft
+    extension, the pending validity and the self mask."""
+    from repro.serving import Request as JRequest
+    from repro.serving.scheduler import ContinuousScheduler as JScheduler
+    from repro_torch.serving import ContinuousScheduler
+    s = setup
+    assert (s["tcfg"].num_experts, s["tcfg"].experts_per_token) == (4, 2)
+    kw = LAYOUTS[layout]
+    je = JEngine(s["cfg"], s["spec"], s["dcfg"], s["params"], s["dparams"],
+                 batch=3, max_len=MAX_LEN, partial_verification=True,
+                 prefix_cache=False, **kw)
+    jsched = _drain(JScheduler(je, prefill_chunk=CHUNK, prefill_budget=CHUNK,
+                               fused=True, fused_prefill=False,
+                               clock=lambda: 0.0),
+                    _bind_requests(s["cfg"], JRequest))
+    te = TEngine(s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"],
+                 batch=3, max_len=MAX_LEN, prefix_cache=False, device="cpu",
+                 **kw)
+    tsched = _drain(ContinuousScheduler(te, prefill_chunk=CHUNK,
+                                        prefill_budget=CHUNK,
+                                        fused_prefill=False,
+                                        clock=lambda: 0.0),
+                    _bind_requests(s["tcfg"], Request))
+    assert [o.request_id for o in tsched.done_order] == \
+        [o.request_id for o in jsched.done_order]
+    assert tsched.done_order[0].request_id == "a"
+    for rid, _, new in BIND_REQS:
+        got = np.asarray(tsched.outputs[rid].tokens)
+        assert got.shape == (new,)
+        np.testing.assert_array_equal(
+            got, np.asarray(jsched.outputs[rid].tokens), err_msg=rid)
+
+
+def test_masked_verify_inputs_and_draft_extend_match_jax(setup):
+    """``build_verify_inputs_fused`` and ``draft_extend`` with a mixed
+    ``active`` mask (and per-row pending widths) equal the reference's
+    output dicts, the draft cache included (an inactive row keeps its
+    length and its entries below it; like the reference's, its masked
+    entries write zeros past it)."""
+    from repro.core import draft as jdr
+    from repro.core import verify as jvf
+    from repro.core.tree import TreeSpec as JTree
+    from repro_torch.core import draft as tdr
+    from repro_torch.core import verify as tvf
+    from repro_torch.core.tree import TreeSpec as TTree
+    s = setup
+    rng = np.random.default_rng(31)
+    b, p = 4, 6
+    branch = s["dcfg"].tree_branch[: s["dcfg"].tree_depth]
+    jt, tt = JTree.from_branch(branch), TTree.from_branch(branch)
+    active = np.array([True, False, True, False])
+    p_eff = np.array([p, p, 1, 1], np.int32)
+    plen = np.array([4, 6, 1, 1], np.int32)
+    pending = rng.integers(0, 500, (b, p)).astype(np.int32)
+    tree_tokens = rng.integers(0, 500, (b, jt.size)).astype(np.int32)
+    seq_len = np.array([90, 1, 40, 200], np.int32)
+    want = jvf.build_verify_inputs_fused(
+        jt, jnp.asarray(pending), jnp.asarray(plen), jnp.asarray(p_eff),
+        jnp.asarray(tree_tokens), jnp.asarray(seq_len),
+        active=jnp.asarray(active))
+    got = tvf.build_verify_inputs_fused(
+        tt, torch.as_tensor(pending, dtype=torch.long),
+        torch.as_tensor(plen, dtype=torch.long),
+        torch.as_tensor(p_eff, dtype=torch.long),
+        torch.as_tensor(tree_tokens), torch.as_tensor(seq_len,
+                                                      dtype=torch.long),
+        active=torch.as_tensor(active))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
+                                      err_msg=k)
+    assert not got["self_mask"][~torch.as_tensor(active)].any()
+
+    cfg, tcfg = s["cfg"], s["tcfg"]
+    e = 3
+    toks = rng.integers(0, cfg.vocab_size, (b, e)).astype(np.int32)
+    feats = rng.standard_normal((b, e, 3 * cfg.d_model)).astype(np.float32)
+    valid = np.arange(e)[None] < np.array([3, 2, 1, 3])[:, None]
+    lens = np.array([5, 7, 0, 9], np.int32)
+
+    def jcache():
+        c = jdr.init_draft_cache(cfg, b, 32)
+        c["k"] = jnp.asarray(rng_c.standard_normal(c["k"].shape), jnp.float32)
+        c["v"] = jnp.asarray(rng_c.standard_normal(c["v"].shape), jnp.float32)
+        c["length"] = jnp.asarray(lens)
+        return c
+    rng_c = np.random.default_rng(32)
+    jc = jcache()
+    tc = {k: torch.as_tensor(np.array(v)) for k, v in jc.items()}
+    tc["length"] = tc["length"].to(torch.int32)
+    jc2, jh, jl = jdr.draft_extend(cfg, s["dcfg"], s["dparams"], s["params"],
+                                   jc, jnp.asarray(toks), jnp.asarray(feats),
+                                   jnp.asarray(valid),
+                                   active=jnp.asarray(active))
+    k0 = tc["k"].clone()
+    tc2, th, tl = tdr.draft_extend(tcfg, s["tdcfg"], s["td"], s["tp"], tc,
+                                   torch.as_tensor(toks),
+                                   torch.as_tensor(feats),
+                                   torch.as_tensor(valid),
+                                   active=torch.as_tensor(active))
+    np.testing.assert_array_equal(tc2["length"].numpy(),
+                                  np.asarray(jc2["length"]))
+    np.testing.assert_array_equal(tc2["length"].numpy()[~active],
+                                  lens[~active])
+    for name, g, w in (("k", tc2["k"], jc2["k"]), ("v", tc2["v"], jc2["v"]),
+                       ("h_last", th, jh), ("logits_last", tl, jl)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+    for i in np.nonzero(~active)[0]:
+        assert torch.equal(tc2["k"][i, :lens[i]], k0[i, :lens[i]])
+
+
 # ---------------------------------------------------------------------------
 # training
 # ---------------------------------------------------------------------------
@@ -337,10 +478,11 @@ def test_other_architectures_still_refused(setup, arch):
     cfg = (s["tcfg"].replace(window_size=128) if arch == "windowed"
            else s["tcfg"].replace(arch_type=arch, num_experts=0,
                                   experts_per_token=0))
-    with pytest.raises(NotImplementedError, match="Other architectures"):
+    item = "Griffin" if arch in ("hybrid", "windowed") else "VLM and audio"
+    with pytest.raises(NotImplementedError, match=f"'{item}'"):
         tdn._check_dense(cfg)
     if arch != "windowed":
         with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*'Other architectures'"):
+                           match=f"ROADMAP.*'{item}'"):
             TEngine(cfg, s["tspec"], s["tdcfg"], s["tp"], s["td"], batch=1,
                     max_len=64, device="cpu")

@@ -304,9 +304,17 @@ def test_draft_ttt_loss_and_trainer_match_jax(tiny):
 
 
 def test_train_loss_refuses_other_architectures():
-    cfg = tcfgs.get_config("rwkv6-3b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tapi.train_loss(cfg, {}, torch.zeros((1, 8), dtype=torch.long))
+    """Dense, MoE and RWKV-6 targets train (``rwkv6-3b`` since it was
+    ported: ``tests/test_torch_rwkv.py``); a hybrid stack and VLM or
+    audio inputs raise naming their ROADMAP item."""
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    cfg = tcfgs.get_config("tiny-dense").replace(arch_type="hybrid")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*'Griffin'"):
+        tapi.train_loss(cfg, {}, toks)
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.*'VLM and audio'"):
+        tapi.train_loss(tcfgs.get_config("tiny-dense"), {}, toks,
+                        extra={"image": None})
 
 
 # ---------------------------------------------------------------------------
