@@ -61,8 +61,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    batch 1, an 8192-token prompt, 128 new tokens), eagerly and with
    graphs (equal tokens and counts), with the launch counts set to 0
    just before and read just after each (the WKV kernel must run 32 x
-   (prefill chunks + 2 x steps) times), a profiled prefill and window of
-   its steps, the bodies under the sync check, and fp32 losslessness at
+   (prefill chunks + 2 x steps) times), a profiled window of its steps
+   (6 with graphs, 3 eager) and, with graphs, a profiled prefill, the
+   bodies under the sync check, and fp32 losslessness at
    4 layers with graphs (``generate`` equals the port's autoregressive
    decoding);
 6. continuous-batching serving of llama3.1-8b at full width
@@ -207,10 +208,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    from phase 11 (K1-K4 its (a), K5 its (b)), ``tiered_serving_launches``
    from phase 13 (b)'s tiered run, ``moe_launches`` and
    ``moe_serving_launches`` from phase 14, ``registry_launches`` from
-   phase 15 (a)'s graph run; phases 8 and 9's call forms and
+   phase 15 (a)'s graph run, ``griffin_launches`` (0: no kernel is on
+   that path) from phase 16 (a)'s; phases 8 and 9's call forms and
    phase 2's forms of this slice under ``shapes``), the card's name and
    power limit, and the final ``{"ok": true, ...}`` line.  It comes
-   last: phase 13 runs before it;
+   last: phases 13-16 run before it;
 13. tiered KV residency (slice 13), llama3.1-8b at full width (32
    layers, bf16, random weights from seed 0) on the gathered paged
    layout.  (a) Batch 1, the 8192-token prompt, a forced schedule
@@ -276,7 +278,29 @@ Phases, in order (any failure raises and the script exits non-zero):
    loss and gradient norm, ms per step and peak memory.  (f) Each
    target's eager step bodies under the sync check.  Phase 2 holds K1-K4
    at qwen2-0.5b's and deepseek-7b's heads, K3 at qwen1.5-32b's and K4
-   over its 64 layers to their plain versions, timed.
+   over its 64 layers to their plain versions, timed;
+16. Griffin (slice 16): recurrentgemma-2b, the RG-LRU and rolling-window
+   hybrid trunk, on which no kernel of the port runs (the reference's
+   window attention is plain jnp and its RG-LRU a ``lax.scan``).  (a) At
+   full width and depth (26 layers: 8 x (rec, rec, attn) + (rec, rec),
+   d 2560, 10/1 heads of Dh 256, window 2048, bf16, random weights from
+   seed 0, the draft from seed 1), batch 1, a 4096-token prompt (the
+   window wraps twice), 64 new tokens: greedy chain ``generate`` eagerly
+   and with graphs, equal tokens, no kernel of the port launched, the
+   window holding the last token; tokens/s with the captures, prefill
+   and capture seconds, peak memory; a profiled window of 3 graph steps
+   (device busy ms, the five largest kernels, device launches, host
+   launch calls), the idle share without the profiler; one prefill chunk
+   profiled (the RG-LRU step loop's share of it) and replayed; the eager
+   bodies under the sync check; the fp32 copies of ``wa`` / ``wi`` that
+   a pass makes, timed.  (b) fp32 (TF32 off), full width, 5 layers (a
+   superblock and the remainder), random gates, a 2304-token prompt, 32
+   new tokens: chain ``generate`` with graphs equals the port's
+   autoregressive decoding.  (c) Wave serving of three requests (1024,
+   1024 and 1536 prompt tokens, 16 new each, batch 2) at (b)'s model:
+   each equals its solo ``generate``.  (d) One ``Trainer`` step at full
+   width and 3 layers (rec, rec, attn), batch 1, S = 2560 (the window
+   bites), after a warm-up step: ms per step, peak memory.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1650,15 +1674,16 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
         chunks = -(-prompt.shape[1] // 256)
         dev_n, host_n, calls_n = _launch_counts(prof)
         pk = prefill_kernel or kernel
+        pk_ms = _named_ms(prof, pk)
         say(card, f"profile [{label}] prefill of {prompt.shape[1]} tokens: "
                   f"host wall_s {pre_wall:.3f} (profiled) device span_ms "
                   f"{span:.2f} device busy_ms {busy:.2f} ({pk} "
-                  f"{_named_ms(prof, pk):.3f} ms); per chunk of 256 "
+                  f"{pk_ms:.3f} ms); per chunk of 256 "
                   f"({chunks} chunks): device launches {dev_n / chunks:.1f}, "
                   f"top-level host aten ops {host_n / chunks:.1f}, host "
                   f"launch calls {calls_n / chunks:.1f}")
         out = dict(prefill_wall_s=pre_wall, prefill_busy_ms=busy,
-                   prefill_span_ms=span,
+                   prefill_span_ms=span, prefill_kernel_ms=pk_ms,
                    prefill_device_launches_chunk=dev_n / chunks,
                    prefill_host_ops_chunk=host_n / chunks,
                    prefill_host_launch_calls_chunk=calls_n / chunks)
@@ -1694,10 +1719,13 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
               f"{dev_n / steps:.1f} host launch calls/step "
               f"{calls_n / steps:.1f} top-level host aten ops/step "
               f"{host_n / steps:.1f}")
-    for e in sorted(kernels, key=_dev_us, reverse=True)[:10]:
+    top = sorted(kernels, key=_dev_us, reverse=True)[:10]
+    for e in top:
         say(card, f"profile [{label}]   {_dev_us(e) / 1e3 / steps:8.3f} "
                   f"ms/step {e.count // steps:5d} launches/step  "
                   f"{e.key[:80]}")
+    out.update(top_kernels=[(e.key[:80], _dev_us(e) / 1e3 / steps,
+                             e.count / steps) for e in top[:5]])
     out.update(wall_ms_step=wall_ms / steps, busy_ms_step=busy_ms / steps,
                idle_share=1 - busy_ms / span_ms,
                idle_share_unprofiled=idle_unprof,
@@ -1876,8 +1904,11 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
         if toks.shape != (1, new_tokens) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"tokens out of range: {toks}")
+        # the eager window is host-bound and even: 3 steps and no
+        # profiled eager prefill (32 chunks of every layer's ops)
         prof = profile_steps(torch, card, eng, prompt, kernel="wkv_kernel",
-                             label=label)
+                             label=label, steps=6 if graphs else 3,
+                             prefill=graphs)
         if not graphs:
             check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
         runs[label] = dict(toks=toks, launches=launches, wall_s=wall,
@@ -2036,12 +2067,17 @@ def phase_serving(torch, card):
     alone through batch-1 ``generate`` (matches reported: bf16 rows are
     not batch-invariant); a profiled window of decode ticks; the serving
     bodies under the sync check; fp32 losslessness at 4 layers."""
+    import gc
     import numpy as np
     from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
     from repro_torch.core.draft import init_draft_params
     from repro_torch.core.engine import SpecPVEngine
     from repro_torch.models.api import init_params
     from repro_torch.serving import ServingConfig, ServingEngine
+    # earlier phases' engines hold their graph pools until the cyclic
+    # collector runs (phase 10's finding)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = get_config("llama3.1-8b")
     spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
@@ -2446,6 +2482,7 @@ def phase_prefix_serving(torch, card):
     batch 4 on a 129-page pool with graphs, with prefix sharing and
     without, in this call (see the module docstring), then the fork check
     and the fp32 losslessness.  Returns the shared run's numbers."""
+    import gc
     import numpy as np
     from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
     from repro_torch.core.draft import init_draft_params
@@ -2453,6 +2490,10 @@ def phase_prefix_serving(torch, card):
     from repro_torch.models.api import init_params
     from repro_torch.serving import (ContinuousScheduler, Request,
                                      ServingConfig, ServingEngine)
+    # earlier phases' engines hold their graph pools until the cyclic
+    # collector runs (phase 10's finding)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
     cfg = get_config("llama3.1-8b")
@@ -3239,16 +3280,23 @@ def phase_default_engine(torch, card, timer, p3=None, p4=None, p6=None):
     card, (e) contiguous continuous batching, (d) fp32 losslessness of
     the gathered layouts and of contiguous serving.  Returns the
     launches of (a)'s graph run and (e)'s, and the call forms' rows."""
+    import gc
+    # earlier phases' engines hold their graph pools until the cyclic
+    # collector runs (phase 10's finding)
+    gc.collect()
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     shapes = _contiguous_kernel_checks(torch, card, timer)
     cfg, spec, dcfg, params, dparams, prompt = _full_width(
         torch, card, "llama3.1-8b")
-    # the eager run is cut to CONTIG_EAGER_NEW tokens and not profiled:
-    # phase 3 profiles the eager step on the paged layout, and the eager
-    # contiguous bodies still run under the sync check
+    # the eager run is cut to CONTIG_EAGER_NEW tokens and not profiled,
+    # and the graph run's window leaves the prefill out: phase 3 profiles
+    # the eager step and the graph prefill of the same model on the paged
+    # layout; the eager contiguous bodies still run under the sync check
     runs = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
                          prompt, NEW_TOKENS, DEFAULT_LAYOUT,
-                         "llama3.1-8b contiguous", eager_new=CONTIG_EAGER_NEW)
+                         "llama3.1-8b contiguous", eager_new=CONTIG_EAGER_NEW,
+                         profile_prefill=False)
     g = runs["graphs"]
     if p3 is not None:
         same = int((g["toks"] == p3["toks"]).sum())
@@ -3623,11 +3671,16 @@ def phase_fused_prefill(torch, card, timer):
     sharing on; (c) the paged fused run again eagerly (equal tokens and
     launch counts) and one eager fused round under the sync check; (d)
     fp32 losslessness.  Returns the launches and call forms."""
+    import gc
     import numpy as np
     from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
     from repro_torch.core.draft import init_draft_params
     from repro_torch.models.api import init_params
     from repro_torch.serving import ServingConfig, ServingEngine
+    # earlier phases' engines hold their graph pools until the cyclic
+    # collector runs (phase 10's finding)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t_phase = time.perf_counter()
     shapes = _fused_kernel_checks(torch, card, timer)
@@ -3659,6 +3712,7 @@ def phase_fused_prefill(torch, card, timer):
             runs[label]["profile"] = _profile_fused_round(torch, card, eng,
                                                           prompts)
         del srv, eng
+        gc.collect()
         torch.cuda.empty_cache()
     ser = runs["paged serial"]["toks"]
     for label in ("paged fused", "contiguous fused"):
@@ -3682,6 +3736,7 @@ def phase_fused_prefill(torch, card, timer):
     say(card, f"fused prefill [shared prefixes fused] prefix_stats {pre}; "
               f"no committed page or pin left ({ps})")
     del srv, eng
+    gc.collect()
     torch.cuda.empty_cache()
     # (c) the paged fused pump eagerly against graphs on a short trace
     # (FUSED_EAGER_REQS: one 3-row round, then decode): equal tokens,
@@ -3697,6 +3752,7 @@ def phase_fused_prefill(torch, card, timer):
             f"paged fused short trace {RUN_LABEL[graphs]}")
         if graphs:
             del srv, eng
+            gc.collect()
             torch.cuda.empty_cache()
     g, eager = both[True], both[False]
     for rid in g["toks"]:
@@ -3722,6 +3778,7 @@ def phase_fused_prefill(torch, card, timer):
               f"padded) ran under set_sync_debug_mode('error') without a "
               f"sync")
     del srv, eng, params, dparams
+    gc.collect()
     torch.cuda.empty_cache()
     fused_lossless(torch, card)
     secs = time.perf_counter() - t_phase
@@ -5654,9 +5711,324 @@ def phase_registry(torch, card):
                 total_s=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 16: Griffin (recurrentgemma-2b), the hybrid state trunk
+# ---------------------------------------------------------------------------
+
+GRIFFIN = "recurrentgemma-2b"
+GRIFFIN_PROMPT = 4096       # the 2048-token window wraps twice
+GRIFFIN_NEW = 64
+GRIFFIN_PROFILE_STEPS = 3
+GRIFFIN_LOSSLESS_LAYERS = 5     # one (rec, rec, attn) superblock + (rec, rec)
+GRIFFIN_LOSSLESS_PROMPT = 2304  # nine chunks, past the window
+GRIFFIN_LOSSLESS_NEW = 32
+GRIFFIN_SERVE = ((1024, 16), (1024, 16), (1536, 16))
+GRIFFIN_TRAIN_LAYERS = 3        # (rec, rec, attn)
+GRIFFIN_TRAIN_SEQ = 2560        # past the window, so it bites
+
+
+def _griffin_gates(torch, params, seed):
+    """Random ``lam``, ``ba``, ``bi`` and ``conv_b`` in every rec layer
+    (the init's are constant), so every gate of the RG-LRU varies."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for lp in params["layers"]:
+        if "lam" not in lp:
+            continue
+        w = lp["lam"].shape[0]
+
+        def rnd(scale, like):
+            return (torch.randn((w,), generator=gen, device="cuda")
+                    * scale).to(like.dtype)
+        lp["lam"] = torch.rand((w,), generator=gen, device="cuda") * 4 - 1
+        lp["ba"], lp["bi"] = rnd(0.5, lp["ba"]), rnd(0.5, lp["bi"])
+        lp["conv_b"] = rnd(0.1, lp["conv_b"])
+
+
+def _profile_prefill_chunk(torch, card, eng, prompt, label):
+    """One 256-token prefill chunk (a graph replay on a graph engine)
+    under ``torch.profiler``: its device busy ms and launches, and the
+    share of the RG-LRU's step loop (its ``addcmul`` kernels) in them."""
+    from torch.profiler import ProfilerActivity, profile
+    eng.prefill(prompt[:, :256])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.prefill(prompt[:, :256])
+        torch.cuda.synchronize()
+    busy, span = _device_busy(prof)
+    dev_n, _, calls = _launch_counts(prof)
+    loop_ms = _named_ms(prof, "addcmul")
+    from torch.autograd import DeviceType
+    loop_n = sum(e.count for e in prof.key_averages()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA
+                 and "addcmul" in e.key)
+    say(card, f"profile [{label}] one 256-token prefill chunk: device busy "
+              f"ms {busy:.3f} (span {span:.3f}), device launches {dev_n}, "
+              f"host launch calls {calls}; the RG-LRU step loop "
+              f"({loop_n} addcmul launches) {loop_ms:.3f} ms = "
+              f"{loop_ms / busy:.4f} of the busy time")
+    return dict(chunk_busy_ms=busy, chunk_device_launches=dev_n,
+                chunk_host_launch_calls=calls, rglru_loop_ms=loop_ms,
+                rglru_loop_launches=loop_n, rglru_loop_share=loop_ms / busy)
+
+
+def _cast_cost(torch, card, params):
+    """Device ms of one pass's fp32 copies of every rec layer's ``wa``
+    and ``wi`` (the reference widens them at every call), CUDA events,
+    and the bytes they move."""
+    mats = [lp[k] for lp in params["layers"] if "wa" in lp
+            for k in ("wa", "wi")]
+    for m in mats:
+        m.float()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for m in mats:
+        m.float()
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1)
+    gb = sum(m.numel() * (m.element_size() + 4) for m in mats) / 1e9
+    held = sum(m.numel() * 4 for m in mats) / 2**30
+    say(card, f"{GRIFFIN}: fp32 copies of wa / wi over {len(mats) // 2} rec "
+              f"layers: {ms:.3f} ms per pass, {gb:.2f} GB read + written "
+              f"(a cached fp32 copy would hold {held:.2f} GiB more)")
+    return dict(cast_ms_pass=ms, cast_gb_pass=gb, cast_cache_gib=held)
+
+
+def _griffin_generate(torch, card):
+    """(a) bf16, full width and depth, a 4096-token prompt: greedy chain
+    ``generate`` eagerly, then with graphs (equal tokens); no kernel of
+    the port launched; the graph run profiled."""
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.kernels import ops
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, GRIFFIN, prompt_len=GRIFFIN_PROMPT)
+    max_len = request_token_need(GRIFFIN_PROMPT, GRIFFIN_NEW,
+                                 spec.buffer_size, dcfg.tree_depth + 1)
+    runs = {}
+    for graphs in (False, True):
+        label = f"{GRIFFIN} {RUN_LABEL[graphs]}"
+        t_run = time.perf_counter()
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, paged=False, device="cuda",
+                           cuda_graphs=graphs)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, stats = eng.generate(prompt, GRIFFIN_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        memory_line(torch, card, label, eng, params, dparams, peak)
+        decode_s = wall - stats["prefill_s"]
+        say(card, f"generate [{label}] ({cfg.num_layers} layers, d "
+                  f"{cfg.d_model}, window {cfg.window_size}, bf16, random "
+                  f"weights, chain depth {dcfg.tree_depth}) prompt "
+                  f"{GRIFFIN_PROMPT} new {GRIFFIN_NEW}: modes {stats['modes']} "
+                  f"steps {stats['steps']} mean_accept "
+                  f"{stats['mean_accept']:.4f} wall_s {wall:.3f} (prefill_s "
+                  f"{stats['prefill_s']:.3f} decode_s {decode_s:.3f}, ms/step "
+                  f"{decode_s * 1e3 / max(stats['steps'], 1):.2f}) "
+                  f"tokens_per_s {GRIFFIN_NEW / wall:.2f} peak_mem_gib "
+                  f"{peak:.2f} capture_s {eng.capture_s:.3f} graphs "
+                  f"{sorted(map(str, eng._graphs))} port kernel launches "
+                  f"{launches}")
+        if stats["modes"] != {"state": stats["steps"]}:
+            raise AssertionError(f"state steps only: {stats['modes']}")
+        if any(launches.values()):
+            raise AssertionError(f"no kernel of the port is on Griffin's "
+                                 f"path: {launches}")
+        if graphs and set(eng._graphs) != {("prefill", 256), "state"}:
+            raise AssertionError(f"graphs captured: "
+                                 f"{sorted(map(str, eng._graphs))}")
+        if toks.shape != (1, GRIFFIN_NEW) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"tokens out of range: {toks}")
+        fs = eng.final_state.cache
+        if int(fs["win_pos"].max()) != int(fs["length"][0]) - 1:
+            raise AssertionError("the window does not hold the last token")
+        eng.final_state = None
+        run = dict(toks=toks, launches=launches, wall_s=wall,
+                   tokens_per_s=GRIFFIN_NEW / wall,
+                   prefill_s=stats["prefill_s"], peak_gib=peak,
+                   capture_s=eng.capture_s, steps=stats["steps"],
+                   decode_ms_step=decode_s * 1e3 / max(stats["steps"], 1))
+        if graphs:
+            run.update(profile_steps(torch, card, eng, prompt, label=label,
+                                     steps=GRIFFIN_PROFILE_STEPS,
+                                     prefill=False))
+            run.update(_profile_prefill_chunk(torch, card, eng, prompt,
+                                              label))
+            # the same chunk with graphs, host clock: the replay
+            eng.prefill(prompt[:, :256])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.prefill(prompt[:, :256])
+            torch.cuda.synchronize()
+            run["chunk_replay_ms"] = (time.perf_counter() - t0) * 1e3
+        else:
+            check_sync_free(torch, card, eng, prompt[:, :512])
+        say(card, f"{label} took {time.perf_counter() - t_run:.1f} s")
+        runs[RUN_LABEL[graphs]] = run
+        del eng
+        torch.cuda.empty_cache()
+    compare_runs(card, GRIFFIN, runs)
+    cast = _cast_cost(torch, card, params)
+    del params, dparams
+    torch.cuda.empty_cache()
+    return runs, cast
+
+
+def _griffin_fp32(torch, card):
+    """(b) fp32 (TF32 off), full width, depth 5: chain ``generate`` with
+    graphs equals the port's AR decoding; (c) wave serving of three
+    requests equals each one's solo ``generate``."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.core.reference import autoregressive_generate
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(GRIFFIN).replace(num_layers=GRIFFIN_LOSSLESS_LAYERS,
+                                      dtype="float32", param_dtype="float32")
+    spec, dcfg = SpecPVConfig(), DraftConfig()
+    params = init_params(cfg, seed=2, device="cuda")
+    _griffin_gates(torch, params, seed=5)
+    dparams = init_draft_params(cfg, dcfg, seed=3, device="cuda")
+    n, new = GRIFFIN_LOSSLESS_PROMPT, GRIFFIN_LOSSLESS_NEW
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, n)).astype(np.int64)
+    max_len = request_token_need(n, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    t0 = time.perf_counter()
+    ar = autoregressive_generate(cfg, params, prompt, new, max_len=max_len,
+                                 spec=spec, device="cuda")
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=max_len, paged=False, device="cuda")
+    toks, st = eng.generate(prompt, new)
+    if set(eng._graphs) != {("prefill", 256), "state"}:
+        raise AssertionError(f"graphs: {sorted(map(str, eng._graphs))}")
+    if not np.array_equal(toks, ar):
+        raise AssertionError(f"{GRIFFIN} chain SpecPV differs from AR:\n"
+                             f"{toks}\n{ar}")
+    lossless_s = time.perf_counter() - t0
+    say(card, f"lossless {GRIFFIN} x{cfg.num_layers} layers "
+              f"{cfg.layer_kinds()} fp32, graphs: chain generate == AR over "
+              f"{new} tokens of a {n}-token prompt (steps {st['steps']}, "
+              f"mean_accept {st['mean_accept']:.4f}); {lossless_s:.1f} s")
+    del eng
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(4)
+    reqs = [(rng.integers(0, cfg.vocab_size, (p,)).astype(np.int64), k)
+            for p, k in GRIFFIN_SERVE]
+    serve_len = request_token_need(max(p for p, _ in GRIFFIN_SERVE),
+                                   max(k for _, k in GRIFFIN_SERVE),
+                                   spec.buffer_size, dcfg.tree_depth + 1)
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams,
+                        ServingConfig(batch=2, max_len=serve_len),
+                        device="cuda")
+    for i, (p, k) in enumerate(reqs):
+        srv.submit(Request(request_id=f"g{i}", prompt=p, max_new_tokens=k))
+    srv.run()
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=serve_len, paged=False, device="cuda")
+    for i, (p, k) in enumerate(reqs):
+        want, _ = solo.generate(p[None], k)
+        if not np.array_equal(srv.outputs[f"g{i}"].tokens, want[0]):
+            raise AssertionError(f"served request g{i} differs from its solo "
+                                 f"generate")
+    serve_s = time.perf_counter() - t0
+    waves, tps = int(srv.stats["waves"]), srv.throughput_tok_s()
+    say(card, f"serving {GRIFFIN} x{cfg.num_layers} layers fp32, graphs: "
+              f"{len(reqs)} requests (prompts "
+              f"{[p for p, _ in GRIFFIN_SERVE]}) in {waves} waves of batch 2 "
+              f"each equal their solo generate; tokens/s {tps:.2f}; "
+              f"{serve_s:.1f} s")
+    del params, dparams, srv, solo
+    torch.cuda.empty_cache()
+    return dict(lossless_s=lossless_s, lossless_steps=st["steps"],
+                serve_s=serve_s, serve_waves=waves, serve_tokens_per_s=tps)
+
+
+def _griffin_train(torch, card):
+    """(d) one ``Trainer`` step at full width, 3 layers (rec, rec, attn),
+    batch 1, S 2560 (a warm-up step first): ms per step (CUDA events),
+    peak memory, finite loss and gradient norm."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = get_config(GRIFFIN).replace(num_layers=GRIFFIN_TRAIN_LAYERS)
+    tr = Trainer(cfg, TrainConfig(), seed=0, device="cuda")
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, GRIFFIN_TRAIN_SEQ)), device="cuda")
+    tr.step(toks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    m = tr.step(toks)
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss, gn = float(m["loss"]), float(m["grad_norm"])
+    if not (np.isfinite(loss) and np.isfinite(gn) and gn > 0):
+        raise AssertionError(f"train step: loss {loss} grad norm {gn}")
+    say(card, f"train {GRIFFIN} x{cfg.num_layers} layers {cfg.layer_kinds()} "
+              f"bf16, batch 1, S {GRIFFIN_TRAIN_SEQ}: {ms:.1f} ms per Trainer "
+              f"step (loss + backward + clip + AdamW), loss {loss:.4f}, "
+              f"grad norm {gn:.3f}, peak {peak:.2f} GiB")
+    del tr
+    torch.cuda.empty_cache()
+    return dict(train_ms_step=ms, train_peak_gib=peak, train_loss=loss)
+
+
+def phase_griffin(torch, card):
+    """Phase 16: (a) recurrentgemma-2b's chain ``generate`` at full width
+    and depth, eager and with graphs; (b) fp32 losslessness at depth 5;
+    (c) wave serving at depth 5; (d) a Trainer step at 3 layers.  Returns
+    (a)'s graph launches and the numbers."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    secs = {}
+    runs, cast = _griffin_generate(torch, card)
+    secs["a"] = time.perf_counter() - t_phase
+    fp32 = _griffin_fp32(torch, card)
+    secs["b, c"] = time.perf_counter() - t_phase - secs["a"]
+    t0 = time.perf_counter()
+    train = _griffin_train(torch, card)
+    secs["d"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    say(card, f"phase 16: " + ", ".join(f"({k}) {v:.1f} s"
+                                        for k, v in secs.items())
+              + f"; phase 16 took {total:.1f} s")
+    keep = ("wall_s", "tokens_per_s", "prefill_s", "capture_s", "peak_gib",
+            "steps", "decode_ms_step", "wall_ms_step", "busy_ms_step",
+            "idle_share", "idle_share_unprofiled", "device_launches_step",
+            "host_launch_calls_step", "top_kernels", "chunk_busy_ms",
+            "chunk_device_launches", "chunk_host_launch_calls",
+            "rglru_loop_ms", "rglru_loop_launches", "rglru_loop_share",
+            "chunk_replay_ms")
+    gen = {lb: {k: r[k] for k in keep if k in r} for lb, r in runs.items()}
+    return dict(launches=runs["graphs"]["launches"], generate=gen,
+                cast=cast, fp32=fp32, train=train, seconds=secs,
+                total_s=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,13,14,15",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,13,14,15,16",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -5666,8 +6038,8 @@ def main(argv=None) -> int:
                          "prefill), 10 (training and the paper's table 1), "
                          "11 (sampled serving), 13 (tiered KV residency), "
                          "14 (the MoE family, granite-moe-1b-a400m), 15 "
-                         "(the rest of the dense registry); 1 and 12 "
-                         "always run")
+                         "(the rest of the dense registry), 16 (Griffin, "
+                         "recurrentgemma-2b); 1 and 12 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -5729,6 +6101,7 @@ def main(argv=None) -> int:
            else {"launches": {}, "serving_launches": {}})
     p15 = (phase_registry(torch, card) if 15 in phases
            else {"launches": {}})
+    p16 = phase_griffin(torch, card) if 16 in phases else {"launches": {}}
 
     rows = []
     for name in ops.KERNELS:
@@ -5762,6 +6135,8 @@ def main(argv=None) -> int:
                              p14["serving_launches"].get(name, 0)),
                          registry_launches=int(
                              p15["launches"].get(name, 0)),
+                         griffin_launches=int(
+                             p16["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -5796,6 +6171,8 @@ def main(argv=None) -> int:
         say(card, "moe " + json.dumps(p14, default=float))
     if 15 in phases:
         say(card, "registry " + json.dumps(p15, default=float))
+    if 16 in phases:
+        say(card, "griffin " + json.dumps(p16, default=float))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from repro_torch.configs import granite_moe_1b  # noqa: F401
 from repro_torch.configs import paper_models  # noqa: F401
 from repro_torch.configs import qwen1_5_32b  # noqa: F401
 from repro_torch.configs import qwen2_0_5b  # noqa: F401
+from repro_torch.configs import recurrentgemma_2b  # noqa: F401
 from repro_torch.configs import rwkv6_3b  # noqa: F401
 
 # assigned architectures (public-literature pool), the reference's order

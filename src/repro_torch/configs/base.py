@@ -13,7 +13,8 @@ from typing import Callable, Dict, Tuple
 class ModelConfig:
     # identity
     name: str
-    arch_type: str                      # the port runs "dense", "moe", "ssm"
+    arch_type: str                      # the port runs "dense", "moe", "ssm",
+                                        # "hybrid"
     source: str = ""                    # citation for the config numbers
 
     # transformer trunk
@@ -71,10 +72,17 @@ class ModelConfig:
         return self.arch_type in ("dense", "moe", "vlm", "audio")
 
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer kind sequence (the port runs dense, MoE and RWKV-6
-        stacks)."""
+        """Per-layer kind sequence (the port runs dense, MoE, RWKV-6 and
+        Griffin stacks): a hybrid repeats its pattern, cut to
+        ``num_layers``."""
         if self.arch_type == "ssm":
             return ("rwkv",) * self.num_layers
+        if self.arch_type == "hybrid":
+            pat = self.layer_pattern or ("rec", "rec", "attn")
+            out = []
+            while len(out) < self.num_layers:
+                out.extend(pat)
+            return tuple(out[: self.num_layers])
         return ("attn",) * self.num_layers
 
     def replace(self, **kw) -> "ModelConfig":
@@ -97,6 +105,11 @@ class ModelConfig:
         if self.num_experts:
             kw.update(num_experts=min(self.num_experts, 4),
                       experts_per_token=min(self.experts_per_token, 2))
+        if self.arch_type == "hybrid":
+            # the family's two kinds in 2 layers: one rec, one attn
+            kw.update(layer_pattern=("rec", "attn"),
+                      window_size=min(self.window_size or 128, 128),
+                      rnn_width=0)
         return self.replace(**kw)
 
 
@@ -150,7 +163,6 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 # assigned architectures the port does not run yet -> their ROADMAP.md
 # queue 1 item
 NOT_PORTED: Dict[str, str] = {
-    "recurrentgemma-2b": "Griffin",
     "llama-3.2-vision-90b": "VLM and audio",
     "whisper-small": "VLM and audio",
 }
@@ -158,10 +170,11 @@ NOT_PORTED: Dict[str, str] = {
 
 def roadmap_item(cfg: "ModelConfig") -> str:
     """The ROADMAP.md queue 1 item that brings an architecture the port
-    refuses: windowed and hybrid stacks come with Griffin, cross
-    attention and encoders with the VLM and audio item."""
-    if cfg.arch_type == "hybrid" or cfg.window_size:
-        return "Griffin"
+    refuses: dense and MoE stacks with a local attention window come with
+    the windowed dense stacks, cross attention and encoders with the VLM
+    and audio item."""
+    if cfg.arch_type in ("dense", "moe") and cfg.window_size:
+        return "Windowed dense stacks"
     return "VLM and audio"
 
 

@@ -60,11 +60,12 @@ refreshed sends its complete cold blocks to host memory
 (``demote_slot``), and a partial row one step from its refresh starts
 their copy back (``prefetch_slot``).
 
-State architectures (RWKV-6, ``paged=False``) have no KV cache, so
-partial verification does not apply: each step (mode ``"state"``,
-``_step_state``) drafts a chain, verifies it with a read-only pass,
-accepts and advances the recurrent state over the pending token and the
-accepted prefix.
+State architectures (RWKV-6 and Griffin, ``paged=False``) have no
+growing KV cache (Griffin's attention reads a rolling window of W
+keys), so partial verification does not apply: each step (mode
+``"state"``, ``_step_state``) drafts a chain, verifies it with a
+read-only pass, accepts and advances the recurrent state over the
+pending token and the accepted prefix.
 
 Sampling (``core/sampling.py``): every slot carries its own random
 stream (``EngineState.keys``, derived from the request's seed at
@@ -341,9 +342,9 @@ class SpecPVEngine:
         or through each layer's materialised view (the reference's data
         flow); every route runs the kernels on the card.  Dense and MoE
         targets (the draft layer is dense) draft trees
-        (``draft_chain=True``: chains); the state arch
-        (``ssm``) runs with ``paged=False`` and chain drafts, without
-        partial verification.  ``temperature`` is the lock-step
+        (``draft_chain=True``: chains); the state archs
+        (``ssm``, ``hybrid``) run with ``paged=False`` and chain drafts,
+        without partial verification.  ``temperature`` is the lock-step
         ``generate``'s (each row's stream from seed 0) and the default of
         a slot admission, which may set its own with its seed and draft
         shape; the continuous scheduler wants a greedy engine.  A mesh
@@ -372,7 +373,7 @@ class SpecPVEngine:
         params must live there.  On the card each step variant and the
         full prefill chunk replay a CUDA graph unless ``cuda_graphs`` is
         False; the CPU runs them eagerly."""
-        if cfg.arch_type not in ("dense", "moe", "ssm"):
+        if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
             _unsupported(f"arch {cfg.arch_type!r}", roadmap_item(cfg))
         self.is_attn = cfg.is_attention_arch
         if not self.is_attn and paged:
@@ -655,12 +656,15 @@ class SpecPVEngine:
         table.copy_(torch.from_numpy(pt))
 
     def _zero_static(self) -> None:
-        """Every static tensor to zero, the -1 sentinels set."""
+        """Every static tensor to zero, the -1 sentinels set (Griffin's
+        empty window slots among them)."""
         for t in self._static_tensors():
             t.zero_()
         if self.is_attn:
             self.state.pkv_pos.fill_(-1)
             self.state.pkv_blocks.fill_(-1)
+        if "win_pos" in self.state.cache:
+            self.state.cache["win_pos"].fill_(-1)
 
     def prefill(self, prompt: np.ndarray, chunk: int = 256) -> EngineState:
         """Whole-batch chunked prefill into the engine's state, reset in

@@ -4,8 +4,8 @@ greedy in two forms, and sampled.
 ``autoregressive_generate`` is the losslessness oracle: on the port's
 contiguous cache through the plain attention and summaries
 (``plain=True``, a keyword only this oracle passes, so the engine never
-takes that route), or, for a state arch, one read-only decode and one
-``advance`` per token, eagerly.
+takes that route), or, for a state arch (RWKV-6, Griffin), one
+read-only decode and one ``advance`` per token, eagerly.
 
 ``CompiledAR`` is the speed baseline, the counterpart of the reference's
 ``jax.jit(step)``: the same decoding on the kernel route (the prefill
@@ -127,7 +127,7 @@ class CompiledAR:
         if not cfg.is_attention_arch:
             raise NotImplementedError("the compiled AR decodes attention "
                                       "archs; autoregressive_generate "
-                                      "runs the state arch")
+                                      "runs the state archs")
         self.cfg, self.params = cfg, params
         self.spec = spec or SpecPVConfig()
         self.device = resolve_device(device)

@@ -1,16 +1,16 @@
 """Model API of the port (counterpart of ``repro/models/api.py``, dense
-and MoE attention and RWKV-6 state architectures):
+and MoE attention and the RWKV-6 and Griffin state architectures):
 
   init_params(cfg, seed, device)               -> params dict
   init_cache(cfg, batch, max_len, spec, ...)   -> cache dict
   prefill(cfg, params, tokens, cache, ...)     -> (logits_last, features, cache)
   decode(cfg, params, tokens, positions, cache, ...) -> DecodeOut
-  advance(cfg, params, tokens, cache, valid)   -> cache   (ssm)
+  advance(cfg, params, tokens, cache, valid)   -> cache   (ssm, hybrid)
   train_loss(cfg, params, tokens)              -> (loss, metrics)
 
 Attention archs expose the SpecPV verification modes through
-``decode(mode=...)``; the state arch does read-only chain verification
-in ``decode`` and commits the accepted prefix with ``advance``.
+``decode(mode=...)``; the state archs do read-only chain verification
+in ``decode`` and commit the accepted prefix with ``advance``.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
 from repro_torch.models import dense as dn
+from repro_torch.models import griffin as gf
 from repro_torch.models import rwkv6 as rw
 
 
@@ -46,7 +47,18 @@ class DecodeOut(NamedTuple):
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     if cfg.arch_type == "ssm":
         return rw.init_params(cfg, seed, device)
+    if cfg.arch_type == "hybrid":
+        return gf.init_params(cfg, seed, device)
     return dn.init_params(cfg, seed, device)
+
+
+def unstacked_layers(cfg: ModelConfig) -> int:
+    """How many trailing entries of ``params["layers"]`` the reference
+    keeps unstacked: Griffin's remainder layers (weight decay follows
+    the reference's leaf rank, ``train.optimizer``); 0 otherwise."""
+    if cfg.arch_type != "hybrid":
+        return 0
+    return len(gf.superblock_decomp(cfg.layer_kinds())[2])
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -56,15 +68,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     [L, NumPages, block, ...] plus per-slot page tables (page 0 is the
     null page, so ``num_pages`` defaults to ``batch * S_max/block + 1``);
     otherwise per-row K/V [L, B, max_len, ...], views over block-rounded
-    rows (``kvcache.cache.init_contiguous_kv``).  The state arch keeps
-    its O(1) recurrent state instead (no paging)."""
+    rows (``kvcache.cache.init_contiguous_kv``).  The state archs keep
+    their bounded recurrent state (Griffin: and its rolling attention
+    windows) instead, with no paging."""
     dev = resolve_device(device)
     dtype = cm.dt(cfg.dtype)
-    if cfg.arch_type == "ssm":
+    if cfg.arch_type in ("ssm", "hybrid"):
         if paged:
             raise ValueError("paged KV is attention-only (state archs keep "
                              "O(1) state)")
-        return rw.init_state(cfg, batch, dtype, dev)
+        init = rw.init_state if cfg.arch_type == "ssm" else gf.init_state
+        return init(cfg, batch, dtype, dev)
     dn._check_dense(cfg)
     l_attn = cfg.num_layers
     hk, dh = cfg.num_kv_heads, cfg.head_dim_
@@ -107,14 +121,19 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *,
     ``length``; the logits are row b's at ``t_valid[b] - 1`` (the fused
     multi-row prefill packs cursors of unequal chunks so)."""
     b, t = tokens.shape
+    if cfg.arch_type in ("ssm", "hybrid") and t_valid is not None:
+        raise ValueError("ragged prefill is attention-arch only")
     if cfg.arch_type == "ssm":
-        if t_valid is not None:
-            raise ValueError("ragged prefill is attention-arch only")
         h, feats, cache = rw.forward(cfg, params, tokens, cache)
         logits = rw.lm_head(cfg, params, h[:, -1:])[:, 0]
         return logits, Features(*feats), cache
     positions = cache["length"][:, None] + torch.arange(
         t, device=tokens.device, dtype=torch.int32)[None]
+    if cfg.arch_type == "hybrid":
+        h, feats, cache = gf.forward(cfg, params, tokens, positions, cache,
+                                     mode="advance")
+        logits = gf.lm_head(cfg, params, h[:, -1:])[:, 0]
+        return logits, Features(*feats), cache
     hh = dn.embed_tokens(cfg, params, tokens)
     out = dn.trunk_fwd(cfg, params["layers"], hh, positions, mode="prefill",
                        cache=cache, spec=spec or SpecPVConfig(), plain=plain,
@@ -139,8 +158,9 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
     place through the page table (zero-copy, ``pkv`` = the tail buffer)
     or from the gathered body (``pkv`` = the tail buffer and the body
     [L, B, NS*block, Hk, Dh])).  ``plain``: see ``prefill``.  The state
-    arch always does read-only chain verification: the state is left as
-    it was and ``new_kv`` is None."""
+    archs always do read-only chain verification (Griffin's attention
+    over its window and the chain, by ``self_mask``): the state is left
+    as it was and ``new_kv`` is None."""
     b, t = tokens.shape
     if cfg.arch_type == "ssm":
         h, feats, _ = rw.forward(cfg, params, tokens, cache, update=False)
@@ -149,6 +169,10 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                        device=tokens.device))
         self_mask = causal[None].expand(b, t, t)
+    if cfg.arch_type == "hybrid":
+        h, feats, _ = gf.forward(cfg, params, tokens, positions, cache,
+                                 mode="verify", self_mask=self_mask)
+        return DecodeOut(gf.lm_head(cfg, params, h), Features(*feats), None)
     h = dn.embed_tokens(cfg, params, tokens)
     trunk_mode = {"full": "decode_full", "partial": "decode_partial",
                   "fused": "decode_fused"}[mode]
@@ -165,11 +189,20 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
 def advance(cfg: ModelConfig, params, tokens, cache, valid):
     """State archs: commit accepted tokens [B, T] (``valid`` [B, T] is a
     prefix mask; padding leaves the state as it was) into the recurrent
-    state, in place.  Returns the cache with the advanced length."""
-    if cfg.arch_type != "ssm":
+    state, in place.  Returns the cache with the advanced length.
+    Griffin's tokens sit at ``length + cumsum(valid) - 1`` (clamped at
+    0), as in the reference."""
+    if cfg.arch_type == "ssm":
+        _, _, cache = rw.forward(cfg, params, tokens, cache, valid=valid,
+                                 collect_features=False)
+        return cache
+    if cfg.arch_type != "hybrid":
         raise ValueError("attention archs commit KV explicitly "
                          "(repro_torch.core.verify)")
-    _, _, cache = rw.forward(cfg, params, tokens, cache, valid=valid,
+    positions = torch.clamp(cache["length"][:, None] + torch.cumsum(
+        valid.to(torch.int32), dim=1, dtype=torch.int32) - 1, min=0)
+    _, _, cache = gf.forward(cfg, params, tokens, positions, cache,
+                             mode="advance", valid=valid,
                              collect_features=False)
     return cache
 
@@ -226,7 +259,9 @@ def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
     loss summed over the MoE layers (0 for a dense target).  RWKV-6: a
     read-only forward from the zero state (under autograd its WKV
     recurrence is the plain chunked step loop, ``rwkv6.wkv_train``), then
-    ``chunked_lm_loss``; returns (loss, {"lm_loss"})."""
+    ``chunked_lm_loss``; returns (loss, {"lm_loss"}).  Griffin: the
+    trunk's train mode (windowed attention, the RG-LRU as the chunked
+    plain scan), then ``chunked_lm_loss``; returns (loss, {"lm_loss"})."""
     if extra:
         raise NotImplementedError("VLM and audio inputs come with "
                                   "ROADMAP.md queue 1, 'VLM and audio'")
@@ -238,9 +273,14 @@ def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
                              collect_features=False)
         loss = chunked_lm_loss(cfg, params, h, lbl)
         return loss, {"lm_loss": loss}
-    dn._check_dense(cfg)
     positions = torch.arange(s - 1, device=tokens.device)[None].expand(
         b, s - 1)
+    if cfg.arch_type == "hybrid":
+        h, _, _ = gf.forward(cfg, params, inp, positions, None, mode="train",
+                             collect_features=False)
+        loss = chunked_lm_loss(cfg, params, h, lbl)
+        return loss, {"lm_loss": loss}
+    dn._check_dense(cfg)
     h = dn.embed_tokens(cfg, params, inp)
     out = dn.trunk_fwd(cfg, params["layers"], h, positions, mode="train",
                        collect_features=False)

@@ -155,6 +155,33 @@ def update_slice_rows(buf, new, start, axis: int, batch_axis: int = 0):
 NEG_INF = -1e30
 
 
+def ckpt_chunked_scan(step, init, xs, *, chunk: int = 256):
+    """A plain scan over the leading (time) axis of every tensor in the
+    tuple ``xs``: ``carry, y = step(carry, x_t)``.  Returns (the last
+    carry, the ys stacked along time).  When autograd records, the steps
+    run in segments of ``chunk``, each under ``torch.utils.checkpoint``
+    (recomputed in the backward pass, so O(T/chunk + chunk) carries stay
+    live), as the reference's ``ckpt_chunked_scan`` does; otherwise as
+    one loop.  Every step must be out of place."""
+    def segment(carry, *seg):
+        ys = []
+        for t in range(seg[0].shape[0]):
+            carry, y = step(carry, tuple(x[t] for x in seg))
+            ys.append(y)
+        return carry, torch.stack(ys)
+
+    t = xs[0].shape[0]
+    if not torch.is_grad_enabled() or t <= chunk:
+        return segment(init, *xs)
+    carry, ys = init, []
+    for c0 in range(0, t, chunk):
+        carry, y = torch.utils.checkpoint.checkpoint(
+            segment, carry, *(x[c0:c0 + chunk] for x in xs),
+            use_reentrant=False)
+        ys.append(y)
+    return carry, torch.cat(ys)
+
+
 def repeat_kv(k, n_rep: int):
     """[B, S, Hk, Dh] -> [B, S, Hk*n_rep, Dh]"""
     if n_rep == 1:
@@ -165,13 +192,15 @@ def repeat_kv(k, n_rep: int):
 
 
 def flash_attention(q, k, v, *, q_positions, kv_positions,
-                    causal: bool = True, kv_valid=None, chunk: int = 512,
-                    return_partials: bool = False, q_chunk: int = 512):
+                    causal: bool = True, window: int = 0, kv_valid=None,
+                    chunk: int = 512, return_partials: bool = False,
+                    q_chunk: int = 512):
     """Chunked online-softmax attention over KV tiles of ``chunk`` keys
     (the reference's flash recurrence, as a plain loop).
 
     q: [B, T, H, Dh]; k/v: [B, S, Hk, Dh]; q_positions: [B, T];
-    kv_positions: [B, S]; kv_valid: [B, S] bool.  Returns the partials
+    kv_positions: [B, S]; kv_valid: [B, S] bool; ``window`` > 0 keeps
+    the keys with kv_pos > q_pos - window (a sliding window).  Returns the partials
     (m, l [B, H, T], acc [B, H, T, Dh]) fp32, or the normalised
     [B, T, H, Dh] output in q's dtype.  A normalised call of more than
     ``q_chunk`` queries runs the reference's outer loop over query tiles
@@ -184,8 +213,8 @@ def flash_attention(q, k, v, *, q_positions, kv_positions,
         def tile(qc, pc):
             return flash_attention(qc, k, v, q_positions=pc,
                                    kv_positions=kv_positions, causal=causal,
-                                   kv_valid=kv_valid, chunk=chunk,
-                                   q_chunk=q_chunk)
+                                   window=window, kv_valid=kv_valid,
+                                   chunk=chunk, q_chunk=q_chunk)
         outs = []
         for q0 in range(0, t, q_chunk):
             args = (q[:, q0:q0 + q_chunk], q_positions[:, q0:q0 + q_chunk])
@@ -209,6 +238,9 @@ def flash_attention(q, k, v, *, q_positions, kv_positions,
         ok = kv_valid[:, c0:c0 + chunk][:, None, None, :]
         if causal:
             ok = ok & (pc[:, None, None, :] <= q_positions[:, None, :, None])
+        if window > 0:
+            ok = ok & (pc[:, None, None, :]
+                       > q_positions[:, None, :, None] - window)
         logits = torch.einsum("bthd,bshd->bhts", qf, kc)
         logits = torch.where(ok, logits, torch.full_like(logits, NEG_INF))
         m_new = torch.maximum(m, logits.amax(dim=-1))

@@ -55,6 +55,9 @@ from repro_torch.models import common as cm
 # ---------------------------------------------------------------------------
 
 def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.arch_type == "hybrid":
+        raise ValueError(f"{cfg.name}: a hybrid stack runs the Griffin "
+                         f"trunk (models/griffin.py), not the dense one")
     stack = ((cfg.arch_type == "dense" and not cfg.num_experts)
              or (cfg.arch_type == "moe" and cfg.num_experts > 0))
     if not stack or cfg.window_size:

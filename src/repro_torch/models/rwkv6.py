@@ -30,7 +30,6 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -139,36 +138,27 @@ def _shift_state(x, ts, last_idx):
 WKV_TRAIN_CHUNK = 256   # steps per recomputed segment (ckpt_chunked_scan)
 
 
-def _wkv_segment(r, k, v, w, u, s):
-    """The plain recurrence over one segment, out of place: r/k/v/w
-    [B, T, H, dk] fp32, u [H, dk], s [B, H, dk, dk] fp32.  Returns
-    (y [B, T, H, dk], s)."""
-    uu = u[None, :, :, None]
-    ys = []
-    for t in range(r.shape[1]):
-        kv = k[:, t, :, :, None] * v[:, t, :, None, :]
-        ys.append(torch.einsum("bhi,bhij->bhj", r[:, t], s + uu * kv))
-        s = w[:, t, :, :, None] * s + kv
-    return torch.stack(ys, dim=1), s
-
-
 def wkv_train(r, k, v, w, u, s0, chunk: int = WKV_TRAIN_CHUNK):
     """The WKV recurrence under autograd, every step valid: the plain
-    step loop in segments of ``chunk`` steps, each under
-    ``torch.utils.checkpoint`` (its steps recomputed in the backward
-    pass, so O(T/chunk + chunk) states stay live), with the state in
-    fp32 and no in-place writes.  The counterpart of the reference's
-    training scan (``ckpt_chunked_scan`` in ``_time_mix``), not of K5.
-    Returns (y [B, T, H, dk], s [B, H, dk, dk])."""
-    s = s0.float()
-    ys = []
-    for c0 in range(0, r.shape[1], chunk):
-        sl = slice(c0, c0 + chunk)
-        y, s = torch.utils.checkpoint.checkpoint(
-            _wkv_segment, r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, s,
-            use_reentrant=False)
-        ys.append(y)
-    return torch.cat(ys, dim=1), s
+    step loop (``models.common.ckpt_chunked_scan``: segments of
+    ``chunk`` steps, each recomputed in the backward pass, so
+    O(T/chunk + chunk) states stay live), with the state in fp32 and no
+    in-place writes.  The counterpart of the reference's training scan
+    (``ckpt_chunked_scan`` in ``_time_mix``), not of K5.  r/k/v/w
+    [B, T, H, dk] fp32, u [H, dk], s0 [B, H, dk, dk].  Returns
+    (y [B, T, H, dk], s [B, H, dk, dk])."""
+    uu = u[None, :, :, None]
+
+    def step(s, x):
+        r_t, k_t, v_t, w_t = x
+        kv = k_t[..., None] * v_t[..., None, :]
+        y = torch.einsum("bhi,bhij->bhj", r_t, s + uu * kv)
+        return w_t[..., None] * s + kv, y
+
+    s, ys = cm.ckpt_chunked_scan(
+        step, s0.float(), tuple(x.transpose(0, 1) for x in (r, k, v, w)),
+        chunk=chunk)
+    return ys.transpose(0, 1), s
 
 
 def _time_mix(cfg: ModelConfig, lp, x, ts, wkv, n_valid, last_idx,

@@ -10,7 +10,7 @@
   prompt length and run as fixed-size waves through the port's
   ``generate`` on a contiguous greedy engine, as in the reference, which
   ignores the requests' sampling fields; a state architecture
-  (``rwkv6-3b``) always serves this way, since continuous batching
+  (``rwkv6-3b``, ``recurrentgemma-2b``) always serves this way, since continuous batching
   drives the attention automaton.
 
 Runs on ``device`` (CUDA unless ``"cpu"`` is asked for), where the

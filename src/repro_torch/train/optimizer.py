@@ -14,7 +14,10 @@ so its ``p.ndim >= 2`` test decays every per-layer norm; the port keeps
 a per-layer list, in which ``norm1`` is [d].  A leaf inside a list
 (the port's stacked axis) therefore counts one rank more: per-layer
 norms are decayed, the top-level ``final_norm`` and the draft's
-unstacked ``layer/norm1`` are not.
+unstacked ``layer/norm1`` are not.  Griffin's remainder layers are
+unstacked in the reference (``rem``): ``adamw_update``'s
+``unstacked_layers`` names how many trailing entries of ``layers``
+count at their own rank.
 """
 from __future__ import annotations
 
@@ -88,10 +91,12 @@ def cosine_schedule(step: int, *, base_lr: float, warmup: int, total: int,
 
 def adamw_update(params, grads, opt: OptState, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1) -> Tuple[Any, OptState]:
+                 weight_decay: float = 0.1,
+                 unstacked_layers: int = 0) -> Tuple[Any, OptState]:
     """One AdamW step, in place: the parameters and moments are updated
     where they live and returned with the advanced state.  ``lr`` is a
-    float32 scalar (``cosine_schedule``)."""
+    float32 scalar (``cosine_schedule``); the last ``unstacked_layers``
+    entries of ``params["layers"]`` decay by their own rank."""
     step = opt.step + 1
     f32 = np.float32
     b1c = float(f32(1.0) - f32(b1) ** f32(step))
@@ -108,6 +113,12 @@ def adamw_update(params, grads, opt: OptState, *, lr, b1: float = 0.9,
             delta = delta + weight_decay * p32
         p.copy_((p32 - lr * delta).to(p.dtype))
 
+    trees = (params, grads, opt.mu, opt.nu)
     with torch.no_grad():
-        tree_map(upd, params, grads, opt.mu, opt.nu)
+        if unstacked_layers:
+            cut = len(params["layers"]) - unstacked_layers
+            for lay in zip(*(t["layers"][cut:] for t in trees)):
+                tree_map(upd, *lay)         # a dict: stacked=False
+            trees = tuple(dict(t, layers=t["layers"][:cut]) for t in trees)
+        tree_map(upd, *trees)
     return params, OptState(step=step, mu=opt.mu, nu=opt.nu)

@@ -58,12 +58,13 @@ def grads_of(params):
 
 
 def optimizer_step(params, opt, max_grad_norm: float, lr,
-                   weight_decay: float):
+                   weight_decay: float, unstacked_layers: int = 0):
     """Clip the gradients ``backward`` left and apply AdamW, in place.
     Returns (opt, grad norm as a 0-dim tensor)."""
     grads, gnorm = clip_by_global_norm(grads_of(params), max_norm=max_grad_norm)
     params, opt = adamw_update(params, grads, opt, lr=lr,
-                               weight_decay=weight_decay)
+                               weight_decay=weight_decay,
+                               unstacked_layers=unstacked_layers)
     for p in tree_leaves(params):
         p.grad = None
     return opt, gnorm
@@ -109,7 +110,8 @@ class Trainer:
                              warmup=tc.warmup, total=tc.total_steps)
         self.opt, gnorm = optimizer_step(self.params, self.opt,
                                          tc.max_grad_norm, lr,
-                                         tc.weight_decay)
+                                         tc.weight_decay,
+                                         api.unstacked_layers(self.cfg))
         return {"grad_norm": gnorm, "lr": lr}
 
     def step(self, tokens: torch.Tensor) -> Dict[str, Any]:

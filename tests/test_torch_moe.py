@@ -470,15 +470,29 @@ def test_train_loss_and_grads_match_jax(setup):
 
 @pytest.mark.parametrize("arch", ["hybrid", "vlm", "audio", "windowed"])
 def test_other_architectures_still_refused(setup, arch):
-    """The trunk and the engine admit dense and MoE stacks only: the
-    other architectures raise NotImplementedError naming their ROADMAP
-    item."""
+    """The dense trunk admits dense and MoE stacks only: VLM and audio
+    (the engine too) and a windowed MoE stack raise NotImplementedError
+    naming their ROADMAP item; a hybrid stack is refused by the dense
+    trunk, which points to the Griffin trunk, and the engine takes one
+    built with Griffin params."""
     from repro_torch.models import dense as tdn
     s = setup
+    if arch == "hybrid":
+        cfg = tcfgs.get_config("recurrentgemma-2b").reduced().replace(**F32)
+        with pytest.raises(ValueError, match="models/griffin.py"):
+            tdn._check_dense(cfg)
+        tp = tapi.init_params(cfg, seed=0, device="cpu")
+        from repro_torch.core.draft import init_draft_params
+        td = init_draft_params(cfg, s["tdcfg"], seed=1, device="cpu")
+        eng = TEngine(cfg, s["tspec"], s["tdcfg"], tp, td, batch=1,
+                      max_len=64, device="cpu")
+        assert not eng.is_attn and eng.mode_for(1, 10_000, False) == "state"
+        return
     cfg = (s["tcfg"].replace(window_size=128) if arch == "windowed"
            else s["tcfg"].replace(arch_type=arch, num_experts=0,
                                   experts_per_token=0))
-    item = "Griffin" if arch in ("hybrid", "windowed") else "VLM and audio"
+    item = ("Windowed dense stacks" if arch == "windowed"
+            else "VLM and audio")
     with pytest.raises(NotImplementedError, match=f"'{item}'"):
         tdn._check_dense(cfg)
     if arch != "windowed":

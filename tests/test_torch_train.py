@@ -304,13 +304,18 @@ def test_draft_ttt_loss_and_trainer_match_jax(tiny):
 
 
 def test_train_loss_refuses_other_architectures():
-    """Dense, MoE and RWKV-6 targets train (``rwkv6-3b`` since it was
-    ported: ``tests/test_torch_rwkv.py``); a hybrid stack and VLM or
-    audio inputs raise naming their ROADMAP item."""
+    """Dense, MoE, RWKV-6 and Griffin targets train (``rwkv6-3b`` and
+    ``recurrentgemma-2b`` since they were ported:
+    ``tests/test_torch_rwkv.py``, ``tests/test_torch_griffin.py``): the
+    reduced Griffin's loss is finite near log V; VLM or audio inputs
+    raise naming their ROADMAP item."""
     toks = torch.zeros((1, 8), dtype=torch.long)
-    cfg = tcfgs.get_config("tiny-dense").replace(arch_type="hybrid")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*'Griffin'"):
-        tapi.train_loss(cfg, {}, toks)
+    cfg = tcfgs.get_config("recurrentgemma-2b").reduced()
+    loss, metrics = tapi.train_loss(
+        cfg, tapi.init_params(cfg, seed=0, device="cpu"),
+        torch.arange(40).reshape(2, 20) % cfg.vocab_size)
+    assert set(metrics) == {"lm_loss"}
+    assert abs(float(loss.detach()) - np.log(cfg.vocab_size)) < 1.0
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.*'VLM and audio'"):
         tapi.train_loss(tcfgs.get_config("tiny-dense"), {}, toks,
