@@ -209,10 +209,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    from phase 13 (b)'s tiered run, ``moe_launches`` and
    ``moe_serving_launches`` from phase 14, ``registry_launches`` from
    phase 15 (a)'s graph run, ``griffin_launches`` (0: no kernel is on
-   that path) from phase 16 (a)'s; phases 8 and 9's call forms and
-   phase 2's forms of this slice under ``shapes``), the card's name and
-   power limit, and the final ``{"ok": true, ...}`` line.  It comes
-   last: phases 13-16 run before it;
+   that path) from phase 16 (a)'s, ``audio_launches`` and
+   ``vlm_launches`` from phase 17 (a) and (b)'s graph runs; phases 8 and
+   9's call forms and phase 2's forms of this slice under ``shapes``),
+   the card's name and power limit, and the final ``{"ok": true, ...}``
+   line.  It comes last: phases 13-17 run before it;
 13. tiered KV residency (slice 13), llama3.1-8b at full width (32
    layers, bf16, random weights from seed 0) on the gathered paged
    layout.  (a) Batch 1, the 8192-token prompt, a forced schedule
@@ -300,7 +301,40 @@ Phases, in order (any failure raises and the script exits non-zero):
    1024 and 1536 prompt tokens, 16 new each, batch 2) at (b)'s model:
    each equals its solo ``generate``.  (d) One ``Trainer`` step at full
    width and 3 layers (rec, rec, attn), batch 1, S = 2560 (the window
-   bites), after a warm-up step: ms per step, peak memory.
+   bites), after a warm-up step: ms per step, peak memory;
+17. VLM and audio (slice 17): per-request conditioning (``extra``: stub
+   image patch or audio frame embeddings from a seeded generator) on the
+   paged zero-copy pool with prefix sharing off (it cannot key
+   ``extra``), random weights from seeds, the VLM's cross-attention
+   gates drawn in [0.3, 0.7] (the reference's 0 makes a ``cross`` layer
+   the identity).  (a) whisper-small at full width and depth (12
+   encoder and 12 decoder layers, d 768, 12/12 heads of Dh 64, 1500
+   frames, vocab 51865 tied, bf16), batch 1, an 8192-token prompt (the
+   registry's rope stands in for Whisper's 448 learned positions), 128
+   new tokens: ``generate(extra=)`` eagerly and with graphs (equal
+   tokens and launch counts), K1-K4 launched as the steps and chunks
+   imply over the 12 attention layers, final summaries against the
+   plain version, the graph run profiled (device busy ms and launches
+   per step, host launch calls, idle share with and without the
+   profiler, tokens/s, prefill s, peak memory), the request's encoding
+   timed (the encoder and every cross layer's K/V, CUDA events), the
+   eager bodies under the sync check.  (b) llama-3.2-vision-90b at full
+   width (d 8192, 64/8 heads, d_ff 28672, vocab 128256 untied, 1600
+   image tokens of width 1280) at the deepest whole number of (attn x4,
+   cross) superblocks whose reckoned memory leaves 6 GiB of the card
+   free (printed first): the same cell with graphs, K1-K4 over its
+   attention layers, then an eager engine's bodies under the sync
+   check.  (c) fp32, TF32 off, a 2304-token prompt, 32 new tokens, the
+   partial budget cut to 1408 tokens: whisper-small at full depth and
+   the VLM at full width with 5 layers; full verification with graphs
+   equals ``autoregressive_generate(extra=)``, partial verification with
+   graphs equals its eager run (agreement with AR reported), another
+   ``extra`` moves the first token's logits.  (d) whisper-small fp32:
+   three requests with their own frames admitted with
+   ``prefill_into_slot(extra=)`` at batch 3 (the third while the first
+   two decode) and stepped with ``step_fused`` to the end, with graphs,
+   each equal to its solo ``generate(extra=)``.  Phase 2 holds K1-K4 at
+   both models' heads to their plain versions, timed.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1498,15 +1532,16 @@ def compare_runs(card, name, runs):
 
 
 def check_sync_free(torch, card, eng, prompt,
-                    modes=("full", "refresh", "partial")):
-    """After a prefill of ``prompt``, one eager run of the body of each
+                    modes=("full", "refresh", "partial"), extra=None):
+    """After a prefill of ``prompt`` (conditioned on ``extra`` for a VLM
+    or audio target), one eager run of the body of each
     step variant in ``modes`` (an engine whose ``max_len`` is under the
     partial budget runs Full steps only) and of the 256-token prefill
     chunk's under ``torch.cuda.set_sync_debug_mode("error")``, which
     raises on any operation that waits for the card (a host read, a copy
     from pageable memory): what a graph captures must not sync."""
     from repro_torch.core.engine import MODE_IDS
-    st = eng.prefill(prompt)
+    st = eng.prefill(prompt, extra=extra)
     toks = eng._chunk_buf(eng.batch, 256)
     if eng.is_attn:
         eng._rows.fill_(True)
@@ -1641,7 +1676,7 @@ def _named_ms(prof, kernel):
 def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
                   kernel: str = "", refresh: bool = False,
                   prefill_kernel: str = "", label: str = "",
-                  prefill: bool = True):
+                  prefill: bool = True, extra=None):
     """Where the time goes.  The fresh prefill runs under
     ``torch.profiler`` (its device busy time and span, the device time
     of the kernels named ``prefill_kernel`` or else ``kernel``, and its
@@ -1656,18 +1691,19 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
     step (the profiler slows the host, not the card).  With ``refresh``,
     two forced Refresh steps follow under the profiler: their device busy
     time and the share of it in ``kernel``.  With ``prefill=False`` the
-    prefill runs unprofiled.  Returns the numbers."""
+    prefill runs unprofiled.  ``extra``: a VLM or audio target's
+    conditioning.  Returns the numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     if not prefill:
         out = {}
-        st = eng.prefill(prompt)
+        st = eng.prefill(prompt, extra=extra)
         torch.cuda.synchronize()
     else:
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            st = eng.prefill(prompt)
+            st = eng.prefill(prompt, extra=extra)
             torch.cuda.synchronize()
             pre_wall = time.perf_counter() - t0
         busy, span = _device_busy(prof)
@@ -6026,9 +6062,485 @@ def phase_griffin(torch, card):
                 total_s=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: VLM and audio (per-request image and frame conditioning)
+# ---------------------------------------------------------------------------
+
+AUDIO = "whisper-small"                 # 12 + 12 layers, 12/12 heads, Dh 64
+VLM = "llama-3.2-vision-90b"            # 64/8 heads, Dh 128, cross every 5th
+XATTN_LAYOUT = dict(paged=True, zero_copy=True, prefix_cache=False)
+XATTN_PROFILE_STEPS = 4
+VLM_MARGIN_GIB = 6.0                    # the card left free at the depth run
+XATTN_LOSSLESS_PROMPT, XATTN_LOSSLESS_NEW = 2304, 32
+XATTN_LOSSLESS_LAYERS = 5               # the VLM's one superblock in fp32
+# a partial budget of (1 + 8 + 2) blocks = 1408 tokens, under (c)'s prompt,
+# so the fp32 runs Refresh and Partial steps (the paper's 4480 would not)
+XATTN_LOSSLESS_RETRIEVAL = 8
+XATTN_SERVE = ((1500, 24), (2000, 32), (1700, 24))
+
+
+def _vlm_audio_kernel_checks(torch, card, timer):
+    """Phase 2, the call forms of slice 17: K1-K4 at llama-3.2-vision-90b's
+    heads (H=64, Hk=8: 8 query heads per KV head, Dh 128) and
+    whisper-small's (H=Hk=12, Dh 64), block 128, bf16, over 8192 tokens:
+    K1 Full T=61, Refresh T=156 and routed Partial NS=35 T=61, K2 a
+    prefill chunk T=256 at qoff 7936, K3 a Refresh T=156 over 66 blocks,
+    K4's paged form over every attention layer (28 of the VLM's 35, 12).
+    Each is held to its plain version (K4 bit for bit), timed beside its
+    bound and SDPA (K4: ``torch.aminmax``).  Returns {kernel: {label:
+    row}}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1700)
+    out = {k: {} for k in LLAMA_KERNELS}
+    for heads, layers, tag in (((64, 8, 128), 28, VLM),
+                               ((12, 12, 64), 12, AUDIO)):
+        h, hk, dh = heads
+        g = f"H={h} Hk={hk} Dh={dh} ({tag})"
+        kw = dict(h=h, hk=hk, dh=dh)
+        for label, name, case in (
+                (f"K1 full T=61 ctx=8229 {g}", "sparse_verify_attention",
+                 dict(t=61, ctx=8229)),
+                (f"K1 refresh T=156 ctx=8229 {g}", "sparse_verify_attention",
+                 dict(t=156, ctx=8229)),
+                (f"K1 routed NS=35 T=61 {g}", "sparse_verify_attention",
+                 dict(t=61, ctx=8229, routed_ns=35)),
+                (f"K2 prefill T=256 qoff=7936 {g}",
+                 "paged_prefill_attention",
+                 dict(t=256, ctx=8192, causal_qoff=7936))):
+            res = {}
+            _attn_check(torch, card, timer, gen, res, label, name, **case,
+                        **kw)
+            out[name][label] = res[name]
+        label = f"K3 Refresh T=156 NB=66 {g} bf16"
+        out["retrieval_score"][label] = _score_row(
+            torch, card, timer, gen, label, 156, 66, torch.bfloat16, h, hk,
+            dh)
+        k4, start, end, n_touch = K4_PAGED_SHAPES[0]
+        row = _paged_summary_case(torch, card, timer, gen, torch.bfloat16,
+                                  k4, start, end, n_touch, layers=layers,
+                                  hk=hk, dh=dh)
+        out["block_summary"][f"K4 paged {k4} L={layers} {g} bf16"] = dict(
+            max_abs_err=0.0, timing="profiler", **row)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _set_gates(torch, params, seed):
+    """The VLM's cross-attention gates from a seeded draw in [0.3, 0.7]:
+    the reference initialises them to 0, which makes every ``cross``
+    layer the identity and would hide the image path."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    n = 0
+    for lp in params["layers"]:
+        for name in ("gate_attn", "gate_mlp"):
+            if name in lp:
+                lp[name].fill_(0.3 + 0.4 * float(torch.rand(
+                    (), generator=gen, device="cuda")))
+                n += 1
+    return n
+
+
+def _xattn_model(torch, card, arch, dtype="bfloat16", layers=None, seed=0,
+                 prompt_len=PROMPT_LEN, spec=None):
+    """``arch`` at full width with random weights (gates set), the draft,
+    a prompt and the request's stub ``extra`` from a seeded generator."""
+    from repro_torch.models import api
+    cfg, spec0, dcfg, params, dparams, prompt = _full_width(
+        torch, card, arch, dtype, seed=seed, prompt_len=prompt_len,
+        prompt_seed=seed + 1, layers=layers)
+    _set_gates(torch, params, seed + 7)
+    extra = api.extra_inputs_for(cfg, 1, seed=seed + 11, device="cuda")
+    return cfg, spec or spec0, dcfg, params, dparams, prompt, extra
+
+
+def _encoder_ms(torch, eng, extra):
+    """Device ms (CUDA events, mean of 3 after a warm-up) of a request's
+    encoding: the encoder (or the projector) and every cross layer's K/V,
+    written into the engine's rows of slot 0 as at an admission."""
+    from repro_torch.models import api
+    rows = [eng.state.cache[n][:, :1] for n in ("cross_k", "cross_v")]
+
+    def run():
+        api.write_cross(eng.cfg, eng.params, *rows, extra)
+    run()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(3):
+        run()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / 3
+
+
+def _xattn_generate(torch, card, cfg, spec, dcfg, params, dparams, prompt,
+                    extra, new, name, modes=(False, True)):
+    """``generate(extra=)`` on the paged zero-copy pool (prefix sharing
+    off: it cannot key ``extra``) for each graph mode in ``modes``: K1-K4
+    launches above 0 and held to the steps and chunks, final summaries to
+    the plain version, tokens in range; the graph run profiled (decode
+    window, prefill unprofiled), the eager one's bodies under the sync
+    check; graphs == eager when both run.  Returns the runs' numbers."""
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.kernels import ops
+    prompt_len = prompt.shape[1]
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    runs = {}
+    for graphs in modes:
+        t_run = time.perf_counter()
+        label = f"{name} {RUN_LABEL[graphs]}"
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, device="cuda",
+                           cuda_graphs=graphs, **XATTN_LAYOUT)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, stats = eng.generate(prompt, new, extra=extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        memory_line(torch, card, label, eng, params, dparams, peak)
+        decode_s = wall - stats["prefill_s"]
+        steps = max(stats["steps"], 1)
+        say(card, f"generate [{label}] ({cfg.num_layers} layers "
+                  f"{eng.l_attn} with self-attention, {cfg.dtype}, random "
+                  f"weights, extra {sorted(extra)}) prompt {prompt_len} new "
+                  f"{new}: modes {stats['modes']} steps {stats['steps']} "
+                  f"mean_accept {stats['mean_accept']:.4f} wall_s "
+                  f"{wall:.3f} (prefill_s {stats['prefill_s']:.3f} decode_s "
+                  f"{decode_s:.3f}, ms/step {decode_s * 1e3 / steps:.2f}) "
+                  f"tokens_per_s {new / wall:.2f} peak_mem_gib {peak:.2f} "
+                  f"capture_s {eng.capture_s:.3f} graphs "
+                  f"{sorted(map(str, eng._graphs))} launches {launches}")
+        if not (stats["modes"].get("refresh")
+                and stats["modes"].get("partial")):
+            raise AssertionError(f"{label}: Refresh and Partial steps must "
+                                 f"both run: {stats['modes']}")
+        chunks = -(-prompt_len // 256)
+        refresh = stats["modes"].get("refresh", 0)
+        commits = refresh + stats["modes"].get("full", 0)
+        la = eng.l_attn
+        want = {"sparse_verify_attention": la * stats["steps"],
+                "paged_prefill_attention": la * chunks,
+                "retrieval_score": la * refresh,
+                "block_summary": chunks + commits}
+        got = {k: launches[k] for k in want}
+        if got != want or min(got.values()) <= 0:
+            raise AssertionError(f"{label}: launches {got} != {want} implied "
+                                 f"by {stats['steps']} steps and {chunks} "
+                                 f"chunks over {la} attention layers")
+        want_graphs = {("prefill", 256), (True, False, True, False, False),
+                       (False, True, False, False, False)}
+        if graphs and set(eng._graphs) != want_graphs:
+            raise AssertionError(f"{label}: graphs captured: "
+                                 f"{sorted(map(str, eng._graphs))}")
+        _check_final_summaries(torch, card, eng.final_state.cache)
+        if toks.shape != (1, new) or toks.min() < 0 \
+                or toks.max() >= cfg.vocab_size:
+            raise AssertionError(f"{label}: tokens out of range: {toks}")
+        eng.final_state = None
+        enc_ms = _encoder_ms(torch, eng, extra)
+        run = dict(toks=toks, launches=launches, wall_s=wall,
+                   tokens_per_s=new / wall, prefill_s=stats["prefill_s"],
+                   decode_ms_step=decode_s * 1e3 / steps, peak_gib=peak,
+                   capture_s=eng.capture_s, steps=stats["steps"],
+                   modes=stats["modes"], encoder_ms=enc_ms,
+                   layers=cfg.num_layers, attn_layers=la)
+        if graphs:
+            run.update(profile_steps(torch, card, eng, prompt, label=label,
+                                     steps=XATTN_PROFILE_STEPS,
+                                     prefill=False, extra=extra))
+        else:
+            check_sync_free(torch, card, eng, prompt[:, :1024], extra=extra)
+        say(card, f"{label}: encoder and cross K/V of one request "
+                  f"{enc_ms:.3f} ms (device, CUDA events); took "
+                  f"{time.perf_counter() - t_run:.1f} s")
+        runs[RUN_LABEL[graphs]] = run
+        del eng
+        torch.cuda.empty_cache()
+    if len(runs) == 2:
+        compare_runs(card, name, runs)
+    return runs
+
+
+def _vlm_params(cfg, layers) -> int:
+    """Parameters of the VLM at ``layers`` (``models.dense.init_params``:
+    every layer, self or cross, is one attention block, one gated MLP
+    and its norms), its embedding and head, and its projector."""
+    c = cfg.replace(num_layers=layers)
+    return (layers * _layer_params(c) + 2 * c.vocab_size * c.d_model
+            + c.d_model + c.vision_dim * c.d_model
+            + 2 * (layers // 5) * c.d_model)
+
+
+def _reckon_vlm_depth(torch, card, prompt_len, new):
+    """The deepest whole number of 5-layer superblocks of the VLM whose
+    weights (target and draft, bf16), paged pool of one row, cross K/V
+    rows and ``VLM_MARGIN_GIB`` fit the card's free memory.  Prints the
+    reckoning.  Returns (layers, reckoning dict)."""
+    from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
+    from repro_torch.core.draft import draft_model_config
+    from repro_torch.core.engine import request_token_need
+    cfg = get_config(VLM)
+    spec, dcfg = SpecPVConfig(), DraftConfig()
+    gib = 2.0**30
+    free, total = torch.cuda.mem_get_info()
+    d = cfg.d_model
+    draft = 2 * (5 * d * d + _layer_params(draft_model_config(cfg)) + d)
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    pages = -(-max_len // spec.block_size) + 1
+    kv_tok = 2 * cfg.num_kv_heads * cfg.head_dim_ * 2
+
+    def need(layers):
+        la, lc = layers - layers // 5, layers // 5
+        weights = 2 * _vlm_params(cfg, layers)
+        pool = (la * pages * spec.block_size * kv_tok
+                + la * pages * 2 * cfg.num_kv_heads * cfg.head_dim_ * 4)
+        cross = lc * cfg.num_image_tokens * kv_tok
+        return dict(weights_gib=weights / gib, draft_gib=draft / gib,
+                    kv_pool_gib=pool / gib, cross_rows_gib=cross / gib,
+                    total_gib=(weights + draft + pool + cross) / gib)
+    layers = 0
+    for n in range(5, cfg.num_layers + 1, 5):
+        if need(n)["total_gib"] + VLM_MARGIN_GIB <= free / gib:
+            layers = n
+    if not layers:
+        raise AssertionError(f"{VLM}: not one superblock fits "
+                             f"{free / gib:.2f} GiB free")
+    got = need(layers)
+    say(card, f"{VLM}: {layers} layers ({layers // 5} superblocks of (attn "
+              f"x4, cross)) need " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in got.items())
+              + f", leaving {free / gib - got['total_gib']:.2f} GiB of "
+              f"{free / gib:.2f} free ({total / gib:.2f} total; at least "
+              f"{VLM_MARGIN_GIB} asked); all {cfg.num_layers} layers would "
+              f"need {need(cfg.num_layers)['total_gib']:.2f} GiB")
+    return layers, dict(got, free_gib=free / gib, layers=layers,
+                        full_layers=cfg.num_layers,
+                        margin_gib=VLM_MARGIN_GIB)
+
+
+def _xattn_lossless(torch, card):
+    """(c) fp32, TF32 off, a 2304-token prompt and 32 new tokens, the
+    partial budget cut to 1408 tokens: whisper-small at full depth and
+    the VLM at full width with one superblock (5 layers).  Full
+    verification with graphs equals ``autoregressive_generate(extra=)``;
+    partial verification with graphs equals its eager run (its agreement
+    with AR reported); another ``extra`` changes the first token's
+    logits.  Returns the numbers."""
+    import numpy as np
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.core.reference import autoregressive_generate
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper",
+                        reduction="mean",
+                        retrieval_budget_blocks=XATTN_LOSSLESS_RETRIEVAL)
+    out = {}
+    for arch, layers in ((AUDIO, None), (VLM, XATTN_LOSSLESS_LAYERS)):
+        t0 = time.perf_counter()
+        cfg, spec, dcfg, params, dparams, prompt, extra = _xattn_model(
+            torch, card, arch, "float32", layers=layers, seed=2,
+            prompt_len=XATTN_LOSSLESS_PROMPT, spec=spec)
+        new = XATTN_LOSSLESS_NEW
+        max_len = request_token_need(prompt.shape[1], new, spec.buffer_size,
+                                     dcfg.tree_depth + 1)
+        ar = autoregressive_generate(cfg, params, prompt, new,
+                                     max_len=max_len, spec=spec,
+                                     device="cuda", extra=extra)
+        full = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                            max_len=max_len, partial_verification=False,
+                            device="cuda", **XATTN_LAYOUT)
+        toks_full, st_full = full.generate(prompt, new, extra=extra)
+        if not full._graphs or set(st_full["modes"]) != {"full"}:
+            raise AssertionError(f"{arch} fp32: graphs {list(full._graphs)}"
+                                 f", modes {st_full['modes']}")
+        if not np.array_equal(toks_full, ar):
+            raise AssertionError(f"{arch} fp32 full-verification SpecPV "
+                                 f"differs from AR:\n{toks_full}\n{ar}")
+        # another clip or image: other first-token logits
+        logits = []
+        for ex in (extra, api.extra_inputs_for(cfg, 1, seed=99,
+                                               device="cuda")):
+            full.prefill(prompt[:, :256], extra=ex)
+            logits.append(full._logits_last.clone())
+        moved = float((logits[0] - logits[1]).abs().max())
+        if not moved > 1e-3:
+            raise AssertionError(f"{arch}: another extra leaves the first "
+                                 f"logits ({moved:.3e})")
+        del full
+        part = {}
+        for graphs in (True, False):
+            eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                               max_len=max_len, device="cuda",
+                               cuda_graphs=graphs, **XATTN_LAYOUT)
+            part[graphs] = eng.generate(prompt, new, extra=extra)
+            del eng
+        (tg, sg), (te, _) = part[True], part[False]
+        if not np.array_equal(tg, te):
+            raise AssertionError(f"{arch} fp32 partial verification: graphs "
+                                 f"differ from eager:\n{tg}\n{te}")
+        if not (sg["modes"].get("refresh") and sg["modes"].get("partial")):
+            raise AssertionError(f"{arch} fp32: modes {sg['modes']}")
+        agree = float(np.mean(tg == ar))
+        secs = time.perf_counter() - t0
+        say(card, f"lossless {arch} x{cfg.num_layers} layers fp32 (gates "
+                  f"set), graphs: full-verify == autoregressive_generate("
+                  f"extra=) over {new} tokens of a {prompt.shape[1]}-token "
+                  f"prompt (modes {st_full['modes']}); partial run (budget "
+                  f"{spec.partial_budget_tokens}, modes {sg['modes']}) "
+                  f"graphs == eager, agrees with AR on {agree:.3f} of "
+                  f"tokens; another extra moves the first logits by "
+                  f"{moved:.3e}; {secs:.1f} s")
+        out[arch] = dict(layers=cfg.num_layers, full_modes=st_full["modes"],
+                         partial_modes=sg["modes"], agree_ar=agree,
+                         logit_move=moved, seconds=secs)
+        if arch == AUDIO:
+            out["serve"] = _xattn_served(torch, card, cfg, spec, dcfg,
+                                         params, dparams)
+        del params, dparams
+        torch.cuda.empty_cache()
+    return out
+
+
+def _xattn_served(torch, card, cfg, spec, dcfg, params, dparams):
+    """(d) whisper-small fp32 with graphs: three requests, each with its
+    own frame embeddings, admitted with ``prefill_into_slot(extra=)`` at
+    batch 3 (the third while the first two decode, so the slot prefill's
+    graph replays for another slot and another clip) and stepped with
+    ``step_fused`` to the end; each equals its solo ``generate(extra=)``.
+    Returns the numbers."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.models import api
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(17)
+    reqs = [(rng.integers(0, cfg.vocab_size, (p,)).astype(np.int64), k,
+             api.extra_inputs_for(cfg, 1, seed=40 + i, device="cuda"))
+            for i, (p, k) in enumerate(XATTN_SERVE)]
+    max_len = request_token_need(max(p for p, _ in XATTN_SERVE),
+                                 max(k for _, k in XATTN_SERVE),
+                                 spec.buffer_size, dcfg.tree_depth + 1)
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=3,
+                       max_len=max_len, device="cuda", **XATTN_LAYOUT)
+    st = eng.empty_state()
+    out = {i: [] for i in range(3)}
+    ticks = 0
+
+    def admit(i):
+        nonlocal st
+        p, k, ex = reqs[i]
+        st, first = eng.prefill_into_slot(st, i, p, extra=ex,
+                                          max_new_tokens=k)
+        out[i].append(first)
+
+    def tick():
+        nonlocal st, ticks
+        rows = np.asarray([len(out[i]) < reqs[i][1] if out[i] else False
+                           for i in range(3)])
+        st, so = eng.step_fused(st, rows, eng.modes_for_rows(st, rows))
+        ticks += 1
+        for i in np.nonzero(rows)[0]:
+            out[i].extend(so.tokens[i, :so.counts[i]].tolist())
+    admit(0)
+    admit(1)
+    for _ in range(3):
+        tick()
+    admit(2)
+    while any(len(out[i]) < reqs[i][1] for i in range(3)):
+        tick()
+    graphs = sorted(map(str, eng._graphs))
+    if not any("fused_prefill" in g for g in graphs):
+        raise AssertionError(f"no slot-prefill graph replayed: {graphs}")
+    del eng
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=max_len, device="cuda", **XATTN_LAYOUT)
+    for i, (p, k, ex) in enumerate(reqs):
+        want, _ = solo.generate(p[None], k, extra=ex)
+        if not np.array_equal(np.asarray(out[i][:k]), want[0]):
+            raise AssertionError(f"served request {i} differs from its solo "
+                                 f"generate:\n{out[i][:k]}\n{want[0]}")
+    del solo
+    secs = time.perf_counter() - t0
+    say(card, f"served {AUDIO} x{cfg.num_layers} fp32, graphs {graphs}: "
+              f"{len(reqs)} requests with their own frames (prompts "
+              f"{[p for p, _ in XATTN_SERVE]}) at batch 3 in {ticks} ticks "
+              f"each equal their solo generate(extra=); {secs:.1f} s")
+    return dict(ticks=ticks, seconds=secs)
+
+
+def phase_vlm_audio(torch, card):
+    """Phase 17: (a) whisper-small at full width and depth, eager and with
+    graphs; (b) llama-3.2-vision-90b at full width, its depth reckoned,
+    with graphs; (c) fp32 losslessness of both; (d) served == solo.
+    Returns each path's graph launches and the numbers."""
+    import gc
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    secs = {}
+    cfg, spec, dcfg, params, dparams, prompt, extra = _xattn_model(
+        torch, card, AUDIO)
+    audio = _xattn_generate(torch, card, cfg, spec, dcfg, params, dparams,
+                            prompt, extra, NEW_TOKENS, AUDIO)
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["a"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    layers, reckon = _reckon_vlm_depth(torch, card, PROMPT_LEN, NEW_TOKENS)
+    cfg, spec, dcfg, params, dparams, prompt, extra = _xattn_model(
+        torch, card, VLM, layers=layers)
+    vlm = _xattn_generate(torch, card, cfg, spec, dcfg, params, dparams,
+                          prompt, extra, NEW_TOKENS, VLM, modes=(True,))
+    # the eager bodies under the sync check, on (b)'s pool size
+    eager = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                         max_len=request_token_need(
+                             PROMPT_LEN, NEW_TOKENS, spec.buffer_size,
+                             dcfg.tree_depth + 1),
+                         device="cuda", cuda_graphs=False, **XATTN_LAYOUT)
+    check_sync_free(torch, card, eager, prompt[:, :1024], extra=extra)
+    del eager, params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fp32 = _xattn_lossless(torch, card)
+    secs["c, d"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    say(card, f"phase 17 launches ({AUDIO} graphs) "
+              f"{audio['graphs']['launches']}, ({VLM} graphs, "
+              f"{reckon['layers']} layers) {vlm['graphs']['launches']}; "
+              + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items())
+              + f"; phase 17 took {total:.1f} s")
+    keep = ("wall_s", "tokens_per_s", "prefill_s", "decode_ms_step",
+            "capture_s", "peak_gib", "steps", "modes", "encoder_ms",
+            "layers", "attn_layers", "wall_ms_step", "busy_ms_step",
+            "idle_share", "idle_share_unprofiled", "device_launches_step",
+            "host_launch_calls_step", "top_kernels", "launches")
+
+    def pick(runs):
+        return {lb: {k: r[k] for k in keep if k in r}
+                for lb, r in runs.items()}
+    return dict(audio_launches=audio["graphs"]["launches"],
+                vlm_launches=vlm["graphs"]["launches"],
+                generate={AUDIO: pick(audio), VLM: pick(vlm)},
+                vlm_reckoning=reckon, fp32=fp32, seconds=secs,
+                total_s=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,13,14,15,16",
+    ap.add_argument("--phases",
+                    default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -6039,7 +6551,9 @@ def main(argv=None) -> int:
                          "11 (sampled serving), 13 (tiered KV residency), "
                          "14 (the MoE family, granite-moe-1b-a400m), 15 "
                          "(the rest of the dense registry), 16 (Griffin, "
-                         "recurrentgemma-2b); 1 and 12 always run")
+                         "recurrentgemma-2b), 17 (VLM and audio: "
+                         "whisper-small, llama-3.2-vision-90b); 1 and 12 "
+                         "always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -6077,6 +6591,8 @@ def main(argv=None) -> int:
                       if 2 in phases else {})}
     p2r = {"shapes": (_registry_kernel_checks(torch, card, timer)
                       if 2 in phases else {})}
+    p2x = {"shapes": (_vlm_audio_kernel_checks(torch, card, timer)
+                      if 2 in phases else {})}
     p3 = phase_generate(torch, card) if 3 in phases else None
     llama = p3["launches"] if p3 else {k: 0 for k in ops.KERNELS}
     p4 = phase_lossless(torch, card) if 4 in phases else None
@@ -6102,6 +6618,8 @@ def main(argv=None) -> int:
     p15 = (phase_registry(torch, card) if 15 in phases
            else {"launches": {}})
     p16 = phase_griffin(torch, card) if 16 in phases else {"launches": {}}
+    p17 = (phase_vlm_audio(torch, card) if 17 in phases
+           else {"audio_launches": {}, "vlm_launches": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -6137,6 +6655,10 @@ def main(argv=None) -> int:
                              p15["launches"].get(name, 0)),
                          griffin_launches=int(
                              p16["launches"].get(name, 0)),
+                         audio_launches=int(
+                             p17["audio_launches"].get(name, 0)),
+                         vlm_launches=int(
+                             p17["vlm_launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -6155,9 +6677,9 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
-        # phases 8, 9, 10, 14 and 15's call forms (launches counted per
-        # kernel above)
-        for p in (p8, p9, p2t, p2m, p2r):
+        # phases 8, 9, 10, 14, 15 and 17's call forms (launches counted
+        # per kernel above)
+        for p in (p8, p9, p2t, p2m, p2r, p2x):
             for label, vals in p["shapes"].get(name, {}).items():
                 rows[-1].setdefault("shapes", []).append(dict(shape=label,
                                                               **vals))
@@ -6173,6 +6695,8 @@ def main(argv=None) -> int:
         say(card, "registry " + json.dumps(p15, default=float))
     if 16 in phases:
         say(card, "griffin " + json.dumps(p16, default=float))
+    if 17 in phases:
+        say(card, "vlm_audio " + json.dumps(p17, default=float))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

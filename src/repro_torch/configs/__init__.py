@@ -1,19 +1,21 @@
 """Architecture registry of the port.  Importing this package registers
 every config the port supports; ``ASSIGNED_ARCHS`` is the reference's
-list of assigned architectures, of which the port refuses the ids in
-``base.NOT_PORTED`` (``get_config`` raises NotImplementedError naming
-their ROADMAP item)."""
+list of assigned architectures, every one of which the port runs
+(``base.NOT_PORTED`` is empty; an id put there makes ``get_config``
+raise NotImplementedError naming its ROADMAP item)."""
 from repro_torch.configs.base import (NOT_PORTED, ModelConfig, SpecPVConfig,
                                       DraftConfig, get_config, register)
 from repro_torch.configs import dbrx_132b  # noqa: F401
 from repro_torch.configs import deepseek_7b  # noqa: F401
 from repro_torch.configs import granite_3_2b  # noqa: F401
 from repro_torch.configs import granite_moe_1b  # noqa: F401
+from repro_torch.configs import llama_3_2_vision_90b  # noqa: F401
 from repro_torch.configs import paper_models  # noqa: F401
 from repro_torch.configs import qwen1_5_32b  # noqa: F401
 from repro_torch.configs import qwen2_0_5b  # noqa: F401
 from repro_torch.configs import recurrentgemma_2b  # noqa: F401
 from repro_torch.configs import rwkv6_3b  # noqa: F401
+from repro_torch.configs import whisper_small  # noqa: F401
 
 # assigned architectures (public-literature pool), the reference's order
 ASSIGNED_ARCHS = (

@@ -13,8 +13,8 @@ from typing import Callable, Dict, Tuple
 class ModelConfig:
     # identity
     name: str
-    arch_type: str                      # the port runs "dense", "moe", "ssm",
-                                        # "hybrid"
+    arch_type: str                      # "dense", "moe", "ssm", "hybrid",
+                                        # "vlm" or "audio"
     source: str = ""                    # citation for the config numbers
 
     # transformer trunk
@@ -50,9 +50,9 @@ class ModelConfig:
     rnn_width: int = 0                  # RG-LRU width (0 -> d_model)
 
     # vlm
-    cross_attn_every: int = 0
+    cross_attn_every: int = 0           # a cross-attn layer every N layers
     num_image_tokens: int = 0
-    vision_dim: int = 0
+    vision_dim: int = 0                 # pre-projector vision feature dim
 
     # audio enc-dec (whisper)
     encoder_layers: int = 0
@@ -71,10 +71,16 @@ class ModelConfig:
     def is_attention_arch(self) -> bool:
         return self.arch_type in ("dense", "moe", "vlm", "audio")
 
+    @property
+    def has_encoder(self) -> bool:
+        return self.encoder_layers > 0
+
     def layer_kinds(self) -> Tuple[str, ...]:
-        """Per-layer kind sequence (the port runs dense, MoE, RWKV-6 and
-        Griffin stacks): a hybrid repeats its pattern, cut to
-        ``num_layers``."""
+        """Per-(decoder-)layer kind sequence: a hybrid repeats its
+        pattern, cut to ``num_layers``; an audio decoder layer is "dec"
+        (self-attention, cross-attention, MLP); a VLM makes every
+        ``cross_attn_every``-th layer (1-indexed) a gated "cross"
+        layer."""
         if self.arch_type == "ssm":
             return ("rwkv",) * self.num_layers
         if self.arch_type == "hybrid":
@@ -83,6 +89,11 @@ class ModelConfig:
             while len(out) < self.num_layers:
                 out.extend(pat)
             return tuple(out[: self.num_layers])
+        if self.arch_type == "audio":
+            return ("dec",) * self.num_layers
+        if self.arch_type == "vlm" and self.cross_attn_every > 0:
+            return tuple("cross" if (i + 1) % self.cross_attn_every == 0
+                         else "attn" for i in range(self.num_layers))
         return ("attn",) * self.num_layers
 
     def replace(self, **kw) -> "ModelConfig":
@@ -91,7 +102,7 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """CPU test variant of the same family (<= 2 layers, d_model <=
         256, <= 4 experts of which top-2), field for field the
-        reference's ``reduced()`` for the architectures the port runs."""
+        reference's ``reduced()``."""
         heads = max(2, min(self.num_heads, 4))
         kw = dict(name=self.name + "-reduced",
                   num_layers=min(self.num_layers, 2),
@@ -110,6 +121,11 @@ class ModelConfig:
             kw.update(layer_pattern=("rec", "attn"),
                       window_size=min(self.window_size or 128, 128),
                       rnn_width=0)
+        if self.arch_type == "vlm":
+            kw.update(cross_attn_every=2, num_image_tokens=16,
+                      vision_dim=min(self.vision_dim or 64, 64))
+        if self.has_encoder:
+            kw.update(encoder_layers=2, num_audio_frames=32)
         return self.replace(**kw)
 
 
@@ -161,21 +177,15 @@ class DraftConfig:
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
 # assigned architectures the port does not run yet -> their ROADMAP.md
-# queue 1 item
-NOT_PORTED: Dict[str, str] = {
-    "llama-3.2-vision-90b": "VLM and audio",
-    "whisper-small": "VLM and audio",
-}
+# queue 1 item (none: every assigned id runs)
+NOT_PORTED: Dict[str, str] = {}
 
 
 def roadmap_item(cfg: "ModelConfig") -> str:
-    """The ROADMAP.md queue 1 item that brings an architecture the port
-    refuses: dense and MoE stacks with a local attention window come with
-    the windowed dense stacks, cross attention and encoders with the VLM
-    and audio item."""
-    if cfg.arch_type in ("dense", "moe") and cfg.window_size:
-        return "Windowed dense stacks"
-    return "VLM and audio"
+    """The ROADMAP.md queue 1 item that brings a stack the port refuses:
+    attention stacks with a local attention window (the one refusal
+    left) come with the windowed dense stacks."""
+    return "Windowed dense stacks"
 
 
 def register(arch_id: str):

@@ -60,6 +60,15 @@ refreshed sends its complete cold blocks to host memory
 (``demote_slot``), and a partial row one step from its refresh starts
 their copy back (``prefetch_slot``).
 
+VLM and audio targets are conditioned per request (``extra``: image
+patch or audio frame embeddings).  The encoder states and every cross
+layer's K/V are a function of ``extra`` alone, so the engine computes
+them once per request, before its first prefill chunk, and copies them
+into the state's ``cross_k`` / ``cross_v`` rows in place (a slot's
+rows at its admission); every prefill chunk and step then reads the
+rows, and the captured graphs take no new operand.  The reference
+recomputes them at every prefill chunk, to the same values.
+
 State architectures (RWKV-6 and Griffin, ``paged=False``) have no
 growing KV cache (Griffin's attention reads a rolling window of W
 keys), so partial verification does not apply: each step (mode
@@ -86,8 +95,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import (DraftConfig, ModelConfig, SpecPVConfig,
-                                      roadmap_item)
+from repro_torch.configs.base import DraftConfig, ModelConfig, SpecPVConfig
 from repro_torch.core import draft as dr
 from repro_torch.core import sampling as smp
 from repro_torch.core import tree as tr
@@ -159,8 +167,7 @@ class StepOutput:
 
 @dataclass
 class PrefillCursor:
-    """Resumable prefill of one slot (the reference's cursor without
-    ``extra``, which the port refuses at begin).
+    """Resumable prefill of one slot (the reference's cursor).
 
     ``off`` is the absolute offset of the next chunk; chunk boundaries
     stay absolute multiples of ``chunk``, so an interleaved prefill runs
@@ -176,7 +183,10 @@ class PrefillCursor:
     whole-prompt tail-entry hit is born exhausted: finalise boots from
     ``boot_token`` with no prefill.  ``temperature`` / ``seed`` /
     ``draft`` are the request's sampling knobs, committed to the slot at
-    finalise."""
+    finalise.  ``extra`` is the request's conditioning (VLM and audio
+    targets): its cross K/V went into the slot's rows at begin, and a
+    cursor that carries it prefills alone (``prefill_step_into_slot``),
+    as the reference's does."""
     slot: int
     prompt: np.ndarray
     chunk: int
@@ -197,6 +207,7 @@ class PrefillCursor:
     temperature: float = 0.0
     seed: int = 0
     draft: str = "tree"
+    extra: Optional[Dict] = None
 
     @property
     def done(self) -> bool:
@@ -340,16 +351,16 @@ class SpecPVEngine:
         pool (``paged=True``), gathered or zero-copy (``zero_copy=True``,
         paged only), through the page table in place (``spec.use_pallas``)
         or through each layer's materialised view (the reference's data
-        flow); every route runs the kernels on the card.  Dense and MoE
-        targets (the draft layer is dense) draft trees
+        flow); every route runs the kernels on the card.  Dense, MoE, VLM
+        and audio targets (the draft layer is dense) draft trees
         (``draft_chain=True``: chains); the state archs
         (``ssm``, ``hybrid``) run with ``paged=False`` and chain drafts,
         without partial verification.  ``temperature`` is the lock-step
         ``generate``'s (each row's stream from seed 0) and the default of
         a slot admission, which may set its own with its seed and draft
         shape; the continuous scheduler wants a greedy engine.  A mesh
-        and other architectures raise NotImplementedError naming the
-        ROADMAP item that will bring them.
+        raises NotImplementedError naming the ROADMAP item that will
+        bring it (a windowed stack is refused by ``api.init_cache``).
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
         as in the reference; contiguous engines share nothing):
@@ -369,13 +380,20 @@ class SpecPVEngine:
         transition ahead of the next refresh (copied synchronously when
         a refresh comes early).  The tier's work runs between the step
         bodies, outside the captured graphs.
+        A VLM or audio target (cross layers) takes each request's
+        ``extra`` at ``prefill`` / ``generate`` / a slot admission; its
+        slot prefills run one cursor at a time, and prefix sharing, which
+        cannot key ``extra``, refuses its admissions.
         Runs on ``device`` (CUDA unless ``"cpu"`` is asked for); the
         params must live there.  On the card each step variant and the
         full prefill chunk replay a CUDA graph unless ``cuda_graphs`` is
         False; the CPU runs them eagerly."""
-        if cfg.arch_type not in ("dense", "moe", "ssm", "hybrid"):
-            _unsupported(f"arch {cfg.arch_type!r}", roadmap_item(cfg))
         self.is_attn = cfg.is_attention_arch
+        kinds = cfg.layer_kinds()
+        # the attention layers (K/V, partial caches) and the cross layers
+        # (per-request encoder K/V rows)
+        self.l_attn = dn.attn_layer_count(kinds) if self.is_attn else 0
+        self.cross = self.is_attn and dn.is_cross_arch(cfg)
         if not self.is_attn and paged:
             raise ValueError("paged KV is attention-only (state archs keep "
                              "O(1) state): pass paged=False")
@@ -474,7 +492,7 @@ class SpecPVEngine:
             return z, z.clone(), z.clone()
         # zero-copy: the retrieved body lives in the pool (routed via
         # pkv_blocks), so the dense arrays carry only the tail buffer
-        shape = (cfg.num_layers, b, cfg.num_kv_heads, self.spec.buffer_size,
+        shape = (self.l_attn, b, cfg.num_kv_heads, self.spec.buffer_size,
                  cfg.head_dim_)
         pkv_k = torch.zeros(shape, dtype=cm.dt(cfg.dtype), device=self.device)
         pkv_pos = torch.full(shape[:-1], -1, dtype=torch.int32,
@@ -491,7 +509,7 @@ class SpecPVEngine:
             z = torch.zeros((0,), device=self.device)
             return z, z.clone()
         p = self.spec.partial_budget_tokens if self.gathered else 0
-        shape = (cfg.num_layers, b, p, cfg.num_kv_heads, cfg.head_dim_)
+        shape = (self.l_attn, b, p, cfg.num_kv_heads, cfg.head_dim_)
         dt = cm.dt(cfg.dtype)
         if static:
             return tuple(torch.zeros(shape, dtype=dt, device=self.device)
@@ -505,7 +523,7 @@ class SpecPVEngine:
         if not self.is_attn:
             return torch.zeros((b, 0, 0, 0), dtype=torch.int32,
                                device=self.device)
-        return torch.full((b, self.cfg.num_layers, self.cfg.num_kv_heads,
+        return torch.full((b, self.l_attn, self.cfg.num_kv_heads,
                            self._ns_blocks), -1, dtype=torch.int32,
                           device=self.device)
 
@@ -578,6 +596,11 @@ class SpecPVEngine:
         self._pf_block_feats = (
             torch.zeros((b, nb, 3 * cfg.d_model), dtype=dt, device=dev)
             if self._prefix is not None else None)
+        # a cross-attention target's slot prefill (one cursor per round):
+        # the cursor's slot's cross K/V rows, copied in before each round
+        # so that one graph serves every slot
+        self._pf_cross = ({n: torch.zeros_like(self.state.cache[n][:, :1])
+                           for n in kvc.CROSS_KEYS} if self.cross else None)
         # contiguous engines: the prefill carry, one row of blocks per slot
         # (``_slot_pools``), allocated at the first slot prefill
         self._carry: Optional[Tuple[Dict, Dict]] = None
@@ -616,7 +639,9 @@ class SpecPVEngine:
         out: List[torch.Tensor] = []
 
         def cache_keys(c):
-            return [t for k, t in c.items() if pools or k not in ("k", "v")]
+            # no body writes the cross rows: they need no restore
+            return [t for k, t in c.items()
+                    if pools or k not in ("k", "v") + kvc.CROSS_KEYS]
         for f in fields(EngineState):
             v = getattr(st, f.name)
             if isinstance(v, dict):
@@ -627,7 +652,8 @@ class SpecPVEngine:
                 self._pf_tv, self._pf_prev_feat, self._pf_logits]
         if self._pf_block_feats is not None:
             out.append(self._pf_block_feats)
-        for c in (self._pf_cache, self._pf_dcache) + (self._carry or ()):
+        for c in ((self._pf_cache, self._pf_dcache) + (self._carry or ())
+                  + ((self._pf_cross,) if self._pf_cross else ())):
             out += cache_keys(c)
         return out + list(self._chunk_toks.values())
 
@@ -666,13 +692,18 @@ class SpecPVEngine:
         if "win_pos" in self.state.cache:
             self.state.cache["win_pos"].fill_(-1)
 
-    def prefill(self, prompt: np.ndarray, chunk: int = 256) -> EngineState:
+    def prefill(self, prompt: np.ndarray, chunk: int = 256,
+                extra: Optional[Dict] = None) -> EngineState:
         """Whole-batch chunked prefill into the engine's state, reset in
         place; returns it as the boot state of the lock-step loop (chunk
         boundaries are absolute multiples of ``chunk``).  Every full chunk
         runs one body, captured once as a graph on the card; a short last
-        chunk runs eagerly."""
+        chunk runs eagerly.  A VLM or audio target needs ``extra`` (batch
+        rows as the prompt's), whose cross K/V are written into the
+        state's rows first; other targets ignore it, as the reference's
+        do."""
         assert prompt.shape[0] == self.batch
+        api.require_extra(self.cfg, extra, "its prefill")
         self._pkv_active = False
         self._pkv_active_rows[:] = False
         self._slot_temp[:] = self.temperature
@@ -690,6 +721,9 @@ class SpecPVEngine:
         s0 = prompt.shape[1]
         prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                                    device=self.device)
+        if self.cross:
+            api.write_cross(self.cfg, self.params, st.cache["cross_k"],
+                            st.cache["cross_v"], extra)
         body = (lambda toks: self._prefill_body(
             toks, st.cache, st.dcache, self._prev_feat, self._logits_last))
         self._prefill_chunks(prompt_t, 0, s0, chunk, "prefill", body)
@@ -732,7 +766,8 @@ class SpecPVEngine:
         cfg = self.cfg
         b, t = toks.shape
         logits, feats, cache_n = api.prefill(cfg, self.params, toks, cache,
-                                             spec=self.spec, t_valid=t_valid)
+                                             spec=self.spec, t_valid=t_valid,
+                                             cached_cross=self.cross)
         fused = feats.fused_input()                           # [B, T, 3d]
         shifted = torch.cat([prev_feat[:, None], fused[:, :-1]], dim=1)
         if t_valid is None:
@@ -823,8 +858,11 @@ class SpecPVEngine:
                 out = dict(page_table=torch.zeros(
                     (1, self._nb_seq), dtype=torch.int32, device=dev))
             else:
+                # a dead row's cross rows are never read into a result:
+                # they stay (a slot admission writes them before this)
                 out = {k: zeros_like_row(t, axes.get(k, 0))
-                       for k, t in cache.items() if k != "length"}
+                       for k, t in cache.items()
+                       if k not in ("length",) + kvc.CROSS_KEYS}
             out["length"] = torch.zeros((1,), dtype=torch.int32, device=dev)
             return out
 
@@ -1191,18 +1229,33 @@ class SpecPVEngine:
         alone, so its tokens do not depend on its neighbours or on when
         it was admitted.  Only a greedy request boots from a tail entry
         (the entry stores the greedy first token); a sampled one still
-        attaches the prompt's cached full blocks."""
+        attaches the prompt's cached full blocks.  A VLM or audio
+        target's request brings ``extra`` (batch 1), whose cross K/V are
+        written into the slot's rows here; the cursor carries it.  The
+        prefix cache keys prompt tokens only, and past a cross layer the
+        trunk's K/V depend on ``extra`` too, so an admission with
+        ``extra`` into an engine with prefix sharing raises ValueError,
+        as the reference asserts."""
         self._slots_only()
         self._own(st)
-        if extra is not None:
-            _unsupported("per-request conditioning (extra)",
-                         "VLM and audio")
+        api.require_extra(self.cfg, extra, "its prefill")
+        if extra is not None and self._prefix is not None:
+            raise ValueError("prefix sharing cannot key per-request `extra` "
+                             "conditioning; build the engine with "
+                             "prefix_cache=False")
         if draft not in ("tree", "chain"):
             raise ValueError(f"draft must be 'tree' or 'chain', not {draft!r}")
         knobs = dict(temperature=(self.temperature if temperature is None
                                   else float(temperature)),
-                     seed=int(seed), draft=draft)
+                     seed=int(seed), draft=draft,
+                     extra=extra if self.cross else None)
         prompt = np.asarray(prompt)
+        if self.cross:
+            # in place, into the live state's rows of the slot (dead while
+            # it prefills): the graphs read these addresses
+            api.write_cross(self.cfg, self.params,
+                            *(st.cache[n][:, slot: slot + 1]
+                              for n in kvc.CROSS_KEYS), extra)
         if not self.paged:
             # the slot's rows of the prefill carry, from zero as a fresh
             # row cache; nothing to account
@@ -1404,11 +1457,23 @@ class SpecPVEngine:
         tokens processed)."""
         if cur.done:
             raise ValueError("prefill cursor already exhausted")
-        return self.prefill_step_fused(st, [cur])
+        return self._prefill_round(st, [cur])
 
     def prefill_step_fused(self, st: EngineState,
                            cursors: List[PrefillCursor]
                            ) -> Tuple[EngineState, int]:
+        """Advance every open cursor of `cursors` by one chunk in one
+        ragged body (``_prefill_round``).  Per-request ``extra`` cannot be
+        batched (the reference asserts it): a cursor that carries it
+        raises ValueError, and goes through ``prefill_step_into_slot``."""
+        if any(c.extra is not None for c in cursors):
+            raise ValueError("fused prefill cannot batch per-request "
+                             "`extra` conditioning: step such a cursor "
+                             "with prefill_step_into_slot")
+        return self._prefill_round(st, cursors)
+
+    def _prefill_round(self, st: EngineState, cursors: List[PrefillCursor]
+                       ) -> Tuple[EngineState, int]:
         """Advance every open cursor of `cursors` by one chunk in one
         ragged [K, Tmax] body (the reference's ``prefill_step_fused`` and
         its jitted ``_prefill_chunk_fused``), K at most the batch.  Each
@@ -1424,8 +1489,10 @@ class SpecPVEngine:
         before the chunk and their lengths set after; then the prompt
         blocks each row completed are registered in the prefix cache, row
         by row in cursor order, so two cursors completing the same block
-        in one call dedupe as serial steps would.  ``extra`` cannot be
-        batched in the reference; the port's cursors never carry it.
+        in one call dedupe as serial steps would.  A cross-attention
+        target's round takes one cursor: its slot's cross rows are copied
+        into the static ``_pf_cross`` first, so the graph ``("fused_prefill",
+        1, chunk)`` reads whichever slot's rows the round is for.
         Returns (state, tokens processed); ``prefill_dispatches`` counts
         the calls."""
         self._own(st)
@@ -1444,6 +1511,14 @@ class SpecPVEngine:
         pools, dpools = self._slot_pools(st)
         cache = dict(pools, page_table=self._pf_cache["page_table"][:k],
                      length=self._pf_cache["length"][:k])
+        if self.cross:
+            if k != 1:
+                raise ValueError("a cross-attention target prefills one "
+                                 "cursor per round")
+            sl = cursors[0].slot
+            for n in kvc.CROSS_KEYS:
+                self._pf_cross[n].copy_(st.cache[n][:, sl: sl + 1])
+                cache[n] = self._pf_cross[n]
         dcache = dict(dpools, page_table=self._pf_dcache["page_table"][:k],
                       length=self._pf_dcache["length"][:k])
         tv, prev = self._pf_tv[:k], self._pf_prev_feat[:k]
@@ -1499,7 +1574,7 @@ class SpecPVEngine:
             cfg, bs = self.cfg, self.spec.block_size
             n = self.batch * self._nb_seq + 1
             dt = cm.dt(cfg.dtype)
-            pools = kvc.init_paged_pool(cfg.num_layers, n, bs,
+            pools = kvc.init_paged_pool(self.l_attn, n, bs,
                                         cfg.num_kv_heads, cfg.head_dim_, dt,
                                         self.device)
             dpools = {m: torch.zeros((n, bs, cfg.num_kv_heads,
@@ -1633,7 +1708,8 @@ class SpecPVEngine:
         def row(a, axis):
             return a.narrow(axis, slot, 1)
         cache = {n: row(st.cache[n], kvc.CACHE_BATCH_AXIS.get(n, 0))
-                 for n in ("page_table", "length")}
+                 for n in ("page_table", "length") + kvc.CROSS_KEYS
+                 if n in st.cache}
         dcache = {n: row(st.dcache[n], 0) for n in ("page_table", "length")}
         kw = dict(cache=cache, dcache=dcache)
         for f in _PKV_FIELDS:
@@ -2274,7 +2350,7 @@ class SpecPVEngine:
         plus buffer, a zero-copy refresh its routed rebuild, a gathered
         refresh its copy of the budget."""
         cfg, spec = self.cfg, self.spec
-        l_attn = cfg.num_layers
+        l_attn = self.l_attn
         itemsize = 2 if cfg.dtype == "bfloat16" else 4
         nrows = int(np.sum(rows))
         if nrows == 0:
@@ -2299,15 +2375,17 @@ class SpecPVEngine:
 
     # ------------------------------------------------------------------
     def generate(self, prompt: np.ndarray, max_new_tokens: int,
-                 eos_id: int = -1, prefill_chunk: int = 256):
+                 eos_id: int = -1, prefill_chunk: int = 256,
+                 extra: Optional[Dict] = None):
         """SpecPV generation at the engine's temperature (greedy at 0; row
-        i's stream from seed 0's row i).  Returns (tokens [B, max_new],
+        i's stream from seed 0's row i), conditioned on ``extra`` (VLM and
+        audio targets, see ``prefill``).  Returns (tokens [B, max_new],
         stats dict with steps, mean_accept, modes, tokens_per_step and
         prefill_s: host seconds until the first token reached the host,
         which waits for the prefill on the device).  The state after the
         last step stays in ``final_state`` until the next prefill."""
         t0 = time.perf_counter()
-        st = self.prefill(prompt, chunk=prefill_chunk)
+        st = self.prefill(prompt, chunk=prefill_chunk, extra=extra)
         b = self.batch
         first = st.pending[:, 0].cpu().numpy()
         prefill_s = time.perf_counter() - t0

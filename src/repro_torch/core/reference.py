@@ -32,13 +32,16 @@ from repro_torch.core.engine import capture_graph
 from repro_torch.kernels import ops
 from repro_torch.device import resolve_device
 from repro_torch.models import api
+from repro_torch.models import dense as dn
 
 
 def _plain_decode(cfg: ModelConfig, params, prompt: np.ndarray,
                   max_new_tokens: int, max_len: int, prefill_chunk: int,
-                  spec: SpecPVConfig, dev, pick) -> np.ndarray:
+                  spec: SpecPVConfig, dev, pick, extra=None) -> np.ndarray:
     """AR decoding on the oracle's route, each next token ``pick(logits
-    [B, V])``.  Returns tokens [B, max_new]."""
+    [B, V])``, conditioned on ``extra`` (VLM and audio targets: the
+    first chunk writes the cross K/V rows, later chunks and the steps
+    read them).  Returns tokens [B, max_new]."""
     b, s0 = prompt.shape
     cache = api.init_cache(cfg, b, max_len, spec, device=dev)
     prompt_t = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
@@ -47,7 +50,8 @@ def _plain_decode(cfg: ModelConfig, params, prompt: np.ndarray,
     for off in range(0, s0, prefill_chunk):
         logits, _, cache = api.prefill(cfg, params,
                                        prompt_t[:, off: off + prefill_chunk],
-                                       cache, spec=spec, plain=True)
+                                       cache, spec=spec, plain=True,
+                                       extra=extra, cached_cross=off > 0)
     cur = pick(logits)
     out = [cur]
     ones = torch.ones((b,), dtype=torch.int32, device=dev)
@@ -71,19 +75,20 @@ def _plain_decode(cfg: ModelConfig, params, prompt: np.ndarray,
 
 def autoregressive_generate(cfg: ModelConfig, params, prompt: np.ndarray,
                             max_new_tokens: int, *, max_len: int,
-                            prefill_chunk: int = 256,
+                            extra=None, prefill_chunk: int = 256,
                             spec: Optional[SpecPVConfig] = None,
                             device=None) -> np.ndarray:
-    """Greedy AR decoding.  Returns tokens [B, max_new]."""
+    """Greedy AR decoding (conditioned on ``extra`` for VLM and audio
+    targets).  Returns tokens [B, max_new]."""
     return _plain_decode(cfg, params, prompt, max_new_tokens, max_len,
                          prefill_chunk, spec or SpecPVConfig(),
                          resolve_device(device),
-                         lambda lg: torch.argmax(lg, dim=-1))
+                         lambda lg: torch.argmax(lg, dim=-1), extra=extra)
 
 
 def autoregressive_sample(cfg: ModelConfig, params, prompt: np.ndarray,
                           max_new_tokens: int, *, max_len: int,
-                          temperature: float, seeds,
+                          temperature: float, seeds, extra=None,
                           prefill_chunk: int = 256,
                           spec: Optional[SpecPVConfig] = None,
                           device=None) -> np.ndarray:
@@ -108,7 +113,8 @@ def autoregressive_sample(cfg: ModelConfig, params, prompt: np.ndarray,
         return smp.categorical(torch.softmax(logits.float() / temp, dim=-1),
                                u[:, 0])
     return _plain_decode(cfg, params, prompt, max_new_tokens, max_len,
-                         prefill_chunk, spec or SpecPVConfig(), dev, pick)
+                         prefill_chunk, spec or SpecPVConfig(), dev, pick,
+                         extra=extra)
 
 
 class CompiledAR:
@@ -119,7 +125,8 @@ class CompiledAR:
     default there) the step is captured as a CUDA graph at the first
     ``generate`` and replayed, and the host reads the tokens once at the
     end; the CPU runs the same step eagerly through the kernels' plain
-    versions.  Attention archs only."""
+    versions.  Attention archs without cross layers only (it takes no
+    ``extra``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int,
                  max_len: int, spec: Optional[SpecPVConfig] = None,
@@ -128,6 +135,11 @@ class CompiledAR:
             raise NotImplementedError("the compiled AR decodes attention "
                                       "archs; autoregressive_generate "
                                       "runs the state archs")
+        if dn.is_cross_arch(cfg):
+            raise NotImplementedError("the compiled AR takes no per-request "
+                                      "`extra`: autoregressive_generate("
+                                      "extra=...) decodes VLM and audio "
+                                      "targets")
         self.cfg, self.params = cfg, params
         self.spec = spec or SpecPVConfig()
         self.device = resolve_device(device)

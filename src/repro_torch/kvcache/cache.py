@@ -845,7 +845,10 @@ def paged_update_all_summaries(kmax, kmin, pool, page_table, start, end,
 PAGED_POOL_KEYS = ("k", "v", "kmax", "kmin")
 DRAFT_POOL_KEYS = ("k", "v")
 CACHE_BATCH_AXIS = {"k": 1, "v": 1, "kmax": 1, "kmin": 1,
+                    "cross_k": 1, "cross_v": 1,
                     "page_table": 0, "length": 0}
+# a VLM or audio cache's cross K/V rows [L_cross, B, Te, Hk, Dh], per slot
+CROSS_KEYS = ("cross_k", "cross_v")
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

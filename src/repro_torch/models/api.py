@@ -1,16 +1,21 @@
-"""Model API of the port (counterpart of ``repro/models/api.py``, dense
-and MoE attention and the RWKV-6 and Griffin state architectures):
+"""Model API of the port (counterpart of ``repro/models/api.py``: the
+dense, MoE, VLM and audio attention architectures and the RWKV-6 and
+Griffin state architectures):
 
   init_params(cfg, seed, device)               -> params dict
   init_cache(cfg, batch, max_len, spec, ...)   -> cache dict
-  prefill(cfg, params, tokens, cache, ...)     -> (logits_last, features, cache)
+  extra_inputs_for(cfg, batch, seed, device)   -> stub modality inputs
+  prefill(cfg, params, tokens, cache, ...)     -> (logits, features, cache)
   decode(cfg, params, tokens, positions, cache, ...) -> DecodeOut
   advance(cfg, params, tokens, cache, valid)   -> cache   (ssm, hybrid)
-  train_loss(cfg, params, tokens)              -> (loss, metrics)
+  train_loss(cfg, params, tokens, extra=...)   -> (loss, metrics)
 
 Attention archs expose the SpecPV verification modes through
 ``decode(mode=...)``; the state archs do read-only chain verification
-in ``decode`` and commit the accepted prefix with ``advance``.
+in ``decode`` and commit the accepted prefix with ``advance``.  A VLM or
+audio target is conditioned per request by ``extra`` (image patch or
+audio frame embeddings): ``prefill(extra=...)`` writes the cross layers'
+K/V of its encoder states into the cache, where decoding reads them.
 """
 from __future__ import annotations
 
@@ -80,7 +85,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         init = rw.init_state if cfg.arch_type == "ssm" else gf.init_state
         return init(cfg, batch, dtype, dev)
     dn._check_dense(cfg)
-    l_attn = cfg.num_layers
+    kinds = cfg.layer_kinds()
+    l_attn, l_cross = dn.attn_layer_count(kinds), dn.cross_layer_count(kinds)
     hk, dh = cfg.num_kv_heads, cfg.head_dim_
     block = spec.block_size if spec else 128
     nb = -(-max_len // block)
@@ -103,48 +109,141 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                                 dtype=torch.float32, device=dev),
         }
     cache["length"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
+    if l_cross:
+        te = (cfg.num_image_tokens if cfg.arch_type == "vlm"
+              else cfg.num_audio_frames)
+        for n in ("cross_k", "cross_v"):
+            cache[n] = torch.zeros((l_cross, batch, te, hk, dh), dtype=dtype,
+                                   device=dev)
     return cache
 
 
-def prefill(cfg: ModelConfig, params, tokens, cache, *,
+# ---------------------------------------------------------------------------
+# stub frontends: pre-computed modality embeddings, as in the reference
+# ---------------------------------------------------------------------------
+
+def extra_inputs_for(cfg: ModelConfig, batch: int, seed=None,
+                     device=None) -> dict:
+    """Pre-computed modality embeddings standing in for the ViT / conv
+    frontend: ``image_embeds`` [B, num_image_tokens, vision_dim] (VLM),
+    ``frame_embeds`` [B, num_audio_frames, d_model] (encoder-decoder),
+    in the activations' dtype.  Zeros without a seed, as the reference's
+    without a key; standard normal draws (fp32, then cast) from a
+    ``torch.Generator`` on ``device`` seeded with ``seed`` otherwise.
+    Empty for the other architectures."""
+    dev = resolve_device(device)
+    dtype = cm.dt(cfg.dtype)
+    gen = None
+    if seed is not None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+
+    def draw(shape):
+        if gen is None:
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    out = {}
+    if cfg.arch_type == "vlm":
+        out["image_embeds"] = draw((batch, cfg.num_image_tokens,
+                                    cfg.vision_dim))
+    if cfg.has_encoder:
+        out["frame_embeds"] = draw((batch, cfg.num_audio_frames,
+                                    cfg.d_model))
+    return out
+
+
+def _encoder_out(cfg: ModelConfig, params, extra):
+    """The encoder states [B, Te, d] the cross layers attend: the
+    projected image embeddings (VLM) or the Whisper encoder's output."""
+    if cfg.arch_type == "vlm":
+        return dn.project_image(cfg, params, extra["image_embeds"])
+    if cfg.has_encoder:
+        return dn.encode_frames(cfg, params, extra["frame_embeds"])
+    return None
+
+
+def require_extra(cfg: ModelConfig, extra, what: str) -> None:
+    """Raise ValueError naming ``what`` when a VLM or audio target (cross
+    layers) gets no ``extra``: the reference fails inside
+    ``compute_cross_kv`` on a missing encoder output instead."""
+    if not extra and dn.is_cross_arch(cfg):
+        raise ValueError(f"{cfg.name} ({cfg.arch_type}): {what} needs the "
+                         f"per-request conditioning `extra` "
+                         f"(api.extra_inputs_for gives stub inputs)")
+
+
+def write_cross(cfg: ModelConfig, params, cross_k, cross_v, extra) -> None:
+    """Encode ``extra`` and copy every cross layer's K/V into ``cross_k``
+    / ``cross_v`` [L_cross, B, Te, Hk, Dh] in place (a cache's rows, or a
+    view of one slot's): done once per request, after which prefill and
+    decoding read the rows."""
+    require_extra(cfg, extra, "its prefill")
+    with torch.no_grad():
+        enc = _encoder_out(cfg, params, extra)
+        dn.write_cross_kv(cfg, params["layers"], cross_k, cross_v, enc)
+
+
+def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
             spec: Optional[SpecPVConfig] = None, plain: bool = False,
-            t_valid=None):
+            t_valid=None, return_logits: str = "last",
+            cached_cross: bool = False):
     """Process a chunk of prompt tokens [B, T] (written into `cache` in
-    place).  Returns (logits [B, V] of the last token, features, the
-    cache with its advanced length).  ``plain`` (contiguous cache only)
-    runs the plain attention and summaries: the autoregressive oracle's
-    route (``core.reference``), never the engine's.
+    place).  Returns (logits, features, the cache with its advanced
+    length): the last token's [B, V] by default, every position's
+    [B, T, V] with ``return_logits="all"``.  ``plain`` (contiguous cache
+    only) runs the plain attention and summaries: the autoregressive
+    oracle's route (``core.reference``), never the engine's.
+
+    A VLM or audio target needs ``extra`` (``extra_inputs_for``'s keys):
+    its cross K/V are written into the cache's ``cross_k`` / ``cross_v``
+    before the chunk runs.  ``cached_cross=True`` reads the rows already
+    there instead (the engine writes them once per request); without
+    either the call raises ValueError.  Other archs ignore ``extra``, as
+    the reference does.
 
     ``t_valid`` ([B] int32, attention archs only) marks the chunk
     ragged: row b carries ``t_valid[b] >= 1`` real tokens, then
     ``T - t_valid[b]`` trailing pads, which write no K/V, summary or
-    ``length``; the logits are row b's at ``t_valid[b] - 1`` (the fused
-    multi-row prefill packs cursors of unequal chunks so)."""
+    ``length``; the last-token logits are row b's at ``t_valid[b] - 1``
+    (the fused multi-row prefill packs cursors of unequal chunks so)."""
     b, t = tokens.shape
     if cfg.arch_type in ("ssm", "hybrid") and t_valid is not None:
         raise ValueError("ragged prefill is attention-arch only")
+    if return_logits not in ("last", "all"):
+        raise ValueError(f"return_logits is 'last' or 'all', not "
+                         f"{return_logits!r}")
+    positions = None
+    if cfg.arch_type != "ssm":
+        positions = cache["length"][:, None] + torch.arange(
+            t, device=tokens.device, dtype=torch.int32)[None]
     if cfg.arch_type == "ssm":
         h, feats, cache = rw.forward(cfg, params, tokens, cache)
-        logits = rw.lm_head(cfg, params, h[:, -1:])[:, 0]
-        return logits, Features(*feats), cache
-    positions = cache["length"][:, None] + torch.arange(
-        t, device=tokens.device, dtype=torch.int32)[None]
-    if cfg.arch_type == "hybrid":
+        lm = rw.lm_head
+    elif cfg.arch_type == "hybrid":
         h, feats, cache = gf.forward(cfg, params, tokens, positions, cache,
                                      mode="advance")
-        logits = gf.lm_head(cfg, params, h[:, -1:])[:, 0]
-        return logits, Features(*feats), cache
-    hh = dn.embed_tokens(cfg, params, tokens)
-    out = dn.trunk_fwd(cfg, params["layers"], hh, positions, mode="prefill",
-                       cache=cache, spec=spec or SpecPVConfig(), plain=plain,
-                       t_valid=t_valid)
-    if t_valid is None:
-        h_last = out.h[:, -1:]
+        lm = gf.lm_head
+    else:
+        if "cross_k" in cache and not cached_cross:
+            write_cross(cfg, params, cache["cross_k"], cache["cross_v"],
+                        extra)
+        hh = dn.embed_tokens(cfg, params, tokens)
+        out = dn.trunk_fwd(cfg, params["layers"], hh, positions,
+                           mode="prefill", cache=cache,
+                           spec=spec or SpecPVConfig(), plain=plain,
+                           t_valid=t_valid)
+        h, feats, cache = out.h, out.features, out.cache
+        lm = dn.lm_head
+    if return_logits == "all":
+        logits = lm(cfg, params, h)
+    elif t_valid is None:
+        logits = lm(cfg, params, h[:, -1:])[:, 0]
     else:
         last = torch.clamp(t_valid.long() - 1, min=0)
-        h_last = out.h[torch.arange(b, device=tokens.device), last][:, None]
-    logits = dn.lm_head(cfg, params, h_last)[:, 0]
-    return logits, Features(*out.features), out.cache
+        logits = lm(cfg, params,
+                    h[torch.arange(b, device=tokens.device), last][:, None]
+                    )[:, 0]
+    return logits, Features(*feats), cache
 
 
 def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
@@ -253,18 +352,17 @@ def chunked_lm_loss(cfg: ModelConfig, params, h, labels, *,
 
 
 def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
-    """Next-token LM loss over a [B, S] token batch.  Dense and MoE
-    targets: the trunk's train mode, then ``chunked_lm_loss``; returns
-    (``lm + moe_aux_loss_coef * aux``, {"lm_loss", "aux_loss"}), the aux
-    loss summed over the MoE layers (0 for a dense target).  RWKV-6: a
+    """Next-token LM loss over a [B, S] token batch.  Dense, MoE, VLM and
+    audio targets: the trunk's train mode (a VLM or audio target's cross
+    layers over the encoder states of ``extra``, which it needs; other
+    targets ignore it, as the reference's do), then ``chunked_lm_loss``;
+    returns (``lm + moe_aux_loss_coef * aux``, {"lm_loss", "aux_loss"}),
+    the aux loss summed over the MoE layers (0 for a dense target).  RWKV-6: a
     read-only forward from the zero state (under autograd its WKV
     recurrence is the plain chunked step loop, ``rwkv6.wkv_train``), then
     ``chunked_lm_loss``; returns (loss, {"lm_loss"}).  Griffin: the
     trunk's train mode (windowed attention, the RG-LRU as the chunked
     plain scan), then ``chunked_lm_loss``; returns (loss, {"lm_loss"})."""
-    if extra:
-        raise NotImplementedError("VLM and audio inputs come with "
-                                  "ROADMAP.md queue 1, 'VLM and audio'")
     b, s = tokens.shape
     inp, lbl = tokens[:, :-1], tokens[:, 1:]
     if cfg.arch_type == "ssm":
@@ -281,9 +379,13 @@ def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
         loss = chunked_lm_loss(cfg, params, h, lbl)
         return loss, {"lm_loss": loss}
     dn._check_dense(cfg)
+    enc = None
+    if dn.is_cross_arch(cfg):
+        require_extra(cfg, extra, "its train_loss")
+        enc = _encoder_out(cfg, params, extra)
     h = dn.embed_tokens(cfg, params, inp)
     out = dn.trunk_fwd(cfg, params["layers"], h, positions, mode="train",
-                       collect_features=False)
+                       collect_features=False, encoder_out=enc)
     lm = chunked_lm_loss(cfg, params, out.h, lbl)
     loss = lm + cfg.moe_aux_loss_coef * out.aux_loss
     return loss, {"lm_loss": lm, "aux_loss": out.aux_loss}

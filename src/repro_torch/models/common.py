@@ -191,6 +191,23 @@ def repeat_kv(k, n_rep: int):
             .reshape(b, s, hk * n_rep, dh))
 
 
+def sdpa(q, k, v, mask=None, scale=None):
+    """Dense scaled-dot-product attention, the reference's form: the
+    products in the inputs' dtype, the softmax in fp32, the probabilities
+    cast back for the value product.  q: [B, T, H, Dh]; k/v: [B, S, Hk,
+    Dh]; mask: [B, 1|H, T, S] bool or None.  Returns [B, T, H, Dh]."""
+    b, t, h, dh = q.shape
+    hk = k.shape[2]
+    k = repeat_kv(k, h // hk)
+    v = repeat_kv(v, h // hk)
+    scale = scale or (1.0 / math.sqrt(dh))
+    logits = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v)
+
+
 def flash_attention(q, k, v, *, q_positions, kv_positions,
                     causal: bool = True, window: int = 0, kv_valid=None,
                     chunk: int = 512, return_partials: bool = False,

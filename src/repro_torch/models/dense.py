@@ -1,9 +1,16 @@
-"""GQA trunk (counterpart of ``repro/models/dense.py``, dense and MoE
-architectures: a layer's MLP is the gated MLP or, with experts, the
-capacity-dispatch MoE, ``blocks.moe_fwd``).
+"""Attention trunk (counterpart of ``repro/models/dense.py``): dense and
+MoE GQA stacks (a layer's MLP is the gated MLP or, with experts, the
+capacity-dispatch MoE, ``blocks.moe_fwd``), the VLM's interleaved gated
+cross-attention layers and the Whisper decoder and encoder.
 
 The reference scans stacked superblocks with ``lax.scan``; here the
 layers are a list of per-layer param dicts run by a plain Python loop.
+Layer kinds (``cfg.layer_kinds()``): ``attn`` (self-attention, MLP),
+``cross`` (the VLM's tanh-gated cross-attention and gated MLP, no
+self-attention) and ``dec`` (Whisper: self-attention, cross-attention,
+MLP, no gates).  Caches index their K/V by attention layer (``attn`` and
+``dec``) and their cross K/V by cross layer (``cross`` and ``dec``), in
+layer order.
 
 Modes (paged cache = shared block pool + page tables; contiguous cache =
 per-row buffers, whose rows the kernels read as a pool of blocks through
@@ -26,6 +33,16 @@ the identity list):
                  backward), each layer rematerialised in the backward pass
                  when ``cfg.remat`` is set (the reference's
                  ``_train_layer`` under ``jax.checkpoint``).
+  encode         the train mode without the causal mask (the Whisper
+                 encoder over its frames).
+
+Cross-attention reads fixed encoder states: in train and encode modes
+their K/V are projected from ``encoder_out`` at each cross layer; every
+cache mode reads the cache's ``cross_k`` / ``cross_v`` rows, which
+``write_cross_kv`` fills once per request (the reference recomputes them
+at every prefill chunk from the same inputs, to the same values).  The
+reference computes cross-attention and the encoder in plain jnp, outside
+any Pallas kernel, so here they are plain torch too.
 
 The paged cache reads through the page table in place
 (``SpecPVConfig.use_pallas=True``) or, with ``use_pallas=False``, first
@@ -58,21 +75,71 @@ def _check_dense(cfg: ModelConfig) -> None:
     if cfg.arch_type == "hybrid":
         raise ValueError(f"{cfg.name}: a hybrid stack runs the Griffin "
                          f"trunk (models/griffin.py), not the dense one")
-    stack = ((cfg.arch_type == "dense" and not cfg.num_experts)
-             or (cfg.arch_type == "moe" and cfg.num_experts > 0))
-    if not stack or cfg.window_size:
+    if cfg.window_size:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense and MoE GQA stacks here; "
-            f"this one comes with ROADMAP.md queue 1, '{roadmap_item(cfg)}'")
+            f"{cfg.name}: the port runs attention stacks without a local "
+            f"window here; a window comes with ROADMAP.md queue 1, "
+            f"'{roadmap_item(cfg)}'")
+    if (cfg.arch_type == "moe") != (cfg.num_experts > 0):
+        raise ValueError(f"{cfg.name}: a {cfg.arch_type} stack with "
+                         f"{cfg.num_experts} experts is no configuration of "
+                         f"the registry (experts belong to 'moe' stacks)")
 
 
-def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:
+def superblock_decomp(kinds: Tuple[str, ...]):
+    """The reference's layer layout: the smallest period p such that
+    ``kinds`` is p-periodic up to a remainder without attention layers.
+    Returns (pattern, n_super, remainder)."""
+    n = len(kinds)
+    for p in range(1, n + 1):
+        n_super = n // p
+        if n_super == 0:
+            continue
+        if all(kinds[i] == kinds[i % p] for i in range(n_super * p)):
+            rem = kinds[n_super * p:]
+            if not any(k in ("attn", "cross", "dec") for k in rem):
+                return kinds[:p], n_super, rem
+    return kinds, 1, ()
+
+
+def attn_layer_count(kinds) -> int:
+    """Layers with self-attention (and a K/V cache entry)."""
+    return sum(1 for k in kinds if k in ("attn", "dec"))
+
+
+def cross_layer_count(kinds) -> int:
+    """Layers with cross-attention (and a cross K/V cache entry)."""
+    return sum(1 for k in kinds if k in ("cross", "dec"))
+
+
+def is_cross_arch(cfg: ModelConfig) -> bool:
+    """Does the stack read per-request encoder states (``extra``)?"""
+    return cfg.is_attention_arch and cross_layer_count(cfg.layer_kinds()) > 0
+
+
+def _init_layer(cfg: ModelConfig, gen: torch.Generator,
+                kind: str = "attn") -> Dict:
+    """One layer's params under the reference's keys for its kind (a
+    ``cross`` layer keeps an unused ``norm1``, as the reference's does;
+    its gates start at 0, which makes the layer the identity)."""
     pd = cm.dt(cfg.param_dtype)
     dev = gen.device
-    p = {"norm1": torch.ones((cfg.d_model,), dtype=pd, device=dev),
-         "attn": bk.init_attn_params(cfg, gen),
-         "norm2": torch.ones((cfg.d_model,), dtype=pd, device=dev)}
-    if cfg.num_experts:
+
+    def ones():
+        return torch.ones((cfg.d_model,), dtype=pd, device=dev)
+    p: Dict[str, Any] = {}
+    if kind in ("attn", "dec"):
+        p["norm1"] = ones()
+        p["attn"] = bk.init_attn_params(cfg, gen)
+    if kind in ("cross", "dec"):
+        p["normx"] = ones()
+        p["xattn"] = bk.init_attn_params(cfg, gen)
+        if kind == "cross":
+            p["norm1"] = ones()
+            p["gate_attn"] = torch.zeros((), dtype=pd, device=dev)
+            p["gate_mlp"] = torch.zeros((), dtype=pd, device=dev)
+    p["norm2"] = ones()
+    if cfg.num_experts and kind == "attn":
         p["moe"] = bk.init_moe_params(cfg, gen)
     else:
         p["mlp"] = bk.init_mlp_params(cfg, gen)
@@ -82,7 +149,10 @@ def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Dict:
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     """Random weights from ``seed`` (a ``torch.Generator`` on the target
     device).  Layout: ``embed`` [V, d], ``final_norm`` [d], ``head``
-    [d, V] and ``layers``, a list of per-layer dicts."""
+    [d, V] and ``layers``, a list of per-layer dicts in layer order; a
+    VLM adds ``projector`` [vision_dim, d], an encoder-decoder
+    ``encoder`` (a list of ``attn`` layers), ``encoder_norm`` [d] and
+    ``frame_pos`` [num_audio_frames, d]."""
     _check_dense(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
@@ -91,10 +161,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     params: Dict[str, Any] = {
         "embed": cm.embed_init(gen, (cfg.vocab_size, cfg.d_model), pd),
         "final_norm": torch.ones((cfg.d_model,), dtype=pd, device=dev),
-        "layers": [_init_layer(cfg, gen) for _ in range(cfg.num_layers)],
+        "layers": [_init_layer(cfg, gen, kind) for kind in cfg.layer_kinds()],
     }
     if not cfg.tie_embeddings:
         params["head"] = cm.dense_init(gen, (cfg.d_model, cfg.vocab_size), pd)
+    if cfg.arch_type == "vlm":
+        params["projector"] = cm.dense_init(
+            gen, (cfg.vision_dim, cfg.d_model), pd)
+    if cfg.has_encoder:
+        params["encoder"] = [_init_layer(cfg, gen)
+                             for _ in range(cfg.encoder_layers)]
+        params["encoder_norm"] = torch.ones((cfg.d_model,), dtype=pd,
+                                            device=dev)
+        params["frame_pos"] = cm.embed_init(
+            gen, (cfg.num_audio_frames, cfg.d_model), pd)
     return params
 
 
@@ -442,21 +522,91 @@ def _mlp_or_moe(cfg: ModelConfig, lp: Dict, h, aux: bool = False):
     return bk.mlp_fwd(cfg, lp["mlp"], x), None
 
 
+def _cross_attention(cfg: ModelConfig, lp: Dict, h, cross_kv):
+    """Cross-attention over fixed encoder states (no rope on either
+    side): the reference's dense ``sdpa`` for up to 1024 queries, its
+    chunked attention (KV tiles of ``min(512, Te)`` keys, query tiles of
+    512) beyond, so no [T, Te] fp32 tensor is held at train length."""
+    x = cm.rmsnorm(h, lp["normx"], cfg.norm_eps)
+    b, t, _ = x.shape
+    q = x @ lp["xattn"]["wq"].to(x.dtype)
+    if "bq" in lp["xattn"]:
+        q = q + lp["xattn"]["bq"].to(x.dtype)
+    q = q.reshape(b, t, cfg.num_heads, cfg.head_dim_)
+    ck, cv = cross_kv
+    if t > 1024:
+        te = ck.shape[1]
+        zq = torch.zeros((b, t), dtype=torch.int32, device=x.device)
+        zk = torch.zeros((b, te), dtype=torch.int32, device=x.device)
+        out = cm.flash_attention(q, ck, cv, q_positions=zq, kv_positions=zk,
+                                 causal=False, chunk=min(512, te),
+                                 q_chunk=512)
+    else:
+        out = cm.sdpa(q, ck, cv)
+    return bk.attn_output(cfg, lp["xattn"], out)
+
+
+def _gate(g, h):
+    """A cross layer's tanh gate, computed in fp32 and cast to the
+    activations' dtype, as the reference's."""
+    return torch.tanh(g.float()).to(h.dtype)
+
+
+def compute_cross_kv(cfg: ModelConfig, lp: Dict, encoder_out):
+    """K/V projections [B, Te, Hk, Dh] of the encoder states [B, Te, d]
+    for one cross layer."""
+    b, te, _ = encoder_out.shape
+    k = encoder_out @ lp["xattn"]["wk"].to(encoder_out.dtype)
+    v = encoder_out @ lp["xattn"]["wv"].to(encoder_out.dtype)
+    if "bk" in lp["xattn"]:
+        k = k + lp["xattn"]["bk"].to(encoder_out.dtype)
+        v = v + lp["xattn"]["bv"].to(encoder_out.dtype)
+    return (k.reshape(b, te, cfg.num_kv_heads, cfg.head_dim_),
+            v.reshape(b, te, cfg.num_kv_heads, cfg.head_dim_))
+
+
+def write_cross_kv(cfg: ModelConfig, layers: List[Dict], cross_k, cross_v,
+                   encoder_out) -> None:
+    """Every cross layer's K/V of ``encoder_out`` [B, Te, d], copied in
+    place into ``cross_k`` / ``cross_v`` [L_cross, B, Te, Hk, Dh] (the
+    cache's rows, or a view of some of them): a captured graph reads
+    these addresses, so they are written, never rebound."""
+    c = 0
+    for kind, lp in zip(cfg.layer_kinds(), layers):
+        if kind in ("cross", "dec"):
+            k, v = compute_cross_kv(cfg, lp, encoder_out)
+            cross_k[c].copy_(k)
+            cross_v[c].copy_(v)
+            c += 1
+
+
 def _train_layer(cfg: ModelConfig, lp: Dict, h, positions, inv_freq,
-                 mscale):
-    """One stateless layer of the train mode: causal attention over the
-    sequence (``cm.flash_attention``, the reference's KV tile of
-    ``min(512, max(128, T))`` keys and query tiles of 512), then the
-    MLP or MoE.  Returns (h, the layer's aux loss)."""
-    x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
-    q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq, mscale)
-    k, v = bk.project_kv(cfg, lp["attn"], x, positions, inv_freq, mscale)
-    t = positions.shape[1]
-    out = cm.flash_attention(q, k, v, q_positions=positions,
-                             kv_positions=positions, causal=True,
-                             chunk=min(512, max(128, t)))
-    h = h + bk.attn_output(cfg, lp["attn"], out)
+                 mscale, encoder_out=None, *, kind: str = "attn",
+                 causal: bool = True):
+    """One stateless layer of the train (``causal``) or encode mode: the
+    self-attention over the sequence (``cm.flash_attention``, the
+    reference's KV tile of ``min(512, max(128, T))`` keys and query
+    tiles of 512) of an ``attn`` or ``dec`` layer, the cross-attention
+    over ``encoder_out`` of a ``cross`` or ``dec`` layer (a ``cross``
+    layer's tanh-gated), then the MLP or MoE (gated in a ``cross``
+    layer).  Returns (h, the layer's aux loss)."""
+    if kind in ("attn", "dec"):
+        x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
+        q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq, mscale)
+        k, v = bk.project_kv(cfg, lp["attn"], x, positions, inv_freq,
+                             mscale)
+        t = positions.shape[1]
+        out = cm.flash_attention(q, k, v, q_positions=positions,
+                                 kv_positions=positions, causal=causal,
+                                 chunk=min(512, max(128, t)))
+        h = h + bk.attn_output(cfg, lp["attn"], out)
+    if kind in ("cross", "dec"):
+        xo = _cross_attention(cfg, lp, h,
+                              compute_cross_kv(cfg, lp, encoder_out))
+        h = h + (_gate(lp["gate_attn"], h) * xo if kind == "cross" else xo)
     m, aux = _mlp_or_moe(cfg, lp, h, aux=True)
+    if kind == "cross":
+        m = _gate(lp["gate_mlp"], h) * m
     return h + m, aux
 
 
@@ -486,33 +636,42 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
               pkv=None, spec: Optional[SpecPVConfig] = None,
               emit_queries: bool = False, partial_rows=None,
               collect_features: bool = True, pkv_blocks=None,
-              plain: bool = False, t_valid=None) -> TrunkOut:
+              plain: bool = False, t_valid=None, encoder_out=None,
+              kinds: Optional[Tuple[str, ...]] = None) -> TrunkOut:
     """Run the layer stack (see module docstring for modes).
 
     cache: paged {"k","v" [L,NP,bs,Hk,Dh], "kmax","kmin" [L,NP,Hk,Dh],
     "page_table" [B,NB], "length" [B]} or contiguous {"k","v"
-    [L,B,S,Hk,Dh], "kmax","kmin" [L,B,NB,Hk,Dh], "length"}.
+    [L,B,S,Hk,Dh], "kmax","kmin" [L,B,NB,Hk,Dh], "length"}, L the
+    attention layers; a stack with cross layers adds "cross_k",
+    "cross_v" [L_cross, B, Te, Hk, Dh], which every cache mode reads.
     pkv: tail buffer (k, v [L,B,Hk,P,Dh], pos [L,B,Hk,P]), followed by
     the gathered body (k, v [L,B,NS*bs,Hk,Dh]) unless zero-copy;
     pkv_blocks: [L, B, Hk, NS] selected logical block ids.  ``plain``:
     the oracle's plain route (contiguous cache only).  ``t_valid`` [B]
     (prefill only): a ragged chunk; pads write no K/V, no summary and do
-    not advance ``length``."""
+    not advance ``length``.  ``encoder_out`` [B, Te, d]: the encoder
+    states the train and encode modes' cross layers read.  ``kinds``:
+    the layers' kinds (default ``cfg.layer_kinds()``)."""
     spec = spec or SpecPVConfig()
-    num_layers = len(layers)
-    f_lo, f_mi, f_hi = _feature_targets(num_layers)
+    kinds = kinds if kinds is not None else cfg.layer_kinds()
+    f_lo, f_mi, f_hi = _feature_targets(len(layers))
     inv_freq = cm.rope_inv_freq_tensor(cfg, h.device)
     mscale = cm.yarn_mscale(cfg)
-    if mode == "train":
+    if mode in ("train", "encode"):
         _check_dense(cfg)
         feats = [None, None, None]
         remat = cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for i, lp in enumerate(layers):
-            args = (cfg, lp, h, positions, inv_freq, mscale)
+        for i, (kind, lp) in enumerate(zip(kinds, layers)):
+            if kind in ("cross", "dec") and encoder_out is None:
+                raise ValueError(f"{cfg.name}: a {kind} layer reads encoder "
+                                 f"states; pass the request's `extra`")
+            args = (cfg, lp, h, positions, inv_freq, mscale, encoder_out)
+            kw = dict(kind=kind, causal=mode == "train")
             h, aux_l = (torch.utils.checkpoint.checkpoint(
-                _train_layer, *args, use_reentrant=False) if remat
-                else _train_layer(*args))
+                _train_layer, *args, use_reentrant=False, **kw) if remat
+                else _train_layer(*args, **kw))
             if aux_l is not None:
                 aux = aux + aux_l
             for slot, tgt in enumerate((f_lo, f_mi, f_hi)):
@@ -531,34 +690,47 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
            if mode == "prefill" else None)
     feats = [None, None, None]
     new_k, new_v, queries = [], [], []
-    for i, lp in enumerate(layers):
-        cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
-        pkv_l = (tuple(p[i] for p in pkv)
-                 if mode in ("decode_partial", "decode_fused") else None)
-        att, upd, q = _self_attention(
-            cfg, mode, lp, h, positions, self_mask, cache_kv, pkv_l, length,
-            inv_freq, mscale, page_table=page_table,
-            paged_kernel=paged_kernel, partial_rows=partial_rows,
-            pkv_blocks=pkv_blocks[i] if pkv_blocks is not None else None,
-            block_size=spec.block_size, plain=plain, t_valid=t_valid)
-        h = h + att
-        if mode == "prefill":
-            if plain:
-                from repro_torch.kvcache.cache import update_layer_summaries
-                nkmax, nkmin = update_layer_summaries(
-                    cache["kmax"][i], cache["kmin"][i], cache["k"][i],
-                    length, end, spec.block_size)
-                cache["kmax"][i] = nkmax
-                cache["kmin"][i] = nkmin
-        else:
-            new_k.append(upd["new_k"])
-            new_v.append(upd["new_v"])
-        if emit_queries:
-            queries.append(q)
+    a_i = c_i = 0               # attention / cross layer index
+    for i, (kind, lp) in enumerate(zip(kinds, layers)):
+        if kind in ("attn", "dec"):
+            cache_kv = ((cache["k"][a_i], cache["v"][a_i])
+                        if cache is not None else None)
+            pkv_l = (tuple(p[a_i] for p in pkv)
+                     if mode in ("decode_partial", "decode_fused") else None)
+            att, upd, q = _self_attention(
+                cfg, mode, lp, h, positions, self_mask, cache_kv, pkv_l,
+                length, inv_freq, mscale, page_table=page_table,
+                paged_kernel=paged_kernel, partial_rows=partial_rows,
+                pkv_blocks=pkv_blocks[a_i] if pkv_blocks is not None
+                else None, block_size=spec.block_size, plain=plain,
+                t_valid=t_valid)
+            h = h + att
+            if mode == "prefill":
+                if plain:
+                    from repro_torch.kvcache.cache import (
+                        update_layer_summaries)
+                    nkmax, nkmin = update_layer_summaries(
+                        cache["kmax"][a_i], cache["kmin"][a_i],
+                        cache["k"][a_i], length, end, spec.block_size)
+                    cache["kmax"][a_i] = nkmax
+                    cache["kmin"][a_i] = nkmin
+            else:
+                new_k.append(upd["new_k"])
+                new_v.append(upd["new_v"])
+            if emit_queries:
+                queries.append(q)
+            a_i += 1
+        if kind in ("cross", "dec"):
+            xo = _cross_attention(cfg, lp, h, (cache["cross_k"][c_i],
+                                               cache["cross_v"][c_i]))
+            h = h + (_gate(lp["gate_attn"], h) * xo if kind == "cross"
+                     else xo)
+            c_i += 1
         # the MoE routes every row of the padded [B, T] input, pads too,
         # as the reference does: pads earlier in the flattened order take
         # expert capacity from real tokens after them
-        h = h + _mlp_or_moe(cfg, lp, h)[0]
+        m = _mlp_or_moe(cfg, lp, h)[0]
+        h = h + (_gate(lp["gate_mlp"], h) * m if kind == "cross" else m)
         if collect_features:
             for slot, tgt in enumerate((f_lo, f_mi, f_hi)):
                 if i == tgt:
@@ -585,3 +757,23 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     return TrunkOut(h=h, features=tuple(feats) if collect_features else None,
                     cache=new_cache, new_kv=new_kv,
                     queries=torch.stack(queries) if emit_queries else None)
+
+
+def encode_frames(cfg: ModelConfig, params, frame_embeds):
+    """The Whisper encoder: frame embeddings [B, Te, d] plus the learned
+    frame positions through the encoder stack (non-causal), then its
+    norm.  Returns the encoder states [B, Te, d]."""
+    h = frame_embeds.to(cm.dt(cfg.dtype))
+    h = h + params["frame_pos"][None, : h.shape[1]].to(h.dtype)
+    b, te, _ = h.shape
+    pos = torch.arange(te, device=h.device)[None].expand(b, te)
+    out = trunk_fwd(cfg, params["encoder"], h, pos, mode="encode",
+                    kinds=("attn",) * cfg.encoder_layers,
+                    collect_features=False)
+    return cm.rmsnorm(out.h, params["encoder_norm"], cfg.norm_eps)
+
+
+def project_image(cfg: ModelConfig, params, image_embeds):
+    """The VLM projector: [B, Timg, vision_dim] -> [B, Timg, d_model]."""
+    x = image_embeds.to(cm.dt(cfg.dtype))
+    return x @ params["projector"].to(x.dtype)

@@ -35,7 +35,7 @@ its own reads, and returns the dict with the advanced length.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List
 
 import torch
 import torch.nn.functional as F
@@ -45,26 +45,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as bk
 from repro_torch.models import common as cm
-from repro_torch.models.dense import _feature_targets
+from repro_torch.models.dense import (  # noqa: F401  (re-exported)
+    _feature_targets, superblock_decomp)
 
 CONV_W = 4
 RGLRU_C = 8.0
-
-
-def superblock_decomp(kinds: Tuple[str, ...]):
-    """The reference's layer layout (``repro/models/dense.py``): the
-    smallest period p such that ``kinds`` is p-periodic up to a remainder
-    without attention layers.  Returns (pattern, n_super, remainder)."""
-    n = len(kinds)
-    for p in range(1, n + 1):
-        n_super = n // p
-        if n_super == 0:
-            continue
-        if all(kinds[i] == kinds[i % p] for i in range(n_super * p)):
-            rem = kinds[n_super * p:]
-            if not any(k in ("attn", "cross", "dec") for k in rem):
-                return kinds[:p], n_super, rem
-    return kinds, 1, ()
 
 
 # ---------------------------------------------------------------------------

@@ -280,7 +280,10 @@ class ContinuousScheduler:
         runs while nothing ran this tick, so a budget below the chunk
         still progresses) and advances it in one ``prefill_step_fused``
         dispatch; exhausted cursors are finalised between rounds, those
-        born exhausted by a tail-entry hit included.  Serial
+        born exhausted by a tail-entry hit included; a cursor that
+        carries per-request ``extra`` conditioning cannot be batched and
+        runs its chunk alone (``prefill_step_into_slot``), as in the
+        reference.  Serial
         (``fused_prefill=False``): ``_pump_prefill_serial``.  Returns
         tokens run."""
         if not self.fused_prefill:
@@ -305,9 +308,17 @@ class ContinuousScheduler:
                 planned += nxt
             if not batch:
                 break                       # budget spent mid-tick
-            self.st, n = self.engine.prefill_step_fused(
-                self.st, [self.slots[i].cursor for i in batch])
-            spent += n
+            fused_rows = [i for i in batch
+                          if self.slots[i].cursor.extra is None]
+            if fused_rows:
+                self.st, n = self.engine.prefill_step_fused(
+                    self.st, [self.slots[i].cursor for i in fused_rows])
+                spent += n
+            for i in batch:                 # `extra` rows: one by one
+                if i not in fused_rows:
+                    self.st, n = self.engine.prefill_step_into_slot(
+                        self.st, self.slots[i].cursor)
+                    spent += n
         if spent:
             self.stats["prefill_tokens"] += spent
             self.stats["prefill_dispatches"] += \

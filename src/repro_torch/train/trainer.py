@@ -82,12 +82,16 @@ def log_metrics(metrics: Dict[str, Any], step: int, t0: float
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, params=None,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, extra: Optional[Dict] = None):
         """Trains ``params`` (the port's target tree, updated in place;
         random from ``seed`` when None) on ``device`` (CUDA unless
-        ``"cpu"`` is asked for; the params must live there)."""
+        ``"cpu"`` is asked for; the params must live there).  ``extra``
+        is the modality conditioning every step's loss reads (a VLM or
+        audio target needs it; ``api.extra_inputs_for``), as in the
+        reference."""
         self.cfg = cfg
         self.tcfg = tcfg
+        self.extra = extra
         self.device = resolve_device(device)
         if params is None:
             params = api.init_params(cfg, seed, self.device)
@@ -98,7 +102,8 @@ class Trainer:
     def loss_and_grads(self, tokens: torch.Tensor):
         """Forward and backward of one [B, S] token batch: leaves the
         gradients on the params.  Returns (loss, metrics), detached."""
-        loss, metrics = api.train_loss(self.cfg, self.params, tokens)
+        loss, metrics = api.train_loss(self.cfg, self.params, tokens,
+                                       extra=self.extra)
         loss.backward()
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}
 

@@ -1961,7 +1961,9 @@ def test_cuda_scores_and_summaries_granite_heads(cuda):
 # ---------------------------------------------------------------------------
 
 HEAD_GROUPS = {"rep7": (14, 2, 64), "rep1": (32, 32, 128),
-               "rep1-h40": (40, 40, 128)}
+               "rep1-h40": (40, 40, 128),
+               # llama-3.2-vision-90b (64/8) and whisper-small (12/12)
+               "rep8": (64, 8, 128), "rep1-h12": (12, 12, 64)}
 ATTN_FORMS = ("full", "refresh", "routed", "contiguous", "gathered",
               "prefill", "contiguous_prefill", "ragged")
 
@@ -2096,6 +2098,8 @@ def _score_case(dev, dtype, b, t, h, hk, dh, nb, seed):
     (1, 156, 40, 40, 128, 17),     # qwen1.5-32b: rep 1
     (2, 5, 64, 1, 64, 33),         # rep 64, the largest
     (1, 156, 32, 8, 128, 66),      # llama3.1-8b: rep 4
+    (1, 156, 64, 8, 128, 66),      # llama-3.2-vision-90b: rep 8
+    (1, 156, 12, 12, 64, 66),      # whisper-small: rep 1, Dh 64
 ])
 def test_cuda_retrieval_scores_any_rep(cuda, dtype, b, t, h, hk, dh, nb):
     """K3 at any head group from 1 to 64 (qwen2-0.5b's 7, MHA's 1, 21
@@ -2339,3 +2343,112 @@ def test_cuda_captures_share_one_warmup_stream(cuda):
     torch.cuda.empty_cache()
     assert torch.cuda.memory_allocated() - base < 32 * 2**20
     assert torch.equal(out, x @ x)
+
+
+# ---------------------------------------------------------------------------
+# VLM and audio: K4 at their widths, per-request cross rows under graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers, hk, dh", [(28, 8, 128), (12, 12, 64)],
+                         ids=["llama-3.2-vision-90b", "whisper-small"])
+def test_cuda_paged_summaries_vlm_audio_widths(cuda, layers, hk, dh):
+    """K4's paged form over every attention layer of the VLM at 35
+    layers (28 with self-attention, Hk 8) and of whisper-small (12, Hk
+    12, Dh 64), the last chunk of an 8192-token prompt, bf16, against
+    its plain version bit for bit; the null page stays 0."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(90 + hk)
+    npg, bs, nb = 70, 128, 66
+    pool = torch.randn((layers, npg, bs, hk, dh), generator=g,
+                       device=cuda).bfloat16()
+    table = (torch.randperm(npg - 1, generator=g, device=cuda)[:nb]
+             + 1).to(torch.int32)[None].contiguous()
+    st = torch.tensor([7936], dtype=torch.int32, device=cuda)
+    en = torch.tensor([8192], dtype=torch.int32, device=cuda)
+    got = torch.zeros((2, layers, npg, hk, dh), device=cuda)
+    want = torch.zeros_like(got)
+    before = tops.LAUNCHES["block_summary"]
+    tops.paged_block_summaries(pool, table, st, en, 3, got[0], got[1])
+    tref.paged_block_summaries(pool, table, st, en, 3, want[0], want[1])
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["block_summary"] == before + 1
+    assert torch.equal(got, want) and float(got.abs().sum()) > 0
+    assert float(got[:, :, 0].abs().max()) == 0.0
+
+
+def _xattn_serve(model, graphs, reqs, new):
+    """Two slots of a cross-attention target, each admitted with its own
+    ``extra`` (the second while the first decodes), stepped to the end
+    on the paged zero-copy pool; returns each request's tokens."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    cfg, spec, dcfg, params, dparams = model
+    max_len = request_token_need(max(len(p) for p, _ in reqs), new,
+                                 spec.buffer_size, dcfg.tree_depth + 1)
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
+                       max_len=max_len, paged=True, zero_copy=True,
+                       prefix_cache=False, device="cuda", cuda_graphs=graphs)
+    st = eng.empty_state()
+    out = {0: [], 1: []}
+
+    def tick():
+        nonlocal st
+        rows = np.asarray([0 < len(out[i]) < new for i in (0, 1)])
+        st, so = eng.step_fused(st, rows, eng.modes_for_rows(st, rows))
+        for i in np.nonzero(rows)[0]:
+            out[i].extend(so.tokens[i, :so.counts[i]].tolist())
+    for i, (p, ex) in enumerate(reqs):
+        st, first = eng.prefill_into_slot(st, i, p, extra=ex,
+                                          max_new_tokens=new)
+        out[i].append(first)
+        for _ in range(2):
+            tick()
+    while min(len(v) for v in out.values()) < new:
+        tick()
+    return [np.asarray(out[i][:new]) for i in (0, 1)], eng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["whisper-small", "llama-3.2-vision-90b"])
+def test_cuda_cross_rows_follow_the_slot_in_graphs(cuda, models, name):
+    """A cross-attention target at full width and 2 layers (whisper's two
+    ``dec`` layers; the VLM's (attn, cross), a cross layer every 2nd),
+    gates set, bf16: two requests with different ``extra`` served with
+    graphs equal the same served eagerly, and the second equals its solo
+    ``generate``: the slot prefill graph replays for the second slot
+    over its own cross rows, which are written in place."""
+    import numpy as np
+    from repro_torch.models import api
+    key = f"{name}-xattn"
+    if key not in models:
+        models.clear()
+        torch.cuda.empty_cache()
+        cfg, spec, dcfg, params, dparams = _model(cuda, name)
+        if cfg.arch_type == "vlm":
+            cfg = cfg.replace(cross_attn_every=2)
+            from repro_torch.models.api import init_params
+            params = init_params(cfg, seed=0, device=cuda)
+        for lp in params["layers"]:
+            for gname in ("gate_attn", "gate_mlp"):
+                if gname in lp:
+                    lp[gname].fill_(0.5)
+        models[key] = (cfg, spec, dcfg, params, dparams)
+    model = models[key]
+    cfg = model[0]
+    rng = np.random.default_rng(7)
+    reqs = [(rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64),
+             api.extra_inputs_for(cfg, 1, seed=20 + i, device=cuda))
+            for i, n in enumerate((600, 900))]
+    got, eng = _xattn_serve(model, True, reqs, 12)
+    assert any("fused_prefill" in str(k) for k in eng._graphs)
+    want, _ = _xattn_serve(model, False, reqs, 12)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    spec, dcfg = model[1], model[2]
+    solo = SpecPVEngine(*model, batch=1, max_len=request_token_need(
+        900, 12, spec.buffer_size, dcfg.tree_depth + 1), paged=True,
+        zero_copy=True, prefix_cache=False, device="cuda")
+    toks, _ = solo.generate(reqs[1][0][None], 12, extra=reqs[1][1])
+    np.testing.assert_array_equal(got[1], toks[0])

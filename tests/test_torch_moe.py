@@ -470,11 +470,13 @@ def test_train_loss_and_grads_match_jax(setup):
 
 @pytest.mark.parametrize("arch", ["hybrid", "vlm", "audio", "windowed"])
 def test_other_architectures_still_refused(setup, arch):
-    """The dense trunk admits dense and MoE stacks only: VLM and audio
-    (the engine too) and a windowed MoE stack raise NotImplementedError
-    naming their ROADMAP item; a hybrid stack is refused by the dense
-    trunk, which points to the Griffin trunk, and the engine takes one
-    built with Griffin params."""
+    """The dense trunk admits dense, MoE, VLM and audio stacks: a windowed
+    MoE stack raises NotImplementedError naming its ROADMAP item; a
+    hybrid stack is refused by the dense trunk, which points to the
+    Griffin trunk, and the engine takes one built with Griffin params;
+    the VLM and audio stacks (ported since) are admitted, and the one
+    refusal they keep is a prefill without the request's ``extra``
+    (engine and API)."""
     from repro_torch.models import dense as tdn
     s = setup
     if arch == "hybrid":
@@ -488,15 +490,28 @@ def test_other_architectures_still_refused(setup, arch):
                       max_len=64, device="cpu")
         assert not eng.is_attn and eng.mode_for(1, 10_000, False) == "state"
         return
-    cfg = (s["tcfg"].replace(window_size=128) if arch == "windowed"
-           else s["tcfg"].replace(arch_type=arch, num_experts=0,
-                                  experts_per_token=0))
-    item = ("Windowed dense stacks" if arch == "windowed"
-            else "VLM and audio")
-    with pytest.raises(NotImplementedError, match=f"'{item}'"):
-        tdn._check_dense(cfg)
-    if arch != "windowed":
+    if arch == "windowed":
+        cfg = s["tcfg"].replace(window_size=128)
         with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.*'{item}'"):
-            TEngine(cfg, s["tspec"], s["tdcfg"], s["tp"], s["td"], batch=1,
-                    max_len=64, device="cpu")
+                           match="'Windowed dense stacks'"):
+            tdn._check_dense(cfg)
+        return
+    name = {"vlm": "llama-3.2-vision-90b", "audio": "whisper-small"}[arch]
+    cfg = tcfgs.get_config(name).reduced().replace(**F32)
+    tdn._check_dense(cfg)
+    tp = tapi.init_params(cfg, seed=0, device="cpu")
+    from repro_torch.core.draft import init_draft_params
+    td = init_draft_params(cfg, s["tdcfg"], seed=1, device="cpu")
+    eng = TEngine(cfg, s["tspec"], s["tdcfg"], tp, td, batch=1,
+                  max_len=64, device="cpu")
+    assert eng.is_attn and eng.cross
+    prompt = np.zeros((1, 8), np.int64)
+    with pytest.raises(ValueError, match="conditioning `extra`"):
+        eng.prefill(prompt)
+    cache = tapi.init_cache(cfg, 1, 64, s["tspec"], device="cpu")
+    with pytest.raises(ValueError, match="per-request conditioning"):
+        tapi.prefill(cfg, tp, torch.as_tensor(prompt), cache,
+                     spec=s["tspec"])
+    st = eng.prefill(prompt, extra=tapi.extra_inputs_for(cfg, 1, seed=0,
+                                                         device="cpu"))
+    assert int(st.seq_len[0]) == 9

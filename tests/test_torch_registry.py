@@ -1,11 +1,12 @@
 """The rest of the reference's dense registry in the PyTorch port, on the
 CPU against the JAX package.
 
-* ``granite-3-2b``, ``deepseek-7b``, ``qwen2-0.5b``, ``qwen1.5-32b`` and
-  ``target-100m`` and their ``reduced()`` equal the reference's field for
-  field; ``ASSIGNED_ARCHS`` equals the reference's, and the ids the port
-  does not run (``configs.NOT_PORTED``) raise NotImplementedError naming
-  their ROADMAP item.
+* ``granite-3-2b``, ``deepseek-7b``, ``qwen2-0.5b``, ``qwen1.5-32b``,
+  ``target-100m``, ``llama-3.2-vision-90b`` and ``whisper-small`` and
+  their ``reduced()`` equal the reference's field for field;
+  ``ASSIGNED_ARCHS`` equals the reference's, and the ids the port does
+  not run (``configs.NOT_PORTED``, empty now) would raise
+  NotImplementedError naming their ROADMAP item.
 * ``SpecPVEngine.generate`` in fp32 with partial verification (the
   conftest ``small_spec`` with ``use_pallas=True``, ``small_dcfg``, a
   160-token prompt past the 112-token budget, 16 new tokens) gives the
@@ -40,7 +41,7 @@ from repro_torch.core.reference import autoregressive_generate as t_ar
 from repro_torch.serving import Request, ServingConfig, ServingEngine
 
 NEW_ARCHS = ("granite-3-2b", "deepseek-7b", "qwen2-0.5b", "qwen1.5-32b",
-             "target-100m")
+             "target-100m", "llama-3.2-vision-90b", "whisper-small")
 F32 = dict(dtype="float32", param_dtype="float32")
 B, PROMPT, NEW, MAX_LEN, CHUNK = 2, 160, 16, 384, 64
 # the reduced forms the engine runs: (arch, replace() on top of reduced())

@@ -304,22 +304,35 @@ def test_draft_ttt_loss_and_trainer_match_jax(tiny):
 
 
 def test_train_loss_refuses_other_architectures():
-    """Dense, MoE, RWKV-6 and Griffin targets train (``rwkv6-3b`` and
-    ``recurrentgemma-2b`` since they were ported:
-    ``tests/test_torch_rwkv.py``, ``tests/test_torch_griffin.py``): the
-    reduced Griffin's loss is finite near log V; VLM or audio inputs
-    raise naming their ROADMAP item."""
-    toks = torch.zeros((1, 8), dtype=torch.long)
+    """Dense, MoE, RWKV-6, Griffin, VLM and audio targets train
+    (``rwkv6-3b``, ``recurrentgemma-2b``, ``llama-3.2-vision-90b`` and
+    ``whisper-small`` since they were ported: ``tests/test_torch_rwkv.py``,
+    ``tests/test_torch_griffin.py``, ``tests/test_torch_vlm_audio.py``):
+    the reduced Griffin's and Whisper's losses are finite near log V; a
+    Whisper loss without its ``extra`` raises naming it, and a dense
+    target ignores ``extra``, as the reference's does."""
     cfg = tcfgs.get_config("recurrentgemma-2b").reduced()
     loss, metrics = tapi.train_loss(
         cfg, tapi.init_params(cfg, seed=0, device="cpu"),
         torch.arange(40).reshape(2, 20) % cfg.vocab_size)
     assert set(metrics) == {"lm_loss"}
     assert abs(float(loss.detach()) - np.log(cfg.vocab_size)) < 1.0
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*'VLM and audio'"):
-        tapi.train_loss(tcfgs.get_config("tiny-dense"), {}, toks,
-                        extra={"image": None})
+    cfg = tcfgs.get_config("whisper-small").reduced()
+    params = tapi.init_params(cfg, seed=0, device="cpu")
+    toks = torch.arange(40).reshape(2, 20) % cfg.vocab_size
+    loss, metrics = tapi.train_loss(
+        cfg, params, toks,
+        extra=tapi.extra_inputs_for(cfg, 2, seed=1, device="cpu"))
+    assert set(metrics) == {"lm_loss", "aux_loss"}
+    assert abs(float(loss.detach()) - np.log(cfg.vocab_size)) < 1.0
+    with pytest.raises(ValueError, match="per-request conditioning"):
+        tapi.train_loss(cfg, params, toks)
+    dense = tcfgs.get_config("tiny-dense")
+    dp = tapi.init_params(dense, seed=0, device="cpu")
+    dt = torch.zeros((1, 8), dtype=torch.long)
+    assert torch.equal(tapi.train_loss(dense, dp, dt)[0],
+                       tapi.train_loss(dense, dp, dt,
+                                       extra={"image": None})[0])
 
 
 # ---------------------------------------------------------------------------
