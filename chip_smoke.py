@@ -44,11 +44,12 @@ Phases, in order (any failure raises and the script exits non-zero):
    every layer), the prefill is timed apart from decode (host clock
    after a synchronisation), and every layer's page summaries of the
    final cache are recomputed by the plain version and held to it bit
-   for bit; then a fresh prefill (the graph run's under
-   ``torch.profiler``: device launches, host ops and host launch calls
-   per chunk) and a few decode steps under ``torch.profiler`` (device
-   time by kernel, idle share) and two forced Refresh steps (K3's share
-   of their device time).  After the eager
+   for bit; then, for the graph run, a fresh prefill under
+   ``torch.profiler`` (device launches, host ops and host launch calls
+   per chunk), a few decode steps under ``torch.profiler`` (device time
+   by kernel, idle share) and two forced Refresh steps (K3's share of
+   their device time); the eager run is not profiled (slice 18 cut its
+   26 s window to keep the smoke inside its budget).  After the eager
    run, one eager run of the prefill chunk's and of each step variant's
    body under ``torch.cuda.set_sync_debug_mode("error")`` (no body may
    wait for the card or read from the host);
@@ -334,7 +335,34 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``prefill_into_slot(extra=)`` at batch 3 (the third while the first
    two decode) and stepped with ``step_fused`` to the end, with graphs,
    each equal to its solo ``generate(extra=)``.  Phase 2 holds K1-K4 at
-   both models' heads to their plain versions, timed.
+   both models' heads to their plain versions, timed;
+18. windowed dense stacks and context-parallel verification (slice 18).
+   (a) llama3.1-8b at full width with ``window_size=4096`` (set by
+   ``replace``), an 8192-token prompt, 48 new tokens, on the paged
+   zero-copy pool: ``generate`` with graphs and eagerly (16 tokens, the
+   graph run's first; launch counts held to each run's steps and
+   chunks: K2 none, the
+   windowed prefill being the reference's plain chunked attention;
+   decode attends the whole context, as the reference's), tokens/s,
+   prefill s, a profiled window of steps (device ms per step); in fp32
+   at 5 layers (a 6144-token prompt) full verification with graphs
+   equals the compiled AR decoding.  (b) Two ranks spawned with
+   ``torch.distributed`` (gloo, both on the one card, the all-reduces
+   staged through the host; NCCL, one rank per card, where there are
+   two cards), each holding a contiguous half of the reference's case
+   D1 (deepseek-7b's heads 32/32 of Dh 128, bf16, B = 1, T = 8, 524288
+   tokens, ``SpecPVConfig()``: block 128, budget 32): each rank's
+   ``cp_full_verify_attention`` and ``cp_partial_verify_attention``
+   (K1's contiguous form at its shard offset, K3 over its summaries and
+   K1's block-list form over its selection, one merge of the partials),
+   the launch counts set to 0 just before and read just after; every
+   rank bit-equal to rank 0; Full against K1's unsharded contiguous form
+   over all 524288 tokens (3e-2) and, at 32768 tokens in fp32, (1e-4);
+   Partial and its selections against the single-process form on the
+   same shards; per rank the kernels' device ms (CUDA events) and the
+   merge's all-reduce ms; the call forms against their plain versions,
+   timed beside SDPA over the same keys; the traffic model at this
+   shape.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1343,7 +1371,7 @@ def phase_generate(torch, card):
         torch, card, "llama3.1-8b")
     runs = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
                          prompt, NEW_TOKENS, dict(paged=True, zero_copy=True),
-                         "llama3.1-8b")
+                         "llama3.1-8b", profile_eager=False)
     del params, dparams
     torch.cuda.empty_cache()
     return runs["graphs"]
@@ -6537,10 +6565,553 @@ def phase_vlm_audio(torch, card):
                 total_s=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: windowed dense stacks; context-parallel verification
+# ---------------------------------------------------------------------------
+
+WIN_SIZE = 4096                 # (a): the window, shorter than the prompt
+WIN_NEW = 48
+WIN_EAGER_NEW = 16              # the eager run: its prefill alone takes 19 s
+WIN_PROFILE_STEPS = 3
+WIN_FP32_LAYERS = 5
+WIN_FP32_PROMPT = 6144          # 24 chunks, past the window
+WIN_FP32_NEW = 32
+CP_RANKS = 2
+CP_TOKENS = 524288              # the reference's case D1 (hillclimb.py)
+CP_FP32_TOKENS = 32768
+CP_LENGTH_SHORT = 1000          # the rows' length: the context less this
+CP_T = 8
+CP_HEADS = dict(h=32, hk=32, dh=128)    # deepseek-7b's attention
+CP_LAYERS = 30                  # deepseek-7b's depth, for the traffic model
+CP_BF16_TOL = 3e-2              # bf16 sums reassociated across the ranks
+CP_FP32_TOL = 1e-4
+
+
+def _windowed_generate(torch, card):
+    """(a): llama3.1-8b at full width with ``window_size`` = WIN_SIZE (set
+    by ``replace``), an 8192-token prompt on the paged zero-copy pool:
+    ``generate`` with graphs (launches held to the steps and chunks, K2
+    none: the windowed prefill is the reference's plain chunked
+    attention), a profiled window of steps, then eagerly on an engine of
+    the same size for WIN_EAGER_NEW tokens (the graph run's first ones,
+    launches held to its own steps and chunks).  Returns the numbers."""
+    import gc
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.kernels import ops
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, "llama3.1-8b")
+    cfg = cfg.replace(window_size=WIN_SIZE)
+    max_len = request_token_need(prompt.shape[1], WIN_NEW, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    runs = {}
+    for graphs in (True, False):
+        new = WIN_NEW if graphs else WIN_EAGER_NEW
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, device="cuda",
+                           cuda_graphs=graphs, **PAGED_ZERO_COPY)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, stats = eng.generate(prompt, new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        chunks = -(-prompt.shape[1] // 256)
+        refresh = stats["modes"].get("refresh", 0)
+        want = {"sparse_verify_attention": cfg.num_layers * stats["steps"],
+                "paged_prefill_attention": 0,
+                "retrieval_score": cfg.num_layers * refresh,
+                "block_summary": chunks + refresh
+                + stats["modes"].get("full", 0), "wkv": 0}
+        if launches != want:
+            raise AssertionError(f"windowed {RUN_LABEL[graphs]}: launches "
+                                 f"{launches} != {want}")
+        if graphs and not eng._graphs:
+            raise AssertionError("windowed: no graph was replayed")
+        steps = max(stats["steps"], 1)
+        decode_s = wall - stats["prefill_s"]
+        run = dict(tokens=toks, modes=stats["modes"], launches=launches,
+                   wall_s=wall, prefill_s=stats["prefill_s"],
+                   tokens_per_s=new / wall,
+                   ms_step=decode_s * 1e3 / steps, peak_gib=peak)
+        say(card, f"generate [llama3.1-8b window {WIN_SIZE} "
+                  f"{RUN_LABEL[graphs]}] ({cfg.num_layers} layers, bf16, "
+                  f"random weights) "
+                  f"prompt {prompt.shape[1]} new {new}: modes "
+                  f"{stats['modes']} wall_s {wall:.3f} (prefill_s "
+                  f"{stats['prefill_s']:.3f}, host ms/step "
+                  f"{run['ms_step']:.2f}) tokens_per_s "
+                  f"{run['tokens_per_s']:.2f} peak_mem_gib {peak:.2f} "
+                  f"launches {launches} (K2 0 in the windowed prefill)")
+        if graphs:
+            prof = profile_steps(torch, card, eng, prompt, warm=1,
+                                 steps=WIN_PROFILE_STEPS, prefill=False,
+                                 label=f"llama3.1-8b window {WIN_SIZE}")
+            run.update({k: prof[k] for k in (
+                "busy_ms_step", "idle_share", "idle_share_unprofiled",
+                "device_launches_step")})
+        runs[graphs] = run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    first = runs[True]["tokens"][:, :WIN_EAGER_NEW]
+    if not np.array_equal(first, runs[False]["tokens"]):
+        raise AssertionError("windowed: graphs and eager differ:\n"
+                             f"{first}\n{runs[False]['tokens']}")
+    say(card, f"windowed llama3.1-8b: graphs == eager (the first "
+              f"{WIN_EAGER_NEW} tokens; launches held to each run's steps "
+              f"and chunks); device busy ms/step "
+              f"{runs[True]['busy_ms_step']:.2f}")
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {RUN_LABEL[g]: {k: v for k, v in r.items() if k != "tokens"}
+            for g, r in runs.items()}
+
+
+def _windowed_fp32(torch, card):
+    """(a) in fp32 (TF32 off) at full width and WIN_FP32_LAYERS layers, a
+    WIN_FP32_PROMPT-token prompt: ``generate`` with full verification,
+    with graphs, equals the port's compiled AR decoding (the same
+    windowed prefill, then unwindowed decode, as the reference)."""
+    import gc
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.core.reference import CompiledAR
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, "llama3.1-8b", "float32", seed=2,
+        prompt_len=WIN_FP32_PROMPT, prompt_seed=1, layers=WIN_FP32_LAYERS)
+    cfg = cfg.replace(window_size=WIN_SIZE)
+    max_len = request_token_need(prompt.shape[1], WIN_FP32_NEW,
+                                 spec.buffer_size, dcfg.tree_depth + 1)
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=max_len, partial_verification=False,
+                       device="cuda", **PAGED_ZERO_COPY)
+    toks, stats = eng.generate(prompt, WIN_FP32_NEW)
+    if not eng._graphs or set(stats["modes"]) != {"full"}:
+        raise AssertionError(f"windowed fp32: graphs {list(eng._graphs)}, "
+                             f"modes {stats['modes']}")
+    del eng
+    ar = CompiledAR(cfg, params, batch=1, max_len=max_len, spec=spec,
+                    device="cuda").generate(prompt, WIN_FP32_NEW)
+    if not np.array_equal(toks, ar):
+        raise AssertionError(f"windowed fp32 speculative differs from the "
+                             f"compiled AR:\n{toks}\n{ar}")
+    secs = time.perf_counter() - t0
+    say(card, f"windowed lossless llama3.1-8b {WIN_FP32_LAYERS} layers fp32 "
+              f"window {WIN_SIZE}, graphs: speculative (full verification) "
+              f"== compiled AR over {WIN_FP32_NEW} tokens (prompt "
+              f"{prompt.shape[1]}, modes {stats['modes']}); {secs:.1f} s")
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(modes=stats["modes"], seconds=secs)
+
+
+def _cp_shards(torch, dtype, total, world, dev, ranks, seed=18):
+    """Phase 18 (b)'s inputs at deepseek-7b's heads: q [1, T, H, Dh] (x4,
+    so the softmax over half a million keys is not flat), the given
+    ranks' contiguous K/V shards [1, total / world, Hk, Dh], each drawn
+    from its own seed (a rank draws its own shard, the parent all of
+    them, bit-equal), with their block max/min [1, blocks, Hk, Dh] fp32,
+    and the rows' global length.  Returns (q, [k], [v], [kmax], [kmin],
+    length)."""
+    h, hk, dh = CP_HEADS["h"], CP_HEADS["hk"], CP_HEADS["dh"]
+    s_loc, bs = total // world, 128
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = (torch.randn((1, CP_T, h, dh), generator=g, device=dev) * 4).to(dtype)
+    ks, vs, kxs, kns = [], [], [], []
+    for r in ranks:
+        g.manual_seed(seed + 1 + r)
+        k = torch.randn((1, s_loc, hk, dh), generator=g, device=dev,
+                        dtype=dtype)
+        v = torch.randn((1, s_loc, hk, dh), generator=g, device=dev,
+                        dtype=dtype)
+        kb = k.view(1, s_loc // bs, bs, hk, dh)
+        ks.append(k)
+        vs.append(v)
+        kxs.append(kb.amax(dim=2).float())
+        kns.append(kb.amin(dim=2).float())
+    length = torch.tensor([total - CP_LENGTH_SHORT], dtype=torch.int32,
+                          device=dev)
+    return q, ks, vs, kxs, kns, length
+
+
+def _cp_rank_times(torch, dist, rank, world, q, k, v, kx, kn, length, sel,
+                   vlen, bs):
+    """A rank's bf16 kernel times (CUDA events, the ``Timer``; the ranks
+    in turns, so no two share the card while timed) and the merge's two
+    all-reduces (host clock, both ranks calling, 10 calls)."""
+    from repro_torch.distributed import psum_softmax_merge
+    from repro_torch.kernels import ops
+    s_loc = k.shape[1]
+    local = torch.clamp(length - rank * s_loc, 0, s_loc)
+    kf, _ = ops.flat_blocks(k)
+    vf, _ = ops.flat_blocks(v)
+    ids, vl = (a.to(torch.int32).contiguous() for a in (sel, vlen))
+    qw = torch.ones((1, q.shape[1]), dtype=torch.float32, device=q.device)
+    calls = {"K1 contiguous": lambda: ops.contiguous_verify_attention(
+                 q, k, v, local, bs),
+             "K1 block list": lambda: ops.block_attention(q, kf, vf, ids, vl,
+                                                          bs),
+             "K3": lambda: ops.retrieval_scores(q, kx, kn, qw)}
+    timer = Timer(torch)
+    times = {}
+    for turn in range(world):
+        dist.barrier()
+        if turn == rank:
+            times = {name: timer(fn) for name, fn in calls.items()}
+        torch.cuda.synchronize()
+    m, l, acc = calls["K1 contiguous"]()
+    psum_softmax_merge(m, l, acc)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        psum_softmax_merge(m, l, acc)
+    torch.cuda.synchronize()
+    ar_ms = (time.perf_counter() - t0) * 1e3 / 10
+    return dict(times=times, allreduce_ms=ar_ms,
+                allreduce_bytes=(m.numel() + l.numel() + acc.numel()) * 4)
+
+
+def _cp_rank(rank, world, backend, init_file, out_dir):
+    """One rank of phase 18 (b), a spawned process: its shard through
+    ``cp_full_verify_attention`` and ``cp_partial_verify_attention`` (the
+    launch counts set to 0 just before and read just after), in bf16 at
+    CP_TOKENS and in fp32 at CP_FP32_TOKENS; in bf16 also its kernel
+    and all-reduce times.  Saves the outputs, selections, counts and
+    times to ``rank<r>.pt``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.distributed import (cp_full_verify_attention,
+                                         cp_partial_verify_attention,
+                                         local_selection)
+    from repro_torch.kernels import build, ops
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    if backend == "gloo":
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    dist.init_process_group(backend, init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    try:
+        build.load_library()
+        spec = SpecPVConfig()
+        bs, budget = spec.block_size, spec.retrieval_budget_blocks
+        res = dict(device=torch.cuda.get_device_name(dev))
+        for dtype, total in ((torch.bfloat16, CP_TOKENS),
+                             (torch.float32, CP_FP32_TOKENS)):
+            q, ks, vs, kxs, kns, length = _cp_shards(torch, dtype, total,
+                                                     world, dev, (rank,))
+            k, v, kx, kn = ks[0], vs[0], kxs[0], kns[0]
+            del ks, vs, kxs, kns
+
+            def run():
+                return (cp_full_verify_attention(q, k, v, length, bs),
+                        cp_partial_verify_attention(spec, budget, q, k, v,
+                                                    kx, kn, length))
+            run()                           # the first collectives
+            torch.cuda.synchronize()
+            dist.barrier()
+            ops.reset_launch_counts()
+            out_f, out_p = run()
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            sel, vlen = local_selection(spec, max(1, budget // world), q, kx,
+                                        kn, length, rank)
+            row = dict(full=out_f.cpu(), partial=out_p.cpu(), sel=sel.cpu(),
+                       launches=launches)
+            if dtype == torch.bfloat16:
+                row.update(_cp_rank_times(torch, dist, rank, world, q, k, v,
+                                          kx, kn, length, sel, vlen, bs))
+            res[str(dtype).split(".")[-1]] = row
+            del q, k, v, kx, kn
+            torch.cuda.empty_cache()
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _cp_spawn(torch, world, backend, timeout_s=300.0):
+    """Spawn ``world`` ranks of ``_cp_rank`` over a file store in a fresh
+    temporary directory, wait (killing every rank after ``timeout_s``);
+    a rank's failure raises here.  Returns each rank's saved results."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    tmp = tempfile.mkdtemp(prefix="cp_ranks_")
+    try:
+        ctx = mp.start_processes(_cp_rank, args=(
+            world, backend, os.path.join(tmp, "store"), tmp), nprocs=world,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{world} ranks still running after "
+                                       f"{timeout_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join(10)
+        return [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cp_close(torch, card, label, got, want, tol):
+    """``allclose(got, want, rtol=tol, atol=tol)`` on the card, else
+    raise.  Returns the largest absolute difference."""
+    got, want = got.to(want.device).float(), want.float()
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    if not torch.allclose(got, want, rtol=tol, atol=tol):
+        raise AssertionError(f"{label}: max abs err {err:.3e} over tol {tol}"
+                             f" (max |want| {peak:.3e})")
+    say(card, f"{label}: max abs err {err:.3e} (tol {tol}; max |want| "
+              f"{peak:.3e})")
+    return err
+
+
+def _cp_kernel_rows(torch, card, timer, q, k, v, kx, kn, length, spec,
+                    world):
+    """The phase's kernel call forms on rank 0's shard (every block valid)
+    against their plain versions, timed: K1's contiguous form (SDPA over
+    the same shard), K1's block-list form over the shard's selection
+    (SDPA over the gathered blocks) and K3 over the shard's summaries
+    (no library call).  Returns {kernel: {label: row}}."""
+    import torch.nn.functional as F
+    from repro_torch.distributed import local_selection
+    from repro_torch.kernels import ops, ref
+    bs = spec.block_size
+    _, s_loc, hk, dh = k.shape
+    t, h = q.shape[1], q.shape[2]
+    nb = s_loc // bs
+    dev = q.device
+    kf, _ = ops.flat_blocks(k)
+    vf, _ = ops.flat_blocks(v)
+    local = torch.clamp(length, 0, s_loc)
+    vl = torch.clamp(local[:, None] - torch.arange(nb, device=dev) * bs, 0,
+                     bs)[:, None].expand(1, hk, nb).to(torch.int32)
+    vl = vl.contiguous()
+    ids = torch.arange(nb, dtype=torch.int32, device=dev)[None, None] \
+        .expand(1, hk, nb).contiguous()
+    qh = q.transpose(1, 2)
+    k1, k3 = "sparse_verify_attention", "retrieval_score"
+    rows = {k1: {}, k3: {}}
+    label = f"K1 CP shard contiguous T={t} S_loc={s_loc} H={h}/{hk}"
+    nbytes, flops = _attn_work(q, vl, t)
+    rows[k1][label] = _attn_row(
+        torch, card, timer, label,
+        lambda: ops.contiguous_verify_attention(q, k, v, local, bs),
+        lambda: ref.block_attention_batched(q, kf, vf, ids, vl, bs),
+        nbytes, flops, lambda: F.scaled_dot_product_attention(
+            qh, k.transpose(1, 2), v.transpose(1, 2)))
+    sel, vlen = local_selection(spec, max(1, spec.retrieval_budget_blocks
+                                          // world), q, kx, kn, length, 0)
+    sid, svl = (a.to(torch.int32).contiguous() for a in (sel, vlen))
+    hsel = torch.arange(hk, device=dev)[:, None]
+    kh_ = k.view(nb, bs, hk, dh).permute(2, 0, 1, 3)[hsel, sel[0]] \
+        .reshape(1, hk, -1, dh)
+    vh_ = v.view(nb, bs, hk, dh).permute(2, 0, 1, 3)[hsel, sel[0]] \
+        .reshape(1, hk, -1, dh)
+    label = (f"K1 CP shard selection T={t} NS={sel.shape[-1]} of {nb} "
+             f"H={h}/{hk}")
+    nbytes, flops = _attn_work(q, svl, t)
+    rows[k1][label] = _attn_row(
+        torch, card, timer, label,
+        lambda: ops.block_attention(q, kf, vf, sid, svl, bs),
+        lambda: ref.block_attention_batched(q, kf, vf, sid, svl, bs),
+        nbytes, flops,
+        lambda: F.scaled_dot_product_attention(qh, kh_, vh_))
+    qw = torch.ones((1, t), dtype=torch.float32, device=dev)
+    label = f"K3 CP shard scores T={t} NB={nb} H={h}/{hk}"
+    got = ops.retrieval_scores(q, kx, kn, qw)
+    want = ref.retrieval_score_batched(q, kx, kn, qw)
+    torch.cuda.synchronize()
+    _close(label, got, want)
+    err = (got - want).abs().max().item()
+    ms = timer.kernel_ms(lambda: ops.retrieval_scores(q, kx, kn, qw),
+                         "retrieval_score_kernel")
+    if timer.per_call != 1:
+        raise AssertionError(f"{label}: {timer.per_call} launches per call")
+    plain_ms = timer(lambda: ref.retrieval_score_batched(q, kx, kn, qw),
+                     iters=3, warmup=1)
+    nbytes = (q.numel() * q.element_size() + 2 * kx.numel() * 4 + t * 4
+              + hk * nb * 4)
+    bound, by = _bound_ms(nbytes, 2 * 2 * dh * (h // hk) * t * hk * nb,
+                          PEAK_FP32_S)
+    say(card, f"kernel {label}: max_abs_err {err:.3e} (tol {TOL_KERNEL} of "
+              f"max |plain|) ms {ms:.4f} ({timer.source}) plain_ms "
+              f"{plain_ms:.4f} bound_us {bound * 1e3:.3f} ({by}) "
+              f"library_ms none")
+    rows[k3][label] = dict(max_abs_err=err, ms=ms, timing=timer.source,
+                           plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                           library_ms=None)
+    return rows
+
+
+def _cp_phase(torch, card, timer):
+    """(b): CP_RANKS ranks (gloo, both on the one card, or NCCL with one
+    rank per card where there are enough), each a contiguous sequence
+    shard of the reference's case D1 (deepseek-7b's heads, 524288 tokens,
+    B = 1, T = 8, ``SpecPVConfig()``): the ranks' Full output against K1's
+    unsharded contiguous form over the whole context (bf16, and fp32 at
+    CP_FP32_TOKENS), their Partial output and selections against the
+    single-process form on the same shards, every rank bit-equal to rank
+    0, K1 and K3 launched on every rank; the call forms against their
+    plain versions, timed; the traffic model at this shape."""
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.distributed import (cp_partial_verify_single,
+                                         merged_partials_bytes,
+                                         verify_traffic_report)
+    from repro_torch.kernels import ops
+    from repro_torch.models import common as cm
+    world = CP_RANKS
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    where = ("gloo, both ranks on cuda:0, the all-reduces staged through "
+             "the host" if backend == "gloo"
+             else "NCCL, one rank per card")
+    t0 = time.perf_counter()
+    ranks = _cp_spawn(torch, world, backend)
+    spawn_s = time.perf_counter() - t0
+    k1, k3 = "sparse_verify_attention", "retrieval_score"
+    for dt in ("bfloat16", "float32"):
+        for r, res in enumerate(ranks):
+            n = {k: v for k, v in res[dt]["launches"].items() if v}
+            if n != {k1: 2, k3: 1}:
+                raise AssertionError(f"CP rank {r} {dt}: launches {n}, "
+                                     f"expected K1 2 (Full, Partial), K3 1")
+            for key in ("full", "partial"):
+                if not torch.equal(res[dt][key], ranks[0][dt][key]):
+                    raise AssertionError(f"CP {dt} {key}: rank {r} is not "
+                                         f"bit-equal to rank 0")
+    spec = SpecPVConfig()
+    bs, budget = spec.block_size, spec.retrieval_budget_blocks
+    before = ops.launch_counts()
+    errs = {}
+    for dtype, total, tol in ((torch.bfloat16, CP_TOKENS, CP_BF16_TOL),
+                              (torch.float32, CP_FP32_TOKENS, CP_FP32_TOL)):
+        dt = str(dtype).split(".")[-1]
+        q, ks, vs, kxs, kns, length = _cp_shards(torch, dtype, total, world,
+                                                 "cuda", range(world))
+        k_all, v_all = torch.cat(ks, dim=1), torch.cat(vs, dim=1)
+
+        def unsharded():
+            return ops.contiguous_verify_attention(q, k_all, v_all, length,
+                                                   bs)
+        whole = cm.combine_attn_parts([unsharded()], dtype)
+        errs[f"full {dt}"] = _cp_close(
+            torch, card, f"CP Full {dt} ({world} ranks, {total} tokens) "
+                         f"vs K1 unsharded", ranks[0][dt]["full"], whole,
+            tol)
+        if dtype == torch.bfloat16:
+            unsharded_ms = timer(unsharded, iters=3, warmup=1)
+        del k_all, v_all, whole
+        torch.cuda.empty_cache()
+        out, sels = cp_partial_verify_single(spec, budget, q, ks, vs, kxs,
+                                             kns, length)
+        for r, res in enumerate(ranks):
+            if not torch.equal(sels[r].cpu(), res[dt]["sel"]):
+                raise AssertionError(f"CP Partial {dt}: rank {r}'s "
+                                     f"selection differs from the "
+                                     f"single-process form's")
+        errs[f"partial {dt}"] = _cp_close(
+            torch, card, f"CP Partial {dt} vs the single-process form "
+                         f"(selections equal, {sels[0].shape[-1]} blocks "
+                         f"per shard)", ranks[0][dt]["partial"], out, tol)
+        if dtype == torch.bfloat16:
+            rows = _cp_kernel_rows(torch, card, timer, q, ks[0], vs[0],
+                                   kxs[0], kns[0], length, spec, world)
+        del q, ks, vs, kxs, kns, out
+        torch.cuda.empty_cache()
+    ops.set_launch_counts(before)
+    h, dh = CP_HEADS["h"], CP_HEADS["dh"]
+    msg = merged_partials_bytes(1, CP_T, h, dh, 1, world) // (2 * (world - 1))
+    report = verify_traffic_report(
+        batch=1, q_tokens=CP_T, num_heads=h, num_kv_heads=CP_HEADS["hk"],
+        head_dim=dh, num_layers=CP_LAYERS, n_shards=world,
+        budget_blocks=budget, block_size=bs)
+    per_rank = []
+    for r, res in enumerate(ranks):
+        b16 = res["bfloat16"]
+        if b16["allreduce_bytes"] != msg:
+            raise AssertionError(f"rank {r} all-reduced "
+                                 f"{b16['allreduce_bytes']} bytes a call, "
+                                 f"the traffic model's message is {msg}")
+        per_rank.append(dict(device=res["device"],
+                             launches=b16["launches"],
+                             kernel_ms=b16["times"],
+                             allreduce_ms=b16["allreduce_ms"]))
+        say(card, f"CP rank {r} ({res['device']}, {where}): "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                              b16["times"].items())
+                  + f" (CUDA events, ranks timed in turns); launches "
+                  f"K1 {b16['launches'][k1]} K3 {b16['launches'][k3]}; "
+                  f"merge (2 all-reduces) {b16['allreduce_ms']:.3f} ms "
+                  f"host clock, {b16['allreduce_bytes']} bytes a call "
+                  f"(traffic model message {msg} bytes)")
+    say(card, f"CP {world} ranks ({where}) over {CP_TOKENS} tokens at "
+              f"deepseek-7b heads: unsharded K1 over the whole context "
+              f"{unsharded_ms:.4f} ms (CUDA events); traffic model at "
+              f"{CP_LAYERS} layers: merged {report['merged_partials_bytes']} "
+              f"bytes vs gathered {report['gathered_blocks_bytes']} bytes a "
+              f"tick, ratio {report['traffic_ratio']:.1f}; spawn to join "
+              f"{spawn_s:.1f} s")
+    launched = {k: sum(res["bfloat16"]["launches"][k] for res in ranks)
+                for k in (k1, k3)}
+    return dict(shapes=rows, cp_launches=launched,
+                numbers=dict(backend=backend, ranks=per_rank,
+                             unsharded_k1_ms=unsharded_ms,
+                             allreduce_message_bytes=msg, traffic=report,
+                             max_abs_err=errs, spawn_s=spawn_s))
+
+
+def phase_windowed_cp(torch, card, timer):
+    """Phase 18: (a) windowed llama3.1-8b ``generate`` (graphs, eager, a
+    profiled window, fp32 losslessness); (b) context-parallel
+    verification over CP_RANKS ranks.  Returns the kernel rows, the CP
+    launches and the numbers."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    secs = {}
+    win = _windowed_generate(torch, card)
+    secs["a"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    win32 = _windowed_fp32(torch, card)
+    secs["a fp32"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cp = _cp_phase(torch, card, timer)
+    secs["b"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    say(card, "phase 18 " + ", ".join(f"({k}) {v:.1f} s"
+                                      for k, v in secs.items())
+              + f"; phase 18 took {total:.1f} s")
+    return dict(shapes=cp["shapes"], cp_launches=cp["cp_launches"],
+                windowed=win, windowed_fp32=win32, cp=cp["numbers"],
+                seconds=secs, total_s=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17",
+                    default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17,18",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -6552,7 +7123,9 @@ def main(argv=None) -> int:
                          "14 (the MoE family, granite-moe-1b-a400m), 15 "
                          "(the rest of the dense registry), 16 (Griffin, "
                          "recurrentgemma-2b), 17 (VLM and audio: "
-                         "whisper-small, llama-3.2-vision-90b); 1 and 12 "
+                         "whisper-small, llama-3.2-vision-90b), 18 "
+                         "(windowed llama3.1-8b; context-parallel Full and "
+                         "Partial verification over 2 ranks); 1 and 12 "
                          "always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
@@ -6620,6 +7193,8 @@ def main(argv=None) -> int:
     p16 = phase_griffin(torch, card) if 16 in phases else {"launches": {}}
     p17 = (phase_vlm_audio(torch, card) if 17 in phases
            else {"audio_launches": {}, "vlm_launches": {}})
+    p18 = (phase_windowed_cp(torch, card, timer) if 18 in phases
+           else {"shapes": {}, "cp_launches": {}})
 
     rows = []
     for name in ops.KERNELS:
@@ -6659,6 +7234,7 @@ def main(argv=None) -> int:
                              p17["audio_launches"].get(name, 0)),
                          vlm_launches=int(
                              p17["vlm_launches"].get(name, 0)),
+                         cp_launches=int(p18["cp_launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -6677,9 +7253,9 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
-        # phases 8, 9, 10, 14, 15 and 17's call forms (launches counted
-        # per kernel above)
-        for p in (p8, p9, p2t, p2m, p2r, p2x):
+        # phases 8, 9, 10, 14, 15, 17 and 18's call forms (launches
+        # counted per kernel above)
+        for p in (p8, p9, p2t, p2m, p2r, p2x, p18):
             for label, vals in p["shapes"].get(name, {}).items():
                 rows[-1].setdefault("shapes", []).append(dict(shape=label,
                                                               **vals))
@@ -6697,6 +7273,9 @@ def main(argv=None) -> int:
         say(card, "griffin " + json.dumps(p16, default=float))
     if 17 in phases:
         say(card, "vlm_audio " + json.dumps(p17, default=float))
+    if 18 in phases:
+        say(card, "windowed_cp " + json.dumps(
+            {k: v for k, v in p18.items() if k != "shapes"}, default=float))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -181,13 +181,6 @@ _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 NOT_PORTED: Dict[str, str] = {}
 
 
-def roadmap_item(cfg: "ModelConfig") -> str:
-    """The ROADMAP.md queue 1 item that brings a stack the port refuses:
-    attention stacks with a local attention window (the one refusal
-    left) come with the windowed dense stacks."""
-    return "Windowed dense stacks"
-
-
 def register(arch_id: str):
     def deco(fn: Callable[[], ModelConfig]):
         _REGISTRY[arch_id] = fn

@@ -26,10 +26,9 @@ from repro_torch.models import dense as dn
 def draft_model_config(cfg: ModelConfig, yarn_factor: float = 1.0
                        ) -> ModelConfig:
     """The draft layer's effective config: the target's dims, one layer.
-    It keeps the target's ``window_size`` (Griffin's 2048), which the
-    draft ignores as the reference's does: its attention reads the whole
-    draft cache, and ``dense._check_dense`` (which refuses a window) is
-    never run on this config."""
+    It keeps the target's ``window_size`` (Griffin's 2048, or a windowed
+    dense stack's), which the draft ignores as the reference's does: its
+    attention reads the whole draft cache."""
     return cfg.replace(name=cfg.name + "-draft", num_layers=1,
                        arch_type="dense", num_experts=0, experts_per_token=0,
                        yarn_factor=yarn_factor, layer_pattern=(),

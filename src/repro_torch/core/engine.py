@@ -360,7 +360,7 @@ class SpecPVEngine:
         a slot admission, which may set its own with its seed and draft
         shape; the continuous scheduler wants a greedy engine.  A mesh
         raises NotImplementedError naming the ROADMAP item that will
-        bring it (a windowed stack is refused by ``api.init_cache``).
+        bring it.
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
         as in the reference; contiguous engines share nothing):
@@ -405,7 +405,7 @@ class SpecPVEngine:
             raise ValueError("tiered KV residency needs the paged cache "
                              "(paged=True)")
         if mesh is not None:
-            _unsupported("mesh sharding", "Multi-GPU")
+            _unsupported("mesh sharding", "Multi-GPU, part 2")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "

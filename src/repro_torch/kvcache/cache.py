@@ -261,7 +261,7 @@ class PageAllocator:
     def _one_pool(shard: int) -> None:
         if shard != 0:
             raise ValueError(f"shard {shard}: the port's pool is unsharded "
-                             f"(ROADMAP.md queue 1, 'Multi-GPU')")
+                             f"(ROADMAP.md queue 1, 'Multi-GPU, part 2')")
 
     def _take(self, n: int) -> List[int]:
         """The only place pages leave the free list (refcount 1 each);

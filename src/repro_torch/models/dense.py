@@ -20,7 +20,11 @@ the identity list):
                  the causal prefill kernel (K2) over the row's prefix, then
                  one block-summary (K4) call over every layer.  A ragged
                  chunk (``t_valid``) leaves its pads out of the K/V
-                 writes, the key masks, the summaries and ``length``.
+                 writes, the key masks, the summaries and ``length``.  A
+                 stack with ``window_size`` attends through the plain
+                 chunked attention over the row's (materialised) cache
+                 with the sliding window instead of K2, as the reference
+                 does (its paged kernel only when ``window_size == 0``).
   decode_full    T tree tokens vs the full cache + tree self-mask, through
                  the verify kernel (K1).
   decode_partial T tokens vs the partial context: the retrieval-selected
@@ -28,7 +32,8 @@ the identity list):
                  table (zero-copy) or from the gathered body, merged with
                  the dense tail buffer.
   decode_fused   per-row source select between the two above.
-  train          causal attention over the sequence, no cache: the plain
+  train          causal attention over the sequence (sliding-windowed with
+                 ``window_size``), no cache: the plain
                  chunked attention under autograd (the kernels have no
                  backward), each layer rematerialised in the backward pass
                  when ``cfg.remat`` is set (the reference's
@@ -53,6 +58,8 @@ attention and per-layer summaries run only for the autoregressive
 oracle (``plain=True``, contiguous cache; ``core.reference``).
 
 Decode modes never mutate the cache; they return the new tokens' K/V.
+They attend the whole context whatever ``window_size`` is: the reference
+windows only its train and prefill modes.
 """
 from __future__ import annotations
 
@@ -62,7 +69,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ModelConfig, SpecPVConfig, roadmap_item
+from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as bk
 from repro_torch.models import common as cm
@@ -75,11 +82,6 @@ def _check_dense(cfg: ModelConfig) -> None:
     if cfg.arch_type == "hybrid":
         raise ValueError(f"{cfg.name}: a hybrid stack runs the Griffin "
                          f"trunk (models/griffin.py), not the dense one")
-    if cfg.window_size:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs attention stacks without a local "
-            f"window here; a window comes with ROADMAP.md queue 1, "
-            f"'{roadmap_item(cfg)}'")
     if (cfg.arch_type == "moe") != (cfg.num_experts > 0):
         raise ValueError(f"{cfg.name}: a {cfg.arch_type} stack with "
                          f"{cfg.num_experts} experts is no configuration of "
@@ -462,7 +464,7 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
             pool_k, pool_v = cache_kv
             paged_write_tokens(pool_k, page_table, length, k_new, valid)
             paged_write_tokens(pool_v, page_table, length, v_new, valid)
-            if paged_kernel:
+            if paged_kernel and not cfg.window_size:
                 out = kops.paged_prefill_attention(q, pool_k, pool_v,
                                                    page_table, length, tv)
                 return bk.attn_output(cfg, lp["attn"], out), upd, q
@@ -471,13 +473,17 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
             append_layer_kv(cache_kv[0], cache_kv[1], k_new, v_new, length,
                             valid)
         k_layer, v_layer = layer_view()
-        if plain:
+        if plain or cfg.window_size:
+            # a sliding window takes the plain chunked attention on every
+            # layout, the reference's choice (src/repro/models/dense.py
+            # prefill: the paged kernel only when window_size == 0)
             s = k_layer.shape[1]
             kv_pos = torch.arange(s, device=dev)[None].expand(b, s)
             kv_valid = kv_pos < (length + tv)[:, None]
             out = cm.flash_attention(q, k_layer, v_layer,
                                      q_positions=positions,
                                      kv_positions=kv_pos, causal=True,
+                                     window=cfg.window_size,
                                      kv_valid=kv_valid, chunk=512)
         else:
             out = kops.contiguous_prefill_attention(q, k_layer, v_layer,
@@ -586,10 +592,11 @@ def _train_layer(cfg: ModelConfig, lp: Dict, h, positions, inv_freq,
     """One stateless layer of the train (``causal``) or encode mode: the
     self-attention over the sequence (``cm.flash_attention``, the
     reference's KV tile of ``min(512, max(128, T))`` keys and query
-    tiles of 512) of an ``attn`` or ``dec`` layer, the cross-attention
-    over ``encoder_out`` of a ``cross`` or ``dec`` layer (a ``cross``
-    layer's tanh-gated), then the MLP or MoE (gated in a ``cross``
-    layer).  Returns (h, the layer's aux loss)."""
+    tiles of 512; causal attention keeps ``cfg.window_size``) of an
+    ``attn`` or ``dec`` layer, the cross-attention over ``encoder_out``
+    of a ``cross`` or ``dec`` layer (a ``cross`` layer's tanh-gated),
+    then the MLP or MoE (gated in a ``cross`` layer).  Returns (h, the
+    layer's aux loss)."""
     if kind in ("attn", "dec"):
         x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
         q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq, mscale)
@@ -598,6 +605,7 @@ def _train_layer(cfg: ModelConfig, lp: Dict, h, positions, inv_freq,
         t = positions.shape[1]
         out = cm.flash_attention(q, k, v, q_positions=positions,
                                  kv_positions=positions, causal=causal,
+                                 window=cfg.window_size if causal else 0,
                                  chunk=min(512, max(128, t)))
         h = h + bk.attn_output(cfg, lp["attn"], out)
     if kind in ("cross", "dec"):

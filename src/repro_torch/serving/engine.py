@@ -79,7 +79,7 @@ class ServingEngine:
                  cuda_graphs: Optional[bool] = None):
         self.scfg = scfg = scfg or ServingConfig()
         if scfg.mesh_shape is not None:
-            _unsupported("mesh sharding (mesh_shape)", "Multi-GPU")
+            _unsupported("mesh sharding (mesh_shape)", "Multi-GPU, part 2")
         self.cfg = cfg
         self.spec = spec
         self.dcfg = dcfg

@@ -2452,3 +2452,137 @@ def test_cuda_cross_rows_follow_the_slot_in_graphs(cuda, models, name):
         zero_copy=True, prefix_cache=False, device="cuda")
     toks, _ = solo.generate(reqs[1][0][None], 12, extra=reqs[1][1])
     np.testing.assert_array_equal(got[1], toks[0])
+
+
+# ---------------------------------------------------------------------------
+# context-parallel verification: the shard call forms, windowed stacks
+# ---------------------------------------------------------------------------
+
+def _shard_case(dev, dtype, *, s_loc=8192, t=8, h=32, hk=32, dh=128,
+                seed=11):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q = torch.randn((1, t, h, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, s_loc, hk, dh), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, s_loc, hk, dh), generator=g, device=dev).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("length", [8192 + 5000, 3 * 8192, 100])
+def test_cuda_cp_full_shard_form_matches_plain(cuda, dtype, length):
+    """K1's contiguous form on rank 1's shard of 8192 tokens at
+    deepseek-7b's heads (32/32, Dh 128): the shard's valid length is the
+    global one less the shard offset, clamped (partly filled, full,
+    empty); one launch, against the plain version over the same blocks."""
+    from repro_torch.distributed import local_full_partials
+    q, k, v = _shard_case(cuda, TDT[dtype])
+    bs = 128
+    length_t = torch.tensor([length], dtype=torch.int32, device=cuda)
+    before = tops.LAUNCHES["sparse_verify_attention"]
+    got = local_full_partials(q, k, v, length_t, 1, bs)
+    torch.cuda.synchronize()
+    assert tops.LAUNCHES["sparse_verify_attention"] == before + 1
+    local = torch.clamp(length_t - 8192, 0, 8192)
+    idx, vlen = tops._identity_walk(1, 32, 8192 // bs, local, 8192, bs)
+    want = tref.block_attention_batched(q, k.reshape(-1, 32, 128),
+                                        v.reshape(-1, 32, 128), idx, vlen, bs)
+    _assert_partials_close(got, want)
+    if length <= 8192:
+        assert torch.all(got[0] == -1e30) and torch.all(got[1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_cp_partial_shard_form_matches_plain(cuda, dtype):
+    """A shard's retrieval: K3 over its 64 block summaries with unit
+    weights against the plain scores, the selection (top 16 of the blocks
+    holding valid tokens) equal to the plain scores' selection, and K1's
+    block-list form over it against the plain version; one launch each."""
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.distributed import local_partial_partials
+    spec = SpecPVConfig()
+    q, k, v = _shard_case(cuda, TDT[dtype])
+    bs, nb = spec.block_size, 8192 // spec.block_size
+    kb = k.float().reshape(1, nb, bs, 32, 128)
+    kmax, kmin = kb.amax(dim=2).contiguous(), kb.amin(dim=2).contiguous()
+    length = torch.tensor([8192 + 6000], dtype=torch.int32, device=cuda)
+    before = tops.launch_counts()
+    m, l, acc, idx = local_partial_partials(spec, 16, q, k, v, kmax, kmin,
+                                            length, 1)
+    torch.cuda.synchronize()
+    runs, _ = tops.launch_count_delta(before, tops.launch_counts())
+    assert runs == {"sparse_verify_attention": 1, "retrieval_score": 1}
+    got_s = tops.retrieval_scores(q, kmax, kmin, torch.ones(
+        (1, 8), dtype=torch.float32, device=cuda))
+    want_s = tref.retrieval_score_batched(q, kmax, kmin, torch.ones(
+        (1, 8), dtype=torch.float32, device=cuda))
+    _assert_close(got_s, want_s)
+    valid = torch.arange(nb, device=cuda) * bs + 8192 < length
+    masked = torch.where(valid[None, None], want_s,
+                         torch.full_like(want_s, -float("inf")))
+    want_idx = torch.sort(masked, dim=-1, descending=True,
+                          stable=True).indices[..., :16]
+    assert torch.equal(idx, want_idx)
+    n_valid = torch.clamp(length - 8192 - torch.arange(nb, device=cuda) * bs,
+                          0, bs)
+    vlen = n_valid[idx].to(torch.int32)
+    want = tref.block_attention_batched(q, k.reshape(-1, 32, 128),
+                                        v.reshape(-1, 32, 128),
+                                        idx.to(torch.int32), vlen, bs)
+    _assert_partials_close((m, l, acc), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_k1_pool_past_2_31_elements(cuda, dtype):
+    """K1 over a pool of just over 2^31 elements (4097 blocks of 128 x 32
+    x 128), reading its last blocks: every offset into the pool is 64-bit
+    in the kernel, so the far end reads right against the plain version."""
+    from repro_torch.configs import SpecPVConfig
+    bs, hk, dh = SpecPVConfig().block_size, 32, 128
+    npg = (1 << 31) // (bs * hk * dh) + 1
+    assert npg * bs * hk * dh > 1 << 31
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    kf = torch.empty((npg * bs, hk, dh), dtype=TDT[dtype], device=cuda)
+    vf = torch.empty_like(kf)
+    kf[-4 * bs:].copy_(torch.randn((4 * bs, hk, dh), generator=g,
+                                   device=cuda))
+    vf[-4 * bs:].copy_(torch.randn((4 * bs, hk, dh), generator=g,
+                                   device=cuda))
+    q = torch.randn((1, 8, 32, dh), generator=g, device=cuda).to(TDT[dtype])
+    idx = torch.arange(npg - 4, npg, dtype=torch.int32, device=cuda)
+    idx = idx[None, None].expand(1, hk, 4).contiguous()
+    vlen = torch.full((1, hk, 4), bs, dtype=torch.int32, device=cuda)
+    vlen[..., -1] = 77
+    got = tops.block_attention(q, kf, vf, idx, vlen, bs)
+    want = tref.block_attention_batched(q, kf, vf, idx, vlen, bs)
+    _assert_partials_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_windowed_graphs_equal_eager(cuda, models):
+    """llama3.1-8b at full width and 2 layers with ``window_size=1024``
+    (set by ``replace``), a 2304-token prompt (nine chunks, the window
+    shorter than the prompt): ``generate`` with graphs equals eager token
+    for token with the same launch counts, and the windowed prefill makes
+    no K2 launch."""
+    import numpy as np
+    cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
+    model = (cfg.replace(window_size=1024), spec, dcfg, params, dparams)
+    prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, 2304)).astype(np.int64)
+    runs = []
+    for graphs in (False, True):
+        eng = _engine(model, 2304, 16, cuda_graphs=graphs)
+        tops.reset_launch_counts()
+        toks, stats = eng.generate(prompt, 16)
+        torch.cuda.synchronize()
+        runs.append((toks, stats["modes"], tops.launch_counts()))
+    (et, em, ec), (gt, gm, gc) = runs
+    np.testing.assert_array_equal(gt, et)
+    assert gm == em and gc == ec
+    assert ec[0]["paged_prefill_attention"] == 0
+    assert ec[0]["sparse_verify_attention"] > 0

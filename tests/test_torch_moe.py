@@ -471,7 +471,8 @@ def test_train_loss_and_grads_match_jax(setup):
 @pytest.mark.parametrize("arch", ["hybrid", "vlm", "audio", "windowed"])
 def test_other_architectures_still_refused(setup, arch):
     """The dense trunk admits dense, MoE, VLM and audio stacks: a windowed
-    MoE stack raises NotImplementedError naming its ROADMAP item; a
+    MoE stack (ported since) builds and its chunked prefill logits equal
+    JAX's; a
     hybrid stack is refused by the dense trunk, which points to the
     Griffin trunk, and the engine takes one built with Griffin params;
     the VLM and audio stacks (ported since) are admitted, and the one
@@ -491,10 +492,20 @@ def test_other_architectures_still_refused(setup, arch):
         assert not eng.is_attn and eng.mode_for(1, 10_000, False) == "state"
         return
     if arch == "windowed":
-        cfg = s["tcfg"].replace(window_size=128)
-        with pytest.raises(NotImplementedError,
-                           match="'Windowed dense stacks'"):
-            tdn._check_dense(cfg)
+        cfg, tcfg = (s[k].replace(window_size=24) for k in ("cfg", "tcfg"))
+        tdn._check_dense(tcfg)
+        prompt = s["prompt"][:, :80]
+        jc = japi.init_cache(cfg, 2, 96, s["spec"])
+        tc = tapi.init_cache(tcfg, 2, 96, s["tspec"], device="cpu")
+        for off in range(0, 80, 32):
+            chunk = prompt[:, off:off + 32]
+            jl, _, jc = japi.prefill(cfg, s["params"], jnp.asarray(chunk),
+                                     jc, spec=s["spec"])
+            tl, _, tc = tapi.prefill(tcfg, s["tp"],
+                                     torch.as_tensor(chunk).long(), tc,
+                                     spec=s["tspec"])
+            np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                       rtol=1e-4, atol=1e-4)
         return
     name = {"vlm": "llama-3.2-vision-90b", "audio": "whisper-small"}[arch]
     cfg = tcfgs.get_config(name).reduced().replace(**F32)

@@ -503,7 +503,7 @@ def _request_serves(s, **kw):
     (_serves, dict(paged_kv=True, zero_copy_partial=False), None),
     (_serves, dict(paged_kv=True, prefix_cache=True), None),
     (_serves, dict(paged_kv=True, tiered_kv=True), None),
-    (_bad_config, dict(mesh_shape=(1, 1)), "Multi-GPU"),
+    (_bad_config, dict(mesh_shape=(1, 1)), "Multi-GPU, part 2"),
     (_request_serves, dict(temperature=0.7, seed=3), None),
     (_request_serves, dict(draft="chain"), None),
 ], ids=["paged_kv", "zero_copy", "prefix_cache", "tiered", "mesh",

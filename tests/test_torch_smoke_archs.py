@@ -1,12 +1,14 @@
 """Per-architecture smoke tests of the PyTorch port, the torch-only twin
-of ``tests/test_smoke_archs.py`` (this file imports no JAX): every
+of ``tests/test_smoke_archs.py`` (this file imports no JAX at module
+level): every
 assigned architecture the port runs, as its REDUCED variant (<= 2
 layers, d_model <= 256, <= 4 experts), takes one train step on the CPU
 (finite loss, non-zero finite gradient norm), then prefills and decodes
 one token with finite logits of the right shapes (the VLM and audio
-ids with their stub ``extra`` from ``api.extra_inputs_for``).  A stack
-the port does not run (an attention stack with a local window) raises
-NotImplementedError naming its ROADMAP item.
+ids with their stub ``extra`` from ``api.extra_inputs_for``).  A dense
+or MoE stack with a local attention window, the last refusal once, is
+admitted: it builds, and its chunked prefill logits equal the JAX
+package's, which that test imports inside itself.
 """
 import numpy as np
 import pytest
@@ -88,13 +90,37 @@ def test_reduced_prefill_decode(arch):
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "granite-moe-1b-a400m"])
 def test_not_ported_ids_raise(arch):
-    """No assigned id is refused any more; the refusal left is a dense or
-    MoE stack with a local attention window, which names its ROADMAP
-    item."""
+    """No assigned id is refused, and no stack either: a dense or MoE stack
+    with a local attention window (refused until the windowed dense
+    stacks) builds, and its prefill logits over a 160-token prompt in
+    chunks of 64, the window 64, equal the JAX package's in fp32."""
+    import jax
+    import jax.numpy as jnp
+    import repro.configs as jcfgs
+    from repro.models import api as japi
+    from repro_torch.convert import params_from_numpy
     assert arch in ASSIGNED_ARCHS and arch not in NOT_PORTED
-    cfg = get_config(arch).reduced().replace(window_size=64)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, 'Windowed dense stacks'"):
-        dn._check_dense(cfg)
-    with pytest.raises(NotImplementedError, match="Windowed dense stacks"):
-        api.init_params(cfg, seed=0, device="cpu")
+    over = dict(window_size=64, dtype="float32", param_dtype="float32")
+    cfg = get_config(arch).reduced().replace(**over)
+    jcfg = jcfgs.get_config(arch).reduced().replace(**over)
+    dn._check_dense(cfg)
+    assert api.init_params(cfg, seed=0, device="cpu")["embed"].shape[0] \
+        == cfg.vocab_size
+    jp = japi.init_params(jcfg, jax.random.PRNGKey(0))
+    params = params_from_numpy(cfg, jax.tree_util.tree_map(np.asarray, jp),
+                               device="cpu")
+    jspec = jcfgs.SpecPVConfig(block_size=16, num_sink_blocks=1,
+                               retrieval_budget_blocks=4,
+                               local_window_blocks=2, buffer_size=48)
+    prompt = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 160)).astype(np.int32)
+    jc = japi.init_cache(jcfg, 2, 192, jspec)
+    tc = api.init_cache(cfg, 2, 192, SPEC, device="cpu")
+    for off in range(0, 160, 64):
+        chunk = prompt[:, off:off + 64]
+        jl, _, jc = japi.prefill(jcfg, jp, jnp.asarray(chunk), jc,
+                                 spec=jspec)
+        tl, _, tc = api.prefill(cfg, params, torch.as_tensor(chunk).long(),
+                                tc, spec=SPEC)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-4,
+                                   atol=1e-4)

@@ -224,20 +224,30 @@ def test_train_loss_and_grads_match_jax(tiny):
 
 
 def test_trainer_five_steps_match_jax(tiny):
-    """Five ``Trainer`` steps from the same init on the same corpus
-    batches (batch 2, sequence 64, warm-up 2): per-step loss, lr and
-    gradient norm within 1e-4 relative, and every parameter within 2e-4
-    absolute of JAX's after ``params_to_numpy``; the history has the
-    reference's keys."""
+    """Five ``Trainer`` steps from the same init on the same batches
+    (batch 2, sequence 64, warm-up 2): per-step loss, lr and gradient
+    norm within 1e-4 relative, and every parameter within 2e-4 absolute
+    of JAX's after ``params_to_numpy``; the history has the reference's
+    keys.
+
+    The batches are drawn from numpy seed 11, not from the corpus, whose
+    documents follow the process's string-hash salt: as in the draft
+    trainer's test below, AdamW's first step moves an element whose
+    gradient lies within fp32 rounding of zero by about lr either way,
+    and on the corpus batches of some salts (``PYTHONHASHSEED=39``) that
+    took the largest difference past the bound.  The corpus itself is
+    held bit for bit above."""
     cfg, tcfg, params, _ = tiny
-    jc, tc = _corpora()
+    rng = np.random.default_rng(11)
+    batches = [rng.integers(0, cfg.vocab_size, (2, 65)).astype(np.int32)
+               for _ in range(5)]
     jt = JTrainer(cfg, JTC(total_steps=5, warmup=2, log_every=1),
                   params=_jx(params))
-    jr = jt.fit(jbatches(jc, batch=2, seq_len=64), steps=5)
+    jr = jt.fit(iter(batches), steps=5)
     tt = Trainer(tcfg, TrainConfig(total_steps=5, warmup=2, log_every=1),
                  params=params_from_numpy(tcfg, params, device="cpu"),
                  device="cpu")
-    tr = tt.fit(batch_iterator(tc, batch=2, seq_len=64), steps=5)
+    tr = tt.fit(iter(batches), steps=5)
     assert len(tr["history"]) == len(jr["history"]) == 5
     for a, b in zip(jr["history"], tr["history"]):
         assert set(a) == set(b)
