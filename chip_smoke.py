@@ -44,12 +44,12 @@ Phases, in order (any failure raises and the script exits non-zero):
    every layer), the prefill is timed apart from decode (host clock
    after a synchronisation), and every layer's page summaries of the
    final cache are recomputed by the plain version and held to it bit
-   for bit; then, for the graph run, a fresh prefill under
-   ``torch.profiler`` (device launches, host ops and host launch calls
-   per chunk), a few decode steps under ``torch.profiler`` (device time
-   by kernel, idle share) and two forced Refresh steps (K3's share of
-   their device time); the eager run is not profiled (slice 18 cut its
-   26 s window to keep the smoke inside its budget).  After the eager
+   for bit; then, for the graph run, a few decode steps under
+   ``torch.profiler`` (device time by kernel, idle share) and two forced
+   Refresh steps (K3's share of their device time); the eager run is not
+   profiled (slice 18 cut its 26 s window) and the graph run's fresh
+   prefill runs unprofiled (slice 19 cut it), to keep the smoke inside
+   its budget.  After the eager
    run, one eager run of the prefill chunk's and of each step variant's
    body under ``torch.cuda.set_sync_debug_mode("error")`` (no body may
    wait for the card or read from the host);
@@ -362,7 +362,32 @@ Phases, in order (any failure raises and the script exits non-zero):
    same shards; per rank the kernels' device ms (CUDA events) and the
    merge's all-reduce ms; the call forms against their plain versions,
    timed beside SDPA over the same keys; the traffic model at this
-   shape.
+   shape;
+19. the launch steps and the int8 resident decode cache (slice 19).  (a)
+   ``repro_torch.launch.steps`` at the full width of llama3.1-8b (32
+   layers, bf16, batch 1, ``SpecPVConfig()``): one ``make_prefill_step``
+   call over an 8192-token prompt (K2, K4), 16 ``make_decode_step`` full
+   steps (K1, K4) eagerly, each under the sync check, then replayed
+   as a CUDA graph from the same state (equal tokens), one
+   ``decode(select_partial=True)`` (K1, K3; its token committed, K4) and
+   16 partial steps over its selection (no kernel: the reference's plain
+   per-head attention) both ways; 8 state steps of rwkv6-3b at full
+   width both ways (K5 twice per layer and step); one ``make_train_step``
+   at 4 layers of llama width; the launch counts set to 0 just before
+   and read just after each part and held to it.  (b) every case of
+   ``launch.hillclimb.CASES`` (granite-3-2b verify steps at batch 8 over
+   32768 tokens, full, partial and partial with an int8 partial cache;
+   qwen1.5-32b int8 decode over 32768 tokens; deepseek-7b int8 partial
+   decode at 524288 tokens; deepseek-7b context-parallel retrieval over
+   one 524288-token layer), built at the reference's shapes with the
+   cuts one card forces listed in its ``reduced``: 4 steps eagerly (each
+   under the sync check) and as a CUDA graph from the same state,
+   equal bit for bit, peak and state bytes and ms per step both ways;
+   qwen1.5-32b's int8 read of one layer within 3e-2 of K1 over the same
+   layer dequantised to bf16; the int8 partial cache's bonus tokens
+   reported against the bf16 one's; each case freed and the cyclic
+   collector run before the next.  (c) fp32 (TF32 off) at 4 layers: a
+   prefill step and 31 full decode steps equal the port's AR oracle.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -1371,7 +1396,8 @@ def phase_generate(torch, card):
         torch, card, "llama3.1-8b")
     runs = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
                          prompt, NEW_TOKENS, dict(paged=True, zero_copy=True),
-                         "llama3.1-8b", profile_eager=False)
+                         "llama3.1-8b", profile_eager=False,
+                         profile_prefill=False)
     del params, dparams
     torch.cuda.empty_cache()
     return runs["graphs"]
@@ -7108,10 +7134,459 @@ def phase_windowed_cp(torch, card, timer):
                 seconds=secs, total_s=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the launch steps and the int8 resident decode cache
+# ---------------------------------------------------------------------------
+
+LAUNCH_PROMPT = 8192            # (a): one prefill call over the whole prompt
+LAUNCH_STEPS = 16               # (a): full and partial decode steps, each way
+LAUNCH_RWKV_PROMPT = 256
+LAUNCH_RWKV_STEPS = 8
+LAUNCH_TRAIN_LAYERS = 4
+LAUNCH_TRAIN_SEQ = 512
+LAUNCH_FP32_LAYERS = 4
+LAUNCH_FP32_PROMPT = 300
+LAUNCH_FP32_NEW = 32
+HILLCLIMB_STEPS = 4
+INT8_K1_TOL = 3e-2              # int8 read against K1 over the bf16 dequant
+
+
+def _zero_launches():
+    from repro_torch.kernels import ops
+    return {k: 0 for k in ops.KERNELS}
+
+
+def _launch_step_runs(torch, card, label, body, tok, static, steps, want):
+    """``steps`` calls of ``body`` (one decode step that writes its next
+    token into ``tok``) eagerly, each under the sync check; then,
+    from the same state (``static`` restored), the body captured as a
+    CUDA graph and replayed ``steps`` times.  Each call is timed with CUDA
+    events; each run's launch counts are set to 0 just before it and must
+    equal ``want`` just after; the graph's tokens must equal the eager
+    ones.  Returns the numbers and the launches of both runs."""
+    from repro_torch.core.engine import capture_graph
+    from repro_torch.kernels import ops
+    snap = [t.clone() for t in static]
+    runs, total = {}, _zero_launches()
+    for graphs in (False, True):
+        call = body
+        if graphs:
+            for t, c in zip(static, snap):
+                t.copy_(c)
+            call = capture_graph(body, tok.device, static,
+                                 torch.cuda.graph_pool_handle()).replay
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        toks, evs = [], []
+
+        def run():
+            for _ in range(steps):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                call()
+                e1.record()
+                evs.append((e0, e1))
+                toks.append(tok.clone())
+        if graphs:
+            run()
+        else:
+            _no_sync(torch, run)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        if launches != want:
+            raise AssertionError(f"{label} {RUN_LABEL[graphs]}: launches "
+                                 f"{launches} != {want}")
+        for k, n in launches.items():
+            total[k] += n
+        ms = sorted(a.elapsed_time(b) for a, b in evs)
+        runs[graphs] = dict(tokens=torch.stack(toks).cpu(),
+                            ms_median=ms[len(ms) // 2], ms_min=ms[0])
+    if not torch.equal(runs[True]["tokens"], runs[False]["tokens"]):
+        raise AssertionError(f"{label}: graph tokens differ from eager:\n"
+                             f"{runs[True]['tokens'].T}\n"
+                             f"{runs[False]['tokens'].T}")
+    out = {f"{RUN_LABEL[g]}_ms": r["ms_median"] for g, r in runs.items()}
+    out[f"{RUN_LABEL[True]}_ms_min"] = runs[True]["ms_min"]
+    say(card, f"launch steps [{label}]: {steps} steps eager (each under the "
+              f"sync check) == graph replays, token for token; device ms "
+              f"per step eager {out['eager_ms']:.3f}, graphs "
+              f"{out['graphs_ms']:.3f} (median of {steps}); launches per run "
+              f"{want}")
+    return out, total
+
+
+def _launch_llama(torch, card):
+    """(a) llama3.1-8b at full width (32 layers, bf16, batch 1,
+    ``SpecPVConfig()``) through ``launch.steps``: one prefill call over
+    LAUNCH_PROMPT tokens (K2, K4), LAUNCH_STEPS full decode steps (K1, K4)
+    eager and as a graph, one ``decode(select_partial=True)`` whose token
+    is committed (K1, K3, K4), then LAUNCH_STEPS partial steps over the
+    selection (the plain per-head attention, no kernel) eager and as a
+    graph."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import SpecPVConfig, get_config
+    from repro_torch.core import verify as vf
+    from repro_torch.core.engine import copy_into
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    cfg = get_config("llama3.1-8b")
+    spec = SpecPVConfig()
+    layers = cfg.num_layers
+    params = api.init_params(cfg, seed=0, device=dev)
+    max_len = LAUNCH_PROMPT + 4 * LAUNCH_STEPS
+    cache = api.init_cache(cfg, 1, max_len, spec, device=dev)
+    ops.reserve_split_counters(ops.split_counter_slots(
+        1, 1, cfg.num_heads, cfg.num_kv_heads,
+        -(-max_len // spec.block_size)), dev)
+    prompt = torch.as_tensor(np.random.default_rng(19).integers(
+        0, cfg.vocab_size, (1, LAUNCH_PROMPT)), device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    num, total = {}, _zero_launches()
+
+    def held(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} != {want}")
+        for k, n in got.items():
+            total[k] += n
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tok, _ = st.make_prefill_step(cfg, spec)(params, cache, prompt, None)
+    torch.cuda.synchronize()
+    num["prefill_s"] = time.perf_counter() - t0
+    held("prefill step", dict(ops.LAUNCHES),
+         dict(_zero_launches(), paged_prefill_attention=layers,
+              block_summary=1))
+    say(card, f"launch steps [llama3.1-8b prefill]: one call over "
+              f"{LAUNCH_PROMPT} tokens in {num['prefill_s']:.3f} s "
+              f"(K2 {layers}, K4 1)")
+    tokbuf = tok.clone()
+    full = st.make_decode_step(cfg, spec)
+
+    def full_body():
+        tokbuf.copy_(full(params, cache, tokbuf)[0])
+    num["full"], got = _launch_step_runs(
+        torch, card, "llama3.1-8b full", full_body, tokbuf,
+        [tokbuf, cache["length"], cache["kmax"], cache["kmin"]],
+        LAUNCH_STEPS, dict(_zero_launches(),
+                           sparse_verify_attention=layers * LAUNCH_STEPS,
+                           block_summary=LAUNCH_STEPS))
+    for k, n in got.items():
+        total[k] += n
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = api.decode(cfg, params, tokbuf[:, None], cache["length"][:, None],
+                     cache, mode="full", spec=spec, select_partial=True)
+    copy_into(cache, vf.append_full_cache(
+        cache, out.new_kv[0], out.new_kv[1],
+        torch.ones((1,), dtype=torch.int32, device=dev), spec))
+    tokbuf.copy_(torch.argmax(out.logits[:, 0], dim=-1).to(torch.int32))
+    pk, pv, ppos, buf_len = st.partial_state(spec, out.partial)
+    del out
+    torch.cuda.synchronize()
+    held("select_partial", dict(ops.LAUNCHES),
+         dict(_zero_launches(), sparse_verify_attention=layers,
+              retrieval_score=layers, block_summary=1))
+    if int((ppos[:, :, :, :spec.partial_budget_tokens] >= 0).sum()) == 0:
+        raise AssertionError("select_partial selected no valid token")
+    partial = st.make_decode_step(cfg, spec, partial=True)
+
+    def partial_body():
+        tokbuf.copy_(partial(params, cache, pk, pv, ppos, buf_len,
+                             tokbuf)[0])
+    num["partial"], got = _launch_step_runs(
+        torch, card, "llama3.1-8b partial", partial_body, tokbuf,
+        [tokbuf, ppos, buf_len], LAUNCH_STEPS, _zero_launches())
+    for k, n in got.items():
+        total[k] += n
+    if int(buf_len[0]) != LAUNCH_STEPS:
+        raise AssertionError(f"partial steps: buf_len {int(buf_len[0])}")
+    num["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del params, cache, pk, pv, ppos
+    gc.collect()
+    torch.cuda.empty_cache()
+    return num, total
+
+
+def _launch_rwkv(torch, card):
+    """(a) rwkv6-3b at full width (32 layers, bf16): a prefill step over
+    LAUNCH_RWKV_PROMPT tokens, then LAUNCH_RWKV_STEPS state steps (a
+    read-only decode and an advance each: K5 twice per layer) eager and as
+    a graph."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import SpecPVConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    cfg = get_config("rwkv6-3b")
+    spec = SpecPVConfig()
+    params = api.init_params(cfg, seed=0, device=dev)
+    cache = api.init_cache(cfg, 1, 1024, spec, device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, LAUNCH_RWKV_PROMPT)), device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tok, _ = st.make_prefill_step(cfg, spec)(params, cache, prompt, None)
+    torch.cuda.synchronize()
+    total = dict(ops.LAUNCHES)
+    if total != dict(_zero_launches(), wkv=cfg.num_layers):
+        raise AssertionError(f"rwkv prefill step: launches {total}")
+    tokbuf = tok.clone()
+    step = st.make_decode_step(cfg, spec)
+
+    def body():
+        tokbuf.copy_(step(params, cache, tokbuf)[0])
+    static = [tokbuf] + [v for v in cache.values() if torch.is_tensor(v)]
+    num, got = _launch_step_runs(
+        torch, card, "rwkv6-3b state", body, tokbuf, static,
+        LAUNCH_RWKV_STEPS,
+        dict(_zero_launches(), wkv=2 * cfg.num_layers * LAUNCH_RWKV_STEPS))
+    for k, n in got.items():
+        total[k] += n
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return num, total
+
+
+def _launch_train(torch, card):
+    """(a) two ``make_train_step`` calls at LAUNCH_TRAIN_LAYERS layers of
+    llama3.1-8b's width (bf16, fp32 moments), a LAUNCH_TRAIN_SEQ-token
+    batch: finite losses, the parameters moved in place, no kernel (the
+    kernels have no backward)."""
+    import gc
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import adamw_init
+    dev = torch.device("cuda")
+    cfg = get_config("llama3.1-8b").replace(num_layers=LAUNCH_TRAIN_LAYERS)
+    params = api.init_params(cfg, seed=4, device=dev)
+    opt = adamw_init(params)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, LAUNCH_TRAIN_SEQ + 1),
+                           generator=g, device=dev)
+    w0 = params["layers"][0]["attn"]["wq"].clone()
+    ptr = params["layers"][0]["attn"]["wq"].data_ptr()
+    step = st.make_train_step(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ms, losses = [], []
+    for _ in range(2):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, loss = step(params, opt, tokens, None)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(loss))
+    launches = dict(ops.LAUNCHES)
+    wq = params["layers"][0]["attn"]["wq"]
+    if (not all(map(math.isfinite, losses)) or wq.data_ptr() != ptr
+            or torch.equal(wq, w0) or opt.step != 2
+            or launches != _zero_launches()):
+        raise AssertionError(f"train step: losses {losses}, moved "
+                             f"{not torch.equal(wq, w0)}, in place "
+                             f"{wq.data_ptr() == ptr}, launches {launches}")
+    num = dict(first_ms=ms[0], ms=ms[1], losses=losses)
+    say(card, f"launch steps [train, llama3.1-8b width, "
+              f"{LAUNCH_TRAIN_LAYERS} layers, {LAUNCH_TRAIN_SEQ} tokens]: "
+              f"losses {[round(x, 4) for x in losses]}, {ms[1]:.1f} ms a "
+              f"step (the first, with the process's autograd set-up, "
+              f"{ms[0]:.1f}; CUDA events), parameters moved in place, no "
+              f"kernel launch")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return num
+
+
+def _launch_lossless(torch, card):
+    """(c) fp32 (TF32 off) at full width and LAUNCH_FP32_LAYERS layers: a
+    prefill step and LAUNCH_FP32_NEW - 1 full decode steps give the
+    port's AR oracle's tokens (``core.reference.autoregressive_generate``).
+    Returns the kernel launches of the steps."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import SpecPVConfig, get_config
+    from repro_torch.core.reference import autoregressive_generate
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config("llama3.1-8b").replace(
+        num_layers=LAUNCH_FP32_LAYERS, dtype="float32",
+        param_dtype="float32")
+    spec = SpecPVConfig()
+    params = api.init_params(cfg, seed=2, device=dev)
+    prompt = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (1, LAUNCH_FP32_PROMPT)).astype(np.int64)
+    max_len = LAUNCH_FP32_PROMPT + LAUNCH_FP32_NEW + 8
+    cache = api.init_cache(cfg, 1, max_len, spec, device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tok, _ = st.make_prefill_step(cfg, spec)(
+        params, cache, torch.as_tensor(prompt, device=dev), None)
+    step = st.make_decode_step(cfg, spec)
+    toks = [tok]
+    for _ in range(LAUNCH_FP32_NEW - 1):
+        tok, _ = step(params, cache, tok)
+        toks.append(tok)
+    got = torch.stack(toks, dim=1).cpu().numpy()
+    launches = dict(ops.LAUNCHES)
+    ar = autoregressive_generate(cfg, params, prompt, LAUNCH_FP32_NEW,
+                                 max_len=max_len, spec=spec, device=dev)
+    if not np.array_equal(got, ar):
+        raise AssertionError(f"fp32 launch steps differ from AR:\n{got}\n"
+                             f"{ar}")
+    say(card, f"launch steps lossless llama3.1-8b {LAUNCH_FP32_LAYERS} "
+              f"layers fp32: prefill step + {LAUNCH_FP32_NEW - 1} full decode "
+              f"steps == autoregressive_generate over {LAUNCH_FP32_NEW} "
+              f"tokens (prompt {LAUNCH_FP32_PROMPT})")
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _int8_vs_k1(torch, case):
+    """B1's T = 1 context attention over layer 0 of its int8 cache
+    (``dense_attn_part_quant``) against K1 over the same layer dequantised
+    to bf16 (``kvcache.quant.dequantize_kv``), same random bf16 queries.
+    Comparison launches are not counted.  Returns the largest abs error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kvcache.quant import dequantize_kv
+    from repro_torch.models import common as cm
+    cfg, spec = case.info["cfg"], case.info["spec"]
+    cache = case.args[1]
+    k, v = cache["k"][0], cache["v"][0]
+    ks, vs = cache["k_scale"][0], cache["v_scale"][0]
+    length = cache["length"]
+    b, s = k.shape[:2]
+    g = torch.Generator(device=k.device)
+    g.manual_seed(7)
+    q = torch.randn((b, 1, cfg.num_heads, cfg.head_dim_), generator=g,
+                    device=k.device).to(torch.bfloat16)
+    valid = torch.arange(s, device=k.device)[None] < length[:, None]
+    got = cm.combine_attn_parts(
+        [cm.dense_attn_part_quant(q, k, v, ks, vs, valid)], torch.float32)
+    counts = ops.launch_counts()
+    kd = dequantize_kv(k, ks, torch.bfloat16)
+    vd = dequantize_kv(v, vs, torch.bfloat16)
+    want = cm.combine_attn_parts(
+        [ops.contiguous_verify_attention(q, kd, vd, length,
+                                         spec.block_size)], torch.float32)
+    torch.cuda.synchronize()
+    ops.set_launch_counts(counts)
+    err = float((got - want).abs().max())
+    if not err <= INT8_K1_TOL:
+        raise AssertionError(f"B1 int8 attention vs K1 over the dequantised "
+                             f"cache: max abs err {err:.3e}")
+    return err
+
+
+def _launch_hillclimb(torch, card):
+    """(b) every case of ``launch.hillclimb.CASES`` on the card through
+    ``run_case``: built at the reference's shape (the cuts listed in its
+    ``reduced``), HILLCLIMB_STEPS steps eagerly (each under the sync
+    check) and replayed as a CUDA graph from the same state (equal bit for
+    bit), then freed with the cyclic collector run.  B1 also holds its
+    int8 read to K1 over the dequantised bf16 layer (INT8_K1_TOL); A2's
+    bonus tokens are reported against A1's."""
+    from repro_torch.launch import hillclimb as hc
+    out, total = {}, _zero_launches()
+    for name in hc.CASES:
+        check = None
+        if name.startswith("B1"):
+            def check(case, res):
+                res["int8_vs_k1_max_abs_err"] = _int8_vs_k1(torch, case)
+        r = hc.run_case(name, device="cuda", steps=HILLCLIMB_STEPS,
+                        check=check)
+        for part in ("launches_eager", "launches_graph"):
+            for k, n in r[part].items():
+                total[k] += n
+        keep = {k: v for k, v in r.items() if k not in ("tokens",)}
+        out[name] = keep
+        gib = 2.0**30
+        say(card, f"hillclimb {name}: reduced {r['reduced']}; reckoned "
+                  f"{ {k: round(v / 1e9, 2) for k, v in r['reckoned_bytes'].items()} } "
+                  f"GB; state {r['state_bytes'] / 1e9:.2f} GB, peak "
+                  f"{r['peak_bytes'] / gib:.2f} GiB; ms per step eager "
+                  f"{r['eager_ms_median']:.3f}, graph "
+                  f"{r['graph_ms_median']:.3f} (median of {HILLCLIMB_STEPS}, "
+                  f"CUDA events); graph == eager bit for bit; launches "
+                  f"eager {r['launches_eager']}; built in "
+                  f"{r['build_s']:.1f} s"
+                  + (f"; int8 vs K1 over bf16 max abs err "
+                     f"{r['int8_vs_k1_max_abs_err']:.3e}"
+                     if "int8_vs_k1_max_abs_err" in r else ""))
+        if name.startswith("A1"):
+            a1 = r["tokens"]
+        if name.startswith("A2"):
+            same = sum(x == y for sa, sb in zip(a1, r["tokens"])
+                       for x, y in zip(sa, sb))
+            n = sum(len(s) for s in a1)
+            out[name]["bonus_equal_to_A1"] = f"{same}/{n}"
+            say(card, f"hillclimb A2 against A1 (the pkv A2's was quantised "
+                      f"from): {same} of {n} bonus tokens equal (reported)")
+    return out, total
+
+
+def phase_launch(torch, card):
+    """Phase 19: ``launch.steps`` at full width, the hillclimb cases and
+    the fp32 losslessness of the launch steps.  Returns the launches of
+    every step the phase ran (``launch_launches``) and the numbers."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    secs, total = {}, _zero_launches()
+
+    def add(got):
+        for k, n in got.items():
+            total[k] += n
+    t0 = time.perf_counter()
+    llama, got = _launch_llama(torch, card)
+    add(got)
+    rwkv, got = _launch_rwkv(torch, card)
+    add(got)
+    train = _launch_train(torch, card)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cases, got = _launch_hillclimb(torch, card)
+    add(got)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add(_launch_lossless(torch, card))
+    secs["c"] = time.perf_counter() - t0
+    for name in ("sparse_verify_attention", "paged_prefill_attention",
+                 "retrieval_score", "block_summary", "wkv"):
+        if total[name] == 0:
+            raise AssertionError(f"phase 19: {name} was never launched")
+    t_total = time.perf_counter() - t_phase
+    say(card, "phase 19 " + ", ".join(f"({k}) {v:.1f} s"
+                                      for k, v in secs.items())
+              + f"; phase 19 took {t_total:.1f} s")
+    return dict(launches=total, llama=llama, rwkv=rwkv, train=train,
+                hillclimb=cases, seconds=secs, total_s=t_total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17,18",
+                    default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17,18,19",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -7125,8 +7600,9 @@ def main(argv=None) -> int:
                          "recurrentgemma-2b), 17 (VLM and audio: "
                          "whisper-small, llama-3.2-vision-90b), 18 "
                          "(windowed llama3.1-8b; context-parallel Full and "
-                         "Partial verification over 2 ranks); 1 and 12 "
-                         "always run")
+                         "Partial verification over 2 ranks), 19 (the "
+                         "launch steps, the hillclimb cases and the int8 "
+                         "resident decode cache); 1 and 12 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -7195,6 +7671,7 @@ def main(argv=None) -> int:
            else {"audio_launches": {}, "vlm_launches": {}})
     p18 = (phase_windowed_cp(torch, card, timer) if 18 in phases
            else {"shapes": {}, "cp_launches": {}})
+    p19 = phase_launch(torch, card) if 19 in phases else {"launches": {}}
 
     rows = []
     for name in ops.KERNELS:
@@ -7235,6 +7712,7 @@ def main(argv=None) -> int:
                          vlm_launches=int(
                              p17["vlm_launches"].get(name, 0)),
                          cp_launches=int(p18["cp_launches"].get(name, 0)),
+                         launch_launches=int(p19["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -7276,6 +7754,10 @@ def main(argv=None) -> int:
     if 18 in phases:
         say(card, "windowed_cp " + json.dumps(
             {k: v for k, v in p18.items() if k != "shapes"}, default=float))
+    if 19 in phases:
+        say(card, "launch " + json.dumps(
+            {k: v for k, v in p19.items() if k != "launches"},
+            default=float))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

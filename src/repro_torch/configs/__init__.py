@@ -31,5 +31,13 @@ ASSIGNED_ARCHS = (
     "dbrx-132b",
 )
 
+# the reference's input shapes (its dry-run and hillclimb cases read them)
+INPUT_SHAPES = {
+    "train_4k":    dict(seq_len=4096,    global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768,   global_batch=32,  kind="prefill"),
+    "decode_32k":  dict(seq_len=32768,   global_batch=128, kind="decode"),
+    "long_500k":   dict(seq_len=524288,  global_batch=1,   kind="decode"),
+}
+
 __all__ = ["ModelConfig", "SpecPVConfig", "DraftConfig", "get_config",
-           "register", "ASSIGNED_ARCHS", "NOT_PORTED"]
+           "register", "ASSIGNED_ARCHS", "INPUT_SHAPES", "NOT_PORTED"]

@@ -254,12 +254,13 @@ def _unsupported(what: str, item: str):
         f"{what} is not ported yet: ROADMAP.md queue 1, '{item}'")
 
 
-def _copy_into(dst, src) -> None:
+def copy_into(dst, src) -> None:
     """Copy a next-state value into its static buffer (a cache dict entry
-    by entry); a value that is the buffer itself is skipped."""
+    by entry); a value that is the buffer itself is skipped.  The launch
+    steps write their state back so too."""
     if isinstance(dst, dict):
         for k, v in src.items():
-            _copy_into(dst[k], v)
+            copy_into(dst[k], v)
     elif src is not dst:
         dst.copy_(src)
 
@@ -730,7 +731,7 @@ class SpecPVEngine:
         sub = self._boot_state(st.cache, st.dcache, self._logits_last,
                                self._prev_feat, s0)
         for f in fields(EngineState):
-            _copy_into(getattr(st, f.name), getattr(sub, f.name))
+            copy_into(getattr(st, f.name), getattr(sub, f.name))
         self._host_pending_len = np.ones((self.batch,), np.int64)
         self._host_seq_len = np.full((self.batch,), s0 + 1, np.int64)
         self._host_ext_len = np.ones((self.batch,), np.int64)
@@ -789,8 +790,8 @@ class SpecPVEngine:
             rows = fused[:, bs - 1::bs]
             if rows.shape[1]:
                 block_feats[:, : rows.shape[1]].copy_(rows)
-        _copy_into(cache, cache_n)
-        _copy_into(dcache, dcache_n)
+        copy_into(cache, cache_n)
+        copy_into(dcache, dcache_n)
 
     def _boot_state(self, cache: Dict, dcache: Dict, logits_last, prev_feat,
                     s0: int, bonus0: Optional[int] = None,
@@ -1868,7 +1869,7 @@ class SpecPVEngine:
         reads into ``_io``."""
         st = self.state
         for f in fields(EngineState):
-            _copy_into(getattr(st, f.name), getattr(nxt, f.name))
+            copy_into(getattr(st, f.name), getattr(nxt, f.name))
         newtoks, counts, acc = out
         parts = [newtoks, counts, acc, st.pending_len, st.seq_len]
         if self.is_attn:

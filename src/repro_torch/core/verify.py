@@ -3,9 +3,11 @@ verify-input assembly, cache commits, tail-buffer writes and the partial
 refresh (zero-copy: the selected block ids; gathered: the selected
 blocks' bytes too).
 
-Per-row verify layout (fused step): ``[pend (p_eff) | tree (T) | pad]``
-inside one width ``S = P + T``; refresh rows use the full pending width,
-full/partial rows one pend slot.
+Verify layouts: one mode for every row, ``[pend (P) | tree (T)]``
+(``build_verify_inputs``, the launch steps'); the fused step's per-row
+``[pend (p_eff) | tree (T) | pad]`` inside one width ``S = P + T``,
+refresh rows with the full pending width, full/partial rows one pend
+slot (``build_verify_inputs_fused``, the engine's).
 """
 from __future__ import annotations
 
@@ -18,11 +20,54 @@ from repro_torch.core.tree import TreeSpec, tree_tensors
 from repro_torch.models.common import update_slice_rows
 from repro_torch.models.dense import (body_positions, gather_partial_body,
                                       quest_block_scores,
-                                      select_partial_blocks)
+                                      select_partial_blocks,
+                                      uses_score_kernel)
 from repro_torch.kvcache.cache import (contiguous_update_all_summaries,
                                        paged_update_all_summaries,
                                        paged_write_tokens,
                                        update_layer_summaries)
+
+
+def build_verify_inputs(tree: TreeSpec, pending, pending_len, tree_tokens,
+                        seq_len, active=None):
+    """The verify input of a step in one mode: pending [B, P]
+    left-aligned (P = 1 for a Full or Partial step); pending_len [B]
+    (>= 1); tree_tokens [B, T]; seq_len [B] tokens accepted so far;
+    active: optional [B] bool (a dead row gets an all-False self mask and
+    no valid pending or query).  Returns dict(tokens, positions [B, S],
+    self_mask [B, S, S], q_valid [B, S], root_slot [B], node_slots
+    [B, T], pend_valid [B, P]) with S = P + T."""
+    b, p = pending.shape
+    t = tree.size
+    dev = pending.device
+    tokens = torch.cat([pending, tree_tokens.to(pending.dtype)], dim=1)
+    pend_valid = (torch.arange(p, device=dev)[None]
+                  < pending_len.long()[:, None])
+    valid = torch.cat([pend_valid, torch.ones((b, t), dtype=torch.bool,
+                                              device=dev)], dim=1)
+    if active is not None:
+        pend_valid = pend_valid & active[:, None]
+        valid = valid & active[:, None]
+    tt = tree_tensors(tree, dev)
+    pend_pos = (seq_len.long()[:, None] - pending_len.long()[:, None]
+                + torch.arange(p, device=dev)[None])
+    node_pos = seq_len.long()[:, None] + tt.depths[None]
+    positions = torch.clamp(torch.cat([pend_pos, node_pos], dim=1), min=0)
+    pidx = torch.arange(p, device=dev)
+    m_pp = ((pidx[None, :, None] >= pidx[None, None, :])
+            & pend_valid[:, None, :] & pend_valid[:, :, None])
+    m_tp = pend_valid[:, None, :].expand(b, t, p)
+    m_tt = tt.anc[None].expand(b, t, t)
+    m = torch.cat([torch.cat([m_pp, torch.zeros((b, p, t), dtype=torch.bool,
+                                                device=dev)], dim=2),
+                   torch.cat([m_tp, m_tt], dim=2)], dim=1)
+    if active is not None:
+        m = m & active[:, None, None]
+    return dict(tokens=tokens, positions=positions, self_mask=m,
+                q_valid=valid, root_slot=pending_len.long() - 1,
+                node_slots=(p + torch.arange(t, device=dev))[None].expand(
+                    b, t),
+                pend_valid=pend_valid)
 
 
 def build_verify_inputs_fused(tree: TreeSpec, pending, pending_len, p_eff,
@@ -79,12 +124,14 @@ def build_verify_inputs_fused(tree: TreeSpec, pending, pending_len, p_eff,
 
 def commit_slots(tree: TreeSpec, pend_valid, path_nodes, p):
     """Input slots to commit, compacted (valid pending first, then the
-    accepted path).  ``p`` [B] is the per-row tree offset.  Returns
-    (slots [B, P+D], slot_valid [B, P+D])."""
+    accepted path).  ``p`` is the tree offset: an int for the one-mode
+    layout, [B] per row for the fused one.  Returns (slots [B, P+D],
+    slot_valid [B, P+D])."""
     b, pw = pend_valid.shape
     dev = pend_valid.device
     path_valid = path_nodes >= 0
-    path_slots = p.long()[:, None] + torch.clamp(path_nodes, min=0)
+    p = p.long()[:, None] if torch.is_tensor(p) else int(p)
+    path_slots = p + torch.clamp(path_nodes.long(), min=0)
     slots = torch.cat([torch.arange(pw, device=dev)[None].expand(b, pw),
                        path_slots], dim=1)
     valid = torch.cat([pend_valid, path_valid], dim=1)
@@ -115,6 +162,15 @@ def commit_write_extent(pmax: int, tree_depth: int) -> int:
     return pmax + tree_depth
 
 
+def write_cache_rows(buf, new, start):
+    """``buf[l, b, start[b]:start[b] + W] = new[l, b]`` in place for a
+    contiguous cache tensor [L, B, S, ...] (K, V or their scales), every
+    layer in one write ([L, B] merged into the batch axis); the offset is
+    clamped as the reference's dynamic_update_slice."""
+    update_slice_rows(buf.view((-1,) + buf.shape[2:]), new.flatten(0, 1),
+                      start.repeat(buf.shape[0]), axis=1)
+
+
 def append_full_cache(cache: Dict, ck, cv, count, spec: SpecPVConfig,
                       plain: bool = False):
     """Append compacted committed KV [L, B, W, Hk, Dh] (``count`` [B]
@@ -137,12 +193,8 @@ def append_full_cache(cache: Dict, ck, cv, count, spec: SpecPVConfig,
         paged_update_all_summaries(cache["kmax"], cache["kmin"], cache["k"],
                                    pt, length, new_len, n_touch)
     else:
-        # every layer in one write: [L, B] merge into the batch axis; the
-        # reference's dynamic_update_slice clamps the offset
-        rows = length.repeat(num_layers)
-        for a, new in ((cache["k"], ck), (cache["v"], cv)):
-            update_slice_rows(a.view((-1,) + a.shape[2:]),
-                              new.flatten(0, 1), rows, axis=1)
+        write_cache_rows(cache["k"], ck, length)
+        write_cache_rows(cache["v"], cv, length)
         if plain:
             for i in range(num_layers):
                 nkmax, nkmin = update_layer_summaries(
@@ -162,33 +214,37 @@ def append_full_cache(cache: Dict, ck, cv, count, spec: SpecPVConfig,
 def append_buffer(pkv_k, pkv_v, pkv_pos, body_len: int, buf_len, ck, cv,
                   positions, count):
     """Write committed approximate KV into the pkv tail buffer (returns
-    new arrays; the inputs are left as they were).
+    new arrays; the inputs are left as they were): ``append_buffer_`` on
+    copies."""
+    nk, nv, npos = pkv_k.clone(), pkv_v.clone(), pkv_pos.clone()
+    append_buffer_(nk, nv, npos, body_len, buf_len.clone(), ck, cv,
+                   positions, count)
+    return nk, nv, npos, buf_len + count
 
-    pkv_*: [L, B, Hk, P, Dh] / [L, B, Hk, P]; ck/cv: [L, B, W, Hk, Dh];
-    positions [B, W]; buf_len/count [B].  The write offset
-    ``body_len + buf_len`` is clamped to ``[0, P - W]`` as the
-    reference's dynamic_update_slice does."""
+
+def append_buffer_(pkv_k, pkv_v, pkv_pos, body_len: int, buf_len, ck, cv,
+                   positions, count):
+    """``append_buffer`` in place: the buffers and ``buf_len`` (advanced
+    by ``count``) are written where they live and returned, so a launch
+    step's state keeps its addresses (the reference's launchers donate
+    it).
+
+    pkv_*: [L, B, Hk, P, Dh] / [L, B, Hk, P]; ck/cv: [L, B, W, Hk, Dh]
+    (cast to the buffer's dtype); positions [B, W]; buf_len/count [B].
+    The write offset ``body_len + buf_len`` is clamped to ``[0, P - W]``
+    as the reference's dynamic_update_slice does."""
     off = body_len + buf_len
     w = ck.shape[2]
-    nk = update_slice_rows(pkv_k.clone(), ck.movedim(3, 2), off, axis=3,
-                           batch_axis=1)
-    nv = update_slice_rows(pkv_v.clone(), cv.movedim(3, 2), off, axis=3,
-                           batch_axis=1)
+    update_slice_rows(pkv_k, ck.movedim(3, 2), off, axis=3, batch_axis=1)
+    update_slice_rows(pkv_v, cv.movedim(3, 2), off, axis=3, batch_axis=1)
     dev = positions.device
     posw = torch.where(torch.arange(w, device=dev)[None] < count[:, None],
                        positions, torch.full_like(positions, -1))
     l_, b_, hk = pkv_pos.shape[:3]
     posw_h = posw[None, :, None, :].expand(l_, b_, hk, w).to(pkv_pos.dtype)
-    npos = update_slice_rows(pkv_pos.clone(), posw_h, off, axis=3,
-                             batch_axis=1)
-    return nk, nv, npos, buf_len + count
-
-
-def _uses_score_kernel(spec: SpecPVConfig) -> bool:
-    """Paper scores with mean reduction go through the retrieval-score
-    kernel (K3) on every route (``use_pallas`` picks the data flow, not
-    the plain code); the other score modes have no kernel."""
-    return spec.score_mode == "paper" and spec.reduction == "mean"
+    update_slice_rows(pkv_pos, posw_h, off, axis=3, batch_axis=1)
+    buf_len.add_(count.to(buf_len.dtype))
+    return pkv_k, pkv_v, pkv_pos, buf_len
 
 
 def refresh_partial_blocks(cfg: ModelConfig, spec: SpecPVConfig, queries,
@@ -200,7 +256,7 @@ def refresh_partial_blocks(cfg: ModelConfig, spec: SpecPVConfig, queries,
     queries [L, B, T, H, Dh]; q_weight [B, T].  Returns [L, B, Hk, NS]
     int32 logical block ids (-1 for unused selection slots)."""
     from repro_torch.kernels import ops as kops
-    use_kernel = _uses_score_kernel(spec)
+    use_kernel = uses_score_kernel(spec)
     pt = (cache["page_table"].long() if "page_table" in cache else None)
     out = []
     for i in range(queries.shape[0]):

@@ -47,6 +47,8 @@ class DecodeOut(NamedTuple):
     features: Optional[Features]
     new_kv: Any                 # (k, v) [L, B, T, Hk, Dh]
     queries: Any = None         # [L, B, T, H, Dh] when requested
+    partial: Any = None         # (pk, pv, ppos) [L, B, Hk, P, ...] when
+                                # select_partial
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
@@ -250,13 +252,22 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
            mode: str = "full", self_mask=None, pkv=None,
            spec: Optional[SpecPVConfig] = None, emit_queries: bool = False,
            partial_rows=None, pkv_blocks=None,
-           plain: bool = False) -> DecodeOut:
+           plain: bool = False, select_partial: bool = False,
+           q_weight=None) -> DecodeOut:
     """Forward T new (tree) tokens; ``mode`` is "full" | "partial" |
     "fused" (``partial_rows`` [B] marks the rows that read the partial
     context: the selected blocks ``pkv_blocks`` [L, B, Hk, NS], read in
     place through the page table (zero-copy, ``pkv`` = the tail buffer)
     or from the gathered body (``pkv`` = the tail buffer and the body
-    [L, B, NS*block, Hk, Dh])).  ``plain``: see ``prefill``.  The state
+    [L, B, NS*block, Hk, Dh])), or, without ``pkv_blocks``, the
+    reference's materialised per-head partial cache ``pkv`` = (pk, pv,
+    ppos) [L, B, Hk, P, ...], int8 with its scales (pks, pvs) [L, B, Hk,
+    P].  A contiguous cache may be int8 with its scales ``k_scale`` /
+    ``v_scale`` [L, B, S, Hk].  ``select_partial``: also return, as
+    ``partial``, the partial cache (pk, pv, ppos) [L, B, Hk, budget, ...]
+    selected by this step's queries weighted by ``q_weight`` [B, T]
+    (default all 1): the reference's in-trunk Refresh.  ``plain``: see
+    ``prefill``.  The state
     archs always do read-only chain verification (Griffin's attention
     over its window and the chain, by ``self_mask``): the state is left
     as it was and ``new_kv`` is None."""
@@ -279,10 +290,11 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
                        self_mask=self_mask, cache=cache, pkv=pkv,
                        spec=spec or SpecPVConfig(), emit_queries=emit_queries,
                        partial_rows=partial_rows, pkv_blocks=pkv_blocks,
-                       plain=plain)
+                       plain=plain, select_partial=select_partial,
+                       q_weight=q_weight)
     logits = dn.lm_head(cfg, params, out.h)
     return DecodeOut(logits, Features(*out.features), out.new_kv,
-                     out.queries)
+                     out.queries, out.partial)
 
 
 def advance(cfg: ModelConfig, params, tokens, cache, valid):

@@ -211,7 +211,7 @@ def sdpa(q, k, v, mask=None, scale=None):
 def flash_attention(q, k, v, *, q_positions, kv_positions,
                     causal: bool = True, window: int = 0, kv_valid=None,
                     chunk: int = 512, return_partials: bool = False,
-                    q_chunk: int = 512):
+                    q_chunk: int = 512, k_scale=None, v_scale=None):
     """Chunked online-softmax attention over KV tiles of ``chunk`` keys
     (the reference's flash recurrence, as a plain loop).
 
@@ -224,14 +224,22 @@ def flash_attention(q, k, v, *, q_positions, kv_positions,
     of ``q_chunk`` rows (the last one shorter, where the reference pads
     rows that it then drops), each tile rematerialised in the backward
     pass when autograd records, as ``jax.checkpoint`` does there: the
-    live attention tensor stays [B, H, q_chunk, chunk] whatever T."""
+    live attention tensor stays [B, H, q_chunk, chunk] whatever T.
+
+    An int8 K/V comes with its per-(token, head) scales ``k_scale`` /
+    ``v_scale`` [B, S, Hk] and is dequantised tile by tile, to bf16
+    whatever the model's dtype, as the reference does (so no dequantised
+    copy of the cache is ever held).  The reference pads K, V, their
+    scales and the positions to whole tiles and masks the pads; here the
+    last tile is shorter, which leaves out the same keys."""
     b, t, h, dh = q.shape
     if t > q_chunk and not return_partials:
         def tile(qc, pc):
             return flash_attention(qc, k, v, q_positions=pc,
                                    kv_positions=kv_positions, causal=causal,
                                    window=window, kv_valid=kv_valid,
-                                   chunk=chunk, q_chunk=q_chunk)
+                                   chunk=chunk, q_chunk=q_chunk,
+                                   k_scale=k_scale, v_scale=v_scale)
         outs = []
         for q0 in range(0, t, q_chunk):
             args = (q[:, q0:q0 + q_chunk], q_positions[:, q0:q0 + q_chunk])
@@ -249,8 +257,14 @@ def flash_attention(q, k, v, *, q_positions, kv_positions,
     l = torch.zeros((b, h, t), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, t, dh), dtype=torch.float32, device=q.device)
     for c0 in range(0, s, chunk):
-        kc = repeat_kv(k[:, c0:c0 + chunk], n_rep).float()
-        vc = repeat_kv(v[:, c0:c0 + chunk], n_rep).float()
+        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        if k_scale is not None:
+            kc = (kc.float() * k_scale[:, c0:c0 + chunk].float()[..., None]
+                  ).to(torch.bfloat16)
+            vc = (vc.float() * v_scale[:, c0:c0 + chunk].float()[..., None]
+                  ).to(torch.bfloat16)
+        kc = repeat_kv(kc, n_rep).float()
+        vc = repeat_kv(vc, n_rep).float()
         pc = kv_positions[:, c0:c0 + chunk]
         ok = kv_valid[:, c0:c0 + chunk][:, None, None, :]
         if causal:
@@ -293,13 +307,19 @@ def dense_attn_part(q, k, v, *, mask=None):
     return m, l, acc
 
 
-def dense_attn_part_perhead(q, kph, vph, valid):
-    """Per-kv-head context slots.  q: [B, T, H, Dh]; kph/vph:
-    [B, Hk, P, Dh]; valid: [B, Hk, P] bool.  Returns (m, l, acc)."""
+def dense_attn_part_perhead(q, kph, vph, valid, *, k_scale=None,
+                            v_scale=None):
+    """Per-kv-head context slots (the materialised partial cache).
+    q: [B, T, H, Dh]; kph/vph: [B, Hk, P, Dh]; valid: [B, Hk, P] bool;
+    int8 slots come with their scales ``k_scale`` / ``v_scale`` [B, Hk,
+    P], dequantised in fp32.  Returns (m, l, acc)."""
     b, t, h, dh = q.shape
     hk = kph.shape[1]
     rep = h // hk
     scale = 1.0 / math.sqrt(dh)
+    if k_scale is not None:
+        kph = kph.float() * k_scale.float()[..., None]
+        vph = vph.float() * v_scale.float()[..., None]
     qg = q.reshape(b, t, hk, rep, dh).float() * scale
     logits = torch.einsum("btkrd,bkpd->bkrtp", qg, kph.float())
     vmask = valid[:, :, None, None, :]
@@ -309,6 +329,31 @@ def dense_attn_part_perhead(q, kph, vph, valid):
     l = p.sum(dim=-1)
     acc = torch.einsum("bkrtp,bkpd->bkrtd", p, vph.float())
     return m.reshape(b, h, t), l.reshape(b, h, t), acc.reshape(b, h, t, dh)
+
+
+def dense_attn_part_quant(q, k_q, v_q, k_scale, v_scale, kv_valid):
+    """Context attention over an int8 cache for a few query rows, with no
+    dequantised copy of the cache: the per-(token, head) scales fold into
+    the logits (k side) and into the probabilities (v side), as the
+    reference does.  q: [B, T, H, Dh]; k_q/v_q: [B, S, Hk, Dh] int8;
+    k_scale/v_scale: [B, S, Hk]; kv_valid: [B, S] bool.  Returns (m, l,
+    acc) fp32."""
+    b, t, h, dh = q.shape
+    n_rep = h // k_q.shape[2]
+    qf = q.float() * (1.0 / math.sqrt(dh))
+    logits = torch.einsum("bthd,bshd->bhts", qf,
+                          repeat_kv(k_q, n_rep).float())
+    ks = repeat_kv(k_scale[..., None], n_rep)[..., 0]        # [B, S, H]
+    logits = logits * ks.float().transpose(1, 2)[:, :, None, :]
+    mask = kv_valid[:, None, None, :]
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None]) * mask
+    l = p.sum(dim=-1)
+    vs = repeat_kv(v_scale[..., None], n_rep)[..., 0]
+    p = p * vs.float().transpose(1, 2)[:, :, None, :]
+    acc = torch.einsum("bhts,bshd->bhtd", p, repeat_kv(v_q, n_rep).float())
+    return m, l, acc
 
 
 def merge_attn_partials(parts):

@@ -30,7 +30,10 @@ the identity list):
   decode_partial T tokens vs the partial context: the retrieval-selected
                  blocks (K1), read in place from the pool through the page
                  table (zero-copy) or from the gathered body, merged with
-                 the dense tail buffer.
+                 the dense tail buffer; or, with no selection
+                 (``pkv_blocks`` None), the reference's materialised
+                 per-head partial cache, through its plain per-head
+                 attention (the reference has no kernel there).
   decode_fused   per-row source select between the two above.
   train          causal attention over the sequence (sliding-windowed with
                  ``window_size``), no cache: the plain
@@ -40,6 +43,16 @@ the identity list):
                  ``_train_layer`` under ``jax.checkpoint``).
   encode         the train mode without the causal mask (the Whisper
                  encoder over its frames).
+
+An int8 contiguous cache (K/V int8 [L, B, S, Hk, Dh] beside bf16 scales
+``k_scale`` / ``v_scale`` [L, B, S, Hk]; ``kvcache.quant.quantize_kv``)
+is decode-only and read as the reference reads it, with no kernel: a
+Full verification of at most 8 tokens folds the scales into the logits
+and probabilities (``common.dense_attn_part_quant``), a longer one and
+the fused step's full rows dequantise tile by tile to bf16 in the plain
+chunked attention.  The verify kernel (K1) reads bf16 and fp32 only, and
+a paged cache is never int8 (the reference keeps int8 caches
+contiguous).
 
 Cross-attention reads fixed encoder states: in train and encode modes
 their K/V are projected from ``encoder_out`` at each cross layer; every
@@ -356,6 +369,13 @@ def select_and_gather_partial_paged(spec: SpecPVConfig, scores, pool_k,
             body_positions(spec, idx, length))
 
 
+def uses_score_kernel(spec: SpecPVConfig) -> bool:
+    """Paper scores with mean reduction go through the retrieval-score
+    kernel (K3) on every route (``use_pallas`` picks the data flow, not
+    the plain code); the other score modes have no kernel."""
+    return spec.score_mode == "paper" and spec.reduction == "mean"
+
+
 def _selected_vlen(pbi, length, bs: int):
     """Valid tokens of each selected block [B, Hk, NS]: the part below
     ``length`` (the reference's ``pos < length`` mask), 0 for an unused
@@ -379,6 +399,11 @@ def _partial_context(q, cache_kv, page_table, pbi, length, pkv_l, bs: int):
     vlen = _selected_vlen(pbi, length, bs)
     if len(pkv_l) > 3:
         body_k, body_v = pkv_l[3:5]
+        if body_k.dtype == torch.int8:
+            raise ValueError("the verify kernel (K1) reads bf16 or fp32 "
+                             "K/V: an int8 partial cache is the "
+                             "materialised per-head form (pkv_blocks "
+                             "None)")
         idx = (torch.arange(b, device=pbi.device)[:, None, None] * ns
                + torch.arange(ns, device=pbi.device)).expand(b, hk, ns)
         pool_k = body_k.reshape(b * ns, bs, hk, body_k.shape[-1])
@@ -409,8 +434,12 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
     With ``page_table`` set, ``cache_kv`` is the layer's pool pair
     [NP, block, Hk, Dh] (prefill writes it in place), read through the
     table (``paged_kernel``) or through its materialised view; else the
-    layer's contiguous pair [B, S, Hk, Dh].  ``plain``: the oracle's
-    plain attention (contiguous only).  ``t_valid`` [B] (prefill only):
+    layer's contiguous pair [B, S, Hk, Dh], followed by its scales
+    [B, S, Hk] x2 when the cache is int8.  ``pkv``: the tail buffer
+    (zero-copy) or the tail buffer and the gathered body when
+    ``pkv_blocks`` selects; without ``pkv_blocks``, the materialised
+    per-head partial cache.  ``plain``: the oracle's plain attention
+    (contiguous only).  ``t_valid`` [B] (prefill only):
     a ragged chunk, row b carrying ``t_valid[b]`` real tokens, then pads
     that write no K/V (paged: the null page; contiguous: zeros, as the
     reference) and that no key mask counts.  Returns (attn_out, updates,
@@ -436,6 +465,20 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
                 gather_page_view(cache_kv[1], page_table))
 
     def full_context(len_eff):
+        if len(cache_kv) > 2:
+            # int8 contiguous cache and its scales: the reference's plain
+            # routes (dense.py decode_full / decode_fused), no kernel
+            k_layer, v_layer, ksc, vsc = cache_kv
+            s = k_layer.shape[1]
+            kv_pos = torch.arange(s, device=dev)[None].expand(b, s)
+            kv_valid = kv_pos < len_eff[:, None]
+            if mode == "decode_full" and t <= 8:
+                return cm.dense_attn_part_quant(q, k_layer, v_layer, ksc,
+                                                vsc, kv_valid)
+            return cm.flash_attention(
+                q, k_layer, v_layer, q_positions=positions,
+                kv_positions=kv_pos, causal=True, kv_valid=kv_valid,
+                chunk=512, return_partials=True, k_scale=ksc, v_scale=vsc)
         if page_table is not None and paged_kernel:
             return kops.paged_verify_attention(q, cache_kv[0], cache_kv[1],
                                                page_table, len_eff)
@@ -496,11 +539,18 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
     if mode == "decode_full":
         part_ctx = full_context(length)
     elif mode in ("decode_partial", "decode_fused"):
-        if pkv_blocks is None or plain:
-            raise ValueError("partial verification reads a selection "
-                             "(pkv_blocks) through the kernels")
-        part_part = _partial_context(q, cache_kv, page_table, pkv_blocks,
-                                     length, pkv, block_size)
+        if pkv_blocks is None:
+            # the reference's materialised per-head partial cache: (pk,
+            # pv, ppos) [B, Hk, P, ...], int8 with (pks, pvs) [B, Hk, P]
+            pks, pvs = pkv[3:5] if len(pkv) > 3 else (None, None)
+            part_part = cm.dense_attn_part_perhead(
+                q, pkv[0], pkv[1], pkv[2] >= 0, k_scale=pks, v_scale=pvs)
+        elif plain:
+            raise ValueError("the plain route reads no selection "
+                             "(pkv_blocks)")
+        else:
+            part_part = _partial_context(q, cache_kv, page_table,
+                                         pkv_blocks, length, pkv, block_size)
         if mode == "decode_partial":
             part_ctx = part_part
         else:
@@ -631,6 +681,8 @@ class TrunkOut:
     queries: Any = None             # [L, B, T, H, Dh] when emit_queries
     aux_loss: Any = None            # fp32 scalar, the MoE load balance
                                     # summed over layers (train mode)
+    partial: Any = None             # (pk, pv, ppos) [L, B, Hk, P, ...]
+                                    # with select_partial
 
 
 def _feature_targets(num_layers: int) -> Tuple[int, int, int]:
@@ -645,7 +697,8 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
               emit_queries: bool = False, partial_rows=None,
               collect_features: bool = True, pkv_blocks=None,
               plain: bool = False, t_valid=None, encoder_out=None,
-              kinds: Optional[Tuple[str, ...]] = None) -> TrunkOut:
+              kinds: Optional[Tuple[str, ...]] = None,
+              select_partial: bool = False, q_weight=None) -> TrunkOut:
     """Run the layer stack (see module docstring for modes).
 
     cache: paged {"k","v" [L,NP,bs,Hk,Dh], "kmax","kmin" [L,NP,Hk,Dh],
@@ -653,9 +706,16 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     [L,B,S,Hk,Dh], "kmax","kmin" [L,B,NB,Hk,Dh], "length"}, L the
     attention layers; a stack with cross layers adds "cross_k",
     "cross_v" [L_cross, B, Te, Hk, Dh], which every cache mode reads.
-    pkv: tail buffer (k, v [L,B,Hk,P,Dh], pos [L,B,Hk,P]), followed by
-    the gathered body (k, v [L,B,NS*bs,Hk,Dh]) unless zero-copy;
-    pkv_blocks: [L, B, Hk, NS] selected logical block ids.  ``plain``:
+    An int8 contiguous cache adds "k_scale", "v_scale" [L,B,S,Hk] (decode
+    modes only; a paged cache is never int8).
+    pkv with pkv_blocks [L, B, Hk, NS] (the selected logical block ids):
+    the tail buffer (k, v [L,B,Hk,P,Dh], pos [L,B,Hk,P]), followed by the
+    gathered body (k, v [L,B,NS*bs,Hk,Dh]) unless zero-copy; without
+    pkv_blocks: the reference's materialised per-head partial cache (k,
+    v [L,B,Hk,P,Dh], pos [L,B,Hk,P]), int8 with its scales (ks, vs
+    [L,B,Hk,P]).  ``select_partial`` (decode modes): also return the
+    partial cache a Refresh would gather, selected by this step's
+    queries weighted by ``q_weight`` [B, T] (default all 1).  ``plain``:
     the oracle's plain route (contiguous cache only).  ``t_valid`` [B]
     (prefill only): a ragged chunk; pads write no K/V, no summary and do
     not advance ``length``.  ``encoder_out`` [B, Te, d]: the encoder
@@ -692,17 +752,31 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
               else torch.zeros((b,), dtype=torch.int32, device=h.device))
     paged = cache is not None and "page_table" in cache
     page_table = cache["page_table"] if paged else None
+    int8 = cache is not None and cache["k"].dtype == torch.int8
+    if int8 and (paged or mode == "prefill" or select_partial
+                 or "k_scale" not in cache):
+        raise ValueError("an int8 K/V cache is contiguous, decode-only and "
+                         "carries its scales (k_scale, v_scale); it is "
+                         "never prefilled, paged or gathered (the "
+                         "reference keeps int8 caches contiguous and would "
+                         "read int8 pages without their scales)")
+    if select_partial and q_weight is None:
+        q_weight = torch.ones((b, t), dtype=torch.float32, device=h.device)
     paged_kernel = paged and spec.use_pallas
     # prefill: the end of each row's real tokens after the chunk
     end = (length + (t if t_valid is None else t_valid)
            if mode == "prefill" else None)
     feats = [None, None, None]
-    new_k, new_v, queries = [], [], []
+    new_k, new_v, queries, partial = [], [], [], []
     a_i = c_i = 0               # attention / cross layer index
     for i, (kind, lp) in enumerate(zip(kinds, layers)):
         if kind in ("attn", "dec"):
-            cache_kv = ((cache["k"][a_i], cache["v"][a_i])
-                        if cache is not None else None)
+            cache_kv = None
+            if cache is not None:
+                cache_kv = (cache["k"][a_i], cache["v"][a_i])
+                if int8:
+                    cache_kv += (cache["k_scale"][a_i],
+                                 cache["v_scale"][a_i])
             pkv_l = (tuple(p[a_i] for p in pkv)
                      if mode in ("decode_partial", "decode_fused") else None)
             att, upd, q = _self_attention(
@@ -727,6 +801,9 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                 new_v.append(upd["new_v"])
             if emit_queries:
                 queries.append(q)
+            if select_partial:
+                partial.append(_select_partial(spec, q, q_weight, cache,
+                                               a_i, length))
             a_i += 1
         if kind in ("cross", "dec"):
             xo = _cross_attention(cfg, lp, h, (cache["cross_k"][c_i],
@@ -764,7 +841,35 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     new_kv = ((torch.stack(new_k), torch.stack(new_v)) if new_k else None)
     return TrunkOut(h=h, features=tuple(feats) if collect_features else None,
                     cache=new_cache, new_kv=new_kv,
-                    queries=torch.stack(queries) if emit_queries else None)
+                    queries=torch.stack(queries) if emit_queries else None,
+                    partial=(tuple(torch.stack(a) for a in zip(*partial))
+                             if partial else None))
+
+
+def _select_partial(spec: SpecPVConfig, q, q_weight, cache: Dict, a_i: int,
+                    length):
+    """The in-trunk Refresh of attention layer ``a_i`` (the reference's
+    ``select_partial``): Quest scores of this step's queries ``q`` [B, T,
+    H, Dh], weighted by ``q_weight`` [B, T], over the layer's block
+    summaries (K3 where ``uses_score_kernel``), then sink + top-K +
+    local selection, gathered from the contiguous cache or through the
+    page table.  Returns (pk, pv, ppos) [B, Hk, P, ...]."""
+    from repro_torch.kernels import ops as kops
+    kmax_l, kmin_l = cache["kmax"][a_i], cache["kmin"][a_i]
+    pt = cache.get("page_table")
+    if pt is not None:
+        kmax_l, kmin_l = kmax_l[pt.long()], kmin_l[pt.long()]
+    if uses_score_kernel(spec):
+        scores = kops.retrieval_scores(q, kmax_l, kmin_l, q_weight.float())
+    else:
+        scores = quest_block_scores(q, kmax_l, kmin_l, q_weight,
+                                    score_mode=spec.score_mode,
+                                    reduction=spec.reduction)
+    k_l, v_l = cache["k"][a_i], cache["v"][a_i]
+    if pt is not None:
+        return select_and_gather_partial_paged(spec, scores, k_l, v_l, pt,
+                                               length)
+    return select_and_gather_partial(spec, scores, k_l, v_l, length)
 
 
 def encode_frames(cfg: ModelConfig, params, frame_embeds):

@@ -2586,3 +2586,122 @@ def test_cuda_windowed_graphs_equal_eager(cuda, models):
     assert gm == em and gc == ec
     assert ec[0]["paged_prefill_attention"] == 0
     assert ec[0]["sparse_verify_attention"] > 0
+
+
+# ---------------------------------------------------------------------------
+# launch steps and the int8 resident decode cache
+# ---------------------------------------------------------------------------
+
+_LAUNCH_SPEC = dict(block_size=16, num_sink_blocks=1,
+                    retrieval_budget_blocks=4, local_window_blocks=2,
+                    buffer_size=48)
+
+
+def _small_case(name, dev, steps=3, seed=0):
+    """A hillclimb case at a small shape on ``dev``: tiny-dense (fp32,
+    Dh 64) with a block of 16."""
+    from repro_torch.configs import SpecPVConfig
+    from repro_torch.launch import hillclimb as hc
+    spec = SpecPVConfig(**_LAUNCH_SPEC)
+    kw = dict(device=dev, spec=spec, steps=steps, seed=seed)
+    if name == "A0":
+        return hc.build_verify_case("tiny-dense", partial=False, int8=False,
+                                    batch=2, seq=300, **kw)
+    if name in ("A1", "A2"):
+        return hc.build_verify_case("tiny-dense", partial=True,
+                                    int8=name == "A2", batch=2, seq=300,
+                                    **kw)
+    if name == "B1":
+        return hc.build_int8_decode_case("tiny-dense", "decode_32k",
+                                         batch=2, seq=300, **kw)
+    if name == "C1":
+        return hc.build_int8_decode_case("tiny-dense", "long_500k",
+                                         seq=2000, **kw)
+    return hc.build_cp_retrieval_case("tiny-dense", seq=2048, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["A0", "A1", "A2", "B1", "C1", "D1"])
+def test_cuda_hillclimb_graph_equals_eager(cuda, name):
+    """Each hillclimb case at a small shape: three steps eagerly (each
+    under the sync check), then the same steps from the same state
+    replayed as a CUDA graph, equal bit for bit in tokens and written
+    state (``run_built`` asserts it)."""
+    from repro_torch.launch import hillclimb as hc
+    res = hc.run_built(_small_case(name, cuda), steps=3, device=cuda)
+    assert res["graph_equals_eager"]
+    assert len(res["graph_ms"]) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["full", "partial", "state"])
+def test_cuda_launch_decode_steps_are_sync_free(cuda, kind):
+    """``launch.steps``: a prefill step, then decode steps whose bodies
+    run under ``torch.cuda.set_sync_debug_mode("error")`` (tiny-dense;
+    the reduced rwkv6-3b for the state arch)."""
+    from repro_torch.configs import SpecPVConfig, get_config
+    from repro_torch.launch import steps as st
+    from repro_torch.models import api
+    spec = SpecPVConfig(**_LAUNCH_SPEC)
+    cfg = (get_config("rwkv6-3b").reduced() if kind == "state"
+           else get_config("tiny-dense"))
+    params = api.init_params(cfg, seed=0, device=cuda)
+    cache = api.init_cache(cfg, 2, 320, spec, device=cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (2, 160), generator=g,
+                           device=cuda)
+    tok, _ = st.make_prefill_step(cfg, spec)(params, cache, prompt, None)
+    step = st.make_decode_step(cfg, spec, partial=kind == "partial")
+    args = (params, cache)
+    if kind == "partial":
+        sel = api.decode(cfg, params, tok[:, None], cache["length"][:, None],
+                         cache, mode="full", spec=spec,
+                         select_partial=True).partial
+        args = args + st.partial_state(spec, sel)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            out = step(*args, tok)
+            tok = out[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out[1] is cache
+    assert int(cache["length"][0]) == 160 + (0 if kind == "partial" else 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["B1", "C1"])
+def test_cuda_int8_step_matches_cpu(cuda, name):
+    """An fp32 int8 decode step on the card against the same step on the
+    CPU, from the same state (built on the CPU, copied to the card): the
+    step's logits within 1e-4 of the largest and its next token equal
+    (each device steps its own copy of the state)."""
+    from repro_torch.models import api
+
+    def to(obj, dev):
+        if torch.is_tensor(obj):
+            return obj.to(dev, copy=True)
+        if isinstance(obj, dict):
+            return {k: to(v, dev) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(to(v, dev) for v in obj)
+        return obj
+    case = _small_case(name, torch.device("cpu"), steps=1)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        args = to(case.args, dev)
+        params, cache, tok = args[0], args[1], args[-1]
+        from repro_torch.configs import get_config
+        cfg = get_config("tiny-dense")
+        pkv = args[2] if name == "C1" else None
+        pos = (cache["length"] + (args[3] if name == "C1" else 0))[:, None]
+        o = api.decode(cfg, params, tok[:, None].long(), pos, cache,
+                       mode="partial" if pkv is not None else "full",
+                       pkv=pkv)
+        nxt = case.fn(*args)[0]
+        outs.append((o.logits.cpu(), nxt.cpu()))
+    (lc, tc), (lg, tg) = outs
+    _assert_close(lg, lc)
+    assert torch.equal(tg, tc)
