@@ -35,18 +35,20 @@ Phases, in order (any failure raises and the script exits non-zero):
    whose rows select pages they share;
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
-   an 8192-token prompt, 128 new tokens), twice: eagerly
-   (``cuda_graphs=False``) and with the step variants and the 256-token
-   prefill chunk replayed as CUDA graphs (the default, the main path),
-   whose tokens and launch counts must equal the eager run's.  For each
+   an 8192-token prompt, 128 new tokens), twice: eagerly over the first
+   32 tokens (``cuda_graphs=False``; slice 20 cut it from 128) and with
+   the step variants and the 256-token prefill chunk replayed as CUDA
+   graphs (the default, the main path), whose first tokens must equal
+   the eager run's.  For each
    run every kernel's launch count is set to 0 just before and read just
    after (K4 must run once per prefill chunk and once per commit, over
    every layer), the prefill is timed apart from decode (host clock
    after a synchronisation), and every layer's page summaries of the
    final cache are recomputed by the plain version and held to it bit
-   for bit; then, for the graph run, a few decode steps under
-   ``torch.profiler`` (device time by kernel, idle share) and two forced
-   Refresh steps (K3's share of their device time); the eager run is not
+   for bit; then, for the graph run, 3 decode steps under
+   ``torch.profiler`` (device time by kernel, idle share) and one forced
+   Refresh step (K3's share of its device time; slice 20 cut the window
+   from 6 steps and 2 Refresh steps); the eager run is not
    profiled (slice 18 cut its 26 s window) and the graph run's fresh
    prefill runs unprofiled (slice 19 cut it), to keep the smoke inside
    its budget.  After the eager
@@ -387,7 +389,27 @@ Phases, in order (any failure raises and the script exits non-zero):
    layer dequantised to bf16; the int8 partial cache's bonus tokens
    reported against the bf16 one's; each case freed and the cyclic
    collector run before the next.  (c) fp32 (TF32 off) at 4 layers: a
-   prefill step and 31 full decode steps equal the port's AR oracle.
+   prefill step and 31 full decode steps equal the port's AR oracle;
+20. data-parallel serving (slice 20): ``SpecPVEngine(mesh=...)`` over a
+   (2, 1) mesh whose two data shards are both ``cuda:0``, so each shard's
+   rows, its half of the page pools and its CUDA graphs are its own and
+   the weights one copy.  (a) llama3.1-8b at full width (bf16, random
+   weights from seed 0, the draft from 1): phase 6's six requests at
+   batch 4 (2 rows a shard) over its 161 pages (79 and 81 a shard),
+   blocking admission, graphs: tokens/s, p50/p95 latency, each shard's
+   step span per tick (CUDA events around its launch), tick wall by
+   class, page stalls, captures per shard, ``peak_pages_per_host`` and
+   each shard's high water against its capacity, peak memory; each
+   shard's K1-K4 launches (set to 0 just before, read just after) held
+   to what its own steps and chunks imply, every kernel launched on
+   each shard; the bf16 agreement with phase 6's unsharded tokens when
+   phase 6 ran (reported, not asserted).  (b) fp32 (TF32 off), full
+   width, 2 layers, prefix sharing on: four requests (two over the
+   partial budget) served on the (2, 1) mesh equal the unsharded
+   engine's tokens; each shard's high water within its range; a fork
+   within a shard shares its pages and one across shards raises.  (c)
+   ``ServingConfig(mesh_shape=(2, 1))`` on a card count that cannot
+   fill it serves unsharded, as the reference.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -415,6 +437,9 @@ PEAK_FP32_S = 67e12             # fp32 outside the tensor cores
 TOL_KERNEL = 1e-4
 PROMPT_LEN = 8192               # phase 3: the paper's long-context regime
 NEW_TOKENS = 128
+PHASE3_EAGER_NEW = 32           # phase 3's eager run: a Refresh, then Partial
+PROFILE_STEPS = 3               # the graph runs' profiled decode window
+REFRESH_PROFILE_STEPS = 1       # forced Refresh steps profiled after it
 # spin before each timed call (~2 ms at the H100's clock): the host
 # enqueues the call's Python work while the card spins, so the event
 # window holds device time only
@@ -1396,8 +1421,8 @@ def phase_generate(torch, card):
         torch, card, "llama3.1-8b")
     runs = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
                          prompt, NEW_TOKENS, dict(paged=True, zero_copy=True),
-                         "llama3.1-8b", profile_eager=False,
-                         profile_prefill=False)
+                         "llama3.1-8b", eager_new=PHASE3_EAGER_NEW,
+                         profile_eager=False, profile_prefill=False)
     del params, dparams
     torch.cuda.empty_cache()
     return runs["graphs"]
@@ -1502,11 +1527,11 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
         if not graphs and eager_hook is not None:
             hook = eager_hook(eng, eng.final_state)
         eng.final_state = None
-        # an eager window is host-bound and even (about 130 ms a step), and
-        # each profiled eager step costs seconds: 3 steps, not 6
+        # a window is even (an eager one host-bound, about 130 ms a step)
+        # and each profiled step costs host seconds to record and sum
         prof = {} if short or not (graphs or profile_eager) else (
             profile_steps(torch, card, eng, prompt, label=label,
-                          steps=6 if graphs else 3,
+                          steps=PROFILE_STEPS,
                           kernel="retrieval_score_kernel", refresh=True,
                           prefill_kernel="block_summary_kernel",
                           prefill=graphs and profile_prefill))
@@ -1743,8 +1768,8 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
     host clock around the same steps.  The idle share without the
     profiler is 1 - that busy time / the unprofiled host wall time per
     step (the profiler slows the host, not the card).  With ``refresh``,
-    two forced Refresh steps follow under the profiler: their device busy
-    time and the share of it in ``kernel``.  With ``prefill=False`` the
+    ``REFRESH_PROFILE_STEPS`` forced Refresh steps follow under the
+    profiler: their device busy time and the share of it in ``kernel``.  With ``prefill=False`` the
     prefill runs unprofiled.  ``extra``: a VLM or audio target's
     conditioning.  Returns the numbers."""
     from torch.autograd import DeviceType
@@ -1823,15 +1848,16 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
                host_launch_calls_step=calls_n / steps,
                host_ops_step=host_n / steps)
     if refresh:
+        n = REFRESH_PROFILE_STEPS
         with profile(activities=acts) as prof:
-            for _ in range(2):
+            for _ in range(n):
                 st, so = eng.step(st, "refresh")
             torch.cuda.synchronize()
         busy_ms, span_ms = _device_busy(prof)
         k_ms = _named_ms(prof, kernel)
-        say(card, f"profile [{label}] 2 forced Refresh steps: device "
-                  f"busy_ms/step {busy_ms / 2:.2f} span_ms/step "
-                  f"{span_ms / 2:.2f}; {kernel} {k_ms / 2:.4f} ms/step = "
+        say(card, f"profile [{label}] {n} forced Refresh step(s): device "
+                  f"busy_ms/step {busy_ms / n:.2f} span_ms/step "
+                  f"{span_ms / n:.2f}; {kernel} {k_ms / n:.4f} ms/step = "
                   f"{k_ms / busy_ms:.4f} of device busy time")
     return out
 
@@ -2336,7 +2362,7 @@ def phase_serving(torch, card):
     return g
 
 
-def profile_ticks(torch, card, srv, prompts, warm: int = 3, ticks: int = 6):
+def profile_ticks(torch, card, srv, prompts, warm: int = 3, ticks: int = 3):
     """A fresh scheduler on the graph run's engine with four requests of
     4608 tokens (the first 4608 of prompts 2-5; 4 x 38 pages fit): the
     first tick admits them (blocking prefill) and refreshes every row, then
@@ -7583,10 +7609,345 @@ def phase_launch(torch, card):
                 hillclimb=cases, seconds=secs, total_s=t_total)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: data-parallel serving (the engine's mesh= over two data shards)
+# ---------------------------------------------------------------------------
+
+DP_SHARDS = 2
+# (b): fp32 at full width, cut to the depth that keeps it under 10 s
+DP_FP32_LAYERS = 2
+DP_FP32_REQS = ((1500, 16), (4700, 24), (2600, 16), (4900, 24))
+DP_FP32_MAX_LEN = 5120
+
+
+def _dp_timed(torch, eng):
+    """Wrap each shard's step launch in CUDA events on its stream: the
+    device span of each shard's part of every tick (a shard's span ends
+    where the next one's begins, both shards sharing one card).  Returns
+    the per-shard lists of event pairs; ``_dp_untime`` removes the
+    wrappers."""
+    spans = [[] for _ in eng.shards]
+
+    def timed(s, fn):
+        def run(*args, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kw)
+            e1.record()
+            spans[s].append((e0, e1))
+            return out
+        return run
+    for s, sub in enumerate(eng.shards):
+        sub._step_launch = timed(s, sub._step_launch)
+    return spans
+
+
+def _dp_untime(eng):
+    for sub in eng.shards:
+        del sub._step_launch
+
+
+def _dp_serve(torch, eng, reqs):
+    """Serve ``reqs`` through a fresh continuous scheduler on ``eng``
+    (blocking admission, 256-token chunks) with every launch count set
+    to 0 just before and read just after.  Returns (scheduler, outputs
+    by id, wall s, launches, peak GiB)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ContinuousScheduler
+    sched = ContinuousScheduler(eng, prefill_chunk=256)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    if hasattr(eng, "shard_launches"):
+        eng.shard_launches = [{} for _ in eng.shards]
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+    outs = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (sched, {o.request_id: o for o in outs}, wall,
+            dict(ops.LAUNCHES), torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _dp_bf16(torch, card, p6):
+    """(a) llama3.1-8b at full width on a (2, 1) mesh of two ``cuda:0``
+    devices: phase 6's six requests at batch 4 over its 161 pages, each
+    shard holding 2 rows and its half of the pool, one copy of the
+    weights."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.data_parallel import DataParallelEngine
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.models.api import init_params
+    cfg = get_config("llama3.1-8b")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=0, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=1, device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in SERVE_REQS]
+    mesh = make_mesh((DP_SHARDS, 1), devices=["cuda:0"] * DP_SHARDS)
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=4,
+                       max_len=SERVE_MAX_LEN, num_pages=SERVE_PAGES,
+                       paged=True, zero_copy=True, prefix_cache=False,
+                       mesh=mesh, device="cuda")
+    if not isinstance(eng, DataParallelEngine) or eng.data_shards != 2:
+        raise AssertionError(f"a (2, 1) mesh built {type(eng).__name__} "
+                             f"with {eng.data_shards} shards")
+    from repro_torch.train.optimizer import tree_leaves
+    for sub in eng.shards:
+        for mine, given in ((sub.params, params), (sub.dparams, dparams)):
+            if any(a is not b for a, b in zip(tree_leaves(mine),
+                                              tree_leaves(given))):
+                raise AssertionError("shards on one card must share one "
+                                     "copy of the weights")
+    spans = _dp_timed(torch, eng)
+    sched, outs, wall, launches, peak = _dp_serve(
+        torch, eng, _serving_requests(prompts, SERVE_REQS))
+    torch.cuda.synchronize()
+    _dp_untime(eng)
+    for i, (n, new) in enumerate(SERVE_REQS):
+        o = outs[f"r{i}"]
+        if (o.finish_reason != "length" or len(o.tokens) != new
+                or o.tokens.min() < 0 or o.tokens.max() >= cfg.vocab_size):
+            raise AssertionError(f"request r{i}: {o.finish_reason}, "
+                                 f"{len(o.tokens)} tokens")
+    st = sched.stats
+    ps = eng.page_stats()
+    al = eng._page_alloc
+    caps = [al.shard_capacity(s) for s in range(DP_SHARDS)]
+    hw = [ps[f"high_water_shard_{s}"] for s in range(DP_SHARDS)]
+    if not st["page_stalls"] > 0:
+        raise AssertionError("no admission stalled on a shard's pages")
+    if ps["in_use"] or ps["draft_in_use"] or ps["pinned_pages"]:
+        raise AssertionError(f"pages left after the run: {ps}")
+    if any(not 0 < h <= c for h, c in zip(hw, caps)):
+        raise AssertionError(f"a shard's high water {hw} is outside its "
+                             f"capacity {caps}")
+    layers = cfg.num_layers
+    total = {k: 0 for k in LLAMA_KERNELS}
+    per_shard = []
+    for s, sub in enumerate(eng.shards):
+        want = _implied_launches(sub.dispatch_keys, sub.prefill_dispatches,
+                                 layers)
+        got = {k: eng.shard_launches[s].get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"shard {s} launches {got} != {want} "
+                                 f"implied by its steps and chunks")
+        if min(got.values()) <= 0:
+            raise AssertionError(f"shard {s} did not launch every kernel "
+                                 f"of the path: {got}")
+        want_graphs = _prefill_graph_keys(sub) | set(sub.dispatch_keys)
+        if set(sub._graphs) != want_graphs:
+            raise AssertionError(f"shard {s} graphs "
+                                 f"{sorted(map(str, sub._graphs))} != "
+                                 f"{sorted(map(str, want_graphs))}")
+        for k in total:
+            total[k] += got[k]
+        per_shard.append(got)
+    got = {k: launches[k] for k in total}
+    if got != total:
+        raise AssertionError(f"launches {got} != the shards' sum {total}")
+    shard_ms = []
+    for s, sp in enumerate(spans):
+        ms = [a.elapsed_time(b) for a, b in sp]
+        shard_ms.append(dict(ticks=len(ms), median=float(np.median(ms)),
+                             mean=float(np.mean(ms))))
+    lat = np.array([o.latency_s for o in outs.values()])
+    ntok = int(sum(len(o.tokens) for o in outs.values()))
+    ticks = {c: (len(v), 1e3 * float(np.median(v)), 1e3 * float(np.mean(v)))
+             for c, v in sched.tick_wall.items()}
+    res = dict(tokens_per_s=ntok / wall, wall_s=wall,
+               p50=float(np.percentile(lat, 50)),
+               p95=float(np.percentile(lat, 95)), peak_gib=peak,
+               page_stalls=int(st["page_stalls"]), ticks=ticks,
+               shard_step_ms=shard_ms,
+               graphs=[len(sub._graphs) for sub in eng.shards],
+               capture_s=[sub.capture_s for sub in eng.shards],
+               peak_pages_per_host=ps["peak_pages_per_host"],
+               high_water=hw, capacity=caps, shard_launches=per_shard,
+               launches=got)
+    say(card, f"data-parallel serving llama3.1-8b [graphs] mesh (2, 1) on "
+              f"cuda:0 twice, batch 4 (2 rows a shard), {SERVE_PAGES} pages "
+              f"(shards {caps}), requests {[n for n, _ in SERVE_REQS]}: "
+              f"tokens {ntok} wall_s {wall:.3f} tokens_per_s "
+              f"{ntok / wall:.2f} latency_s p50 {res['p50']:.3f} p95 "
+              f"{res['p95']:.3f} steps {int(st['steps'])} page_stalls "
+              f"{res['page_stalls']} peak_mem_gib {peak:.2f}")
+    say(card, f"data-parallel [graphs] per shard: step ms (CUDA events "
+              f"around its launch: ticks, median, mean) "
+              + "; ".join(f"shard {s} {m['ticks']}, {m['median']:.2f}, "
+                          f"{m['mean']:.2f}" for s, m in enumerate(shard_ms))
+              + f"; graphs {res['graphs']} capture_s "
+              f"{[round(c, 3) for c in res['capture_s']]}; launches "
+              f"{per_shard} (each == implied by the shard's steps and "
+              f"chunks)")
+    say(card, f"data-parallel [graphs] tick wall ms by class (ticks, "
+              f"median, mean): " + ", ".join(
+                  f"{c} {n}: {med:.2f}, {mean:.2f}"
+                  for c, (n, med, mean) in sorted(ticks.items()))
+              + f"; peak_pages_per_host {ps['peak_pages_per_host']} "
+              f"high_water_shard {hw} of {caps}")
+    if p6 is not None:
+        same_req = sum(np.array_equal(outs[k].tokens, t)
+                       for k, t in p6["toks"].items())
+        eq = sum(int((outs[k].tokens == t).sum())
+                 for k, t in p6["toks"].items())
+        n = sum(len(t) for t in p6["toks"].values())
+        res["phase6_equal_requests"] = int(same_req)
+        res["phase6_equal_tokens"] = f"{eq}/{n}"
+        say(card, f"data-parallel bf16 vs phase 6's unsharded serving: "
+                  f"{same_req} of {len(SERVE_REQS)} requests equal, {eq} of "
+                  f"{n} tokens (not asserted: bf16 GEMMs at 2 and 4 rows "
+                  f"may round apart); phase 6: tokens_per_s "
+                  f"{p6['tokens_per_s']:.2f} p50 {p6['p50']:.3f} p95 "
+                  f"{p6['p95']:.3f} page_stalls "
+                  f"{int(p6['stats']['page_stalls'])} ticks {p6['ticks']}")
+    else:
+        say(card, "data-parallel bf16: phase 6 did not run, no unsharded "
+                  "tokens to compare")
+    del eng, sched, params, dparams
+    torch.cuda.empty_cache()
+    return res
+
+
+def _dp_fp32(torch, card):
+    """(b) fp32 (TF32 off) at full width, ``DP_FP32_LAYERS`` layers: the
+    same trace served sharded equals the unsharded engine token for
+    token, each shard's high water within its range, a fork within a
+    shard shares pages and one across shards raises; (c)
+    ``ServingConfig(mesh_shape=(2, 1))`` on this one card serves
+    unsharded, as the reference."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.data_parallel import DataParallelEngine
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ServingConfig, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.1-8b").replace(num_layers=DP_FP32_LAYERS,
+                                            dtype="float32",
+                                            param_dtype="float32")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=2, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=3, device="cuda")
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in DP_FP32_REQS]
+    toks, engines = {}, {}
+    for label, mesh in (("unsharded", None),
+                        ("sharded", make_mesh((DP_SHARDS, 1),
+                                              devices=["cuda:0"] * 2))):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=4,
+                           max_len=DP_FP32_MAX_LEN, paged=True,
+                           zero_copy=True, mesh=mesh, device="cuda")
+        sched, outs, _, _, _ = _dp_serve(
+            torch, eng, _serving_requests(prompts, DP_FP32_REQS))
+        toks[label] = {k: o.tokens for k, o in outs.items()}
+        modes = {k: int(v) for k, v in sched.stats.items()
+                 if k.startswith("mode_rows_")}
+        engines[label] = eng
+    eng = engines["sharded"]
+    if not isinstance(eng, DataParallelEngine):
+        raise AssertionError("the (2, 1) mesh built no data-parallel engine")
+    for k, t in toks["unsharded"].items():
+        if not np.array_equal(toks["sharded"][k], t):
+            raise AssertionError(f"fp32 {k}: sharded tokens differ from "
+                                 f"the unsharded engine's:\n"
+                                 f"{toks['sharded'][k]}\n{t}")
+    if not (modes.get("mode_rows_refresh") and modes.get("mode_rows_partial")):
+        raise AssertionError(f"(b) must run Refresh and Partial rows: {modes}")
+    ps = eng.page_stats()
+    al = eng._page_alloc
+    hw = [ps[f"high_water_shard_{s}"] for s in range(DP_SHARDS)]
+    caps = [al.shard_capacity(s) for s in range(DP_SHARDS)]
+    if any(not 0 < h <= c for h, c in zip(hw, caps)):
+        raise AssertionError(f"(b) high water {hw} outside {caps}")
+    # forks: within shard 0 (rows 0 and 1) shared, across shards refused;
+    # emptied first (a reclaim evicts LRU over both shards, as the
+    # reference's, so the cached prefixes could leave shard 0 short)
+    st = eng.empty_state()
+    st, _ = eng.prefill_into_slot(st, 0, prompts[0][:700], max_new_tokens=8)
+    free = al.free
+    st = eng.fork_slot(st, 0, 1)
+    if al.free != free or al.pages_of(1) != al.pages_of(0):
+        raise AssertionError("a fork within a shard must share its pages")
+    try:
+        eng.fork_slot(st, 0, 2)
+    except AssertionError as e:
+        refused = "cross-shard fork" in str(e)
+    else:
+        refused = False
+    if not refused:
+        raise AssertionError("a fork across shards must raise")
+    for slot in (0, 1):
+        st = eng.reset_slot(st, slot)
+    del engines, eng
+    torch.cuda.empty_cache()
+    secs_b = time.perf_counter() - t0
+    say(card, f"data-parallel lossless llama3.1-8b x{DP_FP32_LAYERS} layers "
+              f"fp32, graphs, paged zero-copy with prefix sharing, batch 4, "
+              f"prompts {[n for n, _ in DP_FP32_REQS]}: mesh (2, 1) tokens "
+              f"== unsharded engine's for every request (mode rows {modes}); "
+              f"high_water_shard {hw} of {caps}; a fork within shard 0 "
+              f"shares its pages, one across shards raises; {secs_b:.1f} s")
+    # (c) a mesh this card count cannot fill serves unsharded
+    t1 = time.perf_counter()
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams,
+                        ServingConfig(batch=2, max_len=1024,
+                                      paged_kv=True, zero_copy_partial=True,
+                                      mesh_shape=(DP_SHARDS, 1)),
+                        device="cuda")
+    srv.submit(_serving_requests([prompts[0][:600]], ((600, 4),))[0])
+    (out,) = srv.run()
+    ceng = srv._continuous.engine
+    n_cards = torch.cuda.device_count()
+    want_shards = DP_SHARDS if n_cards >= DP_SHARDS else 1
+    if ceng.data_shards != want_shards or len(out.tokens) != 4:
+        raise AssertionError(f"mesh_shape (2, 1) on {n_cards} card(s): "
+                             f"{ceng.data_shards} shards")
+    say(card, f"data-parallel ServingConfig(mesh_shape=(2, 1)) on "
+              f"{n_cards} card(s): served with {ceng.data_shards} data "
+              f"shard(s) ({type(ceng).__name__}), as the reference; "
+              f"{time.perf_counter() - t1:.1f} s")
+    del srv, ceng, params, dparams
+    torch.cuda.empty_cache()
+    return dict(fp32_s=secs_b, high_water=hw, capacity=caps, modes=modes)
+
+
+def phase_data_parallel(torch, card, p6=None):
+    """Phase 20: the engine's ``mesh=`` as data-parallel serving.
+    Returns (a)'s launches, per shard and in all, and the numbers."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    a = _dp_bf16(torch, card, p6)
+    t_a = time.perf_counter() - t_phase
+    b = _dp_fp32(torch, card)
+    total = time.perf_counter() - t_phase
+    say(card, f"phase 20 (a) {t_a:.1f} s, (b, c) {total - t_a:.1f} s; "
+              f"phase 20 took {total:.1f} s")
+    return dict(launches=a.pop("launches"),
+                shard_launches=a["shard_launches"], bf16=a, fp32=b,
+                seconds=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17,18,19",
+                    default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17,18,19,"
+                            "20",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -7602,7 +7963,8 @@ def main(argv=None) -> int:
                          "(windowed llama3.1-8b; context-parallel Full and "
                          "Partial verification over 2 ranks), 19 (the "
                          "launch steps, the hillclimb cases and the int8 "
-                         "resident decode cache); 1 and 12 always run")
+                         "resident decode cache), 20 (data-parallel "
+                         "serving over a (2, 1) mesh); 1 and 12 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -7633,45 +7995,60 @@ def main(argv=None) -> int:
             say(card, f"ptxas: {line.strip()}")
 
     timer = Timer(torch)
-    kres = phase_kernels(torch, card, timer) if 2 in phases else {}
-    p2t = {"shapes": (_train_kernel_checks(torch, card, timer)
+    secs = {}               # each phase's seconds, printed at the end
+
+    def run(n, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        secs[n] = secs.get(n, 0.0) + time.perf_counter() - t0
+        return out
+    kres = run(2, phase_kernels, torch, card, timer) if 2 in phases else {}
+    p2t = {"shapes": (run(2, _train_kernel_checks, torch, card, timer)
                       if 2 in phases else {})}
-    p2m = {"shapes": (_moe_kernel_checks(torch, card, timer)
+    p2m = {"shapes": (run(2, _moe_kernel_checks, torch, card, timer)
                       if 2 in phases else {})}
-    p2r = {"shapes": (_registry_kernel_checks(torch, card, timer)
+    p2r = {"shapes": (run(2, _registry_kernel_checks, torch, card, timer)
                       if 2 in phases else {})}
-    p2x = {"shapes": (_vlm_audio_kernel_checks(torch, card, timer)
+    p2x = {"shapes": (run(2, _vlm_audio_kernel_checks, torch, card, timer)
                       if 2 in phases else {})}
-    p3 = phase_generate(torch, card) if 3 in phases else None
+    p3 = run(3, phase_generate, torch, card) if 3 in phases else None
     llama = p3["launches"] if p3 else {k: 0 for k in ops.KERNELS}
-    p4 = phase_lossless(torch, card) if 4 in phases else None
-    rwkv = (phase_rwkv(torch, card) if 5 in phases
+    p4 = run(4, phase_lossless, torch, card) if 4 in phases else None
+    rwkv = (run(5, phase_rwkv, torch, card) if 5 in phases
             else {k: 0 for k in ops.KERNELS})
-    serving = (phase_serving(torch, card) if 6 in phases
+    serving = (run(6, phase_serving, torch, card) if 6 in phases
                else {"launches": {}})
-    prefix = (phase_prefix_serving(torch, card) if 7 in phases
+    prefix = (run(7, phase_prefix_serving, torch, card) if 7 in phases
               else {"launches": {}})
-    p8 = (phase_default_engine(torch, card, timer, p3, p4,
-                               serving if 6 in phases else None)
+    p8 = (run(8, phase_default_engine, torch, card, timer, p3, p4,
+              serving if 6 in phases else None)
           if 8 in phases else {"launches": {}, "serving_launches": {},
                                "shapes": {}})
-    p9 = (phase_fused_prefill(torch, card, timer) if 9 in phases
+    p9 = (run(9, phase_fused_prefill, torch, card, timer) if 9 in phases
           else {"launches": {}, "contiguous_launches": {},
                 "prefix_launches": {}, "shapes": {}})
-    p10 = phase_train(torch, card) if 10 in phases else None
-    p11 = (phase_sampled_serving(torch, card, trained=p10 is not None)
+    p10 = run(10, phase_train, torch, card) if 10 in phases else None
+    p11 = (run(11, phase_sampled_serving, torch, card, p10 is not None)
            if 11 in phases else {"launches": {}})
-    p13 = phase_tiers(torch, card) if 13 in phases else {"launches": {}}
-    p14 = (phase_moe(torch, card) if 14 in phases
-           else {"launches": {}, "serving_launches": {}})
-    p15 = (phase_registry(torch, card) if 15 in phases
+    p13 = (run(13, phase_tiers, torch, card) if 13 in phases
            else {"launches": {}})
-    p16 = phase_griffin(torch, card) if 16 in phases else {"launches": {}}
-    p17 = (phase_vlm_audio(torch, card) if 17 in phases
+    p14 = (run(14, phase_moe, torch, card) if 14 in phases
+           else {"launches": {}, "serving_launches": {}})
+    p15 = (run(15, phase_registry, torch, card) if 15 in phases
+           else {"launches": {}})
+    p16 = (run(16, phase_griffin, torch, card) if 16 in phases
+           else {"launches": {}})
+    p17 = (run(17, phase_vlm_audio, torch, card) if 17 in phases
            else {"audio_launches": {}, "vlm_launches": {}})
-    p18 = (phase_windowed_cp(torch, card, timer) if 18 in phases
+    p18 = (run(18, phase_windowed_cp, torch, card, timer) if 18 in phases
            else {"shapes": {}, "cp_launches": {}})
-    p19 = phase_launch(torch, card) if 19 in phases else {"launches": {}}
+    p19 = (run(19, phase_launch, torch, card) if 19 in phases
+           else {"launches": {}})
+    p20 = (run(20, phase_data_parallel, torch, card,
+               serving if 6 in phases else None)
+           if 20 in phases else {"launches": {}, "shard_launches": []})
+    say(card, "phase seconds " + ", ".join(f"{n}: {t:.1f}"
+                                           for n, t in sorted(secs.items())))
 
     rows = []
     for name in ops.KERNELS:
@@ -7713,6 +8090,11 @@ def main(argv=None) -> int:
                              p17["vlm_launches"].get(name, 0)),
                          cp_launches=int(p18["cp_launches"].get(name, 0)),
                          launch_launches=int(p19["launches"].get(name, 0)),
+                         data_parallel_serving_launches=int(
+                             p20["launches"].get(name, 0)),
+                         data_parallel_shard_launches=[
+                             int(sh.get(name, 0))
+                             for sh in p20["shard_launches"]],
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -7754,6 +8136,10 @@ def main(argv=None) -> int:
     if 18 in phases:
         say(card, "windowed_cp " + json.dumps(
             {k: v for k, v in p18.items() if k != "shapes"}, default=float))
+    if 20 in phases:
+        say(card, "data_parallel " + json.dumps(
+            {k: v for k, v in p20.items() if k != "launches"},
+            default=float))
     if 19 in phases:
         say(card, "launch " + json.dumps(
             {k: v for k, v in p19.items() if k != "launches"},

@@ -4,7 +4,8 @@ list of assigned architectures, every one of which the port runs
 (``base.NOT_PORTED`` is empty; an id put there makes ``get_config``
 raise NotImplementedError naming its ROADMAP item)."""
 from repro_torch.configs.base import (NOT_PORTED, ModelConfig, SpecPVConfig,
-                                      DraftConfig, get_config, register)
+                                      DraftConfig, get_config, list_archs,
+                                      register)
 from repro_torch.configs import dbrx_132b  # noqa: F401
 from repro_torch.configs import deepseek_7b  # noqa: F401
 from repro_torch.configs import granite_3_2b  # noqa: F401
@@ -40,4 +41,5 @@ INPUT_SHAPES = {
 }
 
 __all__ = ["ModelConfig", "SpecPVConfig", "DraftConfig", "get_config",
-           "register", "ASSIGNED_ARCHS", "INPUT_SHAPES", "NOT_PORTED"]
+           "list_archs", "register", "ASSIGNED_ARCHS", "INPUT_SHAPES",
+           "NOT_PORTED"]

@@ -99,6 +99,46 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Approximate parameter count (the reference's formula, for a
+        roofline's model FLOPs): attention and MLP per layer by kind,
+        norms, the experts and their router, the embedding and head, and
+        an encoder's layers."""
+        d, dff, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.head_dim_
+        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+                + self.num_heads * hd * d)
+        mlp = (3 if self.act == "silu" else 2) * d * dff
+        total = 0
+        kinds = self.layer_kinds()
+        for kind in kinds:
+            if kind in ("attn", "cross"):
+                total += attn + mlp
+            elif kind == "rwkv":
+                total += 3 * d * d + mlp
+            elif kind == "rec":
+                w = self.rnn_width or d
+                total += 3 * d * w + mlp
+            if kind in ("attn", "cross", "rwkv", "rec"):
+                total += 2 * d
+        if self.num_experts:
+            # the dense MLP counted above is one expert of each layer
+            total += (self.num_experts - 1) * mlp * len(kinds)
+            total += self.num_experts * d * len(kinds)
+        total += v * d * (1 if self.tie_embeddings else 2)
+        if self.has_encoder:
+            total += self.encoder_layers * (attn + mlp)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters one token touches (an MoE reads its top-k experts)."""
+        if not self.num_experts:
+            return self.param_count()
+        per = (3 if self.act == "silu" else 2) * self.d_model * self.d_ff
+        return self.param_count() - ((self.num_experts
+                                      - self.experts_per_token)
+                                     * per * self.num_layers)
+
     def reduced(self) -> "ModelConfig":
         """CPU test variant of the same family (<= 2 layers, d_model <=
         256, <= 4 experts of which top-2), field for field the
@@ -197,3 +237,9 @@ def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in _REGISTRY:
         raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id]()
+
+
+def list_archs():
+    """Every registered config id, sorted (the reference's ``list_archs``)."""
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)

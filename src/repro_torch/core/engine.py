@@ -186,7 +186,8 @@ class PrefillCursor:
     finalise.  ``extra`` is the request's conditioning (VLM and audio
     targets): its cross K/V went into the slot's rows at begin, and a
     cursor that carries it prefills alone (``prefill_step_into_slot``),
-    as the reference's does."""
+    as the reference's does.  In a data-parallel engine ``shard`` is the
+    data shard that holds the cursor and ``slot`` its row there."""
     slot: int
     prompt: np.ndarray
     chunk: int
@@ -208,6 +209,7 @@ class PrefillCursor:
     seed: int = 0
     draft: str = "tree"
     extra: Optional[Dict] = None
+    shard: int = 0                      # data shard (``slot`` is its row)
 
     @property
     def done(self) -> bool:
@@ -328,7 +330,30 @@ def capture_graph(body, device, static: List[torch.Tensor],
     return CapturedGraph(graph, *delta)
 
 
+def mesh_shards(mesh, batch: int) -> Tuple[int, int]:
+    """(data shards, model shards) of an engine of ``batch`` rows over
+    ``mesh`` (a ``distributed.sharding.DeviceMesh``): the batch splits
+    over the data axes only when they divide it, as the reference
+    degrades.  A ``model`` axis above 1 (tensor parallelism) raises."""
+    model = mesh.axis_size("model")
+    if model > 1:
+        _unsupported(f"tensor parallelism (a mesh 'model' axis of {model})",
+                     "Multi-GPU, part 3")
+    data = mesh.data_size
+    return (data if data > 1 and batch % data == 0 else 1), model
+
+
 class SpecPVEngine:
+    def __new__(cls, *args, **kw):
+        # a mesh that splits the batch rows builds the data-parallel
+        # controller (``core.data_parallel``): one engine per data shard
+        mesh = kw.get("mesh")
+        if (cls is SpecPVEngine and mesh is not None
+                and mesh_shards(mesh, kw["batch"])[0] > 1):
+            from repro_torch.core.data_parallel import DataParallelEngine
+            cls = DataParallelEngine
+        return super().__new__(cls)
+
     def __init__(self, cfg: ModelConfig, spec: SpecPVConfig,
                  dcfg: DraftConfig, params, draft_params, *,
                  batch: int, max_len: int,
@@ -359,9 +384,14 @@ class SpecPVEngine:
         without partial verification.  ``temperature`` is the lock-step
         ``generate``'s (each row's stream from seed 0) and the default of
         a slot admission, which may set its own with its seed and draft
-        shape; the continuous scheduler wants a greedy engine.  A mesh
-        raises NotImplementedError naming the ROADMAP item that will
-        bring it.
+        shape; the continuous scheduler wants a greedy engine.
+        ``mesh`` (``distributed.sharding.DeviceMesh``) shards the engine
+        over its ``data`` axis: when the axis divides the batch, the
+        constructor returns a ``DataParallelEngine``, whose shards each
+        hold their rows, their range of the page pools and a weight
+        replica per distinct device; otherwise (or for a mesh of one
+        shard) this engine runs unsharded on the mesh's first device.  A
+        ``model`` axis above 1 raises NotImplementedError.
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
         as in the reference; contiguous engines share nothing):
@@ -405,8 +435,18 @@ class SpecPVEngine:
         if tiered and not paged:
             raise ValueError("tiered KV residency needs the paged cache "
                              "(paged=True)")
+        self.mesh = mesh
+        self.data_shards = 1
+        self.model_shards = 1
         if mesh is not None:
-            _unsupported("mesh sharding", "Multi-GPU, part 2")
+            # one data shard: the rows stay together on the mesh's first
+            # device (a mesh of several devices would only replicate them)
+            self.model_shards = mesh_shards(mesh, batch)[1]
+            if device is not None and \
+                    torch.device(device).type != mesh.devices[0].type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -429,7 +469,6 @@ class SpecPVEngine:
                             if self.paged else None)
         self._draft_alloc = (kvc.PageAllocator(self.num_draft_pages)
                              if self.paged else None)
-        self.data_shards = 1            # no mesh: one page pool
         self.traffic = TrafficMeter()
         # demote/promote bill their link bytes into the same meter
         self._tier = (TierManager(self._page_alloc, lossless=tier_lossless,
@@ -950,16 +989,20 @@ class SpecPVEngine:
         return min(-(-toks // self.spec.block_size), self._nb_seq)
 
     def prefix_match_blocks(self, prompt: np.ndarray,
-                            touch: bool = False) -> int:
+                            touch: bool = False,
+                            shard: Optional[int] = None) -> int:
         """Probe: the leading full blocks of `prompt` the prefix cache can
         serve now (capped one block short of the prompt, so the tail
-        prefill is never empty).  ``touch`` re-stamps the chain MRU."""
+        prefill is never empty).  ``touch`` re-stamps the chain MRU;
+        ``shard`` counts only what a slot of that data shard may attach
+        (``_shard_chain``)."""
         if self._prefix is None:
             return 0
         bs = self.spec.block_size
-        return len(self._prefix.match(np.asarray(prompt),
-                                      (len(prompt) - 1) // bs,
-                                      touch=touch, count=False))
+        entries = self._prefix.match(np.asarray(prompt),
+                                     (len(prompt) - 1) // bs,
+                                     touch=touch, count=False)
+        return len(self._shard_chain(entries, shard))
 
     def pages_needed_shared(self, prompt: np.ndarray, max_new_tokens: int,
                             touch: bool = False,
@@ -971,22 +1014,29 @@ class SpecPVEngine:
         the tail block billed (its attach copies it into a fresh page).
         ``temperature`` is the request's (default: the engine's): tail
         discounts apply to greedy requests only, as the entry stores the
-        greedy first token."""
+        greedy first token.  ``shard`` discounts only the entries a slot
+        of that data shard may attach."""
         temp = self.temperature if temperature is None else float(temperature)
         need = self.pages_needed(len(prompt), max_new_tokens)
         if self._prefix is not None and temp == 0.0:
             tail = self._prefix.match_tail(np.asarray(prompt), touch=touch,
                                            count=False)
-            if tail is not None:
+            if tail is not None and (shard is None
+                                     or self._tail_on_shard(tail, shard)):
                 return max(need - len(prompt) // self.spec.block_size, 0)
-        return max(need - self.prefix_match_blocks(prompt, touch=touch), 0)
+        return max(need - self.prefix_match_blocks(prompt, touch=touch,
+                                                   shard=shard), 0)
 
     def free_pages(self, shard: Optional[int] = None) -> int:
         """Fresh pages available for admission: the tighter of the trunk
-        and draft pools."""
+        and draft pools, or of one data shard's ranges of them (a request
+        admitted to a shard draws only its pages)."""
         if not self.paged:
             return 1 << 30
-        return min(self._page_alloc.free, self._draft_alloc.free)
+        if shard is None or self.data_shards == 1:
+            return min(self._page_alloc.free, self._draft_alloc.free)
+        return min(self._page_alloc.free_in(shard),
+                   self._draft_alloc.free_in(shard))
 
     def page_capacity(self) -> int:
         return self._page_alloc.capacity if self.paged else 1 << 30
@@ -998,8 +1048,38 @@ class SpecPVEngine:
             return 0
         return self._prefix.evict_lru(self._page_alloc, self._draft_alloc, n)
 
+    # ---- data shards (one unless the engine is data-parallel) ---------
     def shard_of_slot(self, slot: int) -> int:
-        return 0
+        """The data shard owning batch row `slot`: contiguous ranges, as a
+        data-axis split of the batch dim places them."""
+        return slot * self.data_shards // self.batch
+
+    def shard_slots(self, shard: int) -> range:
+        """The batch rows of `shard` (contiguous)."""
+        b, n = self.batch, self.data_shards
+        return range(shard * b // n, (shard + 1) * b // n)
+
+    def _shard_chain(self, entries, shard: Optional[int]):
+        """A matched prefix chain cut at its first entry whose page lives
+        off `shard`: a slot attaches only pages its own shard holds
+        (hash-equal blocks are prefilled again on each shard)."""
+        if shard is None or self.data_shards == 1:
+            return entries
+        out = []
+        for e in entries:
+            if self._page_alloc.page_shard(e.page) != shard:
+                break
+            out.append(e)
+        return out
+
+    def _tail_on_shard(self, tail, shard: int) -> bool:
+        """May this whole-prompt tail hit serve a slot of `shard`?"""
+        if self.data_shards == 1:
+            return True
+        chain, e = tail
+        return (all(self._page_alloc.page_shard(c.page) == shard
+                    for c in chain)
+                and self._page_alloc.page_shard(e.page) == shard)
 
     # ---- tiered residency (no-ops untiered) --------------------------
     @property
@@ -1120,6 +1200,7 @@ class SpecPVEngine:
             for al in (self._page_alloc, self._draft_alloc):
                 al.high_water = 0
                 al.resident_high_water = 0
+                al.high_water_by = [0] * al.shards
 
     def page_stats(self) -> Dict[str, int]:
         al = self._page_alloc
@@ -1135,6 +1216,11 @@ class SpecPVEngine:
                    contiguous_pages=self.batch * self._nb_seq,
                    block_size=self.spec.block_size,
                    pinned_pages=al.pinned_pages)
+        if self.data_shards > 1:
+            out["data_shards"] = self.data_shards
+            out["peak_pages_per_host"] = al.peak_pages_per_host
+            for sh in range(al.shards):
+                out[f"high_water_shard_{sh}"] = al.high_water_by[sh]
         out.update(self.tier_stats())
         return out
 
@@ -1177,8 +1263,8 @@ class SpecPVEngine:
                              shard: int = 0) -> Tuple[EngineState, int]:
         """Re-seat a ``save_prefix_state`` snapshot: each entry whose chain
         hash re-verifies (``PrefixCache.load_state``) gets cache-only pages
-        in both pools and its bytes written back.  Returns (state, entries
-        restored)."""
+        of data shard ``shard`` in both pools and its bytes written back.
+        Returns (state, entries restored)."""
         if self._prefix is None or snap is None:
             return st, 0
         self._own(st)
@@ -1496,6 +1582,16 @@ class SpecPVEngine:
         1, chunk)`` reads whichever slot's rows the round is for.
         Returns (state, tokens processed); ``prefill_dispatches`` counts
         the calls."""
+        cursors, ctx = self._prefill_launch(st, cursors)
+        for i, c in enumerate(cursors):
+            self._prefill_advance(ctx, i, c)
+        return st, ctx["tokens"]
+
+    def _prefill_launch(self, st: EngineState, cursors: List[PrefillCursor]
+                        ) -> Tuple[List[PrefillCursor], Dict]:
+        """The device half of ``_prefill_round``: the round's body,
+        launched.  Returns (the open cursors, what ``_prefill_advance``
+        reads for each)."""
         self._own(st)
         cursors = [c for c in cursors if not c.done]
         if not cursors:
@@ -1550,16 +1646,21 @@ class SpecPVEngine:
             body()
         self.prefill_dispatches += 1
         self.prefill_keys[k, tmax] = self.prefill_keys.get((k, tmax), 0) + 1
-        for i, c in enumerate(cursors):
-            c.row_cache["length"].fill_(ends[i])
-            c.row_dcache["length"].fill_(ends[i])
-            c.prev_feat.copy_(prev[i: i + 1])
-            self._register_blocks(c, offs[i], ends[i],
-                                  feats[i] if feats is not None else None)
-            c.off = ends[i]
-            if c.done:
-                c.logits_last = logits[i: i + 1].clone()
-        return st, sum(nvalid)
+        return cursors, dict(offs=offs, ends=ends, prev=prev, logits=logits,
+                             feats=feats, tokens=sum(nvalid))
+
+    def _prefill_advance(self, ctx: Dict, i: int, c: PrefillCursor) -> None:
+        """Row ``i`` of a launched round: the cursor's length and carried
+        feature, its completed blocks registered, its offset moved."""
+        end, feats = ctx["ends"][i], ctx["feats"]
+        c.row_cache["length"].fill_(end)
+        c.row_dcache["length"].fill_(end)
+        c.prev_feat.copy_(ctx["prev"][i: i + 1])
+        self._register_blocks(c, ctx["offs"][i], end,
+                              feats[i] if feats is not None else None)
+        c.off = end
+        if c.done:
+            c.logits_last = ctx["logits"][i: i + 1].clone()
 
     def _slot_pools(self, st: EngineState) -> Tuple[Dict, Dict]:
         """The pools a slot prefill writes through its rows' page tables:
@@ -1646,9 +1747,11 @@ class SpecPVEngine:
         hash-equal blocks bit-identical (same prefix, absolute chunk
         boundaries); in bf16 on the card that holds only when both cursors
         computed the block in chunks of the same length (ROADMAP.md queue
-        3, 'Parity hazards')."""
-        if int(cur.pt_host[j]) == e.page:
-            return                      # shared already (admission match)
+        3, 'Parity hazards').  An entry of another data shard (its page
+        None in this shard's view, ``core.data_parallel``) is left alone:
+        each shard keeps its own copy."""
+        if e.page is None or int(cur.pt_host[j]) == e.page:
+            return                      # another shard's, or shared already
         self._page_alloc.rebind_block(cur.slot, j, e.page)
         self._draft_alloc.rebind_block(cur.slot, j, e.draft_page)
         cur.pt_host[j] = e.page
@@ -2248,6 +2351,13 @@ class SpecPVEngine:
         any of them samples or drafts a chain (the host mirrors
         ``_slot_temp`` / ``_slot_chain``), so an all-greedy tree step
         replays ``(has_full, has_partial, has_refresh, False, False)``."""
+        return self._step_finish(*self._step_launch(st, rows, modes))
+
+    def _step_launch(self, st: EngineState, rows: np.ndarray,
+                     modes: np.ndarray) -> Tuple:
+        """The first half of ``step_fused``: everything up to the body's
+        launch, nothing read back (a data-parallel tick launches every
+        shard's step before it reads any)."""
         if not self.is_attn:
             raise ValueError("state archs step through step(st, 'state')")
         self._own(st)
@@ -2277,6 +2387,13 @@ class SpecPVEngine:
         self._run(key, lambda: self._fused_body(*key))
         self.dispatches += 1
         self.dispatch_keys[key] = self.dispatch_keys.get(key, 0) + 1
+        return st, rows, modes, active_modes, has_refresh
+
+    def _step_finish(self, st: EngineState, rows: np.ndarray,
+                     modes: np.ndarray, active_modes: np.ndarray,
+                     has_refresh: bool) -> Tuple[EngineState, StepOutput]:
+        """The second half of ``step_fused``: the one read-back, then the
+        host's bookkeeping (mirrors, pins, traffic, tiers)."""
         pin = self.zero_copy and has_refresh
         toks, counts, acc, pbi_host = self._read_io(blocks=pin)
         self._host_ext_len = np.where(rows, counts, self._host_ext_len)
@@ -2374,6 +2491,10 @@ class SpecPVEngine:
                     itemsize)
         self.traffic.record(mode, nbytes)
 
+    def _first_tokens(self, st: EngineState) -> np.ndarray:
+        """Each row's first token after a lock-step prefill (read back)."""
+        return st.pending[:, 0].cpu().numpy()
+
     # ------------------------------------------------------------------
     def generate(self, prompt: np.ndarray, max_new_tokens: int,
                  eos_id: int = -1, prefill_chunk: int = 256,
@@ -2388,7 +2509,7 @@ class SpecPVEngine:
         t0 = time.perf_counter()
         st = self.prefill(prompt, chunk=prefill_chunk, extra=extra)
         b = self.batch
-        first = st.pending[:, 0].cpu().numpy()
+        first = self._first_tokens(st)
         prefill_s = time.perf_counter() - t0
         out: List[List[int]] = [[int(first[i])] for i in range(b)]
         accepts: List[int] = []

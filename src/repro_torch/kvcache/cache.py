@@ -1,5 +1,4 @@
-"""Blocked KV cache structures (counterpart of ``repro/kvcache/cache.py``,
-without shards).
+"""Blocked KV cache structures (counterpart of ``repro/kvcache/cache.py``).
 
 Contiguous cache: ``k/v [L, B, S_max, Hk, Dh]`` with per-row lengths and
 per-block summaries ``kmax/kmin [L, B, NB, Hk, Dh]`` (paper eq. (1)).
@@ -18,6 +17,7 @@ cache tensors in place (the engine consumes the state it steps).
 """
 from __future__ import annotations
 
+import bisect
 import hashlib
 from typing import Dict, List, Optional, Tuple
 
@@ -108,7 +108,7 @@ def contiguous_update_all_summaries(kmax, kmin, k, start, end, block: int,
 
 class PageAllocator:
     """Host-side refcounted allocator over the shared block pool (the
-    reference's allocator without shards).
+    reference's allocator).
 
     Page 0 is the reserved null page and never handed out, so
     ``capacity == num_pages - 1``.  ``_slot_pages[slot][j]`` is the
@@ -132,20 +132,40 @@ class PageAllocator:
     peak of ``committed`` and ``resident_high_water`` the peak of
     ``in_use``; both move only in ``_track``, where pages can become
     slot-referenced (never in ``fork``), and survive ``reset``.
-    ``shard`` arguments exist for the reference's signatures and accept
-    only 0 (one pool)."""
 
-    def __init__(self, num_pages: int):
+    Data-parallel serving: with ``shards > 1`` the allocatable pages split
+    into contiguous per-shard ranges, shard ``s`` owning ``[max(1,
+    s*NP//shards), (s+1)*NP//shards)`` (the null page rides with shard
+    0), the ranges a data-axis split of the pool's page dim gives each
+    shard.  Every slot maps to one shard (``slot_shard``) and draws pages
+    only from its range, so a shard's resident pages never leave it.
+    Each shard keeps a LIFO free list; ``high_water_by`` holds each
+    shard's peak committed pages and ``peak_pages_per_host`` the worst.
+    A fork or a copy-on-write stays within one shard."""
+
+    def __init__(self, num_pages: int, *, shards: int = 1,
+                 slot_shard=None):
         assert num_pages >= 2, "need at least one allocatable page"
+        assert 1 <= shards <= num_pages - 1, \
+            f"cannot split {num_pages - 1} allocatable pages over {shards}"
         self.num_pages = num_pages
+        self.shards = shards
+        # shard s owns pages [_bounds[s], _bounds[s + 1])
+        self._bounds = [max(1, (s * num_pages) // shards)
+                        for s in range(shards)] + [num_pages]
+        self._slot_shard_fn = slot_shard or (lambda slot: 0)
         self.high_water = 0             # peak committed (live working set)
         self.resident_high_water = 0    # peak physical (incl. idle cached)
+        self.high_water_by = [0] * shards   # per-shard peak committed
         self.reset()
 
     def reset(self) -> None:
-        # LIFO free list: pop() hands out the lowest pages first
-        self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
-        self._free_set = set(self._free)
+        # one LIFO free list per shard: pop() hands out the lowest pages
+        # first, and a freed page is reused first
+        self._free_by: List[List[int]] = [
+            list(range(self._bounds[s + 1] - 1, self._bounds[s] - 1, -1))
+            for s in range(self.shards)]
+        self._free_set = {p for fl in self._free_by for p in fl}
         self._ref = np.zeros((self.num_pages,), np.int32)
         self._cache_ref = np.zeros((self.num_pages,), np.int32)
         self._slot_pages: dict = {}
@@ -153,13 +173,34 @@ class PageAllocator:
         self._pin_ref = np.zeros((self.num_pages,), np.int32)
         self._slot_pins: dict = {}
 
+    # -- shard topology ------------------------------------------------
+    def slot_shard(self, slot: int) -> int:
+        """The shard `slot` draws its pages from."""
+        return (0 if self.shards == 1
+                else self._slot_shard_fn(slot) % self.shards)
+
+    def page_shard(self, page: int) -> int:
+        """The shard owning physical `page` (pages never migrate)."""
+        assert page != 0, "the null page belongs to no shard's budget"
+        return bisect.bisect_right(self._bounds, page) - 1
+
+    def shard_capacity(self, shard: int) -> int:
+        return self._bounds[shard + 1] - self._bounds[shard]
+
+    def shard_base(self, shard: int) -> int:
+        """The first page of `shard`'s range."""
+        return self._bounds[shard]
+
+    def free_in(self, shard: int) -> int:
+        return len(self._free_by[shard])
+
     @property
     def capacity(self) -> int:
         return self.num_pages - 1
 
     @property
     def free(self) -> int:
-        return len(self._free)
+        return sum(len(fl) for fl in self._free_by)
 
     @property
     def in_use(self) -> int:
@@ -234,7 +275,7 @@ class PageAllocator:
         p = self._slot_pages[slot][block]
         self._slot_pages[slot][block] = 0
         self._ref[p] = 0
-        self._free.append(p)
+        self._free_by[self.page_shard(p)].append(p)
         self._free_set.add(p)
         self._hosted.setdefault(slot, set()).add(block)
         return p
@@ -246,7 +287,7 @@ class PageAllocator:
         hosted = self._hosted.get(slot, set())
         assert block in hosted, \
             f"promote of non-hosted block {block} of slot {slot}"
-        [p] = self._take(1)
+        [p] = self._take(1, self.slot_shard(slot))
         self._slot_pages[slot][block] = p
         hosted.discard(block)
         if not hosted:
@@ -256,20 +297,38 @@ class PageAllocator:
     def _track(self) -> None:
         self.high_water = max(self.high_water, self.committed)
         self.resident_high_water = max(self.resident_high_water, self.in_use)
+        if self.shards > 1:
+            for s in range(self.shards):
+                lo, hi = self._bounds[s], self._bounds[s + 1]
+                in_use = (hi - lo) - len(self._free_by[s])
+                ref, cref = self._ref[lo:hi], self._cache_ref[lo:hi]
+                idle = int(np.sum((ref > 0) & (ref == cref)))
+                self.high_water_by[s] = max(self.high_water_by[s],
+                                            in_use - idle)
+        else:
+            self.high_water_by[0] = self.high_water
 
-    @staticmethod
-    def _one_pool(shard: int) -> None:
-        if shard != 0:
-            raise ValueError(f"shard {shard}: the port's pool is unsharded "
-                             f"(ROADMAP.md queue 1, 'Multi-GPU, part 2')")
+    @property
+    def peak_pages_per_host(self) -> int:
+        """The worst shard's peak committed pages: the per-host memory a
+        pool-wide count would hide (one shard per host)."""
+        return max(self.high_water_by)
 
-    def _take(self, n: int) -> List[int]:
-        """The only place pages leave the free list (refcount 1 each);
+    def _exhausted(self, n: int, shard: int) -> RuntimeError:
+        where = f" (shard {shard})" if self.shards > 1 else ""
+        return RuntimeError(
+            f"page pool exhausted: want {n}, have {self.free_in(shard)} "
+            f"free of {self.shard_capacity(shard)}{where}")
+
+    def _take(self, n: int, shard: int = 0) -> List[int]:
+        """The only place pages leave a free list (refcount 1 each);
         raises on over-draw with state unchanged."""
-        if n > len(self._free):
-            raise RuntimeError(f"page pool exhausted: want {n}, have "
-                               f"{len(self._free)} free of {self.capacity}")
-        pages = [self._free.pop() for _ in range(n)]
+        if not 0 <= shard < self.shards:
+            raise ValueError(f"no shard {shard} in a pool of {self.shards}")
+        fl = self._free_by[shard]
+        if n > len(fl):
+            raise self._exhausted(n, shard)
+        pages = [fl.pop() for _ in range(n)]
         for p in pages:
             assert self._ref[p] == 0, f"free page {p} had refcount"
             self._free_set.discard(p)
@@ -278,9 +337,9 @@ class PageAllocator:
         return pages
 
     def alloc(self, slot: int, n: int) -> np.ndarray:
-        """Hand `n` fresh (refcount-1) pages to `slot`; raises on
-        over-draw with state unchanged."""
-        pages = self._take(n)
+        """Hand `n` fresh (refcount-1) pages to `slot` from its shard's
+        range; raises on over-draw with state unchanged."""
+        pages = self._take(n, self.slot_shard(slot))
         self._slot_pages.setdefault(slot, []).extend(pages)
         return np.asarray(pages, np.int32)
 
@@ -288,8 +347,7 @@ class PageAllocator:
         """Take `n` pages held only by the prefix cache (one cache
         reference each, so idle at once): how a restored snapshot seats
         its pages before any slot references them."""
-        self._one_pool(shard)
-        pages = self._take(n)
+        pages = self._take(n, shard)
         for p in pages:
             self._cache_ref[p] = 1
         return pages
@@ -320,7 +378,7 @@ class PageAllocator:
             assert not (self._ref[p] == 0 and self._pin_ref[p] > 0), \
                 f"page {p} freed while partial-pinned"
             if self._ref[p] == 0:
-                self._free.append(p)
+                self._free_by[self.page_shard(p)].append(p)
                 self._free_set.add(p)
                 freed.append(p)
         return freed
@@ -357,6 +415,9 @@ class PageAllocator:
             f"fork target slot {dst} still holds pages"
         assert not self._hosted.get(src) and not self._hosted.get(dst), \
             "cannot fork a slot with host-demoted blocks (promote first)"
+        assert self.slot_shard(src) == self.slot_shard(dst), \
+            (f"cross-shard fork {src}->{dst}: a fork shares pages by "
+             f"reference, so both slots must live on one shard")
         pages = self.pages_of(src)
         self.attach(dst, pages)
         src_pins = self._slot_pins.get(src)
@@ -375,11 +436,11 @@ class PageAllocator:
         old = self._slot_pages[slot][block]
         if self._ref[old] == 1:
             return old, old
-        if not self._free:
-            raise RuntimeError(f"page pool exhausted: want 1, have 0 free "
-                               f"of {self.capacity}")
+        shard = self.slot_shard(slot)
+        if not self._free_by[shard]:
+            raise self._exhausted(1, shard)
         self._ref[old] -= 1             # ref > 1, so never frees here
-        [new] = self._take(1)
+        [new] = self._take(1, shard)
         self._slot_pages[slot][block] = new
         return old, new
 
@@ -699,7 +760,6 @@ class PrefixCache:
         from it (pool pressure) stops early.  ``feat`` maps a stored
         feature to what the entry keeps (the engine: a device tensor).
         Returns the number of entries restored."""
-        PageAllocator._one_pool(shard)
         if snap.get("block") != self.block:
             return 0
         ok = {self._ROOT}

@@ -43,7 +43,7 @@ def make_train_step(cfg: ModelConfig, grad_shardings=None):
     if grad_shardings is not None:
         raise NotImplementedError(
             "sharded gradients are not ported yet: ROADMAP.md queue 1, "
-            "'Multi-GPU, part 2'")
+            "'Multi-GPU, part 3'")
     unstacked = api.unstacked_layers(cfg)
 
     def step(params, opt, tokens, extra):

@@ -14,19 +14,28 @@
   drives the attention automaton.
 
 Runs on ``device`` (CUDA unless ``"cpu"`` is asked for), where the
-params must live; ``cuda_graphs`` goes to the engines as is.
+params must live; ``cuda_graphs`` goes to the engines as is.  With
+``ServingConfig.mesh_shape`` a ``(D, 1)`` shape that the local cards can
+fill builds a mesh over ``cuda:0`` .. ``cuda:D-1`` and the engines shard
+their rows and page pools over its data axis
+(``core.data_parallel.DataParallelEngine``); a shape they cannot fill
+serves unsharded, as in the reference.
 """
 from __future__ import annotations
 
+import math
 import time
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import DraftConfig, ModelConfig, SpecPVConfig
 from repro_torch.core.engine import SpecPVEngine, _unsupported
+from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import make_mesh
 from repro_torch.serving.request import Request, RequestOutput
 from repro_torch.serving.scheduler import ContinuousScheduler, trim_output
 
@@ -44,8 +53,9 @@ class ServingConfig:
     (``prefix_cache=True``, as in the reference) applies to the paged
     pool only, and so does the host tier of cold trunk pages
     (``tiered_kv=True``, with ``tier_codec`` "int8" or "fp8", or
-    ``tier_lossless``); unpaged it is ignored, as in the reference.  A
-    ``mesh_shape`` raises NotImplementedError naming its ROADMAP item."""
+    ``tier_lossless``); unpaged it is ignored, as in the reference.
+    ``mesh_shape`` = (data, model) shards the engines over that many
+    local cards (``ServingEngine._mesh``)."""
     batch: int = 4
     max_len: int = 4096
     prefill_chunk: int = 256
@@ -77,9 +87,7 @@ class ServingEngine:
                  dcfg: DraftConfig, params, draft_params,
                  scfg: Optional[ServingConfig] = None, *, device=None,
                  cuda_graphs: Optional[bool] = None):
-        self.scfg = scfg = scfg or ServingConfig()
-        if scfg.mesh_shape is not None:
-            _unsupported("mesh sharding (mesh_shape)", "Multi-GPU, part 2")
+        self.scfg = scfg or ServingConfig()
         self.cfg = cfg
         self.spec = spec
         self.dcfg = dcfg
@@ -108,6 +116,24 @@ class ServingEngine:
             return self._continuous.cancel(request_id)
         return False
 
+    def _mesh(self):
+        """The serving mesh of ``ServingConfig.mesh_shape``: None when
+        unset or when the local cards (one CPU device) cannot fill it, as
+        in the reference; else a mesh over ``cuda:0`` .. ``cuda:n-1``.  A
+        ``model`` axis above 1 raises NotImplementedError."""
+        shape = self.scfg.mesh_shape
+        if shape is None:
+            return None
+        dev = resolve_device(self.device)
+        count = torch.cuda.device_count() if dev.type == "cuda" else 1
+        if math.prod(shape) > count:
+            return None
+        if shape[1] > 1:
+            _unsupported(f"tensor parallelism (mesh_shape {tuple(shape)})",
+                         "Multi-GPU, part 3")
+        return make_mesh(tuple(shape),
+                         devices=None if dev.type == "cuda" else [dev])
+
     def _engine_for(self, batch: int, *, paged: bool = False) -> SpecPVEngine:
         """The engine of ``batch`` rows: paged (the configured pools, pages
         per request, prefix sharing, tiers and zero-copy as configured) or
@@ -126,7 +152,8 @@ class ServingEngine:
                 tier_lossless=self.scfg.tier_lossless,
                 tier_codec=self.scfg.tier_codec,
                 zero_copy=paged and self.scfg.zero_copy_partial,
-                device=self.device, cuda_graphs=self.cuda_graphs)
+                mesh=self._mesh(), device=self.device,
+                cuda_graphs=self.cuda_graphs)
         return self._engines[key]
 
     def page_stats(self) -> Dict[str, int]:
@@ -187,6 +214,13 @@ class ServingEngine:
                     or k.startswith(("mode_rows_", "ticks_modes_",
                                      "tick_wall_", "ticks_wall_")):
                 self.stats[k] += sched.stats.pop(k)
+        # data-parallel engines: the residency that counts is the worst
+        # shard's, a max over shards and runs
+        ps = self.page_stats()
+        if "peak_pages_per_host" in ps:
+            self.stats["peak_pages_per_host"] = max(
+                self.stats["peak_pages_per_host"],
+                float(ps["peak_pages_per_host"]))
         return done
 
     # ------------------------------------------------------------------

@@ -219,20 +219,39 @@ class ContinuousScheduler:
             # not fit stays queued while smaller waiters may proceed.  The
             # gate only counts (no LRU touch): the admission's own match
             # re-stamps the chain.  Eviction may shorten this request's
-            # own match, so the bill is counted again before the gate
-            need_fresh = eng.pages_needed_shared(
-                req.prompt, req.max_new_tokens, temperature=req.temperature)
-            margin = eng.tier_admit_margin(len(req.prompt))
-            short = need_fresh + margin - eng.free_pages()
-            if short > 0:
-                self.stats["prefix_evictions"] += eng.reclaim_pages(short)
-                need_fresh = eng.pages_needed_shared(
-                    req.prompt, req.max_new_tokens,
-                    temperature=req.temperature)
-            if need_fresh + margin > eng.free_pages():
-                self.stats["page_stalls"] += 1
-                continue
-            i = free.pop(0)
+            # own match, so the bill is counted again before the gate.  A
+            # data-parallel engine takes the shard of a free slot with the
+            # most free pages whose gate passes: the match and the bill
+            # are the shard's own, so no shard pays for another's pages
+            pick: Optional[int] = None
+            if eng.paged:
+                margin = eng.tier_admit_margin(len(req.prompt))
+                if eng.data_shards > 1:
+                    cands = sorted({eng.shard_of_slot(i) for i in free},
+                                   key=lambda sh: -eng.free_pages(sh))
+                else:
+                    cands = [None]
+                for sh in cands:
+                    need_fresh = eng.pages_needed_shared(
+                        req.prompt, req.max_new_tokens, shard=sh,
+                        temperature=req.temperature)
+                    short = need_fresh + margin - eng.free_pages(sh)
+                    if short > 0:
+                        self.stats["prefix_evictions"] += \
+                            eng.reclaim_pages(short)
+                        need_fresh = eng.pages_needed_shared(
+                            req.prompt, req.max_new_tokens, shard=sh,
+                            temperature=req.temperature)
+                    if need_fresh + margin <= eng.free_pages(sh):
+                        pick = (free[0] if sh is None else next(
+                            i for i in free if eng.shard_of_slot(i) == sh))
+                        break
+                if pick is None:
+                    self.stats["page_stalls"] += 1
+                    continue
+            i = free.pop(0) if pick is None else pick
+            if pick is not None:
+                free.remove(i)
             self.waiting.remove(req)
             req.phase = RequestPhase.PREFILLING
             slot = _Slot(req=req, admit_s=now, seq=self._seq)

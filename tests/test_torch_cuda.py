@@ -91,18 +91,46 @@ def test_cuda_block_attention_matches_plain(cuda, dtype, t):
     assert torch.all(got[1][1, 3 * rep:4 * rep] == 0)
 
 
-def _kernel_launches(fn):
-    """Device kernels launched by one call of ``fn`` (torch.profiler)."""
+# host calls that launch one kernel each (the profiler's runtime records)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def _session(fn):
+    """``fn`` under torch.profiler, synchronised: (its result, the device
+    kernel records, the host launch calls).  Copies and sets are left out
+    of the kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum(e.count for e in prof.key_averages()
-                    if getattr(e, "device_type", None) == DeviceType.CUDA)
+    events = prof.events()
+    kernels = [e.name for e in events
+               if getattr(e, "device_type", None) == DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    return out, kernels, sum(1 for e in events if e.name in LAUNCH_CALLS)
+
+
+def _kernel_launches(fn, tries: int = 3):
+    """Device kernels launched by one call of ``fn``, after one warm call:
+    the kernel records of a profiled call.  The profiler loses a kernel's
+    record now and then although it saw the launch on the host (about 1
+    in 400 one-call sessions, ``tools/profiler_records.py``); a session
+    holding fewer kernel records than host launch calls is therefore
+    incomplete and runs again, at most ``tries`` times, its call's counts
+    taken back out of ``ops.LAUNCHES``, so the counts stay those of the
+    warm call and the kept one."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        saved = tops.launch_counts()
+        out, kernels, calls = _session(fn)
+        if len(kernels) >= calls:
+            break
+        tops.set_launch_counts(saved)
+    return out, len(kernels)
 
 
 @pytest.mark.cuda
@@ -608,6 +636,77 @@ def _prefill_graphs(eng, chunk=256):
     """The graph keys of the slot prefill chunks that ran at full width."""
     return {("fused_prefill", k, t) for k, t in eng.prefill_keys
             if t == chunk}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["paged-zero-copy", "contiguous"])
+def test_cuda_data_parallel_serving_equals_unsharded(cuda, models, layout):
+    """Two data shards on ``cuda:0`` (a (2, 1) mesh), llama3.1-8b at full
+    width and 2 layers in fp32, with graphs: every request's tokens equal
+    the unsharded engine's; each shard's launches are what its own steps
+    and chunks imply, and each shard captured one graph per variant it
+    ran; the weights are one copy."""
+    import numpy as np
+    from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
+    from repro_torch.core.data_parallel import DataParallelEngine
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ContinuousScheduler, Request
+    models.clear()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama3.1-8b").replace(num_layers=2, dtype="float32",
+                                            param_dtype="float32")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper",
+                        reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=0, device=cuda)
+    dparams = init_draft_params(cfg, dcfg, seed=1, device=cuda)
+    kw = (dict(paged=True, zero_copy=True) if layout == "paged-zero-copy"
+          else {})
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n, _ in SERVE_CASE]
+    toks, engines = {}, {}
+    for mesh in (None, make_mesh((2, 1), devices=["cuda:0"] * 2)):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=4,
+                           max_len=SERVE_MAX_LEN, mesh=mesh, device="cuda",
+                           **kw)
+        sched = ContinuousScheduler(eng, prefill_chunk=256)
+        for i, ((_, new), p) in enumerate(zip(SERVE_CASE, prompts)):
+            sched.submit(Request(request_id=f"r{i}", prompt=p,
+                                 max_new_tokens=new))
+        tops.reset_launch_counts()
+        if mesh is not None:
+            eng.shard_launches = [{} for _ in eng.shards]
+        sched.run()
+        torch.cuda.synchronize()
+        toks[mesh is None] = {k: o.tokens for k, o in sched.outputs.items()}
+        engines[mesh is None] = (eng, dict(tops.LAUNCHES))
+    for rid, t in toks[True].items():
+        assert np.array_equal(toks[False][rid], t), rid
+    eng, launches = engines[False]
+    assert isinstance(eng, DataParallelEngine) and eng.data_shards == 2
+    total = {}
+    for s, sub in enumerate(eng.shards):
+        assert sub.params["embed"] is params["embed"]
+        want = {"sparse_verify_attention": 0, "paged_prefill_attention": 0,
+                "retrieval_score": 0, "block_summary": 0}
+        for key, n in sub.dispatch_keys.items():
+            has_full, has_partial, has_refresh = key[:3]
+            want["sparse_verify_attention"] += 2 * n * (has_full
+                                                        + has_partial)
+            want["retrieval_score"] += 2 * n * has_refresh
+            want["block_summary"] += n * has_full
+        want["paged_prefill_attention"] = 2 * sub.prefill_dispatches
+        want["block_summary"] += sub.prefill_dispatches
+        assert {k: eng.shard_launches[s].get(k, 0) for k in want} == want
+        assert set(sub._graphs) == set(sub.dispatch_keys) | \
+            _prefill_graphs(sub)
+        for k, n in want.items():
+            total[k] = total.get(k, 0) + n
+    assert {k: launches[k] for k in total} == total
+    assert total["retrieval_score"] > 0
 
 
 def _row_snapshot(eng, row):
@@ -1826,8 +1925,6 @@ def _graph_step_launches(models, name, seed):
     from collections import Counter
 
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import (MODE_IDS, SpecPVEngine,
                                          request_token_need)
     cfg, spec, dcfg, params, dparams = _get_model(models, name)
@@ -1857,15 +1954,19 @@ def _graph_step_launches(models, name, seed):
                 torch.cuda.set_sync_debug_mode(0)
         st, _ = eng.step(st, "partial")
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            st, so = eng.step(st, "partial")
-            torch.cuda.synchronize()
-        assert so.mode == "partial"
-        kernels = Counter(e.name for e in prof.events()
-                          if getattr(e, "device_type", None)
-                          == DeviceType.CUDA
-                          and not e.name.startswith(("Memcpy", "Memset")))
+        # a session may lose kernel records (``_kernel_launches``), and a
+        # replay's cannot be checked against its one host launch call:
+        # each side's kernels are those of two consecutive profiled
+        # Partial steps that agree
+        prev = None
+        for _ in range(4):
+            (st, so), names, _ = _session(
+                lambda st=st: eng.step(st, "partial"))
+            assert so.mode == "partial"
+            kernels = Counter(names)
+            if kernels == prev:
+                break
+            prev = kernels
         runs.append((toks, stats, counts, kernels))
     (et, es, ec, ed), (gt, gs, gc, gd) = runs
     assert np.array_equal(gt, et) and gs["modes"] == es["modes"]

@@ -25,6 +25,7 @@ from repro_torch import configs as tcfgs
 from repro_torch.convert import draft_params_from_numpy, params_from_numpy
 from repro_torch.core.engine import SpecPVEngine as TEngine
 from repro_torch.core.reference import autoregressive_generate as t_ar
+from repro_torch.distributed.sharding import DeviceMesh
 from repro_torch.kernels import ops as tops
 
 PROMPT, NEW, MAX_LEN, CHUNK = 160, 24, 512, 64
@@ -139,8 +140,9 @@ def test_unsupported_settings_raise(setup):
     s = setup
     kw = dict(batch=2, max_len=MAX_LEN, device="cpu")
     args = (s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"])
-    for bad in (dict(mesh=object()),):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for bad in (dict(mesh=DeviceMesh((1, 2), devices=["cpu"] * 2)),):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.*Multi-GPU, part 3"):
             TEngine(*args, **bad, **kw)
     # sampling, chain drafts and tiers are ported since
     for good in (dict(temperature=0.7),

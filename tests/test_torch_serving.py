@@ -23,10 +23,9 @@ scheduler in ``tests/test_torch_prefix.py``).
 * ``ServingEngine.run`` on reduced ``rwkv6-3b`` takes the wave path and
   equals the port's ``generate``.
 * The allocator's counters follow the reference's ``PageAllocator``.
-* Each unsupported setting raises NotImplementedError naming its
-  ROADMAP item; ``ServingConfig(prefix_cache=True)`` and
-  ``ServingConfig(tiered_kv=True)`` build and serve, and so do sampled
-  and chain requests, ported since.
+* ``ServingConfig(prefix_cache=True)``, ``ServingConfig(tiered_kv=True)``
+  and ``ServingConfig(mesh_shape=(2, 1))`` (unsharded on one device)
+  build and serve, and so do sampled and chain requests, ported since.
 """
 import dataclasses
 
@@ -503,7 +502,7 @@ def _request_serves(s, **kw):
     (_serves, dict(paged_kv=True, zero_copy_partial=False), None),
     (_serves, dict(paged_kv=True, prefix_cache=True), None),
     (_serves, dict(paged_kv=True, tiered_kv=True), None),
-    (_bad_config, dict(mesh_shape=(1, 1)), "Multi-GPU, part 2"),
+    (_serves, dict(paged_kv=True, mesh_shape=(2, 1)), None),
     (_request_serves, dict(temperature=0.7, seed=3), None),
     (_request_serves, dict(draft="chain"), None),
 ], ids=["paged_kv", "zero_copy", "prefix_cache", "tiered", "mesh",
@@ -520,6 +519,10 @@ def test_unsupported_settings_raise(setup, make, kw, item):
         assert eng.tiered == kw.get("tiered_kv", False)
         if kw.get("prefix_cache"):
             assert srv.prefix_stats()["inserted"] > 0
+        if "mesh_shape" in kw:
+            # one CPU device cannot fill a 2-shard mesh: unsharded, as the
+            # reference serves it
+            assert eng.data_shards == 1 and eng.mesh is None
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*'{item}'"):
         make(setup, **kw)
