@@ -61,8 +61,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    run with graphs equals the same run done eagerly;
 5. the state-architecture path: greedy chain-speculation ``generate`` of
    rwkv6-3b at full width (32 layers, d 2560, bf16, random weights,
-   batch 1, an 8192-token prompt, 128 new tokens), eagerly and with
-   graphs (equal tokens and counts), with the launch counts set to 0
+   batch 1, an 8192-token prompt, 128 new tokens), eagerly over the
+   first 32 tokens (slice 21 cut it from 128) and with graphs (the graph
+   run's first tokens equal the eager run's), with the launch counts set to 0
    just before and read just after each (the WKV kernel must run 32 x
    (prefill chunks + 2 x steps) times), a profiled window of its steps
    (6 with graphs, 3 eager) and, with graphs, a profiled prefill, the
@@ -242,7 +243,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    depth (24 layers, 32 experts top-8, H 16 / Hk 8 / Dh 64, bf16, random
    weights from seed 0, the draft from seed 1).  (a) Phase 3's
    ``generate`` on the paged zero-copy pool (8192-token prompt, 128 new
-   tokens), eagerly and with graphs: equal tokens and launch counts,
+   tokens) with graphs and eagerly over the first 32 tokens (slice 21 cut
+   it from 128): the eager tokens equal the graph run's first ones,
    K1-K4 launched as the steps and chunks imply, final summaries equal
    to the plain version, the graph run profiled (wall and device busy ms
    per step, idle share, host launch calls), the bodies under the sync
@@ -409,7 +411,26 @@ Phases, in order (any failure raises and the script exits non-zero):
    engine's tokens; each shard's high water within its range; a fork
    within a shard shares its pages and one across shards raises.  (c)
    ``ServingConfig(mesh_shape=(2, 1))`` on a card count that cannot
-   fill it serves unsharded, as the reference.
+   fill it serves unsharded, as the reference;
+21. tensor parallelism (slice 21): ``SpecPVEngine(mesh=...)`` over a
+   (1, 2) mesh whose two model shards are both ``cuda:0``: each shard
+   holds whole query and KV heads (16 / 4 of llama's 32 / 8), half the
+   MLP and half the vocabulary, its weights views of the given ones, and
+   its K/V pools and summaries at Hk 4, stacked on the layer axis.  (c)
+   K1 Full and routed, K2, K3 and K4 (over both shards' 64 stacked
+   layers) at H 16 / Hk 4 / Dh 128 against their plain versions (K4 bit
+   for bit), timed beside their bounds.  (a) llama3.1-8b at full width,
+   all 32 layers, bf16: phase 3's paged zero-copy ``generate`` over its
+   8192-token prompt with graphs, its launches (set to 0 just before,
+   read just after) held to twice phase 3's per layer for K1-K3 and to
+   one K4 launch per chunk and commit, every K1-K4 call at H 16 / Hk 4,
+   the graph set and final summaries as phase 3's, a profiled window of
+   3 steps, a forced Refresh and a forced Full step, the collectives'
+   device ms on eager steps, peak memory, and the bf16 tokens and step
+   time beside phase 3's (reported).  (b) fp32 (TF32 off), full width,
+   2 layers: ``generate`` on (1, 2) equals the unsharded engine's tokens,
+   and a (2, 2) mesh of four ``cuda:0`` shards serves phase 20's fp32
+   trace with the unsharded engine's tokens.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -438,6 +459,7 @@ TOL_KERNEL = 1e-4
 PROMPT_LEN = 8192               # phase 3: the paper's long-context regime
 NEW_TOKENS = 128
 PHASE3_EAGER_NEW = 32           # phase 3's eager run: a Refresh, then Partial
+RWKV_EAGER_NEW = 32             # phase 5's eager run (slice 21 cut it)
 PROFILE_STEPS = 3               # the graph runs' profiled decode window
 REFRESH_PROFILE_STEPS = 1       # forced Refresh steps profiled after it
 # spin before each timed call (~2 ms at the H100's clock): the host
@@ -1755,7 +1777,7 @@ def _named_ms(prof, kernel):
 def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
                   kernel: str = "", refresh: bool = False,
                   prefill_kernel: str = "", label: str = "",
-                  prefill: bool = True, extra=None):
+                  prefill: bool = True, extra=None, after=None):
     """Where the time goes.  The fresh prefill runs under
     ``torch.profiler`` (its device busy time and span, the device time
     of the kernels named ``prefill_kernel`` or else ``kernel``, and its
@@ -1771,7 +1793,8 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
     ``REFRESH_PROFILE_STEPS`` forced Refresh steps follow under the
     profiler: their device busy time and the share of it in ``kernel``.  With ``prefill=False`` the
     prefill runs unprofiled.  ``extra``: a VLM or audio target's
-    conditioning.  Returns the numbers."""
+    conditioning.  ``after(st)`` runs last on the state the window left;
+    its result is ``out["after"]``.  Returns the numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1859,6 +1882,9 @@ def profile_steps(torch, card, eng, prompt, warm: int = 2, steps: int = 6,
                   f"busy_ms/step {busy_ms / n:.2f} span_ms/step "
                   f"{span_ms / n:.2f}; {kernel} {k_ms / n:.4f} ms/step = "
                   f"{k_ms / busy_ms:.4f} of device busy time")
+        out.update(refresh_busy_ms=busy_ms / n)
+    if after is not None:
+        out["after"] = after(st)
     return out
 
 
@@ -1969,6 +1995,9 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
     runs = {}
     for graphs in (False, True):
         label = RUN_LABEL[graphs]
+        # the eager run is host-bound: its first RWKV_EAGER_NEW tokens
+        # are held to the graph run's
+        n_new = new_tokens if graphs else min(new_tokens, RWKV_EAGER_NEW)
         eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
                            max_len=max_len, paged=False, device="cuda",
                            cuda_graphs=graphs)
@@ -1976,7 +2005,7 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        toks, stats = eng.generate(prompt, new_tokens, prefill_chunk=chunk)
+        toks, stats = eng.generate(prompt, n_new, prefill_chunk=chunk)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
@@ -1989,10 +2018,10 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
         say(card, f"generate rwkv6-3b [{label}] ({cfg.num_layers} layers, d "
                   f"{cfg.d_model}, {cfg.dtype}, random weights, chain depth "
                   f"{dcfg.tree_depth}) prompt {prompt_len} new "
-                  f"{new_tokens}: modes {stats['modes']} steps "
+                  f"{n_new}: modes {stats['modes']} steps "
                   f"{stats['steps']} mean_accept {stats['mean_accept']:.4f} "
                   f"wall_s {wall:.3f} (prefill_s {stats['prefill_s']:.3f}) "
-                  f"tokens_per_s {new_tokens / wall:.2f} peak_mem_gib "
+                  f"tokens_per_s {n_new / wall:.2f} peak_mem_gib "
                   f"{peak:.2f} capture_s {eng.capture_s:.3f} graphs "
                   f"{sorted(map(str, eng._graphs))} wkv_launches "
                   f"{launches['wkv']} (expected {cfg.num_layers} x ({chunks} "
@@ -2017,7 +2046,7 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
             raise AssertionError(f"graphs captured: "
                                  f"{sorted(map(str, eng._graphs))}")
         launches["wkv_shapes"] = by_shape
-        if toks.shape != (1, new_tokens) or toks.min() < 0 \
+        if toks.shape != (1, n_new) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"tokens out of range: {toks}")
         # the eager window is host-bound and even: 3 steps and no
@@ -2028,7 +2057,7 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
         if not graphs:
             check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
         runs[label] = dict(toks=toks, launches=launches, wall_s=wall,
-                           tokens_per_s=new_tokens / wall,
+                           tokens_per_s=n_new / wall,
                            prefill_s=stats["prefill_s"], peak_gib=peak,
                            capture_s=eng.capture_s, **prof)
         del eng
@@ -5429,7 +5458,7 @@ def phase_moe(torch, card):
     # eager engine gives the drops and the split of the step
     runs = generate_runs(
         torch, card, cfg, spec, dcfg, params, dparams, prompt, NEW_TOKENS,
-        PAGED_ZERO_COPY, MOE_ARCH,
+        PAGED_ZERO_COPY, MOE_ARCH, eager_new=PHASE3_EAGER_NEW,
         eager_hook=lambda eng, st: _moe_eager_extras(torch, card, eng, st),
         profile_eager=False, profile_prefill=False)
     t_a = time.perf_counter() - t_phase
@@ -7943,11 +7972,420 @@ def phase_data_parallel(torch, card, p6=None):
                 seconds=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: tensor parallelism (the engine's mesh= over two model shards)
+# ---------------------------------------------------------------------------
+
+TP_SHARDS = 2
+TP_HEADS = dict(h=16, hk=4, dh=128)     # llama3.1-8b's heads per model shard
+# (b): fp32 at full width, cut to the depth that keeps it under 20 s
+TP_FP32_LAYERS = 2
+TP_FP32_PROMPT, TP_FP32_NEW = 4800, 32
+
+
+def _tp_kernel_checks(torch, card, timer):
+    """Phase 21 (c): K1-K4 at one model shard's heads of llama3.1-8b on
+    two shards (H=16, Hk=4: rep 4 at Dh 128, a call form no earlier phase
+    launches), block 128, bf16, over 8192 tokens: K1 Full T=61 and routed
+    Partial NS=35 T=61, K2 a prefill chunk T=256 at qoff 7936, K3 a
+    Refresh T=156 over 66 blocks, K4's paged form over the shard-stacked
+    pool of both shards' 32 layers (one launch).  Each is held to its
+    plain version (K4 bit for bit), timed beside its bound and SDPA (K4:
+    ``torch.aminmax``).  Returns {kernel: {label: row}}."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2100)
+    out = {k: {} for k in LLAMA_KERNELS}
+    g = "H=16 Hk=4 Dh=128 (llama3.1-8b, one of 2 model shards)"
+    for label, name, kw in (
+            (f"K1 full T=61 ctx=8229 {g}", "sparse_verify_attention",
+             dict(t=61, ctx=8229)),
+            (f"K1 routed NS=35 T=61 {g}", "sparse_verify_attention",
+             dict(t=61, ctx=8229, routed_ns=35)),
+            (f"K2 prefill T=256 qoff=7936 {g}", "paged_prefill_attention",
+             dict(t=256, ctx=8192, causal_qoff=7936))):
+        res = {}
+        _attn_check(torch, card, timer, gen, res, label, name, **kw,
+                    **TP_HEADS)
+        out[name][label] = res[name]
+    label = f"K3 Refresh T=156 NB=66 {g} bf16"
+    out["retrieval_score"][label] = _score_row(
+        torch, card, timer, gen, label, 156, 66, torch.bfloat16, 16, 4, 128)
+    k4, start, end, n_touch = K4_PAGED_SHAPES[0]
+    row = _paged_summary_case(torch, card, timer, gen, torch.bfloat16, k4,
+                              start, end, n_touch, layers=64, hk=4, dh=128)
+    out["block_summary"][f"K4 paged {k4} L=64 (2 shards x 32 layers) {g} "
+                         f"bf16"] = dict(max_abs_err=0.0, timing="profiler",
+                                         **row)
+    torch.cuda.empty_cache()
+    return out
+
+
+class _LaunchShapes:
+    """Record (kernel, H, Hk, Dh) of every K1-K4 wrapper call while
+    installed (a graph's warm-up and capture run its body's Python, so
+    the graph run's call forms are seen too)."""
+
+    def __init__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.seen = set()
+        self.saved = {}
+        for fn in ("block_attention", "retrieval_scores",
+                   "paged_block_summaries"):
+            orig = getattr(ops, fn)
+            self.saved[fn] = orig
+
+            def wrapped(*a, __orig=orig, __fn=fn, **kw):
+                self.seen.add(self._form(__fn, a, kw))
+                return __orig(*a, **kw)
+            setattr(ops, fn, wrapped)
+
+    @staticmethod
+    def _form(fn, a, kw):
+        if fn == "block_attention":
+            q, k = a[0], a[1]
+            name = ("paged_prefill_attention" if kw.get("q_offset")
+                    is not None or (len(a) > 6 and a[6] is not None)
+                    else "sparse_verify_attention")
+            return (name, q.shape[2], k.shape[1], q.shape[3])
+        if fn == "retrieval_scores":
+            q, kx = a[0], a[1]
+            return ("retrieval_score", q.shape[2], kx.shape[2], q.shape[3])
+        pool = a[0]
+        return ("block_summary", None, pool.shape[3], pool.shape[4])
+
+    def remove(self):
+        for fn, orig in self.saved.items():
+            setattr(self.ops, fn, orig)
+
+
+def _tp_collectives(torch, card, eng, st, steps: int = 1):
+    """Eager steps of the graph engine (its graphs switched off for them)
+    with ``tensor_parallel.all_reduce`` / ``all_gather`` under
+    ``record_function``: the collectives' calls and device ms per step
+    (on one card a sum is an add and a gather a concatenation), beside
+    the step's busy time.  Returns (numbers, state)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.distributed import tensor_parallel as tpm
+    saved = []
+    for fn in ("all_reduce", "all_gather"):
+        orig = getattr(tpm, fn)
+
+        def wrapped(*a, __orig=orig, __fn=fn, **kw):
+            with record_function(f"tp {__fn}"):
+                return __orig(*a, **kw)
+        saved.append((fn, orig))
+        setattr(tpm, fn, wrapped)
+    eng.cuda_graphs = False
+    try:
+        modes = []
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                st, so = eng.step(st, eng.next_mode())
+                modes.append(so.mode)
+            torch.cuda.synchronize()
+    finally:
+        eng.cuda_graphs = True
+        for fn, orig in saved:
+            setattr(tpm, fn, orig)
+    labels = {"tp all_reduce", "tp all_gather"}
+    busy, _ = _device_busy(prof, skip=labels)
+    cpu = [e for e in prof.events()
+           if getattr(e, "device_type", None) == DeviceType.CPU]
+    out = {"modes": modes, "busy_ms_step": busy / steps}
+    for lb in sorted(labels):
+        evs = [e for e in cpu if e.name == lb]
+        ks = [k for e in evs for k in _range_kernels(e)]
+        out[f"{lb} calls/step"] = len(evs) / steps
+        out[f"{lb} ms/step"] = sum(d for _, d in ks) / 1e3 / steps
+    out["collectives ms/step"] = (out["tp all_gather ms/step"]
+                                  + out["tp all_reduce ms/step"])
+    say(card, f"tensor-parallel collectives, eager steps {modes} (graphs "
+              f"off for them): "
+              + ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                          f"{k} {v}" for k, v in out.items() if k != "modes"))
+    return out, st
+
+
+def _tp_forced_full(torch, card, eng, st):
+    """Two forced Full steps (with graphs), so that the run holds Full,
+    Refresh and Partial steps: the first captures the Full variant's
+    graph, the second runs under the profiler.  Returns (busy ms,
+    state)."""
+    from torch.profiler import ProfilerActivity, profile
+    st, _ = eng.step(st, "full")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st, so = eng.step(st, "full")
+        torch.cuda.synchronize()
+    if so.mode != "full":
+        raise AssertionError(f"a forced Full step ran {so.mode}")
+    busy, _ = _device_busy(prof)
+    say(card, f"tensor-parallel forced Full step [graphs, its graph "
+              f"captured by the step before]: device busy_ms {busy:.2f}")
+    return busy, st
+
+
+def _tp_generate(torch, card, p3):
+    """(a) llama3.1-8b at full width, all 32 layers, bf16, on a (1, 2) mesh
+    of two ``cuda:0`` model shards: paged zero-copy ``generate`` over phase
+    3's 8192-token prompt with graphs.  Launches held to twice phase 3's
+    per layer (each at Hk 4), graphs and final summaries as phase 3's, a
+    profiled window, a forced Full step and the collectives' device time;
+    bf16 tokens against phase 3's reported."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import tree_leaves
+    cfg, spec, dcfg, params, dparams, prompt = _full_width(
+        torch, card, "llama3.1-8b")
+    prompt_len = prompt.shape[1]
+    max_len = request_token_need(prompt_len, NEW_TOKENS, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    mesh = make_mesh((1, TP_SHARDS), devices=["cuda:0"] * TP_SHARDS)
+    t0 = time.perf_counter()
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=max_len, device="cuda", mesh=mesh, paged=True,
+                       zero_copy=True)
+    tp = eng.tp
+    if not (tp and tp.m == 2 and tp.attn_split and tp.mlp_split
+            and tp.embed_split and tp.head_split and eng.kv_shards == 2):
+        raise AssertionError("a (1, 2) mesh must split llama3.1-8b's "
+                             "attention, MLP, embed and head")
+    # every shard piece is a view of the given weights: no copy
+    given = {t.untyped_storage().data_ptr()
+             for t in tree_leaves(params) + tree_leaves(dparams)}
+    pieces = [t for split in (tp, tp.draft) for sh in split.shards
+              for t in tree_leaves(sh.params)]
+    if any(t.untyped_storage().data_ptr() not in given for t in pieces):
+        raise AssertionError("a model shard holds a copy of a weight")
+    strided = sum(not t.is_contiguous() for t in pieces)
+    shapes = _LaunchShapes()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    try:
+        toks, stats = eng.generate(prompt, NEW_TOKENS)
+    finally:
+        shapes.remove()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    label = "llama3.1-8b tp (1, 2) graphs"
+    memory_line(torch, card, label, eng, params, dparams, peak)
+    decode_s = wall - stats["prefill_s"]
+    say(card, f"generate [{label}] (32 layers, bf16, random weights, two "
+              f"model shards on cuda:0, weight pieces are views: {strided} "
+              f"of {len(pieces)} strided) prompt {prompt_len} new "
+              f"{NEW_TOKENS}: modes {stats['modes']} steps {stats['steps']} "
+              f"mean_accept {stats['mean_accept']:.4f} wall_s {wall:.3f} "
+              f"(prefill_s {stats['prefill_s']:.3f} decode_s "
+              f"{decode_s:.3f}, ms/step "
+              f"{decode_s * 1e3 / max(stats['steps'], 1):.2f}) tokens_per_s "
+              f"{NEW_TOKENS / wall:.2f} peak_mem_gib {peak:.2f} capture_s "
+              f"{eng.capture_s:.3f} graphs {sorted(map(str, eng._graphs))} "
+              f"launches {launches}")
+    if not (stats["modes"].get("refresh") and stats["modes"].get("partial")):
+        raise AssertionError(f"Refresh and Partial steps must both run: "
+                             f"{stats['modes']}")
+    layers, chunks = cfg.num_layers, -(-prompt_len // 256)
+    refresh = stats["modes"].get("refresh", 0)
+    commits = refresh + stats["modes"].get("full", 0)
+    # K1-K3 once per layer and shard; K4 once per chunk and commit over
+    # the shard-stacked pool (both shards' layers in one launch)
+    want = {"sparse_verify_attention": 2 * layers * stats["steps"],
+            "paged_prefill_attention": 2 * layers * chunks,
+            "retrieval_score": 2 * layers * refresh,
+            "block_summary": chunks + commits}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"tp launches {got} != {want} implied by "
+                             f"{stats['steps']} steps and {chunks} chunks")
+    forms = sorted(shapes.seen, key=str)
+    bad = [f for f in forms if f[2] != 4 or (f[1] not in (None, 16))]
+    if bad or {f[0] for f in forms} != set(LLAMA_KERNELS):
+        raise AssertionError(f"tp call forms {forms}: every K1-K4 launch "
+                             f"must be at H 16 / Hk 4")
+    per_shard = {k: (v // 2 if k != "block_summary" else v)
+                 for k, v in got.items()}
+    say(card, f"launches [{label}] {got} = implied by {stats['steps']} "
+              f"steps and {chunks} prefill chunks: per shard K1-K3 "
+              f"{ {k: v for k, v in per_shard.items() if k != 'block_summary'} } "
+              f"(2 x phase 3's per layer), K4 {got['block_summary']} "
+              f"({chunks} chunks + {commits} commits, each one launch over "
+              f"both shards' 64 stacked layers); call forms (kernel, H, Hk, "
+              f"Dh) {forms}")
+    want_graphs = {("prefill", 256), (True, False, True, False, False),
+                   (False, True, False, False, False)}
+    if set(eng._graphs) != want_graphs:
+        raise AssertionError(f"tp graphs {sorted(map(str, eng._graphs))}")
+    _check_final_summaries(torch, card, eng.final_state.cache)
+    if toks.shape != (1, NEW_TOKENS) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"tokens out of range: {toks}")
+    eng.final_state = None
+
+    def after(st):
+        full_ms, st = _tp_forced_full(torch, card, eng, st)
+        coll, st = _tp_collectives(torch, card, eng, st)
+        return dict(full_busy_ms=full_ms, **coll)
+    prof = profile_steps(torch, card, eng, prompt, label=label,
+                         steps=PROFILE_STEPS,
+                         kernel="retrieval_score_kernel", refresh=True,
+                         prefill=False, after=after)
+    res = dict(toks=toks, launches=launches, per_shard=per_shard,
+               wall_s=wall, tokens_per_s=NEW_TOKENS / wall,
+               prefill_s=stats["prefill_s"], peak_gib=peak,
+               capture_s=eng.capture_s, steps=stats["steps"],
+               modes=stats["modes"], strided_pieces=strided,
+               forms=[list(f) for f in forms], **prof)
+    if p3 is not None:
+        eq = int((toks == p3["toks"]).sum())
+        res["phase3_equal_tokens"] = f"{eq}/{toks.size}"
+        say(card, f"tensor-parallel bf16 vs phase 3: {eq} of {toks.size} "
+                  f"tokens equal (not asserted: the split changes the bf16 "
+                  f"sums' order); device busy ms/step {prof['busy_ms_step']:.2f} "
+                  f"vs phase 3's {p3['busy_ms_step']:.2f} "
+                  f"({prof['busy_ms_step'] / p3['busy_ms_step']:.3f}x); "
+                  f"host launch calls/step {prof['host_launch_calls_step']:.1f} "
+                  f"vs {p3['host_launch_calls_step']:.1f}; peak GiB "
+                  f"{peak:.2f} vs {p3['peak_gib']:.2f}; tokens/s "
+                  f"{NEW_TOKENS / wall:.2f} vs {p3['tokens_per_s']:.2f}")
+    else:
+        say(card, "tensor-parallel bf16: phase 3 did not run, no unsharded "
+                  "numbers beside it")
+    say(card, f"phase 21 (a) took {time.perf_counter() - t0:.1f} s")
+    del eng, params, dparams
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_fp32(torch, card):
+    """(b) fp32 (TF32 off) at full width, ``TP_FP32_LAYERS`` layers:
+    ``generate`` on a (1, 2) mesh equals the unsharded engine's tokens
+    (its ``pkv_blocks`` agreement reported), and a (2, 2) mesh of four
+    ``cuda:0`` shards (two data shards, each a two-shard tensor-parallel
+    engine) serves phase 20's fp32 trace with the unsharded engine's
+    tokens."""
+    import numpy as np
+    from repro_torch.configs import get_config, SpecPVConfig, DraftConfig
+    from repro_torch.core.data_parallel import DataParallelEngine
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.distributed.tensor_parallel import merge_heads
+    from repro_torch.models.api import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.1-8b").replace(num_layers=TP_FP32_LAYERS,
+                                            dtype="float32",
+                                            param_dtype="float32")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=2, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=3, device="cuda")
+    prompt = np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (1, TP_FP32_PROMPT)).astype(np.int64)
+    max_len = request_token_need(TP_FP32_PROMPT, TP_FP32_NEW,
+                                 spec.buffer_size, dcfg.tree_depth + 1)
+    gen = {}
+    for label, mesh in (("unsharded", None),
+                        ("(1, 2)", make_mesh((1, 2),
+                                             devices=["cuda:0"] * 2))):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=max_len, device="cuda", mesh=mesh,
+                           paged=True, zero_copy=True)
+        toks, stats = eng.generate(prompt, TP_FP32_NEW)
+        gen[label] = (toks, stats["modes"], eng.final_state.pkv_blocks,
+                      eng.kv_shards)
+        del eng
+    (ut, um, ub, _), (st_, sm, sb, kvs) = gen["unsharded"], gen["(1, 2)"]
+    if not np.array_equal(st_, ut) or sm != um:
+        raise AssertionError(f"fp32 (1, 2) generate differs from the "
+                             f"unsharded engine: {st_} {sm}\n{ut} {um}")
+    if not (um.get("refresh") and um.get("partial")):
+        raise AssertionError(f"(b) must run Refresh and Partial: {um}")
+    same_blocks = float((merge_heads(sb, kvs, 1, 2) == ub).float().mean())
+    say(card, f"tensor-parallel lossless llama3.1-8b x{TP_FP32_LAYERS} "
+              f"layers fp32, graphs, paged zero-copy, prompt "
+              f"{TP_FP32_PROMPT} new {TP_FP32_NEW}: (1, 2) tokens == "
+              f"unsharded engine's (modes {um}); final pkv_blocks (the "
+              f"shards' heads side by side) equal to the unsharded "
+              f"engine's: share {same_blocks:.4f} (reported)")
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in DP_FP32_REQS]
+    toks = {}
+    for label, mesh in (("unsharded", None),
+                        ("(2, 2)", make_mesh((2, 2),
+                                             devices=["cuda:0"] * 4))):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=4,
+                           max_len=DP_FP32_MAX_LEN, paged=True,
+                           zero_copy=True, mesh=mesh, device="cuda")
+        sched, outs, _, _, _ = _dp_serve(
+            torch, eng, _serving_requests(prompts, DP_FP32_REQS))
+        toks[label] = {k: o.tokens for k, o in outs.items()}
+        modes = {k: int(v) for k, v in sched.stats.items()
+                 if k.startswith("mode_rows_")}
+        if mesh is not None and not (
+                isinstance(eng, DataParallelEngine)
+                and all(sub.tp is not None and sub.tp.m == 2
+                        for sub in eng.shards)):
+            raise AssertionError("a (2, 2) mesh must build two data shards "
+                                 "of two model shards each")
+        del eng, sched
+    for k, t in toks["unsharded"].items():
+        if not np.array_equal(toks["(2, 2)"][k], t):
+            raise AssertionError(f"fp32 {k}: (2, 2) tokens differ from the "
+                                 f"unsharded engine's:\n"
+                                 f"{toks['(2, 2)'][k]}\n{t}")
+    if not (modes.get("mode_rows_refresh") and modes.get("mode_rows_partial")):
+        raise AssertionError(f"(b) serving must run Refresh and Partial "
+                             f"rows: {modes}")
+    secs = time.perf_counter() - t0
+    say(card, f"tensor-parallel lossless serving, mesh (2, 2) on cuda:0 four "
+              f"times, batch 4, prompts {[n for n, _ in DP_FP32_REQS]}: "
+              f"tokens == unsharded engine's for every request (mode rows "
+              f"{modes}); (b) took {secs:.1f} s")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return dict(seconds=secs, modes=modes, pkv_blocks_equal=same_blocks)
+
+
+def phase_tensor_parallel(torch, card, timer, p3=None):
+    """Phase 21: the engine's ``mesh=`` as tensor parallelism.  Returns
+    (a)'s launches and numbers, (b)'s and (c)'s call forms."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    shapes = _tp_kernel_checks(torch, card, timer)
+    t_c = time.perf_counter() - t_phase
+    a = _tp_generate(torch, card, p3)
+    t_a = time.perf_counter() - t_phase - t_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = _tp_fp32(torch, card)
+    total = time.perf_counter() - t_phase
+    say(card, f"phase 21 (c) {t_c:.1f} s, (a) {t_a:.1f} s, (b) "
+              f"{b['seconds']:.1f} s; phase 21 took {total:.1f} s")
+    a.pop("toks")
+    return dict(launches=a.pop("launches"), shapes=shapes, bf16=a, fp32=b,
+                seconds=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17,18,19,"
-                            "20",
+                            "20,21",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -7964,7 +8402,9 @@ def main(argv=None) -> int:
                          "Partial verification over 2 ranks), 19 (the "
                          "launch steps, the hillclimb cases and the int8 "
                          "resident decode cache), 20 (data-parallel "
-                         "serving over a (2, 1) mesh); 1 and 12 always run")
+                         "serving over a (2, 1) mesh), 21 (tensor "
+                         "parallelism over a (1, 2) mesh); 1 and 12 always "
+                         "run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -8047,6 +8487,8 @@ def main(argv=None) -> int:
     p20 = (run(20, phase_data_parallel, torch, card,
                serving if 6 in phases else None)
            if 20 in phases else {"launches": {}, "shard_launches": []})
+    p21 = (run(21, phase_tensor_parallel, torch, card, timer, p3)
+           if 21 in phases else {"launches": {}, "shapes": {}})
     say(card, "phase seconds " + ", ".join(f"{n}: {t:.1f}"
                                            for n, t in sorted(secs.items())))
 
@@ -8095,6 +8537,8 @@ def main(argv=None) -> int:
                          data_parallel_shard_launches=[
                              int(sh.get(name, 0))
                              for sh in p20["shard_launches"]],
+                         tensor_parallel_launches=int(
+                             p21["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -8113,9 +8557,9 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
-        # phases 8, 9, 10, 14, 15, 17 and 18's call forms (launches
+        # phases 8, 9, 10, 14, 15, 17, 18 and 21's call forms (launches
         # counted per kernel above)
-        for p in (p8, p9, p2t, p2m, p2r, p2x, p18):
+        for p in (p8, p9, p2t, p2m, p2r, p2x, p18, p21):
             for label, vals in p["shapes"].get(name, {}).items():
                 rows[-1].setdefault("shapes", []).append(dict(shape=label,
                                                               **vals))
@@ -8140,6 +8584,9 @@ def main(argv=None) -> int:
         say(card, "data_parallel " + json.dumps(
             {k: v for k, v in p20.items() if k != "launches"},
             default=float))
+    if 21 in phases:
+        say(card, "tensor_parallel " + json.dumps(
+            {k: v for k, v in p21.items() if k != "shapes"}, default=float))
     if 19 in phases:
         say(card, "launch " + json.dumps(
             {k: v for k, v in p19.items() if k != "launches"},

@@ -36,9 +36,14 @@ blocks in the order the caller gave them, as the reference's one round
 does.  Nothing falls back: a shard's device that cannot be reached
 raises, and no path merges the shards into one state.
 
+A ``(D, m)`` mesh with ``m > 1`` serves data times tensor parallelism:
+each data shard's engine is built on its row of the mesh (a ``(1, m)``
+mesh of the row's model shards, ``distributed.tensor_parallel``) from a
+whole replica of the weights on the row's device, which it splits itself.
+
 Not carried yet (NotImplementedError naming ROADMAP.md queue 1,
-'Multi-GPU, part 3'): state architectures, cross-attention targets, the
-host tier, and a ``model`` axis above 1.
+'Multi-GPU, part 4'): state architectures, cross-attention targets and
+the host tier.
 """
 from __future__ import annotations
 
@@ -51,7 +56,8 @@ import torch
 from repro_torch.core.engine import (MODE_NAMES, EngineState, PrefillCursor,
                                      SpecPVEngine, StepOutput, _unsupported,
                                      mesh_shards)
-from repro_torch.distributed.sharding import ShardingRules, place_params
+from repro_torch.distributed.sharding import (DeviceMesh, ShardingRules,
+                                              place_params)
 from repro_torch.kernels import ops
 from repro_torch.kvcache import cache as kvc
 from repro_torch.models import dense as dn
@@ -258,7 +264,7 @@ class DataParallelEngine(SpecPVEngine):
                  tier_lossless: bool = False, tier_codec: str = "int8",
                  zero_copy: bool = False, mesh=None, device=None,
                  cuda_graphs: Optional[bool] = None):
-        item = "Multi-GPU, part 3"
+        item = "Multi-GPU, part 4"
         if not cfg.is_attention_arch:
             _unsupported("data-parallel serving of a state architecture",
                          item)
@@ -276,7 +282,12 @@ class DataParallelEngine(SpecPVEngine):
             raise ValueError(f"device {device} is not the mesh's devices "
                              f"{devs}")
         self.mesh = mesh
-        self._rules = ShardingRules(mesh)
+        # the replicas: whole weights (each data shard's engine splits its
+        # own over its model row)
+        self._rules = ShardingRules(DeviceMesh(
+            tuple(1 if a == "model" else n for a, n in mesh.shape.items()),
+            mesh.axis_names, [mesh.model_row(s)[0]
+                              for s in range(mesh.data_size)]))
         self.cfg, self.spec, self.dcfg = cfg, spec, dcfg
         self.params, self.dparams = params, draft_params
         self.batch = batch
@@ -311,6 +322,9 @@ class DataParallelEngine(SpecPVEngine):
             if self.paged:
                 npages = self._page_alloc.shard_capacity(s) + 1
                 ndpages = self._draft_alloc.shard_capacity(s) + 1
+            row = (DeviceMesh((1, self.model_shards),
+                              devices=mesh.model_row(s))
+                   if self.model_shards > 1 else None)
             with self._on_device(devs[s]):
                 sub = SpecPVEngine(
                     cfg, spec, dcfg, p_s, dp_s, batch=batch // d,
@@ -319,7 +333,7 @@ class DataParallelEngine(SpecPVEngine):
                     draft_chain=draft_chain, temperature=temperature,
                     paged=paged, num_pages=npages, num_draft_pages=ndpages,
                     prefix_cache=prefix_cache, zero_copy=zero_copy,
-                    device=devs[s], cuda_graphs=cuda_graphs)
+                    mesh=row, device=devs[s], cuda_graphs=cuda_graphs)
             if self.paged:
                 base = self.shard_slots(s).start
                 sub._page_alloc = ShardPages(self._page_alloc, s, base)

@@ -79,39 +79,91 @@ def init_paged_draft_cache(cfg: ModelConfig, batch: int, max_len: int,
             "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
 
 
+def _project(dp: Dict, name: str, x, dtp=None):
+    """``x @ dp[name]`` in x's dtype; under tensor parallelism (``dtp``,
+    the draft's ``distributed.tensor_parallel.TensorParallel``) with its
+    ``fuse`` / ``in_proj`` column-split, each shard's columns and a
+    gather (the residual width is replicated)."""
+    if dtp is not None and dtp.fuse_split:
+        return dtp.map_gather(lambda sh: x.to(sh.device)
+                             @ sh.params[name].to(x.dtype))
+    return x @ dp[name].to(x.dtype)
+
+
 def _draft_inputs(cfg: ModelConfig, dp: Dict, target_embed, tokens,
-                  fused_feats):
+                  fused_feats, dtp=None):
     """tokens [B, T]; fused_feats [B, T, 3d] -> layer inputs [B, T, d]."""
     dt = cm.dt(cfg.dtype)
     emb = target_embed[tokens.long()].to(dt)
-    fused = fused_feats.to(dt) @ dp["fuse"].to(dt)
-    return torch.cat([emb, fused], dim=-1) @ dp["in_proj"].to(dt)
+    fused = _project(dp, "fuse", fused_feats.to(dt), dtp)
+    return _project(dp, "in_proj", torch.cat([emb, fused], dim=-1), dtp)
+
+
+def _heads(a, sl):
+    """Heads ``sl`` (a slice, or None for all) of a [B, S, Hk, Dh]
+    context."""
+    return a if sl is None else a[:, :, sl]
+
+
+def _decoder_layer(cfg: ModelConfig, mcfg: ModelConfig, dp: Dict, x,
+                   positions, ctxs, self_mask, inv_freq, mscale, dtp=None):
+    """The draft's decoder layer over x [B, T, d]: attention over the
+    contexts ``ctxs`` (each (k, v [B, S, Hk, Dh], mask broadcastable to
+    [B, H, T, S])) and the new tokens themselves (``self_mask``
+    broadcastable the same way), then the MLP.  Under tensor parallelism
+    (``dtp``, the draft's split) each model shard attends with its heads
+    (its slice of every context) and its rows of ``wo``, then one sum;
+    the MLP likewise.  Returns (h, k_new, v_new [B, T, Hk, Dh], the shards' heads
+    concatenated)."""
+    lp = dp["layer"]
+    xn = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    if dtp is not None and dtp.attn_split:
+        hk = mcfg.num_kv_heads // dtp.m
+        units = [(sh.cfg, sh.params["layer"]["attn"],
+                  slice(sh.index * hk, (sh.index + 1) * hk))
+                 for sh in dtp.shards]
+    else:
+        units = [(mcfg, lp["attn"], None)]
+    outs, ks, vs = [], [], []
+    for ucfg, ap, sl in units:
+        q = bk.project_q(ucfg, ap, xn, positions, inv_freq, mscale)
+        k_new, v_new = bk.project_kv(ucfg, ap, xn, positions, inv_freq,
+                                     mscale)
+        parts = [cm.dense_attn_part(q, _heads(ck, sl), _heads(cv, sl),
+                                    mask=m) for ck, cv, m in ctxs]
+        parts.append(cm.dense_attn_part(q, k_new, v_new, mask=self_mask))
+        out = cm.combine_attn_parts(parts, x.dtype)
+        outs.append(bk.attn_output(ucfg, ap, out))
+        ks.append(k_new)
+        vs.append(v_new)
+    if len(units) == 1:
+        h = x + outs[0]
+        k_new, v_new = ks[0], vs[0]
+    else:
+        h = x + dtp.map_reduce(lambda sh: outs[sh.index])
+        k_new, v_new = torch.cat(ks, dim=2), torch.cat(vs, dim=2)
+    xn = cm.rmsnorm(h, lp["norm2"], cfg.norm_eps)
+    if dtp is not None and dtp.mlp_split:
+        return h + dtp.map_reduce(lambda sh: bk.mlp_fwd(
+            sh.cfg, sh.params["layer"]["mlp"], xn.to(sh.device))), \
+            k_new, v_new
+    return h + bk.mlp_fwd(mcfg, lp["mlp"], xn), k_new, v_new
 
 
 def _layer_fwd(cfg: ModelConfig, mcfg: ModelConfig, dp: Dict, x, positions,
-               ctx_k, ctx_v, ctx_valid, self_mask, inv_freq, mscale):
+               ctx_k, ctx_v, ctx_valid, self_mask, inv_freq, mscale,
+               dtp=None):
     """One decoder layer over x with explicit context + self mask."""
-    lp = dp["layer"]
-    h = x
-    xn = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
-    q = bk.project_q(mcfg, lp["attn"], xn, positions, inv_freq, mscale)
-    k_new, v_new = bk.project_kv(mcfg, lp["attn"], xn, positions, inv_freq,
-                                 mscale)
-    parts = [cm.dense_attn_part(q, ctx_k, ctx_v,
-                                mask=ctx_valid[:, None, None, :]),
-             cm.dense_attn_part(q, k_new, v_new, mask=self_mask[:, None])]
-    out = cm.combine_attn_parts(parts, h.dtype)
-    h = h + bk.attn_output(mcfg, lp["attn"], out)
-    xn = cm.rmsnorm(h, lp["norm2"], cfg.norm_eps)
-    h = h + bk.mlp_fwd(mcfg, lp["mlp"], xn)
-    return h, k_new, v_new
+    return _decoder_layer(cfg, mcfg, dp, x, positions,
+                          [(ctx_k, ctx_v, ctx_valid[:, None, None, :])],
+                          self_mask[:, None], inv_freq, mscale, dtp)
 
 
-def draft_head(cfg: ModelConfig, dp: Dict, target_params, h):
-    h = cm.rmsnorm(h, dp["final_norm"], cfg.norm_eps)
-    w = (target_params["embed"].T if cfg.tie_embeddings
-         else target_params["head"])
-    return (h @ w.to(h.dtype)).float()
+def draft_head(cfg: ModelConfig, dp: Dict, target_params, h, tp=None):
+    """The draft's norm, then the target's LM head (split by the
+    target's ``tp`` as the target's, ``models.dense.head_logits``)."""
+    return dn.head_logits(cfg, target_params,
+                          cm.rmsnorm(h, dp["final_norm"], cfg.norm_eps), tp)
 
 
 def _rope(cfg: ModelConfig, device):
@@ -121,17 +173,21 @@ def _rope(cfg: ModelConfig, device):
 
 def draft_extend(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict,
                  target_params, cache: Dict, tokens, fused_feats, valid,
-                 active=None):
+                 active=None, tp=None):
     """Append accepted tokens [B, E] (prefix mask ``valid`` [B, E]) to the
     draft cache, in place; a row outside ``active`` [B] bool (a dead
     serving slot) writes nothing and keeps its length.  Returns (cache,
-    h_last [B, d], logits_last [B, V]) at the last valid entry."""
+    h_last [B, d], logits_last [B, V]) at the last valid entry.  ``tp``:
+    the target's ``distributed.tensor_parallel.TensorParallel``, whose
+    ``draft`` splits ``dp`` (None runs both whole)."""
+    dtp = tp.draft if tp is not None else None
     dev = tokens.device
     mcfg, inv_freq, mscale = _rope(cfg, dev)
     b, e = tokens.shape
     if active is not None:
         valid = valid & active[:, None]
-    x = _draft_inputs(cfg, dp, target_params["embed"], tokens, fused_feats)
+    x = _draft_inputs(cfg, dp, target_params["embed"], tokens, fused_feats,
+                      dtp)
     vi = valid.to(torch.int32)
     nvalid = vi.sum(dim=1, dtype=torch.int32)
     positions = torch.clamp(cache["length"][:, None] + torch.cumsum(
@@ -143,22 +199,24 @@ def draft_extend(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict,
                                        device=dev))[None]
                  & valid[:, None, :] & valid[:, :, None])
     h, k_new, v_new = _layer_fwd(cfg, mcfg, dp, x, positions, ctx_k, ctx_v,
-                                 ctx_valid, self_mask, inv_freq, mscale)
+                                 ctx_valid, self_mask, inv_freq, mscale, dtp)
     cache = cm.layer_cache_append(cache, k_new, v_new, valid)
     cache["length"] = cache["length"] + nvalid
     last = torch.clamp(nvalid.long() - 1, min=0)
     h_last = h[torch.arange(b, device=dev), last]
-    logits_last = draft_head(cfg, dp, target_params, h_last[:, None])[:, 0]
+    logits_last = draft_head(cfg, dp, target_params, h_last[:, None],
+                             tp)[:, 0]
     return cache, h_last, logits_last
 
 
 def draft_phase(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
                 tree: TreeSpec, cache: Dict, ext_tokens, ext_feats, ext_len,
-                active=None, u=None, temps=None):
+                active=None, u=None, temps=None, tp=None):
     """The draft half of one step: extend the draft cache with the
     previous step's accepted tokens (rows outside ``active`` [B] bool
     write nothing), then draft a candidate tree from the last valid
-    entry (sampled rows with ``u`` / ``temps``, see ``tree_draft``).
+    entry (sampled rows with ``u`` / ``temps``, see ``tree_draft``;
+    ``tp``, see ``draft_extend``).
     Returns (cache, tree_tokens [B, T], aux): the tree's log-probs
     [B, T] (greedy) or its node logits [B, T+1, V] (sampled)."""
     emax = ext_tokens.shape[1]
@@ -166,10 +224,10 @@ def draft_phase(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
                  < ext_len[:, None])
     cache, h_root, logits_root = draft_extend(
         cfg, dcfg, dp, target_params, cache, ext_tokens, ext_feats,
-        ext_valid, active=active)
+        ext_valid, active=active, tp=tp)
     tree_tokens, aux = tree_draft(cfg, dcfg, dp, target_params, cache,
                                   tree, h_root, logits_root, u=u,
-                                  temps=temps)
+                                  temps=temps, tp=tp)
     return cache, tree_tokens, aux
 
 
@@ -184,7 +242,7 @@ def _top_b(logits, bfac: int):
 
 def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
                cache: Dict, tree: TreeSpec, h_root, logits_root, u=None,
-               temps=None) -> Tuple[torch.Tensor, torch.Tensor]:
+               temps=None, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Draft the static tree (read-only w.r.t. the cache): greedily, the
     deterministic top-k per parent, or, given the draft uniforms ``u``
     [B, T] and the rows' temperatures ``temps`` [B], sampled: node n is
@@ -193,7 +251,9 @@ def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
     at temperature 0 keep the top-k tokens bit for bit, so greedy and
     sampled rows draft in one step.  Returns (tree_tokens [B, T],
     tree_logp [B, T]) greedy, or (tree_tokens, node_logits [B, T+1, V]:
-    the root's draft logits first, then each node's) sampled."""
+    the root's draft logits first, then each node's) sampled.  ``tp``:
+    see ``draft_extend``."""
+    dtp = tp.draft if tp is not None else None
     dev = h_root.device
     mcfg, inv_freq, mscale = _rope(cfg, dev)
     b = h_root.shape[0]
@@ -211,7 +271,6 @@ def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
     node_v = torch.zeros((b, t, hk, dh), dtype=dt, device=dev)
     parent_logits = {-1: logits_root}
     parent_h = {-1: h_root}
-    lp = dp["layer"]
     sampled = u is not None
     if sampled:
         sample_rows = temps > 0.0
@@ -249,30 +308,23 @@ def tree_draft(cfg: ModelConfig, dcfg: DraftConfig, dp: Dict, target_params,
         tree_logp[:, lo:hi] = torch.stack(new_logp, dim=1)
 
         emb = target_params["embed"][toks_l.long()].to(dt)
-        fused = torch.cat([feat_l, feat_l, feat_l], dim=-1) @ dp["fuse"].to(dt)
-        x = torch.cat([emb, fused], dim=-1) @ dp["in_proj"].to(dt)
+        fused = _project(dp, "fuse", torch.cat([feat_l, feat_l, feat_l],
+                                               dim=-1), dtp)
+        x = _project(dp, "in_proj", torch.cat([emb, fused], dim=-1), dtp)
         positions = (root_pos[:, None] + 1 + l).expand(b, hi - lo)
         self_mask = anc[None, lo:hi, :].expand(b, hi - lo, t)
         node_valid = torch.arange(t, device=dev)[None, None, :] < lo
         prev_mask = self_mask & node_valid
-        xn = cm.rmsnorm(x, lp["norm1"], cfg.norm_eps)
-        q = bk.project_q(mcfg, lp["attn"], xn, positions, inv_freq, mscale)
-        k_new, v_new = bk.project_kv(mcfg, lp["attn"], xn, positions,
-                                     inv_freq, mscale)
         eye = torch.eye(hi - lo, dtype=torch.bool, device=dev)[None, None]
-        parts = [cm.dense_attn_part(q, ctx_k, ctx_v,
-                                    mask=ctx_valid[:, None, None, :]),
-                 cm.dense_attn_part(q, node_k, node_v,
-                                    mask=prev_mask[:, None]),
-                 cm.dense_attn_part(q, k_new, v_new, mask=eye)]
-        out = cm.combine_attn_parts(parts, x.dtype)
-        h = x + bk.attn_output(mcfg, lp["attn"], out)
-        xn = cm.rmsnorm(h, lp["norm2"], cfg.norm_eps)
-        h = h + bk.mlp_fwd(mcfg, lp["mlp"], xn)
+        h, k_new, v_new = _decoder_layer(
+            cfg, mcfg, dp, x, positions,
+            [(ctx_k, ctx_v, ctx_valid[:, None, None, :]),
+             (node_k, node_v, prev_mask[:, None])], eye, inv_freq, mscale,
+            dtp)
         node_k[:, lo:hi] = k_new
         node_v[:, lo:hi] = v_new
         if l + 1 < tree.depth or sampled:
-            lg_l = draft_head(cfg, dp, target_params, h)     # [B, n_l, V]
+            lg_l = draft_head(cfg, dp, target_params, h, tp)  # [B, n_l, V]
             for i, n in enumerate(range(lo, hi)):
                 parent_logits[n] = lg_l[:, i]
                 parent_h[n] = h[:, i]

@@ -334,11 +334,9 @@ def mesh_shards(mesh, batch: int) -> Tuple[int, int]:
     """(data shards, model shards) of an engine of ``batch`` rows over
     ``mesh`` (a ``distributed.sharding.DeviceMesh``): the batch splits
     over the data axes only when they divide it, as the reference
-    degrades.  A ``model`` axis above 1 (tensor parallelism) raises."""
+    degrades; the ``model`` axis is tensor parallelism
+    (``distributed.tensor_parallel``)."""
     model = mesh.axis_size("model")
-    if model > 1:
-        _unsupported(f"tensor parallelism (a mesh 'model' axis of {model})",
-                     "Multi-GPU, part 3")
     data = mesh.data_size
     return (data if data > 1 and batch % data == 0 else 1), model
 
@@ -390,8 +388,17 @@ class SpecPVEngine:
         constructor returns a ``DataParallelEngine``, whose shards each
         hold their rows, their range of the page pools and a weight
         replica per distinct device; otherwise (or for a mesh of one
-        shard) this engine runs unsharded on the mesh's first device.  A
-        ``model`` axis above 1 raises NotImplementedError.
+        shard) this engine runs on the mesh's first data row.  A
+        ``model`` axis of m > 1 splits the engine's weights, attention
+        heads and K/V over the row's m model shards
+        (``distributed.tensor_parallel``: ``self.tp``, handed to the
+        model and the draft beside the whole ``params``), which must
+        share one device; the engine then keeps its per-head state
+        shard-stacked ([m * L, ..., Hk / m, ...], ``kv_shards`` = m when
+        attention splits), and its step bodies and prefill chunks stay
+        one CUDA graph each.  Shards on several cards, state and
+        cross-attention targets and the host tier raise
+        NotImplementedError under it.
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
         as in the reference; contiguous engines share nothing):
@@ -456,6 +463,14 @@ class SpecPVEngine:
         self.dcfg = dcfg
         self.params = params
         self.dparams = draft_params
+        # tensor parallelism: the model shards' weight pieces, and how
+        # many pieces the per-head state falls into
+        self.tp = None
+        self.kv_shards = 1
+        if self.model_shards > 1:
+            self._tensor_parallel(mesh, tiered)
+        self.l_state = self.l_attn * self.kv_shards
+        self.hk_state = cfg.num_kv_heads // self.kv_shards
         self.batch = batch
         self.max_len = max_len
         self.temperature = float(temperature)
@@ -524,6 +539,32 @@ class SpecPVEngine:
         self.capture_s = 0.0            # host seconds spent capturing
         self._init_static()
 
+    def _tensor_parallel(self, mesh, tiered: bool) -> None:
+        """Split the target and the draft over the mesh's first model row
+        (``distributed.tensor_parallel.TensorParallel``).  Every shard
+        must sit on the engine's device: the step bodies then run each
+        shard's kernels in turn on one stream (the K1/K3 merge counters
+        are shared safely so), and each stays one CUDA graph.  Shards on
+        several cards would need per-card state and collectives between
+        cards, which nothing here has yet."""
+        from repro_torch.distributed.tensor_parallel import TensorParallel
+        item = "Multi-GPU, part 4"
+        m = self.model_shards
+        what = f"tensor parallelism (a mesh 'model' axis of {m})"
+        if not self.is_attn:
+            _unsupported(f"{what} of a state architecture", item)
+        if self.cross:
+            _unsupported(f"{what} of a cross-attention target", item)
+        if tiered:
+            _unsupported(f"{what} with the host tier", item)
+        row = mesh.model_row(0)
+        if any(d != self.device for d in row):
+            _unsupported(f"{what} over several devices {row}", item)
+        self.tp = TensorParallel(
+            self.cfg, self.params, row,
+            draft=(dr.draft_model_config(self.cfg), self.dparams))
+        self.kv_shards = self.tp.kv_shards
+
     # ------------------------------------------------------------------
     def _init_pkv(self, b: int):
         cfg = self.cfg
@@ -532,7 +573,7 @@ class SpecPVEngine:
             return z, z.clone(), z.clone()
         # zero-copy: the retrieved body lives in the pool (routed via
         # pkv_blocks), so the dense arrays carry only the tail buffer
-        shape = (self.l_attn, b, cfg.num_kv_heads, self.spec.buffer_size,
+        shape = (self.l_state, b, self.hk_state, self.spec.buffer_size,
                  cfg.head_dim_)
         pkv_k = torch.zeros(shape, dtype=cm.dt(cfg.dtype), device=self.device)
         pkv_pos = torch.full(shape[:-1], -1, dtype=torch.int32,
@@ -549,7 +590,7 @@ class SpecPVEngine:
             z = torch.zeros((0,), device=self.device)
             return z, z.clone()
         p = self.spec.partial_budget_tokens if self.gathered else 0
-        shape = (self.l_attn, b, p, cfg.num_kv_heads, cfg.head_dim_)
+        shape = (self.l_state, b, p, self.hk_state, cfg.head_dim_)
         dt = cm.dt(cfg.dtype)
         if static:
             return tuple(torch.zeros(shape, dtype=dt, device=self.device)
@@ -563,7 +604,7 @@ class SpecPVEngine:
         if not self.is_attn:
             return torch.zeros((b, 0, 0, 0), dtype=torch.int32,
                                device=self.device)
-        return torch.full((b, self.l_attn, self.cfg.num_kv_heads,
+        return torch.full((b, self.l_state, self.hk_state,
                            self._ns_blocks), -1, dtype=torch.int32,
                           device=self.device)
 
@@ -573,10 +614,11 @@ class SpecPVEngine:
         get their recurrent state."""
         if not self.paged:
             return api.init_cache(self.cfg, b, self.max_len, self.spec,
-                                  device=self.device)
+                                  device=self.device,
+                                  kv_shards=self.kv_shards)
         return api.init_cache(self.cfg, b, self.max_len, self.spec,
                               paged=True, num_pages=self.num_pages,
-                              device=self.device)
+                              device=self.device, kv_shards=self.kv_shards)
 
     def _init_dcache(self, b: int) -> Dict:
         if not self.paged:
@@ -807,7 +849,8 @@ class SpecPVEngine:
         b, t = toks.shape
         logits, feats, cache_n = api.prefill(cfg, self.params, toks, cache,
                                              spec=self.spec, t_valid=t_valid,
-                                             cached_cross=self.cross)
+                                             cached_cross=self.cross,
+                                             tp=self.tp)
         fused = feats.fused_input()                           # [B, T, 3d]
         shifted = torch.cat([prev_feat[:, None], fused[:, :-1]], dim=1)
         if t_valid is None:
@@ -821,7 +864,7 @@ class SpecPVEngine:
                          torch.clamp(t_valid.long() - 1, min=0)]
         dcache_n, _, _ = dr.draft_extend(cfg, self.dcfg, self.dparams,
                                          self.params, dcache, toks, shifted,
-                                         valid)
+                                         valid, tp=self.tp)
         prev_feat.copy_(last)
         logits_last.copy_(logits)
         if block_feats is not None:
@@ -1676,8 +1719,8 @@ class SpecPVEngine:
             cfg, bs = self.cfg, self.spec.block_size
             n = self.batch * self._nb_seq + 1
             dt = cm.dt(cfg.dtype)
-            pools = kvc.init_paged_pool(self.l_attn, n, bs,
-                                        cfg.num_kv_heads, cfg.head_dim_, dt,
+            pools = kvc.init_paged_pool(self.l_state, n, bs,
+                                        self.hk_state, cfg.head_dim_, dt,
                                         self.device)
             dpools = {m: torch.zeros((n, bs, cfg.num_kv_heads,
                                       cfg.head_dim_), dtype=dt,
@@ -2090,7 +2133,7 @@ class SpecPVEngine:
         dcache, tree_tokens, aux = dr.draft_phase(
             cfg, self.dcfg, self.dparams, self.params, tree, st.dcache,
             st.ext_tokens, st.ext_feats, st.ext_len, active=act, u=u_draft,
-            temps=st.temps if has_sampled else None)
+            temps=st.temps if has_sampled else None, tp=self.tp)
         node_valid = None
         if has_chain:
             node_valid = (~is_chain[:, None]
@@ -2126,7 +2169,7 @@ class SpecPVEngine:
             emit_queries=has_refresh,
             partial_rows=is_partial if decode_kind == "fused" else None,
             pkv_blocks=(st.pkv_blocks.movedim(0, 1) if has_partial
-                        else None))
+                        else None), tp=self.tp)
         path, acc, bonus = self._accept(st, tree_tokens, aux, out, vin,
                                         u_acc, node_valid)
         newtoks, ext_feats, ext_len, seq_len = self._post_accept(
@@ -2255,7 +2298,7 @@ class SpecPVEngine:
         dcache, tree_tokens, aux = dr.draft_phase(
             cfg, self.dcfg, self.dparams, self.params, tree, st.dcache,
             st.ext_tokens, st.ext_feats, st.ext_len, active=active,
-            u=u_draft, temps=st.temps if sampled else None)
+            u=u_draft, temps=st.temps if sampled else None, tp=self.tp)
         pend_in = st.pending[:, :1]
         ones = torch.ones((b,), dtype=torch.long, device=dev)
         vin = vf.build_verify_inputs_fused(tree, pend_in, ones, ones,
@@ -2263,7 +2306,7 @@ class SpecPVEngine:
                                            active=active)
         out = api.decode(cfg, self.params, vin["tokens"], vin["positions"],
                          st.cache, self_mask=vin["self_mask"],
-                         spec=self.spec)
+                         spec=self.spec, tp=self.tp)
         path, acc, bonus = self._accept(st, tree_tokens, aux, out, vin, u_acc,
                                         None)
         newtoks, ext_feats, ext_len, seq_len = self._post_accept(

@@ -120,6 +120,17 @@ class DeviceMesh:
             shard, out[a] = divmod(shard, self.shape[a])
         return out
 
+    def model_shard_coords(self, shard: int, model: int) -> Dict[str, int]:
+        """The coordinate of model shard ``model`` of data shard
+        ``shard``."""
+        return dict(self.data_shard_coords(shard), model=model)
+
+    def model_row(self, shard: int = 0) -> List[torch.device]:
+        """The devices of data shard ``shard``'s model shards, in model
+        order: the devices its tensor-parallel engine splits over."""
+        return [self.device_at(**self.model_shard_coords(shard, j))
+                for j in range(self.axis_size("model"))]
+
     def __repr__(self) -> str:
         return (f"DeviceMesh({self.shape}, "
                 f"devices={[str(d) for d in self.devices]})")

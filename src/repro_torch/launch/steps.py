@@ -19,7 +19,10 @@ CUDA graph (``core.engine.capture_graph``) over the state it is given.
                      -> (next, cache, pkv_k, pkv_v, pkv_pos, buf_len)
     decode, state archs: (params, cache, token) -> (next, cache)
 
-Tokens are int32, as the reference's.
+Tokens are int32, as the reference's.  The steps run whole weights: they
+pass no tensor-parallel split to ``models.api`` (its ``tp``), so a mesh
+reaches them only as ``make_train_step(grad_shardings=)``, which raises
+NotImplementedError (ROADMAP.md queue 1, 'Multi-GPU, part 4').
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ def make_train_step(cfg: ModelConfig, grad_shardings=None):
     if grad_shardings is not None:
         raise NotImplementedError(
             "sharded gradients are not ported yet: ROADMAP.md queue 1, "
-            "'Multi-GPU, part 3'")
+            "'Multi-GPU, part 4'")
     unstacked = api.unstacked_layers(cfg)
 
     def step(params, opt, tokens, extra):

@@ -19,6 +19,7 @@ K/V of its encoder states into the cache, where decoding reads them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -70,14 +71,19 @@ def unstacked_layers(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                spec: Optional[SpecPVConfig] = None, *, paged: bool = False,
-               num_pages: Optional[int] = None, device=None) -> dict:
+               num_pages: Optional[int] = None, device=None,
+               kv_shards: int = 1) -> dict:
     """Cache dict.  ``paged=True`` backs it with a shared block pool
     [L, NumPages, block, ...] plus per-slot page tables (page 0 is the
     null page, so ``num_pages`` defaults to ``batch * S_max/block + 1``);
     otherwise per-row K/V [L, B, max_len, ...], views over block-rounded
     rows (``kvcache.cache.init_contiguous_kv``).  The state archs keep
     their bounded recurrent state (Griffin: and its rolling attention
-    windows) instead, with no paging."""
+    windows) instead, with no paging.  ``kv_shards`` = m (tensor
+    parallelism over m model shards whose attention splits) stacks the
+    shards' K/V and summaries on the layer axis: [m * L, ..., Hk / m,
+    Dh], shard s's layer l at ``s * L + l``
+    (``distributed.tensor_parallel``)."""
     dev = resolve_device(device)
     dtype = cm.dt(cfg.dtype)
     if cfg.arch_type in ("ssm", "hybrid"):
@@ -90,6 +96,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     kinds = cfg.layer_kinds()
     l_attn, l_cross = dn.attn_layer_count(kinds), dn.cross_layer_count(kinds)
     hk, dh = cfg.num_kv_heads, cfg.head_dim_
+    if kv_shards > 1:
+        if l_cross or hk % kv_shards:
+            raise ValueError(f"{cfg.name}: {hk} KV heads and {l_cross} "
+                             f"cross layers do not split over {kv_shards} "
+                             f"model shards")
+        l_attn, hk = l_attn * kv_shards, hk // kv_shards
     block = spec.block_size if spec else 128
     nb = -(-max_len // block)
     if paged:
@@ -188,7 +200,7 @@ def write_cross(cfg: ModelConfig, params, cross_k, cross_v, extra) -> None:
 def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
             spec: Optional[SpecPVConfig] = None, plain: bool = False,
             t_valid=None, return_logits: str = "last",
-            cached_cross: bool = False):
+            cached_cross: bool = False, tp=None):
     """Process a chunk of prompt tokens [B, T] (written into `cache` in
     place).  Returns (logits, features, the cache with its advanced
     length): the last token's [B, V] by default, every position's
@@ -207,7 +219,12 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
     ragged: row b carries ``t_valid[b] >= 1`` real tokens, then
     ``T - t_valid[b]`` trailing pads, which write no K/V, summary or
     ``length``; the last-token logits are row b's at ``t_valid[b] - 1``
-    (the fused multi-row prefill packs cursors of unequal chunks so)."""
+    (the fused multi-row prefill packs cursors of unequal chunks so).
+
+    ``tp`` (a ``distributed.tensor_parallel.TensorParallel`` of
+    ``params``, attention archs): run the embedding, the trunk and the
+    head split over its model shards (the cache then shard-stacked, see
+    ``init_cache``'s ``kv_shards``); None runs ``params`` whole."""
     b, t = tokens.shape
     if cfg.arch_type in ("ssm", "hybrid") and t_valid is not None:
         raise ValueError("ragged prefill is attention-arch only")
@@ -229,13 +246,13 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
         if "cross_k" in cache and not cached_cross:
             write_cross(cfg, params, cache["cross_k"], cache["cross_v"],
                         extra)
-        hh = dn.embed_tokens(cfg, params, tokens)
+        hh = dn.embed_tokens(cfg, params, tokens, tp)
         out = dn.trunk_fwd(cfg, params["layers"], hh, positions,
                            mode="prefill", cache=cache,
                            spec=spec or SpecPVConfig(), plain=plain,
-                           t_valid=t_valid)
+                           t_valid=t_valid, tp=tp)
         h, feats, cache = out.h, out.features, out.cache
-        lm = dn.lm_head
+        lm = functools.partial(dn.lm_head, tp=tp)
     if return_logits == "all":
         logits = lm(cfg, params, h)
     elif t_valid is None:
@@ -253,7 +270,7 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
            spec: Optional[SpecPVConfig] = None, emit_queries: bool = False,
            partial_rows=None, pkv_blocks=None,
            plain: bool = False, select_partial: bool = False,
-           q_weight=None) -> DecodeOut:
+           q_weight=None, tp=None) -> DecodeOut:
     """Forward T new (tree) tokens; ``mode`` is "full" | "partial" |
     "fused" (``partial_rows`` [B] marks the rows that read the partial
     context: the selected blocks ``pkv_blocks`` [L, B, Hk, NS], read in
@@ -267,7 +284,7 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
     ``partial``, the partial cache (pk, pv, ppos) [L, B, Hk, budget, ...]
     selected by this step's queries weighted by ``q_weight`` [B, T]
     (default all 1): the reference's in-trunk Refresh.  ``plain``: see
-    ``prefill``.  The state
+    ``prefill``; ``tp``: see ``prefill``.  The state
     archs always do read-only chain verification (Griffin's attention
     over its window and the chain, by ``self_mask``): the state is left
     as it was and ``new_kv`` is None."""
@@ -283,7 +300,7 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
         h, feats, _ = gf.forward(cfg, params, tokens, positions, cache,
                                  mode="verify", self_mask=self_mask)
         return DecodeOut(gf.lm_head(cfg, params, h), Features(*feats), None)
-    h = dn.embed_tokens(cfg, params, tokens)
+    h = dn.embed_tokens(cfg, params, tokens, tp)
     trunk_mode = {"full": "decode_full", "partial": "decode_partial",
                   "fused": "decode_fused"}[mode]
     out = dn.trunk_fwd(cfg, params["layers"], h, positions, mode=trunk_mode,
@@ -291,8 +308,8 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
                        spec=spec or SpecPVConfig(), emit_queries=emit_queries,
                        partial_rows=partial_rows, pkv_blocks=pkv_blocks,
                        plain=plain, select_partial=select_partial,
-                       q_weight=q_weight)
-    logits = dn.lm_head(cfg, params, out.h)
+                       q_weight=q_weight, tp=tp)
+    logits = dn.lm_head(cfg, params, out.h, tp)
     return DecodeOut(logits, Features(*out.features), out.new_kv,
                      out.queries, out.partial)
 

@@ -163,33 +163,58 @@ def _moe_experts(cfg: ModelConfig, p: Dict, xe):
     return torch.bmm(h, p["wo"].to(xd))
 
 
-def _moe_combine(ye, slot, keep, topv):
-    """y [G, g, d]: each token's kept pairs' expert outputs weighted by
-    their top-k weights, the weights rounded to the activation dtype
-    first (the reference's ``combine.astype(xd)``), summed in fp32."""
+def _moe_combine(ye, slot, keep, topv, lo: int = 0):
+    """y [G, g, d] in fp32: each token's kept pairs' expert outputs
+    weighted by their top-k weights, the weights rounded to the
+    activation dtype first (the reference's ``combine.astype(xd)``),
+    summed in fp32 (the caller casts to the activation dtype).  ``ye``
+    holds the expert-major rows ``[lo, lo + R)`` of the dispatch buffer:
+    all of it (``lo`` 0), or one expert shard's rows, whose pairs routed
+    elsewhere weigh 0 (the shards' parts, summed, are the whole
+    combine)."""
     ng, g, k = topv.shape
     d = ye.shape[-1]
     xd = ye.dtype
+    rows = ye.shape[0] * ye.shape[1]
     yflat = torch.cat([ye.reshape(-1, d), ye.new_zeros((1, d))])
-    w = torch.where(keep, topv.reshape(ng, -1),
-                    torch.zeros_like(keep, dtype=topv.dtype))
-    part = yflat[slot].float() * w.to(xd).float()[..., None]
-    return part.view(ng, g, k, d).sum(dim=2).to(xd)
+    mine = keep & (slot >= lo) & (slot < lo + rows)
+    idx = torch.where(mine, slot - lo, torch.full_like(slot, rows))
+    w = torch.where(mine, topv.reshape(ng, -1),
+                    torch.zeros_like(mine, dtype=topv.dtype))
+    part = yflat[idx].float() * w.to(xd).float()[..., None]
+    return part.view(ng, g, k, d).sum(dim=2)
 
 
 def _moe_groups_fwd(cfg: ModelConfig, p: Dict, xg, capacity_factor: float,
-                    want_aux: bool = True):
+                    want_aux: bool = True, expert_shards=None):
     """Dispatch groups side by side (the reference's ``_moe_group_fwd``
     under ``vmap``).  xg [G, g, d] -> (y [G, g, d], aux [G] (None
-    unless ``want_aux``), keep [G, g*k])."""
+    unless ``want_aux``), keep [G, g*k]).  ``expert_shards`` (tensor
+    parallelism): a ``TensorParallel`` whose shards each hold ``E/m``
+    experts, paired with each shard's expert weights; the router, top-k,
+    capacity and dispatch run once, each shard runs its experts over its
+    rows of the dispatch buffer and combines its pairs, and one sum joins
+    the parts."""
     e, k = cfg.num_experts, cfg.experts_per_token
     g = xg.shape[1]
     cap = max(1, int(math.ceil(g * k / e * capacity_factor)))
     probs = _moe_router(p, xg)
     topv, topi = _moe_topk(cfg, probs)
     xe, slot, keep = _moe_dispatch(cfg, xg, topi, cap)
-    ye = _moe_experts(cfg, p, xe)
-    y = _moe_combine(ye, slot, keep, topv)
+    if expert_shards is None:
+        ye = _moe_experts(cfg, p, xe)
+        y = _moe_combine(ye, slot, keep, topv).to(xg.dtype)
+    else:
+        tp, ps = expert_shards
+        per = e // tp.m
+        rows = per * xe.shape[1]
+
+        def part(sh):
+            xe_s = xe[sh.index * per:(sh.index + 1) * per].to(sh.device)
+            ye_s = _moe_experts(cfg, ps[sh.index], xe_s)
+            return _moe_combine(ye_s, slot.to(sh.device), keep.to(sh.device),
+                                topv.to(sh.device), sh.index * rows)
+        y = tp.map_reduce(part).to(xg.dtype)
     if not want_aux:
         return y, None, keep
     frac_tokens = torch.nn.functional.one_hot(topi[..., 0], e).float().mean(1)
@@ -199,7 +224,8 @@ def _moe_groups_fwd(cfg: ModelConfig, p: Dict, xg, capacity_factor: float,
 
 
 def moe_fwd(cfg: ModelConfig, p: Dict, x, *, capacity_factor: float = 1.25,
-            aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            aux: bool = True, expert_shards=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, T, d] -> (y, aux_loss), the reference's capacity dispatch
     (``aux=False``: the aux loss is not computed and None is returned;
     the reference's jit drops it where nothing reads it).
@@ -212,13 +238,15 @@ def moe_fwd(cfg: ModelConfig, p: Dict, x, *, capacity_factor: float = 1.25,
     each recomputed in the backward pass (its ``jax.checkpoint``).
     Capacity comes from the host-known token count and the dispatch is
     by index (a scatter into a static [E*C + 1, d] buffer and a gather
-    back), so nothing reads the card."""
+    back), so nothing reads the card.  ``expert_shards`` splits the
+    experts over tensor-parallel shards (``_moe_groups_fwd``); the drops
+    are counted once."""
     b, t, d = x.shape
     n = b * t
     xf = x.reshape(n, d)
     if n <= MOE_GROUP:
         y, loss, keep = _moe_groups_fwd(cfg, p, xf[None], capacity_factor,
-                                        aux)
+                                        aux, expert_shards)
         loss = loss[0] if aux else None
     else:
         g = MOE_GROUP
@@ -232,13 +260,14 @@ def moe_fwd(cfg: ModelConfig, p: Dict, x, *, capacity_factor: float = 1.25,
             inner = ng // outer
             waves = [torch.utils.checkpoint.checkpoint(
                 _moe_groups_fwd, cfg, p, xg[w * inner:(w + 1) * inner],
-                capacity_factor, aux, use_reentrant=False)
+                capacity_factor, aux, expert_shards, use_reentrant=False)
                 for w in range(outer)]
             y = torch.cat([w[0] for w in waves])
             keep = torch.cat([w[2] for w in waves])
             loss = torch.cat([w[1] for w in waves]) if aux else None
         else:
-            y, loss, keep = _moe_groups_fwd(cfg, p, xg, capacity_factor, aux)
+            y, loss, keep = _moe_groups_fwd(cfg, p, xg, capacity_factor, aux,
+                                            expert_shards)
         loss = loss.mean() if aux else None
     if MOE_DROPS is not None:
         MOE_DROPS.add_((~keep.reshape(-1)[: n * cfg.experts_per_token]).sum())

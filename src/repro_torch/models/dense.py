@@ -193,14 +193,41 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     return params
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
+def embed_tokens(cfg: ModelConfig, params, tokens, tp=None):
+    """tokens [B, T] -> [B, T, d].  Under tensor parallelism (``tp``,
+    ``distributed.tensor_parallel.TensorParallel``) with ``embed`` split
+    on its width, each shard looks up its columns and a gather joins them
+    (the same bits as the whole table's rows)."""
+    if tp is not None and tp.embed_split:
+        return tp.map_gather(lambda sh: sh.params["embed"][
+            tokens.to(sh.device).long()].to(cm.dt(cfg.dtype)))
     return params["embed"][tokens.long()].to(cm.dt(cfg.dtype))
 
 
-def lm_head(cfg: ModelConfig, params, h):
-    h = cm.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+def head_logits(cfg: ModelConfig, params, h, tp=None):
+    """The LM head of normed ``h`` [..., d] -> fp32 logits [..., V]: a
+    tied head reads ``embed.T``.  Under tensor parallelism (``tp``) a
+    vocabulary-split head is column-parallel (each shard's logits, then
+    a gather) and a tied head over a width-split ``embed`` is
+    row-parallel (each shard's width slice of ``h`` against its columns,
+    the fp32 partial logits summed)."""
+    if tp is not None and cfg.tie_embeddings and tp.embed_split:
+        w = cfg.d_model // tp.m
+
+        def part(sh):
+            hs = h[..., sh.index * w:(sh.index + 1) * w].to(sh.device)
+            return (hs @ sh.params["embed"].T.to(h.dtype)).float()
+        return tp.map_reduce(part)
+    if tp is not None and not cfg.tie_embeddings and tp.head_split:
+        return tp.map_gather(lambda sh: (h.to(sh.device) @ sh.params[
+            "head"].to(h.dtype)).float())
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return (h @ w.to(h.dtype)).float()
+
+
+def lm_head(cfg: ModelConfig, params, h, tp=None):
+    return head_logits(cfg, params,
+                       cm.rmsnorm(h, params["final_norm"], cfg.norm_eps), tp)
 
 
 # ---------------------------------------------------------------------------
@@ -578,6 +605,22 @@ def _mlp_or_moe(cfg: ModelConfig, lp: Dict, h, aux: bool = False):
     return bk.mlp_fwd(cfg, lp["mlp"], x), None
 
 
+def _mlp_or_moe_tp(tp, i: int, lp: Dict, h):
+    """Layer ``i``'s MLP or MoE sublayer under tensor parallelism: the
+    norm once, then each shard's columns and rows (the MoE: the router
+    and dispatch once, each shard's experts, ``blocks.moe_fwd``) and one
+    sum; a block that does not split runs once, whole."""
+    if not (tp.moe_split if "moe" in lp else tp.mlp_split):
+        return _mlp_or_moe(tp.cfg, lp, h)[0]
+    x = cm.rmsnorm(h, lp["norm2"], tp.cfg.norm_eps)
+    if "moe" in lp:
+        ps = [sh.params["layers"][i]["moe"] for sh in tp.shards]
+        return bk.moe_fwd(tp.cfg, lp["moe"], x, aux=False,
+                          expert_shards=(tp, ps))[0]
+    return tp.map_reduce(lambda sh: bk.mlp_fwd(
+        sh.cfg, sh.params["layers"][i]["mlp"], x.to(sh.device)))
+
+
 def _cross_attention(cfg: ModelConfig, lp: Dict, h, cross_kv):
     """Cross-attention over fixed encoder states (no rope on either
     side): the reference's dense ``sdpa`` for up to 1024 queries, its
@@ -698,7 +741,8 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
               collect_features: bool = True, pkv_blocks=None,
               plain: bool = False, t_valid=None, encoder_out=None,
               kinds: Optional[Tuple[str, ...]] = None,
-              select_partial: bool = False, q_weight=None) -> TrunkOut:
+              select_partial: bool = False, q_weight=None,
+              tp=None) -> TrunkOut:
     """Run the layer stack (see module docstring for modes).
 
     cache: paged {"k","v" [L,NP,bs,Hk,Dh], "kmax","kmin" [L,NP,Hk,Dh],
@@ -720,7 +764,16 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     (prefill only): a ragged chunk; pads write no K/V, no summary and do
     not advance ``length``.  ``encoder_out`` [B, Te, d]: the encoder
     states the train and encode modes' cross layers read.  ``kinds``:
-    the layers' kinds (default ``cfg.layer_kinds()``)."""
+    the layers' kinds (default ``cfg.layer_kinds()``).
+
+    ``tp`` (``distributed.tensor_parallel.TensorParallel``, cache modes
+    only, every shard on one device): each layer runs its attention on
+    every model shard, with that shard's heads, weights and per-head
+    state (entry ``s * L + a`` of the shard-stacked cache, tail buffer,
+    body and ``pkv_blocks``), then one sum at the residual; then its MLP
+    or MoE on every shard, then one sum.  A block that does not split
+    runs once, whole.  ``new_kv``, ``queries`` and ``partial`` come back
+    shard-stacked the same way ([m * L, ...] at the shard's heads)."""
     spec = spec or SpecPVConfig()
     kinds = kinds if kinds is not None else cfg.layer_kinds()
     f_lo, f_mi, f_hi = _feature_targets(len(layers))
@@ -747,6 +800,12 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                     feats[slot] = h
         return TrunkOut(h=h, features=tuple(feats) if collect_features
                         else None, cache=None, new_kv=None, aux_loss=aux)
+    if tp is not None and (plain or not tp.single_device):
+        raise NotImplementedError(
+            "tensor parallelism runs the engine's kernel routes with every "
+            "model shard on one device (the plain oracle and shards on "
+            "several cards are not ported yet: ROADMAP.md queue 1, "
+            "'Multi-GPU, part 4')")
     b, t = positions.shape
     length = (cache["length"] if cache is not None
               else torch.zeros((b,), dtype=torch.int32, device=h.device))
@@ -760,6 +819,10 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                          "never prefilled, paged or gathered (the "
                          "reference keeps int8 caches contiguous and would "
                          "read int8 pages without their scales)")
+    if int8 and tp is not None:
+        raise NotImplementedError(
+            "an int8 K/V cache under tensor parallelism is not ported yet: "
+            "ROADMAP.md queue 1, 'Multi-GPU, part 4'")
     if select_partial and q_weight is None:
         q_weight = torch.ones((b, t), dtype=torch.float32, device=h.device)
     paged_kernel = paged and spec.use_pallas
@@ -767,43 +830,61 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     end = (length + (t if t_valid is None else t_valid)
            if mode == "prefill" else None)
     feats = [None, None, None]
-    new_k, new_v, queries, partial = [], [], [], []
+    # the attention units: (config, layer params per layer, state offset);
+    # one whole unit, or one per model shard when attention splits
+    if tp is not None and tp.attn_split:
+        l_attn = attn_layer_count(kinds)
+        units = [(sh.cfg, sh.params["layers"], sh.index * l_attn)
+                 for sh in tp.shards]
+    else:
+        units = [(cfg, layers, 0)]
+    n_u = len(units)
+    new_k, new_v, queries, partial = ([[] for _ in range(n_u)]
+                                      for _ in range(4))
     a_i = c_i = 0               # attention / cross layer index
     for i, (kind, lp) in enumerate(zip(kinds, layers)):
         if kind in ("attn", "dec"):
-            cache_kv = None
-            if cache is not None:
-                cache_kv = (cache["k"][a_i], cache["v"][a_i])
-                if int8:
-                    cache_kv += (cache["k_scale"][a_i],
-                                 cache["v_scale"][a_i])
-            pkv_l = (tuple(p[a_i] for p in pkv)
-                     if mode in ("decode_partial", "decode_fused") else None)
-            att, upd, q = _self_attention(
-                cfg, mode, lp, h, positions, self_mask, cache_kv, pkv_l,
-                length, inv_freq, mscale, page_table=page_table,
-                paged_kernel=paged_kernel, partial_rows=partial_rows,
-                pkv_blocks=pkv_blocks[a_i] if pkv_blocks is not None
-                else None, block_size=spec.block_size, plain=plain,
-                t_valid=t_valid)
-            h = h + att
-            if mode == "prefill":
-                if plain:
-                    from repro_torch.kvcache.cache import (
-                        update_layer_summaries)
-                    nkmax, nkmin = update_layer_summaries(
-                        cache["kmax"][a_i], cache["kmin"][a_i],
-                        cache["k"][a_i], length, end, spec.block_size)
-                    cache["kmax"][a_i] = nkmax
-                    cache["kmin"][a_i] = nkmin
-            else:
-                new_k.append(upd["new_k"])
-                new_v.append(upd["new_v"])
-            if emit_queries:
-                queries.append(q)
-            if select_partial:
-                partial.append(_select_partial(spec, q, q_weight, cache,
-                                               a_i, length))
+            atts = []
+            for u, (ucfg, ulayers, off) in enumerate(units):
+                j = off + a_i
+                cache_kv = None
+                if cache is not None:
+                    cache_kv = (cache["k"][j], cache["v"][j])
+                    if int8:
+                        cache_kv += (cache["k_scale"][j],
+                                     cache["v_scale"][j])
+                pkv_l = (tuple(p[j] for p in pkv)
+                         if mode in ("decode_partial", "decode_fused")
+                         else None)
+                att, upd, q = _self_attention(
+                    ucfg, mode, ulayers[i], h, positions, self_mask,
+                    cache_kv, pkv_l, length, inv_freq, mscale,
+                    page_table=page_table, paged_kernel=paged_kernel,
+                    partial_rows=partial_rows,
+                    pkv_blocks=pkv_blocks[j] if pkv_blocks is not None
+                    else None, block_size=spec.block_size, plain=plain,
+                    t_valid=t_valid)
+                atts.append(att)
+                if mode == "prefill":
+                    if plain:
+                        from repro_torch.kvcache.cache import (
+                            update_layer_summaries)
+                        nkmax, nkmin = update_layer_summaries(
+                            cache["kmax"][j], cache["kmin"][j],
+                            cache["k"][j], length, end, spec.block_size)
+                        cache["kmax"][j] = nkmax
+                        cache["kmin"][j] = nkmin
+                else:
+                    new_k[u].append(upd["new_k"])
+                    new_v[u].append(upd["new_v"])
+                if emit_queries:
+                    queries[u].append(q)
+                if select_partial:
+                    partial[u].append(_select_partial(spec, q, q_weight,
+                                                      cache, j, length))
+            # one sum joins the shards' row-split ``wo`` outputs
+            h = h + (atts[0] if n_u == 1 else tp.map_reduce(
+                lambda sh: atts[sh.index]))
             a_i += 1
         if kind in ("cross", "dec"):
             xo = _cross_attention(cfg, lp, h, (cache["cross_k"][c_i],
@@ -814,7 +895,8 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
         # the MoE routes every row of the padded [B, T] input, pads too,
         # as the reference does: pads earlier in the flattened order take
         # expert capacity from real tokens after them
-        m = _mlp_or_moe(cfg, lp, h)[0]
+        m = (_mlp_or_moe(cfg, lp, h)[0] if tp is None
+             else _mlp_or_moe_tp(tp, i, lp, h))
         h = h + (_gate(lp["gate_mlp"], h) * m if kind == "cross" else m)
         if collect_features:
             for slot, tgt in enumerate((f_lo, f_mi, f_hi)):
@@ -838,6 +920,10 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                                             spec.block_size, n_touch)
         new_cache = dict(cache)
         new_cache["length"] = end
+    # unit-major: unit u's layer a at u * L + a (the shard-stacked state)
+    new_k, new_v, queries, partial = ([x for xs in lists for x in xs]
+                                      for lists in (new_k, new_v, queries,
+                                                    partial))
     new_kv = ((torch.stack(new_k), torch.stack(new_v)) if new_k else None)
     return TrunkOut(h=h, features=tuple(feats) if collect_features else None,
                     cache=new_cache, new_kv=new_kv,

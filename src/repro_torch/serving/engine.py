@@ -15,11 +15,14 @@
 
 Runs on ``device`` (CUDA unless ``"cpu"`` is asked for), where the
 params must live; ``cuda_graphs`` goes to the engines as is.  With
-``ServingConfig.mesh_shape`` a ``(D, 1)`` shape that the local cards can
-fill builds a mesh over ``cuda:0`` .. ``cuda:D-1`` and the engines shard
+``ServingConfig.mesh_shape`` a ``(D, m)`` shape that the local cards can
+fill builds a mesh over ``cuda:0`` .. ``cuda:D*m-1``: the engines shard
 their rows and page pools over its data axis
 (``core.data_parallel.DataParallelEngine``); a shape they cannot fill
-serves unsharded, as in the reference.
+serves unsharded, as in the reference.  Such a mesh puts each model
+shard on a card of its own, which tensor parallelism does not run yet
+(``m > 1`` then raises NotImplementedError in ``core.engine``): it runs
+through ``SpecPVEngine(mesh=)`` with every model shard on one card.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import DraftConfig, ModelConfig, SpecPVConfig
-from repro_torch.core.engine import SpecPVEngine, _unsupported
+from repro_torch.core.engine import SpecPVEngine
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import make_mesh
 from repro_torch.serving.request import Request, RequestOutput
@@ -117,10 +120,13 @@ class ServingEngine:
         return False
 
     def _mesh(self):
-        """The serving mesh of ``ServingConfig.mesh_shape``: None when
-        unset or when the local cards (one CPU device) cannot fill it, as
-        in the reference; else a mesh over ``cuda:0`` .. ``cuda:n-1``.  A
-        ``model`` axis above 1 raises NotImplementedError."""
+        """The serving mesh of ``ServingConfig.mesh_shape`` (data, model):
+        None when unset or when the local cards (one CPU device) cannot
+        fill it, as in the reference; else a mesh over ``cuda:0`` ..
+        ``cuda:n-1``, one card per coordinate.  The engines then shard
+        their rows over ``data`` and their weights and heads over
+        ``model`` (whose shards must share a card: shards on several cards
+        raise NotImplementedError in ``SpecPVEngine``)."""
         shape = self.scfg.mesh_shape
         if shape is None:
             return None
@@ -128,9 +134,6 @@ class ServingEngine:
         count = torch.cuda.device_count() if dev.type == "cuda" else 1
         if math.prod(shape) > count:
             return None
-        if shape[1] > 1:
-            _unsupported(f"tensor parallelism (mesh_shape {tuple(shape)})",
-                         "Multi-GPU, part 3")
         return make_mesh(tuple(shape),
                          devices=None if dev.type == "cuda" else [dev])
 

@@ -472,7 +472,7 @@ def test_train_step_matches_jax(tiny):
     got = jax.tree_util.tree_leaves(params_to_numpy(tcfg, tp))
     want = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jp))
     assert max(float(np.abs(a - b).max()) for a, b in zip(got, want)) < 2e-4
-    with pytest.raises(NotImplementedError, match="Multi-GPU, part 3"):
+    with pytest.raises(NotImplementedError, match="Multi-GPU, part 4"):
         tsteps.make_train_step(tcfg, grad_shardings={})
 
 

@@ -22,8 +22,9 @@ the CPU (every mesh device ``cpu``).
   engine's tokens, each shard's page high water stays within its range;
   a fork shares pages within a shard and raises across shards; a
   one-shard mesh equals the unsharded engine bit for bit; a prefix
-  attaches only on the shard that holds it; a ``model`` axis above 1
-  raises naming ROADMAP.md's 'Multi-GPU, part 3'.
+  attaches only on the shard that holds it; what a ``model`` axis above 1
+  does not carry yet raises naming ROADMAP.md's 'Multi-GPU, part 4'
+  (tensor parallelism itself is ``tests/test_torch_tensor_parallel.py``).
 """
 import dataclasses
 import math
@@ -566,9 +567,39 @@ def test_lock_step_generate_and_prefix_snapshot(tiny):
 
 
 def test_model_axis_and_unported_options_raise(tiny):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*'Multi-GPU, part 3'"):
-        _tengine(tiny, 4, mesh=_cpu_mesh(1, 2), paged=True)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*'Multi-GPU, part 3'"):
-        _tengine(tiny, 4, mesh=_cpu_mesh(2), paged=True, tiered=True)
+    """A ``model`` axis above 1 builds a tensor-parallel engine; what it
+    does not carry yet raises naming ROADMAP.md's 'Multi-GPU, part 4':
+    the host tier (and on a data-parallel mesh), shards on several
+    devices, state and cross-attention targets, an int8 cache and the
+    launch steps' sharded gradients (the launch steps take no split:
+    they run whole weights)."""
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.distributed.tensor_parallel import TensorParallel
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import api as tapi
+    part4 = "ROADMAP.*'Multi-GPU, part 4'"
+    assert _tengine(tiny, 4, mesh=_cpu_mesh(1, 2), paged=True).tp.m == 2
+    for mesh in (_cpu_mesh(1, 2), _cpu_mesh(2)):
+        with pytest.raises(NotImplementedError, match=part4):
+            _tengine(tiny, 4, mesh=mesh, paged=True, tiered=True)
+    with pytest.raises(NotImplementedError, match=part4):
+        _tengine(tiny, 4, mesh=tsh.DeviceMesh((1, 2),
+                                              devices=["cpu", "meta"]))
+    tcfg, tspec, tdcfg = tiny["targs"][:3]
+    for arch in ("rwkv6-3b", "whisper-small"):
+        cfg = tcfgs.get_config(arch).reduced()
+        with pytest.raises(NotImplementedError, match=part4):
+            TEngine(cfg, tspec, tdcfg, tapi.init_params(cfg, 0, "cpu"),
+                    init_draft_params(cfg, tdcfg, 1, "cpu"), batch=2,
+                    max_len=64, device="cpu", mesh=_cpu_mesh(1, 2))
+    with pytest.raises(NotImplementedError, match=part4):
+        tsteps.make_train_step(tcfg, grad_shardings={})
+    tp = TensorParallel(tcfg, tiny["targs"][3], ["cpu"] * 2)
+    cache = tapi.init_cache(tcfg, 1, 64, tspec, device="cpu")
+    tok = torch.zeros((1, 4), dtype=torch.long)
+    cache.update(k=cache["k"].to(torch.int8), v=cache["v"].to(torch.int8),
+                 k_scale=cache["k"][..., 0], v_scale=cache["v"][..., 0])
+    with pytest.raises(NotImplementedError, match=part4):
+        tapi.decode(tcfg, tiny["targs"][3], tok[:, :1],
+                    cache["length"][:, None], cache, mode="full", spec=tspec,
+                    tp=tp)
