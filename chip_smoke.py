@@ -36,7 +36,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
    an 8192-token prompt, 128 new tokens), twice: eagerly over the first
-   32 tokens (``cuda_graphs=False``; slice 20 cut it from 128) and with
+   16 tokens (``cuda_graphs=False``; slices 20 and 22 cut it from 128) and with
    the step variants and the 256-token prefill chunk replayed as CUDA
    graphs (the default, the main path), whose first tokens must equal
    the eager run's.  For each
@@ -62,7 +62,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 5. the state-architecture path: greedy chain-speculation ``generate`` of
    rwkv6-3b at full width (32 layers, d 2560, bf16, random weights,
    batch 1, an 8192-token prompt, 128 new tokens), eagerly over the
-   first 32 tokens (slice 21 cut it from 128) and with graphs (the graph
+   first 16 tokens (slices 21, 22 cut it from 128) and with graphs (the graph
    run's first tokens equal the eager run's), with the launch counts set to 0
    just before and read just after each (the WKV kernel must run 32 x
    (prefill chunks + 2 x steps) times), a profiled window of its steps
@@ -74,8 +74,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    (``ServingEngine``, batch 4, a 161-page pool, six requests of 2048 to
    8192 prompt tokens arriving together, prefix sharing off so that the
    cell stays the one of its first runs), with graphs, then the two
-   shortest requests again with graphs and eagerly (equal tokens and
-   launch counts), the launch counts set to 0 just before and
+   shortest prompts again (8 and 16 new tokens) with graphs and eagerly
+   (equal tokens and launch counts), the launch counts set to 0 just before and
    read just after each run and held to what its steps' variants and
    prefill chunks imply; page stalls, mixed-mode ticks and a drained pool
    asserted; each request alone through batch-1 ``generate`` (matches
@@ -88,7 +88,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    --prefix-share``): llama3.1-8b at full width, batch 4, a 129-page
    pool, nine requests arriving together, each one of two 6144-token
    system prompts plus its own 500-token tail (the ninth repeats the
-   first), 64 new tokens each, served with graphs with copy-on-write
+   first), 32 new tokens each, served with graphs with copy-on-write
    prefix sharing and without it in the same call: tokens/s, time to
    first token, latency, prompt tokens skipped, prefix counters, page
    stalls and high water, peak memory, launches held to the steps and
@@ -112,11 +112,11 @@ Phases, in order (any failure raises and the script exits non-zero):
    contiguous cache, and K4's all-layer contiguous form at a max_len of
    8431 (not a multiple of the block), bit for bit.  (a) Full-width
    ``generate`` as in phase 3 on the contiguous engine, with graphs (128
-   new tokens, profiled) and eagerly (32 new tokens, a Refresh then
+   new tokens, profiled) and eagerly (16 new tokens, a Refresh then
    Partial steps, not profiled: phase 3 profiles the eager step): K1-K4
    launched as each run's steps and chunks imply (K4 once per prefill
    chunk and per commit over every layer), the eager tokens equal to the
-   graph run's first 32, final summaries equal to the plain version, the
+   graph run's first 16, final summaries equal to the plain version, the
    bodies under the sync check; the tokens matching phase 3's are
    reported.  (b) After the same prefill the
    contiguous K/V and summaries equal the paged engine's through the
@@ -135,7 +135,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    (the reference's default): K2 over a ragged [4, 256] chunk of four
    rows (t_valid 256, 16, 200, 1) on the contiguous prefill carry and K4
    over 32 layers with per-row ends length + t_valid, against their
-   plain versions (K4 bit for bit), timed.  (a) Phase 6's six requests
+   plain versions (K4 bit for bit), timed.  (a) Phase 6's six prompts
+   (8 or 16 new tokens each: the phase measures the prefill pump)
    interleaved (``prefill_budget=1024``: up to four rows per round) with
    graphs on the paged pool with the serial and the fused pump and on
    contiguous slots fused: tokens/s, time to first token, latency,
@@ -180,7 +181,8 @@ Phases, in order (any failure raises and the script exits non-zero):
 11. sampled serving (slice 12).  (a) llama3.1-8b at full width (32
    layers, bf16, random weights from seed 0), ``ServingConfig()``'s
    layout (contiguous slots, gathered body), batch 4, phase 6's six
-   requests in the arms of ``bench_serving.py --sampled``: greedy tree,
+   prompts (half its new tokens) in the arms of ``bench_serving.py
+   --sampled``: greedy tree,
    sampled chain and sampled tree at temperature 0.8, and a mixed arm of
    all three kinds, each on a fresh scheduler of one server: tokens/s,
    mean accept by kind, tick wall by class, dispatches per tick (one per
@@ -191,7 +193,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    tick adds to a greedy one) over four slots of the three kinds, and
    each sampled or chain body under the sync check.
    (b) rwkv6-3b at full width, sampled chain ``generate`` (prompt 2048,
-   cut from 8192; 32 new tokens), eagerly and with graphs: equal tokens
+   cut from 8192; 16 new tokens), eagerly and with graphs: equal tokens
    and launch counts, K5 32 x (prefill chunks + 2 x steps), the sampled
    state body under the sync check.  (c) fp32 at 4 layers, TF32 off: a
    greedy request beside sampled tree and chain requests equals its
@@ -214,8 +216,10 @@ Phases, in order (any failure raises and the script exits non-zero):
    ``moe_serving_launches`` from phase 14, ``registry_launches`` from
    phase 15 (a)'s graph run, ``griffin_launches`` (0: no kernel is on
    that path) from phase 16 (a)'s, ``audio_launches`` and
-   ``vlm_launches`` from phase 17 (a) and (b)'s graph runs; phases 8 and
-   9's call forms and phase 2's forms of this slice under ``shapes``),
+   ``vlm_launches`` from phase 17 (a) and (b)'s graph runs,
+   ``family_tensor_parallel_launches`` from phase 22 (a)'s four split
+   runs; phases 8 and 9's call forms and phase 2's forms of this slice
+   under ``shapes``),
    the card's name and power limit, and the final ``{"ok": true, ...}``
    line.  It comes last: phases 13-17 run before it;
 13. tiered KV residency (slice 13), llama3.1-8b at full width (32
@@ -231,7 +235,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    host link's GB/s, and each step's wall; lossless tokens must equal
    the untiered ones, int8 and fp8 agreement is reported; then int8 on
    the zero-copy layout (pinned and demoted pages).  (b) Phase 6's six
-   requests at batch 4 (161 trunk pages, the draft pool at full size)
+   prompts (half its new tokens) at batch 4 (161 trunk pages, the draft
+   pool at full size)
    untiered and tiered int8, with graphs: tokens/s, page stalls, peak
    active slots, tier deferrals, demoted pages, host bytes, peak memory,
    pages high water, the tiered run's K1-K4 launches held to its steps
@@ -243,8 +248,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    depth (24 layers, 32 experts top-8, H 16 / Hk 8 / Dh 64, bf16, random
    weights from seed 0, the draft from seed 1).  (a) Phase 3's
    ``generate`` on the paged zero-copy pool (8192-token prompt, 128 new
-   tokens) with graphs and eagerly over the first 32 tokens (slice 21 cut
-   it from 128): the eager tokens equal the graph run's first ones,
+   tokens) with graphs and eagerly over the first 16 tokens (slices 21
+   and 22 cut it from 128): the eager tokens equal the graph run's first ones,
    K1-K4 launched as the steps and chunks imply, final summaries equal
    to the plain version, the graph run profiled (wall and device busy ms
    per step, idle share, host launch calls), the bodies under the sync
@@ -264,8 +269,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    seed 0 (the draft from seed 1), the paper spec.  (a) qwen2-0.5b at
    full width and depth (24 layers, 14/2 heads: 7 query heads per KV
    head, Dh 64, QKV bias, vocab 151936 tied): phase 3's ``generate`` on
-   the paged zero-copy pool (8192-token prompt, 128 new tokens), eagerly
-   and with graphs: equal tokens and launch counts, K1-K4 launched as
+   the paged zero-copy pool (8192-token prompt, 128 new tokens), with
+   graphs and eagerly over the first 16: equal tokens, each run's
+   launch counts held to its steps, K1-K4 launched as
    the steps and chunks imply, the graph run profiled (wall and device
    busy ms per step, idle share, host launch calls, tokens/s, peak
    memory).  (b) deepseek-7b at full width and depth (30 layers, 32/32
@@ -291,8 +297,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    full width and depth (26 layers: 8 x (rec, rec, attn) + (rec, rec),
    d 2560, 10/1 heads of Dh 256, window 2048, bf16, random weights from
    seed 0, the draft from seed 1), batch 1, a 4096-token prompt (the
-   window wraps twice), 64 new tokens: greedy chain ``generate`` eagerly
-   and with graphs, equal tokens, no kernel of the port launched, the
+   window wraps twice), 64 new tokens: greedy chain ``generate`` with
+   graphs and eagerly over the first 16, equal tokens, no kernel of the port launched, the
    window holding the last token; tokens/s with the captures, prefill
    and capture seconds, peak memory; a profiled window of 3 graph steps
    (device busy ms, the five largest kernels, device launches, host
@@ -316,9 +322,9 @@ Phases, in order (any failure raises and the script exits non-zero):
    encoder and 12 decoder layers, d 768, 12/12 heads of Dh 64, 1500
    frames, vocab 51865 tied, bf16), batch 1, an 8192-token prompt (the
    registry's rope stands in for Whisper's 448 learned positions), 128
-   new tokens: ``generate(extra=)`` eagerly and with graphs (equal
-   tokens and launch counts), K1-K4 launched as the steps and chunks
-   imply over the 12 attention layers, final summaries against the
+   new tokens: ``generate(extra=)`` with graphs and eagerly over the
+   first 16 (equal tokens), K1-K4 launched as each run's steps and
+   chunks imply over the 12 attention layers, final summaries against the
    plain version, the graph run profiled (device busy ms and launches
    per step, host launch calls, idle share with and without the
    profiler, tokens/s, prefill s, peak memory), the request's encoding
@@ -430,7 +436,33 @@ Phases, in order (any failure raises and the script exits non-zero):
    time beside phase 3's (reported).  (b) fp32 (TF32 off), full width,
    2 layers: ``generate`` on (1, 2) equals the unsharded engine's tokens,
    and a (2, 2) mesh of four ``cuda:0`` shards serves phase 20's fp32
-   trace with the unsharded engine's tokens.
+   trace with the unsharded engine's tokens;
+22. every model family under a mesh (slice 22): the state and
+   cross-attention targets on (1, 2) meshes of two ``cuda:0`` model
+   shards (RWKV-6's time mixing by heads with K5 at H 20 per shard over
+   its slice of the stacked ``wkv`` state and the channel mixing by
+   columns; Griffin's recurrent blocks by columns, one gather of the
+   conv output for the dense gates, the MLPs split, the one-KV-head
+   local attention whole; the cross layers by heads over stacked cross
+   rows, the encoder and projector whole) and on (2, 1) meshes of two
+   data shards.  (c) K5 at H 20 (verify T=6, prefill T=256, advance
+   T=6) and K1-K4 at whisper-small's (6 / 6 / 64) and the VLM's (32 / 4
+   / 128) shard heads against their plain versions, timed beside their
+   bounds.  (a) rwkv6-3b, recurrentgemma-2b and whisper-small at full
+   width and depth with their phases' weights and prompts, and
+   llama-3.2-vision-90b at full width and 10 layers (beside its own
+   unsharded run there), each a 32-token ``generate`` with graphs: the
+   launches held to twice the unsharded per-layer counts (K5 all at H
+   20, K1-K3 at the shard's heads, one K4 per chunk and commit), one
+   graph per step variant, one host launch call per graph replay and
+   its copies (2 a state step, 3 an attention step), a profiled window,
+   the collectives' device ms on an eager step, peak memory, and the
+   bf16 tokens and step numbers beside phases 5, 16 and 17's
+   (reported).  (b) fp32 (TF32 off), full width, 2 layers (Griffin 3):
+   each family's (1, 2) ``generate`` equals the unsharded engine's
+   tokens; on (2, 1), rwkv6-3b's wave serving and whisper-small's slot
+   serving with per-request ``extra`` equal each request's solo
+   ``generate``.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -458,8 +490,11 @@ PEAK_FP32_S = 67e12             # fp32 outside the tensor cores
 TOL_KERNEL = 1e-4
 PROMPT_LEN = 8192               # phase 3: the paper's long-context regime
 NEW_TOKENS = 128
-PHASE3_EAGER_NEW = 32           # phase 3's eager run: a Refresh, then Partial
-RWKV_EAGER_NEW = 32             # phase 5's eager run (slice 21 cut it)
+PHASE3_EAGER_NEW = 16           # phase 3's eager run: a Refresh, then Partial
+RWKV_EAGER_NEW = 16             # phase 5's eager run (slices 21, 22 cut it)
+# the prompt the sync checks prefill before the eager bodies run (the
+# bodies force their modes, so a short context serves)
+SYNC_CHECK_PROMPT = 1024
 PROFILE_STEPS = 3               # the graph runs' profiled decode window
 REFRESH_PROFILE_STEPS = 1       # forced Refresh steps profiled after it
 # spin before each timed call (~2 ms at the H100's clock): the host
@@ -1559,7 +1594,7 @@ def generate_runs(torch, card, cfg, spec, dcfg, params, dparams, prompt,
                           prefill=graphs and profile_prefill))
         t_checks = time.perf_counter()
         if not graphs:
-            check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
+            check_sync_free(torch, card, eng, prompt[:, :SYNC_CHECK_PROMPT])
         say(card, f"{label} took {time.perf_counter() - t_run:.1f} s "
                   f"(generate {wall:.1f} s, hook and profile "
                   f"{t_checks - t_prof:.1f} s, sync check "
@@ -2055,7 +2090,7 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
                              label=label, steps=6 if graphs else 3,
                              prefill=graphs)
         if not graphs:
-            check_sync_free(torch, card, eng, prompt[:, : prompt_len // 2])
+            check_sync_free(torch, card, eng, prompt[:, :SYNC_CHECK_PROMPT])
         runs[label] = dict(toks=toks, launches=launches, wall_s=wall,
                            tokens_per_s=n_new / wall,
                            prefill_s=stats["prefill_s"], peak_gib=peak,
@@ -2066,7 +2101,13 @@ def phase_rwkv(torch, card, prompt_len: int = PROMPT_LEN,
     del params, dparams
     torch.cuda.empty_cache()
     rwkv_lossless(torch, card)
-    return runs["graphs"]["launches"]
+    g = runs["graphs"]
+    # the unsharded figures phase 22 reports beside its split run
+    g["launches"]["graph_run"] = dict(
+        toks=g["toks"][0].tolist(), source="phase 5", layers=cfg.num_layers,
+        **{k: g[k] for k in ("busy_ms_step", "device_launches_step",
+                             "host_launch_calls_step", "peak_gib")})
+    return g["launches"]
 
 
 def rwkv_lossless(torch, card, prompt_len: int = 1024, new_tokens: int = 32):
@@ -2198,10 +2239,11 @@ def _serving_requests(prompts, reqs_spec, kinds=((0.0, "tree"),)):
             for i, (p, (_, new)) in enumerate(zip(prompts, reqs_spec))]
 
 
-# phase 6's eager arm serves these requests alone (the two shortest; the
-# whole trace took about 32 s eagerly), and the graph server serves them
-# again after its full run, for the eager-against-graphs identity
-SERVE_EAGER_REQS = 2
+# phase 6's eager arm serves these requests alone (the two shortest
+# prompts with fewer new tokens: the whole trace took about 32 s eagerly,
+# these 96 tokens 11-12 s), and the graph server serves them again after
+# its full run, for the eager-against-graphs identity
+SERVE_EAGER = ((2048, 8), (3072, 16))
 
 
 def phase_serving(torch, card):
@@ -2240,7 +2282,7 @@ def phase_serving(torch, card):
                          num_pages=SERVE_PAGES, paged_kv=True,
                          zero_copy_partial=True, prefix_cache=False)
     runs, short = {}, {}
-    few = SERVE_REQS[:SERVE_EAGER_REQS]
+    few = SERVE_EAGER
     for graphs in (True, False):
         label = RUN_LABEL[graphs]
         srv = ServingEngine(cfg, spec, dcfg, params, dparams, scfg,
@@ -2577,7 +2619,9 @@ def serving_lossless(torch, card, layers: int = 4, new: int = 32,
 # block; a ninth request repeats the first prompt.  By request_token_need
 # a request needs 54 pages cold and 6 fresh behind a 48-block match, so
 # 128 allocatable pages hold two requests without sharing and four with
-PREFIX_SYS, PREFIX_TAIL, PREFIX_N, PREFIX_NEW = 6144, 500, 8, 64
+# 32 new tokens: 64 kept the same 54 pages a request and only added decode
+# ticks (slice 22's cut)
+PREFIX_SYS, PREFIX_TAIL, PREFIX_N, PREFIX_NEW = 6144, 500, 8, 32
 PREFIX_PAGES = 129
 
 
@@ -3047,7 +3091,7 @@ PAGED_GATHERED = dict(paged=True, zero_copy=False)
 # phase 3's max_len (request_token_need(8192, 128, 96, 6)): not a multiple
 # of the 128-token block, so the contiguous rows past it are padding
 CONTIG_MAX_LEN = 8431
-CONTIG_EAGER_NEW = 32       # phase 8's eager generate: a Refresh, then Partial
+CONTIG_EAGER_NEW = 16       # phase 8's eager generate: a Refresh, then Partial
 
 
 def _attn_work(q, vlen, t, causal_pairs=None):
@@ -3464,6 +3508,11 @@ def phase_default_engine(torch, card, timer, p3=None, p4=None, p6=None):
 # ---------------------------------------------------------------------------
 
 FUSED_BUDGET = 1024     # prefill tokens per tick: up to four 256-token rows
+# phase 6's prompts with fewer new tokens: the phase measures the prefill
+# pump, and decode ticks of the longer budgets only added host seconds
+FUSED_REQS = ((2048, 8), (3072, 16), (4608, 16), (6144, 16), (8192, 16),
+              (8192, 16))
+FUSED_PREFIX_NEW = 16   # (b): phase 7's shared-prefix prompts
 # a ragged [4, 256] round at llama widths: (length, t_valid) per row
 FUSED_ROWS = ((7936, 256), (48, 16), (0, 200), (4000, 1))
 # phase 9 (c)'s short trace, served with graphs and eagerly: three prompts
@@ -3809,7 +3858,8 @@ def fused_lossless(torch, card, layers: int = 4, new: int = 32):
 def phase_fused_prefill(torch, card, timer):
     """Phase 9: the fused multi-row prefill (``ServingConfig.fused_prefill``
     , the reference's default) at llama3.1-8b's full width: the ragged
-    K2/K4 call forms; (a) phase 6's six requests interleaved
+    K2/K4 call forms; (a) phase 6's six prompts (``FUSED_REQS``)
+    interleaved
     (``prefill_budget=1024``) on the paged pool with the serial and the
     fused pump and on contiguous slots fused, with graphs, and one fused
     round profiled; (b) the shared-prefix traffic of phase 7, fused, with
@@ -3850,7 +3900,7 @@ def phase_fused_prefill(torch, card, timer):
         srv = ServingEngine(cfg, spec, dcfg, params, dparams, scfg,
                             device="cuda")
         runs[label], eng = _fused_serve(
-            torch, card, srv, _serving_requests(prompts, SERVE_REQS), label)
+            torch, card, srv, _serving_requests(prompts, FUSED_REQS), label)
         memory_line(torch, card, f"fused prefill {label}", eng, params,
                     dparams, runs[label]["peak_gib"])
         if label == "paged fused":
@@ -3873,7 +3923,8 @@ def phase_fused_prefill(torch, card, timer):
         zero_copy_partial=True, prefix_cache=True), device="cuda")
     pp = _prefix_prompts(np, cfg.vocab_size)
     shared, eng = _fused_serve(
-        torch, card, srv, _serving_requests(pp, [(0, PREFIX_NEW)] * len(pp)),
+        torch, card, srv,
+        _serving_requests(pp, [(0, FUSED_PREFIX_NEW)] * len(pp)),
         "shared prefixes fused")
     pre, ps = shared["prefix"], shared["pages"]
     if ps["in_use"] != ps["idle"] or not pre["prefill_tokens_skipped"]:
@@ -4454,8 +4505,12 @@ SAMPLED_ARMS = (("greedy-tree", ((0.0, "tree"),)),
                 ("sampled-tree", ((SAMPLED_TEMP, "tree"),)),
                 ("mixed", ((0.0, "tree"), (SAMPLED_TEMP, "chain"),
                            (SAMPLED_TEMP, "tree"))))
+# the arms serve phase 6's prompts with half its new tokens (slice 22's
+# cut of decode ticks)
+SAMPLED_REQS = ((2048, 16), (3072, 32), (4608, 32), (6144, 32), (8192, 32),
+                (8192, 32))
 RWKV_SAMPLED_PROMPT = 2048      # phase 5's 8192 cut to keep the budget
-RWKV_SAMPLED_NEW = 32
+RWKV_SAMPLED_NEW = 16          # eager and graphs (slice 22 cut it from 32)
 
 
 def _arm_keys_ok(name, keys):
@@ -4483,13 +4538,13 @@ def _sampled_arms(torch, card, cfg, spec, dcfg, params, dparams, prompts):
         chunks0 = eng.prefill_dispatches if eng else 0
         graphs0 = len(eng._graphs) if eng else 0
         outs, wall, launches, peak = _serve(
-            torch, srv, _serving_requests(prompts, SERVE_REQS, kinds))
+            torch, srv, _serving_requests(prompts, SAMPLED_REQS, kinds))
         sched = srv._continuous
         eng, st = sched.engine, srv.stats
         if eng.paged or not eng.gathered:
             raise AssertionError("ServingConfig() serves contiguous slots "
                                  "with the gathered partial cache")
-        for i, (n, new) in enumerate(SERVE_REQS):
+        for i, (n, new) in enumerate(SAMPLED_REQS):
             o = outs[f"r{i}"]
             if (o.finish_reason != "length" or len(o.tokens) != new
                     or o.tokens.min() < 0
@@ -4519,7 +4574,7 @@ def _sampled_arms(torch, card, cfg, spec, dcfg, params, dparams, prompts):
         peak_all = max(peak_all, peak)
         ntok = int(sum(len(o.tokens) for o in outs.values()))
         by_kind = {}
-        for i in range(len(SERVE_REQS)):
+        for i in range(len(SAMPLED_REQS)):
             by_kind.setdefault("%s-%s" % kinds[i % len(kinds)], []).append(
                 outs[f"r{i}"].mean_accept)
         accept = {k: float(np.mean(v)) for k, v in by_kind.items()}
@@ -4904,6 +4959,7 @@ TIER_CODECS = (("int8", dict(tier_codec="int8")),
 TIER_SCHEDULE = ("refresh", "partial", "partial", "partial", "refresh",
                  "refresh", "partial")
 TIER_PREFETCH_AFTER = 3         # steps run before the prefetch is issued
+TIER_SERVE_REQS = SAMPLED_REQS  # (b): phase 6's prompts, half its tokens
 
 
 def _guard_tier(torch, tm):
@@ -5062,7 +5118,8 @@ def _tier_forced(torch, card, cfg, spec, dcfg, params, dparams, prompt):
 
 
 def _tier_served(torch, card, cfg, spec, dcfg, params, dparams):
-    """(b): phase 6's six requests at batch 4 on the gathered paged layout
+    """(b): phase 6's six prompts (``TIER_SERVE_REQS``: half its new
+    tokens) at batch 4 on the gathered paged layout
     (161 trunk pages, the draft pool at full size in both arms: it is read
     every step and never tiered), untiered and tiered int8, with graphs.
     The tiered run's K1-K4 launches are counted over its run and held to
@@ -5082,12 +5139,12 @@ def _tier_served(torch, card, cfg, spec, dcfg, params, dparams):
             paged_kv=True, zero_copy_partial=False, prefix_cache=False,
             tiered_kv=tiered), device="cuda")
         outs, wall, launches, peak = _serve(
-            torch, srv, _serving_requests(prompts, SERVE_REQS))
+            torch, srv, _serving_requests(prompts, TIER_SERVE_REQS))
         eng = srv._continuous.engine
         st = srv.stats
         if eng.tiered != tiered or eng.zero_copy:
             raise AssertionError("tiers (b): wrong engine layout")
-        for i, (n, new) in enumerate(SERVE_REQS):
+        for i, (n, new) in enumerate(TIER_SERVE_REQS):
             o = outs[f"r{i}"]
             if (o.finish_reason != "length" or len(o.tokens) != new
                     or o.tokens.min() < 0
@@ -5782,7 +5839,8 @@ def _registry_rwkv_train(torch, card):
 
 def phase_registry(torch, card):
     """Phase 15: (a) qwen2-0.5b's ``generate`` at full width and depth on
-    the paged zero-copy pool, eager and with graphs; (b) deepseek-7b's,
+    the paged zero-copy pool, with graphs (eager over the first 16
+    tokens); (b) deepseek-7b's,
     with graphs (eager over the first tokens); (c) granite-3-2b at full
     depth and qwen1.5-32b at full width (its depth reckoned first), a
     2048-token prompt with graphs; (d) qwen2-0.5b fp32 losslessness; (e)
@@ -5798,7 +5856,8 @@ def phase_registry(torch, card):
         torch, card, REG_REP7)
     runs_a = generate_runs(torch, card, cfg, spec, dcfg, params, dparams,
                            prompt, NEW_TOKENS, PAGED_ZERO_COPY, REG_REP7,
-                           profile_eager=False, profile_prefill=False)
+                           eager_new=PHASE3_EAGER_NEW, profile_eager=False,
+                           profile_prefill=False)
     del params, dparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -5864,6 +5923,7 @@ GRIFFIN = "recurrentgemma-2b"
 GRIFFIN_PROMPT = 4096       # the 2048-token window wraps twice
 GRIFFIN_NEW = 64
 GRIFFIN_PROFILE_STEPS = 3
+GRIFFIN_EAGER_NEW = 16      # (a)'s eager run (slice 22's cut)
 GRIFFIN_LOSSLESS_LAYERS = 5     # one (rec, rec, attn) superblock + (rec, rec)
 GRIFFIN_LOSSLESS_PROMPT = 2304  # nine chunks, past the window
 GRIFFIN_LOSSLESS_NEW = 32
@@ -5945,8 +6005,9 @@ def _cast_cost(torch, card, params):
 
 def _griffin_generate(torch, card):
     """(a) bf16, full width and depth, a 4096-token prompt: greedy chain
-    ``generate`` eagerly, then with graphs (equal tokens); no kernel of
-    the port launched; the graph run profiled."""
+    ``generate`` eagerly over ``GRIFFIN_EAGER_NEW`` tokens, then with
+    graphs (equal tokens over those); no kernel of the port launched; the
+    graph run profiled."""
     from repro_torch.core.engine import SpecPVEngine, request_token_need
     from repro_torch.kernels import ops
     cfg, spec, dcfg, params, dparams, prompt = _full_width(
@@ -5956,6 +6017,7 @@ def _griffin_generate(torch, card):
     runs = {}
     for graphs in (False, True):
         label = f"{GRIFFIN} {RUN_LABEL[graphs]}"
+        n_new = GRIFFIN_NEW if graphs else GRIFFIN_EAGER_NEW
         t_run = time.perf_counter()
         eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
                            max_len=max_len, paged=False, device="cuda",
@@ -5964,7 +6026,7 @@ def _griffin_generate(torch, card):
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        toks, stats = eng.generate(prompt, GRIFFIN_NEW)
+        toks, stats = eng.generate(prompt, n_new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
@@ -5974,12 +6036,12 @@ def _griffin_generate(torch, card):
         say(card, f"generate [{label}] ({cfg.num_layers} layers, d "
                   f"{cfg.d_model}, window {cfg.window_size}, bf16, random "
                   f"weights, chain depth {dcfg.tree_depth}) prompt "
-                  f"{GRIFFIN_PROMPT} new {GRIFFIN_NEW}: modes {stats['modes']} "
+                  f"{GRIFFIN_PROMPT} new {n_new}: modes {stats['modes']} "
                   f"steps {stats['steps']} mean_accept "
                   f"{stats['mean_accept']:.4f} wall_s {wall:.3f} (prefill_s "
                   f"{stats['prefill_s']:.3f} decode_s {decode_s:.3f}, ms/step "
                   f"{decode_s * 1e3 / max(stats['steps'], 1):.2f}) "
-                  f"tokens_per_s {GRIFFIN_NEW / wall:.2f} peak_mem_gib "
+                  f"tokens_per_s {n_new / wall:.2f} peak_mem_gib "
                   f"{peak:.2f} capture_s {eng.capture_s:.3f} graphs "
                   f"{sorted(map(str, eng._graphs))} port kernel launches "
                   f"{launches}")
@@ -5991,7 +6053,7 @@ def _griffin_generate(torch, card):
         if graphs and set(eng._graphs) != {("prefill", 256), "state"}:
             raise AssertionError(f"graphs captured: "
                                  f"{sorted(map(str, eng._graphs))}")
-        if toks.shape != (1, GRIFFIN_NEW) or toks.min() < 0 \
+        if toks.shape != (1, n_new) or toks.min() < 0 \
                 or toks.max() >= cfg.vocab_size:
             raise AssertionError(f"tokens out of range: {toks}")
         fs = eng.final_state.cache
@@ -5999,7 +6061,7 @@ def _griffin_generate(torch, card):
             raise AssertionError("the window does not hold the last token")
         eng.final_state = None
         run = dict(toks=toks, launches=launches, wall_s=wall,
-                   tokens_per_s=GRIFFIN_NEW / wall,
+                   tokens_per_s=n_new / wall,
                    prefill_s=stats["prefill_s"], peak_gib=peak,
                    capture_s=eng.capture_s, steps=stats["steps"],
                    decode_ms_step=decode_s * 1e3 / max(stats["steps"], 1))
@@ -6167,8 +6229,8 @@ def phase_griffin(torch, card):
             "chunk_replay_ms")
     gen = {lb: {k: r[k] for k in keep if k in r} for lb, r in runs.items()}
     return dict(launches=runs["graphs"]["launches"], generate=gen,
-                cast=cast, fp32=fp32, train=train, seconds=secs,
-                total_s=total)
+                tokens=runs["graphs"]["toks"][0].tolist(), cast=cast,
+                fp32=fp32, train=train, seconds=secs, total_s=total)
 
 
 # ---------------------------------------------------------------------------
@@ -6179,6 +6241,7 @@ AUDIO = "whisper-small"                 # 12 + 12 layers, 12/12 heads, Dh 64
 VLM = "llama-3.2-vision-90b"            # 64/8 heads, Dh 128, cross every 5th
 XATTN_LAYOUT = dict(paged=True, zero_copy=True, prefix_cache=False)
 XATTN_PROFILE_STEPS = 4
+XATTN_EAGER_NEW = 16                    # (a)'s eager run (slice 22's cut)
 VLM_MARGIN_GIB = 6.0                    # the card left free at the depth run
 XATTN_LOSSLESS_PROMPT, XATTN_LOSSLESS_NEW = 2304, 32
 XATTN_LOSSLESS_LAYERS = 5               # the VLM's one superblock in fp32
@@ -6284,22 +6347,26 @@ def _encoder_ms(torch, eng, extra):
 
 
 def _xattn_generate(torch, card, cfg, spec, dcfg, params, dparams, prompt,
-                    extra, new, name, modes=(False, True)):
+                    extra, new, name, modes=(False, True), eager_new=None):
     """``generate(extra=)`` on the paged zero-copy pool (prefix sharing
     off: it cannot key ``extra``) for each graph mode in ``modes``: K1-K4
     launches above 0 and held to the steps and chunks, final summaries to
     the plain version, tokens in range; the graph run profiled (decode
     window, prefill unprofiled), the eager one's bodies under the sync
-    check; graphs == eager when both run.  Returns the runs' numbers."""
+    check; graphs == eager when both run (the graph run's first
+    ``eager_new`` tokens when the eager run generates only those).
+    Returns the runs' numbers."""
     from repro_torch.core.engine import SpecPVEngine, request_token_need
     from repro_torch.kernels import ops
     prompt_len = prompt.shape[1]
     max_len = request_token_need(prompt_len, new, spec.buffer_size,
                                  dcfg.tree_depth + 1)
     runs = {}
+    full_new = new
     for graphs in modes:
         t_run = time.perf_counter()
         label = f"{name} {RUN_LABEL[graphs]}"
+        new = full_new if graphs or eager_new is None else eager_new
         eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
                            max_len=max_len, device="cuda",
                            cuda_graphs=graphs, **XATTN_LAYOUT)
@@ -6599,7 +6666,8 @@ def phase_vlm_audio(torch, card):
     cfg, spec, dcfg, params, dparams, prompt, extra = _xattn_model(
         torch, card, AUDIO)
     audio = _xattn_generate(torch, card, cfg, spec, dcfg, params, dparams,
-                            prompt, extra, NEW_TOKENS, AUDIO)
+                            prompt, extra, NEW_TOKENS, AUDIO,
+                            eager_new=XATTN_EAGER_NEW)
     del params, dparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -6642,6 +6710,7 @@ def phase_vlm_audio(torch, card):
     return dict(audio_launches=audio["graphs"]["launches"],
                 vlm_launches=vlm["graphs"]["launches"],
                 generate={AUDIO: pick(audio), VLM: pick(vlm)},
+                tokens={AUDIO: audio["graphs"]["toks"][0].tolist()},
                 vlm_reckoning=reckon, fp32=fp32, seconds=secs,
                 total_s=total)
 
@@ -8381,11 +8450,479 @@ def phase_tensor_parallel(torch, card, timer, p3=None):
                 seconds=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: every model family under a mesh (tensor parallelism of the
+# state and cross-attention targets, their data-parallel serving)
+# ---------------------------------------------------------------------------
+
+FAM_NEW = 32                    # (a): tokens per target
+FAM_VLM_LAYERS = 10             # (a): the VLM's two (attn x4, cross) blocks
+FAM_SHARD_HEADS = (((6, 6, 64), 24, AUDIO), ((32, 4, 128), 16, VLM))
+# (b): fp32 at full width; Griffin keeps one (rec, rec, attn) superblock,
+# the VLM one (attn, cross) pair; the attention prompts pass the budget
+FAM_FP32 = (("rwkv6-3b", 2, 512), (GRIFFIN, 3, 2304), (AUDIO, 2, 4600),
+            (VLM, 2, 4600))
+FAM_FP32_NEW = 24
+FAM_DP_REQS = (512, 700, 300, 512)      # (b): the (2, 1) wave's prompts
+FAM_DP_XATTN = (4600, 1500)             # (b): one slot a data shard
+
+
+def _fam_kernel_checks(torch, card, timer):
+    """Phase 22 (c): K5 at one model shard's heads of rwkv6-3b (H 20, dk
+    64, fp32: the chain verify T=6, a prefill chunk T=256, an advance of
+    2 valid of T=6), and K1-K4 at one model shard's heads of
+    whisper-small (H=Hk=6, Dh 64) and of the VLM (H=32, Hk=4, Dh 128),
+    block 128, bf16, over 8192 tokens (K1 Full T=61 and routed Partial
+    NS=35 T=61, K2 T=256 at qoff 7936, K3 a Refresh T=156 over 66 blocks,
+    K4's paged form over both shards' stacked attention layers).  Each is
+    held to its plain version (K4 bit for bit) and timed beside its bound
+    and SDPA.  Returns {kernel: {label: row}}."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2200)
+    out = {k: {} for k in LLAMA_KERNELS + RWKV_KERNELS}
+    h, dk = 20, 64
+    for t, nv, update in ((6, 6, False), (256, 256, True), (6, 2, True)):
+        label = (f"K5 {WKV_PATH_SHAPES[(t, update)]} H=20 (rwkv6-3b, one "
+                 f"of 2 model shards)")
+        r, k, v, w, u, s0 = _wkv_inputs(torch, gen, 1, t, h=h)
+        n_valid = torch.tensor([nv], dtype=torch.int32, device="cuda")
+        y, s = ops.wkv(r, k, v, w, u, s0, n_valid, update=update)
+        want_y, want_s = ref.wkv_batched(r, k, v, w, u, s0, n_valid)
+        torch.cuda.synchronize()
+        pairs = [("y", y, want_y)] + ([("s", s, want_s)] if update else [])
+        rel = max(_close(f"{label} {nm}", g, wv) for nm, g, wv in pairs)
+        err = max((g - wv).abs().max().item() for _, g, wv in pairs)
+        before = ops.launch_counts()
+        ms = timer.kernel_ms(
+            lambda: ops.wkv(r, k, v, w, u, s0, n_valid, update=update),
+            "wkv_kernel")
+        ops.set_launch_counts(before)
+        plain_timer = timer if t <= 6 else timer.wall
+        plain_ms = plain_timer(
+            lambda: ref.wkv_batched(r, k, v, w, u, s0, n_valid), iters=3,
+            warmup=1)
+        nbytes = (5 * t * h * dk * 4 + h * dk * 4 + 4
+                  + (2 if update else 1) * h * dk * dk * 4)
+        flops = 5 * t * h * dk * dk + 2 * nv * h * dk * dk
+        bound, by = _bound_ms(nbytes, flops, PEAK_FP32_S)
+        say(card, f"kernel {label} ({nv} valid): max_abs_err {err:.3e} "
+                  f"max_rel_err {rel:.3e} (tol {TOL_KERNEL}) ms {ms:.4f} "
+                  f"(profiler) plain_ms {plain_ms:.4f} bound_us "
+                  f"{bound * 1e3:.3f} ({by}) library_ms none")
+        out["wkv"][label] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by,
+                                 library_ms=None)
+    for (h, hk, dh), layers, tag in FAM_SHARD_HEADS:
+        g = f"H={h} Hk={hk} Dh={dh} ({tag}, one of 2 model shards)"
+        kw = dict(h=h, hk=hk, dh=dh)
+        for label, name, case in (
+                (f"K1 full T=61 ctx=8229 {g}", "sparse_verify_attention",
+                 dict(t=61, ctx=8229)),
+                (f"K1 routed NS=35 T=61 {g}", "sparse_verify_attention",
+                 dict(t=61, ctx=8229, routed_ns=35)),
+                (f"K2 prefill T=256 qoff=7936 {g}",
+                 "paged_prefill_attention",
+                 dict(t=256, ctx=8192, causal_qoff=7936))):
+            res = {}
+            _attn_check(torch, card, timer, gen, res, label, name, **case,
+                        **kw)
+            out[name][label] = res[name]
+        label = f"K3 Refresh T=156 NB=66 {g} bf16"
+        out["retrieval_score"][label] = _score_row(
+            torch, card, timer, gen, label, 156, 66, torch.bfloat16, h, hk,
+            dh)
+        k4, start, end, n_touch = K4_PAGED_SHAPES[0]
+        row = _paged_summary_case(torch, card, timer, gen, torch.bfloat16,
+                                  k4, start, end, n_touch, layers=layers,
+                                  hk=hk, dh=dh)
+        out["block_summary"][f"K4 paged {k4} L={layers} (2 shards x "
+                             f"{layers // 2} layers) {g} bf16"] = dict(
+            max_abs_err=0.0, timing="profiler", **row)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fam_model(torch, card, name):
+    """(a)'s weights: each target's phase's own (the same seeds, the same
+    prompt), the VLM at ``FAM_VLM_LAYERS``.  Returns (cfg, spec, dcfg,
+    params, dparams, prompt, extra)."""
+    from repro_torch.configs import SpecPVConfig
+    if name == "rwkv6-3b":          # phase 5's
+        cfg, _, dcfg, params, dparams, prompt = _full_width(
+            torch, card, name)
+        return cfg, SpecPVConfig(), dcfg, params, dparams, prompt, None
+    if name == GRIFFIN:             # phase 16's
+        cfg, spec, dcfg, params, dparams, prompt = _full_width(
+            torch, card, name, prompt_len=GRIFFIN_PROMPT)
+        return cfg, spec, dcfg, params, dparams, prompt, None
+    return _xattn_model(torch, card, name,
+                        layers=FAM_VLM_LAYERS if name == VLM else None)
+
+
+def _fam_run(torch, card, name, model, mesh):
+    """One target's ``generate`` of ``FAM_NEW`` tokens with graphs, over
+    ``mesh`` (None: unsharded): launches, call forms, peak, a profiled
+    decode window and, split, the collectives' device time.  The split's
+    launches are held to twice the unsharded per-layer counts (K5 at H
+    20; K1-K3 at the shard's heads; K4 once per chunk and commit over
+    both shards' layers), its graphs to one per step variant.  Returns
+    the numbers."""
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.kernels import ops
+    from repro_torch.train.optimizer import tree_leaves
+    cfg, spec, dcfg, params, dparams, prompt, extra = model
+    state = not cfg.is_attention_arch
+    prompt_len = prompt.shape[1]
+    max_len = request_token_need(prompt_len, FAM_NEW, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    layout = (dict(paged=False) if state
+              else dict(paged=True, zero_copy=True, prefix_cache=False))
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                       max_len=max_len, device="cuda", mesh=mesh, **layout)
+    label = f"{name} {'tp (1, 2)' if mesh is not None else 'unsharded'}"
+    strided = 0
+    if mesh is not None:
+        tp = eng.tp
+        flags = {k: getattr(tp, k) for k in (
+            "attn_split", "mlp_split", "tmix_split", "cmix_split",
+            "rec_split", "embed_split", "head_split")}
+        want = {"rwkv6-3b": ("tmix_split", "cmix_split", "embed_split",
+                             "head_split"),
+                GRIFFIN: ("rec_split", "mlp_split", "embed_split"),
+                AUDIO: ("attn_split", "mlp_split", "embed_split"),
+                VLM: ("attn_split", "mlp_split", "embed_split",
+                      "head_split")}[name]
+        if sorted(k for k, v in flags.items() if v) != sorted(want) \
+                or eng.kv_shards != 2:
+            raise AssertionError(f"{label}: split {flags}, kv_shards "
+                                 f"{eng.kv_shards}")
+        given = {t.untyped_storage().data_ptr()
+                 for t in tree_leaves(params) + tree_leaves(dparams)}
+        pieces = [t for split in (tp, tp.draft) for sh in split.shards
+                  for t in tree_leaves(sh.params)]
+        if any(t.untyped_storage().data_ptr() not in given for t in pieces):
+            raise AssertionError(f"{label}: a model shard holds a copy of a "
+                                 f"weight")
+        strided = sum(not t.is_contiguous() for t in pieces)
+    shapes = _LaunchShapes()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        toks, stats = eng.generate(prompt, FAM_NEW, extra=extra)
+    finally:
+        shapes.remove()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    heads = dict(ops.WKV_HEADS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    memory_line(torch, card, label, eng, params, dparams, peak)
+    steps = stats["steps"]
+    say(card, f"generate [{label}] ({cfg.num_layers} layers, bf16, random "
+              f"weights{', extra' if extra else ''}, graphs) prompt "
+              f"{prompt_len} new {FAM_NEW}: modes {stats['modes']} steps "
+              f"{steps} wall_s {wall:.3f} (prefill_s {stats['prefill_s']:.3f})"
+              f" peak_mem_gib {peak:.2f} graphs "
+              f"{sorted(map(str, eng._graphs))} launches {launches} K5 by H "
+              f"{heads} strided pieces {strided}")
+    m = 2 if mesh is not None else 1
+    chunks = -(-prompt_len // 256)
+    if state:
+        want = {k: 0 for k in ops.KERNELS}
+        if cfg.arch_type == "ssm":
+            want["wkv"] = m * cfg.num_layers * (chunks + 2 * steps)
+        want_heads = ({cfg.num_heads // m: want["wkv"]} if want["wkv"]
+                      else {})
+        if stats["modes"] != {"state": steps} or launches != want \
+                or heads != want_heads:
+            raise AssertionError(f"{label}: modes {stats['modes']}, "
+                                 f"launches {launches} (want {want}), K5 by "
+                                 f"H {heads} (want {want_heads})")
+        want_graphs = {("prefill", 256), "state"}
+    else:
+        la = eng.l_attn
+        refresh = stats["modes"].get("refresh", 0)
+        commits = refresh + stats["modes"].get("full", 0)
+        want = {"sparse_verify_attention": m * la * steps,
+                "paged_prefill_attention": m * la * chunks,
+                "retrieval_score": m * la * refresh,
+                "block_summary": chunks + commits}
+        got = {k: launches[k] for k in want}
+        forms = {f[1:] for f in shapes.seen if f[0] != "block_summary"}
+        want_forms = {(cfg.num_heads // m, cfg.num_kv_heads // m,
+                       cfg.head_dim_)}
+        if got != want or not (refresh and stats["modes"].get("partial")) \
+                or forms != want_forms:
+            raise AssertionError(f"{label}: launches {got} != {want}, modes "
+                                 f"{stats['modes']}, call forms {forms}")
+        want_graphs = {("prefill", 256), (True, False, True, False, False),
+                       (False, True, False, False, False)}
+    if set(eng._graphs) != want_graphs:
+        raise AssertionError(f"{label}: graphs "
+                             f"{sorted(map(str, eng._graphs))}")
+    if toks.shape != (1, FAM_NEW) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab_size:
+        raise AssertionError(f"{label}: tokens out of range: {toks}")
+    eng.final_state = None
+
+    def after(st):
+        if mesh is None:
+            return {}
+        coll, _ = _tp_collectives(torch, card, eng, st)
+        return coll
+    prof = profile_steps(torch, card, eng, prompt, label=label,
+                         steps=PROFILE_STEPS, prefill=False, extra=extra,
+                         after=after)
+    calls = prof["host_launch_calls_step"]
+    if calls != (2 if state else 3):
+        raise AssertionError(f"{label}: {calls} host launch calls per step "
+                             f"(one graph replay and its copies)")
+    coll = prof.pop("after") or {}
+    res = dict(toks=toks, launches=launches, wkv_heads=heads,
+               forms=sorted(map(list, shapes.seen), key=str), steps=steps,
+               modes=stats["modes"], wall_s=wall, peak_gib=peak,
+               prefill_s=stats["prefill_s"], layers=cfg.num_layers,
+               strided_pieces=strided,
+               collectives_ms_step=coll.get("collectives ms/step", 0.0),
+               collective_calls_step=(coll.get("tp all_reduce calls/step", 0)
+                                      + coll.get("tp all_gather calls/step",
+                                                 0)),
+               **{k: prof[k] for k in (
+                   "busy_ms_step", "device_launches_step",
+                   "host_launch_calls_step", "idle_share", "wall_ms_step")})
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def _fam_generate(torch, card, base):
+    """(a) each family at full width on a (1, 2) mesh of two ``cuda:0``
+    model shards (the VLM at ``FAM_VLM_LAYERS``, beside its own unsharded
+    run there), beside the unsharded phase's numbers from the same call
+    (``base``: phases 5, 16 and 17).  Returns {name: numbers}."""
+    import gc
+    import numpy as np
+    from repro_torch.distributed.sharding import make_mesh
+    mesh = make_mesh((1, 2), devices=["cuda:0"] * 2)
+    out = {}
+    for name in ("rwkv6-3b", GRIFFIN, AUDIO, VLM):
+        t0 = time.perf_counter()
+        model = _fam_model(torch, card, name)
+        ref = base.get(name)
+        if name == VLM:
+            ref = _fam_run(torch, card, name, model, None)
+        res = _fam_run(torch, card, name, model, mesh)
+        cfg = model[0]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        if ref:
+            n = min(FAM_NEW, np.asarray(ref["toks"]).size)
+            eq = int(np.sum(np.asarray(res["toks"]).reshape(-1)[:n]
+                            == np.asarray(ref["toks"]).reshape(-1)[:n]))
+            res["unsharded"] = {k: ref.get(k) for k in (
+                "busy_ms_step", "device_launches_step",
+                "host_launch_calls_step", "peak_gib", "layers")}
+            res["equal_tokens"] = f"{eq}/{n}"
+            say(card, f"family tp [{name}] ({cfg.num_layers} layers) vs "
+                      f"unsharded ({ref.get('source', 'same phase')}): bf16 "
+                      f"tokens equal {eq} of {n} (reported, not asserted: "
+                      f"the split changes the bf16 sums' order); device "
+                      f"busy ms/step {res['busy_ms_step']:.2f} vs "
+                      f"{ref['busy_ms_step']:.2f}; device launches/step "
+                      f"{res['device_launches_step']:.1f} vs "
+                      f"{ref['device_launches_step']:.1f}; host launch "
+                      f"calls/step {res['host_launch_calls_step']:.1f} vs "
+                      f"{ref['host_launch_calls_step']:.1f}; collectives "
+                      f"{res['collectives_ms_step']:.3f} ms/step in "
+                      f"{res['collective_calls_step']:.0f} calls; peak GiB "
+                      f"{res['peak_gib']:.2f} vs {ref['peak_gib']:.2f}")
+        else:
+            say(card, f"family tp [{name}]: its unsharded phase did not run, "
+                      f"no numbers beside it")
+        res["seconds"] = time.perf_counter() - t0
+        res["toks"] = res["toks"][0].tolist()
+        out[name] = res
+    return out
+
+
+def _fam_fp32(torch, card):
+    """(b) fp32 (TF32 off) at full width and 2 layers (Griffin 3): each
+    family's ``generate`` on a (1, 2) mesh equals the unsharded engine's
+    tokens; on a (2, 1) mesh of two ``cuda:0`` data shards, rwkv6-3b's
+    wave serving and whisper-small's slot serving with per-request
+    ``extra`` give each request's solo ``generate``.  Returns the
+    numbers."""
+    import numpy as np
+    from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
+    from repro_torch.core.data_parallel import DataParallelEngine
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.distributed.sharding import DeviceMesh, make_mesh
+    from repro_torch.models import api
+    from repro_torch.serving import Request, ServingConfig, ServingEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dcfg = DraftConfig()
+    out = {}
+    models = {}
+    for name, layers, plen in FAM_FP32:
+        cfg = get_config(name).replace(num_layers=layers, dtype="float32",
+                                       param_dtype="float32")
+        if cfg.arch_type == "vlm":
+            cfg = cfg.replace(cross_attn_every=2)
+        spec = (SpecPVConfig(use_pallas=True, score_mode="paper",
+                             reduction="mean") if cfg.is_attention_arch
+                else SpecPVConfig())
+        params = api.init_params(cfg, seed=4, device="cuda")
+        _set_gates(torch, params, 22)
+        dparams = init_draft_params(cfg, dcfg, seed=5, device="cuda")
+        prompt = np.random.default_rng(22).integers(
+            0, cfg.vocab_size, (1, plen)).astype(np.int64)
+        extra = api.extra_inputs_for(cfg, 1, seed=23, device="cuda") or None
+        max_len = request_token_need(plen, FAM_FP32_NEW, spec.buffer_size,
+                                     dcfg.tree_depth + 1)
+        layout = (dict(paged=False) if not cfg.is_attention_arch
+                  else dict(paged=True, zero_copy=True, prefix_cache=False))
+        got = {}
+        for label, mesh in (("unsharded", None),
+                            ("(1, 2)", make_mesh((1, 2),
+                                                 devices=["cuda:0"] * 2))):
+            eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                               max_len=max_len, device="cuda", mesh=mesh,
+                               **layout)
+            got[label] = eng.generate(prompt, FAM_FP32_NEW, extra=extra)
+            del eng
+        (ut, us), (tt, ts) = got["unsharded"], got["(1, 2)"]
+        if not np.array_equal(tt, ut) or ts["modes"] != us["modes"]:
+            raise AssertionError(f"fp32 {name}: (1, 2) tokens differ from "
+                                 f"the unsharded engine's:\n{tt} "
+                                 f"{ts['modes']}\n{ut} {us['modes']}")
+        out[name] = dict(layers=layers, prompt=plen, modes=us["modes"])
+        say(card, f"family lossless {name} x{layers} layers fp32, graphs, "
+                  f"prompt {plen} new {FAM_FP32_NEW}: (1, 2) tokens == "
+                  f"unsharded engine's (modes {us['modes']})")
+        if name in ("rwkv6-3b", AUDIO):
+            models[name] = (cfg, spec, params, dparams)
+        else:
+            del params, dparams
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(24)
+    dp_mesh = DeviceMesh((2, 1), devices=["cuda:0"] * 2)
+    # rwkv6-3b: the wave path's engine of a (2, 1) mesh
+    cfg, spec, params, dparams = models.pop("rwkv6-3b")
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n in FAM_DP_REQS]
+    srv = ServingEngine(cfg, spec, dcfg, params, dparams, ServingConfig(
+        batch=2, max_len=1024, scheduler="wave"), device="cuda")
+    srv._mesh = lambda: dp_mesh         # two data shards on the one card
+    for i, p in enumerate(prompts):
+        srv.submit(Request(request_id=f"r{i}", prompt=p,
+                           max_new_tokens=FAM_FP32_NEW, arrival_s=0.0))
+    srv.run()
+    eng = srv._engines[(2, False)]
+    if not (isinstance(eng, DataParallelEngine) and eng.data_shards == 2
+            and all(sub.dispatches for sub in eng.shards)):
+        raise AssertionError("the wave path must serve on two data shards")
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=1024, device="cuda", paged=False)
+    for i, p in enumerate(prompts):
+        want, _ = solo.generate(p[None], FAM_FP32_NEW)
+        if not np.array_equal(srv.outputs[f"r{i}"].tokens, want[0]):
+            raise AssertionError(f"fp32 rwkv6-3b wave r{i} on (2, 1) differs "
+                                 f"from solo generate")
+    say(card, f"family data-parallel rwkv6-3b x2 fp32: wave serving of "
+              f"{len(prompts)} requests (prompts {list(FAM_DP_REQS)}) on a "
+              f"(2, 1) mesh == solo generate for every request; waves "
+              f"{int(srv.stats['waves'])}")
+    del srv, eng, solo, params, dparams
+    # whisper-small: slot serving with per-request extra on (2, 1)
+    cfg, spec, params, dparams = models.pop(AUDIO)
+    reqs = [(rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64),
+             api.extra_inputs_for(cfg, 1, seed=40 + i, device="cuda"))
+            for i, n in enumerate(FAM_DP_XATTN)]
+    nreq = len(reqs)
+    max_len = request_token_need(max(FAM_DP_XATTN), FAM_FP32_NEW,
+                                 spec.buffer_size, dcfg.tree_depth + 1)
+    # every row's whole request on its shard, the null page beside it
+    pages = nreq * (-(-max_len // spec.block_size) + 2) + 1
+    eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=nreq,
+                       max_len=max_len, device="cuda", paged=True,
+                       zero_copy=True, prefix_cache=False, mesh=dp_mesh,
+                       num_pages=pages)
+    if not isinstance(eng, DataParallelEngine):
+        raise AssertionError("a (2, 1) mesh must build two data shards")
+    st = eng.empty_state()
+    toks = {i: [] for i in range(nreq)}
+    for i, (p, ex) in enumerate(reqs):
+        st, first = eng.prefill_into_slot(st, i, p, extra=ex,
+                                          max_new_tokens=FAM_FP32_NEW)
+        toks[i].append(first)
+    while min(len(v) for v in toks.values()) < FAM_FP32_NEW:
+        rows = np.asarray([len(toks[i]) < FAM_FP32_NEW
+                           for i in range(nreq)])
+        st, so = eng.step_fused(st, rows, eng.modes_for_rows(st, rows))
+        for i in np.nonzero(rows)[0]:
+            toks[i].extend(so.tokens[i, :so.counts[i]].tolist())
+    keys = eng.dispatch_keys
+    del eng
+    solo = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                        max_len=max_len, device="cuda", paged=True,
+                        zero_copy=True, prefix_cache=False)
+    for i, (p, ex) in enumerate(reqs):
+        want, _ = solo.generate(p[None], FAM_FP32_NEW, extra=ex)
+        if toks[i][:FAM_FP32_NEW] != want[0].tolist():
+            raise AssertionError(f"fp32 whisper-small slot r{i} on (2, 1) "
+                                 f"differs from solo generate")
+    secs = time.perf_counter() - t0
+    say(card, f"family data-parallel whisper-small x2 fp32: {nreq} slots "
+              f"(prompts {list(FAM_DP_XATTN)}) with their own extra on a (2, "
+              f"1) mesh (step keys "
+              f"{ {str(k): n for k, n in keys.items()} }) == solo generate "
+              f"for every request; (b) took {secs:.1f} s")
+    del solo, params, dparams
+    torch.cuda.empty_cache()
+    return dict(tp=out, seconds=secs)
+
+
+def phase_families(torch, card, timer, base):
+    """Phase 22: every model family under a mesh.  (c) the kernels at the
+    shards' heads, (a) the four families on (1, 2) at full width beside
+    the unsharded phases (``base``), (b) the fp32 equalities on (1, 2)
+    and (2, 1).  Returns (a)'s summed launches, the call forms and the
+    numbers."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    shapes = _fam_kernel_checks(torch, card, timer)
+    t_c = time.perf_counter() - t_phase
+    a = _fam_generate(torch, card, base)
+    t_a = time.perf_counter() - t_phase - t_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = _fam_fp32(torch, card)
+    total = time.perf_counter() - t_phase
+    launches = {}
+    for r in a.values():
+        for k, n in r.pop("launches").items():
+            launches[k] = launches.get(k, 0) + n
+    say(card, f"phase 22 launches (the four (1, 2) runs) {launches}; (c) "
+              f"{t_c:.1f} s, (a) {t_a:.1f} s, (b) {b['seconds']:.1f} s; phase "
+              f"22 took {total:.1f} s")
+    return dict(launches=launches, shapes=shapes, tp=a, fp32=b,
+                seconds=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17,18,19,"
-                            "20,21",
+                            "20,21,22",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -8403,8 +8940,9 @@ def main(argv=None) -> int:
                          "launch steps, the hillclimb cases and the int8 "
                          "resident decode cache), 20 (data-parallel "
                          "serving over a (2, 1) mesh), 21 (tensor "
-                         "parallelism over a (1, 2) mesh); 1 and 12 always "
-                         "run")
+                         "parallelism over a (1, 2) mesh), 22 (the state "
+                         "and cross-attention families on (1, 2) and (2, "
+                         "1) meshes); 1 and 12 always run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -8489,6 +9027,19 @@ def main(argv=None) -> int:
            if 20 in phases else {"launches": {}, "shard_launches": []})
     p21 = (run(21, phase_tensor_parallel, torch, card, timer, p3)
            if 21 in phases else {"launches": {}, "shapes": {}})
+    # the unsharded figures beside phase 22's split runs (the VLM's run
+    # in phase 22 itself, at its depth there)
+    base = {}
+    if "graph_run" in rwkv:
+        base["rwkv6-3b"] = rwkv.pop("graph_run")
+    if 16 in phases:
+        base[GRIFFIN] = dict(p16["generate"]["graphs"], source="phase 16",
+                             toks=p16["tokens"])
+    if 17 in phases:
+        base[AUDIO] = dict(p17["generate"][AUDIO]["graphs"],
+                           source="phase 17", toks=p17["tokens"][AUDIO])
+    p22 = (run(22, phase_families, torch, card, timer, base)
+           if 22 in phases else {"launches": {}, "shapes": {}})
     say(card, "phase seconds " + ", ".join(f"{n}: {t:.1f}"
                                            for n, t in sorted(secs.items())))
 
@@ -8539,6 +9090,8 @@ def main(argv=None) -> int:
                              for sh in p20["shard_launches"]],
                          tensor_parallel_launches=int(
                              p21["launches"].get(name, 0)),
+                         family_tensor_parallel_launches=int(
+                             p22["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -8557,9 +9110,9 @@ def main(argv=None) -> int:
                           f"{sh['plain_ms']:.4f} library_ms "
                           f"{sh.get('library_ms')} launches on the path "
                           f"{sh.get('launches', 'not counted by shape')}")
-        # phases 8, 9, 10, 14, 15, 17, 18 and 21's call forms (launches
-        # counted per kernel above)
-        for p in (p8, p9, p2t, p2m, p2r, p2x, p18, p21):
+        # phases 8, 9, 10, 14, 15, 17, 18, 21 and 22's call forms
+        # (launches counted per kernel above)
+        for p in (p8, p9, p2t, p2m, p2r, p2x, p18, p21, p22):
             for label, vals in p["shapes"].get(name, {}).items():
                 rows[-1].setdefault("shapes", []).append(dict(shape=label,
                                                               **vals))
@@ -8587,6 +9140,9 @@ def main(argv=None) -> int:
     if 21 in phases:
         say(card, "tensor_parallel " + json.dumps(
             {k: v for k, v in p21.items() if k != "shapes"}, default=float))
+    if 22 in phases:
+        say(card, "families " + json.dumps(
+            {k: v for k, v in p22.items() if k != "shapes"}, default=float))
     if 19 in phases:
         say(card, "launch " + json.dumps(
             {k: v for k, v in p19.items() if k != "launches"},

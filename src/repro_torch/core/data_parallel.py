@@ -41,9 +41,13 @@ each data shard's engine is built on its row of the mesh (a ``(1, m)``
 mesh of the row's model shards, ``distributed.tensor_parallel``) from a
 whole replica of the weights on the row's device, which it splits itself.
 
-Not carried yet (NotImplementedError naming ROADMAP.md queue 1,
-'Multi-GPU, part 4'): state architectures, cross-attention targets and
-the host tier.
+The state architectures (RWKV-6, Griffin) serve lock-step (the wave
+path's ``generate``): ``step(st, "state")`` launches every shard's chain
+step before it reads any back.  A VLM or audio target's per-request
+``extra`` and its once-per-request cross rows go to the shard that holds
+the row (``prefill`` splits ``extra`` by rows, a slot admission routes
+it with its slot).  Not carried yet (NotImplementedError naming
+ROADMAP.md queue 1, 'Multi-GPU, part 4'): the host tier.
 """
 from __future__ import annotations
 
@@ -60,7 +64,6 @@ from repro_torch.distributed.sharding import (DeviceMesh, ShardingRules,
                                               place_params)
 from repro_torch.kernels import ops
 from repro_torch.kvcache import cache as kvc
-from repro_torch.models import dense as dn
 
 
 class ShardPages:
@@ -264,15 +267,9 @@ class DataParallelEngine(SpecPVEngine):
                  tier_lossless: bool = False, tier_codec: str = "int8",
                  zero_copy: bool = False, mesh=None, device=None,
                  cuda_graphs: Optional[bool] = None):
-        item = "Multi-GPU, part 4"
-        if not cfg.is_attention_arch:
-            _unsupported("data-parallel serving of a state architecture",
-                         item)
-        if dn.is_cross_arch(cfg):
-            _unsupported("data-parallel serving of a cross-attention "
-                         "target", item)
         if tiered:
-            _unsupported("data-parallel serving with the host tier", item)
+            _unsupported("data-parallel serving with the host tier",
+                         "Multi-GPU, part 4")
         self.data_shards, self.model_shards = mesh_shards(mesh, batch)
         d = self.data_shards
         devs = [mesh.device_at(**mesh.data_shard_coords(s))
@@ -440,8 +437,10 @@ class DataParallelEngine(SpecPVEngine):
 
     def prefill(self, prompt: np.ndarray, chunk: int = 256,
                 extra: Optional[Dict] = None) -> DataParallelState:
-        """Lock-step prefill: every shard's rows of ``prompt``, each over
-        its own pools, after one reset of the shared allocators."""
+        """Lock-step prefill: every shard's rows of ``prompt`` (and of a
+        VLM or audio target's ``extra``, whose cross rows its shard
+        writes), each over its own pools, after one reset of the shared
+        allocators."""
         assert prompt.shape[0] == self.batch
         self._pkv_active = False
         self.final_state = None
@@ -451,7 +450,10 @@ class DataParallelEngine(SpecPVEngine):
             self._draft_alloc.reset()
         for s, (sub, rows) in enumerate(zip(self.shards,
                                             self._split(np.asarray(prompt)))):
-            self._call(s, sub.prefill, rows, chunk=chunk)
+            sl = self.shard_slots(s)
+            part = ({k: v[sl.start: sl.stop].to(sub.device)
+                     for k, v in extra.items()} if extra else extra)
+            self._call(s, sub.prefill, rows, chunk=chunk, extra=part)
         return self.state
 
     def _first_tokens(self, st) -> np.ndarray:
@@ -588,6 +590,25 @@ class DataParallelEngine(SpecPVEngine):
         return st, StepOutput(tokens=toks, counts=counts, accept_len=acc,
                               mode=names[0] if len(names) == 1 else "fused",
                               modes=out_modes)
+
+    def step(self, st, mode: str) -> Tuple[DataParallelState, StepOutput]:
+        """One lock-step round over every shard's rows.  A state arch's
+        round (``"state"``) launches every shard's chain step (one graph
+        replay each on the card) before it reads any back, as
+        ``step_fused`` does; an attention mode is one ``step_fused`` tick
+        over every row."""
+        if mode != "state":
+            return super().step(st, mode)
+        self._own(st)
+        launched = [self._call(s, sub._state_launch, sub.state)
+                    for s, sub in enumerate(self.shards)]
+        outs = [self._call(s, self.shards[s]._state_finish, sub_st)[1]
+                for s, sub_st in enumerate(launched)]
+        return st, StepOutput(
+            tokens=np.concatenate([o.tokens for o in outs]),
+            counts=np.concatenate([o.counts for o in outs]),
+            accept_len=np.concatenate([o.accept_len for o in outs]),
+            mode=mode)
 
     # ---- prefix cache --------------------------------------------------
     def reset_prefix_stats(self) -> None:

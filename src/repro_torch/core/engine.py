@@ -269,19 +269,22 @@ def copy_into(dst, src) -> None:
 
 class CapturedGraph:
     """A captured step or prefill-chunk body.  The kernel wrappers count
-    their launches in Python (``ops.LAUNCHES``, ``ops.WKV_SHAPES``), which
-    a replay does not run, so ``replay`` adds the counts its capture
-    recorded."""
+    their launches in Python (``ops.LAUNCHES``, ``ops.WKV_SHAPES``,
+    ``ops.WKV_HEADS``), which a replay does not run, so ``replay`` adds
+    the counts its capture recorded."""
 
     def __init__(self, graph, launches: Dict[str, int],
-                 wkv_shapes: Dict[Tuple[int, bool], int]):
+                 wkv_shapes: Dict[Tuple[int, bool], int],
+                 wkv_heads: Dict[int, int]):
         self.graph = graph
         self.launches = launches
         self.wkv_shapes = wkv_shapes
+        self.wkv_heads = wkv_heads
 
     def replay(self) -> None:
         self.graph.replay()
-        ops.add_launch_counts(self.launches, self.wkv_shapes)
+        ops.add_launch_counts(self.launches, self.wkv_shapes,
+                              self.wkv_heads)
 
 
 _WARMUP_STREAMS: Dict[Any, Any] = {}
@@ -396,8 +399,10 @@ class SpecPVEngine:
         share one device; the engine then keeps its per-head state
         shard-stacked ([m * L, ..., Hk / m, ...], ``kv_shards`` = m when
         attention splits), and its step bodies and prefill chunks stay
-        one CUDA graph each.  Shards on several cards, state and
-        cross-attention targets and the host tier raise
+        one CUDA graph each; the state archs stack the recurrent state
+        their shards split (RWKV-6's ``wkv``, Griffin's ``rnn_h`` and
+        ``conv``) and a cross-attention target its cross rows the same
+        way.  Shards on several cards and the host tier raise
         NotImplementedError under it.
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
@@ -551,10 +556,6 @@ class SpecPVEngine:
         item = "Multi-GPU, part 4"
         m = self.model_shards
         what = f"tensor parallelism (a mesh 'model' axis of {m})"
-        if not self.is_attn:
-            _unsupported(f"{what} of a state architecture", item)
-        if self.cross:
-            _unsupported(f"{what} of a cross-attention target", item)
         if tiered:
             _unsupported(f"{what} with the host tier", item)
         row = mesh.model_row(0)
@@ -805,7 +806,7 @@ class SpecPVEngine:
                                    device=self.device)
         if self.cross:
             api.write_cross(self.cfg, self.params, st.cache["cross_k"],
-                            st.cache["cross_v"], extra)
+                            st.cache["cross_v"], extra, self.tp)
         body = (lambda toks: self._prefill_body(
             toks, st.cache, st.dcache, self._prev_feat, self._logits_last))
         self._prefill_chunks(prompt_t, 0, s0, chunk, "prefill", body)
@@ -1385,7 +1386,7 @@ class SpecPVEngine:
             # it prefills): the graphs read these addresses
             api.write_cross(self.cfg, self.params,
                             *(st.cache[n][:, slot: slot + 1]
-                              for n in kvc.CROSS_KEYS), extra)
+                              for n in kvc.CROSS_KEYS), extra, self.tp)
         if not self.paged:
             # the slot's rows of the prefill carry, from zero as a fresh
             # row cache; nothing to account
@@ -2320,7 +2321,8 @@ class SpecPVEngine:
                      < (1 + acc)[:, None])
         if active is not None:
             adv_valid = adv_valid & active[:, None]
-        cache = api.advance(cfg, self.params, adv_toks, st.cache, adv_valid)
+        cache = api.advance(cfg, self.params, adv_toks, st.cache, adv_valid,
+                            tp=self.tp)
         pending = torch.zeros_like(st.pending)
         pending[:, 0] = bonus
         st2 = EngineState(
@@ -2471,15 +2473,7 @@ class SpecPVEngine:
         """One lock-step round over the whole batch in `mode` ("state"
         for a state arch), on the engine's state ``st``."""
         if mode == "state":
-            if self.is_attn:
-                raise ValueError(mode)
-            self._own(st)
-            st = self.prepare_cow(st, np.ones((self.batch,), bool))
-            self._run("state", self._state_body)
-            self.dispatches += 1
-            toks, counts, acc, _ = self._read_io(blocks=False)
-            return st, StepOutput(tokens=toks, counts=counts, accept_len=acc,
-                                  mode=mode)
+            return self._state_finish(self._state_launch(st))
         if mode not in MODE_IDS:
             raise ValueError(mode)
         st, out = self.step_fused(
@@ -2488,6 +2482,26 @@ class SpecPVEngine:
         if mode == "refresh":
             self._pkv_active = True
         return st, out
+
+    def _state_launch(self, st: EngineState) -> EngineState:
+        """The first half of a state arch's lock-step round: the chain
+        step's launch (one graph replay on the card), nothing read back
+        (a data-parallel round launches every shard's step before it
+        reads any)."""
+        if self.is_attn:
+            raise ValueError("state")
+        self._own(st)
+        st = self.prepare_cow(st, np.ones((self.batch,), bool))
+        self._run("state", self._state_body)
+        self.dispatches += 1
+        return st
+
+    def _state_finish(self, st: EngineState) -> Tuple[EngineState,
+                                                       StepOutput]:
+        """The second half: the round's one read-back."""
+        toks, counts, acc, _ = self._read_io(blocks=False)
+        return st, StepOutput(tokens=toks, counts=counts, accept_len=acc,
+                              mode="state")
 
     def step_rows(self, st: EngineState, mode: str,
                   rows: np.ndarray) -> Tuple[EngineState, StepOutput]:

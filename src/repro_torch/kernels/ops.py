@@ -11,7 +11,8 @@ at first use) or raise.  There is no fallback from one to the other.
 Each kernel counts its launches in ``LAUNCHES`` (a plain integer per
 kernel, bumped only where the kernel is launched), so a run can show
 that its main path went through the kernels.  K5's launches are also
-counted by shape in ``WKV_SHAPES``, keyed by (T, update).
+counted by shape in ``WKV_SHAPES``, keyed by (T, update), and by head
+count in ``WKV_HEADS`` (a tensor-parallel shard runs it at H / m heads).
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # the trained tiny-dense pair (64) and the llama / qwen widths (128)
 HEAD_DIMS = (64, 128)
 WKV_SHAPES: Dict[Tuple[int, bool], int] = {}
+WKV_HEADS: Dict[int, int] = {}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -36,37 +38,45 @@ def reset_launch_counts() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
     WKV_SHAPES.clear()
+    WKV_HEADS.clear()
 
 
-def launch_counts() -> Tuple[Dict[str, int], Dict[Tuple[int, bool], int]]:
-    """A copy of (``LAUNCHES``, ``WKV_SHAPES``)."""
-    return dict(LAUNCHES), dict(WKV_SHAPES)
+def launch_counts() -> Tuple[Dict[str, int], Dict[Tuple[int, bool], int],
+                             Dict[int, int]]:
+    """A copy of (``LAUNCHES``, ``WKV_SHAPES``, ``WKV_HEADS``)."""
+    return dict(LAUNCHES), dict(WKV_SHAPES), dict(WKV_HEADS)
 
 
 def set_launch_counts(counts) -> None:
     """Put back counts that ``launch_counts`` took."""
     LAUNCHES.update(counts[0])
-    WKV_SHAPES.clear()
-    WKV_SHAPES.update(counts[1])
+    for live, saved in ((WKV_SHAPES, counts[1]), (WKV_HEADS, counts[2])):
+        live.clear()
+        live.update(saved)
 
 
 def launch_count_delta(before, after):
     """The launches counted between two ``launch_counts`` snapshots, as
-    (per kernel, per K5 shape), zero entries left out."""
+    (per kernel, per K5 shape, per K5 head count), zero entries left
+    out."""
     runs = {k: after[0][k] - before[0].get(k, 0) for k in after[0]}
-    shapes = {k: n - before[1].get(k, 0) for k, n in after[1].items()}
-    return ({k: n for k, n in runs.items() if n},
-            {k: n for k, n in shapes.items() if n})
+    out = [{k: n for k, n in runs.items() if n}]
+    for i in (1, 2):
+        diff = {k: n - before[i].get(k, 0) for k, n in after[i].items()}
+        out.append({k: n for k, n in diff.items() if n})
+    return tuple(out)
 
 
 def add_launch_counts(launches: Dict[str, int],
-                      wkv_shapes: Dict[Tuple[int, bool], int]) -> None:
+                      wkv_shapes: Dict[Tuple[int, bool], int],
+                      wkv_heads: Dict[int, int]) -> None:
     """Count launches made without their wrappers' Python running: a
     CUDA graph's replay launches what its capture recorded."""
     for k, n in launches.items():
         LAUNCHES[k] += n
-    for k, n in wkv_shapes.items():
-        WKV_SHAPES[k] = WKV_SHAPES.get(k, 0) + n
+    for live, add in ((WKV_SHAPES, wkv_shapes), (WKV_HEADS, wkv_heads)):
+        for k, n in add.items():
+            live[k] = live.get(k, 0) + n
 
 
 def _check(name, t, *, dtype=None, ndim=None, device=None):
@@ -629,4 +639,5 @@ def wkv(r, k, v, w, u, s0, n_valid=None, *, update: bool = True):
     LAUNCHES["wkv"] += 1
     key = (t, bool(update))
     WKV_SHAPES[key] = WKV_SHAPES.get(key, 0) + 1
+    WKV_HEADS[h] = WKV_HEADS.get(h, 0) + 1
     return y, s_out

@@ -80,10 +80,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     rows (``kvcache.cache.init_contiguous_kv``).  The state archs keep
     their bounded recurrent state (Griffin: and its rolling attention
     windows) instead, with no paging.  ``kv_shards`` = m (tensor
-    parallelism over m model shards whose attention splits) stacks the
-    shards' K/V and summaries on the layer axis: [m * L, ..., Hk / m,
-    Dh], shard s's layer l at ``s * L + l``
-    (``distributed.tensor_parallel``)."""
+    parallelism over m model shards whose attention splits,
+    ``TensorParallel.kv_shards``) stacks the shards' K/V, summaries and
+    cross rows on the layer axis: [m * L, ..., Hk / m, Dh], shard s's
+    layer l at ``s * L + l`` (``distributed.tensor_parallel``); for a
+    state arch it stacks the recurrent state the shards split (RWKV-6's
+    ``wkv``, Griffin's ``rnn_h`` and ``conv``) the same way."""
     dev = resolve_device(device)
     dtype = cm.dt(cfg.dtype)
     if cfg.arch_type in ("ssm", "hybrid"):
@@ -91,17 +93,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             raise ValueError("paged KV is attention-only (state archs keep "
                              "O(1) state)")
         init = rw.init_state if cfg.arch_type == "ssm" else gf.init_state
-        return init(cfg, batch, dtype, dev)
+        return init(cfg, batch, dtype, dev, shards=kv_shards)
     dn._check_dense(cfg)
     kinds = cfg.layer_kinds()
     l_attn, l_cross = dn.attn_layer_count(kinds), dn.cross_layer_count(kinds)
     hk, dh = cfg.num_kv_heads, cfg.head_dim_
     if kv_shards > 1:
-        if l_cross or hk % kv_shards:
-            raise ValueError(f"{cfg.name}: {hk} KV heads and {l_cross} "
-                             f"cross layers do not split over {kv_shards} "
-                             f"model shards")
-        l_attn, hk = l_attn * kv_shards, hk // kv_shards
+        if hk % kv_shards:
+            raise ValueError(f"{cfg.name}: {hk} KV heads do not split over "
+                             f"{kv_shards} model shards")
+        l_attn, l_cross = l_attn * kv_shards, l_cross * kv_shards
+        hk = hk // kv_shards
     block = spec.block_size if spec else 128
     nb = -(-max_len // block)
     if paged:
@@ -186,15 +188,18 @@ def require_extra(cfg: ModelConfig, extra, what: str) -> None:
                          f"(api.extra_inputs_for gives stub inputs)")
 
 
-def write_cross(cfg: ModelConfig, params, cross_k, cross_v, extra) -> None:
+def write_cross(cfg: ModelConfig, params, cross_k, cross_v, extra,
+                tp=None) -> None:
     """Encode ``extra`` and copy every cross layer's K/V into ``cross_k``
     / ``cross_v`` [L_cross, B, Te, Hk, Dh] in place (a cache's rows, or a
     view of one slot's): done once per request, after which prefill and
-    decoding read the rows."""
+    decoding read the rows.  ``tp``: the encoder runs whole, once; each
+    model shard projects its KV heads into its stacked rows
+    (``dense.write_cross_kv``)."""
     require_extra(cfg, extra, "its prefill")
     with torch.no_grad():
         enc = _encoder_out(cfg, params, extra)
-        dn.write_cross_kv(cfg, params["layers"], cross_k, cross_v, enc)
+        dn.write_cross_kv(cfg, params["layers"], cross_k, cross_v, enc, tp)
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
@@ -222,9 +227,9 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
     (the fused multi-row prefill packs cursors of unequal chunks so).
 
     ``tp`` (a ``distributed.tensor_parallel.TensorParallel`` of
-    ``params``, attention archs): run the embedding, the trunk and the
-    head split over its model shards (the cache then shard-stacked, see
-    ``init_cache``'s ``kv_shards``); None runs ``params`` whole."""
+    ``params``): run the embedding, the trunk and the head split over its
+    model shards (the cache then shard-stacked, see ``init_cache``'s
+    ``kv_shards``); None runs ``params`` whole."""
     b, t = tokens.shape
     if cfg.arch_type in ("ssm", "hybrid") and t_valid is not None:
         raise ValueError("ragged prefill is attention-arch only")
@@ -236,16 +241,16 @@ def prefill(cfg: ModelConfig, params, tokens, cache, *, extra=None,
         positions = cache["length"][:, None] + torch.arange(
             t, device=tokens.device, dtype=torch.int32)[None]
     if cfg.arch_type == "ssm":
-        h, feats, cache = rw.forward(cfg, params, tokens, cache)
-        lm = rw.lm_head
+        h, feats, cache = rw.forward(cfg, params, tokens, cache, tp=tp)
+        lm = functools.partial(rw.lm_head, tp=tp)
     elif cfg.arch_type == "hybrid":
         h, feats, cache = gf.forward(cfg, params, tokens, positions, cache,
-                                     mode="advance")
-        lm = gf.lm_head
+                                     mode="advance", tp=tp)
+        lm = functools.partial(gf.lm_head, tp=tp)
     else:
         if "cross_k" in cache and not cached_cross:
             write_cross(cfg, params, cache["cross_k"], cache["cross_v"],
-                        extra)
+                        extra, tp)
         hh = dn.embed_tokens(cfg, params, tokens, tp)
         out = dn.trunk_fwd(cfg, params["layers"], hh, positions,
                            mode="prefill", cache=cache,
@@ -290,16 +295,19 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
     as it was and ``new_kv`` is None."""
     b, t = tokens.shape
     if cfg.arch_type == "ssm":
-        h, feats, _ = rw.forward(cfg, params, tokens, cache, update=False)
-        return DecodeOut(rw.lm_head(cfg, params, h), Features(*feats), None)
+        h, feats, _ = rw.forward(cfg, params, tokens, cache, update=False,
+                                 tp=tp)
+        return DecodeOut(rw.lm_head(cfg, params, h, tp), Features(*feats),
+                         None)
     if self_mask is None:
         causal = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                        device=tokens.device))
         self_mask = causal[None].expand(b, t, t)
     if cfg.arch_type == "hybrid":
         h, feats, _ = gf.forward(cfg, params, tokens, positions, cache,
-                                 mode="verify", self_mask=self_mask)
-        return DecodeOut(gf.lm_head(cfg, params, h), Features(*feats), None)
+                                 mode="verify", self_mask=self_mask, tp=tp)
+        return DecodeOut(gf.lm_head(cfg, params, h, tp), Features(*feats),
+                         None)
     h = dn.embed_tokens(cfg, params, tokens, tp)
     trunk_mode = {"full": "decode_full", "partial": "decode_partial",
                   "fused": "decode_fused"}[mode]
@@ -314,15 +322,15 @@ def decode(cfg: ModelConfig, params, tokens, positions, cache, *,
                      out.queries, out.partial)
 
 
-def advance(cfg: ModelConfig, params, tokens, cache, valid):
+def advance(cfg: ModelConfig, params, tokens, cache, valid, tp=None):
     """State archs: commit accepted tokens [B, T] (``valid`` [B, T] is a
     prefix mask; padding leaves the state as it was) into the recurrent
     state, in place.  Returns the cache with the advanced length.
     Griffin's tokens sit at ``length + cumsum(valid) - 1`` (clamped at
-    0), as in the reference."""
+    0), as in the reference.  ``tp``: see ``prefill``."""
     if cfg.arch_type == "ssm":
         _, _, cache = rw.forward(cfg, params, tokens, cache, valid=valid,
-                                 collect_features=False)
+                                 collect_features=False, tp=tp)
         return cache
     if cfg.arch_type != "hybrid":
         raise ValueError("attention archs commit KV explicitly "
@@ -331,7 +339,7 @@ def advance(cfg: ModelConfig, params, tokens, cache, valid):
         valid.to(torch.int32), dim=1, dtype=torch.int32) - 1, min=0)
     _, _, cache = gf.forward(cfg, params, tokens, positions, cache,
                              mode="advance", valid=valid,
-                             collect_features=False)
+                             collect_features=False, tp=tp)
     return cache
 
 

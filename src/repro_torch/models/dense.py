@@ -60,7 +60,11 @@ cache mode reads the cache's ``cross_k`` / ``cross_v`` rows, which
 ``write_cross_kv`` fills once per request (the reference recomputes them
 at every prefill chunk from the same inputs, to the same values).  The
 reference computes cross-attention and the encoder in plain jnp, outside
-any Pallas kernel, so here they are plain torch too.
+any Pallas kernel, so here they are plain torch too.  Under tensor
+parallelism the cross layers split by heads as self-attention does
+(their rows shard-stacked like the K/V); the encoder (``encode_frames``)
+and the VLM projector (``project_image``) run whole, once per request,
+from the whole tree.
 
 The paged cache reads through the page table in place
 (``SpecPVConfig.use_pallas=True``) or, with ``use_pallas=False``, first
@@ -621,16 +625,18 @@ def _mlp_or_moe_tp(tp, i: int, lp: Dict, h):
         sh.cfg, sh.params["layers"][i]["mlp"], x.to(sh.device)))
 
 
-def _cross_attention(cfg: ModelConfig, lp: Dict, h, cross_kv):
-    """Cross-attention over fixed encoder states (no rope on either
-    side): the reference's dense ``sdpa`` for up to 1024 queries, its
-    chunked attention (KV tiles of ``min(512, Te)`` keys, query tiles of
-    512) beyond, so no [T, Te] fp32 tensor is held at train length."""
-    x = cm.rmsnorm(h, lp["normx"], cfg.norm_eps)
+def _cross_heads(cfg: ModelConfig, xp: Dict, x, cross_kv):
+    """The cross-attention of the heads ``xp`` holds (a layer's ``xattn``,
+    or one model shard's piece of it, with ``cfg`` its head counts) over
+    their cached encoder K/V ``cross_kv`` [B, Te, Hk, Dh]: the
+    reference's dense ``sdpa`` for up to 1024 queries, its chunked
+    attention (KV tiles of ``min(512, Te)`` keys, query tiles of 512)
+    beyond, so no [T, Te] fp32 tensor is held at train length; then the
+    rows ``wo``."""
     b, t, _ = x.shape
-    q = x @ lp["xattn"]["wq"].to(x.dtype)
-    if "bq" in lp["xattn"]:
-        q = q + lp["xattn"]["bq"].to(x.dtype)
+    q = x @ xp["wq"].to(x.dtype)
+    if "bq" in xp:
+        q = q + xp["bq"].to(x.dtype)
     q = q.reshape(b, t, cfg.num_heads, cfg.head_dim_)
     ck, cv = cross_kv
     if t > 1024:
@@ -642,7 +648,21 @@ def _cross_attention(cfg: ModelConfig, lp: Dict, h, cross_kv):
                                  q_chunk=512)
     else:
         out = cm.sdpa(q, ck, cv)
-    return bk.attn_output(cfg, lp["xattn"], out)
+    return bk.attn_output(cfg, xp, out)
+
+
+def _cross_attention(cfg: ModelConfig, lp: Dict, h, cross_kv, tp=None,
+                     i: int = 0):
+    """Cross-attention over fixed encoder states (no rope on either
+    side).  ``cross_kv``: the layer's (k, v) [B, Te, Hk, Dh]; under
+    tensor parallelism (``tp`` splitting attention, ``i`` the layer) a
+    list with each model shard's (k, v) at its KV heads: the norm once,
+    each shard's heads (``wq`` columns, ``wo`` rows), one sum."""
+    x = cm.rmsnorm(h, lp["normx"], cfg.norm_eps)
+    if tp is None or not tp.attn_split:
+        return _cross_heads(cfg, lp["xattn"], x, cross_kv)
+    return tp.map_reduce(lambda sh: _cross_heads(
+        sh.cfg, sh.params["layers"][i]["xattn"], x, cross_kv[sh.index]))
 
 
 def _gate(g, h):
@@ -665,17 +685,25 @@ def compute_cross_kv(cfg: ModelConfig, lp: Dict, encoder_out):
 
 
 def write_cross_kv(cfg: ModelConfig, layers: List[Dict], cross_k, cross_v,
-                   encoder_out) -> None:
+                   encoder_out, tp=None) -> None:
     """Every cross layer's K/V of ``encoder_out`` [B, Te, d], copied in
     place into ``cross_k`` / ``cross_v`` [L_cross, B, Te, Hk, Dh] (the
     cache's rows, or a view of some of them): a captured graph reads
-    these addresses, so they are written, never rebound."""
+    these addresses, so they are written, never rebound.  Under tensor
+    parallelism (``tp`` splitting attention) the rows are shard-stacked
+    ([m * L_cross, B, Te, Hk / m, Dh], shard s's cross layer c at ``s *
+    L_cross + c``), each shard's from its ``wk`` / ``wv`` columns."""
+    split = tp is not None and tp.attn_split
+    n_c = cross_layer_count(cfg.layer_kinds())
     c = 0
-    for kind, lp in zip(cfg.layer_kinds(), layers):
+    for i, (kind, lp) in enumerate(zip(cfg.layer_kinds(), layers)):
         if kind in ("cross", "dec"):
-            k, v = compute_cross_kv(cfg, lp, encoder_out)
-            cross_k[c].copy_(k)
-            cross_v[c].copy_(v)
+            units = ([(sh.cfg, sh.params["layers"][i], sh.index * n_c + c)
+                      for sh in tp.shards] if split else [(cfg, lp, c)])
+            for ucfg, ulp, j in units:
+                k, v = compute_cross_kv(ucfg, ulp, encoder_out)
+                cross_k[j].copy_(k)
+                cross_v[j].copy_(v)
             c += 1
 
 
@@ -770,10 +798,12 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     only, every shard on one device): each layer runs its attention on
     every model shard, with that shard's heads, weights and per-head
     state (entry ``s * L + a`` of the shard-stacked cache, tail buffer,
-    body and ``pkv_blocks``), then one sum at the residual; then its MLP
-    or MoE on every shard, then one sum.  A block that does not split
-    runs once, whole.  ``new_kv``, ``queries`` and ``partial`` come back
-    shard-stacked the same way ([m * L, ...] at the shard's heads)."""
+    body and ``pkv_blocks``), then one sum at the residual; a cross
+    layer's cross-attention the same way over its shard-stacked
+    ``cross_k`` / ``cross_v`` rows; then its MLP or MoE on every shard,
+    then one sum.  A block that does not split runs once, whole.
+    ``new_kv``, ``queries`` and ``partial`` come back shard-stacked the
+    same way ([m * L, ...] at the shard's heads)."""
     spec = spec or SpecPVConfig()
     kinds = kinds if kinds is not None else cfg.layer_kinds()
     f_lo, f_mi, f_hi = _feature_targets(len(layers))
@@ -800,12 +830,13 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                     feats[slot] = h
         return TrunkOut(h=h, features=tuple(feats) if collect_features
                         else None, cache=None, new_kv=None, aux_loss=aux)
-    if tp is not None and (plain or not tp.single_device):
-        raise NotImplementedError(
-            "tensor parallelism runs the engine's kernel routes with every "
-            "model shard on one device (the plain oracle and shards on "
-            "several cards are not ported yet: ROADMAP.md queue 1, "
-            "'Multi-GPU, part 4')")
+    if tp is not None:
+        if plain:
+            raise NotImplementedError(
+                "tensor parallelism runs the engine's kernel routes (the "
+                "plain oracle under it is not ported yet: ROADMAP.md queue "
+                "1, 'Multi-GPU, part 4')")
+        tp.require_single_device()
     b, t = positions.shape
     length = (cache["length"] if cache is not None
               else torch.zeros((b,), dtype=torch.int32, device=h.device))
@@ -887,8 +918,14 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                 lambda sh: atts[sh.index]))
             a_i += 1
         if kind in ("cross", "dec"):
-            xo = _cross_attention(cfg, lp, h, (cache["cross_k"][c_i],
-                                               cache["cross_v"][c_i]))
+            if tp is not None and tp.attn_split:
+                l_cross = cross_layer_count(kinds)
+                ckv = [(cache["cross_k"][sh.index * l_cross + c_i],
+                        cache["cross_v"][sh.index * l_cross + c_i])
+                       for sh in tp.shards]
+            else:
+                ckv = (cache["cross_k"][c_i], cache["cross_v"][c_i])
+            xo = _cross_attention(cfg, lp, h, ckv, tp, i)
             h = h + (_gate(lp["gate_attn"], h) * xo if kind == "cross"
                      else xo)
             c_i += 1

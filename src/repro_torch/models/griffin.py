@@ -32,6 +32,11 @@ the two).  State: the reference's dict, ``rnn_h`` [Lr, B, w] fp32,
 layers each counted in layer order.  Unlike the reference's functional
 update, ``advance`` writes the state tensors in place, each layer after
 its own reads, and returns the dict with the advanced length.
+
+Under tensor parallelism (``forward(tp=...)``) each model shard runs its
+columns of the recurrent blocks (one gather of the conv output for the
+gates, one sum after ``wo``) and of the MLPs; the local attention and its
+window run whole.
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as bk
 from repro_torch.models import common as cm
 from repro_torch.models.dense import (  # noqa: F401  (re-exported)
-    _feature_targets, superblock_decomp)
+    _feature_targets, embed_tokens, superblock_decomp)
+from repro_torch.models.dense import lm_head as dense_lm_head
 
 CONV_W = 4
 RGLRU_C = 8.0
@@ -106,7 +112,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     return params
 
 
-def init_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
+def init_state(cfg: ModelConfig, batch: int, dtype, device,
+               shards: int = 1) -> Dict:
+    """The recurrent state and rolling windows; ``shards`` = m (tensor
+    parallelism whose recurrent blocks split the width) stacks the model
+    shards' ``rnn_h`` and ``conv`` on the layer axis ([m * Lr, B, (3,)
+    w / m]); the windows stay whole (the local attention runs whole)."""
     kinds = cfg.layer_kinds()
     lr = sum(1 for k in kinds if k == "rec")
     la = sum(1 for k in kinds if k == "attn")
@@ -114,10 +125,10 @@ def init_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
     W = cfg.window_size
     hk, dh = cfg.num_kv_heads, cfg.head_dim_
     return {
-        "rnn_h": torch.zeros((lr, batch, w), dtype=torch.float32,
-                             device=device),
-        "conv": torch.zeros((lr, batch, CONV_W - 1, w), dtype=dtype,
-                            device=device),
+        "rnn_h": torch.zeros((shards * lr, batch, w // shards),
+                             dtype=torch.float32, device=device),
+        "conv": torch.zeros((shards * lr, batch, CONV_W - 1, w // shards),
+                            dtype=dtype, device=device),
         "win_k": torch.zeros((la, batch, W, hk, dh), dtype=dtype,
                              device=device),
         "win_v": torch.zeros((la, batch, W, hk, dh), dtype=dtype,
@@ -153,50 +164,90 @@ def rglru_scan(a, g, h0):
     return hs.transpose(0, 1)
 
 
-def _rec_block(cfg: ModelConfig, lp, h, rnn_h, conv_st, n_valid,
-               update: bool):
-    """h: [B, T, d]; rnn_h: [B, w] fp32; conv_st: [B, 3, w]; n_valid: [B]
-    valid prefix.  Returns (out, new rnn_h, new conv state); the state
-    as it was when not ``update``."""
-    b, t, _ = h.shape
-    xd = h.dtype
-    x0 = cm.rmsnorm(h, lp["ln1"], cfg.norm_eps)
-    x = x0 @ lp["wx"].to(xd)                                 # [B, T, w]
+def _rec_conv(p, x0, conv_st):
+    """The x branch of the columns ``p`` holds (a layer's weights, or one
+    model shard's pieces): x0 [B, T, d] through ``wx``, then the causal
+    depthwise conv over [conv state | x]; and the gate branch.  Returns
+    (the conv input [B, T+3, w_p], the gate, the conv output in fp32)."""
+    t = x0.shape[1]
+    xd = x0.dtype
+    x = x0 @ p["wx"].to(xd)                                  # [B, T, w]
     # GELU: jax.nn.gelu's default is the tanh approximation, not erf
-    gate = F.gelu(x0 @ lp["wgate"].to(xd), approximate="tanh")
+    gate = F.gelu(x0 @ p["wgate"].to(xd), approximate="tanh")
     # conv sum order: the reference's ((x0 w0 + x1 w1) + x2 w2) + x3 w3,
     # then the bias, in the activation dtype
     xin = torch.cat([conv_st.to(xd), x], dim=1)              # [B, T+3, w]
-    cw = lp["conv_w"].to(xd)
+    cw = p["conv_w"].to(xd)
     conv = xin[:, 0:t] * cw[0]
     for i in range(1, CONV_W):
         conv = conv + xin[:, i:i + t] * cw[i]
-    conv = conv + lp["conv_b"].to(xd)
+    conv = conv + p["conv_b"].to(xd)
     # fp32 parts of the rec block: the gates and the recurrence run in
-    # fp32 from the conv output, wa / wi widened to fp32, lam fp32
-    cf = conv.float()
-    r = torch.sigmoid(cf @ lp["wa"].float() + lp["ba"].float())
-    i = torch.sigmoid(cf @ lp["wi"].float() + lp["bi"].float())
-    lam = lp["lam"].float()
+    # fp32 from the conv output
+    return xin, gate, conv.float()
+
+
+def _rec_scan(p, cf_all, cf, gate, xin, rnn_h, conv_st, n_valid,
+              update: bool):
+    """The RG-LRU of the columns ``p`` holds: its gates read the whole
+    conv output ``cf_all`` [B, T, w] (``wa`` / ``wi`` widened to fp32,
+    ``lam`` fp32), the recurrence its own columns ``cf``; then the output
+    rows ``wo``.  Returns (the block's output part, new rnn_h, new conv
+    state); the state as it was when not ``update``."""
+    b = cf.shape[0]
+    xd = gate.dtype
+    r = torch.sigmoid(cf_all @ p["wa"].float() + p["ba"].float())
+    i = torch.sigmoid(cf_all @ p["wi"].float() + p["bi"].float())
+    lam = p["lam"].float()
     sp = torch.logaddexp(lam, torch.zeros_like(lam))         # softplus
     a = torch.exp(-RGLRU_C * sp[None, None] * r)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, 0.0, 1.0)) * (i * cf)
     # every step runs; a row's state is its h at its last valid step
     # (padding is a suffix, so no valid step reads a padded one)
     hs = rglru_scan(a, gated, rnn_h.float())
-    out = (hs.to(xd) * gate) @ lp["wo"].to(xd)
+    out = (hs.to(xd) * gate) @ p["wo"].to(xd)
     if not update:
         return out, rnn_h, conv_st
-    rows = torch.arange(b, device=h.device)
+    dev = cf.device
+    rows = torch.arange(b, device=dev)
     last = hs[rows, torch.clamp(n_valid.long() - 1, min=0)]
     rnn_new = torch.where((n_valid > 0)[:, None], last, rnn_h)
     # conv state: the last CONV_W - 1 *valid* inputs (the old state when
     # no token is valid)
     idx = ((CONV_W - 1) + n_valid.long()[:, None]
-           - torch.arange(CONV_W - 1, 0, -1, device=h.device)[None])
+           - torch.arange(CONV_W - 1, 0, -1, device=dev)[None])
     conv_new = torch.gather(xin, 1, idx[..., None].expand(
         b, CONV_W - 1, xin.shape[-1]))
     return out, rnn_new, conv_new
+
+
+def _rec_block(cfg: ModelConfig, lp, h, rnn_h, conv_st, n_valid,
+               update: bool):
+    """h: [B, T, d]; rnn_h: [B, w] fp32; conv_st: [B, 3, w]; n_valid: [B]
+    valid prefix.  Returns (out, new rnn_h, new conv state); the state
+    as it was when not ``update``."""
+    x0 = cm.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+    xin, gate, cf = _rec_conv(lp, x0, conv_st)
+    return _rec_scan(lp, cf, cf, gate, xin, rnn_h, conv_st, n_valid, update)
+
+
+def _rec_block_tp(cfg: ModelConfig, tp, i: int, lp, h, rnn_hs, conv_sts,
+                  n_valid, update: bool):
+    """Layer ``i``'s recurrent block over the model shards of ``tp``: the
+    norm once; each shard's columns of the x and gate branches and the
+    conv (its slice of the conv state); one gather of the conv output,
+    which the gates' ``wa`` / ``wi`` read whole; each shard's RG-LRU over
+    its columns (its slice of ``rnn_h``) and its rows of ``wo``; one sum.
+    Returns (out, [each shard's new rnn_h], [new conv state])."""
+    x0 = cm.rmsnorm(h, lp["ln1"], cfg.norm_eps)
+    ps = [sh.params["layers"][i] for sh in tp.shards]
+    convs = [_rec_conv(p, x0, c) for p, c in zip(ps, conv_sts)]
+    cf_all = tp.map_gather(lambda sh: convs[sh.index][2])
+    outs = [_rec_scan(p, cf_all, cf, gate, xin, rh, cs, n_valid, update)
+            for p, (xin, gate, cf), rh, cs in zip(ps, convs, rnn_hs,
+                                                 conv_sts)]
+    y = tp.map_reduce(lambda sh: outs[sh.index][0])
+    return y, [o[1] for o in outs], [o[2] for o in outs]
 
 
 # ---------------------------------------------------------------------------
@@ -289,11 +340,19 @@ def _train_layer(cfg: ModelConfig, kind: str, lp, h, positions, inv_freq,
 
 def forward(cfg: ModelConfig, params, tokens, positions, state, *,
             mode: str, valid=None, self_mask=None,
-            collect_features: bool = True):
+            collect_features: bool = True, tp=None):
     """``mode`` in {train, advance, verify}; tokens / positions [B, T];
     ``valid`` [B, T] a prefix of real tokens; ``self_mask`` [B, T, T]
-    (default causal by position).  Returns (h [B, T, d], features (low,
-    mid, top) or None, state)."""
+    (default causal by position).  ``tp``
+    (``distributed.tensor_parallel.TensorParallel``, the state modes,
+    every model shard on one device): the embedding, the recurrent
+    blocks' columns, the MLPs and the tied head split over its model
+    shards (``_rec_block_tp``; the MLP as a dense one's), with ``rnn_h``
+    and ``conv`` shard-stacked on the layer axis ([m * Lr, B, (3,) w /
+    m], shard s's rec layer l at ``s * Lr + l``; ``init_state``'s
+    ``shards``).  The local attention runs whole: its window stays
+    unsplit.  Returns (h [B, T, d], features (low, mid, top) or None,
+    state)."""
     kinds = cfg.layer_kinds()
     layers: List[Dict] = params["layers"]
     dev = tokens.device
@@ -307,9 +366,15 @@ def forward(cfg: ModelConfig, params, tokens, positions, state, *,
         self_mask = positions[:, :, None] >= positions[:, None, :]
     update = mode == "advance"
     n_valid = valid.to(torch.int32).sum(dim=1, dtype=torch.int32)
+    if tp is not None:
+        if mode == "train":
+            raise ValueError("tensor parallelism runs the state modes "
+                             "(advance, verify), not train")
+        tp.require_single_device()
+    n_rec = sum(1 for k in kinds if k == "rec")
     # no embedding scale: the reference does not multiply by sqrt(d),
     # although the RecurrentGemma card does
-    h = params["embed"][tokens.long()].to(cm.dt(cfg.dtype))
+    h = embed_tokens(cfg, params, tokens, tp)
     remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     feats = [None, None, None]
     r_i = a_i = 0
@@ -320,7 +385,17 @@ def forward(cfg: ModelConfig, params, tokens, positions, state, *,
                 _train_layer, *args, use_reentrant=False) if remat
                 else _train_layer(*args))
         else:
-            if kind == "rec":
+            if kind == "rec" and tp is not None and tp.rec_split:
+                js = [sh.index * n_rec + r_i for sh in tp.shards]
+                y, nrh, ncs = _rec_block_tp(
+                    cfg, tp, g, lp, h, [state["rnn_h"][j] for j in js],
+                    [state["conv"][j] for j in js], n_valid, update)
+                if update:
+                    for j, a, c in zip(js, nrh, ncs):
+                        state["rnn_h"][j].copy_(a)
+                        state["conv"][j].copy_(c)
+                r_i += 1
+            elif kind == "rec":
                 y, nrh, ncs = _rec_block(cfg, lp, h, state["rnn_h"][r_i],
                                          state["conv"][r_i], n_valid, update)
                 if update:
@@ -335,7 +410,11 @@ def forward(cfg: ModelConfig, params, tokens, positions, state, *,
                 a_i += 1
             h = h + y
             x2 = cm.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-            h = h + bk.mlp_fwd(cfg, lp["mlp"], x2)
+            if tp is not None and tp.mlp_split:
+                h = h + tp.map_reduce(lambda sh: bk.mlp_fwd(
+                    sh.cfg, sh.params["layers"][g]["mlp"], x2))
+            else:
+                h = h + bk.mlp_fwd(cfg, lp["mlp"], x2)
         # features by global layer index: at 26 layers the top one is
         # the last remainder layer's
         if collect_features:
@@ -350,7 +429,7 @@ def forward(cfg: ModelConfig, params, tokens, positions, state, *,
     return h, out_feats, new_state
 
 
-def lm_head(cfg: ModelConfig, params, h):
-    h = cm.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return (h @ w.to(h.dtype)).float()
+def lm_head(cfg: ModelConfig, params, h, tp=None):
+    """Final norm and head (``models.dense.lm_head``: under ``tp`` the
+    tied head is row-parallel over the width-split ``embed``)."""
+    return dense_lm_head(cfg, params, h, tp)

@@ -22,6 +22,12 @@ dicts run by a plain loop.  Unlike the reference's functional update,
 ``forward(update=True)`` writes the state tensors in place (the engine
 consumes the state it steps) and returns the dict with the advanced
 length.
+
+Under tensor parallelism (``forward(tp=...)``) each model shard runs the
+time mixing's heads it holds (K5 at H / m heads over its stacked slice
+of ``wkv``) and the channel mixing's columns, with one sum after each
+row-split output; the token shifts, the lerps and the gates' whole-width
+parts run once.
 """
 from __future__ import annotations
 
@@ -35,7 +41,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import common as cm
-from repro_torch.models.dense import _feature_targets
+from repro_torch.models.dense import _feature_targets, embed_tokens
+from repro_torch.models.dense import lm_head as dense_lm_head
 
 LORA_RANK = 16
 DDLERP_TARGETS = 5  # w, k, v, r, g
@@ -101,14 +108,19 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict:
     return params
 
 
-def init_state(cfg: ModelConfig, batch: int, dtype, device) -> Dict:
+def init_state(cfg: ModelConfig, batch: int, dtype, device,
+               shards: int = 1) -> Dict:
+    """The recurrent state; ``shards`` = m (tensor parallelism whose time
+    mixing splits the heads) stacks the model shards' ``wkv`` on the
+    layer axis, [m * L, B, H / m, dk, dk] (the token shifts are residual
+    width and stay whole)."""
     d = cfg.d_model
     dk = cfg.ssm_head_dim
     h = d // dk
     L = cfg.num_layers
     return {
-        "wkv": torch.zeros((L, batch, h, dk, dk), dtype=torch.float32,
-                           device=device),
+        "wkv": torch.zeros((shards * L, batch, h // shards, dk, dk),
+                           dtype=torch.float32, device=device),
         "ts_tm": torch.zeros((L, batch, d), dtype=dtype, device=device),
         "ts_cm": torch.zeros((L, batch, d), dtype=dtype, device=device),
         "length": torch.zeros((batch,), dtype=torch.int32, device=device),
@@ -161,79 +173,124 @@ def wkv_train(r, k, v, w, u, s0, chunk: int = WKV_TRAIN_CHUNK):
     return ys.transpose(0, 1), s
 
 
-def _time_mix(cfg: ModelConfig, lp, x, ts, wkv, n_valid, last_idx,
-              update: bool):
-    """x: [B, T, d]; ts: [B, d] previous-token state; wkv: [B, H, dk, dk]
-    fp32; n_valid: [B] valid prefix (padding never touches the state).
-    Returns (y, new_ts, new_wkv)."""
-    b, t, d = x.shape
-    dk = cfg.ssm_head_dim
-    h = d // dk
-    prev = torch.cat([ts[:, None], x[:, :-1]], dim=1)
-    xx = prev - x
-    xw, xk, xv, xr, xg = _ddlerp(lp, x, xx)
-    xd = x.dtype
-    r = (xr @ lp["wr"].to(xd)).reshape(b, t, h, dk)
-    k = (xk @ lp["wk"].to(xd)).reshape(b, t, h, dk)
-    v = (xv @ lp["wv"].to(xd)).reshape(b, t, h, dk)
-    g = F.silu(xg @ lp["wg"].to(xd))
+def _tmix_heads(p, xr, xk, xv, xg, dz, wkv, n_valid, update: bool,
+                dk: int):
+    """The head-local part of the time mixing over the heads of ``p`` (a
+    layer's weights, or one model shard's pieces of them): the r / k / v
+    / g projections by its columns, the decay from the rank-64 input
+    ``dz`` = tanh(xw wd_A), the WKV recurrence (K5) over its state
+    ``wkv`` [B, H_p, dk, dk], the per-head group norm, the gate and the
+    output rows ``wo``.  Returns (its part of the output [B, T, d], the
+    new state)."""
+    b, t, _ = xr.shape
+    xd = xr.dtype
+    h = p["wr"].shape[-1] // dk
+    r = (xr @ p["wr"].to(xd)).reshape(b, t, h, dk)
+    k = (xk @ p["wk"].to(xd)).reshape(b, t, h, dk)
+    v = (xv @ p["wv"].to(xd)).reshape(b, t, h, dk)
+    g = F.silu(xg @ p["wg"].to(xd))
     # data-dependent decay (Finch): w = exp(-exp(w0 + tanh(xw A_d) B_d))
-    dec = torch.tanh(xw @ lp["wd_A"].to(xd)) @ lp["wd_B"].to(xd)
-    wlog = lp["w0"][None, None] + dec.reshape(b, t, h, dk).float()
+    dec = dz @ p["wd_B"].to(xd)
+    wlog = p["w0"][None, None] + dec.reshape(b, t, h, dk).float()
     w = torch.exp(-torch.exp(wlog))
     if torch.is_grad_enabled() and w.requires_grad:
         # training: every step is valid and the state is read-only
         y, wkv_new = wkv_train(r.float(), k.float(), v.float(), w,
-                               lp["u"].float(), wkv)
+                               p["u"].float(), wkv)
     else:
         y, wkv_new = ops.wkv(r.float().contiguous(), k.float().contiguous(),
                              v.float().contiguous(), w.contiguous(),
-                             lp["u"].float().contiguous(), wkv, n_valid,
+                             p["u"].float().contiguous(), wkv, n_valid,
                              update=update)
-    y = cm.groupnorm_heads(y, lp["gn_scale"], lp["gn_bias"])
-    y = (y.reshape(b, t, d).to(xd) * g) @ lp["wo"].to(xd)
-    return y, _shift_state(x, ts, last_idx), wkv_new
+    y = cm.groupnorm_heads(y, p["gn_scale"], p["gn_bias"])
+    return (y.reshape(b, t, h * dk).to(xd) * g) @ p["wo"].to(xd), wkv_new
 
 
-def _channel_mix(cfg: ModelConfig, lp, x, ts, last_idx):
+def _time_mix(cfg: ModelConfig, lp, x, ts, wkvs, n_valid, last_idx,
+              update: bool, units=None, tp=None):
+    """x: [B, T, d]; ts: [B, d] previous-token state; n_valid: [B] valid
+    prefix (padding never touches the state).  ``units``: the head
+    groups, each a parameter dict (default ``[lp]``, the whole layer;
+    under tensor parallelism each model shard's pieces, whose outputs
+    ``tp`` sums), with ``wkvs`` their states [B, H_u, dk, dk] fp32.  The
+    token shift, the data-dependent lerps and the decay's LoRA input run
+    once, whole.  Returns (y, new_ts, [each unit's new state])."""
+    units = [lp] if units is None else units
+    prev = torch.cat([ts[:, None], x[:, :-1]], dim=1)
+    xx = prev - x
+    xw, xk, xv, xr, xg = _ddlerp(lp, x, xx)
+    dz = torch.tanh(xw @ lp["wd_A"].to(x.dtype))
+    outs = [_tmix_heads(p, xr, xk, xv, xg, dz, wkv, n_valid, update,
+                        cfg.ssm_head_dim) for p, wkv in zip(units, wkvs)]
+    y = (outs[0][0] if len(outs) == 1
+         else tp.map_reduce(lambda sh: outs[sh.index][0]))
+    return y, _shift_state(x, ts, last_idx), [o[1] for o in outs]
+
+
+def _channel_mix(cfg: ModelConfig, lp, x, ts, last_idx, pieces=None,
+                 tp=None):
+    """The squared-relu channel mixing with its token shift.  ``pieces``
+    (tensor parallelism: each model shard's ``cm_wk`` columns and
+    ``cm_wv`` rows) sums the shards' ``relu(x cm_wk)^2 cm_wv`` before the
+    receptance gate ``sigmoid(x cm_wr)``, which runs whole."""
     prev = torch.cat([ts[:, None], x[:, :-1]], dim=1)
     xx = prev - x
     xd = x.dtype
     xk = x + xx * lp["cm_mu_k"].to(xd)
     xr = x + xx * lp["cm_mu_r"].to(xd)
-    kk = torch.square(F.relu(xk @ lp["cm_wk"].to(xd)))
-    out = torch.sigmoid(xr @ lp["cm_wr"].to(xd)) * (kk @ lp["cm_wv"].to(xd))
+
+    def kv(p):
+        return (torch.square(F.relu(xk @ p["cm_wk"].to(xd)))
+                @ p["cm_wv"].to(xd))
+    vals = kv(lp) if pieces is None else tp.map_reduce(
+        lambda sh: kv(pieces[sh.index]))
+    out = torch.sigmoid(xr @ lp["cm_wr"].to(xd)) * vals
     return out, _shift_state(x, ts, last_idx)
 
 
 def forward(cfg: ModelConfig, params, tokens, state, *, valid=None,
-            update: bool = True, collect_features: bool = True):
+            update: bool = True, collect_features: bool = True, tp=None):
     """Process T tokens (prefill chunk / chain verify / post-acceptance
     advance).  ``valid`` [B, T] marks a PREFIX of real tokens; padding
     never touches the state.  ``update=False`` is read-only (chain
-    verify).  Returns (h [B, T, d], features (low, mid, top) or None,
-    state)."""
+    verify).  ``tp`` (``distributed.tensor_parallel.TensorParallel``,
+    every model shard on one device): the embedding, the time mixing's
+    heads, the channel mixing's columns and the head split over its model
+    shards, with the ``wkv`` state shard-stacked on the layer axis
+    ([m * L, B, H / m, dk, dk], shard s's layer l at ``s * L + l``;
+    ``init_state``'s ``shards``).  Returns (h [B, T, d], features (low,
+    mid, top) or None, state)."""
     b, t = tokens.shape
     dev = tokens.device
+    if tp is not None:
+        tp.require_single_device()
     if valid is None:
         valid = torch.ones((b, t), dtype=torch.bool, device=dev)
     n_valid = valid.to(torch.int32).sum(dim=1, dtype=torch.int32)
     last_idx = n_valid.long() - 1                        # [B], -1 if none
-    h = params["embed"][tokens.long()].to(cm.dt(cfg.dtype))
+    h = embed_tokens(cfg, params, tokens, tp)
     layers: List[Dict] = params["layers"]
-    targets = _feature_targets(len(layers))
+    n_l = len(layers)
+    targets = _feature_targets(n_l)
     feats = [None, None, None]
     for i, lp in enumerate(layers):
         x1 = cm.rmsnorm(h, lp["ln1"], cfg.norm_eps)
-        y, nts_tm, nwkv = _time_mix(cfg, lp, x1, state["ts_tm"][i],
-                                    state["wkv"][i], n_valid, last_idx,
-                                    update)
+        units, wkvs = None, [state["wkv"][i]]
+        if tp is not None and tp.tmix_split:
+            units = [sh.params["layers"][i] for sh in tp.shards]
+            wkvs = [state["wkv"][sh.index * n_l + i] for sh in tp.shards]
+        y, nts_tm, nwkvs = _time_mix(cfg, lp, x1, state["ts_tm"][i], wkvs,
+                                     n_valid, last_idx, update, units, tp)
         h = h + y
         x2 = cm.rmsnorm(h, lp["ln2"], cfg.norm_eps)
-        y2, nts_cm = _channel_mix(cfg, lp, x2, state["ts_cm"][i], last_idx)
+        pieces = ([sh.params["layers"][i] for sh in tp.shards]
+                  if tp is not None and tp.cmix_split else None)
+        y2, nts_cm = _channel_mix(cfg, lp, x2, state["ts_cm"][i], last_idx,
+                                  pieces, tp)
         h = h + y2
         if update:
-            state["wkv"][i].copy_(nwkv)
+            for wkv, nwkv in zip(wkvs, nwkvs):
+                wkv.copy_(nwkv)
             state["ts_tm"][i].copy_(nts_tm)
             state["ts_cm"][i].copy_(nts_cm)
         if collect_features:
@@ -248,7 +305,7 @@ def forward(cfg: ModelConfig, params, tokens, state, *, valid=None,
     return h, out_feats, new_state
 
 
-def lm_head(cfg: ModelConfig, params, h):
-    h = cm.rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return (h @ w.to(h.dtype)).float()
+def lm_head(cfg: ModelConfig, params, h, tp=None):
+    """Final norm and head (``models.dense.lm_head``: under ``tp`` the
+    head splits as a dense target's)."""
+    return dense_lm_head(cfg, params, h, tp)

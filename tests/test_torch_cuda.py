@@ -2496,10 +2496,11 @@ def test_cuda_paged_summaries_vlm_audio_widths(cuda, layers, hk, dh):
     assert float(got[:, :, 0].abs().max()) == 0.0
 
 
-def _xattn_serve(model, graphs, reqs, new):
+def _xattn_serve(model, graphs, reqs, new, mesh=None):
     """Two slots of a cross-attention target, each admitted with its own
     ``extra`` (the second while the first decodes), stepped to the end
-    on the paged zero-copy pool; returns each request's tokens."""
+    on the paged zero-copy pool (over ``mesh`` when given); returns each
+    request's tokens and the engine."""
     import numpy as np
     from repro_torch.core.engine import SpecPVEngine, request_token_need
     cfg, spec, dcfg, params, dparams = model
@@ -2507,7 +2508,8 @@ def _xattn_serve(model, graphs, reqs, new):
                                  spec.buffer_size, dcfg.tree_depth + 1)
     eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
                        max_len=max_len, paged=True, zero_copy=True,
-                       prefix_cache=False, device="cuda", cuda_graphs=graphs)
+                       prefix_cache=False, device="cuda", cuda_graphs=graphs,
+                       mesh=mesh)
     st = eng.empty_state()
     out = {0: [], 1: []}
 
@@ -2631,7 +2633,7 @@ def test_cuda_cp_partial_shard_form_matches_plain(cuda, dtype):
     m, l, acc, idx = local_partial_partials(spec, 16, q, k, v, kmax, kmin,
                                             length, 1)
     torch.cuda.synchronize()
-    runs, _ = tops.launch_count_delta(before, tops.launch_counts())
+    runs = tops.launch_count_delta(before, tops.launch_counts())[0]
     assert runs == {"sparse_verify_attention": 1, "retrieval_score": 1}
     got_s = tops.retrieval_scores(q, kmax, kmin, torch.ones(
         (1, 8), dtype=torch.float32, device=cuda))
@@ -2988,3 +2990,145 @@ def test_cuda_tp_collectives_across_devices(cuda, arch):
              tdr._draft_inputs(cfg, dparams, params["embed"], toks, feats))):
         assert got.device.type == "cuda"
         _assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [6, 256])
+def test_cuda_tp_wkv_at_shard_heads_matches_plain(cuda, t):
+    """K5 at one tensor-parallel shard's heads (rwkv6-3b's 40 over two
+    model shards: H 20, dk 64), fp32, a full and a padded row, the
+    update and the read-only form; ``ops.WKV_HEADS`` counts both at H
+    20."""
+    b = 2
+    r, k, v, w, u, s0 = _wkv_inputs(cuda, b, t, 5, h=20)
+    n_valid = torch.tensor([t, t // 2], dtype=torch.int32, device=cuda)
+    before = dict(tops.WKV_HEADS)
+    y, s = tops.wkv(r, k, v, w, u, s0, n_valid)
+    y_ro, s_ro = tops.wkv(r, k, v, w, u, s0, n_valid, update=False)
+    torch.cuda.synchronize()
+    assert tops.WKV_HEADS[20] == before.get(20, 0) + 2
+    want_y, want_s = tref.wkv_batched(r, k, v, w, u, s0, n_valid)
+    _assert_close(y, want_y)
+    _assert_close(s, want_s)
+    assert torch.equal(y_ro, y) and s_ro is s0
+
+
+def _family_model(dev, name, layers):
+    """``name`` at full width and ``layers`` layers, random bf16 weights
+    (the VLM's and Whisper's gates set), with its spec and draft
+    config."""
+    from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.models.api import init_params
+    cfg = get_config(name).replace(num_layers=layers)
+    if cfg.arch_type == "vlm":
+        cfg = cfg.replace(cross_attn_every=2)
+    spec = (SpecPVConfig(use_pallas=True, score_mode="paper",
+                         reduction="mean") if cfg.is_attention_arch
+            else SpecPVConfig())
+    dcfg = DraftConfig()
+    params = init_params(cfg, seed=0, device=dev)
+    for lp in params["layers"]:
+        for gname in ("gate_attn", "gate_mlp"):
+            if gname in lp:
+                lp[gname].fill_(0.5)
+    return (cfg, spec, dcfg, params,
+            init_draft_params(cfg, dcfg, seed=1, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, layers", [("rwkv6-3b", 2),
+                                          ("recurrentgemma-2b", 3)])
+def test_cuda_tp_state_step_graph_equals_eager(cuda, models, name, layers):
+    """A state arch at full width on a (1, 2) mesh of two ``cuda:0``
+    model shards (rwkv6-3b: K5 at 20 heads per shard; Griffin: one
+    (rec, rec, attn) superblock, the recurrence split by columns, the
+    local attention whole): ``generate`` with graphs (one ``"state"``
+    graph, one prefill chunk graph) equals it eagerly bit for bit, the
+    tokens, the launch counts and every state tensor; the eager state
+    body runs under the sync check."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.distributed.sharding import make_mesh
+    key = f"{name}-tp"
+    if key not in models:
+        models.clear()
+        torch.cuda.empty_cache()
+        models[key] = _family_model(cuda, name, layers)
+    cfg, spec, dcfg, params, dparams = models[key]
+    prompt = np.random.default_rng(75).integers(
+        0, cfg.vocab_size, (1, 600)).astype(np.int64)
+    runs = []
+    for graphs in (False, True):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=1,
+                           max_len=1024, paged=False, device="cuda",
+                           cuda_graphs=graphs,
+                           mesh=make_mesh((1, 2), devices=["cuda:0"] * 2))
+        assert eng.tp.m == 2 and eng.kv_shards == 2
+        tops.reset_launch_counts()
+        toks, stats = eng.generate(prompt, 16)
+        torch.cuda.synchronize()
+        counts = tops.launch_counts()
+        state = {k: v.clone() for k, v in eng.state.cache.items()}
+        if not graphs:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                eng._state_body()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        else:
+            assert set(eng._graphs) == {("prefill", 256), "state"}
+        runs.append((toks, stats, counts, state))
+    (et, es, ec, est), (gt, gs, gc, gst) = runs
+    assert np.array_equal(gt, et) and gs["modes"] == es["modes"]
+    assert gc == ec
+    assert all(torch.equal(gst[k], est[k]) for k in est)
+    if cfg.arch_type == "ssm":
+        calls = cfg.num_layers * 2 * (3 + 2 * es["steps"])
+        assert ec[0]["wkv"] == calls and ec[2] == {20: calls}
+    else:
+        assert sum(ec[0].values()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_tp_cross_rows_per_shard(cuda, models, monkeypatch):
+    """whisper-small at full width and 2 layers on a (1, 2) mesh of two
+    ``cuda:0`` model shards: two requests with different ``extra``, each
+    admitted into a slot, write their cross rows once per request (one
+    ``api.write_cross`` each), at each shard's 6 KV heads; the rows put
+    side by side equal the unsharded engine's within 1e-4 of their
+    largest magnitude, and serving with graphs equals serving eagerly."""
+    import numpy as np
+    from repro_torch.distributed.sharding import make_mesh
+    from repro_torch.distributed.tensor_parallel import merge_heads
+    from repro_torch.models import api
+    key = "whisper-small-tp"
+    if key not in models:
+        models.clear()
+        torch.cuda.empty_cache()
+        models[key] = _family_model(cuda, "whisper-small", 2)
+    model = models[key]
+    cfg = model[0]
+    rng = np.random.default_rng(76)
+    reqs = [(rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64),
+             api.extra_inputs_for(cfg, 1, seed=30 + i, device=cuda))
+            for i, n in enumerate((700, 300))]
+    calls = []
+    write = api.write_cross
+    monkeypatch.setattr(api, "write_cross",
+                        lambda *a, **kw: (calls.append(1), write(*a, **kw)))
+    mesh = make_mesh((1, 2), devices=["cuda:0"] * 2)
+    outs, rows = [], []
+    for graphs, m in ((False, mesh), (True, mesh), (False, None)):
+        calls.clear()
+        toks, eng = _xattn_serve(model, graphs, reqs, 16, mesh=m)
+        assert len(calls) == 2
+        ck = eng.state.cache["cross_k"]
+        if m is not None:
+            assert ck.shape[0] == 2 * 2 and ck.shape[3] == 6
+            ck = merge_heads(ck, 2, 0, 3)
+        outs.append(toks)
+        rows.append(ck.float())
+    assert all(np.array_equal(a, b) for a, b in zip(outs[0], outs[1]))
+    assert torch.equal(rows[0], rows[1])
+    _assert_close(rows[0], rows[2])

@@ -258,8 +258,10 @@ def test_replay_adds_recorded_launch_counts():
         tops.LAUNCHES["wkv"] += 64
         tops.WKV_SHAPES[(6, False)] = 32
         tops.WKV_SHAPES[(6, True)] = 32
+        tops.WKV_HEADS[40] = 64
         delta = tops.launch_count_delta(before, tops.launch_counts())
-        assert delta == ({"wkv": 64}, {(6, False): 32, (6, True): 32})
+        assert delta == ({"wkv": 64}, {(6, False): 32, (6, True): 32},
+                         {40: 64})
         tops.set_launch_counts(before)
         assert tops.launch_counts() == before
         fake = _FakeGraph()
@@ -269,6 +271,7 @@ def test_replay_adds_recorded_launch_counts():
         assert fake.replays == 3
         assert tops.LAUNCHES == {**before[0], "wkv": 192}
         assert tops.WKV_SHAPES == {(6, False): 96, (6, True): 96}
+        assert tops.WKV_HEADS == {40: 192}
     finally:
         tops.set_launch_counts(saved)
 

@@ -48,7 +48,8 @@ def test_port_imports_without_jax_or_repro():
         "SYS_ROOT", repr(str(ROOT)))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
-                         env={**os.environ, "PYTHONPATH": ""})
+                         env={**os.environ, "PYTHONPATH": "",
+                              "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.strip().splitlines()[-1]) >= 15
 
@@ -109,7 +110,8 @@ def test_train_target_twin_runs_on_the_cpu(tmp_path):
         "SCRIPT", repr(str(ROOT / "examples" / "train_target_torch.py")))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=str(tmp_path),
-                         env={**os.environ, "PYTHONPATH": ""})
+                         env={**os.environ, "PYTHONPATH": "",
+                              "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr
     assert "final loss:" in res.stdout
     assert ckpt.exists()

@@ -33,6 +33,16 @@ JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small shapes: torch's intra-op threads only add synchronisation
+    while the suite runs several workers per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _pair(a, dtype):
     """The same numpy values as a JAX array and a torch tensor."""
     a = np.asarray(a, np.float32)

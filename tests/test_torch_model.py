@@ -33,6 +33,16 @@ from repro_torch.models import dense as tdn
 TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Small shapes: torch's intra-op threads only add synchronisation
+    while the suite runs several workers per core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 

@@ -567,13 +567,13 @@ def test_lock_step_generate_and_prefix_snapshot(tiny):
 
 
 def test_model_axis_and_unported_options_raise(tiny):
-    """A ``model`` axis above 1 builds a tensor-parallel engine; what it
-    does not carry yet raises naming ROADMAP.md's 'Multi-GPU, part 4':
-    the host tier (and on a data-parallel mesh), shards on several
-    devices, state and cross-attention targets, an int8 cache and the
-    launch steps' sharded gradients (the launch steps take no split:
+    """A ``model`` axis above 1 builds a tensor-parallel engine (the state
+    and cross-attention families too, held in
+    ``tests/test_torch_family_tp.py``); what it does not carry yet raises
+    naming ROADMAP.md's 'Multi-GPU, part 4': the host tier (and on a
+    data-parallel mesh), shards on several devices, an int8 cache and
+    the launch steps' sharded gradients (the launch steps take no split:
     they run whole weights)."""
-    from repro_torch.core.draft import init_draft_params
     from repro_torch.distributed.tensor_parallel import TensorParallel
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import api as tapi
@@ -585,13 +585,7 @@ def test_model_axis_and_unported_options_raise(tiny):
     with pytest.raises(NotImplementedError, match=part4):
         _tengine(tiny, 4, mesh=tsh.DeviceMesh((1, 2),
                                               devices=["cpu", "meta"]))
-    tcfg, tspec, tdcfg = tiny["targs"][:3]
-    for arch in ("rwkv6-3b", "whisper-small"):
-        cfg = tcfgs.get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match=part4):
-            TEngine(cfg, tspec, tdcfg, tapi.init_params(cfg, 0, "cpu"),
-                    init_draft_params(cfg, tdcfg, 1, "cpu"), batch=2,
-                    max_len=64, device="cpu", mesh=_cpu_mesh(1, 2))
+    tcfg, tspec = tiny["targs"][:2]
     with pytest.raises(NotImplementedError, match=part4):
         tsteps.make_train_step(tcfg, grad_shardings={})
     tp = TensorParallel(tcfg, tiny["targs"][3], ["cpu"] * 2)
