@@ -462,7 +462,30 @@ Phases, in order (any failure raises and the script exits non-zero):
    each family's (1, 2) ``generate`` equals the unsharded engine's
    tokens; on (2, 1), rwkv6-3b's wave serving and whisper-small's slot
    serving with per-request ``extra`` equal each request's solo
-   ``generate``.
+   ``generate``;
+23. the host tier, the int8 cache and FSDP training under a mesh (slice
+   23), every mesh over ``cuda:0``.  (a) phase 13 (b)'s tiered int8
+   served trace of llama3.1-8b at full width and depth (phase 6's
+   prompts at half their new tokens, batch 4, 161 trunk pages, the
+   gathered paged layout, graphs) on (1, 2) (one tier over the
+   shard-stacked pool) and on (2, 1) (a tier per data shard, host bytes
+   per shard): every tier call under the sync check, K1-K4 launches
+   held to the steps and chunks (K1-K3 at each shard's heads), a
+   drained pool; tokens/s, tick wall, the tier's counters (each host's
+   peak on (2, 1)) and its device ms by part (quantize, to_host,
+   to_device, restore), peak memory, and the bf16 tokens beside phase
+   13 (b)'s unsharded tiered run (reported).  (b) the int8 hillclimb
+   cases C1 and A2 at phase 19's cuts and B1 at 16 layers on (1, 2):
+   graph == eager bit for bit, ms a step both ways beside phase 19's,
+   state bytes against the reckoning.  (c) the launch train step at 4
+   layers of llama width over 2 x 512 tokens, unsharded and FSDP on (2,
+   1): ms a step, each shard's moment bytes, the bf16 loss difference
+   (reported).  (d) fp32 (TF32 off) at 2 layers: tiered lossless
+   ``generate`` on (1, 2) and (2, 1) == the unsharded tiered engine's ==
+   untiered, the unsharded tiered engine's tier counters on both meshes;
+   the int8 decode steps on (1, 2) give the unsharded
+   tokens; FSDP parameters after two steps within 2e-4 of the unsharded
+   step's.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -5201,9 +5224,10 @@ def _tier_served(torch, card, cfg, spec, dcfg, params, dparams):
               f"the cold K/V): {same}")
     if not t["demoted"]:
         raise AssertionError("tiers (b): the tiered run demoted nothing")
+    toks = t["toks"]
     for r in runs.values():
         r.pop("toks")
-    return t["launches"], dict(untiered=u, tiered=t, same=same)
+    return t["launches"], dict(untiered=u, tiered=t, same=same), toks
 
 
 def _tier_lossless(torch, card, layers: int = 4, new: int = 100):
@@ -5269,7 +5293,8 @@ def _tier_lossless(torch, card, layers: int = 4, new: int = 100):
 def phase_tiers(torch, card):
     """Phase 13: (a) the forced schedule per codec and on zero-copy, (b)
     the served trace untiered against tiered int8, (c) fp32 served
-    identity.  Returns (b)'s tiered launches and the numbers."""
+    identity.  Returns (b)'s tiered launches and the numbers, and (b)'s
+    tiered tokens (``tiered_toks``, which phase 23 compares with)."""
     import gc
     gc.collect()
     torch.cuda.empty_cache()
@@ -5278,8 +5303,8 @@ def phase_tiers(torch, card):
         torch, card, "llama3.1-8b")
     forced = _tier_forced(torch, card, cfg, spec, dcfg, params, dparams,
                           prompt)
-    launches, served = _tier_served(torch, card, cfg, spec, dcfg, params,
-                                    dparams)
+    launches, served, tiered_toks = _tier_served(
+        torch, card, cfg, spec, dcfg, params, dparams)
     del params, dparams
     gc.collect()
     torch.cuda.empty_cache()
@@ -5290,7 +5315,7 @@ def phase_tiers(torch, card):
     secs = time.perf_counter() - t_phase
     say(card, f"phase 13 launches {launches}; phase 13 took {secs:.1f} s")
     return dict(launches=launches, forced=forced, served=served,
-                fp32=fp32, seconds=secs)
+                fp32=fp32, seconds=secs, tiered_toks=tiered_toks)
 
 
 # ---------------------------------------------------------------------------
@@ -8918,11 +8943,467 @@ def phase_families(torch, card, timer, base):
                 seconds=total)
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the host tier, the int8 cache and FSDP training under a mesh
+# ---------------------------------------------------------------------------
+
+MESH_TIER_SHAPES = ((1, 2), (2, 1))     # (a): two shards of the one card
+MESH_HILLCLIMB = ("C1_deepseek_long500k_int8pkv",
+                  "A2_granite_verify32k_partial_int8",
+                  "B1_qwen32b_decode32k_int8")
+MESH_B1_LAYERS = 16             # (b): B1's depth beside the others' state
+MESH_TRAIN_ROWS = 2             # (c): one row a data shard
+MESH_FP32_LAYERS = 2
+MESH_FP32_PROMPT = 4700                 # (d): batch 2, past the budget
+MESH_FP32_NEW = 100                     # two refreshes: a prefetch hit
+MESH_FP32_INT8 = dict(seq=4000, steps=6)
+MESH_FP32_TRAIN_SEQ = 256
+
+
+def _tier_managers(eng):
+    """The tier managers of an engine: its own, or each data shard's."""
+    subs = getattr(eng, "shards", [eng])
+    return [sub._tier for sub in subs]
+
+
+def _copy_log_ms(tms):
+    """Device ms and bytes of each part of every tier operation the
+    managers' copy logs hold, summed: {part: (count, bytes, ms)}."""
+    out = {}
+    for tm in tms:
+        for what, nbytes, ms in _tier_log_ms(tm.copy_log):
+            n, b, t = out.get(what, (0, 0, 0.0))
+            out[what] = (n + 1, b + nbytes, t + ms)
+    return out
+
+
+def _mesh_tier_served(torch, card, cfg, spec, dcfg, params, dparams,
+                      base_toks):
+    """(a): phase 13 (b)'s tiered int8 served trace (phase 6's prompts at
+    TIER_SERVE_REQS, batch 4, SERVE_PAGES trunk pages, the gathered paged
+    layout, graphs) on each mesh of MESH_TIER_SHAPES over ``cuda:0``:
+    every tier operation under the sync check, K1-K4 launches held to
+    the steps and chunks (K1-K3 per shard at its heads), a drained pool;
+    tokens/s, tick wall, the tier's counters and its device ms by part,
+    peak memory, and the bf16 tokens beside phase 13 (b)'s unsharded
+    tiered run when it ran (reported).  Returns the launches summed over
+    the meshes and the numbers."""
+    import gc
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine
+    from repro_torch.distributed.sharding import DeviceMesh
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int64)
+               for n, _ in SERVE_REQS]
+    nb = -(-SERVE_MAX_LEN // spec.block_size)
+    total, out = _zero_launches(), {}
+    for shape in MESH_TIER_SHAPES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        label = f"({shape[0]}, {shape[1]})"
+        mesh = DeviceMesh(shape, devices=["cuda:0"] * 2)
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=4,
+                           max_len=SERVE_MAX_LEN, num_pages=SERVE_PAGES,
+                           num_draft_pages=4 * nb + 1, paged=True,
+                           zero_copy=False, prefix_cache=False, tiered=True,
+                           mesh=mesh, device="cuda")
+        tms = _tier_managers(eng)
+        guarded = [_guard_tier(torch, tm) for tm in tms]
+        for tm in tms:
+            tm.copy_log = []
+        sched, outs, wall, launches, peak = _dp_serve(
+            torch, eng, _serving_requests(prompts, TIER_SERVE_REQS))
+        for i, (n, new) in enumerate(TIER_SERVE_REQS):
+            o = outs[f"r{i}"]
+            if (o.finish_reason != "length" or len(o.tokens) != new
+                    or o.tokens.min() < 0
+                    or o.tokens.max() >= cfg.vocab_size):
+                raise AssertionError(f"mesh tiers (a) {label} r{i}: "
+                                     f"{o.finish_reason}, {len(o.tokens)}")
+        kv = getattr(eng, "shards", [eng])[0].kv_shards
+        want = _implied_launches(eng.dispatch_keys, eng.prefill_dispatches,
+                                 cfg.num_layers * kv)
+        got = {k: launches[k] for k in want}
+        if got != want or min(got.values()) <= 0:
+            raise AssertionError(f"mesh tiers (a) {label}: launches {got} "
+                                 f"!= {want} implied by "
+                                 f"{eng.dispatch_keys}")
+        for k, n in got.items():
+            total[k] += n
+        tier = eng.tier_stats()
+        ps = eng.page_stats()
+        if not tier["tier_demoted_pages"] or ps["in_use"] \
+                or tier["tier_hosted_pages"]:
+            raise AssertionError(f"mesh tiers (a) {label}: tier {tier}, "
+                                 f"pages {ps}")
+        parts = _copy_log_ms(tms)
+        calls = {}
+        for g in guarded:
+            for k, v in g.items():
+                calls.setdefault(k, []).extend(v)
+        for tm in tms:
+            tm.copy_log = None
+        ntok = int(sum(len(o.tokens) for o in outs.values()))
+        ticks = {c: (len(v), round(1e3 * float(np.median(v)), 2))
+                 for c, v in sched.tick_wall.items()}
+        same = None
+        if base_toks is not None:
+            same = {rid: int(np.sum(outs[rid].tokens == t))
+                    for rid, t in base_toks.items()}
+        out[label] = dict(
+            tokens_per_s=ntok / wall, wall_s=wall, ticks=ticks,
+            tier=tier, parts={k: dict(count=n, bytes=b, ms=t)
+                              for k, (n, b, t) in parts.items()},
+            host_ms_per_call={k: float(np.median(v))
+                              for k, v in calls.items()},
+            launches=got, peak_gib=peak, same_as_unsharded=same,
+            page_stalls=int(sched.stats.get("page_stalls", 0)),
+            tier_defers=int(sched.stats.get("tier_defers", 0)),
+            graphs=sum(len(sub._graphs)
+                       for sub in getattr(eng, "shards", [eng])))
+        say(card, f"mesh tiers (a) {label} llama3.1-8b tiered int8, batch 4, "
+                  f"{SERVE_PAGES} trunk pages, gathered, graphs: tokens "
+                  f"{ntok} wall_s {wall:.3f} tokens_per_s {ntok / wall:.2f} "
+                  f"tick wall ms (ticks, median) {ticks} page_stalls "
+                  f"{out[label]['page_stalls']} tier_defers "
+                  f"{out[label]['tier_defers']}; tier {tier}; tier device "
+                  f"ms by part (count, bytes, ms) "
+                  f"{ {k: (n, b, round(t, 3)) for k, (n, b, t) in parts.items()} }"
+                  f"; host ms a call (median) "
+                  f"{ {k: round(v, 2) for k, v in out[label]['host_ms_per_call'].items()} }"
+                  f" (every tier call under set_sync_debug_mode('error')); "
+                  f"launches {got} == implied by the steps and chunks at "
+                  f"{cfg.num_layers} x {kv} stacked layers; peak_mem_gib "
+                  f"{peak:.2f}; graphs {out[label]['graphs']}; bf16 tokens "
+                  f"equal to phase 13 (b)'s unsharded tiered run "
+                  f"(reported) {same if same is not None else 'not run'}")
+        del eng, sched
+    return total, out
+
+
+def _mesh_hillclimb(torch, card, p19):
+    """(b): the int8 hillclimb cases C1 and A2 at phase 19's cuts and B1 at
+    MESH_B1_LAYERS layers on a (1, 2) mesh of ``cuda:0``: HILLCLIMB_STEPS
+    steps eagerly (each under the sync check) and as a CUDA graph, equal
+    bit for bit (``run_built``), ms a step both ways beside phase 19's
+    unsharded figures when it ran, state bytes against the reckoning."""
+    from repro_torch.distributed.sharding import DeviceMesh
+    from repro_torch.launch import hillclimb as hc
+    mesh = DeviceMesh((1, 2), devices=["cuda:0"] * 2)
+    base = (p19 or {}).get("hillclimb", {})
+    out = {}
+    for name in MESH_HILLCLIMB:
+        kw = dict(layers=MESH_B1_LAYERS) if name.startswith("B1") else {}
+        r = hc.run_case(name, device="cuda", steps=HILLCLIMB_STEPS,
+                        mesh=mesh, **kw)
+        if not r.get("graph_equals_eager") or r["mesh"]["shape"] != [1, 2]:
+            raise AssertionError(f"mesh hillclimb {name}: {r}")
+        b = base.get(name)
+        reck = sum(v for k, v in r["reckoned_bytes"].items()
+                   if not k.startswith("widened"))
+        out[name] = dict(eager_ms=r["eager_ms_median"],
+                         graph_ms=r["graph_ms_median"],
+                         state_bytes=r["state_bytes"], reckoned=reck,
+                         peak_bytes=r["peak_bytes"], reduced=r["reduced"],
+                         unsharded_graph_ms=(b or {}).get("graph_ms_median"))
+        say(card, f"mesh hillclimb {name} on (1, 2): reduced {r['reduced']}; "
+                  f"ms per step eager {r['eager_ms_median']:.3f} graph "
+                  f"{r['graph_ms_median']:.3f} (median of {HILLCLIMB_STEPS}"
+                  f", CUDA events; phase 19 unsharded "
+                  + (f"eager {b['eager_ms_median']:.3f} graph "
+                     f"{b['graph_ms_median']:.3f}" if b else "not run")
+                  + f"); graph == eager bit for bit; state "
+                  f"{r['state_bytes'] / 1e9:.3f} GB against "
+                  f"{reck / 1e9:.3f} GB reckoned (weights, cache and scales,"
+                  f" partial cache); peak {r['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def _mesh_fsdp_train(torch, card, p19):
+    """(c): ``make_train_step`` at LAUNCH_TRAIN_LAYERS layers of llama
+    width (bf16, fp32 moments), a batch of MESH_TRAIN_ROWS rows of
+    LAUNCH_TRAIN_SEQ tokens, unsharded and FSDP on a (2, 1) mesh of
+    ``cuda:0`` (``grad_shardings=param_specs(ShardingRules(mesh,
+    fsdp=True), params)``) from the same init: ms a step (CUDA events,
+    the second of two), each shard's moment bytes, the loss difference
+    (bf16, reported), no kernel launched."""
+    import gc
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as st
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import adamw_init, tree_leaves
+    dev = torch.device("cuda")
+    cfg = get_config("llama3.1-8b").replace(num_layers=LAUNCH_TRAIN_LAYERS)
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (MESH_TRAIN_ROWS, LAUNCH_TRAIN_SEQ + 1),
+                           generator=g, device=dev)
+    mesh = sh.DeviceMesh((2, 1), devices=["cuda:0"] * 2)
+    runs = {}
+    for label in ("unsharded", "fsdp (2, 1)"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = api.init_params(cfg, seed=4, device=dev)
+        specs = (sh.param_specs(sh.ShardingRules(mesh, fsdp=True), params)
+                 if label != "unsharded" else None)
+        step = st.make_train_step(cfg, grad_shardings=specs)
+        opt = adamw_init(params)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ms, losses = [], []
+        for _ in range(2):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            params, opt, loss = step(params, opt, tokens, None)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+        if (not all(map(math.isfinite, losses))
+                or dict(ops.LAUNCHES) != _zero_launches() or opt.step != 2):
+            raise AssertionError(f"mesh train {label}: losses {losses}, "
+                                 f"launches {dict(ops.LAUNCHES)}")
+        moments = ([sum(m.numel() * m.element_size()
+                        for t in (opt.mu[c], opt.nu[c])
+                        for m in tree_leaves(t)) for c in range(mesh.size)]
+                   if specs is not None else
+                   [sum(m.numel() * m.element_size()
+                        for t in (opt.mu, opt.nu) for m in tree_leaves(t))])
+        runs[label] = dict(ms=ms[1], first_ms=ms[0], losses=losses,
+                           moment_bytes=moments,
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2**30)
+        del params, opt, step
+    u, f = runs["unsharded"], runs["fsdp (2, 1)"]
+    diff = max(abs(a - b) for a, b in zip(u["losses"], f["losses"]))
+    say(card, f"mesh train (c) llama3.1-8b width, {LAUNCH_TRAIN_LAYERS} "
+              f"layers, {MESH_TRAIN_ROWS} x {LAUNCH_TRAIN_SEQ} tokens, bf16: "
+              f"ms a step unsharded {u['ms']:.1f} (first {u['first_ms']:.1f})"
+              f", FSDP on (2, 1) {f['ms']:.1f} (first {f['first_ms']:.1f}); "
+              f"moment bytes per shard {f['moment_bytes']} against "
+              f"{u['moment_bytes'][0]} whole; peak GiB {u['peak_gib']:.2f} / "
+              f"{f['peak_gib']:.2f}; losses {u['losses']} / {f['losses']} "
+              f"(largest difference {diff:.2e}, bf16, reported); no kernel "
+              f"launch; phase 19's 1-row step "
+              + (f"{p19['train']['ms']:.1f} ms" if p19 else "not run"))
+    runs["loss_diff"] = diff
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _mesh_fp32(torch, card):
+    """(d): fp32 (TF32 off) at full width and MESH_FP32_LAYERS layers.
+    Tiered lossless ``generate`` (batch 2, MESH_FP32_PROMPT tokens, two
+    refreshes) with graphs on (1, 2) and (2, 1) equals the unsharded
+    tiered engine's tokens and the untiered engine's, with the unsharded
+    tiered engine's tier counters on both meshes; the int8 decode
+    step (``hillclimb.make_decode_step_int8``, full and partial) on
+    (1, 2) gives the unsharded step's tokens; two FSDP train steps on
+    (2, 1) leave the parameters within 2e-4 of the unsharded step's."""
+    import gc
+    import numpy as np
+    from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
+    from repro_torch.core.draft import init_draft_params
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                         split_heads)
+    from repro_torch.kvcache.quant import quantize_kv
+    from repro_torch.launch import hillclimb as hc
+    from repro_torch.launch import steps as st
+    from repro_torch.models import api
+    from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.1-8b").replace(
+        num_layers=MESH_FP32_LAYERS, dtype="float32", param_dtype="float32")
+    spec = SpecPVConfig(use_pallas=True, score_mode="paper", reduction="mean")
+    dcfg = DraftConfig()
+    params = api.init_params(cfg, seed=6, device="cuda")
+    dparams = init_draft_params(cfg, dcfg, seed=7, device="cuda")
+    prompt = np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (2, MESH_FP32_PROMPT)).astype(np.int64)
+    max_len = request_token_need(MESH_FP32_PROMPT, MESH_FP32_NEW,
+                                 spec.buffer_size, dcfg.tree_depth + 1)
+    pages = 2 * (-(-max_len // spec.block_size)) + 2
+    toks, tiers = {}, {}
+    for label, mesh, tiered in (
+            ("untiered", None, False), ("tiered", None, True),
+            ("tiered (1, 2)", (1, 2), True),
+            ("tiered (2, 1)", (2, 1), True)):
+        eng = SpecPVEngine(
+            cfg, spec, dcfg, params, dparams, batch=2, max_len=max_len,
+            paged=True, tiered=tiered, tier_lossless=True, num_pages=pages,
+            device="cuda", mesh=(sh.DeviceMesh(mesh, devices=["cuda:0"] * 2)
+                                 if mesh else None))
+        toks[label], _ = eng.generate(prompt, MESH_FP32_NEW)
+        tiers[label] = eng.tier_stats()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    for label in ("tiered", "tiered (1, 2)", "tiered (2, 1)"):
+        if not np.array_equal(toks[label], toks["untiered"]):
+            raise AssertionError(f"mesh fp32 (d): {label} tokens differ "
+                                 f"from the untiered engine's")
+        t = tiers[label]
+        if not (t["tier_demoted_pages"] and t["tier_prefetch_hits"]):
+            raise AssertionError(f"mesh fp32 (d): {label} must demote and "
+                                 f"hit its prefetch: {t}")
+        if {k: v for k, v in t.items()
+                if k in tiers["tiered"]} != tiers["tiered"]:
+            raise AssertionError(f"mesh fp32 (d): {label}'s tier counters "
+                                 f"differ from the unsharded tiered "
+                                 f"engine's: {tiers}")
+    secs = {"tiers": time.perf_counter() - t0}
+    say(card, f"mesh fp32 (d) llama3.1-8b x{MESH_FP32_LAYERS} fp32 tiered "
+              f"lossless, graphs, batch 2, prompts of {MESH_FP32_PROMPT}, "
+              f"{MESH_FP32_NEW} new: (1, 2) == (2, 1) == unsharded tiered "
+              f"== untiered tokens, the unsharded tiered engine's tier "
+              f"counters on both meshes; tier stats "
+              f"{ {k: v for k, v in tiers.items() if k != 'untiered'} }; "
+              f"{secs['tiers']:.1f} s")
+    del dparams
+    # the int8 decode steps: the unsharded case and the split one
+    mesh = sh.DeviceMesh((1, 2), devices=["cuda:0"] * 2)
+    got = {}
+    for partial in (False, True):
+        for m in (None, mesh):
+            kvs = 1 if m is None else 2
+            g = torch.Generator(device="cuda")
+            g.manual_seed(31)
+            seq = MESH_FP32_INT8["seq"]
+            cache = hc.init_int8_cache(cfg, 2, seq + 256, spec,
+                                       device="cuda", kv_shards=kvs)
+            hc._fill_int8(cache["k"], cache["k_scale"], seq, g, kvs)
+            hc._fill_int8(cache["v"], cache["v_scale"], seq, g, kvs)
+            cache["length"].fill_(seq)
+            tok = torch.randint(0, cfg.vocab_size, (2,), generator=g,
+                                device="cuda", dtype=torch.int32)
+            fn = hc.make_decode_step_int8(
+                cfg, spec, partial=partial,
+                tp=None if m is None else TensorParallel(
+                    cfg, params, m.model_row(0)))
+            args = (params, cache, tok)
+            if partial:
+                p = spec.partial_budget_tokens + spec.buffer_size
+                shp = (cfg.num_layers, 2, cfg.num_kv_heads, p,
+                       cfg.head_dim_)
+                pk, pks = quantize_kv(torch.randn(shp, generator=g,
+                                                     device="cuda"))
+                pv, pvs = quantize_kv(torch.randn(shp, generator=g,
+                                                     device="cuda"))
+                ppos = torch.full(shp[:4], -1, dtype=torch.int32,
+                                  device="cuda")
+                ppos[..., :spec.partial_budget_tokens] = 5
+                pkv = tuple(split_heads(a, kvs, 0, 2)
+                            for a in (pk, pv, ppos, pks, pvs))
+                buf = torch.zeros((2,), dtype=torch.int32, device="cuda")
+                args = (params, cache, pkv, buf, tok)
+            seqs = []
+            with torch.no_grad():
+                for _ in range(MESH_FP32_INT8["steps"]):
+                    tok = fn(*args)[0]
+                    args = args[:-1] + (tok,)
+                    seqs.append(tok.tolist())
+            got[(partial, m is not None)] = seqs
+            del cache, args
+        if got[(partial, True)] != got[(partial, False)]:
+            raise AssertionError(f"mesh fp32 (d): int8 decode (partial "
+                                 f"{partial}) on (1, 2) differs from the "
+                                 f"unsharded step")
+    secs["int8"] = time.perf_counter() - t0 - secs["tiers"]
+    say(card, f"mesh fp32 (d) int8 decode on (1, 2), full and partial, "
+              f"{MESH_FP32_INT8['steps']} steps over {MESH_FP32_INT8['seq']} "
+              f"int8 tokens: tokens == the unsharded step's; "
+              f"{secs['int8']:.1f} s")
+    # FSDP: two steps on (2, 1) against two unsharded steps
+    g = torch.Generator(device="cuda")
+    g.manual_seed(41)
+    batches = [torch.randint(0, cfg.vocab_size, (2, MESH_FP32_TRAIN_SEQ + 1),
+                             generator=g, device="cuda") for _ in range(2)]
+    final = {}
+    for label in ("unsharded", "fsdp"):
+        p = tree_map(lambda x, stacked: x.clone(), params)
+        specs = (sh.param_specs(sh.ShardingRules(sh.DeviceMesh(
+            (2, 1), devices=["cuda:0"] * 2), fsdp=True), p)
+            if label == "fsdp" else None)
+        step = st.make_train_step(cfg, grad_shardings=specs)
+        opt = adamw_init(p)
+        for b in batches:
+            p, opt, _ = step(p, opt, b, None)
+        final[label] = tree_leaves(p)
+        del p, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    err = max(float((a - b).abs().max())
+              for a, b in zip(final["unsharded"], final["fsdp"]))
+    del final
+    if not err <= 2e-4:
+        raise AssertionError(f"mesh fp32 (d): FSDP parameters {err:.3e} "
+                             f"from the unsharded step's")
+    secs["fsdp"] = time.perf_counter() - t0 - secs["tiers"] - secs["int8"]
+    say(card, f"mesh fp32 (d) FSDP on (2, 1): parameters after 2 steps "
+              f"within {err:.2e} of the unsharded step's (2e-4 asserted); "
+              f"{secs['fsdp']:.1f} s; (d) took "
+              f"{time.perf_counter() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(tiers=tiers, fsdp_max_abs_err=err, seconds=secs)
+
+
+def phase_mesh_tiers(torch, card, p13=None, p19=None):
+    """Phase 23: the host tier, the int8 cache and FSDP training under a
+    mesh.  (a) tiered serving on (1, 2) and (2, 1), (b) the int8
+    hillclimb cases on (1, 2), (c) the FSDP train step on (2, 1), (d) the
+    fp32 equalities.  Returns (a)'s launches and the numbers."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    secs = {}
+    cfg, spec, dcfg, params, dparams, _ = _full_width(
+        torch, card, "llama3.1-8b")
+    launches, served = _mesh_tier_served(
+        torch, card, cfg, spec, dcfg, params, dparams,
+        (p13 or {}).get("tiered_toks"))
+    del params, dparams
+    secs["a"] = time.perf_counter() - t_phase
+    for k in LLAMA_KERNELS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} was not launched in (a)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    hill = _mesh_hillclimb(torch, card, p19)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = _mesh_fsdp_train(torch, card, p19)
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fp32 = _mesh_fp32(torch, card)
+    secs["d"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_phase
+    say(card, f"phase 23 launches ((a), both meshes) {launches}; "
+              + ", ".join(f"({k}) {v:.1f} s" for k, v in secs.items())
+              + f"; phase 23 took {total:.1f} s")
+    return dict(launches=launches, served=served, hillclimb=hill,
+                train=train, fp32=fp32, seconds=secs, total_s=total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
                     default="2,3,4,5,6,7,8,9,10,11,13,14,15,16,17,18,19,"
-                            "20,21,22",
+                            "20,21,22,23",
                     help="comma list of phases 2 (kernels), 3 (llama "
                          "generate), 4 (llama losslessness), 5 (rwkv6-3b "
                          "generate and losslessness), 6 (llama serving), 7 "
@@ -8942,7 +9423,9 @@ def main(argv=None) -> int:
                          "serving over a (2, 1) mesh), 21 (tensor "
                          "parallelism over a (1, 2) mesh), 22 (the state "
                          "and cross-attention families on (1, 2) and (2, "
-                         "1) meshes); 1 and 12 always run")
+                         "1) meshes), 23 (the host tier, the int8 cache "
+                         "and FSDP training under a mesh); 1 and 12 always "
+                         "run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}
 
@@ -9040,6 +9523,10 @@ def main(argv=None) -> int:
                            source="phase 17", toks=p17["tokens"][AUDIO])
     p22 = (run(22, phase_families, torch, card, timer, base)
            if 22 in phases else {"launches": {}, "shapes": {}})
+    p23 = (run(23, phase_mesh_tiers, torch, card,
+               p13 if 13 in phases else None, p19 if 19 in phases else None)
+           if 23 in phases else {"launches": {}})
+    p13.pop("tiered_toks", None)
     say(card, "phase seconds " + ", ".join(f"{n}: {t:.1f}"
                                            for n, t in sorted(secs.items())))
 
@@ -9092,6 +9579,8 @@ def main(argv=None) -> int:
                              p21["launches"].get(name, 0)),
                          family_tensor_parallel_launches=int(
                              p22["launches"].get(name, 0)),
+                         mesh_tiered_serving_launches=int(
+                             p23["launches"].get(name, 0)),
                          max_abs_err=r.get("max_abs_err"), ms=r.get("ms"),
                          plain_ms=r.get("plain_ms"),
                          bound_ms=r.get("bound_ms"),
@@ -9143,6 +9632,10 @@ def main(argv=None) -> int:
     if 22 in phases:
         say(card, "families " + json.dumps(
             {k: v for k, v in p22.items() if k != "shapes"}, default=float))
+    if 23 in phases:
+        say(card, "mesh_tiers " + json.dumps(
+            {k: v for k, v in p23.items() if k != "launches"},
+            default=float))
     if 19 in phases:
         say(card, "launch " + json.dumps(
             {k: v for k, v in p19.items() if k != "launches"},

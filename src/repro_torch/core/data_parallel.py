@@ -46,8 +46,17 @@ path's ``generate``): ``step(st, "state")`` launches every shard's chain
 step before it reads any back.  A VLM or audio target's per-request
 ``extra`` and its once-per-request cross rows go to the shard that holds
 the row (``prefill`` splits ``extra`` by rows, a slot admission routes
-it with its slot).  Not carried yet (NotImplementedError naming
-ROADMAP.md queue 1, 'Multi-GPU, part 4'): the host tier.
+it with its slot).
+
+The host tier (``tiered=True``) is each shard's own: its engine keeps a
+``TierManager`` over its ``ShardPages`` (demotions, promotions and debts
+in its local page ids), with its own side stream and pinned buffers,
+and every manager bills one ``HostBytes`` account per data shard, so
+``tier_stats`` gives the reference's sums and each host's peak.  A tiered
+admission's margin and a refresh's deferral are judged against the pool
+of the shard that holds the row: a row on shard s never waits on shard
+t's promotion debt.  On a ``(D, m)`` mesh each row's engine tiers its
+own shard-stacked pool.
 """
 from __future__ import annotations
 
@@ -58,19 +67,21 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (MODE_NAMES, EngineState, PrefillCursor,
-                                     SpecPVEngine, StepOutput, _unsupported,
-                                     mesh_shards)
+                                     SpecPVEngine, StepOutput, mesh_shards)
 from repro_torch.distributed.sharding import (DeviceMesh, ShardingRules,
                                               place_params)
 from repro_torch.kernels import ops
 from repro_torch.kvcache import cache as kvc
+from repro_torch.kvcache.offload import HostBytes, TierManager, tier_stats
 
 
 class ShardPages:
     """Data shard ``shard``'s window on a sharded ``PageAllocator``: its
     rows are slots ``0..b-1`` (global ``slot_base + slot``) and its pages
     are local ids (global page ``shard_base + p - 1``; 0 the null page).
-    The engine resets the allocator, so ``reset`` here does nothing."""
+    The engine resets the allocator, so ``reset`` here does nothing.
+    Its tier queries (``demote``, ``promote``, ``hosted_*``, ``idle``,
+    ``max_hosted``) are the shard's, in local page ids."""
 
     def __init__(self, al: kvc.PageAllocator, shard: int, slot_base: int):
         self.al = al
@@ -140,6 +151,40 @@ class ShardPages:
 
     def pin_slot_pages(self, slot: int, pages) -> None:
         self.al.pin_slot_pages(self._s(slot), [self.glob(p) for p in pages])
+
+    # -- the residency tier, on this shard -------------------------------
+    @property
+    def shards(self) -> int:
+        return self.al.shards
+
+    def slot_shard(self, slot: int) -> int:
+        return self.shard
+
+    @property
+    def idle(self) -> int:
+        return self.al.idle_in(self.shard)
+
+    def hosted_count(self, slot: int) -> int:
+        return self.al.hosted_count(self._s(slot))
+
+    def hosted_blocks(self, slot: int) -> List[int]:
+        return self.al.hosted_blocks(self._s(slot))
+
+    @property
+    def hosted_total(self) -> int:
+        return self.al.hosted_in(self.shard)
+
+    def max_hosted(self) -> int:
+        return self.al.max_hosted(self.shard)
+
+    def demotable(self, slot: int, block: int) -> bool:
+        return self.al.demotable(self._s(slot), block)
+
+    def demote(self, slot: int, block: int) -> int:
+        return self.loc(self.al.demote(self._s(slot), block))
+
+    def promote(self, slot: int, block: int) -> int:
+        return self.loc(self.al.promote(self._s(slot), block))
 
 
 class _ShardEntry:
@@ -267,9 +312,9 @@ class DataParallelEngine(SpecPVEngine):
                  tier_lossless: bool = False, tier_codec: str = "int8",
                  zero_copy: bool = False, mesh=None, device=None,
                  cuda_graphs: Optional[bool] = None):
-        if tiered:
-            _unsupported("data-parallel serving with the host tier",
-                         "Multi-GPU, part 4")
+        if tiered and not paged:
+            raise ValueError("tiered KV residency needs the paged cache "
+                             "(paged=True)")
         self.data_shards, self.model_shards = mesh_shards(mesh, batch)
         d = self.data_shards
         devs = [mesh.device_at(**mesh.data_shard_coords(s))
@@ -304,7 +349,7 @@ class DataParallelEngine(SpecPVEngine):
                 self.num_draft_pages, shards=d, slot_shard=self.shard_of_slot)
             if prefix_cache:
                 self._prefix = kvc.PrefixCache(spec.block_size)
-        self._tier = None
+        self._tier = None           # each shard engine keeps its own
         self.device = devs[0]
         replicas: Dict[torch.device, Tuple] = {}
         self.shards: List[SpecPVEngine] = []
@@ -330,7 +375,8 @@ class DataParallelEngine(SpecPVEngine):
                     draft_chain=draft_chain, temperature=temperature,
                     paged=paged, num_pages=npages, num_draft_pages=ndpages,
                     prefix_cache=prefix_cache, zero_copy=zero_copy,
-                    mesh=row, device=devs[s], cuda_graphs=cuda_graphs)
+                    mesh=row, device=devs[s],
+                    cuda_graphs=cuda_graphs)
             if self.paged:
                 base = self.shard_slots(s).start
                 sub._page_alloc = ShardPages(self._page_alloc, s, base)
@@ -343,6 +389,15 @@ class DataParallelEngine(SpecPVEngine):
             setattr(self, name, getattr(self.shards[0], name))
         for sub in self.shards[1:]:
             sub.traffic = self.traffic          # one meter for the engine
+        # the host tier: a manager per shard over its window, one account
+        self._host_bytes = None
+        if tiered:
+            self._host_bytes = HostBytes(d)
+            for sub in self.shards:
+                sub._tier = TierManager(
+                    sub._page_alloc, lossless=tier_lossless,
+                    codec=tier_codec, traffic=self.traffic,
+                    host=self._host_bytes)
         self.state = DataParallelState([sub.state for sub in self.shards])
         self.shard_launches: List[Dict[str, int]] = [{} for _ in range(d)]
         self._pkv_active = False
@@ -417,6 +472,41 @@ class DataParallelEngine(SpecPVEngine):
     @property
     def _host_seq_len(self) -> np.ndarray:
         return self._cat("_host_seq_len")
+
+    # ---- the host tier, shard by shard ---------------------------------
+    @property
+    def tiered(self) -> bool:
+        return self._host_bytes is not None
+
+    def tier_stats(self) -> Dict[str, int]:
+        """The reference's tier counters summed over the shards, with each
+        host's peak bytes ({} untiered)."""
+        if not self.tiered:
+            return {}
+        return tier_stats([sub._tier for sub in self.shards],
+                          self._page_alloc.hosted_total, self._host_bytes)
+
+    def tier_admit_margin(self, prompt_len: int,
+                          shard: Optional[int] = None) -> int:
+        """The margin of data shard ``shard``'s pool (the worst shard's
+        when None)."""
+        subs = self.shards if shard is None else [self.shards[shard]]
+        return max(sub.tier_admit_margin(prompt_len) for sub in subs)
+
+    def tier_ready_rows(self, rows: np.ndarray, modes: np.ndarray,
+                        force: bool = True) -> Tuple[np.ndarray, int]:
+        """Each shard defers its own full-cache rows against its own pool
+        (and forces its smallest debt only when none of its rows would
+        step: another shard's steps free none of its pages)."""
+        if not self.tiered:
+            return rows, 0
+        outs, deferred = [], 0
+        for sub, r, m in zip(self.shards, self._split(np.asarray(rows)),
+                             self._split(np.asarray(modes))):
+            o, n = sub.tier_ready_rows(r, m, force=force)
+            outs.append(o)
+            deferred += n
+        return np.concatenate(outs), deferred
 
     # ---- state ---------------------------------------------------------
     def _own(self, st) -> None:

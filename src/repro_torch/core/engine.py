@@ -402,8 +402,7 @@ class SpecPVEngine:
         one CUDA graph each; the state archs stack the recurrent state
         their shards split (RWKV-6's ``wkv``, Griffin's ``rnn_h`` and
         ``conv``) and a cross-attention target its cross rows the same
-        way.  Shards on several cards and the host tier raise
-        NotImplementedError under it.
+        way.  Shards on several cards raise NotImplementedError under it.
         Paged engines share block-aligned prompt prefixes copy-on-write
         across slot admissions (``prefix_cache=True``, the default here
         as in the reference; contiguous engines share nothing):
@@ -422,7 +421,10 @@ class SpecPVEngine:
         their pages are recycled, and they come back prefetched one mode
         transition ahead of the next refresh (copied synchronously when
         a refresh comes early).  The tier's work runs between the step
-        bodies, outside the captured graphs.
+        bodies, outside the captured graphs, and writes the pools they
+        read in place.  Under a ``model`` axis one tier serves every
+        model shard: the shards share the page ids, so it moves a page
+        of the shard-stacked pool on all of them at once.
         A VLM or audio target (cross layers) takes each request's
         ``extra`` at ``prefill`` / ``generate`` / a slot admission; its
         slot prefills run one cursor at a time, and prefix sharing, which
@@ -473,7 +475,7 @@ class SpecPVEngine:
         self.tp = None
         self.kv_shards = 1
         if self.model_shards > 1:
-            self._tensor_parallel(mesh, tiered)
+            self._tensor_parallel(mesh)
         self.l_state = self.l_attn * self.kv_shards
         self.hk_state = cfg.num_kv_heads // self.kv_shards
         self.batch = batch
@@ -544,7 +546,7 @@ class SpecPVEngine:
         self.capture_s = 0.0            # host seconds spent capturing
         self._init_static()
 
-    def _tensor_parallel(self, mesh, tiered: bool) -> None:
+    def _tensor_parallel(self, mesh) -> None:
         """Split the target and the draft over the mesh's first model row
         (``distributed.tensor_parallel.TensorParallel``).  Every shard
         must sit on the engine's device: the step bodies then run each
@@ -556,8 +558,6 @@ class SpecPVEngine:
         item = "Multi-GPU, part 4"
         m = self.model_shards
         what = f"tensor parallelism (a mesh 'model' axis of {m})"
-        if tiered:
-            _unsupported(f"{what} with the host tier", item)
         row = mesh.model_row(0)
         if any(d != self.device for d in row):
             _unsupported(f"{what} over several devices {row}", item)

@@ -25,6 +25,9 @@ it).  They follow the reference rule for rule:
 A dim is split only when the axes' size divides it (``_divisible``);
 otherwise the next candidate dim is tried, or the dim stays whole.
 ``shard_leaf`` cuts a leaf to the piece one mesh coordinate holds.
+``param_specs`` returns the spec tree with its rules (``ParamSpecs``),
+which ``launch.steps.make_train_step(grad_shardings=)`` cuts the
+gradients and the AdamW moments by (FSDP).
 """
 from __future__ import annotations
 
@@ -233,13 +236,55 @@ def _tree_map_path(fn, tree, path=()):
     return fn(path, tree)
 
 
+class ParamSpecs(dict):
+    """A parameter tree's spec tree (``param_specs``) that also carries
+    the ``rules`` it came from: their mesh is what a sharded step cuts by,
+    as a ``NamedSharding`` carries its mesh in the reference."""
+
+    def __init__(self, tree: Dict, rules: ShardingRules):
+        super().__init__(tree)
+        self.rules = rules
+
+
 def param_specs(rules: ShardingRules, params) -> Any:
     """The spec of every leaf of ``params`` (nested dicts and lists of
     tensors), in the tree's structure (the reference's
-    ``param_shardings``)."""
-    return _tree_map_path(
+    ``param_shardings``); a dict tree comes back as ``ParamSpecs``."""
+    tree = _tree_map_path(
         lambda path, leaf: (spec_for_leaf(rules, path, leaf.shape)
                             if hasattr(leaf, "shape") else None), params)
+    return ParamSpecs(tree, rules) if isinstance(tree, dict) else tree
+
+
+def spec_leaves(specs) -> List[Spec]:
+    """A spec tree's specs in ``train.optimizer.tree_leaves`` order (dict
+    keys sorted): the order of the parameter tree's leaves."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [x for v in specs for x in spec_leaves(v)]
+    return [specs]
+
+
+def check_specs(specs, params, path=()) -> None:
+    """Raise ValueError unless ``specs`` has ``params``' structure, one
+    spec per leaf of no more entries than the leaf has dims."""
+    where = "/".join(path) or "the root"
+    if isinstance(params, dict):
+        if not isinstance(specs, dict) or set(specs) != set(params):
+            raise ValueError(f"spec tree does not match the params at "
+                             f"{where}")
+        for k in params:
+            check_specs(specs[k], params[k], path + (str(k),))
+    elif isinstance(params, (list, tuple)):
+        if not isinstance(specs, (list, tuple)) or len(specs) != len(params):
+            raise ValueError(f"spec tree does not match the params at "
+                             f"{where}")
+        for i, (sp, p) in enumerate(zip(specs, params)):
+            check_specs(sp, p, path + (str(i),))
+    elif not (isinstance(specs, tuple) and len(specs) <= params.dim()):
+        raise ValueError(f"spec {specs!r} does not fit the leaf of shape "
+                         f"{tuple(params.shape)} at {where}")
 
 
 def batch_spec(rules: ShardingRules, batch: int) -> Spec:
@@ -309,23 +354,30 @@ def pkv_shardings(rules: ShardingRules, pkv_shapes) -> Tuple[Spec, ...]:
     return kv, kv, kv[:4]
 
 
+def piece_index(spec: Spec, mesh, coords: Dict[str, int]
+                ) -> Tuple[Tuple[int, int, int], ...]:
+    """(dim, pieces, index) of every dim ``spec`` splits, for the device
+    at ``coords`` (a dim over several axes splits them row-major, as a
+    ``PartitionSpec`` does).  Two coordinates with equal tuples hold the
+    same piece."""
+    out = []
+    for dim, entry in enumerate(spec):
+        n, idx = 1, 0
+        for a in _axes_of(entry):
+            idx = idx * mesh.shape[a] + coords.get(a, 0)
+            n *= mesh.shape[a]
+        if n > 1:
+            out.append((dim, n, idx))
+    return tuple(out)
+
+
 def shard_leaf(leaf: torch.Tensor, spec: Spec, mesh,
                coords: Dict[str, int]) -> torch.Tensor:
     """The piece of ``leaf`` that the device at ``coords`` holds under
-    ``spec``: each split dim narrowed to the coordinate's slice (a dim
-    over several axes splits them row-major, as a ``PartitionSpec``
-    does).  A view; a leaf no axis splits comes back whole."""
+    ``spec``: each split dim narrowed to the coordinate's slice
+    (``piece_index``).  A view; a leaf no axis splits comes back whole."""
     out = leaf
-    for dim, entry in enumerate(spec):
-        axes = _axes_of(entry)
-        if not axes:
-            continue
-        n, idx = 1, 0
-        for a in axes:
-            idx = idx * mesh.shape[a] + coords.get(a, 0)
-            n *= mesh.shape[a]
-        if n == 1:
-            continue
+    for dim, n, idx in piece_index(spec, mesh, coords):
         size = leaf.shape[dim] // n
         out = out.narrow(dim, idx * size, size)
     return out

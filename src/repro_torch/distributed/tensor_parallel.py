@@ -52,7 +52,8 @@ the shards on the layer axis (shard ``s``'s attention layer ``l`` is
 entry ``s * L + l`` of a [``m * L``, ..., ``Hk / m``, Dh] pool), so each
 shard's pool is one contiguous block that the kernels read at its head
 counts, and one page table, allocator and prefix cache serve all shards.
-``merge_heads`` lays such a tensor out as the unsharded [L, ..., Hk, ...].
+``merge_heads`` lays such a tensor out as the unsharded [L, ..., Hk, ...]
+and ``split_heads`` back.
 """
 from __future__ import annotations
 
@@ -110,6 +111,19 @@ def merge_heads(x: torch.Tensor, shards: int, layer_axis: int,
     # the shard axis split off at ``la``, moved just before the heads
     y = x.unflatten(la, (shards, x.shape[la] // shards)).movedim(la, ha)
     return y.flatten(ha, ha + 1)
+
+
+def split_heads(x: torch.Tensor, shards: int, layer_axis: int,
+                head_axis: int) -> torch.Tensor:
+    """The inverse of ``merge_heads``: an unsharded [..., L, ..., Hk, ...]
+    as the shard-stacked layout [..., m * L, ..., Hk / m, ...] (a new
+    tensor)."""
+    if shards == 1:
+        return x
+    la = layer_axis % x.dim()
+    ha = head_axis % x.dim()
+    y = x.unflatten(ha, (shards, x.shape[ha] // shards)).movedim(ha, la)
+    return y.flatten(la, la + 1).contiguous()
 
 
 @dataclass

@@ -213,6 +213,12 @@ class PageAllocator:
         reclaimable at no cost by LRU prefix eviction."""
         return int(np.sum((self._ref > 0) & (self._ref == self._cache_ref)))
 
+    def idle_in(self, shard: int) -> int:
+        """``idle`` over `shard`'s range."""
+        lo, hi = self._bounds[shard], self._bounds[shard + 1]
+        ref, cref = self._ref[lo:hi], self._cache_ref[lo:hi]
+        return int(np.sum((ref > 0) & (ref == cref)))
+
     @property
     def committed(self) -> int:
         """Pages some live slot references (``high_water`` is its peak)."""
@@ -249,9 +255,17 @@ class PageAllocator:
     def hosted_total(self) -> int:
         return sum(len(v) for v in self._hosted.values())
 
-    def max_hosted(self) -> int:
-        """The largest single-slot promotion debt (admission headroom)."""
-        return max((len(v) for v in self._hosted.values()), default=0)
+    def hosted_in(self, shard: int) -> int:
+        """The promotion debt of `shard`'s slots."""
+        return sum(len(v) for s, v in self._hosted.items()
+                   if self.slot_shard(s) == shard)
+
+    def max_hosted(self, shard: Optional[int] = None) -> int:
+        """The largest single-slot promotion debt (admission headroom),
+        over `shard`'s slots when given."""
+        return max((len(v) for s, v in self._hosted.items()
+                    if shard is None or self.slot_shard(s) == shard),
+                   default=0)
 
     def demotable(self, slot: int, block: int) -> bool:
         """May logical `block` of `slot` leave the device?  Only a page
@@ -299,12 +313,9 @@ class PageAllocator:
         self.resident_high_water = max(self.resident_high_water, self.in_use)
         if self.shards > 1:
             for s in range(self.shards):
-                lo, hi = self._bounds[s], self._bounds[s + 1]
-                in_use = (hi - lo) - len(self._free_by[s])
-                ref, cref = self._ref[lo:hi], self._cache_ref[lo:hi]
-                idle = int(np.sum((ref > 0) & (ref == cref)))
+                in_use = self.shard_capacity(s) - len(self._free_by[s])
                 self.high_water_by[s] = max(self.high_water_by[s],
-                                            in_use - idle)
+                                            in_use - self.idle_in(s))
         else:
             self.high_water_by[0] = self.high_water
 

@@ -21,6 +21,14 @@ stream; a promotion makes the engine's stream wait for the prefetch
 then dequantizes into the pool and writes the summaries and the page
 table in place, where the captured graphs read them.  Nothing here reads
 the card.  On the CPU the same steps run synchronously on plain tensors.
+
+The pool's leading axis is walked whole, so a tensor-parallel engine's
+shard-stacked pool ([m * L, pages, block, Hk / m, Dh]) tiers unchanged:
+the scales are per (token, head), so a head split leaves every scale,
+every payload byte and the bytes billed as the unsharded pool's.  Host
+bytes are billed per data shard (``HostBytes``, through the allocator's
+``slot_shard``): one shard is one host, and its peak is what that host
+must hold.
 """
 from __future__ import annotations
 
@@ -115,6 +123,44 @@ class _HostSegment:
         self.landed = None
 
 
+class HostBytes:
+    """The host bytes the tier holds: in all (``total`` and its peak
+    ``peak``) and per data shard (``by`` and ``peak_by``; one shard is
+    one host).  The tier managers of a data-parallel engine's shards
+    share one, so its peaks are those of the whole engine over time."""
+
+    def __init__(self, shards: int = 1):
+        self.total = 0
+        self.peak = 0
+        self.by = [0] * shards
+        self.peak_by = [0] * shards
+
+    def bill(self, shard: int, nbytes: int) -> None:
+        self.total += nbytes
+        self.by[shard] += nbytes
+        self.peak = max(self.peak, self.total)
+        self.peak_by[shard] = max(self.peak_by[shard], self.by[shard])
+
+
+def tier_stats(managers, hosted_pages: int, host: HostBytes) -> Dict[str, int]:
+    """The reference's tier counters of ``managers`` (summed) over one
+    host account: with more than one data shard, also the worst host's
+    peak (``tier_host_bytes_peak_per_host``) and each shard's
+    (``tier_host_bytes_peak_shard_{s}``)."""
+    out = dict(tier_hosted_pages=hosted_pages,
+               tier_demoted_pages=sum(m.demoted_pages for m in managers),
+               tier_promoted_pages=sum(m.promoted_pages for m in managers),
+               tier_prefetch_hits=sum(m.prefetch_hits for m in managers),
+               tier_sync_promotes=sum(m.sync_promotes for m in managers),
+               tier_host_bytes=host.total,
+               tier_host_bytes_peak=host.peak)
+    if len(host.peak_by) > 1:
+        out["tier_host_bytes_peak_per_host"] = max(host.peak_by)
+        for s, b in enumerate(host.peak_by):
+            out[f"tier_host_bytes_peak_shard_{s}"] = b
+    return out
+
+
 class TierManager:
     """The host tier over one trunk ``PageAllocator``: the allocator keeps
     the page bookkeeping (``demote`` / ``promote``), this class the bytes
@@ -124,16 +170,20 @@ class TierManager:
     may be another slot's hot prefix.  ``copy_log``, when a list, gets
     ``(what, bytes, start event, end event)`` for each part of a tier
     operation on the card ("quantize", "to_host", "to_device",
-    "restore"), timed by CUDA events."""
+    "restore"), timed by CUDA events.  ``host`` is the ``HostBytes``
+    account it bills (its own by default, one entry per shard of the
+    allocator)."""
 
     def __init__(self, alloc, *, lossless: bool = False,
-                 codec: str = "int8", traffic=None):
+                 codec: str = "int8", traffic=None,
+                 host: Optional[HostBytes] = None):
         if codec not in ("int8", "fp8"):
             raise ValueError(f"unknown tier codec {codec!r}")
         self.alloc = alloc
         self.lossless = lossless
         self.codec = codec
         self.traffic = traffic
+        self.host = host if host is not None else HostBytes(alloc.shards)
         self.copy_log: Optional[list] = None
         self._side: Optional[torch.cuda.Stream] = None
         self._host: Dict[int, List[_HostSegment]] = {}
@@ -141,29 +191,30 @@ class TierManager:
         self.promoted_pages = 0
         self.prefetch_hits = 0
         self.sync_promotes = 0
-        self.host_bytes = 0
-        self.host_bytes_peak = 0
+
+    @property
+    def host_bytes(self) -> int:
+        return self.host.total
+
+    @property
+    def host_bytes_peak(self) -> int:
+        return self.host.peak
 
     def reset(self) -> None:
-        self._host.clear()
-        self.host_bytes = 0
+        """Forget every slot's host copies (a reset pool): their bytes
+        leave the account, whose peaks stay."""
+        for slot in list(self._host):
+            self.drop_slot(slot)
 
     def hosted(self, slot: int) -> int:
         """Hosted (promotion-owed) pages of `slot`."""
         return self.alloc.hosted_count(slot)
 
-    def _bill_host(self, nbytes: int) -> None:
-        self.host_bytes += nbytes
-        self.host_bytes_peak = max(self.host_bytes_peak, self.host_bytes)
+    def _bill_host(self, slot: int, nbytes: int) -> None:
+        self.host.bill(self.alloc.slot_shard(slot), nbytes)
 
     def stats(self) -> Dict[str, int]:
-        return dict(tier_hosted_pages=self.alloc.hosted_total,
-                    tier_demoted_pages=self.demoted_pages,
-                    tier_promoted_pages=self.promoted_pages,
-                    tier_prefetch_hits=self.prefetch_hits,
-                    tier_sync_promotes=self.sync_promotes,
-                    tier_host_bytes=self.host_bytes,
-                    tier_host_bytes_peak=self.host_bytes_peak)
+        return tier_stats([self], self.alloc.hosted_total, self.host)
 
     # ------------------------------------------------------------------
     def _side_stream(self, device) -> torch.cuda.Stream:
@@ -249,7 +300,7 @@ class TierManager:
         for j in blocks:
             al.demote(slot, j)
         self.demoted_pages += len(blocks)
-        self._bill_host(seg.nbytes)
+        self._bill_host(slot, seg.nbytes)
         if self.traffic is not None:
             self.traffic.record("demote", seg.nbytes)
         return cache
@@ -331,7 +382,7 @@ class TierManager:
             if cur is not None:
                 self._log("restore", 0, t0, cur)
             self.promoted_pages += len(seg.blocks)
-            self._bill_host(-seg.nbytes)
+            self._bill_host(slot, -seg.nbytes)
             if self.traffic is not None:
                 self.traffic.record("promote", seg.nbytes)
         return cache
@@ -341,4 +392,4 @@ class TierManager:
         clears the allocator's side).  A pinned buffer still being
         written is only reused once its copy has finished."""
         for seg in self._host.pop(slot, []):
-            self._bill_host(-seg.nbytes)
+            self._bill_host(slot, -seg.nbytes)

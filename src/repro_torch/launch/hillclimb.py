@@ -22,9 +22,15 @@ from the same state as a CUDA graph, which must give the eager run's
 tokens and state bit for bit, and returns the peak and state bytes and
 the median device ms of a step both ways (CUDA events).  A case that one
 card cannot hold at the reference's shape is cut in depth or batch,
-never width; each cut is listed in its ``reduced``.  The mesh, the
-lowering, the cost analysis and the collective parsing have no
-counterpart on one card.
+never width; each cut is listed in its ``reduced``.  The lowering, the
+cost analysis and the collective parsing have no counterpart on one
+card.  The cases A-C take ``mesh=`` (a ``distributed.sharding.DeviceMesh``
+of shape (1, m), every model shard on one card; the default is a mesh
+of one): the case builds the split of its params over the row's m
+shards once (``distributed.tensor_parallel.TensorParallel``) and hands
+it to its step as ``tp=``, the cache, its scales and the partial
+cache are shard-stacked ([m * L, ..., Hk / m, ...]) from the same random
+values as the unsharded case, and ``reduced`` lists the mesh.
 
 Run (from the repo root):
 
@@ -49,6 +55,8 @@ from repro_torch.configs import INPUT_SHAPES, SpecPVConfig, get_config
 from repro_torch.core import tree as tr
 from repro_torch.core import verify as vf
 from repro_torch.device import resolve_device
+from repro_torch.distributed.tensor_parallel import (TensorParallel,
+                                                     split_heads)
 from repro_torch.kvcache.cache import contiguous_update_all_summaries
 from repro_torch.kvcache.quant import quantize_kv
 from repro_torch.launch.steps import partial_state
@@ -75,7 +83,20 @@ def _write_scales(buf, scale, off):
     cm.update_slice_rows(buf, scale.movedim(3, 2), off, axis=3, batch_axis=1)
 
 
-def make_verify_step(cfg, spec, tree, *, partial: bool, int8: bool = False):
+def _row(mesh):
+    """The model row a case splits over (None for a mesh of one model
+    shard); a data axis above 1 raises ValueError."""
+    if mesh is None:
+        return None
+    if mesh.data_size != 1:
+        raise ValueError(f"the hillclimb cases split over a mesh's model "
+                         f"axis only, not {mesh}")
+    row = mesh.model_row(0)
+    return row if len(row) > 1 else None
+
+
+def make_verify_step(cfg, spec, tree, *, partial: bool, int8: bool = False,
+                     tp=None):
     """One SpecPV verification step: the tree forward, greedy acceptance
     and the commit (to the full cache, or to the partial cache's buffer),
     in place.
@@ -90,7 +111,9 @@ def make_verify_step(cfg, spec, tree, *, partial: bool, int8: bool = False):
     taken from the verify positions, so every committed entry after the
     first carries the position of pending slot 0.  A partial cache reads
     its positions only as valid (>= 0) or empty (-1), so the tokens do
-    not depend on them."""
+    not depend on them.  ``tp``: the split of the same params over a
+    mesh's model row (``distributed.tensor_parallel.TensorParallel``;
+    the state then shard-stacked, the module docstring)."""
 
     def common_part(params, cache, pending, tree_tokens, pkv=None):
         b = pending.shape[0]
@@ -101,7 +124,8 @@ def make_verify_step(cfg, spec, tree, *, partial: bool, int8: bool = False):
                                      tree_tokens, seq_len)
         out = api.decode(cfg, params, vin["tokens"], vin["positions"],
                          cache, mode=("partial" if partial else "full"),
-                         self_mask=vin["self_mask"], pkv=pkv, spec=spec)
+                         self_mask=vin["self_mask"], pkv=pkv, spec=spec,
+                         tp=tp)
         path, acc, bonus, _ = tr.greedy_tree_accept(
             tree, tree_tokens, out.logits, vin["root_slot"],
             vin["node_slots"])
@@ -147,7 +171,7 @@ def make_verify_step(cfg, spec, tree, *, partial: bool, int8: bool = False):
 # int8 decode steps (families B, C)
 # ---------------------------------------------------------------------------
 
-def make_decode_step_int8(cfg, spec, *, partial: bool):
+def make_decode_step_int8(cfg, spec, *, partial: bool, tp=None):
     """One-token decode over an int8 resident cache, in place.
 
     full:    (params, cache, token [B]) -> (next, cache): the token
@@ -155,12 +179,15 @@ def make_decode_step_int8(cfg, spec, *, partial: bool):
              its K/V quantised and written at ``length``;
     partial: (params, cache, pkv, buf_len, token) -> (next, cache, pkv,
              buf_len): against the int8 partial cache (pk, pv, ppos, pks,
-             pvs), its K/V quantised into the buffer."""
+             pvs), its K/V quantised into the buffer.
+
+    ``tp``: as ``make_verify_step``'s (payloads and scales
+    shard-stacked)."""
 
     def step_full(params, cache, token):
         pos = cache["length"][:, None]
         out = api.decode(cfg, params, token[:, None], pos, cache,
-                         mode="full", spec=spec)
+                         mode="full", spec=spec, tp=tp)
         nxt = torch.argmax(out.logits[:, 0], dim=-1).to(torch.int32)
         kq, ks = quantize_kv(out.new_kv[0])     # [L, B, 1, Hk, Dh]
         vq, vs = quantize_kv(out.new_kv[1])
@@ -175,7 +202,8 @@ def make_decode_step_int8(cfg, spec, *, partial: bool):
         b = token.shape[0]
         pos = (cache["length"] + buf_len)[:, None]
         out = api.decode(cfg, params, token[:, None], pos, cache,
-                         mode="partial", pkv=pkv_args, spec=spec)
+                         mode="partial", pkv=pkv_args, spec=spec,
+                         tp=tp)
         nxt = torch.argmax(out.logits[:, 0], dim=-1).to(torch.int32)
         pk, pv, ppos, pks, pvs = pkv_args
         kq, ks = quantize_kv(out.new_kv[0])
@@ -277,36 +305,66 @@ def _randn(shape, dtype, gen, dev):
                        dtype=torch.float32).to(dtype)
 
 
-def _fill_bf(k, seq: int, gen):
-    """Random normal K or V rows [0, seq) of a cache [L, B, S, Hk, Dh] in
-    place, in pieces of ``_FILL_TOKENS`` tokens of one layer."""
-    for layer in k:
+def _pieces(seq: int, layers: int, shards: int):
+    """(stacked layers of each shard, token range) in fill order: one
+    logical layer at a time, ``_FILL_TOKENS`` tokens at a time, so that a
+    shard-stacked cache draws the unsharded cache's values."""
+    for layer in range(layers):
         for s0 in range(0, seq, _FILL_TOKENS):
-            piece = layer[:, s0:min(seq, s0 + _FILL_TOKENS)]
-            piece.copy_(_randn(piece.shape, k.dtype, gen, k.device))
+            yield ([s * layers + layer for s in range(shards)],
+                   slice(s0, min(seq, s0 + _FILL_TOKENS)))
 
 
-def _fill_int8(q, scale, seq: int, gen):
+def _fill_bf(k, seq: int, gen, shards: int = 1):
+    """Random normal K or V rows [0, seq) of a cache [L, B, S, Hk, Dh]
+    (shard-stacked [m * L, ..., Hk / m, Dh] for ``shards`` = m, each
+    shard the unsharded values' heads) in place, in pieces of
+    ``_FILL_TOKENS`` tokens of one layer."""
+    hk = k.shape[3]
+    for idx, sl in _pieces(seq, k.shape[0] // shards, shards):
+        x = _randn((k.shape[1], sl.stop - sl.start, hk * shards)
+                   + tuple(k.shape[4:]), k.dtype, gen, k.device)
+        for s, j in enumerate(idx):
+            k[j][:, sl].copy_(x[:, :, s * hk:(s + 1) * hk])
+
+
+def _fill_int8(q, scale, seq: int, gen, shards: int = 1):
     """Rows [0, seq) of an int8 cache [L, B, S, Hk, Dh] and its scales
-    [L, B, S, Hk]: random normal K/V quantised per (token, head)
-    (``quantize_kv``), in pieces of ``_FILL_TOKENS`` tokens."""
-    for ql, sl in zip(q, scale):
-        for s0 in range(0, seq, _FILL_TOKENS):
-            s1 = min(seq, s0 + _FILL_TOKENS)
-            x = _randn(ql[:, s0:s1].shape, torch.bfloat16, gen, q.device)
-            qq, ss = quantize_kv(x)
-            ql[:, s0:s1].copy_(qq)
-            sl[:, s0:s1].copy_(ss)
+    [L, B, S, Hk] (shard-stacked as in ``_fill_bf``): random normal K/V
+    quantised per (token, head) (``quantize_kv``), in pieces of
+    ``_FILL_TOKENS`` tokens."""
+    hk = q.shape[3]
+    for idx, sl in _pieces(seq, q.shape[0] // shards, shards):
+        x = _randn((q.shape[1], sl.stop - sl.start, hk * shards)
+                   + tuple(q.shape[4:]), torch.bfloat16, gen, q.device)
+        qq, ss = quantize_kv(x)
+        for s, j in enumerate(idx):
+            q[j][:, sl].copy_(qq[:, :, s * hk:(s + 1) * hk])
+            scale[j][:, sl].copy_(ss[:, :, s * hk:(s + 1) * hk])
+
+
+def _mesh_split(cfg, params, mesh, reduced: Dict[str, Any]):
+    """(the split of ``mesh``'s model row or None, how many pieces the
+    per-head state falls into); a split mesh is listed in ``reduced``."""
+    row = _row(mesh)
+    if row is None:
+        return None, 1
+    tp = TensorParallel(cfg, params, row)
+    reduced["mesh"] = {"shape": [1, len(row)],
+                       "devices": [str(d) for d in row],
+                       "kv_shards": tp.kv_shards}
+    return tp, tp.kv_shards
 
 
 def init_int8_cache(cfg, batch: int, max_len: int, spec: SpecPVConfig,
-                    device=None) -> dict:
+                    device=None, kv_shards: int = 1) -> dict:
     """The reference case builders' int8 cache: ``api.init_cache``'s
     contiguous layout with K/V int8 [L, B, max_len, Hk, Dh] and their bf16
-    scales ``k_scale`` / ``v_scale`` [L, B, max_len, Hk], zeros."""
+    scales ``k_scale`` / ``v_scale`` [L, B, max_len, Hk], zeros;
+    shard-stacked ([m * L, ..., Hk / m, ...]) for ``kv_shards`` = m."""
     dev = resolve_device(device)
-    l_attn = attn_layer_count(cfg.layer_kinds())
-    hk, dh = cfg.num_kv_heads, cfg.head_dim_
+    l_attn = attn_layer_count(cfg.layer_kinds()) * kv_shards
+    hk, dh = cfg.num_kv_heads // kv_shards, cfg.head_dim_
     nb = -(-max_len // spec.block_size)
     cache = {n: torch.zeros((l_attn, batch, max_len, hk, dh),
                             dtype=torch.int8, device=dev) for n in ("k", "v")}
@@ -339,13 +397,13 @@ def build_verify_case(arch: str, *, partial: bool, int8: bool, device=None,
                       seed: int = 0, batch: int = 8, seq: int = 32768,
                       layers: Optional[int] = None,
                       spec: Optional[SpecPVConfig] = None,
-                      steps: int = STEPS) -> Case:
+                      steps: int = STEPS, mesh=None) -> Case:
     """Case A: ``arch`` at full width, a contiguous bf16 cache of ``seq``
     random tokens per row (summaries computed over them), a random
     pending token and draft tree per row.  Partial: the partial cache is
     the step's own selection from the cache (``api.decode(...,
     select_partial=True)``) with the reference's buffer, quantised per
-    (token, head) for ``int8``."""
+    (token, head) for ``int8``.  ``mesh``: the module docstring."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     spec = spec or SpecPVConfig()
@@ -366,11 +424,13 @@ def build_verify_case(arch: str, *, partial: bool, int8: bool, device=None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     params = api.init_params(cfg, seed=seed, device=dev)
-    cache = api.init_cache(cfg, batch, max_len, spec, device=dev)
-    _fill_bf(cache["k"], seq, gen)
-    _fill_bf(cache["v"], seq, gen)
+    tp, kvs = _mesh_split(cfg, params, mesh, reduced)
+    cache = api.init_cache(cfg, batch, max_len, spec, device=dev,
+                           kv_shards=kvs)
+    _fill_bf(cache["k"], seq, gen, kvs)
+    _fill_bf(cache["v"], seq, gen, kvs)
     cache["length"].fill_(seq)
-    for i in range(l_attn):     # one K4 call per layer: at most 65535 blocks
+    for i in range(l_attn * kvs):   # one K4 call per layer: <= 65535 blocks
         contiguous_update_all_summaries(
             cache["kmax"][i:i + 1], cache["kmin"][i:i + 1],
             cache["k"][i:i + 1], torch.zeros_like(cache["length"]),
@@ -379,7 +439,8 @@ def build_verify_case(arch: str, *, partial: bool, int8: bool, device=None,
                             device=dev, dtype=torch.int32)
     tree_tokens = torch.randint(0, cfg.vocab_size, (batch, TREE.size),
                                 generator=gen, device=dev, dtype=torch.int32)
-    fn = make_verify_step(cfg, spec, TREE, partial=partial, int8=int8)
+    fn = make_verify_step(cfg, spec, TREE, partial=partial, int8=int8,
+                          tp=tp)
     width = steps * (1 + TREE.depth)
     blk0, blk1 = seq // spec.block_size, (seq + width - 1) // spec.block_size
     if not partial:
@@ -393,7 +454,7 @@ def build_verify_case(arch: str, *, partial: bool, int8: bool, device=None,
     with torch.no_grad():
         sel = api.decode(cfg, params, pending[:, None],
                          cache["length"][:, None], cache, mode="full",
-                         spec=spec, select_partial=True).partial
+                         spec=spec, select_partial=True, tp=tp).partial
     pk, pv, ppos, buf_len = partial_state(spec, sel)
     del sel
     pkv = (pk, pv, ppos)
@@ -417,14 +478,14 @@ def build_int8_decode_case(arch: str, shape: str, *, device=None,
                            seq: Optional[int] = None,
                            layers: Optional[int] = None,
                            spec: Optional[SpecPVConfig] = None,
-                           steps: int = STEPS) -> Case:
+                           steps: int = STEPS, mesh=None) -> Case:
     """Cases B and C: ``arch`` at full width over an int8 cache of
     ``INPUT_SHAPES[shape]``'s tokens (random K/V quantised per (token,
     head)), one token per row.  ``long_500k`` decodes through an int8
     partial cache (random, quantised, every body slot valid), the others
     against the whole int8 cache.  The reference shards the sequence over
     every device of its mesh for ``long_500k`` (16 otherwise); one card
-    is a mesh of one."""
+    holds the whole sequence.  ``mesh``: the module docstring."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     spec = spec or SpecPVConfig()
@@ -459,13 +520,15 @@ def build_int8_decode_case(arch: str, shape: str, *, device=None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
     params = api.init_params(cfg, seed=seed, device=dev)
-    cache = init_int8_cache(cfg, batch, max_len, spec, device=dev)
-    _fill_int8(cache["k"], cache["k_scale"], seq, gen)
-    _fill_int8(cache["v"], cache["v_scale"], seq, gen)
+    tp, kvs = _mesh_split(cfg, params, mesh, reduced)
+    cache = init_int8_cache(cfg, batch, max_len, spec, device=dev,
+                            kv_shards=kvs)
+    _fill_int8(cache["k"], cache["k_scale"], seq, gen, kvs)
+    _fill_int8(cache["v"], cache["v_scale"], seq, gen, kvs)
     cache["length"].fill_(seq)
     token = torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
                           device=dev, dtype=torch.int32)
-    fn = make_decode_step_int8(cfg, spec, partial=partial)
+    fn = make_decode_step_int8(cfg, spec, partial=partial, tp=tp)
     name = "C1" if partial else "B1"
     if not partial:
         def probe():
@@ -485,7 +548,8 @@ def build_int8_decode_case(arch: str, shape: str, *, device=None,
     for a in (pk, pv, pks, pvs):
         a[:, :, :, body:].zero_()
     buf_len = torch.zeros((batch,), dtype=torch.int32, device=dev)
-    pkv = (pk, pv, ppos, pks, pvs)
+    pkv = tuple(split_heads(a, kvs, 0, 2)
+                for a in (pk, pv, ppos, pks, pvs))
 
     def probe():
         return [token, buf_len] + [a[..., body:body + steps, :]
@@ -611,6 +675,7 @@ def run_built(case: Case, *, steps: int = STEPS, device=None) -> dict:
     from repro_torch.kernels import ops
     dev = resolve_device(device)
     res = {"case": case.name, "reduced": case.reduced,
+           "mesh": case.reduced.get("mesh", {"shape": [1, 1]}),
            "reckoned_bytes": case.reckoned,
            "state_bytes": _nbytes(case.args)}
     snap = [t.clone() for t in case.restore]

@@ -19,10 +19,26 @@ CUDA graph (``core.engine.capture_graph``) over the state it is given.
                      -> (next, cache, pkv_k, pkv_v, pkv_pos, buf_len)
     decode, state archs: (params, cache, token) -> (next, cache)
 
-Tokens are int32, as the reference's.  The steps run whole weights: they
-pass no tensor-parallel split to ``models.api`` (its ``tp``), so a mesh
-reaches them only as ``make_train_step(grad_shardings=)``, which raises
-NotImplementedError (ROADMAP.md queue 1, 'Multi-GPU, part 4').
+Tokens are int32, as the reference's.  Under a mesh's ``model`` axis the
+prefill and decode steps take the split (``tp=``, a
+``distributed.tensor_parallel.TensorParallel`` of the same params) and
+pass it to ``models.api``; their state is then shard-stacked ([m * L,
+..., Hk / m, ...]) and their call forms stay the same.  Without it they
+run whole weights.
+
+``make_train_step(grad_shardings=)`` trains FSDP over a mesh's data axes:
+``grad_shardings`` is ``distributed.sharding.param_specs(ShardingRules(
+mesh, fsdp=True), params)``.  Each data shard takes its rows of the batch
+and computes their loss and gradients on its device; each gradient is
+summed over the data shards (``tensor_parallel.all_reduce``) and cut to
+every mesh device's slice (``shard_leaf``), where that device's AdamW
+moments live (``train.optimizer.ShardedMoments``); each device updates
+its slice of the parameters, and the slices are written back into the
+caller's tensors.  The loss is the whole batch's mean (each shard's mean
+weighted by its tokens), and the global-norm clip sums the squares of
+every distinct slice once.  An MoE target raises NotImplementedError: its
+routing and aux loss are computed per group of the tokens a layer is
+given, so a shard's rows would not give the whole batch's loss.
 """
 from __future__ import annotations
 
@@ -31,10 +47,33 @@ import torch
 from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.core import verify as vf
 from repro_torch.core.engine import copy_into
+from repro_torch.distributed.sharding import (check_specs, piece_index,
+                                              shard_leaf, spec_leaves)
+from repro_torch.distributed.tensor_parallel import all_reduce
 from repro_torch.models import api
-from repro_torch.train.optimizer import (adamw_update, clip_by_global_norm,
-                                         cosine_schedule, tree_leaves,
-                                         tree_map)
+from repro_torch.train.optimizer import (OptState, ShardedMoments,
+                                         adamw_update, clip_by_global_norm,
+                                         cosine_schedule, shard_moments,
+                                         tree_leaves, tree_map)
+
+
+def _loss_and_grads(cfg: ModelConfig, params, tokens, extra):
+    """(loss, gradient tree) of ``api.train_loss``; the parameters'
+    ``requires_grad`` is set for the pass and restored after it."""
+    leaves = tree_leaves(params)
+    was = [p.requires_grad for p in leaves]
+    try:
+        for p in leaves:
+            p.requires_grad_(True)
+        with torch.enable_grad():
+            loss, _ = api.train_loss(cfg, params, tokens, extra=extra)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for p, w in zip(leaves, was):
+            p.requires_grad_(w)
+    by_id = {id(p): (g if g is not None else torch.zeros_like(p))
+             for p, g in zip(leaves, grads)}
+    return loss.detach(), tree_map(lambda p, stacked: by_id[id(p)], params)
 
 
 def make_train_step(cfg: ModelConfig, grad_shardings=None):
@@ -42,44 +81,134 @@ def make_train_step(cfg: ModelConfig, grad_shardings=None):
     loss and its gradients (``api.train_loss`` under autograd), the
     global-norm clip at 1.0, the reference's cosine schedule and AdamW,
     the parameters and moments updated in place.  The parameters'
-    ``requires_grad`` is set for the step and restored after it."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "sharded gradients are not ported yet: ROADMAP.md queue 1, "
-            "'Multi-GPU, part 4'")
+    ``requires_grad`` is set for the step and restored after it.
+    ``grad_shardings`` (a ``param_specs`` tree) makes it the FSDP step of
+    the module docstring; it returns the moments as ``ShardedMoments``
+    and takes them so, or whole (``adamw_init``) at its first call."""
     unstacked = api.unstacked_layers(cfg)
+    if grad_shardings is not None:
+        return _fsdp_train_step(cfg, grad_shardings, unstacked)
 
     def step(params, opt, tokens, extra):
-        leaves = tree_leaves(params)
-        was = [p.requires_grad for p in leaves]
-        try:
-            for p in leaves:
-                p.requires_grad_(True)
-            with torch.enable_grad():
-                loss, _ = api.train_loss(cfg, params, tokens, extra=extra)
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        finally:
-            for p, w in zip(leaves, was):
-                p.requires_grad_(w)
-        by_id = {id(p): (g if g is not None else torch.zeros_like(p))
-                 for p, g in zip(leaves, grads)}
-        grads = tree_map(lambda p, stacked: by_id[id(p)], params)
+        loss, grads = _loss_and_grads(cfg, params, tokens, extra)
         grads, _ = clip_by_global_norm(grads, 1.0)
         lr = cosine_schedule(opt.step, base_lr=3e-4, warmup=100, total=10000)
         params, opt = adamw_update(params, grads, opt, lr=lr,
                                    unstacked_layers=unstacked)
-        return params, opt, loss.detach()
+        return params, opt, loss
 
     return step
 
 
-def make_prefill_step(cfg: ModelConfig, spec: SpecPVConfig):
+def _fsdp_train_step(cfg: ModelConfig, specs, unstacked: int):
+    if cfg.num_experts:
+        # an MoE layer's capacity, drops and aux loss depend on the
+        # groups of tokens it is given: half a batch forms other groups
+        raise NotImplementedError(
+            "FSDP for an MoE target needs its routing and aux loss over "
+            "the whole batch: ROADMAP.md queue 1, 'Multi-GPU, part 4'")
+    rules = getattr(specs, "rules", None)
+    if rules is None:
+        raise ValueError("grad_shardings must be a spec tree from "
+                         "distributed.sharding.param_specs, which carries "
+                         "its mesh")
+    mesh = rules.mesh
+    d_n = rules.data_size
+    coords = [mesh.coords(c) for c in range(mesh.size)]
+
+    def data_index(co) -> int:
+        i = 0
+        for a in rules.data_axes:
+            i = i * mesh.shape[a] + co[a]
+        return i
+    # the device of each data shard: its coordinate at model 0
+    shard_dev = {data_index(co): dev for co, dev in zip(coords, mesh.devices)
+                 if co["model"] == 0}
+
+    def step(params, opt, tokens, extra):
+        check_specs(specs, params)
+        b = tokens.shape[0]
+        if b % d_n:
+            raise ValueError(f"a batch of {b} rows does not split over "
+                             f"{d_n} data shards")
+        if not isinstance(opt.mu, ShardedMoments):
+            opt = OptState(opt.step, shard_moments(opt.mu, specs, mesh),
+                           shard_moments(opt.nu, specs, mesh))
+        rows = b // d_n
+        leaves = tree_leaves(params)
+        # each data shard's rows: their loss and gradients on its device,
+        # weighted by the shard's share of the batch's tokens
+        losses, grads = [], []
+        for d in range(d_n):
+            dev = shard_dev[d]
+            replica = tree_map(lambda p, stacked: p.detach().to(dev),
+                               params)
+            part = slice(d * rows, (d + 1) * rows)
+            ex = (None if extra is None else
+                  {k: v[part].to(dev) for k, v in extra.items()})
+            loss, g = _loss_and_grads(cfg, replica, tokens[part].to(dev), ex)
+            w = rows / b
+            losses.append(loss * w)
+            grads.append([x.mul_(w) for x in tree_leaves(g)])
+        # every leaf's sum over the data shards, on each shard's device
+        sums = [all_reduce([grads[d][i] for d in range(d_n)])
+                for i in range(len(leaves))]
+        del grads
+        sps = spec_leaves(specs)
+        index = {id(p): i for i, p in enumerate(leaves)}
+        # a piece that several devices hold is owned (counted in the norm
+        # and written back) by the first of them
+        seen, owned = set(), []
+        for co in coords:
+            keys = [(i, piece_index(sp, mesh, co)) for i, sp in enumerate(sps)]
+            owned.append([k not in seen for k in keys])
+            seen.update(keys)
+        # each mesh device's slice of every summed gradient
+        g_sl = [[shard_leaf(sums[i][data_index(co)], sp, mesh, co).to(
+                    dev, copy=True) for i, sp in enumerate(sps)]
+                for co, dev in zip(coords, mesh.devices)]
+        del sums
+        # the global-norm clip: the squares of every distinct slice once
+        sq = all_reduce([sum((torch.sum(torch.square(g.float()))
+                              for g, own in zip(gs, ow) if own),
+                             torch.zeros((), device=dev))
+                         for gs, ow, dev in zip(g_sl, owned, mesh.devices)])
+        lr = cosine_schedule(opt.step, base_lr=3e-4, warmup=100, total=10000)
+        # each device's slice of the parameters, all cut before any update
+        p_trees = [tree_map(lambda p, sp, stacked: shard_leaf(
+            p, sp, mesh, co).to(dev, copy=True), params, specs)
+            for co, dev in zip(coords, mesh.devices)]
+        for c, p_tree in enumerate(p_trees):
+            scale = torch.clamp(1.0 / torch.clamp(torch.sqrt(sq[c]),
+                                                  min=1e-9), max=1.0)
+            g_tree = tree_map(lambda p, stacked: (
+                g_sl[c][index[id(p)]].float() * scale).to(p.dtype), params)
+            adamw_update(p_tree, g_tree,
+                         OptState(opt.step, opt.mu[c], opt.nu[c]), lr=lr,
+                         unstacked_layers=unstacked)
+        # the whole parameters gathered back in place
+        with torch.no_grad():
+            for co, ow, p_tree in zip(coords, owned, p_trees):
+                for p, sp, sl, own in zip(leaves, sps, tree_leaves(p_tree),
+                                          ow):
+                    if own:
+                        shard_leaf(p, sp, mesh, co).copy_(sl)
+        total = losses[0]
+        for x in losses[1:]:
+            total = total + x.to(total.device)
+        return params, OptState(opt.step + 1, opt.mu, opt.nu), total
+
+    return step
+
+
+def make_prefill_step(cfg: ModelConfig, spec: SpecPVConfig, *, tp=None):
     """(params, cache, tokens [B, S], extra) -> (next_token [B], cache):
-    one prefill call over the whole chunk, written into ``cache``."""
+    one prefill call over the whole chunk, written into ``cache`` (``tp``:
+    the module docstring)."""
 
     def step(params, cache, tokens, extra):
         logits, _, new = api.prefill(cfg, params, tokens, cache,
-                                     extra=extra, spec=spec)
+                                     extra=extra, spec=spec, tp=tp)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         copy_into(cache, new)
         return nxt, cache
@@ -88,23 +217,25 @@ def make_prefill_step(cfg: ModelConfig, spec: SpecPVConfig):
 
 
 def make_decode_step(cfg: ModelConfig, spec: SpecPVConfig, *,
-                     partial: bool = False):
+                     partial: bool = False, tp=None):
     """One-token decode (see the module docstring for the signatures).
     Full: the token verified against the whole cache, then committed to
     it.  Partial: attention reads only the materialised partial cache
     (``pkv_*`` [L, B, Hk, budget + buffer, ...], positions -1 where
     empty), and the token's K/V go to its tail buffer at ``budget +
-    buf_len``; the full cache passes through untouched."""
+    buf_len``; the full cache passes through untouched.  ``tp``: the
+    module docstring."""
     if not cfg.is_attention_arch:
         def step_state(params, cache, token):
             b = token.shape[0]
             pos = cache["length"][:, None]
             out = api.decode(cfg, params, token[:, None], pos, cache,
-                             spec=spec)
+                             spec=spec, tp=tp)
             nxt = torch.argmax(out.logits[:, 0], dim=-1).to(torch.int32)
             copy_into(cache, api.advance(
                 cfg, params, token[:, None], cache,
-                torch.ones((b, 1), dtype=torch.bool, device=token.device)))
+                torch.ones((b, 1), dtype=torch.bool, device=token.device),
+                tp=tp))
             return nxt, cache
         return step_state
 
@@ -113,7 +244,7 @@ def make_decode_step(cfg: ModelConfig, spec: SpecPVConfig, *,
             b = token.shape[0]
             pos = cache["length"][:, None]
             out = api.decode(cfg, params, token[:, None], pos, cache,
-                             mode="full", spec=spec)
+                             mode="full", spec=spec, tp=tp)
             nxt = torch.argmax(out.logits[:, 0], dim=-1).to(torch.int32)
             copy_into(cache, vf.append_full_cache(
                 cache, out.new_kv[0], out.new_kv[1],
@@ -128,7 +259,7 @@ def make_decode_step(cfg: ModelConfig, spec: SpecPVConfig, *,
         pos = (cache["length"] + buf_len)[:, None]
         out = api.decode(cfg, params, token[:, None], pos, cache,
                          mode="partial", pkv=(pkv_k, pkv_v, pkv_pos),
-                         spec=spec)
+                         spec=spec, tp=tp)
         nxt = torch.argmax(out.logits[:, 0], dim=-1).to(torch.int32)
         vf.append_buffer_(pkv_k, pkv_v, pkv_pos, spec.partial_budget_tokens,
                           buf_len, out.new_kv[0], out.new_kv[1], pos,

@@ -803,7 +803,10 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     ``cross_k`` / ``cross_v`` rows; then its MLP or MoE on every shard,
     then one sum.  A block that does not split runs once, whole.
     ``new_kv``, ``queries`` and ``partial`` come back shard-stacked the
-    same way ([m * L, ...] at the shard's heads)."""
+    same way ([m * L, ...] at the shard's heads).  An int8 cache carries
+    its scales ``k_scale`` / ``v_scale`` [m * L, B, S, Hk / m] and an int8
+    per-head partial cache its (ks, vs) [m * L, B, Hk / m, P] stacked the
+    same way: each shard reads its own payload and scales."""
     spec = spec or SpecPVConfig()
     kinds = kinds if kinds is not None else cfg.layer_kinds()
     f_lo, f_mi, f_hi = _feature_targets(len(layers))
@@ -850,10 +853,6 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
                          "never prefilled, paged or gathered (the "
                          "reference keeps int8 caches contiguous and would "
                          "read int8 pages without their scales)")
-    if int8 and tp is not None:
-        raise NotImplementedError(
-            "an int8 K/V cache under tensor parallelism is not ported yet: "
-            "ROADMAP.md queue 1, 'Multi-GPU, part 4'")
     if select_partial and q_weight is None:
         q_weight = torch.ones((b, t), dtype=torch.float32, device=h.device)
     paged_kernel = paged and spec.use_pallas

@@ -23,6 +23,9 @@ serves unsharded, as in the reference.  Such a mesh puts each model
 shard on a card of its own, which tensor parallelism does not run yet
 (``m > 1`` then raises NotImplementedError in ``core.engine``): it runs
 through ``SpecPVEngine(mesh=)`` with every model shard on one card.
+The host tier (``tiered_kv``) serves on any such mesh: each data shard
+tiers its own pool, and ``stats`` carries the worst host's peaks
+(``peak_pages_per_host``, ``tier_host_bytes_peak_per_host``).
 """
 from __future__ import annotations
 
@@ -218,12 +221,12 @@ class ServingEngine:
                                      "tick_wall_", "ticks_wall_")):
                 self.stats[k] += sched.stats.pop(k)
         # data-parallel engines: the residency that counts is the worst
-        # shard's, a max over shards and runs
+        # shard's, a max over shards and runs (device pages, and the
+        # tier's host bytes)
         ps = self.page_stats()
-        if "peak_pages_per_host" in ps:
-            self.stats["peak_pages_per_host"] = max(
-                self.stats["peak_pages_per_host"],
-                float(ps["peak_pages_per_host"]))
+        for k in ("peak_pages_per_host", "tier_host_bytes_peak_per_host"):
+            if k in ps:
+                self.stats[k] = max(self.stats[k], float(ps[k]))
         return done
 
     # ------------------------------------------------------------------

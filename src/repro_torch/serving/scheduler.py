@@ -225,13 +225,17 @@ class ContinuousScheduler:
             # are the shard's own, so no shard pays for another's pages
             pick: Optional[int] = None
             if eng.paged:
-                margin = eng.tier_admit_margin(len(req.prompt))
                 if eng.data_shards > 1:
                     cands = sorted({eng.shard_of_slot(i) for i in free},
                                    key=lambda sh: -eng.free_pages(sh))
                 else:
                     cands = [None]
                 for sh in cands:
+                    # the tier's margin is the shard's own: its pool
+                    # seats only its rows' promotions
+                    margin = (eng.tier_admit_margin(len(req.prompt))
+                              if sh is None else
+                              eng.tier_admit_margin(len(req.prompt), sh))
                     need_fresh = eng.pages_needed_shared(
                         req.prompt, req.max_new_tokens, shard=sh,
                         temperature=req.temperature)
@@ -399,6 +403,8 @@ class ContinuousScheduler:
         if not active.any():
             return prefilled > 0
         modes = self.engine.modes_for_rows(self.st, active)
+        # tiered engines: a refresh row whose promotion its shard's pool
+        # cannot seat this tick sits it out
         active, deferred = self.engine.tier_ready_rows(
             active, modes, force=(prefilled == 0))
         if deferred:

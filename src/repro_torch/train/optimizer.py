@@ -18,6 +18,13 @@ unstacked ``layer/norm1`` are not.  Griffin's remainder layers are
 unstacked in the reference (``rem``): ``adamw_update``'s
 ``unstacked_layers`` names how many trailing entries of ``layers``
 count at their own rank.
+
+FSDP (``launch.steps.make_train_step(grad_shardings=)``): the moments
+live as the spec tree's slices, one tree per mesh device
+(``ShardedMoments``, cut by ``shard_moments``), and ``adamw_update``
+runs on each device's slices.  A slice keeps its leaf's rank and place
+in the tree, so weight decay still follows the whole leaf's stacked
+rank.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ from typing import Any, Callable, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import shard_leaf
 
 
 class OptState(NamedTuple):
@@ -54,6 +63,21 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+class ShardedMoments(list):
+    """FSDP moments: one moment tree per mesh device (``mesh.devices``
+    order), each leaf that device's slice of the whole moment."""
+
+
+def shard_moments(tree, specs, mesh) -> ShardedMoments:
+    """Whole moments ``tree`` cut to every mesh device's slice by the
+    spec tree ``specs`` (``distributed.sharding.shard_leaf``), each slice
+    a copy on its device."""
+    return ShardedMoments(
+        tree_map(lambda m, sp, stacked: shard_leaf(
+            m, sp, mesh, mesh.coords(c)).to(dev, copy=True), tree, specs)
+        for c, dev in enumerate(mesh.devices))
 
 
 def adamw_init(params) -> OptState:

@@ -2718,13 +2718,15 @@ _LAUNCH_SPEC = dict(block_size=16, num_sink_blocks=1,
                     buffer_size=48)
 
 
-def _small_case(name, dev, steps=3, seed=0):
+def _small_case(name, dev, steps=3, seed=0, mesh=None):
     """A hillclimb case at a small shape on ``dev``: tiny-dense (fp32,
-    Dh 64) with a block of 16."""
+    Dh 64) with a block of 16 (``mesh``: the cases A-C's split)."""
     from repro_torch.configs import SpecPVConfig
     from repro_torch.launch import hillclimb as hc
     spec = SpecPVConfig(**_LAUNCH_SPEC)
     kw = dict(device=dev, spec=spec, steps=steps, seed=seed)
+    if mesh is not None:
+        kw["mesh"] = mesh
     if name == "A0":
         return hc.build_verify_case("tiny-dense", partial=False, int8=False,
                                     batch=2, seq=300, **kw)
@@ -3132,3 +3134,97 @@ def test_cuda_tp_cross_rows_per_shard(cuda, models, monkeypatch):
     assert all(np.array_equal(a, b) for a, b in zip(outs[0], outs[1]))
     assert torch.equal(rows[0], rows[1])
     _assert_close(rows[0], rows[2])
+
+
+# ---------------------------------------------------------------------------
+# the host tier, the int8 cache and FSDP training under a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 2), (2, 1)], ids=["1x2", "2x1"])
+def test_cuda_tiered_mesh_graphs_equal_untiered(cuda, models, shape):
+    """2-layer llama at full width, batch 2, with graphs, on a mesh of
+    ``cuda:0`` shards (one tier over the shard-stacked pool on (1, 2),
+    one per data shard on (2, 1)): tiered lossless ``generate``, its
+    copies on each tier's side stream through demotions and prefetch
+    hits, gives the untiered engine's tokens on the same mesh."""
+    import numpy as np
+    from repro_torch.core.engine import SpecPVEngine, request_token_need
+    from repro_torch.distributed.sharding import DeviceMesh
+    cfg, spec, dcfg, params, dparams = _get_model(models, "llama3.1-8b")
+    prompt_len, new = 4700, 100
+    prompt = np.random.default_rng(80).integers(
+        0, cfg.vocab_size, (2, prompt_len)).astype(np.int64)
+    max_len = request_token_need(prompt_len, new, spec.buffer_size,
+                                 dcfg.tree_depth + 1)
+    mesh = DeviceMesh(shape, devices=["cuda:0"] * 2)
+    runs = []
+    for tiered in (False, True):
+        eng = SpecPVEngine(cfg, spec, dcfg, params, dparams, batch=2,
+                           max_len=max_len, paged=True, tiered=tiered,
+                           tier_lossless=True, device="cuda", mesh=mesh,
+                           num_pages=2 * (-(-max_len // spec.block_size))
+                           + 2)
+        toks, stats = eng.generate(prompt, new)
+        torch.cuda.synchronize()
+        runs.append((toks, stats, eng.tier_stats()))
+        del eng
+        torch.cuda.empty_cache()
+    (ut, us, _), (tt, ts, tier) = runs
+    assert np.array_equal(tt, ut) and ts["modes"] == us["modes"]
+    assert tier["tier_demoted_pages"] > 0 and tier["tier_prefetch_hits"] > 0
+    if shape[0] == 2:
+        assert tier["tier_host_bytes_peak_shard_0"] > 0
+        assert tier["tier_host_bytes_peak_shard_1"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["A2", "B1", "C1"])
+def test_cuda_tp_int8_case_graph_equals_eager(cuda, name):
+    """An int8 hillclimb case on a (1, 2) mesh of ``cuda:0`` shards at a
+    small shape: three steps eagerly (each under the sync check), then
+    replayed as a CUDA graph, equal bit for bit (``run_built`` asserts
+    it), with the eager tokens of the unsharded case."""
+    from repro_torch.distributed.sharding import DeviceMesh
+    from repro_torch.launch import hillclimb as hc
+    mesh = DeviceMesh((1, 2), devices=["cuda:0"] * 2)
+    res = hc.run_built(_small_case(name, cuda, mesh=mesh), steps=3,
+                       device=cuda)
+    assert res["graph_equals_eager"] and res["mesh"]["shape"] == [1, 2]
+    base = hc.run_built(_small_case(name, cuda), steps=3, device=cuda)
+    assert res["tokens"] == base["tokens"]
+
+
+@pytest.mark.cuda
+def test_cuda_fsdp_step_matches_unsharded(cuda):
+    """The FSDP train step on a (2, 1) mesh of ``cuda:0`` shards (fp32
+    tiny-dense, TF32 off): two steps from the unsharded step's init and
+    batches give its loss and parameters within 2e-4, the moments held
+    as one slice tree per shard."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.models import api
+    from repro_torch.train import optimizer as opt
+    cfg = get_config("tiny-dense").replace(dtype="float32",
+                                           param_dtype="float32")
+    whole = api.init_params(cfg, seed=0, device=cuda)
+    fsdp = opt.tree_map(lambda p, stacked: p.clone(), whole)
+    mesh = sh.DeviceMesh((2, 1), devices=["cuda:0"] * 2)
+    specs = sh.param_specs(sh.ShardingRules(mesh, fsdp=True), fsdp)
+    s1 = st.make_train_step(cfg)
+    s2 = st.make_train_step(cfg, grad_shardings=specs)
+    o1, o2 = opt.adamw_init(whole), opt.adamw_init(fsdp)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    for _ in range(2):
+        toks = torch.randint(0, cfg.vocab_size, (4, 65), generator=g,
+                             device=cuda)
+        _, o1, l1 = s1(whole, o1, toks, None)
+        _, o2, l2 = s2(fsdp, o2, toks, None)
+        assert abs(float(l1) - float(l2)) < 2e-4
+    assert max(float((a - b).abs().max()) for a, b in zip(
+        opt.tree_leaves(whole), opt.tree_leaves(fsdp))) < 2e-4
+    assert isinstance(o2.mu, opt.ShardedMoments) and len(o2.mu) == 2
+    assert sum(m.numel() for m in opt.tree_leaves(o2.mu[0])) < sum(
+        m.numel() for m in opt.tree_leaves(o1.mu))

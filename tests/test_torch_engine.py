@@ -141,12 +141,14 @@ def test_unsupported_settings_raise(setup):
     kw = dict(batch=2, max_len=MAX_LEN, device="cpu")
     args = (s["tcfg"], s["tspec"], s["tdcfg"], s["tp"], s["td"])
     mesh = DeviceMesh((1, 2), devices=["cpu"] * 2)
-    for bad in (dict(mesh=mesh, paged=True, tiered=True),):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.*Multi-GPU, part 4"):
-            TEngine(*args, **bad, **kw)
-    # a model axis above 1 is tensor parallelism since
+    # model shards on several devices are not ported yet
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.*Multi-GPU, part 4"):
+        TEngine(*args, mesh=DeviceMesh((1, 2), devices=["cpu", "meta"]),
+                **kw)
+    # a model axis above 1 is tensor parallelism, with the host tier too
     assert TEngine(*args, mesh=mesh, **kw).tp.m == 2
+    assert TEngine(*args, mesh=mesh, paged=True, tiered=True, **kw).tiered
     # sampling, chain drafts and tiers are ported since
     for good in (dict(temperature=0.7),
                  dict(paged=True, zero_copy=True, temperature=0.7),

@@ -17,7 +17,7 @@
   state: bonus tokens equal, int8 payloads, scales and positions bit for
   bit; the case builders run on the CPU at small shapes and write their
   state in place; the reference's ``INPUT_SHAPES`` and case names;
-* refusals: a paged int8 cache, sharded gradients.
+* refusals: a paged int8 cache; sharded gradients without a mesh.
 
 ``repro.launch.hillclimb`` sets 512 host devices when imported; it is
 imported only after JAX has made its one device, and ``XLA_FLAGS`` is
@@ -41,6 +41,7 @@ from repro.models import common as jcm
 from repro.train import optimizer as jopt
 from repro_torch import configs as tcfgs
 from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.distributed import sharding as tsh
 from repro_torch.core import tree as ttr
 from repro_torch.kvcache import quant as tquant
 from repro_torch.launch import hillclimb as thc
@@ -472,7 +473,12 @@ def test_train_step_matches_jax(tiny):
     got = jax.tree_util.tree_leaves(params_to_numpy(tcfg, tp))
     want = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jp))
     assert max(float(np.abs(a - b).max()) for a, b in zip(got, want)) < 2e-4
-    with pytest.raises(NotImplementedError, match="Multi-GPU, part 4"):
+    # sharded gradients (FSDP, tests/test_torch_fsdp.py) take a spec tree
+    # from param_specs, which carries its mesh
+    mesh = tsh.DeviceMesh((2, 1), devices=["cpu"] * 2)
+    specs = tsh.param_specs(tsh.ShardingRules(mesh, fsdp=True), tp)
+    assert callable(tsteps.make_train_step(tcfg, grad_shardings=specs))
+    with pytest.raises(ValueError, match="param_specs"):
         tsteps.make_train_step(tcfg, grad_shardings={})
 
 

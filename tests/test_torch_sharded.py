@@ -569,31 +569,38 @@ def test_lock_step_generate_and_prefix_snapshot(tiny):
 def test_model_axis_and_unported_options_raise(tiny):
     """A ``model`` axis above 1 builds a tensor-parallel engine (the state
     and cross-attention families too, held in
-    ``tests/test_torch_family_tp.py``); what it does not carry yet raises
-    naming ROADMAP.md's 'Multi-GPU, part 4': the host tier (and on a
-    data-parallel mesh), shards on several devices, an int8 cache and
-    the launch steps' sharded gradients (the launch steps take no split:
-    they run whole weights)."""
+    ``tests/test_torch_family_tp.py``), and the settings that "Multi-GPU,
+    part 4" ported now build: the host tier under a model axis and on a
+    data axis, an int8 cache under tensor parallelism and the launch
+    steps' sharded gradients (held in ``tests/test_torch_mesh_tiers.py``,
+    ``tests/test_torch_mesh_launch.py`` and ``tests/test_torch_fsdp.py``).
+    What is left raises naming ROADMAP.md's 'Multi-GPU, part 4': model
+    shards on several devices, and the plain oracle under tensor
+    parallelism."""
     from repro_torch.distributed.tensor_parallel import TensorParallel
     from repro_torch.launch import steps as tsteps
     from repro_torch.models import api as tapi
     part4 = "ROADMAP.*'Multi-GPU, part 4'"
     assert _tengine(tiny, 4, mesh=_cpu_mesh(1, 2), paged=True).tp.m == 2
     for mesh in (_cpu_mesh(1, 2), _cpu_mesh(2)):
-        with pytest.raises(NotImplementedError, match=part4):
-            _tengine(tiny, 4, mesh=mesh, paged=True, tiered=True)
+        assert _tengine(tiny, 4, mesh=mesh, paged=True, tiered=True).tiered
     with pytest.raises(NotImplementedError, match=part4):
         _tengine(tiny, 4, mesh=tsh.DeviceMesh((1, 2),
                                               devices=["cpu", "meta"]))
     tcfg, tspec = tiny["targs"][:2]
-    with pytest.raises(NotImplementedError, match=part4):
-        tsteps.make_train_step(tcfg, grad_shardings={})
-    tp = TensorParallel(tcfg, tiny["targs"][3], ["cpu"] * 2)
-    cache = tapi.init_cache(tcfg, 1, 64, tspec, device="cpu")
+    tparams = tiny["targs"][3]
+    specs = tsh.param_specs(tsh.ShardingRules(_cpu_mesh(2), fsdp=True),
+                            tparams)
+    assert callable(tsteps.make_train_step(tcfg, grad_shardings=specs))
+    tp = TensorParallel(tcfg, tparams, ["cpu"] * 2)
+    cache = tapi.init_cache(tcfg, 1, 64, tspec, device="cpu", kv_shards=2)
     tok = torch.zeros((1, 4), dtype=torch.long)
     cache.update(k=cache["k"].to(torch.int8), v=cache["v"].to(torch.int8),
                  k_scale=cache["k"][..., 0], v_scale=cache["v"][..., 0])
+    out = tapi.decode(tcfg, tparams, tok[:, :1], cache["length"][:, None],
+                      cache, mode="full", spec=tspec, tp=tp)
+    assert out.new_kv[0].shape[0] == 2 * tcfg.num_layers
+    plain = tapi.init_cache(tcfg, 1, 64, tspec, device="cpu", kv_shards=2)
     with pytest.raises(NotImplementedError, match=part4):
-        tapi.decode(tcfg, tiny["targs"][3], tok[:, :1],
-                    cache["length"][:, None], cache, mode="full", spec=tspec,
-                    tp=tp)
+        tapi.prefill(tcfg, tparams, tok, plain, spec=tspec, plain=True,
+                     tp=tp)
