@@ -36,7 +36,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 3. greedy SpecPV ``generate`` of the paged zero-copy engine at the full
    width of llama3.1-8b (32 layers, random weights from a seed, batch 1,
    an 8192-token prompt, 128 new tokens), twice: eagerly over the first
-   16 tokens (``cuda_graphs=False``; slices 20 and 22 cut it from 128) and with
+   8 tokens (``cuda_graphs=False``; slices 20, 22 and 24 cut it from 128) and with
    the step variants and the 256-token prefill chunk replayed as CUDA
    graphs (the default, the main path), whose first tokens must equal
    the eager run's.  For each
@@ -62,7 +62,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 5. the state-architecture path: greedy chain-speculation ``generate`` of
    rwkv6-3b at full width (32 layers, d 2560, bf16, random weights,
    batch 1, an 8192-token prompt, 128 new tokens), eagerly over the
-   first 16 tokens (slices 21, 22 cut it from 128) and with graphs (the graph
+   first 8 tokens (slices 21, 22, 24 cut it from 128) and with graphs (the graph
    run's first tokens equal the eager run's), with the launch counts set to 0
    just before and read just after each (the WKV kernel must run 32 x
    (prefill chunks + 2 x steps) times), a profiled window of its steps
@@ -112,7 +112,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    contiguous cache, and K4's all-layer contiguous form at a max_len of
    8431 (not a multiple of the block), bit for bit.  (a) Full-width
    ``generate`` as in phase 3 on the contiguous engine, with graphs (128
-   new tokens, profiled) and eagerly (16 new tokens, a Refresh then
+   new tokens, profiled) and eagerly (8 new tokens, a Refresh then
    Partial steps, not profiled: phase 3 profiles the eager step): K1-K4
    launched as each run's steps and chunks imply (K4 once per prefill
    chunk and per commit over every layer), the eager tokens equal to the
@@ -248,8 +248,8 @@ Phases, in order (any failure raises and the script exits non-zero):
    depth (24 layers, 32 experts top-8, H 16 / Hk 8 / Dh 64, bf16, random
    weights from seed 0, the draft from seed 1).  (a) Phase 3's
    ``generate`` on the paged zero-copy pool (8192-token prompt, 128 new
-   tokens) with graphs and eagerly over the first 16 tokens (slices 21
-   and 22 cut it from 128): the eager tokens equal the graph run's first ones,
+   tokens) with graphs and eagerly over the first 8 tokens (slices 21,
+   22 and 24 cut it from 128): the eager tokens equal the graph run's first ones,
    K1-K4 launched as the steps and chunks imply, final summaries equal
    to the plain version, the graph run profiled (wall and device busy ms
    per step, idle share, host launch calls), the bodies under the sync
@@ -270,13 +270,13 @@ Phases, in order (any failure raises and the script exits non-zero):
    full width and depth (24 layers, 14/2 heads: 7 query heads per KV
    head, Dh 64, QKV bias, vocab 151936 tied): phase 3's ``generate`` on
    the paged zero-copy pool (8192-token prompt, 128 new tokens), with
-   graphs and eagerly over the first 16: equal tokens, each run's
+   graphs and eagerly over the first 8: equal tokens, each run's
    launch counts held to its steps, K1-K4 launched as
    the steps and chunks imply, the graph run profiled (wall and device
    busy ms per step, idle share, host launch calls, tokens/s, peak
    memory).  (b) deepseek-7b at full width and depth (30 layers, 32/32
    heads, Dh 128, vocab 102400 untied): the same cell with graphs,
-   eagerly over the first 16 tokens.  (c) granite-3-2b at full depth (40
+   eagerly over the first 8 tokens.  (c) granite-3-2b at full depth (40
    layers) and qwen1.5-32b at full width (40/40 heads with QKV bias,
    vocab 152064; all 64 layers if the weights, the pool and a margin fit
    the card's free memory, which is reckoned and printed first, else 48):
@@ -298,7 +298,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    d 2560, 10/1 heads of Dh 256, window 2048, bf16, random weights from
    seed 0, the draft from seed 1), batch 1, a 4096-token prompt (the
    window wraps twice), 64 new tokens: greedy chain ``generate`` with
-   graphs and eagerly over the first 16, equal tokens, no kernel of the port launched, the
+   graphs and eagerly over the first 8, equal tokens, no kernel of the port launched, the
    window holding the last token; tokens/s with the captures, prefill
    and capture seconds, peak memory; a profiled window of 3 graph steps
    (device busy ms, the five largest kernels, device launches, host
@@ -323,7 +323,7 @@ Phases, in order (any failure raises and the script exits non-zero):
    frames, vocab 51865 tied, bf16), batch 1, an 8192-token prompt (the
    registry's rope stands in for Whisper's 448 learned positions), 128
    new tokens: ``generate(extra=)`` with graphs and eagerly over the
-   first 16 (equal tokens), K1-K4 launched as each run's steps and
+   first 8 (equal tokens), K1-K4 launched as each run's steps and
    chunks imply over the 12 attention layers, final summaries against the
    plain version, the graph run profiled (device busy ms and launches
    per step, host launch calls, idle share with and without the
@@ -349,7 +349,7 @@ Phases, in order (any failure raises and the script exits non-zero):
 18. windowed dense stacks and context-parallel verification (slice 18).
    (a) llama3.1-8b at full width with ``window_size=4096`` (set by
    ``replace``), an 8192-token prompt, 48 new tokens, on the paged
-   zero-copy pool: ``generate`` with graphs and eagerly (16 tokens, the
+   zero-copy pool: ``generate`` with graphs and eagerly (8 tokens, the
    graph run's first; launch counts held to each run's steps and
    chunks: K2 none, the
    windowed prefill being the reference's plain chunked attention;
@@ -478,14 +478,18 @@ Phases, in order (any failure raises and the script exits non-zero):
    cases C1 and A2 at phase 19's cuts and B1 at 16 layers on (1, 2):
    graph == eager bit for bit, ms a step both ways beside phase 19's,
    state bytes against the reckoning.  (c) the launch train step at 4
-   layers of llama width over 2 x 512 tokens, unsharded and FSDP on (2,
-   1): ms a step, each shard's moment bytes, the bf16 loss difference
-   (reported).  (d) fp32 (TF32 off) at 2 layers: tiered lossless
-   ``generate`` on (1, 2) and (2, 1) == the unsharded tiered engine's ==
-   untiered, the unsharded tiered engine's tier counters on both meshes;
-   the int8 decode steps on (1, 2) give the unsharded
-   tokens; FSDP parameters after two steps within 2e-4 of the unsharded
-   step's.
+   layers of llama width over 2 x 512 tokens, and granite-moe-1b-a400m
+   at full width and depth (24 layers, bf16, random weights from seed 0)
+   over 2 x 768 tokens, whose MoE layers route over the whole batch
+   (dispatch group 0 spans both shards; slice 24), each unsharded and
+   FSDP on (2, 1): ms a step, each shard's moment bytes, the drops a
+   step, the bf16 loss difference (reported).  (d) fp32 (TF32 off) at 2
+   layers: tiered lossless ``generate`` on (1, 2) and (2, 1) == the
+   unsharded tiered engine's == untiered, the unsharded tiered engine's
+   tier counters on both meshes; the int8 decode steps on (1, 2) give
+   the unsharded tokens; FSDP parameters after two steps within 2e-4 of
+   the unsharded step's, llama's and granite's (2 x 768 tokens, its
+   drops a step equal to the unsharded step's).
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -513,8 +517,8 @@ PEAK_FP32_S = 67e12             # fp32 outside the tensor cores
 TOL_KERNEL = 1e-4
 PROMPT_LEN = 8192               # phase 3: the paper's long-context regime
 NEW_TOKENS = 128
-PHASE3_EAGER_NEW = 16           # phase 3's eager run: a Refresh, then Partial
-RWKV_EAGER_NEW = 16             # phase 5's eager run (slices 21, 22 cut it)
+PHASE3_EAGER_NEW = 8            # phase 3's eager run: a Refresh, then Partial
+RWKV_EAGER_NEW = 8              # phase 5's eager run (slices 21, 22, 24 cut it)
 # the prompt the sync checks prefill before the eager bodies run (the
 # bodies force their modes, so a short context serves)
 SYNC_CHECK_PROMPT = 1024
@@ -3114,7 +3118,7 @@ PAGED_GATHERED = dict(paged=True, zero_copy=False)
 # phase 3's max_len (request_token_need(8192, 128, 96, 6)): not a multiple
 # of the 128-token block, so the contiguous rows past it are padding
 CONTIG_MAX_LEN = 8431
-CONTIG_EAGER_NEW = 16       # phase 8's eager generate: a Refresh, then Partial
+CONTIG_EAGER_NEW = 8        # phase 8's eager generate: a Refresh, then Partial
 
 
 def _attn_work(q, vlen, t, causal_pairs=None):
@@ -5592,7 +5596,7 @@ REG_DEEP = "granite-3-2b"               # 40 layers, 32/8 heads, Dh 64
 REG_BIG = "qwen1.5-32b"                 # 40/40 heads, QKV bias, 64 layers
 REG_BIG_CUT = 48                        # its depth when 64 layers do not fit
 REG_SHORT, REG_SHORT_NEW = 2048, 32     # (c)'s prompt and new tokens
-REG_EAGER_NEW = 16                      # (b)'s eager run
+REG_EAGER_NEW = 8                       # (b)'s eager run
 REG_LOSSLESS_PROMPT, REG_LOSSLESS_NEW = 1024, 32
 REG_TRAIN_LAYERS, REG_TRAIN_SEQ = 4, 512
 # above the weights and the pool: graph pools, a step's transients and
@@ -5864,7 +5868,7 @@ def _registry_rwkv_train(torch, card):
 
 def phase_registry(torch, card):
     """Phase 15: (a) qwen2-0.5b's ``generate`` at full width and depth on
-    the paged zero-copy pool, with graphs (eager over the first 16
+    the paged zero-copy pool, with graphs (eager over the first 8
     tokens); (b) deepseek-7b's,
     with graphs (eager over the first tokens); (c) granite-3-2b at full
     depth and qwen1.5-32b at full width (its depth reckoned first), a
@@ -5948,7 +5952,7 @@ GRIFFIN = "recurrentgemma-2b"
 GRIFFIN_PROMPT = 4096       # the 2048-token window wraps twice
 GRIFFIN_NEW = 64
 GRIFFIN_PROFILE_STEPS = 3
-GRIFFIN_EAGER_NEW = 16      # (a)'s eager run (slice 22's cut)
+GRIFFIN_EAGER_NEW = 8       # (a)'s eager run (slices 22 and 24 cut it)
 GRIFFIN_LOSSLESS_LAYERS = 5     # one (rec, rec, attn) superblock + (rec, rec)
 GRIFFIN_LOSSLESS_PROMPT = 2304  # nine chunks, past the window
 GRIFFIN_LOSSLESS_NEW = 32
@@ -6266,7 +6270,7 @@ AUDIO = "whisper-small"                 # 12 + 12 layers, 12/12 heads, Dh 64
 VLM = "llama-3.2-vision-90b"            # 64/8 heads, Dh 128, cross every 5th
 XATTN_LAYOUT = dict(paged=True, zero_copy=True, prefix_cache=False)
 XATTN_PROFILE_STEPS = 4
-XATTN_EAGER_NEW = 16                    # (a)'s eager run (slice 22's cut)
+XATTN_EAGER_NEW = 8                     # (a)'s eager run (slices 22, 24 cut it)
 VLM_MARGIN_GIB = 6.0                    # the card left free at the depth run
 XATTN_LOSSLESS_PROMPT, XATTN_LOSSLESS_NEW = 2304, 32
 XATTN_LOSSLESS_LAYERS = 5               # the VLM's one superblock in fp32
@@ -6746,7 +6750,7 @@ def phase_vlm_audio(torch, card):
 
 WIN_SIZE = 4096                 # (a): the window, shorter than the prompt
 WIN_NEW = 48
-WIN_EAGER_NEW = 16              # the eager run: its prefill alone takes 19 s
+WIN_EAGER_NEW = 8               # the eager run: its prefill alone takes 19 s
 WIN_PROFILE_STEPS = 3
 WIN_FP32_LAYERS = 5
 WIN_FP32_PROMPT = 6144          # 24 chunks, past the window
@@ -8958,6 +8962,12 @@ MESH_FP32_PROMPT = 4700                 # (d): batch 2, past the budget
 MESH_FP32_NEW = 100                     # two refreshes: a prefetch hit
 MESH_FP32_INT8 = dict(seq=4000, steps=6)
 MESH_FP32_TRAIN_SEQ = 256
+# (c), (d): granite's FSDP batch, 1536 tokens: dispatch group 0 (1024
+# tokens) spans both shards, group 1 is a third zero rows
+MESH_MOE_ROWS, MESH_MOE_SEQ = 2, 768
+# (d): the FSDP moments' largest difference from the unsharded step's,
+# over each leaf's largest magnitude (fp32, TF32 off)
+MESH_MOMENT_TOL = 1e-3
 
 
 def _tier_managers(eng):
@@ -9119,35 +9129,29 @@ def _mesh_hillclimb(torch, card, p19):
     return out
 
 
-def _mesh_fsdp_train(torch, card, p19):
-    """(c): ``make_train_step`` at LAUNCH_TRAIN_LAYERS layers of llama
-    width (bf16, fp32 moments), a batch of MESH_TRAIN_ROWS rows of
-    LAUNCH_TRAIN_SEQ tokens, unsharded and FSDP on a (2, 1) mesh of
-    ``cuda:0`` (``grad_shardings=param_specs(ShardingRules(mesh,
-    fsdp=True), params)``) from the same init: ms a step (CUDA events,
-    the second of two), each shard's moment bytes, the loss difference
-    (bf16, reported), no kernel launched."""
+def _fsdp_pair(torch, cfg, tokens, seed):
+    """Two ``make_train_step`` steps over ``tokens``, unsharded and FSDP
+    on a (2, 1) mesh of ``cuda:0`` (``grad_shardings=param_specs(
+    ShardingRules(mesh, fsdp=True), params)``), each from
+    ``api.init_params`` at ``seed``: per run ms a step (CUDA events, the
+    second of two), the losses, each shard's moment bytes, peak GiB and
+    the MoE drops of each step (``blocks.MOE_DROPS``); no kernel is
+    launched."""
     import gc
     import math
-    from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as sh
     from repro_torch.kernels import ops
     from repro_torch.launch import steps as st
     from repro_torch.models import api
+    from repro_torch.models import blocks as bk
     from repro_torch.train.optimizer import adamw_init, tree_leaves
     dev = torch.device("cuda")
-    cfg = get_config("llama3.1-8b").replace(num_layers=LAUNCH_TRAIN_LAYERS)
-    g = torch.Generator(device=dev)
-    g.manual_seed(4)
-    tokens = torch.randint(0, cfg.vocab_size,
-                           (MESH_TRAIN_ROWS, LAUNCH_TRAIN_SEQ + 1),
-                           generator=g, device=dev)
     mesh = sh.DeviceMesh((2, 1), devices=["cuda:0"] * 2)
     runs = {}
     for label in ("unsharded", "fsdp (2, 1)"):
         gc.collect()
         torch.cuda.empty_cache()
-        params = api.init_params(cfg, seed=4, device=dev)
+        params = api.init_params(cfg, seed=seed, device=dev)
         specs = (sh.param_specs(sh.ShardingRules(mesh, fsdp=True), params)
                  if label != "unsharded" else None)
         step = st.make_train_step(cfg, grad_shardings=specs)
@@ -9155,20 +9159,26 @@ def _mesh_fsdp_train(torch, card, p19):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         ops.reset_launch_counts()
-        ms, losses = [], []
-        for _ in range(2):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            params, opt, loss = step(params, opt, tokens, None)
-            e1.record()
-            torch.cuda.synchronize()
-            ms.append(e0.elapsed_time(e1))
-            losses.append(float(loss))
+        bk.MOE_DROPS = torch.zeros((), dtype=torch.long, device=dev)
+        ms, losses, drops = [], [], []
+        try:
+            for _ in range(2):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                params, opt, loss = step(params, opt, tokens, None)
+                e1.record()
+                torch.cuda.synchronize()
+                ms.append(e0.elapsed_time(e1))
+                losses.append(float(loss))
+                drops.append(int(bk.MOE_DROPS))
+                bk.MOE_DROPS.zero_()
+        finally:
+            bk.MOE_DROPS = None
         if (not all(map(math.isfinite, losses))
                 or dict(ops.LAUNCHES) != _zero_launches() or opt.step != 2):
-            raise AssertionError(f"mesh train {label}: losses {losses}, "
-                                 f"launches {dict(ops.LAUNCHES)}")
+            raise AssertionError(f"mesh train {cfg.name} {label}: losses "
+                                 f"{losses}, launches {dict(ops.LAUNCHES)}")
         moments = ([sum(m.numel() * m.element_size()
                         for t in (opt.mu[c], opt.nu[c])
                         for m in tree_leaves(t)) for c in range(mesh.size)]
@@ -9176,12 +9186,35 @@ def _mesh_fsdp_train(torch, card, p19):
                    [sum(m.numel() * m.element_size()
                         for t in (opt.mu, opt.nu) for m in tree_leaves(t))])
         runs[label] = dict(ms=ms[1], first_ms=ms[0], losses=losses,
-                           moment_bytes=moments,
+                           moment_bytes=moments, drops=drops,
                            peak_gib=torch.cuda.max_memory_allocated()
                            / 2**30)
         del params, opt, step
     u, f = runs["unsharded"], runs["fsdp (2, 1)"]
-    diff = max(abs(a - b) for a, b in zip(u["losses"], f["losses"]))
+    runs["loss_diff"] = max(abs(a - b) for a, b in zip(u["losses"],
+                                                        f["losses"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _mesh_fsdp_train(torch, card, p19):
+    """(c): ``_fsdp_pair`` for the launch train step at
+    LAUNCH_TRAIN_LAYERS layers of llama width (bf16, fp32 moments) over
+    MESH_TRAIN_ROWS rows of LAUNCH_TRAIN_SEQ tokens, and for
+    granite-moe-1b-a400m at full width and depth (bf16, random weights
+    from seed 0) over MESH_MOE_ROWS rows of MESH_MOE_SEQ tokens, whose
+    dispatch group 0 spans both shards: ms a step, each shard's moment
+    bytes, the drops a step and the loss difference (bf16, reported)."""
+    from repro_torch.configs import get_config
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    cfg = get_config("llama3.1-8b").replace(num_layers=LAUNCH_TRAIN_LAYERS)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (MESH_TRAIN_ROWS, LAUNCH_TRAIN_SEQ + 1),
+                           generator=g, device="cuda")
+    runs = _fsdp_pair(torch, cfg, tokens, 4)
+    u, f = runs["unsharded"], runs["fsdp (2, 1)"]
     say(card, f"mesh train (c) llama3.1-8b width, {LAUNCH_TRAIN_LAYERS} "
               f"layers, {MESH_TRAIN_ROWS} x {LAUNCH_TRAIN_SEQ} tokens, bf16: "
               f"ms a step unsharded {u['ms']:.1f} (first {u['first_ms']:.1f})"
@@ -9189,13 +9222,97 @@ def _mesh_fsdp_train(torch, card, p19):
               f"moment bytes per shard {f['moment_bytes']} against "
               f"{u['moment_bytes'][0]} whole; peak GiB {u['peak_gib']:.2f} / "
               f"{f['peak_gib']:.2f}; losses {u['losses']} / {f['losses']} "
-              f"(largest difference {diff:.2e}, bf16, reported); no kernel "
-              f"launch; phase 19's 1-row step "
+              f"(largest difference {runs['loss_diff']:.2e}, bf16, "
+              f"reported); no kernel launch; phase 19's 1-row step "
               + (f"{p19['train']['ms']:.1f} ms" if p19 else "not run"))
-    runs["loss_diff"] = diff
-    gc.collect()
-    torch.cuda.empty_cache()
+    cfg = get_config(MOE_ARCH)
+    tokens = torch.randint(0, cfg.vocab_size, (MESH_MOE_ROWS,
+                                               MESH_MOE_SEQ + 1),
+                           generator=g, device="cuda")
+    moe = _fsdp_pair(torch, cfg, tokens, 0)
+    u, f = moe["unsharded"], moe["fsdp (2, 1)"]
+    pairs = MESH_MOE_ROWS * MESH_MOE_SEQ * cfg.experts_per_token
+    say(card, f"mesh train (c) {MOE_ARCH} {cfg.num_layers} layers, "
+              f"{MESH_MOE_ROWS} x {MESH_MOE_SEQ} tokens, bf16: ms a step "
+              f"unsharded {u['ms']:.1f} (first {u['first_ms']:.1f}), FSDP on "
+              f"(2, 1) {f['ms']:.1f} (first {f['first_ms']:.1f}): "
+              f"{f['ms'] / u['ms']:.2f}x; moment bytes per shard "
+              f"{f['moment_bytes']} against {u['moment_bytes'][0]} whole; "
+              f"peak GiB {u['peak_gib']:.2f} / {f['peak_gib']:.2f}; drops a "
+              f"step {u['drops']} / {f['drops']} of {pairs} pairs a layer "
+              f"x {cfg.num_layers}; losses {u['losses']} / {f['losses']} "
+              f"(largest difference {moe['loss_diff']:.2e}, bf16, "
+              f"reported); no kernel launch")
+    runs["moe"] = moe
     return runs
+
+
+def _moment_err(torch, whole, sharded, specs):
+    """The largest difference of the FSDP step's AdamW moments
+    (``sharded``, one tree per mesh device) from the unsharded step's
+    (``whole``, held on the host), each leaf's over the largest magnitude
+    of its whole moment.  The moments hold the gradients themselves,
+    unlike the parameters, whose first steps' change AdamW's
+    normalisation bounds by the learning rate: a lost, halved or flipped
+    gradient shows here."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train.optimizer import tree_leaves
+    mesh = specs.rules.mesh
+    sps = sh.spec_leaves(specs)
+    err = 0.0
+    for mw, ms in ((whole.mu, sharded.mu), (whole.nu, sharded.nu)):
+        per_dev = [tree_leaves(ms[c]) for c in range(mesh.size)]
+        for i, (f, sp) in enumerate(zip(tree_leaves(mw), sps)):
+            f = f.to(per_dev[0][i].device)
+            top = float(f.abs().max())
+            for c in range(mesh.size):
+                piece = sh.shard_leaf(f, sp, mesh, mesh.coords(c))
+                diff = float((per_dev[c][i].to(f.device) - piece).abs().max())
+                err = max(err, diff / top if top > 0 else diff)
+            del f
+    return err
+
+
+def _fsdp_final(torch, cfg, params, batches):
+    """Two steps over ``batches`` from copies of ``params``, unsharded
+    and FSDP on (2, 1) of ``cuda:0``: (the largest parameter difference,
+    ``_moment_err`` of the moments, {label: the MoE drops of each
+    step})."""
+    import gc
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import steps as st
+    from repro_torch.models import blocks as bk
+    from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
+    final, opts, drops = {}, {}, {}
+    for label in ("unsharded", "fsdp"):
+        p = tree_map(lambda x, stacked: x.clone(), params)
+        specs = (sh.param_specs(sh.ShardingRules(sh.DeviceMesh(
+            (2, 1), devices=["cuda:0"] * 2), fsdp=True), p)
+            if label == "fsdp" else None)
+        step = st.make_train_step(cfg, grad_shardings=specs)
+        opt = adamw_init(p)
+        bk.MOE_DROPS = torch.zeros((), dtype=torch.long, device="cuda")
+        drops[label] = []
+        try:
+            for b in batches:
+                p, opt, _ = step(p, opt, b, None)
+                drops[label].append(int(bk.MOE_DROPS))
+                bk.MOE_DROPS.zero_()
+        finally:
+            bk.MOE_DROPS = None
+        final[label] = tree_leaves(p)
+        # the unsharded moments wait on the host: both sets of moments
+        # and the FSDP step do not fit the card beside llama's fp32 leaves
+        opts[label] = (opt if label == "fsdp" else opt._replace(
+            mu=tree_map(lambda m, stacked: m.cpu(), opt.mu),
+            nu=tree_map(lambda m, stacked: m.cpu(), opt.nu)))
+        del p, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    err = max(float((a - b).abs().max())
+              for a, b in zip(final["unsharded"], final["fsdp"]))
+    m_err = _moment_err(torch, opts["unsharded"], opts["fsdp"], specs)
+    return err, m_err, drops
 
 
 def _mesh_fp32(torch, card):
@@ -9206,7 +9323,11 @@ def _mesh_fp32(torch, card):
     tiered engine's tier counters on both meshes; the int8 decode
     step (``hillclimb.make_decode_step_int8``, full and partial) on
     (1, 2) gives the unsharded step's tokens; two FSDP train steps on
-    (2, 1) leave the parameters within 2e-4 of the unsharded step's."""
+    (2, 1) leave the parameters within 2e-4 of the unsharded step's and
+    the AdamW moments within MESH_MOMENT_TOL of each leaf's largest
+    (``_moment_err``), for llama3.1-8b and for granite-moe-1b-a400m over
+    MESH_MOE_ROWS x MESH_MOE_SEQ tokens, whose drops a step equal the
+    unsharded step's (and are above 0: capacity binds)."""
     import gc
     import numpy as np
     from repro_torch.configs import DraftConfig, SpecPVConfig, get_config
@@ -9217,9 +9338,7 @@ def _mesh_fp32(torch, card):
                                                          split_heads)
     from repro_torch.kvcache.quant import quantize_kv
     from repro_torch.launch import hillclimb as hc
-    from repro_torch.launch import steps as st
     from repro_torch.models import api
-    from repro_torch.train.optimizer import adamw_init, tree_leaves, tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -9329,35 +9448,43 @@ def _mesh_fp32(torch, card):
     g.manual_seed(41)
     batches = [torch.randint(0, cfg.vocab_size, (2, MESH_FP32_TRAIN_SEQ + 1),
                              generator=g, device="cuda") for _ in range(2)]
-    final = {}
-    for label in ("unsharded", "fsdp"):
-        p = tree_map(lambda x, stacked: x.clone(), params)
-        specs = (sh.param_specs(sh.ShardingRules(sh.DeviceMesh(
-            (2, 1), devices=["cuda:0"] * 2), fsdp=True), p)
-            if label == "fsdp" else None)
-        step = st.make_train_step(cfg, grad_shardings=specs)
-        opt = adamw_init(p)
-        for b in batches:
-            p, opt, _ = step(p, opt, b, None)
-        final[label] = tree_leaves(p)
-        del p, opt, step
-        gc.collect()
-        torch.cuda.empty_cache()
-    err = max(float((a - b).abs().max())
-              for a, b in zip(final["unsharded"], final["fsdp"]))
-    del final
-    if not err <= 2e-4:
+    err, m_err, _ = _fsdp_final(torch, cfg, params, batches)
+    del params
+    if not (err <= 2e-4 and m_err <= MESH_MOMENT_TOL):
         raise AssertionError(f"mesh fp32 (d): FSDP parameters {err:.3e} "
-                             f"from the unsharded step's")
+                             f"from the unsharded step's, moments "
+                             f"{m_err:.3e} of their largest")
+    # granite's: the whole batch's routing, drops and aux loss
+    mcfg = get_config(MOE_ARCH).replace(
+        num_layers=MESH_FP32_LAYERS, dtype="float32", param_dtype="float32")
+    batches = [torch.randint(0, mcfg.vocab_size,
+                             (MESH_MOE_ROWS, MESH_MOE_SEQ + 1), generator=g,
+                             device="cuda") for _ in range(2)]
+    moe_err, moe_m_err, drops = _fsdp_final(
+        torch, mcfg, api.init_params(mcfg, seed=0, device="cuda"), batches)
+    if not (moe_err <= 2e-4 and moe_m_err <= MESH_MOMENT_TOL
+            and drops["fsdp"] == drops["unsharded"]
+            and all(drops["unsharded"])):
+        raise AssertionError(f"mesh fp32 (d): {MOE_ARCH} FSDP parameters "
+                             f"{moe_err:.3e} from the unsharded step's, "
+                             f"moments {moe_m_err:.3e} of their largest, "
+                             f"drops {drops} (equal and above 0 asserted)")
     secs["fsdp"] = time.perf_counter() - t0 - secs["tiers"] - secs["int8"]
     say(card, f"mesh fp32 (d) FSDP on (2, 1): parameters after 2 steps "
-              f"within {err:.2e} of the unsharded step's (2e-4 asserted); "
+              f"within {err:.2e} of the unsharded step's, moments within "
+              f"{m_err:.2e} of their largest (llama3.1-8b x"
+              f"{MESH_FP32_LAYERS}, 2 x {MESH_FP32_TRAIN_SEQ}), and "
+              f"{moe_err:.2e}, {moe_m_err:.2e} ({MOE_ARCH} x"
+              f"{MESH_FP32_LAYERS}, {MESH_MOE_ROWS} x {MESH_MOE_SEQ}, drops "
+              f"a step {drops['fsdp']} == unsharded {drops['unsharded']}) "
+              f"(2e-4 and {MESH_MOMENT_TOL:.0e} asserted); "
               f"{secs['fsdp']:.1f} s; (d) took "
               f"{time.perf_counter() - t0:.1f} s")
-    del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(tiers=tiers, fsdp_max_abs_err=err, seconds=secs)
+    return dict(tiers=tiers, fsdp_max_abs_err=err, fsdp_moment_err=m_err,
+                moe_fsdp_max_abs_err=moe_err, moe_fsdp_moment_err=moe_m_err,
+                moe_drops=drops, seconds=secs)
 
 
 def phase_mesh_tiers(torch, card, p13=None, p19=None):
@@ -9424,7 +9551,8 @@ def main(argv=None) -> int:
                          "parallelism over a (1, 2) mesh), 22 (the state "
                          "and cross-attention families on (1, 2) and (2, "
                          "1) meshes), 23 (the host tier, the int8 cache "
-                         "and FSDP training under a mesh); 1 and 12 always "
+                         "and FSDP training, MoE targets included, under a "
+                         "mesh); 1 and 12 always "
                          "run")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",") if p}

@@ -29,16 +29,18 @@ run whole weights.
 ``make_train_step(grad_shardings=)`` trains FSDP over a mesh's data axes:
 ``grad_shardings`` is ``distributed.sharding.param_specs(ShardingRules(
 mesh, fsdp=True), params)``.  Each data shard takes its rows of the batch
-and computes their loss and gradients on its device; each gradient is
+and computes their loss and gradients on its device (one backward pass
+of the batch's loss, ``api.sharded_train_loss``); each gradient is
 summed over the data shards (``tensor_parallel.all_reduce``) and cut to
 every mesh device's slice (``shard_leaf``), where that device's AdamW
 moments live (``train.optimizer.ShardedMoments``); each device updates
 its slice of the parameters, and the slices are written back into the
 caller's tensors.  The loss is the whole batch's mean (each shard's mean
 weighted by its tokens), and the global-norm clip sums the squares of
-every distinct slice once.  An MoE target raises NotImplementedError: its
-routing and aux loss are computed per group of the tokens a layer is
-given, so a shard's rows would not give the whole batch's loss.
+every distinct slice once.  A target with experts routes over the whole
+batch: an MoE layer's groups, capacity, drops and aux loss are those of
+the unsharded step, each shard still running only its rows on its
+device.
 """
 from __future__ import annotations
 
@@ -57,23 +59,25 @@ from repro_torch.train.optimizer import (OptState, ShardedMoments,
                                          tree_leaves, tree_map)
 
 
-def _loss_and_grads(cfg: ModelConfig, params, tokens, extra):
-    """(loss, gradient tree) of ``api.train_loss``; the parameters'
-    ``requires_grad`` is set for the pass and restored after it."""
-    leaves = tree_leaves(params)
+def _loss_and_grads(loss_fn, trees):
+    """(loss, a gradient tree per tree) of ``loss_fn()`` under autograd;
+    the trees' ``requires_grad`` is set for the pass and restored after
+    it."""
+    leaves = [p for tree in trees for p in tree_leaves(tree)]
     was = [p.requires_grad for p in leaves]
     try:
         for p in leaves:
             p.requires_grad_(True)
         with torch.enable_grad():
-            loss, _ = api.train_loss(cfg, params, tokens, extra=extra)
+            loss = loss_fn()
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for p, w in zip(leaves, was):
             p.requires_grad_(w)
     by_id = {id(p): (g if g is not None else torch.zeros_like(p))
              for p, g in zip(leaves, grads)}
-    return loss.detach(), tree_map(lambda p, stacked: by_id[id(p)], params)
+    return loss.detach(), [tree_map(lambda p, stacked: by_id[id(p)], tree)
+                           for tree in trees]
 
 
 def make_train_step(cfg: ModelConfig, grad_shardings=None):
@@ -90,7 +94,9 @@ def make_train_step(cfg: ModelConfig, grad_shardings=None):
         return _fsdp_train_step(cfg, grad_shardings, unstacked)
 
     def step(params, opt, tokens, extra):
-        loss, grads = _loss_and_grads(cfg, params, tokens, extra)
+        loss, (grads,) = _loss_and_grads(
+            lambda: api.train_loss(cfg, params, tokens, extra=extra)[0],
+            [params])
         grads, _ = clip_by_global_norm(grads, 1.0)
         lr = cosine_schedule(opt.step, base_lr=3e-4, warmup=100, total=10000)
         params, opt = adamw_update(params, grads, opt, lr=lr,
@@ -101,12 +107,6 @@ def make_train_step(cfg: ModelConfig, grad_shardings=None):
 
 
 def _fsdp_train_step(cfg: ModelConfig, specs, unstacked: int):
-    if cfg.num_experts:
-        # an MoE layer's capacity, drops and aux loss depend on the
-        # groups of tokens it is given: half a batch forms other groups
-        raise NotImplementedError(
-            "FSDP for an MoE target needs its routing and aux loss over "
-            "the whole batch: ROADMAP.md queue 1, 'Multi-GPU, part 4'")
     rules = getattr(specs, "rules", None)
     if rules is None:
         raise ValueError("grad_shardings must be a spec tree from "
@@ -136,20 +136,23 @@ def _fsdp_train_step(cfg: ModelConfig, specs, unstacked: int):
                            shard_moments(opt.nu, specs, mesh))
         rows = b // d_n
         leaves = tree_leaves(params)
-        # each data shard's rows: their loss and gradients on its device,
-        # weighted by the shard's share of the batch's tokens
-        losses, grads = [], []
+        shards = []
         for d in range(d_n):
             dev = shard_dev[d]
-            replica = tree_map(lambda p, stacked: p.detach().to(dev),
-                               params)
             part = slice(d * rows, (d + 1) * rows)
-            ex = (None if extra is None else
-                  {k: v[part].to(dev) for k, v in extra.items()})
-            loss, g = _loss_and_grads(cfg, replica, tokens[part].to(dev), ex)
-            w = rows / b
-            losses.append(loss * w)
-            grads.append([x.mul_(w) for x in tree_leaves(g)])
+            shards.append((
+                tree_map(lambda p, stacked: p.detach().to(dev), params),
+                tokens[part].to(dev),
+                None if extra is None else
+                {k: v[part].to(dev) for k, v in extra.items()}))
+        # one loss over the shards (an MoE target's routing couples
+        # them) and one backward pass: each replica's gradients are its
+        # rows' share
+        total, g = _loss_and_grads(
+            lambda: api.sharded_train_loss(cfg, shards)[0],
+            [r for r, _, _ in shards])
+        grads = [tree_leaves(x) for x in g]
+        del shards
         # every leaf's sum over the data shards, on each shard's device
         sums = [all_reduce([grads[d][i] for d in range(d_n)])
                 for i in range(len(leaves))]
@@ -193,9 +196,6 @@ def _fsdp_train_step(cfg: ModelConfig, specs, unstacked: int):
                                           ow):
                     if own:
                         shard_leaf(p, sp, mesh, co).copy_(sl)
-        total = losses[0]
-        for x in losses[1:]:
-            total = total + x.to(total.device)
         return params, OptState(opt.step + 1, opt.mu, opt.nu), total
 
     return step

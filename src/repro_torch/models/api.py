@@ -9,6 +9,7 @@ Griffin state architectures):
   decode(cfg, params, tokens, positions, cache, ...) -> DecodeOut
   advance(cfg, params, tokens, cache, valid)   -> cache   (ssm, hybrid)
   train_loss(cfg, params, tokens, extra=...)   -> (loss, metrics)
+  sharded_train_loss(cfg, shards)              -> (loss, metrics)
 
 Attention archs expose the SpecPV verification modes through
 ``decode(mode=...)``; the state archs do read-only chain verification
@@ -27,6 +28,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig, SpecPVConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import blocks as bk
 from repro_torch.models import common as cm
 from repro_torch.models import dense as dn
 from repro_torch.models import griffin as gf
@@ -388,7 +390,8 @@ def chunked_lm_loss(cfg: ModelConfig, params, h, labels, *,
     return nll / max(b * t, 1)
 
 
-def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
+def train_loss(cfg: ModelConfig, params, tokens, *, extra=None,
+               moe_routes=None):
     """Next-token LM loss over a [B, S] token batch.  Dense, MoE, VLM and
     audio targets: the trunk's train mode (a VLM or audio target's cross
     layers over the encoder states of ``extra``, which it needs; other
@@ -399,7 +402,11 @@ def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
     recurrence is the plain chunked step loop, ``rwkv6.wkv_train``), then
     ``chunked_lm_loss``; returns (loss, {"lm_loss"}).  Griffin: the
     trunk's train mode (windowed attention, the RG-LRU as the chunked
-    plain scan), then ``chunked_lm_loss``; returns (loss, {"lm_loss"})."""
+    plain scan), then ``chunked_lm_loss``; returns (loss, {"lm_loss"}).
+    ``moe_routes`` (``dense.trunk_fwd``): the tokens are one data shard
+    of a larger batch, and the call returns (lm, {"lm_loss",
+    "moe_stats"}): the aux loss is the whole batch's
+    (``sharded_train_loss``)."""
     b, s = tokens.shape
     inp, lbl = tokens[:, :-1], tokens[:, 1:]
     if cfg.arch_type == "ssm":
@@ -422,7 +429,59 @@ def train_loss(cfg: ModelConfig, params, tokens, *, extra=None):
         enc = _encoder_out(cfg, params, extra)
     h = dn.embed_tokens(cfg, params, inp)
     out = dn.trunk_fwd(cfg, params["layers"], h, positions, mode="train",
-                       collect_features=False, encoder_out=enc)
+                       collect_features=False, encoder_out=enc,
+                       moe_routes=moe_routes)
     lm = chunked_lm_loss(cfg, params, out.h, lbl)
+    if moe_routes is not None:
+        return lm, {"lm_loss": lm, "moe_stats": out.moe_stats}
     loss = lm + cfg.moe_aux_loss_coef * out.aux_loss
     return loss, {"lm_loss": lm, "aux_loss": out.aux_loss}
+
+
+def sharded_train_loss(cfg: ModelConfig, shards):
+    """``train_loss`` of a batch held as data shards: ``shards`` is a
+    list of (params, tokens [rows, S+1], extra) in the batch's row order,
+    each on its shard's device.  Each shard's LM loss is weighted by its
+    share of the rows.  An MoE target routes every layer over the whole
+    batch: the shards run in order, shard d + 1 starting each group's
+    per-expert count from the assignments of the shards before it (a
+    fresh tensor each, so a layer's recompute reads what its forward
+    read), and the aux loss is formed once from every shard's per-group
+    sums (``blocks.moe_aux``), so its gradient reaches each shard's
+    router through the whole batch's top-1 counts.  Every shard's graph
+    is held until the caller's backward pass.  Returns (loss, {"lm_loss",
+    "aux_loss"}) on the first shard's device, ``train_loss``'s numbers
+    for the whole batch."""
+    b = sum(tok.shape[0] for _, tok, _ in shards)
+    t = shards[0][1].shape[1] - 1
+    n = b * t
+    dev0 = shards[0][1].device
+    moe = [i for i, lp in enumerate(shards[0][0].get("layers", ()))
+           if "moe" in lp]
+    g, ng = bk.moe_groups(n)
+    # per MoE layer: each group's assignments so far, per expert
+    seen = {i: torch.zeros((ng, cfg.num_experts), dtype=torch.int32,
+                           device=dev0) for i in moe}
+    lm = torch.zeros((), dtype=torch.float32, device=dev0)
+    stats = {i: [] for i in moe}
+    offset = 0
+    for params, tokens, extra in shards:
+        rows, dev = tokens.shape[0], tokens.device
+        g0, g1 = offset // g, (offset + rows * t - 1) // g + 1
+        routes = None
+        if moe:
+            routes = [None] * len(params["layers"])
+            for i in moe:
+                routes[i] = bk.MoeRoute(n, offset,
+                                        seen[i][g0:g1].to(dev, copy=True))
+        lm_d, m = train_loss(cfg, params, tokens, extra=extra,
+                             moe_routes=routes)
+        lm = lm + lm_d.to(dev0) * (rows / b)
+        for i, st in zip(moe, m.get("moe_stats", ())):
+            stats[i].append(st)
+            # out of place: earlier routes keep the counts they were given
+            seen[i] = torch.cat([seen[i][:g0], seen[i][g0:g1]
+                                 + st.assignments().to(dev0), seen[i][g1:]])
+        offset += rows * t
+    aux = bk.moe_aux(cfg, n, [stats[i] for i in moe], dev0)
+    return lm + cfg.moe_aux_loss_coef * aux, {"lm_loss": lm, "aux_loss": aux}

@@ -600,12 +600,13 @@ def _self_attention(cfg: ModelConfig, mode: str, lp: Dict, h, positions,
     return bk.attn_output(cfg, lp["attn"], out), upd, q
 
 
-def _mlp_or_moe(cfg: ModelConfig, lp: Dict, h, aux: bool = False):
-    """The layer's MLP sublayer: (y, its MoE aux loss; None for a dense
-    layer or when ``aux`` is not asked for)."""
+def _mlp_or_moe(cfg: ModelConfig, lp: Dict, h,
+                route: Optional[bk.MoeRoute] = None):
+    """The layer's MLP sublayer: (y, the MoE layer's ``MoeStats``; None
+    for a dense layer)."""
     x = cm.rmsnorm(h, lp["norm2"], cfg.norm_eps)
     if "moe" in lp:
-        return bk.moe_fwd(cfg, lp["moe"], x, aux=aux)
+        return bk.moe_fwd(cfg, lp["moe"], x, route=route)
     return bk.mlp_fwd(cfg, lp["mlp"], x), None
 
 
@@ -613,14 +614,18 @@ def _mlp_or_moe_tp(tp, i: int, lp: Dict, h):
     """Layer ``i``'s MLP or MoE sublayer under tensor parallelism: the
     norm once, then each shard's columns and rows (the MoE: the router
     and dispatch once, each shard's experts, ``blocks.moe_fwd``) and one
-    sum; a block that does not split runs once, whole."""
+    sum; a block that does not split runs once, whole.  The MoE's drops
+    are counted (``blocks.count_drops``)."""
     if not (tp.moe_split if "moe" in lp else tp.mlp_split):
-        return _mlp_or_moe(tp.cfg, lp, h)[0]
+        y, st = _mlp_or_moe(tp.cfg, lp, h)
+        bk.count_drops(st)
+        return y
     x = cm.rmsnorm(h, lp["norm2"], tp.cfg.norm_eps)
     if "moe" in lp:
         ps = [sh.params["layers"][i]["moe"] for sh in tp.shards]
-        return bk.moe_fwd(tp.cfg, lp["moe"], x, aux=False,
-                          expert_shards=(tp, ps))[0]
+        y, st = bk.moe_fwd(tp.cfg, lp["moe"], x, expert_shards=(tp, ps))
+        bk.count_drops(st)
+        return y
     return tp.map_reduce(lambda sh: bk.mlp_fwd(
         sh.cfg, sh.params["layers"][i]["mlp"], x.to(sh.device)))
 
@@ -709,15 +714,15 @@ def write_cross_kv(cfg: ModelConfig, layers: List[Dict], cross_k, cross_v,
 
 def _train_layer(cfg: ModelConfig, lp: Dict, h, positions, inv_freq,
                  mscale, encoder_out=None, *, kind: str = "attn",
-                 causal: bool = True):
+                 causal: bool = True, route: Optional[bk.MoeRoute] = None):
     """One stateless layer of the train (``causal``) or encode mode: the
     self-attention over the sequence (``cm.flash_attention``, the
     reference's KV tile of ``min(512, max(128, T))`` keys and query
     tiles of 512; causal attention keeps ``cfg.window_size``) of an
     ``attn`` or ``dec`` layer, the cross-attention over ``encoder_out``
     of a ``cross`` or ``dec`` layer (a ``cross`` layer's tanh-gated),
-    then the MLP or MoE (gated in a ``cross`` layer).  Returns (h, the
-    layer's aux loss)."""
+    then the MLP or MoE (gated in a ``cross`` layer; an MoE under
+    ``route``).  Returns (h, the MoE layer's ``MoeStats`` or None)."""
     if kind in ("attn", "dec"):
         x = cm.rmsnorm(h, lp["norm1"], cfg.norm_eps)
         q = bk.project_q(cfg, lp["attn"], x, positions, inv_freq, mscale)
@@ -733,10 +738,10 @@ def _train_layer(cfg: ModelConfig, lp: Dict, h, positions, inv_freq,
         xo = _cross_attention(cfg, lp, h,
                               compute_cross_kv(cfg, lp, encoder_out))
         h = h + (_gate(lp["gate_attn"], h) * xo if kind == "cross" else xo)
-    m, aux = _mlp_or_moe(cfg, lp, h, aux=True)
+    m, stats = _mlp_or_moe(cfg, lp, h, route=route)
     if kind == "cross":
         m = _gate(lp["gate_mlp"], h) * m
-    return h + m, aux
+    return h + m, stats
 
 
 # ---------------------------------------------------------------------------
@@ -752,6 +757,8 @@ class TrunkOut:
     queries: Any = None             # [L, B, T, H, Dh] when emit_queries
     aux_loss: Any = None            # fp32 scalar, the MoE load balance
                                     # summed over layers (train mode)
+    moe_stats: Any = None           # each MoE layer's MoeStats (train
+                                    # mode)
     partial: Any = None             # (pk, pv, ppos) [L, B, Hk, P, ...]
                                     # with select_partial
 
@@ -770,7 +777,7 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
               plain: bool = False, t_valid=None, encoder_out=None,
               kinds: Optional[Tuple[str, ...]] = None,
               select_partial: bool = False, q_weight=None,
-              tp=None) -> TrunkOut:
+              tp=None, moe_routes=None) -> TrunkOut:
     """Run the layer stack (see module docstring for modes).
 
     cache: paged {"k","v" [L,NP,bs,Hk,Dh], "kmax","kmin" [L,NP,Hk,Dh],
@@ -792,7 +799,13 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
     (prefill only): a ragged chunk; pads write no K/V, no summary and do
     not advance ``length``.  ``encoder_out`` [B, Te, d]: the encoder
     states the train and encode modes' cross layers read.  ``kinds``:
-    the layers' kinds (default ``cfg.layer_kinds()``).
+    the layers' kinds (default ``cfg.layer_kinds()``).  ``moe_routes``
+    (train mode, one ``blocks.MoeRoute`` per layer, None for a dense
+    one): the tokens are one data shard of a larger batch, and
+    ``aux_loss`` is None (``api.sharded_train_loss`` forms it from
+    ``moe_stats``); without it each MoE layer routes the whole batch.
+    The MoE layers' drops are counted here, once per forward, not again
+    when a layer is recomputed in the backward pass.
 
     ``tp`` (``distributed.tensor_parallel.TensorParallel``, cache modes
     only, every shard on one device): each layer runs its attention on
@@ -816,23 +829,31 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
         _check_dense(cfg)
         feats = [None, None, None]
         remat = cfg.remat and torch.is_grad_enabled()
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        n = h.shape[0] * h.shape[1]
+        stats = []
         for i, (kind, lp) in enumerate(zip(kinds, layers)):
             if kind in ("cross", "dec") and encoder_out is None:
                 raise ValueError(f"{cfg.name}: a {kind} layer reads encoder "
                                  f"states; pass the request's `extra`")
             args = (cfg, lp, h, positions, inv_freq, mscale, encoder_out)
-            kw = dict(kind=kind, causal=mode == "train")
-            h, aux_l = (torch.utils.checkpoint.checkpoint(
+            # the route is an input of the checkpointed call: the
+            # recompute reads the prefix the forward read
+            kw = dict(kind=kind, causal=mode == "train",
+                      route=None if moe_routes is None else moe_routes[i])
+            h, st = (torch.utils.checkpoint.checkpoint(
                 _train_layer, *args, use_reentrant=False, **kw) if remat
                 else _train_layer(*args, **kw))
-            if aux_l is not None:
-                aux = aux + aux_l
+            bk.count_drops(st)
+            if st is not None:
+                stats.append(st)
             for slot, tgt in enumerate((f_lo, f_mi, f_hi)):
                 if collect_features and i == tgt:
                     feats[slot] = h
+        aux = (None if moe_routes is not None else
+               bk.moe_aux(cfg, n, [[st] for st in stats], h.device))
         return TrunkOut(h=h, features=tuple(feats) if collect_features
-                        else None, cache=None, new_kv=None, aux_loss=aux)
+                        else None, cache=None, new_kv=None, aux_loss=aux,
+                        moe_stats=stats)
     if tp is not None:
         if plain:
             raise NotImplementedError(
@@ -931,8 +952,11 @@ def trunk_fwd(cfg: ModelConfig, layers: List[Dict], h, positions, *,
         # the MoE routes every row of the padded [B, T] input, pads too,
         # as the reference does: pads earlier in the flattened order take
         # expert capacity from real tokens after them
-        m = (_mlp_or_moe(cfg, lp, h)[0] if tp is None
-             else _mlp_or_moe_tp(tp, i, lp, h))
+        if tp is None:
+            m, st = _mlp_or_moe(cfg, lp, h)
+            bk.count_drops(st)
+        else:
+            m = _mlp_or_moe_tp(tp, i, lp, h)
         h = h + (_gate(lp["gate_mlp"], h) * m if kind == "cross" else m)
         if collect_features:
             for slot, tgt in enumerate((f_lo, f_mi, f_hi)):

@@ -9,7 +9,8 @@ in fp32, weights converted from the JAX parameters with
 * ``blocks.moe_fwd`` against the reference's: one binding-capacity group
   with dropped pairs, and a multi-group stream (zero-padded groups of
   1024): the output within 1e-5 of its largest magnitude, the same kept
-  (token, slot) pairs, the aux loss within 1e-6 relative.
+  (token, slot) pairs of the real tokens, the aux loss
+  (``blocks.moe_aux``) within 1e-6 relative.
 * ``api.prefill`` and ``decode`` logits within 1e-4.
 * ``SpecPVEngine.generate`` with partial verification gives the JAX
   engine's tokens and mode counts on the three layouts (contiguous
@@ -164,7 +165,8 @@ def test_moe_fwd_matches_jax(setup, shape):
     x = (3.0 * rng.standard_normal((1, 1, cfg.d_model))
          + rng.standard_normal((b, t, cfg.d_model))).astype(np.float32)
     jy, jaux = jbk.moe_fwd(cfg, p, jnp.asarray(x))
-    ty, taux = tbk.moe_fwd(tcfg, tp, torch.as_tensor(x))
+    ty, st = tbk.moe_fwd(tcfg, tp, torch.as_tensor(x))
+    taux = tbk.moe_aux(tcfg, b * t, [[st]], "cpu")
     jy = np.asarray(jy)
     assert np.abs(ty.numpy() - jy).max() <= 1e-5 * np.abs(jy).max()
     assert abs(float(taux) / float(jaux) - 1) < 1e-6
@@ -173,14 +175,13 @@ def test_moe_fwd_matches_jax(setup, shape):
     xg = np.zeros((ng * g, cfg.d_model), np.float32)
     xg[:n] = x.reshape(n, -1)
     xg = xg.reshape(ng, g, -1)
-    _, _, keep = tbk._moe_groups_fwd(tcfg, tp, torch.as_tensor(xg), 1.25)
     want = _reference_keep(cfg, p, xg)
-    np.testing.assert_array_equal(keep.numpy(), want)
     real = want.reshape(-1)[: n * cfg.experts_per_token]
+    np.testing.assert_array_equal(st.keep.numpy(), real)
     assert not real.all(), "capacity must bind: some pairs dropped"
     tbk.MOE_DROPS = torch.zeros((), dtype=torch.long)
     try:
-        tbk.moe_fwd(tcfg, tp, torch.as_tensor(x))
+        tbk.count_drops(st)
         assert int(tbk.MOE_DROPS) == int((~real).sum())
     finally:
         tbk.MOE_DROPS = None
